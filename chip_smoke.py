@@ -1,0 +1,463 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port's serving path on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure raises and exits non-zero before the last line):
+  1. device   — requires CUDA; prints nvidia-smi's name and power limit.
+  2. build    — compiles the hand-written kernels from ``prime_rl_tpu_torch/csrc``.
+  3. kernels  — K1 flash_attn_fwd, K3 decode_qkv_prep and K4 decode_paged_attention
+                at the Qwen3-0.6B shapes of the serving path, each held against
+                its plain PyTorch version (computed in float32 on the same bf16
+                inputs) and timed beside the plain version, a one-call PyTorch
+                yardstick where one exists, and the bound of the H100 (SXM data
+                sheet: 3.35 TB/s, 989 TFLOP/s dense bf16).
+  4. reference — the served model's prefill and decode logits through the
+                kernels against a plain float32 forward on the CPU.
+  5. serving  — the port's inference server (Qwen3-0.6B, all 28 layers, full
+                vocabulary, random weights from a seed, byte tokenizer) answers
+                16 concurrent /inference/v1/generate requests, a /v1/completions
+                request and a streaming /v1/chat/completions request over HTTP;
+                greedy requests are deterministic; every kernel was launched.
+Then one JSON line with every kernel's numbers, and the result line.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import os
+import socket
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
+PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s
+MODEL = "Qwen/Qwen3-0.6B"
+SEED = 0
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3, flush=None) -> float:
+    """Median device time of one call: CUDA events around each call, queued
+    behind a sleep kernel so host overhead stays out of the measurement;
+    ``flush`` (a large tensor zeroed before each call) evicts the L2 cache."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    torch.cuda._sleep(200_000_000)
+    for s, e in zip(starts, ends):
+        if flush is not None:
+            flush.zero_()
+        s.record()
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    times = sorted(s.elapsed_time(e) for s, e in zip(starts, ends))
+    return times[len(times) // 2]
+
+
+def check_close(name: str, got, ref, atol: float, rtol: float) -> float:
+    """max |got - ref|; raises unless |got - ref| <= atol + rtol * |ref| everywhere."""
+    import torch
+
+    got, ref = got.float(), ref.float()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: non-finite values")
+    err = (got - ref).abs()
+    if not bool((err <= atol + rtol * ref.abs()).all()):
+        raise AssertionError(f"{name}: max abs err {float(err.max()):.4g} exceeds "
+                             f"atol {atol} + rtol {rtol} * |ref|")
+    return float(err.max())
+
+
+# bf16 stores 8 significant bits (relative rounding <= 2^-9 per value); the
+# kernels round their bf16 output once and K1 also rounds its probabilities
+# to bf16 before the PV product, so 1e-2 absolute plus 1e-2 relative bounds
+# a correct kernel with room to spare and catches any wrong element.
+ATOL, RTOL = 1e-2, 1e-2
+
+
+def kernel_phase(spec) -> list[dict]:
+    import torch
+    import torch.nn.functional as F
+
+    from prime_rl_tpu_torch.ops.decode_attention import (
+        decode_paged_attention,
+        decode_paged_attention_reference,
+    )
+    from prime_rl_tpu_torch.ops.decode_qkv import decode_qkv_prep, decode_qkv_prep_reference
+    from prime_rl_tpu_torch.ops.flash_attention import (
+        flash_attention_reference,
+        flash_attention_with_lse,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    nh, nkv, hd, d = spec.num_heads, spec.num_kv_heads, spec.head_dim, spec.hidden_size
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, device=dev, generator=gen) * scale).to(torch.bfloat16)
+
+    rows = []
+
+    # ---- K1: prefill flash attention --------------------------------------
+    cases = []
+    for b, l in ((4, 512), (1, 2048)):
+        q, k, v = randn(b, l, nh, hd), randn(b, l, nkv, hd), randn(b, l, nkv, hd)
+        seg = torch.zeros(b, l, dtype=torch.int32, device=dev)
+        seg_lens = [[200, 250], [512], [37], []] if b == 4 else [[2048]]
+        pairs = 0
+        for r, lens in enumerate(seg_lens):
+            off = 0
+            for i, n in enumerate(lens):
+                seg[r, off:off + n] = i + 1
+                off += n
+                pairs += n * (n + 1) // 2
+        out, lse = flash_attention_with_lse(q, k, v, seg, seg, causal=True)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = flash_attention_reference(q.float(), k.float(), v.float(), seg, seg,
+                                                     True, hd ** -0.5)
+        err = check_close(f"flash_attn_fwd B={b} L={l}", out, ref_out, ATOL, RTOL)
+        valid = ref_lse > -1e29
+        check_close("flash_attn_fwd lse", lse[valid], ref_lse[valid], 1e-3, 1e-4)
+        if not bool((lse[~valid] < -1e29).all()):
+            raise AssertionError("flash_attn_fwd: padding rows must give lse -1e30")
+        ms = time_ms(lambda: flash_attention_with_lse(q, k, v, seg, seg, causal=True))
+        plain = time_ms(lambda: flash_attention_reference(q, k, v, seg, seg, True, hd ** -0.5),
+                        iters=5)
+        # yardstick: one SDPA call with the same mask on [B, N, L, D] inputs
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        pos = torch.arange(l, device=dev)
+        mask = ((seg[:, :, None] == seg[:, None, :]) & (seg[:, :, None] != 0)
+                & (pos[:, None] >= pos[None, :]))[:, None]
+        lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                             enable_gqa=True), iters=10)
+        nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2 + lse.numel() * 4 + seg.numel() * 4
+        flops = pairs * nh * 4 * hd
+        bms, by = bound(nbytes, flops)
+        cases.append(dict(shape=f"B={b} L={l}", max_abs_err=err, ms=ms, plain_ms=plain,
+                          library_ms=lib, bound_ms=bms, bound_by=by))
+        log(f"K1 flash_attn_fwd B={b} L={l}: err {err:.3g}  kernel {ms:.4f} ms  plain "
+            f"{plain:.4f} ms  sdpa {lib:.4f} ms  bound {bms:.4f} ms ({by})")
+        del q, k, v, qt, kt, vt, mask, out, lse, ref_out, ref_lse
+    rows.append(dict(name="flash_attn_fwd", route="cuda",
+                     source="prime_rl_tpu_torch/csrc/flash_attn_fwd.cu",
+                     replaces="prime_rl_tpu/ops/flash_attention.py:59",
+                     **{k: cases[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                 "library_ms")},
+                     max_abs_err=max(c["max_abs_err"] for c in cases), cases=cases))
+
+    # ---- K3: decode qkv prep ----------------------------------------------
+    s = 64
+    x = randn(s, d)
+    nw = (1 + 0.1 * torch.randn(d, device=dev, generator=gen)).to(torch.bfloat16)
+    wq, wk, wv = randn(d, nh * hd, scale=0.02), randn(d, nkv * hd, scale=0.02), randn(
+        d, nkv * hd, scale=0.02)
+    qn = (1 + 0.1 * torch.randn(hd, device=dev, generator=gen)).to(torch.bfloat16)
+    kn = (1 + 0.1 * torch.randn(hd, device=dev, generator=gen)).to(torch.bfloat16)
+    positions = torch.randint(0, 4000, (s,), device=dev, generator=gen, dtype=torch.int32)
+    from prime_rl_tpu_torch.models.qwen3 import rope_setup
+
+    inv_freq, scaling = rope_setup(spec, device=dev)
+    kw = dict(num_heads=nh, num_kv_heads=nkv, head_dim=hd, qk_norm=True, q_norm_w=qn,
+              k_norm_w=kn, scaling=scaling, eps=spec.rms_eps)
+    got = decode_qkv_prep(x, nw, wq, wk, wv, positions, inv_freq, **kw)
+    torch.cuda.synchronize()
+    ref = decode_qkv_prep_reference(x.float(), nw, wq, wk, wv, positions, inv_freq, **kw)
+    err = max(check_close(f"decode_qkv_prep {n}", g, r, ATOL, RTOL)
+              for n, g, r in zip("qkv", got, ref))
+    ms = time_ms(lambda: decode_qkv_prep(x, nw, wq, wk, wv, positions, inv_freq, **kw),
+                 flush=flush)
+    plain = time_ms(lambda: decode_qkv_prep_reference(x, nw, wq, wk, wv, positions, inv_freq,
+                                                      **kw), flush=flush)
+    ncols = (nh + 2 * nkv) * hd
+    nbytes = (s * d + d * ncols + d + 2 * hd + s * ncols) * 2 + s * 4 + inv_freq.numel() * 4
+    bms, by = bound(nbytes, 2 * s * d * ncols)
+    log(f"K3 decode_qkv_prep S={s}: err {err:.3g}  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
+        f"bound {bms:.4f} ms ({by})  (cold L2)")
+    rows.append(dict(name="decode_qkv_prep", route="cuda",
+                     source="prime_rl_tpu_torch/csrc/decode_qkv.cu",
+                     replaces="prime_rl_tpu/ops/decode_qkv.py:36", max_abs_err=err, ms=ms,
+                     plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
+                     shape=f"S={s} D={d}"))
+
+    # ---- K4: paged decode attention + KV append ---------------------------
+    ps = 64
+    p = 4096 // ps
+    n_inactive = 8
+    np_ = s * p + 1
+    k_pool, v_pool = randn(nkv, np_, ps, hd), randn(nkv, np_, ps, hd)
+    table = (1 + torch.arange(s * p, device=dev, dtype=torch.int32)).reshape(s, p)
+    lengths = torch.randint(1, 1501, (s,), device=dev, generator=gen, dtype=torch.int32)
+    lengths[-n_inactive:] = torch.randint(0, 64, (n_inactive,), device=dev, generator=gen,
+                                          dtype=torch.int32)
+    table[-n_inactive:] = 0  # inactive slots: the null page
+    qd, k_new, v_new = randn(s, nh, hd), randn(s, nkv, hd), randn(s, nkv, hd)
+    k_ref, v_ref = k_pool.float(), v_pool.float()
+    o, _, _ = decode_paged_attention(qd, k_new, v_new, k_pool, v_pool, lengths, table)
+    torch.cuda.synchronize()
+    ref_o, k_ref, v_ref = decode_paged_attention_reference(
+        qd.float(), k_new.float(), v_new.float(), k_ref, v_ref, lengths, table)
+    act = slice(0, s - n_inactive)
+    err = check_close("decode_paged_attention", o[act], ref_o[act], ATOL, RTOL)
+    for name, pool, want in (("k", k_pool, k_ref), ("v", v_pool, v_ref)):
+        if not torch.equal(pool[:, 1:].float(), want[:, 1:]):
+            raise AssertionError(f"decode_paged_attention: {name} pool writes are not exact")
+    del k_ref, v_ref, ref_o
+    ms = time_ms(lambda: decode_paged_attention(qd, k_new, v_new, k_pool, v_pool, lengths,
+                                                table), flush=flush)
+    plain = time_ms(lambda: decode_paged_attention_reference(
+        qd, k_new, v_new, k_pool, v_pool, lengths, table), iters=5, flush=flush)
+    # yardstick: one SDPA call over each slot's gathered pages (gather untimed)
+    t_all = p * ps
+    kg = k_pool[:, table.long()].permute(1, 0, 2, 3, 4).reshape(s, nkv, t_all, hd)
+    vg = v_pool[:, table.long()].permute(1, 0, 2, 3, 4).reshape(s, nkv, t_all, hd)
+    amask = (torch.arange(t_all, device=dev)[None, :] < (lengths + 1)[:, None])[:, None, None]
+    q4 = qd[:, :, None, :]
+    lib = time_ms(lambda: F.scaled_dot_product_attention(q4, kg, vg, attn_mask=amask,
+                                                         enable_gqa=True), flush=flush)
+    del kg, vg
+    rows_read = int(lengths.sum())
+    nbytes = (rows_read * nkv * hd * 2 * 2 + 2 * (s * nkv * hd * 2 * 2) + 2 * s * nh * hd * 2
+              + s * 4 + s * p * 4)
+    flops = (rows_read + s) * nh * hd * 4
+    bms, by = bound(nbytes, flops)
+    log(f"K4 decode_paged_attention S={s} lengths 1..1500: err {err:.3g}  kernel {ms:.4f} ms  "
+        f"plain {plain:.4f} ms  sdpa {lib:.4f} ms  bound {bms:.4f} ms ({by})  (cold L2)")
+    rows.append(dict(name="decode_paged_attention", route="cuda",
+                     source="prime_rl_tpu_torch/csrc/decode_attention.cu",
+                     replaces="prime_rl_tpu/ops/decode_attention.py:50", max_abs_err=err,
+                     ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
+                     shape=f"S={s} PS={ps} P={p} tokens={rows_read}"))
+    del k_pool, v_pool, flush
+    torch.cuda.empty_cache()
+    return rows
+
+
+def reference_phase(engine) -> None:
+    """The served weights' prefill and one decode step through the kernels
+    (bf16, CUDA) against the plain float32 path on the CPU."""
+    import torch
+
+    from prime_rl_tpu_torch.sampler import model as smodel
+
+    spec = engine.spec
+    dev = engine.device
+    ps, lpad, n = 64, 64, 37
+    rng = torch.Generator().manual_seed(SEED)
+    ids = torch.zeros(1, lpad, dtype=torch.int64)
+    ids[0, :n] = torch.randint(1, spec.vocab_size, (n,), generator=rng)
+    table = torch.zeros(1, 2, dtype=torch.int32)
+    table[0] = torch.tensor([1, 2])
+    shape = (spec.num_kv_heads, 3, ps, spec.head_dim)
+
+    def run(params, device, dtype):
+        kp = [torch.zeros(shape, dtype=dtype, device=device) for _ in range(spec.num_layers)]
+        vp = [torch.zeros(shape, dtype=dtype, device=device) for _ in range(spec.num_layers)]
+        _, _, h, _ = smodel.prefill(params, spec, kp, vp, ids.to(device), n,
+                                    table[0, :1].to(device), compute_dtype=dtype)
+        first = smodel.logits_from_hidden(params, spec, h[None], dtype)
+        tok = torch.tensor([int(ids[0, n - 1])], device=device)
+        _, _, second = smodel.decode(params, spec, kp, vp, tok, torch.tensor(
+            [n], dtype=torch.int32, device=device), table.to(device), compute_dtype=dtype)
+        return first.float().cpu(), second.float().cpu()
+
+    got = run(engine.params, dev, torch.bfloat16)
+    cpu_params = {k: v for k, v in engine.params.items() if k != "layers"}
+    cpu_params = {k: v.float().cpu() for k, v in cpu_params.items()}
+    cpu_params["layers"] = [{k: v.float().cpu() for k, v in lp.items()}
+                            for lp in engine.params["layers"]]
+    want = run(cpu_params, torch.device("cpu"), torch.float32)
+    for name, g, w in zip(("prefill", "decode"), got, want):
+        err = float((g - w).abs().max())
+        scale = float(w.abs().max())
+        # bf16 activations through 28 layers against float32: the logits may
+        # drift by a few bf16 ulps of the largest logit
+        if not (err <= 0.05 * scale and bool(torch.isfinite(g).all())):
+            raise AssertionError(f"served {name} logits differ from the float32 reference: "
+                                 f"max err {err:.4g} vs max |logit| {scale:.4g}")
+        log(f"reference {name} logits: max err {err:.4g} (max |logit| {scale:.4g})")
+
+
+async def serving_phase(server, port: int) -> dict:
+    import aiohttp
+    import numpy as np
+
+    base = f"http://127.0.0.1:{port}"
+    spec = server.engine.spec
+    rng = np.random.default_rng(SEED)
+    prefix = rng.integers(0, spec.vocab_size, 128).tolist()
+    lengths = [20, 45, 64, 90, 200, 300, 400, 512, 640, 800, 1000, 1200, 1400, 1500]
+    prompts = [rng.integers(0, spec.vocab_size, n).tolist() for n in lengths]
+    prompts += [prefix + rng.integers(0, spec.vocab_size, n).tolist() for n in (40, 70)]
+    samplings = [dict(temperature=1.0), dict(temperature=0.8, top_p=0.9),
+                 dict(temperature=1.0, top_k=20), dict(temperature=0.0)]
+    max_tokens = 64
+    stop_ids = {spec.eos_token_id}
+
+    def check(result: dict, what: str) -> int:
+        c = result["choices"][0]
+        toks, lps = c["token_ids"], c["logprobs"]
+        if c["finish_reason"] == "length":
+            ok = len(toks) == max_tokens
+        else:
+            ok = c["finish_reason"] == "stop" and toks and toks[-1] in stop_ids
+        if not ok or len(lps) != len(toks) or not np.all(np.isfinite(lps)):
+            raise AssertionError(f"{what}: bad result {c['finish_reason']} {len(toks)} tokens")
+        return len(toks)
+
+    out = {}
+    async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600)) as http:
+        async def generate(prompt, sampling):
+            t0 = time.perf_counter()
+            r = await http.post(f"{base}/inference/v1/generate", json={
+                "token_ids": prompt, "sampling_params": {"max_tokens": max_tokens, **sampling}})
+            if r.status != 200:
+                raise AssertionError(f"generate: HTTP {r.status}: {await r.text()}")
+            return await r.json(), time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        results = await asyncio.gather(*(generate(p, samplings[i % len(samplings)])
+                                         for i, p in enumerate(prompts)))
+        wall = time.perf_counter() - t0
+        n_tokens = sum(check(r, f"generate #{i}") for i, (r, _) in enumerate(results))
+        out["generate_requests"] = len(prompts)
+        out["generate_tokens"] = n_tokens
+        out["generate_wall_s"] = wall
+        out["generate_tokens_per_s"] = n_tokens / wall
+        out["request_latency_s_mean"] = sum(t for _, t in results) / len(results)
+        log(f"serving: {len(prompts)} concurrent generate requests, {n_tokens} tokens in "
+            f"{wall:.3f} s -> {n_tokens / wall:.1f} tokens/s")
+
+        r = await http.post(f"{base}/v1/completions",
+                            json={"prompt": "The quick brown fox", "max_tokens": 16})
+        body = await r.json()
+        if r.status != 200 or body["choices"][0]["finish_reason"] not in ("stop", "length"):
+            raise AssertionError(f"completions: HTTP {r.status}: {body}")
+
+        t0 = time.perf_counter()
+        ttft = None
+        async with http.post(f"{base}/v1/chat/completions", json={
+                "model": MODEL, "messages": [{"role": "user", "content": "hi there"}],
+                "max_tokens": 32, "temperature": 0.7, "stream": True}) as r:
+            if r.status != 200:
+                raise AssertionError(f"chat stream: HTTP {r.status}")
+            events = []
+            async for raw in r.content:
+                line = raw.decode().strip()
+                if not line.startswith("data: "):
+                    continue
+                events.append(line[6:])
+                if ttft is None and '"content"' in line:
+                    ttft = time.perf_counter() - t0
+        if events[-1] != "[DONE]" or json.loads(events[-2])["choices"][0]["finish_reason"] not in (
+                "stop", "length"):
+            raise AssertionError("chat stream: missing [DONE] or finish reason")
+        out["chat_stream_ttft_s"] = ttft
+        log(f"serving: streaming chat, time to first token {ttft}")
+
+        # greedy determinism: the same prompt twice, concurrently
+        greedy = dict(temperature=0.0)
+        a, b = await asyncio.gather(generate(prompts[3], greedy), generate(prompts[3], greedy))
+        for r in (a[0], b[0]):
+            check(r, "greedy")
+        if a[0]["choices"][0]["token_ids"] != b[0]["choices"][0]["token_ids"]:
+            raise AssertionError("greedy requests for the same prompt differ")
+        # a prompt sharing the 128-token prefix with finished requests: the
+        # prefix cache serves its first pages, the rest prefills in chunks
+        cached0 = server.engine.stats["prefill_tokens_cached"]
+        r, _ = await generate(prefix + [5, 6, 7], dict(temperature=0.0))
+        check(r, "prefix hit")
+        if server.engine.stats["prefill_tokens_cached"] <= cached0:
+            raise AssertionError("the shared prefix was not served from the prefix cache")
+    return out
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this test needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
+
+    from prime_rl_tpu_torch.configs import InferenceConfig
+    from prime_rl_tpu_torch.entrypoints.inference import build_server
+    from prime_rl_tpu_torch.models.base import get_spec
+    from prime_rl_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    built = _build.build()
+    log(f"build: {time.perf_counter() - t0:.2f} s ({', '.join(f'{k} {v:.2f} s' for k, v in built.items())})")
+
+    spec = get_spec(MODEL)
+    rows = kernel_phase(spec)
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    config = InferenceConfig(
+        device="cuda", seed=SEED, max_model_len=4096,
+        output_dir=os.path.join(ROOT, "build", "chip_smoke"),
+        model={"name": MODEL, "debug": {"random_init": True}},
+        tokenizer={"name": "byte"}, scheduler={"max_batch_size": 64},
+    )
+    t0 = time.perf_counter()
+    server = build_server(config)
+    engine = server.engine
+    log(f"server built in {time.perf_counter() - t0:.2f} s: {spec.num_layers} layers, vocab "
+        f"{spec.vocab_size}, {engine.config.num_pages} KV pages of {engine.config.page_size}")
+    if spec.num_layers != 28 or engine.spec.vocab_size != 151936:
+        raise AssertionError("the served model must be Qwen3-0.6B at full width and depth")
+    reference_phase(engine)
+    engine.warmup(4)
+
+    async def drive():
+        runner = await server.start_async("127.0.0.1", port)
+        try:
+            _build.reset_launches()
+            stats = await serving_phase(server, port)
+            launches = dict(_build.launches)
+        finally:
+            await server.stop_async(runner)
+        return stats, launches
+
+    stats, launches = asyncio.run(drive())
+    for row in rows:
+        row["launches"] = launches.get(row["name"], 0)
+        if row["launches"] <= 0:
+            raise AssertionError(f"kernel {row['name']} was not launched on the serving path")
+    log(f"launches on the serving path: {launches}")
+    log(f"serving stats: {json.dumps(stats)}")
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,39 @@
+"""Import boundary of the PyTorch port: every module of ``prime_rl_tpu_torch``
+imports with ``jax`` and ``prime_rl_tpu`` made unimportable, and the port's
+inference config runs on the card unless asked otherwise."""
+
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import torch
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parents[1]
+
+_CHECK = textwrap.dedent("""
+    import importlib, pkgutil, sys
+    sys.modules["jax"] = None
+    sys.modules["prime_rl_tpu"] = None
+    import prime_rl_tpu_torch
+    names = [m.name for m in pkgutil.walk_packages(prime_rl_tpu_torch.__path__,
+                                                   "prime_rl_tpu_torch.")]
+    for name in names:
+        importlib.import_module(name)
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "prime_rl_tpu")
+                    and sys.modules[m] is not None)
+    assert not leaked, leaked
+    from prime_rl_tpu_torch.entrypoints.inference import InferenceConfig
+    assert InferenceConfig().device == "cuda"
+    print(len(names))
+""")
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    out = subprocess.run([sys.executable, "-c", _CHECK], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20  # every module of the slice was imported
