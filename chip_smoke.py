@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Chip smoke test of the PyTorch/CUDA port's serving path on one NVIDIA GPU.
+"""Chip smoke test of the PyTorch/CUDA port's serving and training paths on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -7,26 +8,43 @@ Phases (any failure raises and exits non-zero before the last line):
   1. device   — requires CUDA; prints nvidia-smi's name and power limit.
   2. build    — compiles the hand-written kernels from ``prime_rl_tpu_torch/csrc``.
   3. kernels  — K1 flash_attn_fwd, K3 decode_qkv_prep and K4 decode_paged_attention
-                at the Qwen3-0.6B shapes of the serving path, each held against
-                its plain PyTorch version (computed in float32 on the same bf16
-                inputs) and timed beside the plain version, a one-call PyTorch
-                yardstick where one exists, and the bound of the H100 (SXM data
-                sheet: 3.35 TB/s, 989 TFLOP/s dense bf16).
-  4. reference — the served model's prefill and decode logits through the
+                at the Qwen3-0.6B shapes of the serving path, K2a flash_attn_bwd_dq
+                and K2b flash_attn_bwd_dkv at the trainer's shape and one long
+                shape, each held against its plain PyTorch version (computed in
+                float32 on the same bf16 inputs) and timed beside the plain
+                version, a one-call PyTorch yardstick where one exists, and the
+                bound of the H100 (SXM data sheet: 3.35 TB/s, 989 TFLOP/s dense
+                bf16).
+  4. train-reference — loss and every gradient of one micro-batch [2, 512] of
+                the full-width model cut to 2 layers (full vocabulary), through
+                the kernels in bf16 on the card, against the plain float32 path
+                on the CPU.
+  5. training — the port's RL trainer through its normal entry (Qwen3-0.6B, all
+                28 layers, full vocabulary, random weights from a seed, fake
+                data, seq_len 512, 4 micro-batches of 8 rows, adamw_8bit with
+                bf16 masters) takes 4 steps, twice from the same seed: finite
+                losses and grad-norms, changed parameters, bit-equal losses,
+                the expected launches of K1, K2a and K2b, and a v4 HF snapshot
+                that reads back equal to the state's parameters.
+  6. reference — the served model's prefill and decode logits through the
                 kernels against a plain float32 forward on the CPU.
-  5. serving  — the port's inference server (Qwen3-0.6B, all 28 layers, full
+  7. serving  — the port's inference server (Qwen3-0.6B, all 28 layers, full
                 vocabulary, random weights from a seed, byte tokenizer) answers
                 16 concurrent /inference/v1/generate requests, a /v1/completions
                 request and a streaming /v1/chat/completions request over HTTP;
                 greedy requests are deterministic; every kernel was launched.
-Then one JSON line with every kernel's numbers, and the result line.
+Then one JSON line with every kernel's numbers, and the result line. A kernel's
+``launches`` is its count on the path that runs it (K1 runs on both: its
+``launches`` is the serving path's, ``launches_training`` the trainer's).
 """
 
 from __future__ import annotations
 
 import asyncio
 import json
+import math
 import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -104,6 +122,11 @@ def kernel_phase(spec) -> list[dict]:
     )
     from prime_rl_tpu_torch.ops.decode_qkv import decode_qkv_prep, decode_qkv_prep_reference
     from prime_rl_tpu_torch.ops.flash_attention import (
+        _delta,
+        flash_attention_dkv,
+        flash_attention_dkv_reference,
+        flash_attention_dq,
+        flash_attention_dq_reference,
         flash_attention_reference,
         flash_attention_with_lse,
     )
@@ -165,6 +188,84 @@ def kernel_phase(spec) -> list[dict]:
                      **{k: cases[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                  "library_ms")},
                      max_abs_err=max(c["max_abs_err"] for c in cases), cases=cases))
+
+    # ---- K2a / K2b: flash attention backward ---------------------------------
+    # against the plain backward on the same bf16 inputs (it rounds p and ds to
+    # bf16 where the kernels do, and sums in float32): one bf16 step of the
+    # result (2^-8 relative) plus the few ds roundings that flip between the
+    # kernel's exp and PyTorch's -> 2e-2 absolute + 2e-2 relative
+    k2_atol = k2_rtol = 2e-2
+    dq_cases, dkv_cases = [], []
+    for b, l, seg_lens in ((8, 512, [[120, 130, 100, 110]] * 8), (1, 4096, [[4096]])):
+        q, k, v = randn(b, l, nh, hd), randn(b, l, nkv, hd), randn(b, l, nkv, hd)
+        do = randn(b, l, nh, hd)
+        seg = torch.zeros(b, l, dtype=torch.int32, device=dev)
+        pairs = 0
+        for r, lens in enumerate(seg_lens):
+            off = 0
+            for i, n in enumerate(lens):
+                seg[r, off:off + n] = i + 1  # the rest of the row is padding
+                off += n
+                pairs += n * (n + 1) // 2
+        scale = hd ** -0.5
+        out, lse = flash_attention_with_lse(q, k, v, seg, seg, causal=True)
+        delta = _delta(out, do, None)
+        args = (q, k, v, seg, seg, lse, delta, do, True, scale)
+        dq = flash_attention_dq(*args)
+        dk, dv = flash_attention_dkv(*args)
+        torch.cuda.synchronize()
+        ref_dq = flash_attention_dq_reference(*args)
+        ref_dk, ref_dv = flash_attention_dkv_reference(*args)
+        err_dq = check_close(f"flash_attn_bwd_dq B={b} L={l}", dq, ref_dq, k2_atol, k2_rtol)
+        err_dkv = max(check_close(f"flash_attn_bwd_dkv {n} B={b} L={l}", g, r, k2_atol, k2_rtol)
+                      for n, g, r in (("dk", dk, ref_dk), ("dv", dv, ref_dv)))
+        if not bool((dq[seg == 0] == 0).all()):
+            raise AssertionError("flash_attn_bwd_dq: padding rows must give dq = 0")
+        del ref_dq, ref_dk, ref_dv
+        ms_dq = time_ms(lambda: flash_attention_dq(*args))
+        ms_dkv = time_ms(lambda: flash_attention_dkv(*args))
+        plain_dq = time_ms(lambda: flash_attention_dq_reference(*args), iters=5)
+        plain_dkv = time_ms(lambda: flash_attention_dkv_reference(*args), iters=5)
+        # yardstick: autograd through one SDPA call with the same mask; its
+        # backward gives dq, dk and dv together, so both rows show the same time
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+        pos = torch.arange(l, device=dev)
+        mask = ((seg[:, :, None] == seg[:, None, :]) & (seg[:, :, None] != 0)
+                & (pos[:, None] >= pos[None, :]))[:, None]
+        o_lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        do_t = do.transpose(1, 2).contiguous()
+        lib = time_ms(lambda: torch.autograd.grad(o_lib, (qt, kt, vt), do_t, retain_graph=True),
+                      iters=10)
+        # each input read once, each output written once; 3 (K2a) and 4 (K2b)
+        # products of 2*HD flops per (query, key) pair that the segments and the
+        # causal mask leave; the kernels visit every tile of the causal half
+        # (B * L * (L + 1) / 2 pairs), which the second bound counts
+        small = (2 * lse.numel() + seg.numel()) * 4
+        qb, kb = q.numel() * 2, k.numel() * 2
+        half = b * l * (l + 1) // 2
+        for cases, name, ms, plain, err, nbytes, nprod in (
+                (dq_cases, "K2a flash_attn_bwd_dq", ms_dq, plain_dq, err_dq,
+                 3 * qb + 2 * kb + small, 3),
+                (dkv_cases, "K2b flash_attn_bwd_dkv", ms_dkv, plain_dkv, err_dkv,
+                 2 * qb + 4 * kb + small, 4)):
+            bms, by = bound(nbytes, pairs * nh * nprod * 2 * hd)
+            half_ms, _ = bound(nbytes, half * nh * nprod * 2 * hd)
+            cases.append(dict(shape=f"B={b} L={l}", max_abs_err=err, ms=ms, plain_ms=plain,
+                              library_ms=lib, bound_ms=bms, bound_by=by,
+                              bound_causal_half_ms=half_ms))
+            log(f"{name} B={b} L={l}: err {err:.3g}  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
+                f"sdpa backward (dq+dk+dv) {lib:.4f} ms  bound {bms:.4f} ms ({by}), "
+                f"{half_ms:.4f} ms over the whole causal half  (tolerance {k2_atol} + "
+                f"{k2_rtol} * |ref|)")
+        del q, k, v, do, qt, kt, vt, mask, o_lib, do_t, out, lse, delta, dq, dk, dv, args
+    for name, cases, line in (("flash_attn_bwd_dq", dq_cases, 227),
+                              ("flash_attn_bwd_dkv", dkv_cases, 282)):
+        rows.append(dict(name=name, route="cuda",
+                         source="prime_rl_tpu_torch/csrc/flash_attn_bwd.cu",
+                         replaces=f"prime_rl_tpu/ops/flash_attention.py:{line}",
+                         **{k: cases[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                     "library_ms")},
+                         max_abs_err=max(c["max_abs_err"] for c in cases), cases=cases))
 
     # ---- K3: decode qkv prep ----------------------------------------------
     s = 64
@@ -251,6 +352,151 @@ def kernel_phase(spec) -> list[dict]:
     del k_pool, v_pool, flush
     torch.cuda.empty_cache()
     return rows
+
+
+def train_reference_phase() -> None:
+    """Loss and every gradient of one micro-batch [2, 512] of the full-width
+    model cut to 2 layers (full vocabulary): bf16 through the kernels on the
+    card against the plain float32 path on the CPU, from the same weights."""
+    import torch
+
+    from prime_rl_tpu_torch.configs.shared import ModelConfig
+    from prime_rl_tpu_torch.configs.trainer import DefaultLossConfig
+    from prime_rl_tpu_torch.models.base import get_spec
+    from prime_rl_tpu_torch.models.qwen3 import init_params
+    from prime_rl_tpu_torch.ops import _build
+    from prime_rl_tpu_torch.trainer.optim import tree_map, tree_paths
+    from prime_rl_tpu_torch.trainer.rl.data import FakeDataLoader
+    from prime_rl_tpu_torch.trainer.step import MicroBatchArrays, Scales, make_loss_fn, put_batch
+
+    spec = get_spec(MODEL, num_layers=2)
+    gen = torch.Generator().manual_seed(SEED)
+    # bf16-representable weights, so both sides start from the same numbers
+    master = tree_map(lambda x: x.to(torch.bfloat16), init_params(spec, gen))
+    batch, counts = FakeDataLoader(spec.vocab_size, 512, 2, 1, seed=SEED).next_batch()
+    scales = Scales(float(counts["rl"]), 1.0, 1.0)
+
+    def run(device, dtype, compute):
+        params = tree_map(lambda x: x.to(device=device, dtype=dtype).requires_grad_(), master)
+        mb = MicroBatchArrays(*[None if x is None else x[0] for x in put_batch(batch, device)])
+        loss_fn = make_loss_fn(spec, ModelConfig(compute_dtype=compute), DefaultLossConfig())
+        loss, _ = loss_fn(params, mb, scales)
+        loss.backward()
+        return float(loss.detach()), {p: x.grad.float().cpu() for p, x in tree_paths(params)}
+
+    before = dict(_build.launches)
+    loss_gpu, grads_gpu = run(torch.device("cuda"), torch.bfloat16, "bfloat16")
+    torch.cuda.synchronize()
+    for name in ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+        if _build.launches[name] <= before.get(name, 0):
+            raise AssertionError(f"train-reference: {name} was not launched on the card")
+    loss_cpu, grads_cpu = run(torch.device("cpu"), torch.float32, "float32")
+    # bf16 weights, activations and gradients through 2 layers and a 151936-wide
+    # head against float32: a few bf16 steps (2^-8) on the loss, and per tensor
+    # a gradient error of a few percent of the gradient's norm
+    loss_rtol, grad_rtol = 2e-2, 5e-2
+    if not abs(loss_gpu - loss_cpu) <= loss_rtol * abs(loss_cpu):
+        raise AssertionError(f"train-reference loss {loss_gpu} vs float32 {loss_cpu}")
+    worst = 0.0
+    for path, want in grads_cpu.items():
+        got = grads_gpu[path]
+        rel = float((got - want).norm() / want.norm().clamp_min(1e-30))
+        worst = max(worst, rel)
+        if not (bool(torch.isfinite(got).all()) and rel <= grad_rtol):
+            raise AssertionError(f"train-reference gradient of {path}: relative error {rel:.4g} "
+                                 f"exceeds {grad_rtol}")
+    log(f"train-reference: loss {loss_gpu:.6g} vs float32 {loss_cpu:.6g} (tolerance {loss_rtol} "
+        f"relative); worst gradient error {worst:.4g} of its norm over {len(grads_cpu)} tensors "
+        f"(tolerance {grad_rtol})")
+
+
+def training_phase() -> tuple[dict, dict]:
+    """The port's trainer through its normal entry, twice from the same seed.
+    Returns (launches of the first run, its last metrics record)."""
+    import torch
+
+    from prime_rl_tpu_torch.configs import TrainerConfig
+    from prime_rl_tpu_torch.models.base import get_spec
+    from prime_rl_tpu_torch.models.qwen3 import load_hf_weights
+    from prime_rl_tpu_torch.ops import _build
+    from prime_rl_tpu_torch.trainer.optim import make_optimizer, tree_leaves, tree_paths
+    from prime_rl_tpu_torch.trainer.rl.train import train
+    from prime_rl_tpu_torch.trainer.step import init_train_state
+    from prime_rl_tpu_torch.utils.pathing import is_stable, weights_dir
+
+    steps, n_mb, rows, seq_len = 4, 4, 8, 512
+
+    def config(out: str) -> TrainerConfig:
+        return TrainerConfig(
+            device="cuda", seed=SEED, max_steps=steps, grad_clip=1.0, output_dir=out,
+            model={"name": MODEL, "seq_len": seq_len, "debug": {"random_init": True}},
+            optimizer={"type": "adamw_8bit", "lr": 1e-5, "master_dtype": "bfloat16"},
+            data={"type": "fake", "seq_len": seq_len, "micro_batch_size": rows,
+                  "num_micro_batches": n_mb, "seed": SEED},
+            batch={"seq_len": seq_len, "micro_batch_size": rows, "num_micro_batches": n_mb},
+        )
+
+    spec = get_spec(MODEL)
+    if spec.num_layers != 28 or spec.vocab_size != 151936 or spec.hidden_size != 1024:
+        raise AssertionError("the trained model must be Qwen3-0.6B at full width and depth")
+    outs = [os.path.join(ROOT, "build", "chip_smoke", f"train_{i}") for i in range(2)]
+    runs = []
+    for i, out in enumerate(outs):
+        shutil.rmtree(out, ignore_errors=True)
+        cfg = config(out)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        result = train(cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs.append((result, dict(_build.launches)))
+        log(f"training run {i}: {steps} steps in {wall:.2f} s, losses "
+            f"{[r['loss'] for r in result.records]}")
+    (result, launches), (again, _) = runs
+    records = result.records
+    if len(records) != steps:
+        raise AssertionError(f"expected {steps} steps, got {len(records)}")
+    for r in records:
+        if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                and r["grad_norm"] > 0 and math.isfinite(r["entropy"])):
+            raise AssertionError(f"bad step record {r}")
+    if [r["loss"] for r in records] != [r["loss"] for r in again.records]:
+        raise AssertionError("two runs from the same seed gave different losses")
+    per_pass = spec.num_layers * n_mb * steps
+    remat = config(outs[0]).model.ac.mode
+    want = {"flash_attn_fwd": per_pass * (2 if remat == "full" else 1),
+            "flash_attn_bwd_dq": per_pass, "flash_attn_bwd_dkv": per_pass}
+    for name, n in want.items():
+        if launches.get(name, 0) != n:
+            raise AssertionError(f"{name}: {launches.get(name, 0)} launches on the training "
+                                 f"path, expected {n} (ac.mode {remat})")
+    # parameters changed: against the initial state rebuilt from the same seed
+    cfg = config(outs[0])
+    optimizer, _ = make_optimizer(cfg.optimizer, cfg.scheduler, cfg.grad_clip)
+    init = init_train_state(spec, "cuda", optimizer, seed=SEED, master_dtype="bfloat16")
+    changed = sum(not torch.equal(a, b) for a, b in
+                  zip(tree_leaves(init.params), tree_leaves(result.state.params)))
+    del init
+    if changed < len(tree_leaves(result.state.params)) // 2:
+        raise AssertionError(f"only {changed} parameter tensors changed in {steps} steps")
+    snap = weights_dir(outs[0], steps)
+    if not is_stable(snap):
+        raise AssertionError(f"no STABLE v{steps} snapshot at {snap}")
+    loaded = dict(tree_paths(load_hf_weights(snap, spec, dtype=torch.bfloat16, device="cuda")))
+    for path, want_t in tree_paths(result.state.params):
+        if not torch.equal(loaded[path], want_t):
+            raise AssertionError(f"v{steps} snapshot: {path} differs from the state's parameters")
+    last = records[-1]
+    log(f"training: {steps} steps of {n_mb} x [{rows}, {seq_len}] tokens; last step "
+        f"{last['step_time_s']:.3f} s, {n_mb * rows * seq_len / last['step_time_s']:.0f} tokens/s, "
+        f"MFU {spec.flops_per_token(seq_len) * n_mb * rows * seq_len / last['step_time_s'] / PEAK_BF16:.4f} "
+        f"of {PEAK_BF16 / 1e12:.0f} TFLOP/s; {changed} parameter tensors changed; the v{steps} "
+        f"snapshot reads back equal; launches {launches}")
+    for out in outs:
+        shutil.rmtree(out, ignore_errors=True)
+    del runs, result, again, loaded
+    torch.cuda.empty_cache()
+    return launches, last
 
 
 def reference_phase(engine) -> None:
@@ -415,6 +661,8 @@ def main() -> int:
 
     spec = get_spec(MODEL)
     rows = kernel_phase(spec)
+    train_reference_phase()
+    train_launches, _ = training_phase()
 
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
@@ -447,10 +695,18 @@ def main() -> int:
 
     stats, launches = asyncio.run(drive())
     for row in rows:
-        row["launches"] = launches.get(row["name"], 0)
+        name = row["name"]
+        on_serving, on_training = launches.get(name, 0), train_launches.get(name, 0)
+        if name == "flash_attn_fwd":  # K1 runs on both paths
+            row["launches"], row["launches_training"] = on_serving, on_training
+            if min(on_serving, on_training) <= 0:
+                raise AssertionError("kernel flash_attn_fwd was not launched on both paths")
+        else:
+            row["launches"] = on_serving + on_training
         if row["launches"] <= 0:
-            raise AssertionError(f"kernel {row['name']} was not launched on the serving path")
+            raise AssertionError(f"kernel {name} was not launched on the path that runs it")
     log(f"launches on the serving path: {launches}")
+    log(f"launches on the training path: {train_launches}")
     log(f"serving stats: {json.dumps(stats)}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,8 +1,8 @@
 """Shared config models: base class, model/tokenizer, mesh, monitor, logging.
 
-The port keeps its own copy of the config surface the serving path needs,
-field for field with the JAX package's ``configs/shared.py``, so the same
-TOML files and dotted CLI flags drive both packages.
+The port keeps its own copy of the config surface the serving and training
+paths need, field for field with the JAX package's ``configs/shared.py``, so
+the same TOML files and dotted CLI flags drive both packages.
 """
 
 from __future__ import annotations
@@ -32,8 +32,8 @@ def default_tag(tag: str) -> BeforeValidator:
 class MeshConfig(BaseConfig):
     """Logical device mesh. Axes (outermost first): ``replica``, ``fsdp``,
     ``expert``, ``context``, ``tensor``. -1 on exactly one axis means "absorb
-    all remaining devices". The serving slice runs on one card; the mesh is
-    parsed for config compatibility and resolved to one device."""
+    all remaining devices". The server and the trainer run on one card: the
+    mesh is resolved against one device, and any other size raises."""
 
     replica: int = 1
     fsdp: int = -1
@@ -69,8 +69,13 @@ class MeshConfig(BaseConfig):
 
 
 class AttentionConfig(BaseConfig):
-    """Attention kernel selection: ``auto`` runs the hand-written CUDA
-    kernels on a CUDA device and the plain PyTorch versions on the CPU."""
+    """Attention route, for serving and training alike. ``auto`` runs the
+    hand-written CUDA kernels (K1 forward, K2a/K2b backward) on a CUDA device
+    and plain einsum attention on the CPU; ``pallas`` (the JAX package's name
+    for its kernel route, kept so one TOML drives both) forces the flash
+    route, which on the CPU runs the kernels' plain versions; ``xla`` forces
+    the einsum path. The kernels tile by themselves: ``block_q``/``block_kv``
+    are accepted and change nothing."""
 
     impl: Literal["auto", "pallas", "xla"] = "auto"
     block_q: int = 1024
@@ -78,7 +83,13 @@ class AttentionConfig(BaseConfig):
 
 
 class ActivationCheckpointConfig(BaseConfig):
-    """Rematerialization policy (training; parsed for config compatibility)."""
+    """Rematerialization policy of the training forward, per layer through
+    ``torch.utils.checkpoint``: ``none`` keeps every activation, ``full``
+    recomputes the layer in the backward (K1 runs twice), ``save_attn`` (and
+    its stride form ``save_attn/K``: every K-th layer, the rest ``full``)
+    recomputes all but the attention kernel's outputs, so K1 runs once. The
+    offload modes and ``selective`` are accepted here and raise in
+    ``models/qwen3.forward`` until their slice."""
 
     mode: str = "full"
     save_dots: bool = True
@@ -119,7 +130,8 @@ class DebugModelConfig(BaseConfig):
 
 
 class ModelConfig(BaseConfig):
-    """Which model to serve."""
+    """Which model to train or serve, in which dtypes, and how the training
+    forward rematerializes and chunks its LM head."""
 
     name: str = "Qwen/Qwen3-0.6B"
     attn: AttentionConfig = AttentionConfig()
@@ -166,3 +178,120 @@ MonitorConfig = Annotated[
 class LogConfig(BaseConfig):
     level: Literal["debug", "info", "warning", "error"] = "info"
     json_logs: bool = False
+
+
+class MetricsServerConfig(BaseConfig):
+    enable: bool = False
+    host: str = "0.0.0.0"
+    port: int = 9100
+
+
+class CheckpointConfig(BaseConfig):
+    """Train-state checkpoints (``torch.save`` of the state) + retention."""
+
+    interval: int = 50
+    keep_last: int | None = 2
+    keep_interval: int | None = None
+    resume_step: int | None = None  # -1 = latest
+
+
+class WeightCheckpointConfig(BaseConfig):
+    """HF-compatible safetensors snapshots for serving."""
+
+    interval: int = 100
+    keep_last: int | None = 1
+    save_format: Literal["safetensors"] = "safetensors"
+
+
+class ConstantSchedulerConfig(BaseConfig):
+    type: Literal["constant"] = "constant"
+    warmup_steps: int = 0
+
+
+class LinearSchedulerConfig(BaseConfig):
+    type: Literal["linear"] = "linear"
+    warmup_steps: int = 0
+    decay_steps: int = 1000
+    min_lr_ratio: float = 0.0
+
+
+class CosineSchedulerConfig(BaseConfig):
+    type: Literal["cosine"] = "cosine"
+    warmup_steps: int = 0
+    decay_steps: int = 1000
+    min_lr_ratio: float = 0.1
+
+
+SchedulerConfig = Annotated[
+    ConstantSchedulerConfig | LinearSchedulerConfig | CosineSchedulerConfig,
+    Field(discriminator="type"),
+    default_tag("constant"),
+]
+
+
+class AdamWConfig(BaseConfig):
+    type: Literal["adamw"] = "adamw"
+    lr: float = 1e-6
+    weight_decay: float = 0.01
+    betas: tuple[float, float] = (0.9, 0.999)
+    eps: float = 1e-8
+
+
+class SGDConfig(BaseConfig):
+    type: Literal["sgd"] = "sgd"
+    lr: float = 1e-6
+    momentum: float = 0.0
+    nesterov: bool = False
+    weight_decay: float = 0.0
+
+
+class MuonConfig(BaseConfig):
+    type: Literal["muon"] = "muon"
+    lr: float = 2e-2
+    weight_decay: float = 0.01
+    momentum: float = 0.95
+    adamw_lr: float = 1e-6  # for non-matrix params
+
+
+class SignSGDConfig(BaseConfig):
+    type: Literal["sign_sgd"] = "sign_sgd"
+    lr: float = 1e-6
+    weight_decay: float = 0.0
+
+
+class AdamW8bitConfig(BaseConfig):
+    """AdamW with blockwise 8-bit moments (~1 byte/param/moment instead of
+    4). Optionally pairs with bf16 master weights + stochastic rounding
+    (master_dtype) for another 2x on the params."""
+
+    type: Literal["adamw_8bit"] = "adamw_8bit"
+    lr: float = 1e-6
+    weight_decay: float = 0.01
+    betas: tuple[float, float] = (0.9, 0.999)
+    eps: float = 1e-8
+    block: int = 2048  # params per quantization block
+    master_dtype: Literal["float32", "bfloat16"] = "float32"
+
+
+class AdafactorMomConfig(BaseConfig):
+    """Adafactor with bf16 momentum (Adam-like recipe: no relative step,
+    no param scaling): the second moment is rank-1 factored — O(N+M) instead
+    of O(NM) — and the first moment is half-width. The biggest state shrink
+    available; quality within noise of Adam for LLM training at these
+    scales."""
+
+    type: Literal["adafactor_mom"] = "adafactor_mom"
+    lr: float = 1e-6
+    weight_decay: float = 0.0
+    momentum: float = 0.9
+    decay_rate: float = 0.8  # adafactor's step-dependent 2nd-moment decay
+    clipping_threshold: float = 1.0
+    master_dtype: Literal["float32", "bfloat16"] = "float32"
+
+
+OptimizerConfig = Annotated[
+    AdamWConfig | SGDConfig | MuonConfig | SignSGDConfig
+    | AdamW8bitConfig | AdafactorMomConfig,
+    Field(discriminator="type"),
+    default_tag("adamw"),
+]

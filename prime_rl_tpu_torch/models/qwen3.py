@@ -1,21 +1,30 @@
 """Qwen3 dense family (and llama, the same block without qk-norm): rope
-setup, random init, LM head and the HF state-dict conversion — the parts of
-the JAX package's ``models/qwen3.py`` that serving needs. The training
-forward belongs to the training slice.
+setup, random init, the training forward, LM head and the HF state-dict
+conversion (the port of the JAX package's ``models/qwen3.py``).
 
-Parameters are a plain dict of tensors in the JAX package's stacked layout:
-``{"embed": [V, D], "layers": {name: [NL, ...]}, "final_norm": [D],
+RMSNorm -> GQA attention with per-head q/k RMSNorm + RoPE -> RMSNorm ->
+SwiGLU. Parameters are a plain dict of tensors in the JAX package's stacked
+layout: ``{"embed": [V, D], "layers": {name: [NL, ...]}, "final_norm": [D],
 "lm_head": [D, V] (untied only)}``, projections stored ``[in, out]``. The
-serving engine unstacks them per layer (sampler/model.unstack_params).
+training forward loops over the leading layer axis; the serving engine
+unstacks them per layer (sampler/model.unstack_params).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from prime_rl_tpu_torch.models.base import ModelSpec
-from prime_rl_tpu_torch.ops.layers import rope_frequencies, yarn_rope_parameters
+from prime_rl_tpu_torch.ops.attention import attention
+from prime_rl_tpu_torch.ops.layers import (
+    apply_rope,
+    rms_norm,
+    rope_frequencies,
+    swiglu,
+    yarn_rope_parameters,
+)
 
 Params = dict
 
@@ -93,6 +102,145 @@ def get_lm_head(params: Params, spec: ModelSpec) -> torch.Tensor:
     if spec.tie_embeddings:
         return params["embed"].T
     return params["lm_head"]
+
+
+def _attn_block(
+    h: torch.Tensor,
+    lp: dict[str, torch.Tensor],
+    spec: ModelSpec,
+    segment_ids: torch.Tensor,
+    position_ids: torch.Tensor,
+    inv_freq: torch.Tensor,
+    attn_impl: str = "auto",
+    rope_scaling: float = 1.0,
+    saved=None,
+) -> torch.Tensor:
+    def bias(t, name, heads):
+        bb = lp.get(name)
+        if bb is None:
+            return t
+        return t + bb.to(t.dtype).reshape(1, 1, heads, spec.head_dim)
+
+    b, l, _ = h.shape
+    x = rms_norm(h, lp["attn_norm"], spec.rms_eps)
+    qf = torch.matmul(x, lp["q"])
+    kf = torch.matmul(x, lp["k"])
+    if spec.qk_norm and spec.qk_norm_scope == "layer":
+        # one RMSNorm over the flattened head dims
+        qf = rms_norm(qf, lp["q_norm"], spec.rms_eps)
+        kf = rms_norm(kf, lp["k_norm"], spec.rms_eps)
+    q = qf.reshape(b, l, spec.num_heads, spec.head_dim)
+    k = kf.reshape(b, l, spec.num_kv_heads, spec.head_dim)
+    v = torch.matmul(x, lp["v"]).reshape(b, l, spec.num_kv_heads, spec.head_dim)
+    q = bias(q, "q_bias", spec.num_heads)
+    k = bias(k, "k_bias", spec.num_kv_heads)
+    v = bias(v, "v_bias", spec.num_kv_heads)
+    if spec.qk_norm and spec.qk_norm_scope != "layer":
+        q = rms_norm(q, lp["q_norm"], spec.rms_eps)
+        k = rms_norm(k, lp["k_norm"], spec.rms_eps)
+    q = apply_rope(q, position_ids, inv_freq, rope_scaling)
+    k = apply_rope(k, position_ids, inv_freq, rope_scaling)
+    o = attention(q, k, v, segment_ids, causal=True, impl=attn_impl, saved=saved)
+    proj = torch.matmul(o.reshape(b, l, spec.q_dim), lp["o"])
+    if lp.get("o_bias") is not None:
+        proj = proj + lp["o_bias"].to(proj.dtype)
+    return h + proj
+
+
+def _mlp_block(h: torch.Tensor, lp: dict[str, torch.Tensor], spec: ModelSpec) -> torch.Tensor:
+    x = rms_norm(h, lp["mlp_norm"], spec.rms_eps)
+    gate = torch.matmul(x, lp["gate"])
+    up = torch.matmul(x, lp["up"])
+    return h + torch.matmul(swiglu(gate, up), lp["down"])
+
+
+_WAITING_REMAT = {
+    "offload_attn": "the offload slice", "offload_dots": "the offload slice",
+    "selective": "the remat-policy slice",
+}
+
+
+def forward(
+    params: Params,
+    spec: ModelSpec,
+    input_ids: torch.Tensor,  # [B, L] int
+    segment_ids: torch.Tensor,  # [B, L] int (0 = pad)
+    position_ids: torch.Tensor,  # [B, L] int
+    compute_dtype=torch.bfloat16,
+    attn_impl: str = "auto",
+    block_q: int = 512,
+    block_kv: int = 512,
+    remat: str = "full",
+    mesh=None,
+    lora: Params | None = None,
+    lora_scale: float = 1.0,
+    cp_style: str = "ulysses",
+    quantized_compute: str | None = None,
+) -> torch.Tensor:
+    """Token ids -> final hidden states [B, L, D] (pre-LM-head, normed).
+
+    Layer weights with two or more dims are cast to ``compute_dtype`` per
+    layer; norm weights stay as stored. ``remat`` maps onto
+    ``torch.utils.checkpoint`` per layer: ``none`` keeps every activation,
+    ``full`` recomputes the whole layer in the backward, ``save_attn`` (and
+    ``save_attn/K``: every K-th layer, the others ``full``) recomputes
+    everything except the attention kernel, whose outputs are kept so K1 does
+    not run again. ``block_q``/``block_kv`` are accepted and unused: the CUDA
+    kernels choose their own tiles. The arguments that belong to later slices
+    (``mesh``, ``lora``, ``quantized_compute``, the offload and selective
+    remat modes) raise."""
+    if spec.family not in ("qwen3", "llama"):
+        raise NotImplementedError(f"model family {spec.family!r} is not ported yet")
+    if spec.sliding_window > 0 or spec.attn_sinks:
+        raise NotImplementedError("sliding windows and attention sinks come with the "
+                                  "gpt-oss slice")
+    if spec.attn_gate or spec.sandwich_norm:
+        raise NotImplementedError("attention gates and sandwich norms come with the "
+                                  "gated-MoE slice")
+    if mesh is not None:
+        raise NotImplementedError("context parallelism waits for the multi-card slice")
+    if lora is not None:
+        raise NotImplementedError("LoRA adapters wait for the LoRA slice")
+    if quantized_compute:
+        raise NotImplementedError("quantized_compute waits for the int8/fp8 slice")
+    base_remat, _, k_str = remat.partition("/")
+    save_stride = int(k_str) if k_str else 1
+    if base_remat in _WAITING_REMAT:
+        raise NotImplementedError(
+            f"ac.mode {remat!r} waits for {_WAITING_REMAT[base_remat]}; "
+            "use none, full or save_attn[/K]")
+    if base_remat not in ("none", "full", "save_attn"):
+        raise ValueError(f"unknown ac.mode {remat!r}")
+    nl = spec.num_layers
+    if save_stride > 1 and nl % save_stride:
+        raise ValueError(f"ac.mode stride {save_stride} must divide the layer count {nl}")
+
+    from prime_rl_tpu_torch.ops.flash_attention import AttnSaved
+
+    inv_freq, rope_scaling = rope_setup(spec, device=input_ids.device)
+    h = params["embed"].to(compute_dtype)[input_ids]
+
+    def block(h, lp, saved):
+        lp = {k: (v.to(compute_dtype) if v.dim() >= 2 else v) for k, v in lp.items()}
+        h = _attn_block(h, lp, spec, segment_ids, position_ids, inv_freq, attn_impl,
+                        rope_scaling, saved)
+        return _mlp_block(h, lp, spec)
+
+    # unbind once: its backward stacks the per-layer gradients in one copy
+    # (indexing layer by layer would build a full-size zero stack per layer)
+    per_layer = {k: v.unbind(0) for k, v in params["layers"].items()}
+    for i in range(nl):
+        lp = {k: v[i] for k, v in per_layer.items()}
+        mode = base_remat
+        if save_stride > 1 and i % save_stride:
+            mode = "full"
+        if mode == "none" or not torch.is_grad_enabled():
+            h = block(h, lp, None)
+        else:
+            saved = AttnSaved() if mode == "save_attn" else None
+            h = checkpoint(block, h, lp, saved, use_reentrant=False,
+                           preserve_rng_state=False)
+    return rms_norm(h, params["final_norm"], spec.rms_eps)
 
 
 def layer_windows_list(spec: ModelSpec) -> list[int]:

@@ -9,7 +9,8 @@ Two implementations with identical semantics:
   - ``xla_attention``: einsum + masked softmax in plain PyTorch; runs
     everywhere and materialises [B, NH, Lq, Lk] scores.
   - ``flash_attention`` (ops/flash_attention.py): the hand-written CUDA
-    kernel K1, used by ``attention()`` for CUDA tensors.
+    kernels K1 (forward) and K2a/K2b (backward), used by ``attention()`` for
+    CUDA tensors.
 """
 
 from __future__ import annotations
@@ -87,15 +88,26 @@ def attention(
     scale: float | None = None,
     window: int = 0,
     sinks: torch.Tensor | None = None,
+    impl: str = "auto",
+    saved=None,
 ) -> torch.Tensor:
-    """Self-attention dispatch (Lq == Lk): the flash kernel K1 for CUDA
-    tensors at every length, ``xla_attention`` for CPU tensors. Context
-    parallelism (the JAX ``mesh`` argument) is not part of this slice."""
-    if q.is_cuda:
+    """Self-attention dispatch (Lq == Lk), differentiable on both routes.
+
+    ``impl`` ``auto``: CUDA tensors go through the flash kernels (K1 forward,
+    K2a/K2b backward) at every length, CPU tensors through ``xla_attention``
+    and PyTorch's own autograd. ``pallas`` (the JAX package's name for its
+    kernel route) forces the flash route, which on the CPU runs the kernels'
+    plain versions; ``xla`` forces ``xla_attention``. ``saved`` (an
+    ``AttnSaved``) keeps the flash kernel's outputs across a checkpoint's
+    recomputation. Context parallelism (the JAX ``mesh`` argument) is not part
+    of this slice."""
+    if impl not in ("auto", "pallas", "xla"):
+        raise ValueError(f"unknown attention impl {impl!r}")
+    if impl == "pallas" or (impl == "auto" and q.is_cuda):
         from prime_rl_tpu_torch.ops.flash_attention import flash_attention
 
         return flash_attention(q, k, v, segment_ids, causal=causal, scale=scale,
-                               window=window, sinks=sinks)
+                               window=window, sinks=sinks, saved=saved)
     return xla_attention(q, k, v, segment_ids, segment_ids, causal=causal, scale=scale,
                          window=window, sinks=sinks)
 

@@ -1,24 +1,33 @@
-"""K1: flash-attention forward over packed sequences — the hand-written CUDA
-kernel ``csrc/flash_attn_fwd.cu`` and its plain PyTorch version.
+"""K1, K2a, K2b: flash attention over packed sequences, forward and backward
+- the hand-written CUDA kernels ``csrc/flash_attn_fwd.cu`` and
+``csrc/flash_attn_bwd.cu`` and their plain PyTorch versions.
 
-Replaces the TPU kernel ``prime_rl_tpu/ops/flash_attention.py`` ``_fwd_kernel``
-(the ``pallas_call`` in ``_fwd``). Public entry points keep the JAX
-signatures and the ``[B, L, N, D]`` layout: ``flash_attention`` (out) and
-``flash_attention_with_lse`` (out, lse ``[B, NH, Lq]``).
+Replaces the TPU kernels of ``prime_rl_tpu/ops/flash_attention.py``:
+``_fwd_kernel`` (K1, the ``pallas_call`` in ``_fwd``), ``_bwd_dq_kernel``
+(K2a) and ``_bwd_dkv_kernel`` (K2b, the two ``pallas_call``s in ``_bwd``).
+Public entry points keep the JAX signatures and the ``[B, L, N, D]`` layout:
+``flash_attention`` (out) and ``flash_attention_with_lse`` (out, lse
+``[B, NH, Lq]``). Both are differentiable through one
+``torch.autograd.Function`` that saves ``q, k, v, seg_q, seg_kv, out, lse``
+and takes cotangents of ``out`` and of ``lse``.
 
 Contract: segment 0 is padding; a query attends a key only within its own
 segment and (causal) at or before its own position; GQA maps q head h to kv
 head ``h // (NH // NKV)``; f32 online softmax; a row that sees no key gets
-output 0 and lse -1e30. On the card the kernel takes bf16 q/k/v with head
-dim 64 or 128 and no window or sinks (those come with the gpt-oss slice).
+output 0 and lse -1e30, gradient 0, and adds nothing to dk/dv. On the card
+the kernels take bf16 tensors with head dim 64 or 128 and no window or sinks
+(those come with the gpt-oss slice); a length that is no multiple of the
+64-row tile is masked inside the kernels.
 
-What bounds it on the H100 and what the design does about it: see the
-source note in ``csrc/flash_attn_fwd.cu`` (compute-bound at prefill lengths;
-WMMA bf16 tiles, causal tiles above the diagonal skipped).
+What bounds them on the H100 and what the design does about it: see the
+source notes in ``csrc/flash_attn_fwd.cu`` and ``csrc/flash_attn_bwd.cu``
+(compute-bound at prefill and training lengths; WMMA bf16 tiles, tiles above
+the causal diagonal skipped, dk/dv accumulated over the GQA group inside one
+block so that no atomics are needed).
 
-For CPU tensors the wrapper runs ``flash_attention_reference``, the plain
-version of the same function; for CUDA tensors it launches the kernel or
-raises. The backward kernels (K2a/K2b) belong to the training slice.
+For CPU tensors the wrappers run ``flash_attention_reference`` and
+``flash_attention_backward_reference``, the plain versions of the same
+functions; for CUDA tensors they launch the kernels or raise.
 """
 
 from __future__ import annotations
@@ -31,8 +40,12 @@ from prime_rl_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 KERNEL = "flash_attn_fwd"
+KERNEL_BWD = "flash_attn_bwd"  # one source, two kernels, counted separately:
+KERNEL_DQ = "flash_attn_bwd_dq"
+KERNEL_DKV = "flash_attn_bwd_dkv"
 
 _fn = None
+_bwd_fns = None
 
 
 def _kernel():
@@ -90,12 +103,192 @@ def _fwd_cuda(q, k, v, seg_q, seg_kv, causal: bool, scale: float):
     return out, lse
 
 
-def _fwd(q, k, v, seg_q, seg_kv, causal: bool, scale: float | None):
+def _bwd_kernels():
+    global _bwd_fns
+    if _bwd_fns is None:
+        lib = _build.load(KERNEL_BWD)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        dq, dkv = lib.flash_attn_bwd_dq, lib.flash_attn_bwd_dkv
+        dq.argtypes = [p] * 9 + [i] * 6 + [ctypes.c_float, i, p]
+        dkv.argtypes = [p] * 10 + [i] * 6 + [ctypes.c_float, i, p]
+        dq.restype = dkv.restype = i
+        _bwd_fns = (dq, dkv)
+    return _bwd_fns
+
+
+def _delta(out, do, dlse):
+    """[B, NH, Lq] f32: sum(out * do, -1), minus the lse cotangent (d lse /
+    d s_j = p_j, so it folds into delta: ds = p * (dp - delta + dlse))."""
+    delta = (out.float() * do.float()).sum(dim=-1).permute(0, 2, 1)
+    if dlse is not None:
+        delta = delta - dlse.float()
+    return delta.contiguous()
+
+
+def _reference_p_ds(q, k, v, seg_q, seg_kv, lse, delta, do, causal: bool, scale: float):
+    """(p, ds) [B, NH, Lq, Lk] f32 of the plain backward: p = where(mask,
+    exp(s - lse), 0), selected so that rows with lse -1e30 give exact zeros,
+    and ds = p * (dp - delta) rounded to q's dtype as the kernels round it."""
+    g = q.shape[2] // k.shape[2]
+    kf = k.float().repeat_interleave(g, dim=2)
+    vf = v.float().repeat_interleave(g, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * scale
+    mask = (seg_q[:, :, None] == seg_kv[:, None, :]) & (seg_q[:, :, None] != 0)
+    if causal:
+        rows = torch.arange(q.shape[1], device=q.device)[:, None]
+        cols = torch.arange(k.shape[1], device=q.device)[None, :]
+        mask = mask & (rows >= cols)
+    mask = mask[:, None]
+    # masked entries are replaced before the exponential: exp(s + 1e30) never runs
+    p = torch.where(mask, torch.exp(torch.where(mask, s - lse[..., None], 0.0)), 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), vf)
+    ds = (p * (dp - delta[..., None])).to(q.dtype).float()
+    return p, ds
+
+
+def flash_attention_dq_reference(q, k, v, seg_q, seg_kv, lse, delta, do, causal: bool,
+                                 scale: float):
+    """Plain version of K2a: dq = (ds k) * scale, f32 accumulation."""
+    _, ds = _reference_p_ds(q, k, v, seg_q, seg_kv, lse, delta, do, causal, scale)
+    kf = k.float().repeat_interleave(q.shape[2] // k.shape[2], dim=2)
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale).to(q.dtype)
+
+
+def _dkv_from(p, ds, q, k, v, do, scale: float):
+    b, lk, nkv, hd = k.shape
+    g = q.shape[2] // nkv
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    dk = dk.reshape(b, lk, nkv, g, hd).sum(dim=3)
+    dv = dv.reshape(b, lk, nkv, g, hd).sum(dim=3)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_dkv_reference(q, k, v, seg_q, seg_kv, lse, delta, do, causal: bool,
+                                  scale: float):
+    """Plain version of K2b: dv = p^T do with p rounded to ``do``'s dtype,
+    dk = (ds^T q) * scale, both summed over the GQA group in f32."""
+    p, ds = _reference_p_ds(q, k, v, seg_q, seg_kv, lse, delta, do, causal, scale)
+    return _dkv_from(p, ds, q, k, v, do, scale)
+
+
+def flash_attention_backward_reference(q, k, v, seg_q, seg_kv, out, lse, do, dlse,
+                                       causal: bool, scale: float):
+    """Plain version of K2a + K2b: (dq, dk, dv) from the saved ``lse``, with
+    the kernels' arithmetic: p selected by the mask, p rounded to ``do``'s
+    dtype before p^T do, ds rounded to q's dtype before both of its products,
+    f32 accumulation, ``scale`` applied to s and again to the dq/dk sums,
+    dk/dv summed over the GQA group."""
+    delta = _delta(out, do, dlse)  # [B, NH, Lq]
+    p, ds = _reference_p_ds(q, k, v, seg_q, seg_kv, lse, delta, do, causal, scale)
+    kf = k.float().repeat_interleave(q.shape[2] // k.shape[2], dim=2)
+    dq = (torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale).to(q.dtype)
+    return (dq, *_dkv_from(p, ds, q, k, v, do, scale))
+
+
+def _check_bwd_args(q, k, v, seg_q, seg_kv, lse, delta, do):
+    b, lq, nh, hd = q.shape
+    lk, nkv = k.shape[1], k.shape[2]
+    if hd not in (64, 128) or nh % nkv:
+        raise ValueError(f"flash_attn_bwd takes head_dim 64 or 128 and NH % NKV == 0, "
+                         f"got head_dim {hd}, heads {nh}/{nkv}")
+    _build.require(q, "q", torch.bfloat16)
+    _build.require(k, "k", torch.bfloat16, (b, lk, nkv, hd))
+    _build.require(v, "v", torch.bfloat16, (b, lk, nkv, hd))
+    _build.require(do, "do", torch.bfloat16, (b, lq, nh, hd))
+    _build.require(seg_q, "seg_q", torch.int32, (b, lq))
+    _build.require(seg_kv, "seg_kv", torch.int32, (b, lk))
+    _build.require(lse, "lse", torch.float32, (b, nh, lq))
+    _build.require(delta, "delta", torch.float32, (b, nh, lq))
+    return b, lq, lk, nh, nkv, hd
+
+
+def flash_attention_dq(q, k, v, seg_q, seg_kv, lse, delta, do, causal: bool, scale: float):
+    """K2a on CUDA tensors: dq [B, Lq, NH, HD] bf16. ``delta`` [B, NH, Lq] f32
+    is sum(out * do, -1) minus the lse cotangent."""
+    b, lq, lk, nh, nkv, hd = _check_bwd_args(q, k, v, seg_q, seg_kv, lse, delta, do)
+    dq = torch.empty_like(q)
+    _build.check(KERNEL_DQ, _bwd_kernels()[0](
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), seg_q.data_ptr(),
+        seg_kv.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, lq, lk, nh, nkv,
+        hd, float(scale), int(causal), _build.stream_ptr(q)))
+    _build.launches[KERNEL_DQ] += 1
+    return dq
+
+
+def flash_attention_dkv(q, k, v, seg_q, seg_kv, lse, delta, do, causal: bool, scale: float):
+    """K2b on CUDA tensors: (dk, dv) [B, Lk, NKV, HD] bf16, the GQA group
+    summed inside the kernel."""
+    b, lq, lk, nh, nkv, hd = _check_bwd_args(q, k, v, seg_q, seg_kv, lse, delta, do)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _build.check(KERNEL_DKV, _bwd_kernels()[1](
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), seg_q.data_ptr(),
+        seg_kv.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, lq,
+        lk, nh, nkv, hd, float(scale), int(causal), _build.stream_ptr(q)))
+    _build.launches[KERNEL_DKV] += 1
+    return dk, dv
+
+
+def flash_attention_backward(q, k, v, seg_q, seg_kv, out, lse, do, dlse, causal: bool,
+                             scale: float):
+    """(dq, dk, dv): K2a and K2b for CUDA tensors, the plain version for CPU
+    tensors. ``do`` is the cotangent of ``out``, ``dlse`` (or None) of ``lse``."""
+    if not q.is_cuda:
+        return flash_attention_backward_reference(q, k, v, seg_q, seg_kv, out, lse, do, dlse,
+                                                  causal, scale)
+    do = do.contiguous()
+    delta = _delta(out, do, dlse)
+    dq = flash_attention_dq(q, k, v, seg_q, seg_kv, lse, delta, do, causal, scale)
+    dk, dv = flash_attention_dkv(q, k, v, seg_q, seg_kv, lse, delta, do, causal, scale)
+    return dq, dk, dv
+
+
+class AttnSaved:
+    """Kernel outputs of one attention call, kept across a recomputation: a
+    checkpointed layer that runs again for its backward hands them back
+    instead of launching K1 a second time (the ``save_attn`` remat mode)."""
+
+    __slots__ = ("out", "lse")
+
+    def __init__(self):
+        self.out = None
+        self.lse = None
+
+
+class _Flash(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, seg_q, seg_kv, causal, scale, saved):
+        if saved is not None and saved.out is not None:
+            # fresh views: the Function ties the tensors it returns to its own node
+            out, lse = saved.out.detach(), saved.lse.detach()
+        elif q.is_cuda:
+            out, lse = _fwd_cuda(q, k, v, seg_q, seg_kv, causal, scale)
+        else:
+            out, lse = flash_attention_reference(q, k, v, seg_q, seg_kv, causal, scale)
+        if saved is not None:
+            saved.out, saved.lse = out.detach(), lse.detach()
+        ctx.save_for_backward(q, k, v, seg_q, seg_kv, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, seg_q, seg_kv, out, lse = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(out)
+        dq, dk, dv = flash_attention_backward(q, k, v, seg_q, seg_kv, out, lse, do, dlse,
+                                              ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def _fwd(q, k, v, seg_q, seg_kv, causal: bool, scale: float | None,
+         saved: AttnSaved | None = None):
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.is_cuda:
-        return _fwd_cuda(q, k, v, seg_q.to(torch.int32), seg_kv.to(torch.int32), causal, scale)
-    return flash_attention_reference(q, k, v, seg_q, seg_kv, causal, scale)
+        seg_q, seg_kv = seg_q.to(torch.int32), seg_kv.to(torch.int32)
+    return _Flash.apply(q, k, v, seg_q, seg_kv, bool(causal), float(scale), saved)
 
 
 def flash_attention(
@@ -107,12 +300,14 @@ def flash_attention(
     scale: float | None = None,
     window: int = 0,
     sinks: torch.Tensor | None = None,
+    saved: AttnSaved | None = None,
 ) -> torch.Tensor:
-    """Public entry, [B, L, N, D] layout in and out (matches ops.attention)."""
+    """Public entry, [B, L, N, D] layout in and out (matches ops.attention).
+    ``saved`` keeps the kernel's outputs across a checkpoint's recomputation."""
     if window or sinks is not None:
-        raise NotImplementedError("sliding windows and attention sinks in K1 come with the "
+        raise NotImplementedError("sliding windows and attention sinks in K1/K2 come with the "
                                   "gpt-oss slice; this slice ports causal + segments + GQA")
-    out, _ = _fwd(q, k, v, segment_ids, segment_ids, causal, scale)
+    out, _ = _fwd(q, k, v, segment_ids, segment_ids, causal, scale, saved)
     return out
 
 
@@ -126,6 +321,8 @@ def flash_attention_with_lse(
     scale: float | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(out [B, Lq, NH, HD], lse [B, NH, Lq]): partials over different KV
-    blocks merge exactly through their lse. ``causal`` compares absolute row
-    and column indices, so it only makes sense for the diagonal block."""
+    blocks merge exactly through their lse, and the lse cotangent folds into
+    delta so that gradients flow through the merge. ``causal`` compares
+    absolute row and column indices, so it only makes sense for the diagonal
+    block."""
     return _fwd(q, k, v, seg_q, seg_kv, causal, scale)

@@ -1,0 +1,94 @@
+"""HF-format weight snapshots for serving + interchange (the port of the JAX
+package's ``trainer/weights.py``): per-step
+``weights/step_{N}/model.safetensors`` + config.json + STABLE marker, with
+``keep_last`` retention; also the filesystem weight-broadcast payload the
+sampler reloads from. ``load_hf_weights`` lives in ``models/qwen3.py``.
+"""
+
+from __future__ import annotations
+
+import json
+import shutil
+from pathlib import Path
+
+import torch
+
+from prime_rl_tpu_torch.configs.shared import WeightCheckpointConfig
+from prime_rl_tpu_torch.models.base import ModelSpec
+from prime_rl_tpu_torch.utils import pathing
+
+Params = dict
+
+
+def spec_to_hf_config(spec: ModelSpec) -> dict:
+    """Minimal HF config.json so external tools recognize the snapshot."""
+    arch = {
+        "qwen3": "Qwen3ForCausalLM",
+        "qwen3_moe": "Qwen3MoeForCausalLM",
+        "llama": "LlamaForCausalLM",
+    }.get(spec.family, "Qwen3ForCausalLM")
+    cfg = {
+        "architectures": [arch],
+        "vocab_size": spec.vocab_size,
+        "hidden_size": spec.hidden_size,
+        "num_hidden_layers": spec.num_layers,
+        "num_attention_heads": spec.num_heads,
+        "num_key_value_heads": spec.num_kv_heads,
+        "head_dim": spec.head_dim,
+        "intermediate_size": spec.intermediate_size,
+        "rope_theta": spec.rope_theta,
+        "rms_norm_eps": spec.rms_eps,
+        "tie_word_embeddings": spec.tie_embeddings,
+        "max_position_embeddings": spec.max_position_embeddings,
+        "eos_token_id": spec.eos_token_id,
+        "pad_token_id": spec.pad_token_id,
+        "torch_dtype": "bfloat16",
+    }
+    if spec.is_moe:
+        cfg.update(
+            num_experts=spec.num_experts,
+            num_experts_per_tok=spec.num_experts_per_tok,
+            moe_intermediate_size=spec.moe_intermediate_size,
+            norm_topk_prob=spec.norm_topk_prob,
+        )
+    return cfg
+
+
+def save_hf_weights(params: Params, spec: ModelSpec, path: str | Path) -> Path:
+    """Convert + write ``model.safetensors`` (bf16, the serving dtype) and
+    ``config.json``, then the STABLE marker."""
+    from safetensors.torch import save_file
+
+    from prime_rl_tpu_torch.models import get_family
+
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    state = get_family(spec).to_hf(params, spec)
+    # contiguous matters: safetensors writes the raw buffer
+    state = {k: torch.as_tensor(v).to(torch.bfloat16).contiguous() for k, v in state.items()}
+    save_file(state, str(path / "model.safetensors"))
+    (path / "config.json").write_text(json.dumps(spec_to_hf_config(spec), indent=2))
+    pathing.mark_stable(path)
+    return path
+
+
+class WeightCheckpointManager:
+    """Serving snapshots under ``weights/step_{N}`` with retention."""
+
+    def __init__(self, output_dir: str | Path, config: WeightCheckpointConfig, spec: ModelSpec):
+        self.output_dir = Path(output_dir)
+        self.config = config
+        self.spec = spec
+
+    def save(self, params: Params, step: int) -> Path:
+        path = save_hf_weights(params, self.spec, pathing.weights_dir(self.output_dir, step))
+        self._retain()
+        return path
+
+    def _retain(self) -> None:
+        keep = self.config.keep_last
+        if keep is None:
+            return
+        steps = pathing.list_step_dirs(self.output_dir / "weights", stable_only=False)
+        for s in steps[:-keep] if keep else steps:
+            shutil.rmtree(pathing.weights_dir(self.output_dir, s), ignore_errors=True)

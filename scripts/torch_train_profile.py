@@ -1,0 +1,215 @@
+#!/usr/bin/env python3
+"""Where a train step of the PyTorch port's RL trainer spends its time, on one
+NVIDIA GPU.
+
+    python3 scripts/torch_train_profile.py [--ac-mode full|save_attn|none]
+
+Builds the train state for Qwen3-0.6B (28 layers, full vocabulary, random
+weights from seed 0, bf16 masters, adamw_8bit, grad clip 1.0) and takes steps
+on fake batches of 4 micro-batches of [8, 512] tokens, as the trainer does.
+Measures, after two warm-up steps:
+  - host-clock time per step over three steps (ending in a synchronize);
+  - with CUDA events on the stream: gradient accumulation against the
+    optimizer update, and inside one micro-batch the forward, the LM head with
+    the loss, and the backward (which holds the remat recompute and the LM
+    head's backward); the LM head alone (forward + backward) on a detached
+    hidden state;
+  - under ``torch.profiler`` for one step: device time per kernel name (device
+    events only), summed into the hand-written attention kernels, the library
+    matrix products, and the rest (elementwise, reductions, copies), and the
+    device's idle share of the step.
+Prints a table, then one JSON line with the numbers.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+SEED, N_MB, ROWS, SEQ_LEN = 0, 4, 8, 512
+OURS = {"flash_fwd_kernel": "flash_attn_fwd", "flash_bwd_dq_kernel": "flash_attn_bwd_dq",
+        "flash_bwd_dkv_kernel": "flash_attn_bwd_dkv"}
+GEMM_MARKS = ("gemm", "cutlass", "xmma", "nvjet", "cublas")
+
+
+def main() -> int:
+    import torch
+
+    from prime_rl_tpu_torch.configs import TrainerConfig
+    from prime_rl_tpu_torch.models import get_family
+    from prime_rl_tpu_torch.models.base import get_spec
+    from prime_rl_tpu_torch.ops import _build
+    from prime_rl_tpu_torch.ops.lm_head import chunked_logprob_entropy
+    from prime_rl_tpu_torch.trainer.optim import make_optimizer, tree_map
+    from prime_rl_tpu_torch.trainer.rl.data import FakeDataLoader
+    from prime_rl_tpu_torch.trainer.step import (
+        MicroBatchArrays,
+        Scales,
+        init_train_state,
+        make_train_step,
+        put_batch,
+    )
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--ac-mode", default="full")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip()
+    print(card, flush=True)
+    _build.build()
+    cfg = TrainerConfig(
+        device="cuda", seed=SEED, grad_clip=1.0,
+        model={"name": "Qwen/Qwen3-0.6B", "seq_len": SEQ_LEN, "ac": {"mode": args.ac_mode},
+               "debug": {"random_init": True}},
+        optimizer={"type": "adamw_8bit", "lr": 1e-5, "master_dtype": "bfloat16"},
+        data={"type": "fake", "seq_len": SEQ_LEN, "micro_batch_size": ROWS,
+              "num_micro_batches": N_MB})
+    spec = get_spec(cfg.model.name)
+    dev = torch.device("cuda")
+    optimizer, _ = make_optimizer(cfg.optimizer, cfg.scheduler, cfg.grad_clip)
+    state = init_train_state(spec, dev, optimizer, seed=SEED, master_dtype="bfloat16")
+    step = make_train_step(spec, cfg.model, cfg.loss, optimizer, dev)
+    loader = FakeDataLoader(spec.vocab_size, SEQ_LEN, ROWS, N_MB, seed=SEED)
+
+    def next_inputs():
+        batch, counts = loader.next_batch()
+        return put_batch(batch, dev), Scales(float(max(counts["rl"], 1)), 1.0, 1.0)
+
+    def events(n):
+        return [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+
+    for _ in range(2):
+        state, _ = step(state, *next_inputs())
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        batch, scales = next_inputs()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, scales)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = sorted(walls)[1]
+    tokens = N_MB * ROWS * SEQ_LEN
+
+    # the two halves of a step
+    batch, scales = next_inputs()
+    e = events(3)
+    e[0].record()
+    grads, _, _ = step.accum_grads(state.params, batch, scales)
+    e[1].record()
+    state, _ = step.apply_update(state, grads)
+    e[2].record()
+    torch.cuda.synchronize()
+    accum_ms, update_ms = e[0].elapsed_time(e[1]), e[1].elapsed_time(e[2])
+    del grads
+
+    # inside one micro-batch
+    from prime_rl_tpu_torch.trainer.rl import loss as loss_lib
+    from prime_rl_tpu_torch.trainer.step import _shift_left
+
+    family = get_family(spec)
+    mb = MicroBatchArrays(*[None if x is None else x[0] for x in batch])
+    gp = tree_map(lambda x: x.detach().requires_grad_(True), state.params)
+    labels, temps = _shift_left(mb.input_ids, 0), _shift_left(mb.temperatures, 1.0)
+    e = events(4)
+    e[0].record()
+    hidden = family.forward(gp, spec, mb.input_ids, mb.segment_ids, mb.position_ids,
+                            remat=cfg.model.ac.mode)
+    e[1].record()
+    lp, _ = chunked_logprob_entropy(hidden, family.get_lm_head(gp, spec), labels, temps,
+                                    chunk_size=cfg.model.lm_head_chunk_size)
+    loss, _ = loss_lib.compute_loss(
+        trainer_logprobs=lp, inference_logprobs=mb.inference_logprobs,
+        advantages=mb.advantages, loss_mask=mb.loss_mask, ref_logprobs=None, rl_weights=None,
+        ce_weights=None, ref_kl_weights=None, loss_cfg=cfg.loss, rl_scale=scales.rl,
+        ce_scale=1.0, ref_kl_scale=1.0)
+    e[2].record()
+    loss.backward()
+    e[3].record()
+    torch.cuda.synchronize()
+    fwd_ms, head_ms, bwd_ms = (e[i].elapsed_time(e[i + 1]) for i in range(3))
+    # the LM head alone, forward and backward, on a detached hidden state
+    h2 = hidden.detach().requires_grad_(True)
+    w2 = family.get_lm_head(state.params, spec).detach().requires_grad_(True)
+    e = events(2)
+    e[0].record()
+    lp2, _ = chunked_logprob_entropy(h2, w2, labels, temps,
+                                     chunk_size=cfg.model.lm_head_chunk_size)
+    lp2.sum().backward()
+    e[1].record()
+    torch.cuda.synchronize()
+    head_alone_ms = e[0].elapsed_time(e[1])
+    del gp, hidden, lp, loss, h2, w2, lp2
+
+    # one whole step under the profiler
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    batch, scales = next_inputs()
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, scales)
+        torch.cuda.synchronize()
+        wall_prof = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    rows = [(ev.key, ev.self_device_time_total / 1e3, ev.count) for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows)
+    groups = {"library matrix products": 0.0, "elementwise, reductions, copies": 0.0}
+    groups.update({v: 0.0 for v in OURS.values()})
+    n_kernels = 0
+    for name, ms, count in rows:
+        n_kernels += count
+        ours = next((v for k, v in OURS.items() if k in name), None)
+        if ours is not None:
+            groups[ours] += ms
+        elif any(m in name.lower() for m in GEMM_MARKS):
+            groups["library matrix products"] += ms
+        else:
+            groups["elementwise, reductions, copies"] += ms
+    print(f"{'kernel':70s} {'device ms':>10s} {'share':>7s} {'calls':>6s}")
+    for name, ms, count in rows[:25]:
+        print(f"{name[:70]:70s} {ms:10.3f} {ms / busy_ms:7.1%} {count:6d}")
+    for name, ms in groups.items():
+        print(f"{name:40s} {ms:10.3f} ms {ms / busy_ms:7.1%} of busy")
+    flops = spec.flops_per_token(SEQ_LEN) * tokens
+    result = {
+        "card": card, "ac_mode": cfg.model.ac.mode, "tokens_per_step": tokens,
+        "step_s": wall, "step_s_all": walls, "tokens_per_s": tokens / wall,
+        "mfu_vs_989_tflops": flops / wall / 989e12,
+        "loss": float(metrics["loss"]),
+        "accum_grads_ms": accum_ms, "optimizer_update_ms": update_ms,
+        "one_micro_batch": {"forward_ms": fwd_ms, "lm_head_and_loss_forward_ms": head_ms,
+                            "backward_ms": bwd_ms,
+                            "lm_head_alone_forward_backward_ms": head_alone_ms},
+        "profiled_step_s": wall_prof, "device_busy_ms": busy_ms,
+        # the profiler slows the host, not the kernels: the idle share of an
+        # unprofiled step is the busy time against the unprofiled wall
+        "device_idle_share": 1.0 - busy_ms / (wall * 1e3),
+        "device_idle_share_profiled": 1.0 - busy_ms / (wall_prof * 1e3),
+        "device_kernels_per_step": n_kernels,
+        "busy_ms_by_group": groups,
+        "kernel_launches_per_step": launches,
+        "peak_device_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "top_kernels": [dict(name=n[:120], ms=ms, calls=c) for n, ms, c in rows[:12]],
+    }
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

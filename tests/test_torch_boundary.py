@@ -1,6 +1,6 @@
 """Import boundary of the PyTorch port: every module of ``prime_rl_tpu_torch``
 imports with ``jax`` and ``prime_rl_tpu`` made unimportable, and the port's
-inference config runs on the card unless asked otherwise."""
+inference and trainer configs run on the card unless asked otherwise."""
 
 import subprocess
 import sys
@@ -28,6 +28,8 @@ _CHECK = textwrap.dedent("""
     assert not leaked, leaked
     from prime_rl_tpu_torch.entrypoints.inference import InferenceConfig
     assert InferenceConfig().device == "cuda"
+    from prime_rl_tpu_torch.entrypoints.trainer import TrainerConfig
+    assert TrainerConfig().device == "cuda"
     print(len(names))
 """)
 
@@ -36,4 +38,4 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     out = subprocess.run([sys.executable, "-c", _CHECK], cwd=REPO, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20  # every module of the slice was imported
+    assert int(out.stdout.strip()) >= 40  # every module of both slices was imported

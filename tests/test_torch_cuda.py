@@ -6,7 +6,11 @@ repo conftest sets up JAX, which these tests do not use).
 
 Tolerance: 1e-2 absolute + 1e-2 relative against the plain version in
 float32 (bf16 keeps 8 significant bits; each kernel rounds its output once,
-K1 also its probabilities); the KV append must be exact.
+K1 also its probabilities); the KV append must be exact. K2a/K2b are held
+against the plain backward on the same bf16 inputs (which rounds p and ds to
+bf16 where the kernels do): 2e-2 absolute + 2e-2 relative, because a bf16
+rounding of ds that flips by one step in the kernel moves a sum of up to 192
+terms by more than one bf16 step of the result.
 """
 
 import pytest
@@ -18,7 +22,13 @@ from prime_rl_tpu_torch.ops.decode_attention import (
     decode_paged_attention_reference,
 )
 from prime_rl_tpu_torch.ops.decode_qkv import decode_qkv_prep, decode_qkv_prep_reference
-from prime_rl_tpu_torch.ops.flash_attention import flash_attention_reference, flash_attention_with_lse
+from prime_rl_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_backward,
+    flash_attention_backward_reference,
+    flash_attention_reference,
+    flash_attention_with_lse,
+)
 
 torch.set_num_threads(1)
 
@@ -53,6 +63,65 @@ def test_flash_attn_fwd_matches_plain(gen, hd):
                                                  True, hd ** -0.5)
     _assert_close(out, ref_out)
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
+
+
+def _packed_seg(b, l):
+    seg = torch.zeros(b, l, dtype=torch.int32, device="cuda")
+    seg[0, : l // 3], seg[0, l // 3: l - 40] = 1, 2  # two segments and a padded tail
+    seg[1, : l // 2] = 1
+    return seg
+
+
+@pytest.mark.parametrize("hd,nh,nkv,l", [(64, 4, 2, 192), (128, 4, 2, 192), (128, 2, 2, 200)])
+def test_flash_attn_bwd_matches_plain(gen, hd, nh, nkv, l):
+    """K2a and K2b (GQA 2:1 and 1:1, a ragged last tile) against the plain
+    backward; rows of padding carry a non-zero cotangent and must give dq = 0."""
+    b = 2
+    q, k, v = _bf16(gen, b, l, nh, hd), _bf16(gen, b, l, nkv, hd), _bf16(gen, b, l, nkv, hd)
+    do = _bf16(gen, b, l, nh, hd)
+    seg = _packed_seg(b, l)
+    out, lse = flash_attention_with_lse(q, k, v, seg, seg, causal=True)
+    before = (_build.launches["flash_attn_bwd_dq"], _build.launches["flash_attn_bwd_dkv"])
+    got = flash_attention_backward(q, k, v, seg, seg, out, lse, do, None, True, hd ** -0.5)
+    torch.cuda.synchronize()
+    assert _build.launches["flash_attn_bwd_dq"] == before[0] + 1
+    assert _build.launches["flash_attn_bwd_dkv"] == before[1] + 1
+    ref = flash_attention_backward_reference(q, k, v, seg, seg, out, lse, do, None, True,
+                                             hd ** -0.5)
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        assert torch.isfinite(g.float()).all(), name
+        torch.testing.assert_close(g.float(), r.float(), atol=2e-2, rtol=2e-2, msg=name)
+    assert (got[0][seg == 0] == 0).all()
+
+
+def test_flash_attn_bwd_cross_block_with_lse_cotangent(gen):
+    """Lq != Lkv, non-causal, gradients of both out and lse through autograd."""
+    b, lq, lk, nh, nkv, hd = 2, 128, 192, 4, 2, 128
+    q, k, v = _bf16(gen, b, lq, nh, hd), _bf16(gen, b, lk, nkv, hd), _bf16(gen, b, lk, nkv, hd)
+    seg_q = torch.ones(b, lq, dtype=torch.int32, device="cuda")
+    seg_kv = torch.ones(b, lk, dtype=torch.int32, device="cuda")
+    seg_q[1, 100:], seg_kv[1, 150:] = 0, 0
+    do, dlse = _bf16(gen, b, lq, nh, hd), torch.randn(b, nh, lq, device="cuda", generator=gen)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out, lse = flash_attention_with_lse(*leaves, seg_q, seg_kv, causal=False)
+    got = torch.autograd.grad([out, lse], leaves, [do, dlse])
+    ref = flash_attention_backward_reference(q, k, v, seg_q, seg_kv, out.detach(), lse.detach(),
+                                             do, dlse, False, hd ** -0.5)
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        torch.testing.assert_close(g.float(), r.float(), atol=2e-2, rtol=2e-2, msg=name)
+
+
+def test_flash_attention_backward_is_deterministic(gen):
+    b, l, nh, nkv, hd = 2, 256, 4, 2, 128
+    q, k, v = _bf16(gen, b, l, nh, hd), _bf16(gen, b, l, nkv, hd), _bf16(gen, b, l, nkv, hd)
+    seg = _packed_seg(b, l)
+    grads = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        flash_attention(*leaves, seg).float().square().sum().backward()
+        grads.append([t.grad for t in leaves])
+    for a, c in zip(*grads):
+        assert torch.equal(a, c)
 
 
 @pytest.mark.parametrize("hd,bias,partial", [(128, False, False), (64, True, True)])
