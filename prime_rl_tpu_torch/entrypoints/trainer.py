@@ -9,6 +9,12 @@ from prime_rl_tpu_torch.configs import TrainerConfig, parse_config
 
 
 def main() -> None:
+    import os
+
+    # a train state of several gigabytes of parameters comes close to the card's
+    # memory: keep the caching allocator from stranding it in fragments (the
+    # setting is read when the allocator is first used; the caller's own wins)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     from prime_rl_tpu_torch.trainer.rl.train import train
 
     train(parse_config(TrainerConfig))

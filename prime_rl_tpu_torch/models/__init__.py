@@ -1,9 +1,11 @@
-"""Model registry: family -> (init, forward, conversion). This slice holds
-the dense qwen3 block and llama (the same block with ``qk_norm=False``)."""
+"""Model registry: family -> (init, forward, conversion). Ported so far: the
+dense qwen3 block, llama (the same block with ``qk_norm=False``), and the MLA
+families ``deepseek_v3`` (dense MLA) and ``glm_moe_dsa`` (MLA + DSA sparse
+attention), both over the noaux-tc MoE stack, for training."""
 
 from __future__ import annotations
 
-from prime_rl_tpu_torch.models import qwen3
+from prime_rl_tpu_torch.models import mla_moe, qwen3
 from prime_rl_tpu_torch.models.base import ModelSpec
 
 
@@ -18,11 +20,14 @@ class Family:
 
 _DENSE = Family(qwen3.init_params, qwen3.forward, qwen3.params_from_hf_state_dict,
                 qwen3.params_to_hf_state_dict, qwen3.get_lm_head)
-FAMILIES: dict[str, Family] = {"qwen3": _DENSE, "llama": _DENSE}
+_MLA = Family(mla_moe.init_params, mla_moe.forward, mla_moe.params_from_hf_state_dict,
+              mla_moe.params_to_hf_state_dict, mla_moe.get_lm_head)
+FAMILIES: dict[str, Family] = {"qwen3": _DENSE, "llama": _DENSE,
+                               "deepseek_v3": _MLA, "glm_moe_dsa": _MLA}
 
 
 def get_family(spec: ModelSpec) -> Family:
     if spec.family not in FAMILIES:
         raise NotImplementedError(f"model family {spec.family!r} is not ported yet "
-                                  "(ported: qwen3, llama)")
+                                  f"(ported: {', '.join(sorted(FAMILIES))})")
     return FAMILIES[spec.family]

@@ -326,15 +326,17 @@ def params_to_hf_state_dict(params: Params, spec: ModelSpec) -> dict[str, np.nda
 def load_hf_weights(path, spec: ModelSpec, dtype=torch.bfloat16,
                     device: torch.device | str = "cpu") -> Params:
     """Read an HF snapshot dir (one or more ``.safetensors`` shards, bf16 or
-    f32) into stacked params on ``device``."""
+    f32) into the stacked params of ``spec``'s family on ``device``."""
     from pathlib import Path
 
     from safetensors.torch import load_file
 
+    from prime_rl_tpu_torch.models import get_family
+
     state: dict[str, torch.Tensor] = {}
     for f in sorted(Path(path).glob("*.safetensors")):
         state.update(load_file(str(f)))
-    return params_from_hf_state_dict(state, spec, dtype=dtype, device=device)
+    return get_family(spec).from_hf(state, spec, dtype=dtype, device=device)
 
 
 def params_from_jax(np_params: dict, spec: ModelSpec, device: torch.device | str = "cpu",

@@ -30,7 +30,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("flash_attn_fwd", "flash_attn_bwd", "decode_qkv", "decode_attention")
+KERNELS = ("flash_attn_fwd", "flash_attn_bwd", "decode_qkv", "decode_attention", "sparse_mla")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

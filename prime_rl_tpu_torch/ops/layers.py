@@ -20,6 +20,21 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.
     return (xf * weight.float()).to(dtype)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None,
+               eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm (mean-subtracting, affine) in fp32 with cast back: the DSA
+    indexer's k-norm."""
+    dtype = x.dtype
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    xf = (xf - mean) * torch.rsqrt(var + eps)
+    xf = xf * weight.float()
+    if bias is not None:
+        xf = xf + bias.float()
+    return xf.to(dtype)
+
+
 def rope_frequencies(head_dim: int, theta: float = 10000.0,
                      device: torch.device | str = "cpu") -> torch.Tensor:
     """Inverse frequencies [head_dim//2] (float32)."""

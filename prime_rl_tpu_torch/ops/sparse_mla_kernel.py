@@ -1,0 +1,282 @@
+"""K5a, K5b: sparse MLA attention (DSA) over each token's selected latent-KV
+rows, forward and backward: the hand-written CUDA kernels of
+``csrc/sparse_mla.cu`` and their plain PyTorch versions.
+
+The counterpart of the JAX package's ``ops/sparse_mla_pallas.py`` (renamed:
+there is no Pallas here). It replaces the TPU kernels ``_fwd_kernel`` (K5a,
+the ``pallas_call`` in ``_fwd_call``) and ``_bwd_kernel`` (K5b, the
+``pallas_call`` in ``_bwd_call``) together with the row gather and its
+transpose, the dKV scatter-add, which the JAX package leaves to XLA.
+
+Contract of ``sparse_mla_attention(q [S, H, Dq], kv [Sk, Dq], indices
+[S, topk] int32, sm_scale, v_dim) -> [S, H, v_dim]`` (a leading batch dim on
+all three is looped over): softmax over each query's selected rows, an index
+outside ``[0, Sk)`` (the sentinel is ``Sk``) masked out, value = the first
+``v_dim`` channels of the row. A token that selected nothing gets output 0,
+lse -5e29 and gradient 0. **The real indices of one row must be distinct**
+(a top-k gives that): the backward sums one dkv contribution per selected
+slot. One ``torch.autograd.Function`` saves ``q, kv, indices, out, lse``,
+never the gathered rows.
+
+Where bfloat16 rounds, in the kernels and in the plain versions alike: ``p``
+to kv's dtype before ``p v``, ``ds`` to kv's dtype before both of its
+products, ``p`` to do's dtype for dv, float32 sums, the per-slot dkv rows to
+kv's dtype once. Unlike the JAX package, which adds those rows up in
+bfloat16, dkv is summed in float32 and rounded once.
+
+On the card the kernels take bfloat16 tensors with ``H = 64, Dq = 576, v_dim
+= 512`` (latent 512 + rope 64, the MLA widths of the glm_moe_dsa family) and
+raise for anything else; the TPU version's quiet fall-back to the XLA form
+is not carried over. The backward runs over chunks of queries: K5b writes
+each chunk's per-slot dkv rows into a ``[chunk, topk, Dq]`` buffer of about
+1.2 GB, and ``sparse_mla_dkv_reduce`` gives every kv row one block that sums
+the rows of the slots that selected it, in the order of a stable sort of the
+chunk's indices: no atomics, so two runs give the same bits. What bounds the
+kernels and what their design does about it: the note in
+``csrc/sparse_mla.cu``.
+
+For CPU tensors the wrappers run ``sparse_mla_attention_reference`` and
+``sparse_mla_backward_reference``; for CUDA tensors they launch the kernels
+or raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from prime_rl_tpu_torch.ops import _build
+
+NEG_INF = -1e30
+KERNEL = "sparse_mla"  # one source, three kernels, counted separately:
+KERNEL_FWD = "sparse_mla_fwd"
+KERNEL_BWD = "sparse_mla_bwd"
+KERNEL_REDUCE = "sparse_mla_dkv_reduce"
+HEADS, DQ, DV = 64, 576, 512  # the widths the kernels are compiled for
+BWD_SLOTS = 1 << 20  # (query, slot) pairs per backward launch: a 1.2 GB dkvg buffer
+
+_fns = None
+
+
+def _kernels():
+    global _fns
+    if _fns is None:
+        lib = _build.load(KERNEL)
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fwd, bwd, red = lib.sparse_mla_fwd, lib.sparse_mla_bwd, lib.sparse_mla_dkv_reduce
+        fwd.argtypes = [p] * 5 + [i] * 6 + [f, p]
+        bwd.argtypes = [p] * 8 + [i] * 6 + [f, p]
+        red.argtypes = [p] * 4 + [i] * 2 + [p]
+        fwd.restype = bwd.restype = red.restype = i
+        _fns = (fwd, bwd, red)
+    return _fns
+
+
+def bwd_chunk(S: int, T: int) -> int:
+    """Queries per backward launch: a multiple of 8, so that every chunk's
+    slice of the indices starts on a 32-byte boundary."""
+    return max(1, min(S, max(8, BWD_SLOTS // max(T, 1) // 8 * 8)))
+
+
+def bwd_launches(S: int, T: int) -> int:
+    """K5b launches (and reductions) of one backward call."""
+    return -(-S // bwd_chunk(S, T))
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def _gather(kv, ic):
+    Sk = kv.shape[0]
+    valid = (ic >= 0) & (ic < Sk)
+    return kv[ic.clamp(0, Sk - 1)], valid
+
+
+def sparse_mla_attention_reference(q, kv, indices, sm_scale: float, v_dim: int,
+                                   chunk: int = 128):
+    """Plain version of K5a: (out [S, H, v_dim] in q's dtype, lse [S, H] f32).
+    Scores and softmax in f32, p rounded to kv's dtype before the value
+    product, the sum taken before the rounding."""
+    outs, lses = [], []
+    for c0 in range(0, q.shape[0], chunk):
+        qc, ic = q[c0:c0 + chunk], indices[c0:c0 + chunk].long()
+        kvg, valid = _gather(kv, ic)
+        valid = valid[:, None, :]
+        s = torch.einsum("chd,ctd->cht", qc.float(), kvg.float()) * sm_scale
+        s = torch.where(valid, s, NEG_INF)
+        m = s.amax(dim=-1, keepdim=True).clamp(min=NEG_INF / 2)
+        p = torch.where(valid, torch.exp(s - m), 0.0)
+        l = p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
+        o = torch.einsum("cht,ctd->chd", p.to(kv.dtype).float(), kvg[..., :v_dim].float()) / l
+        outs.append(o.to(q.dtype))
+        lses.append((m + torch.log(l))[..., 0])
+    return torch.cat(outs, dim=0), torch.cat(lses, dim=0)
+
+
+def sparse_mla_backward_reference(q, kv, indices, out, lse, do, sm_scale: float, v_dim: int,
+                                  chunk: int = 128):
+    """Plain version of K5b and the dkv reduction: (dq [S, H, Dq], dkv
+    [Sk, Dq]) from the saved lse, rounding where the kernels round."""
+    Sk = kv.shape[0]
+    delta = (out.float() * do.float()).sum(dim=-1)  # [S, H]
+    dkv = torch.zeros(kv.shape, dtype=torch.float32, device=kv.device)
+    dqs = []
+    for c0 in range(0, q.shape[0], chunk):
+        qc, ic = q[c0:c0 + chunk].float(), indices[c0:c0 + chunk].long()
+        doc = do[c0:c0 + chunk]
+        kvg, valid = _gather(kv, ic)
+        kvg = kvg.float()
+        s = torch.einsum("chd,ctd->cht", qc, kvg) * sm_scale
+        mask = valid[:, None, :]
+        # masked entries are replaced before the exponential: exp(s + 5e29) never runs
+        p = torch.where(mask, torch.exp(torch.where(mask, s - lse[c0:c0 + chunk, :, None], 0.0)),
+                        0.0)
+        dp = torch.einsum("chd,ctd->cht", doc.float(), kvg[..., :v_dim])
+        ds = (p * (dp - delta[c0:c0 + chunk, :, None]) * sm_scale).to(kv.dtype).float()
+        dqs.append(torch.einsum("cht,ctd->chd", ds, kvg).to(q.dtype))
+        dkvg = torch.einsum("cht,chd->ctd", ds, qc)
+        dkvg[..., :v_dim] += torch.einsum("cht,chd->ctd", p.to(do.dtype).float(), doc.float())
+        dkvg = dkvg.to(kv.dtype).float()
+        dkv.index_add_(0, ic[valid], dkvg[valid])
+    return torch.cat(dqs, dim=0), dkv.to(kv.dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernels
+# ---------------------------------------------------------------------------
+
+def _check_args(q, kv, indices, v_dim: int):
+    S, H, Dq = q.shape
+    if (H, Dq, v_dim) != (HEADS, DQ, DV):
+        raise ValueError(f"the sparse MLA kernels take H = {HEADS}, Dq = {DQ}, v_dim = {DV}; "
+                         f"got H = {H}, Dq = {Dq}, v_dim = {v_dim}")
+    _build.require(q, "q", torch.bfloat16)
+    _build.require(kv, "kv", torch.bfloat16, (kv.shape[0], Dq))
+    _build.require(indices, "indices", torch.int32, (S, indices.shape[1]))
+    return S, kv.shape[0], indices.shape[1]
+
+
+def sparse_mla_fwd(q, kv, indices, sm_scale: float, v_dim: int):
+    """K5a on CUDA tensors: (out [S, H, v_dim] bf16, lse [S, H] f32)."""
+    S, Sk, T = _check_args(q, kv, indices, v_dim)
+    out = torch.empty((S, HEADS, v_dim), dtype=q.dtype, device=q.device)
+    lse = torch.empty((S, HEADS), dtype=torch.float32, device=q.device)
+    _build.check(KERNEL_FWD, _kernels()[0](
+        q.data_ptr(), kv.data_ptr(), indices.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        S, Sk, T, HEADS, DQ, v_dim, float(sm_scale), _build.stream_ptr(q)))
+    _build.launches[KERNEL_FWD] += 1
+    return out, lse
+
+
+def sparse_mla_dkv_reduce(dkvg, order, seg, dkv):
+    """dkv [Sk, Dq] f32 += the rows of dkvg [slots, Dq] bf16 named by
+    ``order[seg[r]:seg[r + 1]]`` for every kv row r, summed in that order."""
+    Sk = dkv.shape[0]
+    _build.require(dkvg, "dkvg", torch.bfloat16)
+    _build.require(order, "order", torch.int64)
+    _build.require(seg, "seg", torch.int32, (Sk + 1,))
+    _build.require(dkv, "dkv", torch.float32, (Sk, DQ))
+    _build.check(KERNEL_REDUCE, _kernels()[2](
+        dkvg.data_ptr(), order.data_ptr(), seg.data_ptr(), dkv.data_ptr(), Sk, DQ,
+        _build.stream_ptr(dkv)))
+    _build.launches[KERNEL_REDUCE] += 1
+
+
+def slot_order(indices: torch.Tensor, Sk: int):
+    """The inverse of a chunk's selection: (order int64 [slots], seg int32
+    [Sk + 1]) such that ``order[seg[r]:seg[r + 1]]`` are the flat slots that
+    selected kv row r, ascending (a stable sort: the same order every run)."""
+    flat = indices.reshape(-1)
+    keys = torch.where((flat >= 0) & (flat < Sk), flat, Sk)
+    sorted_keys, order = torch.sort(keys, stable=True)
+    bounds = torch.arange(Sk + 1, dtype=keys.dtype, device=keys.device)
+    seg = torch.searchsorted(sorted_keys, bounds).to(torch.int32)
+    return order, seg
+
+
+def sparse_mla_bwd_chunk(q, kv, indices, do, lse, delta, dq, dkvg, sm_scale: float,
+                         v_dim: int) -> None:
+    """One K5b launch over a chunk of C queries (``q, indices, do, lse, delta``
+    and ``dq`` are the chunk's slices): writes ``dq`` [C, H, Dq] and, for every
+    slot with a real index, its dkv row into ``dkvg`` [>= C, T, Dq] bf16."""
+    C, Sk, T = _check_args(q, kv, indices, v_dim)
+    _build.require(do, "do", torch.bfloat16, (C, HEADS, v_dim))
+    _build.require(lse, "lse", torch.float32, (C, HEADS))
+    _build.require(delta, "delta", torch.float32, (C, HEADS))
+    _build.require(dq, "dq", torch.bfloat16, (C, HEADS, DQ))
+    _build.require(dkvg, "dkvg", torch.bfloat16)
+    if dkvg.shape[0] < C or tuple(dkvg.shape[1:]) != (T, DQ):
+        raise ValueError(f"dkvg: expected at least [{C}, {T}, {DQ}], got {tuple(dkvg.shape)}")
+    _build.check(KERNEL_BWD, _kernels()[1](
+        q.data_ptr(), kv.data_ptr(), indices.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dkvg.data_ptr(), C, Sk, T, HEADS, DQ, v_dim,
+        float(sm_scale), _build.stream_ptr(q)))
+    _build.launches[KERNEL_BWD] += 1
+
+
+def sparse_mla_bwd(q, kv, indices, out, lse, do, sm_scale: float, v_dim: int):
+    """K5b and the dkv reduction on CUDA tensors, chunk by chunk: (dq
+    [S, H, Dq], dkv [Sk, Dq]), both bf16."""
+    S, Sk, T = _check_args(q, kv, indices, v_dim)
+    do = do.contiguous()
+    delta = (out.float() * do.float()).sum(dim=-1)
+    dq = torch.empty_like(q)
+    dkv = torch.zeros((Sk, DQ), dtype=torch.float32, device=q.device)
+    chunk = bwd_chunk(S, T)
+    dkvg = torch.empty((chunk, T, DQ), dtype=torch.bfloat16, device=q.device)
+    for c0 in range(0, S, chunk):
+        sl = slice(c0, min(c0 + chunk, S))
+        sparse_mla_bwd_chunk(q[sl], kv, indices[sl], do[sl], lse[sl], delta[sl], dq[sl], dkvg,
+                             sm_scale, v_dim)
+        order, seg = slot_order(indices[sl], Sk)
+        sparse_mla_dkv_reduce(dkvg, order, seg, dkv)
+    return dq, dkv.to(kv.dtype)
+
+
+def sparse_mla_forward(q, kv, indices, sm_scale: float, v_dim: int):
+    """(out, lse): K5a for CUDA tensors, the plain version for CPU tensors."""
+    if not q.is_cuda:
+        return sparse_mla_attention_reference(q, kv, indices, sm_scale, v_dim)
+    return sparse_mla_fwd(q, kv, indices, sm_scale, v_dim)
+
+
+def sparse_mla_backward(q, kv, indices, out, lse, do, sm_scale: float, v_dim: int):
+    """(dq, dkv): K5b for CUDA tensors, the plain version for CPU tensors."""
+    if not q.is_cuda:
+        return sparse_mla_backward_reference(q, kv, indices, out, lse, do, sm_scale, v_dim)
+    return sparse_mla_bwd(q, kv, indices, out, lse, do, sm_scale, v_dim)
+
+
+class _SparseMLA(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, kv, indices, sm_scale, v_dim):
+        out, lse = sparse_mla_forward(q, kv, indices, sm_scale, v_dim)
+        ctx.save_for_backward(q, kv, indices, out, lse)
+        ctx.sm_scale, ctx.v_dim = sm_scale, v_dim
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, kv, indices, out, lse = ctx.saved_tensors
+        dq, dkv = sparse_mla_backward(q, kv, indices, out, lse, do, ctx.sm_scale, ctx.v_dim)
+        return dq, dkv, None, None, None
+
+
+def sparse_mla_attention(
+    q: torch.Tensor,  # [S, H, Dq] or [B, S, H, Dq]
+    kv: torch.Tensor,  # [Sk, Dq] or [B, Sk, Dq]
+    indices: torch.Tensor,  # [S, topk] or [B, S, topk] int, sentinel = Sk
+    sm_scale: float,
+    v_dim: int,
+) -> torch.Tensor:
+    """[S, H, v_dim] (or [B, S, H, v_dim]): the drop-in for
+    ``ops.sparse_mla.sparse_mla_attention`` with the same sentinel contract,
+    through K5a/K5b on the card."""
+    if q.dim() == 4:
+        return torch.stack([sparse_mla_attention(q[b], kv[b], indices[b], sm_scale, v_dim)
+                            for b in range(q.shape[0])])
+    if q.is_cuda:
+        q, kv, indices = q.contiguous(), kv.contiguous(), indices.to(torch.int32).contiguous()
+    return _SparseMLA.apply(q, kv, indices, float(sm_scale), int(v_dim))

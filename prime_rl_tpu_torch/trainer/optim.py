@@ -197,6 +197,9 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Opti
     return Optimizer(init, update)
 
 
+_LEAF_BLOCKS = 8192  # blocks of one run of the 8-bit update (16.8 M elements at block 2048)
+
+
 def scale_by_adam_8bit(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                        block: int = 2048) -> Optimizer:
     """Adam whose moments live as blockwise 8-bit codes (+1 f32 scale per
@@ -246,7 +249,22 @@ def scale_by_adam_8bit(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
             nq, ns, _ = _quant_nu(torch.sqrt(nu), block)
             return upd, {"mu_q": mq, "mu_s": ms, "nu_q": nq, "nu_s": ns}
 
-        out = [leaf(g, m) for g, m in zip(tree_leaves(updates), _moment_leaves(state["m"]))]
+        def chunked(g, m):
+            """``leaf`` over runs of whole blocks: blockwise codes and
+            elementwise arithmetic give the same bits, with temporaries the
+            size of a run instead of the leaf (a stack of experts is hundreds
+            of millions of elements)."""
+            nb = m["mu_q"].shape[0]
+            if nb <= _LEAF_BLOCKS:
+                return leaf(g, m)
+            flat = g.reshape(-1)
+            parts = [leaf(flat[b0 * block:(b0 + _LEAF_BLOCKS) * block],
+                          {k: v[b0:b0 + _LEAF_BLOCKS] for k, v in m.items()})
+                     for b0 in range(0, nb, _LEAF_BLOCKS)]
+            upd = torch.cat([p[0] for p in parts]).reshape(g.shape)
+            return upd, {k: torch.cat([p[1][k] for p in parts]) for k in m}
+
+        out = [chunked(g, m) for g, m in zip(tree_leaves(updates), _moment_leaves(state["m"]))]
         new_u = tree_unflatten(updates, [o[0] for o in out])
         new_m = tree_unflatten(updates, [o[1] for o in out])
         return new_u, {"count": count, "m": new_m}

@@ -63,7 +63,7 @@ class MicroBatchArrays(NamedTuple):
     rl_weights: Any = None
     ce_weights: Any = None
     ref_kl_weights: Any = None
-    # router replay [N, B, L, NL, K]: unused by the dense families
+    # router replay [N, B, L, NL_moe, K], -1 = the trainer's own routing (MoE families)
     routed_experts: Any = None
     # VLM streams: they wait for the VLM slice and must be None
     mm_patches: Any = None
@@ -117,6 +117,14 @@ def model_logprobs(params: Params, spec: ModelSpec, mb, model_cfg, mesh=None,
         raise NotImplementedError("the VLM batch streams wait for the VLM slice")
     family = get_family(spec)
     dtype = _compute_dtype(model_cfg)
+    extra = {}
+    collect_aux = spec.is_moe and model_cfg.moe_aux_coef > 0
+    if collect_aux:
+        extra["collect_aux"] = True
+    if mb.routed_experts is not None and spec.is_moe:
+        extra["routed_experts"] = mb.routed_experts
+    if model_cfg.quantized_compute:
+        extra["quantized_compute"] = model_cfg.quantized_compute
     hidden = family.forward(
         params, spec, mb.input_ids, mb.segment_ids, mb.position_ids,
         compute_dtype=dtype,
@@ -128,8 +136,11 @@ def model_logprobs(params: Params, spec: ModelSpec, mb, model_cfg, mesh=None,
         lora=lora,
         lora_scale=lora_scale,
         cp_style=model_cfg.cp_style,
-        quantized_compute=model_cfg.quantized_compute,
+        **extra,
     )
+    moe_aux = torch.zeros((), device=mb.input_ids.device)
+    if collect_aux:
+        hidden, moe_aux = hidden
     labels = _shift_left(mb.input_ids, 0)
     # logits at t are scaled by the temperature the *label* token was sampled at
     label_temps = _shift_left(mb.temperatures, 1.0)
@@ -141,7 +152,7 @@ def model_logprobs(params: Params, spec: ModelSpec, mb, model_cfg, mesh=None,
     log_v = float(np.log(spec.vocab_size))
     logprobs = _shift_right(lp_next, -log_v)
     entropy = _shift_right(ent_next, log_v)
-    return logprobs, entropy, torch.zeros((), device=hidden.device)
+    return logprobs, entropy, moe_aux
 
 
 def make_loss_fn(spec: ModelSpec, model_cfg, loss_cfg, mesh=None,
@@ -151,7 +162,7 @@ def make_loss_fn(spec: ModelSpec, model_cfg, loss_cfg, mesh=None,
         raise NotImplementedError("LoRA training waits for the LoRA slice")
 
     def loss_fn(params: Params, mb, scales: Scales):
-        logprobs, entropy, _ = model_logprobs(params, spec, mb, model_cfg, mesh)
+        logprobs, entropy, moe_aux = model_logprobs(params, spec, mb, model_cfg, mesh)
         total, metrics = loss_lib.compute_loss(
             trainer_logprobs=logprobs,
             inference_logprobs=mb.inference_logprobs,
@@ -167,6 +178,11 @@ def make_loss_fn(spec: ModelSpec, model_cfg, loss_cfg, mesh=None,
             ref_kl_scale=scales.ref_kl,
         )
         metrics = dict(metrics)
+        if spec.is_moe and model_cfg.moe_aux_coef > 0:
+            # switch-style load-balance term, trained
+            total = total + model_cfg.moe_aux_coef * moe_aux
+            metrics["moe_load_balance"] = loss_lib.MaskedStat(
+                total=moe_aux, count=torch.ones((), device=moe_aux.device))
         metrics["entropy"] = loss_lib.masked_stat(entropy, mb.loss_mask)
         metrics["trainer_logprob"] = loss_lib.masked_stat(logprobs, mb.loss_mask)
         return total, metrics
@@ -244,8 +260,14 @@ def make_train_step(
 
     @torch.no_grad()
     def apply_update(state: TrainState, grads):
-        grad_norm = optim_lib.global_norm(grads)
-        updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
+        """``grads``: the gradient tree, or a one-element list that hands the
+        tree over: the optimizer's first stage then holds the only reference
+        and the tree is freed as soon as that stage has its output (at
+        gigabytes of parameters a second float32 tree is what does not fit)."""
+        owned = grads if isinstance(grads, list) else [grads]
+        del grads
+        grad_norm = optim_lib.global_norm(owned[0])
+        updates, opt_state = optimizer.update(owned.pop(), state.opt_state, state.params)
         leaves = tree_leaves(state.params)
         if any(p.dtype == torch.bfloat16 for p in leaves if _is_float(p)):
             # bf16 masters: apply the f32 update with stochastic rounding so
@@ -253,7 +275,10 @@ def make_train_step(
             gen = torch.Generator(device=leaves[0].device)
             gen.manual_seed((17 << 32) + int(state.step))
             new_leaves = []
-            for p, u in zip(leaves, tree_leaves(updates)):
+            upd_leaves = tree_leaves(updates)
+            del updates  # each float32 update is freed as soon as it is applied
+            for i, p in enumerate(leaves):
+                u, upd_leaves[i] = upd_leaves[i], None
                 if p.dtype == torch.bfloat16:
                     new_leaves.append(optim_lib.stochastic_round_to(
                         torch.bfloat16, p.float() + u, gen))
@@ -267,7 +292,9 @@ def make_train_step(
     def step_fn(state: TrainState, batch: MicroBatchArrays, scales: Scales):
         batch = put_batch(batch, device)
         grads, loss, metrics = accum_grads(state.params, batch, scales)
-        new_state, grad_norm = apply_update(state, grads)
+        owned = [grads]
+        del grads
+        new_state, grad_norm = apply_update(state, owned)
         metrics = dict(metrics)
         metrics["loss"] = loss
         metrics["grad_norm"] = grad_norm

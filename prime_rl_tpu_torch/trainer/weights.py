@@ -20,15 +20,25 @@ from prime_rl_tpu_torch.utils import pathing
 Params = dict
 
 
+_ARCHITECTURES = {
+    "qwen3": "Qwen3ForCausalLM",
+    "qwen3_moe": "Qwen3MoeForCausalLM",
+    "llama": "LlamaForCausalLM",
+    "deepseek_v3": "DeepseekV3ForCausalLM",
+    "glm_moe_dsa": "GlmMoeDsaForCausalLM",
+}
+
+
 def spec_to_hf_config(spec: ModelSpec) -> dict:
-    """Minimal HF config.json so external tools recognize the snapshot."""
-    arch = {
-        "qwen3": "Qwen3ForCausalLM",
-        "qwen3_moe": "Qwen3MoeForCausalLM",
-        "llama": "LlamaForCausalLM",
-    }.get(spec.family, "Qwen3ForCausalLM")
+    """Minimal HF config.json so external tools recognize the snapshot, and so
+    that ``get_spec`` on the snapshot's directory gives ``spec`` back. (The JAX
+    package writes the MLA families under the Qwen3 name and without their
+    latent, indexer and routing fields, so its snapshots of them do not
+    reload; here they carry their own names and fields.)"""
+    if spec.family not in _ARCHITECTURES:
+        raise NotImplementedError(f"no HF architecture name for family {spec.family!r}")
     cfg = {
-        "architectures": [arch],
+        "architectures": [_ARCHITECTURES[spec.family]],
         "vocab_size": spec.vocab_size,
         "hidden_size": spec.hidden_size,
         "num_hidden_layers": spec.num_layers,
@@ -51,6 +61,27 @@ def spec_to_hf_config(spec: ModelSpec) -> dict:
             moe_intermediate_size=spec.moe_intermediate_size,
             norm_topk_prob=spec.norm_topk_prob,
         )
+    if spec.family in ("deepseek_v3", "glm_moe_dsa"):
+        cfg.pop("num_experts", None)  # these configs name it n_routed_experts
+        cfg.update(
+            n_routed_experts=spec.num_experts,
+            n_shared_experts=spec.n_shared_experts,
+            first_k_dense_replace=spec.first_k_dense_replace,
+            routed_scaling_factor=spec.routed_scaling_factor,
+            scoring_func="sigmoid" if spec.router_sigmoid else "softmax",
+            n_group=spec.n_group,
+            topk_group=spec.topk_group,
+            attention_bias=spec.attn_bias,
+            q_lora_rank=spec.q_lora_rank or None,
+            kv_lora_rank=spec.kv_lora_rank,
+            qk_rope_head_dim=spec.qk_rope_head_dim,
+            qk_nope_head_dim=spec.qk_nope_head_dim,
+            v_head_dim=spec.v_head_dim,
+            rope_interleave=spec.rope_interleave,
+        )
+        if spec.family == "glm_moe_dsa":
+            cfg.update(index_n_heads=spec.index_n_heads, index_head_dim=spec.index_head_dim,
+                       index_topk=spec.index_topk)
     return cfg
 
 

@@ -2,11 +2,16 @@
 """Where a train step of the PyTorch port's RL trainer spends its time, on one
 NVIDIA GPU.
 
-    python3 scripts/torch_train_profile.py [--ac-mode full|save_attn|none]
+    python3 scripts/torch_train_profile.py [--model qwen3|glm5] [--ac-mode full|save_attn|none]
 
-Builds the train state for Qwen3-0.6B (28 layers, full vocabulary, random
-weights from seed 0, bf16 masters, adamw_8bit, grad clip 1.0) and takes steps
-on fake batches of 4 micro-batches of [8, 512] tokens, as the trainer does.
+Builds the train state (random weights from seed 0, bf16 masters, adamw_8bit,
+grad clip 1.0) and takes steps on fake batches, as the trainer does.
+``--model qwen3`` (the default): Qwen3-0.6B, 28 layers, full vocabulary, 4
+micro-batches of [8, 512] tokens. ``--model glm5``: the glm_moe_dsa family at
+GLM-5's widths as ``chip_smoke.py`` cuts it (4 layers, 32 routed experts), 2
+micro-batches of [1, 4096] tokens, with the sparse-MLA kernels, the indexer's
+sort and the experts' grouped products as groups of their own, and the indexer
+(logits and top-k) timed alone at the step's shapes.
 Measures, after two warm-up steps:
   - host-clock time per step over three steps (ending in a synchronize);
   - with CUDA events on the stream: gradient accumulation against the
@@ -32,9 +37,14 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-SEED, N_MB, ROWS, SEQ_LEN = 0, 4, 8, 512
+SEED = 0
+SHAPES = {"qwen3": (4, 8, 512), "glm5": (2, 1, 4096)}  # micro-batches, rows, seq_len
 OURS = {"flash_fwd_kernel": "flash_attn_fwd", "flash_bwd_dq_kernel": "flash_attn_bwd_dq",
-        "flash_bwd_dkv_kernel": "flash_attn_bwd_dkv"}
+        "flash_bwd_dkv_kernel": "flash_attn_bwd_dkv", "sparse_mla_fwd_kernel": "sparse_mla_fwd",
+        "sparse_mla_bwd_kernel": "sparse_mla_bwd",
+        "sparse_mla_dkv_reduce_kernel": "sparse_mla_dkv_reduce"}
+GROUPED_MARKS = ("grouped", "group_gemm", "GroupProblem")  # the experts' grouped products
+SORT_MARKS = ("sort", "radix")  # the indexer's top-k (and the MoE dispatch's argsort)
 GEMM_MARKS = ("gemm", "cutlass", "xmma", "nvjet", "cublas")
 
 
@@ -58,7 +68,9 @@ def main() -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--ac-mode", default="full")
+    ap.add_argument("--model", default="qwen3", choices=sorted(SHAPES))
     args = ap.parse_args()
+    N_MB, ROWS, SEQ_LEN = SHAPES[args.model]
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
         return 2
@@ -67,9 +79,14 @@ def main() -> int:
                           check=True).stdout.strip()
     print(card, flush=True)
     _build.build()
+    model_name = "Qwen/Qwen3-0.6B"
+    if args.model == "glm5":
+        import chip_smoke
+
+        model_name = chip_smoke.glm5_model_dir("glm5_profile", **chip_smoke.GLM5_CUTS)
     cfg = TrainerConfig(
         device="cuda", seed=SEED, grad_clip=1.0,
-        model={"name": "Qwen/Qwen3-0.6B", "seq_len": SEQ_LEN, "ac": {"mode": args.ac_mode},
+        model={"name": model_name, "seq_len": SEQ_LEN, "ac": {"mode": args.ac_mode},
                "debug": {"random_init": True}},
         optimizer={"type": "adamw_8bit", "lr": 1e-5, "master_dtype": "bfloat16"},
         data={"type": "fake", "seq_len": SEQ_LEN, "micro_batch_size": ROWS,
@@ -106,13 +123,12 @@ def main() -> int:
     batch, scales = next_inputs()
     e = events(3)
     e[0].record()
-    grads, _, _ = step.accum_grads(state.params, batch, scales)
+    grads = [step.accum_grads(state.params, batch, scales)[0]]
     e[1].record()
-    state, _ = step.apply_update(state, grads)
+    state, _ = step.apply_update(state, grads)  # the list hands the tree over, as the step does
     e[2].record()
     torch.cuda.synchronize()
     accum_ms, update_ms = e[0].elapsed_time(e[1]), e[1].elapsed_time(e[2])
-    del grads
 
     # inside one micro-batch
     from prime_rl_tpu_torch.trainer.rl import loss as loss_lib
@@ -169,7 +185,8 @@ def main() -> int:
             if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
-    groups = {"library matrix products": 0.0, "elementwise, reductions, copies": 0.0}
+    groups = {"expert grouped products": 0.0, "sorts": 0.0, "library matrix products": 0.0,
+              "elementwise, reductions, copies": 0.0}
     groups.update({v: 0.0 for v in OURS.values()})
     n_kernels = 0
     for name, ms, count in rows:
@@ -177,6 +194,10 @@ def main() -> int:
         ours = next((v for k, v in OURS.items() if k in name), None)
         if ours is not None:
             groups[ours] += ms
+        elif any(m in name for m in GROUPED_MARKS):
+            groups["expert grouped products"] += ms
+        elif any(m in name.lower() for m in SORT_MARKS):
+            groups["sorts"] += ms
         elif any(m in name.lower() for m in GEMM_MARKS):
             groups["library matrix products"] += ms
         else:
@@ -186,11 +207,41 @@ def main() -> int:
         print(f"{name[:70]:70s} {ms:10.3f} {ms / busy_ms:7.1%} {count:6d}")
     for name, ms in groups.items():
         print(f"{name:40s} {ms:10.3f} ms {ms / busy_ms:7.1%} of busy")
-    flops = spec.flops_per_token(SEQ_LEN) * tokens
+
+    indexer = None
+    if spec.index_topk:
+        # the indexer alone (logits of 32 index heads and the stable sort that
+        # picks the top-k) at one row's shapes; it runs once per layer and pass
+        from prime_rl_tpu_torch.ops.sparse_mla import mla_topk_indices
+
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        hi, di = spec.index_n_heads, spec.index_head_dim
+        q_idx = torch.randn(SEQ_LEN, hi, di, device=dev, generator=g).to(torch.bfloat16)
+        k_idx = torch.randn(SEQ_LEN, di, device=dev, generator=g).to(torch.bfloat16)
+        w_idx = torch.randn(SEQ_LEN, hi, device=dev, generator=g).to(torch.bfloat16)
+        ks = torch.zeros(SEQ_LEN, dtype=torch.int32, device=dev)
+        ke = torch.arange(1, SEQ_LEN + 1, dtype=torch.int32, device=dev)
+        for _ in range(2):
+            mla_topk_indices(q_idx, k_idx, w_idx, ks, ke, spec.index_topk)
+        e = events(2)
+        e[0].record()
+        for _ in range(5):
+            mla_topk_indices(q_idx, k_idx, w_idx, ks, ke, spec.index_topk)
+        e[1].record()
+        torch.cuda.synchronize()
+        passes = 2 if cfg.model.ac.mode == "full" else 1
+        calls = spec.num_layers * N_MB * ROWS * passes
+        indexer = {"ms_per_call": e[0].elapsed_time(e[1]) / 5, "calls_per_step": calls}
+        indexer["ms_per_step"] = indexer["ms_per_call"] * calls
+        print(f"indexer alone: {indexer['ms_per_call']:.3f} ms a call, {calls} calls a step")
+    # the spec's flop count covers the dense and GQA families only
+    flops = spec.flops_per_token(SEQ_LEN) * tokens if args.model == "qwen3" else None
     result = {
         "card": card, "ac_mode": cfg.model.ac.mode, "tokens_per_step": tokens,
         "step_s": wall, "step_s_all": walls, "tokens_per_s": tokens / wall,
-        "mfu_vs_989_tflops": flops / wall / 989e12,
+        "model": args.model, "layers": spec.num_layers, "routed_experts": spec.num_experts,
+        "mfu_vs_989_tflops": None if flops is None else flops / wall / 989e12,
+        "indexer_alone": indexer,
         "loss": float(metrics["loss"]),
         "accum_grads_ms": accum_ms, "optimizer_update_ms": update_ms,
         "one_micro_batch": {"forward_ms": fwd_ms, "lm_head_and_loss_forward_ms": head_ms,

@@ -10,7 +10,8 @@ K1 also its probabilities); the KV append must be exact. K2a/K2b are held
 against the plain backward on the same bf16 inputs (which rounds p and ds to
 bf16 where the kernels do): 2e-2 absolute + 2e-2 relative, because a bf16
 rounding of ds that flips by one step in the kernel moves a sum of up to 192
-terms by more than one bf16 step of the result.
+terms by more than one bf16 step of the result. K5a/K5b and the dkv reduction
+are held against their plain versions on the same bf16 inputs at the same 2e-2.
 """
 
 import pytest
@@ -29,6 +30,8 @@ from prime_rl_tpu_torch.ops.flash_attention import (
     flash_attention_reference,
     flash_attention_with_lse,
 )
+
+from prime_rl_tpu_torch.ops import sparse_mla_kernel as mla
 
 torch.set_num_threads(1)
 
@@ -159,3 +162,69 @@ def test_decode_paged_attention_matches_plain(gen, hd, group):
         q.float(), k_new.float(), v_new.float(), k_ref, v_ref, lengths, table)
     _assert_close(o[:-1], ref_o[:-1])
     assert torch.equal(k_pool.float(), k_ref) and torch.equal(v_pool.float(), v_ref)
+
+
+def _sparse_case(gen, S, T):
+    """q, kv, do and causal top-k-looking indices (token i selects min(T, i + 1)
+    distinct rows of [0, i]; the rest of its row is the sentinel S)."""
+    q, kv = _bf16(gen, S, mla.HEADS, mla.DQ), _bf16(gen, S, mla.DQ)
+    do = _bf16(gen, S, mla.HEADS, mla.DV)
+    score = torch.rand(S, S, device="cuda", generator=gen)
+    pos = torch.arange(S, device="cuda")
+    val, idx = torch.sort(torch.where(pos[None, :] <= pos[:, None], score, -1.0), dim=-1,
+                          descending=True)
+    idx = torch.where(val >= 0, idx, S)[:, :T].to(torch.int32)
+    if T > S:
+        idx = torch.nn.functional.pad(idx, (0, T - S), value=S)
+    return q, kv, do, idx.contiguous()
+
+
+@pytest.mark.parametrize("S,T", [(200, 100), (320, 512)])
+def test_sparse_mla_kernels_match_plain(gen, S, T):
+    """K5a, K5b and the dkv reduction through the autograd Function: ragged
+    tiles, sentinels in every row (T > S), one token that selected nothing."""
+    q, kv, do, idx = _sparse_case(gen, S, T)
+    idx[5] = S
+    scale = mla.DQ ** -0.5
+    before = dict(_build.launches)
+    leaves = [q.clone().requires_grad_(), kv.clone().requires_grad_()]
+    out = mla.sparse_mla_attention(*leaves, idx, scale, mla.DV)
+    dq, dkv = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    n = mla.bwd_launches(S, T)
+    assert _build.launches["sparse_mla_fwd"] == before.get("sparse_mla_fwd", 0) + 1
+    assert _build.launches["sparse_mla_bwd"] == before.get("sparse_mla_bwd", 0) + n
+    assert _build.launches["sparse_mla_dkv_reduce"] == before.get("sparse_mla_dkv_reduce", 0) + n
+    ref_out, ref_lse = mla.sparse_mla_attention_reference(q, kv, idx, scale, mla.DV)
+    ref_dq, ref_dkv = mla.sparse_mla_backward_reference(q, kv, idx, out.detach(), ref_lse, do,
+                                                        scale, mla.DV)
+    for name, g, r in (("out", out, ref_out), ("dq", dq, ref_dq), ("dkv", dkv, ref_dkv)):
+        assert torch.isfinite(g.float()).all(), name
+        torch.testing.assert_close(g.float(), r.float(), atol=2e-2, rtol=2e-2, msg=name)
+    assert (out[5] == 0).all() and (dq[5] == 0).all()
+
+
+def test_sparse_mla_backward_is_deterministic_over_chunks(gen, monkeypatch):
+    """Several chunks of queries (the chunk cut to 64): two runs give the same
+    bits, and the same values as one chunk within the dkv rounding."""
+    q, kv, do, idx = _sparse_case(gen, 256, 128)
+    scale = mla.DQ ** -0.5
+    out, lse = mla.sparse_mla_fwd(q, kv, idx, scale, mla.DV)
+    whole = mla.sparse_mla_bwd(q, kv, idx, out, lse, do, scale, mla.DV)
+    monkeypatch.setattr(mla, "BWD_SLOTS", 64 * 128)
+    assert mla.bwd_launches(256, 128) == 4
+    a = mla.sparse_mla_bwd(q, kv, idx, out, lse, do, scale, mla.DV)
+    b = mla.sparse_mla_bwd(q, kv, idx, out, lse, do, scale, mla.DV)
+    for x, y, w in zip(a, b, whole):
+        assert torch.equal(x, y)
+        torch.testing.assert_close(x.float(), w.float(), atol=2e-2, rtol=2e-2)
+
+
+def test_sparse_mla_wrapper_raises_for_other_widths(gen):
+    q, kv = _bf16(gen, 8, 8, 160), _bf16(gen, 8, 160)
+    idx = torch.zeros(8, 4, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="H = 64, Dq = 576, v_dim = 512"):
+        mla.sparse_mla_attention(q, kv, idx, 0.1, 128)
+    with pytest.raises(TypeError, match="bfloat16"):
+        mla.sparse_mla_attention(torch.zeros(8, 64, 576, device="cuda"),
+                                 torch.zeros(8, 576, device="cuda"), idx, 0.1, 512)
