@@ -13,12 +13,15 @@ Phases (any failure raises and exits non-zero before the last line):
                 shape, K5a sparse_mla_fwd, K5b sparse_mla_bwd and the dkv
                 reduction at the GLM-5 attention widths (64 heads, 576 = 512 + 64
                 channels, top-k 2048) over a packed row of 4096 tokens and over a
-                short row full of sentinels, each held against its plain PyTorch
-                version (computed in
+                short row full of sentinels, and the window and sink forms of K1,
+                K2a, K2b and K4 (plus K3) at gpt-oss-20b's shapes (64/8 heads of
+                64; K1/K2 over 4096 tokens at window 128 and 0 with sinks, the
+                sinks' gradient too; K4 over 64 slots at window 128 and 0 with
+                sinks), each held against its plain PyTorch version (computed in
                 float32 on the same bf16 inputs) and timed beside the plain
                 version, a one-call PyTorch yardstick where one exists, and the
                 bound of the H100 (SXM data sheet: 3.35 TB/s, 989 TFLOP/s dense
-                bf16).
+                bf16). Windowed K1 must take at most a quarter of full K1's time.
   4. train-reference — loss and every gradient of one micro-batch [2, 512] of
                 the full-width model cut to 2 layers (full vocabulary), through
                 the kernels in bf16 on the card, against the plain float32 path
@@ -43,23 +46,44 @@ Phases (any failure raises and exits non-zero before the last line):
                 bit-equal losses, the launches of K5a, K5b and the reduction that
                 the layers, micro-batches and remat imply, and a snapshot that
                 reads back through get_spec and the family's from_hf.
-  8. reference — the served model's prefill and decode logits through the
+  8. gpt-oss-train-reference — the same for gpt-oss at gpt-oss-20b's widths
+                cut to 2 layers (one windowed, one full) of 8 experts, random
+                sinks and biases: one row of 1024 tokens, K1/K2a/K2b in their
+                window and sink forms; the CPU replays the card's routing and
+                reports how far its own agrees.
+  9. gpt-oss-training — the trainer on a directory whose config.json names
+                GptOssForCausalLM at gpt-oss-20b's widths (24 -> 4 layers, all 32
+                experts; logged), rows of four sequences, seq_len 4096, 2
+                micro-batches of 1 row, adamw_8bit, bf16 masters, full remat: 3
+                steps twice: bit-equal finite losses, changed parameters (the
+                sinks among them), the launches of K1, K2a and K2b (and of their
+                window forms) that the layers imply, a snapshot read back.
+ 10. reference — the served Qwen3-0.6B's prefill and decode logits through the
                 kernels against a plain float32 forward on the CPU.
-  9. serving  — the port's inference server (Qwen3-0.6B, all 28 layers, full
+ 11. serving  — the port's inference server (Qwen3-0.6B, all 28 layers, full
                 vocabulary, random weights from a seed, byte tokenizer) answers
                 16 concurrent /inference/v1/generate requests, a /v1/completions
                 request and a streaming /v1/chat/completions request over HTTP;
                 greedy requests are deterministic; every kernel was launched.
+ 12. gpt-oss-reference — gpt-oss at gpt-oss-20b's widths cut to 2 layers: a
+                prefill of 200 tokens and decode steps past position 128 through
+                K1, K3 and K4 against float32 on the CPU.
+ 13. gpt-oss-serving — the same server and requests with openai/gpt-oss-20b at
+                full width and all 24 layers (random weights, byte tokenizer,
+                max_model_len 4096): K1 and K4 launched on the windowed and the
+                full layers, K3 on every layer; its tokens/s and first-token time.
 Then one JSON line with every kernel's numbers, and the result line. A kernel's
 ``launches`` is its count on the path that runs it (K1 runs on both: its
 ``launches`` is the serving path's, ``launches_training`` the Qwen3 trainer's;
-the sparse-MLA kernels run on the DSA trainer's path).
+the sparse-MLA kernels run on the DSA trainer's path; the window and sink
+forms' rows count the gpt-oss paths, ``launches_window`` their windowed layers).
 """
 
 from __future__ import annotations
 
 import asyncio
 import contextlib
+import gc
 import json
 import math
 import os
@@ -68,6 +92,7 @@ import socket
 import subprocess
 import sys
 import time
+import weakref
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -75,6 +100,7 @@ sys.path.insert(0, ROOT)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s
 MODEL = "Qwen/Qwen3-0.6B"
+GPT_OSS = "openai/gpt-oss-20b"
 SEED = 0
 
 # zai-org/GLM-5, config.json, GlmMoeDsaForCausalLM: the published widths, all
@@ -517,6 +543,216 @@ def sparse_mla_kernel_phase() -> list[dict]:
     return rows
 
 
+def window_pairs(n: int, window: int) -> int:
+    """(query, key) pairs a causal sequence of n tokens attends under a
+    sliding window (0 = none): query i sees min(i + 1, window) keys."""
+    if window <= 0 or window >= n:
+        return n * (n + 1) // 2
+    return window * (window + 1) // 2 + (n - window) * window
+
+
+def gpt_oss_kernel_phase() -> list[dict]:
+    """The window and sink forms of K1, K2a, K2b and K4, and K3, at the shapes
+    gpt-oss-20b gives them (64/8 heads of 64): K1/K2 over one row of 4096
+    tokens with sinks, at window 128 (the windowed layers) and 0 (the full
+    ones); K4 over 64 slots of 500-1000 cached tokens (four shorter than the
+    window), both forms with sinks; K3 with q/k/v biases, no qk-norm and the
+    YaRN rope. Each against its plain version on the same bf16 inputs (float32
+    arithmetic), timed beside it; no single PyTorch call computes attention
+    with sinks, so the library time is none."""
+    import torch
+
+    from prime_rl_tpu_torch.models.base import get_spec
+    from prime_rl_tpu_torch.models.qwen3 import rope_setup
+    from prime_rl_tpu_torch.ops.decode_attention import (
+        decode_paged_attention,
+        decode_paged_attention_reference,
+    )
+    from prime_rl_tpu_torch.ops.decode_qkv import decode_qkv_prep, decode_qkv_prep_reference
+    from prime_rl_tpu_torch.ops.flash_attention import (
+        _delta,
+        _fwd,
+        flash_attention_dkv,
+        flash_attention_dkv_reference,
+        flash_attention_dq,
+        flash_attention_dq_reference,
+        flash_attention_reference,
+        sinks_grad,
+    )
+
+    spec = get_spec(GPT_OSS)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    nh, nkv, hd, d = spec.num_heads, spec.num_kv_heads, spec.head_dim, spec.hidden_size
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, device=dev, generator=gen) * scale).to(torch.bfloat16)
+
+    sinks = torch.randn(nh, device=dev, generator=gen)
+    scale = hd ** -0.5
+    l = 4096
+    q, k, v, do = randn(1, l, nh, hd), randn(1, l, nkv, hd), randn(1, l, nkv, hd), randn(
+        1, l, nh, hd)
+    seg = torch.ones(1, l, dtype=torch.int32, device=dev)
+    k2_tol = 2e-2  # as for the dense forms of K2a/K2b
+    fwd_cases, dq_cases, dkv_cases = [], [], []
+    for window in (spec.sliding_window, 0):
+        form = f"window {window} + sinks" if window else "full causal + sinks"
+        shape = f"B=1 L={l} {nh}/{nkv} heads hd {hd}, {form}"
+        pairs = window_pairs(l, window)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v, sinks)]
+        out, lse = _fwd(*leaves[:3], seg, seg, True, None, window=window, sinks=leaves[3])
+        dsinks = torch.autograd.grad(out, leaves[3], do)[0]
+        out, lse = out.detach(), lse.detach()
+        torch.cuda.synchronize()
+        ref_out, ref_lse = flash_attention_reference(q.float(), k.float(), v.float(), seg, seg,
+                                                     True, scale, window, sinks)
+        err = check_close(f"flash_attn_fwd {shape}", out, ref_out, ATOL, RTOL)
+        check_close(f"flash_attn_fwd lse {shape}", lse, ref_lse, 1e-3, 1e-4)
+        want_ds = sinks_grad(sinks, ref_lse, _delta(ref_out, do, None))
+        ds_err = float((dsinks - want_ds).norm() / want_ds.norm())
+        if not ds_err <= k2_tol:
+            raise AssertionError(f"dsinks {shape}: relative error {ds_err:.4g} exceeds {k2_tol}")
+        del ref_out, ref_lse
+        delta = _delta(out, do, None)
+        args = (q, k, v, seg, seg, lse, delta, do, True, scale, window)
+        dq, (dk, dv) = flash_attention_dq(*args), flash_attention_dkv(*args)
+        torch.cuda.synchronize()
+        err_dq = check_close(f"flash_attn_bwd_dq {shape}", dq, flash_attention_dq_reference(*args),
+                             k2_tol, k2_tol)
+        ref_dk, ref_dv = flash_attention_dkv_reference(*args)
+        err_dkv = max(check_close(f"flash_attn_bwd_dkv {n} {shape}", g, r, k2_tol, k2_tol)
+                      for n, g, r in (("dk", dk, ref_dk), ("dv", dv, ref_dv)))
+        del ref_dk, ref_dv, dq, dk, dv
+        torch.cuda.empty_cache()
+        ms = time_ms(lambda: _fwd(q, k, v, seg, seg, True, None, window=window, sinks=sinks))
+        ms_dq = time_ms(lambda: flash_attention_dq(*args))
+        ms_dkv = time_ms(lambda: flash_attention_dkv(*args))
+        plain = time_ms(lambda: flash_attention_reference(q, k, v, seg, seg, True, scale, window,
+                                                          sinks), iters=3, warmup=1)
+        plain_dq = time_ms(lambda: flash_attention_dq_reference(*args), iters=3, warmup=1)
+        plain_dkv = time_ms(lambda: flash_attention_dkv_reference(*args), iters=3, warmup=1)
+        small = (2 * lse.numel() + seg.numel() + nh) * 4
+        qb, kb = q.numel() * 2, k.numel() * 2
+        for cases, name, t, t_plain, e, nbytes, nprod in (
+                (fwd_cases, "K1 flash_attn_fwd", ms, plain, err, 2 * qb + 2 * kb + small, 2),
+                (dq_cases, "K2a flash_attn_bwd_dq", ms_dq, plain_dq, err_dq,
+                 3 * qb + 2 * kb + small, 3),
+                (dkv_cases, "K2b flash_attn_bwd_dkv", ms_dkv, plain_dkv, err_dkv,
+                 2 * qb + 4 * kb + small, 4)):
+            bms, by = bound(nbytes, pairs * nh * nprod * 2 * hd)
+            cases.append(dict(shape=shape, pairs_per_head=pairs, max_abs_err=e, ms=t,
+                              plain_ms=t_plain, library_ms=None, bound_ms=bms, bound_by=by))
+            log(f"{name} {shape}: err {e:.3g}  kernel {t:.4f} ms  plain {t_plain:.4f} ms  library "
+                f"none (sinks)  bound {bms:.4f} ms ({by}), {pairs} pairs a head")
+        dq_cases[-1]["dsinks_rel_err"] = ds_err
+        log(f"dsinks {shape}: relative error {ds_err:.3g} of its norm (tolerance {k2_tol})")
+        del leaves, out, lse, delta, args, dsinks
+        torch.cuda.empty_cache()
+    windowed, full = fwd_cases[0]["ms"], fwd_cases[1]["ms"]
+    if not windowed <= 0.25 * full:
+        raise AssertionError(f"windowed K1 takes {windowed:.4f} ms, more than a quarter of the "
+                             f"full causal K1's {full:.4f} ms: the band is not skipped")
+    log(f"K1 at window {spec.sliding_window} takes {windowed / full:.3f} of the full causal time "
+        f"(pairs: {fwd_cases[0]['pairs_per_head'] / fwd_cases[1]['pairs_per_head']:.3f})")
+    del q, k, v, do
+    torch.cuda.empty_cache()
+
+    # ---- K3 at gpt-oss-20b's shapes --------------------------------------------
+    s = 64
+    x = randn(s, d)
+    nw = (1 + 0.1 * torch.randn(d, device=dev, generator=gen)).to(torch.bfloat16)
+    wq, wk, wv = (randn(d, n * hd, scale=0.02) for n in (nh, nkv, nkv))
+    bq, bk, bv = (randn(n * hd, scale=0.5) for n in (nh, nkv, nkv))
+    positions = torch.randint(0, 4000, (s,), device=dev, generator=gen, dtype=torch.int32)
+    inv_freq, yarn = rope_setup(spec, device=dev)
+    kw = dict(num_heads=nh, num_kv_heads=nkv, head_dim=hd, qk_norm=False, q_bias=bq, k_bias=bk,
+              v_bias=bv, scaling=yarn, eps=spec.rms_eps)
+    got = decode_qkv_prep(x, nw, wq, wk, wv, positions, inv_freq, **kw)
+    torch.cuda.synchronize()
+    ref = decode_qkv_prep_reference(x.float(), nw, wq, wk, wv, positions, inv_freq, **kw)
+    err = max(check_close(f"decode_qkv_prep gpt-oss {n}", g, r, ATOL, RTOL)
+              for n, g, r in zip("qkv", got, ref))
+    ms = time_ms(lambda: decode_qkv_prep(x, nw, wq, wk, wv, positions, inv_freq, **kw),
+                 flush=flush)
+    plain = time_ms(lambda: decode_qkv_prep_reference(x, nw, wq, wk, wv, positions, inv_freq,
+                                                      **kw), flush=flush)
+    ncols = (nh + 2 * nkv) * hd
+    nbytes = (s * d + d * ncols + d + ncols + s * ncols) * 2 + s * 4 + inv_freq.numel() * 4
+    bms, by = bound(nbytes, 2 * s * d * ncols)
+    shape = f"S={s} D={d} {nh}/{nkv} heads hd {hd}, biases, no qk-norm, YaRN x{yarn:.4f}"
+    log(f"K3 decode_qkv_prep {shape}: err {err:.3g}  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
+        f"bound {bms:.4f} ms ({by})  (cold L2)")
+    k3 = dict(name="decode_qkv_prep/gpt-oss", route="cuda",
+              source="prime_rl_tpu_torch/csrc/decode_qkv.cu",
+              replaces="prime_rl_tpu/ops/decode_qkv.py:36", max_abs_err=err, ms=ms,
+              plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None, shape=shape)
+
+    # ---- K4 with a window and sinks ------------------------------------------------
+    ps = 64
+    p = 4096 // ps
+    np_ = s * p + 1
+    k_pool, v_pool = randn(nkv, np_, ps, hd), randn(nkv, np_, ps, hd)
+    table = (1 + torch.arange(s * p, device=dev, dtype=torch.int32)).reshape(s, p)
+    lengths = torch.randint(500, 1001, (s,), device=dev, generator=gen, dtype=torch.int32)
+    lengths[:4] = torch.tensor([5, 64, 126, 127], dtype=torch.int32)  # shorter than the window
+    qd, k_new, v_new = randn(s, nh, hd), randn(s, nkv, hd), randn(s, nkv, hd)
+    k4_cases = []
+    for window in (spec.sliding_window, 0):
+        form = f"window {window} + sinks" if window else "full + sinks"
+        k_ref, v_ref = k_pool.float(), v_pool.float()
+        o, _, _ = decode_paged_attention(qd, k_new, v_new, k_pool, v_pool, lengths, table,
+                                         window=window, sinks=sinks)
+        torch.cuda.synchronize()
+        ref_o, k_ref, v_ref = decode_paged_attention_reference(
+            qd.float(), k_new.float(), v_new.float(), k_ref, v_ref, lengths, table,
+            window=window, sinks=sinks)
+        err = check_close(f"decode_paged_attention {form}", o, ref_o, ATOL, RTOL)
+        for name, pool, want in (("k", k_pool, k_ref), ("v", v_pool, v_ref)):
+            if not torch.equal(pool.float(), want):
+                raise AssertionError(f"decode_paged_attention {form}: {name} pool writes are "
+                                     "not exact")
+        del k_ref, v_ref, ref_o
+        ms = time_ms(lambda: decode_paged_attention(qd, k_new, v_new, k_pool, v_pool, lengths,
+                                                    table, window=window, sinks=sinks),
+                     flush=flush)
+        plain = time_ms(lambda: decode_paged_attention_reference(
+            qd, k_new, v_new, k_pool, v_pool, lengths, table, window=window, sinks=sinks),
+            iters=5, flush=flush)
+        # cached rows attended: the window counts the new token
+        rows_read = int((lengths.clamp(max=window - 1) if window else lengths).sum())
+        nbytes = (rows_read * nkv * hd * 2 * 2 + 2 * (s * nkv * hd * 2 * 2) + 2 * s * nh * hd * 2
+                  + s * 4 + s * p * 4 + nh * 4)
+        bms, by = bound(nbytes, (rows_read + s) * nh * hd * 4)
+        shape = f"S={s} PS={ps} lengths 5..1000, {form}, {rows_read} cached rows read"
+        k4_cases.append(dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain,
+                             library_ms=None, bound_ms=bms, bound_by=by))
+        log(f"K4 decode_paged_attention {shape}: err {err:.3g}  kernel {ms:.4f} ms  plain "
+            f"{plain:.4f} ms  library none (sinks)  bound {bms:.4f} ms ({by})  (cold L2)")
+    del k_pool, v_pool, flush
+    torch.cuda.empty_cache()
+
+    def row(name, source, replaces, cases):
+        return dict(name=name, route="cuda", source=source, replaces=replaces,
+                    **{k: cases[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                "library_ms")},
+                    max_abs_err=max(c["max_abs_err"] for c in cases), cases=cases)
+
+    fa = "prime_rl_tpu/ops/flash_attention.py"
+    return [row("flash_attn_fwd/window+sinks", "prime_rl_tpu_torch/csrc/flash_attn_fwd.cu",
+                f"{fa}:59", fwd_cases),
+            row("flash_attn_bwd_dq/window", "prime_rl_tpu_torch/csrc/flash_attn_bwd.cu",
+                f"{fa}:227", dq_cases),
+            row("flash_attn_bwd_dkv/window", "prime_rl_tpu_torch/csrc/flash_attn_bwd.cu",
+                f"{fa}:282", dkv_cases),
+            k3,
+            row("decode_paged_attention/window+sinks",
+                "prime_rl_tpu_torch/csrc/decode_attention.cu",
+                "prime_rl_tpu/ops/decode_attention.py:50", k4_cases)]
+
+
 def train_reference_phase() -> None:
     """Loss and every gradient of one micro-batch [2, 512] of the full-width
     model cut to 2 layers (full vocabulary): bf16 through the kernels on the
@@ -926,6 +1162,398 @@ def dsa_training_phase() -> tuple[dict, dict]:
     return launches, numbers
 
 
+def gpt_oss_model_dir(name: str, **cuts) -> str:
+    """A directory whose config.json names GptOssForCausalLM at
+    gpt-oss-20b's widths (the built-in spec of openai/gpt-oss-20b, written as
+    the trainer writes its snapshots) with ``cuts`` applied; a cut of the depth
+    cuts the layer-type list with it, so the alternation stays."""
+    from prime_rl_tpu_torch.models.base import get_spec
+    from prime_rl_tpu_torch.trainer.weights import spec_to_hf_config
+
+    cfg = spec_to_hf_config(get_spec(GPT_OSS))
+    new = {**cfg, **cuts}
+    new["layer_types"] = cfg["layer_types"][:new["num_hidden_layers"]]
+    path = os.path.join(ROOT, "build", "chip_smoke", name)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(new, f, indent=1)
+    for key, value in cuts.items():
+        log(f"{name}: {key} cut from {cfg.get(key)} to {value}")
+    return path
+
+
+@contextlib.contextmanager
+def recorded_routing(record: list | None = None, replay: list | None = None):
+    """Within the block, every ``route_topk`` call appends its expert ids to
+    ``record``, or routes to the next ids of ``replay`` (router replay: the
+    combine weights are still its own router's, at those experts)."""
+    from prime_rl_tpu_torch.ops import moe
+
+    own = moe.route_topk
+    todo = iter(replay or ())
+
+    def wrapped(x, *args, **kw):
+        if replay is not None:
+            kw["forced_experts"] = next(todo).to(x.device)
+        out = own(x, *args, **kw)
+        if record is not None:
+            record.append(out.expert_ids)
+        return out
+
+    moe.route_topk = wrapped
+    try:
+        yield
+    finally:
+        moe.route_topk = own
+
+
+def perturbed(params: dict, gen) -> dict:
+    """``params`` with the sinks drawn from N(0, 1) and every bias from
+    N(0, 0.1^2), so that neither is the init's zero."""
+    import torch
+
+    layers = dict(params["layers"])
+    for name, t in layers.items():
+        if name == "sink" or name.endswith("_bias"):
+            std = 1.0 if name == "sink" else 0.1
+            layers[name] = (torch.randn(t.shape, device=t.device, generator=gen) * std).to(t.dtype)
+    return {**params, "layers": layers}
+
+
+def gpt_oss_train_reference_phase() -> None:
+    """Loss and every gradient, the sinks' and the biases' included, of one
+    micro-batch of 1024 tokens (a row of two sequences and padding) through
+    gpt-oss at gpt-oss-20b's widths, cut to 2 layers (one windowed, one full)
+    of 8 experts: bf16 through K1/K2a/K2b on the card under full remat, against
+    float32 on the CPU from the same weights.
+
+    The top-4 of 8 experts is a discrete choice: scored from bf16 activations
+    on the card and from float32 ones on the CPU, a near-tie can pick another
+    expert, and the two runs then differentiate two different functions. So
+    the CPU runs twice: with its own routing, to report the share of the
+    card's choices it agrees with (at least 90%), and replaying the card's
+    routing (``routed_experts``), which is the run the loss and the gradients
+    are held against."""
+    import torch
+
+    from prime_rl_tpu_torch.configs.shared import ModelConfig
+    from prime_rl_tpu_torch.configs.trainer import DefaultLossConfig
+    from prime_rl_tpu_torch.models import get_family
+    from prime_rl_tpu_torch.models.base import get_spec
+    from prime_rl_tpu_torch.ops import _build
+    from prime_rl_tpu_torch.trainer.optim import tree_map, tree_paths
+    from prime_rl_tpu_torch.trainer.rl.data import FakeDataLoader
+    from prime_rl_tpu_torch.trainer.step import MicroBatchArrays, Scales, make_loss_fn, put_batch
+
+    import numpy as np
+
+    seq_len = 1024
+    spec = get_spec(gpt_oss_model_dir("gpt_oss_reference", num_hidden_layers=2,
+                                      num_local_experts=8))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    # bf16-representable weights, so both sides start from the same numbers
+    master = tree_map(lambda x: x.to(torch.bfloat16),
+                      perturbed(get_family(spec).init(spec, gen, device="cuda"), gen))
+    batch, counts = FakeDataLoader(spec.vocab_size, seq_len // 2, 2, 1, seed=SEED).next_batch()
+    # the two half-length rows packed into one row of two sequences
+    batch = MicroBatchArrays(*[None if x is None else x.reshape(1, 1, seq_len) for x in batch])
+    seg, second = batch.segment_ids, np.arange(seq_len) >= seq_len // 2
+    batch = batch._replace(segment_ids=np.where((seg > 0) & second, seg + 10, seg).astype(np.int32))
+    scales = Scales(float(counts["rl"]), 1.0, 1.0)
+
+    def run(device, dtype, compute, remat, routed=None, backward=True):
+        params = tree_map(lambda x: x.detach().to(device=device, dtype=dtype).requires_grad_(),
+                          master)
+        mb = MicroBatchArrays(*[None if x is None else x[0] for x in put_batch(batch, device)])
+        if routed is not None:
+            mb = mb._replace(routed_experts=routed.to(device))
+        cfg = ModelConfig(compute_dtype=compute, ac={"mode": remat})
+        loss_fn = make_loss_fn(spec, cfg, DefaultLossConfig())
+        if not backward:
+            with torch.no_grad():
+                return float(loss_fn(params, mb, scales)[0]), None
+        loss, _ = loss_fn(params, mb, scales)
+        loss.backward()
+        return float(loss.detach()), {p: x.grad.float().cpu() for p, x in tree_paths(params)}
+
+    before = dict(_build.launches)
+    t0 = time.perf_counter()
+    on_card: list = []
+    with recorded_routing(on_card):
+        loss_gpu, grads_gpu = run(torch.device("cuda"), torch.bfloat16, "bfloat16", "full")
+    torch.cuda.synchronize()
+    for name in ("flash_attn_fwd/window", "flash_attn_fwd/sinks", "flash_attn_bwd_dq/window",
+                 "flash_attn_bwd_dkv/window"):
+        if _build.launches[name] <= before.get(name, 0):
+            raise AssertionError(f"gpt-oss-train-reference: {name} was not launched on the card")
+    # the forward's calls come first, one a layer; the recompute's follow
+    routed = torch.stack([e.cpu() for e in on_card[:spec.num_layers]], dim=1)  # [T, NL, K]
+    t1 = time.perf_counter()
+    own: list = []
+    with recorded_routing(own):
+        loss_own, _ = run(torch.device("cpu"), torch.float32, "float32", "none", backward=False)
+    agree = [float(sum(len(set(a) & set(b)) for a, b in zip(x.tolist(), y.cpu().tolist()))
+                   / x.numel()) for x, y in zip(routed.unbind(1), own)]
+    if min(agree) < 0.9:
+        raise AssertionError(f"gpt-oss-train-reference: the card's routing agrees with the "
+                             f"float32 router's on only {agree} of its choices")
+    loss_cpu, grads_cpu = run(torch.device("cpu"), torch.float32, "float32", "none",
+                              routed=routed.reshape(1, seq_len, spec.num_layers, -1))
+    t2 = time.perf_counter()
+    del master
+    torch.cuda.empty_cache()
+    # bf16 weights, activations and gradients through 2 layers and a 201088-wide
+    # head against float32 on the same routing: a few bf16 steps (2^-8) on the
+    # loss, and per tensor a gradient error of a few percent of its norm
+    loss_rtol, grad_rtol = 2e-2, 5e-2
+    for what, ref in (("the card's routing", loss_cpu), ("its own routing", loss_own)):
+        if not abs(loss_gpu - ref) <= loss_rtol * abs(ref):
+            raise AssertionError(f"gpt-oss-train-reference loss {loss_gpu} vs float32 {ref} on "
+                                 f"{what}")
+    worst, errs = 0.0, {}
+    for path, want in grads_cpu.items():
+        got = grads_gpu[path]
+        rel = float((got - want).norm() / want.norm().clamp_min(1e-30))
+        worst, errs[path] = max(worst, rel), rel
+        if not (bool(torch.isfinite(got).all()) and rel <= grad_rtol):
+            raise AssertionError(f"gpt-oss-train-reference gradient of {path}: relative error "
+                                 f"{rel:.4g} exceeds {grad_rtol}")
+    log(f"gpt-oss-train-reference: loss {loss_gpu:.6g} vs float32 {loss_cpu:.6g} on the card's "
+        f"routing and {loss_own:.6g} on its own (tolerance {loss_rtol} relative); the routing "
+        f"agrees on {[round(a, 4) for a in agree]} of the choices per layer; worst gradient "
+        f"error {worst:.4g} of its norm over {len(grads_cpu)} tensors, the sinks' "
+        f"{errs['layers/sink']:.4g} (tolerance {grad_rtol}); card {t1 - t0:.1f} s, "
+        f"CPU {t2 - t1:.1f} s")
+
+
+def packed_fake_loader(per_row: int):
+    """A ``FakeDataLoader`` whose rows each pack ``per_row`` sequences of an
+    eighth to a quarter of a row (for ``per_row`` 4; its own draws fill a row
+    with one sequence of half to all of it)."""
+    from prime_rl_tpu_torch.trainer.rl.data import FakeDataLoader
+
+    class Packed(FakeDataLoader):
+        def __init__(self, vocab_size, seq_len, rows=1, num_micro_batches=4, **kw):
+            super().__init__(vocab_size, seq_len, rows, num_micro_batches,
+                             sequences_per_batch=per_row * rows * num_micro_batches, **kw)
+
+        def make_sample(self):
+            full, self.seq_len = self.seq_len, self.seq_len // per_row
+            try:
+                return super().make_sample()  # draws a length in [seq_len / 2, seq_len]
+            finally:
+                self.seq_len = full
+
+    return Packed
+
+
+@contextlib.contextmanager
+def packed_fake_rows(per_row: int):
+    """Within the block the trainer's fake loader is ``packed_fake_loader``."""
+    from prime_rl_tpu_torch.trainer.rl import train as train_mod
+
+    own = train_mod.FakeDataLoader
+    train_mod.FakeDataLoader = packed_fake_loader(per_row)
+    try:
+        yield
+    finally:
+        train_mod.FakeDataLoader = own
+
+
+def gpt_oss_training_phase() -> tuple[dict, dict]:
+    """The trainer through its normal entry on a GptOssForCausalLM directory
+    at gpt-oss-20b's widths, cut to 4 layers (two windowed, two full) with all
+    32 experts, twice from the same seed, on rows of four sequences each.
+    Returns (launches of the first run, numbers of its last step). Bench mode,
+    as in the DSA phase: only the initial weights are published (a snapshot
+    is 8.9 GB); one snapshot is written and read back here."""
+    import torch
+
+    from prime_rl_tpu_torch.configs import TrainerConfig
+    from prime_rl_tpu_torch.models import get_family
+    from prime_rl_tpu_torch.models.base import get_spec
+    from prime_rl_tpu_torch.models.qwen3 import layer_windows_list, load_hf_weights
+    from prime_rl_tpu_torch.ops import _build
+    from prime_rl_tpu_torch.trainer.optim import tree_leaves, tree_paths
+    from prime_rl_tpu_torch.trainer.rl.train import train
+    from prime_rl_tpu_torch.trainer.weights import save_hf_weights
+
+    steps, n_mb, rows, seq_len, per_row = 3, 2, 1, 4096, 4
+    model_dir = gpt_oss_model_dir("gpt_oss_model", num_hidden_layers=4)
+
+    def config(out: str) -> TrainerConfig:
+        return TrainerConfig(
+            device="cuda", seed=SEED, max_steps=steps, grad_clip=1.0, output_dir=out,
+            model={"name": model_dir, "seq_len": seq_len, "debug": {"random_init": True}},
+            optimizer={"type": "adamw_8bit", "lr": 1e-5, "master_dtype": "bfloat16"},
+            data={"type": "fake", "seq_len": seq_len, "micro_batch_size": rows,
+                  "num_micro_batches": n_mb, "seed": SEED},
+            batch={"seq_len": seq_len, "micro_batch_size": rows, "num_micro_batches": n_mb},
+            bench={"warmup_steps": 0, "steps": steps},
+        )
+
+    spec = get_spec(model_dir)
+    if (spec.family, spec.hidden_size, spec.num_heads, spec.num_kv_heads, spec.head_dim,
+            spec.num_experts, spec.vocab_size) != ("gpt_oss", 2880, 64, 8, 64, 32, 201088):
+        raise AssertionError("the trained model must be gpt-oss at gpt-oss-20b's widths")
+    windows = layer_windows_list(spec)
+    log(f"gpt-oss-training: {spec.num_layers} layers (windows {windows}), {spec.num_experts} "
+        f"experts, ac.mode {config('-').model.ac.mode}, {per_row} sequences a row")
+    outs = [os.path.join(ROOT, "build", "chip_smoke", f"gpt_oss_train_{i}") for i in range(2)]
+    runs = []
+    for i, out in enumerate(outs):
+        shutil.rmtree(out, ignore_errors=True)
+        _build.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with packed_fake_rows(per_row):
+            result = train(config(out))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        runs.append((result.records, dict(_build.launches), peak))
+        state = result.state if i == len(outs) - 1 else None
+        del result
+        torch.cuda.empty_cache()
+        shutil.rmtree(out, ignore_errors=True)
+        log(f"gpt-oss-training run {i}: {steps} steps in {wall:.2f} s (initial publish included), "
+            f"peak device memory {peak:.2f} GiB, losses {[r['loss'] for r in runs[-1][0]]}, "
+            f"step times {[round(r['step_time_s'], 3) for r in runs[-1][0]]}")
+    (records, launches, peak), (records_again, _, _) = runs
+    losses = [r["loss"] for r in records]
+    if len(records) != steps:
+        raise AssertionError(f"expected {steps} steps, got {len(records)}")
+    for r in records:
+        if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                and r["grad_norm"] > 0 and math.isfinite(r["entropy"])):
+            raise AssertionError(f"bad step record {r}")
+    if losses != [r["loss"] for r in records_again]:
+        raise AssertionError(f"two runs from the same seed gave different losses: {losses} and "
+                             f"{[r['loss'] for r in records_again]}")
+    per_pass = spec.num_layers * n_mb * rows * steps
+    windowed = sum(1 for w in windows if w) * n_mb * rows * steps
+    fwd_passes = 2 if config("-").model.ac.mode == "full" else 1
+    want = {"flash_attn_fwd": per_pass * fwd_passes, "flash_attn_fwd/sinks": per_pass * fwd_passes,
+            "flash_attn_fwd/window": windowed * fwd_passes,
+            "flash_attn_bwd_dq": per_pass, "flash_attn_bwd_dkv": per_pass,
+            "flash_attn_bwd_dq/window": windowed, "flash_attn_bwd_dkv/window": windowed}
+    for name, n in want.items():
+        if launches.get(name, 0) != n:
+            raise AssertionError(f"{name}: {launches.get(name, 0)} launches on the gpt-oss "
+                                 f"training path, expected {n}")
+    # the initial parameters, as init_train_state draws them from the seed
+    # (without an optimizer state: two of those do not fit beside the step's)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    init = dict(tree_paths(get_family(spec).init(spec, gen, dtype=torch.float32, device="cuda")))
+    final = dict(tree_paths(state.params))
+    unchanged = sorted(p for p, t in final.items() if torch.equal(t, init[p].to(t.dtype)))
+    del init
+    torch.cuda.empty_cache()
+    if "layers/sink" in unchanged or len(unchanged) > len(final) // 2:
+        raise AssertionError(f"parameters that did not change in {steps} steps: {unchanged}")
+    snap = os.path.join(ROOT, "build", "chip_smoke", "gpt_oss_snapshot")
+    shutil.rmtree(snap, ignore_errors=True)
+    t0 = time.perf_counter()
+    save_hf_weights(state.params, spec, snap)
+    t_save = time.perf_counter() - t0
+    if get_spec(snap) != spec:
+        raise AssertionError("the snapshot's config.json does not read back as the trained spec")
+    loaded = dict(tree_paths(load_hf_weights(snap, spec, dtype=torch.bfloat16, device="cuda")))
+    for path, want_t in final.items():
+        if not torch.equal(loaded[path].float(), want_t.float()):
+            raise AssertionError(f"snapshot: {path} differs from the state's parameters")
+    shutil.rmtree(snap, ignore_errors=True)
+    last = records[-1]
+    tokens = n_mb * rows * seq_len
+    n_params = sum(x.numel() for x in tree_leaves(state.params))
+    numbers = dict(step_time_s=last["step_time_s"], tokens_per_s=tokens / last["step_time_s"],
+                   peak_gib=peak, parameters=n_params)
+    log(f"gpt-oss-training: {n_params / 1e9:.3f} G parameters; {steps} steps of {n_mb} x [{rows}, "
+        f"{seq_len}] tokens; last step {last['step_time_s']:.3f} s, "
+        f"{numbers['tokens_per_s']:.0f} tokens/s, peak device memory {peak:.2f} GiB; "
+        f"{len(final) - len(unchanged)} of {len(final)} parameter tensors changed (the sinks "
+        f"among them); the snapshot ({t_save:.1f} s to write) reads back equal through get_spec "
+        f"and from_hf; launches {launches}")
+    del state, loaded, final
+    torch.cuda.empty_cache()
+    return launches, numbers
+
+
+def gpt_oss_reference_phase() -> None:
+    """The served gpt-oss at gpt-oss-20b's widths and full vocabulary, cut to
+    2 layers (one windowed, one full) with random sinks and biases: a prefill
+    of 200 tokens and 4 decode steps (positions 200-203, so the 128-token
+    window is in force) through K1, K3 and K4 in bf16 on the card, against a
+    plain float32 forward on the CPU from the same weights. As in the
+    gpt-oss-train-reference phase, the CPU replays the card's routing (a
+    near-tie in the top-4 of 32 routes a token elsewhere from bf16
+    activations), and a run on its own routing reports the agreement."""
+    import torch
+
+    from prime_rl_tpu_torch.models import get_family
+    from prime_rl_tpu_torch.models.base import get_spec
+    from prime_rl_tpu_torch.ops import _build
+    from prime_rl_tpu_torch.sampler import model as smodel
+
+    spec = get_spec(GPT_OSS, num_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = perturbed(get_family(spec).init(spec, gen, dtype=torch.bfloat16, device="cuda"), gen)
+    ps, lpad, n, steps = 64, 256, 200, 4
+    rng = torch.Generator().manual_seed(SEED)
+    ids = torch.zeros(1, lpad, dtype=torch.int64)
+    ids[0, :n] = torch.randint(1, spec.vocab_size, (n,), generator=rng)
+    nxt = torch.randint(1, spec.vocab_size, (steps,), generator=rng)
+    table = torch.arange(1, 6, dtype=torch.int32)[None]  # 5 pages of 64
+    shape = (spec.num_kv_heads, 6, ps, spec.head_dim)
+
+    def run(params, device, dtype):
+        sp = smodel.unstack_params(params, spec)
+        kp = [torch.zeros(shape, dtype=dtype, device=device) for _ in range(spec.num_layers)]
+        vp = [torch.zeros(shape, dtype=dtype, device=device) for _ in range(spec.num_layers)]
+        _, _, h, _ = smodel.prefill(sp, spec, kp, vp, ids.to(device), n,
+                                    table[0, :lpad // ps].to(device), compute_dtype=dtype)
+        out = [smodel.logits_from_hidden(sp, spec, h[None], dtype)]
+        for i in range(steps):
+            tok = (ids[0, n - 1:n] if i == 0 else nxt[i - 1:i]).to(device)
+            _, _, logits = smodel.decode(sp, spec, kp, vp, tok, torch.tensor(
+                [n + i], dtype=torch.int32, device=device), table.to(device), compute_dtype=dtype)
+            out.append(logits)
+        return [o.float().cpu() for o in out]
+
+    before = dict(_build.launches)
+    on_card: list = []
+    with recorded_routing(record=on_card):
+        got = run(params, torch.device("cuda"), torch.bfloat16)
+    torch.cuda.synchronize()
+    for name in ("flash_attn_fwd/window", "decode_qkv_prep", "decode_paged_attention/window"):
+        if _build.launches[name] <= before.get(name, 0):
+            raise AssertionError(f"gpt-oss-reference: {name} was not launched on the card")
+    cpu = {k: (v.float().cpu() if not isinstance(v, dict) else
+               {n_: t.float().cpu() for n_, t in v.items()}) for k, v in params.items()}
+    del params
+    torch.cuda.empty_cache()
+    on_card = [e.cpu() for e in on_card]
+    own: list = []
+    with recorded_routing(record=own):
+        want_own = run(cpu, torch.device("cpu"), torch.float32)
+    agree = sum(len(set(a) & set(b)) for x, y in zip(on_card, own)
+                for a, b in zip(x.tolist(), y.tolist())) / sum(x.numel() for x in on_card)
+    with recorded_routing(replay=on_card):
+        want = run(cpu, torch.device("cpu"), torch.float32)
+    for i, (g, w, wo) in enumerate(zip(got, want, want_own)):
+        name = "prefill" if i == 0 else f"decode at position {n + i - 1}"
+        err, scale = float((g - w).abs().max()), float(w.abs().max())
+        # bf16 activations against float32: a few bf16 ulps of the largest logit
+        if not (err <= 0.05 * scale and bool(torch.isfinite(g).all())):
+            raise AssertionError(f"gpt-oss served {name} logits differ from the float32 "
+                                 f"reference: max err {err:.4g} vs max |logit| {scale:.4g}")
+        log(f"gpt-oss reference {name} logits: max err {err:.4g} on the card's routing, "
+            f"{float((g - wo).abs().max()):.4g} on the CPU's own (max |logit| {scale:.4g})")
+    log(f"gpt-oss reference: the card's routing agrees with the float32 router's on {agree:.4f} "
+        f"of the choices")
+
+
 def reference_phase(engine) -> None:
     """The served weights' prefill and one decode step through the kernels
     (bf16, CUDA) against the plain float32 path on the CPU."""
@@ -971,7 +1599,7 @@ def reference_phase(engine) -> None:
         log(f"reference {name} logits: max err {err:.4g} (max |logit| {scale:.4g})")
 
 
-async def serving_phase(server, port: int) -> dict:
+async def serving_phase(server, port: int, model: str) -> dict:
     import aiohttp
     import numpy as np
 
@@ -1030,7 +1658,7 @@ async def serving_phase(server, port: int) -> dict:
         t0 = time.perf_counter()
         ttft = None
         async with http.post(f"{base}/v1/chat/completions", json={
-                "model": MODEL, "messages": [{"role": "user", "content": "hi there"}],
+                "model": model, "messages": [{"role": "user", "content": "hi there"}],
                 "max_tokens": 32, "temperature": 0.7, "stream": True}) as r:
             if r.status != 200:
                 raise AssertionError(f"chat stream: HTTP {r.status}")
@@ -1065,6 +1693,65 @@ async def serving_phase(server, port: int) -> dict:
     return out
 
 
+def serve(model: str, want_layers: int, want_vocab: int, reference=None):
+    """Build the inference server for ``model`` (all its layers, random
+    weights from the seed), run ``reference`` on its engine, warm it up and
+    drive it over HTTP with the launch counts reset just before. Returns
+    (stats, launches); the server is stopped and freed."""
+    import aiohttp.web_app
+    import torch
+
+    from prime_rl_tpu_torch.configs import InferenceConfig
+    from prime_rl_tpu_torch.entrypoints.inference import build_server
+    from prime_rl_tpu_torch.ops import _build
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    config = InferenceConfig(
+        device="cuda", seed=SEED, max_model_len=4096,
+        output_dir=os.path.join(ROOT, "build", "chip_smoke"),
+        model={"name": model, "debug": {"random_init": True}},
+        tokenizer={"name": "byte"}, scheduler={"max_batch_size": 64},
+    )
+    t0 = time.perf_counter()
+    server = build_server(config)
+    engine = server.engine
+    log(f"{model} server built in {time.perf_counter() - t0:.2f} s: "
+        f"{engine.spec.num_layers} layers, vocab {engine.spec.vocab_size}, "
+        f"{engine.config.num_pages} KV pages of {engine.config.page_size}")
+    if engine.spec.num_layers != want_layers or engine.spec.vocab_size != want_vocab:
+        raise AssertionError(f"the served model must be {model} at full width and depth")
+    if reference is not None:
+        reference(engine)
+    engine.warmup(4)
+
+    async def drive():
+        runner = await server.start_async("127.0.0.1", port)
+        try:
+            _build.reset_launches()
+            stats = await serving_phase(server, port, model)
+            launches = dict(_build.launches)
+        finally:
+            await server.stop_async(runner)
+        return stats, launches
+
+    out = asyncio.run(drive())
+    # aiohttp memoises its handler chains in module-level caches keyed by the
+    # bound handlers, which would keep the server, and the engine's weights and
+    # KV pool, alive beside the next model
+    for fn in vars(aiohttp.web_app).values():
+        if hasattr(fn, "cache_clear"):
+            fn.cache_clear()
+    alive = weakref.ref(engine)
+    del server, engine
+    gc.collect()
+    if alive() is not None:
+        raise AssertionError(f"the {model} engine outlived its server: its memory is not freed")
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     # the DSA trainer's state comes within a few GiB of the card's memory: keep
     # the caching allocator from stranding it in fragments (read at its first use)
@@ -1080,8 +1767,6 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0]
     log(card)
 
-    from prime_rl_tpu_torch.configs import InferenceConfig
-    from prime_rl_tpu_torch.entrypoints.inference import build_server
     from prime_rl_tpu_torch.models.base import get_spec
     from prime_rl_tpu_torch.ops import _build
 
@@ -1089,43 +1774,35 @@ def main() -> int:
     built = _build.build()
     log(f"build: {time.perf_counter() - t0:.2f} s ({', '.join(f'{k} {v:.2f} s' for k, v in built.items())})")
 
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        log(f"phase {name}: {time.perf_counter() - t:.1f} s")
+        return out
+
     spec = get_spec(MODEL)
-    rows = kernel_phase(spec) + sparse_mla_kernel_phase()
-    train_reference_phase()
-    train_launches, _ = training_phase()
-    dsa_train_reference_phase()
-    dsa_launches, _ = dsa_training_phase()
+    rows = (timed("kernels", kernel_phase, spec) + timed("dsa kernels", sparse_mla_kernel_phase)
+            + timed("gpt-oss kernels", gpt_oss_kernel_phase))
+    timed("train-reference", train_reference_phase)
+    train_launches, _ = timed("training", training_phase)
+    timed("dsa-train-reference", dsa_train_reference_phase)
+    dsa_launches, _ = timed("dsa-training", dsa_training_phase)
+    timed("gpt-oss-train-reference", gpt_oss_train_reference_phase)
+    oss_train_launches, _ = timed("gpt-oss-training", gpt_oss_training_phase)
 
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    config = InferenceConfig(
-        device="cuda", seed=SEED, max_model_len=4096,
-        output_dir=os.path.join(ROOT, "build", "chip_smoke"),
-        model={"name": MODEL, "debug": {"random_init": True}},
-        tokenizer={"name": "byte"}, scheduler={"max_batch_size": 64},
-    )
-    t0 = time.perf_counter()
-    server = build_server(config)
-    engine = server.engine
-    log(f"server built in {time.perf_counter() - t0:.2f} s: {spec.num_layers} layers, vocab "
-        f"{spec.vocab_size}, {engine.config.num_pages} KV pages of {engine.config.page_size}")
-    if spec.num_layers != 28 or engine.spec.vocab_size != 151936:
-        raise AssertionError("the served model must be Qwen3-0.6B at full width and depth")
-    reference_phase(engine)
-    engine.warmup(4)
-
-    async def drive():
-        runner = await server.start_async("127.0.0.1", port)
-        try:
-            _build.reset_launches()
-            stats = await serving_phase(server, port)
-            launches = dict(_build.launches)
-        finally:
-            await server.stop_async(runner)
-        return stats, launches
-
-    stats, launches = asyncio.run(drive())
+    stats, launches = timed("reference + serving", serve, MODEL, 28, 151936, reference_phase)
+    timed("gpt-oss-reference", gpt_oss_reference_phase)
+    oss_stats, oss_launches = timed("gpt-oss-serving", serve, GPT_OSS, 24, 201088)
+    log(f"gpt-oss-20b serving on {card}: {oss_stats['generate_tokens_per_s']:.1f} tokens/s "
+        f"over {oss_stats['generate_requests']} concurrent requests, first token of the streamed "
+        f"chat after {oss_stats['chat_stream_ttft_s']} s")
+    # every gpt-oss layer has sinks: the sink launches less the windowed ones
+    # are the full layers'; K3 has no window form and runs on every layer
+    for name in ("flash_attn_fwd", "decode_paged_attention"):
+        windowed = oss_launches.get(f"{name}/window", 0)
+        if min(windowed, oss_launches.get(f"{name}/sinks", 0) - windowed) <= 0:
+            raise AssertionError(f"{name} was not launched on both the windowed and the full "
+                                 f"layers of the gpt-oss serving path: {oss_launches}")
     for row in rows:
         name = row["name"]
         on_serving, on_training = launches.get(name, 0), train_launches.get(name, 0)
@@ -1135,6 +1812,26 @@ def main() -> int:
                 raise AssertionError("kernel flash_attn_fwd was not launched on both paths")
         elif name.startswith("sparse_mla"):
             row["launches"] = dsa_launches.get(name, 0)
+        elif name == "flash_attn_fwd/window+sinks":  # gpt-oss serving and training
+            row["launches"] = oss_launches.get("flash_attn_fwd/sinks", 0)
+            row["launches_window"] = oss_launches.get("flash_attn_fwd/window", 0)
+            row["launches_training"] = oss_train_launches.get("flash_attn_fwd/sinks", 0)
+            if min(row["launches_window"], row["launches_training"]) <= 0:
+                raise AssertionError(f"{name} was not launched on both gpt-oss paths")
+        elif name.startswith("flash_attn_bwd"):
+            kernel = name.split("/")[0]
+            if "/" in name:  # gpt-oss training
+                row["launches"] = oss_train_launches.get(kernel, 0)
+                row["launches_window"] = oss_train_launches.get(name, 0)
+                if row["launches_window"] <= 0:
+                    raise AssertionError(f"{name}: no windowed launch on the gpt-oss path")
+            else:
+                row["launches"] = on_training
+        elif name == "decode_qkv_prep/gpt-oss":
+            row["launches"] = oss_launches.get("decode_qkv_prep", 0)
+        elif name == "decode_paged_attention/window+sinks":
+            row["launches"] = oss_launches.get("decode_paged_attention/sinks", 0)
+            row["launches_window"] = oss_launches.get("decode_paged_attention/window", 0)
         else:
             row["launches"] = on_serving + on_training
         if row["launches"] <= 0:
@@ -1142,7 +1839,11 @@ def main() -> int:
     log(f"launches on the serving path: {launches}")
     log(f"launches on the training path: {train_launches}")
     log(f"launches on the DSA training path: {dsa_launches}")
+    log(f"launches on the gpt-oss training path: {oss_train_launches}")
+    log(f"launches on the gpt-oss serving path: {oss_launches}")
     log(f"serving stats: {json.dumps(stats)}")
+    log(f"gpt-oss serving stats: {json.dumps(oss_stats)}")
+    log(f"chip_smoke: {time.perf_counter() - t0:.1f} s from the build on")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

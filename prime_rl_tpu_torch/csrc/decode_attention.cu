@@ -8,6 +8,13 @@
 // the new one, online softmax in f32, scale hd^-0.5 unless given.
 // Pools are [NKV, NP, PS, HD] bf16 and are updated in place.
 //
+// Sliding window (window > 0; gpt-oss: 128): the window counts the new token,
+// so the cached rows attended are [max(n + 1 - window, 0), n); the row loop
+// starts there (it may fall inside a page), and rows below it are never read,
+// as the TPU kernel skips the blocks below its `b_lo_of`. Attention sinks (f32
+// [NH], one learned logit per q head; null = none) join the denominator at the
+// finalize, after the new token's term, as a virtual key of value 0.
+//
 // The append is a plain row store: the TPU kernel's 8-row read-modify-write
 // exists only because its memory tiling forbids single-row DMA. The new
 // token's contribution is taken from the inputs (registers), so no read in
@@ -63,8 +70,9 @@ __global__ void __launch_bounds__(NTHREADS)
 decode_attn_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k_new,
                    const __nv_bfloat16* __restrict__ v_new, __nv_bfloat16* __restrict__ k_pool,
                    __nv_bfloat16* __restrict__ v_pool, const int* __restrict__ lengths,
-                   const int* __restrict__ page_table, __nv_bfloat16* __restrict__ out, int NH,
-                   int NKV, int NP, int PS, int P, float scale) {
+                   const int* __restrict__ page_table, const float* __restrict__ sinks,
+                   __nv_bfloat16* __restrict__ out, int NH, int NKV, int NP, int PS, int P,
+                   float scale, int window) {
   constexpr int EPL = HD / 32;  // head-dim elements per lane: lane*EPL .. +EPL
   __shared__ float sm_m[NWARPS][G];
   __shared__ float sm_l[NWARPS][G];
@@ -103,7 +111,8 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
   }
 
   const size_t head_base = (size_t)h * NP * PS * HD;
-  for (int t0 = warp * UNROLL; t0 < n; t0 += NWARPS * UNROLL) {
+  const int lo = window > 0 ? max(n + 1 - window, 0) : 0;  // first cached row in the window
+  for (int t0 = lo + warp * UNROLL; t0 < n; t0 += NWARPS * UNROLL) {
     float kr[UNROLL][EPL], vr[UNROLL][EPL];
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
@@ -173,22 +182,30 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
     const float m_f = fmaxf(mm, s_new);
     const float alpha = expf(mm - m_f);
     const float p_new = expf(s_new - m_f);
-    const float l_f = ll * alpha + p_new;
-    const float a_f = aa * alpha + p_new * __bfloat162float(v_new[new_off + d]);
+    float l_f = ll * alpha + p_new;
+    float a_f = aa * alpha + p_new * __bfloat162float(v_new[new_off + d]);
+    if (sinks != nullptr) {
+      const float sink = sinks[h * G + g];
+      const float m2 = fmaxf(m_f, sink);
+      const float c = expf(m_f - m2);
+      l_f = l_f * c + expf(sink - m2);
+      a_f *= c;
+    }
     out[((size_t)s * NH + h * G + g) * HD + d] = __float2bfloat16(a_f / l_f);
   }
 }
 
 template <int HD, int G>
 cudaError_t launch(const void* q, const void* k_new, const void* v_new, void* k_pool,
-                   void* v_pool, const int* lengths, const int* page_table, void* out, int S,
-                   int NH, int NKV, int NP, int PS, int P, float scale, cudaStream_t stream) {
+                   void* v_pool, const int* lengths, const int* page_table, const float* sinks,
+                   void* out, int S, int NH, int NKV, int NP, int PS, int P, float scale,
+                   int window, cudaStream_t stream) {
   using bf = __nv_bfloat16;
   dim3 grid(NKV, S);
   decode_attn_kernel<HD, G><<<grid, NTHREADS, 0, stream>>>(
       static_cast<const bf*>(q), static_cast<const bf*>(k_new), static_cast<const bf*>(v_new),
-      static_cast<bf*>(k_pool), static_cast<bf*>(v_pool), lengths, page_table,
-      static_cast<bf*>(out), NH, NKV, NP, PS, P, scale);
+      static_cast<bf*>(k_pool), static_cast<bf*>(v_pool), lengths, page_table, sinks,
+      static_cast<bf*>(out), NH, NKV, NP, PS, P, scale, window);
   return cudaGetLastError();
 }
 
@@ -196,16 +213,18 @@ cudaError_t launch(const void* q, const void* k_new, const void* v_new, void* k_
 
 extern "C" int decode_paged_attention(const void* q, const void* k_new, const void* v_new,
                                       void* k_pool, void* v_pool, const void* lengths,
-                                      const void* page_table, void* out, int S, int NH, int NKV,
-                                      int HD, int NP, int PS, int P, float scale, void* stream) {
+                                      const void* page_table, const void* sinks, void* out, int S,
+                                      int NH, int NKV, int HD, int NP, int PS, int P, float scale,
+                                      int window, void* stream) {
   if (NH % NKV != 0 || NH / NKV > MAX_GROUP) return (int)cudaErrorInvalidValue;
   const int* len = static_cast<const int*>(lengths);
   const int* tab = static_cast<const int*>(page_table);
+  const float* snk = static_cast<const float*>(sinks);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define PRT_DECODE_CASE(hd, g)                                                              \
   if (HD == hd && NH / NKV == g)                                                             \
-    return launch<hd, g>(q, k_new, v_new, k_pool, v_pool, len, tab, out, S, NH, NKV, NP, PS, P, \
-                         scale, st);
+    return launch<hd, g>(q, k_new, v_new, k_pool, v_pool, len, tab, snk, out, S, NH, NKV, NP, PS, \
+                         P, scale, window, st);
   PRT_DECODE_CASE(64, 1) PRT_DECODE_CASE(64, 2) PRT_DECODE_CASE(64, 4) PRT_DECODE_CASE(64, 8)
   PRT_DECODE_CASE(128, 1) PRT_DECODE_CASE(128, 2) PRT_DECODE_CASE(128, 4) PRT_DECODE_CASE(128, 8)
 #undef PRT_DECODE_CASE

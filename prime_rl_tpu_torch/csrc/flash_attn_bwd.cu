@@ -6,8 +6,8 @@
 // flash_attn_fwd.cu): q/do/dq [B, Lq, NH, HD], k/v/dk/dv [B, Lk, NKV, HD]
 // bf16; segment ids [B, L] int32 with 0 = padding; lse and delta f32
 // [B, NH, Lq], where delta = sum(out * do, -1) minus the lse cotangent (the
-// wrapper computes it). With mask = same non-zero segment and (causal)
-// row >= col:
+// wrapper computes it). With mask = same non-zero segment, (causal)
+// row >= col and (window > 0) row - col < window:
 //
 //   s  = q k^T * scale              p  = mask ? exp(s - lse) : 0
 //   dp = do v^T                     ds = bf16(p * (dp - delta))
@@ -17,6 +17,17 @@
 // The mask selects instead of multiplying, so a row that saw no key
 // (lse = -1e30: padding, dummy rows) never evaluates exp(s + 1e30): it gives
 // dq = 0 and adds nothing to dk/dv whatever `do` holds.
+//
+// Sliding windows run banded, as in the TPU kernels: K2a's kv-tile loop
+// starts at the band's first tile (q0 - window + 1) / BK (`_band_lo`), and
+// K2b's q-tile loop stops after the last q tile that reaches its kv tile,
+// (k0 + BK + window - 2) / BQ (the transposed band of `_bwd_dkv_kernel`).
+// Attention sinks need no input here: the sink is inside the saved lse, and
+// its own gradient is a reduction over (lse, delta) that the wrapper does.
+// The window is a template flag (WINDOW) besides its value: K2b at head dim
+// 128 runs at the 255-register limit, and with the band's arithmetic compiled
+// into the dense form it ran 1.5x slower (0.60 against 0.39 ms at B=8, L=512,
+// 16/8 heads on an H100).
 //
 // What bounds them on the H100: like the forward they are compute-bound at
 // training lengths (K2a three, K2b four tile products of 2*64*64*HD flops
@@ -155,14 +166,14 @@ __device__ __forceinline__ void mma_acc(
 // ---------------------------------------------------------------------------
 // K2a: dq
 // ---------------------------------------------------------------------------
-template <int HD>
+template <int HD, bool WINDOW>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
                     const int* __restrict__ seg_q, const int* __restrict__ seg_kv,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     __nv_bfloat16* __restrict__ dq, int Lq, int Lk, int NH, int NKV,
-                    float scale, int causal) {
+                    float scale, int causal, int window) {
   using S = Smem<HD>;
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem + S::q_off);
@@ -201,8 +212,9 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 
   int n_tiles = (Lk + BK - 1) / BK;
   if (causal) n_tiles = min(n_tiles, (q0 + BQ - 1) / BK + 1);
+  const int j0 = WINDOW ? max(0, q0 - window + 1) / BK : 0;  // the band's first tile
 
-  for (int j = 0; j < n_tiles; ++j) {
+  for (int j = j0; j < n_tiles; ++j) {
     const int k0 = j * BK;
     __syncthreads();  // previous K/V tile fully consumed (and Q/dO loaded)
     const size_t kv_base = ((size_t)b * Lk + k0) * kv_stride + (size_t)kvh * HD;
@@ -224,7 +236,8 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 #pragma unroll
       for (int t = 0; t < 2; ++t) {
         const int c = lane + 32 * t;
-        const bool ok = (sq != 0) && (sq == segk_s[c]) && (!causal || q0 + row >= k0 + c);
+        const bool ok = (sq != 0) && (sq == segk_s[c]) && (!causal || q0 + row >= k0 + c) &&
+                        (!WINDOW || q0 + row - (k0 + c) < window);
         float ds = 0.f;
         if (ok) ds = expf(Ss[row * S::SLD + c] * scale - l) * (dPs[row * S::SLD + c] - dl);
         dSs[row * S::PLD + c] = __float2bfloat16(ds);
@@ -247,14 +260,14 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 // ---------------------------------------------------------------------------
 // K2b: dk, dv
 // ---------------------------------------------------------------------------
-template <int HD>
+template <int HD, bool WINDOW>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
                      const int* __restrict__ seg_q, const int* __restrict__ seg_kv,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Lq,
-                     int Lk, int NH, int NKV, float scale, int causal) {
+                     int Lk, int NH, int NKV, float scale, int causal, int window) {
   using S = Smem<HD>;
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem + S::q_off);
@@ -290,8 +303,10 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     wmma::fill_fragment(dv_acc[n], 0.f);
   }
 
-  const int nq = (Lq + BQ - 1) / BQ;
   const int i_lo = causal ? k0 / BQ : 0;  // q tiles before it see nothing of this kv tile
+  // q tiles past the window's reach of this kv tile see nothing of it either
+  const int nq = WINDOW ? min((Lq + BQ - 1) / BQ, (k0 + BK - 1 + window - 1) / BQ + 1)
+                        : (Lq + BQ - 1) / BQ;
 
   for (int g = 0; g < group; ++g) {
     const int h = kvh * group + g;
@@ -322,7 +337,8 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
         for (int t = 0; t < 2; ++t) {
           const int c = lane + 32 * t;
           const int sq = segq_s[c];
-          const bool ok = (sq != 0) && (sq == sk) && (!causal || q0 + c >= k0 + row);
+          const bool ok = (sq != 0) && (sq == sk) && (!causal || q0 + c >= k0 + row) &&
+                          (!WINDOW || q0 + c - (k0 + row) < window);
           float p = 0.f, ds = 0.f;
           if (ok) {
             p = expf(Sts[row * S::SLD + c] * scale - lse_s[c]);
@@ -365,38 +381,39 @@ cudaError_t configure(Kernel kernel, size_t smem, bool* configured) {
   return err;
 }
 
-template <int HD>
+template <int HD, bool WINDOW>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const int* seg_q, const int* seg_kv, const float* lse, const float* delta,
                       void* dq, int B, int Lq, int Lk, int NH, int NKV, float scale, int causal,
-                      cudaStream_t stream) {
+                      int window, cudaStream_t stream) {
   static bool configured = false;
   const size_t smem = Smem<HD>::bytes_dq;
-  cudaError_t err = configure(flash_bwd_dq_kernel<HD>, smem, &configured);
+  cudaError_t err = configure(flash_bwd_dq_kernel<HD, WINDOW>, smem, &configured);
   if (err != cudaSuccess) return err;
   dim3 grid((Lq + BQ - 1) / BQ, NH, B);
-  flash_bwd_dq_kernel<HD><<<grid, NTHREADS, smem, stream>>>(
+  flash_bwd_dq_kernel<HD, WINDOW><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), seg_q,
-      seg_kv, lse, delta, static_cast<__nv_bfloat16*>(dq), Lq, Lk, NH, NKV, scale, causal);
+      seg_kv, lse, delta, static_cast<__nv_bfloat16*>(dq), Lq, Lk, NH, NKV, scale, causal,
+      window);
   return cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, bool WINDOW>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const int* seg_q, const int* seg_kv, const float* lse,
                        const float* delta, void* dk, void* dv, int B, int Lq, int Lk, int NH,
-                       int NKV, float scale, int causal, cudaStream_t stream) {
+                       int NKV, float scale, int causal, int window, cudaStream_t stream) {
   static bool configured = false;
   const size_t smem = Smem<HD>::bytes_dkv;
-  cudaError_t err = configure(flash_bwd_dkv_kernel<HD>, smem, &configured);
+  cudaError_t err = configure(flash_bwd_dkv_kernel<HD, WINDOW>, smem, &configured);
   if (err != cudaSuccess) return err;
   dim3 grid((Lk + BK - 1) / BK, NKV, B);
-  flash_bwd_dkv_kernel<HD><<<grid, NTHREADS, smem, stream>>>(
+  flash_bwd_dkv_kernel<HD, WINDOW><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), seg_q,
       seg_kv, lse, delta, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), Lq,
-      Lk, NH, NKV, scale, causal);
+      Lk, NH, NKV, scale, causal, window);
   return cudaGetLastError();
 }
 
@@ -405,40 +422,37 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
 extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                  const void* seg_q, const void* seg_kv, const void* lse,
                                  const void* delta, void* dq, int B, int Lq, int Lk, int NH,
-                                 int NKV, int HD, float scale, int causal, void* stream) {
+                                 int NKV, int HD, float scale, int causal, int window,
+                                 void* stream) {
   const int* sq = static_cast<const int*>(seg_q);
   const int* sk = static_cast<const int*>(seg_kv);
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(delta);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (HD) {
-    case 64:
-      return launch_dq<64>(q, k, v, dout, sq, sk, l, d, dq, B, Lq, Lk, NH, NKV, scale, causal, st);
-    case 128:
-      return launch_dq<128>(q, k, v, dout, sq, sk, l, d, dq, B, Lq, Lk, NH, NKV, scale, causal, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+#define PRT_DQ_CASE(hd, w)                                                                   \
+  if (HD == hd && (window > 0) == w)                                                          \
+    return launch_dq<hd, w>(q, k, v, dout, sq, sk, l, d, dq, B, Lq, Lk, NH, NKV, scale, causal, \
+                            window, st);
+  PRT_DQ_CASE(64, false) PRT_DQ_CASE(64, true) PRT_DQ_CASE(128, false) PRT_DQ_CASE(128, true)
+#undef PRT_DQ_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                   const void* seg_q, const void* seg_kv, const void* lse,
                                   const void* delta, void* dk, void* dv, int B, int Lq, int Lk,
-                                  int NH, int NKV, int HD, float scale, int causal,
+                                  int NH, int NKV, int HD, float scale, int causal, int window,
                                   void* stream) {
   const int* sq = static_cast<const int*>(seg_q);
   const int* sk = static_cast<const int*>(seg_kv);
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(delta);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (HD) {
-    case 64:
-      return launch_dkv<64>(q, k, v, dout, sq, sk, l, d, dk, dv, B, Lq, Lk, NH, NKV, scale,
-                            causal, st);
-    case 128:
-      return launch_dkv<128>(q, k, v, dout, sq, sk, l, d, dk, dv, B, Lq, Lk, NH, NKV, scale,
-                             causal, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+#define PRT_DKV_CASE(hd, w)                                                                  \
+  if (HD == hd && (window > 0) == w)                                                          \
+    return launch_dkv<hd, w>(q, k, v, dout, sq, sk, l, d, dk, dv, B, Lq, Lk, NH, NKV, scale,   \
+                             causal, window, st);
+  PRT_DKV_CASE(64, false) PRT_DKV_CASE(64, true) PRT_DKV_CASE(128, false) PRT_DKV_CASE(128, true)
+#undef PRT_DKV_CASE
+  return (int)cudaErrorInvalidValue;
 }

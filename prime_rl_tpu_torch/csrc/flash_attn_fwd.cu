@@ -3,11 +3,22 @@
 // Replaces the TPU kernel prime_rl_tpu/ops/flash_attention.py `_fwd_kernel`
 // (pallas_call in `_fwd`). Same contract: q [B, Lq, NH, HD], k/v
 // [B, Lk, NKV, HD] bf16; segment ids [B, L] int32 with 0 = padding; a query
-// attends a key iff seg_q == seg_kv, seg_q != 0 and (causal) row >= col; GQA
-// maps q head h to kv head h / (NH / NKV); online softmax with f32
-// accumulators; out bf16 [B, Lq, NH, HD] and lse f32 [B, NH, Lq]. A row that
-// sees no key (padding, dummy prefill rows) gets out 0 and lse -1e30, as the
-// TPU kernel's finalize does.
+// attends a key iff seg_q == seg_kv, seg_q != 0, (causal) row >= col and
+// (window > 0) row - col < window; GQA maps q head h to kv head h / (NH /
+// NKV); online softmax with f32 accumulators; out bf16 [B, Lq, NH, HD] and
+// lse f32 [B, NH, Lq]. A row that sees no key (padding, dummy prefill rows)
+// gets out 0 and lse -1e30, as the TPU kernel's finalize does.
+//
+// Sliding window (gpt-oss: 128 tokens on every other layer): the kv-tile
+// loop starts at the band's first tile, (q0 - window + 1) / BK, as the TPU
+// kernel's grid starts at `_band_lo`; tiles wholly below the band are never
+// loaded, so the work grows with L * window and not L^2. Attention sinks
+// (one learned logit per q head, f32 [NH]; null = none) join the softmax
+// denominator at the finalize, as a virtual key of value 0: m_f = max(m,
+// sink), l_f = l e^(m - m_f) + e^(sink - m_f), out = acc e^(m - m_f) / l_f,
+// lse = m_f + log l_f. A row that sees no key then gets out 0 and lse = sink.
+// The window is a template flag (WINDOW) besides its value, so the dense
+// instantiation compiles as it did before windows existed.
 //
 // What bounds it on the H100: at prefill lengths (64..4096) attention is
 // compute-bound (about 4*L*L/2*HD flops per head against 4*L*HD bytes), so the
@@ -80,13 +91,13 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat1
   }
 }
 
-template <int HD>
+template <int HD, bool WINDOW>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg_q,
                  const int* __restrict__ seg_kv, __nv_bfloat16* __restrict__ out,
-                 float* __restrict__ lse, int Lq, int Lk, int NH, int NKV, float scale,
-                 int causal) {
+                 float* __restrict__ lse, const float* __restrict__ sinks, int Lq, int Lk,
+                 int NH, int NKV, float scale, int causal, int window) {
   using S = Smem<HD>;
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem + S::q_off);
@@ -117,8 +128,10 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 
   int n_tiles = (Lk + BK - 1) / BK;
   if (causal) n_tiles = min(n_tiles, (q0 + BQ - 1) / BK + 1);
+  // the band: no row of this tile sees a key below q0 - window + 1
+  const int j0 = WINDOW ? max(0, q0 - window + 1) / BK : 0;
 
-  for (int j = 0; j < n_tiles; ++j) {
+  for (int j = j0; j < n_tiles; ++j) {
     const int k0 = j * BK;
     __syncthreads();  // previous tile's K/V/P fully consumed (and Q loaded)
     const size_t kv_base = ((size_t)b * Lk + k0) * kv_stride + (size_t)kvh * HD;
@@ -156,7 +169,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
       for (int t = 0; t < 2; ++t) {
         const int c = lane + 32 * t;
         const int gcol = k0 + c;
-        ok[t] = (sq != 0) && (sq == segk_s[c]) && (!causal || grow >= gcol);
+        ok[t] = (sq != 0) && (sq == segk_s[c]) && (!causal || grow >= gcol) &&
+                (!WINDOW || grow - gcol < window);
         s2[t] = ok[t] ? Ss[row * S::SLD + c] * scale : NEG_INF;
       }
       const float m_prev = m_s[row];
@@ -197,59 +211,72 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   }
   __syncthreads();
 
-  // finalize: out = acc / l (0 for rows that saw no key), lse = m + log l
+  // finalize: out = acc / l (0 for rows that saw no key), lse = m + log l;
+  // with a sink, the sink's term joins l first
   for (int r = 0; r < 16; ++r) {
     const int row = wrow + r;
     const int grow = q0 + row;
     if (grow >= Lq) break;
-    const float l = l_s[row];
-    const float inv = l > 0.f ? 1.f / l : 1.f;
+    const float l = l_s[row], m = m_s[row];
+    float inv, row_lse;
+    if (sinks != nullptr) {
+      const float sink = sinks[h];
+      const float m_f = fmaxf(m, sink);
+      const float alpha = expf(m - m_f);  // rows that saw no key: m = -1e30 -> 0
+      const float l_f = l * alpha + expf(sink - m_f);
+      inv = alpha / l_f;
+      row_lse = m_f + logf(l_f);
+    } else {
+      inv = l > 0.f ? 1.f / l : 1.f;
+      row_lse = l > 0.f ? m + logf(l) : NEG_INF;
+    }
     __nv_bfloat16* orow = out + ((size_t)b * Lq + grow) * q_stride + (size_t)h * HD;
 #pragma unroll
     for (int t = 0; t < HD / 32; ++t) {
       const int c = lane + 32 * t;
       orow[c] = __float2bfloat16(Os[row * S::OLD + c] * inv);
     }
-    if (lane == 0)
-      lse[((size_t)b * NH + h) * Lq + grow] = l > 0.f ? m_s[row] + logf(l) : NEG_INF;
+    if (lane == 0) lse[((size_t)b * NH + h) * Lq + grow] = row_lse;
   }
 }
 
-template <int HD>
+template <int HD, bool WINDOW>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* seg_q,
-                   const int* seg_kv, void* out, float* lse, int B, int Lq, int Lk, int NH,
-                   int NKV, float scale, int causal, cudaStream_t stream) {
+                   const int* seg_kv, void* out, float* lse, const float* sinks, int B, int Lq,
+                   int Lk, int NH, int NKV, float scale, int causal, int window,
+                   cudaStream_t stream) {
   static bool configured = false;
   const size_t smem = Smem<HD>::bytes;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        flash_fwd_kernel<HD, WINDOW>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   dim3 grid((Lq + BQ - 1) / BQ, NH, B);
-  flash_fwd_kernel<HD><<<grid, NTHREADS, smem, stream>>>(
+  flash_fwd_kernel<HD, WINDOW><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), seg_q, seg_kv, static_cast<__nv_bfloat16*>(out),
-      lse, Lq, Lk, NH, NKV, scale, causal);
+      lse, sinks, Lq, Lk, NH, NKV, scale, causal, window);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, const void* seg_q,
-                              const void* seg_kv, void* out, void* lse, int B, int Lq, int Lk,
-                              int NH, int NKV, int HD, float scale, int causal, void* stream) {
+                              const void* seg_kv, void* out, void* lse, const void* sinks, int B,
+                              int Lq, int Lk, int NH, int NKV, int HD, float scale, int causal,
+                              int window, void* stream) {
   const int* sq = static_cast<const int*>(seg_q);
   const int* sk = static_cast<const int*>(seg_kv);
   float* l = static_cast<float*>(lse);
+  const float* snk = static_cast<const float*>(sinks);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (HD) {
-    case 64:
-      return launch<64>(q, k, v, sq, sk, out, l, B, Lq, Lk, NH, NKV, scale, causal, st);
-    case 128:
-      return launch<128>(q, k, v, sq, sk, out, l, B, Lq, Lk, NH, NKV, scale, causal, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+#define PRT_FWD_CASE(hd, w)                                                                  \
+  if (HD == hd && (window > 0) == w)                                                          \
+    return launch<hd, w>(q, k, v, sq, sk, out, l, snk, B, Lq, Lk, NH, NKV, scale, causal,      \
+                         window, st);
+  PRT_FWD_CASE(64, false) PRT_FWD_CASE(64, true) PRT_FWD_CASE(128, false) PRT_FWD_CASE(128, true)
+#undef PRT_FWD_CASE
+  return (int)cudaErrorInvalidValue;
 }

@@ -10,8 +10,9 @@ from prime_rl_tpu_torch.configs import InferenceConfig, parse_config
 def build_server(config: InferenceConfig):
     import torch
 
+    from prime_rl_tpu_torch.models import get_family
     from prime_rl_tpu_torch.models.base import get_spec
-    from prime_rl_tpu_torch.models.qwen3 import init_params, load_hf_weights
+    from prime_rl_tpu_torch.models.qwen3 import load_hf_weights
     from prime_rl_tpu_torch.renderers.tokenizer import get_tokenizer
     from prime_rl_tpu_torch.sampler.cache import CacheConfig
     from prime_rl_tpu_torch.sampler.engine import Engine
@@ -42,7 +43,7 @@ def build_server(config: InferenceConfig):
     if config.model.debug.random_init:
         gen = torch.Generator(device=device)
         gen.manual_seed(config.seed)
-        params = init_params(spec, gen, dtype=dtype, device=device)
+        params = get_family(spec).init(spec, gen, dtype=dtype, device=device)
     else:
         from pathlib import Path
 

@@ -1,11 +1,12 @@
 """Model registry: family -> (init, forward, conversion). Ported so far: the
-dense qwen3 block, llama (the same block with ``qk_norm=False``), and the MLA
+dense qwen3 block, llama (the same block with ``qk_norm=False``), gpt-oss
+(windows, sinks and clamped-GLU experts; trained and served), and the MLA
 families ``deepseek_v3`` (dense MLA) and ``glm_moe_dsa`` (MLA + DSA sparse
 attention), both over the noaux-tc MoE stack, for training."""
 
 from __future__ import annotations
 
-from prime_rl_tpu_torch.models import mla_moe, qwen3
+from prime_rl_tpu_torch.models import gpt_oss, mla_moe, qwen3
 from prime_rl_tpu_torch.models.base import ModelSpec
 
 
@@ -22,7 +23,9 @@ _DENSE = Family(qwen3.init_params, qwen3.forward, qwen3.params_from_hf_state_dic
                 qwen3.params_to_hf_state_dict, qwen3.get_lm_head)
 _MLA = Family(mla_moe.init_params, mla_moe.forward, mla_moe.params_from_hf_state_dict,
               mla_moe.params_to_hf_state_dict, mla_moe.get_lm_head)
-FAMILIES: dict[str, Family] = {"qwen3": _DENSE, "llama": _DENSE,
+_GPT_OSS = Family(gpt_oss.init_params, gpt_oss.forward, gpt_oss.params_from_hf_state_dict,
+                  gpt_oss.params_to_hf_state_dict, gpt_oss.get_lm_head)
+FAMILIES: dict[str, Family] = {"qwen3": _DENSE, "llama": _DENSE, "gpt_oss": _GPT_OSS,
                                "deepseek_v3": _MLA, "glm_moe_dsa": _MLA}
 
 

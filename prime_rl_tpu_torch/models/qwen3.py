@@ -2,15 +2,20 @@
 setup, random init, the training forward, LM head and the HF state-dict
 conversion (the port of the JAX package's ``models/qwen3.py``).
 
-RMSNorm -> GQA attention with per-head q/k RMSNorm + RoPE -> RMSNorm ->
-SwiGLU. Parameters are a plain dict of tensors in the JAX package's stacked
-layout: ``{"embed": [V, D], "layers": {name: [NL, ...]}, "final_norm": [D],
-"lm_head": [D, V] (untied only)}``, projections stored ``[in, out]``. The
+RMSNorm -> GQA attention with per-head q/k RMSNorm + RoPE (optional q/k/v/o
+biases, sliding windows per layer, learned attention sinks) -> RMSNorm ->
+SwiGLU. The gpt-oss family reuses the attention half (``_attn_block``,
+``init_params`` through ``spec_dense_view``). Parameters are a plain dict of
+tensors in the JAX package's stacked layout: ``{"embed": [V, D], "layers":
+{name: [NL, ...]}, "final_norm": [D], "lm_head": [D, V] (untied only)}``,
+projections stored ``[in, out]``. The
 training forward loops over the leading layer axis; the serving engine
 unstacks them per layer (sampler/model.unstack_params).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -43,20 +48,43 @@ def rope_setup(spec: ModelSpec, device: torch.device | str = "cpu") -> tuple[tor
     return rope_frequencies(rot_dim, spec.rope_theta, device=device), 1.0
 
 
+def spec_dense_view(spec: ModelSpec) -> ModelSpec:
+    """A dense-shaped twin of a MoE spec, to reuse the dense attention and
+    embedding init (the JAX package keeps this in ``models/qwen3_moe.py``)."""
+    return dataclasses.replace(spec, num_experts=0, num_experts_per_tok=0,
+                               moe_intermediate_size=0)
+
+
+def trunc_normal(shape, generator: torch.Generator, dtype, device) -> torch.Tensor:
+    """std 0.02 cut at 2 sigma, drawn in float32. A stack of matrices in a
+    narrower ``dtype`` is drawn one leading slice at a time, so that no float32
+    copy of the whole stack exists (gpt-oss-20b's expert stacks hold 6.4 G
+    values each: 25.5 GB in float32)."""
+    def draw(part_shape):
+        t = torch.empty(part_shape, dtype=torch.float32, device=device)
+        return torch.nn.init.trunc_normal_(t, std=0.02, a=-0.04, b=0.04, generator=generator)
+
+    if dtype == torch.float32 or len(shape) <= 2:
+        return draw(shape).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for part in out.unbind(0):
+        part.copy_(draw(part.shape))
+    return out
+
+
 def init_params(spec: ModelSpec, generator: torch.Generator, dtype=torch.float32,
                 device: torch.device | str = "cpu") -> Params:
     """Random init (truncated normal, std 0.02 cut at 2 sigma, HF-style) on
     ``device``, drawn from ``generator`` (which must live on that device).
-    The numbers differ from the JAX package's ``jax.random`` init."""
-    if spec.family not in ("qwen3", "llama"):
-        raise NotImplementedError(f"model family {spec.family!r} is not ported yet "
-                                  "(this slice serves the dense qwen3/llama block)")
+    The numbers differ from the JAX package's ``jax.random`` init. gpt-oss
+    calls this on its ``spec_dense_view`` for the attention and embeddings."""
+    if spec.family not in ("qwen3", "llama", "gpt_oss"):
+        raise NotImplementedError(f"model family {spec.family!r} has no dense init here "
+                                  "(qwen3, llama and gpt-oss's attention do)")
     d, nl = spec.hidden_size, spec.num_layers
 
     def w(*shape):
-        t = torch.empty(shape, dtype=torch.float32, device=device)
-        torch.nn.init.trunc_normal_(t, std=0.02, a=-0.04, b=0.04, generator=generator)
-        return t.to(dtype)
+        return trunc_normal(shape, generator, dtype, device)
 
     def ones(*shape):
         return torch.ones(shape, dtype=dtype, device=device)
@@ -114,6 +142,7 @@ def _attn_block(
     attn_impl: str = "auto",
     rope_scaling: float = 1.0,
     saved=None,
+    window: int = 0,
 ) -> torch.Tensor:
     def bias(t, name, heads):
         bb = lp.get(name)
@@ -140,7 +169,8 @@ def _attn_block(
         k = rms_norm(k, lp["k_norm"], spec.rms_eps)
     q = apply_rope(q, position_ids, inv_freq, rope_scaling)
     k = apply_rope(k, position_ids, inv_freq, rope_scaling)
-    o = attention(q, k, v, segment_ids, causal=True, impl=attn_impl, saved=saved)
+    o = attention(q, k, v, segment_ids, causal=True, window=window, sinks=lp.get("sink"),
+                  impl=attn_impl, saved=saved)
     proj = torch.matmul(o.reshape(b, l, spec.q_dim), lp["o"])
     if lp.get("o_bias") is not None:
         proj = proj + lp["o_bias"].to(proj.dtype)
@@ -191,9 +221,6 @@ def forward(
     remat modes) raise."""
     if spec.family not in ("qwen3", "llama"):
         raise NotImplementedError(f"model family {spec.family!r} is not ported yet")
-    if spec.sliding_window > 0 or spec.attn_sinks:
-        raise NotImplementedError("sliding windows and attention sinks come with the "
-                                  "gpt-oss slice")
     if spec.attn_gate or spec.sandwich_norm:
         raise NotImplementedError("attention gates and sandwich norms come with the "
                                   "gated-MoE slice")
@@ -203,6 +230,31 @@ def forward(
         raise NotImplementedError("LoRA adapters wait for the LoRA slice")
     if quantized_compute:
         raise NotImplementedError("quantized_compute waits for the int8/fp8 slice")
+    nl = spec.num_layers
+    base_remat, save_stride = parse_remat(remat, nl)
+    inv_freq, rope_scaling = rope_setup(spec, device=input_ids.device)
+    h = params["embed"].to(compute_dtype)[input_ids]
+
+    windows = layer_windows_list(spec)
+
+    def block(h, lp, saved, window):
+        lp = {k: (v.to(compute_dtype) if v.dim() >= 2 else v) for k, v in lp.items()}
+        h = _attn_block(h, lp, spec, segment_ids, position_ids, inv_freq, attn_impl,
+                        rope_scaling, saved, window)
+        return _mlp_block(h, lp, spec)
+
+    # unbind once: its backward stacks the per-layer gradients in one copy
+    # (indexing layer by layer would build a full-size zero stack per layer)
+    per_layer = {k: v.unbind(0) for k, v in params["layers"].items()}
+    for i in range(nl):
+        lp = {k: v[i] for k, v in per_layer.items()}
+        h = run_layer(block, h, lp, windows[i], layer_remat(base_remat, save_stride, i))
+    return rms_norm(h, params["final_norm"], spec.rms_eps)
+
+
+def parse_remat(remat: str, nl: int) -> tuple[str, int]:
+    """(base mode, save stride) of an ``ac.mode``; the modes of later slices
+    raise."""
     base_remat, _, k_str = remat.partition("/")
     save_stride = int(k_str) if k_str else 1
     if base_remat in _WAITING_REMAT:
@@ -211,36 +263,29 @@ def forward(
             "use none, full or save_attn[/K]")
     if base_remat not in ("none", "full", "save_attn"):
         raise ValueError(f"unknown ac.mode {remat!r}")
-    nl = spec.num_layers
     if save_stride > 1 and nl % save_stride:
         raise ValueError(f"ac.mode stride {save_stride} must divide the layer count {nl}")
+    return base_remat, save_stride
 
+
+def layer_remat(base_remat: str, save_stride: int, i: int) -> str:
+    """Layer ``i``'s mode: ``save_attn/K`` keeps every K-th layer's attention
+    outputs and recomputes the others in full."""
+    return "full" if save_stride > 1 and i % save_stride else base_remat
+
+
+def run_layer(block, h, lp, window: int, mode: str, *extra):
+    """``block(h, lp, saved, window, *extra)`` under ``mode``: ``none`` (or no
+    autograd) keeps every activation, ``full`` recomputes the layer in the
+    backward, ``save_attn`` recomputes all but the attention kernel, whose
+    outputs an ``AttnSaved`` slot keeps."""
     from prime_rl_tpu_torch.ops.flash_attention import AttnSaved
 
-    inv_freq, rope_scaling = rope_setup(spec, device=input_ids.device)
-    h = params["embed"].to(compute_dtype)[input_ids]
-
-    def block(h, lp, saved):
-        lp = {k: (v.to(compute_dtype) if v.dim() >= 2 else v) for k, v in lp.items()}
-        h = _attn_block(h, lp, spec, segment_ids, position_ids, inv_freq, attn_impl,
-                        rope_scaling, saved)
-        return _mlp_block(h, lp, spec)
-
-    # unbind once: its backward stacks the per-layer gradients in one copy
-    # (indexing layer by layer would build a full-size zero stack per layer)
-    per_layer = {k: v.unbind(0) for k, v in params["layers"].items()}
-    for i in range(nl):
-        lp = {k: v[i] for k, v in per_layer.items()}
-        mode = base_remat
-        if save_stride > 1 and i % save_stride:
-            mode = "full"
-        if mode == "none" or not torch.is_grad_enabled():
-            h = block(h, lp, None)
-        else:
-            saved = AttnSaved() if mode == "save_attn" else None
-            h = checkpoint(block, h, lp, saved, use_reentrant=False,
-                           preserve_rng_state=False)
-    return rms_norm(h, params["final_norm"], spec.rms_eps)
+    if mode == "none" or not torch.is_grad_enabled():
+        return block(h, lp, None, window, *extra)
+    saved = AttnSaved() if mode == "save_attn" else None
+    return checkpoint(block, h, lp, saved, window, *extra, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def layer_windows_list(spec: ModelSpec) -> list[int]:
@@ -343,8 +388,8 @@ def params_from_jax(np_params: dict, spec: ModelSpec, device: torch.device | str
                     dtype=torch.float32) -> Params:
     """The JAX package's stacked training pytree, fetched as numpy arrays
     (``jax.device_get``), as this package's params: the same layout and
-    values, so both packages compute the same function."""
-    if spec.family not in ("qwen3", "llama"):
+    values, so both packages compute the same function (gpt-oss too)."""
+    if spec.family not in ("qwen3", "llama", "gpt_oss"):
         raise NotImplementedError(f"model family {spec.family!r} is not ported yet")
 
     def conv(x):

@@ -8,7 +8,9 @@ the checkout, keyed by a hash of the source and the flags, then loaded with
 launch; ``check`` turns a non-zero code into an exception.
 
 ``launches`` counts kernel launches per kernel: each wrapper adds one where
-it launches its kernel, so a run can show that its path went through them.
+it launches its kernel, so a run can show that its path went through them. A
+launch in a window or sink form also counts under ``<kernel>/window`` and
+``<kernel>/sinks`` (``count``).
 
 Nothing here runs at import time: the CPU tests import every module, and
 the CPU path (the kernels' plain versions) never needs ``nvcc``.
@@ -98,6 +100,15 @@ def load(name: str) -> ctypes.CDLL:
             build((name,))
             lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
         return lib
+
+
+def count(name: str, window: int = 0, sinks: bool = False) -> None:
+    """One launch of kernel ``name``, and of its window and sink forms."""
+    launches[name] += 1
+    if window:
+        launches[f"{name}/window"] += 1
+    if sinks:
+        launches[f"{name}/sinks"] += 1
 
 
 def check(name: str, code: int) -> None:

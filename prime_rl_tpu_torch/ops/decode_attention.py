@@ -4,7 +4,9 @@ CUDA kernel ``csrc/decode_attention.cu`` and its plain PyTorch version.
 Replaces the TPU kernel ``prime_rl_tpu/ops/decode_attention.py`` ``_kernel``
 (the ``pallas_call`` in ``decode_paged_attention``): each slot's new k/v
 goes into the paged pool at position ``lengths[s]`` through ``page_table``,
-then the slot's query heads attend over ``lengths[s] + 1`` tokens (GQA).
+then the slot's query heads attend over ``lengths[s] + 1`` tokens (GQA), or
+over the last ``window`` of them (a sliding window that counts the new token),
+with an optional attention sink per q head joining the denominator.
 The pools are updated IN PLACE (the JAX kernel aliases them in and out of a
 donated buffer); the function still returns them, as the JAX one does.
 
@@ -17,9 +19,8 @@ Layout contract (matches sampler/cache.KVPool):
 What bounds it on the H100 and what the design does about it: see the
 source note in ``csrc/decode_attention.cu`` (bound by the bytes of the
 cached rows; one block per (slot, kv head) serves the GQA group, plain row
-store for the append, the new token's term from registers). Sliding
-windows and sinks run in the plain version only; on the card they come
-with the gpt-oss slice.
+store for the append, the new token's term from registers; the row loop
+starts at the window's first row, so rows below it are never read).
 
 For CPU tensors ``decode_paged_attention`` runs ``write_tokens`` +
 ``decode_attention_xla`` (the JAX package's ``_write_tokens`` and
@@ -47,7 +48,7 @@ def _kernel():
     if _fn is None:
         fn = _build.load(_LIB).decode_paged_attention
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 8 + [i] * 7 + [ctypes.c_float, p]
+        fn.argtypes = [p] * 9 + [i] * 7 + [ctypes.c_float, i, p]
         fn.restype = i
         _fn = fn
     return _fn
@@ -136,9 +137,6 @@ def decode_paged_attention(
             raise NotImplementedError("the plain version uses the default hd**-0.5 scale")
         return decode_paged_attention_reference(q, k_new, v_new, k_pool, v_pool, lengths,
                                                 page_table, sinks=sinks, window=window)
-    if window or sinks is not None:
-        raise NotImplementedError("sliding windows and attention sinks in K4 come with the "
-                                  "gpt-oss slice; this slice ports GQA decode")
     nkv, np_, ps, _ = k_pool.shape
     p = page_table.shape[1]
     if hd not in (64, 128) or nh % nkv or nh // nkv not in (1, 2, 4, 8):
@@ -154,12 +152,15 @@ def decode_paged_attention(
     page_table = page_table.to(torch.int32)
     _build.require(lengths, "lengths", torch.int32, (s,))
     _build.require(page_table, "page_table", torch.int32, (s, p))
+    if sinks is not None:
+        sinks = sinks.to(torch.float32).reshape(nh).contiguous()
+        _build.require(sinks, "sinks", torch.float32, (nh,))
     out = torch.empty_like(q)
     scale = hd ** -0.5 if sm_scale is None else float(sm_scale)
     fn = _kernel()
     _build.check(KERNEL, fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_pool.data_ptr(),
                             v_pool.data_ptr(), lengths.data_ptr(), page_table.data_ptr(),
-                            out.data_ptr(), s, nh, nkv, hd, np_, ps, p, scale,
-                            _build.stream_ptr(q)))
-    _build.launches[KERNEL] += 1
+                            None if sinks is None else sinks.data_ptr(), out.data_ptr(), s, nh,
+                            nkv, hd, np_, ps, p, scale, int(window or 0), _build.stream_ptr(q)))
+    _build.count(KERNEL, window or 0, sinks is not None)
     return out, k_pool, v_pool

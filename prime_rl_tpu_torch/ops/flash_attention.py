@@ -8,16 +8,22 @@ Replaces the TPU kernels of ``prime_rl_tpu/ops/flash_attention.py``:
 Public entry points keep the JAX signatures and the ``[B, L, N, D]`` layout:
 ``flash_attention`` (out) and ``flash_attention_with_lse`` (out, lse
 ``[B, NH, Lq]``). Both are differentiable through one
-``torch.autograd.Function`` that saves ``q, k, v, seg_q, seg_kv, out, lse``
-and takes cotangents of ``out`` and of ``lse``.
+``torch.autograd.Function`` that saves ``q, k, v, sinks, seg_q, seg_kv, out,
+lse`` and takes cotangents of ``out`` and of ``lse``.
 
 Contract: segment 0 is padding; a query attends a key only within its own
-segment and (causal) at or before its own position; GQA maps q head h to kv
-head ``h // (NH // NKV)``; f32 online softmax; a row that sees no key gets
-output 0 and lse -1e30, gradient 0, and adds nothing to dk/dv. On the card
-the kernels take bf16 tensors with head dim 64 or 128 and no window or sinks
-(those come with the gpt-oss slice); a length that is no multiple of the
-64-row tile is masked inside the kernels.
+segment, (causal) at or before its own position and (``window > 0``) fewer
+than ``window`` positions back; GQA maps q head h to kv head ``h // (NH //
+NKV)``; f32 online softmax; an attention sink (one learned logit per q head,
+gpt-oss) joins the softmax denominator as a key of value 0. A row that sees
+no key gets output 0 and lse -1e30 (with a sink: lse = the sink), gradient 0,
+and adds nothing to dk/dv. The sinks' gradient, ``-sum exp(sink - lse) *
+delta`` over batch and rows, is a plain PyTorch reduction beside the kernels,
+as it is an XLA reduction beside the TPU kernels. On the card the kernels take
+bf16 tensors with head dim 64 or 128; a length that is no multiple of the
+64-row tile is masked inside the kernels; windows run banded (tiles outside
+the band are never loaded). ``flash_attention_with_lse`` (the cross-block
+form) takes neither window nor sinks, as in the JAX package.
 
 What bounds them on the H100 and what the design does about it: see the
 source notes in ``csrc/flash_attn_fwd.cu`` and ``csrc/flash_attn_bwd.cu``
@@ -53,36 +59,54 @@ def _kernel():
     if _fn is None:
         fn = _build.load(KERNEL).flash_attn_fwd
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, p]
+        fn.argtypes = [p] * 8 + [i] * 6 + [ctypes.c_float, i, i, p]
         fn.restype = i
         _fn = fn
     return _fn
 
 
-def flash_attention_reference(q, k, v, seg_q, seg_kv, causal: bool, scale: float):
+def _mask(q, k, seg_q, seg_kv, causal: bool, window: int):
+    """[B, 1, Lq, Lk] bool: same non-zero segment, (causal) row >= col and
+    (window > 0) row - col < window, rows and columns by absolute index."""
+    mask = (seg_q[:, :, None] == seg_kv[:, None, :]) & (seg_q[:, :, None] != 0)
+    if causal or window > 0:
+        rows = torch.arange(q.shape[1], device=q.device)[:, None]
+        cols = torch.arange(k.shape[1], device=q.device)[None, :]
+        if causal:
+            mask = mask & (rows >= cols)
+        if window > 0:
+            mask = mask & (rows - cols < window)
+    return mask[:, None]
+
+
+def flash_attention_reference(q, k, v, seg_q, seg_kv, causal: bool, scale: float,
+                              window: int = 0, sinks=None):
     """Plain version: (out [B, Lq, NH, HD] in q.dtype, lse [B, NH, Lq] f32),
-    scores and softmax in f32, rows without any visible key -> 0 / -1e30."""
+    scores and softmax in f32, rows without any visible key -> 0 / -1e30; a
+    sink ([NH]) joins the denominator as a key of value 0 (such rows then get
+    0 / the sink)."""
     nh, nkv = q.shape[2], k.shape[2]
     g = nh // nkv
     kf = k.float().repeat_interleave(g, dim=2)
     vf = v.float().repeat_interleave(g, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * scale
-    mask = (seg_q[:, :, None] == seg_kv[:, None, :]) & (seg_q[:, :, None] != 0)
-    if causal:
-        rows = torch.arange(q.shape[1], device=q.device)[:, None]
-        cols = torch.arange(k.shape[1], device=q.device)[None, :]
-        mask = mask & (rows >= cols)
-    mask = mask[:, None]
+    mask = _mask(q, k, seg_q, seg_kv, causal, window)
     s = torch.where(mask, s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
+    if sinks is not None:
+        sk = sinks.float().reshape(1, nh, 1, 1)
+        m = torch.maximum(m, sk)
     p = torch.where(mask, torch.exp(s - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
+    if sinks is not None:
+        l = l + torch.exp(sk - m)
     out = torch.einsum("bhqk,bkhd->bqhd", p / torch.where(l > 0, l, 1.0), vf)
     lse = torch.where(l > 0, m + torch.log(torch.where(l > 0, l, 1.0)), NEG_INF)[..., 0]
     return out.to(q.dtype), lse
 
 
-def _fwd_cuda(q, k, v, seg_q, seg_kv, causal: bool, scale: float):
+def _fwd_cuda(q, k, v, seg_q, seg_kv, causal: bool, scale: float, window: int = 0,
+              sinks=None):
     b, lq, nh, hd = q.shape
     lk, nkv = k.shape[1], k.shape[2]
     if hd not in (64, 128) or nh % nkv:
@@ -93,13 +117,16 @@ def _fwd_cuda(q, k, v, seg_q, seg_kv, causal: bool, scale: float):
     _build.require(v, "v", torch.bfloat16, (b, lk, nkv, hd))
     _build.require(seg_q, "seg_q", torch.int32, (b, lq))
     _build.require(seg_kv, "seg_kv", torch.int32, (b, lk))
+    if sinks is not None:
+        _build.require(sinks, "sinks", torch.float32, (nh,))
     out = torch.empty_like(q)
     lse = torch.empty((b, nh, lq), dtype=torch.float32, device=q.device)
     fn = _kernel()
     _build.check(KERNEL, fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_q.data_ptr(),
-                            seg_kv.data_ptr(), out.data_ptr(), lse.data_ptr(), b, lq, lk,
-                            nh, nkv, hd, float(scale), int(causal), _build.stream_ptr(q)))
-    _build.launches[KERNEL] += 1
+                            seg_kv.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                            None if sinks is None else sinks.data_ptr(), b, lq, lk, nh, nkv, hd,
+                            float(scale), int(causal), int(window), _build.stream_ptr(q)))
+    _build.count(KERNEL, window, sinks is not None)
     return out, lse
 
 
@@ -109,8 +136,8 @@ def _bwd_kernels():
         lib = _build.load(KERNEL_BWD)
         p, i = ctypes.c_void_p, ctypes.c_int
         dq, dkv = lib.flash_attn_bwd_dq, lib.flash_attn_bwd_dkv
-        dq.argtypes = [p] * 9 + [i] * 6 + [ctypes.c_float, i, p]
-        dkv.argtypes = [p] * 10 + [i] * 6 + [ctypes.c_float, i, p]
+        dq.argtypes = [p] * 9 + [i] * 6 + [ctypes.c_float, i, i, p]
+        dkv.argtypes = [p] * 10 + [i] * 6 + [ctypes.c_float, i, i, p]
         dq.restype = dkv.restype = i
         _bwd_fns = (dq, dkv)
     return _bwd_fns
@@ -125,7 +152,8 @@ def _delta(out, do, dlse):
     return delta.contiguous()
 
 
-def _reference_p_ds(q, k, v, seg_q, seg_kv, lse, delta, do, causal: bool, scale: float):
+def _reference_p_ds(q, k, v, seg_q, seg_kv, lse, delta, do, causal: bool, scale: float,
+                    window: int = 0):
     """(p, ds) [B, NH, Lq, Lk] f32 of the plain backward: p = where(mask,
     exp(s - lse), 0), selected so that rows with lse -1e30 give exact zeros,
     and ds = p * (dp - delta) rounded to q's dtype as the kernels round it."""
@@ -133,12 +161,7 @@ def _reference_p_ds(q, k, v, seg_q, seg_kv, lse, delta, do, causal: bool, scale:
     kf = k.float().repeat_interleave(g, dim=2)
     vf = v.float().repeat_interleave(g, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * scale
-    mask = (seg_q[:, :, None] == seg_kv[:, None, :]) & (seg_q[:, :, None] != 0)
-    if causal:
-        rows = torch.arange(q.shape[1], device=q.device)[:, None]
-        cols = torch.arange(k.shape[1], device=q.device)[None, :]
-        mask = mask & (rows >= cols)
-    mask = mask[:, None]
+    mask = _mask(q, k, seg_q, seg_kv, causal, window)
     # masked entries are replaced before the exponential: exp(s + 1e30) never runs
     p = torch.where(mask, torch.exp(torch.where(mask, s - lse[..., None], 0.0)), 0.0)
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), vf)
@@ -147,9 +170,9 @@ def _reference_p_ds(q, k, v, seg_q, seg_kv, lse, delta, do, causal: bool, scale:
 
 
 def flash_attention_dq_reference(q, k, v, seg_q, seg_kv, lse, delta, do, causal: bool,
-                                 scale: float):
+                                 scale: float, window: int = 0):
     """Plain version of K2a: dq = (ds k) * scale, f32 accumulation."""
-    _, ds = _reference_p_ds(q, k, v, seg_q, seg_kv, lse, delta, do, causal, scale)
+    _, ds = _reference_p_ds(q, k, v, seg_q, seg_kv, lse, delta, do, causal, scale, window)
     kf = k.float().repeat_interleave(q.shape[2] // k.shape[2], dim=2)
     return (torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale).to(q.dtype)
 
@@ -165,22 +188,33 @@ def _dkv_from(p, ds, q, k, v, do, scale: float):
 
 
 def flash_attention_dkv_reference(q, k, v, seg_q, seg_kv, lse, delta, do, causal: bool,
-                                  scale: float):
+                                  scale: float, window: int = 0):
     """Plain version of K2b: dv = p^T do with p rounded to ``do``'s dtype,
     dk = (ds^T q) * scale, both summed over the GQA group in f32."""
-    p, ds = _reference_p_ds(q, k, v, seg_q, seg_kv, lse, delta, do, causal, scale)
+    p, ds = _reference_p_ds(q, k, v, seg_q, seg_kv, lse, delta, do, causal, scale, window)
     return _dkv_from(p, ds, q, k, v, do, scale)
 
 
+def sinks_grad(sinks, lse, delta):
+    """d loss / d sinks [NH] in ``sinks``' dtype: a sink's probability in row
+    q is exp(sink - lse(q)), and its logit's gradient is -p_sink * delta
+    (delta with the lse cotangent folded in), summed over batch and rows; rows
+    that saw neither key nor sink (lse -1e30) give nothing. Plain PyTorch
+    beside the kernels, as the TPU package does it in XLA beside its own."""
+    w = torch.where(lse > NEG_INF / 2, torch.exp(sinks.float()[None, :, None] - lse), 0.0)
+    return (-(w * delta).sum(dim=(0, 2))).to(sinks.dtype)
+
+
 def flash_attention_backward_reference(q, k, v, seg_q, seg_kv, out, lse, do, dlse,
-                                       causal: bool, scale: float):
+                                       causal: bool, scale: float, window: int = 0):
     """Plain version of K2a + K2b: (dq, dk, dv) from the saved ``lse``, with
     the kernels' arithmetic: p selected by the mask, p rounded to ``do``'s
     dtype before p^T do, ds rounded to q's dtype before both of its products,
     f32 accumulation, ``scale`` applied to s and again to the dq/dk sums,
-    dk/dv summed over the GQA group."""
+    dk/dv summed over the GQA group. A sink needs no term here: it is inside
+    ``lse`` (its own gradient is ``sinks_grad``)."""
     delta = _delta(out, do, dlse)  # [B, NH, Lq]
-    p, ds = _reference_p_ds(q, k, v, seg_q, seg_kv, lse, delta, do, causal, scale)
+    p, ds = _reference_p_ds(q, k, v, seg_q, seg_kv, lse, delta, do, causal, scale, window)
     kf = k.float().repeat_interleave(q.shape[2] // k.shape[2], dim=2)
     dq = (torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale).to(q.dtype)
     return (dq, *_dkv_from(p, ds, q, k, v, do, scale))
@@ -203,7 +237,8 @@ def _check_bwd_args(q, k, v, seg_q, seg_kv, lse, delta, do):
     return b, lq, lk, nh, nkv, hd
 
 
-def flash_attention_dq(q, k, v, seg_q, seg_kv, lse, delta, do, causal: bool, scale: float):
+def flash_attention_dq(q, k, v, seg_q, seg_kv, lse, delta, do, causal: bool, scale: float,
+                       window: int = 0):
     """K2a on CUDA tensors: dq [B, Lq, NH, HD] bf16. ``delta`` [B, NH, Lq] f32
     is sum(out * do, -1) minus the lse cotangent."""
     b, lq, lk, nh, nkv, hd = _check_bwd_args(q, k, v, seg_q, seg_kv, lse, delta, do)
@@ -211,12 +246,13 @@ def flash_attention_dq(q, k, v, seg_q, seg_kv, lse, delta, do, causal: bool, sca
     _build.check(KERNEL_DQ, _bwd_kernels()[0](
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), seg_q.data_ptr(),
         seg_kv.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, lq, lk, nh, nkv,
-        hd, float(scale), int(causal), _build.stream_ptr(q)))
-    _build.launches[KERNEL_DQ] += 1
+        hd, float(scale), int(causal), int(window), _build.stream_ptr(q)))
+    _build.count(KERNEL_DQ, window)
     return dq
 
 
-def flash_attention_dkv(q, k, v, seg_q, seg_kv, lse, delta, do, causal: bool, scale: float):
+def flash_attention_dkv(q, k, v, seg_q, seg_kv, lse, delta, do, causal: bool, scale: float,
+                        window: int = 0):
     """K2b on CUDA tensors: (dk, dv) [B, Lk, NKV, HD] bf16, the GQA group
     summed inside the kernel."""
     b, lq, lk, nh, nkv, hd = _check_bwd_args(q, k, v, seg_q, seg_kv, lse, delta, do)
@@ -224,23 +260,28 @@ def flash_attention_dkv(q, k, v, seg_q, seg_kv, lse, delta, do, causal: bool, sc
     _build.check(KERNEL_DKV, _bwd_kernels()[1](
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), seg_q.data_ptr(),
         seg_kv.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, lq,
-        lk, nh, nkv, hd, float(scale), int(causal), _build.stream_ptr(q)))
-    _build.launches[KERNEL_DKV] += 1
+        lk, nh, nkv, hd, float(scale), int(causal), int(window), _build.stream_ptr(q)))
+    _build.count(KERNEL_DKV, window)
     return dk, dv
 
 
 def flash_attention_backward(q, k, v, seg_q, seg_kv, out, lse, do, dlse, causal: bool,
-                             scale: float):
-    """(dq, dk, dv): K2a and K2b for CUDA tensors, the plain version for CPU
-    tensors. ``do`` is the cotangent of ``out``, ``dlse`` (or None) of ``lse``."""
+                             scale: float, window: int = 0, sinks=None):
+    """(dq, dk, dv, dsinks): K2a and K2b for CUDA tensors, the plain version
+    for CPU tensors; ``dsinks`` (None without sinks) is ``sinks_grad`` on both.
+    ``do`` is the cotangent of ``out``, ``dlse`` (or None) of ``lse``."""
     if not q.is_cuda:
-        return flash_attention_backward_reference(q, k, v, seg_q, seg_kv, out, lse, do, dlse,
-                                                  causal, scale)
-    do = do.contiguous()
-    delta = _delta(out, do, dlse)
-    dq = flash_attention_dq(q, k, v, seg_q, seg_kv, lse, delta, do, causal, scale)
-    dk, dv = flash_attention_dkv(q, k, v, seg_q, seg_kv, lse, delta, do, causal, scale)
-    return dq, dk, dv
+        dq, dk, dv = flash_attention_backward_reference(q, k, v, seg_q, seg_kv, out, lse, do,
+                                                        dlse, causal, scale, window)
+        delta = _delta(out, do, dlse) if sinks is not None else None
+    else:
+        do = do.contiguous()
+        delta = _delta(out, do, dlse)
+        dq = flash_attention_dq(q, k, v, seg_q, seg_kv, lse, delta, do, causal, scale, window)
+        dk, dv = flash_attention_dkv(q, k, v, seg_q, seg_kv, lse, delta, do, causal, scale,
+                                     window)
+    dsinks = None if sinks is None else sinks_grad(sinks, lse, delta)
+    return dq, dk, dv, dsinks
 
 
 class AttnSaved:
@@ -257,38 +298,41 @@ class AttnSaved:
 
 class _Flash(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, seg_q, seg_kv, causal, scale, saved):
+    def forward(ctx, q, k, v, sinks, seg_q, seg_kv, causal, scale, window, saved):
         if saved is not None and saved.out is not None:
             # fresh views: the Function ties the tensors it returns to its own node
             out, lse = saved.out.detach(), saved.lse.detach()
         elif q.is_cuda:
-            out, lse = _fwd_cuda(q, k, v, seg_q, seg_kv, causal, scale)
+            sinks32 = None if sinks is None else sinks.float().contiguous()
+            out, lse = _fwd_cuda(q, k, v, seg_q, seg_kv, causal, scale, window, sinks32)
         else:
-            out, lse = flash_attention_reference(q, k, v, seg_q, seg_kv, causal, scale)
+            out, lse = flash_attention_reference(q, k, v, seg_q, seg_kv, causal, scale, window,
+                                                 sinks)
         if saved is not None:
             saved.out, saved.lse = out.detach(), lse.detach()
-        ctx.save_for_backward(q, k, v, seg_q, seg_kv, out, lse)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.save_for_backward(q, k, v, sinks, seg_q, seg_kv, out, lse)
+        ctx.causal, ctx.scale, ctx.window = causal, scale, window
         ctx.set_materialize_grads(False)
         return out, lse
 
     @staticmethod
     def backward(ctx, do, dlse):
-        q, k, v, seg_q, seg_kv, out, lse = ctx.saved_tensors
+        q, k, v, sinks, seg_q, seg_kv, out, lse = ctx.saved_tensors
         if do is None:
             do = torch.zeros_like(out)
-        dq, dk, dv = flash_attention_backward(q, k, v, seg_q, seg_kv, out, lse, do, dlse,
-                                              ctx.causal, ctx.scale)
-        return dq, dk, dv, None, None, None, None, None
+        dq, dk, dv, dsinks = flash_attention_backward(q, k, v, seg_q, seg_kv, out, lse, do, dlse,
+                                                      ctx.causal, ctx.scale, ctx.window, sinks)
+        return dq, dk, dv, dsinks, None, None, None, None, None, None
 
 
 def _fwd(q, k, v, seg_q, seg_kv, causal: bool, scale: float | None,
-         saved: AttnSaved | None = None):
+         saved: AttnSaved | None = None, window: int = 0, sinks: torch.Tensor | None = None):
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.is_cuda:
         seg_q, seg_kv = seg_q.to(torch.int32), seg_kv.to(torch.int32)
-    return _Flash.apply(q, k, v, seg_q, seg_kv, bool(causal), float(scale), saved)
+    return _Flash.apply(q, k, v, sinks, seg_q, seg_kv, bool(causal), float(scale), int(window),
+                        saved)
 
 
 def flash_attention(
@@ -303,11 +347,11 @@ def flash_attention(
     saved: AttnSaved | None = None,
 ) -> torch.Tensor:
     """Public entry, [B, L, N, D] layout in and out (matches ops.attention).
-    ``saved`` keeps the kernel's outputs across a checkpoint's recomputation."""
-    if window or sinks is not None:
-        raise NotImplementedError("sliding windows and attention sinks in K1/K2 come with the "
-                                  "gpt-oss slice; this slice ports causal + segments + GQA")
-    out, _ = _fwd(q, k, v, segment_ids, segment_ids, causal, scale, saved)
+    ``window`` (a sliding window, 0 = full) and ``sinks`` ([NH] learned
+    logits, differentiable) are the gpt-oss forms. ``saved`` keeps the
+    kernel's outputs across a checkpoint's recomputation."""
+    out, _ = _fwd(q, k, v, segment_ids, segment_ids, causal, scale, saved, int(window or 0),
+                  sinks)
     return out
 
 

@@ -106,3 +106,11 @@ def apply_rope(
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return F.silu(gate) * up
+
+
+def clamped_glu(gate: torch.Tensor, up: torch.Tensor, alpha: float, limit: float) -> torch.Tensor:
+    """gpt-oss expert activation: clamp both branches, gated sigmoid(alpha * g)
+    with a +1 on the linear branch (HF ``GptOssExperts.forward``)."""
+    gate = gate.clamp(max=limit)
+    up = up.clamp(-limit, limit)
+    return (up + 1.0) * (gate * torch.sigmoid(alpha * gate))

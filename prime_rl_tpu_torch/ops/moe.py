@@ -9,7 +9,10 @@ their routing weights on the way back. ``jax.lax.ragged_dot`` becomes
 PyTorch has it, otherwise a loop over the experts of ``torch.mm`` on the
 sorted slices (the CPU form; it reads the group sizes on the host).
 
-The router runs in float32. Divergences from the JAX package, on purpose:
+The router runs in float32. Per-expert biases (gpt-oss) are gathered by each
+sorted slot's expert id and added in float32 after the grouped product, and
+``activation_alpha > 0`` selects gpt-oss's clamped GLU in place of SwiGLU, as
+in the JAX function. Divergences from the JAX package, on purpose:
 - the combine is not a scatter-add (``.at[token_idx].add``, an atomic sum on
   a GPU): every token has exactly K slots, so the inverse permutation and a
   sum over ``[T, K, D]`` give the same result in a fixed order;
@@ -18,9 +21,9 @@ The router runs in float32. Divergences from the JAX package, on purpose:
   output are rounded to bfloat16 once more than in JAX. In float32 the two
   packages compute the same numbers.
 
-Not ported yet, and raising: per-expert biases and the clamped GLU (gpt-oss),
-``w_gate is None`` and ``x_experts`` (Nemotron-H LatentMoE), per-expert LoRA,
-and the expert-parallel mesh (``set_ep_mesh``, ``ops/moe_ep.py``).
+Not ported yet, and raising: ``w_gate is None`` and ``x_experts`` (Nemotron-H
+LatentMoE), per-expert LoRA, and the expert-parallel mesh (``set_ep_mesh``,
+``ops/moe_ep.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from prime_rl_tpu_torch.ops.layers import clamped_glu
 
 
 class RouterOutput(NamedTuple):
@@ -175,12 +180,10 @@ def moe_mlp(
 
       1. route: top-k experts per token
       2. sort the T*K (token, expert) pairs by expert id (stable)
-      3. grouped products over the contiguous expert groups, silu-gated
+      3. grouped products over the contiguous expert groups (+ per-expert
+         biases in f32), silu-gated or clamped-GLU (``activation_alpha > 0``)
       4. unsort + weighted sum over each token's K slots
     """
-    if b_gate is not None or b_up is not None or b_down is not None or activation_alpha > 0:
-        raise NotImplementedError("per-expert biases and the clamped GLU come with the "
-                                  "gpt-oss slice")
     if w_gate is None or (x_experts is not None and x_experts is not x):
         raise NotImplementedError("non-gated experts and a separate expert input come with "
                                   "the Nemotron-H slice")
@@ -203,13 +206,22 @@ def moe_mlp(
         bounds = torch.cumsum(group_sizes, 0).tolist()
 
     xs = x[token_idx]  # [T*K, D] sorted by expert
-    up = _grouped_product(xs, w_up, group_sizes, bounds)
-    gate = _grouped_product(xs, w_gate, group_sizes, bounds)
-    h = (F.silu(gate.float()) * up.float()).to(x.dtype)  # [T*K, M]
-    out_sorted = _grouped_product(h, w_down, group_sizes, bounds)
+    sorted_experts = flat_experts[order]  # expert id of each sorted slot
+
+    def biased(y, b):
+        y = y.float()
+        return y if b is None else y + b.float()[sorted_experts]
+
+    up = biased(_grouped_product(xs, w_up, group_sizes, bounds), b_up)
+    gate = biased(_grouped_product(xs, w_gate, group_sizes, bounds), b_gate)
+    if activation_alpha > 0:
+        h = clamped_glu(gate, up, activation_alpha, activation_limit).to(x.dtype)
+    else:
+        h = (F.silu(gate) * up).to(x.dtype)  # [T*K, M]
+    out_sorted = biased(_grouped_product(h, w_down, group_sizes, bounds), b_down)
 
     w_flat = routing.weights.reshape(-1)[order]  # combine weight per sorted slot
-    contrib = out_sorted.float() * w_flat[:, None]  # [T*K, D] f32
+    contrib = out_sorted * w_flat[:, None]  # [T*K, D] f32
     # slot (token, k) sits at sorted position inverse[token * K + k]
     inverse = torch.empty_like(order)
     inverse[order] = torch.arange(order.shape[0], device=order.device)

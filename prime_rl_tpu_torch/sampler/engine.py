@@ -164,7 +164,7 @@ class Engine:
         lookahead: int | None = None,  # in-flight decode TOKENS per drain
         decode_block: int = 8,  # decode steps per dispatched block
     ):
-        smodel.check_dense(spec)
+        smodel.check_supported(spec)
         self.spec = spec
         self.device = resolve_device(device)
         if lookahead:

@@ -1,22 +1,25 @@
 """Sampler-side model functions: prefill and decode against the paged KV
-cache (the port of the JAX package's ``sampler/model.py``, dense qwen3/llama
-path). Parameters use the serving layout (``unstack_params``: a list of
-per-layer dicts).
+cache (the port of the JAX package's ``sampler/model.py``: the qwen3/llama
+block and gpt-oss, whose layers carry a sliding window, attention sinks,
+q/k/v/o biases and routed experts). Parameters use the serving layout
+(``unstack_params``: a list of per-layer dicts).
 
 Where the JAX functions take donated pools and return new ones, these write
 the per-layer pool tensors IN PLACE and return the same lists, so callers
 read the same way in both packages.
 
 Kernels on this path (for CUDA tensors; CPU tensors take the plain versions):
-- prefill attention: K1 ``ops/flash_attention.py`` through ``ops.attention``;
+- prefill attention: K1 ``ops/flash_attention.py`` through ``ops.attention``
+  (banded for a windowed layer, with the layer's sinks);
 - decode q/k/v preparation: K3 ``ops/decode_qkv.py``;
-- decode attention + KV append: K4 ``ops/decode_attention.py``.
-Chunked prefill attention (``_chunk_attention_xla``) is plain PyTorch, as it
-is XLA in the JAX package.
+- decode attention + KV append: K4 ``ops/decode_attention.py`` (window and
+  sinks likewise).
+Chunked prefill attention (``_chunk_attention_xla``) and the MoE layers
+(``ops/moe.py``) are plain PyTorch, as they are XLA in the JAX package.
 
-LoRA, MoE, MLA/DSA, hybrid recurrent layers, vision inputs, int8 weights and
-attention-output gates are later slices: their entry points raise
-``NotImplementedError``.
+LoRA, MLA/DSA, hybrid recurrent layers, vision inputs, int8 weights and
+attention-output gates are later slices: ``check_supported`` raises
+``NotImplementedError`` for them.
 """
 
 from __future__ import annotations
@@ -33,18 +36,21 @@ from prime_rl_tpu_torch.ops.decode_attention import (
 )
 from prime_rl_tpu_torch.ops.decode_qkv import decode_qkv_prep
 from prime_rl_tpu_torch.ops.layers import apply_rope, rms_norm, rope_frequencies, swiglu
+from prime_rl_tpu_torch.ops.moe import moe_mlp
 
 Params = dict
 
 
-def check_dense(spec: ModelSpec) -> None:
-    """Raise ``NotImplementedError`` for any feature outside the dense
-    qwen3/llama serving path this slice ports."""
+SERVED_FAMILIES = ("qwen3", "llama", "gpt_oss")
+
+
+def check_supported(spec: ModelSpec) -> None:
+    """Raise ``NotImplementedError`` for any feature outside the serving path
+    ported so far: the qwen3/llama block and gpt-oss (routed experts, windows,
+    sinks, biases)."""
     missing = []
-    if spec.family not in ("qwen3", "llama"):
+    if spec.family not in SERVED_FAMILIES:
         missing.append(f"family {spec.family!r}")
-    if spec.is_moe:
-        missing.append("MoE layers")
     if spec.kv_lora_rank > 0:
         missing.append("MLA/DSA attention")
     if spec.gdn_pattern or spec.layer_pattern:
@@ -57,7 +63,7 @@ def check_dense(spec: ModelSpec) -> None:
         missing.append("layer-scope qk-norm")
     if missing:
         raise NotImplementedError("not ported yet: " + ", ".join(missing)
-                                  + " (this slice serves the dense qwen3/llama block)")
+                                  + f" (served: {', '.join(SERVED_FAMILIES)})")
 
 
 def _mm(x: torch.Tensor, w) -> torch.Tensor:
@@ -96,9 +102,23 @@ def _qkv(x, lp, spec, positions, inv_freq, rope_scaling: float = 1.0):
 
 
 def _mlp(x, lp, spec):
-    """Dense SwiGLU. x: [B, T, D]."""
+    """Dense SwiGLU or the routed experts, decided per layer (``"router"`` in
+    the layer's dict). x: [B, T, D]."""
     if "router" in lp:
-        raise NotImplementedError("MoE serving is not ported yet")
+        # the served MoE family (gpt-oss) has no shared experts and no
+        # sandwich norm; check_supported refuses the families that do
+        b, t, d = x.shape
+        out, _ = moe_mlp(
+            x.reshape(b * t, d), lp["router"],
+            lp["expert_gate"], lp["expert_up"], lp["expert_down"],
+            spec.num_experts_per_tok, spec.norm_topk_prob,
+            router_b=lp.get("router_bias"),
+            b_gate=lp.get("expert_gate_bias"), b_up=lp.get("expert_up_bias"),
+            b_down=lp.get("expert_down_bias"),
+            softmax_topk=spec.router_softmax_topk,
+            activation_alpha=spec.swiglu_alpha, activation_limit=spec.swiglu_limit,
+        )
+        return out.reshape(b, t, d)
     out = _mm(swiglu(_mm(x, lp["gate"]), _mm(x, lp["up"])), lp["down"])
     if spec.sandwich_norm and "post_mlp_norm" in lp:
         out = rms_norm(out, lp["post_mlp_norm"], spec.rms_eps)
@@ -138,7 +158,7 @@ def unstack_params(params: Params, spec: ModelSpec) -> Params:
     """Training layout (stacked [NL, ...] layers) -> serving layout (a list
     of per-layer dicts of views). The serving forward unrolls the layer loop
     so each layer's KV tensors are written in place."""
-    check_dense(spec)
+    check_supported(spec)
     out = {k: v for k, v in params.items() if k != "layers"}
     out["layers"] = [{k: v[l] for k, v in params["layers"].items()}
                      for l in range(spec.num_layers)]

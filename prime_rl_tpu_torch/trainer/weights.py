@@ -24,6 +24,7 @@ _ARCHITECTURES = {
     "qwen3": "Qwen3ForCausalLM",
     "qwen3_moe": "Qwen3MoeForCausalLM",
     "llama": "LlamaForCausalLM",
+    "gpt_oss": "GptOssForCausalLM",
     "deepseek_v3": "DeepseekV3ForCausalLM",
     "glm_moe_dsa": "GlmMoeDsaForCausalLM",
 }
@@ -34,7 +35,8 @@ def spec_to_hf_config(spec: ModelSpec) -> dict:
     that ``get_spec`` on the snapshot's directory gives ``spec`` back. (The JAX
     package writes the MLA families under the Qwen3 name and without their
     latent, indexer and routing fields, so its snapshots of them do not
-    reload; here they carry their own names and fields.)"""
+    reload; here they carry their own names and fields, and gpt-oss its
+    experts, window layout, biases and YaRN scaling.)"""
     if spec.family not in _ARCHITECTURES:
         raise NotImplementedError(f"no HF architecture name for family {spec.family!r}")
     cfg = {
@@ -82,6 +84,26 @@ def spec_to_hf_config(spec: ModelSpec) -> dict:
         if spec.family == "glm_moe_dsa":
             cfg.update(index_n_heads=spec.index_n_heads, index_head_dim=spec.index_head_dim,
                        index_topk=spec.index_topk)
+    if spec.family == "gpt_oss":
+        from prime_rl_tpu_torch.models.qwen3 import layer_windows_list
+
+        cfg.pop("num_experts", None)  # this config names it num_local_experts
+        cfg.pop("moe_intermediate_size", None)  # and reads the experts' width here
+        cfg.update(
+            num_local_experts=spec.num_experts,
+            intermediate_size=spec.moe_intermediate_size,
+            sliding_window=spec.sliding_window,
+            layer_types=["sliding_attention" if w else "full_attention"
+                         for w in layer_windows_list(spec)],
+            attention_bias=spec.attn_bias,
+        )
+        if spec.rope_yarn_factor:
+            cfg["rope_scaling"] = {
+                "rope_type": "yarn", "factor": spec.rope_yarn_factor,
+                "original_max_position_embeddings": spec.rope_yarn_orig_max,
+                "beta_fast": spec.rope_yarn_beta_fast, "beta_slow": spec.rope_yarn_beta_slow,
+                "truncate": spec.rope_yarn_truncate,
+            }
     return cfg
 
 

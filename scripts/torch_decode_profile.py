@@ -2,12 +2,13 @@
 """Where a decode step of the PyTorch port's engine spends its time, on one
 NVIDIA GPU.
 
-    python3 scripts/torch_decode_profile.py
+    python3 scripts/torch_decode_profile.py [--model qwen3|gpt-oss]
 
 Builds the engine for Qwen3-0.6B (28 layers, full vocabulary, random weights
-from seed 0, bf16), fills all 64 decode slots with prompts of 500 to 1000
-random tokens (unfiltered sampling at temperature 1, the RL rollout
-setting), lets the engine admit them and run, then measures decode blocks
+from seed 0, bf16; ``--model gpt-oss``: openai/gpt-oss-20b, 24 layers, all 32
+experts, windows of 128 on every other layer, sinks), fills all 64 decode
+slots with prompts of 500 to 1000 random tokens (unfiltered sampling at
+temperature 1, the RL rollout setting), lets the engine admit them and run, then measures decode blocks
 (8 steps each): host-clock time per step, and under ``torch.profiler`` the
 device time per kernel name and the device's idle share of the window.
 Prints a table, then one JSON line with the numbers.
@@ -15,6 +16,7 @@ Prints a table, then one JSON line with the numbers.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -24,18 +26,22 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 SLOTS, BLOCKS, SEED = 64, 6, 0
+MODELS = {"qwen3": "Qwen/Qwen3-0.6B", "gpt-oss": "openai/gpt-oss-20b"}
 
 
 def main() -> int:
     import numpy as np
     import torch
 
+    from prime_rl_tpu_torch.models import get_family
     from prime_rl_tpu_torch.models.base import get_spec
-    from prime_rl_tpu_torch.models.qwen3 import init_params
     from prime_rl_tpu_torch.ops import _build
     from prime_rl_tpu_torch.sampler.cache import CacheConfig
     from prime_rl_tpu_torch.sampler.engine import Engine, SamplingParams
 
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--model", default="qwen3", choices=sorted(MODELS))
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
         return 2
@@ -44,10 +50,10 @@ def main() -> int:
                           check=True).stdout.strip()
     print(card, flush=True)
     _build.build()
-    spec = get_spec("Qwen/Qwen3-0.6B")
+    spec = get_spec(MODELS[args.model])
     dev = torch.device("cuda")
-    params = init_params(spec, torch.Generator(device=dev).manual_seed(SEED),
-                         dtype=torch.bfloat16, device=dev)
+    params = get_family(spec).init(spec, torch.Generator(device=dev).manual_seed(SEED),
+                                   dtype=torch.bfloat16, device=dev)
     engine = Engine(params, spec, CacheConfig(num_pages=SLOTS * 64 + 64, page_size=64,
                                               max_slots=SLOTS, max_seq_len=4096),
                     device="cuda", seed=SEED)
@@ -91,7 +97,8 @@ def main() -> int:
         print(f"{name[:70]:70s} {ms:10.3f} {ms / busy_ms:7.1%} {count:6d}")
     launches = dict(_build.launches)
     result = {
-        "card": card, "slots": SLOTS, "mean_context_tokens": context, "steps": steps,
+        "card": card, "model": MODELS[args.model], "slots": SLOTS,
+        "mean_context_tokens": context, "steps": steps,
         "ms_per_step": wall / steps * 1e3, "tokens_per_s": SLOTS * steps / wall,
         "profiled_ms_per_step": wall_prof / steps * 1e3,
         "device_busy_ms_per_step": busy_ms / steps,

@@ -2,7 +2,8 @@
 """Where a train step of the PyTorch port's RL trainer spends its time, on one
 NVIDIA GPU.
 
-    python3 scripts/torch_train_profile.py [--model qwen3|glm5] [--ac-mode full|save_attn|none]
+    python3 scripts/torch_train_profile.py [--model qwen3|glm5|gpt-oss]
+                                           [--ac-mode full|save_attn|none]
 
 Builds the train state (random weights from seed 0, bf16 masters, adamw_8bit,
 grad clip 1.0) and takes steps on fake batches, as the trainer does.
@@ -11,7 +12,10 @@ micro-batches of [8, 512] tokens. ``--model glm5``: the glm_moe_dsa family at
 GLM-5's widths as ``chip_smoke.py`` cuts it (4 layers, 32 routed experts), 2
 micro-batches of [1, 4096] tokens, with the sparse-MLA kernels, the indexer's
 sort and the experts' grouped products as groups of their own, and the indexer
-(logits and top-k) timed alone at the step's shapes.
+(logits and top-k) timed alone at the step's shapes. ``--model gpt-oss``:
+gpt-oss at gpt-oss-20b's widths as ``chip_smoke.py`` cuts it (4 layers, two
+windowed and two full, all 32 experts), 2 micro-batches of [1, 4096] tokens,
+rows of four sequences each.
 Measures, after two warm-up steps:
   - host-clock time per step over three steps (ending in a synchronize);
   - with CUDA events on the stream: gradient accumulation against the
@@ -38,7 +42,8 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 SEED = 0
-SHAPES = {"qwen3": (4, 8, 512), "glm5": (2, 1, 4096)}  # micro-batches, rows, seq_len
+SHAPES = {"qwen3": (4, 8, 512), "glm5": (2, 1, 4096),
+          "gpt-oss": (2, 1, 4096)}  # micro-batches, rows, seq_len
 OURS = {"flash_fwd_kernel": "flash_attn_fwd", "flash_bwd_dq_kernel": "flash_attn_bwd_dq",
         "flash_bwd_dkv_kernel": "flash_attn_bwd_dkv", "sparse_mla_fwd_kernel": "sparse_mla_fwd",
         "sparse_mla_bwd_kernel": "sparse_mla_bwd",
@@ -49,6 +54,9 @@ GEMM_MARKS = ("gemm", "cutlass", "xmma", "nvjet", "cublas")
 
 
 def main() -> int:
+    # as the trainer's entry point: at gigabytes of parameters the caching
+    # allocator otherwise strands tens of GiB in fragments (read at first use)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     from prime_rl_tpu_torch.configs import TrainerConfig
@@ -79,11 +87,16 @@ def main() -> int:
                           check=True).stdout.strip()
     print(card, flush=True)
     _build.build()
-    model_name = "Qwen/Qwen3-0.6B"
+    model_name, loader_cls = "Qwen/Qwen3-0.6B", FakeDataLoader
     if args.model == "glm5":
         import chip_smoke
 
         model_name = chip_smoke.glm5_model_dir("glm5_profile", **chip_smoke.GLM5_CUTS)
+    elif args.model == "gpt-oss":
+        import chip_smoke
+
+        model_name = chip_smoke.gpt_oss_model_dir("gpt_oss_profile", num_hidden_layers=4)
+        loader_cls = chip_smoke.packed_fake_loader(4)
     cfg = TrainerConfig(
         device="cuda", seed=SEED, grad_clip=1.0,
         model={"name": model_name, "seq_len": SEQ_LEN, "ac": {"mode": args.ac_mode},
@@ -96,7 +109,7 @@ def main() -> int:
     optimizer, _ = make_optimizer(cfg.optimizer, cfg.scheduler, cfg.grad_clip)
     state = init_train_state(spec, dev, optimizer, seed=SEED, master_dtype="bfloat16")
     step = make_train_step(spec, cfg.model, cfg.loss, optimizer, dev)
-    loader = FakeDataLoader(spec.vocab_size, SEQ_LEN, ROWS, N_MB, seed=SEED)
+    loader = loader_cls(spec.vocab_size, SEQ_LEN, ROWS, N_MB, seed=SEED)
 
     def next_inputs():
         batch, counts = loader.next_batch()
@@ -234,7 +247,8 @@ def main() -> int:
         indexer = {"ms_per_call": e[0].elapsed_time(e[1]) / 5, "calls_per_step": calls}
         indexer["ms_per_step"] = indexer["ms_per_call"] * calls
         print(f"indexer alone: {indexer['ms_per_call']:.3f} ms a call, {calls} calls a step")
-    # the spec's flop count covers the dense and GQA families only
+    # the spec's flop count covers the dense and GQA families only (and counts
+    # full attention on every layer, so not gpt-oss's windowed ones)
     flops = spec.flops_per_token(SEQ_LEN) * tokens if args.model == "qwen3" else None
     result = {
         "card": card, "ac_mode": cfg.model.ac.mode, "tokens_per_step": tokens,

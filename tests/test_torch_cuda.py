@@ -12,6 +12,9 @@ bf16 where the kernels do): 2e-2 absolute + 2e-2 relative, because a bf16
 rounding of ds that flips by one step in the kernel moves a sum of up to 192
 terms by more than one bf16 step of the result. K5a/K5b and the dkv reduction
 are held against their plain versions on the same bf16 inputs at the same 2e-2.
+The window and sink forms of K1, K2a, K2b and K4 are held at the same
+tolerances as their dense forms; the sinks' gradient (plain PyTorch beside the
+kernels) against the plain backward's at 2e-2 relative to its norm.
 """
 
 import pytest
@@ -24,11 +27,14 @@ from prime_rl_tpu_torch.ops.decode_attention import (
 )
 from prime_rl_tpu_torch.ops.decode_qkv import decode_qkv_prep, decode_qkv_prep_reference
 from prime_rl_tpu_torch.ops.flash_attention import (
+    _delta,
+    _fwd,
     flash_attention,
     flash_attention_backward,
     flash_attention_backward_reference,
     flash_attention_reference,
     flash_attention_with_lse,
+    sinks_grad,
 )
 
 from prime_rl_tpu_torch.ops import sparse_mla_kernel as mla
@@ -127,6 +133,46 @@ def test_flash_attention_backward_is_deterministic(gen):
         assert torch.equal(a, c)
 
 
+@pytest.mark.parametrize("window,with_sinks", [(64, True), (100, False), (0, True)])
+def test_flash_attn_window_and_sinks_match_plain(gen, window, with_sinks):
+    """K1, K2a and K2b with a sliding window (one a tile wide, one that cuts
+    tiles) and/or sinks, through the autograd Function: out, lse (a padding
+    row's lse is its sink) and every gradient against the plain versions;
+    the banded kernels launch once each."""
+    b, l, nh, nkv, hd = 2, 320, 8, 2, 64
+    q, k, v = _bf16(gen, b, l, nh, hd), _bf16(gen, b, l, nkv, hd), _bf16(gen, b, l, nkv, hd)
+    do = _bf16(gen, b, l, nh, hd)
+    seg = _packed_seg(b, l)
+    sinks = torch.randn(nh, device="cuda", generator=gen) if with_sinks else None
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    if with_sinks:
+        leaves.append(sinks.clone().requires_grad_())
+    before = dict(_build.launches)
+    out, lse = _fwd(*leaves[:3], seg, seg, True, None, window=window,
+                    sinks=leaves[3] if with_sinks else None)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    for name in ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+        assert _build.launches[name] == before.get(name, 0) + 1, name
+    ref_out, ref_lse = flash_attention_reference(q.float(), k.float(), v.float(), seg, seg, True,
+                                                 hd ** -0.5, window, sinks)
+    _assert_close(out, ref_out)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
+    pad = (seg == 0)[:, None, :].expand_as(lse)
+    if with_sinks:  # a row that sees no key: its lse is the sink
+        assert torch.equal(lse[pad], sinks[None, :, None].expand_as(lse)[pad])
+    else:
+        assert bool((lse[pad] < -1e29).all())
+    ref = flash_attention_backward_reference(q, k, v, seg, seg, out.detach(), lse.detach(), do,
+                                             None, True, hd ** -0.5, window)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
+        assert torch.isfinite(g.float()).all(), name
+        torch.testing.assert_close(g.float(), r.float(), atol=2e-2, rtol=2e-2, msg=name)
+    if with_sinks:
+        want = sinks_grad(sinks, ref_lse, _delta(ref_out, do, None))
+        assert float((grads[3] - want).norm()) <= 2e-2 * float(want.norm())
+
+
 @pytest.mark.parametrize("hd,bias,partial", [(128, False, False), (64, True, True)])
 def test_decode_qkv_prep_matches_plain(gen, hd, bias, partial):
     s, d, nh, nkv = 20, 256, 4, 2
@@ -161,6 +207,30 @@ def test_decode_paged_attention_matches_plain(gen, hd, group):
     ref_o, k_ref, v_ref = decode_paged_attention_reference(
         q.float(), k_new.float(), v_new.float(), k_ref, v_ref, lengths, table)
     _assert_close(o[:-1], ref_o[:-1])
+    assert torch.equal(k_pool.float(), k_ref) and torch.equal(v_pool.float(), v_ref)
+
+
+@pytest.mark.parametrize("window,with_sinks", [(16, True), (20, False), (0, True)])
+def test_decode_paged_attention_window_and_sinks_match_plain(gen, window, with_sinks):
+    """K4 at gpt-oss's group of 8 and head dim 64: slots shorter than, equal
+    to and longer than the window, a window start inside a page, sinks."""
+    s, nkv, group, hd, ps, p = 7, 2, 8, 64, 16, 8
+    nh = nkv * group
+    k_pool, v_pool = _bf16(gen, nkv, s * p + 1, ps, hd), _bf16(gen, nkv, s * p + 1, ps, hd)
+    table = (1 + torch.arange(s * p, device="cuda", dtype=torch.int32)).reshape(s, p)
+    lengths = torch.tensor([0, 5, 15, 16, 37, 100, 127], dtype=torch.int32, device="cuda")
+    q, k_new, v_new = _bf16(gen, s, nh, hd), _bf16(gen, s, nkv, hd), _bf16(gen, s, nkv, hd)
+    sinks = torch.randn(nh, device="cuda", generator=gen) if with_sinks else None
+    k_ref, v_ref = k_pool.float(), v_pool.float()
+    before = _build.launches["decode_paged_attention"]
+    o, _, _ = decode_paged_attention(q, k_new, v_new, k_pool, v_pool, lengths, table,
+                                     window=window, sinks=sinks)
+    torch.cuda.synchronize()
+    assert _build.launches["decode_paged_attention"] == before + 1
+    ref_o, k_ref, v_ref = decode_paged_attention_reference(
+        q.float(), k_new.float(), v_new.float(), k_ref, v_ref, lengths, table, window=window,
+        sinks=sinks)
+    _assert_close(o, ref_o)
     assert torch.equal(k_pool.float(), k_ref) and torch.equal(v_pool.float(), v_ref)
 
 

@@ -160,8 +160,15 @@ def test_layer_ops_match_jax():
 
 def test_cuda_kernels_refuse_what_they_do_not_take():
     """The wrappers never fall back: the CPU path is taken for CPU tensors
-    only, and features outside the slice raise."""
-    x = torch.zeros(1, 64, 2, 64)
-    with pytest.raises(NotImplementedError):
-        t_flash(x, x, x, torch.ones(1, 64, dtype=torch.int32), window=16)
+    only (there a window runs the plain version), and features outside the
+    ported forms raise."""
+    x = torch.randn(1, 64, 2, 64, generator=torch.Generator().manual_seed(0))
+    seg = torch.ones(1, 64, dtype=torch.int32)
+    _close(t_flash(x, x, x, seg, window=16),
+           tattn.xla_attention(x, x, x, seg, seg, causal=True, window=16).numpy())
+    q, kv = torch.zeros(2, 2, 64), torch.zeros(2, 2, 64)
+    pool = torch.zeros(2, 3, 8, 64)
+    with pytest.raises(NotImplementedError, match="scale"):
+        t_decode_attention(q, kv, kv, pool, pool.clone(), torch.zeros(2, dtype=torch.int32),
+                           torch.zeros(2, 1, dtype=torch.int32), sm_scale=0.5)
     assert jax.default_backend() == "cpu"
