@@ -6,9 +6,16 @@ one NVIDIA GPU.
 
 Phases (any failure raises and exits non-zero before the last line):
   1. device   — requires CUDA; prints nvidia-smi's name and power limit.
-  2. build    — compiles the hand-written kernels from ``prime_rl_tpu_torch/csrc``.
+  2. build    — compiles the hand-written kernels from ``prime_rl_tpu_torch/csrc``
+                and prints the registers, local memory and shared memory of each of
+                K1's four instantiations as the runtime loaded them (it fails on
+                local memory: a spill).
   3. kernels  — K1 flash_attn_fwd, K3 decode_qkv_prep and K4 decode_paged_attention
-                at the Qwen3-0.6B shapes of the serving path, K2a flash_attn_bwd_dq
+                at the Qwen3-0.6B shapes of the serving path (K1 also at the
+                trainer's rows of four sequences, and over K1_EDGE_CASES: ragged
+                lengths, padding, short segments, GQA 1/2/8, both head dims, the
+                cross-block form, windows with and without sinks, each launched
+                twice for equal bits), K2a flash_attn_bwd_dq
                 and K2b flash_attn_bwd_dkv at the trainer's shape and one long
                 shape, K5a sparse_mla_fwd, K5b sparse_mla_bwd and the dkv
                 reduction at the GLM-5 attention widths (64 heads, 576 = 512 + 64
@@ -17,11 +24,15 @@ Phases (any failure raises and exits non-zero before the last line):
                 K2a, K2b and K4 (plus K3) at gpt-oss-20b's shapes (64/8 heads of
                 64; K1/K2 over 4096 tokens at window 128 and 0 with sinks, the
                 sinks' gradient too; K4 over 64 slots at window 128 and 0 with
-                sinks), each held against its plain PyTorch version (computed in
-                float32 on the same bf16 inputs) and timed beside the plain
-                version, a one-call PyTorch yardstick where one exists, and the
-                bound of the H100 (SXM data sheet: 3.35 TB/s, 989 TFLOP/s dense
-                bf16). Windowed K1 must take at most a quarter of full K1's time.
+                sinks; K1 also over four packed sequences of 1024), each held
+                against its plain PyTorch version (computed in float32 on the
+                same bf16 inputs) and timed beside the plain version, a one-call
+                PyTorch yardstick where one exists, and the bound of the H100
+                (SXM data sheet: 3.35 TB/s, 989 TFLOP/s dense bf16); K1's rows
+                also give the kv tile pairs visited, as the kernel counted them
+                (every K1 case holds those counts against the skip rule). Windowed K1 must take at
+                most a quarter of full K1's time, and K1 over the four packed
+                sequences at most half of the one-sequence time.
   4. train-reference — loss and every gradient of one micro-batch [2, 512] of
                 the full-width model cut to 2 layers (full vocabulary), through
                 the kernels in bf16 on the card, against the plain float32 path
@@ -174,6 +185,144 @@ def check_close(name: str, got, ref, atol: float, rtol: float) -> float:
 ATOL, RTOL = 1e-2, 1e-2
 
 
+def packed_segments(b: int, l: int, seg_lens: list, dev):
+    """[b, l] int32 segment ids: row r holds sequences of seg_lens[r] tokens
+    (ids 1, 2, ...) and padding after them; also the causal (query, key)
+    pairs they leave."""
+    import torch
+
+    seg = torch.zeros(b, l, dtype=torch.int32, device=dev)
+    pairs = 0
+    for r, lens in enumerate(seg_lens):
+        off = 0
+        for i, n in enumerate(lens):
+            seg[r, off:off + n] = i + 1
+            off += n
+            pairs += n * (n + 1) // 2
+    return seg, pairs
+
+
+def k1_tiles(q, k, v, seg_q, seg_kv, causal: bool, window: int = 0, sinks=None) -> str:
+    """"visited of candidates": the kv tile pairs of one head that K1 visited
+    and those the causal cut and the band leave it, as the kernel counted them
+    in one launch. Raises unless every (batch row, head, q tile) matches the
+    skip rule's plain mirror (``flash_tiles_visited``)."""
+    import torch
+
+    from prime_rl_tpu_torch.ops.flash_attention import flash_tile_counts, flash_tiles_visited
+
+    counts = flash_tile_counts(q, k, v, seg_q, seg_kv, causal, window, sinks)  # [B, NH, nq, 2]
+    ones_q, ones_kv = torch.ones_like(seg_q), torch.ones_like(seg_kv)
+    for col, (sq, sk) in enumerate(((seg_q, seg_kv), (ones_q, ones_kv))):
+        rule = flash_tiles_visited(sq, sk, causal, window).sum(-1, dtype=torch.int32)  # [B, nq]
+        if not torch.equal(counts[..., col], rule[:, None].expand_as(counts[..., col])):
+            what = ("visited", "candidate")[col]
+            raise AssertionError(f"flash_attn_fwd: the kernel's {what} kv tiles differ from "
+                                 "the skip rule's (flash_tiles_visited)")
+    head = counts[:, 0].sum(dim=(0, 1))
+    return f"{int(head[0])} of {int(head[1])}"
+
+
+def k1_timing(name: str, q, k, v, seg, window: int = 0, sinks=None) -> dict:
+    """K1 over one causal packing: its median time beside its plain version's
+    and, with neither window nor sinks, one SDPA call with the same mask (no
+    single PyTorch call takes sinks); its bound for the (query, key) pairs the
+    mask leaves (each input read once, each output written once); and the kv
+    tile pairs it visited (``k1_tiles``). Logs one line; returns the row's
+    numbers."""
+    import torch
+    import torch.nn.functional as F
+
+    from prime_rl_tpu_torch.ops.flash_attention import _fwd, _mask, flash_attention_reference
+
+    b, l, nh, hd = q.shape
+    mask = _mask(q, k, seg, seg, True, window)  # [B, 1, L, L]
+    pairs = int(mask.sum())
+    ms = time_ms(lambda: _fwd(q, k, v, seg, seg, True, None, window=window, sinks=sinks))
+    plain = time_ms(lambda: flash_attention_reference(q, k, v, seg, seg, True, hd ** -0.5, window,
+                                                      sinks), iters=3, warmup=1)
+    lib = None
+    if not window and sinks is None:
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                             enable_gqa=True), iters=10)
+        del qt, kt, vt
+    del mask
+    nbytes = (2 * q.numel() + 2 * k.numel()) * 2 + (b * nh * l + seg.numel()) * 4 + (
+        0 if sinks is None else nh * 4)
+    bms, by = bound(nbytes, pairs * nh * 4 * hd)
+    tiles = k1_tiles(q, k, v, seg, seg, True, window, sinks)
+    log(f"{name}: kernel {ms:.4f} ms  plain {plain:.4f} ms  library "
+        f"{'none' if lib is None else f'sdpa {lib:.4f} ms'}  bound {bms:.4f} ms ({by}), "
+        f"{pairs} pairs a head, kv tile pairs visited {tiles} (kernel's count)")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
+                pairs_per_head=pairs, tile_pairs_visited=tiles)
+
+
+# K1's edge cases (name, B, Lq, Lk, NH, NKV, HD, segment lengths of q rows,
+# of kv rows (None: the q rows'), causal, window, sinks): lengths that are no
+# multiple of the 128-row tile, a fully padded row, many short segments
+# (tiles skipped), segments that end mid-tile, GQA groups 1, 2 and 8, both
+# head dims, the cross-block form, window 128 with and without sinks
+K1_EDGE_CASES = (
+    ("L=64 hd 128 group 2", 2, 64, 64, 4, 2, 128, [[40, 24], [64]], None, True, 0, False),
+    ("L=192 hd 64 group 1, padded tail", 2, 192, 192, 2, 2, 64, [[70, 80], [100]], None, True,
+     0, False),
+    ("L=200 hd 128 group 8, a segment ends mid-tile", 1, 200, 200, 16, 2, 128, [[130, 70]],
+     None, True, 0, False),
+    ("L=1000 hd 64 group 8, 27 short segments", 2, 1000, 1000, 8, 1, 64, [[37] * 27, [500, 400]],
+     None, True, 0, False),
+    ("L=256 hd 128, a fully padded row", 2, 256, 256, 4, 2, 128, [[], [256]], None, True, 0,
+     False),
+    ("cross-block Lq 128 Lk 200, not causal", 2, 128, 200, 4, 2, 128, [[128], [100]],
+     [[200], [150]], False, 0, False),
+    ("L=1000 hd 64 group 8, window 128", 1, 1000, 1000, 16, 2, 64, [[300, 600]], None, True,
+     128, False),
+    ("L=1000 hd 64 group 8, window 128 + sinks", 1, 1000, 1000, 16, 2, 64, [[300, 600]], None,
+     True, 128, True),
+    ("L=1000 hd 128 group 2, sinks, padding", 2, 1000, 1000, 4, 2, 128, [[1000], [10, 600]], None,
+     True, 0, True),
+)
+
+
+def k1_edge_cases(gen) -> tuple[int, float]:
+    """K1 on every case of K1_EDGE_CASES against its plain version (out, lse,
+    padding rows), each launched twice for equal bits, and its kv tile counts
+    against the skip rule. Returns (cases, max error of out)."""
+    import torch
+
+    from prime_rl_tpu_torch.ops.flash_attention import _fwd, flash_attention_reference
+
+    dev = torch.device("cuda")
+    worst = 0.0
+    for name, b, lq, lk, nh, nkv, hd, q_lens, kv_lens, causal, window, with_sinks in K1_EDGE_CASES:
+        def randn(*shape):
+            return torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
+
+        q, k, v = randn(b, lq, nh, hd), randn(b, lk, nkv, hd), randn(b, lk, nkv, hd)
+        seg_q, _ = packed_segments(b, lq, q_lens, dev)
+        seg_kv = seg_q if kv_lens is None else packed_segments(b, lk, kv_lens, dev)[0]
+        sinks = torch.randn(nh, device=dev, generator=gen) if with_sinks else None
+        runs = [_fwd(q, k, v, seg_q, seg_kv, causal, None, window=window, sinks=sinks)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        (out, lse), (out2, lse2) = runs
+        if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
+            raise AssertionError(f"flash_attn_fwd {name}: two launches differ")
+        k1_tiles(q, k, v, seg_q, seg_kv, causal, window, sinks)
+        ref_out, ref_lse = flash_attention_reference(q.float(), k.float(), v.float(), seg_q,
+                                                     seg_kv, causal, hd ** -0.5, window, sinks)
+        worst = max(worst, check_close(f"flash_attn_fwd {name}", out, ref_out, ATOL, RTOL))
+        check_close(f"flash_attn_fwd lse {name}", lse, ref_lse, 1e-3, 1e-4)
+        pad = (seg_q == 0)[:, None, :].expand_as(lse)
+        want = (sinks[None, :, None].expand_as(lse)[pad] if with_sinks
+                else torch.full_like(lse[pad], -1e30))
+        if not (torch.equal(lse[pad], want) and bool((out[seg_q == 0] == 0).all())):
+            raise AssertionError(f"flash_attn_fwd {name}: padding rows must give out 0 and lse "
+                                 "-1e30 (with sinks: the sink)")
+    return len(K1_EDGE_CASES), worst
+
+
 def kernel_phase(spec) -> list[dict]:
     import torch
     import torch.nn.functional as F
@@ -205,18 +354,12 @@ def kernel_phase(spec) -> list[dict]:
     rows = []
 
     # ---- K1: prefill flash attention --------------------------------------
+    # the serving path's shapes and the Qwen3 trainer's (rows of four sequences)
     cases = []
-    for b, l in ((4, 512), (1, 2048)):
+    for b, l, seg_lens in ((4, 512, [[200, 250], [512], [37], []]), (1, 2048, [[2048]]),
+                           (8, 512, [[120, 130, 100, 110]] * 8)):
         q, k, v = randn(b, l, nh, hd), randn(b, l, nkv, hd), randn(b, l, nkv, hd)
-        seg = torch.zeros(b, l, dtype=torch.int32, device=dev)
-        seg_lens = [[200, 250], [512], [37], []] if b == 4 else [[2048]]
-        pairs = 0
-        for r, lens in enumerate(seg_lens):
-            off = 0
-            for i, n in enumerate(lens):
-                seg[r, off:off + n] = i + 1
-                off += n
-                pairs += n * (n + 1) // 2
+        seg, _ = packed_segments(b, l, seg_lens, dev)
         out, lse = flash_attention_with_lse(q, k, v, seg, seg, causal=True)
         torch.cuda.synchronize()
         ref_out, ref_lse = flash_attention_reference(q.float(), k.float(), v.float(), seg, seg,
@@ -226,30 +369,20 @@ def kernel_phase(spec) -> list[dict]:
         check_close("flash_attn_fwd lse", lse[valid], ref_lse[valid], 1e-3, 1e-4)
         if not bool((lse[~valid] < -1e29).all()):
             raise AssertionError("flash_attn_fwd: padding rows must give lse -1e30")
-        ms = time_ms(lambda: flash_attention_with_lse(q, k, v, seg, seg, causal=True))
-        plain = time_ms(lambda: flash_attention_reference(q, k, v, seg, seg, True, hd ** -0.5),
-                        iters=5)
-        # yardstick: one SDPA call with the same mask on [B, N, L, D] inputs
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        pos = torch.arange(l, device=dev)
-        mask = ((seg[:, :, None] == seg[:, None, :]) & (seg[:, :, None] != 0)
-                & (pos[:, None] >= pos[None, :]))[:, None]
-        lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                                             enable_gqa=True), iters=10)
-        nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2 + lse.numel() * 4 + seg.numel() * 4
-        flops = pairs * nh * 4 * hd
-        bms, by = bound(nbytes, flops)
-        cases.append(dict(shape=f"B={b} L={l}", max_abs_err=err, ms=ms, plain_ms=plain,
-                          library_ms=lib, bound_ms=bms, bound_by=by))
-        log(f"K1 flash_attn_fwd B={b} L={l}: err {err:.3g}  kernel {ms:.4f} ms  plain "
-            f"{plain:.4f} ms  sdpa {lib:.4f} ms  bound {bms:.4f} ms ({by})")
-        del q, k, v, qt, kt, vt, mask, out, lse, ref_out, ref_lse
+        shape = f"B={b} L={l} segments {seg_lens[0]}"
+        cases.append(dict(shape=shape, max_abs_err=err, **k1_timing(
+            f"K1 flash_attn_fwd {shape} (err {err:.3g})", q, k, v, seg)))
+        del q, k, v, out, lse, ref_out, ref_lse
+    n_edge, edge_err = k1_edge_cases(gen)
+    log(f"K1 flash_attn_fwd edge cases: {n_edge} cases within tolerance, max err {edge_err:.3g}, "
+        "two launches on each gave equal bits, kv tiles visited as the skip rule gives")
     rows.append(dict(name="flash_attn_fwd", route="cuda",
                      source="prime_rl_tpu_torch/csrc/flash_attn_fwd.cu",
                      replaces="prime_rl_tpu/ops/flash_attention.py:59",
                      **{k: cases[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                  "library_ms")},
-                     max_abs_err=max(c["max_abs_err"] for c in cases), cases=cases))
+                     max_abs_err=max([edge_err] + [c["max_abs_err"] for c in cases]),
+                     cases=cases, edge_cases=n_edge))
 
     # ---- K2a / K2b: flash attention backward ---------------------------------
     # against the plain backward on the same bf16 inputs (it rounds p and ds to
@@ -261,14 +394,7 @@ def kernel_phase(spec) -> list[dict]:
     for b, l, seg_lens in ((8, 512, [[120, 130, 100, 110]] * 8), (1, 4096, [[4096]])):
         q, k, v = randn(b, l, nh, hd), randn(b, l, nkv, hd), randn(b, l, nkv, hd)
         do = randn(b, l, nh, hd)
-        seg = torch.zeros(b, l, dtype=torch.int32, device=dev)
-        pairs = 0
-        for r, lens in enumerate(seg_lens):
-            off = 0
-            for i, n in enumerate(lens):
-                seg[r, off:off + n] = i + 1  # the rest of the row is padding
-                off += n
-                pairs += n * (n + 1) // 2
+        seg, pairs = packed_segments(b, l, seg_lens, dev)
         scale = hd ** -0.5
         out, lse = flash_attention_with_lse(q, k, v, seg, seg, causal=True)
         delta = _delta(out, do, None)
@@ -627,17 +753,15 @@ def gpt_oss_kernel_phase() -> list[dict]:
                       for n, g, r in (("dk", dk, ref_dk), ("dv", dv, ref_dv)))
         del ref_dk, ref_dv, dq, dk, dv
         torch.cuda.empty_cache()
-        ms = time_ms(lambda: _fwd(q, k, v, seg, seg, True, None, window=window, sinks=sinks))
+        fwd_cases.append(dict(shape=shape, max_abs_err=err, **k1_timing(
+            f"K1 flash_attn_fwd {shape} (err {err:.3g})", q, k, v, seg, window, sinks)))
         ms_dq = time_ms(lambda: flash_attention_dq(*args))
         ms_dkv = time_ms(lambda: flash_attention_dkv(*args))
-        plain = time_ms(lambda: flash_attention_reference(q, k, v, seg, seg, True, scale, window,
-                                                          sinks), iters=3, warmup=1)
         plain_dq = time_ms(lambda: flash_attention_dq_reference(*args), iters=3, warmup=1)
         plain_dkv = time_ms(lambda: flash_attention_dkv_reference(*args), iters=3, warmup=1)
         small = (2 * lse.numel() + seg.numel() + nh) * 4
         qb, kb = q.numel() * 2, k.numel() * 2
         for cases, name, t, t_plain, e, nbytes, nprod in (
-                (fwd_cases, "K1 flash_attn_fwd", ms, plain, err, 2 * qb + 2 * kb + small, 2),
                 (dq_cases, "K2a flash_attn_bwd_dq", ms_dq, plain_dq, err_dq,
                  3 * qb + 2 * kb + small, 3),
                 (dkv_cases, "K2b flash_attn_bwd_dkv", ms_dkv, plain_dkv, err_dkv,
@@ -657,6 +781,26 @@ def gpt_oss_kernel_phase() -> list[dict]:
                              f"full causal K1's {full:.4f} ms: the band is not skipped")
     log(f"K1 at window {spec.sliding_window} takes {windowed / full:.3f} of the full causal time "
         f"(pairs: {fwd_cases[0]['pairs_per_head'] / fwd_cases[1]['pairs_per_head']:.3f})")
+
+    # the full layers' row as the trainer packs it: four sequences of 1024
+    packed, _ = packed_segments(1, l, [[1024] * 4], dev)
+    shape = f"B=1 L={l} {nh}/{nkv} heads hd {hd}, full causal + sinks, four segments of 1024"
+    out, lse = _fwd(q, k, v, packed, packed, True, None, sinks=sinks)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = flash_attention_reference(q.float(), k.float(), v.float(), packed, packed,
+                                                 True, scale, 0, sinks)
+    err = check_close(f"flash_attn_fwd {shape}", out, ref_out, ATOL, RTOL)
+    check_close(f"flash_attn_fwd lse {shape}", lse, ref_lse, 1e-3, 1e-4)
+    del ref_out, ref_lse
+    torch.cuda.empty_cache()
+    fwd_cases.append(dict(shape=shape, max_abs_err=err, **k1_timing(
+        f"K1 flash_attn_fwd {shape} (err {err:.3g})", q, k, v, packed, 0, sinks)))
+    ms = fwd_cases[-1]["ms"]
+    if not ms <= 0.5 * full:
+        raise AssertionError(f"K1 over four packed segments takes {ms:.4f} ms, more than half of "
+                             f"the one-segment time {full:.4f} ms: tiles are not skipped")
+    log(f"K1 over four packed segments takes {ms / full:.3f} of the one-segment time")
+    del out, lse
     del q, k, v, do
     torch.cuda.empty_cache()
 
@@ -1752,6 +1896,30 @@ def serve(model: str, want_layers: int, want_vocab: int, reference=None):
     return out
 
 
+def k1_build_report() -> None:
+    """Registers, local memory and shared memory of each K1 instantiation as
+    the runtime loaded it (``cudaFuncGetAttributes``): registers a thread,
+    local memory a thread (where ptxas puts spilled registers; K1 has no
+    local arrays, so any is a spill), static and dynamic shared memory a
+    block. Raises on local memory."""
+    import ctypes
+
+    from prime_rl_tpu_torch.ops import _build
+
+    lib = _build.load("flash_attn_fwd")
+    for hd in (128, 64):
+        for window, form in ((0, "dense"), (1, "window")):
+            attrs = (ctypes.c_int * 4)()
+            _build.check("flash_attn_fwd", lib.flash_attn_fwd_attributes(hd, window, attrs))
+            regs, local, static, threads = attrs
+            log(f"K1 build: head dim {hd}, {form}: {regs} registers a thread ({threads} threads a "
+                f"block), local memory (spills) {local} bytes a thread, shared memory {static} "
+                f"bytes static + {lib.flash_attn_fwd_smem(hd, 4096)} dynamic a block at Lk 4096")
+            if local:
+                raise AssertionError(f"K1 head dim {hd} {form} uses local memory: registers "
+                                     "spill")
+
+
 def main() -> int:
     # the DSA trainer's state comes within a few GiB of the card's memory: keep
     # the caching allocator from stranding it in fragments (read at its first use)
@@ -1773,6 +1941,7 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.build()
     log(f"build: {time.perf_counter() - t0:.2f} s ({', '.join(f'{k} {v:.2f} s' for k, v in built.items())})")
+    k1_build_report()
 
     def timed(name, fn, *args):
         t = time.perf_counter()

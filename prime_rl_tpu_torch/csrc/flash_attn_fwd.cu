@@ -1,4 +1,4 @@
-// K1: packed-segment causal flash-attention forward for Hopper (sm_90a).
+// K1: packed-segment flash-attention forward for Hopper (sm_90a).
 //
 // Replaces the TPU kernel prime_rl_tpu/ops/flash_attention.py `_fwd_kernel`
 // (pallas_call in `_fwd`). Same contract: q [B, Lq, NH, HD], k/v
@@ -6,259 +6,757 @@
 // attends a key iff seg_q == seg_kv, seg_q != 0, (causal) row >= col and
 // (window > 0) row - col < window; GQA maps q head h to kv head h / (NH /
 // NKV); online softmax with f32 accumulators; out bf16 [B, Lq, NH, HD] and
-// lse f32 [B, NH, Lq]. A row that sees no key (padding, dummy prefill rows)
-// gets out 0 and lse -1e30, as the TPU kernel's finalize does.
+// lse f32 [B, NH, Lq] (natural log, m + log l). A row that sees no key
+// (padding, dummy prefill rows) gets out 0 and lse -1e30, as the TPU kernel's
+// finalize does. Attention sinks (one learned logit per q head, f32 [NH];
+// null = none) join the softmax denominator at the finalize as a virtual key
+// of value 0: m_f = max(m, sink), l_f = l e^(m - m_f) + e^(sink - m_f), out =
+// acc e^(m - m_f) / l_f, lse = m_f + log l_f; a row that sees no key then gets
+// out 0 and lse = the sink. The window is a template flag (WINDOW) besides its
+// value. No atomics and no split over kv: two runs give equal bits.
 //
-// Sliding window (gpt-oss: 128 tokens on every other layer): the kv-tile
-// loop starts at the band's first tile, (q0 - window + 1) / BK, as the TPU
-// kernel's grid starts at `_band_lo`; tiles wholly below the band are never
-// loaded, so the work grows with L * window and not L^2. Attention sinks
-// (one learned logit per q head, f32 [NH]; null = none) join the softmax
-// denominator at the finalize, as a virtual key of value 0: m_f = max(m,
-// sink), l_f = l e^(m - m_f) + e^(sink - m_f), out = acc e^(m - m_f) / l_f,
-// lse = m_f + log l_f. A row that sees no key then gets out 0 and lse = sink.
-// The window is a template flag (WINDOW) besides its value, so the dense
-// instantiation compiles as it did before windows existed.
-//
-// What bounds it on the H100: at prefill lengths (64..4096) attention is
-// compute-bound (about 4*L*L/2*HD flops per head against 4*L*HD bytes), so the
-// tensor cores are the resource. This first version uses WMMA bf16 16x16x16
-// tiles with f32 accumulation: one block of 4 warps per (batch, q head, 64-row
-// q tile), each warp owning 16 q rows; K/V tiles of 64 rows stream through
-// shared memory up to the causal diagonal only (tiles above it are skipped,
-// halving the work). The score tile and the output accumulator live in
-// shared memory, because the WMMA accumulator layout is opaque and the
-// online-softmax rescale is per row. wgmma/TMA pipelining is later work.
+// What bounds it on the H100: at prefill and training lengths (64..4096)
+// attention is compute-bound (4 HD flops per visible (query, key) pair and
+// head against 4 L HD bytes a head), so the tensor cores are the resource,
+// and only wgmma reaches their full rate. The design (FlashAttention-3's
+// shape):
+// - Work items of (q tile of 128 rows, q head, batch row), the q tiles with
+//   the most kv tiles first under `causal`. Persistent blocks, one an SM,
+//   each walking items i, i + grid, ...: with a window or packed rows an item
+//   has two or three kv tiles, and a block an item would spend as long
+//   starting and ending as computing. A block has two consumer warpgroups of
+//   64 q rows each and one producer warp (168 registers a thread; no
+//   `setmaxnreg`: with a producer warpgroup and 24/240 registers, ptxas
+//   still allocated the consumers within the 168 of the launch, and spilled).
+// - The producer warp runs one item ahead: it scans the item's kv segment ids
+//   (the tile skip below), loads q by TMA into one of two q buffers, then the
+//   visited k/v tiles of 128 rows, with each tile's 128 kv segment ids (a 1-D
+//   map over the flat ids), into a ring guarded by full/empty mbarriers:
+//   three stages at head dim 64, two at 128, as shared memory allows. The
+//   k/v/q maps are 4-D (HD, heads, L, B), so rows past a batch row's end are
+//   zero-filled instead of read from the next row; 128-byte swizzle, so HD
+//   128 is two 64-column boxes.
+// - S = Q K^T by wgmma m64n{SN}k16 with both operands in shared memory
+//   (SN = 128 keys, or two chunks of 64 at head dim 128 and in the banded
+//   form); S, the softmax statistics and the output accumulator O stay in
+//   registers (each row is held by 4 threads: two shuffles reduce it). P is
+//   rounded to bf16 in registers and is the register A operand of O += P V
+//   (wgmma m64n{HD}k16, V MN-major). O leaves registers only in the epilogue, which
+//   stages it through the item's q buffer for 16-byte coalesced stores.
+// - Masks select: a masked score becomes -inf, and the running max starts at
+//   -1e30 and stays finite, so a masked probability is exactly exp2(-inf) = 0
+//   (with -1e30 for both, a row that has seen no key yet would get exp(0) =
+//   1). Tiles wholly inside one segment, below the diagonal and inside the
+//   band skip the mask; the others compare each column with its row's
+//   causal/band range and, unless the tile is in one segment, its segment.
+// - Tiles skipped: before an item's loads, the producer scans the kv segment
+//   ids of its candidate tiles (the causal cut and the band's start), SCAN
+//   tiles' ids in flight at once, and keeps only the tiles that hold a key
+//   whose segment lies in [smallest non-zero, largest] of the q tile's ids.
+//   That never drops a visible pair, whatever the order of the ids; a row of
+//   four packed sequences visits about a quarter of its causal triangle.
+//   `flash_tiles_visited` in ops/flash_attention.py is the plain mirror of
+//   this rule. Given a `tiles` buffer (the `flash_attn_fwd_tiles` entry
+//   point), the producer writes each item's visited and candidate tile counts
+//   there, one slot an item, so a run can hold the kernel's visits against
+//   the mirror.
 
+#include <cuda.h>  // CUtensorMap and its enums only: the encoder comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
+#include <climits>
 #include <cstdint>
-
-using namespace nvcuda;
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr float NEG_INF = -1e30f;
+constexpr int BQ = 128;             // q rows a work item
+constexpr int BK = 128;             // kv rows a tile
+constexpr int CONSUMERS = 2;        // warpgroups of 64 q rows
+constexpr int NTHREADS = 128 * CONSUMERS + 32;  // and one producer warp
+constexpr int PRODUCER = 4 * CONSUMERS;         // the producer's warp index
+constexpr int SCAN = 8;             // kv tiles whose segment ids the producer reads at once
+constexpr float NEG_INF = -1e30f;   // the running max's floor and a no-key row's lse
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int MAX_SMEM = 232448;    // what a block may use on the H100
 
+// Shared memory. Tiles are 64-column boxes, each box [rows][64] bf16 with
+// rows of 128 bytes in the 128-byte swizzle, the boxes of a tile back to
+// back. q, the q tile's segment ids, its item's description and its kv tile
+// flags are double-buffered by item; k, v and their segment ids by ring stage.
 template <int HD>
 struct Smem {
-  static constexpr int QLD = HD + 8;   // bf16 row stride (Q, K, V tiles)
-  static constexpr int SLD = BK + 4;   // f32 score row stride
-  static constexpr int PLD = BK + 8;   // bf16 prob row stride
-  static constexpr int OLD = HD + 4;   // f32 output-accumulator row stride
-  static constexpr size_t q_off = 0;
-  static constexpr size_t k_off = q_off + sizeof(__nv_bfloat16) * BQ * QLD;
-  static constexpr size_t v_off = k_off + sizeof(__nv_bfloat16) * BK * QLD;
-  static constexpr size_t s_off = v_off + sizeof(__nv_bfloat16) * BK * QLD;
-  static constexpr size_t p_off = s_off + sizeof(float) * BQ * SLD;
-  static constexpr size_t o_off = p_off + sizeof(__nv_bfloat16) * BQ * PLD;
-  static constexpr size_t m_off = o_off + sizeof(float) * BQ * OLD;
-  static constexpr size_t l_off = m_off + sizeof(float) * BQ;
-  static constexpr size_t sq_off = l_off + sizeof(float) * BQ;
-  static constexpr size_t sk_off = sq_off + sizeof(int) * BQ;
-  static constexpr size_t bytes = sk_off + sizeof(int) * BK;
+  static constexpr int HALVES = HD / 64;
+  // k/v ring depth: three stages where they fit (head dim 64), else two
+  static constexpr int STAGES = HD == 64 ? 3 : 2;
+  static constexpr int Q_BYTES = BQ * HD * 2;
+  static constexpr int KV_BYTES = BK * HD * 2;
+  static constexpr int q_off = 0;                              // [2] q tiles
+  static constexpr int k_off = q_off + 2 * Q_BYTES;            // [STAGES] k tiles
+  static constexpr int v_off = k_off + STAGES * KV_BYTES;      // [STAGES] v tiles
+  static constexpr int seg_off = v_off + STAGES * KV_BYTES;    // int [STAGES][BK]
+  static constexpr int segq_off = seg_off + STAGES * BK * 4;   // int [2][BQ]
+  static constexpr int item_off = segq_off + 2 * BQ * 4;       // Item [2]
+  static constexpr int bar_off = item_off + 64;  // full[S], empty[S], q_full[2], q_empty[2]
+  static constexpr int flag_off = bar_off + 8 * (2 * STAGES + 4);  // uint8 [2][n_tiles]
+  // 1024 bytes of slack: the swizzled tiles need a 1024-aligned base
+  static size_t bytes(int n_tiles) { return 1024 + flag_off + 2 * n_tiles; }
 };
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// one work item: a q tile of one head and batch row, and its candidate kv
+// tiles [j0, j0 + nt), of which flags say which are visited
+struct Item {
+  int q0, h, b, j0, nt;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
 
-// rows [0, n) of a [n, HD] tile from a [L, heads, HD] tensor (row stride
-// heads*HD); rows past `valid` are zero-filled
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "{\n.reg .b64 st;\nmbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// waits until the phase of parity `parity` has completed; a wait that never
+// ends (a pipeline fault) traps after 2^26 tries instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t tries = 0;; ++tries) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries == (1u << 26)) __trap();
+  }
+}
+
+// one box of a 4-D tensor map into shared memory, completion on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                         int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// one box of a 1-D tensor map into shared memory, completion on `bar`
+__device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets (K-major: stride = the 1024 bytes between groups of
+// 8 rows; MN-major: leading = the bytes between 64-column boxes, stride = the
+// 1024 bytes between groups of 8 rows along K)
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit_and_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\nwgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving accesses of wgmma's registers across the wait
+template <int N>
+__device__ __forceinline__ void pin(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define MASKED __int_as_float(0xff800000)  // -inf: the score of a masked entry
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x; -1e30-scale arguments give 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// D[64 x 128] (+)= A[64 x 16] B[128 x 16]^T, A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                               int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[64 x 16]^T, A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                               int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 128] += A[64 x 16] B[16 x 128], A in registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 64] += A[64 x 16] B[16 x 64], A in registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_qk(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  if constexpr (N == 128) {
+    wgmma_ss_n128(d, da, db, accumulate);
+  } else {
+    wgmma_ss_n64(d, da, db, accumulate);
+  }
+}
+
 template <int HD>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          int rows, int valid, size_t row_stride) {
-  constexpr int V8 = HD / 8;  // 16-byte vectors per row
-  for (int i = threadIdx.x; i < rows * V8; i += NTHREADS) {
-    const int r = i / V8, c = (i % V8) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r < valid) val = *reinterpret_cast<const uint4*>(src + r * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * Smem<HD>::QLD + c) = val;
+__device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (HD == 128) {
+    wgmma_rs_n128(o, a, db);
+  } else {
+    wgmma_rs_n64(o, a, db);
+  }
+}
+
+// finalize of one row: (1 / denominator, lse); m is the row's raw max score
+__device__ __forceinline__ void finalize(float m, float l, float scale, const float* sinks, int h,
+                                         float& inv, float& row_lse) {
+  const float m_nat = m * scale;  // rows that saw no key: about -1e30 * scale
+  if (sinks != nullptr) {
+    const float sink = sinks[h];
+    const float m_f = fmaxf(m_nat, sink);
+    const float alpha = expf(m_nat - m_f);
+    const float l_f = l * alpha + expf(sink - m_f);
+    inv = alpha / l_f;
+    row_lse = m_f + logf(l_f);
+  } else {
+    inv = l > 0.f ? 1.f / l : 1.f;
+    row_lse = l > 0.f ? m_nat + logf(l) : NEG_INF;
   }
 }
 
 template <int HD, bool WINDOW>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg_q,
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v,
+                 const __grid_constant__ CUtensorMap tm_seg, const int* __restrict__ seg_q,
                  const int* __restrict__ seg_kv, __nv_bfloat16* __restrict__ out,
-                 float* __restrict__ lse, const float* __restrict__ sinks, int Lq, int Lk,
-                 int NH, int NKV, float scale, int causal, int window) {
+                 float* __restrict__ lse, const float* __restrict__ sinks,
+                 int* __restrict__ tiles, int B, int Lq, int Lk, int NH, int NKV, float scale,
+                 int causal, int window) {
   using S = Smem<HD>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem + S::q_off);
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem + S::k_off);
-  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(smem + S::v_off);
-  float* Ss = reinterpret_cast<float*>(smem + S::s_off);
-  __nv_bfloat16* Ps = reinterpret_cast<__nv_bfloat16*>(smem + S::p_off);
-  float* Os = reinterpret_cast<float*>(smem + S::o_off);
-  float* m_s = reinterpret_cast<float*>(smem + S::m_off);
-  float* l_s = reinterpret_cast<float*>(smem + S::l_off);
-  int* segq_s = reinterpret_cast<int*>(smem + S::sq_off);
-  int* segk_s = reinterpret_cast<int*>(smem + S::sk_off);
+  // keys of S a consumer holds at once: at head dim 128, O takes 64 registers
+  // a thread and S of all 128 keys another 64, which with the rest passes the
+  // 168 a thread that ptxas gives a block of 288 threads (9 warps: 3 on one
+  // of the SM's four register files), so S goes in two chunks of 64 keys. So
+  // does the banded form: a 128-row band's tiles hold chunks that a
+  // warpgroup's 64 rows do not see at all, or see whole.
+  constexpr int SN = HD == 128 || WINDOW ? 64 : 128;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sbase = smem_u32(smem);
+  int* seg_s = reinterpret_cast<int*>(smem + S::seg_off);
+  int* segq_s = reinterpret_cast<int*>(smem + S::segq_off);
+  Item* items = reinterpret_cast<Item*>(smem + S::item_off);
+  const int n_tiles = (Lk + BK - 1) / BK;
+  uint8_t* flags = smem + S::flag_off;  // [2][n_tiles]
+  const uint32_t full_bar = sbase + S::bar_off;
+  const uint32_t empty_bar = full_bar + 8 * S::STAGES;
+  const uint32_t q_full = full_bar + 16 * S::STAGES;
+  const uint32_t q_empty = q_full + 16;
 
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int kvh = h / (NH / NKV);
+  const int n_q = (Lq + BQ - 1) / BQ, n_items = n_q * NH * B;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wrow = warp * 16;  // this warp's first row in the tile
 
-  const size_t q_stride = (size_t)NH * HD, kv_stride = (size_t)NKV * HD;
-  load_tile<HD>(Qs, q + ((size_t)b * Lq + q0) * q_stride + (size_t)h * HD, BQ, Lq - q0, q_stride);
-  for (int r = threadIdx.x; r < BQ; r += NTHREADS) {
-    segq_s[r] = (q0 + r < Lq) ? seg_q[(size_t)b * Lq + q0 + r] : 0;
-    m_s[r] = NEG_INF;
-    l_s[r] = 0.f;
-  }
-  for (int i = threadIdx.x; i < BQ * S::OLD; i += NTHREADS) Os[i] = 0.f;
-
-  int n_tiles = (Lk + BK - 1) / BK;
-  if (causal) n_tiles = min(n_tiles, (q0 + BQ - 1) / BK + 1);
-  // the band: no row of this tile sees a key below q0 - window + 1
-  const int j0 = WINDOW ? max(0, q0 - window + 1) / BK : 0;
-
-  for (int j = j0; j < n_tiles; ++j) {
-    const int k0 = j * BK;
-    __syncthreads();  // previous tile's K/V/P fully consumed (and Q loaded)
-    const size_t kv_base = ((size_t)b * Lk + k0) * kv_stride + (size_t)kvh * HD;
-    load_tile<HD>(Ks, k + kv_base, BK, Lk - k0, kv_stride);
-    load_tile<HD>(Vs, v + kv_base, BK, Lk - k0, kv_stride);
-    for (int c = threadIdx.x; c < BK; c += NTHREADS)
-      segk_s[c] = (k0 + c < Lk) ? seg_kv[(size_t)b * Lk + k0 + c] : 0;
-    __syncthreads();
-
-    // S[16 x 64] = Q_w K^T
-#pragma unroll
-    for (int n = 0; n < BK / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, Qs + wrow * S::QLD + kk * 16, S::QLD);
-        wmma::load_matrix_sync(fb, Ks + (n * 16) * S::QLD + kk * 16, S::QLD);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(Ss + wrow * S::SLD + n * 16, acc, S::SLD, wmma::mem_row_major);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S::STAGES; ++s) {
+      mbar_init(full_bar + 8 * s, 1);   // the loads' expect_tx
+      mbar_init(empty_bar + 8 * s, 128 * CONSUMERS);  // every consumer thread
     }
-    __syncwarp();
-
-    // online softmax over this warp's 16 rows; lane owns columns lane, lane+32
-    for (int r = 0; r < 16; ++r) {
-      const int row = wrow + r;
-      const int grow = q0 + row;
-      const int sq = segq_s[row];
-      float s2[2];
-      bool ok[2];
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const int c = lane + 32 * t;
-        const int gcol = k0 + c;
-        ok[t] = (sq != 0) && (sq == segk_s[c]) && (!causal || grow >= gcol) &&
-                (!WINDOW || grow - gcol < window);
-        s2[t] = ok[t] ? Ss[row * S::SLD + c] * scale : NEG_INF;
-      }
-      const float m_prev = m_s[row];
-      const float m_new = fmaxf(m_prev, warp_max(fmaxf(s2[0], s2[1])));
-      float p2[2];
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        p2[t] = ok[t] ? expf(s2[t] - m_new) : 0.f;
-        Ps[row * S::PLD + lane + 32 * t] = __float2bfloat16(p2[t]);
-      }
-      const float psum = warp_sum(p2[0] + p2[1]);
-      const float alpha = expf(m_prev - m_new);
-#pragma unroll
-      for (int t = 0; t < HD / 32; ++t) Os[row * S::OLD + lane + 32 * t] *= alpha;
-      __syncwarp();
-      if (lane == 0) {
-        l_s[row] = l_s[row] * alpha + psum;
-        m_s[row] = m_new;
-      }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(q_full + 8 * i, 33);  // q's expect_tx + 32 lanes writing its item
+      mbar_init(q_empty + 8 * i, 128 * CONSUMERS);
     }
-    __syncwarp();
-
-    // O_w[16 x HD] += P_w[16 x 64] V[64 x HD]
-#pragma unroll
-    for (int n = 0; n < HD / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, Os + wrow * S::OLD + n * 16, S::OLD, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, Ps + wrow * S::PLD + kk * 16, S::PLD);
-        wmma::load_matrix_sync(fb, Vs + (kk * 16) * S::QLD + n * 16, S::QLD);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(Os + wrow * S::OLD + n * 16, acc, S::OLD, wmma::mem_row_major);
-    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  // finalize: out = acc / l (0 for rows that saw no key), lse = m + log l;
-  // with a sink, the sink's term joins l first
-  for (int r = 0; r < 16; ++r) {
-    const int row = wrow + r;
-    const int grow = q0 + row;
-    if (grow >= Lq) break;
-    const float l = l_s[row], m = m_s[row];
-    float inv, row_lse;
-    if (sinks != nullptr) {
-      const float sink = sinks[h];
-      const float m_f = fmaxf(m, sink);
-      const float alpha = expf(m - m_f);  // rows that saw no key: m = -1e30 -> 0
-      const float l_f = l * alpha + expf(sink - m_f);
-      inv = alpha / l_f;
-      row_lse = m_f + logf(l_f);
-    } else {
-      inv = l > 0.f ? 1.f / l : 1.f;
-      row_lse = l > 0.f ? m + logf(l) : NEG_INF;
-    }
-    __nv_bfloat16* orow = out + ((size_t)b * Lq + grow) * q_stride + (size_t)h * HD;
+  if (warp == PRODUCER) {
+    // ---- producer warp: for each item, wait until its buffers are free (the
+    // consumers finished the item two back), scan the kv segment ids of its
+    // candidate tiles, load q, then the visited k/v tiles into the ring. It
+    // runs up to one item ahead, so an item's scan and first loads overlap the
+    // previous item's products.
+    int stage = 0;
+    uint32_t phase = 0;
+    int it = 0;
+    for (int e = blockIdx.x; e < n_items; e += gridDim.x, ++it) {
+      const int buf = it & 1;
+      // items with the most kv tiles first under `causal`
+      const int qi = e / (NH * B), hb = e % (NH * B);
+      const int h = hb % NH, b = hb / NH;
+      const int q0 = (causal ? n_q - 1 - qi : qi) * BQ;
+      int j1 = n_tiles;
+      if (causal) j1 = min(j1, (min(q0 + BQ, Lq) - 1) / BK + 1);
+      const int j0 = WINDOW ? max(0, q0 - window + 1) / BK : 0;
+      const int nt = max(j1 - j0, 0);
+      // the ids the scan needs are read before the wait for this item's
+      // buffers (reads of global memory only), and q's load starts right
+      // after it, under the scan
+      const size_t kv_row = (size_t)b * Lk;
+      int sq[BQ / 32];
 #pragma unroll
-    for (int t = 0; t < HD / 32; ++t) {
-      const int c = lane + 32 * t;
-      orow[c] = __float2bfloat16(Os[row * S::OLD + c] * inv);
+      for (int u = 0; u < BQ / 32; ++u) {
+        const int r = q0 + lane + 32 * u;
+        sq[u] = r < Lq ? seg_q[(size_t)b * Lq + r] : 0;
+      }
+      int v[SCAN][BK / 32];  // SCAN tiles' kv ids in flight at once
+      auto read_ids = [&](int t0) {
+#pragma unroll
+        for (int a = 0; a < SCAN; ++a) {
+#pragma unroll
+          for (int u = 0; u < BK / 32; ++u) {
+            const int c = (j0 + t0 + a) * BK + lane + 32 * u;
+            v[a][u] = t0 + a < nt && c < Lk ? seg_kv[kv_row + c] : 0;
+          }
+        }
+      };
+      read_ids(0);
+      if (it >= 2) mbar_wait(q_empty + 8 * buf, ((it >> 1) - 1) & 1);
+      if (lane == 0) {
+        mbar_arrive_expect_tx(q_full + 8 * buf, S::Q_BYTES);
+#pragma unroll
+        for (int hf = 0; hf < S::HALVES; ++hf)
+          tma_load(sbase + S::q_off + buf * S::Q_BYTES + hf * BQ * 128, &tm_q, q_full + 8 * buf,
+                   hf * 64, h, q0, b);
+      }
+
+      // the q tile's segment range [q_lo, q_hi] and whether it is one segment
+      int lo = INT_MAX, hi = INT_MIN;
+#pragma unroll
+      for (int u = 0; u < BQ / 32; ++u) {
+        segq_s[buf * BQ + lane + 32 * u] = sq[u];
+        if (sq[u] != 0) {
+          lo = min(lo, sq[u]);
+          hi = max(hi, sq[u]);
+        }
+      }
+      const int q_lo = __reduce_min_sync(0xffffffffu, lo);
+      const int q_hi = __reduce_max_sync(0xffffffffu, hi);
+      bool one = q_lo == q_hi;
+#pragma unroll
+      for (int u = 0; u < BQ / 32; ++u) one = one && sq[u] == q_lo;
+      const bool q_one = __all_sync(0xffffffffu, one);
+
+      // flags[t]: bit 0 = visit tile j0 + t (it holds a key whose segment lies
+      // in [q_lo, q_hi]); bit 1 = all its keys and all q rows share one segment
+      uint8_t* fl = flags + buf * n_tiles;
+      int visited = 0;
+      for (int t0 = 0; t0 < nt; t0 += SCAN) {
+        if (t0 > 0) read_ids(t0);
+#pragma unroll
+        for (int a = 0; a < SCAN; ++a) {
+          bool any = false, all = true;
+#pragma unroll
+          for (int u = 0; u < BK / 32; ++u) {
+            any = any || (v[a][u] != 0 && v[a][u] >= q_lo && v[a][u] <= q_hi);
+            all = all && v[a][u] == q_lo;
+          }
+          any = __any_sync(0xffffffffu, any);
+          all = __all_sync(0xffffffffu, all);
+          if (t0 + a < nt) visited += any;
+          if (lane == 0 && t0 + a < nt)
+            fl[t0 + a] = (any ? 1 : 0) | (any && all && q_one ? 2 : 0);
+        }
+      }
+      if (tiles != nullptr && lane == 0) {  // [B, NH, n_q, 2]: visited, candidates
+        int* slot = tiles + 2 * (((size_t)b * NH + h) * n_q + q0 / BQ);
+        slot[0] = visited;
+        slot[1] = nt;
+      }
+      if (lane == 0) items[buf] = Item{q0, h, b, j0, nt};
+      __syncwarp();
+      mbar_arrive(q_full + 8 * buf);
+
+      const int kvh = h / (NH / NKV);
+      for (int t = 0; t < nt; ++t) {
+        if (!(fl[t] & 1)) continue;
+        const int k0 = (j0 + t) * BK;
+        if (lane == 0) {  // k and v, each in HALVES boxes, and the tile's segment ids
+          mbar_wait(empty_bar + 8 * stage, phase ^ 1);
+          const uint32_t bar = full_bar + 8 * stage;
+          mbar_arrive_expect_tx(bar, 2 * S::KV_BYTES + BK * 4);
+#pragma unroll
+          for (int hf = 0; hf < S::HALVES; ++hf) {
+            const int off = stage * S::KV_BYTES + hf * BK * 128;
+            tma_load(sbase + S::k_off + off, &tm_k, bar, hf * 64, kvh, k0, b);
+            tma_load(sbase + S::v_off + off, &tm_v, bar, hf * 64, kvh, k0, b);
+          }
+          tma_load_1d(smem_u32(seg_s + stage * BK), &tm_seg, bar, (int)kv_row + k0);
+        }
+        if (++stage == S::STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
     }
-    if (lane == 0) lse[((size_t)b * NH + h) * Lq + grow] = row_lse;
+    return;
   }
+
+  // ---- consumers: warpgroup wg owns q rows [q0 + 64 wg, q0 + 64 wg + 64) of
+  // each item
+  const int wg = warp / 4, w = warp % 4;
+  const float sl2 = scale * LOG2E;
+  int stage = 0;
+  uint32_t phase = 0;
+  int it = 0;
+  for (int e = blockIdx.x; e < n_items; e += gridDim.x, ++it) {
+    const int buf = it & 1;
+    mbar_wait(q_full + 8 * buf, (it >> 1) & 1);
+    const Item item = items[buf];
+    const uint8_t* fl = flags + buf * n_tiles;
+    const uint32_t q_base = sbase + S::q_off + buf * S::Q_BYTES;
+    const int row_base = item.q0 + 64 * wg;
+    // this thread's two rows; its columns of every 8-wide group: 2 (lane % 4) + {0, 1}
+    const int lr = 16 * w + lane / 4;  // local row of r0 in the warpgroup; r1 = lr + 8
+    const int r0 = row_base + lr, r1 = r0 + 8;
+    const int sq0 = segq_s[buf * BQ + 64 * wg + lr], sq1 = segq_s[buf * BQ + 64 * wg + lr + 8];
+    float o[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;  // raw max; this thread's share of l
+
+    for (int t = 0; t < item.nt; ++t) {
+      const int f = fl[t];
+      if (!(f & 1)) continue;
+      const int k0 = (item.j0 + t) * BK;
+      mbar_wait(full_bar + 8 * stage, phase);
+
+      // the tile in chunks of SN keys: S[64 x SN] = Q K^T, the online
+      // softmax, then O += P V over the chunk's SN rows of v. A chunk that no
+      // row of this warpgroup sees (above the diagonal, below the band) is
+      // skipped; one that every row sees whole needs no position mask.
+      const bool seg_mask = !(f & 2);
+#pragma unroll
+      for (int ch = 0; ch < BK / SN; ++ch) {
+        const int c0 = k0 + ch * SN, c1 = c0 + SN - 1;
+        if ((causal && c0 > row_base + 63) || (WINDOW && c1 < row_base - window + 1)) continue;
+        const bool pos_mask =
+            (causal && c1 > row_base) || (WINDOW && c0 < row_base + 63 - window + 1);
+        // K-major operands: +32 bytes a k16 step inside a box, the next box
+        // BQ (BK) rows on; descriptors are offset from one base each, so
+        // that only the base stays live
+        const uint64_t dq = smem_desc(q_base + wg * 64 * 128, 16, 1024);
+        const uint64_t dk =
+            smem_desc(sbase + S::k_off + stage * S::KV_BYTES + ch * SN * 128, 16, 1024);
+        float s[SN / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          const int hf = kk / 4, kin = kk % 4;
+          wgmma_qk<SN>(s, dq + ((hf * BQ * 128 + kin * 32) >> 4),
+                       dk + ((hf * BK * 128 + kin * 32) >> 4), kk > 0);
+        }
+        wgmma_commit_and_wait();
+        pin(s);
+
+        // masks select: a masked score becomes -inf, and the running max
+        // starts at -1e30 and stays finite, so a masked probability is
+        // exactly 0 (no row computes exp(0) for a masked entry). Only tiles
+        // that cross the diagonal, the band's edge or a segment's bounds are
+        // masked.
+        if (seg_mask || pos_mask) {
+          // each row's visible columns of the chunk: [lo, hi] (causal, band;
+          // r1's lo is r0's + 8) and none past Lk: the segment ids come from
+          // a flat [B * Lk] map, so past a row's end they are the next row's
+          const int hi0 = min(causal ? r0 - c0 : INT_MAX, Lk - 1 - c0);
+          const int hi1 = min(causal ? r1 - c0 : INT_MAX, Lk - 1 - c0);
+          const int lo = WINDOW ? r0 - c0 - window + 1 : INT_MIN;
+          const int* sk = seg_s + stage * BK + ch * SN;
+#pragma unroll
+          for (int i = 0; i < SN / 8; ++i) {
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const int c = 8 * i + 2 * (lane % 4) + j;
+              bool v0 = c >= lo && c <= hi0, v1 = c >= lo + 8 && c <= hi1;
+              if (seg_mask) {
+                const int ks = sk[c];
+                v0 = v0 && sq0 != 0 && ks == sq0;
+                v1 = v1 && sq1 != 0 && ks == sq1;
+              }
+              s[4 * i + j] = v0 ? s[4 * i + j] : MASKED;
+              s[4 * i + 2 + j] = v1 ? s[4 * i + 2 + j] : MASKED;
+            }
+          }
+        }
+
+        // online softmax: the row max over the 4 threads of a row, two shuffles
+        float mx0 = m0, mx1 = m1;
+#pragma unroll
+        for (int i = 0; i < SN / 8; ++i) {
+          mx0 = fmaxf(mx0, fmaxf(s[4 * i], s[4 * i + 1]));
+          mx1 = fmaxf(mx1, fmaxf(s[4 * i + 2], s[4 * i + 3]));
+        }
+#pragma unroll
+        for (int x = 1; x <= 2; x <<= 1) {
+          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+        }
+        const float alpha0 = ex2((m0 - mx0) * sl2), alpha1 = ex2((m1 - mx1) * sl2);
+        m0 = mx0;
+        m1 = mx1;
+        const float b0 = mx0 * sl2, b1 = mx1 * sl2;
+        float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+        for (int i = 0; i < SN / 8; ++i) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const float p0 = ex2(fmaf(s[4 * i + j], sl2, -b0));  // masked: ex2(-inf) = 0
+            const float p1 = ex2(fmaf(s[4 * i + 2 + j], sl2, -b1));
+            s[4 * i + j] = p0;
+            s[4 * i + 2 + j] = p1;
+            sum0 += p0;
+            sum1 += p1;
+          }
+        }
+        l0 = l0 * alpha0 + sum0;
+        l1 = l1 * alpha1 + sum1;
+#pragma unroll
+        for (int i = 0; i < HD / 8; ++i) {
+          o[4 * i] *= alpha0;
+          o[4 * i + 1] *= alpha0;
+          o[4 * i + 2] *= alpha1;
+          o[4 * i + 3] *= alpha1;
+        }
+
+        // O += P V: S's accumulator fragment of columns [16 kk, 16 kk + 16)
+        // is the register A fragment of k step kk; V is MN-major (+2048 bytes
+        // a k16 step, its two 64-column boxes BK * 128 bytes apart)
+        uint32_t pa[SN / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < SN / 16; ++kk) {
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+            pa[kk][x] = pack_bf16(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1]);
+        }
+        const uint64_t dv =
+            smem_desc(sbase + S::v_off + stage * S::KV_BYTES + ch * SN * 128, BK * 128, 1024);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < SN / 16; ++kk) wgmma_pv<HD>(o, pa[kk], dv + ((kk * 16 * 128) >> 4));
+        wgmma_commit_and_wait();
+        pin(o);
+      }
+      mbar_arrive(empty_bar + 8 * stage);
+      if (++stage == S::STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+    // ---- epilogue: l summed over the row's 4 threads, the finalize, out
+    // staged in this warpgroup's own rows of the q tile (its last reads of
+    // them are complete), then 16-byte coalesced stores; the q buffer is free
+    // for the item two ahead once every consumer thread has read its rows back
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, x);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, x);
+    }
+    float inv0, inv1, lse0, lse1;
+    finalize(m0, l0, scale, sinks, item.h, inv0, lse0);
+    finalize(m1, l1, scale, sinks, item.h, inv1, lse1);
+    if (lane % 4 == 0) {
+      float* lrow = lse + ((size_t)item.b * NH + item.h) * Lq;
+      if (r0 < Lq) lrow[r0] = lse0;
+      if (r1 < Lq) lrow[r1] = lse1;
+    }
+#pragma unroll
+    for (int i = 0; i < HD / 8; ++i) {
+      const uint32_t box = q_base + (i / 8) * BQ * 128 + (64 * wg + lr) * 128 +
+                           (((i % 8) ^ (lr % 8)) * 16) + (lane % 4) * 4;
+      const uint32_t v0 = pack_bf16(o[4 * i] * inv0, o[4 * i + 1] * inv0);
+      const uint32_t v1 = pack_bf16(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(box), "r"(v0) : "memory");
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(box + 8 * 128), "r"(v1) : "memory");
+    }
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    constexpr int CHUNKS = HD / 8;  // 16-byte chunks a row
+    const unsigned char* staged = smem + (q_base - sbase);
+    for (int idx = threadIdx.x % 128; idx < 64 * CHUNKS; idx += 128) {
+      const int rl = idx / CHUNKS, c = idx % CHUNKS;
+      const int row = row_base + rl;
+      if (row >= Lq) continue;
+      const uint4 val = *reinterpret_cast<const uint4*>(staged + (c / 8) * BQ * 128 +
+                                                        (64 * wg + rl) * 128 +
+                                                        (((c % 8) ^ (rl % 8)) * 16));
+      *reinterpret_cast<uint4*>(
+          out + (((size_t)item.b * Lq + row) * NH + item.h) * HD + c * 8) = val;
+    }
+    // the next TMA write of this buffer comes through the async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_arrive(q_empty + 8 * buf);
+  }
+}
+
+// ---- host side ---------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver through the runtime: no -lcuda link
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// [batch, len, heads, HD] bf16 as a 4-D map (HD, heads, len, batch) with
+// boxes of (64, 1, rows, 1) in the 128-byte swizzle; out of range reads give 0
+bool tensor_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int hd, int heads, int len,
+                int batch, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads, (cuuint64_t)len,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)heads * hd * 2,
+                                 (cuuint64_t)len * heads * hd * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// seg_kv [B, Lk] int32 as a flat 1-D map with boxes of BK ids (a 2-D map
+// would need Lk a multiple of 4)
+bool segment_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int n) {
+  const cuuint64_t dims[1] = {(cuuint64_t)n};
+  const cuuint64_t strides[1] = {0};  // a 1-D map has none
+  const cuuint32_t box[1] = {BK};
+  const cuuint32_t elem[1] = {1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_INT32, 1, const_cast<void*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+size_t smem_bytes(int hd, int Lk) {
+  const int n_tiles = (Lk + BK - 1) / BK;
+  return hd == 128 ? Smem<128>::bytes(n_tiles) : Smem<64>::bytes(n_tiles);
 }
 
 template <int HD, bool WINDOW>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* seg_q,
-                   const int* seg_kv, void* out, float* lse, const float* sinks, int B, int Lq,
-                   int Lk, int NH, int NKV, float scale, int causal, int window,
+                   const int* seg_kv, void* out, float* lse, const float* sinks, int* tiles, int B,
+                   int Lq, int Lk, int NH, int NKV, float scale, int causal, int window,
                    cudaStream_t stream) {
+  if (B == 0 || Lq == 0) return cudaSuccess;
+  const size_t smem = smem_bytes(HD, Lk);
+  if (smem > MAX_SMEM || Lk == 0) return cudaErrorInvalidValue;
   static bool configured = false;
-  const size_t smem = Smem<HD>::bytes;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<HD, WINDOW>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        flash_fwd_kernel<HD, WINDOW>, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  dim3 grid((Lq + BQ - 1) / BQ, NH, B);
-  flash_fwd_kernel<HD, WINDOW><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), seg_q, seg_kv, static_cast<__nv_bfloat16*>(out),
-      lse, sinks, Lq, Lk, NH, NKV, scale, causal, window);
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  CUtensorMap tq, tk, tv, tseg;
+  if (!tensor_map(&tq, encode, q, HD, NH, Lq, B, BQ) ||
+      !tensor_map(&tk, encode, k, HD, NKV, Lk, B, BK) ||
+      !tensor_map(&tv, encode, v, HD, NKV, Lk, B, BK) ||
+      !segment_map(&tseg, encode, seg_kv, B * Lk))
+    return cudaErrorInvalidValue;
+  // persistent: one block an SM (its shared memory allows no second), each
+  // walking the items i, i + grid, ...
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  const int n_items = (Lq + BQ - 1) / BQ * NH * B;
+  flash_fwd_kernel<HD, WINDOW><<<min(n_items, sms), NTHREADS, smem, stream>>>(
+      tq, tk, tv, tseg, seg_q, seg_kv, static_cast<__nv_bfloat16*>(out), lse, sinks, tiles, B, Lq,
+      Lk, NH, NKV, scale, causal, window);
   return cudaGetLastError();
+}
+
+int run(const void* q, const void* k, const void* v, const void* seg_q, const void* seg_kv,
+        void* out, void* lse, const void* sinks, int* tiles, int B, int Lq, int Lk, int NH,
+        int NKV, int HD, float scale, int causal, int window, void* stream) {
+  const int* sq = static_cast<const int*>(seg_q);
+  const int* sk = static_cast<const int*>(seg_kv);
+  float* l = static_cast<float*>(lse);
+  const float* snk = static_cast<const float*>(sinks);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PRT_FWD_CASE(hd, w)                                                                  \
+  if (HD == hd && (window > 0) == w)                                                          \
+    return launch<hd, w>(q, k, v, sq, sk, out, l, snk, tiles, B, Lq, Lk, NH, NKV, scale,      \
+                         causal, window, st);
+  PRT_FWD_CASE(64, false) PRT_FWD_CASE(64, true) PRT_FWD_CASE(128, false) PRT_FWD_CASE(128, true)
+#undef PRT_FWD_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -267,16 +765,42 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, const
                               const void* seg_kv, void* out, void* lse, const void* sinks, int B,
                               int Lq, int Lk, int NH, int NKV, int HD, float scale, int causal,
                               int window, void* stream) {
-  const int* sq = static_cast<const int*>(seg_q);
-  const int* sk = static_cast<const int*>(seg_kv);
-  float* l = static_cast<float*>(lse);
-  const float* snk = static_cast<const float*>(sinks);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define PRT_FWD_CASE(hd, w)                                                                  \
-  if (HD == hd && (window > 0) == w)                                                          \
-    return launch<hd, w>(q, k, v, sq, sk, out, l, snk, B, Lq, Lk, NH, NKV, scale, causal,      \
-                         window, st);
-  PRT_FWD_CASE(64, false) PRT_FWD_CASE(64, true) PRT_FWD_CASE(128, false) PRT_FWD_CASE(128, true)
-#undef PRT_FWD_CASE
-  return (int)cudaErrorInvalidValue;
+  return run(q, k, v, seg_q, seg_kv, out, lse, sinks, nullptr, B, Lq, Lk, NH, NKV, HD, scale,
+             causal, window, stream);
+}
+
+// the same launch, also writing each work item's kv tile counts into `tiles`
+// (int32 [B, NH, ceil(Lq / 128), 2]: visited, candidates)
+extern "C" int flash_attn_fwd_tiles(const void* q, const void* k, const void* v,
+                                    const void* seg_q, const void* seg_kv, void* out, void* lse,
+                                    const void* sinks, int B, int Lq, int Lk, int NH, int NKV,
+                                    int HD, float scale, int causal, int window, void* stream,
+                                    void* tiles) {
+  return run(q, k, v, seg_q, seg_kv, out, lse, sinks, static_cast<int*>(tiles), B, Lq, Lk, NH,
+             NKV, HD, scale, causal, window, stream);
+}
+
+// dynamic shared memory of one block at head dim `hd` over `Lk` keys
+extern "C" int flash_attn_fwd_smem(int hd, int Lk) { return (int)smem_bytes(hd, Lk); }
+
+// the compiled kernel of head dim `hd` and form `window` (0 dense, 1 banded)
+// as the runtime loaded it: attrs = {registers a thread, local memory a
+// thread in bytes (spills; 0 when none), static shared memory in bytes,
+// threads a block}
+extern "C" int flash_attn_fwd_attributes(int hd, int window, int* attrs) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (hd == 64) {
+    err = window ? cudaFuncGetAttributes(&a, flash_fwd_kernel<64, true>)
+                 : cudaFuncGetAttributes(&a, flash_fwd_kernel<64, false>);
+  } else if (hd == 128) {
+    err = window ? cudaFuncGetAttributes(&a, flash_fwd_kernel<128, true>)
+                 : cudaFuncGetAttributes(&a, flash_fwd_kernel<128, false>);
+  }
+  if (err != cudaSuccess) return (int)err;
+  attrs[0] = a.numRegs;
+  attrs[1] = (int)a.localSizeBytes;
+  attrs[2] = (int)a.sharedSizeBytes;
+  attrs[3] = a.maxThreadsPerBlock;
+  return 0;
 }

@@ -21,15 +21,20 @@ and adds nothing to dk/dv. The sinks' gradient, ``-sum exp(sink - lse) *
 delta`` over batch and rows, is a plain PyTorch reduction beside the kernels,
 as it is an XLA reduction beside the TPU kernels. On the card the kernels take
 bf16 tensors with head dim 64 or 128; a length that is no multiple of the
-64-row tile is masked inside the kernels; windows run banded (tiles outside
-the band are never loaded). ``flash_attention_with_lse`` (the cross-block
-form) takes neither window nor sinks, as in the JAX package.
+tile is masked inside the kernels; windows run banded (tiles outside the
+band are never loaded). ``flash_attention_with_lse`` (the cross-block form)
+takes neither window nor sinks, as in the JAX package.
 
 What bounds them on the H100 and what the design does about it: see the
-source notes in ``csrc/flash_attn_fwd.cu`` and ``csrc/flash_attn_bwd.cu``
-(compute-bound at prefill and training lengths; WMMA bf16 tiles, tiles above
-the causal diagonal skipped, dk/dv accumulated over the GQA group inside one
-block so that no atomics are needed).
+source notes in ``csrc/flash_attn_fwd.cu`` and ``csrc/flash_attn_bwd.cu``.
+Both are compute-bound at prefill and training lengths. K1 is a Hopper
+kernel: TMA loads into a two-stage ring behind mbarriers, a producer warp and
+two consumer warpgroups, both products on ``wgmma`` with S, P and O in
+registers, and kv tiles skipped by the causal diagonal, the band and the
+range of the q tile's segments (``flash_tiles_visited`` is the plain mirror
+of that rule). K2a/K2b use WMMA bf16 tiles, skip tiles above the diagonal
+and outside the band, and accumulate dk/dv over the GQA group inside one
+block so that no atomics are needed.
 
 For CPU tensors the wrappers run ``flash_attention_reference`` and
 ``flash_attention_backward_reference``, the plain versions of the same
@@ -45,24 +50,29 @@ import torch
 from prime_rl_tpu_torch.ops import _build
 
 NEG_INF = -1e30
+TILE = 128  # K1's q and kv tile (BQ = BK in csrc/flash_attn_fwd.cu)
 KERNEL = "flash_attn_fwd"
 KERNEL_BWD = "flash_attn_bwd"  # one source, two kernels, counted separately:
 KERNEL_DQ = "flash_attn_bwd_dq"
 KERNEL_DKV = "flash_attn_bwd_dkv"
 
-_fn = None
+_fns = None
 _bwd_fns = None
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = _build.load(KERNEL).flash_attn_fwd
+def _kernel(tiles: bool = False):
+    """K1's C entry point; ``tiles``: the one that also writes each work
+    item's kv tile counts (one more pointer argument)."""
+    global _fns
+    if _fns is None:
+        lib = _build.load(KERNEL)
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 8 + [i] * 6 + [ctypes.c_float, i, i, p]
-        fn.restype = i
-        _fn = fn
-    return _fn
+        fwd, fwd_tiles = lib.flash_attn_fwd, lib.flash_attn_fwd_tiles
+        fwd.argtypes = [p] * 8 + [i] * 6 + [ctypes.c_float, i, i, p]
+        fwd_tiles.argtypes = fwd.argtypes + [p]
+        fwd.restype = fwd_tiles.restype = i
+        _fns = (fwd, fwd_tiles)
+    return _fns[tiles]
 
 
 def _mask(q, k, seg_q, seg_kv, causal: bool, window: int):
@@ -77,6 +87,48 @@ def _mask(q, k, seg_q, seg_kv, causal: bool, window: int):
         if window > 0:
             mask = mask & (rows - cols < window)
     return mask[:, None]
+
+
+def flash_tiles_visited(seg_q, seg_kv, causal: bool, window: int = 0, bq: int = TILE,
+                        bk: int = TILE) -> torch.Tensor:
+    """[B, nq, nk] bool: the kv tiles K1 visits for each q tile, the plain
+    mirror of the kernel's rule. Candidates are the tiles up to the causal
+    diagonal of the q tile's last row (``causal``) and from the band's first
+    tile (``window > 0``); of those, a tile is visited only if it holds a key
+    whose segment is non-zero and lies in [smallest non-zero, largest] of the
+    q tile's segment ids. Rows and keys past the end count as padding."""
+    b, lq = seg_q.shape
+    lk = seg_kv.shape[1]
+    nq, nk = -(-lq // bq), -(-lk // bk)
+    sq = torch.nn.functional.pad(seg_q.long(), (0, nq * bq - lq)).reshape(b, nq, bq)
+    sk = torch.nn.functional.pad(seg_kv.long(), (0, nk * bk - lk)).reshape(b, 1, nk, bk)
+    big = torch.iinfo(torch.int64).max
+    lo = torch.where(sq != 0, sq, big).amin(-1)[..., None, None]
+    hi = torch.where(sq != 0, sq, -big).amax(-1)[..., None, None]
+    visit = ((sk != 0) & (sk >= lo) & (sk <= hi)).any(-1)
+    i = torch.arange(nq, device=seg_q.device)[:, None]
+    j = torch.arange(nk, device=seg_q.device)[None, :]
+    if causal:
+        visit = visit & (j <= (torch.clamp((i + 1) * bq, max=lq) - 1) // bk)
+    if window > 0:
+        visit = visit & (j >= torch.clamp(i * bq - window + 1, min=0) // bk)
+    return visit
+
+
+def flash_tile_counts(q, k, v, seg_q, seg_kv, causal: bool, window: int = 0,
+                      sinks=None) -> torch.Tensor:
+    """int32 [B, NH, nq, 2]: the kv tiles K1 visited and its candidates
+    (the tiles the causal cut and the band leave) for each q tile and head, as
+    the kernel counted them in one launch on these inputs. Only the kernel
+    counts: CPU tensors raise (``flash_tiles_visited`` is the rule's plain
+    mirror)."""
+    if not q.is_cuda:
+        raise ValueError("flash_tile_counts: the counts come from the kernel, which takes CUDA "
+                         "tensors")
+    b, lq, nh, _ = q.shape
+    tiles = torch.full((b, nh, -(-lq // TILE), 2), -1, dtype=torch.int32, device=q.device)
+    _fwd_cuda(q, k, v, seg_q, seg_kv, causal, q.shape[-1] ** -0.5, window, sinks, tiles)
+    return tiles
 
 
 def flash_attention_reference(q, k, v, seg_q, seg_kv, causal: bool, scale: float,
@@ -106,7 +158,7 @@ def flash_attention_reference(q, k, v, seg_q, seg_kv, causal: bool, scale: float
 
 
 def _fwd_cuda(q, k, v, seg_q, seg_kv, causal: bool, scale: float, window: int = 0,
-              sinks=None):
+              sinks=None, tiles=None):
     b, lq, nh, hd = q.shape
     lk, nkv = k.shape[1], k.shape[2]
     if hd not in (64, 128) or nh % nkv:
@@ -119,13 +171,15 @@ def _fwd_cuda(q, k, v, seg_q, seg_kv, causal: bool, scale: float, window: int = 
     _build.require(seg_kv, "seg_kv", torch.int32, (b, lk))
     if sinks is not None:
         _build.require(sinks, "sinks", torch.float32, (nh,))
+    if tiles is not None:
+        _build.require(tiles, "tiles", torch.int32, (b, nh, -(-lq // TILE), 2))
     out = torch.empty_like(q)
     lse = torch.empty((b, nh, lq), dtype=torch.float32, device=q.device)
-    fn = _kernel()
-    _build.check(KERNEL, fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_q.data_ptr(),
-                            seg_kv.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                            None if sinks is None else sinks.data_ptr(), b, lq, lk, nh, nkv, hd,
-                            float(scale), int(causal), int(window), _build.stream_ptr(q)))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_q.data_ptr(), seg_kv.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), None if sinks is None else sinks.data_ptr(), b, lq,
+            lk, nh, nkv, hd, float(scale), int(causal), int(window), _build.stream_ptr(q))
+    fn = _kernel(tiles is not None)
+    _build.check(KERNEL, fn(*args) if tiles is None else fn(*args, tiles.data_ptr()))
     _build.count(KERNEL, window, sinks is not None)
     return out, lse
 

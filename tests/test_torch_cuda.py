@@ -6,7 +6,8 @@ repo conftest sets up JAX, which these tests do not use).
 
 Tolerance: 1e-2 absolute + 1e-2 relative against the plain version in
 float32 (bf16 keeps 8 significant bits; each kernel rounds its output once,
-K1 also its probabilities); the KV append must be exact. K2a/K2b are held
+K1 also its probabilities), 1e-3 + 1e-4 relative on K1's lse (f32 sums in
+another order); the KV append must be exact. K2a/K2b are held
 against the plain backward on the same bf16 inputs (which rounds p and ds to
 bf16 where the kernels do): 2e-2 absolute + 2e-2 relative, because a bf16
 rounding of ds that flips by one step in the kernel moves a sum of up to 192
@@ -17,9 +18,15 @@ tolerances as their dense forms; the sinks' gradient (plain PyTorch beside the
 kernels) against the plain backward's at 2e-2 relative to its norm.
 """
 
+import sys
+from pathlib import Path
+
 import pytest
 import torch
 
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+import chip_smoke  # noqa: E402  (its K1 edge cases and packings)
 from prime_rl_tpu_torch.ops import _build
 from prime_rl_tpu_torch.ops.decode_attention import (
     decode_paged_attention,
@@ -34,6 +41,8 @@ from prime_rl_tpu_torch.ops.flash_attention import (
     flash_attention_backward_reference,
     flash_attention_reference,
     flash_attention_with_lse,
+    flash_tile_counts,
+    flash_tiles_visited,
     sinks_grad,
 )
 
@@ -72,6 +81,40 @@ def test_flash_attn_fwd_matches_plain(gen, hd):
                                                  True, hd ** -0.5)
     _assert_close(out, ref_out)
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("case", chip_smoke.K1_EDGE_CASES, ids=lambda c: c[0])
+def test_flash_attn_fwd_cases_match_plain(gen, case):
+    """K1 over ``chip_smoke.K1_EDGE_CASES``: lengths that are no multiple of
+    the 128-row tile, the cross-block form, a fully padded row, many short
+    segments (tiles skipped), a segment that ends mid-tile, GQA groups 1, 2
+    and 8, both head dims, window 128 with and without sinks: out and lse
+    against the plain version, padding rows out 0 and lse -1e30 (or the
+    sink), one launch a call, two launches on the same inputs give equal bits,
+    and the kv tiles the kernel counts are the skip rule's."""
+    _, b, lq, lk, nh, nkv, hd, q_lens, kv_lens, causal, window, with_sinks = case
+    q, k, v = _bf16(gen, b, lq, nh, hd), _bf16(gen, b, lk, nkv, hd), _bf16(gen, b, lk, nkv, hd)
+    seg_q = chip_smoke.packed_segments(b, lq, q_lens, "cuda")[0]
+    seg_kv = seg_q if kv_lens is None else chip_smoke.packed_segments(b, lk, kv_lens, "cuda")[0]
+    sinks = torch.randn(nh, device="cuda", generator=gen) if with_sinks else None
+    before = _build.launches["flash_attn_fwd"]
+    out, lse = _fwd(q, k, v, seg_q, seg_kv, causal, None, window=window, sinks=sinks)
+    out2, lse2 = _fwd(q, k, v, seg_q, seg_kv, causal, None, window=window, sinks=sinks)
+    torch.cuda.synchronize()
+    assert _build.launches["flash_attn_fwd"] == before + 2
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    ref_out, ref_lse = flash_attention_reference(q.float(), k.float(), v.float(), seg_q, seg_kv,
+                                                 causal, hd ** -0.5, window, sinks)
+    _assert_close(out, ref_out)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
+    pad = (seg_q == 0)[:, None, :].expand_as(lse)
+    want = sinks[None, :, None].expand_as(lse)[pad] if with_sinks else torch.full_like(
+        lse[pad], -1e30)
+    assert torch.equal(lse[pad], want)
+    assert bool((out[seg_q == 0] == 0).all())
+    counts = flash_tile_counts(q, k, v, seg_q, seg_kv, causal, window, sinks)
+    visited = flash_tiles_visited(seg_q, seg_kv, causal, window).sum(-1, dtype=torch.int32)
+    assert torch.equal(counts[..., 0], visited[:, None].expand_as(counts[..., 0]))
 
 
 def _packed_seg(b, l):
