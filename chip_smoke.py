@@ -8,31 +8,33 @@ Phases (any failure raises and exits non-zero before the last line):
   1. device   — requires CUDA; prints nvidia-smi's name and power limit.
   2. build    — compiles the hand-written kernels from ``prime_rl_tpu_torch/csrc``
                 and prints the registers, local memory and shared memory of each of
-                K1's four instantiations as the runtime loaded them (it fails on
-                local memory: a spill).
+                the four instantiations of K1, K2a and K2b as the runtime loaded
+                them (it fails on local memory: a spill).
   3. kernels  — K1 flash_attn_fwd, K3 decode_qkv_prep and K4 decode_paged_attention
                 at the Qwen3-0.6B shapes of the serving path (K1 also at the
-                trainer's rows of four sequences, and over K1_EDGE_CASES: ragged
-                lengths, padding, short segments, GQA 1/2/8, both head dims, the
-                cross-block form, windows with and without sinks, each launched
-                twice for equal bits), K2a flash_attn_bwd_dq
-                and K2b flash_attn_bwd_dkv at the trainer's shape and one long
-                shape, K5a sparse_mla_fwd, K5b sparse_mla_bwd and the dkv
-                reduction at the GLM-5 attention widths (64 heads, 576 = 512 + 64
-                channels, top-k 2048) over a packed row of 4096 tokens and over a
-                short row full of sentinels, and the window and sink forms of K1,
-                K2a, K2b and K4 (plus K3) at gpt-oss-20b's shapes (64/8 heads of
-                64; K1/K2 over 4096 tokens at window 128 and 0 with sinks, the
-                sinks' gradient too; K4 over 64 slots at window 128 and 0 with
-                sinks; K1 also over four packed sequences of 1024), each held
-                against its plain PyTorch version (computed in float32 on the
-                same bf16 inputs) and timed beside the plain version, a one-call
-                PyTorch yardstick where one exists, and the bound of the H100
-                (SXM data sheet: 3.35 TB/s, 989 TFLOP/s dense bf16); K1's rows
-                also give the kv tile pairs visited, as the kernel counted them
-                (every K1 case holds those counts against the skip rule). Windowed K1 must take at
-                most a quarter of full K1's time, and K1 over the four packed
-                sequences at most half of the one-sequence time.
+                trainer's rows of four sequences), K2a flash_attn_bwd_dq and K2b
+                flash_attn_bwd_dkv at the trainer's shape and one long shape,
+                K1, K2a and K2b over K1_EDGE_CASES (ragged and odd lengths,
+                padding, short segments, GQA 1/2/4/8, both head dims, the
+                cross-block form with an lse cotangent, windows with and without
+                sinks, each launched twice for equal bits), K5a sparse_mla_fwd,
+                K5b sparse_mla_bwd and the dkv reduction at the GLM-5 attention
+                widths (64 heads, 576 = 512 + 64 channels, top-k 2048) over a
+                packed row of 4096 tokens and over a short row full of
+                sentinels, and the window and sink forms of K1, K2a, K2b and K4
+                (plus K3) at gpt-oss-20b's shapes (64/8 heads of 64; K1/K2 over
+                4096 tokens at window 128 and 0 with sinks, the sinks' gradient
+                too, and over four packed sequences of 1024; K4 over 64 slots at
+                window 128 and 0 with sinks), each held against its plain
+                PyTorch version (computed in float32 on the same bf16 inputs)
+                and timed beside the plain version, a one-call PyTorch yardstick
+                where one exists, and the bound of the H100 (SXM data sheet:
+                3.35 TB/s, 989 TFLOP/s dense bf16). The rows of K1, K2a and K2b
+                also give the tile pairs visited, as the kernels counted them
+                (every case holds those counts against the skip rules' plain
+                mirrors). Windowed K1 must take at most a quarter of full K1's
+                time, and K1, and K2a + K2b, over the four packed sequences at
+                most half of the one-sequence time.
   4. train-reference — loss and every gradient of one micro-batch [2, 512] of
                 the full-width model cut to 2 layers (full vocabulary), through
                 the kernels in bf16 on the card, against the plain float32 path
@@ -259,11 +261,13 @@ def k1_timing(name: str, q, k, v, seg, window: int = 0, sinks=None) -> dict:
                 pairs_per_head=pairs, tile_pairs_visited=tiles)
 
 
-# K1's edge cases (name, B, Lq, Lk, NH, NKV, HD, segment lengths of q rows,
-# of kv rows (None: the q rows'), causal, window, sinks): lengths that are no
-# multiple of the 128-row tile, a fully padded row, many short segments
-# (tiles skipped), segments that end mid-tile, GQA groups 1, 2 and 8, both
-# head dims, the cross-block form, window 128 with and without sinks
+# The edge cases of K1, K2a and K2b (name, B, Lq, Lk, NH, NKV, HD, segment
+# lengths of q rows, of kv rows (None: the q rows'), causal, window, sinks):
+# lengths that are no multiple of the tiles (odd ones too: the flat id, lse and
+# delta maps then start off 16-byte bounds), a fully padded row, many short
+# segments (tiles skipped), segments that end mid-tile, GQA groups 1, 2, 4 and
+# 8, both head dims, the cross-block form (Lq < Lk and Lq > Lk, rows that see
+# no key), windows of 128 and 100 (at both head dims) with and without sinks
 K1_EDGE_CASES = (
     ("L=64 hd 128 group 2", 2, 64, 64, 4, 2, 128, [[40, 24], [64]], None, True, 0, False),
     ("L=192 hd 64 group 1, padded tail", 2, 192, 192, 2, 2, 64, [[70, 80], [100]], None, True,
@@ -282,6 +286,12 @@ K1_EDGE_CASES = (
      True, 128, True),
     ("L=1000 hd 128 group 2, sinks, padding", 2, 1000, 1000, 4, 2, 128, [[1000], [10, 600]], None,
      True, 0, True),
+    ("L=77 hd 64 group 4, odd length", 3, 77, 77, 8, 2, 64, [[30, 47], [77], [5]], None, True, 0,
+     False),
+    ("cross-block Lq 300 Lk 77, not causal, rows that see no key", 2, 300, 77, 8, 1, 64,
+     [[150, 150], [299]], [[77], [40, 30]], False, 0, False),
+    ("L=333 hd 128 group 2, window 100", 1, 333, 333, 4, 2, 128, [[200, 133]], None, True, 100,
+     False),
 )
 
 
@@ -323,6 +333,180 @@ def k1_edge_cases(gen) -> tuple[int, float]:
     return len(K1_EDGE_CASES), worst
 
 
+# K2a/K2b against their plain backward on the same bf16 inputs (it rounds p
+# and ds to bf16 where the kernels do, and sums in float32): one bf16 step of
+# the result (2^-8 relative) plus the few ds roundings that flip between the
+# kernel's exp and PyTorch's -> 2e-2 absolute + 2e-2 relative
+K2_TOL = 2e-2
+
+
+def k2_tiles(q, k, v, seg_q, seg_kv, lse, delta, do, causal: bool, window: int = 0):
+    """("visited of candidates" of K2a, of K2b): the tile pairs of one head
+    (K2a: kv tiles of 64 for each q tile of 128; K2b: q tiles of 64 for each
+    kv tile of 64, for one q head of its group) as the kernels counted them in
+    one launch each. Raises unless every item matches the rules' plain
+    mirrors (``flash_tiles_visited``, ``flash_bwd_dkv_tiles_visited``)."""
+    import torch
+
+    from prime_rl_tpu_torch.ops.flash_attention import (
+        DQ_TILES,
+        flash_bwd_dkv_tiles_visited,
+        flash_bwd_tile_counts,
+        flash_tiles_visited,
+    )
+
+    counts = flash_bwd_tile_counts(q, k, v, seg_q, seg_kv, lse, delta, do, causal, window)
+    ones_q, ones_kv = torch.ones_like(seg_q), torch.ones_like(seg_kv)
+    rules = (lambda sq, sk: flash_tiles_visited(sq, sk, causal, window, *DQ_TILES),
+             lambda sq, sk: flash_bwd_dkv_tiles_visited(sq, sk, causal, window))
+    out = []
+    for name, got, rule in zip(("flash_attn_bwd_dq", "flash_attn_bwd_dkv"), counts, rules):
+        for col, (sq, sk) in enumerate(((seg_q, seg_kv), (ones_q, ones_kv))):
+            want = rule(sq, sk).sum(-1, dtype=torch.int32)  # [B, n items a head]
+            if not torch.equal(got[..., col], want[:, None].expand_as(got[..., col])):
+                what = ("visited", "candidate")[col]
+                raise AssertionError(f"{name}: the kernel's {what} tiles differ from the skip "
+                                     "rule's plain mirror")
+        head = got[:, 0].sum(dim=(0, 1))
+        out.append(f"{int(head[0])} of {int(head[1])}")
+    return tuple(out)
+
+
+def k2_timing(name: str, q, k, v, do, seg, window: int = 0, sinks=None) -> dict:
+    """K2a and K2b over one causal packing (lse from K1): each one's median
+    time beside its plain version's, their bounds for the (query, key) pairs
+    the mask leaves (each input read once, each output written once; 3 and 4
+    products of 2 HD flops a pair and head), the tile pairs they visited
+    (``k2_tiles``) and, with neither window nor sinks, autograd through one
+    SDPA call with the same mask, whose backward gives dq, dk and dv together.
+    Logs one line a kernel; returns {"dq": row, "dkv": row}."""
+    import torch
+    import torch.nn.functional as F
+
+    from prime_rl_tpu_torch.ops.flash_attention import (
+        _delta,
+        _fwd,
+        _mask,
+        flash_attention_dkv,
+        flash_attention_dkv_reference,
+        flash_attention_dq,
+        flash_attention_dq_reference,
+    )
+
+    b, l, nh, hd = q.shape
+    out, lse = _fwd(q, k, v, seg, seg, True, None, window=window, sinks=sinks)
+    delta = _delta(out, do, None)
+    args = (q, k, v, seg, seg, lse, delta, do, True, hd ** -0.5, window)
+    mask = _mask(q, k, seg, seg, True, window)  # [B, 1, L, L]
+    pairs = int(mask.sum())
+    ms_dq = time_ms(lambda: flash_attention_dq(*args))
+    ms_dkv = time_ms(lambda: flash_attention_dkv(*args))
+    plain_dq = time_ms(lambda: flash_attention_dq_reference(*args), iters=3, warmup=1)
+    plain_dkv = time_ms(lambda: flash_attention_dkv_reference(*args), iters=3, warmup=1)
+    lib = None
+    if not window and sinks is None:
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+        o_lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        do_t = do.transpose(1, 2).contiguous()
+        lib = time_ms(lambda: torch.autograd.grad(o_lib, (qt, kt, vt), do_t, retain_graph=True),
+                      iters=10)
+        del qt, kt, vt, o_lib, do_t
+    del mask
+    tiles = k2_tiles(*args[:9], window)
+    small = (2 * lse.numel() + seg.numel()) * 4
+    qb, kb = q.numel() * 2, k.numel() * 2
+    rows = {}
+    for key, label, ms, plain, nbytes, nprod, visited in (
+            ("dq", "K2a flash_attn_bwd_dq", ms_dq, plain_dq, 3 * qb + 2 * kb + small, 3, tiles[0]),
+            ("dkv", "K2b flash_attn_bwd_dkv", ms_dkv, plain_dkv, 2 * qb + 4 * kb + small, 4,
+             tiles[1])):
+        bms, by = bound(nbytes, pairs * nh * nprod * 2 * hd)
+        rows[key] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
+                         pairs_per_head=pairs, tile_pairs_visited=visited)
+        log(f"{label} {name}: kernel {ms:.4f} ms  plain {plain:.4f} ms  library "
+            f"{'none' if lib is None else f'sdpa backward (dq+dk+dv) {lib:.4f} ms'}  bound "
+            f"{bms:.4f} ms ({by}), {pairs} pairs a head, tile pairs visited {visited} (kernel's "
+            "count)")
+    return rows
+
+
+def k2_check(name: str, q, k, v, do, seg, out, lse, window: int = 0) -> tuple[float, float]:
+    """K2a and K2b over one causal packing, from K1's (out, lse), against
+    their plain versions on the same bf16 inputs; padding rows must give dq =
+    0. Returns the max errors of dq and of dk/dv."""
+    import torch
+
+    from prime_rl_tpu_torch.ops.flash_attention import (
+        _delta,
+        flash_attention_dkv,
+        flash_attention_dkv_reference,
+        flash_attention_dq,
+        flash_attention_dq_reference,
+    )
+
+    args = (q, k, v, seg, seg, lse, _delta(out, do, None), do, True, q.shape[-1] ** -0.5, window)
+    dq, (dk, dv) = flash_attention_dq(*args), flash_attention_dkv(*args)
+    torch.cuda.synchronize()
+    err_dq = check_close(f"flash_attn_bwd_dq {name}", dq, flash_attention_dq_reference(*args),
+                         K2_TOL, K2_TOL)
+    if not bool((dq[seg == 0] == 0).all()):
+        raise AssertionError(f"flash_attn_bwd_dq {name}: padding rows must give dq = 0")
+    del dq
+    ref_dk, ref_dv = flash_attention_dkv_reference(*args)
+    err_dkv = max(check_close(f"flash_attn_bwd_dkv {n} {name}", g, r, K2_TOL, K2_TOL)
+                  for n, g, r in (("dk", dk, ref_dk), ("dv", dv, ref_dv)))
+    return err_dq, err_dkv
+
+
+def k2_edge_cases(gen) -> tuple[int, float]:
+    """K2a and K2b on every case of K1_EDGE_CASES (lse from K1; the
+    cross-block case, not causal, with an lse cotangent folded into delta)
+    against their plain versions, padding rows dq = 0, each launched twice
+    for equal bits, and their tile counts against the skip rules. Returns
+    (cases, max error)."""
+    import torch
+
+    from prime_rl_tpu_torch.ops.flash_attention import (
+        _delta,
+        _fwd,
+        flash_attention_dkv,
+        flash_attention_dkv_reference,
+        flash_attention_dq,
+        flash_attention_dq_reference,
+    )
+
+    dev = torch.device("cuda")
+    worst = 0.0
+    for name, b, lq, lk, nh, nkv, hd, q_lens, kv_lens, causal, window, with_sinks in K1_EDGE_CASES:
+        def randn(*shape):
+            return torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
+
+        q, k, v, do = randn(b, lq, nh, hd), randn(b, lk, nkv, hd), randn(b, lk, nkv, hd), randn(
+            b, lq, nh, hd)
+        seg_q, _ = packed_segments(b, lq, q_lens, dev)
+        seg_kv = seg_q if kv_lens is None else packed_segments(b, lk, kv_lens, dev)[0]
+        sinks = torch.randn(nh, device=dev, generator=gen) if with_sinks else None
+        dlse = None if causal else torch.randn(b, nh, lq, device=dev, generator=gen)
+        out, lse = _fwd(q, k, v, seg_q, seg_kv, causal, None, window=window, sinks=sinks)
+        delta = _delta(out, do, dlse)
+        args = (q, k, v, seg_q, seg_kv, lse, delta, do, causal, hd ** -0.5, window)
+        runs = [(flash_attention_dq(*args), *flash_attention_dkv(*args)) for _ in range(2)]
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, c) for a, c in zip(*runs)):
+            raise AssertionError(f"flash_attn_bwd {name}: two launches differ")
+        dq, dk, dv = runs[0]
+        refs = (flash_attention_dq_reference(*args), *flash_attention_dkv_reference(*args))
+        for what, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+            worst = max(worst, check_close(f"flash_attn_bwd {what} {name}", got, ref, K2_TOL,
+                                           K2_TOL))
+        if not bool((dq[seg_q == 0] == 0).all()):
+            raise AssertionError(f"flash_attn_bwd_dq {name}: padding rows must give dq = 0")
+        tiles = k2_tiles(*args[:9], window)
+        log(f"K2 edge case {name}: within tolerance, tile pairs visited {tiles[0]} (K2a), "
+            f"{tiles[1]} (K2b)")
+    return len(K1_EDGE_CASES), worst
+
+
 def kernel_phase(spec) -> list[dict]:
     import torch
     import torch.nn.functional as F
@@ -333,11 +517,6 @@ def kernel_phase(spec) -> list[dict]:
     )
     from prime_rl_tpu_torch.ops.decode_qkv import decode_qkv_prep, decode_qkv_prep_reference
     from prime_rl_tpu_torch.ops.flash_attention import (
-        _delta,
-        flash_attention_dkv,
-        flash_attention_dkv_reference,
-        flash_attention_dq,
-        flash_attention_dq_reference,
         flash_attention_reference,
         flash_attention_with_lse,
     )
@@ -385,67 +564,24 @@ def kernel_phase(spec) -> list[dict]:
                      cases=cases, edge_cases=n_edge))
 
     # ---- K2a / K2b: flash attention backward ---------------------------------
-    # against the plain backward on the same bf16 inputs (it rounds p and ds to
-    # bf16 where the kernels do, and sums in float32): one bf16 step of the
-    # result (2^-8 relative) plus the few ds roundings that flip between the
-    # kernel's exp and PyTorch's -> 2e-2 absolute + 2e-2 relative
-    k2_atol = k2_rtol = 2e-2
     dq_cases, dkv_cases = [], []
     for b, l, seg_lens in ((8, 512, [[120, 130, 100, 110]] * 8), (1, 4096, [[4096]])):
         q, k, v = randn(b, l, nh, hd), randn(b, l, nkv, hd), randn(b, l, nkv, hd)
         do = randn(b, l, nh, hd)
-        seg, pairs = packed_segments(b, l, seg_lens, dev)
-        scale = hd ** -0.5
+        seg, _ = packed_segments(b, l, seg_lens, dev)
         out, lse = flash_attention_with_lse(q, k, v, seg, seg, causal=True)
-        delta = _delta(out, do, None)
-        args = (q, k, v, seg, seg, lse, delta, do, True, scale)
-        dq = flash_attention_dq(*args)
-        dk, dv = flash_attention_dkv(*args)
-        torch.cuda.synchronize()
-        ref_dq = flash_attention_dq_reference(*args)
-        ref_dk, ref_dv = flash_attention_dkv_reference(*args)
-        err_dq = check_close(f"flash_attn_bwd_dq B={b} L={l}", dq, ref_dq, k2_atol, k2_rtol)
-        err_dkv = max(check_close(f"flash_attn_bwd_dkv {n} B={b} L={l}", g, r, k2_atol, k2_rtol)
-                      for n, g, r in (("dk", dk, ref_dk), ("dv", dv, ref_dv)))
-        if not bool((dq[seg == 0] == 0).all()):
-            raise AssertionError("flash_attn_bwd_dq: padding rows must give dq = 0")
-        del ref_dq, ref_dk, ref_dv
-        ms_dq = time_ms(lambda: flash_attention_dq(*args))
-        ms_dkv = time_ms(lambda: flash_attention_dkv(*args))
-        plain_dq = time_ms(lambda: flash_attention_dq_reference(*args), iters=5)
-        plain_dkv = time_ms(lambda: flash_attention_dkv_reference(*args), iters=5)
-        # yardstick: autograd through one SDPA call with the same mask; its
-        # backward gives dq, dk and dv together, so both rows show the same time
-        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
-        pos = torch.arange(l, device=dev)
-        mask = ((seg[:, :, None] == seg[:, None, :]) & (seg[:, :, None] != 0)
-                & (pos[:, None] >= pos[None, :]))[:, None]
-        o_lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
-        do_t = do.transpose(1, 2).contiguous()
-        lib = time_ms(lambda: torch.autograd.grad(o_lib, (qt, kt, vt), do_t, retain_graph=True),
-                      iters=10)
-        # each input read once, each output written once; 3 (K2a) and 4 (K2b)
-        # products of 2*HD flops per (query, key) pair that the segments and the
-        # causal mask leave; the kernels visit every tile of the causal half
-        # (B * L * (L + 1) / 2 pairs), which the second bound counts
-        small = (2 * lse.numel() + seg.numel()) * 4
-        qb, kb = q.numel() * 2, k.numel() * 2
-        half = b * l * (l + 1) // 2
-        for cases, name, ms, plain, err, nbytes, nprod in (
-                (dq_cases, "K2a flash_attn_bwd_dq", ms_dq, plain_dq, err_dq,
-                 3 * qb + 2 * kb + small, 3),
-                (dkv_cases, "K2b flash_attn_bwd_dkv", ms_dkv, plain_dkv, err_dkv,
-                 2 * qb + 4 * kb + small, 4)):
-            bms, by = bound(nbytes, pairs * nh * nprod * 2 * hd)
-            half_ms, _ = bound(nbytes, half * nh * nprod * 2 * hd)
-            cases.append(dict(shape=f"B={b} L={l}", max_abs_err=err, ms=ms, plain_ms=plain,
-                              library_ms=lib, bound_ms=bms, bound_by=by,
-                              bound_causal_half_ms=half_ms))
-            log(f"{name} B={b} L={l}: err {err:.3g}  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
-                f"sdpa backward (dq+dk+dv) {lib:.4f} ms  bound {bms:.4f} ms ({by}), "
-                f"{half_ms:.4f} ms over the whole causal half  (tolerance {k2_atol} + "
-                f"{k2_rtol} * |ref|)")
-        del q, k, v, do, qt, kt, vt, mask, o_lib, do_t, out, lse, delta, dq, dk, dv, args
+        err_dq, err_dkv = k2_check(f"B={b} L={l}", q, k, v, do, seg, out, lse)
+        del out, lse
+        shape = f"B={b} L={l} segments {seg_lens[0]}"
+        timing = k2_timing(shape, q, k, v, do, seg)
+        dq_cases.append(dict(shape=shape, max_abs_err=err_dq, **timing["dq"]))
+        dkv_cases.append(dict(shape=shape, max_abs_err=err_dkv, **timing["dkv"]))
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    n_edge, edge_err = k2_edge_cases(gen)
+    log(f"K2a/K2b edge cases: {n_edge} cases within tolerance ({K2_TOL} + {K2_TOL} * |ref|), max "
+        f"err {edge_err:.3g}, padding rows dq = 0, two launches on each gave equal bits, tiles "
+        "visited as the skip rules give")
     for name, cases, line in (("flash_attn_bwd_dq", dq_cases, 227),
                               ("flash_attn_bwd_dkv", dkv_cases, 282)):
         rows.append(dict(name=name, route="cuda",
@@ -453,7 +589,8 @@ def kernel_phase(spec) -> list[dict]:
                          replaces=f"prime_rl_tpu/ops/flash_attention.py:{line}",
                          **{k: cases[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                      "library_ms")},
-                         max_abs_err=max(c["max_abs_err"] for c in cases), cases=cases))
+                         max_abs_err=max([edge_err] + [c["max_abs_err"] for c in cases]),
+                         cases=cases, edge_cases=n_edge))
 
     # ---- K3: decode qkv prep ----------------------------------------------
     s = 64
@@ -698,10 +835,6 @@ def gpt_oss_kernel_phase() -> list[dict]:
     from prime_rl_tpu_torch.ops.flash_attention import (
         _delta,
         _fwd,
-        flash_attention_dkv,
-        flash_attention_dkv_reference,
-        flash_attention_dq,
-        flash_attention_dq_reference,
         flash_attention_reference,
         sinks_grad,
     )
@@ -722,12 +855,10 @@ def gpt_oss_kernel_phase() -> list[dict]:
     q, k, v, do = randn(1, l, nh, hd), randn(1, l, nkv, hd), randn(1, l, nkv, hd), randn(
         1, l, nh, hd)
     seg = torch.ones(1, l, dtype=torch.int32, device=dev)
-    k2_tol = 2e-2  # as for the dense forms of K2a/K2b
     fwd_cases, dq_cases, dkv_cases = [], [], []
     for window in (spec.sliding_window, 0):
         form = f"window {window} + sinks" if window else "full causal + sinks"
         shape = f"B=1 L={l} {nh}/{nkv} heads hd {hd}, {form}"
-        pairs = window_pairs(l, window)
         leaves = [t.clone().requires_grad_() for t in (q, k, v, sinks)]
         out, lse = _fwd(*leaves[:3], seg, seg, True, None, window=window, sinks=leaves[3])
         dsinks = torch.autograd.grad(out, leaves[3], do)[0]
@@ -739,41 +870,19 @@ def gpt_oss_kernel_phase() -> list[dict]:
         check_close(f"flash_attn_fwd lse {shape}", lse, ref_lse, 1e-3, 1e-4)
         want_ds = sinks_grad(sinks, ref_lse, _delta(ref_out, do, None))
         ds_err = float((dsinks - want_ds).norm() / want_ds.norm())
-        if not ds_err <= k2_tol:
-            raise AssertionError(f"dsinks {shape}: relative error {ds_err:.4g} exceeds {k2_tol}")
+        if not ds_err <= K2_TOL:
+            raise AssertionError(f"dsinks {shape}: relative error {ds_err:.4g} exceeds {K2_TOL}")
         del ref_out, ref_lse
-        delta = _delta(out, do, None)
-        args = (q, k, v, seg, seg, lse, delta, do, True, scale, window)
-        dq, (dk, dv) = flash_attention_dq(*args), flash_attention_dkv(*args)
-        torch.cuda.synchronize()
-        err_dq = check_close(f"flash_attn_bwd_dq {shape}", dq, flash_attention_dq_reference(*args),
-                             k2_tol, k2_tol)
-        ref_dk, ref_dv = flash_attention_dkv_reference(*args)
-        err_dkv = max(check_close(f"flash_attn_bwd_dkv {n} {shape}", g, r, k2_tol, k2_tol)
-                      for n, g, r in (("dk", dk, ref_dk), ("dv", dv, ref_dv)))
-        del ref_dk, ref_dv, dq, dk, dv
+        err_dq, err_dkv = k2_check(shape, q, k, v, do, seg, out, lse, window)
+        del leaves, out, lse, dsinks
         torch.cuda.empty_cache()
         fwd_cases.append(dict(shape=shape, max_abs_err=err, **k1_timing(
             f"K1 flash_attn_fwd {shape} (err {err:.3g})", q, k, v, seg, window, sinks)))
-        ms_dq = time_ms(lambda: flash_attention_dq(*args))
-        ms_dkv = time_ms(lambda: flash_attention_dkv(*args))
-        plain_dq = time_ms(lambda: flash_attention_dq_reference(*args), iters=3, warmup=1)
-        plain_dkv = time_ms(lambda: flash_attention_dkv_reference(*args), iters=3, warmup=1)
-        small = (2 * lse.numel() + seg.numel() + nh) * 4
-        qb, kb = q.numel() * 2, k.numel() * 2
-        for cases, name, t, t_plain, e, nbytes, nprod in (
-                (dq_cases, "K2a flash_attn_bwd_dq", ms_dq, plain_dq, err_dq,
-                 3 * qb + 2 * kb + small, 3),
-                (dkv_cases, "K2b flash_attn_bwd_dkv", ms_dkv, plain_dkv, err_dkv,
-                 2 * qb + 4 * kb + small, 4)):
-            bms, by = bound(nbytes, pairs * nh * nprod * 2 * hd)
-            cases.append(dict(shape=shape, pairs_per_head=pairs, max_abs_err=e, ms=t,
-                              plain_ms=t_plain, library_ms=None, bound_ms=bms, bound_by=by))
-            log(f"{name} {shape}: err {e:.3g}  kernel {t:.4f} ms  plain {t_plain:.4f} ms  library "
-                f"none (sinks)  bound {bms:.4f} ms ({by}), {pairs} pairs a head")
-        dq_cases[-1]["dsinks_rel_err"] = ds_err
-        log(f"dsinks {shape}: relative error {ds_err:.3g} of its norm (tolerance {k2_tol})")
-        del leaves, out, lse, delta, args, dsinks
+        timing = k2_timing(shape, q, k, v, do, seg, window, sinks)
+        dq_cases.append(dict(shape=shape, max_abs_err=err_dq, dsinks_rel_err=ds_err,
+                             **timing["dq"]))
+        dkv_cases.append(dict(shape=shape, max_abs_err=err_dkv, **timing["dkv"]))
+        log(f"dsinks {shape}: relative error {ds_err:.3g} of its norm (tolerance {K2_TOL})")
         torch.cuda.empty_cache()
     windowed, full = fwd_cases[0]["ms"], fwd_cases[1]["ms"]
     if not windowed <= 0.25 * full:
@@ -792,6 +901,8 @@ def gpt_oss_kernel_phase() -> list[dict]:
     err = check_close(f"flash_attn_fwd {shape}", out, ref_out, ATOL, RTOL)
     check_close(f"flash_attn_fwd lse {shape}", lse, ref_lse, 1e-3, 1e-4)
     del ref_out, ref_lse
+    err_dq, err_dkv = k2_check(shape, q, k, v, do, packed, out, lse, 0)
+    del out, lse
     torch.cuda.empty_cache()
     fwd_cases.append(dict(shape=shape, max_abs_err=err, **k1_timing(
         f"K1 flash_attn_fwd {shape} (err {err:.3g})", q, k, v, packed, 0, sinks)))
@@ -800,7 +911,17 @@ def gpt_oss_kernel_phase() -> list[dict]:
         raise AssertionError(f"K1 over four packed segments takes {ms:.4f} ms, more than half of "
                              f"the one-segment time {full:.4f} ms: tiles are not skipped")
     log(f"K1 over four packed segments takes {ms / full:.3f} of the one-segment time")
-    del out, lse
+    timing = k2_timing(shape, q, k, v, do, packed, 0, sinks)
+    dq_cases.append(dict(shape=shape, max_abs_err=err_dq, **timing["dq"]))
+    dkv_cases.append(dict(shape=shape, max_abs_err=err_dkv, **timing["dkv"]))
+    k2_full = dq_cases[1]["ms"] + dkv_cases[1]["ms"]
+    k2_packed = dq_cases[2]["ms"] + dkv_cases[2]["ms"]
+    if not k2_packed <= 0.5 * k2_full:
+        raise AssertionError(f"K2a + K2b over four packed segments take {k2_packed:.4f} ms, more "
+                             f"than half of the one-segment time {k2_full:.4f} ms: tiles are not "
+                             "skipped")
+    log(f"K2a + K2b over four packed segments take {k2_packed / k2_full:.3f} of the one-segment "
+        "time")
     del q, k, v, do
     torch.cuda.empty_cache()
 
@@ -1896,28 +2017,42 @@ def serve(model: str, want_layers: int, want_vocab: int, reference=None):
     return out
 
 
-def k1_build_report() -> None:
-    """Registers, local memory and shared memory of each K1 instantiation as
-    the runtime loaded it (``cudaFuncGetAttributes``): registers a thread,
-    local memory a thread (where ptxas puts spilled registers; K1 has no
-    local arrays, so any is a spill), static and dynamic shared memory a
-    block. Raises on local memory."""
+def flash_build_report() -> None:
+    """Registers, local memory and shared memory of each instantiation of K1,
+    K2a and K2b (head dim 128 and 64, dense and banded) as the runtime loaded
+    it (``cudaFuncGetAttributes``): registers a thread, local memory a thread
+    (where ptxas puts spilled registers; the kernels have no local arrays, so
+    any is a spill), static and dynamic shared memory a block. Logs every
+    instantiation, then raises if any uses local memory."""
     import ctypes
 
     from prime_rl_tpu_torch.ops import _build
 
-    lib = _build.load("flash_attn_fwd")
-    for hd in (128, 64):
-        for window, form in ((0, "dense"), (1, "window")):
-            attrs = (ctypes.c_int * 4)()
-            _build.check("flash_attn_fwd", lib.flash_attn_fwd_attributes(hd, window, attrs))
-            regs, local, static, threads = attrs
-            log(f"K1 build: head dim {hd}, {form}: {regs} registers a thread ({threads} threads a "
-                f"block), local memory (spills) {local} bytes a thread, shared memory {static} "
-                f"bytes static + {lib.flash_attn_fwd_smem(hd, 4096)} dynamic a block at Lk 4096")
-            if local:
-                raise AssertionError(f"K1 head dim {hd} {form} uses local memory: registers "
-                                     "spill")
+    fwd, bwd = _build.load("flash_attn_fwd"), _build.load("flash_attn_bwd")
+    kernels = (
+        ("K1", "flash_attn_fwd", fwd.flash_attn_fwd_attributes,
+         lambda hd: fwd.flash_attn_fwd_smem(hd, 4096), lambda hd, w: 1, "Lk"),
+        ("K2a", "flash_attn_bwd_dq", lambda *a: bwd.flash_attn_bwd_attributes(0, *a),
+         lambda hd: bwd.flash_attn_bwd_smem(0, hd, 4096),
+         lambda hd, w: bwd.flash_attn_bwd_blocks_per_sm(0, hd, w, 4096), "Lk"),
+        ("K2b", "flash_attn_bwd_dkv", lambda *a: bwd.flash_attn_bwd_attributes(1, *a),
+         lambda hd: bwd.flash_attn_bwd_smem(1, hd, 4096),
+         lambda hd, w: bwd.flash_attn_bwd_blocks_per_sm(1, hd, w, 4096), "Lq"))
+    spills = []
+    for label, name, attributes, dynamic, per_sm, over in kernels:
+        for hd in (128, 64):
+            for window, form in ((0, "dense"), (1, "window")):
+                attrs = (ctypes.c_int * 4)()
+                _build.check(name, attributes(hd, window, attrs))
+                regs, local, static, threads = attrs
+                log(f"{label} build: head dim {hd}, {form}: {regs} registers a thread ({threads} "
+                    f"threads a block, {per_sm(hd, window)} blocks an SM), local memory (spills) "
+                    f"{local} bytes a thread, shared memory {static} bytes static + {dynamic(hd)} "
+                    f"dynamic a block at {over} 4096")
+                if local:
+                    spills.append(f"{label} head dim {hd} {form}")
+    if spills:
+        raise AssertionError(f"{', '.join(spills)} use local memory: registers spill")
 
 
 def main() -> int:
@@ -1941,7 +2076,7 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.build()
     log(f"build: {time.perf_counter() - t0:.2f} s ({', '.join(f'{k} {v:.2f} s' for k, v in built.items())})")
-    k1_build_report()
+    flash_build_report()
 
     def timed(name, fn, *args):
         t = time.perf_counter()

@@ -31,7 +31,8 @@
 // - The producer warp runs one item ahead: it scans the item's kv segment ids
 //   (the tile skip below), loads q by TMA into one of two q buffers, then the
 //   visited k/v tiles of 128 rows, with each tile's 128 kv segment ids (a 1-D
-//   map over the flat ids), into a ring guarded by full/empty mbarriers:
+//   map over the flat ids, each box from the 16-byte bound below its start),
+//   into a ring guarded by full/empty mbarriers:
 //   three stages at head dim 64, two at 128, as shared memory allows. The
 //   k/v/q maps are 4-D (HD, heads, L, B), so rows past a batch row's end are
 //   zero-filled instead of read from the next row; 128-byte swizzle, so HD
@@ -61,12 +62,9 @@
 //   there, one slot an item, so a run can hold the kernel's visits against
 //   the mirror.
 
-#include <cuda.h>  // CUtensorMap and its enums only: the encoder comes from the runtime
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
 #include <climits>
-#include <cstdint>
+
+#include "flash_attn_common.cuh"
 
 namespace {
 
@@ -94,8 +92,9 @@ struct Smem {
   static constexpr int q_off = 0;                              // [2] q tiles
   static constexpr int k_off = q_off + 2 * Q_BYTES;            // [STAGES] k tiles
   static constexpr int v_off = k_off + STAGES * KV_BYTES;      // [STAGES] v tiles
-  static constexpr int seg_off = v_off + STAGES * KV_BYTES;    // int [STAGES][BK]
-  static constexpr int segq_off = seg_off + STAGES * BK * 4;   // int [2][BQ]
+  static constexpr int SEG_SLOT = flat_slot_bytes(BK);        // a tile's kv ids
+  static constexpr int seg_off = v_off + STAGES * KV_BYTES;    // [STAGES] id slots
+  static constexpr int segq_off = seg_off + STAGES * SEG_SLOT;  // int [2][BQ]
   static constexpr int item_off = segq_off + 2 * BQ * 4;       // Item [2]
   static constexpr int bar_off = item_off + 64;  // full[S], empty[S], q_full[2], q_empty[2]
   static constexpr int flag_off = bar_off + 8 * (2 * STAGES + 4);  // uint8 [2][n_tiles]
@@ -108,158 +107,6 @@ struct Smem {
 struct Item {
   int q0, h, b, j0, nt;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "{\n.reg .b64 st;\nmbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-// waits until the phase of parity `parity` has completed; a wait that never
-// ends (a pipeline fault) traps after 2^26 tries instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t tries = 0;; ++tries) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (tries == (1u << 26)) __trap();
-  }
-}
-
-// one box of a 4-D tensor map into shared memory, completion on `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
-                                         int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// one box of a 1-D tensor map into shared memory, completion on `bar`
-__device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0) {
-  asm volatile(
-      "cp.async.bulk.tensor.1d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets (K-major: stride = the 1024 bytes between groups of
-// 8 rows; MN-major: leading = the bytes between 64-column boxes, stride = the
-// 1024 bytes between groups of 8 rows along K)
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit_and_wait() {
-  asm volatile("wgmma.commit_group.sync.aligned;\nwgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keeps the compiler from moving accesses of wgmma's registers across the wait
-template <int N>
-__device__ __forceinline__ void pin(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define MASKED __int_as_float(0xff800000)  // -inf: the score of a masked entry
-
-__device__ __forceinline__ float ex2(float x) {  // 2^x; -1e30-scale arguments give 0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// D[64 x 128] (+)= A[64 x 16] B[128 x 16]^T, A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
-                                               int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// D[64 x 64] (+)= A[64 x 16] B[64 x 16]^T, A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
-                                               int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// D[64 x 128] += A[64 x 16] B[16 x 128], A in registers, B MN-major in shared memory
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
-                                               uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D[64 x 64] += A[64 x 16] B[16 x 64], A in registers, B MN-major in shared memory
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
-                                               uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_qk(float (&d)[N / 2], uint64_t da, uint64_t db,
-                                         int accumulate) {
-  if constexpr (N == 128) {
-    wgmma_ss_n128(d, da, db, accumulate);
-  } else {
-    wgmma_ss_n64(d, da, db, accumulate);
-  }
-}
-
-template <int HD>
-__device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2], const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (HD == 128) {
-    wgmma_rs_n128(o, a, db);
-  } else {
-    wgmma_rs_n64(o, a, db);
-  }
-}
 
 // finalize of one row: (1 / denominator, lse); m is the row's raw max score
 __device__ __forceinline__ void finalize(float m, float l, float scale, const float* sinks, int h,
@@ -428,14 +275,14 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         if (lane == 0) {  // k and v, each in HALVES boxes, and the tile's segment ids
           mbar_wait(empty_bar + 8 * stage, phase ^ 1);
           const uint32_t bar = full_bar + 8 * stage;
-          mbar_arrive_expect_tx(bar, 2 * S::KV_BYTES + BK * 4);
+          mbar_arrive_expect_tx(bar, 2 * S::KV_BYTES + (BK + FLAT_PAD) * 4);
 #pragma unroll
           for (int hf = 0; hf < S::HALVES; ++hf) {
             const int off = stage * S::KV_BYTES + hf * BK * 128;
             tma_load(sbase + S::k_off + off, &tm_k, bar, hf * 64, kvh, k0, b);
             tma_load(sbase + S::v_off + off, &tm_v, bar, hf * 64, kvh, k0, b);
           }
-          tma_load_1d(smem_u32(seg_s + stage * BK), &tm_seg, bar, (int)kv_row + k0);
+          tma_load_flat(sbase + S::seg_off + stage * S::SEG_SLOT, &tm_seg, bar, (int)kv_row + k0);
         }
         if (++stage == S::STAGES) {
           stage = 0;
@@ -497,7 +344,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 #pragma unroll
         for (int kk = 0; kk < HD / 16; ++kk) {
           const int hf = kk / 4, kin = kk % 4;
-          wgmma_qk<SN>(s, dq + ((hf * BQ * 128 + kin * 32) >> 4),
+          wgmma_ss<SN>(s, dq + ((hf * BQ * 128 + kin * 32) >> 4),
                        dk + ((hf * BK * 128 + kin * 32) >> 4), kk > 0);
         }
         wgmma_commit_and_wait();
@@ -515,7 +362,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
           const int hi0 = min(causal ? r0 - c0 : INT_MAX, Lk - 1 - c0);
           const int hi1 = min(causal ? r1 - c0 : INT_MAX, Lk - 1 - c0);
           const int lo = WINDOW ? r0 - c0 - window + 1 : INT_MIN;
-          const int* sk = seg_s + stage * BK + ch * SN;
+          const int* sk = seg_s + stage * (S::SEG_SLOT / 4) + ((item.b * Lk + k0) & 3) + ch * SN;
 #pragma unroll
           for (int i = 0; i < SN / 8; ++i) {
 #pragma unroll
@@ -586,7 +433,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
             smem_desc(sbase + S::v_off + stage * S::KV_BYTES + ch * SN * 128, BK * 128, 1024);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < SN / 16; ++kk) wgmma_pv<HD>(o, pa[kk], dv + ((kk * 16 * 128) >> 4));
+        for (int kk = 0; kk < SN / 16; ++kk) wgmma_rs<HD>(o, pa[kk], dv + ((kk * 16 * 128) >> 4));
         wgmma_commit_and_wait();
         pin(o);
       }
@@ -614,28 +461,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       if (r0 < Lq) lrow[r0] = lse0;
       if (r1 < Lq) lrow[r1] = lse1;
     }
-#pragma unroll
-    for (int i = 0; i < HD / 8; ++i) {
-      const uint32_t box = q_base + (i / 8) * BQ * 128 + (64 * wg + lr) * 128 +
-                           (((i % 8) ^ (lr % 8)) * 16) + (lane % 4) * 4;
-      const uint32_t v0 = pack_bf16(o[4 * i] * inv0, o[4 * i + 1] * inv0);
-      const uint32_t v1 = pack_bf16(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);
-      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(box), "r"(v0) : "memory");
-      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(box + 8 * 128), "r"(v1) : "memory");
-    }
+    stage_rows<HD>(o, inv0, inv1, q_base, BQ, 64 * wg, lr, lane);
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
-    constexpr int CHUNKS = HD / 8;  // 16-byte chunks a row
-    const unsigned char* staged = smem + (q_base - sbase);
-    for (int idx = threadIdx.x % 128; idx < 64 * CHUNKS; idx += 128) {
-      const int rl = idx / CHUNKS, c = idx % CHUNKS;
-      const int row = row_base + rl;
-      if (row >= Lq) continue;
-      const uint4 val = *reinterpret_cast<const uint4*>(staged + (c / 8) * BQ * 128 +
-                                                        (64 * wg + rl) * 128 +
-                                                        (((c % 8) ^ (rl % 8)) * 16));
-      *reinterpret_cast<uint4*>(
-          out + (((size_t)item.b * Lq + row) * NH + item.h) * HD + c * 8) = val;
-    }
+    store_rows<HD>(out + (((size_t)item.b * Lq + row_base) * NH + item.h) * HD, (size_t)NH * HD,
+                   smem + (q_base - sbase), BQ, 64 * wg, Lq - row_base);
     // the next TMA write of this buffer comes through the async proxy
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     mbar_arrive(q_empty + 8 * buf);
@@ -644,58 +473,6 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 
 // ---- host side ---------------------------------------------------------------
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver through the runtime: no -lcuda link
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// [batch, len, heads, HD] bf16 as a 4-D map (HD, heads, len, batch) with
-// boxes of (64, 1, rows, 1) in the 128-byte swizzle; out of range reads give 0
-bool tensor_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int hd, int heads, int len,
-                int batch, int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads, (cuuint64_t)len,
-                              (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)heads * hd * 2,
-                                 (cuuint64_t)len * heads * hd * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// seg_kv [B, Lk] int32 as a flat 1-D map with boxes of BK ids (a 2-D map
-// would need Lk a multiple of 4)
-bool segment_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int n) {
-  const cuuint64_t dims[1] = {(cuuint64_t)n};
-  const cuuint64_t strides[1] = {0};  // a 1-D map has none
-  const cuuint32_t box[1] = {BK};
-  const cuuint32_t elem[1] = {1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_INT32, 1, const_cast<void*>(ptr), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                CU_TENSOR_MAP_L2_PROMOTION_NONE,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 size_t smem_bytes(int hd, int Lk) {
   const int n_tiles = (Lk + BK - 1) / BK;
@@ -723,18 +500,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* seg_q
   if (!tensor_map(&tq, encode, q, HD, NH, Lq, B, BQ) ||
       !tensor_map(&tk, encode, k, HD, NKV, Lk, B, BK) ||
       !tensor_map(&tv, encode, v, HD, NKV, Lk, B, BK) ||
-      !segment_map(&tseg, encode, seg_kv, B * Lk))
+      !flat_map(&tseg, encode, seg_kv, B * Lk, BK + FLAT_PAD, CU_TENSOR_MAP_DATA_TYPE_INT32))
     return cudaErrorInvalidValue;
   // persistent: one block an SM (its shared memory allows no second), each
   // walking the items i, i + grid, ...
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-  }
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
   const int n_items = (Lq + BQ - 1) / BQ * NH * B;
   flash_fwd_kernel<HD, WINDOW><<<min(n_items, sms), NTHREADS, smem, stream>>>(
       tq, tk, tv, tseg, seg_q, seg_kv, static_cast<__nv_bfloat16*>(out), lse, sinks, tiles, B, Lq,

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled on
 first use with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 -Xcompiler -fPIC`` into ``build/kernels/<name>-<hash>.so`` at the root of
-the checkout, keyed by a hash of the source and the flags, then loaded with
+the checkout, keyed by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, then loaded with
 ``ctypes``. Every C entry point returns ``cudaGetLastError()`` after its
 launch; ``check`` turns a non-zero code into an exception.
 
@@ -60,7 +61,9 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    # every shared header too: a source that includes a changed one must rebuild
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    key = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{key}.so"
 
 

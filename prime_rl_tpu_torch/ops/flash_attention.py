@@ -27,14 +27,16 @@ takes neither window nor sinks, as in the JAX package.
 
 What bounds them on the H100 and what the design does about it: see the
 source notes in ``csrc/flash_attn_fwd.cu`` and ``csrc/flash_attn_bwd.cu``.
-Both are compute-bound at prefill and training lengths. K1 is a Hopper
-kernel: TMA loads into a two-stage ring behind mbarriers, a producer warp and
-two consumer warpgroups, both products on ``wgmma`` with S, P and O in
-registers, and kv tiles skipped by the causal diagonal, the band and the
-range of the q tile's segments (``flash_tiles_visited`` is the plain mirror
-of that rule). K2a/K2b use WMMA bf16 tiles, skip tiles above the diagonal
-and outside the band, and accumulate dk/dv over the GQA group inside one
-block so that no atomics are needed.
+All three are compute-bound at prefill and training lengths, and all three
+are Hopper kernels of one shape: blocks that walk work items heaviest first,
+a producer warp that loads tiles by TMA into a ring behind mbarriers,
+consumer warpgroups whose products are all ``wgmma`` with the score-sized
+tiles in registers, and tiles skipped by the causal diagonal, the band and
+the range of the other side's segments. K1 and K2a skip kv tiles for a q tile
+(``flash_tiles_visited`` is the plain mirror of that rule, at 128 x 128
+tiles for K1 and 128 x 64 for K2a); K2b skips q tiles for a kv tile
+(``flash_bwd_dkv_tiles_visited``, 64 x 64) and sums dk/dv over the GQA group
+inside one block, so that no atomics are needed.
 
 For CPU tensors the wrappers run ``flash_attention_reference`` and
 ``flash_attention_backward_reference``, the plain versions of the same
@@ -51,13 +53,15 @@ from prime_rl_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 TILE = 128  # K1's q and kv tile (BQ = BK in csrc/flash_attn_fwd.cu)
+DQ_TILES = (128, 64)  # K2a's q tile and kv tile (DQ_BQ, DQ_BK in csrc/flash_attn_bwd.cu)
+DKV_TILE = 64  # K2b's kv tile and q tile (KV_BK = KV_BQ)
 KERNEL = "flash_attn_fwd"
 KERNEL_BWD = "flash_attn_bwd"  # one source, two kernels, counted separately:
 KERNEL_DQ = "flash_attn_bwd_dq"
 KERNEL_DKV = "flash_attn_bwd_dkv"
 
 _fns = None
-_bwd_fns = None
+_bwd_fns: dict = {}
 
 
 def _kernel(tiles: bool = False):
@@ -112,6 +116,33 @@ def flash_tiles_visited(seg_q, seg_kv, causal: bool, window: int = 0, bq: int = 
         visit = visit & (j <= (torch.clamp((i + 1) * bq, max=lq) - 1) // bk)
     if window > 0:
         visit = visit & (j >= torch.clamp(i * bq - window + 1, min=0) // bk)
+    return visit
+
+
+def flash_bwd_dkv_tiles_visited(seg_q, seg_kv, causal: bool, window: int = 0,
+                                bq: int = DKV_TILE, bk: int = DKV_TILE) -> torch.Tensor:
+    """[B, nk, nq] bool: the q tiles K2b visits for each kv tile, the plain
+    mirror of the kernel's rule (``flash_tiles_visited`` transposed).
+    Candidates are the q tiles from the one that holds the kv tile's first key
+    (``causal``) to the last one whose rows reach the kv tile through the band
+    (``window > 0``); of those, a tile is visited only if it holds a query
+    whose segment is non-zero and lies in [smallest non-zero, largest] of the
+    kv tile's segment ids. Rows and keys past the end count as padding."""
+    b, lq = seg_q.shape
+    lk = seg_kv.shape[1]
+    nq, nk = -(-lq // bq), -(-lk // bk)
+    sk = torch.nn.functional.pad(seg_kv.long(), (0, nk * bk - lk)).reshape(b, nk, bk)
+    sq = torch.nn.functional.pad(seg_q.long(), (0, nq * bq - lq)).reshape(b, 1, nq, bq)
+    big = torch.iinfo(torch.int64).max
+    lo = torch.where(sk != 0, sk, big).amin(-1)[..., None, None]
+    hi = torch.where(sk != 0, sk, -big).amax(-1)[..., None, None]
+    visit = ((sq != 0) & (sq >= lo) & (sq <= hi)).any(-1)
+    j = torch.arange(nk, device=seg_q.device)[:, None]
+    i = torch.arange(nq, device=seg_q.device)[None, :]
+    if causal:
+        visit = visit & (i >= j * bk // bq)
+    if window > 0:
+        visit = visit & (i <= (j * bk + bk - 1 + window - 1) // bq)
     return visit
 
 
@@ -184,17 +215,20 @@ def _fwd_cuda(q, k, v, seg_q, seg_kv, causal: bool, scale: float, window: int = 
     return out, lse
 
 
-def _bwd_kernels():
-    global _bwd_fns
-    if _bwd_fns is None:
+def _bwd_kernels(tiles: bool = False):
+    """K2a's and K2b's C entry points; ``tiles``: the ones that also write each
+    work item's tile counts (one more pointer argument)."""
+    if tiles not in _bwd_fns:
         lib = _build.load(KERNEL_BWD)
         p, i = ctypes.c_void_p, ctypes.c_int
-        dq, dkv = lib.flash_attn_bwd_dq, lib.flash_attn_bwd_dkv
-        dq.argtypes = [p] * 9 + [i] * 6 + [ctypes.c_float, i, i, p]
-        dkv.argtypes = [p] * 10 + [i] * 6 + [ctypes.c_float, i, i, p]
+        suffix = "_tiles" if tiles else ""
+        dq = getattr(lib, f"flash_attn_bwd_dq{suffix}")
+        dkv = getattr(lib, f"flash_attn_bwd_dkv{suffix}")
+        dq.argtypes = [p] * 9 + [i] * 6 + [ctypes.c_float, i, i, p] + [p] * tiles
+        dkv.argtypes = [p] * 10 + [i] * 6 + [ctypes.c_float, i, i, p] + [p] * tiles
         dq.restype = dkv.restype = i
-        _bwd_fns = (dq, dkv)
-    return _bwd_fns
+        _bwd_fns[tiles] = (dq, dkv)
+    return _bwd_fns[tiles]
 
 
 def _delta(out, do, dlse):
@@ -292,31 +326,64 @@ def _check_bwd_args(q, k, v, seg_q, seg_kv, lse, delta, do):
 
 
 def flash_attention_dq(q, k, v, seg_q, seg_kv, lse, delta, do, causal: bool, scale: float,
-                       window: int = 0):
+                       window: int = 0, tiles=None):
     """K2a on CUDA tensors: dq [B, Lq, NH, HD] bf16. ``delta`` [B, NH, Lq] f32
-    is sum(out * do, -1) minus the lse cotangent."""
+    is sum(out * do, -1) minus the lse cotangent. ``tiles`` (int32 [B, NH,
+    ceil(Lq / 128), 2], or None) receives each q tile's visited and candidate
+    kv tiles."""
     b, lq, lk, nh, nkv, hd = _check_bwd_args(q, k, v, seg_q, seg_kv, lse, delta, do)
+    if tiles is not None:
+        _build.require(tiles, "tiles", torch.int32, (b, nh, -(-lq // DQ_TILES[0]), 2))
     dq = torch.empty_like(q)
-    _build.check(KERNEL_DQ, _bwd_kernels()[0](
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), seg_q.data_ptr(),
-        seg_kv.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, lq, lk, nh, nkv,
-        hd, float(scale), int(causal), int(window), _build.stream_ptr(q)))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), seg_q.data_ptr(),
+            seg_kv.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, lq, lk, nh, nkv,
+            hd, float(scale), int(causal), int(window), _build.stream_ptr(q))
+    fn = _bwd_kernels(tiles is not None)[0]
+    _build.check(KERNEL_DQ, fn(*args) if tiles is None else fn(*args, tiles.data_ptr()))
     _build.count(KERNEL_DQ, window)
     return dq
 
 
 def flash_attention_dkv(q, k, v, seg_q, seg_kv, lse, delta, do, causal: bool, scale: float,
-                        window: int = 0):
+                        window: int = 0, tiles=None):
     """K2b on CUDA tensors: (dk, dv) [B, Lk, NKV, HD] bf16, the GQA group
-    summed inside the kernel."""
+    summed inside the kernel. ``tiles`` (int32 [B, NKV, ceil(Lk / 64), 2], or
+    None) receives each kv tile's visited and candidate q tiles (of one head:
+    every head of the group visits the same)."""
     b, lq, lk, nh, nkv, hd = _check_bwd_args(q, k, v, seg_q, seg_kv, lse, delta, do)
+    if tiles is not None:
+        _build.require(tiles, "tiles", torch.int32, (b, nkv, -(-lk // DKV_TILE), 2))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _build.check(KERNEL_DKV, _bwd_kernels()[1](
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), seg_q.data_ptr(),
-        seg_kv.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, lq,
-        lk, nh, nkv, hd, float(scale), int(causal), int(window), _build.stream_ptr(q)))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), seg_q.data_ptr(),
+            seg_kv.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
+            lq, lk, nh, nkv, hd, float(scale), int(causal), int(window), _build.stream_ptr(q))
+    fn = _bwd_kernels(tiles is not None)[1]
+    _build.check(KERNEL_DKV, fn(*args) if tiles is None else fn(*args, tiles.data_ptr()))
     _build.count(KERNEL_DKV, window)
     return dk, dv
+
+
+def flash_bwd_tile_counts(q, k, v, seg_q, seg_kv, lse, delta, do, causal: bool,
+                          window: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """(K2a's int32 [B, NH, nq, 2], K2b's int32 [B, NKV, nk, 2]): the tiles
+    each kernel visited and its candidates, as the kernels counted them in one
+    launch each on these inputs (K2a: kv tiles of 64 for each q tile of 128;
+    K2b: q tiles of 64 for each kv tile of 64). Only the kernels count: CPU
+    tensors raise (``flash_tiles_visited`` and ``flash_bwd_dkv_tiles_visited``
+    are the rules' plain mirrors)."""
+    if not q.is_cuda:
+        raise ValueError("flash_bwd_tile_counts: the counts come from the kernels, which take "
+                         "CUDA tensors")
+    b, lq, nh, hd = q.shape
+    lk, nkv = k.shape[1], k.shape[2]
+    dq_tiles = torch.full((b, nh, -(-lq // DQ_TILES[0]), 2), -1, dtype=torch.int32,
+                          device=q.device)
+    dkv_tiles = torch.full((b, nkv, -(-lk // DKV_TILE), 2), -1, dtype=torch.int32,
+                           device=q.device)
+    args = (q, k, v, seg_q, seg_kv, lse, delta, do, causal, hd ** -0.5, window)
+    flash_attention_dq(*args, tiles=dq_tiles)
+    flash_attention_dkv(*args, tiles=dkv_tiles)
+    return dq_tiles, dkv_tiles
 
 
 def flash_attention_backward(q, k, v, seg_q, seg_kv, out, lse, do, dlse, causal: bool,

@@ -60,6 +60,10 @@ def _reject_unported(config: TrainerConfig) -> None:
         raise NotImplementedError(f"{', '.join(waiting)}: waits for {_LOOP_SLICE}")
     if config.model.lora is not None:
         raise NotImplementedError("LoRA training waits for the LoRA slice")
+    if config.model.debug.vocab_size is not None and not config.model.debug.random_init:
+        # a truncated vocabulary cannot load a checkpoint's embeddings and head
+        raise ValueError("model.debug.vocab_size truncates the vocabulary and needs "
+                         "model.debug.random_init")
     mesh = config.mesh.model_dump()  # one process, one card: any other mesh raises
     if any(v not in (1, -1) for v in mesh.values()):
         raise NotImplementedError(f"mesh {mesh}: more than one device waits for the "

@@ -114,7 +114,7 @@ def main() -> int:
           flush=True)
     print(f"build: {_build.build(('flash_attn_fwd',))}", flush=True)
     try:
-        smoke.k1_build_report()
+        smoke.flash_build_report()
     except AssertionError as e:  # report and go on: the checks below still say something
         print(f"build report: {e}", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)

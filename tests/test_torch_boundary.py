@@ -42,3 +42,21 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 51  # every module of the four slices was imported
+
+
+def test_kernel_libraries_are_keyed_by_their_shared_headers(tmp_path, monkeypatch):
+    """A kernel source includes ``csrc/*.cuh``: a changed header must give
+    its library another path, or a stale build would load; the build never
+    runs here (no ``nvcc``), only the key."""
+    from prime_rl_tpu_torch.ops import _build
+
+    (tmp_path / "k.cu").write_text('#include "shared.cuh"\n')
+    (tmp_path / "shared.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build.library_path("k")
+    assert _build.library_path("k") == first
+    (tmp_path / "shared.cuh").write_text("// two\n")
+    assert _build.library_path("k") != first
+    monkeypatch.undo()
+    for name in _build.KERNELS:  # every source of the port has its key
+        assert _build.library_path(name).name.startswith(f"{name}-")

@@ -7,7 +7,8 @@ repo conftest sets up JAX, which these tests do not use).
 Tolerance: 1e-2 absolute + 1e-2 relative against the plain version in
 float32 (bf16 keeps 8 significant bits; each kernel rounds its output once,
 K1 also its probabilities), 1e-3 + 1e-4 relative on K1's lse (f32 sums in
-another order); the KV append must be exact. K2a/K2b are held
+another order); the KV append must be exact. K2a/K2b (also over
+``chip_smoke.K1_EDGE_CASES``, with their tile counts) are held
 against the plain backward on the same bf16 inputs (which rounds p and ds to
 bf16 where the kernels do): 2e-2 absolute + 2e-2 relative, because a bf16
 rounding of ds that flips by one step in the kernel moves a sum of up to 192
@@ -34,13 +35,20 @@ from prime_rl_tpu_torch.ops.decode_attention import (
 )
 from prime_rl_tpu_torch.ops.decode_qkv import decode_qkv_prep, decode_qkv_prep_reference
 from prime_rl_tpu_torch.ops.flash_attention import (
+    DQ_TILES,
     _delta,
     _fwd,
     flash_attention,
     flash_attention_backward,
     flash_attention_backward_reference,
+    flash_attention_dkv,
+    flash_attention_dkv_reference,
+    flash_attention_dq,
+    flash_attention_dq_reference,
     flash_attention_reference,
     flash_attention_with_lse,
+    flash_bwd_dkv_tiles_visited,
+    flash_bwd_tile_counts,
     flash_tile_counts,
     flash_tiles_visited,
     sinks_grad,
@@ -144,6 +152,41 @@ def test_flash_attn_bwd_matches_plain(gen, hd, nh, nkv, l):
         assert torch.isfinite(g.float()).all(), name
         torch.testing.assert_close(g.float(), r.float(), atol=2e-2, rtol=2e-2, msg=name)
     assert (got[0][seg == 0] == 0).all()
+
+
+@pytest.mark.parametrize("case", chip_smoke.K1_EDGE_CASES, ids=lambda c: c[0])
+def test_flash_attn_bwd_cases_match_plain(gen, case):
+    """K2a and K2b over ``chip_smoke.K1_EDGE_CASES`` (lse from K1; the
+    cross-block cases, not causal, with an lse cotangent folded into delta):
+    dq, dk and dv against the plain versions, padding rows dq = 0, one launch
+    each a call, two launches on the same inputs give equal bits, and the
+    tiles the kernels count are the skip rules'."""
+    _, b, lq, lk, nh, nkv, hd, q_lens, kv_lens, causal, window, with_sinks = case
+    q, k, v = _bf16(gen, b, lq, nh, hd), _bf16(gen, b, lk, nkv, hd), _bf16(gen, b, lk, nkv, hd)
+    do = _bf16(gen, b, lq, nh, hd)
+    seg_q = chip_smoke.packed_segments(b, lq, q_lens, "cuda")[0]
+    seg_kv = seg_q if kv_lens is None else chip_smoke.packed_segments(b, lk, kv_lens, "cuda")[0]
+    sinks = torch.randn(nh, device="cuda", generator=gen) if with_sinks else None
+    dlse = None if causal else torch.randn(b, nh, lq, device="cuda", generator=gen)
+    out, lse = _fwd(q, k, v, seg_q, seg_kv, causal, None, window=window, sinks=sinks)
+    args = (q, k, v, seg_q, seg_kv, lse, _delta(out, do, dlse), do, causal, hd ** -0.5, window)
+    before = dict(_build.launches)
+    runs = [(flash_attention_dq(*args), *flash_attention_dkv(*args)) for _ in range(2)]
+    torch.cuda.synchronize()
+    for name in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+        assert _build.launches[name] == before.get(name, 0) + 2, name
+    for a, c in zip(*runs):
+        assert torch.equal(a, c)
+    refs = (flash_attention_dq_reference(*args), *flash_attention_dkv_reference(*args))
+    for name, g, r in zip(("dq", "dk", "dv"), runs[0], refs):
+        assert torch.isfinite(g.float()).all(), name
+        torch.testing.assert_close(g.float(), r.float(), atol=2e-2, rtol=2e-2, msg=name)
+    assert (runs[0][0][seg_q == 0] == 0).all()
+    dq_tiles, dkv_tiles = flash_bwd_tile_counts(*args[:9], window)
+    for got, rule in ((dq_tiles, flash_tiles_visited(seg_q, seg_kv, causal, window, *DQ_TILES)),
+                      (dkv_tiles, flash_bwd_dkv_tiles_visited(seg_q, seg_kv, causal, window))):
+        want = rule.sum(-1, dtype=torch.int32)
+        assert torch.equal(got[..., 0], want[:, None].expand_as(got[..., 0]))
 
 
 def test_flash_attn_bwd_cross_block_with_lse_cotangent(gen):

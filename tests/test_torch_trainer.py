@@ -437,6 +437,17 @@ def test_trainer_is_deterministic_and_bench_mode_skips_publishing(tmp_path, monk
     assert not (tmp_path / "bench" / "checkpoints").exists()
 
 
+def test_trainer_refuses_a_truncated_vocabulary_without_random_init(tmp_path, monkeypatch):
+    """``model.debug.vocab_size`` cuts the embedding and head, which a
+    checkpoint's cannot fill: the trainer raises before it builds anything,
+    as the port's inference entry point does (the JAX trainer does not)."""
+    with pytest.raises(ValueError, match="random_init"):
+        _run(monkeypatch, tmp_path / "v", "--max-steps", "1", "--model.debug.vocab-size", "384")
+    out = _run(monkeypatch, tmp_path / "w", "--max-steps", "1", "--model.debug.vocab-size", "384",
+               "--model.debug.random-init")
+    assert len(out.records) == 1 and np.isfinite(out.records[0]["loss"])
+
+
 def test_trainer_raises_for_what_waits_for_the_loop_slice(tmp_path, monkeypatch):
     assert TrainerConfig().device == "cuda"
     with pytest.raises(NotImplementedError):  # the default data plane is the transport
