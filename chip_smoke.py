@@ -8,11 +8,17 @@ Phases (any failure raises and exits non-zero before the last line):
   1. device   — requires CUDA; prints nvidia-smi's name and power limit.
   2. build    — compiles the hand-written kernels from ``prime_rl_tpu_torch/csrc``
                 and prints the registers, local memory and shared memory of each of
-                the four instantiations of K1, K2a and K2b as the runtime loaded
-                them (it fails on local memory: a spill).
+                the four instantiations of K1, K2a and K2b and the eight of K4 as
+                the runtime loaded them (it fails on local memory: a spill).
   3. kernels  — K1 flash_attn_fwd, K3 decode_qkv_prep and K4 decode_paged_attention
                 at the Qwen3-0.6B shapes of the serving path (K1 also at the
-                trainer's rows of four sequences), K2a flash_attn_bwd_dq and K2b
+                trainer's rows of four sequences; K4 also over 16 slots of
+                3000-4000 cached tokens, and over K4_EDGE_CASES: lengths 0 and
+                at split and page boundaries, inactive slots, windows, sinks,
+                page sizes 8-64, both head dims, GQA 1/2/4/8, each launched
+                twice for equal bits, with the rows each work item read as the
+                kernel counted them held against the split rule's mirror),
+                K2a flash_attn_bwd_dq and K2b
                 flash_attn_bwd_dkv at the trainer's shape and one long shape,
                 K1, K2a and K2b over K1_EDGE_CASES (ragged and odd lengths,
                 padding, short segments, GQA 1/2/4/8, both head dims, the
@@ -507,7 +513,102 @@ def k2_edge_cases(gen) -> tuple[int, float]:
     return len(K1_EDGE_CASES), worst
 
 
-def kernel_phase(spec) -> list[dict]:
+def k4_inputs(gen, s: int, nh: int, nkv: int, hd: int, ps: int, p: int, lengths, n_inactive=0):
+    """One decode batch of K4: pools [nkv, s*p + 1, ps, hd] whose page 0 is
+    the null page, slot i owning pages 1 + i*p ...; the last ``n_inactive``
+    slots are inactive (their table rows all 0, as the engine leaves them);
+    ``lengths`` (a list, or a function that draws them after the pools); q,
+    k_new and v_new. Returns (q, k_new, v_new, k_pool, v_pool, lengths,
+    table)."""
+    import torch
+
+    dev = gen.device
+
+    def randn(*shape):
+        return torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
+
+    k_pool, v_pool = randn(nkv, s * p + 1, ps, hd), randn(nkv, s * p + 1, ps, hd)
+    table = (1 + torch.arange(s * p, device=dev, dtype=torch.int32)).reshape(s, p)
+    if n_inactive:
+        table[-n_inactive:] = 0
+    lengths = torch.as_tensor(lengths() if callable(lengths) else lengths,
+                              dtype=torch.int32).to(dev)
+    return randn(s, nh, hd), randn(s, nkv, hd), randn(s, nkv, hd), k_pool, v_pool, lengths, table
+
+
+def k4_check(name: str, qd, k_new, v_new, k_pool, v_pool, lengths, table, window: int = 0,
+             sinks=None, n_inactive: int = 0, launches: int = 1) -> float:
+    """K4 on one decode batch against its plain version (float32 on the same
+    bf16 inputs), the pool writes exact; with ``launches`` 2, on two copies of
+    the pools, equal bits of the outputs and pools. With inactive slots only
+    the active slots and the pages past the null page 0 are compared:
+    inactive slots all append into page 0 and read it, in no fixed order.
+    Leaves the appended pools in place. Returns the max error."""
+    import torch
+
+    from prime_rl_tpu_torch.ops.decode_attention import (
+        decode_paged_attention,
+        decode_paged_attention_reference,
+    )
+
+    k_ref, v_ref = k_pool.float(), v_pool.float()
+    copies = [(k_pool.clone(), v_pool.clone()) for _ in range(launches - 1)]
+    kw = dict(window=window, sinks=sinks)
+    o = decode_paged_attention(qd, k_new, v_new, k_pool, v_pool, lengths, table, **kw)[0]
+    again = [decode_paged_attention(qd, k_new, v_new, kp, vp, lengths, table, **kw)
+             for kp, vp in copies]
+    torch.cuda.synchronize()
+    act = slice(0, qd.shape[0] - n_inactive)
+    pages = slice(1 if n_inactive else 0, None)
+    for o2, kp, vp in again:
+        if not (torch.equal(o[act], o2[act]) and torch.equal(kp[:, pages], k_pool[:, pages])
+                and torch.equal(vp[:, pages], v_pool[:, pages])):
+            raise AssertionError(f"decode_paged_attention {name}: two launches differ")
+    del copies, again
+    ref_o, k_ref, v_ref = decode_paged_attention_reference(
+        qd.float(), k_new.float(), v_new.float(), k_ref, v_ref, lengths, table, **kw)
+    err = check_close(f"decode_paged_attention {name}", o[act], ref_o[act], ATOL, RTOL)
+    for what, pool, want in (("k", k_pool, k_ref), ("v", v_pool, v_ref)):
+        if not torch.equal(pool[:, pages].float(), want[:, pages]):
+            raise AssertionError(f"decode_paged_attention {name}: {what} pool writes are not exact")
+    return err
+
+
+def k4_rows(name: str, qd, k_new, v_new, k_pool, v_pool, lengths, table, window: int = 0,
+            sinks=None) -> int:
+    """The cached rows K4's work items read, as the kernel counted them in
+    one launch (``decode_rows_counts``); raises unless every item's count is
+    the split rule's plain mirror (``decode_rows_visited``). Returns the rows
+    of one kv head summed over the slots."""
+    import torch
+
+    from prime_rl_tpu_torch.ops.decode_attention import (
+        SPLIT_ROWS,
+        decode_rows_counts,
+        decode_rows_visited,
+        max_splits,
+    )
+
+    counts = decode_rows_counts(qd, k_new, v_new, k_pool, v_pool, lengths, table, window=window,
+                                sinks=sinks)
+    want = decode_rows_visited(lengths, window, SPLIT_ROWS,
+                               max_splits(table.shape[1] * k_pool.shape[2], SPLIT_ROWS))
+    if not torch.equal(counts, want[:, None, :].expand_as(counts)):
+        raise AssertionError(f"decode_paged_attention {name}: the rows the kernel's work items "
+                             "read differ from the split rule's (decode_rows_visited)")
+    return int(counts[:, 0].sum())
+
+
+def k4_timing(name: str, qd, k_new, v_new, k_pool, v_pool, lengths, table, window: int = 0,
+              sinks=None, flush=None) -> dict:
+    """K4 over one decode batch: its median time (L2 flushed before each call
+    when ``flush`` is given) beside its plain version's and, without sinks,
+    one SDPA call over each slot's gathered pages with the same mask (the
+    gather untimed; no single PyTorch call takes sinks); its bound for the
+    cached rows the inputs leave (each read once), q, the new token (read,
+    and written into the pools), the output, lengths and table; and the rows
+    its work items read (``k4_rows``, the kernel's count). Logs one line;
+    returns the row's numbers."""
     import torch
     import torch.nn.functional as F
 
@@ -515,6 +616,140 @@ def kernel_phase(spec) -> list[dict]:
         decode_paged_attention,
         decode_paged_attention_reference,
     )
+
+    s, nh, hd = qd.shape
+    nkv, _, ps, _ = k_pool.shape
+    p = table.shape[1]
+    args = (qd, k_new, v_new, k_pool, v_pool, lengths, table)
+    kw = dict(window=window, sinks=sinks)
+    ms = time_ms(lambda: decode_paged_attention(*args, **kw), flush=flush)
+    plain = time_ms(lambda: decode_paged_attention_reference(*args, **kw), iters=5, flush=flush)
+    lib = None
+    if sinks is None:
+        t_all = p * ps
+        kg = k_pool[:, table.long()].permute(1, 0, 2, 3, 4).reshape(s, nkv, t_all, hd)
+        vg = v_pool[:, table.long()].permute(1, 0, 2, 3, 4).reshape(s, nkv, t_all, hd)
+        pos = torch.arange(t_all, device=qd.device)[None, :]
+        amask = pos < (lengths + 1)[:, None]
+        if window:
+            amask &= pos >= (lengths + 1 - window)[:, None]
+        amask = amask[:, None, None]
+        q4 = qd[:, :, None, :]
+        lib = time_ms(lambda: F.scaled_dot_product_attention(q4, kg, vg, attn_mask=amask,
+                                                             enable_gqa=True), flush=flush)
+        del kg, vg, amask
+    rows_read = k4_rows(name, *args, **kw)
+    nbytes = (rows_read * nkv * hd * 2 * 2 + 2 * (s * nkv * hd * 2 * 2) + 2 * s * nh * hd * 2
+              + s * 4 + s * p * 4 + (0 if sinks is None else nh * 4))
+    bms, by = bound(nbytes, (rows_read + s) * nh * hd * 4)
+    log(f"K4 decode_paged_attention {name}: kernel {ms:.4f} ms  plain {plain:.4f} ms  library "
+        f"{'none' if lib is None else f'sdpa over gathered pages {lib:.4f} ms'}  bound {bms:.4f} "
+        f"ms ({by}), {rows_read} cached rows a kv head (kernel's count){'' if flush is None else '  (cold L2)'}")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
+                rows_read=rows_read)
+
+
+# The edge cases of K4 (name, S, NH, NKV, HD, PS, P, lengths, inactive slots
+# at the end, window, sinks): lengths 0 (the new token alone), a multiple of
+# PS (the append opens a page) and of the split's 256 rows, one past it,
+# inactive slots reading the null page, many splits, windows whose first row
+# falls inside a page and that span two splits (window 300), PS 8, 16, 32 and
+# 64, tiles that span pages (PS < 64), both head dims, groups 1, 2, 4 and 8
+K4_EDGE_CASES = (
+    ("hd 128 group 2 PS 16, lengths 0-2000", 10, 4, 2, 128, 16, 128,
+     [0, 1, 15, 16, 255, 256, 257, 2000, 513, 40], 1, 0, False),
+    ("hd 64 group 8 PS 64, window 128 + sinks", 6, 16, 2, 64, 64, 32,
+     [0, 127, 128, 129, 1000, 2047], 0, 128, True),
+    ("hd 64 group 8 PS 16, sinks, 16 splits", 4, 16, 2, 64, 16, 256,
+     [4000, 1, 700, 64], 0, 0, True),
+    ("hd 128 group 1 PS 8, window 300 (two splits)", 6, 2, 2, 128, 8, 128,
+     [1000, 299, 300, 301, 5, 30], 1, 300, False),
+    ("hd 128 group 8 PS 64, sinks", 3, 8, 1, 128, 64, 64, [3999, 2500, 777], 0, 0, True),
+    ("hd 64 group 4 PS 32, lengths multiples of PS and of 256", 6, 8, 2, 64, 32, 64,
+     [512, 256, 32, 0, 1024, 2015], 0, 0, False),
+)
+
+
+def k4_edge_cases(gen) -> tuple[int, float]:
+    """K4 on every case of K4_EDGE_CASES against its plain version, two
+    launches on each for equal bits, the pools exact, the rows each item
+    read as the kernel counted them against the split rule. Returns (cases,
+    max error)."""
+    import torch
+
+    worst = 0.0
+    for name, s, nh, nkv, hd, ps, p, lengths, n_inactive, window, with_sinks in K4_EDGE_CASES:
+        args = k4_inputs(gen, s, nh, nkv, hd, ps, p, lengths, n_inactive)
+        sinks = torch.randn(nh, device="cuda", generator=gen) if with_sinks else None
+        worst = max(worst, k4_check(name, *args, window=window, sinks=sinks,
+                                    n_inactive=n_inactive, launches=2))
+        rows = k4_rows(name, *args, window=window, sinks=sinks)
+        log(f"K4 edge case {name}: within tolerance, two launches equal, {rows} cached rows a kv "
+            "head as the split rule gives")
+        del args
+    return len(K4_EDGE_CASES), worst
+
+
+def k4_qwen3_cases(spec, gen, flush) -> list[dict]:
+    """K4 at Qwen3-0.6B's serving shapes (16/8 heads of 128, PS 64, tables of
+    4096 rows): 64 slots of 1-1500 cached tokens, the last 8 inactive on the
+    null page (0-63 tokens), and 16 slots of 3000-4000 (the long contexts
+    split-K exists for); each checked (``k4_check``) and timed
+    (``k4_timing``, cold L2)."""
+    import torch
+
+    nh, nkv, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
+    ps, p = 64, 4096 // 64
+    cases = []
+    for s, lo, hi, n_inactive in ((64, 1, 1500, 8), (16, 3000, 4000, 0)):
+        def lengths():
+            n = torch.randint(lo, hi + 1, (s,), device="cuda", generator=gen, dtype=torch.int32)
+            if n_inactive:
+                n[-n_inactive:] = torch.randint(0, 64, (n_inactive,), device="cuda",
+                                                generator=gen, dtype=torch.int32)
+            return n
+
+        args = k4_inputs(gen, s, nh, nkv, hd, ps, p, lengths, n_inactive)
+        shape = f"S={s} PS={ps} P={p} lengths {lo}..{hi}"
+        err = k4_check(shape, *args, n_inactive=n_inactive)
+        cases.append(dict(shape=shape, max_abs_err=err, **k4_timing(
+            f"{shape} (err {err:.3g})", *args, flush=flush)))
+        del args
+        torch.cuda.empty_cache()
+    return cases
+
+
+def k4_gpt_oss_cases(spec, gen, flush, sinks) -> list[dict]:
+    """K4 at gpt-oss-20b's shapes (64/8 heads of 64, sinks, PS 64, tables of
+    4096 rows) over 64 slots of 500-1000 cached tokens (four shorter than the
+    window: 5, 64, 126, 127), at window 128 (the windowed layers) and 0 (the
+    full ones); each checked and timed as ``k4_qwen3_cases``."""
+    import torch
+
+    nh, nkv, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
+    s, ps, p = 64, 64, 4096 // 64
+
+    def lengths():
+        n = torch.randint(500, 1001, (s,), device="cuda", generator=gen, dtype=torch.int32)
+        n[:4] = torch.tensor([5, 64, 126, 127], dtype=torch.int32)
+        return n
+
+    args = k4_inputs(gen, s, nh, nkv, hd, ps, p, lengths)
+    cases = []
+    for window in (spec.sliding_window, 0):
+        form = f"window {window} + sinks" if window else "full + sinks"
+        shape = f"S={s} PS={ps} lengths 5..1000, {form}"
+        err = k4_check(shape, *args, window=window, sinks=sinks)
+        cases.append(dict(shape=shape, max_abs_err=err, **k4_timing(
+            f"{shape} (err {err:.3g})", *args, window=window, sinks=sinks, flush=flush)))
+    del args
+    torch.cuda.empty_cache()
+    return cases
+
+
+def kernel_phase(spec) -> list[dict]:
+    import torch
+
     from prime_rl_tpu_torch.ops.decode_qkv import decode_qkv_prep, decode_qkv_prep_reference
     from prime_rl_tpu_torch.ops.flash_attention import (
         flash_attention_reference,
@@ -627,54 +862,18 @@ def kernel_phase(spec) -> list[dict]:
                      shape=f"S={s} D={d}"))
 
     # ---- K4: paged decode attention + KV append ---------------------------
-    ps = 64
-    p = 4096 // ps
-    n_inactive = 8
-    np_ = s * p + 1
-    k_pool, v_pool = randn(nkv, np_, ps, hd), randn(nkv, np_, ps, hd)
-    table = (1 + torch.arange(s * p, device=dev, dtype=torch.int32)).reshape(s, p)
-    lengths = torch.randint(1, 1501, (s,), device=dev, generator=gen, dtype=torch.int32)
-    lengths[-n_inactive:] = torch.randint(0, 64, (n_inactive,), device=dev, generator=gen,
-                                          dtype=torch.int32)
-    table[-n_inactive:] = 0  # inactive slots: the null page
-    qd, k_new, v_new = randn(s, nh, hd), randn(s, nkv, hd), randn(s, nkv, hd)
-    k_ref, v_ref = k_pool.float(), v_pool.float()
-    o, _, _ = decode_paged_attention(qd, k_new, v_new, k_pool, v_pool, lengths, table)
-    torch.cuda.synchronize()
-    ref_o, k_ref, v_ref = decode_paged_attention_reference(
-        qd.float(), k_new.float(), v_new.float(), k_ref, v_ref, lengths, table)
-    act = slice(0, s - n_inactive)
-    err = check_close("decode_paged_attention", o[act], ref_o[act], ATOL, RTOL)
-    for name, pool, want in (("k", k_pool, k_ref), ("v", v_pool, v_ref)):
-        if not torch.equal(pool[:, 1:].float(), want[:, 1:]):
-            raise AssertionError(f"decode_paged_attention: {name} pool writes are not exact")
-    del k_ref, v_ref, ref_o
-    ms = time_ms(lambda: decode_paged_attention(qd, k_new, v_new, k_pool, v_pool, lengths,
-                                                table), flush=flush)
-    plain = time_ms(lambda: decode_paged_attention_reference(
-        qd, k_new, v_new, k_pool, v_pool, lengths, table), iters=5, flush=flush)
-    # yardstick: one SDPA call over each slot's gathered pages (gather untimed)
-    t_all = p * ps
-    kg = k_pool[:, table.long()].permute(1, 0, 2, 3, 4).reshape(s, nkv, t_all, hd)
-    vg = v_pool[:, table.long()].permute(1, 0, 2, 3, 4).reshape(s, nkv, t_all, hd)
-    amask = (torch.arange(t_all, device=dev)[None, :] < (lengths + 1)[:, None])[:, None, None]
-    q4 = qd[:, :, None, :]
-    lib = time_ms(lambda: F.scaled_dot_product_attention(q4, kg, vg, attn_mask=amask,
-                                                         enable_gqa=True), flush=flush)
-    del kg, vg
-    rows_read = int(lengths.sum())
-    nbytes = (rows_read * nkv * hd * 2 * 2 + 2 * (s * nkv * hd * 2 * 2) + 2 * s * nh * hd * 2
-              + s * 4 + s * p * 4)
-    flops = (rows_read + s) * nh * hd * 4
-    bms, by = bound(nbytes, flops)
-    log(f"K4 decode_paged_attention S={s} lengths 1..1500: err {err:.3g}  kernel {ms:.4f} ms  "
-        f"plain {plain:.4f} ms  sdpa {lib:.4f} ms  bound {bms:.4f} ms ({by})  (cold L2)")
+    cases = k4_qwen3_cases(spec, gen, flush)
+    n_edge, edge_err = k4_edge_cases(gen)
+    log(f"K4 decode_paged_attention edge cases: {n_edge} cases within tolerance, max err "
+        f"{edge_err:.3g}, two launches on each gave equal bits, rows read as the split rule gives")
     rows.append(dict(name="decode_paged_attention", route="cuda",
                      source="prime_rl_tpu_torch/csrc/decode_attention.cu",
-                     replaces="prime_rl_tpu/ops/decode_attention.py:50", max_abs_err=err,
-                     ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
-                     shape=f"S={s} PS={ps} P={p} tokens={rows_read}"))
-    del k_pool, v_pool, flush
+                     replaces="prime_rl_tpu/ops/decode_attention.py:50",
+                     **{k: cases[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                 "library_ms")},
+                     max_abs_err=max([edge_err] + [c["max_abs_err"] for c in cases]),
+                     cases=cases, edge_cases=n_edge))
+    del flush
     torch.cuda.empty_cache()
     return rows
 
@@ -827,10 +1026,6 @@ def gpt_oss_kernel_phase() -> list[dict]:
 
     from prime_rl_tpu_torch.models.base import get_spec
     from prime_rl_tpu_torch.models.qwen3 import rope_setup
-    from prime_rl_tpu_torch.ops.decode_attention import (
-        decode_paged_attention,
-        decode_paged_attention_reference,
-    )
     from prime_rl_tpu_torch.ops.decode_qkv import decode_qkv_prep, decode_qkv_prep_reference
     from prime_rl_tpu_torch.ops.flash_attention import (
         _delta,
@@ -956,47 +1151,8 @@ def gpt_oss_kernel_phase() -> list[dict]:
               plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None, shape=shape)
 
     # ---- K4 with a window and sinks ------------------------------------------------
-    ps = 64
-    p = 4096 // ps
-    np_ = s * p + 1
-    k_pool, v_pool = randn(nkv, np_, ps, hd), randn(nkv, np_, ps, hd)
-    table = (1 + torch.arange(s * p, device=dev, dtype=torch.int32)).reshape(s, p)
-    lengths = torch.randint(500, 1001, (s,), device=dev, generator=gen, dtype=torch.int32)
-    lengths[:4] = torch.tensor([5, 64, 126, 127], dtype=torch.int32)  # shorter than the window
-    qd, k_new, v_new = randn(s, nh, hd), randn(s, nkv, hd), randn(s, nkv, hd)
-    k4_cases = []
-    for window in (spec.sliding_window, 0):
-        form = f"window {window} + sinks" if window else "full + sinks"
-        k_ref, v_ref = k_pool.float(), v_pool.float()
-        o, _, _ = decode_paged_attention(qd, k_new, v_new, k_pool, v_pool, lengths, table,
-                                         window=window, sinks=sinks)
-        torch.cuda.synchronize()
-        ref_o, k_ref, v_ref = decode_paged_attention_reference(
-            qd.float(), k_new.float(), v_new.float(), k_ref, v_ref, lengths, table,
-            window=window, sinks=sinks)
-        err = check_close(f"decode_paged_attention {form}", o, ref_o, ATOL, RTOL)
-        for name, pool, want in (("k", k_pool, k_ref), ("v", v_pool, v_ref)):
-            if not torch.equal(pool.float(), want):
-                raise AssertionError(f"decode_paged_attention {form}: {name} pool writes are "
-                                     "not exact")
-        del k_ref, v_ref, ref_o
-        ms = time_ms(lambda: decode_paged_attention(qd, k_new, v_new, k_pool, v_pool, lengths,
-                                                    table, window=window, sinks=sinks),
-                     flush=flush)
-        plain = time_ms(lambda: decode_paged_attention_reference(
-            qd, k_new, v_new, k_pool, v_pool, lengths, table, window=window, sinks=sinks),
-            iters=5, flush=flush)
-        # cached rows attended: the window counts the new token
-        rows_read = int((lengths.clamp(max=window - 1) if window else lengths).sum())
-        nbytes = (rows_read * nkv * hd * 2 * 2 + 2 * (s * nkv * hd * 2 * 2) + 2 * s * nh * hd * 2
-                  + s * 4 + s * p * 4 + nh * 4)
-        bms, by = bound(nbytes, (rows_read + s) * nh * hd * 4)
-        shape = f"S={s} PS={ps} lengths 5..1000, {form}, {rows_read} cached rows read"
-        k4_cases.append(dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain,
-                             library_ms=None, bound_ms=bms, bound_by=by))
-        log(f"K4 decode_paged_attention {shape}: err {err:.3g}  kernel {ms:.4f} ms  plain "
-            f"{plain:.4f} ms  library none (sinks)  bound {bms:.4f} ms ({by})  (cold L2)")
-    del k_pool, v_pool, flush
+    k4_cases = k4_gpt_oss_cases(spec, gen, flush, sinks)
+    del flush
     torch.cuda.empty_cache()
 
     def row(name, source, replaces, cases):
@@ -2054,6 +2210,30 @@ def flash_build_report() -> None:
     if spills:
         raise AssertionError(f"{', '.join(spills)} use local memory: registers spill")
 
+def decode_build_report() -> None:
+    """Registers, local memory and shared memory of each instantiation of K4
+    (head dim 128 and 64, GQA group 1, 2, 4 and 8) as the runtime loaded it
+    (``cudaFuncGetAttributes``). Logs every instantiation, then raises if any
+    uses local memory (K4 has no local arrays, so any is a spill)."""
+    import ctypes
+
+    from prime_rl_tpu_torch.ops import _build
+
+    lib = _build.load("decode_attention")
+    spills = []
+    for hd in (128, 64):
+        for group in (1, 2, 4, 8):
+            attrs = (ctypes.c_int * 4)()
+            _build.check("decode_paged_attention",
+                         lib.decode_attention_attributes(hd, group, attrs))
+            regs, local, static, threads = attrs
+            log(f"K4 build: head dim {hd}, group {group}: {regs} registers a thread ({threads} "
+                f"threads a block), local memory (spills) {local} bytes a thread, shared memory "
+                f"{static} bytes static + {lib.decode_attention_smem(hd)} dynamic a block")
+            if local:
+                spills.append(f"K4 head dim {hd} group {group}")
+    if spills:
+        raise AssertionError(f"{', '.join(spills)} use local memory: registers spill")
 
 def main() -> int:
     # the DSA trainer's state comes within a few GiB of the card's memory: keep
@@ -2077,6 +2257,7 @@ def main() -> int:
     built = _build.build()
     log(f"build: {time.perf_counter() - t0:.2f} s ({', '.join(f'{k} {v:.2f} s' for k, v in built.items())})")
     flash_build_report()
+    decode_build_report()
 
     def timed(name, fn, *args):
         t = time.perf_counter()

@@ -18,14 +18,19 @@ Layout contract (matches sampler/cache.KVPool):
 
 What bounds it on the H100 and what the design does about it: see the
 source note in ``csrc/decode_attention.cu`` (bound by the bytes of the
-cached rows; one block per (slot, kv head) serves the GQA group, plain row
-store for the append, the new token's term from registers; the row loop
-starts at the window's first row, so rows below it are never read).
+cached rows; split-K over the attended rows in items of ``SPLIT_ROWS``, k/v
+tiles staged by ``cp.async`` through a shared-memory ring, one softmax step
+a tile on ``mma.sync``, and a fixed-order combine of the splits' f32
+partials, so that two launches give equal bits).
 
 For CPU tensors ``decode_paged_attention`` runs ``write_tokens`` +
 ``decode_attention_xla`` (the JAX package's ``_write_tokens`` and
 ``_decode_attention_xla``); for CUDA tensors it launches the kernel or
-raises.
+raises. ``decode_paged_attention_split_reference`` is the kernel's
+arithmetic in plain PyTorch (the same splits, per-split f32 partials, the
+fixed-order combine, then the new token and the sinks), and
+``decode_rows_visited`` the plain mirror of the rows each work item reads;
+``decode_rows_counts`` gives the kernel's own count.
 """
 
 from __future__ import annotations
@@ -39,19 +44,71 @@ from prime_rl_tpu_torch.ops import _build
 NEG_INF = -1e30
 KERNEL = "decode_paged_attention"
 _LIB = "decode_attention"
+# C: the cached rows one work item of the kernel covers (csrc SPLIT_ROWS)
+SPLIT_ROWS = 256
 
-_fn = None
+_fns: dict[bool, object] = {}
+_tickets: dict[tuple, torch.Tensor] = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = _build.load(_LIB).decode_paged_attention
+def _kernel(rows: bool = False):
+    """The C entry point; ``rows``: the one that also writes each work
+    item's rows read (one more pointer argument)."""
+    fn = _fns.get(rows)
+    if fn is None:
+        lib = _build.load(_LIB)
+        if lib.decode_split_rows() != SPLIT_ROWS:
+            raise RuntimeError(f"csrc/decode_attention.cu splits by {lib.decode_split_rows()} "
+                               f"rows, ops/decode_attention.py by {SPLIT_ROWS}")
+        fn = lib.decode_paged_attention_rows if rows else lib.decode_paged_attention
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 9 + [i] * 7 + [ctypes.c_float, i, p]
+        fn.argtypes = [p] * 11 + [i] * 7 + [ctypes.c_float, i, p] + [p] * rows
         fn.restype = i
-        _fn = fn
-    return _fn
+        _fns[rows] = fn
+    return fn
+
+
+def _ticket_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """int32 zeros, at least one a (slot, kv head), kept for each device and
+    stream: the kernel's last block of each (slot, kv head) sets its counter
+    back to zero, so the buffer is all zero whenever a launch on the stream
+    starts."""
+    buf = _tickets.get((device, stream))
+    if buf is None or buf.numel() < n:
+        buf = _tickets[(device, stream)] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                                       device=device)
+    return buf
+
+
+def max_splits(page_rows: int, split_rows: int = SPLIT_ROWS) -> int:
+    """Work items a (slot, kv head) can have: ceil(P * PS / C)."""
+    return max(1, -(-page_rows // split_rows))
+
+
+def one_split(page_rows: int, window: int = 0, split_rows: int = SPLIT_ROWS) -> bool:
+    """No slot can have two splits (the kernel then needs no workspace and no
+    ticket counters): the table holds at most C rows, or a window leaves at
+    most C cached rows."""
+    return page_rows <= split_rows or 0 < (window or 0) <= split_rows + 1
+
+
+def _window_lo(lengths: torch.Tensor, window: int) -> torch.Tensor:
+    """First cached row each slot attends (the window counts the new token)."""
+    n = lengths.long()
+    return (n + 1 - window).clamp(min=0) if window and window > 0 else torch.zeros_like(n)
+
+
+def decode_rows_visited(lengths: torch.Tensor, window: int, split_rows: int,
+                        max_splits: int) -> torch.Tensor:
+    """int32 [S, max_splits]: the cached rows work item j of each slot reads,
+    the plain mirror of the kernel's split rule. Split j covers rows
+    [lo + j*C, min(lo + (j+1)*C, n)) with n = lengths[s] and lo the window's
+    first row (0 without one); rows below lo and row n (the new token's) are
+    never read, and every attended row is read once."""
+    n = lengths.long()[:, None]
+    start = _window_lo(lengths, window)[:, None] + split_rows * torch.arange(
+        max_splits, device=lengths.device)[None, :]
+    return (torch.minimum(start + split_rows, n) - start).clamp(min=0).to(torch.int32)
 
 
 def token_slots(page_table: torch.Tensor, lengths: torch.Tensor, page_size: int) -> torch.Tensor:
@@ -115,6 +172,62 @@ def decode_paged_attention_reference(q, k_new, v_new, k_pool, v_pool, lengths, p
     return o.to(q.dtype), k_pool, v_pool
 
 
+def decode_paged_attention_split_reference(q, k_new, v_new, k_pool, v_pool, lengths, page_table,
+                                           *, sinks=None, window: int = 0,
+                                           split_rows: int = SPLIT_ROWS):
+    """The kernel's arithmetic in plain PyTorch, f32: append with
+    ``write_tokens``; for each slot and split j (the rows of
+    ``decode_rows_visited``) the partial (m_j, l_j, acc_j) over its rows;
+    the splits folded in the fixed order 0..k-1; then the new token's term
+    from k_new/v_new and the sinks. Returns (o in q.dtype, k_pool, v_pool)."""
+    flat_idx = token_slots(page_table, lengths, k_pool.shape[2])
+    write_tokens(k_pool, k_new.transpose(0, 1), flat_idx)
+    write_tokens(v_pool, v_new.transpose(0, 1), flat_idx)
+    s, nh, hd = q.shape
+    nkv, _, ps, _ = k_pool.shape
+    p = page_table.shape[1]
+    group, ms, c = nh // nkv, max_splits(p * ps, split_rows), split_rows
+    scale = hd ** -0.5
+    table = page_table.long()
+    # [NKV, S, P, PS, HD] -> [S, NKV, P*PS, HD]: row t of a slot is its position t
+    k_g = k_pool[:, table].transpose(0, 1).reshape(s, nkv, p * ps, hd).float()
+    v_g = v_pool[:, table].transpose(0, 1).reshape(s, nkv, p * ps, hd).float()
+    pos = _window_lo(lengths, window)[:, None] + torch.arange(ms * c, device=q.device)[None, :]
+    valid = (pos < lengths.long()[:, None]).reshape(s, 1, 1, ms, c)
+    idx = pos.clamp(max=p * ps - 1)[:, None, :, None].expand(s, nkv, ms * c, hd)
+    k_s = k_g.gather(2, idx).reshape(s, nkv, ms, c, hd)
+    v_s = v_g.gather(2, idx).reshape(s, nkv, ms, c, hd)
+    qf = q.float().reshape(s, nkv, group, hd)
+    scores = torch.einsum("skgd,skjcd->skgjc", qf, k_s) * scale
+    scores = torch.where(valid, scores, -torch.inf)
+    m = scores.amax(dim=-1)  # [S, NKV, G, MS]; -inf for a split with no row
+    pexp = torch.exp(scores - torch.where(torch.isfinite(m), m, 0.0)[..., None])
+    l = pexp.sum(dim=-1)
+    acc = torch.einsum("skgjc,skjcd->skgjd", pexp, v_s)
+    # the splits in order 0..k-1 (empty splits add 0)
+    m_all = m.amax(dim=-1)
+    coef = torch.exp(m - torch.where(torch.isfinite(m_all), m_all, 0.0)[..., None])
+    l_all = torch.zeros_like(m_all)
+    acc_all = torch.zeros(s, nkv, group, hd, device=q.device)
+    for j in range(ms):
+        l_all = l_all + l[..., j] * coef[..., j]
+        acc_all = acc_all + acc[..., j, :] * coef[..., j, None]
+    # the new token, then the sinks
+    s_new = torch.einsum("skgd,skd->skg", qf, k_new.float()) * scale
+    m_f = torch.maximum(m_all, s_new)
+    alpha, p_new = torch.exp(m_all - m_f), torch.exp(s_new - m_f)
+    l_all = l_all * alpha + p_new
+    acc_all = acc_all * alpha[..., None] + p_new[..., None] * v_new.float()[:, :, None, :]
+    if sinks is not None:
+        sk = sinks.float().reshape(1, nkv, group)
+        m2 = torch.maximum(m_f, sk)
+        c_f = torch.exp(m_f - m2)
+        l_all = l_all * c_f + torch.exp(sk - m2)
+        acc_all = acc_all * c_f[..., None]
+    o = (acc_all / l_all[..., None]).reshape(s, nh, hd)
+    return o.to(q.dtype), k_pool, v_pool
+
+
 def decode_paged_attention(
     q: torch.Tensor,  # [S, NH, HD]
     k_new: torch.Tensor,  # [S, NKV, HD] — the new token's K per slot
@@ -137,6 +250,28 @@ def decode_paged_attention(
             raise NotImplementedError("the plain version uses the default hd**-0.5 scale")
         return decode_paged_attention_reference(q, k_new, v_new, k_pool, v_pool, lengths,
                                                 page_table, sinks=sinks, window=window)
+    return _launch(q, k_new, v_new, k_pool, v_pool, lengths, page_table, sinks, window, sm_scale)
+
+
+def decode_rows_counts(q, k_new, v_new, k_pool, v_pool, lengths, page_table, *, sinks=None,
+                       window: int = 0, sm_scale: float | None = None) -> torch.Tensor:
+    """int32 [S, NKV, max_splits]: the cached rows each work item of the
+    kernel read, as it counted them in one launch on these inputs (which also
+    appends, as ``decode_paged_attention`` does). Only the kernel counts: CPU
+    tensors raise (``decode_rows_visited`` is the split rule's plain mirror)."""
+    if not q.is_cuda:
+        raise ValueError("decode_rows_counts: the counts come from the kernel, which takes CUDA "
+                         "tensors")
+    s, nkv = q.shape[0], k_pool.shape[0]
+    rows = torch.zeros((s, nkv, max_splits(page_table.shape[1] * k_pool.shape[2], SPLIT_ROWS)),
+                       dtype=torch.int32, device=q.device)
+    _launch(q, k_new, v_new, k_pool, v_pool, lengths, page_table, sinks, window, sm_scale, rows)
+    return rows
+
+
+def _launch(q, k_new, v_new, k_pool, v_pool, lengths, page_table, sinks, window, sm_scale,
+            rows=None):
+    s, nh, hd = q.shape
     nkv, np_, ps, _ = k_pool.shape
     p = page_table.shape[1]
     if hd not in (64, 128) or nh % nkv or nh // nkv not in (1, 2, 4, 8):
@@ -155,12 +290,26 @@ def decode_paged_attention(
     if sinks is not None:
         sinks = sinks.to(torch.float32).reshape(nh).contiguous()
         _build.require(sinks, "sinks", torch.float32, (nh,))
+    window = int(window or 0)
     out = torch.empty_like(q)
+    # the splits' f32 partials (acc [S, NKV, MS, G, HD] then (m, l) [S, NKV,
+    # MS, G, 2]) and the counters that find each (slot, kv head)'s last split
+    work = tickets = None
+    stream = _build.stream_ptr(q)
+    if not one_split(p * ps, window, SPLIT_ROWS):
+        work = torch.empty(s * nkv * max_splits(p * ps, SPLIT_ROWS) * (nh // nkv) * (hd + 2),
+                           dtype=torch.float32, device=q.device)
+        tickets = _ticket_counters(q.device, stream, s * nkv)
     scale = hd ** -0.5 if sm_scale is None else float(sm_scale)
-    fn = _kernel()
-    _build.check(KERNEL, fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_pool.data_ptr(),
-                            v_pool.data_ptr(), lengths.data_ptr(), page_table.data_ptr(),
-                            None if sinks is None else sinks.data_ptr(), out.data_ptr(), s, nh,
-                            nkv, hd, np_, ps, p, scale, int(window or 0), _build.stream_ptr(q)))
-    _build.count(KERNEL, window or 0, sinks is not None)
+    args = (q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_pool.data_ptr(),
+            v_pool.data_ptr(), lengths.data_ptr(), page_table.data_ptr(),
+            None if sinks is None else sinks.data_ptr(), out.data_ptr(),
+            None if work is None else work.data_ptr(),
+            None if tickets is None else tickets.data_ptr(), s, nh, nkv, hd, np_, ps, p, scale,
+            window, stream)
+    if rows is not None:
+        _build.require(rows, "rows", torch.int32, (s, nkv, max_splits(p * ps, SPLIT_ROWS)))
+        args += (rows.data_ptr(),)
+    _build.check(KERNEL, _kernel(rows is not None)(*args))
+    _build.count(KERNEL, window, sinks is not None)
     return out, k_pool, v_pool

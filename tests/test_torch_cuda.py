@@ -30,8 +30,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402  (its K1 edge cases and packings)
 from prime_rl_tpu_torch.ops import _build
 from prime_rl_tpu_torch.ops.decode_attention import (
+    SPLIT_ROWS,
     decode_paged_attention,
     decode_paged_attention_reference,
+    decode_rows_counts,
+    decode_rows_visited,
+    max_splits,
 )
 from prime_rl_tpu_torch.ops.decode_qkv import decode_qkv_prep, decode_qkv_prep_reference
 from prime_rl_tpu_torch.ops.flash_attention import (
@@ -318,6 +322,71 @@ def test_decode_paged_attention_window_and_sinks_match_plain(gen, window, with_s
         sinks=sinks)
     _assert_close(o, ref_o)
     assert torch.equal(k_pool.float(), k_ref) and torch.equal(v_pool.float(), v_ref)
+
+
+@pytest.mark.parametrize("hd,group,ps,window,with_sinks", [
+    (128, 2, 16, 0, False), (128, 2, 64, 0, False), (64, 8, 64, 0, True), (64, 8, 16, 128, True),
+    (128, 8, 16, 300, False), (64, 1, 64, 300, True)])
+def test_decode_paged_attention_split_k_matches_plain(gen, hd, group, ps, window, with_sinks):
+    """Split-K over long contexts: up to 8 splits of ``SPLIT_ROWS`` rows,
+    lengths at and next to the split and page boundaries, windows of one and
+    two splits, sinks: the output against the plain version, the pools exact,
+    two launches with equal bits, one launch counted a call, and the rows each
+    work item read (the kernel's count) equal to the split rule's mirror."""
+    s, nkv, p = 7, 2, 2048 // ps
+    nh = nkv * group
+    lengths = [0, 1, SPLIT_ROWS - 1, SPLIT_ROWS, SPLIT_ROWS + 1, 1000, 2047]
+    q, k_new, v_new, k_pool, v_pool, lengths, table = chip_smoke.k4_inputs(
+        gen, s, nh, nkv, hd, ps, p, lengths)
+    sinks = torch.randn(nh, device="cuda", generator=gen) if with_sinks else None
+    kw = dict(window=window, sinks=sinks)
+    k_ref, v_ref = k_pool.float(), v_pool.float()
+    k2, v2, k3, v3 = k_pool.clone(), v_pool.clone(), k_pool.clone(), v_pool.clone()
+    before = _build.launches["decode_paged_attention"]
+    o, _, _ = decode_paged_attention(q, k_new, v_new, k_pool, v_pool, lengths, table, **kw)
+    o2, _, _ = decode_paged_attention(q, k_new, v_new, k2, v2, lengths, table, **kw)
+    torch.cuda.synchronize()
+    assert _build.launches["decode_paged_attention"] == before + 2
+    assert torch.equal(o, o2) and torch.equal(k_pool, k2) and torch.equal(v_pool, v2)
+    ref_o, k_ref, v_ref = decode_paged_attention_reference(
+        q.float(), k_new.float(), v_new.float(), k_ref, v_ref, lengths, table, **kw)
+    _assert_close(o, ref_o)
+    assert torch.equal(k_pool.float(), k_ref) and torch.equal(v_pool.float(), v_ref)
+    rows = decode_rows_counts(q, k_new, v_new, k3, v3, lengths, table, **kw)
+    want = decode_rows_visited(lengths, window, SPLIT_ROWS, max_splits(p * ps))
+    assert torch.equal(rows, want[:, None, :].expand_as(rows))
+
+
+@pytest.mark.parametrize("window", [0, 100])
+def test_decode_paged_attention_never_reads_rows_outside_the_window(gen, window):
+    """A poisoned pool: NaN in every row of the slots' pages outside [lo, n)
+    (below the window, the new token's row n and everything past it). The
+    kernel reads none of them: its output is finite and equals the plain
+    version's on a clean copy, and the rows it attends are left as they were."""
+    s, nkv, group, hd, ps, p = 5, 2, 4, 128, 16, 64
+    q, k_new, v_new, k_pool, v_pool, lengths, table = chip_smoke.k4_inputs(
+        gen, s, nkv * group, nkv, hd, ps, p, [0, 17, 300, 700, 1000])
+    k_ref, v_ref = k_pool.float(), v_pool.float()
+    pos = torch.arange(p * ps, device="cuda")[None, :]
+    n = lengths.long()[:, None]
+    lo = (n + 1 - window).clamp(min=0) if window else torch.zeros_like(n)
+    outside = ((pos < lo) | (pos >= n)).reshape(s, p, ps)  # [slot, page of the slot, row]
+    pages = table.long()
+    for pool in (k_pool, v_pool):
+        pool[:, pages] = torch.where(outside[None, ..., None], float("nan"), pool[:, pages].float()
+                                     ).to(pool.dtype)
+    attended = ~outside
+    k_before = k_pool[:, pages][:, attended].clone()
+    o, _, _ = decode_paged_attention(q, k_new, v_new, k_pool, v_pool, lengths, table,
+                                     window=window)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o.float()).all()
+    ref_o, _, _ = decode_paged_attention_reference(
+        q.float(), k_new.float(), v_new.float(), k_ref, v_ref, lengths, table, window=window)
+    _assert_close(o, ref_o)
+    assert torch.equal(k_pool[:, pages][:, attended], k_before)
+    new_rows = k_pool.view(nkv, -1, hd)[:, (pages.gather(1, n // ps) * ps + n % ps)[:, 0]]
+    assert torch.equal(new_rows, k_new.transpose(0, 1))
 
 
 def _sparse_case(gen, S, T):
