@@ -8,10 +8,16 @@ Phases (any failure raises and exits non-zero before the last line):
   1. device   — requires CUDA; prints nvidia-smi's name and power limit.
   2. build    — compiles the hand-written kernels from ``prime_rl_tpu_torch/csrc``
                 and prints the registers, local memory and shared memory of each of
-                the four instantiations of K1, K2a and K2b and the eight of K4 as
-                the runtime loaded them (it fails on local memory: a spill).
+                the four instantiations of K1, K2a, K2b and K3 and the eight of K4
+                as the runtime loaded them (it fails on local memory: a spill),
+                and K3's launch (split of D, ring, clusters) at both serving shapes.
   3. kernels  — K1 flash_attn_fwd, K3 decode_qkv_prep and K4 decode_paged_attention
-                at the Qwen3-0.6B shapes of the serving path (K1 also at the
+                at the Qwen3-0.6B shapes of the serving path (K3 also over
+                K3_EDGE_CASES: S from 1 to 256, both head dims, rot < HD,
+                biases with and without qk-norm, positions near 131071 with
+                YaRN, each launched twice for equal bits, with the weight tiles
+                each block loaded, as the kernel counted them, held against the
+                tiling's mirror; its yardstick the cuBLAS product alone; K1 also at the
                 trainer's rows of four sequences; K4 also over 16 slots of
                 3000-4000 cached tokens, and over K4_EDGE_CASES: lengths 0 and
                 at split and page boundaries, inactive slots, windows, sinks,
@@ -747,10 +753,192 @@ def k4_gpt_oss_cases(spec, gen, flush, sinks) -> list[dict]:
     return cases
 
 
-def kernel_phase(spec) -> list[dict]:
+def k3_inputs(gen, s: int, d: int, nh: int, nkv: int, hd: int, *, qk_norm: bool, bias: bool,
+              inv_freq=None, scaling: float = 1.0, rot=None, positions=(0, 4000), eps=1e-6):
+    """One K3 call: x [s, d] and the norm weight near 1, wq/wk/wv of scale
+    0.02, q/k norm weights near 1 (with ``qk_norm``), q/k/v biases of scale 0.5
+    (with ``bias``), positions drawn from [lo, hi), and ``inv_freq`` (default
+    theta 1e6 over ``rot`` = head dim channels). Returns (args, kwargs) of
+    ``decode_qkv_prep``."""
+    import torch
+
+    dev = gen.device
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, device=dev, generator=gen) * scale).to(torch.bfloat16)
+
+    def near_one(n):
+        return (1 + 0.1 * torch.randn(n, device=dev, generator=gen)).to(torch.bfloat16)
+
+    rot = (2 * inv_freq.numel() if inv_freq is not None else hd) if rot is None else rot
+    if inv_freq is None:
+        inv_freq = 1.0 / (1e6 ** (torch.arange(0, rot, 2, device=dev, dtype=torch.float32) / rot))
+    x, nw = randn(s, d), near_one(d)
+    wq, wk, wv = (randn(d, n * hd, scale=0.02) for n in (nh, nkv, nkv))
+    pos = torch.randint(positions[0], positions[1], (s,), device=dev, generator=gen,
+                        dtype=torch.int32)
+    kw = dict(num_heads=nh, num_kv_heads=nkv, head_dim=hd, qk_norm=qk_norm, rot=rot,
+              scaling=scaling, eps=eps)
+    if qk_norm:
+        kw.update(q_norm_w=near_one(hd), k_norm_w=near_one(hd))
+    if bias:
+        kw.update(zip(("q_bias", "k_bias", "v_bias"),
+                      (randn(n * hd, scale=0.5) for n in (nh, nkv, nkv))))
+    return (x, nw, wq, wk, wv, pos, inv_freq), kw
+
+
+def k3_check(name: str, args, kw, launches: int = 2) -> float:
+    """K3 on one call's inputs against its plain version (float32 arithmetic
+    on the same bf16 inputs) at ATOL + RTOL |ref|; with ``launches`` 2, equal
+    bits across two launches. Returns the max error."""
     import torch
 
     from prime_rl_tpu_torch.ops.decode_qkv import decode_qkv_prep, decode_qkv_prep_reference
+
+    runs = [decode_qkv_prep(*args, **kw) for _ in range(launches)]
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for run in runs[1:] for a, b in zip(runs[0], run)):
+        raise AssertionError(f"decode_qkv_prep {name}: two launches differ")
+    ref = decode_qkv_prep_reference(args[0].float(), *args[1:], **kw)
+    return max(check_close(f"decode_qkv_prep {name} {n}", g, r, ATOL, RTOL)
+               for n, g, r in zip("qkv", runs[0], ref))
+
+
+def k3_tiles(name: str, args, kw) -> dict:
+    """The weight tiles K3's blocks loaded, as the kernel counted them in one
+    launch (``decode_qkv_tile_counts``); raises unless every block's count is
+    the tiling's plain mirror (``decode_qkv_tiles_visited``) and, up to 128
+    rows, unless every weight tile was loaded exactly once. Returns the
+    tiles loaded, the weight's tiles and the launch's split."""
+    import math
+
+    import torch
+
+    from prime_rl_tpu_torch.ops.decode_qkv import (
+        COL_TILE,
+        ROWS_PER_BLOCK,
+        WEIGHT_TILE_ROWS,
+        decode_qkv_tile_counts,
+        decode_qkv_tiles_visited,
+    )
+
+    x = args[0]
+    s, d = x.shape
+    ncols = [w.shape[1] for w in args[2:5]]
+    counts = decode_qkv_tile_counts(*args, **kw)
+    splits = counts.shape[2]
+    want = decode_qkv_tiles_visited(s, d, ncols, splits).to(counts.device)
+    if not torch.equal(counts, want):
+        raise AssertionError(f"decode_qkv_prep {name}: the weight tiles the kernel's blocks "
+                             "loaded differ from the tiling's (decode_qkv_tiles_visited)")
+    tiles = math.ceil(d / WEIGHT_TILE_ROWS) * sum(math.ceil(n / COL_TILE) for n in ncols)
+    loaded = int(counts.sum())
+    if s <= ROWS_PER_BLOCK and loaded != tiles:
+        raise AssertionError(f"decode_qkv_prep {name}: {loaded} weight tiles loaded of {tiles}")
+    return dict(tiles_loaded=loaded, weight_tiles=tiles, splits=splits)
+
+
+def k3_timing(name: str, args, kw, flush) -> dict:
+    """K3 on one call's inputs: its median time beside its plain version's
+    and, as the yardstick, the cuBLAS product alone (``torch.matmul`` of the
+    bf16 normed x by the [D, ncols] concatenation of wq, wk, wv; the norm and
+    the concatenation untimed: not the same function, so no library time),
+    the L2 flushed before each call. Its bound counts x, the weights, the
+    norm/bias weights, positions, inv_freq and the outputs, each moved once,
+    and 2 S D ncols flops. Also the weight tiles its blocks loaded
+    (``k3_tiles``). Logs one line; returns the row's numbers."""
+    import torch
+
+    from prime_rl_tpu_torch.ops.decode_qkv import decode_qkv_prep, decode_qkv_prep_reference
+
+    x, nw, wq, wk, wv, pos, inv_freq = args
+    s, d = x.shape
+    ncols = wq.shape[1] + wk.shape[1] + wv.shape[1]
+    xf = x.float()
+    xn = (xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + kw["eps"]) * nw.float()).to(
+        torch.bfloat16)
+    wcat = torch.cat([wq, wk, wv], 1)
+    ms = time_ms(lambda: decode_qkv_prep(*args, **kw), flush=flush)
+    plain = time_ms(lambda: decode_qkv_prep_reference(*args, **kw), flush=flush)
+    product = time_ms(lambda: torch.matmul(xn, wcat), flush=flush)
+    del xf, xn, wcat
+    extra = sum(kw[n].numel() for n in ("q_bias", "k_bias", "v_bias", "q_norm_w", "k_norm_w")
+                if kw.get(n) is not None)
+    nbytes = (s * d + d * ncols + d + extra + s * ncols) * 2 + s * 4 + inv_freq.numel() * 4
+    bms, by = bound(nbytes, 2 * s * d * ncols)
+    tiles = k3_tiles(name, args, kw)
+    log(f"K3 decode_qkv_prep {name}: kernel {ms:.4f} ms  plain {plain:.4f} ms  cuBLAS product "
+        f"alone {product:.4f} ms  bound {bms:.4f} ms ({by}); split {tiles['splits']}, "
+        f"{tiles['tiles_loaded']} weight tiles loaded of {tiles['weight_tiles']} (kernel's count)")
+    return dict(ms=ms, plain_ms=plain, library_ms=None, cublas_product_ms=product, bound_ms=bms,
+                bound_by=by, **tiles)
+
+
+# The edge cases of K3 (name, S, D, NH, NKV, HD, qk-norm, biases, rot,
+# positions [lo, hi), YaRN): S of 1, 7, 64, 65 (two M tiles), 130 and 256 (row
+# groups that load the weights again), D a multiple of 16 and not of 64 (a
+# partial last K tile), both head dims, a kv projection of one 64-wide head
+# (half a column tile), rot < HD, biases with and without qk-norm, positions
+# near 131071 with gpt-oss's YaRN frequencies and scaling ("yarn") and with
+# theta 1e6
+K3_EDGE_CASES = (
+    ("S 1 hd 128 qk-norm", 1, 1024, 16, 8, 128, True, False, 128, (0, 4000), False),
+    ("S 7 hd 64 D 400 biases rot 32", 7, 400, 8, 2, 64, False, True, 32, (0, 300), False),
+    ("S 64 hd 64 qk-norm + biases rot 48, one kv head", 64, 1024, 6, 1, 64, True, True, 48,
+     (0, 4000), False),
+    ("S 65 hd 128 D 1040 qk-norm rot 64", 65, 1040, 16, 8, 128, True, False, 64, (0, 4000),
+     False),
+    ("S 130 hd 64 D 2880 biases YaRN, positions near 131071", 130, 2880, 64, 8, 64, False,
+     True, None, (130000, 131072), True),
+    ("S 256 hd 128 qk-norm, positions near 131071", 256, 1024, 16, 8, 128, True, False, 128,
+     (130000, 131072), False),
+)
+
+
+def k3_edge_cases(gen) -> tuple[int, float]:
+    """K3 on every case of K3_EDGE_CASES against its plain version, two
+    launches on each for equal bits, the weight tiles each block loaded as
+    the kernel counted them against the tiling's mirror. Returns (cases, max
+    error)."""
+    from prime_rl_tpu_torch.models.base import get_spec
+    from prime_rl_tpu_torch.models.qwen3 import rope_setup
+
+    yarn_freq, yarn = rope_setup(get_spec(GPT_OSS), device=gen.device)
+    worst = 0.0
+    for name, s, d, nh, nkv, hd, qk_norm, bias, rot, positions, use_yarn in K3_EDGE_CASES:
+        rope = dict(inv_freq=yarn_freq, scaling=yarn) if use_yarn else dict(rot=rot)
+        args, kw = k3_inputs(gen, s, d, nh, nkv, hd, qk_norm=qk_norm, bias=bias,
+                             positions=positions, **rope)
+        worst = max(worst, k3_check(name, args, kw))
+        tiles = k3_tiles(name, args, kw)
+        log(f"K3 edge case {name}: within tolerance, two launches equal, split "
+            f"{tiles['splits']}, {tiles['tiles_loaded']} weight tiles loaded of "
+            f"{tiles['weight_tiles']} as the tiling gives")
+        del args, kw
+    return len(K3_EDGE_CASES), worst
+
+
+def k3_row(spec, gen, flush, name: str, *, qk_norm: bool, bias: bool) -> dict:
+    """K3 at a model's serving shape (64 decode slots, positions 0-3999, the
+    model's rope): checked (``k3_check``) and timed (``k3_timing``)."""
+    from prime_rl_tpu_torch.models.qwen3 import rope_setup
+
+    inv_freq, scaling = rope_setup(spec, device=gen.device)
+    s = 64
+    args, kw = k3_inputs(gen, s, spec.hidden_size, spec.num_heads, spec.num_kv_heads,
+                         spec.head_dim, qk_norm=qk_norm, bias=bias, inv_freq=inv_freq,
+                         scaling=scaling, eps=spec.rms_eps)
+    err = k3_check(name, args, kw)
+    shape = (f"S={s} D={spec.hidden_size} {spec.num_heads}/{spec.num_kv_heads} heads hd "
+             f"{spec.head_dim}{', biases' if bias else ''}{', qk-norm' if qk_norm else ''}"
+             f"{f', YaRN x{scaling:.4f}' if scaling != 1.0 else ''}")
+    return dict(shape=shape, max_abs_err=err, **k3_timing(f"{name} {shape} (err {err:.3g})",
+                                                          args, kw, flush))
+
+
+def kernel_phase(spec) -> list[dict]:
+    import torch
+
     from prime_rl_tpu_torch.ops.flash_attention import (
         flash_attention_reference,
         flash_attention_with_lse,
@@ -759,7 +947,7 @@ def kernel_phase(spec) -> list[dict]:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
-    nh, nkv, hd, d = spec.num_heads, spec.num_kv_heads, spec.head_dim, spec.hidden_size
+    nh, nkv, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
 
     def randn(*shape, scale=1.0):
@@ -828,38 +1016,15 @@ def kernel_phase(spec) -> list[dict]:
                          cases=cases, edge_cases=n_edge))
 
     # ---- K3: decode qkv prep ----------------------------------------------
-    s = 64
-    x = randn(s, d)
-    nw = (1 + 0.1 * torch.randn(d, device=dev, generator=gen)).to(torch.bfloat16)
-    wq, wk, wv = randn(d, nh * hd, scale=0.02), randn(d, nkv * hd, scale=0.02), randn(
-        d, nkv * hd, scale=0.02)
-    qn = (1 + 0.1 * torch.randn(hd, device=dev, generator=gen)).to(torch.bfloat16)
-    kn = (1 + 0.1 * torch.randn(hd, device=dev, generator=gen)).to(torch.bfloat16)
-    positions = torch.randint(0, 4000, (s,), device=dev, generator=gen, dtype=torch.int32)
-    from prime_rl_tpu_torch.models.qwen3 import rope_setup
-
-    inv_freq, scaling = rope_setup(spec, device=dev)
-    kw = dict(num_heads=nh, num_kv_heads=nkv, head_dim=hd, qk_norm=True, q_norm_w=qn,
-              k_norm_w=kn, scaling=scaling, eps=spec.rms_eps)
-    got = decode_qkv_prep(x, nw, wq, wk, wv, positions, inv_freq, **kw)
-    torch.cuda.synchronize()
-    ref = decode_qkv_prep_reference(x.float(), nw, wq, wk, wv, positions, inv_freq, **kw)
-    err = max(check_close(f"decode_qkv_prep {n}", g, r, ATOL, RTOL)
-              for n, g, r in zip("qkv", got, ref))
-    ms = time_ms(lambda: decode_qkv_prep(x, nw, wq, wk, wv, positions, inv_freq, **kw),
-                 flush=flush)
-    plain = time_ms(lambda: decode_qkv_prep_reference(x, nw, wq, wk, wv, positions, inv_freq,
-                                                      **kw), flush=flush)
-    ncols = (nh + 2 * nkv) * hd
-    nbytes = (s * d + d * ncols + d + 2 * hd + s * ncols) * 2 + s * 4 + inv_freq.numel() * 4
-    bms, by = bound(nbytes, 2 * s * d * ncols)
-    log(f"K3 decode_qkv_prep S={s}: err {err:.3g}  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
-        f"bound {bms:.4f} ms ({by})  (cold L2)")
+    case = k3_row(spec, gen, flush, "Qwen3", qk_norm=True, bias=False)
+    n_edge, edge_err = k3_edge_cases(gen)
+    log(f"K3 decode_qkv_prep edge cases: {n_edge} cases within tolerance, max err "
+        f"{edge_err:.3g}, two launches on each gave equal bits, weight tiles as the tiling gives")
     rows.append(dict(name="decode_qkv_prep", route="cuda",
                      source="prime_rl_tpu_torch/csrc/decode_qkv.cu",
-                     replaces="prime_rl_tpu/ops/decode_qkv.py:36", max_abs_err=err, ms=ms,
-                     plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
-                     shape=f"S={s} D={d}"))
+                     replaces="prime_rl_tpu/ops/decode_qkv.py:36",
+                     **{k: v for k, v in case.items() if k != "max_abs_err"},
+                     max_abs_err=max(edge_err, case["max_abs_err"]), edge_cases=n_edge))
 
     # ---- K4: paged decode attention + KV append ---------------------------
     cases = k4_qwen3_cases(spec, gen, flush)
@@ -1025,8 +1190,6 @@ def gpt_oss_kernel_phase() -> list[dict]:
     import torch
 
     from prime_rl_tpu_torch.models.base import get_spec
-    from prime_rl_tpu_torch.models.qwen3 import rope_setup
-    from prime_rl_tpu_torch.ops.decode_qkv import decode_qkv_prep, decode_qkv_prep_reference
     from prime_rl_tpu_torch.ops.flash_attention import (
         _delta,
         _fwd,
@@ -1038,7 +1201,7 @@ def gpt_oss_kernel_phase() -> list[dict]:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
-    nh, nkv, hd, d = spec.num_heads, spec.num_kv_heads, spec.head_dim, spec.hidden_size
+    nh, nkv, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
 
     def randn(*shape, scale=1.0):
@@ -1121,34 +1284,11 @@ def gpt_oss_kernel_phase() -> list[dict]:
     torch.cuda.empty_cache()
 
     # ---- K3 at gpt-oss-20b's shapes --------------------------------------------
-    s = 64
-    x = randn(s, d)
-    nw = (1 + 0.1 * torch.randn(d, device=dev, generator=gen)).to(torch.bfloat16)
-    wq, wk, wv = (randn(d, n * hd, scale=0.02) for n in (nh, nkv, nkv))
-    bq, bk, bv = (randn(n * hd, scale=0.5) for n in (nh, nkv, nkv))
-    positions = torch.randint(0, 4000, (s,), device=dev, generator=gen, dtype=torch.int32)
-    inv_freq, yarn = rope_setup(spec, device=dev)
-    kw = dict(num_heads=nh, num_kv_heads=nkv, head_dim=hd, qk_norm=False, q_bias=bq, k_bias=bk,
-              v_bias=bv, scaling=yarn, eps=spec.rms_eps)
-    got = decode_qkv_prep(x, nw, wq, wk, wv, positions, inv_freq, **kw)
-    torch.cuda.synchronize()
-    ref = decode_qkv_prep_reference(x.float(), nw, wq, wk, wv, positions, inv_freq, **kw)
-    err = max(check_close(f"decode_qkv_prep gpt-oss {n}", g, r, ATOL, RTOL)
-              for n, g, r in zip("qkv", got, ref))
-    ms = time_ms(lambda: decode_qkv_prep(x, nw, wq, wk, wv, positions, inv_freq, **kw),
-                 flush=flush)
-    plain = time_ms(lambda: decode_qkv_prep_reference(x, nw, wq, wk, wv, positions, inv_freq,
-                                                      **kw), flush=flush)
-    ncols = (nh + 2 * nkv) * hd
-    nbytes = (s * d + d * ncols + d + ncols + s * ncols) * 2 + s * 4 + inv_freq.numel() * 4
-    bms, by = bound(nbytes, 2 * s * d * ncols)
-    shape = f"S={s} D={d} {nh}/{nkv} heads hd {hd}, biases, no qk-norm, YaRN x{yarn:.4f}"
-    log(f"K3 decode_qkv_prep {shape}: err {err:.3g}  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
-        f"bound {bms:.4f} ms ({by})  (cold L2)")
+    case = k3_row(spec, gen, flush, "gpt-oss", qk_norm=False, bias=True)
     k3 = dict(name="decode_qkv_prep/gpt-oss", route="cuda",
               source="prime_rl_tpu_torch/csrc/decode_qkv.cu",
-              replaces="prime_rl_tpu/ops/decode_qkv.py:36", max_abs_err=err, ms=ms,
-              plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None, shape=shape)
+              replaces="prime_rl_tpu/ops/decode_qkv.py:36",
+              **case)
 
     # ---- K4 with a window and sinks ------------------------------------------------
     k4_cases = k4_gpt_oss_cases(spec, gen, flush, sinks)
@@ -2212,12 +2352,17 @@ def flash_build_report() -> None:
 
 def decode_build_report() -> None:
     """Registers, local memory and shared memory of each instantiation of K4
-    (head dim 128 and 64, GQA group 1, 2, 4 and 8) as the runtime loaded it
-    (``cudaFuncGetAttributes``). Logs every instantiation, then raises if any
-    uses local memory (K4 has no local arrays, so any is a spill)."""
+    (head dim 128 and 64, GQA group 1, 2, 4 and 8) and of K3 (head dim 128
+    and 64, one and two 64-row M tiles a block) as the runtime loaded it
+    (``cudaFuncGetAttributes``), and K3's launch at the serving shapes of
+    Qwen3-0.6B and gpt-oss-20b (split of D, clusters the card holds, shared
+    memory). Logs every instantiation, then raises if any uses local memory
+    (neither kernel has local arrays, so any is a spill)."""
     import ctypes
 
+    from prime_rl_tpu_torch.models.base import get_spec
     from prime_rl_tpu_torch.ops import _build
+    from prime_rl_tpu_torch.ops.decode_qkv import decode_qkv_plan
 
     lib = _build.load("decode_attention")
     spills = []
@@ -2232,6 +2377,25 @@ def decode_build_report() -> None:
                 f"{static} bytes static + {lib.decode_attention_smem(hd)} dynamic a block")
             if local:
                 spills.append(f"K4 head dim {hd} group {group}")
+    k3 = _build.load("decode_qkv")
+    for hd in (128, 64):
+        for mt in (1, 2):
+            attrs = (ctypes.c_int * 4)()
+            _build.check("decode_qkv_prep", k3.decode_qkv_attributes(hd, mt, attrs))
+            regs, local, static, threads = attrs
+            log(f"K3 build: head dim {hd}, {mt} M tile{'s' if mt > 1 else ''} a block: {regs} "
+                f"registers a thread ({threads} threads a block), local memory (spills) {local} "
+                f"bytes a thread, shared memory {static} bytes static")
+            if local:
+                spills.append(f"K3 head dim {hd} M tiles {mt}")
+    for model in (MODEL, GPT_OSS):
+        spec = get_spec(model)
+        plan = decode_qkv_plan(64, spec.hidden_size, spec.num_heads, spec.num_kv_heads,
+                               spec.head_dim)
+        log(f"K3 launch at {model}'s S=64: {plan['col_tiles']} column tiles x split "
+            f"{plan['splits']} = {plan['col_tiles'] * plan['splits']} blocks, a ring of "
+            f"{plan['stages']} stages, {plan['smem']} bytes of dynamic shared memory a block, "
+            f"{plan['clusters']} clusters of {plan['splits']} at once")
     if spills:
         raise AssertionError(f"{', '.join(spills)} use local memory: registers spill")
 

@@ -1,9 +1,10 @@
 // Hopper building blocks shared by the flash-attention kernels
-// (flash_attn_fwd.cu: K1; flash_attn_bwd.cu: K2a, K2b): mbarriers, TMA loads,
-// wgmma shared-memory descriptors and products, and the host's tensor maps.
+// (flash_attn_fwd.cu: K1; flash_attn_bwd.cu: K2a, K2b) and the decode QKV
+// prep (decode_qkv.cu: K3): mbarriers, TMA loads, wgmma shared-memory
+// descriptors and products, and the host's tensor maps.
 // Everything is in an anonymous namespace: each kernel source gets its own
 // copy. ops/_build.py hashes this header with every source, so a change here
-// rebuilds both libraries.
+// rebuilds every library.
 
 #pragma once
 
@@ -68,6 +69,26 @@ __device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.1d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
+      : "memory");
+}
+
+// one box of a 2-D tensor map into shared memory, completion on `bar`
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from global `src` to shared `dst` (both on 16
+// bytes) by the bulk copy engine, no tensor map; completion on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 
@@ -275,6 +296,21 @@ bool tensor_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int hd, i
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
                 box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a row-major [rows, cols] bf16 matrix as a 2-D map (cols, rows) with boxes
+// of (64, box_rows) in the 128-byte swizzle (a box lands as wgmma's
+// 128-byte-swizzled tile); out of range reads give 0 and touch no memory.
+// `cols` must be a multiple of 8 (rows start on 16 bytes).
+bool matrix_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int cols, int rows,
+                int box_rows, CUtensorMapL2promotion promotion) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, promotion,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

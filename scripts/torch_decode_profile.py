@@ -2,15 +2,17 @@
 """Where a decode step of the PyTorch port's engine spends its time, on one
 NVIDIA GPU.
 
-    python3 scripts/torch_decode_profile.py [--model qwen3|gpt-oss]
+    python3 scripts/torch_decode_profile.py [--model qwen3|gpt-oss] [--windows N]
 
 Builds the engine for Qwen3-0.6B (28 layers, full vocabulary, random weights
 from seed 0, bf16; ``--model gpt-oss``: openai/gpt-oss-20b, 24 layers, all 32
 experts, windows of 128 on every other layer, sinks), fills all 64 decode
 slots with prompts of 500 to 1000 random tokens (unfiltered sampling at
 temperature 1, the RL rollout setting), lets the engine admit them and run, then measures decode blocks
-(8 steps each): host-clock time per step, and under ``torch.profiler`` the
-device time per kernel name and the device's idle share of the window.
+(8 steps each): host-clock time per step over N unprofiled windows of 48
+steps (default 5; their median and spread: one window does not resolve the
+host clock), and under ``torch.profiler`` one more window's device time per
+kernel name and the device's idle share.
 Prints a table, then one JSON line with the numbers.
 """
 
@@ -41,6 +43,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", default="qwen3", choices=sorted(MODELS))
+    ap.add_argument("--windows", type=int, default=5,
+                    help="unprofiled windows of 48 steps on the host clock")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
@@ -79,7 +83,8 @@ def main() -> int:
         return wall
 
     steps = BLOCKS * engine.decode_block
-    wall = window()
+    walls = sorted(window() for _ in range(max(args.windows, 1)))
+    wall = walls[len(walls) // 2]  # the median window
     _build.reset_launches()
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -100,10 +105,14 @@ def main() -> int:
         "card": card, "model": MODELS[args.model], "slots": SLOTS,
         "mean_context_tokens": context, "steps": steps,
         "ms_per_step": wall / steps * 1e3, "tokens_per_s": SLOTS * steps / wall,
+        "windows": len(walls),
+        "ms_per_step_windows": [w / steps * 1e3 for w in walls],
+        "ms_per_step_spread": (walls[-1] - walls[0]) / steps * 1e3,
+        "tokens_per_s_range": [SLOTS * steps / walls[-1], SLOTS * steps / walls[0]],
         "profiled_ms_per_step": wall_prof / steps * 1e3,
         "device_busy_ms_per_step": busy_ms / steps,
         # the profiler slows the host, not the kernels: the idle share of an
-        # unprofiled step is the busy time against the unprofiled wall
+        # unprofiled step is the busy time against the median unprofiled wall
         "device_idle_share": 1.0 - busy_ms / steps / (wall / steps * 1e3),
         "device_idle_share_profiled": 1.0 - busy_ms / (wall_prof * 1e3),
         "top_kernels": [dict(name=n[:120], ms_per_step=ms / steps, calls=c)

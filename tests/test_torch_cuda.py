@@ -37,7 +37,12 @@ from prime_rl_tpu_torch.ops.decode_attention import (
     decode_rows_visited,
     max_splits,
 )
-from prime_rl_tpu_torch.ops.decode_qkv import decode_qkv_prep, decode_qkv_prep_reference
+from prime_rl_tpu_torch.ops.decode_qkv import (
+    decode_qkv_prep,
+    decode_qkv_prep_reference,
+    decode_qkv_tile_counts,
+    decode_qkv_tiles_visited,
+)
 from prime_rl_tpu_torch.ops.flash_attention import (
     DQ_TILES,
     _delta,
@@ -281,6 +286,69 @@ def test_decode_qkv_prep_matches_plain(gen, hd, bias, partial):
     ref = decode_qkv_prep_reference(args[0].float(), *args[1:], **kw)
     for g, r in zip(got, ref):
         _assert_close(g, r)
+
+
+@pytest.mark.parametrize("case", chip_smoke.K3_EDGE_CASES, ids=lambda c: c[0])
+def test_decode_qkv_prep_cases_match_plain(gen, case):
+    """K3 over ``chip_smoke.K3_EDGE_CASES`` (S of 1 to 256, both head dims,
+    rot < HD, biases with and without qk-norm, positions near 131071): two
+    launches with equal bits against the plain version, and the weight tiles
+    each block loaded (the kernel's count) equal to the tiling's mirror."""
+    name, s, d, nh, nkv, hd, qk_norm, bias, rot, positions, use_yarn = case
+    rope = dict(rot=rot)
+    if use_yarn:
+        from prime_rl_tpu_torch.models.base import get_spec
+        from prime_rl_tpu_torch.models.qwen3 import rope_setup
+
+        inv_freq, scaling = rope_setup(get_spec(chip_smoke.GPT_OSS), device="cuda")
+        rope = dict(inv_freq=inv_freq, scaling=scaling)
+    args, kw = chip_smoke.k3_inputs(gen, s, d, nh, nkv, hd, qk_norm=qk_norm, bias=bias,
+                                    positions=positions, **rope)
+    chip_smoke.k3_check(name, args, kw)
+    chip_smoke.k3_tiles(name, args, kw)
+
+
+@pytest.mark.parametrize("s,hd", [(130, 64), (256, 128), (200, 128)])
+def test_decode_qkv_prep_large_s_matches_plain(gen, s, hd):
+    """Row groups past 128 rows (the weights loaded again for each): every
+    row against the plain version, one launch counted a call."""
+    args, kw = chip_smoke.k3_inputs(gen, s, 512, 4, 2, hd, qk_norm=hd == 128, bias=hd == 64)
+    before = _build.launches["decode_qkv_prep"]
+    got = decode_qkv_prep(*args, **kw)
+    torch.cuda.synchronize()
+    assert _build.launches["decode_qkv_prep"] == before + 1
+    for g, r in zip(got, decode_qkv_prep_reference(args[0].float(), *args[1:], **kw)):
+        _assert_close(g, r)
+
+
+def test_decode_qkv_prep_never_reads_rows_past_s(gen):
+    """x a view of the first S rows of a buffer whose later rows are NaN: the
+    kernel's map ends at S (TMA fills the rest of a box with zeros), so no
+    NaN reaches the outputs, which equal the plain version's on the clean
+    rows."""
+    s, d = 7, 400
+    args, kw = chip_smoke.k3_inputs(gen, s, d, 8, 2, 64, qk_norm=True, bias=True, rot=32)
+    buf = torch.full((64, d), float("nan"), dtype=torch.bfloat16, device="cuda")
+    buf[:s] = args[0]
+    got = decode_qkv_prep(buf[:s], *args[1:], **kw)
+    torch.cuda.synchronize()
+    for g, r in zip(got, decode_qkv_prep_reference(args[0].float(), *args[1:], **kw)):
+        assert torch.isfinite(g.float()).all()
+        _assert_close(g, r)
+
+
+@pytest.mark.parametrize("s", [1, 64, 65])
+def test_decode_qkv_prep_loads_each_weight_tile_once(gen, s):
+    """Up to 128 rows every weight tile is loaded exactly once a call, by the
+    block the tiling gives it to; two launches give equal bits."""
+    args, kw = chip_smoke.k3_inputs(gen, s, 1024, 16, 8, 128, qk_norm=True, bias=False)
+    counts = decode_qkv_tile_counts(*args, **kw)
+    want = decode_qkv_tiles_visited(s, 1024, (2048, 1024, 1024), counts.shape[2])
+    assert torch.equal(counts, want.to(counts.device))
+    assert int(counts.sum()) == 16 * 32
+    first, second = decode_qkv_prep(*args, **kw), decode_qkv_prep(*args, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.parametrize("hd,group", [(128, 2), (64, 4)])
