@@ -8,9 +8,10 @@ Phases (any failure raises and exits non-zero before the last line):
   1. device   — requires CUDA; prints nvidia-smi's name and power limit.
   2. build    — compiles the hand-written kernels from ``prime_rl_tpu_torch/csrc``
                 and prints the registers, local memory and shared memory of each of
-                the four instantiations of K1, K2a, K2b and K3 and the eight of K4
-                as the runtime loaded them (it fails on local memory: a spill),
-                and K3's launch (split of D, ring, clusters) at both serving shapes.
+                the four instantiations of K1, K2a, K2b and K3, the eight of K4
+                and K5b (with its blocks an SM) as the runtime loaded them (it
+                fails on local memory: a spill), and K3's launch (split of D,
+                ring, clusters) at both serving shapes.
   3. kernels  — K1 flash_attn_fwd, K3 decode_qkv_prep and K4 decode_paged_attention
                 at the Qwen3-0.6B shapes of the serving path (K3 also over
                 K3_EDGE_CASES: S from 1 to 256, both head dims, rot < HD,
@@ -33,7 +34,12 @@ Phases (any failure raises and exits non-zero before the last line):
                 K5b sparse_mla_bwd and the dkv reduction at the GLM-5 attention
                 widths (64 heads, 576 = 512 + 64 channels, top-k 2048) over a
                 packed row of 4096 tokens and over a short row full of
-                sentinels, and the window and sink forms of K1, K2a, K2b and K4
+                sentinels (K5b also over K5B_EDGE_CASES: T of 100 and 2047,
+                S = 1, a token that selected nothing, sentinels scattered
+                inside rows, a small Sk, several chunks; every K5b case
+                launched twice for equal bits, with the tiles of 32 slots it
+                visited, as the kernel counted them, held against the skip
+                rule's mirror), and the window and sink forms of K1, K2a, K2b and K4
                 (plus K3) at gpt-oss-20b's shapes (64/8 heads of 64; K1/K2 over
                 4096 tokens at window 128 and 0 with sinks, the sinks' gradient
                 too, and over four packed sequences of 1024; K4 over 64 slots at
@@ -197,6 +203,10 @@ def check_close(name: str, got, ref, atol: float, rtol: float) -> float:
 # to bf16 before the PV product, so 1e-2 absolute plus 1e-2 relative bounds
 # a correct kernel with room to spare and catches any wrong element.
 ATOL, RTOL = 1e-2, 1e-2
+# K5a/K5b against their plain versions on the same bf16 inputs: one bf16 step
+# of the result plus the p and ds roundings that flip between the kernel's
+# exp and PyTorch's, as for K2a/K2b; dkv sums up to S rows
+K5B_TOL = 2e-2
 
 
 def packed_segments(b: int, l: int, seg_lens: list, dev):
@@ -1058,6 +1068,134 @@ def causal_topk_indices(S: int, T: int, gen, device):
     return idx.contiguous()
 
 
+# K5b's edge cases: (name, S, Sk, T, layout, token that selected nothing or
+# None, BWD_SLOTS of the call or None). Layouts: "causal" (token i selects
+# min(T, i + 1) rows of [0, i], sentinels last), "scattered" (the same rows
+# with each index row shuffled, the sentinels S, -1 and S + 7 among the real
+# indices), "dense" (every token selects T distinct rows of Sk at random).
+K5B_EDGE_CASES = (
+    ("T=100", 300, 300, 100, "causal", 7, None),
+    ("T=2047", 2100, 2100, 2047, "causal", None, None),
+    ("S=1", 1, 300, 96, "dense", None, None),
+    ("scattered sentinels", 320, 320, 256, "scattered", 3, None),
+    ("small Sk", 256, 40, 40, "dense", None, None),
+    ("several chunks", 256, 256, 128, "causal", 11, 64 * 128),
+)
+
+
+def k5b_inputs(gen, S: int, Sk: int, T: int, layout: str, empty):
+    """q [S, 64, 576], kv [Sk, 576], do [S, 64, 512] bf16 and indices [S, T]
+    int32 of one K5B_EDGE_CASES layout on the card."""
+    import torch
+
+    from prime_rl_tpu_torch.ops import sparse_mla_kernel as K
+
+    dev = torch.device("cuda")
+
+    def randn(*shape):
+        return torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
+
+    q, kv, do = randn(S, K.HEADS, K.DQ), randn(Sk, K.DQ), randn(S, K.HEADS, K.DV)
+    if layout == "dense":
+        idx = torch.rand(S, Sk, device=dev, generator=gen).argsort(-1)[:, :T].to(torch.int32)
+    else:
+        idx = causal_topk_indices(S, T, gen, dev)
+        if layout == "scattered":
+            perm = torch.rand(S, T, device=dev, generator=gen).argsort(-1)
+            idx = idx.gather(1, perm)
+            pick = torch.randint(0, 3, (S, T), device=dev, generator=gen)
+            other = torch.where(pick == 0, -1, torch.where(pick == 1, S + 7, S)).to(torch.int32)
+            idx = torch.where(idx >= S, other, idx)
+    if empty is not None:
+        idx[empty] = Sk
+    return q, kv, do, idx.contiguous()
+
+
+def k5b_check(name: str, q, kv, do, idx, empty=None, slots=None) -> float:
+    """K5b and the dkv reduction against the plain backward on the same bf16
+    inputs (out and lse from K5a): dq and dkv within K5B_TOL + K5B_TOL * |ref|,
+    two calls bit-equal, the kernel's tile counts equal to
+    ``sparse_mla_bwd_tiles_visited``, and dq = 0 for a token that selected
+    nothing. ``slots`` cuts BWD_SLOTS for the call (several chunks). Returns
+    the max error."""
+    import torch
+
+    from prime_rl_tpu_torch.ops import sparse_mla_kernel as K
+
+    scale = K.DQ ** -0.5
+    Sk = kv.shape[0]
+    out, lse = K.sparse_mla_fwd(q, kv, idx, scale, K.DV)
+    own = K.BWD_SLOTS
+    K.BWD_SLOTS = slots or own
+    try:
+        tiles = torch.full((q.shape[0], 2), -1, dtype=torch.int32, device=q.device)
+        dq, dkv = K.sparse_mla_bwd(q, kv, idx, out, lse, do, scale, K.DV, tiles=tiles)
+        dq2, dkv2 = K.sparse_mla_bwd(q, kv, idx, out, lse, do, scale, K.DV)
+        chunks = K.bwd_launches(q.shape[0], idx.shape[1])
+    finally:
+        K.BWD_SLOTS = own
+    torch.cuda.synchronize()
+    if not (torch.equal(dq, dq2) and torch.equal(dkv, dkv2)):
+        raise AssertionError(f"sparse_mla_bwd {name}: two runs on the same inputs differ")
+    ref_dq, ref_dkv = K.sparse_mla_backward_reference(q, kv, idx, out, lse, do, scale, K.DV)
+    err = max(check_close(f"sparse_mla_bwd dq {name}", dq, ref_dq, K5B_TOL, K5B_TOL),
+              check_close(f"sparse_mla_bwd dkv {name}", dkv, ref_dkv, K5B_TOL, K5B_TOL))
+    if empty is not None and not bool((dq[empty] == 0).all()):
+        raise AssertionError(f"sparse_mla_bwd {name}: a token that selected nothing must get dq 0")
+    k5b_tiles(name, tiles, idx, Sk)
+    log(f"K5b case {name} (S={q.shape[0]} Sk={Sk} T={idx.shape[1]}, {chunks} chunk"
+        f"{'s' if chunks > 1 else ''}): err {err:.3g}, bit-equal over two runs")
+    return err
+
+
+def k5b_tiles(name: str, tiles, idx, Sk: int) -> int:
+    """K5b's own tile counts (int32 [S, 2]: visited, candidates) against
+    ``sparse_mla_bwd_tiles_visited``; raises on any token where they differ.
+    Returns the tiles visited."""
+    import torch
+
+    from prime_rl_tpu_torch.ops import sparse_mla_kernel as K
+
+    visit = K.sparse_mla_bwd_tiles_visited(idx, Sk)
+    want = torch.stack([visit.sum(-1), torch.full_like(visit.sum(-1), visit.shape[1])], -1)
+    if not torch.equal(tiles.long(), want.long()):
+        bad = int((tiles.long() != want.long()).any(-1).sum())
+        raise AssertionError(f"sparse_mla_bwd {name}: the kernel's tile counts differ from "
+                             f"sparse_mla_bwd_tiles_visited on {bad} tokens")
+    log(f"K5b {name}: tiles of {K.BWD_TILE} slots visited {int(visit.sum())} of "
+        f"{visit.numel()} (the kernel's count = the mirror's)")
+    return int(visit.sum())
+
+
+def k5b_edge_cases(gen) -> tuple[int, float]:
+    """Every case of K5B_EDGE_CASES through k5b_check. Returns (cases, max error)."""
+    worst = 0.0
+    for name, S, Sk, T, layout, empty, slots in K5B_EDGE_CASES:
+        q, kv, do, idx = k5b_inputs(gen, S, Sk, T, layout, empty)
+        worst = max(worst, k5b_check(name, q, kv, do, idx, empty, slots))
+    return len(K5B_EDGE_CASES), worst
+
+
+def sparse_mla_build_report() -> None:
+    """Registers, local memory, shared memory and blocks an SM of K5b as the
+    runtime loaded it (``cudaFuncGetAttributes``); raises if it uses local
+    memory (it has no local arrays, so any is a spill)."""
+    import ctypes
+
+    from prime_rl_tpu_torch.ops import _build
+
+    lib = _build.load("sparse_mla")
+    attrs = (ctypes.c_int * 4)()
+    _build.check("sparse_mla_bwd", lib.sparse_mla_attributes(1, attrs))
+    regs, local, static, threads = attrs
+    log(f"K5b build: {regs} registers a thread ({threads} threads a block, "
+        f"{lib.sparse_mla_bwd_blocks_per_sm()} blocks an SM), local memory (spills) {local} bytes "
+        f"a thread, shared memory {static} bytes static + {lib.sparse_mla_bwd_smem()} dynamic a "
+        f"block")
+    if local:
+        raise AssertionError("K5b uses local memory: registers spill")
+
+
 def sparse_mla_kernel_phase() -> list[dict]:
     """K5a, K5b and the dkv reduction against their plain versions on the same
     bf16 inputs: a packed row of 4096 tokens with top-k 2048 (the DSA trainer's
@@ -1072,9 +1210,7 @@ def sparse_mla_kernel_phase() -> list[dict]:
     gen.manual_seed(SEED)
     H, DQ, DV, T = K.HEADS, K.DQ, K.DV, 2048
     scale = DQ ** -0.5
-    # one bf16 step of the result plus the p and ds roundings that flip between
-    # the kernel's exp and PyTorch's, as for K2a/K2b; dkv sums up to S rows
-    tol = 2e-2
+    tol = K5B_TOL
     fwd_cases, bwd_cases, red_cases = [], [], []
     for S in (4096, 1024):
         q = torch.randn(S, H, DQ, device=dev, generator=gen).to(torch.bfloat16)
@@ -1103,6 +1239,8 @@ def sparse_mla_kernel_phase() -> list[dict]:
         if not (torch.equal(dq, dq2) and torch.equal(dkv, dkv2)):
             raise AssertionError("sparse_mla_bwd: two runs on the same inputs differ")
         del ref_out, ref_lse, ref_dq, ref_dkv, dq2, dkv2
+        tiles = K.sparse_mla_bwd_tile_counts(q, kv, idx, out, lse, do, scale, DV)
+        n_visited = k5b_tiles(shape, tiles, idx, S)
 
         ms_fwd = time_ms(lambda: K.sparse_mla_fwd(q, kv, idx, scale, DV), iters=10)
         ms_bwd = time_ms(lambda: K.sparse_mla_bwd(q, kv, idx, out, lse, do, scale, DV), iters=5)
@@ -1124,6 +1262,8 @@ def sparse_mla_kernel_phase() -> list[dict]:
             bms, by = bound(nbytes, flops)
             cases.append(dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain,
                               library_ms=None, bound_ms=bms, bound_by=by))
+            if cases is bwd_cases:
+                cases[-1]["tiles_visited"] = n_visited
             log(f"{name} {shape}: err {err:.3g}  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
                 f"library none  bound {bms:.4f} ms ({by})  (tolerance {tol} + {tol} * |ref|)")
 
@@ -1159,6 +1299,7 @@ def sparse_mla_kernel_phase() -> list[dict]:
             f"index_add_ {lib_red:.4f} ms  bound {bms:.4f} ms ({by})")
         del q, kv, do, idx, out, lse, dq, dkv, dkvg, acc, want, rows_f32, where, order, seg, delta
         torch.cuda.empty_cache()
+    n_edge, err_edge = k5b_edge_cases(gen)
     rows = []
     for name, cases, line in (("sparse_mla_fwd", fwd_cases, 67), ("sparse_mla_bwd", bwd_cases, 153),
                               ("sparse_mla_dkv_reduce", red_cases, 308)):
@@ -1167,6 +1308,8 @@ def sparse_mla_kernel_phase() -> list[dict]:
                          **{k: cases[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                      "library_ms")},
                          max_abs_err=max(c["max_abs_err"] for c in cases), cases=cases))
+    rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"], err_edge)
+    rows[1]["edge_cases"] = n_edge
     return rows
 
 
@@ -2422,6 +2565,7 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.2f} s ({', '.join(f'{k} {v:.2f} s' for k, v in built.items())})")
     flash_build_report()
     decode_build_report()
+    sparse_mla_build_report()
 
     def timed(name, fn, *args):
         t = time.perf_counter()

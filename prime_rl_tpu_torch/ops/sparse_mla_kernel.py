@@ -31,9 +31,11 @@ is not carried over. The backward runs over chunks of queries: K5b writes
 each chunk's per-slot dkv rows into a ``[chunk, topk, Dq]`` buffer of about
 1.2 GB, and ``sparse_mla_dkv_reduce`` gives every kv row one block that sums
 the rows of the slots that selected it, in the order of a stable sort of the
-chunk's indices: no atomics, so two runs give the same bits. What bounds the
-kernels and what their design does about it: the note in
-``csrc/sparse_mla.cu``.
+chunk's indices: no atomics, so two runs give the same bits. K5b skips the
+tiles of ``BWD_TILE`` slots that hold only sentinels and counts the ones it
+visits (``sparse_mla_bwd_tile_counts``; ``sparse_mla_bwd_tiles_visited`` is
+the rule's plain mirror). What bounds the kernels and what their design does
+about it: the note in ``csrc/sparse_mla.cu``.
 
 For CPU tensors the wrappers run ``sparse_mla_attention_reference`` and
 ``sparse_mla_backward_reference``; for CUDA tensors they launch the kernels
@@ -55,6 +57,7 @@ KERNEL_BWD = "sparse_mla_bwd"
 KERNEL_REDUCE = "sparse_mla_dkv_reduce"
 HEADS, DQ, DV = 64, 576, 512  # the widths the kernels are compiled for
 BWD_SLOTS = 1 << 20  # (query, slot) pairs per backward launch: a 1.2 GB dkvg buffer
+BWD_TILE = 32  # slots a K5b tile
 
 _fns = None
 
@@ -65,11 +68,13 @@ def _kernels():
         lib = _build.load(KERNEL)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fwd, bwd, red = lib.sparse_mla_fwd, lib.sparse_mla_bwd, lib.sparse_mla_dkv_reduce
+        bwd_tiles = lib.sparse_mla_bwd_tiles
         fwd.argtypes = [p] * 5 + [i] * 6 + [f, p]
         bwd.argtypes = [p] * 8 + [i] * 6 + [f, p]
+        bwd_tiles.argtypes = [p] * 8 + [i] * 6 + [f, p, p]
         red.argtypes = [p] * 4 + [i] * 2 + [p]
-        fwd.restype = bwd.restype = red.restype = i
-        _fns = (fwd, bwd, red)
+        fwd.restype = bwd.restype = bwd_tiles.restype = red.restype = i
+        _fns = (fwd, bwd, red, bwd_tiles)
     return _fns
 
 
@@ -143,6 +148,19 @@ def sparse_mla_backward_reference(q, kv, indices, out, lse, do, sm_scale: float,
     return torch.cat(dqs, dim=0), dkv.to(kv.dtype)
 
 
+def sparse_mla_bwd_tiles_visited(indices: torch.Tensor, Sk: int,
+                                 bt: int = BWD_TILE) -> torch.Tensor:
+    """[S, ceil(T / bt)] bool: the tiles of ``bt`` slots K5b visits for each
+    token, the plain mirror of the kernel's rule: a tile is visited iff it
+    holds an index in ``[0, Sk)``, wherever the sentinels lie in the row; the
+    slots past T count as sentinels."""
+    S, T = indices.shape
+    n = -(-T // bt)
+    real = (indices >= 0) & (indices < Sk)
+    real = torch.nn.functional.pad(real, (0, n * bt - T))
+    return real.reshape(S, n, bt).any(-1)
+
+
 # ---------------------------------------------------------------------------
 # kernels
 # ---------------------------------------------------------------------------
@@ -197,10 +215,12 @@ def slot_order(indices: torch.Tensor, Sk: int):
 
 
 def sparse_mla_bwd_chunk(q, kv, indices, do, lse, delta, dq, dkvg, sm_scale: float,
-                         v_dim: int) -> None:
+                         v_dim: int, tiles=None) -> None:
     """One K5b launch over a chunk of C queries (``q, indices, do, lse, delta``
     and ``dq`` are the chunk's slices): writes ``dq`` [C, H, Dq] and, for every
-    slot with a real index, its dkv row into ``dkvg`` [>= C, T, Dq] bf16."""
+    slot with a real index, its dkv row into ``dkvg`` [>= C, T, Dq] bf16.
+    Given ``tiles`` (int32 [C, 2]), the same launch also writes each token's
+    tiles of ``BWD_TILE`` slots visited and its candidates there."""
     C, Sk, T = _check_args(q, kv, indices, v_dim)
     _build.require(do, "do", torch.bfloat16, (C, HEADS, v_dim))
     _build.require(lse, "lse", torch.float32, (C, HEADS))
@@ -209,19 +229,25 @@ def sparse_mla_bwd_chunk(q, kv, indices, do, lse, delta, dq, dkvg, sm_scale: flo
     _build.require(dkvg, "dkvg", torch.bfloat16)
     if dkvg.shape[0] < C or tuple(dkvg.shape[1:]) != (T, DQ):
         raise ValueError(f"dkvg: expected at least [{C}, {T}, {DQ}], got {tuple(dkvg.shape)}")
-    _build.check(KERNEL_BWD, _kernels()[1](
-        q.data_ptr(), kv.data_ptr(), indices.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), dkvg.data_ptr(), C, Sk, T, HEADS, DQ, v_dim,
-        float(sm_scale), _build.stream_ptr(q)))
+    args = (q.data_ptr(), kv.data_ptr(), indices.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dkvg.data_ptr(), C, Sk, T, HEADS, DQ, v_dim,
+            float(sm_scale), _build.stream_ptr(q))
+    if tiles is None:
+        _build.check(KERNEL_BWD, _kernels()[1](*args))
+    else:
+        _build.require(tiles, "tiles", torch.int32, (C, 2))
+        _build.check(KERNEL_BWD, _kernels()[3](*args, tiles.data_ptr()))
     _build.launches[KERNEL_BWD] += 1
 
 
-def sparse_mla_bwd(q, kv, indices, out, lse, do, sm_scale: float, v_dim: int):
+def sparse_mla_bwd(q, kv, indices, out, lse, do, sm_scale: float, v_dim: int, tiles=None):
     """K5b and the dkv reduction on CUDA tensors, chunk by chunk: (dq
-    [S, H, Dq], dkv [Sk, Dq]), both bf16."""
+    [S, H, Dq], dkv [Sk, Dq]), both bf16. Given ``tiles`` (int32 [S, 2]),
+    each chunk's K5b launch also writes its tokens' tile counts there."""
     S, Sk, T = _check_args(q, kv, indices, v_dim)
     do = do.contiguous()
-    delta = (out.float() * do.float()).sum(dim=-1)
+    # the plain version's f32 sum(out * do); do is widened inside the product
+    delta = (out.float() * do).sum(dim=-1)
     dq = torch.empty_like(q)
     dkv = torch.zeros((Sk, DQ), dtype=torch.float32, device=q.device)
     chunk = bwd_chunk(S, T)
@@ -229,10 +255,24 @@ def sparse_mla_bwd(q, kv, indices, out, lse, do, sm_scale: float, v_dim: int):
     for c0 in range(0, S, chunk):
         sl = slice(c0, min(c0 + chunk, S))
         sparse_mla_bwd_chunk(q[sl], kv, indices[sl], do[sl], lse[sl], delta[sl], dq[sl], dkvg,
-                             sm_scale, v_dim)
+                             sm_scale, v_dim, None if tiles is None else tiles[sl])
         order, seg = slot_order(indices[sl], Sk)
         sparse_mla_dkv_reduce(dkvg, order, seg, dkv)
     return dq, dkv.to(kv.dtype)
+
+
+def sparse_mla_bwd_tile_counts(q, kv, indices, out, lse, do, sm_scale: float,
+                               v_dim: int) -> torch.Tensor:
+    """int32 [S, 2]: the tiles of ``BWD_TILE`` slots K5b visited for each token
+    and its candidates, as the kernel counted them in one backward call on
+    these inputs. Only the kernel counts: CPU tensors raise
+    (``sparse_mla_bwd_tiles_visited`` is the rule's plain mirror)."""
+    if not q.is_cuda:
+        raise ValueError("sparse_mla_bwd_tile_counts: the counts come from the kernel, which "
+                         "takes CUDA tensors")
+    tiles = torch.full((q.shape[0], 2), -1, dtype=torch.int32, device=q.device)
+    sparse_mla_bwd(q, kv, indices, out, lse, do, sm_scale, v_dim, tiles=tiles)
+    return tiles
 
 
 def sparse_mla_forward(q, kv, indices, sm_scale: float, v_dim: int):

@@ -3,14 +3,27 @@
 dkv reduction) of the PyTorch/CUDA port on one NVIDIA GPU: the counterpart of
 ``scripts/bench_sparse_mla.py``.
 
-    python3 scripts/torch_sparse_mla_bench.py [--S 4096] [--topk 2048] [--ptxas]
+    python3 scripts/torch_sparse_mla_bench.py [--S 4096] [--topk 2048] [--ptxas] [--quick]
 
-Builds ``prime_rl_tpu_torch/csrc/sparse_mla.cu``, holds both kernels against
-their plain PyTorch versions on the same bf16 inputs at a short shape with
-sentinels (tolerance 2e-2 absolute + 2e-2 relative), then times them at
-``S = Sk = --S`` with causal top-k-looking indices (token i selects
-min(topk, i + 1) of [0, i]) by CUDA events. ``--ptxas`` also prints the
-registers, shared memory and spills that ``nvcc -Xptxas -v`` reports.
+Builds ``prime_rl_tpu_torch/csrc/sparse_mla.cu`` and prints K5b's build report
+(registers, local memory, shared memory, blocks an SM), holds both kernels
+against their plain PyTorch versions on the same bf16 inputs at short shapes
+with sentinels and on ``chip_smoke.K5B_EDGE_CASES`` (tolerance 2e-2 absolute +
+2e-2 relative, two backward calls bit-equal, K5b's tile counts against
+``sparse_mla_bwd_tiles_visited``); ``--quick`` stops there. Then it times them
+at ``S = Sk = --S`` with causal top-k-looking indices (token i selects
+min(topk, i + 1) of [0, i]) by CUDA events: the whole backward call (K5b and
+the reductions, chunk by chunk) as ``chip_smoke.py`` times it, then with the
+L2 flushed (256 MB zeroed) before each call, and K5b's own launches over the
+call's chunks apart from the reductions, and the reductions alone, both with
+the L2 flushed. ``--ptxas`` also prints the registers, shared memory and
+spills that ``nvcc -Xptxas -v`` reports for each kernel of the source.
+``--variants NAME:FLAG,...`` rebuilds with other ``-D`` flags (among them
+``K5B_NO_STORES``, which drops the dkvg row stores: a wrong dkv, timed only)
+and times K5b's launches beside the port's build. ``--timeline`` rebuilds K5b
+with ``-DSPARSE_MLA_TIMELINE`` (into
+``build/k5b_variants/``) and prints, for each warpgroup, the clocks a tile of
+each phase, averaged over the blocks, from one pass of K5b's launches.
 ``--grouped-mm`` checks ``torch._grouped_mm`` (forward and backward) against a
 loop over experts, which is how ``ops/moe.py`` chooses its expert product.
 """
@@ -18,7 +31,9 @@ loop over experts, which is how ``ops/moe.py`` chooses its expert product.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import os
+import re
 import subprocess
 import sys
 
@@ -26,6 +41,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import torch
 
+import chip_smoke
 from prime_rl_tpu_torch.ops import _build
 from prime_rl_tpu_torch.ops import sparse_mla_kernel as K
 
@@ -90,6 +106,73 @@ def check(S: int, T: int, gen, dev) -> bool:
     return ok and same
 
 
+PHASES = ("token start: barrier (the last token's end)", "token start: index row scanned",
+          "token start: panels landed", "token start: first tile landed",
+          "phase 1: s (0), dkvg rows out (1), dp (2)", "phase 1: hand-offs, p and ds",
+          "phase 2: next tile gathered (1), dq product", "phase 2: dkvg products, stmatrix",
+          "tile end: next rows landed, barrier", "tile end: next tile found",
+          "token end: last dkvg rows, dq")
+
+
+def build_variant(name: str, flags: tuple = ()) -> ctypes.CDLL:
+    """``csrc/sparse_mla.cu`` compiled as the port compiles it, with ``flags``,
+    into build/k5b_variants/; prints its registers and spills."""
+    out = _build.BUILD_DIR.parent / "k5b_variants"  # also the --variants builds
+    out.mkdir(parents=True, exist_ok=True)
+    so = out / f"{name}.so"
+    res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-Xptxas", "-v", "-o",
+                          str(so), str(_build.CSRC / "sparse_mla.cu")], capture_output=True,
+                         text=True)
+    if res.returncode:
+        raise RuntimeError(f"variant {name} does not build:\n{res.stdout}{res.stderr}")
+    spills = sorted(set(re.findall(r"(\d+) bytes spill stores", res.stderr)) - {"0"})
+    regs = sorted(set(re.findall(r"Used (\d+) registers", res.stderr)), key=int)
+    print(f"variant {name}: registers {', '.join(regs)}; spill stores "
+          f"{', '.join(spills) or 'none'}", flush=True)
+    return ctypes.CDLL(str(so))
+
+
+def use_library(lib: ctypes.CDLL) -> None:
+    """Route the wrapper (``ops.sparse_mla_kernel``) to ``lib``'s entry points."""
+    K._fns = None
+    own = _build._libs.get(K.KERNEL)
+    _build._libs[K.KERNEL] = lib
+    K._kernels()
+    if own is not None:
+        _build._libs[K.KERNEL] = own
+
+
+def timeline(q, kv, idx, out, lse, do, scale) -> None:
+    """K5b's phase clocks from one pass of its launches over the call's chunks."""
+    lib = build_variant("timeline", ("-DSPARSE_MLA_TIMELINE",))
+    use_library(lib)
+    lib.sparse_mla_bwd_timeline.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
+    n = 1024 * 3 * (len(PHASES) + 1)
+    buf = (ctypes.c_ulonglong * n)()
+    K.sparse_mla_bwd(q, kv, idx, out, lse, do, scale, DV)
+    torch.cuda.synchronize()
+    _build.check("sparse_mla_bwd_timeline", lib.sparse_mla_bwd_timeline(buf, n))  # zeroes it
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    K.sparse_mla_bwd(q, kv, idx, out, lse, do, scale, DV)
+    e.record()
+    torch.cuda.synchronize()
+    _build.check("sparse_mla_bwd_timeline", lib.sparse_mla_bwd_timeline(buf, n))
+    t = torch.tensor(list(buf), dtype=torch.float64).reshape(1024, 3, len(PHASES) + 1)
+    t = t[t[:, 0, -1] > 0]  # the blocks that ran
+    tiles = t[:, :, -1]
+    print(f"timeline: {t.shape[0]} blocks, {int(tiles[:, 0].sum())} tiles, the call "
+          f"{s.elapsed_time(e):.3f} ms (the reductions included); clocks a tile, the mean over "
+          f"the blocks' sums, warpgroups 0 / 1 / 2:", flush=True)
+    for i, name in enumerate(PHASES):
+        per = t[:, :, i].sum(0) / tiles.sum(0)
+        print(f"  {name:>44}: {' / '.join(f'{float(v):8.0f}' for v in per)}", flush=True)
+    total = t[:, :, :-1].sum(-1)
+    print(f"  {'all':>44}: {' / '.join(f'{float(v):8.0f}' for v in total.sum(0) / tiles.sum(0))}"
+          f"; slowest block {float(total.max()):.0f} clocks", flush=True)
+    use_library(_build.load(K.KERNEL))
+
+
 def grouped_mm_probe(dev) -> None:
     print(f"torch._grouped_mm present: {hasattr(torch, '_grouped_mm')}", flush=True)
     if not hasattr(torch, "_grouped_mm"):
@@ -119,6 +202,13 @@ def main() -> int:
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--grouped-mm", action="store_true")
     ap.add_argument("--plain", action="store_true", help="time the plain versions too")
+    ap.add_argument("--timeline", action="store_true",
+                    help="K5b's phase clocks at --S from a build with SPARSE_MLA_TIMELINE")
+    ap.add_argument("--variants", nargs="*", default=[], metavar="NAME:FLAG,...",
+                    help="rebuild K5b with these -D flags (e.g. nostores:-DK5B_NO_STORES) and "
+                         "time its launches beside the port's build")
+    ap.add_argument("--quick", action="store_true",
+                    help="the build report and the checks only, no timing")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("this benchmark needs an NVIDIA GPU", file=sys.stderr)
@@ -133,14 +223,26 @@ def main() -> int:
                str(_build.CSRC / "sparse_mla.cu")]
         res = subprocess.run(cmd, capture_output=True, text=True)
         print("\n".join(l for l in (res.stdout + res.stderr).splitlines()
-                        if "registers" in l or "Compiling" in l or "error" in l or "spill" in l),
+                        if "registers" in l or "Compiling" in l or "error" in l or "spill" in l
+                        or "bytes stack" in l or "wgmma" in l),
               flush=True)
     print(f"build: {_build.build(('sparse_mla',))}", flush=True)
+    ok = True
+    try:
+        chip_smoke.sparse_mla_build_report()
+    except AssertionError as err:  # reported; the checks still run
+        print(f"build report: {err}", flush=True)
+        ok = False
     if args.grouped_mm:
         grouped_mm_probe(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
-    ok = check(1024, 512, gen, dev)
+    ok &= check(1024, 512, gen, dev)
     ok &= check(200, 100, gen, dev)  # ragged tiles: T and S no multiple of a tile
+    n, err = chip_smoke.k5b_edge_cases(gen)
+    print(f"K5b edge cases: {n}, max err {err:.4g}", flush=True)
+    if args.quick:
+        print("OK" if ok else "FAILED", flush=True)
+        return 0 if ok else 1
 
     S, T = args.S, args.topk
     q = torch.randn(S, H, DQ, device=dev, generator=gen).to(torch.bfloat16)
@@ -156,6 +258,52 @@ def main() -> int:
     print(f"S={S} T={T} pairs={pairs}: fwd {fwd:.3f} ms ({f_fwd / fwd / 1e9:.1f} TFLOP/s), "
           f"bwd {bwd:.3f} ms ({f_bwd / bwd / 1e9:.1f} TFLOP/s; {K.bwd_launches(S, T)} chunks)",
           flush=True)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    bwd_f = chip_smoke.time_ms(lambda: K.sparse_mla_bwd(q, kv, idx, out, lse, do, scale, DV),
+                               iters=5, flush=flush)
+    # K5b alone over the call's chunks, and the reductions alone
+    chunk = K.bwd_chunk(S, T)
+    delta = (out.float() * do).sum(dim=-1)  # as the wrapper forms it
+    dq = torch.empty_like(q)
+    dkvg = torch.empty((chunk, T, DQ), dtype=torch.bfloat16, device=dev)
+    dkv = torch.zeros((S, DQ), dtype=torch.float32, device=dev)
+    slices = [slice(c0, min(c0 + chunk, S)) for c0 in range(0, S, chunk)]
+    orders = [K.slot_order(idx[sl], S) for sl in slices]
+
+    def k5b_alone():
+        for sl in slices:
+            K.sparse_mla_bwd_chunk(q[sl], kv, idx[sl], do[sl], lse[sl], delta[sl], dq[sl], dkvg,
+                                   scale, DV)
+
+    def reductions_alone():
+        for order, seg in orders:
+            K.sparse_mla_dkv_reduce(dkvg, order, seg, dkv)
+
+    alone = chip_smoke.time_ms(k5b_alone, iters=5, flush=flush)
+    red = chip_smoke.time_ms(reductions_alone, iters=5, flush=flush)
+    bms = f_bwd / chip_smoke.PEAK_BF16 * 1e3
+    # the rest of the call: the wrapper's delta (and PR 9's form of it, both
+    # operands widened first: the same sums) and the chunks' slot orders
+    d_ms = chip_smoke.time_ms(lambda: (out.float() * do).sum(dim=-1), iters=5, flush=flush)
+    d_old = chip_smoke.time_ms(lambda: (out.float() * do.float()).sum(dim=-1), iters=5,
+                               flush=flush)
+    o_ms = chip_smoke.time_ms(lambda: [K.slot_order(idx[sl], S) for sl in slices], iters=5,
+                              flush=flush)
+    print(f"the wrapper's delta: {d_ms:.4f} ms (both operands widened first: {d_old:.4f} ms); "
+          f"slot_order over the {len(slices)} chunks: {o_ms:.4f} ms", flush=True)
+    if args.timeline:
+        timeline(q, kv, idx, out, lse, do, scale)
+    for spec in args.variants:
+        name, _, flags = spec.partition(":")
+        use_library(build_variant(name, tuple(f for f in flags.split(",") if f)))
+        ms = chip_smoke.time_ms(k5b_alone, iters=5, flush=flush)
+        use_library(_build.load(K.KERNEL))
+        own = chip_smoke.time_ms(k5b_alone, iters=5, flush=flush)
+        print(f"variant {name}: K5b's own launches {ms:.4f} ms (the port's build {own:.4f} ms "
+              f"in turn)", flush=True)
+    print(f"K5b call, L2 flushed: {bwd_f:.4f} ms; K5b's own {len(slices)} launches: {alone:.4f} ms "
+          f"({f_bwd / alone / 1e9:.1f} TFLOP/s, {alone / bms:.2f}x the {bms:.4f} ms operation "
+          f"bound); the {len(slices)} reductions: {red:.4f} ms", flush=True)
     if args.plain:
         p_fwd = time_ms(lambda: K.sparse_mla_attention_reference(q, kv, idx, scale, DV), iters=2)
         p_bwd = time_ms(lambda: K.sparse_mla_backward_reference(q, kv, idx, out, lse, do, scale,

@@ -13,7 +13,8 @@ against the plain backward on the same bf16 inputs (which rounds p and ds to
 bf16 where the kernels do): 2e-2 absolute + 2e-2 relative, because a bf16
 rounding of ds that flips by one step in the kernel moves a sum of up to 192
 terms by more than one bf16 step of the result. K5a/K5b and the dkv reduction
-are held against their plain versions on the same bf16 inputs at the same 2e-2.
+are held against their plain versions on the same bf16 inputs at the same 2e-2,
+K5b also over ``chip_smoke.K5B_EDGE_CASES`` with its tile counts.
 The window and sink forms of K1, K2a, K2b and K4 are held at the same
 tolerances as their dense forms; the sinks' gradient (plain PyTorch beside the
 kernels) against the plain backward's at 2e-2 relative to its norm.
@@ -495,6 +496,22 @@ def test_sparse_mla_kernels_match_plain(gen, S, T):
         assert torch.isfinite(g.float()).all(), name
         torch.testing.assert_close(g.float(), r.float(), atol=2e-2, rtol=2e-2, msg=name)
     assert (out[5] == 0).all() and (dq[5] == 0).all()
+
+
+@pytest.mark.parametrize("case", chip_smoke.K5B_EDGE_CASES, ids=lambda c: c[0])
+def test_sparse_mla_backward_cases_match_plain(gen, case):
+    """K5b and the dkv reduction over ``chip_smoke.K5B_EDGE_CASES``: T of 100
+    and 2047, S = 1, a token that selected nothing, sentinels scattered inside
+    a row (S, -1 and S + 7), a small Sk (every kv row selected by every
+    token), several chunks: dq and dkv within 2e-2 + 2e-2 |ref| of the plain
+    backward, two calls bit-equal, the kernel's tile counts equal to
+    ``sparse_mla_bwd_tiles_visited``, dq 0 for the token that selected
+    nothing (``chip_smoke.k5b_check``)."""
+    name, S, Sk, T, layout, empty, slots = case
+    q, kv, do, idx = chip_smoke.k5b_inputs(gen, S, Sk, T, layout, empty)
+    before = _build.launches["sparse_mla_bwd"]
+    chip_smoke.k5b_check(name, q, kv, do, idx, empty, slots)
+    assert _build.launches["sparse_mla_bwd"] > before
 
 
 def test_sparse_mla_backward_is_deterministic_over_chunks(gen, monkeypatch):
