@@ -8,10 +8,10 @@ Phases (any failure raises and exits non-zero before the last line):
   1. device   — requires CUDA; prints nvidia-smi's name and power limit.
   2. build    — compiles the hand-written kernels from ``prime_rl_tpu_torch/csrc``
                 and prints the registers, local memory and shared memory of each of
-                the four instantiations of K1, K2a, K2b and K3, the eight of K4
-                and K5b (with its blocks an SM) as the runtime loaded them (it
-                fails on local memory: a spill), and K3's launch (split of D,
-                ring, clusters) at both serving shapes.
+                the four instantiations of K1, K2a, K2b and K3, the eight of K4,
+                and K5a and K5b (with their blocks an SM and tile sizes) as the
+                runtime loaded them (it fails on local memory: a spill), and
+                K3's launch (split of D, ring, clusters) at both serving shapes.
   3. kernels  — K1 flash_attn_fwd, K3 decode_qkv_prep and K4 decode_paged_attention
                 at the Qwen3-0.6B shapes of the serving path (K3 also over
                 K3_EDGE_CASES: S from 1 to 256, both head dims, rot < HD,
@@ -34,12 +34,15 @@ Phases (any failure raises and exits non-zero before the last line):
                 K5b sparse_mla_bwd and the dkv reduction at the GLM-5 attention
                 widths (64 heads, 576 = 512 + 64 channels, top-k 2048) over a
                 packed row of 4096 tokens and over a short row full of
-                sentinels (K5b also over K5B_EDGE_CASES: T of 100 and 2047,
-                S = 1, a token that selected nothing, sentinels scattered
-                inside rows, a small Sk, several chunks; every K5b case
-                launched twice for equal bits, with the tiles of 32 slots it
-                visited, as the kernel counted them, held against the skip
-                rule's mirror), and the window and sink forms of K1, K2a, K2b and K4
+                sentinels (K5a and K5b also over K5B_EDGE_CASES: T of 100 and
+                2047, S = 1, a token that selected nothing, sentinels
+                scattered inside rows (S, -1 and S + 7), a small Sk, several
+                chunks; every K5a and K5b case launched twice for equal bits,
+                with the tiles of 64 (K5a) and 32 (K5b) slots each visited, as
+                the kernel counted them, held against the skip rule's mirror;
+                K5a timed with the L2 flushed, its yardstick one SDPA call
+                over the same selection as a dense mask), and the window and
+                sink forms of K1, K2a, K2b and K4
                 (plus K3) at gpt-oss-20b's shapes (64/8 heads of 64; K1/K2 over
                 4096 tokens at window 128 and 0 with sinks, the sinks' gradient
                 too, and over four packed sequences of 1024; K4 over 64 slots at
@@ -50,7 +53,8 @@ Phases (any failure raises and exits non-zero before the last line):
                 3.35 TB/s, 989 TFLOP/s dense bf16). The rows of K1, K2a and K2b
                 also give the tile pairs visited, as the kernels counted them
                 (every case holds those counts against the skip rules' plain
-                mirrors). Windowed K1 must take at most a quarter of full K1's
+                mirrors; K5a's and K5b's rows give their tiles visited too).
+                Windowed K1 must take at most a quarter of full K1's
                 time, and K1, and K2a + K2b, over the four packed sequences at
                 most half of the one-sequence time.
   4. train-reference — loss and every gradient of one micro-batch [2, 512] of
@@ -1111,6 +1115,38 @@ def k5b_inputs(gen, S: int, Sk: int, T: int, layout: str, empty):
     return q, kv, do, idx.contiguous()
 
 
+def k5a_check(name: str, q, kv, idx, empty=None):
+    """K5a against the plain forward on the same bf16 inputs: out within
+    K5B_TOL + K5B_TOL * |ref|, lse within 1e-3, two launches bit-equal, the
+    kernel's tile counts (the first launch's) equal to
+    ``sparse_mla_bwd_tiles_visited`` at ``FWD_TILE``, and out 0 with lse
+    below -1e29 for a token that selected nothing. Returns (out, lse, max
+    error of out, tiles visited)."""
+    import torch
+
+    from prime_rl_tpu_torch.ops import sparse_mla_kernel as K
+
+    scale = K.DQ ** -0.5
+    Sk = kv.shape[0]
+    tiles = torch.full((q.shape[0], 2), -1, dtype=torch.int32, device=q.device)
+    out, lse = K.sparse_mla_fwd(q, kv, idx, scale, K.DV, tiles=tiles)
+    out2, lse2 = K.sparse_mla_fwd(q, kv, idx, scale, K.DV)
+    torch.cuda.synchronize()
+    if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
+        raise AssertionError(f"sparse_mla_fwd {name}: two launches on the same inputs differ")
+    ref_out, ref_lse = K.sparse_mla_attention_reference(q, kv, idx, scale, K.DV)
+    err = check_close(f"sparse_mla_fwd out {name}", out, ref_out, K5B_TOL, K5B_TOL)
+    check_close(f"sparse_mla_fwd lse {name}", lse, ref_lse, 1e-3, 0.0)
+    if empty is not None and not (bool((out[empty] == 0).all())
+                                  and bool((lse[empty] < -1e29).all())):
+        raise AssertionError(f"sparse_mla_fwd {name}: a token that selected nothing must get "
+                             "out 0 and lse -5e29")
+    n = sparse_mla_tiles("sparse_mla_fwd", name, tiles, idx, Sk, K.FWD_TILE)
+    log(f"K5a case {name} (S={q.shape[0]} Sk={Sk} T={idx.shape[1]}): err {err:.3g}, "
+        "bit-equal over two launches")
+    return out, lse, err, n
+
+
 def k5b_check(name: str, q, kv, do, idx, empty=None, slots=None) -> float:
     """K5b and the dkv reduction against the plain backward on the same bf16
     inputs (out and lse from K5a): dq and dkv within K5B_TOL + K5B_TOL * |ref|,
@@ -1142,65 +1178,109 @@ def k5b_check(name: str, q, kv, do, idx, empty=None, slots=None) -> float:
               check_close(f"sparse_mla_bwd dkv {name}", dkv, ref_dkv, K5B_TOL, K5B_TOL))
     if empty is not None and not bool((dq[empty] == 0).all()):
         raise AssertionError(f"sparse_mla_bwd {name}: a token that selected nothing must get dq 0")
-    k5b_tiles(name, tiles, idx, Sk)
+    sparse_mla_tiles("sparse_mla_bwd", name, tiles, idx, Sk, K.BWD_TILE)
     log(f"K5b case {name} (S={q.shape[0]} Sk={Sk} T={idx.shape[1]}, {chunks} chunk"
         f"{'s' if chunks > 1 else ''}): err {err:.3g}, bit-equal over two runs")
     return err
 
 
-def k5b_tiles(name: str, tiles, idx, Sk: int) -> int:
-    """K5b's own tile counts (int32 [S, 2]: visited, candidates) against
-    ``sparse_mla_bwd_tiles_visited``; raises on any token where they differ.
-    Returns the tiles visited."""
+def sparse_mla_tiles(kernel: str, name: str, tiles, idx, Sk: int, bt: int) -> int:
+    """A sparse-MLA kernel's own tile counts (int32 [S, 2]: visited,
+    candidates; K5a's tiles of FWD_TILE slots, K5b's of BWD_TILE) against
+    ``sparse_mla_bwd_tiles_visited`` at ``bt``; raises on any token where they
+    differ. Returns the tiles visited."""
     import torch
 
     from prime_rl_tpu_torch.ops import sparse_mla_kernel as K
 
-    visit = K.sparse_mla_bwd_tiles_visited(idx, Sk)
+    visit = K.sparse_mla_bwd_tiles_visited(idx, Sk, bt)
     want = torch.stack([visit.sum(-1), torch.full_like(visit.sum(-1), visit.shape[1])], -1)
     if not torch.equal(tiles.long(), want.long()):
         bad = int((tiles.long() != want.long()).any(-1).sum())
-        raise AssertionError(f"sparse_mla_bwd {name}: the kernel's tile counts differ from "
+        raise AssertionError(f"{kernel} {name}: the kernel's tile counts differ from "
                              f"sparse_mla_bwd_tiles_visited on {bad} tokens")
-    log(f"K5b {name}: tiles of {K.BWD_TILE} slots visited {int(visit.sum())} of "
+    log(f"{kernel} {name}: tiles of {bt} slots visited {int(visit.sum())} of "
         f"{visit.numel()} (the kernel's count = the mirror's)")
     return int(visit.sum())
 
 
-def k5b_edge_cases(gen) -> tuple[int, float]:
-    """Every case of K5B_EDGE_CASES through k5b_check. Returns (cases, max error)."""
-    worst = 0.0
+def k5_edge_cases(gen) -> tuple[int, float, float]:
+    """Every case of K5B_EDGE_CASES through k5a_check and k5b_check. Returns
+    (cases, max error of K5a, max error of K5b)."""
+    worst_a = worst_b = 0.0
     for name, S, Sk, T, layout, empty, slots in K5B_EDGE_CASES:
         q, kv, do, idx = k5b_inputs(gen, S, Sk, T, layout, empty)
-        worst = max(worst, k5b_check(name, q, kv, do, idx, empty, slots))
-    return len(K5B_EDGE_CASES), worst
+        worst_a = max(worst_a, k5a_check(name, q, kv, idx, empty)[2])
+        worst_b = max(worst_b, k5b_check(name, q, kv, do, idx, empty, slots))
+    return len(K5B_EDGE_CASES), worst_a, worst_b
 
 
 def sparse_mla_build_report() -> None:
-    """Registers, local memory, shared memory and blocks an SM of K5b as the
-    runtime loaded it (``cudaFuncGetAttributes``); raises if it uses local
-    memory (it has no local arrays, so any is a spill)."""
+    """Registers, local memory, shared memory and blocks an SM of K5a and K5b
+    as the runtime loaded them (``cudaFuncGetAttributes``); raises if either
+    uses local memory (neither has local arrays, so any is a spill), or if
+    K5a's compiled tile is not the wrapper's ``FWD_TILE``."""
     import ctypes
 
     from prime_rl_tpu_torch.ops import _build
+    from prime_rl_tpu_torch.ops import sparse_mla_kernel as K
 
     lib = _build.load("sparse_mla")
-    attrs = (ctypes.c_int * 4)()
-    _build.check("sparse_mla_bwd", lib.sparse_mla_attributes(1, attrs))
-    regs, local, static, threads = attrs
-    log(f"K5b build: {regs} registers a thread ({threads} threads a block, "
-        f"{lib.sparse_mla_bwd_blocks_per_sm()} blocks an SM), local memory (spills) {local} bytes "
-        f"a thread, shared memory {static} bytes static + {lib.sparse_mla_bwd_smem()} dynamic a "
-        f"block")
-    if local:
-        raise AssertionError("K5b uses local memory: registers spill")
+    spills = []
+    for kernel, name, fn in ((0, "K5a", "sparse_mla_fwd"), (1, "K5b", "sparse_mla_bwd")):
+        attrs = (ctypes.c_int * 4)()
+        _build.check(fn, lib.sparse_mla_attributes(kernel, attrs))
+        regs, local, static, threads = attrs
+        per_sm = getattr(lib, f"{fn}_blocks_per_sm")()
+        smem = getattr(lib, f"{fn}_smem")()
+        tile = K.FWD_TILE if kernel == 0 else K.BWD_TILE
+        log(f"{name} build: {regs} registers a thread ({threads} threads a block, {per_sm} "
+            f"blocks an SM), local memory (spills) {local} bytes a thread, shared memory "
+            f"{static} bytes static + {smem} dynamic a block, tiles of {tile} slots")
+        if local:
+            spills.append(name)
+    if lib.sparse_mla_fwd_tile() != K.FWD_TILE:
+        raise AssertionError(f"K5a is built with tiles of {lib.sparse_mla_fwd_tile()} slots, the "
+                             f"wrapper's FWD_TILE is {K.FWD_TILE}")
+    if spills:
+        raise AssertionError(f"{' and '.join(spills)} use local memory: registers spill")
+
+
+def k5a_library_ms(q, kv, idx, scale: float, flush):
+    """K5a's yardstick: one ``scaled_dot_product_attention`` call over the
+    tokens that selected something (a fully masked row gives NaN), q as [1,
+    64, S', 576] against kv as one KV head (``enable_gqa``), v = kv[:, :512],
+    a dense boolean [S', Sk] mask of the selected pairs built outside the
+    timed call. It computes all S' x Sk pairs and masks the unselected ones.
+    Returns (ms or None, what was timed or why not)."""
+    import torch
+    import torch.nn.functional as F
+
+    Sk = kv.shape[0]
+    real = (idx >= 0) & (idx < Sk)
+    rows = real.any(-1).nonzero().squeeze(-1)
+    r_i, c_i = real[rows].nonzero(as_tuple=True)
+    mask = torch.zeros(len(rows), Sk, dtype=torch.bool, device=q.device)
+    mask[r_i, idx[rows][r_i, c_i].long()] = True
+    qq = q[rows].transpose(0, 1).unsqueeze(0).contiguous()
+    k = kv[None, None]
+    v = kv[:, :512].contiguous()[None, None]
+    try:
+        ms = time_ms(lambda: F.scaled_dot_product_attention(qq, k, v, attn_mask=mask[None, None],
+                                                            scale=scale, enable_gqa=True),
+                     iters=5, warmup=1, flush=flush)
+        return ms, f"sdpa over {len(rows)} tokens x {Sk} rows"
+    except Exception as err:  # noqa: BLE001  (reported: the card refused these widths)
+        return None, f"none ({type(err).__name__}: {str(err).splitlines()[0][:200]})"
 
 
 def sparse_mla_kernel_phase() -> list[dict]:
     """K5a, K5b and the dkv reduction against their plain versions on the same
     bf16 inputs: a packed row of 4096 tokens with top-k 2048 (the DSA trainer's
     shape) and a short row of 1024 tokens whose every index row holds
-    sentinels, one of them nothing else."""
+    sentinels, one of them nothing else; then K5a and K5b over every case of
+    K5B_EDGE_CASES (k5_edge_cases). Each kernel launched twice for equal bits,
+    with its tiles visited, as it counted them, held against the mirror."""
     import torch
 
     from prime_rl_tpu_torch.ops import sparse_mla_kernel as K
@@ -1212,6 +1292,7 @@ def sparse_mla_kernel_phase() -> list[dict]:
     scale = DQ ** -0.5
     tol = K5B_TOL
     fwd_cases, bwd_cases, red_cases = [], [], []
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     for S in (4096, 1024):
         q = torch.randn(S, H, DQ, device=dev, generator=gen).to(torch.bfloat16)
         kv = torch.randn(S, DQ, device=dev, generator=gen).to(torch.bfloat16)
@@ -1222,27 +1303,25 @@ def sparse_mla_kernel_phase() -> list[dict]:
         pairs = int((idx < S).sum())
         shape = f"S=Sk={S} T={T} pairs={pairs}"
 
-        out, lse = K.sparse_mla_fwd(q, kv, idx, scale, DV)
+        out, lse, err_fwd, fwd_visited = k5a_check(shape, q, kv, idx, 7 if S == 1024 else None)
         dq, dkv = K.sparse_mla_bwd(q, kv, idx, out, lse, do, scale, DV)
         torch.cuda.synchronize()
-        ref_out, ref_lse = K.sparse_mla_attention_reference(q, kv, idx, scale, DV)
         ref_dq, ref_dkv = K.sparse_mla_backward_reference(q, kv, idx, out, lse, do, scale, DV)
-        err_fwd = check_close(f"sparse_mla_fwd {shape}", out, ref_out, tol, tol)
-        check_close("sparse_mla_fwd lse", lse, ref_lse, 1e-3, 1e-4)
         err_bwd = max(check_close(f"sparse_mla_bwd dq {shape}", dq, ref_dq, tol, tol),
                       check_close(f"sparse_mla_bwd dkv {shape}", dkv, ref_dkv, tol, tol))
-        if S == 1024 and not (bool((out[7] == 0).all()) and bool((dq[7] == 0).all())
-                              and bool((lse[7] < -1e29).all())):
-            raise AssertionError("sparse_mla: a token that selected nothing must give out 0, "
-                                 "lse -5e29 and dq 0")
+        if S == 1024 and not bool((dq[7] == 0).all()):
+            raise AssertionError("sparse_mla_bwd: a token that selected nothing must give dq 0")
         dq2, dkv2 = K.sparse_mla_bwd(q, kv, idx, out, lse, do, scale, DV)
         if not (torch.equal(dq, dq2) and torch.equal(dkv, dkv2)):
             raise AssertionError("sparse_mla_bwd: two runs on the same inputs differ")
-        del ref_out, ref_lse, ref_dq, ref_dkv, dq2, dkv2
+        del ref_dq, ref_dkv, dq2, dkv2
         tiles = K.sparse_mla_bwd_tile_counts(q, kv, idx, out, lse, do, scale, DV)
-        n_visited = k5b_tiles(shape, tiles, idx, S)
+        n_visited = sparse_mla_tiles("sparse_mla_bwd", shape, tiles, idx, S, K.BWD_TILE)
 
-        ms_fwd = time_ms(lambda: K.sparse_mla_fwd(q, kv, idx, scale, DV), iters=10)
+        # K5a with the L2 flushed before each call (as the other kernels' rows);
+        # its yardstick one SDPA call (k5a_library_ms)
+        ms_fwd = time_ms(lambda: K.sparse_mla_fwd(q, kv, idx, scale, DV), iters=10, flush=flush)
+        lib_fwd, lib_note = k5a_library_ms(q, kv, idx, scale, flush)
         ms_bwd = time_ms(lambda: K.sparse_mla_bwd(q, kv, idx, out, lse, do, scale, DV), iters=5)
         plain_fwd = time_ms(lambda: K.sparse_mla_attention_reference(q, kv, idx, scale, DV),
                             iters=3, warmup=1)
@@ -1254,18 +1333,23 @@ def sparse_mla_kernel_phase() -> list[dict]:
         small = idx.numel() * 4 + lse.numel() * 4
         b_fwd = (q.numel() + kv.numel() + out.numel()) * 2 + small
         b_bwd = (2 * q.numel() + 2 * kv.numel() + 2 * out.numel()) * 2 + small
-        for cases, name, ms, plain, err, nbytes, flops in (
-                (fwd_cases, "K5a sparse_mla_fwd", ms_fwd, plain_fwd, err_fwd, b_fwd,
-                 2 * H * pairs * (DQ + DV)),
-                (bwd_cases, "K5b sparse_mla_bwd (+ dkv reduction)", ms_bwd, plain_bwd, err_bwd,
-                 b_bwd, 2 * H * pairs * (3 * DQ + 2 * DV))):
+        for cases, name, ms, plain, lib, note, err, nbytes, flops, visited, bt in (
+                (fwd_cases, "K5a sparse_mla_fwd (L2 flushed)", ms_fwd, plain_fwd, lib_fwd,
+                 lib_note, err_fwd, b_fwd, 2 * H * pairs * (DQ + DV), fwd_visited, K.FWD_TILE),
+                (bwd_cases, "K5b sparse_mla_bwd (+ dkv reduction)", ms_bwd, plain_bwd, None,
+                 "none", err_bwd, b_bwd, 2 * H * pairs * (3 * DQ + 2 * DV), n_visited,
+                 K.BWD_TILE)):
             bms, by = bound(nbytes, flops)
+            n_tiles = S * -(-T // bt)
             cases.append(dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain,
-                              library_ms=None, bound_ms=bms, bound_by=by))
-            if cases is bwd_cases:
-                cases[-1]["tiles_visited"] = n_visited
+                              library_ms=lib, bound_ms=bms, bound_by=by, tiles_visited=visited,
+                              tiles=f"{visited} of {n_tiles} (tiles of {bt} slots)"))
+            if cases is fwd_cases:
+                cases[-1]["library"] = note
             log(f"{name} {shape}: err {err:.3g}  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
-                f"library none  bound {bms:.4f} ms ({by})  (tolerance {tol} + {tol} * |ref|)")
+                f"library {note if lib is None else f'{lib:.4f} ms ({note})'}  bound "
+                f"{bms:.4f} ms ({by})  tiles of {bt} visited {visited} of {n_tiles} (kernel's "
+                f"count)  (tolerance {tol} + {tol} * |ref|)")
 
         # the reduction alone, on the last chunk of queries: K5b's dkvg rows of
         # that chunk summed per kv row, against index_add_ (one PyTorch call)
@@ -1299,7 +1383,8 @@ def sparse_mla_kernel_phase() -> list[dict]:
             f"index_add_ {lib_red:.4f} ms  bound {bms:.4f} ms ({by})")
         del q, kv, do, idx, out, lse, dq, dkv, dkvg, acc, want, rows_f32, where, order, seg, delta
         torch.cuda.empty_cache()
-    n_edge, err_edge = k5b_edge_cases(gen)
+    del flush
+    n_edge, err_edge_a, err_edge_b = k5_edge_cases(gen)
     rows = []
     for name, cases, line in (("sparse_mla_fwd", fwd_cases, 67), ("sparse_mla_bwd", bwd_cases, 153),
                               ("sparse_mla_dkv_reduce", red_cases, 308)):
@@ -1308,8 +1393,10 @@ def sparse_mla_kernel_phase() -> list[dict]:
                          **{k: cases[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                      "library_ms")},
                          max_abs_err=max(c["max_abs_err"] for c in cases), cases=cases))
-    rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"], err_edge)
-    rows[1]["edge_cases"] = n_edge
+    for row, err in zip(rows, (err_edge_a, err_edge_b)):
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["edge_cases"] = n_edge
+        row["tiles"] = row["cases"][0]["tiles"]
     return rows
 
 

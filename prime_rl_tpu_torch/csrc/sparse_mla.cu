@@ -30,17 +30,69 @@
 // The Dq 576 -> 640 padding, the padding of T and S to block multiples and the
 // lax.map over chunks are TPU layout work and are not carried over.
 //
-// What bounds them on the H100: operations. A token's 64 heads against up to
-// 2048 rows of 576 channels is 2*64*T*(576+512) flops forward and
-// 2*64*T*(3*576+2*512) backward against 1152 bytes per row read from L2.
-//   K5a (first version): WMMA bf16 16x16x16 tiles with f32 accumulation, one
-//        block of 16 warps per query token, the token's [64, Dq] panel
-//        resident in shared memory, tiles of 64 selected rows; s goes through
-//        shared memory for the online softmax; the [64, 512] output
-//        accumulator stays in register fragments (each warp 16 rows x 128
-//        columns) and is rescaled per row by multiplying with a fragment
-//        loaded from a tile whose rows hold the row's factor. Tiles that hold
-//        only sentinels are skipped.
+// What bounds them on the H100: operations, and for K5a the row gather. A
+// token's 64 heads against up to 2048 rows of 576 channels is
+// 2*64*T*(576+512) flops forward and 2*64*T*(3*576+2*512) backward against
+// 1152 bytes per row read from L2.
+//   K5a (redesigned for Hopper): its floors at the DSA trainer's S = Sk =
+//        4096, T = 2048 with a causal top-k are the products (0.876 TFLOP:
+//        0.886 ms at 989 TFLOP/s) and the row gather from L2 (each selected
+//        pair reads its row: 7.25 GB). The design:
+//        - Persistent blocks, one an SM, walk the tokens in rounds that go up
+//          and down the blocks in turn, the last token first (the heaviest
+//          under a causal selection). A token's q [64, 576] comes by TMA (nine
+//          64 x 64 boxes in the 128-byte swizzle) and stays for all its
+//          tiles; the block's next token (q boxes and index row) is
+//          prefetched into L2 during the token's last tile.
+//        - A tile is BT = 64 slots. At a token's start seven warps read its
+//          index row and keep one bit a tile (does it hold a real index?), as
+//          K5b does: a tile of sentinels only is neither gathered nor
+//          computed, wherever the sentinels lie in the row, and the visited
+//          tiles are counted (`sparse_mla_fwd_tiles`).
+//        - Rows come by 16-byte cp.async into the 128-byte-swizzled boxes the
+//          wgmma descriptors read, 8 threads a row (each warp instruction
+//          reads four whole 128-byte lines); sentinel slots read nothing and
+//          land as zeros. Two stages: warpgroup 1 gathers tile j + 1 at the
+//          start of tile j, its rows' indices loaded one tile earlier.
+//        - Two warpgroups and no producer (256 threads, up to 255 registers).
+//          Warpgroup 0 computes s = q kvg^T (m64n64k16, both operands
+//          K-major, 36 k-steps) and the online softmax in the registers that
+//          hold s: scores in log2 units (log2(e) folded into the scale), a
+//          masked score -inf before ex2, the running max floored at a finite
+//          -1e30 so that a row that saw nothing never forms inf - inf. It
+//          stores bf16(p) as one [64 heads][64 slots] box in the 128-byte
+//          swizzle and the rows' factors; warpgroup w owns o[:, 256 w, 256 w +
+//          256) (128 f32 registers a thread), rescales it and adds bf16(p)
+//          vg (m64n256k16, p K-major, vg MN-major from the stage's boxes).
+//        - The sums are kept per thread and added at the token's end in a
+//          fixed order (the quad's four, warpgroup 0's); o / l goes out as
+//          bf16 through the token's q boxes by 16-byte stores, lse as
+//          max(m, -5e29) + log(max(l, 1e-30)). No atomics: every element is
+//          written once, from sums in a fixed order, and two launches give
+//          equal bits.
+//        Shared memory (bytes): q 73,728 + two kv stages 147,456 + p 8,192 +
+//        the rows' factors (at the end their sums) 256 + indices 512 + tile
+//        bits 512 + the mbarrier, + 1,024 of alignment slack = 231,696 of the
+//        232,448 a block may use.
+//        Measured (K5a alone at the shape above, the L2 flushed,
+//        scripts/torch_sparse_mla_bench.py; an NVIDIA H100 80GB HBM3 at 700 W):
+//        this design 1.64-1.66 ms, 1.87x the operation bound (the first
+//        version: 9.07). A build that only gathers the rows
+//        (-DK5A_GATHER_ONLY, a wrong output) takes 1.15-1.21 ms, 6.0-6.3 TB/s
+//        from L2: the gather's own floor with one tile in flight, 1.4x below
+//        the kernel. The timeline (clocks a tile, warpgroup 0): s 1.59k, the
+//        softmax step and p 0.77k, p v 1.39k, the tile end 0.18k, about 4.3k
+//        in all; warpgroup 1 waits 2.4k of it. s reads 144 KB of shared memory a tile while the next
+//        tile's 72 KB land: at about 135 bytes a clock it is bound by shared
+//        memory, not by the tensor cores. Measured on the way and not kept
+//        (build variants timed in turn with this design): BT = 32 in three
+//        stages, 2.23 ms; s split over both warpgroups at N = 32 with the
+//        rows' maxima exchanged, 2.06 ms (twice the q reads); the next
+//        tile's s issued before the last tile's p v has completed, 2.65 ms:
+//        the gather into the stage that p v reads can then start only when
+//        p v is done, and it no longer lands under the products; the gather
+//        issued after s (so that s has shared memory to itself), 1.83 ms. The
+//        gather needs its whole tile of lead.
 //   K5b (redesigned for Hopper): its floor is the products (2.22 TFLOP at the
 //        DSA trainer's S = Sk = 4096, T = 2048 with a causal top-k: 2.24 ms at
 //        989 TFLOP/s), then the per-slot dkvg rows it must write (7.25 GB
@@ -125,13 +177,10 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstdint>
 
 #include "flash_attn_common.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
@@ -140,261 +189,9 @@ using bf16 = __nv_bfloat16;
 constexpr int H = 64;    // heads of one query token: the M dimension of every product
 constexpr int DQ = 576;  // latent + rope channels of q and kv
 constexpr int DV = 512;  // value channels (the latent part)
-constexpr int NWARPS = 16;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr float NEG_INF = -1e30f;
-
-constexpr int QLD = DQ + 8;  // bf16 row stride of K5a's q panel and kv tile
-constexpr int V8 = DQ / 8;   // 16-byte vectors in one kv row
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBT = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// one token's [H, COLS] panel (contiguous in device memory) into shared memory
-template <int COLS, int LD>
-__device__ __forceinline__ void load_panel(bf16* dst, const bf16* src) {
-  constexpr int V = COLS / 8;
-  for (int i = threadIdx.x; i < H * V; i += NTHREADS) {
-    const int r = i / V, c = (i % V) * 8;
-    *reinterpret_cast<uint4*>(dst + r * LD + c) =
-        *reinterpret_cast<const uint4*>(src + (size_t)r * COLS + c);
-  }
-}
-
-// the BT rows of kv named by idx_s (-1: sentinel, zero-filled and never read)
-template <int BT>
-__device__ __forceinline__ void gather_tile(bf16* dst, const bf16* __restrict__ kv,
-                                            const int* idx_s) {
-  for (int i = threadIdx.x; i < BT * V8; i += NTHREADS) {
-    const int r = i / V8, c = (i % V8) * 8;
-    const int id = idx_s[r];
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (id >= 0) val = *reinterpret_cast<const uint4*>(kv + (size_t)id * DQ + c);
-    *reinterpret_cast<uint4*>(dst + r * QLD + c) = val;
-  }
-}
-
-// this tile's slot indices into idx_s; returns the slot's row, or -1 for a
-// sentinel, an index out of range or a slot past T
-template <int BT>
-__device__ __forceinline__ int load_indices(int* idx_s, const int* __restrict__ row_indices,
-                                            int j0, int T, int Sk) {
-  int my = -1;
-  if (threadIdx.x < BT) {
-    const int j = j0 + threadIdx.x;
-    if (j < T) {
-      const int id = row_indices[j];
-      if (id >= 0 && id < Sk) my = id;
-    }
-    idx_s[threadIdx.x] = my;
-  }
-  return my;
-}
-
-// acc = A[16 x 16*K] B^T, A row-major (stride lda), B stored [n][k] (stride ldb)
-template <int K>
-__device__ __forceinline__ void mma_abt(FragC& acc, const bf16* a, int lda, const bf16* b,
-                                        int ldb) {
-  wmma::fill_fragment(acc, 0.f);
-#pragma unroll 4
-  for (int kk = 0; kk < K; ++kk) {
-    FragA fa;
-    FragBT fb;
-    wmma::load_matrix_sync(fa, a + kk * 16, lda);
-    wmma::load_matrix_sync(fb, b + kk * 16, ldb);
-    wmma::mma_sync(acc, fa, fb, acc);
-  }
-}
-
-// 8 consecutive values of this lane's row of a staged 16x16 f32 tile, as bf16
-__device__ __forceinline__ void store8(bf16* dst, const float* src, float mul) {
-  __align__(16) bf16 pk[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) pk[i] = __float2bfloat16(src[i] * mul);
-  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(pk);
-}
-
-// ---------------------------------------------------------------------------
-// K5a: forward
-// ---------------------------------------------------------------------------
-struct FwdSmem {
-  static constexpr int BT = 64;       // selected rows per tile
-  static constexpr int SLD = BT + 4;  // f32 row stride of the score tile
-  static constexpr int PLD = BT + 8;  // bf16 row stride of the probability tile
-  static constexpr size_t q_off = 0;
-  static constexpr size_t kv_off = q_off + sizeof(bf16) * H * QLD;
-  static constexpr size_t s_off = kv_off + sizeof(bf16) * BT * QLD;
-  static constexpr size_t p_off = s_off + sizeof(float) * H * SLD;
-  static constexpr size_t alpha_off = p_off + sizeof(bf16) * H * PLD;
-  static constexpr size_t m_off = alpha_off + sizeof(float) * H * 16;
-  static constexpr size_t l_off = m_off + sizeof(float) * H;
-  static constexpr size_t idx_off = l_off + sizeof(float) * H;
-  static constexpr size_t bytes = idx_off + sizeof(int) * BT;
-  // the score tile doubles as the epilogue's staging: one 16x16 f32 tile a warp
-  static_assert(sizeof(float) * H * SLD >= sizeof(float) * NWARPS * 256, "staging does not fit");
-};
-
-__global__ void __launch_bounds__(NTHREADS)
-sparse_mla_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
-                      const int* __restrict__ indices, bf16* __restrict__ out,
-                      float* __restrict__ lse, int S, int Sk, int T, float scale) {
-  using M = FwdSmem;
-  constexpr int BT = M::BT;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + M::q_off);
-  bf16* KVs = reinterpret_cast<bf16*>(smem + M::kv_off);
-  float* Ss = reinterpret_cast<float*>(smem + M::s_off);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + M::p_off);
-  float* AlphaT = reinterpret_cast<float*>(smem + M::alpha_off);  // [H, 16], row r = alpha[r]
-  float* m_s = reinterpret_cast<float*>(smem + M::m_off);
-  float* l_s = reinterpret_cast<float*>(smem + M::l_off);
-  int* idx_s = reinterpret_cast<int*>(smem + M::idx_off);
-
-  const int t = S - 1 - blockIdx.x;  // under a causal selection the late tokens are the longest
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int rg = warp & 3;   // this warp's 16 heads
-  const int cg = warp >> 2;  // its quarter of the columns
-
-  load_panel<DQ, QLD>(Qs, q + (size_t)t * H * DQ);
-  if (tid < H) {
-    m_s[tid] = NEG_INF;
-    l_s[tid] = 0.f;
-  }
-  FragC o[DV / 64];  // 16 rows x 128 columns of the output
-#pragma unroll
-  for (int n = 0; n < DV / 64; ++n) wmma::fill_fragment(o[n], 0.f);
-
-  const int* row_indices = indices + (size_t)t * T;
-  for (int j0 = 0; j0 < T; j0 += BT) {
-    const int my = load_indices<BT>(idx_s, row_indices, j0, T, Sk);
-    // also the barrier that ends the previous tile (and the prologue's loads)
-    if (!__syncthreads_or(my >= 0)) continue;
-    gather_tile<BT>(KVs, kv, idx_s);
-    __syncthreads();
-
-    {  // s = q kvg^T: one 16x16 tile a warp
-      FragC acc;
-      mma_abt<DQ / 16>(acc, Qs + rg * 16 * QLD, QLD, KVs + cg * 16 * QLD, QLD);
-      wmma::store_matrix_sync(Ss + rg * 16 * M::SLD + cg * 16, acc, M::SLD, wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    {  // online softmax: 8 threads a row, 8 columns each
-      const int row = tid >> 3, sub = tid & 7;
-      float sv[8];
-      unsigned ok = 0;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const int col = sub * 8 + c;
-        const bool valid = idx_s[col] >= 0;
-        ok |= (valid ? 1u : 0u) << c;
-        sv[c] = valid ? Ss[row * M::SLD + col] * scale : NEG_INF;
-        mx = fmaxf(mx, sv[c]);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-      const float m_prev = m_s[row];
-      const float m_cur = fmaxf(m_prev, mx);
-      const float m_safe = fmaxf(m_cur, 0.5f * NEG_INF);  // rows that saw nothing stay at 0
-      const float alpha = expf(m_prev - m_safe);
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const float p = ((ok >> c) & 1u) ? expf(sv[c] - m_safe) : 0.f;
-        sum += p;
-        Ps[row * M::PLD + sub * 8 + c] = __float2bfloat16(p);
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
-      __syncwarp();  // every lane has read m_s[row] before one of them replaces it
-      if (sub == 0) {
-        m_s[row] = m_cur;
-        l_s[row] = l_s[row] * alpha + sum;
-      }
-      AlphaT[row * 16 + sub * 2] = alpha;
-      AlphaT[row * 16 + sub * 2 + 1] = alpha;
-    }
-    __syncthreads();
-
-    {  // o = o * alpha + p v
-      FragC af;
-      wmma::load_matrix_sync(af, AlphaT + rg * 16 * 16, 16, wmma::mem_row_major);
-#pragma unroll
-      for (int n = 0; n < DV / 64; ++n)
-#pragma unroll
-        for (int e = 0; e < af.num_elements; ++e) o[n].x[e] *= af.x[e];
-#pragma unroll
-      for (int kk = 0; kk < BT / 16; ++kk) {
-        FragA fa;
-        wmma::load_matrix_sync(fa, Ps + rg * 16 * M::PLD + kk * 16, M::PLD);
-#pragma unroll
-        for (int n = 0; n < DV / 64; ++n) {
-          FragB fb;
-          wmma::load_matrix_sync(fb, KVs + kk * 16 * QLD + cg * (DV / 4) + n * 16, QLD);
-          wmma::mma_sync(o[n], fa, fb, o[n]);
-        }
-      }
-    }
-  }
-  __syncthreads();  // the last tile is consumed: the score tile becomes staging
-
-  float* stage = Ss + warp * 256;
-  const int r = lane >> 1, c0 = (lane & 1) * 8;
-  const int row = rg * 16 + r;
-  const float inv = 1.f / fmaxf(l_s[row], 1e-30f);
-  bf16* orow = out + ((size_t)t * H + row) * DV + cg * (DV / 4) + c0;
-#pragma unroll
-  for (int n = 0; n < DV / 64; ++n) {
-    wmma::store_matrix_sync(stage, o[n], 16, wmma::mem_row_major);
-    __syncwarp();
-    store8(orow + n * 16, stage + r * 16 + c0, inv);
-    __syncwarp();
-  }
-  if (tid < H)
-    lse[(size_t)t * H + tid] =
-        fmaxf(m_s[tid], 0.5f * NEG_INF) + logf(fmaxf(l_s[tid], 1e-30f));
-}
-
-// ---------------------------------------------------------------------------
-// K5b: backward (dq and the per-slot dkvg rows of one chunk of queries)
-// ---------------------------------------------------------------------------
-namespace k5b {
-
-constexpr int BT = 32;               // selected rows a tile
-constexpr int THREADS = 384;         // three consumer warpgroups, no producer
-constexpr int QBOXES = DQ / 64;      // 64-column boxes of q and of a kv row: 9
-constexpr int OBOXES = DV / 64;      // of do: 8
-constexpr int PANEL_BOX = 64 * 128;  // a box of the q or do panel: 64 heads x 128 bytes
-constexpr int TILE_BOX = BT * 128;   // a box of a kv tile
-constexpr int STAGE = QBOXES * TILE_BOX;
-constexpr int PD_BYTES = H * BT * 2;  // p or ds in bf16: [64 heads][32 slots], rows of 64 bytes
-constexpr int KSTEPS_S = DQ / 16;    // k16 steps of s: 36
-constexpr int KSTEPS_DP = DV / 16;   // of dp: 32
-constexpr int WIN = 4096;            // tiles a scan window (one bit each)
+constexpr int V8 = DQ / 8;  // 16-byte vectors in one kv row
 constexpr float LOG2E = 1.4426950408889634f;
-
-// Offsets into the block's dynamic shared memory after its 1024-byte
-// alignment. The panels and the kv stages are 128-byte-swizzled boxes
-// (1024-aligned); p and ds are 64-byte-swizzled (512-aligned).
-constexpr int q_off = 0;                                // [9] boxes: q, later dq's staging
-constexpr int do_off = q_off + QBOXES * PANEL_BOX;      // [8] boxes
-constexpr int kv_off = do_off + OBOXES * PANEL_BOX;     // [2] stages of [9] boxes
-constexpr int p_off = kv_off + 2 * STAGE;               // bf16(p)
-constexpr int ds_off = p_off + PD_BYTES;                // ds
-constexpr int x_off = ds_off + PD_BYTES;                // f32 [4][128] float4: p, 0 to 2
-constexpr int idx_off = x_off + H * BT * 4;             // int [2][BT]: each stage's rows, -1 sentinel
-constexpr int flag_off = idx_off + 2 * BT * 4;          // uint32 [WIN / 32]: tiles with a real index
-constexpr int bar_off = flag_off + WIN / 8;             // the panels' mbarrier
-constexpr int BYTES = bar_off + 16 + 1024;              // + the alignment slack
-static_assert(BYTES <= 232448, "K5b's shared memory exceeds what a block may use");
-static_assert(128 == 4 * BT, "warpgroup 1 gives each thread 18 of a row's 72 chunks");
-
-}  // namespace k5b
+constexpr float LN2 = 0.6931471805599453f;
 
 // 16 bytes global -> shared, asynchronously; `valid` false fills zeros and reads nothing
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
@@ -433,6 +230,7 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+
 
 // a box of a 2-D tensor map into L2, and `bytes` (a multiple of 16) from
 // global `src` (on 16 bytes) into L2
@@ -510,6 +308,15 @@ __device__ __forceinline__ void wgmma_n32_mnmn(float (&d)[16], uint64_t da, uint
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// D[64 x 256] += A[64 x 16] B[16 x 256], A K-major and B MN-major in shared memory
+__device__ __forceinline__ void wgmma_n256_kmn(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // the byte address of a thread's two bf16 values (slots 8 i + 2 (lane % 4) + {0, 1})
 // of head h in a p or ds tile: rows of 64 bytes in the 64-byte swizzle
 __device__ __forceinline__ uint32_t pd_addr(uint32_t base, int h, int i, int lane) {
@@ -551,6 +358,400 @@ __device__ __forceinline__ int next_tile(const uint32_t* flags, int t, int n) {
   }
   return n;
 }
+
+// ---------------------------------------------------------------------------
+// K5a: forward
+// ---------------------------------------------------------------------------
+namespace k5a {
+
+constexpr int BT = 64;               // slots a tile
+constexpr int THREADS = 256;         // two warpgroups, no producer
+constexpr int QBOXES = DQ / 64;      // 64-column boxes of q and of a kv row: 9
+constexpr int PANEL_BOX = 64 * 128;  // a box of the q panel: 64 heads x 128 bytes
+constexpr int TILE_BOX = BT * 128;   // a box of a kv tile
+constexpr int STAGE = QBOXES * TILE_BOX;
+constexpr int P_BYTES = H * BT * 2;  // bf16(p): [64 heads][64 slots], one box
+constexpr int KSTEPS_S = DQ / 16;    // k16 steps of s: 36
+constexpr int GROWS = BT / 16;       // rows a gathering thread moves a tile
+constexpr int WIN = 4096;            // tiles a scan window (one bit each)
+constexpr float M_FLOOR = -1e30f;    // the running max's start (log2 units): finite
+
+// Offsets into the block's dynamic shared memory after its 1024-byte
+// alignment: the q panel, the kv stages and p are 128-byte-swizzled boxes
+// (1024-aligned).
+constexpr int q_off = 0;                            // [9] boxes: q, at the token's end o's staging
+constexpr int kv_off = q_off + QBOXES * PANEL_BOX;  // [2] stages of [9] boxes
+constexpr int p_off = kv_off + 2 * STAGE;           // bf16(p)
+constexpr int x_off = p_off + P_BYTES;              // f32 [64]: the rows' factors, at the end sums
+constexpr int idx_off = x_off + H * 4;              // int [2][BT]: each stage's rows, -1 sentinel
+constexpr int flag_off = idx_off + 2 * BT * 4;      // uint32 [WIN / 32]: tiles with a real index
+constexpr int bar_off = flag_off + WIN / 8;         // the panel's mbarrier
+constexpr int BYTES = bar_off + 16 + 1024;          // + the alignment slack
+static_assert(BYTES <= 232448, "K5a's shared memory exceeds what a block may use");
+
+}  // namespace k5a
+
+// ---- K5a's phase clocks (scripts/torch_sparse_mla_bench.py --timeline builds
+// with SPARSE_MLA_TIMELINE; the port's build compiles them out): thread 0 of
+// each warpgroup adds the clocks since its previous mark to its block's slot
+// of the phase, and counts its tiles in slot K5A_MARKS
+#ifdef SPARSE_MLA_TIMELINE
+constexpr int K5A_MARKS = 8;
+__device__ unsigned long long k5a_timeline[1024 * 2 * (K5A_MARKS + 1)];
+#define K5A_MARK_INIT() unsigned tl_prev = clock()
+#define K5A_MARK(i)                                                                        \
+  do {                                                                                     \
+    if (wt == 0 && blockIdx.x < 1024) {                                                    \
+      const unsigned now_ = clock();                                                       \
+      unsigned long long* slot_ = k5a_timeline + (blockIdx.x * 2 + wg) * (K5A_MARKS + 1);  \
+      atomicAdd(slot_ + (i), (unsigned long long)(now_ - tl_prev));                       \
+      if ((i) == 6) atomicAdd(slot_ + K5A_MARKS, 1ull);                                    \
+      tl_prev = now_;                                                                      \
+    }                                                                                      \
+  } while (0)
+#else
+#define K5A_MARK_INIT() \
+  do {                  \
+  } while (0)
+#define K5A_MARK(i) \
+  do {              \
+  } while (0)
+#endif
+
+__global__ void __launch_bounds__(k5a::THREADS, 1)
+sparse_mla_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const bf16* __restrict__ kv,
+                      const int* __restrict__ indices, bf16* __restrict__ out,
+                      float* __restrict__ lse, int* __restrict__ tiles, int S, int Sk, int T,
+                      float scale) {
+  using namespace k5a;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sbase = smem_u32(smem);
+  float* xs = reinterpret_cast<float*>(smem + x_off);
+  int* idx_s = reinterpret_cast<int*>(smem + idx_off);
+  uint32_t* flags = reinterpret_cast<uint32_t*>(smem + flag_off);
+  const uint32_t bar = sbase + bar_off;
+
+  const int tid = threadIdx.x, wt = tid % 128, warp = tid / 32, lane = tid % 32;
+  // the warpgroup, broadcast from lane 0: the compiler then knows a branch on
+  // it is warp-uniform, and does not serialize the wgmmas inside it
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int lr = 16 * (wt / 32) + lane / 4;  // this thread's rows lr, lr + 8 of a 64-row tile
+  // warpgroup 1 gathers: thread wt moves the 16-byte chunk `part` of each of
+  // the 9 boxes of rows grow + 16 k (k < GROWS), 8 threads a row: each warp
+  // instruction reads four whole 128-byte lines
+  const int grow = wt / 8, part = wt % 8;
+  const float sl2 = scale * LOG2E;
+  const int n_tiles = (T + BT - 1) / BT;
+
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  K5A_MARK_INIT();
+
+  // the offset of k16 step kk in a K-major descriptor: +32 bytes a step
+  // inside a 64-column box, the next box `box` bytes on
+  auto koff = [](int kk, int box) { return (uint64_t)(((kk / 4) * box + (kk % 4) * 32) >> 4); };
+
+  uint32_t parity = 0;
+  for (int r = 0;; ++r) {
+    const int e = r * gridDim.x + (r & 1 ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
+    if (e >= S) break;
+    const int tok = S - 1 - e;  // under a causal selection the late tokens hold the most tiles
+    // every thread is done with the previous token's panel, stages and flags
+    // (its generic accesses fenced against the TMA writes below)
+    __syncthreads();
+    K5A_MARK(0);
+    // the block's next token (its q boxes and index row) into L2, issued
+    // during the token's last tile
+    const int en = (r + 1) * gridDim.x + (r & 1 ? blockIdx.x : gridDim.x - 1 - blockIdx.x);
+    auto prefetch_next = [&]() {
+      if (en >= S) return;
+      const int tn = S - 1 - en;
+      for (int b = 0; b < QBOXES; ++b) prefetch_box(&tm_q, b * 64, tn * H);
+      const uintptr_t lo = reinterpret_cast<uintptr_t>(indices + (size_t)tn * T) & ~(uintptr_t)15;
+      const uintptr_t hi = reinterpret_cast<uintptr_t>(indices + (size_t)(tn + 1) * T);
+      prefetch_bytes(reinterpret_cast<const void*>(lo), (uint32_t)((hi - lo + 15) & ~(uintptr_t)15));
+    };
+    const int* irow = indices + (size_t)tok * T;
+    float o[128];  // o[:, 256 wg + ...]: 64 rows x 256 columns
+#pragma unroll
+    for (int i = 0; i < 128; ++i) o[i] = 0.f;
+    // warpgroup 0's running max (log2 units) and this thread's partial sums
+    // of rows lr, lr + 8
+    float m0 = M_FLOOR, m1 = M_FLOOR, l0 = 0.f, l1 = 0.f;
+    int visited = 0;
+
+    for (int w0 = 0; w0 < n_tiles; w0 += WIN) {
+      const int nw = min(WIN, n_tiles - w0);
+      // one bit a tile: does it hold a real index? The words are zeroed
+      // (every thread is past its last read of the previous window's), then
+      // warps 0 .. 6 take every seventh tile, one ballot a tile, while warp
+      // 7 issues the token's q loads
+      if (w0 > 0) __syncthreads();
+      for (int i = tid; i < (nw + 31) / 32; i += THREADS) flags[i] = 0;
+      __syncthreads();
+      if (w0 == 0 && tid == THREADS - 32) {
+        mbar_arrive_expect_tx(bar, QBOXES * PANEL_BOX);
+        for (int b = 0; b < QBOXES; ++b)
+          tma_load_2d(sbase + q_off + b * PANEL_BOX, &tm_q, bar, b * 64, tok * H);
+      }
+      constexpr int SCAN_WARPS = THREADS / 32 - 1;
+      constexpr int SPL = BT / 32;  // slots a lane reads a tile
+      for (int t0 = warp; t0 < nw && warp < SCAN_WARPS; t0 += 8 * SCAN_WARPS) {
+        int v[8][SPL];  // eight tiles' indices in flight at once, then their ballots
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const int t = t0 + k * SCAN_WARPS;
+#pragma unroll
+          for (int h = 0; h < SPL; ++h) {
+            const int j = (w0 + t) * BT + 32 * h + lane;
+            v[k][h] = t < nw && j < T ? irow[j] : -1;
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const int t = t0 + k * SCAN_WARPS;
+          bool real = false;
+#pragma unroll
+          for (int h = 0; h < SPL; ++h) real |= v[k][h] >= 0 && v[k][h] < Sk;
+          if (__ballot_sync(0xffffffffu, real) && lane == 0)
+            atomicOr(flags + (t >> 5), 1u << (t & 31));
+        }
+      }
+      __syncthreads();
+      K5A_MARK(1);
+
+      // the kv rows of this thread's rows of window tile t (-1: sentinel,
+      // past T, or no such tile)
+      auto row_ids = [&](int t, int (&id)[GROWS]) {
+#pragma unroll
+        for (int k = 0; k < GROWS; ++k) {
+          const int j = (w0 + t) * BT + grow + 16 * k;
+          int v = -1;
+          if (t < nw && j < T) {
+            v = irow[j];
+            if (v < 0 || v >= Sk) v = -1;
+          }
+          id[k] = v;
+        }
+      };
+      // a tile's rows into stage st, to their swizzled places (a sentinel
+      // slot reads nothing and lands as zeros)
+      auto gather = [&](const int (&id)[GROWS], int st) {
+#pragma unroll
+        for (int k = 0; k < GROWS; ++k) {
+          const int row = grow + 16 * k;
+          if (part == 0) idx_s[st * BT + row] = id[k];
+          const bf16* src = kv + (size_t)(id[k] < 0 ? 0 : id[k]) * DQ + part * 8;
+          const uint32_t dst = sbase + kv_off + st * STAGE + row * 128 + ((part ^ (row & 7)) << 4);
+#pragma unroll
+          for (int u = 0; u < QBOXES; ++u) cp_async16(dst + u * TILE_BOX, src + u * 64, id[k] >= 0);
+        }
+        cp_async_commit();
+      };
+
+      // the first tile into stage 0; `nid` holds the rows of the next one
+      // (loaded a tile early: the gather never waits for an index)
+      int cur = next_tile(flags, -1, nw);
+      int nid[GROWS];
+      if (wg == 1) {
+        row_ids(cur, nid);
+        if (cur < nw) gather(nid, 0);
+        row_ids(next_tile(flags, cur, nw), nid);
+      }
+      if (w0 == 0) mbar_wait(bar, parity);
+      cp_async_wait<0>();
+      fence_async_smem();
+      __syncthreads();
+      K5A_MARK(2);
+
+      int st = 0;
+      while (cur < nw) {
+        const int nxt = next_tile(flags, cur, nw);
+        const uint32_t kvb = sbase + kv_off + st * STAGE;
+        const uint32_t p_s = sbase + p_off;
+        const int* idt = idx_s + st * BT;
+        float a0 = 1.f, a1 = 1.f;  // this tile's factors of rows lr, lr + 8
+
+        if (wg == 1) {  // the next tile into the stage the last tile freed
+          if (nxt < nw) {
+            gather(nid, st ^ 1);
+            row_ids(next_tile(flags, nxt, nw), nid);
+          } else if (w0 + WIN >= n_tiles && wt == 0) {
+            prefetch_next();
+          }
+        }
+#ifndef K5A_GATHER_ONLY  // a measurement variant (the bench's --variants): rows gathered, no products
+        // ---- warpgroup 0: s = q kvg^T, the softmax step in the registers
+        // that hold it, bf16(p) into the p tile and the rows' factors
+        if (wg == 0) {
+          float s[BT / 2];
+          const uint64_t q0 = smem_desc(sbase + q_off, 16, 1024);
+          const uint64_t kd = smem_desc(kvb, 16, 1024);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < KSTEPS_S; ++kk)
+            wgmma_ss<BT>(s, q0 + koff(kk, PANEL_BOX), kd + koff(kk, TILE_BOX), kk > 0);
+          wgmma_commit();
+          wgmma_wait_all();
+          pin(s);
+          K5A_MARK(3);
+          // scores in log2 units; a masked one is -inf before the exponential,
+          // so its p is exactly 0
+          float x0 = MASKED, x1 = MASKED;
+#pragma unroll
+          for (int i = 0; i < BT / 8; ++i) {
+#pragma unroll
+            for (int jj = 0; jj < 2; ++jj) {
+              const bool real = idt[8 * i + 2 * (lane & 3) + jj] >= 0;
+              s[4 * i + jj] = real ? s[4 * i + jj] * sl2 : MASKED;
+              s[4 * i + 2 + jj] = real ? s[4 * i + 2 + jj] * sl2 : MASKED;
+              x0 = fmaxf(x0, s[4 * i + jj]);
+              x1 = fmaxf(x1, s[4 * i + 2 + jj]);
+            }
+          }
+          x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, 1));
+          x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, 2));
+          x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, 1));
+          x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, 2));
+          const float n0 = fmaxf(m0, x0), n1 = fmaxf(m1, x1);
+          a0 = ex2(m0 - n0);
+          a1 = ex2(m1 - n1);
+          m0 = n0;
+          m1 = n1;
+          float r0 = 0.f, r1 = 0.f;
+#pragma unroll
+          for (int i = 0; i < BT / 4; ++i) {
+            s[2 * i] = ex2(s[2 * i] - ((i & 1) ? n1 : n0));
+            s[2 * i + 1] = ex2(s[2 * i + 1] - ((i & 1) ? n1 : n0));
+            ((i & 1) ? r1 : r0) += s[2 * i] + s[2 * i + 1];
+          }
+          l0 = l0 * a0 + r0;
+          l1 = l1 * a1 + r1;
+#pragma unroll
+          for (int i = 0; i < BT / 8; ++i) {  // [64 heads][64 slots] in the 128-byte swizzle
+            st_shared32(swizzled(p_s, H, lr, i, lane), pack_bf16(s[4 * i], s[4 * i + 1]));
+            st_shared32(swizzled(p_s, H, lr + 8, i, lane), pack_bf16(s[4 * i + 2], s[4 * i + 3]));
+          }
+          if ((lane & 3) == 0) {  // the factors, for warpgroup 1
+            xs[lr] = a0;
+            xs[lr + 8] = a1;
+          }
+          fence_async_smem();
+        }
+#endif
+        bar_sync(1, THREADS);  // p and the factors in place
+        K5A_MARK(4);
+#ifndef K5A_GATHER_ONLY
+        if (wg == 1) {
+          a0 = xs[lr];
+          a1 = xs[lr + 8];
+        }
+        // ---- o[:, 256 wg ..] = o alpha + bf16(p) vg[:, 256 wg ..]: vg is
+        // MN-major, the kv boxes 4 wg .. 4 wg + 3 of the stage (+2048 bytes a
+        // k16 step)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          o[4 * i] *= a0;
+          o[4 * i + 1] *= a0;
+          o[4 * i + 2] *= a1;
+          o[4 * i + 3] *= a1;
+        }
+        {
+          const uint64_t a_p = smem_desc(p_s, 16, 1024);  // K-major: +32 bytes a k16 step
+          const uint64_t b_v = smem_desc(kvb + 4 * wg * TILE_BOX, TILE_BOX, 1024);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < BT / 16; ++kk)
+            wgmma_n256_kmn(o, a_p + ((kk * 32) >> 4), b_v + ((kk * 16 * 128) >> 4));
+          wgmma_commit();
+          wgmma_wait_all();
+          pin(o);
+        }
+#endif
+        K5A_MARK(5);
+        // ---- the next tile's rows have landed; every thread is done with this
+        // tile's stage and with p
+        cp_async_wait<0>();
+        fence_async_smem();
+        __syncthreads();
+        K5A_MARK(6);
+        cur = nxt;
+        st ^= 1;
+        ++visited;
+      }
+    }
+    if (tiles != nullptr && tid == 0) {  // [S, 2]: visited, candidates
+      tiles[2 * tok] = visited;
+      tiles[2 * tok + 1] = n_tiles;
+    }
+
+    // ---- epilogue: the rows' sums (warpgroup 0's quad partials, added in a
+    // fixed order, to both warpgroups through shared memory), lse, and o / l
+    // as bf16 staged in the warpgroup's q boxes 4 wg .. 4 wg + 3 (their last
+    // reads are complete), then 16-byte stores
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    if (wg == 0 && (lane & 3) == 0) {
+      xs[lr] = l0;
+      xs[lr + 8] = l1;
+    }
+    __syncthreads();
+    const float s0 = xs[lr], s1 = xs[lr + 8];
+    if (wg == 0 && (lane & 3) == 0) {
+      lse[(size_t)tok * H + lr] = fmaxf(m0 * LN2, -5e29f) + logf(fmaxf(s0, 1e-30f));
+      lse[(size_t)tok * H + lr + 8] = fmaxf(m1 * LN2, -5e29f) + logf(fmaxf(s1, 1e-30f));
+    }
+    stage_rows<256>(o, 1.f / fmaxf(s0, 1e-30f), 1.f / fmaxf(s1, 1e-30f),
+                    sbase + q_off + 4 * wg * PANEL_BOX, 64, 0, lr, lane);
+    bar_sync(3 + wg, 128);
+    store_rows<256>(out + (size_t)tok * H * DV + 256 * wg, DV, smem + q_off + 4 * wg * PANEL_BOX,
+                    64, 0, 64);
+    fence_async_smem();
+    K5A_MARK(7);
+    parity ^= 1;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K5b: backward (dq and the per-slot dkvg rows of one chunk of queries)
+// ---------------------------------------------------------------------------
+namespace k5b {
+
+constexpr int BT = 32;               // selected rows a tile
+constexpr int THREADS = 384;         // three consumer warpgroups, no producer
+constexpr int QBOXES = DQ / 64;      // 64-column boxes of q and of a kv row: 9
+constexpr int OBOXES = DV / 64;      // of do: 8
+constexpr int PANEL_BOX = 64 * 128;  // a box of the q or do panel: 64 heads x 128 bytes
+constexpr int TILE_BOX = BT * 128;   // a box of a kv tile
+constexpr int STAGE = QBOXES * TILE_BOX;
+constexpr int PD_BYTES = H * BT * 2;  // p or ds in bf16: [64 heads][32 slots], rows of 64 bytes
+constexpr int KSTEPS_S = DQ / 16;    // k16 steps of s: 36
+constexpr int KSTEPS_DP = DV / 16;   // of dp: 32
+constexpr int WIN = 4096;            // tiles a scan window (one bit each)
+
+// Offsets into the block's dynamic shared memory after its 1024-byte
+// alignment. The panels and the kv stages are 128-byte-swizzled boxes
+// (1024-aligned); p and ds are 64-byte-swizzled (512-aligned).
+constexpr int q_off = 0;                                // [9] boxes: q, later dq's staging
+constexpr int do_off = q_off + QBOXES * PANEL_BOX;      // [8] boxes
+constexpr int kv_off = do_off + OBOXES * PANEL_BOX;     // [2] stages of [9] boxes
+constexpr int p_off = kv_off + 2 * STAGE;               // bf16(p)
+constexpr int ds_off = p_off + PD_BYTES;                // ds
+constexpr int x_off = ds_off + PD_BYTES;                // f32 [4][128] float4: p, 0 to 2
+constexpr int idx_off = x_off + H * BT * 4;             // int [2][BT]: each stage's rows, -1 sentinel
+constexpr int flag_off = idx_off + 2 * BT * 4;          // uint32 [WIN / 32]: tiles with a real index
+constexpr int bar_off = flag_off + WIN / 8;             // the panels' mbarrier
+constexpr int BYTES = bar_off + 16 + 1024;              // + the alignment slack
+static_assert(BYTES <= 232448, "K5b's shared memory exceeds what a block may use");
+static_assert(128 == 4 * BT, "warpgroup 1 gives each thread 18 of a row's 72 chunks");
+
+}  // namespace k5b
 
 __global__ void __launch_bounds__(k5b::THREADS, 1)
 sparse_mla_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -965,6 +1166,43 @@ cudaError_t configure(Kernel kernel, size_t smem, bool* configured) {
 
 bool widths_ok(int heads, int dq, int dv) { return heads == H && dq == DQ && dv == DV; }
 
+// K5a over S tokens; `tiles` (int32 [S, 2]: visited, candidates) or null
+int run_fwd(const void* q, const void* kv, const void* indices, void* out, void* lse, int* tiles,
+            int S, int Sk, int T, int heads, int dqw, int dv, float scale, void* stream) {
+  if (!widths_ok(heads, dqw, dv) || S < 0 || Sk <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
+  if (S == 0) return 0;
+  static bool configured = false;
+  cudaError_t err = configure(sparse_mla_fwd_kernel, k5a::BYTES, &configured);
+  if (err != cudaSuccess) return (int)err;
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap tq;  // the tokens' q panels: [S * 64, 576] bf16 in boxes of 64 x 64
+  if (!matrix_map(&tq, encode, q, DQ, S * H, 64, CU_TENSOR_MAP_L2_PROMOTION_L2_256B))
+    return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  err = sm_count(&sms);
+  if (err != cudaSuccess) return (int)err;
+  sparse_mla_fwd_kernel<<<S < sms ? S : sms, k5a::THREADS, k5a::BYTES,
+                          static_cast<cudaStream_t>(stream)>>>(
+      tq, static_cast<const bf16*>(kv), static_cast<const int*>(indices), static_cast<bf16*>(out),
+      static_cast<float*>(lse), tiles, S, Sk, T, scale);
+  return (int)cudaGetLastError();
+}
+
+#ifdef SPARSE_MLA_TIMELINE
+// n values of a phase-clock symbol into `dst`, then the symbol zeroed
+template <typename Symbol>
+int timeline_copy(void* dst, size_t n, const Symbol& symbol, size_t size) {
+  const size_t bytes = n * sizeof(unsigned long long);
+  if (bytes > size) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaMemcpyFromSymbol(dst, symbol, bytes);
+  void* addr = nullptr;
+  if (err == cudaSuccess) err = cudaGetSymbolAddress(&addr, symbol);
+  if (err == cudaSuccess) err = cudaMemset(addr, 0, size);
+  return (int)err;
+}
+#endif
+
 // one chunk of C queries: every pointer but kv starts at the chunk's first
 // query; `tiles` (int32 [C, 2]: visited, candidates) or null
 int run_bwd(const void* q, const void* kv, const void* indices, const void* dout,
@@ -1012,16 +1250,42 @@ int attributes(Kernel kernel, int* attrs) {
 extern "C" int sparse_mla_fwd(const void* q, const void* kv, const void* indices, void* out,
                               void* lse, int S, int Sk, int T, int heads, int dq, int dv,
                               float scale, void* stream) {
-  if (!widths_ok(heads, dq, dv) || S < 0 || Sk <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
-  if (S == 0) return 0;
-  static bool configured = false;
-  cudaError_t err = configure(sparse_mla_fwd_kernel, FwdSmem::bytes, &configured);
-  if (err != cudaSuccess) return (int)err;
-  sparse_mla_fwd_kernel<<<S, NTHREADS, FwdSmem::bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(kv),
-      static_cast<const int*>(indices), static_cast<bf16*>(out), static_cast<float*>(lse), S, Sk,
-      T, scale);
-  return (int)cudaGetLastError();
+  return run_fwd(q, kv, indices, out, lse, nullptr, S, Sk, T, heads, dq, dv, scale, stream);
+}
+
+// the same launch, also writing each token's tile counts into `tiles`
+// (int32 [S, 2]: tiles of k5a::BT slots visited, candidates)
+extern "C" int sparse_mla_fwd_tiles(const void* q, const void* kv, const void* indices, void* out,
+                                    void* lse, int S, int Sk, int T, int heads, int dq, int dv,
+                                    float scale, void* stream, void* tiles) {
+  return run_fwd(q, kv, indices, out, lse, static_cast<int*>(tiles), S, Sk, T, heads, dq, dv,
+                 scale, stream);
+}
+
+// K5a's slots a tile, its dynamic shared memory a block, the blocks an SM
+// holds at it, and its phase clocks (as K5b's below)
+extern "C" int sparse_mla_fwd_tile() { return k5a::BT; }
+
+extern "C" int sparse_mla_fwd_smem() { return k5a::BYTES; }
+
+extern "C" int sparse_mla_fwd_blocks_per_sm() {
+  int n = 0;
+  if (cudaFuncSetAttribute(sparse_mla_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           k5a::BYTES) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, sparse_mla_fwd_kernel, k5a::THREADS,
+                                                    k5a::BYTES) != cudaSuccess)
+    return -1;
+  return n;
+}
+
+extern "C" int sparse_mla_fwd_timeline(void* dst, size_t n) {
+#ifdef SPARSE_MLA_TIMELINE
+  return timeline_copy(dst, n, k5a_timeline, sizeof(k5a_timeline));
+#else
+  (void)dst;
+  (void)n;
+  return (int)cudaErrorNotSupported;
+#endif
 }
 
 extern "C" int sparse_mla_bwd(const void* q, const void* kv, const void* indices,
@@ -1049,13 +1313,7 @@ extern "C" int sparse_mla_bwd_smem() { return k5b::BYTES; }
 // [block][warpgroup][K5B_MARKS + 1]), then zeroed
 extern "C" int sparse_mla_bwd_timeline(void* dst, size_t n) {
 #ifdef SPARSE_MLA_TIMELINE
-  const size_t bytes = n * sizeof(unsigned long long);
-  if (bytes > sizeof(k5b_timeline)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaMemcpyFromSymbol(dst, k5b_timeline, bytes);
-  void* symbol = nullptr;
-  if (err == cudaSuccess) err = cudaGetSymbolAddress(&symbol, k5b_timeline);
-  if (err == cudaSuccess) err = cudaMemset(symbol, 0, sizeof(k5b_timeline));
-  return (int)err;
+  return timeline_copy(dst, n, k5b_timeline, sizeof(k5b_timeline));
 #else
   (void)dst;
   (void)n;

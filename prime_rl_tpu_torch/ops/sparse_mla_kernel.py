@@ -31,10 +31,11 @@ is not carried over. The backward runs over chunks of queries: K5b writes
 each chunk's per-slot dkv rows into a ``[chunk, topk, Dq]`` buffer of about
 1.2 GB, and ``sparse_mla_dkv_reduce`` gives every kv row one block that sums
 the rows of the slots that selected it, in the order of a stable sort of the
-chunk's indices: no atomics, so two runs give the same bits. K5b skips the
-tiles of ``BWD_TILE`` slots that hold only sentinels and counts the ones it
-visits (``sparse_mla_bwd_tile_counts``; ``sparse_mla_bwd_tiles_visited`` is
-the rule's plain mirror). What bounds the kernels and what their design does
+chunk's indices: no atomics, so two runs give the same bits. K5a and K5b skip
+the tiles (of ``FWD_TILE`` and ``BWD_TILE`` slots) that hold only sentinels
+and count the ones they visit (``sparse_mla_fwd_tile_counts``,
+``sparse_mla_bwd_tile_counts``; ``sparse_mla_bwd_tiles_visited`` with the
+tile size is the rule's plain mirror for both). What bounds the kernels and what their design does
 about it: the note in ``csrc/sparse_mla.cu``.
 
 For CPU tensors the wrappers run ``sparse_mla_attention_reference`` and
@@ -58,6 +59,7 @@ KERNEL_REDUCE = "sparse_mla_dkv_reduce"
 HEADS, DQ, DV = 64, 576, 512  # the widths the kernels are compiled for
 BWD_SLOTS = 1 << 20  # (query, slot) pairs per backward launch: a 1.2 GB dkvg buffer
 BWD_TILE = 32  # slots a K5b tile
+FWD_TILE = 64  # slots a K5a tile (the kernel's k5a::BT)
 
 _fns = None
 
@@ -68,13 +70,15 @@ def _kernels():
         lib = _build.load(KERNEL)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fwd, bwd, red = lib.sparse_mla_fwd, lib.sparse_mla_bwd, lib.sparse_mla_dkv_reduce
-        bwd_tiles = lib.sparse_mla_bwd_tiles
+        fwd_tiles, bwd_tiles = lib.sparse_mla_fwd_tiles, lib.sparse_mla_bwd_tiles
         fwd.argtypes = [p] * 5 + [i] * 6 + [f, p]
+        fwd_tiles.argtypes = [p] * 5 + [i] * 6 + [f, p, p]
         bwd.argtypes = [p] * 8 + [i] * 6 + [f, p]
         bwd_tiles.argtypes = [p] * 8 + [i] * 6 + [f, p, p]
         red.argtypes = [p] * 4 + [i] * 2 + [p]
-        fwd.restype = bwd.restype = bwd_tiles.restype = red.restype = i
-        _fns = (fwd, bwd, red, bwd_tiles)
+        for fn in (fwd, fwd_tiles, bwd, bwd_tiles, red):
+            fn.restype = i
+        _fns = (fwd, bwd, red, bwd_tiles, fwd_tiles)
     return _fns
 
 
@@ -150,8 +154,9 @@ def sparse_mla_backward_reference(q, kv, indices, out, lse, do, sm_scale: float,
 
 def sparse_mla_bwd_tiles_visited(indices: torch.Tensor, Sk: int,
                                  bt: int = BWD_TILE) -> torch.Tensor:
-    """[S, ceil(T / bt)] bool: the tiles of ``bt`` slots K5b visits for each
-    token, the plain mirror of the kernel's rule: a tile is visited iff it
+    """[S, ceil(T / bt)] bool: the tiles of ``bt`` slots K5b (``bt`` =
+    ``BWD_TILE``) or K5a (``FWD_TILE``) visits for each token, the plain mirror
+    of the kernels' rule: a tile is visited iff it
     holds an index in ``[0, Sk)``, wherever the sentinels lie in the row; the
     slots past T count as sentinels."""
     S, T = indices.shape
@@ -176,16 +181,35 @@ def _check_args(q, kv, indices, v_dim: int):
     return S, kv.shape[0], indices.shape[1]
 
 
-def sparse_mla_fwd(q, kv, indices, sm_scale: float, v_dim: int):
-    """K5a on CUDA tensors: (out [S, H, v_dim] bf16, lse [S, H] f32)."""
+def sparse_mla_fwd(q, kv, indices, sm_scale: float, v_dim: int, tiles=None):
+    """K5a on CUDA tensors: (out [S, H, v_dim] bf16, lse [S, H] f32). Given
+    ``tiles`` (int32 [S, 2]), the same launch also writes each token's tiles
+    of ``FWD_TILE`` slots visited and its candidates there."""
     S, Sk, T = _check_args(q, kv, indices, v_dim)
     out = torch.empty((S, HEADS, v_dim), dtype=q.dtype, device=q.device)
     lse = torch.empty((S, HEADS), dtype=torch.float32, device=q.device)
-    _build.check(KERNEL_FWD, _kernels()[0](
-        q.data_ptr(), kv.data_ptr(), indices.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        S, Sk, T, HEADS, DQ, v_dim, float(sm_scale), _build.stream_ptr(q)))
+    args = (q.data_ptr(), kv.data_ptr(), indices.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            S, Sk, T, HEADS, DQ, v_dim, float(sm_scale), _build.stream_ptr(q))
+    if tiles is None:
+        _build.check(KERNEL_FWD, _kernels()[0](*args))
+    else:
+        _build.require(tiles, "tiles", torch.int32, (S, 2))
+        _build.check(KERNEL_FWD, _kernels()[4](*args, tiles.data_ptr()))
     _build.launches[KERNEL_FWD] += 1
     return out, lse
+
+
+def sparse_mla_fwd_tile_counts(q, kv, indices, sm_scale: float, v_dim: int) -> torch.Tensor:
+    """int32 [S, 2]: the tiles of ``FWD_TILE`` slots K5a visited for each token
+    and its candidates, as the kernel counted them in one launch on these
+    inputs. Only the kernel counts: CPU tensors raise (the rule's plain mirror
+    is ``sparse_mla_bwd_tiles_visited(indices, Sk, FWD_TILE)``)."""
+    if not q.is_cuda:
+        raise ValueError("sparse_mla_fwd_tile_counts: the counts come from the kernel, which "
+                         "takes CUDA tensors")
+    tiles = torch.full((q.shape[0], 2), -1, dtype=torch.int32, device=q.device)
+    sparse_mla_fwd(q, kv, indices, sm_scale, v_dim, tiles=tiles)
+    return tiles
 
 
 def sparse_mla_dkv_reduce(dkvg, order, seg, dkv):

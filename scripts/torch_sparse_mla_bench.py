@@ -5,25 +5,29 @@ dkv reduction) of the PyTorch/CUDA port on one NVIDIA GPU: the counterpart of
 
     python3 scripts/torch_sparse_mla_bench.py [--S 4096] [--topk 2048] [--ptxas] [--quick]
 
-Builds ``prime_rl_tpu_torch/csrc/sparse_mla.cu`` and prints K5b's build report
-(registers, local memory, shared memory, blocks an SM), holds both kernels
-against their plain PyTorch versions on the same bf16 inputs at short shapes
-with sentinels and on ``chip_smoke.K5B_EDGE_CASES`` (tolerance 2e-2 absolute +
-2e-2 relative, two backward calls bit-equal, K5b's tile counts against
-``sparse_mla_bwd_tiles_visited``); ``--quick`` stops there. Then it times them
-at ``S = Sk = --S`` with causal top-k-looking indices (token i selects
-min(topk, i + 1) of [0, i]) by CUDA events: the whole backward call (K5b and
-the reductions, chunk by chunk) as ``chip_smoke.py`` times it, then with the
-L2 flushed (256 MB zeroed) before each call, and K5b's own launches over the
-call's chunks apart from the reductions, and the reductions alone, both with
-the L2 flushed. ``--ptxas`` also prints the registers, shared memory and
-spills that ``nvcc -Xptxas -v`` reports for each kernel of the source.
-``--variants NAME:FLAG,...`` rebuilds with other ``-D`` flags (among them
-``K5B_NO_STORES``, which drops the dkvg row stores: a wrong dkv, timed only)
-and times K5b's launches beside the port's build. ``--timeline`` rebuilds K5b
-with ``-DSPARSE_MLA_TIMELINE`` (into
+Builds ``prime_rl_tpu_torch/csrc/sparse_mla.cu`` and prints the build report
+of K5a and K5b (registers, local memory, shared memory, blocks an SM), holds
+both kernels against their plain PyTorch versions on the same bf16 inputs at
+short shapes with sentinels and on ``chip_smoke.K5B_EDGE_CASES`` (tolerance
+2e-2 absolute + 2e-2 relative, lse within 1e-3, two calls of each bit-equal,
+the kernels' tile counts against ``sparse_mla_bwd_tiles_visited``);
+``--quick`` stops there. Then it times them at ``S = Sk = --S`` with causal
+top-k-looking indices (token i selects min(topk, i + 1) of [0, i]) by CUDA
+events: K5a alone with the L2 flushed (256 MB zeroed) before each call, the
+whole backward call (K5b and the reductions, chunk by chunk) as
+``chip_smoke.py`` times it, then with the L2 flushed, and K5b's own launches
+over the call's chunks apart from the reductions, and the reductions alone,
+both with the L2 flushed. ``--ptxas`` also prints the registers, shared memory
+and spills that ``nvcc -Xptxas -v`` reports for each kernel of the source.
+``--variants NAME:FLAG,...`` rebuilds with other ``-D`` flags, holds K5a's
+output against the port's build and times K5a and K5b's launches beside the
+port's build, in turn: ``K5A_GATHER_ONLY`` (K5a gathers its tiles and runs no
+products: a wrong output, timed for the L2 gather floor) and
+``K5B_NO_STORES`` (no dkvg row stores: a wrong dkv).
+``--timeline`` rebuilds with ``-DSPARSE_MLA_TIMELINE`` (into
 ``build/k5b_variants/``) and prints, for each warpgroup, the clocks a tile of
-each phase, averaged over the blocks, from one pass of K5b's launches.
+each phase of K5a and of K5b, averaged over the blocks, from one call of K5a
+and one pass of K5b's launches.
 ``--grouped-mm`` checks ``torch._grouped_mm`` (forward and backward) against a
 loop over experts, which is how ``ops/moe.py`` chooses its expert product.
 """
@@ -106,6 +110,11 @@ def check(S: int, T: int, gen, dev) -> bool:
     return ok and same
 
 
+K5A_PHASES = ("token start: barrier (the last token's end)", "token start: index row scanned",
+              "token start: q and the first rows landed", "s product (0)",
+              "softmax, p stored; gather issued (1); barrier", "o rescaled, p v product",
+              "tile end: next rows landed, barrier", "token end: sums, lse, o stored")
+
 PHASES = ("token start: barrier (the last token's end)", "token start: index row scanned",
           "token start: panels landed", "token start: first tile landed",
           "phase 1: s (0), dkvg rows out (1), dp (2)", "phase 1: hand-offs, p and ds",
@@ -142,34 +151,46 @@ def use_library(lib: ctypes.CDLL) -> None:
         _build._libs[K.KERNEL] = own
 
 
+def print_clocks(what: str, t: torch.Tensor, phases: tuple, ms: float) -> None:
+    """Phase clocks [block][warpgroup][phase + tiles] of the blocks that ran:
+    the clocks a tile of each phase, the mean over the blocks' sums."""
+    t = t[t[:, 0, -1] > 0]
+    tiles = t[:, :, -1]
+    print(f"timeline of {what}: {t.shape[0]} blocks, {int(tiles[:, 0].sum())} tiles, the call "
+          f"{ms:.3f} ms; clocks a tile, the mean over the blocks' sums, by warpgroup:", flush=True)
+    for i, name in enumerate(phases):
+        per = t[:, :, i].sum(0) / tiles.sum(0)
+        print(f"  {name:>48}: {' / '.join(f'{float(v):8.0f}' for v in per)}", flush=True)
+    total = t[:, :, :-1].sum(-1)
+    print(f"  {'all':>48}: {' / '.join(f'{float(v):8.0f}' for v in total.sum(0) / tiles.sum(0))}"
+          f"; slowest block {float(total.max()):.0f} clocks", flush=True)
+
+
 def timeline(q, kv, idx, out, lse, do, scale) -> None:
-    """K5b's phase clocks from one pass of its launches over the call's chunks."""
+    """The phase clocks of one K5a call and of one pass of K5b's launches over
+    the call's chunks."""
     lib = build_variant("timeline", ("-DSPARSE_MLA_TIMELINE",))
     use_library(lib)
-    lib.sparse_mla_bwd_timeline.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
-    n = 1024 * 3 * (len(PHASES) + 1)
-    buf = (ctypes.c_ulonglong * n)()
-    K.sparse_mla_bwd(q, kv, idx, out, lse, do, scale, DV)
-    torch.cuda.synchronize()
-    _build.check("sparse_mla_bwd_timeline", lib.sparse_mla_bwd_timeline(buf, n))  # zeroes it
-    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    s.record()
-    K.sparse_mla_bwd(q, kv, idx, out, lse, do, scale, DV)
-    e.record()
-    torch.cuda.synchronize()
-    _build.check("sparse_mla_bwd_timeline", lib.sparse_mla_bwd_timeline(buf, n))
-    t = torch.tensor(list(buf), dtype=torch.float64).reshape(1024, 3, len(PHASES) + 1)
-    t = t[t[:, 0, -1] > 0]  # the blocks that ran
-    tiles = t[:, :, -1]
-    print(f"timeline: {t.shape[0]} blocks, {int(tiles[:, 0].sum())} tiles, the call "
-          f"{s.elapsed_time(e):.3f} ms (the reductions included); clocks a tile, the mean over "
-          f"the blocks' sums, warpgroups 0 / 1 / 2:", flush=True)
-    for i, name in enumerate(PHASES):
-        per = t[:, :, i].sum(0) / tiles.sum(0)
-        print(f"  {name:>44}: {' / '.join(f'{float(v):8.0f}' for v in per)}", flush=True)
-    total = t[:, :, :-1].sum(-1)
-    print(f"  {'all':>44}: {' / '.join(f'{float(v):8.0f}' for v in total.sum(0) / tiles.sum(0))}"
-          f"; slowest block {float(total.max()):.0f} clocks", flush=True)
+    for fn, wgs, phases, call in (
+            ("sparse_mla_fwd", 2, K5A_PHASES, lambda: K.sparse_mla_fwd(q, kv, idx, scale, DV)),
+            ("sparse_mla_bwd", 3, PHASES,
+             lambda: K.sparse_mla_bwd(q, kv, idx, out, lse, do, scale, DV))):
+        read = getattr(lib, f"{fn}_timeline")
+        read.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
+        n = 1024 * wgs * (len(phases) + 1)
+        buf = (ctypes.c_ulonglong * n)()
+        call()
+        torch.cuda.synchronize()
+        _build.check(f"{fn}_timeline", read(buf, n))  # zeroes it
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        call()
+        e.record()
+        torch.cuda.synchronize()
+        _build.check(f"{fn}_timeline", read(buf, n))
+        t = torch.tensor(list(buf), dtype=torch.float64).reshape(1024, wgs, len(phases) + 1)
+        print_clocks(fn if wgs == 2 else f"{fn} (the reductions included in the call)", t,
+                     phases, s.elapsed_time(e))
     use_library(_build.load(K.KERNEL))
 
 
@@ -203,10 +224,12 @@ def main() -> int:
     ap.add_argument("--grouped-mm", action="store_true")
     ap.add_argument("--plain", action="store_true", help="time the plain versions too")
     ap.add_argument("--timeline", action="store_true",
-                    help="K5b's phase clocks at --S from a build with SPARSE_MLA_TIMELINE")
+                    help="K5a's and K5b's phase clocks at --S from a build with "
+                         "SPARSE_MLA_TIMELINE")
     ap.add_argument("--variants", nargs="*", default=[], metavar="NAME:FLAG,...",
-                    help="rebuild K5b with these -D flags (e.g. nostores:-DK5B_NO_STORES) and "
-                         "time its launches beside the port's build")
+                    help="rebuild with these -D flags (e.g. gather:-DK5A_GATHER_ONLY, "
+                         "nostores:-DK5B_NO_STORES) and time K5a and K5b beside the port's "
+                         "build")
     ap.add_argument("--quick", action="store_true",
                     help="the build report and the checks only, no timing")
     args = ap.parse_args()
@@ -238,8 +261,8 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     ok &= check(1024, 512, gen, dev)
     ok &= check(200, 100, gen, dev)  # ragged tiles: T and S no multiple of a tile
-    n, err = chip_smoke.k5b_edge_cases(gen)
-    print(f"K5b edge cases: {n}, max err {err:.4g}", flush=True)
+    n, err_a, err_b = chip_smoke.k5_edge_cases(gen)
+    print(f"K5a/K5b edge cases: {n}, max err {err_a:.4g} / {err_b:.4g}", flush=True)
     if args.quick:
         print("OK" if ok else "FAILED", flush=True)
         return 0 if ok else 1
@@ -253,12 +276,19 @@ def main() -> int:
     pairs = int((idx < S).sum())
     out, lse = K.sparse_mla_fwd(q, kv, idx, scale, DV)
     fwd = time_ms(lambda: K.sparse_mla_fwd(q, kv, idx, scale, DV))
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    f_fwd = 2 * H * pairs * (DQ + DV)
+    fwd_f = chip_smoke.time_ms(lambda: K.sparse_mla_fwd(q, kv, idx, scale, DV), iters=10,
+                               flush=flush)
+    gather_gb = pairs * DQ * 2 / 1e9  # each selected pair reads its 1152-byte row once
+    print(f"K5a, L2 flushed: {fwd_f:.4f} ms ({f_fwd / fwd_f / 1e9:.1f} TFLOP/s, "
+          f"{fwd_f / (f_fwd / chip_smoke.PEAK_BF16 * 1e3):.2f}x the operation bound; its row "
+          f"gather {gather_gb:.3f} GB from L2, {gather_gb / fwd_f:.3f} TB/s)", flush=True)
     bwd = time_ms(lambda: K.sparse_mla_bwd(q, kv, idx, out, lse, do, scale, DV))
-    f_fwd, f_bwd = 2 * H * pairs * (DQ + DV), 2 * H * pairs * (3 * DQ + 2 * DV)
+    f_bwd = 2 * H * pairs * (3 * DQ + 2 * DV)
     print(f"S={S} T={T} pairs={pairs}: fwd {fwd:.3f} ms ({f_fwd / fwd / 1e9:.1f} TFLOP/s), "
           f"bwd {bwd:.3f} ms ({f_bwd / bwd / 1e9:.1f} TFLOP/s; {K.bwd_launches(S, T)} chunks)",
           flush=True)
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     bwd_f = chip_smoke.time_ms(lambda: K.sparse_mla_bwd(q, kv, idx, out, lse, do, scale, DV),
                                iters=5, flush=flush)
     # K5b alone over the call's chunks, and the reductions alone
@@ -293,14 +323,25 @@ def main() -> int:
           f"slot_order over the {len(slices)} chunks: {o_ms:.4f} ms", flush=True)
     if args.timeline:
         timeline(q, kv, idx, out, lse, do, scale)
+
+    def k5a_alone():
+        K.sparse_mla_fwd(q, kv, idx, scale, DV)
+
     for spec in args.variants:
         name, _, flags = spec.partition(":")
         use_library(build_variant(name, tuple(f for f in flags.split(",") if f)))
-        ms = chip_smoke.time_ms(k5b_alone, iters=5, flush=flush)
+        o_v, l_v = K.sparse_mla_fwd(q, kv, idx, scale, DV)  # against the port's build's
+        same = close(f"variant {name}: K5a out against the port's", o_v, out)
+        same &= close(f"variant {name}: K5a lse against the port's", l_v, lse, tol=1e-3)
+        print(f"variant {name}: K5a {'agrees' if same else 'DIFFERS (timed only)'}", flush=True)
+        a_ms = chip_smoke.time_ms(k5a_alone, iters=10, flush=flush)
+        b_ms = chip_smoke.time_ms(k5b_alone, iters=5, flush=flush)
         use_library(_build.load(K.KERNEL))
-        own = chip_smoke.time_ms(k5b_alone, iters=5, flush=flush)
-        print(f"variant {name}: K5b's own launches {ms:.4f} ms (the port's build {own:.4f} ms "
-              f"in turn)", flush=True)
+        a_own = chip_smoke.time_ms(k5a_alone, iters=10, flush=flush)
+        b_own = chip_smoke.time_ms(k5b_alone, iters=5, flush=flush)
+        print(f"variant {name}: K5a {a_ms:.4f} ms (the port's build {a_own:.4f} ms in turn; the "
+              f"gather {gather_gb / a_ms:.3f} TB/s), K5b's own launches {b_ms:.4f} ms (the "
+              f"port's build {b_own:.4f} ms)", flush=True)
     print(f"K5b call, L2 flushed: {bwd_f:.4f} ms; K5b's own {len(slices)} launches: {alone:.4f} ms "
           f"({f_bwd / alone / 1e9:.1f} TFLOP/s, {alone / bms:.2f}x the {bms:.4f} ms operation "
           f"bound); the {len(slices)} reductions: {red:.4f} ms", flush=True)

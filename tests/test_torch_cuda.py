@@ -13,8 +13,9 @@ against the plain backward on the same bf16 inputs (which rounds p and ds to
 bf16 where the kernels do): 2e-2 absolute + 2e-2 relative, because a bf16
 rounding of ds that flips by one step in the kernel moves a sum of up to 192
 terms by more than one bf16 step of the result. K5a/K5b and the dkv reduction
-are held against their plain versions on the same bf16 inputs at the same 2e-2,
-K5b also over ``chip_smoke.K5B_EDGE_CASES`` with its tile counts.
+are held against their plain versions on the same bf16 inputs at the same 2e-2
+(K5a's lse within 1e-3), both kernels also over ``chip_smoke.K5B_EDGE_CASES``
+with their tile counts and two launches bit-equal.
 The window and sink forms of K1, K2a, K2b and K4 are held at the same
 tolerances as their dense forms; the sinks' gradient (plain PyTorch beside the
 kernels) against the plain backward's at 2e-2 relative to its norm.
@@ -512,6 +513,34 @@ def test_sparse_mla_backward_cases_match_plain(gen, case):
     before = _build.launches["sparse_mla_bwd"]
     chip_smoke.k5b_check(name, q, kv, do, idx, empty, slots)
     assert _build.launches["sparse_mla_bwd"] > before
+
+
+@pytest.mark.parametrize("case", chip_smoke.K5B_EDGE_CASES, ids=lambda c: c[0])
+def test_sparse_mla_forward_cases_match_plain(gen, case):
+    """K5a over ``chip_smoke.K5B_EDGE_CASES``: out within 2e-2 + 2e-2 |ref|
+    and lse within 1e-3 of the plain forward, two launches bit-equal, the
+    kernel's tiles of ``FWD_TILE`` slots equal to
+    ``sparse_mla_bwd_tiles_visited(idx, Sk, FWD_TILE)``, out 0 and lse below
+    -1e29 for the token that selected nothing (``chip_smoke.k5a_check``)."""
+    name, S, Sk, T, layout, empty, _ = case
+    q, kv, _, idx = chip_smoke.k5b_inputs(gen, S, Sk, T, layout, empty)
+    before = _build.launches["sparse_mla_fwd"]
+    out, lse, _, visited = chip_smoke.k5a_check(name, q, kv, idx, empty)
+    assert _build.launches["sparse_mla_fwd"] == before + 2
+    assert tuple(out.shape) == (S, mla.HEADS, mla.DV) and tuple(lse.shape) == (S, mla.HEADS)
+    assert visited == int(mla.sparse_mla_bwd_tiles_visited(idx, Sk, mla.FWD_TILE).sum())
+
+
+def test_sparse_mla_forward_tile_counts(gen):
+    """``sparse_mla_fwd_tile_counts`` at a ragged causal shape: every token's
+    visited tiles of ``FWD_TILE`` slots and its candidates as the mirror gives."""
+    q, kv, _, idx = _sparse_case(gen, 300, 200)
+    idx[3] = 300
+    tiles = mla.sparse_mla_fwd_tile_counts(q, kv, idx, mla.DQ ** -0.5, mla.DV)
+    visit = mla.sparse_mla_bwd_tiles_visited(idx, 300, mla.FWD_TILE)
+    assert tiles[:, 0].tolist() == visit.sum(-1).tolist()
+    assert tiles[:, 1].tolist() == [visit.shape[1]] * 300
+    assert int(tiles[3, 0]) == 0
 
 
 def test_sparse_mla_backward_is_deterministic_over_chunks(gen, monkeypatch):

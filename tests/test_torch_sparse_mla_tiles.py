@@ -1,16 +1,21 @@
-"""The tile-skipping rule of K5b on the CPU: ``sparse_mla_bwd_tiles_visited``,
-the plain mirror of the tiles of ``BWD_TILE`` slots that
-``csrc/sparse_mla.cu``'s backward visits for each token, against a dense
-count of the real indices in every tile.
+"""The tile-skipping rule of K5a and K5b on the CPU:
+``sparse_mla_bwd_tiles_visited``, the plain mirror of the tiles of
+``FWD_TILE`` (K5a) and ``BWD_TILE`` (K5b) slots that ``csrc/sparse_mla.cu``'s
+forward and backward visit for each token, against a dense count of the real
+indices in every tile.
 
 A tile is visited iff it holds an index in ``[0, Sk)``, wherever the
 sentinels lie in the row; slots past T count as sentinels. The JAX package's
-kernel computes every tile (its rows are gathered outside the kernel), so the
-rule has no JAX counterpart; a skipped tile must hold no real index, or its
-dq and dkv terms would be lost. On the card, ``chip_smoke.py`` and
-``tests/test_torch_cuda.py`` hold the kernel's own counts
-(``sparse_mla_bwd_tile_counts``) against this rule.
+kernels compute every tile (their rows are gathered outside the kernels), so
+the rule has no JAX counterpart; a skipped tile must hold no real index, or
+its share of out, dq and dkv would be lost. On the card, ``chip_smoke.py``
+and ``tests/test_torch_cuda.py`` hold the kernels' own counts
+(``sparse_mla_fwd_tile_counts``, ``sparse_mla_bwd_tile_counts``) against this
+rule.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -18,8 +23,10 @@ import torch
 
 from prime_rl_tpu_torch.ops.sparse_mla_kernel import (
     BWD_TILE,
+    FWD_TILE,
     sparse_mla_bwd_tile_counts,
     sparse_mla_bwd_tiles_visited,
+    sparse_mla_fwd_tile_counts,
 )
 
 
@@ -73,7 +80,7 @@ CASES = ("sentinels last", "sentinels scattered", "all-sentinel rows",
          "T not a multiple of the tile", "indices below 0 and at or above Sk")
 
 
-@pytest.mark.parametrize("bt", [BWD_TILE, 16])
+@pytest.mark.parametrize("bt", [FWD_TILE, BWD_TILE, 16])
 @pytest.mark.parametrize("name", CASES)
 def test_tiles_visited_match_a_dense_count(name, bt):
     rng = np.random.default_rng(100 * CASES.index(name) + bt)
@@ -89,15 +96,34 @@ def test_tiles_visited_match_a_dense_count(name, bt):
         assert got[9, 0] and got[9, -1] and not got[9, 1:-1].any()
 
 
-def test_causal_tiles_visited_count():
+def _check_causal_count(bt: int) -> None:
     """The causal layout of the DSA trainer's shape at small size: token i
-    visits ceil(min(T, i + 1) / BWD_TILE) tiles of ceil(T / BWD_TILE)."""
+    visits ceil(min(T, i + 1) / bt) tiles of ceil(T / bt)."""
     s, t = 200, 160
     idx = _causal(np.random.default_rng(0), s, t)
-    got = sparse_mla_bwd_tiles_visited(torch.from_numpy(idx), s)
-    want = [-(-min(t, i + 1) // BWD_TILE) for i in range(s)]
-    assert got.shape[1] == -(-t // BWD_TILE)
+    got = sparse_mla_bwd_tiles_visited(torch.from_numpy(idx), s, bt)
+    want = [-(-min(t, i + 1) // bt) for i in range(s)]
+    assert got.shape[1] == -(-t // bt)
     assert got.sum(-1).tolist() == want
+
+
+def test_causal_tiles_visited_count():
+    _check_causal_count(BWD_TILE)  # K5b's tiles (the mirror's default)
+
+
+def test_causal_fwd_tiles_visited_count():
+    _check_causal_count(FWD_TILE)  # K5a's tiles
+
+
+def test_fwd_tile_is_the_kernels():
+    """``FWD_TILE`` and ``BWD_TILE`` are the tiles K5a and K5b are compiled
+    with (``BT`` in the source's namespaces ``k5a`` and ``k5b``; on the card
+    ``chip_smoke.py`` also reads K5a's from the library)."""
+    src = (Path(__file__).resolve().parents[1] / "prime_rl_tpu_torch" / "csrc"
+           / "sparse_mla.cu").read_text()
+    for ns, tile in (("k5a", FWD_TILE), ("k5b", BWD_TILE)):
+        bt = re.search(rf"namespace {ns} {{\s+constexpr int BT = (\d+);", src)
+        assert bt is not None and int(bt.group(1)) == tile
 
 
 def test_tile_counts_need_the_kernel():
@@ -107,3 +133,5 @@ def test_tile_counts_need_the_kernel():
     out, lse = torch.zeros(4, 64, 512, dtype=torch.bfloat16), torch.zeros(4, 64)
     with pytest.raises(ValueError, match="CUDA tensors"):
         sparse_mla_bwd_tile_counts(q, kv, idx, out, lse, out, 0.1, 512)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        sparse_mla_fwd_tile_counts(q, kv, idx, 0.1, 512)
