@@ -41,7 +41,8 @@ Phases (any failure raises and exits non-zero before the last line):
                 with the tiles of 64 (K5a) and 32 (K5b) slots each visited, as
                 the kernel counted them, held against the skip rule's mirror;
                 K5a timed with the L2 flushed, its yardstick one SDPA call
-                over the same selection as a dense mask), and the window and
+                over the same selection as a dense mask, K5b's the backward
+                of that call, with the L2 flushed), and the window and
                 sink forms of K1, K2a, K2b and K4
                 (plus K3) at gpt-oss-20b's shapes (64/8 heads of 64; K1/K2 over
                 4096 tokens at window 128 and 0 with sinks, the sinks' gradient
@@ -107,11 +108,27 @@ Phases (any failure raises and exits non-zero before the last line):
                 full width and all 24 layers (random weights, byte tokenizer,
                 max_model_len 4096): K1 and K4 launched on the windowed and the
                 full layers, K3 on every layer; its tokens/s and first-token time.
+ 14. loop     — the RL loop through its launcher: ``python -m
+                prime_rl_tpu_torch.entrypoints.rl @configs/bench/northstar_rl_tpu.toml
+                --colocated`` with 6 trainer and orchestrator steps (Qwen3-0.6B at
+                full width and depth, random weights, byte tokenizer, async GRPO on
+                reverse_text, trainer and sampler in one process on the card, the
+                orchestrator a CPU process). It fails unless the launcher exits 0
+                within 600 s, no log holds a traceback, trainer.jsonl holds the 6
+                steps with finite losses, the sampler served every published
+                version, orchestrator.jsonl holds the shipped batches, the mean
+                mismatch_kl is finite and below 0.5, and the colocated process
+                launched K1, K2a, K2b, K3 and K4. It prints the loop's figures of
+                this single run: trainer tokens/s and step time, the wait for a
+                batch, the in-process swap, rollout tokens/s, env steps/s and the
+                wall time a step.
 Then one JSON line with every kernel's numbers, and the result line. A kernel's
 ``launches`` is its count on the path that runs it (K1 runs on both: its
 ``launches`` is the serving path's, ``launches_training`` the Qwen3 trainer's;
 the sparse-MLA kernels run on the DSA trainer's path; the window and sink
 forms' rows count the gpt-oss paths, ``launches_window`` their windowed layers).
+K1, K2a, K2b, K3 and K4 also give ``launches_loop``, their launches in the
+colocated process of the loop phase.
 """
 
 from __future__ import annotations
@@ -1246,6 +1263,20 @@ def sparse_mla_build_report() -> None:
         raise AssertionError(f"{' and '.join(spills)} use local memory: registers spill")
 
 
+def selection_mask(kv, idx):
+    """The tokens that selected a row (a fully masked row gives SDPA NaN) and
+    the dense boolean [S', Sk] mask of the rows each selected."""
+    import torch
+
+    Sk = kv.shape[0]
+    real = (idx >= 0) & (idx < Sk)
+    rows = real.any(-1).nonzero().squeeze(-1)
+    r_i, c_i = real[rows].nonzero(as_tuple=True)
+    mask = torch.zeros(len(rows), Sk, dtype=torch.bool, device=kv.device)
+    mask[r_i, idx[rows][r_i, c_i].long()] = True
+    return rows, mask
+
+
 def k5a_library_ms(q, kv, idx, scale: float, flush):
     """K5a's yardstick: one ``scaled_dot_product_attention`` call over the
     tokens that selected something (a fully masked row gives NaN), q as [1,
@@ -1253,15 +1284,10 @@ def k5a_library_ms(q, kv, idx, scale: float, flush):
     a dense boolean [S', Sk] mask of the selected pairs built outside the
     timed call. It computes all S' x Sk pairs and masks the unselected ones.
     Returns (ms or None, what was timed or why not)."""
-    import torch
     import torch.nn.functional as F
 
     Sk = kv.shape[0]
-    real = (idx >= 0) & (idx < Sk)
-    rows = real.any(-1).nonzero().squeeze(-1)
-    r_i, c_i = real[rows].nonzero(as_tuple=True)
-    mask = torch.zeros(len(rows), Sk, dtype=torch.bool, device=q.device)
-    mask[r_i, idx[rows][r_i, c_i].long()] = True
+    rows, mask = selection_mask(kv, idx)
     qq = q[rows].transpose(0, 1).unsqueeze(0).contiguous()
     k = kv[None, None]
     v = kv[:, :512].contiguous()[None, None]
@@ -1270,6 +1296,32 @@ def k5a_library_ms(q, kv, idx, scale: float, flush):
                                                             scale=scale, enable_gqa=True),
                      iters=5, warmup=1, flush=flush)
         return ms, f"sdpa over {len(rows)} tokens x {Sk} rows"
+    except Exception as err:  # noqa: BLE001  (reported: the card refused these widths)
+        return None, f"none ({type(err).__name__}: {str(err).splitlines()[0][:200]})"
+
+
+def k5b_library_ms(q, kv, idx, do, scale: float, flush):
+    """K5b's yardstick: the backward of the SDPA call of ``k5a_library_ms``
+    (the same dense [S', Sk] mask of the selected pairs, the same tokens),
+    timed alone: ``torch.autograd.grad`` of its output against q, k and v
+    (k = kv, v = kv[:, :512], so dkv is dk plus dv padded) with ``do`` as the
+    cotangent, the forward run once outside the timed calls. Returns (ms or
+    None, what was timed or why not)."""
+    import torch
+    import torch.nn.functional as F
+
+    Sk = kv.shape[0]
+    rows, mask = selection_mask(kv, idx)
+    qq = q[rows].transpose(0, 1).unsqueeze(0).contiguous().requires_grad_()
+    k = kv[None, None].detach().clone().requires_grad_()
+    v = kv[:, :512].contiguous()[None, None].requires_grad_()
+    dout = do[rows].transpose(0, 1).unsqueeze(0).contiguous()
+    try:
+        out = F.scaled_dot_product_attention(qq, k, v, attn_mask=mask[None, None], scale=scale,
+                                             enable_gqa=True)
+        ms = time_ms(lambda: torch.autograd.grad(out, (qq, k, v), dout, retain_graph=True),
+                     iters=5, warmup=1, flush=flush)
+        return ms, f"sdpa backward over {len(rows)} tokens x {Sk} rows"
     except Exception as err:  # noqa: BLE001  (reported: the card refused these widths)
         return None, f"none ({type(err).__name__}: {str(err).splitlines()[0][:200]})"
 
@@ -1322,6 +1374,8 @@ def sparse_mla_kernel_phase() -> list[dict]:
         # its yardstick one SDPA call (k5a_library_ms)
         ms_fwd = time_ms(lambda: K.sparse_mla_fwd(q, kv, idx, scale, DV), iters=10, flush=flush)
         lib_fwd, lib_note = k5a_library_ms(q, kv, idx, scale, flush)
+        lib_bwd, lib_bwd_note = k5b_library_ms(q, kv, idx, do, scale, flush)
+        torch.cuda.empty_cache()  # the SDPA backward's float32 scores
         ms_bwd = time_ms(lambda: K.sparse_mla_bwd(q, kv, idx, out, lse, do, scale, DV), iters=5)
         plain_fwd = time_ms(lambda: K.sparse_mla_attention_reference(q, kv, idx, scale, DV),
                             iters=3, warmup=1)
@@ -1336,16 +1390,15 @@ def sparse_mla_kernel_phase() -> list[dict]:
         for cases, name, ms, plain, lib, note, err, nbytes, flops, visited, bt in (
                 (fwd_cases, "K5a sparse_mla_fwd (L2 flushed)", ms_fwd, plain_fwd, lib_fwd,
                  lib_note, err_fwd, b_fwd, 2 * H * pairs * (DQ + DV), fwd_visited, K.FWD_TILE),
-                (bwd_cases, "K5b sparse_mla_bwd (+ dkv reduction)", ms_bwd, plain_bwd, None,
-                 "none", err_bwd, b_bwd, 2 * H * pairs * (3 * DQ + 2 * DV), n_visited,
+                (bwd_cases, "K5b sparse_mla_bwd (+ dkv reduction)", ms_bwd, plain_bwd, lib_bwd,
+                 lib_bwd_note, err_bwd, b_bwd, 2 * H * pairs * (3 * DQ + 2 * DV), n_visited,
                  K.BWD_TILE)):
             bms, by = bound(nbytes, flops)
             n_tiles = S * -(-T // bt)
             cases.append(dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain,
                               library_ms=lib, bound_ms=bms, bound_by=by, tiles_visited=visited,
                               tiles=f"{visited} of {n_tiles} (tiles of {bt} slots)"))
-            if cases is fwd_cases:
-                cases[-1]["library"] = note
+            cases[-1]["library"] = note
             log(f"{name} {shape}: err {err:.3g}  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
                 f"library {note if lib is None else f'{lib:.4f} ms ({note})'}  bound "
                 f"{bms:.4f} ms ({by})  tiles of {bt} visited {visited} of {n_tiles} (kernel's "
@@ -2543,6 +2596,114 @@ def serve(model: str, want_layers: int, want_vocab: int, reference=None):
     return out
 
 
+LOOP_STEPS = 6
+LOOP_TIMEOUT_S = 600
+LOOP_KERNELS = ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "decode_qkv_prep",
+                "decode_paged_attention")
+
+
+def _jsonl(path: str) -> list[dict]:
+    with open(path) as fh:
+        return [json.loads(line) for line in fh if line.strip()]
+
+
+def loop_phase(card: str) -> dict:
+    """The RL loop of ``configs/bench/northstar_rl_tpu.toml`` through the
+    launcher, colocated, 6 steps, in a process group of its own (killed
+    whole at the time limit). Checks what the header says, prints the loop's
+    figures and returns the colocated process's kernel launches."""
+    import re
+    import signal
+
+    import numpy as np
+
+    out = os.path.join(ROOT, "build", "chip_smoke", "loop")
+    shutil.rmtree(out, ignore_errors=True)
+    cmd = [sys.executable, "-m", "prime_rl_tpu_torch.entrypoints.rl",
+           "@" + os.path.join(ROOT, "configs", "bench", "northstar_rl_tpu.toml"), "--colocated",
+           "--trainer.max-steps", str(LOOP_STEPS), "--orchestrator.max-steps", str(LOOP_STEPS),
+           "--output-dir", out]
+    log(f"loop: {' '.join(cmd[1:])}")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True)
+    try:
+        stdout, _ = proc.communicate(timeout=LOOP_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)  # the launcher and every child it started
+        proc.communicate()
+        raise AssertionError(f"loop: the launcher did not finish within {LOOP_TIMEOUT_S} s")
+    wall = time.perf_counter() - t0
+    logs = os.path.join(out, "logs")
+    texts = {}
+    for name in sorted(os.listdir(logs)) if os.path.isdir(logs) else []:
+        if name.endswith(".out"):
+            with open(os.path.join(logs, name)) as fh:
+                texts[name] = fh.read()
+    if proc.returncode != 0:
+        tails = "\n".join(f"--- {n}\n{s[-3000:]}" for n, s in texts.items())
+        raise AssertionError(f"loop: the launcher exited {proc.returncode}\n{stdout}\n{tails}")
+    for name, text in texts.items():
+        if "Traceback" in text:
+            raise AssertionError(f"loop: a traceback in {name}:\n{text[-3000:]}")
+    colocated = texts.get("colocated.out", "")
+    trows = _jsonl(os.path.join(out, "trainer.jsonl"))
+    if [r["step"] for r in trows] != list(range(1, LOOP_STEPS + 1)):
+        raise AssertionError(f"loop: trainer.jsonl holds steps {[r['step'] for r in trows]}")
+    if not all(math.isfinite(r["loss"]) for r in trows):
+        raise AssertionError(f"loop: non-finite loss {[r['loss'] for r in trows]}")
+    # the launcher's carve-out skips the last target_lag + 1 = 2 publishes
+    served = [int(v) for v in re.findall(r"the engine serves v(\d+)", colocated)]
+    if served != list(range(LOOP_STEPS - 1)):
+        raise AssertionError(f"loop: the sampler served versions {served}, not v0..v"
+                             f"{LOOP_STEPS - 2} in order")
+    orows = [r for r in _jsonl(os.path.join(out, "orchestrator.jsonl")) if "reward_mean" in r]
+    if [r["step"] for r in orows] != list(range(LOOP_STEPS)):
+        raise AssertionError(f"loop: orchestrator.jsonl shipped steps {[r['step'] for r in orows]}")
+    kls = [r["mismatch_kl"] for r in trows]
+    kl = float(np.mean(kls))
+    if not (math.isfinite(kl) and kl < 0.5):
+        raise AssertionError(f"loop: mean mismatch_kl {kl} (per step {kls}) not below 0.5")
+    found = re.findall(r"colocated kernel launches: (\{.*\})", colocated)
+    if not found:
+        raise AssertionError("loop: the colocated process did not log its kernel launches")
+    launches = json.loads(found[-1])
+    missing = [k for k in LOOP_KERNELS if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"loop: {missing} never launched in the colocated process: {launches}")
+
+    # the loop's figures, this single run; steady state = steps 2..6
+    steady = trows[1:]
+    med = lambda key: float(np.median([r[key] for r in steady]))  # noqa: E731
+    step_wall = float(np.median(np.diff([r["ts"] for r in trows])))
+    gen = [r.get("inference/mixed/generation_tokens_total/sum") for r in orows]
+    span = orows[-1]["ts"] - orows[0]["ts"]
+    rollout_tps = ((gen[-1] - gen[0]) / span) if None not in (gen[0], gen[-1]) and span > 0 \
+        else float("nan")
+    env_sps = sum(r["num_rollouts"] for r in orows[1:]) / span if span > 0 else float("nan")
+    stats = {
+        "wall_s": round(wall, 1), "steps": LOOP_STEPS,
+        "trainer_tokens_per_s": med("tokens_per_sec"), "train_step_s": med("step_time_s"),
+        "wait_for_batch_s": med("wait_for_batch_s"), "step_wall_s": step_wall,
+        "publish_s": float(np.median([r["publish_s"] for r in steady if r["publish_s"] > 0]
+                                     or [float("nan")])),
+        "rollout_tokens_per_s": rollout_tps, "env_steps_per_s": env_sps,
+        "rl_tokens_per_step": float(np.median([r["rl_tokens"] for r in trows])),
+        "mismatch_kl_mean": kl, "reward_mean": [r["reward_mean"] for r in orows],
+    }
+    log(f"loop on {card} (one run, medians of steps 2-{LOOP_STEPS}): trainer "
+        f"{stats['trainer_tokens_per_s']:.1f} tokens/s, train step {stats['train_step_s']:.3f} s, "
+        f"wait for a batch {stats['wait_for_batch_s']:.3f} s, publish_s (in-process swap) "
+        f"{stats['publish_s']:.4f} s, wall time a step {step_wall:.3f} s; rollouts "
+        f"{rollout_tps:.1f} tokens/s, env steps {env_sps:.2f}/s; mean mismatch_kl {kl:.4g}; "
+        f"the launcher took {wall:.1f} s")
+    for line in re.findall(r"colocated (?:swap|engine host seconds): .*", colocated):
+        log(f"loop: {line}")
+    log(f"loop stats: {json.dumps(stats)}")
+    log(f"launches on the loop's colocated process: {launches}")
+    return launches
+
+
 def flash_build_report() -> None:
     """Registers, local memory and shared memory of each instantiation of K1,
     K2a and K2b (head dim 128 and 64, dense and banded) as the runtime loaded
@@ -2673,6 +2834,9 @@ def main() -> int:
     stats, launches = timed("reference + serving", serve, MODEL, 28, 151936, reference_phase)
     timed("gpt-oss-reference", gpt_oss_reference_phase)
     oss_stats, oss_launches = timed("gpt-oss-serving", serve, GPT_OSS, 24, 201088)
+    gc.collect()
+    torch.cuda.empty_cache()  # the loop's processes need the card's memory
+    loop_launches = timed("loop", loop_phase, card)
     log(f"gpt-oss-20b serving on {card}: {oss_stats['generate_tokens_per_s']:.1f} tokens/s "
         f"over {oss_stats['generate_requests']} concurrent requests, first token of the streamed "
         f"chat after {oss_stats['chat_stream_ttft_s']} s")
@@ -2716,6 +2880,8 @@ def main() -> int:
             row["launches"] = on_serving + on_training
         if row["launches"] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the path that runs it")
+        if name in LOOP_KERNELS:
+            row["launches_loop"] = loop_launches[name]
     log(f"launches on the serving path: {launches}")
     log(f"launches on the training path: {train_launches}")
     log(f"launches on the DSA training path: {dsa_launches}")

@@ -7,6 +7,22 @@ from __future__ import annotations
 from prime_rl_tpu_torch.configs import InferenceConfig, parse_config
 
 
+def check_supported(config: InferenceConfig) -> None:
+    """Raise for what the port's engine does not serve yet."""
+    unsupported = [name for name, on in (
+        ("int8 quantization", config.quantization is not None),
+        ("LoRA serving", config.lora is not None),
+        ("router replay", config.collect_routed_experts),
+        ("the weight plane", config.weight_plane is not None),
+        ("P/D roles", config.server.role != "mixed")) if on]
+    if unsupported:
+        raise NotImplementedError(f"not ported yet: {', '.join(unsupported)}")
+    if config.model.debug.vocab_size is not None and not config.model.debug.random_init:
+        # a truncated vocabulary cannot load a real checkpoint's embeddings
+        raise ValueError("model.debug.vocab_size truncates the vocabulary and needs "
+                         "model.debug.random_init")
+
+
 def build_server(config: InferenceConfig):
     import torch
 
@@ -24,18 +40,7 @@ def build_server(config: InferenceConfig):
     setup_logger(config.log.level, config.log.json_logs,
                  logs_dir(config.output_dir) / "inference.log")
     logger = get_logger()
-    unsupported = [name for name, on in (
-        ("int8 quantization", config.quantization is not None),
-        ("LoRA serving", config.lora is not None),
-        ("router replay", config.collect_routed_experts),
-        ("the weight plane", config.weight_plane is not None),
-        ("P/D roles", config.server.role != "mixed")) if on]
-    if unsupported:
-        raise NotImplementedError(f"not ported yet: {', '.join(unsupported)}")
-    if config.model.debug.vocab_size is not None and not config.model.debug.random_init:
-        # a truncated vocabulary cannot load a real checkpoint's embeddings
-        raise ValueError("model.debug.vocab_size truncates the vocabulary and needs "
-                         "model.debug.random_init")
+    check_supported(config)
     device = resolve_device(config.device)
     spec = get_spec(config.model.name, num_layers=config.model.debug.num_layers,
                     vocab_size=config.model.debug.vocab_size)

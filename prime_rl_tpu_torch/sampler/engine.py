@@ -188,6 +188,7 @@ class Engine:
         self._step_lock = threading.Lock()
         self._by_id: dict[str, _Request] = {}
         self._hol_strikes = 0
+        self.last_swap_s = (0.0, 0.0)
         self.stats = {
             "prefill_tokens_computed": 0,
             "prefill_tokens_cached": 0,
@@ -291,14 +292,19 @@ class Engine:
 
     def update_params(self, new_params: dict, version: int | None = None) -> None:
         """Swap weights between dispatches (the caller pauses for a
-        version-atomic boundary). Cross-thread safe through the step lock."""
+        version-atomic boundary). Cross-thread safe through the step lock.
+        ``last_swap_s`` keeps (seconds waiting for the step in flight to
+        release the lock, seconds of the drain and swap)."""
+        t0 = time.perf_counter()
         with self._step_lock:
+            t1 = time.perf_counter()
             self._drain(force=True)  # complete blocks sampled under the old policy
             self.params = self._prepare_params(new_params)
             # cached prefix KV was computed under the old weights
             self.slots.flush_cache()
             if version is not None:
                 self.policy_version = version
+            self.last_swap_s = (t1 - t0, time.perf_counter() - t1)
 
     # -- scheduler ----------------------------------------------------------
 
@@ -330,6 +336,7 @@ class Engine:
         self.stats["host_admit_s"] = self.stats.get("host_admit_s", 0.0) + (t1 - t0)
         self.stats["host_dispatch_s"] = self.stats.get("host_dispatch_s", 0.0) + (t2 - t1)
         self.stats["host_drain_s"] = self.stats.get("host_drain_s", 0.0) + (t3 - t2)
+        self.stats["host_step_max_s"] = max(self.stats.get("host_step_max_s", 0.0), t3 - t0)
         return did or bool(self._inflight)
 
     def _remove_pending(self, req: _Request) -> None:
@@ -833,6 +840,10 @@ class EngineLoop:
 
     def _run(self) -> None:
         logger = get_logger()
+        if self.engine.device.type == "cuda":
+            # the current device is per thread: a colocated trainer may run
+            # on another card than this thread's default
+            torch.cuda.set_device(self.engine.device)
         while not self._stop.is_set():
             try:
                 if not self.engine.step():

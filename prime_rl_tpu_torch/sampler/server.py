@@ -6,11 +6,12 @@
     POST /v1/completions            OpenAI-compatible text completion
     GET  /v1/models                 model listing
     POST /abort /pause /resume      request cancel, drain-safe pause window
+    POST /update_weights            load an HF snapshot, swap it in, bump the version
     GET  /liveness /health          probes
     GET  /metrics                   Prometheus text
 
-``/update_weights``, the LoRA routes and the P/D routes answer 501 until
-their slices are ported. Built on aiohttp; the engine runs its own step-loop
+The LoRA routes and the P/D routes answer 501 until their slices are
+ported. Built on aiohttp; the engine runs its own step-loop
 thread and handlers await request futures.
 """
 
@@ -81,7 +82,7 @@ class InferenceServer:
             web.post("/abort", self.abort),
             web.post("/pause", self.pause),
             web.post("/resume", self.resume),
-            web.post("/update_weights", self.not_ported),
+            web.post("/update_weights", self.update_weights),
             web.post("/load_lora_adapter", self.not_ported),
             web.post("/unload_lora_adapter", self.not_ported),
             web.post("/pd/prefill", self.not_ported),
@@ -314,6 +315,31 @@ class InferenceServer:
     async def resume(self, request: web.Request) -> web.Response:
         self.engine.resume()
         return web.json_response({"status": "running"})
+
+    async def update_weights(self, request: web.Request) -> web.Response:
+        """Body ``{"weight_dir": <HF snapshot dir>, "version": N}``: the
+        filesystem weight plane's apply step. The snapshot loads onto the
+        engine's device in an executor, off the engine's lock; the swap then
+        waits for the step in flight (the caller pauses around it)."""
+        body = await request.json()
+        weight_dir = body.get("weight_dir")
+        version = body.get("version")
+        if weight_dir is None:
+            raise web.HTTPBadRequest(text="weight_dir required")
+        t0 = time.perf_counter()
+        engine = self.engine
+
+        def load():
+            from prime_rl_tpu_torch.models.qwen3 import load_hf_weights
+
+            return load_hf_weights(weight_dir, engine.spec, dtype=engine.compute_dtype,
+                                   device=engine.device)
+
+        params = await asyncio.get_running_loop().run_in_executor(None, load)
+        engine.update_params(params, version=version)
+        get_logger().info(f"updated weights from {weight_dir} (v{version}) in "
+                          f"{time.perf_counter() - t0:.1f}s")
+        return web.json_response({"status": "ok", "version": version})
 
     async def not_ported(self, request: web.Request) -> web.Response:
         return web.json_response(

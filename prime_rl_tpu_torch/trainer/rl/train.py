@@ -1,17 +1,18 @@
 """RL trainer process (the port of the JAX package's ``trainer/rl/train.py``
-for one process and ``data.type = "fake"``): build the train state on the
-device, run the learner step over each batch, publish weight snapshots (the
-filesystem weight-broadcast path: HF snapshot + STABLE marker that the
-orchestrator's watcher applies to the sampler pool), write the metrics record
-and checkpoints.
+for one process): build the train state on the device, take each batch from
+the transport (the orchestrator's TrainingBatches) or from the fake loader,
+run the learner step, publish the new policy through the weight sink (an HF
+snapshot + STABLE marker that the orchestrator's watcher applies to the
+sampler pool, or the colocated in-process swap), write the metrics record and
+checkpoints.
 
 Version protocol: policy v0 = initial weights published at startup; after
 consuming batch ``s`` the trainer publishes v``s+1``. The orchestrator gates
 dispatch and shipment on these versions.
 
-Transport-fed data, more than one process, multi-tenant LoRA runs, token
-export and the metrics server belong to the loop slice (the colocated trainer
-+ sampler and the orchestrator) and raise until then."""
+More than one process (the micro-batch packer), multi-tenant LoRA runs,
+token export, the metrics server and the heartbeat raise until their
+slices."""
 
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import torch
 from prime_rl_tpu_torch.configs.trainer import TrainerConfig
 from prime_rl_tpu_torch.models.base import get_spec
 from prime_rl_tpu_torch.models.qwen3 import load_hf_weights
+from prime_rl_tpu_torch.trainer.batch import prepare_batch, token_counts
 from prime_rl_tpu_torch.trainer.ckpt import CheckpointManager, Progress
 from prime_rl_tpu_torch.trainer.optim import make_optimizer
 from prime_rl_tpu_torch.trainer.perf import PerfCounter
@@ -36,6 +38,7 @@ from prime_rl_tpu_torch.trainer.step import (
     make_train_step,
 )
 from prime_rl_tpu_torch.trainer.weights import WeightCheckpointManager
+from prime_rl_tpu_torch.transport import setup_training_batch_receiver
 from prime_rl_tpu_torch.utils.device import resolve_device
 from prime_rl_tpu_torch.utils.logger import get_logger, setup_logger
 from prime_rl_tpu_torch.utils.monitor import setup_monitor
@@ -46,18 +49,15 @@ class TrainResult(NamedTuple):
     records: list[dict]  # the metrics record of every step, as logged
 
 
-_LOOP_SLICE = "the loop slice (colocated trainer + sampler, orchestrator)"
-
-
 def _reject_unported(config: TrainerConfig) -> None:
     waiting = [name for name, on in (
-        ("data.type = 'transport'", config.data.type != "fake"),
         ("multi_run", config.multi_run),
         ("token_export_rows", config.token_export_rows > 0),
         ("metrics_server", config.metrics_server.enable),
         ("heartbeat_url", config.heartbeat_url is not None)) if on]
     if waiting:
-        raise NotImplementedError(f"{', '.join(waiting)}: waits for {_LOOP_SLICE}")
+        raise NotImplementedError(f"{', '.join(waiting)}: not ported yet (ROADMAP.md, "
+                                  "Queue 1: item 8 for multi_run, item 10 for the rest)")
     if config.model.lora is not None:
         raise NotImplementedError("LoRA training waits for the LoRA slice")
     if config.model.debug.vocab_size is not None and not config.model.debug.random_init:
@@ -108,10 +108,15 @@ def train(config: TrainerConfig, weight_sink=None) -> TrainResult:
         state, progress = ckpt_mgr.load(state, config.ckpt.resume_step)
         logger.info(f"resumed from step {progress.step}")
 
-    fake_loader = FakeDataLoader(
-        spec.vocab_size, config.data.seq_len, config.data.micro_batch_size,
-        config.data.num_micro_batches, seed=config.data.seed,
-    )
+    fake_loader = receiver = None
+    if config.data.type == "fake":
+        fake_loader = FakeDataLoader(
+            spec.vocab_size, config.data.seq_len, config.data.micro_batch_size,
+            config.data.num_micro_batches, seed=config.data.seed,
+        )
+    else:
+        receiver = setup_training_batch_receiver(config.transport, config.output_dir,
+                                                 progress.step)
 
     # startup broadcast: publish the current policy so the sampler starts from
     # trainer weights
@@ -144,7 +149,15 @@ def train(config: TrainerConfig, weight_sink=None) -> TrainResult:
     max_steps = config.max_steps or 10**9
     while progress.step < max_steps:
         t_wait = time.perf_counter()
-        batch, counts = fake_loader.next_batch()
+        if fake_loader is not None:
+            batch, counts = fake_loader.next_batch()
+        else:
+            while (tb := receiver.receive(timeout=1.0)) is None:
+                pass  # the orchestrator has not shipped this step yet
+            batch = prepare_batch(tb.examples, config.batch.seq_len,
+                                  config.batch.micro_batch_size,
+                                  num_micro_batches=config.batch.num_micro_batches)
+            counts = token_counts(batch)
         wait_s = time.perf_counter() - t_wait
 
         tokens = int(batch.loss_mask.size)
@@ -223,6 +236,8 @@ def train(config: TrainerConfig, weight_sink=None) -> TrainResult:
         ckpt_mgr.save(state, progress)
     if hasattr(weight_sink, "close"):
         weight_sink.close()
+    if receiver is not None:
+        receiver.close()
     monitor.finalize()
     logger.info("trainer done")
     return TrainResult(state, records)

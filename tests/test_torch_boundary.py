@@ -1,5 +1,6 @@
 """Import boundary of the PyTorch port: every module of ``prime_rl_tpu_torch``
-imports with ``jax`` and ``prime_rl_tpu`` made unimportable, and the port's
+imports with ``jax`` and ``prime_rl_tpu`` made unimportable, the modules of
+the orchestrator's CPU process import without ``torch`` too, and the port's
 inference and trainer configs run on the card unless asked otherwise."""
 
 import subprocess
@@ -33,6 +34,46 @@ _CHECK = textwrap.dedent("""
     for new in ("ops.sparse_mla", "ops.sparse_mla_kernel", "ops.moe", "models.glm4_moe",
                 "models.mla_moe", "models.gpt_oss"):
         assert "prime_rl_tpu_torch." + new in names, new
+    for new in LOOP_MODULES:
+        assert "prime_rl_tpu_torch." + new in names, new
+    from prime_rl_tpu_torch.configs import RLConfig
+    assert RLConfig().trainer.device == RLConfig().inference.device == "cuda"
+    print(len(names))
+""")
+
+# the loop slice's modules
+LOOP_MODULES = (
+    "transport", "transport.base", "transport.zmq", "transport.filesystem",
+    "configs.algorithm", "configs.orchestrator", "configs.env_server", "configs.rl",
+    "envs.types", "envs.client", "envs.base", "envs.envclient", "envs.server",
+    "envs.builtin", "envs.builtin.reverse_text", "envs.builtin.fixed_completion",
+    "envs.builtin.multi_turn", "envs.builtin.dominant_color",
+    "renderers.renderer", "utils.async_utils", "utils.heartbeat",
+    "orchestrator.algo.base", "orchestrator.algo.algorithms", "orchestrator.filters",
+    "orchestrator.metrics", "orchestrator.source", "orchestrator.trajectories",
+    "orchestrator.pool", "orchestrator.orchestrator",
+    "entrypoints.orchestrator", "entrypoints.env_server", "entrypoints.rl",
+    "entrypoints.colocated")
+_CHECK = _CHECK.replace("LOOP_MODULES", repr(LOOP_MODULES))
+
+# the orchestrator's process (the orchestrator, the envs, the transport and
+# their entry points) never uses the card: it imports without torch
+_CPU_PROCESS = textwrap.dedent("""
+    import importlib, pkgutil, sys
+    for blocked in ("jax", "prime_rl_tpu", "torch"):
+        sys.modules[blocked] = None
+    import prime_rl_tpu_torch
+    names = []
+    for pkg in ("orchestrator", "envs", "transport"):
+        mod = importlib.import_module("prime_rl_tpu_torch." + pkg)
+        names += [pkg] + [m.name for m in pkgutil.walk_packages(mod.__path__,
+                                                                 f"prime_rl_tpu_torch.{pkg}.")]
+    names += ["entrypoints.orchestrator", "entrypoints.env_server"]
+    for name in names:
+        importlib.import_module(name if name.startswith("prime") else "prime_rl_tpu_torch." + name)
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("torch", "jax", "prime_rl_tpu")
+                    and sys.modules[m] is not None)
+    assert not leaked, leaked
     print(len(names))
 """)
 
@@ -41,7 +82,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     out = subprocess.run([sys.executable, "-c", _CHECK], cwd=REPO, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 51  # every module of the four slices was imported
+    assert int(out.stdout.strip()) >= 84  # every module of the slices so far was imported
+
+
+def test_orchestrator_process_imports_without_torch():
+    out = subprocess.run([sys.executable, "-c", _CPU_PROCESS], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 25
 
 
 def test_kernel_libraries_are_keyed_by_their_shared_headers(tmp_path, monkeypatch):

@@ -29,6 +29,7 @@ from prime_rl_tpu_torch.models import qwen3 as tqwen3
 from prime_rl_tpu_torch.models.base import debug_spec
 from prime_rl_tpu_torch.sampler.cache import CacheConfig
 from prime_rl_tpu_torch.sampler.engine import Engine, SamplingParams
+from prime_rl_tpu_torch.trainer.weights import save_hf_weights
 
 torch.set_num_threads(1)
 
@@ -152,8 +153,25 @@ def test_http_server_routes(tmp_path):
                 assert (await (await http.post(f"{base}/resume")).json())["status"] == "running"
                 assert "prime_rl_engine_requests_total" in await (
                     await http.get(f"{base}/metrics")).text()
-                r = await http.post(f"{base}/update_weights", json={"weight_dir": "x"})
-                assert r.status == 501
+                # /update_weights applies an HF snapshot and bumps the version:
+                # afterwards the engine serves the snapshot's weights
+                assert (await (await http.get(f"{base}/liveness")).json())["policy_version"] == -1
+                spec = server.engine.spec
+                gen = torch.Generator().manual_seed(7)
+                snap = save_hf_weights(tqwen3.init_params(spec, gen), spec, tmp_path / "snap")
+                r = await http.post(f"{base}/update_weights",
+                                    json={"weight_dir": str(snap), "version": 3})
+                assert r.status == 200, await r.text()
+                assert (await r.json()) == {"status": "ok", "version": 3}
+                assert (await (await http.get(f"{base}/liveness")).json())["policy_version"] == 3
+                want = tqwen3.load_hf_weights(snap, spec, dtype=torch.bfloat16)
+                assert torch.equal(server.engine.params["embed"], want["embed"])
+                assert torch.equal(server.engine.params["layers"][1]["q"], want["layers"]["q"][1])
+                r = await http.post(f"{base}/inference/v1/generate", json={
+                    "token_ids": [1, 2, 3], "sampling_params": {"max_tokens": 2}})
+                assert (await r.json())["policy_version"] == 3
+                r = await http.post(f"{base}/update_weights", json={"version": 4})
+                assert r.status == 400  # no weight_dir
         finally:
             await server.stop_async(runner)
 

@@ -353,18 +353,30 @@ def test_perf_counter_and_peaks(monkeypatch):
 
 def test_configs_accept_what_the_jax_package_accepts(tmp_path):
     """The bench TOML of the JAX package parses into the port's TrainerConfig
-    field for field; the port adds only ``device``."""
+    field for field, and every RL TOML of ``configs/debug`` and
+    ``configs/bench`` into the port's RLConfig; the port adds only the
+    trainer's and the sampler's ``device``."""
     import tomllib
 
+    from prime_rl_tpu.configs import RLConfig as JRLConfig
     from prime_rl_tpu.configs.shared import ModelConfig as JModelConfig
+    from prime_rl_tpu_torch.configs import RLConfig
 
-    toml = Path(__file__).resolve().parents[1] / "configs" / "bench" / "northstar_rl_tpu.toml"
+    configs = Path(__file__).resolve().parents[1] / "configs"
+    toml = configs / "bench" / "northstar_rl_tpu.toml"
     raw = tomllib.loads(toml.read_text())["trainer"]
     raw.pop("transport")
     t_cfg, j_cfg = TrainerConfig(**raw), JTrainerConfig(**raw)
     t_dump, j_dump = t_cfg.model_dump(), j_cfg.model_dump()
     assert t_dump.pop("device") == "cuda"
     assert t_dump == j_dump
+    tomls = sorted((configs / "debug").glob("*.toml")) + sorted((configs / "bench").glob("*.toml"))
+    assert len(tomls) >= 5
+    for path in tomls:
+        raw = tomllib.loads(path.read_text())
+        t_dump, j_dump = RLConfig(**raw).model_dump(), JRLConfig(**raw).model_dump()
+        assert t_dump["trainer"].pop("device") == t_dump["inference"].pop("device") == "cuda"
+        assert t_dump == j_dump, path.name
     assert set(tshared.ModelConfig.model_fields) == set(JModelConfig.model_fields)
     for mode in ("none", "full", "save_attn", "save_attn/7", "offload_attn/2", "selective"):
         assert tshared.ModelConfig(ac={"mode": mode}).ac.mode == mode
@@ -372,8 +384,12 @@ def test_configs_accept_what_the_jax_package_accepts(tmp_path):
         assert tshared.ModelConfig(attn={"impl": impl}).attn.impl == impl
     with pytest.raises(NotImplementedError):
         setup_monitor(tshared.WandbMonitorConfig(), tmp_path)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="colocated entry point"):  # the default mode
         make_broadcast(TrainerConfig(broadcast={"type": "device"}).broadcast, None, str(tmp_path))
+    for mode in ("shm", "zmq_stream", "dcn_pull"):
+        with pytest.raises(NotImplementedError, match="item 11"):
+            make_broadcast(TrainerConfig(broadcast={"type": "device", "mode": mode}).broadcast,
+                           None, str(tmp_path))
 
 
 # ---------------------------------------------------------------------------
@@ -450,9 +466,29 @@ def test_trainer_refuses_a_truncated_vocabulary_without_random_init(tmp_path, mo
 
 def test_trainer_raises_for_what_waits_for_the_loop_slice(tmp_path, monkeypatch):
     assert TrainerConfig().device == "cuda"
-    with pytest.raises(NotImplementedError):  # the default data plane is the transport
-        train(TrainerConfig(device="cpu", output_dir=str(tmp_path / "t")))
-    tlogger.reset_logger()
+    # the default data plane, the transport, trains: one batch from the
+    # filesystem transport, one step
+    from prime_rl_tpu_torch.transport import setup_training_batch_sender
+    from prime_rl_tpu_torch.transport.types import TrainingBatch
+
+    fed = TrainerConfig(device="cpu", output_dir=str(tmp_path / "t"), max_steps=1,
+                        transport={"type": "filesystem"},
+                        model={"name": "debug", "attn": {"impl": "xla"}},
+                        batch={"seq_len": 64, "micro_batch_size": 2})
+    assert fed.data.type == "transport"
+    rng = np.random.default_rng(0)
+    samples = [TrainingSample(token_ids=rng.integers(0, 500, 20),
+                              mask=np.r_[np.zeros(8, bool), np.ones(12, bool)],
+                              logprobs=-rng.random(20), temperatures=np.ones(20),
+                              advantages=rng.standard_normal(20)) for _ in range(3)]
+    setup_training_batch_sender(fed.transport, fed.output_dir).send(
+        TrainingBatch(examples=samples, step=0))
+    try:
+        out = train(fed)
+    finally:
+        tlogger.reset_logger()
+    assert out.state.step == 1 and out.records[0]["rl_tokens"] == 36
+    assert np.isfinite(out.records[0]["loss"])
     for extra in (["--multi-run", "true"],
                   ["--token-export-rows", "2"], ["--metrics-server.enable", "true"],
                   ["--mesh.fsdp", "2"], ["--offload-optimizer", "true"],
