@@ -13,7 +13,8 @@ Phases (any failure raises and exits non-zero before the last line):
                 runtime loaded them (it fails on local memory: a spill), and
                 K3's launch (split of D, ring, clusters) at both serving shapes.
   3. kernels  — K1 flash_attn_fwd, K3 decode_qkv_prep and K4 decode_paged_attention
-                at the Qwen3-0.6B shapes of the serving path (K3 also over
+                at the Qwen3-0.6B shapes of the serving path (K3 also at
+                Qwen3-30B-A3B's and GLM-4.5-Air's, rot 64, and over
                 K3_EDGE_CASES: S from 1 to 256, both head dims, rot < HD,
                 biases with and without qk-norm, positions near 131071 with
                 YaRN, each launched twice for equal bits, with the weight tiles
@@ -22,15 +23,17 @@ Phases (any failure raises and exits non-zero before the last line):
                 trainer's rows of four sequences; K4 also over 16 slots of
                 3000-4000 cached tokens, and over K4_EDGE_CASES: lengths 0 and
                 at split and page boundaries, inactive slots, windows, sinks,
-                page sizes 8-64, both head dims, GQA 1/2/4/8, each launched
+                page sizes 8-64, both head dims, GQA 1/2/4/8 and the groups
+                cut into chunks, 3/5/6/12 (12 with a window), each launched
                 twice for equal bits, with the rows each work item read as the
                 kernel counted them held against the split rule's mirror),
                 K2a flash_attn_bwd_dq and K2b
                 flash_attn_bwd_dkv at the trainer's shape and one long shape,
                 K1, K2a and K2b over K1_EDGE_CASES (ragged and odd lengths,
-                padding, short segments, GQA 1/2/4/8, both head dims, the
+                padding, short segments, GQA 1/2/4/8/12, both head dims, the
                 cross-block form with an lse cotangent, windows with and without
-                sinks, each launched twice for equal bits), K5a sparse_mla_fwd,
+                sinks, the SFT micro-batch of 2 x 8192 tokens, each launched
+                twice for equal bits), K5a sparse_mla_fwd,
                 K5b sparse_mla_bwd and the dkv reduction at the GLM-5 attention
                 widths (64 heads, 576 = 512 + 64 channels, top-k 2048) over a
                 packed row of 4096 tokens and over a short row full of
@@ -57,7 +60,10 @@ Phases (any failure raises and exits non-zero before the last line):
                 mirrors; K5a's and K5b's rows give their tiles visited too).
                 Windowed K1 must take at most a quarter of full K1's
                 time, and K1, and K2a + K2b, over the four packed sequences at
-                most half of the one-sequence time.
+                most half of the one-sequence time. K4 also at the MoE serving
+                shapes (64 slots of 500-1100 tokens): Qwen3-30B-A3B's 32/4
+                heads (group 8) and GLM-4.5-Air's 96/8 (group 12, two chunks a
+                kv head), each a row of its own.
   4. train-reference — loss and every gradient of one micro-batch [2, 512] of
                 the full-width model cut to 2 layers (full vocabulary), through
                 the kernels in bf16 on the card, against the plain float32 path
@@ -94,21 +100,49 @@ Phases (any failure raises and exits non-zero before the last line):
                 steps twice: bit-equal finite losses, changed parameters (the
                 sinks among them), the launches of K1, K2a and K2b (and of their
                 window forms) that the layers imply, a snapshot read back.
- 10. reference — the served Qwen3-0.6B's prefill and decode logits through the
+ 10. sft      — SFT through its entry's parser on
+                configs/examples/qwen3_0.6b_sft.toml as it is (Qwen3-0.6B at full
+                width and depth, seq_len 8192, 16 sequences a step in 8
+                micro-batches of 2 rows) with fake data, random init, 4 steps,
+                validation every 2 over 2 batches and a snapshot at step 4:
+                finite records, two val_nll records, the snapshot, launches of
+                K1, K2a and K2b; its tokens/s, step time and peak memory.
+ 11. qwen3-moe-reference — Qwen3-30B-A3B at full width and vocabulary cut to 2
+                layers: a prefill of 200 tokens and 4 decode steps through K1,
+                K3 and K4 against float32 on the CPU, which replays the card's
+                routing and reports how far its own agrees.
+ 12. qwen3-moe-training — the trainer's step on Qwen3-30B-A3B at full width (all 128
+                experts) cut to 4 layers, seq_len 4096, 2 micro-batches of 1
+                row, adamw_8bit, bf16 masters, full remat, half the tokens
+                replaying a routing (a fake loader the phase builds): 3 steps
+                twice, bit-equal finite losses,
+                the launches of K1, K2a and K2b the layers imply, then one step
+                under the profiler for torch._grouped_mm's share.
+ 13. reference — the served Qwen3-0.6B's prefill and decode logits through the
                 kernels against a plain float32 forward on the CPU.
- 11. serving  — the port's inference server (Qwen3-0.6B, all 28 layers, full
+ 14. serving  — the port's inference server (Qwen3-0.6B, all 28 layers, full
                 vocabulary, random weights from a seed, byte tokenizer) answers
                 16 concurrent /inference/v1/generate requests, a /v1/completions
                 request and a streaming /v1/chat/completions request over HTTP;
                 greedy requests are deterministic; every kernel was launched.
- 12. gpt-oss-reference — gpt-oss at gpt-oss-20b's widths cut to 2 layers: a
+ 15. gpt-oss-reference — gpt-oss at gpt-oss-20b's widths cut to 2 layers: a
                 prefill of 200 tokens and decode steps past position 128 through
                 K1, K3 and K4 against float32 on the CPU.
- 13. gpt-oss-serving — the same server and requests with openai/gpt-oss-20b at
+ 16. gpt-oss-serving — the same server and requests with openai/gpt-oss-20b at
                 full width and all 24 layers (random weights, byte tokenizer,
                 max_model_len 4096): K1 and K4 launched on the windowed and the
                 full layers, K3 on every layer; its tokens/s and first-token time.
- 14. loop     — the RL loop through its launcher: ``python -m
+ 17. qwen3-moe-serving — the same server and requests with Qwen/Qwen3-30B-A3B at
+                full size (48 layers, 61 GB of bf16 weights, the KV pool sized
+                from the memory left) recording the routing: every generate
+                completion carries routed_experts [n_gen, 48, 8], ids in
+                [0, 128), the last row -1.
+ 18. glm4-moe-reference — the reference of phase 11 for GLM-4.5-Air (1 dense +
+                1 MoE layer; partial rotary, noaux routing with a random
+                correction bias, a shared expert; K4 at group 12).
+ 19. glm4-moe-serving — the server of phase 17 for GLM-4.5-Air at full width
+                cut to 4 layers (1 dense + 3 MoE), routed_experts [n_gen, 3, 8].
+ 20. loop     — the RL loop through its launcher: ``python -m
                 prime_rl_tpu_torch.entrypoints.rl @configs/bench/northstar_rl_tpu.toml
                 --colocated`` with 6 trainer and orchestrator steps (Qwen3-0.6B at
                 full width and depth, random weights, byte tokenizer, async GRPO on
@@ -128,7 +162,11 @@ Then one JSON line with every kernel's numbers, and the result line. A kernel's
 the sparse-MLA kernels run on the DSA trainer's path; the window and sink
 forms' rows count the gpt-oss paths, ``launches_window`` their windowed layers).
 K1, K2a, K2b, K3 and K4 also give ``launches_loop``, their launches in the
-colocated process of the loop phase.
+colocated process of the loop phase; K1, K2a and K2b ``launches_sft`` and
+``launches_moe_training``, and K1, K3 and K4 ``launches_moe_serving`` and
+``launches_glm_serving``, their launches on this slice's paths. K4's rows
+at the MoE shapes count the Qwen3-30B-A3B serving path (group 8) and the
+GLM-4.5-Air path's chunked launches (group 12).
 """
 
 from __future__ import annotations
@@ -153,6 +191,8 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s
 MODEL = "Qwen/Qwen3-0.6B"
 GPT_OSS = "openai/gpt-oss-20b"
+QWEN3_MOE = "Qwen/Qwen3-30B-A3B"
+GLM = "zai-org/GLM-4.5-Air"
 SEED = 0
 
 # zai-org/GLM-5, config.json, GlmMoeDsaForCausalLM: the published widths, all
@@ -308,9 +348,11 @@ def k1_timing(name: str, q, k, v, seg, window: int = 0, sinks=None) -> dict:
 # lengths of q rows, of kv rows (None: the q rows'), causal, window, sinks):
 # lengths that are no multiple of the tiles (odd ones too: the flat id, lse and
 # delta maps then start off 16-byte bounds), a fully padded row, many short
-# segments (tiles skipped), segments that end mid-tile, GQA groups 1, 2, 4 and
-# 8, both head dims, the cross-block form (Lq < Lk and Lq > Lk, rows that see
-# no key), windows of 128 and 100 (at both head dims) with and without sinks
+# segments (tiles skipped), segments that end mid-tile, GQA groups 1, 2, 4, 8
+# and 12 (GLM-4.5-Air's 96/8 heads), both head dims, the cross-block form (Lq <
+# Lk and Lq > Lk, rows that see no key), windows of 128 and 100 (at both head
+# dims) with and without sinks, and the SFT trainer's micro-batch (2 rows of
+# 8192 at Qwen3-0.6B's 16/8 heads)
 K1_EDGE_CASES = (
     ("L=64 hd 128 group 2", 2, 64, 64, 4, 2, 128, [[40, 24], [64]], None, True, 0, False),
     ("L=192 hd 64 group 1, padded tail", 2, 192, 192, 2, 2, 64, [[70, 80], [100]], None, True,
@@ -335,7 +377,23 @@ K1_EDGE_CASES = (
      [[150, 150], [299]], [[77], [40, 30]], False, 0, False),
     ("L=333 hd 128 group 2, window 100", 1, 333, 333, 4, 2, 128, [[200, 133]], None, True, 100,
      False),
+    ("L=1000 hd 128 group 12 (GLM-4.5-Air), packed segments", 2, 1000, 1000, 96, 8, 128,
+     [[300, 420, 280], [1000]], None, True, 0, False),
+    ("B=2 L=8192 hd 128 group 2 (the SFT micro-batch), packed segments", 2, 8192, 8192, 16, 8,
+     128, [[3000, 2500, 2692], [8192]], None, True, 0, False),
 )
+
+
+def by_row(fn, b: int, batched: tuple, *rest):
+    """``fn(*batched, *rest)`` computed one batch row at a time and joined on
+    dim 0 (a plain attention version holds [1, NH, Lq, Lk] float32 scores at a
+    time, not [B, ...]: 4.3 GB a matrix at 16 heads and L 8192)."""
+    import torch
+
+    outs = [fn(*(x[i:i + 1] for x in batched), *rest) for i in range(b)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
 
 
 def k1_edge_cases(gen) -> tuple[int, float]:
@@ -363,8 +421,9 @@ def k1_edge_cases(gen) -> tuple[int, float]:
         if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
             raise AssertionError(f"flash_attn_fwd {name}: two launches differ")
         k1_tiles(q, k, v, seg_q, seg_kv, causal, window, sinks)
-        ref_out, ref_lse = flash_attention_reference(q.float(), k.float(), v.float(), seg_q,
-                                                     seg_kv, causal, hd ** -0.5, window, sinks)
+        ref_out, ref_lse = by_row(flash_attention_reference, b,
+                                  (q.float(), k.float(), v.float(), seg_q, seg_kv), causal,
+                                  hd ** -0.5, window, sinks)
         worst = max(worst, check_close(f"flash_attn_fwd {name}", out, ref_out, ATOL, RTOL))
         check_close(f"flash_attn_fwd lse {name}", lse, ref_lse, 1e-3, 1e-4)
         pad = (seg_q == 0)[:, None, :].expand_as(lse)
@@ -538,7 +597,8 @@ def k2_edge_cases(gen) -> tuple[int, float]:
         if not all(torch.equal(a, c) for a, c in zip(*runs)):
             raise AssertionError(f"flash_attn_bwd {name}: two launches differ")
         dq, dk, dv = runs[0]
-        refs = (flash_attention_dq_reference(*args), *flash_attention_dkv_reference(*args))
+        refs = (by_row(flash_attention_dq_reference, b, args[:8], *args[8:]),
+                *by_row(flash_attention_dkv_reference, b, args[:8], *args[8:]))
         for what, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
             worst = max(worst, check_close(f"flash_attn_bwd {what} {name}", got, ref, K2_TOL,
                                            K2_TOL))
@@ -691,7 +751,9 @@ def k4_timing(name: str, qd, k_new, v_new, k_pool, v_pool, lengths, table, windo
 # PS (the append opens a page) and of the split's 256 rows, one past it,
 # inactive slots reading the null page, many splits, windows whose first row
 # falls inside a page and that span two splits (window 300), PS 8, 16, 32 and
-# 64, tiles that span pages (PS < 64), both head dims, groups 1, 2, 4 and 8
+# 64, tiles that span pages (PS < 64), both head dims, groups 1, 2, 4 and 8;
+# then the groups of served specs that the kernel pads to a chunk (3, 5, 6) or
+# cuts into chunks of 8 and 4 (12), with and without a window
 K4_EDGE_CASES = (
     ("hd 128 group 2 PS 16, lengths 0-2000", 10, 4, 2, 128, 16, 128,
      [0, 1, 15, 16, 255, 256, 257, 2000, 513, 40], 1, 0, False),
@@ -704,6 +766,16 @@ K4_EDGE_CASES = (
     ("hd 128 group 8 PS 64, sinks", 3, 8, 1, 128, 64, 64, [3999, 2500, 777], 0, 0, True),
     ("hd 64 group 4 PS 32, lengths multiples of PS and of 256", 6, 8, 2, 64, 32, 64,
      [512, 256, 32, 0, 1024, 2015], 0, 0, False),
+    ("hd 128 group 3 PS 16 (Llama-3.2-3B's 24/8)", 6, 6, 2, 128, 16, 128,
+     [0, 255, 256, 1000, 2000, 17], 1, 0, False),
+    ("hd 128 group 5 PS 64, sinks (Qwen3-14B's 40/8)", 4, 10, 2, 128, 64, 64,
+     [3999, 512, 1, 700], 0, 0, True),
+    ("hd 128 group 6 PS 32 (MiniMax-M2's 48/8)", 5, 12, 2, 128, 32, 64,
+     [2047, 300, 0, 64, 1025], 0, 0, False),
+    ("hd 128 group 12 PS 16 (GLM-4.5's 96/8), 16 splits", 6, 24, 2, 128, 16, 256,
+     [4000, 0, 257, 1500, 40, 3], 1, 0, False),
+    ("hd 128 group 12 PS 64, window 300 + sinks", 5, 12, 1, 128, 64, 64,
+     [1000, 299, 300, 301, 5], 0, 300, True),
 )
 
 
@@ -754,6 +826,29 @@ def k4_qwen3_cases(spec, gen, flush) -> list[dict]:
         del args
         torch.cuda.empty_cache()
     return cases
+
+
+def k4_moe_case(spec, gen, flush) -> dict:
+    """K4 at a MoE model's serving shape (its heads of 128, PS 64, tables of
+    4096 rows) over 64 slots of 500-1100 cached tokens (mean near 800),
+    checked (``k4_check``) and timed (``k4_timing``, cold L2): group 8 at
+    Qwen3-30B-A3B's 32/4 heads, group 12 (two chunks) at GLM-4.5-Air's 96/8."""
+    import torch
+
+    nh, nkv, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
+    s, ps, p = 64, 64, 4096 // 64
+
+    def lengths():
+        return torch.randint(500, 1101, (s,), device="cuda", generator=gen, dtype=torch.int32)
+
+    args = k4_inputs(gen, s, nh, nkv, hd, ps, p, lengths)
+    shape = f"S={s} PS={ps} lengths 500..1100, {nh}/{nkv} heads (group {nh // nkv})"
+    err = k4_check(shape, *args, launches=2)
+    case = dict(shape=shape, max_abs_err=err, **k4_timing(f"{shape} (err {err:.3g})", *args,
+                                                          flush=flush))
+    del args
+    torch.cuda.empty_cache()
+    return case
 
 
 def k4_gpt_oss_cases(spec, gen, flush, sinks) -> list[dict]:
@@ -960,8 +1055,10 @@ def k3_row(spec, gen, flush, name: str, *, qk_norm: bool, bias: bool) -> dict:
                          spec.head_dim, qk_norm=qk_norm, bias=bias, inv_freq=inv_freq,
                          scaling=scaling, eps=spec.rms_eps)
     err = k3_check(name, args, kw)
+    rot = 2 * inv_freq.numel()
     shape = (f"S={s} D={spec.hidden_size} {spec.num_heads}/{spec.num_kv_heads} heads hd "
-             f"{spec.head_dim}{', biases' if bias else ''}{', qk-norm' if qk_norm else ''}"
+             f"{spec.head_dim}{f', rot {rot}' if rot != spec.head_dim else ''}"
+             f"{', biases' if bias else ''}{', qk-norm' if qk_norm else ''}"
              f"{f', YaRN x{scaling:.4f}' if scaling != 1.0 else ''}")
     return dict(shape=shape, max_abs_err=err, **k3_timing(f"{name} {shape} (err {err:.3g})",
                                                           args, kw, flush))
@@ -969,6 +1066,8 @@ def k3_row(spec, gen, flush, name: str, *, qk_norm: bool, bias: bool) -> dict:
 
 def kernel_phase(spec) -> list[dict]:
     import torch
+
+    from prime_rl_tpu_torch.models.base import get_spec
 
     from prime_rl_tpu_torch.ops.flash_attention import (
         flash_attention_reference,
@@ -1047,7 +1146,16 @@ def kernel_phase(spec) -> list[dict]:
                          cases=cases, edge_cases=n_edge))
 
     # ---- K3: decode qkv prep ----------------------------------------------
+    # at Qwen3-0.6B's serving shape (the row's numbers), then at the MoE
+    # serving paths' own: Qwen3-30B-A3B (D 2048, 32/4 heads) and GLM-4.5-Air
+    # (D 4096, 96/8 heads, rot 64 of 128)
     case = k3_row(spec, gen, flush, "Qwen3", qk_norm=True, bias=False)
+    moe_cases = []
+    for model in (QWEN3_MOE, GLM):
+        moe_spec = get_spec(model)
+        moe_cases.append(dict(model=model, **k3_row(moe_spec, gen, flush, model,
+                                                    qk_norm=bool(moe_spec.qk_norm),
+                                                    bias=moe_spec.attn_bias)))
     n_edge, edge_err = k3_edge_cases(gen)
     log(f"K3 decode_qkv_prep edge cases: {n_edge} cases within tolerance, max err "
         f"{edge_err:.3g}, two launches on each gave equal bits, weight tiles as the tiling gives")
@@ -1055,7 +1163,9 @@ def kernel_phase(spec) -> list[dict]:
                      source="prime_rl_tpu_torch/csrc/decode_qkv.cu",
                      replaces="prime_rl_tpu/ops/decode_qkv.py:36",
                      **{k: v for k, v in case.items() if k != "max_abs_err"},
-                     max_abs_err=max(edge_err, case["max_abs_err"]), edge_cases=n_edge))
+                     max_abs_err=max([edge_err, case["max_abs_err"]]
+                                     + [c["max_abs_err"] for c in moe_cases]),
+                     cases=moe_cases, edge_cases=n_edge))
 
     # ---- K4: paged decode attention + KV append ---------------------------
     cases = k4_qwen3_cases(spec, gen, flush)
@@ -1069,6 +1179,16 @@ def kernel_phase(spec) -> list[dict]:
                                                  "library_ms")},
                      max_abs_err=max([edge_err] + [c["max_abs_err"] for c in cases]),
                      cases=cases, edge_cases=n_edge))
+    for model in (QWEN3_MOE, GLM):
+        moe_spec = get_spec(model)
+        case = k4_moe_case(moe_spec, gen, flush)
+        group = moe_spec.num_heads // moe_spec.num_kv_heads
+        rows.append(dict(name=f"decode_paged_attention/group{group}", route="cuda",
+                         source="prime_rl_tpu_torch/csrc/decode_attention.cu",
+                         replaces="prime_rl_tpu/ops/decode_attention.py:50",
+                         **{k: case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                 "library_ms", "max_abs_err")},
+                         cases=[case], model=model))
     del flush
     torch.cuda.empty_cache()
     return rows
@@ -2324,15 +2444,232 @@ def gpt_oss_training_phase() -> tuple[dict, dict]:
     return launches, numbers
 
 
+SFT_CONFIG = "configs/examples/qwen3_0.6b_sft.toml"
+SFT_STEPS = 4
+
+
+def sft_phase() -> tuple[dict, dict]:
+    """SFT through its entry's config parser and ``train`` on
+    ``configs/examples/qwen3_0.6b_sft.toml`` as it is (Qwen3-0.6B at full
+    width and depth, ``seq_len`` 8192, 16 sequences a step in 8 micro-batches
+    of 2 rows, adamw), with fake data, random init, 4 steps, validation every
+    2 steps over 2 batches and a weight snapshot at step 4. Returns (launches,
+    numbers of the last step)."""
+    import torch
+
+    from prime_rl_tpu_torch.configs import SFTConfig, parse_config
+    from prime_rl_tpu_torch.ops import _build
+    from prime_rl_tpu_torch.trainer.sft.train import train
+    from prime_rl_tpu_torch.utils import pathing
+
+    out = os.path.join(ROOT, "build", "chip_smoke", "sft")
+    shutil.rmtree(out, ignore_errors=True)
+    config = parse_config(SFTConfig, [
+        "@", os.path.join(ROOT, SFT_CONFIG), "--data.type", "fake", "--model.debug.random-init",
+        "--max-steps", str(SFT_STEPS), "--val.interval", "2", "--val.num-batches", "2",
+        "--weight-ckpt.interval", str(SFT_STEPS), "--output-dir", out])
+    if (config.model.name, config.data.seq_len) != (MODEL, 8192):
+        raise AssertionError(f"{SFT_CONFIG} must train {MODEL} at seq_len 8192")
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = train(config)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    records = result.records
+    rows = [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
+    val = [r["val_nll"] for r in rows if "val_nll" in r]
+    if len(records) != SFT_STEPS or not all(
+            math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) and r["grad_norm"] > 0
+            for r in records):
+        raise AssertionError(f"sft: bad step records {records}")
+    if len(val) != 2 or not all(math.isfinite(v) for v in val):
+        raise AssertionError(f"sft: expected two finite val_nll records, got {val}")
+    if not pathing.is_stable(pathing.weights_dir(out, SFT_STEPS)):
+        raise AssertionError("sft: no weight snapshot at the last step")
+    for name in ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"sft: {name} was not launched on the SFT path")
+    last = records[-1]
+    tokens = config.data.batch_size // config.data.micro_batch_size * (
+        config.data.micro_batch_size * config.data.seq_len)
+    numbers = dict(step_time_s=last["step_time_s"], tokens_per_s=tokens / last["step_time_s"],
+                   peak_gib=last["device_mem_peak_gib"], mfu=last["mfu"])
+    log(f"sft: {SFT_STEPS} steps in {wall:.1f} s; step times "
+        f"{[round(r['step_time_s'], 3) for r in records]}; last step {tokens} tokens in "
+        f"{last['step_time_s']:.3f} s -> {numbers['tokens_per_s']:.0f} tokens/s, mfu "
+        f"{last['mfu']:.4f}, peak device memory {numbers['peak_gib']:.2f} GiB; losses "
+        f"{[round(r['loss'], 4) for r in records]}; val_nll {val}; launches {launches}")
+    del result
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(out, ignore_errors=True)
+    return launches, numbers
+
+
+def replayed_fake_loader(spec, seq_len: int, rows: int, n_mb: int, seed: int = SEED):
+    """The trainer's fake loader (``FakeDataLoader``) whose batches also carry
+    a router replay (``routed_experts`` [N, B, L, NL, K]: distinct random
+    experts on every other token, -1 on the rest, so half the tokens replay),
+    drawn from a numpy generator seeded with ``seed``."""
+    import numpy as np
+
+    from prime_rl_tpu_torch.trainer.rl.data import FakeDataLoader
+
+    class Replayed(FakeDataLoader):
+        def __init__(self):
+            super().__init__(spec.vocab_size, seq_len, rows, n_mb, seed=seed)
+            self.replay_rng = np.random.default_rng(seed)
+
+        def next_batch(self):
+            batch, counts = super().next_batch()
+            shape = (*batch.input_ids.shape, spec.num_layers, spec.num_experts)
+            routed = np.argsort(self.replay_rng.random(shape, np.float32), axis=-1)
+            routed = routed[..., :spec.num_experts_per_tok].astype(np.int32)
+            routed[:, :, 1::2] = -1
+            return batch._replace(routed_experts=routed), counts
+
+    return Replayed()
+
+
+def grouped_mm_share(step, state, batch, scales) -> str:
+    """One more train step under ``torch.profiler``: the device time of
+    ``torch._grouped_mm`` (the experts' products) against the step's busy
+    device time, or "not measured" when the trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state, batch, scales)
+        torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+
+    events = prof.key_averages()
+    # device-side events only (kernels, copies) for the busy time: the aten
+    # ops that launched them carry the same device time and would count it twice
+    busy = sum(e.self_device_time_total for e in events if e.device_type == DeviceType.CUDA)
+    grouped = sum(e.device_time_total for e in events if e.key == "aten::_grouped_mm")
+    if busy <= 0:
+        return "not measured (the trace holds no device time)"
+    return (f"{grouped / 1e3:.1f} of {busy / 1e3:.1f} busy device ms in aten::_grouped_mm "
+            f"({grouped / busy:.3f})")
+
+
+def qwen3_moe_training_phase() -> tuple[dict, dict]:
+    """The trainer's step (``make_train_step``, as ``train`` builds it) on
+    Qwen3-30B-A3B at full width (hidden 2048, 32/4 heads of 128, all 128
+    experts top-8 of 768, vocab 151936), cut to 4 layers, twice from the same
+    seed: ``seq_len`` 4096, 2 micro-batches of 1 row, adamw_8bit with bf16
+    masters, full remat, 3 steps, each batch from ``replayed_fake_loader`` so
+    that half the tokens replay a routing. Then one more step under the
+    profiler for the experts' share. Returns (launches of the first run,
+    numbers of its last step)."""
+    import torch
+
+    from prime_rl_tpu_torch.configs import TrainerConfig
+    from prime_rl_tpu_torch.models.base import get_spec
+    from prime_rl_tpu_torch.ops import _build
+    from prime_rl_tpu_torch.trainer.optim import make_optimizer, tree_leaves
+    from prime_rl_tpu_torch.trainer.step import Scales, init_train_state, make_train_step
+
+    steps, n_mb, rows, seq_len, layers = 3, 2, 1, 4096, 4
+    cfg = TrainerConfig(
+        device="cuda", seed=SEED, grad_clip=1.0,
+        model={"name": QWEN3_MOE, "seq_len": seq_len,
+               "debug": {"random_init": True, "num_layers": layers}},
+        optimizer={"type": "adamw_8bit", "lr": 1e-5, "master_dtype": "bfloat16"})
+    spec = get_spec(QWEN3_MOE, num_layers=layers)
+    if (spec.family, spec.hidden_size, spec.num_heads, spec.num_kv_heads, spec.num_experts,
+            spec.moe_intermediate_size, spec.vocab_size) != ("qwen3_moe", 2048, 32, 4, 128, 768,
+                                                              151936):
+        raise AssertionError("the trained model must be Qwen3-30B-A3B at full width")
+    optimizer, _ = make_optimizer(cfg.optimizer, cfg.scheduler, cfg.grad_clip)
+    step = make_train_step(spec, cfg.model, cfg.loss, optimizer, "cuda")
+
+    def scales(counts):
+        return Scales(rl=float(max(counts["rl"], 1)), ce=float(max(counts["ce"], 1)),
+                      ref_kl=float(max(counts["ref_kl"], 1)))
+
+    runs = []
+    for i in range(2):
+        _build.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        state = init_train_state(spec, "cuda", optimizer, seed=SEED, master_dtype="bfloat16")
+        loader = replayed_fake_loader(spec, seq_len, rows, n_mb)
+        records = []
+        t_run = time.perf_counter()
+        for _ in range(steps):
+            batch, counts = loader.next_batch()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, scales(counts))
+            loss = float(metrics["loss"])  # reads the device: the step has finished
+            torch.cuda.synchronize()
+            records.append(dict(loss=loss, grad_norm=float(metrics["grad_norm"]),
+                                step_time_s=time.perf_counter() - t0))
+        wall = time.perf_counter() - t_run
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        runs.append((records, dict(_build.launches), peak))
+        log(f"qwen3-moe-training run {i}: {steps} steps in {wall:.2f} s, peak device memory "
+            f"{peak:.2f} GiB, losses {[r['loss'] for r in records]}, step times "
+            f"{[round(r['step_time_s'], 3) for r in records]}")
+        if i == 0:
+            del state, metrics
+            gc.collect()
+            torch.cuda.empty_cache()
+    (records, launches, peak), (records_again, _, _) = runs
+    losses = [r["loss"] for r in records]
+    if len(records) != steps or not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                                        and r["grad_norm"] > 0 for r in records):
+        raise AssertionError(f"qwen3-moe-training: bad step records {records}")
+    if losses != [r["loss"] for r in records_again]:
+        raise AssertionError(f"two runs from the same seed gave different losses: {losses} and "
+                             f"{[r['loss'] for r in records_again]}")
+    per_pass = layers * n_mb * rows * steps
+    want = {"flash_attn_fwd": 2 * per_pass, "flash_attn_bwd_dq": per_pass,
+            "flash_attn_bwd_dkv": per_pass}
+    for name, n in want.items():
+        if launches.get(name, 0) != n:
+            raise AssertionError(f"{name}: {launches.get(name, 0)} launches on the Qwen3-MoE "
+                                 f"training path, expected {n}")
+    batch, counts = replayed_fake_loader(spec, seq_len, rows, n_mb, seed=SEED + 1).next_batch()
+    share = grouped_mm_share(step, state, batch, scales(counts))
+    n_params = sum(x.numel() for x in tree_leaves(state.params))
+    last = records[-1]
+    tokens = n_mb * rows * seq_len
+    numbers = dict(step_time_s=last["step_time_s"], tokens_per_s=tokens / last["step_time_s"],
+                   peak_gib=peak, parameters=n_params, grouped_mm=share)
+    log(f"qwen3-moe-training: {n_params / 1e9:.3f} G parameters; {steps} steps of {n_mb} x "
+        f"[{rows}, {seq_len}] tokens, half replaying a routing; last step "
+        f"{last['step_time_s']:.3f} s, {numbers['tokens_per_s']:.0f} tokens/s, peak device "
+        f"memory {peak:.2f} GiB; the experts' products: {share}; launches {launches}")
+    del state, step, optimizer, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, numbers
+
+
 def gpt_oss_reference_phase() -> None:
     """The served gpt-oss at gpt-oss-20b's widths and full vocabulary, cut to
     2 layers (one windowed, one full) with random sinks and biases: a prefill
     of 200 tokens and 4 decode steps (positions 200-203, so the 128-token
     window is in force) through K1, K3 and K4 in bf16 on the card, against a
-    plain float32 forward on the CPU from the same weights. As in the
-    gpt-oss-train-reference phase, the CPU replays the card's routing (a
-    near-tie in the top-4 of 32 routes a token elsewhere from bf16
-    activations), and a run on its own routing reports the agreement."""
+    plain float32 forward on the CPU from the same weights
+    (``served_moe_reference``)."""
+    served_moe_reference(GPT_OSS, ("flash_attn_fwd/window", "decode_qkv_prep",
+                                   "decode_paged_attention/window"))
+
+
+def served_moe_reference(model: str, kernels: tuple[str, ...]) -> None:
+    """``model``'s served forward at its widths and full vocabulary, cut to 2
+    layers, with random sinks and biases where it has them (the correction
+    bias of a noaux router among them): a prefill of 200 tokens and 4 decode
+    steps through K1, K3 and K4 (``kernels`` must launch) in bf16 on the card,
+    against a plain float32 forward on the CPU from the same weights. The CPU
+    replays the card's routing (a near-tie in the top-k routes a token
+    elsewhere from bf16 activations), and a run on its own routing reports
+    the agreement."""
     import torch
 
     from prime_rl_tpu_torch.models import get_family
@@ -2340,7 +2677,8 @@ def gpt_oss_reference_phase() -> None:
     from prime_rl_tpu_torch.ops import _build
     from prime_rl_tpu_torch.sampler import model as smodel
 
-    spec = get_spec(GPT_OSS, num_layers=2)
+    name = model.split("/")[-1]
+    spec = get_spec(model, num_layers=2)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = perturbed(get_family(spec).init(spec, gen, dtype=torch.bfloat16, device="cuda"), gen)
     ps, lpad, n, steps = 64, 256, 200, 4
@@ -2370,9 +2708,9 @@ def gpt_oss_reference_phase() -> None:
     with recorded_routing(record=on_card):
         got = run(params, torch.device("cuda"), torch.bfloat16)
     torch.cuda.synchronize()
-    for name in ("flash_attn_fwd/window", "decode_qkv_prep", "decode_paged_attention/window"):
-        if _build.launches[name] <= before.get(name, 0):
-            raise AssertionError(f"gpt-oss-reference: {name} was not launched on the card")
+    for kernel in kernels:
+        if _build.launches[kernel] <= before.get(kernel, 0):
+            raise AssertionError(f"{name} reference: {kernel} was not launched on the card")
     cpu = {k: (v.float().cpu() if not isinstance(v, dict) else
                {n_: t.float().cpu() for n_, t in v.items()}) for k, v in params.items()}
     del params
@@ -2386,15 +2724,15 @@ def gpt_oss_reference_phase() -> None:
     with recorded_routing(replay=on_card):
         want = run(cpu, torch.device("cpu"), torch.float32)
     for i, (g, w, wo) in enumerate(zip(got, want, want_own)):
-        name = "prefill" if i == 0 else f"decode at position {n + i - 1}"
+        what = "prefill" if i == 0 else f"decode at position {n + i - 1}"
         err, scale = float((g - w).abs().max()), float(w.abs().max())
         # bf16 activations against float32: a few bf16 ulps of the largest logit
         if not (err <= 0.05 * scale and bool(torch.isfinite(g).all())):
-            raise AssertionError(f"gpt-oss served {name} logits differ from the float32 "
+            raise AssertionError(f"{name} served {what} logits differ from the float32 "
                                  f"reference: max err {err:.4g} vs max |logit| {scale:.4g}")
-        log(f"gpt-oss reference {name} logits: max err {err:.4g} on the card's routing, "
+        log(f"{name} reference {what} logits: max err {err:.4g} on the card's routing, "
             f"{float((g - wo).abs().max()):.4g} on the CPU's own (max |logit| {scale:.4g})")
-    log(f"gpt-oss reference: the card's routing agrees with the float32 router's on {agree:.4f} "
+    log(f"{name} reference: the card's routing agrees with the float32 router's on {agree:.4f} "
         f"of the choices")
 
 
@@ -2443,12 +2781,14 @@ def reference_phase(engine) -> None:
         log(f"reference {name} logits: max err {err:.4g} (max |logit| {scale:.4g})")
 
 
-async def serving_phase(server, port: int, model: str) -> dict:
+async def serving_phase(server, port: int, model: str, collect: bool) -> dict:
     import aiohttp
     import numpy as np
 
     base = f"http://127.0.0.1:{port}"
     spec = server.engine.spec
+    # router replay: [n_gen, NL_moe, K] with ids in [0, E), the last row -1
+    routed_shape = (spec.num_layers - spec.first_k_dense_replace, spec.num_experts_per_tok)
     rng = np.random.default_rng(SEED)
     prefix = rng.integers(0, spec.vocab_size, 128).tolist()
     lengths = [20, 45, 64, 90, 200, 300, 400, 512, 640, 800, 1000, 1200, 1400, 1500]
@@ -2468,6 +2808,13 @@ async def serving_phase(server, port: int, model: str) -> dict:
             ok = c["finish_reason"] == "stop" and toks and toks[-1] in stop_ids
         if not ok or len(lps) != len(toks) or not np.all(np.isfinite(lps)):
             raise AssertionError(f"{what}: bad result {c['finish_reason']} {len(toks)} tokens")
+        if collect:
+            r = np.asarray(c["routed_experts"])
+            if (r.shape != (len(toks), *routed_shape) or not (r[-1] == -1).all()
+                    or not ((r[:-1] >= 0) & (r[:-1] < spec.num_experts)).all()):
+                raise AssertionError(f"{what}: routed_experts of shape {r.shape}, expected "
+                                     f"{(len(toks), *routed_shape)} with ids in "
+                                     f"[0, {spec.num_experts}) and a last row of -1")
         return len(toks)
 
     out = {}
@@ -2537,11 +2884,13 @@ async def serving_phase(server, port: int, model: str) -> dict:
     return out
 
 
-def serve(model: str, want_layers: int, want_vocab: int, reference=None):
-    """Build the inference server for ``model`` (all its layers, random
-    weights from the seed), run ``reference`` on its engine, warm it up and
-    drive it over HTTP with the launch counts reset just before. Returns
-    (stats, launches); the server is stopped and freed."""
+def serve(model: str, want_layers: int, want_vocab: int, reference=None, collect: bool = False,
+          num_layers: int | None = None):
+    """Build the inference server for ``model`` (all its layers, or
+    ``num_layers``; random weights from the seed; with ``collect`` recording
+    the routing of every completion), run ``reference`` on its engine, warm it
+    up and drive it over HTTP with the launch counts reset just before.
+    Returns (stats, launches); the server is stopped and freed."""
     import aiohttp.web_app
     import torch
 
@@ -2555,15 +2904,17 @@ def serve(model: str, want_layers: int, want_vocab: int, reference=None):
     config = InferenceConfig(
         device="cuda", seed=SEED, max_model_len=4096,
         output_dir=os.path.join(ROOT, "build", "chip_smoke"),
-        model={"name": model, "debug": {"random_init": True}},
+        model={"name": model, "debug": {"random_init": True, "num_layers": num_layers}},
         tokenizer={"name": "byte"}, scheduler={"max_batch_size": 64},
+        collect_routed_experts=collect,
     )
     t0 = time.perf_counter()
     server = build_server(config)
     engine = server.engine
     log(f"{model} server built in {time.perf_counter() - t0:.2f} s: "
         f"{engine.spec.num_layers} layers, vocab {engine.spec.vocab_size}, "
-        f"{engine.config.num_pages} KV pages of {engine.config.page_size}")
+        f"{engine.config.num_pages} KV pages of {engine.config.page_size}, device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     if engine.spec.num_layers != want_layers or engine.spec.vocab_size != want_vocab:
         raise AssertionError(f"the served model must be {model} at full width and depth")
     if reference is not None:
@@ -2574,7 +2925,7 @@ def serve(model: str, want_layers: int, want_vocab: int, reference=None):
         runner = await server.start_async("127.0.0.1", port)
         try:
             _build.reset_launches()
-            stats = await serving_phase(server, port, model)
+            stats = await serving_phase(server, port, model, collect)
             launches = dict(_build.launches)
         finally:
             await server.stop_async(runner)
@@ -2743,11 +3094,12 @@ def flash_build_report() -> None:
 
 def decode_build_report() -> None:
     """Registers, local memory and shared memory of each instantiation of K4
-    (head dim 128 and 64, GQA group 1, 2, 4 and 8) and of K3 (head dim 128
-    and 64, one and two 64-row M tiles a block) as the runtime loaded it
+    (head dim 128 and 64, chunks of 1, 2, 4 and 8 query heads a block: a GQA
+    group is cut into chunks of these) and of K3 (head dim 128 and 64, one and
+    two 64-row M tiles a block) as the runtime loaded it
     (``cudaFuncGetAttributes``), and K3's launch at the serving shapes of
-    Qwen3-0.6B and gpt-oss-20b (split of D, clusters the card holds, shared
-    memory). Logs every instantiation, then raises if any uses local memory
+    Qwen3-0.6B, gpt-oss-20b, Qwen3-30B-A3B and GLM-4.5-Air (split of D,
+    clusters the card holds, shared memory). Logs every instantiation, then raises if any uses local memory
     (neither kernel has local arrays, so any is a spill)."""
     import ctypes
 
@@ -2763,7 +3115,7 @@ def decode_build_report() -> None:
             _build.check("decode_paged_attention",
                          lib.decode_attention_attributes(hd, group, attrs))
             regs, local, static, threads = attrs
-            log(f"K4 build: head dim {hd}, group {group}: {regs} registers a thread ({threads} "
+            log(f"K4 build: head dim {hd}, chunk of {group}: {regs} registers a thread ({threads} "
                 f"threads a block), local memory (spills) {local} bytes a thread, shared memory "
                 f"{static} bytes static + {lib.decode_attention_smem(hd)} dynamic a block")
             if local:
@@ -2779,7 +3131,7 @@ def decode_build_report() -> None:
                 f"bytes a thread, shared memory {static} bytes static")
             if local:
                 spills.append(f"K3 head dim {hd} M tiles {mt}")
-    for model in (MODEL, GPT_OSS):
+    for model in (MODEL, GPT_OSS, QWEN3_MOE, GLM):
         spec = get_spec(model)
         plan = decode_qkv_plan(64, spec.hidden_size, spec.num_heads, spec.num_kv_heads,
                                spec.head_dim)
@@ -2789,6 +3141,7 @@ def decode_build_report() -> None:
             f"{plan['clusters']} clusters of {plan['splits']} at once")
     if spills:
         raise AssertionError(f"{', '.join(spills)} use local memory: registers spill")
+
 
 def main() -> int:
     # the DSA trainer's state comes within a few GiB of the card's memory: keep
@@ -2830,10 +3183,21 @@ def main() -> int:
     dsa_launches, _ = timed("dsa-training", dsa_training_phase)
     timed("gpt-oss-train-reference", gpt_oss_train_reference_phase)
     oss_train_launches, _ = timed("gpt-oss-training", gpt_oss_training_phase)
+    sft_launches, sft_numbers = timed("sft", sft_phase)
+    timed("qwen3-moe-reference", served_moe_reference, QWEN3_MOE,
+          ("flash_attn_fwd", "decode_qkv_prep", "decode_paged_attention"))
+    moe_train_launches, moe_train_numbers = timed("qwen3-moe-training", qwen3_moe_training_phase)
 
     stats, launches = timed("reference + serving", serve, MODEL, 28, 151936, reference_phase)
     timed("gpt-oss-reference", gpt_oss_reference_phase)
     oss_stats, oss_launches = timed("gpt-oss-serving", serve, GPT_OSS, 24, 201088)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_stats, moe_launches = timed("qwen3-moe-serving", serve, QWEN3_MOE, 48, 151936, None,
+                                    True)
+    timed("glm4-moe-reference", served_moe_reference, GLM,
+          ("flash_attn_fwd", "decode_qkv_prep", "decode_paged_attention/chunked"))
+    glm_stats, glm_launches = timed("glm4-moe-serving", serve, GLM, 4, 151552, None, True, 4)
     gc.collect()
     torch.cuda.empty_cache()  # the loop's processes need the card's memory
     loop_launches = timed("loop", loop_phase, card)
@@ -2847,10 +3211,30 @@ def main() -> int:
         if min(windowed, oss_launches.get(f"{name}/sinks", 0) - windowed) <= 0:
             raise AssertionError(f"{name} was not launched on both the windowed and the full "
                                  f"layers of the gpt-oss serving path: {oss_launches}")
+    # the K1-K4 rows' launches on this slice's paths: SFT and the Qwen3-MoE
+    # trainer (K1, K2a, K2b), Qwen3-30B-A3B and GLM-4.5-Air serving (K1, K3, K4)
+    new_paths = {"launches_sft": sft_launches, "launches_moe_training": moe_train_launches,
+                 "launches_moe_serving": moe_launches, "launches_glm_serving": glm_launches}
+    path_kernels = {"launches_sft": ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"),
+                    "launches_moe_training": ("flash_attn_fwd", "flash_attn_bwd_dq",
+                                              "flash_attn_bwd_dkv"),
+                    "launches_moe_serving": ("flash_attn_fwd", "decode_qkv_prep",
+                                             "decode_paged_attention"),
+                    "launches_glm_serving": ("flash_attn_fwd", "decode_qkv_prep",
+                                             "decode_paged_attention")}
     for row in rows:
         name = row["name"]
+        for key, kernels in path_kernels.items():
+            if name in kernels:
+                row[key] = new_paths[key].get(name, 0)
+                if row[key] <= 0:
+                    raise AssertionError(f"kernel {name} was not launched on its {key[9:]} path")
         on_serving, on_training = launches.get(name, 0), train_launches.get(name, 0)
-        if name == "flash_attn_fwd":  # K1 runs on both paths
+        if name == "decode_paged_attention/group8":  # Qwen3-30B-A3B's 32/4 heads
+            row["launches"] = moe_launches.get("decode_paged_attention", 0)
+        elif name == "decode_paged_attention/group12":  # GLM-4.5-Air's 96/8: two chunks
+            row["launches"] = glm_launches.get("decode_paged_attention/chunked", 0)
+        elif name == "flash_attn_fwd":  # K1 runs on both paths
             row["launches"], row["launches_training"] = on_serving, on_training
             if min(on_serving, on_training) <= 0:
                 raise AssertionError("kernel flash_attn_fwd was not launched on both paths")
@@ -2887,8 +3271,16 @@ def main() -> int:
     log(f"launches on the DSA training path: {dsa_launches}")
     log(f"launches on the gpt-oss training path: {oss_train_launches}")
     log(f"launches on the gpt-oss serving path: {oss_launches}")
+    log(f"launches on the SFT path: {sft_launches}")
+    log(f"launches on the Qwen3-MoE training path: {moe_train_launches}")
+    log(f"launches on the Qwen3-30B-A3B serving path: {moe_launches}")
+    log(f"launches on the GLM-4.5-Air serving path: {glm_launches}")
     log(f"serving stats: {json.dumps(stats)}")
     log(f"gpt-oss serving stats: {json.dumps(oss_stats)}")
+    log(f"sft on {card}: {json.dumps(sft_numbers)}")
+    log(f"qwen3-moe training on {card}: {json.dumps(moe_train_numbers)}")
+    log(f"Qwen3-30B-A3B serving stats on {card}: {json.dumps(moe_stats)}")
+    log(f"GLM-4.5-Air (4 layers) serving stats on {card}: {json.dumps(glm_stats)}")
     log(f"chip_smoke: {time.perf_counter() - t0:.1f} s from the build on")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

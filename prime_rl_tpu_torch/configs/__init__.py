@@ -43,6 +43,10 @@ from prime_rl_tpu_torch.configs.trainer import (
     IPOLossConfig,
     LossConfig,
     RatioLossConfig,
+    SFTConfig,
+    SFTDataConfig,
+    SFTSubsetConfig,
+    SFTValConfig,
     TrainerConfig,
     TransportConfig,
     WeightBroadcastConfig,

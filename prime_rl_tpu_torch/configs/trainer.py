@@ -1,6 +1,7 @@
-"""RL trainer configs, field for field with the JAX package's
-``configs/trainer.py`` (the SFT configs wait for the SFT slice), plus
-``device``: the trainer runs on the card unless the caller asks for the CPU.
+"""RL and SFT trainer configs, field for field with the JAX package's
+``configs/trainer.py``, plus ``device`` on ``TrainerConfig`` and
+``SFTConfig``: the trainer runs on the card unless the caller asks for the
+CPU.
 """
 
 from __future__ import annotations
@@ -208,3 +209,64 @@ class TrainerConfig(BaseConfig):
     # daemon thread (reference: utils/heartbeat.py Better Stack pings)
     heartbeat_url: str | None = None
     heartbeat_interval: float = 30.0
+
+
+class SFTDataConfig(BaseConfig):
+    """SFT dataset config (reference: trainer/sft/data.py)."""
+
+    type: Literal["hf", "fake"] = "fake"
+    name: str | None = None  # HF dataset name
+    split: str = "train"
+    # weighted subset interleaving (reference: sft/data.py ratios): when
+    # non-empty, examples mix across subsets by ratio
+    subsets: list["SFTSubsetConfig"] = Field(default_factory=list)
+    # prompt/completion column format or messages format
+    format: Literal["prompt_completion", "messages"] = "messages"
+    seq_len: int = 4096
+    batch_size: int = 8  # sequences per optimizer step (pre-packing)
+    micro_batch_size: int = 1
+    num_examples: int | None = None
+    fake_vocab: int = 2048  # for fake datasets
+    seed: int = 0
+    loss_mask: Literal["all", "assistant"] = "assistant"
+    # VLM: static vision patch buffer per micro-batch (0 = auto-size)
+    max_mm_patches: int = 0
+
+
+class SFTSubsetConfig(BaseConfig):
+    name: str
+    split: str = "train"
+    format: Literal["prompt_completion", "messages"] = "messages"
+    ratio: float = 1.0
+
+
+class SFTValConfig(BaseConfig):
+    """Held-out validation (reference: sft/train.py validation loop)."""
+
+    interval: int = 50
+    num_batches: int = 4
+    split: str = "test"
+    seed: int = 1234  # held-out stream seed for fake datasets
+
+
+class SFTConfig(BaseConfig):
+    """SFT trainer process config."""
+
+    output_dir: str = "outputs"
+    model: ModelConfig = ModelConfig()
+    tokenizer: TokenizerConfig = TokenizerConfig()
+    mesh: MeshConfig = MeshConfig()
+    optimizer: OptimizerConfig = Field(default_factory=lambda: {"type": "adamw", "lr": 2e-5})
+    scheduler: SchedulerConfig = Field(default_factory=lambda: {"type": "cosine"})
+    ckpt: CheckpointConfig = CheckpointConfig()
+    weight_ckpt: WeightCheckpointConfig = WeightCheckpointConfig()
+    data: SFTDataConfig = SFTDataConfig()
+    val: SFTValConfig | None = None
+    monitor: MonitorConfig = Field(default_factory=lambda: {"type": "file"})
+    log: LogConfig = LogConfig()
+    max_steps: int | None = 100
+    grad_clip: float | None = 1.0
+    seed: int = 0
+    bench: BenchConfig | None = None
+    # where the trainer runs: the card unless the caller asks for the CPU
+    device: Literal["cuda", "cpu"] = "cuda"

@@ -50,11 +50,19 @@
 //   larger tiles, more or smaller blocks, C of 128 and L2 prefetch hints were
 //   all as fast or slower: the steady state runs near the card's read rate,
 //   and what is left is the tail of the last items and each item's first tile.
+// - Any GQA group. A block takes the query heads of one chunk of its kv
+//   head's group: W = min(8, next power of two of G) heads a chunk, ceil(G / W)
+//   chunks (G = 12: chunks of 8 and 4), so the grid is (NKV * chunks, S,
+//   splits) and each chunk runs the G <= 8 product above, its 8 columns
+//   padding the chunk past its heads. Groups 1, 2, 4 and 8 are one chunk, as
+//   they were. Each chunk reads its kv head's rows itself (twice at G = 12):
+//   the bytes bound it, so the chunks of a head could share the tiles in a
+//   later form.
 // - Deterministic combine. The block merges its four warps in order 0..3. A
 //   slot whose rows fit one split finishes in that block (new token, sinks,
 //   bf16 out). Otherwise each split writes its f32 partial (m, l, acc[HD]) a
-//   head into a workspace the wrapper allocates and draws a ticket from a
-//   counter of its (slot, kv head); the block that draws the last one folds
+//   query head into a workspace the wrapper allocates and draws a ticket from
+//   a counter of its (slot, kv head, chunk); the block that draws the last one folds
 //   the splits in the fixed order 0..k-1, then the new token's term (from
 //   k_new/v_new) and the sinks, and sets the counter back to zero. No second
 //   launch, no atomics on floats: two launches on the same inputs give equal
@@ -62,14 +70,15 @@
 //   (P*PS <= C, or a window of at most C + 1 rows) the grid has one item a
 //   slot and needs neither workspace nor counters.
 //
-// The append is a plain row store by split 0 (the TPU kernel's 8-row
+// The append is a plain row store by split 0 of chunk 0 (the TPU kernel's 8-row
 // read-modify-write exists only because its memory tiling forbids single-row
 // DMA). Inactive slots (page-table rows all 0) write into the reserved null
 // page 0, whose contents no active slot reads.
 //
 // `decode_paged_attention_rows` is the same launch that also writes the rows
-// each item read (int32 [S, NKV, max_splits], one slot an item: no atomics):
-// ops/decode_attention.decode_rows_visited is its plain mirror.
+// each item read (int32 [S, NKV * chunks, max_splits], one slot an item: no
+// atomics; each chunk counts the rows it read): ops/decode_attention.
+// decode_rows_visited is its plain mirror.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -86,7 +95,7 @@ constexpr int TILE_64 = 64, STAGES_64 = 2;
 constexpr int TILE_128 = 64, STAGES_128 = 2;
 constexpr int NWARPS = 4;
 constexpr int NTHREADS = NWARPS * 32;
-constexpr int MAX_GROUP = 8;              // query heads a block: the 8 columns of a product
+constexpr int MAX_CHUNK = 8;  // query heads a block: the 8 columns of a product
 constexpr float LOG2E = 1.4426950408889634f;
 #define MASKED __int_as_float(0xff800000)  // -inf: the score of a row outside the split
 
@@ -111,10 +120,11 @@ struct Args {
   const int* table;    // [S, P]
   const float* sinks;  // [NH] or null
   bf16* out;           // [S, NH, HD]
-  float* work;         // acc [S, NKV, MS, G, HD] then (m, l) [S, NKV, MS, G, 2]; null: one split
-  int* tickets;        // [S, NKV] splits finished, 0 before and after a launch
-  int* rows;           // [S, NKV, MS] rows read by each item, or null
+  float* work;         // acc [S, NH, MS, HD] then (m, l) [S, NH, MS, 2]; null: one split
+  int* tickets;        // [S, NKV, NC] splits finished, 0 before and after a launch
+  int* rows;           // [S, NKV, NC, MS] rows read by each item, or null
   int S, NH, NKV, NP, PS, P, MS;
+  int G, NC;           // the GQA group, and the chunks of at most W heads it is cut into
   float scale_log2;    // softmax scale * log2(e): scores in base 2
   int window;
 };
@@ -204,13 +214,15 @@ __device__ __forceinline__ int split_count(const Args& a, int n, int lo) {
   return min(max(1, (n - lo + SPLIT_ROWS - 1) / SPLIT_ROWS), a.work ? a.MS : 1);
 }
 
-// scores (base 2) of the new token for each query head of the group -> s_new[G]
-template <int HD, int G>
-__device__ __forceinline__ void new_token_scores(const Args& a, int s, int h, float* s_new) {
+// scores (base 2) of the new token for the chunk's gc query heads, from
+// head qh0 on -> s_new[gc]
+template <int HD>
+__device__ __forceinline__ void new_token_scores(const Args& a, int s, int h, int qh0, int gc,
+                                                 float* s_new) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const bf16* kn = a.k_new + ((size_t)s * a.NKV + h) * HD;
-  for (int g = warp; g < G; g += NWARPS) {
-    const bf16* qg = a.q + ((size_t)s * a.NH + h * G + g) * HD;
+  for (int g = warp; g < gc; g += NWARPS) {
+    const bf16* qg = a.q + ((size_t)s * a.NH + qh0 + g) * HD;
     float d = 0.f;
 #pragma unroll
     for (int e = lane; e < HD; e += 32) d += __bfloat162float(qg[e]) * __bfloat162float(kn[e]);
@@ -247,6 +259,7 @@ constexpr int min_blocks() {
   return HD == 64 ? MIN_BLOCKS_64 : MIN_BLOCKS_128;
 }
 
+// G: the heads a chunk holds (W above); a chunk may hold fewer (gc)
 template <int HD, int G>
 __global__ void __launch_bounds__(NTHREADS, min_blocks<HD>())
 decode_split_kernel(const Args a) {
@@ -258,7 +271,9 @@ decode_split_kernel(const Args a) {
   __shared__ int warp_rows[NWARPS];  // rows each warp's threads copied
   __shared__ bool last;
 
-  const int h = blockIdx.x, s = blockIdx.y;
+  const int h = blockIdx.x / a.NC, chunk = blockIdx.x % a.NC, s = blockIdx.y;
+  const int qh0 = h * a.G + chunk * G;      // the chunk's first query head
+  const int gc = min(G, a.G - chunk * G);  // and its heads
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int n = a.lengths[s];
   const int lo = window_lo(n, a.window);
@@ -266,14 +281,15 @@ decode_split_kernel(const Args a) {
   // split j is block z = j: blocks are dispatched in z order, so the blocks
   // past every slot's splits come last and return at once
   const int j = blockIdx.z;
-  int* rows_out = a.rows == nullptr ? nullptr : a.rows + ((size_t)s * a.NKV + h) * a.MS + j;
+  const size_t block_item = ((size_t)s * a.NKV + h) * a.NC + chunk;  // (slot, kv head, chunk)
+  int* rows_out = a.rows == nullptr ? nullptr : a.rows + block_item * a.MS + j;
   if (j >= splits) {
     if (rows_out != nullptr && tid == 0) *rows_out = 0;
     return;
   }
   const int* table = a.table + (size_t)s * a.P;
   const size_t new_off = ((size_t)s * a.NKV + h) * HD;
-  if (j == 0) {  // the append: a plain row store of the new token at position n
+  if (j == 0 && chunk == 0) {  // the append: a plain row store of the new token at position n
     const int page = table[min(n / a.PS, a.P - 1)];
     const size_t dst = (((size_t)h * a.NP + page) * a.PS + n % a.PS) * HD;
     for (int c = tid; c < HD / 8; c += NTHREADS) {
@@ -322,14 +338,14 @@ decode_split_kernel(const Args a) {
   }
 
   // B fragments of the queries (k = dims, n = heads): head lane/4 (zero past
-  // G), dims 16*kk + 2*(lane%4) + {0, 1} (b0) and + 8 (b1)
+  // gc), dims 16*kk + 2*(lane%4) + {0, 1} (b0) and + 8 (b1)
   uint32_t qb[HD / 16][2];
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
     qb[kk][0] = qb[kk][1] = 0u;
-    if ((lane >> 2) < G) {
+    if ((lane >> 2) < gc) {
       const bf16* qp =
-          a.q + ((size_t)s * a.NH + h * G + (lane >> 2)) * HD + 16 * kk + 2 * (lane & 3);
+          a.q + ((size_t)s * a.NH + qh0 + (lane >> 2)) * HD + 16 * kk + 2 * (lane & 3);
       qb[kk][0] = *reinterpret_cast<const uint32_t*>(qp);
       qb[kk][1] = *reinterpret_cast<const uint32_t*>(qp + 8);
     }
@@ -426,7 +442,7 @@ decode_split_kernel(const Args a) {
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     const int g = hq + e;
-    if (g >= G) continue;
+    if (g >= gc) continue;
     if (lane < 4) {
       wm[warp * G + g] = m[e];
       wl[warp * G + g] = l[e];
@@ -437,16 +453,17 @@ decode_split_kernel(const Args a) {
       wo[(warp * G + g) * HD + 16 * p + (lane >> 2) + 8] = o[p][2 + e];
     }
   }
-  if (single) new_token_scores<HD, G>(a, s, h, s_new);
+  if (single) new_token_scores<HD>(a, s, h, qh0, gc, s_new);
   if (rows_out != nullptr) {
     my_rows = __reduce_add_sync(0xffffffffu, my_rows);
     if (lane == 0) warp_rows[warp] = my_rows;
   }
   __syncthreads();
 
-  const size_t item = ((size_t)s * a.NKV + h) * a.MS + j;
-  float* const ml = a.work + (size_t)a.S * a.NKV * a.MS * G * HD;  // (m, l) of each item and head
-  for (int i = tid; i < G * HD; i += NTHREADS) {
+  // the partials of query head qh0 + g, split jj: work[(head0 + g * MS + jj) * HD]
+  const size_t head0 = ((size_t)s * a.NH + qh0) * a.MS;
+  float* const ml = a.work + (size_t)a.S * a.NH * a.MS * HD;  // (m, l) of each head and split
+  for (int i = tid; i < gc * HD; i += NTHREADS) {
     const int gg = i / HD, d = i % HD;
     float mm = MASKED;
 #pragma unroll
@@ -460,13 +477,14 @@ decode_split_kernel(const Args a) {
       acc += wo[(w * G + gg) * HD + d] * c;
     }
     if (single) {
-      a.out[((size_t)s * a.NH + h * G + gg) * HD + d] = __float2bfloat16(
-          finish(a, mm, ll, acc, s_new[gg], __bfloat162float(a.v_new[new_off + d]), h * G + gg));
+      a.out[((size_t)s * a.NH + qh0 + gg) * HD + d] = __float2bfloat16(
+          finish(a, mm, ll, acc, s_new[gg], __bfloat162float(a.v_new[new_off + d]), qh0 + gg));
     } else {
-      a.work[(item * G + gg) * HD + d] = acc;
+      const size_t at = head0 + (size_t)gg * a.MS + j;
+      a.work[at * HD + d] = acc;
       if (d == 0) {
-        ml[(item * G + gg) * 2] = mm;
-        ml[(item * G + gg) * 2 + 1] = ll;
+        ml[at * 2] = mm;
+        ml[at * 2 + 1] = ll;
       }
     }
   }
@@ -477,27 +495,28 @@ decode_split_kernel(const Args a) {
   }
   if (single) return;
 
-  // the block that finishes last of its (slot, kv head) draws ticket
+  // the block that finishes last of its (slot, kv head, chunk) draws ticket
   // splits - 1 and folds the splits' partials in the fixed order 0..k-1,
   // whichever block that is; every block publishes its partial first
   __threadfence();
   __syncthreads();
-  int* ticket = a.tickets + (size_t)s * a.NKV + h;
+  int* ticket = a.tickets + block_item;
   if (tid == 0) last = atomicAdd(ticket, 1) == splits - 1;
   __syncthreads();
   if (!last) return;
   __threadfence();
-  const size_t item0 = ((size_t)s * a.NKV + h) * a.MS;
   float* cm = reinterpret_cast<float*>(smem);  // [splits][G] m, then each split's weight
   float* cl = cm + splits * G;                 // [splits][G] l
   float* head_ml = cl + splits * G;            // [G] max, then [G] denominators
   for (int i = tid; i < splits * G; i += NTHREADS) {
-    cm[i] = __ldcg(ml + (item0 * G + i) * 2);
-    cl[i] = __ldcg(ml + (item0 * G + i) * 2 + 1);
+    const int jj = i / G, gg = i % G;
+    if (gg >= gc) continue;
+    cm[i] = __ldcg(ml + (head0 + (size_t)gg * a.MS + jj) * 2);
+    cl[i] = __ldcg(ml + (head0 + (size_t)gg * a.MS + jj) * 2 + 1);
   }
-  new_token_scores<HD, G>(a, s, h, s_new);
+  new_token_scores<HD>(a, s, h, qh0, gc, s_new);
   __syncthreads();
-  if (tid < G) {
+  if (tid < gc) {
     float mm = MASKED, ll = 0.f;
     for (int jj = 0; jj < splits; ++jj) mm = fmaxf(mm, cm[jj * G + tid]);
     for (int jj = 0; jj < splits; ++jj) {
@@ -510,20 +529,28 @@ decode_split_kernel(const Args a) {
     head_ml[G + tid] = ll;
   }
   __syncthreads();
-  for (int i = tid; i < G * HD; i += NTHREADS) {
+  for (int i = tid; i < gc * HD; i += NTHREADS) {
     const int gg = i / HD, d = i % HD;
     float acc = 0.f;
 #pragma unroll 4
     for (int jj = 0; jj < splits; ++jj)
-      acc += __ldcg(a.work + ((item0 + jj) * G + gg) * HD + d) * cm[jj * G + gg];
-    a.out[((size_t)s * a.NH + h * G + gg) * HD + d] =
+      acc += __ldcg(a.work + (head0 + (size_t)gg * a.MS + jj) * HD + d) * cm[jj * G + gg];
+    a.out[((size_t)s * a.NH + qh0 + gg) * HD + d] =
         __float2bfloat16(finish(a, head_ml[gg], head_ml[G + gg], acc, s_new[gg],
-                                __bfloat162float(a.v_new[new_off + d]), h * G + gg));
+                                __bfloat162float(a.v_new[new_off + d]), qh0 + gg));
   }
   if (tid == 0) *ticket = 0;  // zero again for the next launch on this stream
 }
 
 // ---- host side ---------------------------------------------------------------
+
+// the query heads a block takes (W): the group itself up to 8 where it is a
+// power of two, else the next one, capped at 8
+int chunk_width(int group) {
+  int w = 1;
+  while (w < group && w < MAX_CHUNK) w *= 2;
+  return w;
+}
 
 // no slot can have two splits: the table holds at most C rows, or the
 // window at most C cached rows
@@ -547,7 +574,7 @@ cudaError_t launch(Args a, cudaStream_t stream) {
   if (a.S == 0) return cudaSuccess;
   // one split a slot: one item a (kv head, slot); `rows` keeps its MS columns
   const int z = a.work == nullptr ? 1 : a.MS;
-  decode_split_kernel<HD, G><<<dim3(a.NKV, a.S, z), NTHREADS, Cfg<HD>::SMEM, stream>>>(a);
+  decode_split_kernel<HD, G><<<dim3(a.NKV * a.NC, a.S, z), NTHREADS, Cfg<HD>::SMEM, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -555,8 +582,8 @@ int run(const void* q, const void* k_new, const void* v_new, void* k_pool, void*
         const void* lengths, const void* page_table, const void* sinks, void* out, void* work,
         void* tickets, int* rows, int S, int NH, int NKV, int HD, int NP, int PS, int P,
         float scale, int window, void* stream) {
-  if (NKV <= 0 || PS <= 0 || P <= 0 || NH % NKV != 0 || NH / NKV > MAX_GROUP)
-    return (int)cudaErrorInvalidValue;
+  if (NKV <= 0 || PS <= 0 || P <= 0 || NH % NKV != 0) return (int)cudaErrorInvalidValue;
+  const int group = NH / NKV, width = chunk_width(group);
   const int ms = (P * PS + SPLIT_ROWS - 1) / SPLIT_ROWS;
   const bool single = one_split(P * PS, window);
   if (!single && (work == nullptr || tickets == nullptr)) return (int)cudaErrorInvalidValue;
@@ -565,10 +592,10 @@ int run(const void* q, const void* k_new, const void* v_new, void* k_pool, void*
          static_cast<const int*>(lengths), static_cast<const int*>(page_table),
          static_cast<const float*>(sinks), static_cast<bf16*>(out),
          single ? nullptr : static_cast<float*>(work), static_cast<int*>(tickets), rows, S, NH,
-         NKV, NP, PS, P, ms, scale * LOG2E, window};
+         NKV, NP, PS, P, ms, group, (group + width - 1) / width, scale * LOG2E, window};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define PRT_DECODE_CASE(hd, g) \
-  if (HD == hd && NH / NKV == g) return (int)launch<hd, g>(a, st);
+  if (HD == hd && width == g) return (int)launch<hd, g>(a, st);
   PRT_DECODE_CASE(64, 1) PRT_DECODE_CASE(64, 2) PRT_DECODE_CASE(64, 4) PRT_DECODE_CASE(64, 8)
   PRT_DECODE_CASE(128, 1) PRT_DECODE_CASE(128, 2) PRT_DECODE_CASE(128, 4) PRT_DECODE_CASE(128, 8)
 #undef PRT_DECODE_CASE
@@ -580,8 +607,14 @@ int run(const void* q, const void* k_new, const void* v_new, void* k_pool, void*
 // C: the cached rows a work item covers (the wrapper sizes the workspace by it)
 extern "C" int decode_split_rows() { return SPLIT_ROWS; }
 
-// `work`: f32, S * NKV * ceil(P * PS / C) * (NH / NKV) * (HD + 2) values, and
-// `tickets`: int32 [S, NKV], zero, which the launch leaves zero; both may be
+// the chunks a kv head's group of `group` query heads is cut into
+extern "C" int decode_group_chunks(int group) {
+  const int w = chunk_width(group);
+  return (group + w - 1) / w;
+}
+
+// `work`: f32, S * NH * ceil(P * PS / C) * (HD + 2) values, and `tickets`:
+// int32 [S, NKV, chunks], zero, which the launch leaves zero; both may be
 // null where no slot can have two splits (P * PS <= C, or 0 < window <= C + 1)
 extern "C" int decode_paged_attention(const void* q, const void* k_new, const void* v_new,
                                       void* k_pool, void* v_pool, const void* lengths,
@@ -594,7 +627,7 @@ extern "C" int decode_paged_attention(const void* q, const void* k_new, const vo
 }
 
 // the same launch, also writing the cached rows each work item read into
-// `rows` (int32 [S, NKV, ceil(P * PS / C)]; items past a slot's last split
+// `rows` (int32 [S, NKV * chunks, ceil(P * PS / C)]; items past a slot's last split
 // write 0, and with one split a slot only column 0 is written)
 extern "C" int decode_paged_attention_rows(const void* q, const void* k_new, const void* v_new,
                                            void* k_pool, void* v_pool, const void* lengths,
@@ -611,7 +644,7 @@ extern "C" int decode_attention_smem(int hd) {
   return hd == 128 ? Cfg<128>::SMEM : hd == 64 ? Cfg<64>::SMEM : 0;
 }
 
-// the compiled kernel of head dim `hd` and GQA group `group` as the runtime
+// the compiled kernel of head dim `hd` and chunk width `group` (1, 2, 4, 8) as the runtime
 // loaded it: attrs = {registers a thread, local memory a thread in bytes
 // (spills; 0 when none), static shared memory in bytes, threads a block}
 extern "C" int decode_attention_attributes(int hd, int group, int* attrs) {

@@ -78,7 +78,8 @@ def run_colocated(config: RLConfig):
     engine = Engine(placeholder_params(spec, device, torch.bfloat16), spec, cache_cfg,
                     device=str(device), compute_dtype=torch.bfloat16, seed=icfg.seed,
                     lookahead=icfg.scheduler.lookahead,
-                    decode_block=icfg.scheduler.decode_block)
+                    decode_block=icfg.scheduler.decode_block,
+                    collect_routed_experts=icfg.collect_routed_experts)
     if icfg.scheduler.warmup_requests > 0:
         engine.warmup(icfg.scheduler.warmup_requests)
     engine.pause()  # no serving until real weights land

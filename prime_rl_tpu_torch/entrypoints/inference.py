@@ -12,7 +12,6 @@ def check_supported(config: InferenceConfig) -> None:
     unsupported = [name for name, on in (
         ("int8 quantization", config.quantization is not None),
         ("LoRA serving", config.lora is not None),
-        ("router replay", config.collect_routed_experts),
         ("the weight plane", config.weight_plane is not None),
         ("P/D roles", config.server.role != "mixed")) if on]
     if unsupported:
@@ -81,7 +80,8 @@ def build_server(config: InferenceConfig):
                 f"slots={cache_cfg.max_slots} max_len={config.max_model_len}")
     engine = Engine(params, spec, cache_cfg, device=str(device), compute_dtype=dtype,
                     seed=config.seed, lookahead=config.scheduler.lookahead,
-                    decode_block=config.scheduler.decode_block)
+                    decode_block=config.scheduler.decode_block,
+                    collect_routed_experts=config.collect_routed_experts)
     del params  # the engine holds its own serving layout
     if config.scheduler.warmup_requests > 0:
         engine.warmup(config.scheduler.warmup_requests)

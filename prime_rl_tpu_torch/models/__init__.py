@@ -1,12 +1,14 @@
 """Model registry: family -> (init, forward, conversion). Ported so far: the
 dense qwen3 block, llama (the same block with ``qk_norm=False``), gpt-oss
-(windows, sinks and clamped-GLU experts; trained and served), and the MLA
-families ``deepseek_v3`` (dense MLA) and ``glm_moe_dsa`` (MLA + DSA sparse
+(windows, sinks and clamped-GLU experts), qwen3_moe (Qwen3-30B-A3B) and
+glm4_moe (GLM-4.5: partial rotary, noaux-tc routing, shared experts, dense
+first layers), all trained and served, and the MLA families
+``deepseek_v3`` (dense MLA) and ``glm_moe_dsa`` (MLA + DSA sparse
 attention), both over the noaux-tc MoE stack, for training."""
 
 from __future__ import annotations
 
-from prime_rl_tpu_torch.models import gpt_oss, mla_moe, qwen3
+from prime_rl_tpu_torch.models import glm4_moe, gpt_oss, mla_moe, qwen3, qwen3_moe
 from prime_rl_tpu_torch.models.base import ModelSpec
 
 
@@ -25,7 +27,12 @@ _MLA = Family(mla_moe.init_params, mla_moe.forward, mla_moe.params_from_hf_state
               mla_moe.params_to_hf_state_dict, mla_moe.get_lm_head)
 _GPT_OSS = Family(gpt_oss.init_params, gpt_oss.forward, gpt_oss.params_from_hf_state_dict,
                   gpt_oss.params_to_hf_state_dict, gpt_oss.get_lm_head)
+_QWEN3_MOE = Family(qwen3_moe.init_params, qwen3_moe.forward, qwen3_moe.params_from_hf_state_dict,
+                    qwen3_moe.params_to_hf_state_dict, qwen3_moe.get_lm_head)
+_GLM4_MOE = Family(glm4_moe.init_params, glm4_moe.forward, glm4_moe.params_from_hf_state_dict,
+                   glm4_moe.params_to_hf_state_dict, glm4_moe.get_lm_head)
 FAMILIES: dict[str, Family] = {"qwen3": _DENSE, "llama": _DENSE, "gpt_oss": _GPT_OSS,
+                               "qwen3_moe": _QWEN3_MOE, "glm4_moe": _GLM4_MOE,
                                "deepseek_v3": _MLA, "glm_moe_dsa": _MLA}
 
 

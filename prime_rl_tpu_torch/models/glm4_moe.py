@@ -1,28 +1,86 @@
-"""GLM-4.5 MoE block and HF interchange (the part of the JAX package's
-``models/glm4_moe.py`` that the MLA families borrow): ``glm_moe_block``
-(noaux-tc routed experts + always-on shared experts, after the attention) and
-the HF state-dict conversion, which ``models/mla_moe.py`` calls with its own
-attention key table.
+"""GLM-4.5 MoE family (glm4_moe; the port of the JAX package's
+``models/glm4_moe.py``, trained and served): GQA attention with partial
+rotary and optional qk-norm, DeepSeek-V3-style noaux-tc routing (sigmoid
+scores, a selection-only correction bias, group-limited top-k, routed
+scaling), always-on shared experts, and dense MLPs for the first
+``first_k_dense_replace`` layers. ``glm_moe_block`` and the HF conversion
+also serve the MLA families (``models/mla_moe.py`` calls them with its own
+attention key table).
 
-The ``glm4_moe`` family's own ``forward`` and ``init_params`` (GQA attention
-with partial rotary over this MoE stack) are not ported yet: they wait for
-the MoE-families slice, and the family is not registered.
+Attention reuses ``qwen3._attn_block`` (the half-split rope over the first
+``head_dim * partial_rotary_factor`` dims): on the card K1 forward and
+K2a/K2b backward, at any GQA group (GLM-4.5: 96/8 heads).
 
 Layout: the first ``first_k_dense_replace`` layers live under
 ``dense_layers`` (stacked ``[k, ...]``), the MoE layers under ``layers``
 (stacked ``[NL - k, ...]``), routed experts as ``expert_{gate,up,down}``
-``[n, E, in, out]``.
+``[n, E, in, out]``. Sandwich norms (the gated-MoE families) raise.
 """
 
 from __future__ import annotations
 
 import torch
 
+from prime_rl_tpu_torch.models import qwen3
 from prime_rl_tpu_torch.models.base import ModelSpec
+from prime_rl_tpu_torch.models.qwen3 import (
+    layer_remat,
+    layer_windows_list,
+    parse_remat,
+    rope_setup,
+    run_layer,
+    spec_dense_view,
+    trunc_normal,
+)
+from prime_rl_tpu_torch.models.qwen3_moe import check_forward_args, forced_by_layer
 from prime_rl_tpu_torch.ops.layers import rms_norm, swiglu
 from prime_rl_tpu_torch.ops.moe import moe_mlp
 
 Params = dict
+FAMILY = "glm4_moe"
+_MOE_FIELDS = ("router", "router_correction_bias", "expert_gate", "expert_up", "expert_down",
+               "shared_gate", "shared_up", "shared_down")
+
+
+def init_params(spec: ModelSpec, generator: torch.Generator, dtype=torch.float32,
+                device: torch.device | str = "cpu") -> Params:
+    """Random init on ``device`` from ``generator`` (which must live there):
+    the attention and embeddings of ``qwen3.init_params``, split into the
+    dense-first and the MoE stacks, then the router (correction bias zero),
+    the routed and the shared experts, std 0.02 cut at 2 sigma, drawn a layer
+    at a time straight into ``dtype``. The numbers differ from the JAX
+    package's ``jax.random`` init."""
+    if spec.family != FAMILY:
+        raise ValueError(f"glm4_moe.init_params: family {spec.family!r} is not glm4_moe")
+    params = qwen3.init_params(spec_dense_view(spec), generator, dtype=dtype, device=device)
+    k_dense = spec.first_k_dense_replace
+    n_moe = spec.num_layers - k_dense
+    # copies, not views: the two stacks are separate parameters
+    all_layers = params["layers"]
+    dense_layers = {k: v[:k_dense].clone() for k, v in all_layers.items()}
+    moe_layers = {k: v[k_dense:].clone() for k, v in all_layers.items()
+                  if k not in ("gate", "up", "down")}
+    del all_layers, params["layers"]
+    d, e, m = spec.hidden_size, spec.num_experts, spec.moe_intermediate_size
+
+    def w(*shape):
+        return trunc_normal(shape, generator, dtype, device)
+
+    moe_layers["router"] = w(n_moe, d, e)
+    moe_layers["router_correction_bias"] = torch.zeros((n_moe, e), dtype=torch.float32,
+                                                       device=device)
+    moe_layers["expert_gate"] = w(n_moe, e, d, m)
+    moe_layers["expert_up"] = w(n_moe, e, d, m)
+    moe_layers["expert_down"] = w(n_moe, e, m, d)
+    ms = spec.shared_expert_size or m * spec.n_shared_experts
+    if ms:
+        moe_layers["shared_gate"] = w(n_moe, d, ms)
+        moe_layers["shared_up"] = w(n_moe, d, ms)
+        moe_layers["shared_down"] = w(n_moe, ms, d)
+    params["layers"] = moe_layers
+    if k_dense:
+        params["dense_layers"] = dense_layers
+    return params
 
 
 def glm_moe_block(h: torch.Tensor, lp: dict, spec: ModelSpec, compute_dtype,
@@ -33,7 +91,8 @@ def glm_moe_block(h: torch.Tensor, lp: dict, spec: ModelSpec, compute_dtype,
     ``forced_experts`` ([B*L, K] int, -1 = own routing) replays the sampler's
     expert selection (router replay)."""
     if spec.sandwich_norm:
-        raise NotImplementedError("sandwich norms come with the gated-MoE slice")
+        raise NotImplementedError("sandwich norms come with the gated-MoE slice (ROADMAP.md, "
+                                  "Queue 1 item 5)")
     b, l, d = h.shape
     cast = {k: (v.to(compute_dtype) if v.dim() >= 2 and "router" not in k else v)
             for k, v in lp.items()}
@@ -55,6 +114,81 @@ def glm_moe_block(h: torch.Tensor, lp: dict, spec: ModelSpec, compute_dtype,
             swiglu(torch.matmul(x, cast["shared_gate"]), torch.matmul(x, cast["shared_up"])),
             cast["shared_down"])
     return h + out, routing.load_balance_loss
+
+
+def forward(
+    params: Params,
+    spec: ModelSpec,
+    input_ids: torch.Tensor,  # [B, L] int
+    segment_ids: torch.Tensor,  # [B, L] int (0 = pad)
+    position_ids: torch.Tensor,  # [B, L] int
+    compute_dtype=torch.bfloat16,
+    attn_impl: str = "auto",
+    block_q: int = 512,
+    block_kv: int = 512,
+    remat: str = "full",
+    mesh=None,
+    lora: Params | None = None,
+    lora_scale: float = 1.0,
+    cp_style: str = "ulysses",
+    collect_aux: bool = False,
+    routed_experts: torch.Tensor | None = None,  # [B, L, NL_moe, K]; -1 = own routing
+    quantized_compute: str | None = None,
+):
+    """Token ids -> final hidden states [B, L, D] (pre-LM-head, normed), or
+    (hidden, load-balance aux summed over the MoE layers) with
+    ``collect_aux``. The first ``first_k_dense_replace`` layers run a dense
+    SwiGLU; ``routed_experts`` covers the MoE layers only and replays the
+    sampler's selection there (rows of -1 keep the trainer's own routing).
+    ``remat`` as in ``qwen3.forward``; ``block_q``/``block_kv`` are accepted
+    and unused."""
+    if spec.family != FAMILY:
+        raise ValueError(f"glm4_moe.forward: family {spec.family!r} is not glm4_moe")
+    check_forward_args(spec, mesh, lora, quantized_compute)
+    if spec.rope_theta_local:
+        raise NotImplementedError("a local rope base comes with the gated-MoE slice "
+                                  "(ROADMAP.md, Queue 1 item 5)")
+    nl, k_dense = spec.num_layers, spec.first_k_dense_replace
+    base_remat, save_stride = parse_remat(remat, nl)
+    inv_freq, rope_scaling = rope_setup(spec, device=input_ids.device)
+    h = params["embed"].to(compute_dtype)[input_ids]
+    windows = layer_windows_list(spec)
+
+    def attn(h, lp, saved, window):
+        cast = {k: (v.to(compute_dtype) if v.dim() >= 2 else v)
+                for k, v in lp.items() if k not in _MOE_FIELDS}
+        return qwen3._attn_block(h, cast, spec, segment_ids, position_ids, inv_freq, attn_impl,
+                                 rope_scaling, saved, window), cast
+
+    def dense_block(h, lp, saved, window):
+        h, cast = attn(h, lp, saved, window)
+        x = rms_norm(h, cast["mlp_norm"], spec.rms_eps)
+        return h + torch.matmul(
+            swiglu(torch.matmul(x, cast["gate"]), torch.matmul(x, cast["up"])), cast["down"])
+
+    def moe_block(h, lp, saved, window, forced):
+        h, _ = attn(h, lp, saved, window)
+        moe = {k: v for k, v in lp.items() if k in _MOE_FIELDS or k == "mlp_norm"}
+        return glm_moe_block(h, moe, spec, compute_dtype, forced_experts=forced)
+
+    for i in range(k_dense):
+        lp = {k: v[i] for k, v in params["dense_layers"].items()}
+        h = run_layer(dense_block, h, lp, windows[i], layer_remat(base_remat, save_stride, i))
+    forced = forced_by_layer(routed_experts, nl - k_dense, spec.num_experts_per_tok)
+    # unbind once: its backward stacks the per-layer gradients in one copy
+    per_layer = {k: v.unbind(0) for k, v in params["layers"].items()}
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for li in range(nl - k_dense):
+        i = k_dense + li
+        lp = {k: v[li] for k, v in per_layer.items()}
+        h, lb = run_layer(moe_block, h, lp, windows[i], layer_remat(base_remat, save_stride, i),
+                          None if forced is None else forced[li])
+        aux = aux + lb
+    h = rms_norm(h, params["final_norm"], spec.rms_eps)
+    return (h, aux) if collect_aux else h
+
+
+get_lm_head = qwen3.get_lm_head
 
 
 # ---------------------------------------------------------------------------

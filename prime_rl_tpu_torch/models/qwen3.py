@@ -78,9 +78,10 @@ def init_params(spec: ModelSpec, generator: torch.Generator, dtype=torch.float32
     ``device``, drawn from ``generator`` (which must live on that device).
     The numbers differ from the JAX package's ``jax.random`` init. gpt-oss
     calls this on its ``spec_dense_view`` for the attention and embeddings."""
-    if spec.family not in ("qwen3", "llama", "gpt_oss"):
+    if spec.family not in ("qwen3", "llama", "gpt_oss", "qwen3_moe", "glm4_moe"):
         raise NotImplementedError(f"model family {spec.family!r} has no dense init here "
-                                  "(qwen3, llama and gpt-oss's attention do)")
+                                  "(qwen3, llama and the attention of gpt-oss, qwen3_moe "
+                                  "and glm4_moe do)")
     d, nl = spec.hidden_size, spec.num_layers
 
     def w(*shape):
@@ -388,8 +389,9 @@ def params_from_jax(np_params: dict, spec: ModelSpec, device: torch.device | str
                     dtype=torch.float32) -> Params:
     """The JAX package's stacked training pytree, fetched as numpy arrays
     (``jax.device_get``), as this package's params: the same layout and
-    values, so both packages compute the same function (gpt-oss too)."""
-    if spec.family not in ("qwen3", "llama", "gpt_oss"):
+    values, so both packages compute the same function (gpt-oss, qwen3_moe
+    and glm4_moe too)."""
+    if spec.family not in ("qwen3", "llama", "gpt_oss", "qwen3_moe", "glm4_moe"):
         raise NotImplementedError(f"model family {spec.family!r} is not ported yet")
 
     def conv(x):

@@ -11,7 +11,8 @@ launch; ``check`` turns a non-zero code into an exception.
 ``launches`` counts kernel launches per kernel: each wrapper adds one where
 it launches its kernel, so a run can show that its path went through them. A
 launch in a window or sink form also counts under ``<kernel>/window`` and
-``<kernel>/sinks`` (``count``).
+``<kernel>/sinks`` (``count``), and K4's launches whose GQA group is cut
+into chunks under ``decode_paged_attention/chunked``.
 
 Nothing here runs at import time: the CPU tests import every module, and
 the CPU path (the kernels' plain versions) never needs ``nvcc``.

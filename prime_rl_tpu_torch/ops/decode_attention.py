@@ -46,6 +46,8 @@ KERNEL = "decode_paged_attention"
 _LIB = "decode_attention"
 # C: the cached rows one work item of the kernel covers (csrc SPLIT_ROWS)
 SPLIT_ROWS = 256
+# query heads one block of the kernel takes at most (csrc MAX_CHUNK)
+MAX_CHUNK = 8
 
 _fns: dict[bool, object] = {}
 _tickets: dict[tuple, torch.Tensor] = {}
@@ -60,6 +62,12 @@ def _kernel(rows: bool = False):
         if lib.decode_split_rows() != SPLIT_ROWS:
             raise RuntimeError(f"csrc/decode_attention.cu splits by {lib.decode_split_rows()} "
                                f"rows, ops/decode_attention.py by {SPLIT_ROWS}")
+        lib.decode_group_chunks.argtypes = [ctypes.c_int]
+        for g in range(1, 4 * MAX_CHUNK + 1):
+            if lib.decode_group_chunks(g) != group_chunks(g):
+                raise RuntimeError(f"csrc/decode_attention.cu cuts a group of {g} into "
+                                   f"{lib.decode_group_chunks(g)} chunks, "
+                                   f"ops/decode_attention.py into {group_chunks(g)}")
         fn = lib.decode_paged_attention_rows if rows else lib.decode_paged_attention
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p] * 11 + [i] * 7 + [ctypes.c_float, i, p] + [p] * rows
@@ -69,8 +77,8 @@ def _kernel(rows: bool = False):
 
 
 def _ticket_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
-    """int32 zeros, at least one a (slot, kv head), kept for each device and
-    stream: the kernel's last block of each (slot, kv head) sets its counter
+    """int32 zeros, at least one a (slot, kv head, chunk), kept for each device
+    and stream: the kernel's last block of each of them sets its counter
     back to zero, so the buffer is all zero whenever a launch on the stream
     starts."""
     buf = _tickets.get((device, stream))
@@ -78,6 +86,18 @@ def _ticket_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
         buf = _tickets[(device, stream)] = torch.zeros(max(n, 1024), dtype=torch.int32,
                                                        device=device)
     return buf
+
+
+def chunk_width(group: int) -> int:
+    """Query heads a block of the kernel takes: the group up to 8 where it is
+    a power of two, else the next power of two, capped at ``MAX_CHUNK``."""
+    return min(MAX_CHUNK, 1 << max(group - 1, 0).bit_length())
+
+
+def group_chunks(group: int) -> int:
+    """Blocks a (slot, kv head, split) takes: ceil(group / chunk_width). One
+    for groups 1, 2, 4 and 8 (and 3, 5, 6, 7, padded); two at 12 (8 + 4)."""
+    return -(-group // chunk_width(group))
 
 
 def max_splits(page_rows: int, split_rows: int = SPLIT_ROWS) -> int:
@@ -100,7 +120,8 @@ def _window_lo(lengths: torch.Tensor, window: int) -> torch.Tensor:
 
 def decode_rows_visited(lengths: torch.Tensor, window: int, split_rows: int,
                         max_splits: int) -> torch.Tensor:
-    """int32 [S, max_splits]: the cached rows work item j of each slot reads,
+    """int32 [S, max_splits]: the cached rows work item j of each slot reads
+    (each chunk of a kv head's group reads them),
     the plain mirror of the kernel's split rule. Split j covers rows
     [lo + j*C, min(lo + (j+1)*C, n)) with n = lengths[s] and lo the window's
     first row (0 without one); rows below lo and row n (the new token's) are
@@ -255,18 +276,31 @@ def decode_paged_attention(
 
 def decode_rows_counts(q, k_new, v_new, k_pool, v_pool, lengths, page_table, *, sinks=None,
                        window: int = 0, sm_scale: float | None = None) -> torch.Tensor:
-    """int32 [S, NKV, max_splits]: the cached rows each work item of the
-    kernel read, as it counted them in one launch on these inputs (which also
+    """int32 [S, NKV * group_chunks(NH / NKV), max_splits]: the cached rows
+    each work item of the kernel read, one row of items a (kv head, chunk)
+    (each chunk reads its kv head's rows and counts them), as it counted them
+    in one launch on these inputs (which also
     appends, as ``decode_paged_attention`` does). Only the kernel counts: CPU
     tensors raise (``decode_rows_visited`` is the split rule's plain mirror)."""
     if not q.is_cuda:
         raise ValueError("decode_rows_counts: the counts come from the kernel, which takes CUDA "
                          "tensors")
-    s, nkv = q.shape[0], k_pool.shape[0]
-    rows = torch.zeros((s, nkv, max_splits(page_table.shape[1] * k_pool.shape[2], SPLIT_ROWS)),
+    s, nh, nkv = q.shape[0], q.shape[1], k_pool.shape[0]
+    rows = torch.zeros((s, nkv * group_chunks(nh // nkv), max_splits(page_table.shape[1] * k_pool.shape[2], SPLIT_ROWS)),
                        dtype=torch.int32, device=q.device)
     _launch(q, k_new, v_new, k_pool, v_pool, lengths, page_table, sinks, window, sm_scale, rows)
     return rows
+
+
+def check_shape(num_heads: int, num_kv_heads: int, head_dim: int) -> None:
+    """Raise unless the kernel takes these heads: head dim 64 or 128 and any
+    GQA group (``num_heads`` a multiple of ``num_kv_heads``), as the JAX
+    kernel does. The wrapper's only check on the heads; launches nothing."""
+    if (head_dim not in (64, 128) or num_kv_heads <= 0 or num_heads <= 0
+            or num_heads % num_kv_heads):
+        raise ValueError(f"decode_paged_attention takes head_dim 64/128 and num_heads a "
+                         f"multiple of num_kv_heads; got head_dim {head_dim}, heads "
+                         f"{num_heads}/{num_kv_heads}")
 
 
 def _launch(q, k_new, v_new, k_pool, v_pool, lengths, page_table, sinks, window, sm_scale,
@@ -274,9 +308,7 @@ def _launch(q, k_new, v_new, k_pool, v_pool, lengths, page_table, sinks, window,
     s, nh, hd = q.shape
     nkv, np_, ps, _ = k_pool.shape
     p = page_table.shape[1]
-    if hd not in (64, 128) or nh % nkv or nh // nkv not in (1, 2, 4, 8):
-        raise ValueError(f"decode_paged_attention takes head_dim 64/128 and a GQA group of "
-                         f"1, 2, 4 or 8; got head_dim {hd}, heads {nh}/{nkv}")
+    check_shape(nh, nkv, hd)
     bf = torch.bfloat16
     _build.require(q, "q", bf)
     _build.require(k_new, "k_new", bf, (s, nkv, hd))
@@ -292,14 +324,15 @@ def _launch(q, k_new, v_new, k_pool, v_pool, lengths, page_table, sinks, window,
         _build.require(sinks, "sinks", torch.float32, (nh,))
     window = int(window or 0)
     out = torch.empty_like(q)
-    # the splits' f32 partials (acc [S, NKV, MS, G, HD] then (m, l) [S, NKV,
-    # MS, G, 2]) and the counters that find each (slot, kv head)'s last split
+    # the splits' f32 partials (acc [S, NH, MS, HD] then (m, l) [S, NH, MS, 2])
+    # and the counters that find each (slot, kv head, chunk)'s last split
     work = tickets = None
     stream = _build.stream_ptr(q)
+    chunks = group_chunks(nh // nkv)
     if not one_split(p * ps, window, SPLIT_ROWS):
-        work = torch.empty(s * nkv * max_splits(p * ps, SPLIT_ROWS) * (nh // nkv) * (hd + 2),
+        work = torch.empty(s * nh * max_splits(p * ps, SPLIT_ROWS) * (hd + 2),
                            dtype=torch.float32, device=q.device)
-        tickets = _ticket_counters(q.device, stream, s * nkv)
+        tickets = _ticket_counters(q.device, stream, s * nkv * chunks)
     scale = hd ** -0.5 if sm_scale is None else float(sm_scale)
     args = (q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_pool.data_ptr(),
             v_pool.data_ptr(), lengths.data_ptr(), page_table.data_ptr(),
@@ -308,8 +341,11 @@ def _launch(q, k_new, v_new, k_pool, v_pool, lengths, page_table, sinks, window,
             None if tickets is None else tickets.data_ptr(), s, nh, nkv, hd, np_, ps, p, scale,
             window, stream)
     if rows is not None:
-        _build.require(rows, "rows", torch.int32, (s, nkv, max_splits(p * ps, SPLIT_ROWS)))
+        _build.require(rows, "rows", torch.int32,
+                       (s, nkv * chunks, max_splits(p * ps, SPLIT_ROWS)))
         args += (rows.data_ptr(),)
     _build.check(KERNEL, _kernel(rows is not None)(*args))
     _build.count(KERNEL, window, sinks is not None)
+    if chunks > 1:  # a group cut into chunks (GLM-4.5's 12): counted apart as well
+        _build.launches[f"{KERNEL}/chunked"] += 1
     return out, k_pool, v_pool

@@ -19,10 +19,13 @@ Architecture:
   slot has drained, so page reuse can never race a pending write.
 - Weight update = swapping the parameter dicts between dispatches (the
   pause/resume protocol); the prefix cache is flushed.
+- Router replay (``collect_routed_experts``, MoE families): each decode
+  step's expert ids ride the block's packed result to the host, and a
+  finished request carries them as ``routed_experts``.
 
 Constrained decoding, LoRA adapters, multimodal inputs, P/D KV
-extraction/injection, router replay and the host KV tier are later slices:
-requests that ask for them raise ``NotImplementedError``.
+extraction/injection and the host KV tier are later slices: requests that
+ask for them raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -77,7 +80,11 @@ class GenerationResult:
     prompt_len: int
     prompt_logprobs: list[float] | None = None
     policy_version: int = -1
-    routed_experts: "np.ndarray | None" = None  # router replay (not ported: None)
+    # router replay (collect_routed_experts): [n_gen, NL_moe, K] int32 expert
+    # ids per generated token, the routing of that token as the input of the
+    # next decode step; the final token's row is -1 (its forward never ran).
+    # None when collection is off or nothing was recorded.
+    routed_experts: "np.ndarray | None" = None
     kv: dict | None = None  # P/D extraction payload (not ported: None)
 
 
@@ -119,6 +126,9 @@ class _Active:
     slot: int
     generated: list[int] = field(default_factory=list)
     logprobs: list[float] = field(default_factory=list)
+    # router-replay recording: routed[i] = expert ids [NL_moe, K] of
+    # generated[i] (the last token's routing is never computed: padded -1)
+    routed: list = field(default_factory=list)
     prompt_logprobs_handle: _Fetch | None = None
     first_token_handle: tuple | None = None  # (_Fetch of (tok, lp), row)
     done: bool = False
@@ -129,7 +139,8 @@ class _StepOutput:
     """One dispatched decode block (k on-device steps) awaiting drain."""
 
     seq: int
-    packed: _Fetch  # [K, S, 2] f32: tokens (exact) + logprobs
+    packed: _Fetch  # [K, S, 2] f32: tokens (exact) + logprobs; then, when
+    # recording, [K, S, NL_moe, topk] int32: the routing of each step's INPUT tokens
     slots: list[int]  # slots active at dispatch time
     k: int = 1
 
@@ -163,9 +174,11 @@ class Engine:
         seed: int = 0,
         lookahead: int | None = None,  # in-flight decode TOKENS per drain
         decode_block: int = 8,  # decode steps per dispatched block
+        collect_routed_experts: bool = False,  # record decode-time MoE routing
     ):
         smodel.check_supported(spec)
         self.spec = spec
+        self._collect_routed = bool(collect_routed_experts and spec.is_moe)
         self.device = resolve_device(device)
         if lookahead:
             self.LOOKAHEAD = int(lookahead)
@@ -703,11 +716,15 @@ class Engine:
         k_steps = self._pick_block()
         filtering = self._filtering(slots)
         tokens, lengths, active = self._d_tokens, self._d_lengths, self._d_active
-        toks_rows, lps_rows = [], []
+        toks_rows, lps_rows, routed_rows = [], [], []
         for _ in range(k_steps):
-            _, _, logits = smodel.decode(self.params, self.spec, self.k_pool, self.v_pool,
-                                         tokens, lengths, self._d_table,
-                                         compute_dtype=self.compute_dtype)
+            out = smodel.decode(self.params, self.spec, self.k_pool, self.v_pool,
+                                tokens, lengths, self._d_table,
+                                compute_dtype=self.compute_dtype,
+                                collect_routing=self._collect_routed)
+            logits = out[2]
+            if self._collect_routed:
+                routed_rows.append(out[3])
             out_tokens, out_logprobs = sample_tokens(logits, self._d_temp, self._d_topk,
                                                      self._d_topp, self._gen,
                                                      filtering=filtering)
@@ -727,8 +744,10 @@ class Engine:
         # tokens ride as f32 (exact below 2^24, above any vocabulary size)
         packed = torch.stack([torch.stack(toks_rows).float(),
                               torch.stack(lps_rows).float()], dim=-1)  # [K, S, 2]
+        # the routing rides the same copy behind the block: no sync of its own
+        fetch = _Fetch([packed, torch.stack(routed_rows)] if routed_rows else [packed])
         self._dispatch_seq += 1
-        self._inflight.append(_StepOutput(self._dispatch_seq, _Fetch([packed]), slots, k_steps))
+        self._inflight.append(_StepOutput(self._dispatch_seq, fetch, slots, k_steps))
 
     def _drain(self, force: bool = False) -> None:
         if not self._inflight:
@@ -747,7 +766,8 @@ class Engine:
         else:
             steps = [self._inflight.popleft()]
         for step in steps:
-            (packed,) = step.packed.get()
+            packed, *routed = step.packed.get()
+            routed = routed[0] if routed else None
             tokens = packed[..., 0].astype(np.int64)
             logprobs = packed[..., 1]
             for i in range(step.k):
@@ -755,6 +775,11 @@ class Engine:
                     a = self.active.get(s)
                     if a is None or a.done:
                         continue  # finished earlier; extra tokens discarded
+                    if routed is not None and (len(a.routed) < len(a.generated)
+                                               + (a.first_token_handle is not None)):
+                        # row i CONSUMED the slot's previous token: its
+                        # routing belongs to generated[len(a.routed)]
+                        a.routed.append(routed[i, s])
                     if a.first_token_handle is not None:
                         self._fetch_first_token(a)
                         self._post_append_checks(a)
@@ -813,6 +838,11 @@ class Engine:
         # reserved until every already-dispatched block has drained
         self._d_active[a.slot] = False
         self._deferred_release.append((a.slot, self._dispatch_seq))
+        routed = None
+        if self._collect_routed and a.routed and a.generated:
+            rows = [np.asarray(r, np.int32) for r in a.routed[: len(a.generated)]]
+            rows += [np.full_like(rows[0], -1)] * (len(a.generated) - len(rows))
+            routed = np.stack(rows)
         a.req.future.set_result(GenerationResult(
             token_ids=list(a.generated),
             logprobs=list(a.logprobs),
@@ -820,6 +850,7 @@ class Engine:
             prompt_len=len(a.req.prompt),
             prompt_logprobs=plp,
             policy_version=self.policy_version,
+            routed_experts=routed,
         ))
 
 

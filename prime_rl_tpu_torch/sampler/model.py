@@ -1,8 +1,13 @@
 """Sampler-side model functions: prefill and decode against the paged KV
 cache (the port of the JAX package's ``sampler/model.py``: the qwen3/llama
-block and gpt-oss, whose layers carry a sliding window, attention sinks,
-q/k/v/o biases and routed experts). Parameters use the serving layout
-(``unstack_params``: a list of per-layer dicts).
+block, gpt-oss, whose layers carry a sliding window, attention sinks,
+q/k/v/o biases and routed experts, qwen3_moe, and glm4_moe with its partial
+rotary, noaux-tc routing, shared experts and dense first layers). Parameters
+use the serving layout (``unstack_params``: a list of per-layer dicts).
+
+Router replay: with ``collect_routing`` ``decode`` also returns the expert
+ids each slot's input token was routed to, ``[S, NL_moe, K]`` in the order of
+the MoE layers (the engine records them).
 
 Where the JAX functions take donated pools and return new ones, these write
 the per-layer pool tensors IN PLACE and return the same lists, so callers
@@ -17,9 +22,9 @@ Kernels on this path (for CUDA tensors; CPU tensors take the plain versions):
 Chunked prefill attention (``_chunk_attention_xla``) and the MoE layers
 (``ops/moe.py``) are plain PyTorch, as they are XLA in the JAX package.
 
-LoRA, MLA/DSA, hybrid recurrent layers, vision inputs, int8 weights and
-attention-output gates are later slices: ``check_supported`` raises
-``NotImplementedError`` for them.
+LoRA, MLA/DSA, hybrid recurrent layers, vision inputs, int8 weights,
+attention-output gates, layer-scope qk-norm and sandwich norms are later
+slices: ``check_supported`` raises ``NotImplementedError`` for them.
 """
 
 from __future__ import annotations
@@ -41,13 +46,14 @@ from prime_rl_tpu_torch.ops.moe import moe_mlp
 Params = dict
 
 
-SERVED_FAMILIES = ("qwen3", "llama", "gpt_oss")
+SERVED_FAMILIES = ("qwen3", "llama", "gpt_oss", "qwen3_moe", "glm4_moe")
 
 
 def check_supported(spec: ModelSpec) -> None:
     """Raise ``NotImplementedError`` for any feature outside the serving path
-    ported so far: the qwen3/llama block and gpt-oss (routed experts, windows,
-    sinks, biases)."""
+    ported so far: the qwen3/llama block, gpt-oss (routed experts, windows,
+    sinks, biases), qwen3_moe and glm4_moe (shared experts, noaux-tc routing,
+    partial rotary, dense first layers)."""
     missing = []
     if spec.family not in SERVED_FAMILIES:
         missing.append(f"family {spec.family!r}")
@@ -61,6 +67,8 @@ def check_supported(spec: ModelSpec) -> None:
         missing.append("attention-output gates")
     if spec.qk_norm and spec.qk_norm_scope == "layer":
         missing.append("layer-scope qk-norm")
+    if spec.sandwich_norm:
+        missing.append("sandwich norms (ROADMAP.md, Queue 1 item 5)")
     if missing:
         raise NotImplementedError("not ported yet: " + ", ".join(missing)
                                   + f" (served: {', '.join(SERVED_FAMILIES)})")
@@ -101,15 +109,17 @@ def _qkv(x, lp, spec, positions, inv_freq, rope_scaling: float = 1.0):
     return q, k, v
 
 
-def _mlp(x, lp, spec):
-    """Dense SwiGLU or the routed experts, decided per layer (``"router"`` in
-    the layer's dict). x: [B, T, D]."""
+def _mlp(x, lp, spec, routed: list | None = None):
+    """Dense SwiGLU or the routed experts (plus the shared expert where the
+    layer has one), decided per layer (``"router"`` in the layer's dict), so
+    glm4_moe's dense first layers take the dense path. x: [B, T, D].
+    ``routed``: a list that a MoE layer appends its expert ids [B*T, K] to
+    (router replay)."""
     if "router" in lp:
-        # the served MoE family (gpt-oss) has no shared experts and no
-        # sandwich norm; check_supported refuses the families that do
         b, t, d = x.shape
-        out, _ = moe_mlp(
-            x.reshape(b * t, d), lp["router"],
+        xf = x.reshape(b * t, d)
+        out, routing = moe_mlp(
+            xf, lp["router"],
             lp["expert_gate"], lp["expert_up"], lp["expert_down"],
             spec.num_experts_per_tok, spec.norm_topk_prob,
             router_b=lp.get("router_bias"),
@@ -117,23 +127,31 @@ def _mlp(x, lp, spec):
             b_down=lp.get("expert_down_bias"),
             softmax_topk=spec.router_softmax_topk,
             activation_alpha=spec.swiglu_alpha, activation_limit=spec.swiglu_limit,
+            sigmoid_noaux=spec.router_sigmoid,
+            correction_bias=lp.get("router_correction_bias"),
+            n_group=spec.n_group, topk_group=spec.topk_group,
+            routed_scaling=spec.routed_scaling_factor,
         )
+        if "shared_gate" in lp:
+            out = out + _mm(swiglu(_mm(xf, lp["shared_gate"]), _mm(xf, lp["shared_up"])),
+                            lp["shared_down"])
+        if routed is not None:
+            routed.append(routing.expert_ids)
         return out.reshape(b, t, d)
-    out = _mm(swiglu(_mm(x, lp["gate"]), _mm(x, lp["up"])), lp["down"])
-    if spec.sandwich_norm and "post_mlp_norm" in lp:
-        out = rms_norm(out, lp["post_mlp_norm"], spec.rms_eps)
-    return out
+    return _mm(swiglu(_mm(x, lp["gate"]), _mm(x, lp["up"])), lp["down"])
+
+
+def _stack_routing(routed: list, lead: tuple[int, ...]) -> torch.Tensor:
+    """Per-MoE-layer expert ids [N, K] -> int32 [*lead, NL_moe, K] (N =
+    prod(lead)); [*lead, 0, 0] for a model without MoE layers."""
+    if not routed:
+        return torch.zeros((*lead, 0, 0), dtype=torch.int32)
+    return torch.stack(routed, dim=1).reshape(*lead, len(routed), routed[0].shape[-1])
 
 
 def _obias(lp: dict, dtype):
     b = lp.get("o_bias")
     return 0.0 if b is None else b.to(dtype)
-
-
-def _post_attn(proj, lp, spec):
-    if spec.sandwich_norm and "post_attn_norm" in lp:
-        return rms_norm(proj, lp["post_attn_norm"], spec.rms_eps)
-    return proj
 
 
 def _cast_layer(lp: dict, dtype) -> dict:
@@ -156,12 +174,16 @@ def _freqs_for(spec: ModelSpec, inv_freq, window: int):
 
 def unstack_params(params: Params, spec: ModelSpec) -> Params:
     """Training layout (stacked [NL, ...] layers) -> serving layout (a list
-    of per-layer dicts of views). The serving forward unrolls the layer loop
-    so each layer's KV tensors are written in place."""
+    of per-layer dicts of views: no tensor is copied). The serving forward
+    unrolls the layer loop so each layer's KV tensors are written in place.
+    glm4_moe's dense first layers (``dense_layers``) come first, in order."""
     check_supported(spec)
-    out = {k: v for k, v in params.items() if k != "layers"}
-    out["layers"] = [{k: v[l] for k, v in params["layers"].items()}
-                     for l in range(spec.num_layers)]
+    dense = params.get("dense_layers")
+    k_dense = 0 if dense is None else next(iter(dense.values())).shape[0]
+    out = {k: v for k, v in params.items() if k not in ("layers", "dense_layers")}
+    out["layers"] = ([{k: v[l] for k, v in dense.items()} for l in range(k_dense)]
+                     + [{k: v[l] for k, v in params["layers"].items()}
+                        for l in range(spec.num_layers - k_dense)])
     return out
 
 
@@ -192,8 +214,8 @@ def prefill(
     want_prompt_logprobs: bool = False,
 ):
     """Returns (k_pool, v_pool, last_hidden [D], prompt_logprobs [Lpad]|None),
-    the pools written in place. ``prompt_logprobs[i] = logp(token_i |
-    tokens_<i)``; position 0 holds the uniform -log(V)."""
+    the pools written in place. ``prompt_logprobs[i] =
+    logp(token_i | tokens_<i)``; position 0 holds the uniform -log(V)."""
     _, lpad = input_ids.shape
     device = input_ids.device
     page_size = k_pool[0].shape[2]
@@ -208,7 +230,7 @@ def prefill(
         q, k, v = _qkv(x, lp, spec, positions, _freqs_for(spec, inv_freq, win), rope_scaling)
         o = attention(q, k, v, segment_ids, causal=True, window=win, sinks=lp.get("sink"))
         proj = _mm(o.reshape(1, lpad, spec.q_dim), lp["o"]) + _obias(lp, h.dtype)
-        h = h + _post_attn(proj, lp, spec)
+        h = h + proj
         h = h + _mlp(rms_norm(h, lp["mlp_norm"], spec.rms_eps), lp, spec)
         _write_pages(k_l, _layer_kv_pages(k, n_pages, page_size, spec), pages)
         _write_pages(v_l, _layer_kv_pages(v, n_pages, page_size, spec), pages)
@@ -260,7 +282,7 @@ def prefill_batch(
         q, k, v = _qkv(x, lp, spec, positions, _freqs_for(spec, inv_freq, win), rope_scaling)
         o = attention(q, k, v, segment_ids, causal=True, window=win, sinks=lp.get("sink"))
         proj = _mm(o.reshape(b, lpad, spec.q_dim), lp["o"]) + _obias(lp, h.dtype)
-        h = h + _post_attn(proj, lp, spec)
+        h = h + proj
         h = h + _mlp(rms_norm(h, lp["mlp_norm"], spec.rms_eps), lp, spec)
         _write_pages(k_l, _layer_kv_pages(k, n_pages, page_size, spec), flat_pages)
         _write_pages(v_l, _layer_kv_pages(v, n_pages, page_size, spec), flat_pages)
@@ -336,7 +358,7 @@ def prefill_chunk(
         o = _chunk_attention_xla(q[0].to(compute_dtype), k_l, v_l, q_pos, page_row, valid_hi,
                                  window=win, sinks=lp.get("sink"))
         proj = _mm(o.reshape(1, c, spec.q_dim).to(compute_dtype), lp["o"]) + _obias(lp, h.dtype)
-        h = h + _post_attn(proj, lp, spec)
+        h = h + proj
         h = h + _mlp(rms_norm(h, lp["mlp_norm"], spec.rms_eps), lp, spec)
     h = rms_norm(h, params["final_norm"], spec.rms_eps)
     return k_pool, v_pool, h[0, max(int(valid) - 1, 0)]
@@ -361,15 +383,18 @@ def decode(
     page_table: torch.Tensor,  # [S, P] int32
     *,
     compute_dtype=torch.bfloat16,
+    collect_routing: bool = False,
 ):
     """One decode step for all S slots: writes the new token's K/V, attends
     over lengths+1 tokens, returns (k_pool, v_pool, logits [S, V] f32) with
-    the pools written in place."""
+    the pools written in place, and with ``collect_routing`` the expert ids
+    of each slot's input token, [S, NL_moe, K] int32 on the device."""
     s = tokens.shape[0]
     device = tokens.device
     inv_freq, rope_scaling = _rope(spec, device)
     positions = lengths[:, None]  # [S, 1]: 0-based position of the new token
     h = params["embed"].to(compute_dtype)[tokens.long()][:, None, :]  # [S, 1, D]
+    routed = [] if collect_routing else None
     for lp, k_l, v_l, win in zip(params["layers"], k_pool, v_pool, layer_windows_list(spec)):
         lp = _cast_layer(lp, compute_dtype)
         freqs = _freqs_for(spec, inv_freq, win)
@@ -390,10 +415,12 @@ def decode(
         o, _, _ = _decode_attn_fused_local(q3.to(compute_dtype), k3, v3, k_l, v_l, lengths,
                                            page_table, window=win, sinks=lp.get("sink"))
         proj = _mm(o.reshape(s, 1, spec.q_dim).to(compute_dtype), lp["o"]) + _obias(lp, h.dtype)
-        h = h + _post_attn(proj, lp, spec)
-        h = h + _mlp(rms_norm(h, lp["mlp_norm"], spec.rms_eps), lp, spec)
+        h = h + proj
+        h = h + _mlp(rms_norm(h, lp["mlp_norm"], spec.rms_eps), lp, spec, routed)
     h = rms_norm(h, params["final_norm"], spec.rms_eps)
     logits = logits_from_hidden(params, spec, h[:, 0], compute_dtype)
+    if collect_routing:
+        return k_pool, v_pool, logits, _stack_routing(routed, (s,))
     return k_pool, v_pool, logits
 
 

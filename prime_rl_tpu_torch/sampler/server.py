@@ -161,7 +161,8 @@ class InferenceServer:
                 "token_ids": result.token_ids,
                 "logprobs": result.logprobs if sp.logprobs else None,
                 "finish_reason": result.finish_reason,
-                "routed_experts": None,
+                "routed_experts": (result.routed_experts.tolist()
+                                   if result.routed_experts is not None else None),
             }],
             "prompt_logprobs": plp,
             "usage": {

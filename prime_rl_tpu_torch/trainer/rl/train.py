@@ -49,6 +49,23 @@ class TrainResult(NamedTuple):
     records: list[dict]  # the metrics record of every step, as logged
 
 
+def reject_unported_model(config) -> None:
+    """The refusals the RL and SFT trainers share (``config``: a
+    ``TrainerConfig`` or an ``SFTConfig``): LoRA, a truncated vocabulary
+    without random init, and a mesh larger than one device."""
+    if config.model.lora is not None:
+        raise NotImplementedError("LoRA training waits for the LoRA slice (ROADMAP.md, Queue 1 "
+                                  "item 8)")
+    if config.model.debug.vocab_size is not None and not config.model.debug.random_init:
+        # a truncated vocabulary cannot load a checkpoint's embeddings and head
+        raise ValueError("model.debug.vocab_size truncates the vocabulary and needs "
+                         "model.debug.random_init")
+    mesh = config.mesh.model_dump()  # one process, one card: any other mesh raises
+    if any(v not in (1, -1) for v in mesh.values()):
+        raise NotImplementedError(f"mesh {mesh}: more than one device waits for the "
+                                  "multi-card slice (ROADMAP.md, Queue 1 item 11)")
+
+
 def _reject_unported(config: TrainerConfig) -> None:
     waiting = [name for name, on in (
         ("multi_run", config.multi_run),
@@ -58,16 +75,7 @@ def _reject_unported(config: TrainerConfig) -> None:
     if waiting:
         raise NotImplementedError(f"{', '.join(waiting)}: not ported yet (ROADMAP.md, "
                                   "Queue 1: item 8 for multi_run, item 10 for the rest)")
-    if config.model.lora is not None:
-        raise NotImplementedError("LoRA training waits for the LoRA slice")
-    if config.model.debug.vocab_size is not None and not config.model.debug.random_init:
-        # a truncated vocabulary cannot load a checkpoint's embeddings and head
-        raise ValueError("model.debug.vocab_size truncates the vocabulary and needs "
-                         "model.debug.random_init")
-    mesh = config.mesh.model_dump()  # one process, one card: any other mesh raises
-    if any(v not in (1, -1) for v in mesh.values()):
-        raise NotImplementedError(f"mesh {mesh}: more than one device waits for the "
-                                  "multi-card slice")
+    reject_unported_model(config)
 
 
 def train(config: TrainerConfig, weight_sink=None) -> TrainResult:

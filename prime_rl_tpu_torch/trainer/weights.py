@@ -23,6 +23,7 @@ Params = dict
 _ARCHITECTURES = {
     "qwen3": "Qwen3ForCausalLM",
     "qwen3_moe": "Qwen3MoeForCausalLM",
+    "glm4_moe": "Glm4MoeForCausalLM",
     "llama": "LlamaForCausalLM",
     "gpt_oss": "GptOssForCausalLM",
     "deepseek_v3": "DeepseekV3ForCausalLM",
@@ -84,6 +85,19 @@ def spec_to_hf_config(spec: ModelSpec) -> dict:
         if spec.family == "glm_moe_dsa":
             cfg.update(index_n_heads=spec.index_n_heads, index_head_dim=spec.index_head_dim,
                        index_topk=spec.index_topk)
+    if spec.family == "glm4_moe":
+        cfg.pop("num_experts", None)  # this config names it n_routed_experts
+        cfg.update(
+            n_routed_experts=spec.num_experts,
+            n_shared_experts=spec.n_shared_experts,
+            first_k_dense_replace=spec.first_k_dense_replace,
+            routed_scaling_factor=spec.routed_scaling_factor,
+            n_group=spec.n_group,
+            topk_group=spec.topk_group,
+            partial_rotary_factor=spec.partial_rotary_factor,
+            use_qk_norm=spec.qk_norm,
+            attention_bias=spec.attn_bias,
+        )
     if spec.family == "gpt_oss":
         from prime_rl_tpu_torch.models.qwen3 import layer_windows_list
 

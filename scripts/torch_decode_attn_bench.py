@@ -12,14 +12,16 @@ spill bytes, shared memory of each instantiation), builds K4 as the port
 does and prints ``chip_smoke.py``'s K4 build report (the loaded kernels'
 attributes). ``--quick`` then runs one slot of each form that the serving
 paths launch (Qwen3's 16/8 heads of 128; gpt-oss's 64/8 heads of 64 with
-sinks, at window 128 and without) against the plain version, with the rows
+sinks, at window 128 and without; GLM-4.5's 96/8 heads of 128, two chunks a
+kv head) against the plain version, with the rows
 the kernel's work items read against the split rule, and stops: the first
 call after a change to the kernel. Without it, it runs ``chip_smoke.py``'s K4
 edge cases and times K4 with ``chip_smoke.py``'s ``k4_timing`` (the same
 time, bound, yardstick and kernel-counted rows as its kernel phase) at every
 K4 row of that script: Qwen3-0.6B at 64 slots of 1-1500 cached tokens and 16
 slots of 3000-4000, gpt-oss-20b at 64 slots of 5-1000 with window 128 and
-without.
+without, and Qwen3-30B-A3B (32/4 heads) and GLM-4.5-Air (96/8) at 64 slots
+of 500-1100.
 
 ``--variants NAME:KEY=V,... ...`` builds copies of the source with its
 constants replaced (SPLIT_ROWS, TILE_64, STAGES_64, TILE_128, STAGES_128,
@@ -61,7 +63,8 @@ def quick(gen) -> bool:
     for name, nh, nkv, hd, n, window, with_sinks in (
             ("Qwen3 16/8 heads hd 128", 16, 8, 128, 1000, 0, False),
             ("gpt-oss 64/8 heads hd 64, window 128 + sinks", 64, 8, 64, 700, 128, True),
-            ("gpt-oss 64/8 heads hd 64, full + sinks", 64, 8, 64, 700, 0, True)):
+            ("gpt-oss 64/8 heads hd 64, full + sinks", 64, 8, 64, 700, 0, True),
+            ("GLM-4.5 96/8 heads hd 128 (two chunks)", 96, 8, 128, 1000, 0, False)):
         args = smoke.k4_inputs(gen, 1, nh, nkv, hd, 64, 16, [n])
         sinks = torch.randn(nh, device="cuda", generator=gen) if with_sinks else None
         try:
@@ -100,6 +103,8 @@ def timings(gen) -> None:
     oss = get_spec(smoke.GPT_OSS)
     smoke.k4_gpt_oss_cases(oss, gen, flush, torch.randn(oss.num_heads, device="cuda",
                                                           generator=gen))
+    for model in (smoke.QWEN3_MOE, smoke.GLM):
+        smoke.k4_moe_case(get_spec(model), gen, flush)
 
 
 VARIANT_KEYS = ("SPLIT_ROWS", "TILE_64", "STAGES_64", "TILE_128", "STAGES_128", "NWARPS",

@@ -2,17 +2,24 @@
 """Where a decode step of the PyTorch port's engine spends its time, on one
 NVIDIA GPU.
 
-    python3 scripts/torch_decode_profile.py [--model qwen3|gpt-oss] [--windows N]
+    python3 scripts/torch_decode_profile.py [--model qwen3|gpt-oss|qwen3-moe|glm]
+        [--layers N] [--windows N]
 
 Builds the engine for Qwen3-0.6B (28 layers, full vocabulary, random weights
 from seed 0, bf16; ``--model gpt-oss``: openai/gpt-oss-20b, 24 layers, all 32
-experts, windows of 128 on every other layer, sinks), fills all 64 decode
+experts, windows of 128 on every other layer, sinks; ``qwen3-moe``:
+Qwen/Qwen3-30B-A3B, 48 layers, 128 experts top-8, 61 GB of weights; ``glm``:
+zai-org/GLM-4.5-Air at full width, its depth cut by ``--layers``, 4 by
+default), fills all 64 decode
 slots with prompts of 500 to 1000 random tokens (unfiltered sampling at
 temperature 1, the RL rollout setting), lets the engine admit them and run, then measures decode blocks
 (8 steps each): host-clock time per step over N unprofiled windows of 48
 steps (default 5; their median and spread: one window does not resolve the
 host clock), and under ``torch.profiler`` one more window's device time per
-kernel name and the device's idle share.
+kernel name and the device's idle share. The JSON line also gives the
+weights' bytes and the time the card takes to read them once at 3.35 TB/s:
+a decode step of a MoE model at 64 slots reads nearly every expert, so that
+time bounds its step from below.
 Prints a table, then one JSON line with the numbers.
 """
 
@@ -28,7 +35,20 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 SLOTS, BLOCKS, SEED = 64, 6, 0
-MODELS = {"qwen3": "Qwen/Qwen3-0.6B", "gpt-oss": "openai/gpt-oss-20b"}
+MODELS = {"qwen3": "Qwen/Qwen3-0.6B", "gpt-oss": "openai/gpt-oss-20b",
+          "qwen3-moe": "Qwen/Qwen3-30B-A3B", "glm": "zai-org/GLM-4.5-Air"}
+# tokens a request may generate: the pool holds each slot's prompt and these,
+# and Qwen3-30B-A3B's 61 GB of weights leave room for about 10 GB of pages
+MAX_TOKENS = {"qwen3": 2000, "gpt-oss": 2000, "qwen3-moe": 400, "glm": 2000}
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def main() -> int:
@@ -45,6 +65,8 @@ def main() -> int:
     ap.add_argument("--model", default="qwen3", choices=sorted(MODELS))
     ap.add_argument("--windows", type=int, default=5,
                     help="unprofiled windows of 48 steps on the host clock")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth (default: all layers; 4 for glm)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
@@ -54,15 +76,21 @@ def main() -> int:
                           check=True).stdout.strip()
     print(card, flush=True)
     _build.build()
-    spec = get_spec(MODELS[args.model])
+    layers = args.layers or (4 if args.model == "glm" else None)
+    spec = get_spec(MODELS[args.model], num_layers=layers)
     dev = torch.device("cuda")
     params = get_family(spec).init(spec, torch.Generator(device=dev).manual_seed(SEED),
                                    dtype=torch.bfloat16, device=dev)
-    engine = Engine(params, spec, CacheConfig(num_pages=SLOTS * 64 + 64, page_size=64,
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in _leaves(params))
+    max_tokens = MAX_TOKENS[args.model]
+    pages_a_slot = -(-(1000 + max_tokens + 1) // 64)
+    engine = Engine(params, spec, CacheConfig(num_pages=SLOTS * pages_a_slot + 64, page_size=64,
                                               max_slots=SLOTS, max_seq_len=4096),
                     device="cuda", seed=SEED)
+    del params
     rng = np.random.default_rng(SEED)
-    sp = SamplingParams(max_tokens=2000, temperature=1.0, ignore_eos=True)
+    sp = SamplingParams(max_tokens=max_tokens, temperature=1.0, ignore_eos=True)
     for n in rng.integers(500, 1001, SLOTS):
         engine.submit(rng.integers(0, spec.vocab_size, int(n)).tolist(), sp)
     while engine.pending:  # admit every prompt
@@ -102,7 +130,9 @@ def main() -> int:
         print(f"{name[:70]:70s} {ms:10.3f} {ms / busy_ms:7.1%} {count:6d}")
     launches = dict(_build.launches)
     result = {
-        "card": card, "model": MODELS[args.model], "slots": SLOTS,
+        "card": card, "model": MODELS[args.model], "layers": spec.num_layers, "slots": SLOTS,
+        "weight_bytes": weight_bytes,
+        "weights_read_once_ms": weight_bytes / PEAK_BYTES * 1e3,
         "mean_context_tokens": context, "steps": steps,
         "ms_per_step": wall / steps * 1e3, "tokens_per_s": SLOTS * steps / wall,
         "windows": len(walls),

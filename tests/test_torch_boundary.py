@@ -34,10 +34,11 @@ _CHECK = textwrap.dedent("""
     for new in ("ops.sparse_mla", "ops.sparse_mla_kernel", "ops.moe", "models.glm4_moe",
                 "models.mla_moe", "models.gpt_oss"):
         assert "prime_rl_tpu_torch." + new in names, new
-    for new in LOOP_MODULES:
+    for new in LOOP_MODULES + SFT_MOE_MODULES:
         assert "prime_rl_tpu_torch." + new in names, new
-    from prime_rl_tpu_torch.configs import RLConfig
+    from prime_rl_tpu_torch.configs import RLConfig, SFTConfig
     assert RLConfig().trainer.device == RLConfig().inference.device == "cuda"
+    assert SFTConfig().device == "cuda"
     print(len(names))
 """)
 
@@ -54,7 +55,11 @@ LOOP_MODULES = (
     "orchestrator.pool", "orchestrator.orchestrator",
     "entrypoints.orchestrator", "entrypoints.env_server", "entrypoints.rl",
     "entrypoints.colocated")
-_CHECK = _CHECK.replace("LOOP_MODULES", repr(LOOP_MODULES))
+# the SFT and MoE-families slice's modules
+SFT_MOE_MODULES = ("trainer.sft", "trainer.sft.data", "trainer.sft.train", "entrypoints.sft",
+                   "models.qwen3_moe", "models.glm4_moe")
+_CHECK = _CHECK.replace("LOOP_MODULES", repr(LOOP_MODULES)).replace(
+    "SFT_MOE_MODULES", repr(SFT_MOE_MODULES))
 
 # the orchestrator's process (the orchestrator, the envs, the transport and
 # their entry points) never uses the card: it imports without torch
@@ -82,7 +87,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     out = subprocess.run([sys.executable, "-c", _CHECK], cwd=REPO, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 84  # every module of the slices so far was imported
+    assert int(out.stdout.strip()) >= 88  # every module of the slices so far was imported
 
 
 def test_orchestrator_process_imports_without_torch():

@@ -396,7 +396,10 @@ def test_decode_paged_attention_window_and_sinks_match_plain(gen, window, with_s
 
 @pytest.mark.parametrize("hd,group,ps,window,with_sinks", [
     (128, 2, 16, 0, False), (128, 2, 64, 0, False), (64, 8, 64, 0, True), (64, 8, 16, 128, True),
-    (128, 8, 16, 300, False), (64, 1, 64, 300, True)])
+    (128, 8, 16, 300, False), (64, 1, 64, 300, True),
+    # groups padded to a chunk (3, 5, 6) or cut into chunks of 8 and 4 (12)
+    (128, 3, 16, 0, False), (128, 5, 64, 0, True), (128, 6, 32, 300, False),
+    (128, 12, 16, 0, False), (128, 12, 64, 300, True), (64, 12, 64, 128, True)])
 def test_decode_paged_attention_split_k_matches_plain(gen, hd, group, ps, window, with_sinks):
     """Split-K over long contexts: up to 8 splits of ``SPLIT_ROWS`` rows,
     lengths at and next to the split and page boundaries, windows of one and

@@ -18,15 +18,20 @@ import pytest
 import torch
 
 from prime_rl_tpu.ops.decode_attention import decode_paged_attention as j_decode_attention
+from prime_rl_tpu_torch.models.base import BUILTIN_SPECS
 from prime_rl_tpu_torch.ops.decode_attention import (
     SPLIT_ROWS,
+    check_shape,
+    chunk_width,
     decode_paged_attention_reference,
     decode_paged_attention_split_reference,
     decode_rows_counts,
     decode_rows_visited,
+    group_chunks,
     max_splits,
     one_split,
 )
+from prime_rl_tpu_torch.sampler.model import SERVED_FAMILIES
 
 torch.set_num_threads(1)
 
@@ -36,7 +41,10 @@ TOL = dict(atol=2e-5, rtol=2e-5)
 # lengths across several pages, a slot of length 0, lengths that are a
 # multiple of PS (the append opens a new page), inactive slots on the null
 # page, window starts inside a page and across a page boundary, sinks with
-# and without a window, PS 8 and 16, head dims 64 and 128, groups 1, 2 and 8
+# and without a window, PS 8 and 16, head dims 64 and 128, groups 1, 2 and 8;
+# then groups the kernel cuts into chunks of up to 8 query heads (3, 5 and 6
+# in one padded chunk, 12 in chunks of 8 and 4), at head dim 128, with and
+# without a window
 CASES = (
     ("hd 128 group 2 PS 8, ragged, an empty slot, two inactive", 6, 4, 2, 128, 8, 8,
      [5, 0, 13, 61, 3, 3], 4, 0, False),
@@ -48,6 +56,13 @@ CASES = (
      [7, 30, 64, 12], 3, 8, False),
     ("hd 64 group 2 PS 16, window 40 + sinks across pages", 4, 4, 2, 64, 16, 8,
      [100, 47, 5, 127], 4, 40, True),
+    ("hd 128 group 3 PS 16, ragged", 4, 6, 2, 128, 16, 6, [5, 40, 90, 0], 4, 0, False),
+    ("hd 128 group 5 PS 16, window 20", 4, 10, 2, 128, 16, 6, [3, 40, 90, 19], 4, 20, False),
+    ("hd 128 group 6 PS 8, sinks, an inactive slot", 4, 6, 1, 128, 8, 10, [79, 8, 33, 2], 3, 0,
+     True),
+    ("hd 128 group 12 PS 16, ragged", 4, 24, 2, 128, 16, 6, [5, 41, 95, 16], 4, 0, False),
+    ("hd 128 group 12 PS 16, window 30 + sinks", 3, 12, 1, 128, 16, 6, [60, 20, 95], 3, 30,
+     True),
 )
 
 _inputs: dict = {}
@@ -165,3 +180,31 @@ def test_split_reference_takes_the_new_token_alone_and_one_split_rule():
     assert one_split(64, 0, 64) and not one_split(65, 0, 64)
     assert one_split(4096, 128, 256) and one_split(4096, 257, 256)
     assert not one_split(4096, 258, 256) and not one_split(4096, 0, 256)
+
+
+def test_shape_check_takes_every_served_spec():
+    """The wrapper's shape check (no launch) takes the heads of every built-in
+    spec of a published model of a served family (the ``debug*`` specs'
+    head dim of 32 is for the CPU), as the JAX kernel does (groups 2 to 12: Qwen3-14B
+    40/8, Llama-3.2-3B 24/8, GLM-4.5 96/8 among them), and refuses only head
+    dims other than 64/128 and heads that are not a multiple of the kv
+    heads. The kernel's chunks: one for groups up to 8 (padded to a power of
+    two), two at 12 (8 + 4), each chunk at most 8 query heads."""
+    served = {name: spec for name, spec in BUILTIN_SPECS.items()
+              if spec.family in SERVED_FAMILIES and "/" in name}
+    groups = set()
+    for name, spec in served.items():
+        check_shape(spec.num_heads, spec.num_kv_heads, spec.head_dim)
+        groups.add(spec.num_heads // spec.num_kv_heads)
+    assert {2, 3, 4, 5, 8, 12} <= groups
+    assert {"Qwen/Qwen3-14B", "meta-llama/Llama-3.2-3B", "zai-org/GLM-4.5-Air",
+            "Qwen/Qwen3-30B-A3B"} <= set(served)
+    for nh, nkv, hd in ((16, 8, 96), (12, 8, 128), (8, 0, 128)):
+        with pytest.raises(ValueError, match="decode_paged_attention"):
+            check_shape(nh, nkv, hd)
+    assert [chunk_width(g) for g in (1, 2, 3, 4, 5, 6, 7, 8, 12)] == [1, 2, 4, 4, 8, 8, 8, 8, 8]
+    assert [group_chunks(g) for g in (1, 2, 3, 4, 5, 6, 7, 8, 12, 16, 17)] == [
+        1, 1, 1, 1, 1, 1, 1, 1, 2, 2, 3]
+    for g in range(1, 40):
+        w, n = chunk_width(g), group_chunks(g)
+        assert w <= 8 and (n - 1) * w < g <= n * w

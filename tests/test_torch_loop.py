@@ -9,7 +9,9 @@
   shares their storage, and a later train step leaves the served v1 intact.
 - ``run_colocated`` in process, fed through the filesystem and zmq transports.
 - The launcher end to end, colocated and with the filesystem weight plane
-  (``/update_weights``), and the JAX package's ``test_rl_end_to_end`` scenario
+  (``/update_weights``), the colocated loop on ``debug_moe`` with router
+  replay (the sampler's routing reaches the trainer's batches), and the JAX
+  package's ``test_rl_end_to_end`` and ``test_rl_moe_end_to_end`` scenarios
   (marked slow).
 """
 
@@ -269,7 +271,7 @@ colocated = {colocated}
 max_steps = {steps}
 device = "cpu"
 [trainer.model]
-name = "debug"
+name = "{model}"
 seq_len = 256
 lm_head_chunk_size = 0
 [trainer.model.attn]
@@ -286,14 +288,14 @@ micro_batch_size = 4
 interval = 1
 keep_last = 3
 [trainer.transport]
-batch_port = {port_b}
+{transport}
 [orchestrator]
-model_name = "debug"
+model_name = "{model}"
 batch_size = {batch_size}
 seq_len = 256
 max_steps = {steps}
 [orchestrator.transport]
-batch_port = {port_b}
+{transport}
 [orchestrator.client]
 base_urls = ["http://127.0.0.1:{port_h}"]
 [[orchestrator.train_envs]]
@@ -307,8 +309,9 @@ type = "grpo"
 [inference]
 max_model_len = 512
 device = "cpu"
+collect_routed_experts = {collect}
 [inference.model]
-name = "debug"
+name = "{model}"
 [inference.model.debug]
 random_init = true
 [inference.tokenizer]
@@ -323,11 +326,13 @@ max_batch_size = 32
 """
 
 
-def _launch(tmp_path, timeout: float, extra: str = "", **fmt) -> Path:
+def _launch(tmp_path, timeout: float, extra: str = "", model: str = "debug",
+            transport: str | None = None, collect: bool = False, **fmt) -> Path:
     out = tmp_path / "run"
     cfg = tmp_path / "rl.toml"
-    cfg.write_text(LOOP_TOML.format(out=out, port_h=_free_port(), port_b=_free_port(),
-                                    **fmt) + extra)
+    cfg.write_text(LOOP_TOML.format(
+        out=out, port_h=_free_port(), model=model, collect=str(collect).lower(),
+        transport=transport or f"batch_port = {_free_port()}", **fmt) + extra)
     # one intra-op thread a child: the debug model gains nothing from more,
     # and the test runs beside other test workers on the same cores
     env = dict(os.environ, OMP_NUM_THREADS="1")
@@ -400,3 +405,47 @@ max_tokens = 8
     assert any("eval/agg/all/reward/mean" in r for r in eval_rows)
     assert (out / "weights").exists()
     assert any((out / "checkpoints").glob("step_*")), "no trainer checkpoint"
+
+
+def test_colocated_moe_loop_carries_the_sampler_routing(tmp_path):
+    """2 colocated steps on ``debug_moe`` with ``collect_routed_experts``: the
+    batches shipped to the trainer (the filesystem transport, read back here)
+    carry the sampler's routing, [L, NL, K] a sample with ids in [0, E) on
+    every completion token but the last and -1 on the prompt; the trainer
+    trains on them."""
+    from prime_rl_tpu_torch.models.base import get_spec
+    from prime_rl_tpu_torch.transport.filesystem import FSTrainingBatchReceiver
+
+    spec = get_spec("debug_moe")
+    out = _launch(tmp_path, timeout=150, model="debug_moe", transport='type = "filesystem"',
+                  collect=True, colocated="true", steps=2, lr="3e-3", batch_size=16,
+                  max_tokens=8)
+    trows = [json.loads(line) for line in (out / "trainer.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in trows] == [1, 2] and all(np.isfinite(r["loss"]) for r in trows)
+    receiver = FSTrainingBatchReceiver(out)
+    for _ in range(2):
+        batch = receiver.receive(timeout=1.0)
+        assert batch is not None and batch.examples
+        for sample in batch.examples:
+            r = sample.routed_experts
+            assert r is not None and r.shape == (len(sample.token_ids), spec.num_layers,
+                                                 spec.num_experts_per_tok)
+            sampled = np.flatnonzero(sample.mask)
+            assert sampled.size > 1
+            assert bool((r[sampled[:-1]] >= 0).all() and (r[sampled[:-1]] < spec.num_experts).all())
+            assert bool((r[:sampled[0]] == -1).all())
+
+
+@pytest.mark.slow
+def test_rl_moe_end_to_end(tmp_path):
+    """The JAX package's ``tests/integration/test_rl_e2e.py::test_rl_moe_end_to_end``
+    on the port: the loop of ``test_rl_end_to_end`` on the debug MoE spec (the
+    grouped expert products and the router-replay wire), the reward rising."""
+    out = _launch(tmp_path, timeout=900, model="debug_moe", collect=True, colocated="true",
+                  steps=30, lr="3e-3", batch_size=32, max_tokens=12)
+    rows = [json.loads(line) for line in (out / "orchestrator.jsonl").read_text().splitlines()]
+    rewards = [r["reward_mean"] for r in rows if "reward_mean" in r]
+    print("reward_mean by step:", json.dumps([round(r, 4) for r in rewards]))
+    assert len(rewards) >= 20, rewards
+    first, last = np.mean(rewards[:5]), np.mean(rewards[-8:])
+    assert last > first + 0.01, f"no MoE learning: {rewards}"
