@@ -63,7 +63,14 @@ Phases (any failure raises and exits non-zero before the last line):
                 most half of the one-sequence time. K4 also at the MoE serving
                 shapes (64 slots of 500-1100 tokens): Qwen3-30B-A3B's 32/4
                 heads (group 8) and GLM-4.5-Air's 96/8 (group 12, two chunks a
-                kv head), each a row of its own.
+                kv head), each a row of its own. Then this slice's rows
+                (gated_kernel_phase): K1, K2a and K2b at MiniMax-M2's 48/8
+                heads of 128 (group 6) over a packed row of 4096 tokens, and in
+                their window form without sinks at head dim 128 (the SDPA
+                yardstick over the banded mask); K4 at MiniMax-M2's serving
+                shape (64 slots, group 6); K5a at the GLM-5 serving prefill's
+                shape (one 4096-token bucket of a 3500-token prompt), each
+                against its plain version and launched twice for equal bits.
   4. train-reference — loss and every gradient of one micro-batch [2, 512] of
                 the full-width model cut to 2 layers (full vocabulary), through
                 the kernels in bf16 on the card, against the plain float32 path
@@ -142,7 +149,42 @@ Phases (any failure raises and exits non-zero before the last line):
                 correction bias, a shared expert; K4 at group 12).
  19. glm4-moe-serving — the server of phase 17 for GLM-4.5-Air at full width
                 cut to 4 layers (1 dense + 3 MoE), routed_experts [n_gen, 3, 8].
- 20. loop     — the RL loop through its launcher: ``python -m
+ 20. minimax-reference — MiniMax-M2 at its published widths
+                (MINIMAX_M2_CONFIG through spec_from_hf_config, 1 of 62
+                layers): the served prefill and decode through K1 and K4 (K3
+                not: a layer-scope qk-norm) against float32 on the CPU.
+ 21. minimax-training — phase 12's trainer step on MiniMax-M2 at its
+                published widths, 1 layer (4.90 G parameters), seq_len 4096,
+                half the tokens replaying a routing, 3 steps twice.
+ 22. afmoe-reference, laguna-reference — each family at GATED_TEST_SHAPE
+                (heads of 128, 128-token windows on every other layer, 4
+                layers, the first dense): the training forward and backward
+                (K1, K2a, K2b in their window form) and the served prefill and
+                decode (K1, K4 in their window form; K3 not: gated layers)
+                against float32 on the CPU, each twice for equal bits.
+ 23. deepseek-v3-reference — dense MLA at DEEPSEEK_V3_TEST_CONFIG: the
+                served prefill and decode over the latent cache on the card
+                (no kernel: plain PyTorch, as XLA in the JAX package) against
+                float32 on the CPU, twice for equal bits.
+ 24. glm5-serving-reference — GLM-5 at its widths cut to 1 dense + 1 MoE
+                layer of 8 experts, top-k 256: the served prefill of 384 tokens
+                (K5a over the sampler's own indexer selection, the indexer keys
+                paged into the V pool), a chunked prefill of the last 76 and 4
+                decode steps (each masked to its exact top-k over the paged
+                indexer keys) against float32 on the CPU on the card's routing
+                and selections (at least 90% of the selected rows shared with
+                float32's own), twice for equal bits: K5a launched.
+ 25. minimax-serving — the server of phase 17 for MiniMax-M2 at its published
+                widths, 8 of 62 layers (61.1 GB of bf16 weights), the pool
+                sized from the memory left, routed_experts [n_gen, 8, 8]: K1
+                and K4 (group 6) launched, K3 not.
+ 26. glm5-serving — the server for GLM-5 (GLM5_CONFIG, GLM5_CUTS: 4 layers,
+                32 routed experts) over the MLA latent cache with the DSA
+                indexer keys paged beside, the requests of phase 14 and one
+                prompt of GLM5_LONG_PROMPT tokens (above top-k 2048: the
+                serving prefill's K5a and the decode's top-k select part of
+                the history), routed_experts [n_gen, 1, 8]: K5a launched.
+ 27. loop     — the RL loop through its launcher: ``python -m
                 prime_rl_tpu_torch.entrypoints.rl @configs/bench/northstar_rl_tpu.toml
                 --colocated`` with 6 trainer and orchestrator steps (Qwen3-0.6B at
                 full width and depth, random weights, byte tokenizer, async GRPO on
@@ -164,9 +206,14 @@ forms' rows count the gpt-oss paths, ``launches_window`` their windowed layers).
 K1, K2a, K2b, K3 and K4 also give ``launches_loop``, their launches in the
 colocated process of the loop phase; K1, K2a and K2b ``launches_sft`` and
 ``launches_moe_training``, and K1, K3 and K4 ``launches_moe_serving`` and
-``launches_glm_serving``, their launches on this slice's paths. K4's rows
-at the MoE shapes count the Qwen3-30B-A3B serving path (group 8) and the
-GLM-4.5-Air path's chunked launches (group 12).
+``launches_glm_serving``, their launches on the paths of Qwen3-MoE and
+GLM-4.5; K1, K2a, K2b and K4 ``launches_minimax_training``,
+``launches_minimax_serving``, ``launches_afmoe`` and ``launches_laguna``, and
+K5a ``launches_glm5_serving``, on the gated-MoE and MLA serving paths. K4's
+rows at the MoE shapes count the Qwen3-30B-A3B serving path (group 8), the
+GLM-4.5-Air path's chunked launches (group 12) and MiniMax-M2's (group 6);
+the group-6 K1/K2 rows the MiniMax-M2 trainer, the window-hd128 rows the
+AFMoE and Laguna references, and K5a's serving row the GLM-5 server.
 """
 
 from __future__ import annotations
@@ -211,6 +258,51 @@ GLM5_CONFIG = {
     "num_hidden_layers": 78, "n_routed_experts": 256,
 }
 GLM5_CUTS = {"num_hidden_layers": 4, "n_routed_experts": 32}
+
+# a prompt of this many tokens in the GLM-5 serving phase: above top-k 2048, so
+# the serving prefill's K5a and the decode's top-k select a part of the history
+GLM5_LONG_PROMPT = 3500
+
+# MiniMaxAI/MiniMax-M2, config.json, MiniMaxM2ForCausalLM: the published
+# widths, all kept (intermediate_size is the experts' width). The token ids
+# and max_position_embeddings are the repository's named spec's, not widths.
+# Only the depth is cut (MINIMAX_TRAIN_LAYERS, MINIMAX_SERVE_LAYERS).
+MINIMAX_M2_CONFIG = {
+    "architectures": ["MiniMaxM2ForCausalLM"],
+    "hidden_size": 3072, "num_hidden_layers": 62, "num_attention_heads": 48,
+    "num_key_value_heads": 8, "head_dim": 128, "rotary_dim": 64, "intermediate_size": 1536,
+    "num_local_experts": 256, "num_experts_per_tok": 8, "scoring_func": "sigmoid",
+    "use_qk_norm": True, "qk_norm_type": "per_layer", "rope_theta": 5000000.0,
+    "rms_norm_eps": 1e-6, "vocab_size": 200064, "tie_word_embeddings": False,
+    "max_position_embeddings": 131072, "eos_token_id": 2, "pad_token_id": 0,
+}
+MINIMAX_TRAIN_LAYERS = 1  # 4.90 G parameters, near GLM-5's and gpt-oss's trainer cuts
+MINIMAX_SERVE_LAYERS = 8  # 61.1 GB of bf16 weights, as Qwen3-30B-A3B's 48 layers
+
+# The AFMoE and Laguna phases' shape: the structure of the debug_afmoe and
+# debug_laguna specs (gates, sandwich norms, a local rope base, shared
+# experts, 8 experts top-2) with heads of 128 (K1, K2 and K4 take 64 or 128),
+# 128-token windows on every other layer and 4 layers, the first dense. A
+# test shape, not a published model: these families' published widths are
+# not in the repository.
+GATED_TEST_SHAPE = dict(hidden_size=1024, num_heads=8, num_kv_heads=2, head_dim=128,
+                        sliding_window=128, sliding_window_pattern=2, num_layers=4,
+                        first_k_dense_replace=1)
+
+# DeepSeek-V3's dense MLA at a test shape (not its published widths): the
+# family's structure, a latent of 512 + 64 rope channels, 2 layers (1 dense),
+# 8 routed experts top-2 and a shared one.
+DEEPSEEK_V3_TEST_CONFIG = {
+    "architectures": ["DeepseekV3ForCausalLM"],
+    "hidden_size": 1024, "num_attention_heads": 8, "num_key_value_heads": 8,
+    "q_lora_rank": 512, "kv_lora_rank": 512, "qk_nope_head_dim": 128, "qk_rope_head_dim": 64,
+    "v_head_dim": 128, "intermediate_size": 2048, "moe_intermediate_size": 512,
+    "num_experts_per_tok": 2, "n_routed_experts": 8, "n_shared_experts": 1,
+    "first_k_dense_replace": 1, "routed_scaling_factor": 2.5, "n_group": 1, "topk_group": 1,
+    "scoring_func": "sigmoid", "rope_interleave": True, "vocab_size": 4096,
+    "tie_word_embeddings": False, "rope_theta": 10000.0, "rms_norm_eps": 1e-6,
+    "num_hidden_layers": 2, "eos_token_id": 1, "pad_token_id": 0,
+}
 
 
 def log(msg: str) -> None:
@@ -313,7 +405,8 @@ def k1_timing(name: str, q, k, v, seg, window: int = 0, sinks=None) -> dict:
     and, with neither window nor sinks, one SDPA call with the same mask (no
     single PyTorch call takes sinks); its bound for the (query, key) pairs the
     mask leaves (each input read once, each output written once); and the kv
-    tile pairs it visited (``k1_tiles``). Logs one line; returns the row's
+    tile pairs it visited (``k1_tiles``). Without sinks the SDPA mask
+    carries the window. Logs one line; returns the row's
     numbers."""
     import torch
     import torch.nn.functional as F
@@ -327,7 +420,7 @@ def k1_timing(name: str, q, k, v, seg, window: int = 0, sinks=None) -> dict:
     plain = time_ms(lambda: flash_attention_reference(q, k, v, seg, seg, True, hd ** -0.5, window,
                                                       sinks), iters=3, warmup=1)
     lib = None
-    if not window and sinks is None:
+    if sinks is None:  # the mask carries the window
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                              enable_gqa=True), iters=10)
@@ -506,7 +599,7 @@ def k2_timing(name: str, q, k, v, do, seg, window: int = 0, sinks=None) -> dict:
     plain_dq = time_ms(lambda: flash_attention_dq_reference(*args), iters=3, warmup=1)
     plain_dkv = time_ms(lambda: flash_attention_dkv_reference(*args), iters=3, warmup=1)
     lib = None
-    if not window and sinks is None:
+    if sinks is None:  # the mask carries the window
         qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
         o_lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
         do_t = do.transpose(1, 2).contiguous()
@@ -1717,6 +1810,130 @@ def gpt_oss_kernel_phase() -> list[dict]:
                 "prime_rl_tpu/ops/decode_attention.py:50", k4_cases)]
 
 
+def k12_rows(gen, name: str, b: int, l: int, nh: int, nkv: int, hd: int, seg_lens,
+             window: int = 0) -> list[dict]:
+    """K1, K2a and K2b over one causal packing: each against its plain
+    version (K1 at ATOL + RTOL |ref|, K2 at K2_TOL + K2_TOL |ref|), each
+    launched twice for equal bits, then timed (``k1_timing``, ``k2_timing``).
+    Returns the three rows' numbers."""
+    import torch
+
+    from prime_rl_tpu_torch.ops.flash_attention import (
+        _delta,
+        _fwd,
+        flash_attention_dkv,
+        flash_attention_dq,
+        flash_attention_reference,
+    )
+
+    dev = torch.device("cuda")
+
+    def randn(*shape):
+        return torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
+
+    q, k, v = randn(b, l, nh, hd), randn(b, l, nkv, hd), randn(b, l, nkv, hd)
+    do = randn(b, l, nh, hd)
+    seg, _ = packed_segments(b, l, seg_lens, dev)
+    (out, lse), (out2, lse2) = [_fwd(q, k, v, seg, seg, True, None, window=window)
+                                for _ in range(2)]
+    args = (q, k, v, seg, seg, lse, _delta(out, do, None), do, True, hd ** -0.5, window)
+    grads = [(flash_attention_dq(*args), flash_attention_dkv(*args)) for _ in range(2)]
+    torch.cuda.synchronize()
+    (dq, (dk, dv)), (dq2, (dk2, dv2)) = grads
+    if not (torch.equal(out, out2) and torch.equal(lse, lse2) and torch.equal(dq, dq2)
+            and torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+        raise AssertionError(f"flash attention {name}: two launches differ")
+    del out2, lse2, grads, dq2, dk2, dv2
+    ref_out, _ = by_row(flash_attention_reference, b, (q.float(), k.float(), v.float(), seg, seg),
+                        True, hd ** -0.5, window, None)
+    err = check_close(f"flash_attn_fwd {name}", out, ref_out, ATOL, RTOL)
+    del ref_out
+    err_dq, err_dkv = k2_check(name, q, k, v, do, seg, out, lse, window)
+    del out, lse, dq, dk, dv
+    shape = f"B={b} L={l} {nh}/{nkv} heads hd {hd}{f', window {window}' if window else ''}, " \
+            f"segments {seg_lens[0]}"
+    fwd = dict(shape=shape, max_abs_err=err, **k1_timing(
+        f"K1 flash_attn_fwd {shape} (err {err:.3g}, two launches equal)", q, k, v, seg, window))
+    timing = k2_timing(shape, q, k, v, do, seg, window)
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    return [fwd, dict(shape=shape, max_abs_err=err_dq, **timing["dq"]),
+            dict(shape=shape, max_abs_err=err_dkv, **timing["dkv"])]
+
+
+def gated_kernel_phase() -> list[dict]:
+    """This slice's kernel rows, each held against its plain version, launched
+    twice for equal bits and timed as the other rows are: K1, K2a and K2b at
+    MiniMax-M2's training shape (one row of 4096 tokens in three sequences,
+    48/8 heads of 128: group 6) and in their window form without sinks at
+    head dim 128 (128-token windows, 8/2 heads: the AFMoE/Laguna test shape);
+    K4 at MiniMax-M2's serving shape (64 slots of 500-1100 tokens, PS 64,
+    48/8 heads of 128); K5a at the GLM-5 serving prefill's shape (one row of
+    the 4096-token bucket of a 3500-token prompt, top-k 2048, the padding
+    rows selecting nothing)."""
+    import torch
+
+    from prime_rl_tpu_torch.models.base import spec_from_hf_config
+    from prime_rl_tpu_torch.ops import sparse_mla_kernel as K
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 14)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    rows = []
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
+    for suffix, b, l, nh, nkv, seg_lens, window in (
+            ("group6", 1, 4096, 48, 8, [[1200, 1500, 1396]], 0),
+            ("window-hd128", 1, 4096, 8, 2, [[2048, 2048]], 128)):
+        found = k12_rows(gen, suffix, b, l, nh, nkv, 128, seg_lens, window)
+        for (name, line), case in zip((("flash_attn_fwd", 59), ("flash_attn_bwd_dq", 227),
+                                       ("flash_attn_bwd_dkv", 282)), found):
+            source = "fwd" if name == "flash_attn_fwd" else "bwd"
+            rows.append(dict(name=f"{name}/{suffix}", route="cuda",
+                             source=f"prime_rl_tpu_torch/csrc/flash_attn_{source}.cu",
+                             replaces=f"prime_rl_tpu/ops/flash_attention.py:{line}",
+                             **{k: case[k] for k in keys}, cases=[case]))
+
+    minimax = spec_from_hf_config(dict(MINIMAX_M2_CONFIG))
+    case = k4_moe_case(minimax, gen, flush)
+    rows.append(dict(name="decode_paged_attention/group6", route="cuda",
+                     source="prime_rl_tpu_torch/csrc/decode_attention.cu",
+                     replaces="prime_rl_tpu/ops/decode_attention.py:50",
+                     **{k: case[k] for k in keys}, cases=[case], model="MiniMaxAI/MiniMax-M2"))
+
+    S, valid, T = 4096, GLM5_LONG_PROMPT, 2048
+    H, DQ, DV = K.HEADS, K.DQ, K.DV
+    scale = DQ ** -0.5
+    q = torch.randn(S, H, DQ, device=dev, generator=gen).to(torch.bfloat16)
+    kv = torch.randn(S, DQ, device=dev, generator=gen).to(torch.bfloat16)
+    idx = causal_topk_indices(S, T, gen, dev)
+    idx[valid:] = S  # the bucket's padding rows select nothing
+    pairs = int((idx < S).sum())
+    shape = f"S=Sk={S} (a prompt of {valid}) T={T} pairs={pairs}"
+    out, lse, err, visited = k5a_check(shape, q, kv, idx)
+    ms = time_ms(lambda: K.sparse_mla_fwd(q, kv, idx, scale, DV), iters=10, flush=flush)
+    lib, note = k5a_library_ms(q, kv, idx, scale, flush)
+    plain = time_ms(lambda: K.sparse_mla_attention_reference(q, kv, idx, scale, DV), iters=3,
+                    warmup=1)
+    nbytes = (q.numel() + kv.numel() + out.numel()) * 2 + idx.numel() * 4 + lse.numel() * 4
+    bms, by = bound(nbytes, 2 * H * pairs * (DQ + DV))
+    n_tiles = S * -(-T // K.FWD_TILE)
+    case = dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                bound_ms=bms, bound_by=by, library=note,
+                tiles=f"{visited} of {n_tiles} (tiles of {K.FWD_TILE} slots)")
+    log(f"K5a sparse_mla_fwd at the serving prefill {shape}: err {err:.3g}  kernel {ms:.4f} ms  "
+        f"plain {plain:.4f} ms  library {note if lib is None else f'{lib:.4f} ms ({note})'}  "
+        f"bound {bms:.4f} ms ({by})  tiles of {K.FWD_TILE} visited {visited} of {n_tiles} "
+        "(kernel's count)")
+    rows.append(dict(name="sparse_mla_fwd/serving", route="cuda",
+                     source="prime_rl_tpu_torch/csrc/sparse_mla.cu",
+                     replaces="prime_rl_tpu/ops/sparse_mla_pallas.py:67",
+                     **{k: case[k] for k in keys}, cases=[case]))
+    del q, kv, idx, out, lse, flush
+    torch.cuda.empty_cache()
+    return rows
+
+
 def train_reference_phase() -> None:
     """Loss and every gradient of one micro-batch [2, 512] of the full-width
     model cut to 2 layers (full vocabulary): bf16 through the kernels on the
@@ -1760,6 +1977,9 @@ def train_reference_phase() -> None:
     loss_rtol, grad_rtol = 2e-2, 5e-2
     if not abs(loss_gpu - loss_cpu) <= loss_rtol * abs(loss_cpu):
         raise AssertionError(f"train-reference loss {loss_gpu} vs float32 {loss_cpu}")
+    if set(grads_cpu) != set(grads_gpu):
+        raise AssertionError(f"train-reference: the card's and the CPU's gradients are "
+                             f"of other tensors: {sorted(set(grads_cpu) ^ set(grads_gpu))}")
     worst = 0.0
     for path, want in grads_cpu.items():
         got = grads_gpu[path]
@@ -1865,39 +2085,20 @@ def training_phase() -> tuple[dict, dict]:
 def glm5_model_dir(name: str, **cuts) -> str:
     """A directory whose config.json names GlmMoeDsaForCausalLM at GLM-5's
     widths with ``cuts`` applied: how this family is given to the trainer."""
+    return config_dir(name, GLM5_CONFIG, **cuts)
+
+
+def config_dir(name: str, config: dict, **cuts) -> str:
+    """A directory under build/chip_smoke whose config.json is ``config``
+    with ``cuts`` applied, each cut logged."""
     path = os.path.join(ROOT, "build", "chip_smoke", name)
     shutil.rmtree(path, ignore_errors=True)
     os.makedirs(path)
     with open(os.path.join(path, "config.json"), "w") as f:
-        json.dump({**GLM5_CONFIG, **cuts}, f, indent=1)
+        json.dump({**config, **cuts}, f, indent=1)
     for key, value in cuts.items():
-        log(f"{name}: {key} cut from {GLM5_CONFIG.get(key)} to {value}")
+        log(f"{name}: {key} cut from {config.get(key)} to {value}")
     return path
-
-
-@contextlib.contextmanager
-def indexer_selections(record: list | None = None, replay: list | None = None):
-    """Within the block, every ``mla_topk_indices`` call appends its result to
-    ``record``, or returns the next of ``replay`` (moved to its inputs' device)
-    without computing a selection of its own."""
-    from prime_rl_tpu_torch.ops import sparse_mla
-
-    own = sparse_mla.mla_topk_indices
-    todo = iter(replay or ())
-
-    def wrapped(q_idx, *args, **kw):
-        if replay is not None:
-            return next(todo).to(q_idx.device)
-        out = own(q_idx, *args, **kw)
-        if record is not None:
-            record.append(out)
-        return out
-
-    sparse_mla.mla_topk_indices = wrapped
-    try:
-        yield
-    finally:
-        sparse_mla.mla_topk_indices = own
 
 
 def dsa_train_reference_phase() -> None:
@@ -1954,7 +2155,7 @@ def dsa_train_reference_phase() -> None:
     before = dict(_build.launches)
     t0 = time.perf_counter()
     on_card: list = []
-    with indexer_selections(record=on_card):
+    with dsa_selections(record=on_card):
         loss_gpu, grads_gpu = run(torch.device("cuda"), torch.bfloat16, "bfloat16", "full")
     torch.cuda.synchronize()
     for name in ("sparse_mla_fwd", "sparse_mla_bwd", "sparse_mla_dkv_reduce"):
@@ -1964,7 +2165,7 @@ def dsa_train_reference_phase() -> None:
     on_card = [idx.cpu() for idx in on_card[:spec.num_layers]]
     t1 = time.perf_counter()
     own: list = []
-    with indexer_selections(record=own):
+    with dsa_selections(record=own):
         loss_own, _ = run(torch.device("cpu"), torch.float32, "float32", "none", backward=False)
     overlaps = []
     for a, b in zip(on_card, own):
@@ -1974,7 +2175,7 @@ def dsa_train_reference_phase() -> None:
     if min(overlaps) < 0.9:
         raise AssertionError(f"dsa-train-reference: the card's selections share only {overlaps} "
                              "of their rows with the float32 indexer's")
-    with indexer_selections(replay=on_card):
+    with dsa_selections(replay=on_card):
         loss_cpu, grads_cpu = run(torch.device("cpu"), torch.float32, "float32", "none")
     t2 = time.perf_counter()
     del master
@@ -2557,33 +2758,58 @@ def grouped_mm_share(step, state, batch, scales) -> str:
 
 
 def qwen3_moe_training_phase() -> tuple[dict, dict]:
+    """``moe_training_phase`` on Qwen3-30B-A3B at full width (hidden 2048,
+    32/4 heads of 128, all 128 experts top-8 of 768, vocab 151936), cut to 4
+    layers."""
+    from prime_rl_tpu_torch.models.base import get_spec
+
+    spec = get_spec(QWEN3_MOE, num_layers=4)
+    if (spec.family, spec.hidden_size, spec.num_heads, spec.num_kv_heads, spec.num_experts,
+            spec.moe_intermediate_size, spec.vocab_size) != ("qwen3_moe", 2048, 32, 4, 128, 768,
+                                                              151936):
+        raise AssertionError("the trained model must be Qwen3-30B-A3B at full width")
+    return moe_training_phase("qwen3-moe-training", QWEN3_MOE, spec)
+
+
+def minimax_training_phase() -> tuple[dict, dict]:
+    """``moe_training_phase`` on a directory whose config.json is MiniMax-M2's
+    published one (``MINIMAX_M2_CONFIG``: hidden 3072, 48/8 heads of 128, a
+    layer-scope qk-norm, rotary over 64, 256 experts top-8 of 1536, vocab
+    200064), its depth cut to ``MINIMAX_TRAIN_LAYERS``."""
+    from prime_rl_tpu_torch.models.base import get_spec
+
+    path = config_dir("minimax_m2_training", MINIMAX_M2_CONFIG,
+                      num_hidden_layers=MINIMAX_TRAIN_LAYERS)
+    spec = get_spec(path)
+    if (spec.family, spec.hidden_size, spec.num_heads, spec.num_experts,
+            spec.moe_intermediate_size, spec.qk_norm_scope) != ("minimax_m2", 3072, 48, 256, 1536,
+                                                                "layer"):
+        raise AssertionError("the trained model must be MiniMax-M2 at its published widths")
+    return moe_training_phase("minimax-training", path, spec)
+
+
+def moe_training_phase(name: str, model: str, spec) -> tuple[dict, dict]:
     """The trainer's step (``make_train_step``, as ``train`` builds it) on
-    Qwen3-30B-A3B at full width (hidden 2048, 32/4 heads of 128, all 128
-    experts top-8 of 768, vocab 151936), cut to 4 layers, twice from the same
+    ``spec`` (``model`` names it to the trainer's config), twice from the same
     seed: ``seq_len`` 4096, 2 micro-batches of 1 row, adamw_8bit with bf16
     masters, full remat, 3 steps, each batch from ``replayed_fake_loader`` so
-    that half the tokens replay a routing. Then one more step under the
+    that half the tokens replay a routing; bit-equal finite losses and the
+    launches of K1, K2a and K2b the layers imply. Then one more step under the
     profiler for the experts' share. Returns (launches of the first run,
     numbers of its last step)."""
     import torch
 
     from prime_rl_tpu_torch.configs import TrainerConfig
-    from prime_rl_tpu_torch.models.base import get_spec
     from prime_rl_tpu_torch.ops import _build
     from prime_rl_tpu_torch.trainer.optim import make_optimizer, tree_leaves
     from prime_rl_tpu_torch.trainer.step import Scales, init_train_state, make_train_step
 
-    steps, n_mb, rows, seq_len, layers = 3, 2, 1, 4096, 4
+    steps, n_mb, rows, seq_len, layers = 3, 2, 1, 4096, spec.num_layers
     cfg = TrainerConfig(
         device="cuda", seed=SEED, grad_clip=1.0,
-        model={"name": QWEN3_MOE, "seq_len": seq_len,
+        model={"name": model, "seq_len": seq_len,
                "debug": {"random_init": True, "num_layers": layers}},
         optimizer={"type": "adamw_8bit", "lr": 1e-5, "master_dtype": "bfloat16"})
-    spec = get_spec(QWEN3_MOE, num_layers=layers)
-    if (spec.family, spec.hidden_size, spec.num_heads, spec.num_kv_heads, spec.num_experts,
-            spec.moe_intermediate_size, spec.vocab_size) != ("qwen3_moe", 2048, 32, 4, 128, 768,
-                                                              151936):
-        raise AssertionError("the trained model must be Qwen3-30B-A3B at full width")
     optimizer, _ = make_optimizer(cfg.optimizer, cfg.scheduler, cfg.grad_clip)
     step = make_train_step(spec, cfg.model, cfg.loss, optimizer, "cuda")
 
@@ -2611,7 +2837,7 @@ def qwen3_moe_training_phase() -> tuple[dict, dict]:
         wall = time.perf_counter() - t_run
         peak = torch.cuda.max_memory_allocated() / 2**30
         runs.append((records, dict(_build.launches), peak))
-        log(f"qwen3-moe-training run {i}: {steps} steps in {wall:.2f} s, peak device memory "
+        log(f"{name} run {i}: {steps} steps in {wall:.2f} s, peak device memory "
             f"{peak:.2f} GiB, losses {[r['loss'] for r in records]}, step times "
             f"{[round(r['step_time_s'], 3) for r in records]}")
         if i == 0:
@@ -2622,17 +2848,17 @@ def qwen3_moe_training_phase() -> tuple[dict, dict]:
     losses = [r["loss"] for r in records]
     if len(records) != steps or not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
                                         and r["grad_norm"] > 0 for r in records):
-        raise AssertionError(f"qwen3-moe-training: bad step records {records}")
+        raise AssertionError(f"{name}: bad step records {records}")
     if losses != [r["loss"] for r in records_again]:
         raise AssertionError(f"two runs from the same seed gave different losses: {losses} and "
                              f"{[r['loss'] for r in records_again]}")
     per_pass = layers * n_mb * rows * steps
     want = {"flash_attn_fwd": 2 * per_pass, "flash_attn_bwd_dq": per_pass,
             "flash_attn_bwd_dkv": per_pass}
-    for name, n in want.items():
-        if launches.get(name, 0) != n:
-            raise AssertionError(f"{name}: {launches.get(name, 0)} launches on the Qwen3-MoE "
-                                 f"training path, expected {n}")
+    for kernel, n in want.items():
+        if launches.get(kernel, 0) != n:
+            raise AssertionError(f"{kernel}: {launches.get(kernel, 0)} launches on the {name} "
+                                 f"path, expected {n}")
     batch, counts = replayed_fake_loader(spec, seq_len, rows, n_mb, seed=SEED + 1).next_batch()
     share = grouped_mm_share(step, state, batch, scales(counts))
     n_params = sum(x.numel() for x in tree_leaves(state.params))
@@ -2640,7 +2866,7 @@ def qwen3_moe_training_phase() -> tuple[dict, dict]:
     tokens = n_mb * rows * seq_len
     numbers = dict(step_time_s=last["step_time_s"], tokens_per_s=tokens / last["step_time_s"],
                    peak_gib=peak, parameters=n_params, grouped_mm=share)
-    log(f"qwen3-moe-training: {n_params / 1e9:.3f} G parameters; {steps} steps of {n_mb} x "
+    log(f"{name}: {n_params / 1e9:.3f} G parameters; {steps} steps of {n_mb} x "
         f"[{rows}, {seq_len}] tokens, half replaying a routing; last step "
         f"{last['step_time_s']:.3f} s, {numbers['tokens_per_s']:.0f} tokens/s, peak device "
         f"memory {peak:.2f} GiB; the experts' products: {share}; launches {launches}")
@@ -2662,78 +2888,355 @@ def gpt_oss_reference_phase() -> None:
 
 
 def served_moe_reference(model: str, kernels: tuple[str, ...]) -> None:
-    """``model``'s served forward at its widths and full vocabulary, cut to 2
-    layers, with random sinks and biases where it has them (the correction
-    bias of a noaux router among them): a prefill of 200 tokens and 4 decode
-    steps through K1, K3 and K4 (``kernels`` must launch) in bf16 on the card,
-    against a plain float32 forward on the CPU from the same weights. The CPU
-    replays the card's routing (a near-tie in the top-k routes a token
-    elsewhere from bf16 activations), and a run on its own routing reports
-    the agreement."""
+    """``served_reference`` of ``model`` at its widths and full vocabulary,
+    cut to 2 layers."""
+    from prime_rl_tpu_torch.models.base import get_spec
+
+    served_reference(get_spec(model, num_layers=2), model.split("/")[-1], kernels)
+
+
+def served_reference(spec, name: str, kernels: tuple[str, ...], twice: bool = False,
+                     prompt: int = 200, chunk: int = 0) -> dict:
+    """The served forward of ``spec``, with random sinks and biases where it
+    has them (the correction bias of a noaux router among them): a prefill of
+    ``prompt`` tokens and 4 decode steps (at 200 tokens, positions 200-203: a
+    128-token window is in force) through the kernels (``kernels`` must
+    launch) in bf16 on the card, against a plain float32 forward on the CPU
+    from the same weights. With ``chunk`` the prompt's last ``chunk`` tokens
+    go through ``prefill_chunk`` over the pages the prefill wrote. The CPU
+    replays the card's routing and DSA selections (a near-tie in a top-k
+    picks another expert or row from bf16 activations), and a run on its own
+    reports the agreement. With ``twice`` the card runs again and must give
+    equal bits. Returns the kernels' launches of the card's first run."""
     import torch
 
     from prime_rl_tpu_torch.models import get_family
-    from prime_rl_tpu_torch.models.base import get_spec
     from prime_rl_tpu_torch.ops import _build
     from prime_rl_tpu_torch.sampler import model as smodel
+    from prime_rl_tpu_torch.sampler.cache import CacheConfig, KVPool
 
-    name = model.split("/")[-1]
-    spec = get_spec(model, num_layers=2)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = perturbed(get_family(spec).init(spec, gen, dtype=torch.bfloat16, device="cuda"), gen)
-    ps, lpad, n, steps = 64, 256, 200, 4
+    ps, n, steps = 64, prompt, 4
+    head = n - chunk  # prefilled at once; the chunk starts on a page bound
+    if head % ps if chunk else False:
+        raise ValueError(f"served_reference: the chunk must start on a page bound, not {head}")
+    lpad, cpad = -(-head // ps) * ps, -(-chunk // ps) * ps
+    n_pages = -(-(n + steps) // ps) + 1
     rng = torch.Generator().manual_seed(SEED)
-    ids = torch.zeros(1, lpad, dtype=torch.int64)
-    ids[0, :n] = torch.randint(1, spec.vocab_size, (n,), generator=rng)
+    tokens = torch.randint(1, spec.vocab_size, (n,), generator=rng)
     nxt = torch.randint(1, spec.vocab_size, (steps,), generator=rng)
-    table = torch.arange(1, 6, dtype=torch.int32)[None]  # 5 pages of 64
-    shape = (spec.num_kv_heads, 6, ps, spec.head_dim)
+    ids = torch.zeros(1, lpad, dtype=torch.int64)
+    ids[0, :head] = tokens[:head]
+    chunk_ids = torch.zeros(1, cpad, dtype=torch.int64)
+    chunk_ids[0, :chunk] = tokens[head:]
+    table = torch.arange(1, n_pages + 1, dtype=torch.int32)[None]  # pages of 64
+    cache = CacheConfig(num_pages=n_pages + 1, page_size=ps, max_slots=1,
+                        max_seq_len=n_pages * ps)
+    what = ["prefill"] + (["chunked prefill"] if chunk else []) + [
+        f"decode at position {n + i}" for i in range(steps)]
 
     def run(params, device, dtype):
         sp = smodel.unstack_params(params, spec)
-        kp = [torch.zeros(shape, dtype=dtype, device=device) for _ in range(spec.num_layers)]
-        vp = [torch.zeros(shape, dtype=dtype, device=device) for _ in range(spec.num_layers)]
-        _, _, h, _ = smodel.prefill(sp, spec, kp, vp, ids.to(device), n,
+        pool = KVPool(spec, cache, dtype=dtype, device=device)
+        kp, vp = pool.k, pool.v
+        _, _, h, _ = smodel.prefill(sp, spec, kp, vp, ids.to(device), head,
                                     table[0, :lpad // ps].to(device), compute_dtype=dtype)
         out = [smodel.logits_from_hidden(sp, spec, h[None], dtype)]
+        if chunk:
+            _, _, h = smodel.prefill_chunk(
+                sp, spec, kp, vp, chunk_ids.to(device), head, chunk,
+                table[0, head // ps:(head + cpad) // ps].to(device), table[0].to(device),
+                compute_dtype=dtype)
+            out.append(smodel.logits_from_hidden(sp, spec, h[None], dtype))
         for i in range(steps):
-            tok = (ids[0, n - 1:n] if i == 0 else nxt[i - 1:i]).to(device)
+            tok = (tokens[n - 1:n] if i == 0 else nxt[i - 1:i]).to(device)
             _, _, logits = smodel.decode(sp, spec, kp, vp, tok, torch.tensor(
                 [n + i], dtype=torch.int32, device=device), table.to(device), compute_dtype=dtype)
             out.append(logits)
         return [o.float().cpu() for o in out]
 
-    before = dict(_build.launches)
+    _build.reset_launches()
     on_card: list = []
-    with recorded_routing(record=on_card):
+    card_sel: list = []
+    with recorded_routing(record=on_card), dsa_selections(record=card_sel):
         got = run(params, torch.device("cuda"), torch.bfloat16)
     torch.cuda.synchronize()
+    launches = dict(_build.launches)
     for kernel in kernels:
-        if _build.launches[kernel] <= before.get(kernel, 0):
+        if launches.get(kernel, 0) <= 0:
             raise AssertionError(f"{name} reference: {kernel} was not launched on the card")
+    if twice:
+        again = run(params, torch.device("cuda"), torch.bfloat16)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{name} reference: two runs on the card differ")
     cpu = {k: (v.float().cpu() if not isinstance(v, dict) else
                {n_: t.float().cpu() for n_, t in v.items()}) for k, v in params.items()}
     del params
     torch.cuda.empty_cache()
     on_card = [e.cpu() for e in on_card]
+    card_sel = [e.cpu() for e in card_sel]
     own: list = []
-    with recorded_routing(record=own):
+    own_sel: list = []
+    with recorded_routing(record=own), dsa_selections(record=own_sel):
         want_own = run(cpu, torch.device("cpu"), torch.float32)
-    agree = sum(len(set(a) & set(b)) for x, y in zip(on_card, own)
-                for a, b in zip(x.tolist(), y.tolist())) / sum(x.numel() for x in on_card)
-    with recorded_routing(replay=on_card):
+    agree = (sum(len(set(a) & set(b)) for x, y in zip(on_card, own)
+                 for a, b in zip(x.tolist(), y.tolist()))
+             / max(sum(x.numel() for x in on_card), 1))
+    with recorded_routing(replay=on_card), dsa_selections(replay=card_sel):
         want = run(cpu, torch.device("cpu"), torch.float32)
-    for i, (g, w, wo) in enumerate(zip(got, want, want_own)):
-        what = "prefill" if i == 0 else f"decode at position {n + i - 1}"
+    for label, g, w, wo in zip(what, got, want, want_own):
         err, scale = float((g - w).abs().max()), float(w.abs().max())
         # bf16 activations against float32: a few bf16 ulps of the largest logit
         if not (err <= 0.05 * scale and bool(torch.isfinite(g).all())):
-            raise AssertionError(f"{name} served {what} logits differ from the float32 "
+            raise AssertionError(f"{name} served {label} logits differ from the float32 "
                                  f"reference: max err {err:.4g} vs max |logit| {scale:.4g}")
-        log(f"{name} reference {what} logits: max err {err:.4g} on the card's routing, "
+        log(f"{name} reference {label} logits: max err {err:.4g} on the card's selections, "
             f"{float((g - wo).abs().max()):.4g} on the CPU's own (max |logit| {scale:.4g})")
+    sel = ""
+    if card_sel:
+        shared = selection_agreement(card_sel, own_sel)
+        # as the DSA train reference: near-ties of the indexer's scores
+        if shared < 0.9:
+            raise AssertionError(f"{name} reference: the card's DSA selections share only "
+                                 f"{shared:.4f} of their rows with the float32 indexer's")
+        sel = (f"; the card's DSA selections agree with float32's on {shared:.4f} of the "
+               f"selected rows over {len(card_sel)} selections")
     log(f"{name} reference: the card's routing agrees with the float32 router's on {agree:.4f} "
-        f"of the choices")
+        f"of the choices{sel}{'; two runs on the card gave equal bits' if twice else ''}; "
+        f"launches {launches}")
+    return launches
+
+
+@contextlib.contextmanager
+def dsa_selections(record: list | None = None, replay: list | None = None):
+    """Within the block, every DSA selection of the sampler (the prefill's
+    ``mla_topk_indices``, the chunked prefill's and the decode's
+    ``_mla_topk_mask``) appends its result to ``record`` in call order, or
+    returns the next of ``replay`` (moved to its inputs' device)."""
+    from prime_rl_tpu_torch.ops import sparse_mla
+    from prime_rl_tpu_torch.sampler import model as smodel
+
+    todo = iter(replay or ())
+    own_idx, own_mask = sparse_mla.mla_topk_indices, smodel._mla_topk_mask
+
+    def wrap(own):
+        def wrapped(x, *args, **kw):
+            if replay is not None:
+                return next(todo).to(x.device)
+            out = own(x, *args, **kw)
+            if record is not None:
+                record.append(out)
+            return out
+        return wrapped
+
+    sparse_mla.mla_topk_indices, smodel._mla_topk_mask = wrap(own_idx), wrap(own_mask)
+    try:
+        yield
+    finally:
+        sparse_mla.mla_topk_indices, smodel._mla_topk_mask = own_idx, own_mask
+
+
+def selection_agreement(a: list, b: list) -> float:
+    """The share of ``a``'s selected rows that ``b`` selects too: boolean
+    masks [R, T], or index lists [..., K] (the sentinel counts as one
+    member)."""
+    import torch
+
+    hit = total = 0
+    for x, y in zip(a, b):
+        if x.dtype == torch.bool:
+            hit += int((x & y).sum())
+            total += int(x.sum())
+            continue
+        for r, t in zip(x.reshape(-1, x.shape[-1]).tolist(), y.reshape(-1, y.shape[-1]).tolist()):
+            want = set(r)
+            hit += len(want & set(t))
+            total += len(want)
+    return hit / max(total, 1)
+
+
+def gated_test_spec(name: str):
+    """``name``'s debug spec (debug_afmoe, debug_laguna) at GATED_TEST_SHAPE."""
+    import dataclasses
+
+    from prime_rl_tpu_torch.models.base import get_spec
+
+    return dataclasses.replace(get_spec(name), **GATED_TEST_SHAPE)
+
+
+def gated_train_reference(spec, name: str) -> dict:
+    """Loss and every gradient of one micro-batch of 1024 tokens (a row of
+    two sequences and padding) through ``spec``: bf16 on the card through K1,
+    K2a and K2b (their window form on the windowed layers) under full remat,
+    twice for equal bits, against float32 on the CPU from the same weights.
+    The CPU replays the card's routing (``routed_experts`` over the MoE
+    layers), and its own routing reports the agreement (at least 75% of the
+    choices a layer). Returns the card's launches (its first run)."""
+    import numpy as np
+    import torch
+
+    from prime_rl_tpu_torch.configs.shared import ModelConfig
+    from prime_rl_tpu_torch.configs.trainer import DefaultLossConfig
+    from prime_rl_tpu_torch.models import get_family
+    from prime_rl_tpu_torch.ops import _build
+    from prime_rl_tpu_torch.trainer.optim import tree_map, tree_paths
+    from prime_rl_tpu_torch.trainer.rl.data import FakeDataLoader
+    from prime_rl_tpu_torch.trainer.step import MicroBatchArrays, Scales, make_loss_fn, put_batch
+
+    seq_len, n_moe = 1024, spec.num_layers - spec.first_k_dense_replace
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    # bf16-representable weights, so both sides start from the same numbers
+    master = tree_map(lambda x: x.to(torch.bfloat16),
+                      perturbed(get_family(spec).init(spec, gen, device="cuda"), gen))
+    batch, counts = FakeDataLoader(spec.vocab_size, seq_len // 2, 2, 1, seed=SEED).next_batch()
+    batch = MicroBatchArrays(*[None if x is None else x.reshape(1, 1, seq_len) for x in batch])
+    seg, second = batch.segment_ids, np.arange(seq_len) >= seq_len // 2
+    batch = batch._replace(segment_ids=np.where((seg > 0) & second, seg + 10, seg).astype(np.int32))
+    scales = Scales(float(counts["rl"]), 1.0, 1.0)
+
+    def run(device, dtype, compute, remat, routed=None, backward=True):
+        params = tree_map(lambda x: x.detach().to(device=device, dtype=dtype).requires_grad_(),
+                          master)
+        mb = MicroBatchArrays(*[None if x is None else x[0] for x in put_batch(batch, device)])
+        if routed is not None:
+            mb = mb._replace(routed_experts=routed.to(device))
+        loss_fn = make_loss_fn(spec, ModelConfig(compute_dtype=compute, ac={"mode": remat}),
+                               DefaultLossConfig())
+        if not backward:
+            with torch.no_grad():
+                return float(loss_fn(params, mb, scales)[0]), None
+        loss, _ = loss_fn(params, mb, scales)
+        loss.backward()
+        # the selection-only correction bias has no gradient
+        return float(loss.detach()), {p: x.grad.float().cpu() for p, x in tree_paths(params)
+                                      if x.grad is not None}
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    on_card: list = []
+    with recorded_routing(on_card):
+        loss_gpu, grads_gpu = run(torch.device("cuda"), torch.bfloat16, "bfloat16", "full")
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    for kernel in ("flash_attn_fwd/window", "flash_attn_bwd_dq/window",
+                   "flash_attn_bwd_dkv/window"):
+        if launches.get(kernel, 0) <= 0:
+            raise AssertionError(f"{name}-train-reference: {kernel} was not launched on the card")
+    loss_again, grads_again = run(torch.device("cuda"), torch.bfloat16, "bfloat16", "full")
+    if loss_again != loss_gpu or any(not torch.equal(grads_gpu[p], g)
+                                     for p, g in grads_again.items()):
+        raise AssertionError(f"{name}-train-reference: two runs on the card differ")
+    # the forward's calls come first, one a MoE layer; the recompute's follow
+    routed = torch.stack([e.cpu() for e in on_card[:n_moe]], dim=1)  # [T, NL_moe, K]
+    t1 = time.perf_counter()
+    own: list = []
+    with recorded_routing(own):
+        loss_own, _ = run(torch.device("cpu"), torch.float32, "float32", "none", backward=False)
+    agree = [float(sum(len(set(a) & set(b)) for a, b in zip(x.tolist(), y.cpu().tolist()))
+                   / x.numel()) for x, y in zip(routed.unbind(1), own)]
+    # at random init many scores nearly tie; the served references of the MoE
+    # families read 0.79-0.86 of the choices in common (logged above)
+    if min(agree) < 0.75:
+        raise AssertionError(f"{name}-train-reference: the card's routing agrees with the "
+                             f"float32 router's on only {agree} of its choices")
+    loss_cpu, grads_cpu = run(torch.device("cpu"), torch.float32, "float32", "none",
+                              routed=routed.reshape(1, seq_len, n_moe, -1))
+    t2 = time.perf_counter()
+    del master
+    torch.cuda.empty_cache()
+    # bf16 weights, activations and gradients against float32 on the same
+    # routing: a few bf16 steps on the loss, a few percent of each gradient's norm
+    loss_rtol, grad_rtol = 2e-2, 5e-2
+    for what, ref in (("the card's routing", loss_cpu), ("its own routing", loss_own)):
+        if not abs(loss_gpu - ref) <= loss_rtol * abs(ref):
+            raise AssertionError(f"{name}-train-reference loss {loss_gpu} vs float32 {ref} on "
+                                 f"{what}")
+    if set(grads_cpu) != set(grads_gpu):
+        raise AssertionError(f"{name}-train-reference: the card's and the CPU's gradients are "
+                             f"of other tensors: {sorted(set(grads_cpu) ^ set(grads_gpu))}")
+    worst = 0.0
+    for path, want in grads_cpu.items():
+        got = grads_gpu[path]
+        rel = float((got - want).norm() / want.norm().clamp_min(1e-30))
+        worst = max(worst, rel)
+        if not (bool(torch.isfinite(got).all()) and rel <= grad_rtol):
+            raise AssertionError(f"{name}-train-reference gradient of {path}: relative error "
+                                 f"{rel:.4g} exceeds {grad_rtol}")
+    log(f"{name}-train-reference: loss {loss_gpu:.6g} vs float32 {loss_cpu:.6g} on the card's "
+        f"routing and {loss_own:.6g} on its own (tolerance {loss_rtol} relative); the routing "
+        f"agrees on {[round(a, 4) for a in agree]} of the choices per MoE layer; worst gradient "
+        f"error {worst:.4g} of its norm over {len(grads_cpu)} tensors (tolerance {grad_rtol}); "
+        f"two runs on the card gave equal bits; card {t1 - t0:.1f} s, CPU {t2 - t1:.1f} s; "
+        f"launches {launches}")
+    return launches
+
+
+def gated_reference_phase(debug_name: str) -> dict:
+    """AFMoE or Laguna at GATED_TEST_SHAPE on the card: the training forward
+    and backward (``gated_train_reference``) and the serving prefill and
+    decode (``served_reference``, twice for equal bits), through K1, K2a, K2b
+    and K4 in their window form without sinks, each against the plain float32
+    path. Decode prepares q/k/v in plain PyTorch, as the JAX package does for
+    gated layers: K3 must not launch. Returns {"train": launches, "serve":
+    launches}."""
+    spec = gated_test_spec(debug_name)
+    name = spec.family
+    train = gated_train_reference(spec, name)
+    serve_launches = served_reference(spec, f"{name} (test shape)",
+                                      ("flash_attn_fwd/window", "decode_paged_attention/window"),
+                                      twice=True)
+    if serve_launches.get("decode_qkv_prep", 0):
+        raise AssertionError(f"{name}: K3 launched on gated layers, which the JAX package "
+                             "prepares outside its kernel")
+    return {"train": train, "serve": serve_launches}
+
+
+def minimax_reference_phase() -> dict:
+    """MiniMax-M2 at its published widths (``MINIMAX_M2_CONFIG`` through
+    spec_from_hf_config, depth cut to 1 layer: 256 experts at 7.25 GB): the
+    served prefill and decode through K1 and K4 on the card against float32
+    on the CPU (``served_reference``); K3 must not launch (a layer-scope
+    qk-norm). Returns the launches."""
+    from prime_rl_tpu_torch.models.base import get_spec
+
+    spec = get_spec(config_dir("minimax_m2_reference", MINIMAX_M2_CONFIG, num_hidden_layers=1))
+    launches = served_reference(spec, "MiniMax-M2", ("flash_attn_fwd", "decode_paged_attention"))
+    if launches.get("decode_qkv_prep", 0):
+        raise AssertionError("MiniMax-M2: K3 launched on a layer-scope qk-norm, which the JAX "
+                             "package prepares outside its kernel")
+    return launches
+
+
+def deepseek_reference_phase() -> None:
+    """DeepSeek-V3's dense MLA at DEEPSEEK_V3_TEST_CONFIG: the served prefill
+    and decode over the latent cache on CUDA tensors in bf16 (plain PyTorch:
+    no kernel is on this path, as no Pallas kernel is in the JAX package's),
+    twice for equal bits, against float32 on the CPU."""
+    from prime_rl_tpu_torch.models.base import spec_from_hf_config
+
+    spec = spec_from_hf_config(dict(DEEPSEEK_V3_TEST_CONFIG))
+    if spec.family != "deepseek_v3" or spec.index_topk:
+        raise AssertionError("the DeepSeek-V3 reference must run dense MLA")
+    served_reference(spec, "DeepSeek-V3 (test shape)", (), twice=True)
+
+
+def dsa_serving_reference_phase() -> dict:
+    """GLM-5's served forward at its widths, cut as the DSA train reference
+    cuts it (1 dense + 1 MoE layer of 8 experts, top-k 256, so that a prompt
+    of 460 tokens selects a part of its history): a prefill of 384 tokens
+    (K5a over the sampler's own indexer selection, the indexer keys paged
+    into the V pool), a chunked prefill of the last 76 (a page bound inside,
+    each query masked to its top-k over the paged indexer keys) and 4 decode
+    steps (the exact top-k over the gathered history), in bf16 on the card,
+    twice for equal bits, against float32 on the CPU on the card's routing
+    and selections. Returns the launches."""
+    from prime_rl_tpu_torch.models.base import get_spec
+
+    spec = get_spec(glm5_model_dir("glm5_serving_reference", num_hidden_layers=2,
+                                   first_k_dense_replace=1, n_routed_experts=8, index_topk=256))
+    return served_reference(spec, "GLM-5 DSA", ("sparse_mla_fwd",), twice=True, prompt=460,
+                            chunk=76)
 
 
 def reference_phase(engine) -> None:
@@ -2781,7 +3284,8 @@ def reference_phase(engine) -> None:
         log(f"reference {name} logits: max err {err:.4g} (max |logit| {scale:.4g})")
 
 
-async def serving_phase(server, port: int, model: str, collect: bool) -> dict:
+async def serving_phase(server, port: int, model: str, collect: bool,
+                        long_prompt: int = 0) -> dict:
     import aiohttp
     import numpy as np
 
@@ -2794,6 +3298,8 @@ async def serving_phase(server, port: int, model: str, collect: bool) -> dict:
     lengths = [20, 45, 64, 90, 200, 300, 400, 512, 640, 800, 1000, 1200, 1400, 1500]
     prompts = [rng.integers(0, spec.vocab_size, n).tolist() for n in lengths]
     prompts += [prefix + rng.integers(0, spec.vocab_size, n).tolist() for n in (40, 70)]
+    if long_prompt:
+        prompts.append(rng.integers(0, spec.vocab_size, long_prompt).tolist())
     samplings = [dict(temperature=1.0), dict(temperature=0.8, top_p=0.9),
                  dict(temperature=1.0, top_k=20), dict(temperature=0.0)]
     max_tokens = 64
@@ -2885,11 +3391,12 @@ async def serving_phase(server, port: int, model: str, collect: bool) -> dict:
 
 
 def serve(model: str, want_layers: int, want_vocab: int, reference=None, collect: bool = False,
-          num_layers: int | None = None):
+          num_layers: int | None = None, long_prompt: int = 0):
     """Build the inference server for ``model`` (all its layers, or
     ``num_layers``; random weights from the seed; with ``collect`` recording
     the routing of every completion), run ``reference`` on its engine, warm it
-    up and drive it over HTTP with the launch counts reset just before.
+    up and drive it over HTTP with the launch counts reset just before (with
+    ``long_prompt`` one more request of that many prompt tokens).
     Returns (stats, launches); the server is stopped and freed."""
     import aiohttp.web_app
     import torch
@@ -2925,7 +3432,7 @@ def serve(model: str, want_layers: int, want_vocab: int, reference=None, collect
         runner = await server.start_async("127.0.0.1", port)
         try:
             _build.reset_launches()
-            stats = await serving_phase(server, port, model, collect)
+            stats = await serving_phase(server, port, model, collect, long_prompt)
             launches = dict(_build.launches)
         finally:
             await server.stop_async(runner)
@@ -3176,7 +3683,8 @@ def main() -> int:
 
     spec = get_spec(MODEL)
     rows = (timed("kernels", kernel_phase, spec) + timed("dsa kernels", sparse_mla_kernel_phase)
-            + timed("gpt-oss kernels", gpt_oss_kernel_phase))
+            + timed("gpt-oss kernels", gpt_oss_kernel_phase)
+            + timed("gated and serving kernels", gated_kernel_phase))
     timed("train-reference", train_reference_phase)
     train_launches, _ = timed("training", training_phase)
     timed("dsa-train-reference", dsa_train_reference_phase)
@@ -3187,6 +3695,13 @@ def main() -> int:
     timed("qwen3-moe-reference", served_moe_reference, QWEN3_MOE,
           ("flash_attn_fwd", "decode_qkv_prep", "decode_paged_attention"))
     moe_train_launches, moe_train_numbers = timed("qwen3-moe-training", qwen3_moe_training_phase)
+    minimax_ref_launches = timed("minimax-reference", minimax_reference_phase)
+    minimax_train_launches, minimax_train_numbers = timed("minimax-training",
+                                                          minimax_training_phase)
+    gated_launches = {name: timed(f"{name}-reference", gated_reference_phase, debug)
+                      for name, debug in (("afmoe", "debug_afmoe"), ("laguna", "debug_laguna"))}
+    timed("deepseek-v3-reference", deepseek_reference_phase)
+    timed("glm5-serving-reference", dsa_serving_reference_phase)
 
     stats, launches = timed("reference + serving", serve, MODEL, 28, 151936, reference_phase)
     timed("gpt-oss-reference", gpt_oss_reference_phase)
@@ -3198,6 +3713,18 @@ def main() -> int:
     timed("glm4-moe-reference", served_moe_reference, GLM,
           ("flash_attn_fwd", "decode_qkv_prep", "decode_paged_attention/chunked"))
     glm_stats, glm_launches = timed("glm4-moe-serving", serve, GLM, 4, 151552, None, True, 4)
+    gc.collect()
+    torch.cuda.empty_cache()
+    minimax_stats, minimax_launches = timed(
+        "minimax-serving", serve, config_dir("minimax_m2_serving", MINIMAX_M2_CONFIG,
+                                             num_hidden_layers=MINIMAX_SERVE_LAYERS),
+        MINIMAX_SERVE_LAYERS, 200064, None, True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    glm5_stats, glm5_launches = timed(
+        "glm5-serving", serve, glm5_model_dir("glm5_serving", **GLM5_CUTS),
+        GLM5_CUTS["num_hidden_layers"], GLM5_CONFIG["vocab_size"], None, True, None,
+        GLM5_LONG_PROMPT)
     gc.collect()
     torch.cuda.empty_cache()  # the loop's processes need the card's memory
     loop_launches = timed("loop", loop_phase, card)
@@ -3211,17 +3738,36 @@ def main() -> int:
         if min(windowed, oss_launches.get(f"{name}/sinks", 0) - windowed) <= 0:
             raise AssertionError(f"{name} was not launched on both the windowed and the full "
                                  f"layers of the gpt-oss serving path: {oss_launches}")
-    # the K1-K4 rows' launches on this slice's paths: SFT and the Qwen3-MoE
-    # trainer (K1, K2a, K2b), Qwen3-30B-A3B and GLM-4.5-Air serving (K1, K3, K4)
+    # MiniMax-M2's and the gated layers' decode prepares q/k/v outside K3, as
+    # the JAX package does; GLM-5's serving prefill runs K5a
+    for path, counts in (("MiniMax-M2 serving", minimax_launches),
+                         ("MiniMax-M2 reference", minimax_ref_launches)):
+        if counts.get("decode_qkv_prep", 0):
+            raise AssertionError(f"K3 launched on the {path} path: {counts}")
+    # the rows' launches on the paths of slices 13 and 14: SFT and the Qwen3-MoE
+    # trainer (K1, K2a, K2b), Qwen3-30B-A3B and GLM-4.5-Air serving (K1, K3,
+    # K4), the MiniMax-M2 trainer (K1, K2a, K2b) and server (K1, K4), the
+    # AFMoE and Laguna references (K1, K2a, K2b, K4), GLM-5 serving (K5a)
+    gated = {name: {k: counts["train"].get(k, 0) + counts["serve"].get(k, 0)
+                    for k in {**counts["train"], **counts["serve"]}}
+             for name, counts in gated_launches.items()}
     new_paths = {"launches_sft": sft_launches, "launches_moe_training": moe_train_launches,
-                 "launches_moe_serving": moe_launches, "launches_glm_serving": glm_launches}
-    path_kernels = {"launches_sft": ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"),
-                    "launches_moe_training": ("flash_attn_fwd", "flash_attn_bwd_dq",
-                                              "flash_attn_bwd_dkv"),
+                 "launches_moe_serving": moe_launches, "launches_glm_serving": glm_launches,
+                 "launches_minimax_training": minimax_train_launches,
+                 "launches_minimax_serving": minimax_launches,
+                 "launches_afmoe": gated["afmoe"], "launches_laguna": gated["laguna"],
+                 "launches_glm5_serving": glm5_launches}
+    k12 = ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
+    path_kernels = {"launches_sft": k12, "launches_moe_training": k12,
                     "launches_moe_serving": ("flash_attn_fwd", "decode_qkv_prep",
                                              "decode_paged_attention"),
                     "launches_glm_serving": ("flash_attn_fwd", "decode_qkv_prep",
-                                             "decode_paged_attention")}
+                                             "decode_paged_attention"),
+                    "launches_minimax_training": k12,
+                    "launches_minimax_serving": ("flash_attn_fwd", "decode_paged_attention"),
+                    "launches_afmoe": k12 + ("decode_paged_attention",),
+                    "launches_laguna": k12 + ("decode_paged_attention",),
+                    "launches_glm5_serving": ("sparse_mla_fwd",)}
     for row in rows:
         name = row["name"]
         for key, kernels in path_kernels.items():
@@ -3230,7 +3776,17 @@ def main() -> int:
                 if row[key] <= 0:
                     raise AssertionError(f"kernel {name} was not launched on its {key[9:]} path")
         on_serving, on_training = launches.get(name, 0), train_launches.get(name, 0)
-        if name == "decode_paged_attention/group8":  # Qwen3-30B-A3B's 32/4 heads
+        kernel = name.split("/")[0]
+        if name.endswith("/group6"):  # MiniMax-M2's 48/8 heads: its trainer and server
+            row["launches"] = (minimax_launches if kernel == "decode_paged_attention"
+                               else minimax_train_launches).get(kernel, 0)
+            if kernel == "flash_attn_fwd":
+                row["launches_serving"] = minimax_launches.get(kernel, 0)
+        elif name.endswith("/window-hd128"):  # the AFMoE and Laguna references
+            row["launches"] = sum(g.get(f"{kernel}/window", 0) for g in gated.values())
+        elif name == "sparse_mla_fwd/serving":  # GLM-5's serving prefill
+            row["launches"] = glm5_launches.get(kernel, 0)
+        elif name == "decode_paged_attention/group8":  # Qwen3-30B-A3B's 32/4 heads
             row["launches"] = moe_launches.get("decode_paged_attention", 0)
         elif name == "decode_paged_attention/group12":  # GLM-4.5-Air's 96/8: two chunks
             row["launches"] = glm_launches.get("decode_paged_attention/chunked", 0)
@@ -3247,7 +3803,6 @@ def main() -> int:
             if min(row["launches_window"], row["launches_training"]) <= 0:
                 raise AssertionError(f"{name} was not launched on both gpt-oss paths")
         elif name.startswith("flash_attn_bwd"):
-            kernel = name.split("/")[0]
             if "/" in name:  # gpt-oss training
                 row["launches"] = oss_train_launches.get(kernel, 0)
                 row["launches_window"] = oss_train_launches.get(name, 0)
@@ -3281,6 +3836,15 @@ def main() -> int:
     log(f"qwen3-moe training on {card}: {json.dumps(moe_train_numbers)}")
     log(f"Qwen3-30B-A3B serving stats on {card}: {json.dumps(moe_stats)}")
     log(f"GLM-4.5-Air (4 layers) serving stats on {card}: {json.dumps(glm_stats)}")
+    log(f"launches on the MiniMax-M2 training path: {minimax_train_launches}")
+    log(f"launches on the MiniMax-M2 serving path: {minimax_launches}")
+    log(f"launches on the AFMoE and Laguna reference paths: {json.dumps(gated_launches)}")
+    log(f"launches on the GLM-5 serving path: {glm5_launches}")
+    log(f"minimax training on {card}: {json.dumps(minimax_train_numbers)}")
+    log(f"MiniMax-M2 ({MINIMAX_SERVE_LAYERS} layers) serving stats on {card}: "
+        f"{json.dumps(minimax_stats)}")
+    log(f"GLM-5 ({GLM5_CUTS['num_hidden_layers']} layers) serving stats on {card}: "
+        f"{json.dumps(glm5_stats)}")
     log(f"chip_smoke: {time.perf_counter() - t0:.1f} s from the build on")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -29,7 +29,7 @@ def build_server(config: InferenceConfig):
     from prime_rl_tpu_torch.models.base import get_spec
     from prime_rl_tpu_torch.models.qwen3 import load_hf_weights
     from prime_rl_tpu_torch.renderers.tokenizer import get_tokenizer
-    from prime_rl_tpu_torch.sampler.cache import CacheConfig
+    from prime_rl_tpu_torch.sampler.cache import CacheConfig, page_nbytes
     from prime_rl_tpu_torch.sampler.engine import Engine
     from prime_rl_tpu_torch.sampler.server import InferenceServer
     from prime_rl_tpu_torch.utils.device import memory_info, resolve_device
@@ -58,7 +58,7 @@ def build_server(config: InferenceConfig):
         params = load_hf_weights(config.model.name, spec, dtype=dtype, device=device)
 
     num_pages = config.kv.num_pages
-    page_bytes = 2 * spec.num_layers * spec.kv_dim * config.kv.page_size * 2
+    page_bytes = page_nbytes(spec, config.kv.page_size)
     if num_pages is None:
         if device.type != "cuda":
             raise ValueError("kv.num_pages is required on the CPU (the pool is sized "

@@ -2,13 +2,14 @@
 dense qwen3 block, llama (the same block with ``qk_norm=False``), gpt-oss
 (windows, sinks and clamped-GLU experts), qwen3_moe (Qwen3-30B-A3B) and
 glm4_moe (GLM-4.5: partial rotary, noaux-tc routing, shared experts, dense
-first layers), all trained and served, and the MLA families
-``deepseek_v3`` (dense MLA) and ``glm_moe_dsa`` (MLA + DSA sparse
-attention), both over the noaux-tc MoE stack, for training."""
+first layers), the gated-MoE families minimax_m2, afmoe and laguna (glm4_moe's
+block with attention-output gates, layer-scope qk-norm and sandwich norms),
+and the MLA families ``deepseek_v3`` (dense MLA) and ``glm_moe_dsa`` (MLA +
+DSA sparse attention) over the noaux-tc MoE stack, all trained and served."""
 
 from __future__ import annotations
 
-from prime_rl_tpu_torch.models import glm4_moe, gpt_oss, mla_moe, qwen3, qwen3_moe
+from prime_rl_tpu_torch.models import gated_moe, glm4_moe, gpt_oss, mla_moe, qwen3, qwen3_moe
 from prime_rl_tpu_torch.models.base import ModelSpec
 
 
@@ -31,9 +32,13 @@ _QWEN3_MOE = Family(qwen3_moe.init_params, qwen3_moe.forward, qwen3_moe.params_f
                     qwen3_moe.params_to_hf_state_dict, qwen3_moe.get_lm_head)
 _GLM4_MOE = Family(glm4_moe.init_params, glm4_moe.forward, glm4_moe.params_from_hf_state_dict,
                    glm4_moe.params_to_hf_state_dict, glm4_moe.get_lm_head)
+_GATED_MOE = Family(gated_moe.init_params, gated_moe.forward,
+                    gated_moe.params_from_hf_state_dict, gated_moe.params_to_hf_state_dict,
+                    gated_moe.get_lm_head)
 FAMILIES: dict[str, Family] = {"qwen3": _DENSE, "llama": _DENSE, "gpt_oss": _GPT_OSS,
                                "qwen3_moe": _QWEN3_MOE, "glm4_moe": _GLM4_MOE,
-                               "deepseek_v3": _MLA, "glm_moe_dsa": _MLA}
+                               "minimax_m2": _GATED_MOE, "afmoe": _GATED_MOE,
+                               "laguna": _GATED_MOE, "deepseek_v3": _MLA, "glm_moe_dsa": _MLA}
 
 
 def get_family(spec: ModelSpec) -> Family:

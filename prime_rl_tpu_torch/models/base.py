@@ -437,15 +437,17 @@ BUILTIN_SPECS: dict[str, ModelSpec] = {
         mamba_num_heads=128, mamba_head_dim=64, mamba_n_groups=8,
         mamba_state_size=128, mamba_conv_kernel=4, mamba_chunk_size=128,
     ),
-    # MiniMax-M2.1 class (reference: minimax_m2/configuration_minimax_m2.py
-    # defaults): sigmoid+bias routing, per-layer qk-norm, partial rotary
+    # MiniMaxAI/MiniMax-M2's published config.json: sigmoid + bias routing,
+    # a layer-scope qk-norm, rotary over 64 of 128 dims, 256 experts of 1536.
+    # (The JAX package's table gives 6144 wide, 92 layers and experts of
+    # 24576, which is not the published model.)
     "MiniMaxAI/MiniMax-M2": ModelSpec(
-        family="minimax_m2", vocab_size=200064, hidden_size=6144, num_layers=92,
-        num_heads=48, num_kv_heads=8, head_dim=128, intermediate_size=24576,
+        family="minimax_m2", vocab_size=200064, hidden_size=3072, num_layers=62,
+        num_heads=48, num_kv_heads=8, head_dim=128, intermediate_size=1536,
         rope_theta=5e6, rms_eps=1e-6, tie_embeddings=False, qk_norm=True,
         qk_norm_scope="layer", max_position_embeddings=131072,
-        bos_token_id=1, eos_token_id=2, pad_token_id=0,
-        num_experts=256, num_experts_per_tok=8, moe_intermediate_size=24576,
+        eos_token_id=2, pad_token_id=0,
+        num_experts=256, num_experts_per_tok=8, moe_intermediate_size=1536,
         norm_topk_prob=True, router_sigmoid=True, partial_rotary_factor=0.5,
     ),
     # ByteTokenizer-compatible tiny model for the offline sync-GRPO debug loop

@@ -14,10 +14,19 @@ K2a/K2b backward, at any GQA group (GLM-4.5: 96/8 heads).
 Layout: the first ``first_k_dense_replace`` layers live under
 ``dense_layers`` (stacked ``[k, ...]``), the MoE layers under ``layers``
 (stacked ``[NL - k, ...]``), routed experts as ``expert_{gate,up,down}``
-``[n, E, in, out]``. Sandwich norms (the gated-MoE families) raise.
+``[n, E, in, out]``.
+
+The gated-MoE families (``minimax_m2``, ``afmoe``, ``laguna``;
+``models/gated_moe.py``) run this init and forward, which read their spec
+axes: the layer-scope qk-norm and the attention-output gates (in
+``qwen3._attn_block``), the sandwich norms, a shared expert of absolute
+size (``shared_expert_size``) and a local rope base on windowed layers
+(``rope_theta_local``).
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
@@ -25,6 +34,7 @@ from prime_rl_tpu_torch.models import qwen3
 from prime_rl_tpu_torch.models.base import ModelSpec
 from prime_rl_tpu_torch.models.qwen3 import (
     layer_remat,
+    layer_rope_frequencies,
     layer_windows_list,
     parse_remat,
     rope_setup,
@@ -37,9 +47,10 @@ from prime_rl_tpu_torch.ops.layers import rms_norm, swiglu
 from prime_rl_tpu_torch.ops.moe import moe_mlp
 
 Params = dict
-FAMILY = "glm4_moe"
+# glm4_moe and the gated-MoE families, which share its block
+FAMILIES = ("glm4_moe", "minimax_m2", "afmoe", "laguna")
 _MOE_FIELDS = ("router", "router_correction_bias", "expert_gate", "expert_up", "expert_down",
-               "shared_gate", "shared_up", "shared_down")
+               "shared_gate", "shared_up", "shared_down", "post_mlp_norm")
 
 
 def init_params(spec: ModelSpec, generator: torch.Generator, dtype=torch.float32,
@@ -50,8 +61,9 @@ def init_params(spec: ModelSpec, generator: torch.Generator, dtype=torch.float32
     the routed and the shared experts, std 0.02 cut at 2 sigma, drawn a layer
     at a time straight into ``dtype``. The numbers differ from the JAX
     package's ``jax.random`` init."""
-    if spec.family != FAMILY:
-        raise ValueError(f"glm4_moe.init_params: family {spec.family!r} is not glm4_moe")
+    if spec.family not in FAMILIES:
+        raise ValueError(f"glm4_moe.init_params: family {spec.family!r} is not one of "
+                         f"{', '.join(FAMILIES)}")
     params = qwen3.init_params(spec_dense_view(spec), generator, dtype=dtype, device=device)
     k_dense = spec.first_k_dense_replace
     n_moe = spec.num_layers - k_dense
@@ -89,10 +101,8 @@ def glm_moe_block(h: torch.Tensor, lp: dict, spec: ModelSpec, compute_dtype,
     ``lp`` holds one layer's weights as stored; matrices other than the
     router are cast to ``compute_dtype`` here, the router math stays f32.
     ``forced_experts`` ([B*L, K] int, -1 = own routing) replays the sampler's
-    expert selection (router replay)."""
-    if spec.sandwich_norm:
-        raise NotImplementedError("sandwich norms come with the gated-MoE slice (ROADMAP.md, "
-                                  "Queue 1 item 5)")
+    expert selection (router replay). Under sandwich norms the output is
+    normed (``post_mlp_norm``) before the residual add."""
     b, l, d = h.shape
     cast = {k: (v.to(compute_dtype) if v.dim() >= 2 and "router" not in k else v)
             for k, v in lp.items()}
@@ -113,7 +123,7 @@ def glm_moe_block(h: torch.Tensor, lp: dict, spec: ModelSpec, compute_dtype,
         out = out + torch.matmul(
             swiglu(torch.matmul(x, cast["shared_gate"]), torch.matmul(x, cast["shared_up"])),
             cast["shared_down"])
-    return h + out, routing.load_balance_loss
+    return h + qwen3.post_mlp(out, cast, spec), routing.load_balance_loss
 
 
 def forward(
@@ -141,13 +151,12 @@ def forward(
     SwiGLU; ``routed_experts`` covers the MoE layers only and replays the
     sampler's selection there (rows of -1 keep the trainer's own routing).
     ``remat`` as in ``qwen3.forward``; ``block_q``/``block_kv`` are accepted
-    and unused."""
-    if spec.family != FAMILY:
-        raise ValueError(f"glm4_moe.forward: family {spec.family!r} is not glm4_moe")
+    and unused. Windowed layers take their own rope base where the spec has
+    one (``rope_theta_local``, Laguna)."""
+    if spec.family not in FAMILIES:
+        raise ValueError(f"glm4_moe.forward: family {spec.family!r} is not one of "
+                         f"{', '.join(FAMILIES)}")
     check_forward_args(spec, mesh, lora, quantized_compute)
-    if spec.rope_theta_local:
-        raise NotImplementedError("a local rope base comes with the gated-MoE slice "
-                                  "(ROADMAP.md, Queue 1 item 5)")
     nl, k_dense = spec.num_layers, spec.first_k_dense_replace
     base_remat, save_stride = parse_remat(remat, nl)
     inv_freq, rope_scaling = rope_setup(spec, device=input_ids.device)
@@ -157,14 +166,16 @@ def forward(
     def attn(h, lp, saved, window):
         cast = {k: (v.to(compute_dtype) if v.dim() >= 2 else v)
                 for k, v in lp.items() if k not in _MOE_FIELDS}
-        return qwen3._attn_block(h, cast, spec, segment_ids, position_ids, inv_freq, attn_impl,
+        return qwen3._attn_block(h, cast, spec, segment_ids, position_ids,
+                                 layer_rope_frequencies(spec, inv_freq, window), attn_impl,
                                  rope_scaling, saved, window), cast
 
     def dense_block(h, lp, saved, window):
         h, cast = attn(h, lp, saved, window)
         x = rms_norm(h, cast["mlp_norm"], spec.rms_eps)
-        return h + torch.matmul(
-            swiglu(torch.matmul(x, cast["gate"]), torch.matmul(x, cast["up"])), cast["down"])
+        return h + qwen3.post_mlp(torch.matmul(
+            swiglu(torch.matmul(x, cast["gate"]), torch.matmul(x, cast["up"])), cast["down"]),
+            lp, spec)
 
     def moe_block(h, lp, saved, window, forced):
         h, _ = attn(h, lp, saved, window)
@@ -191,26 +202,61 @@ def forward(
 get_lm_head = qwen3.get_lm_head
 
 
+
 # ---------------------------------------------------------------------------
 # HF interchange. Per-expert torch Linears ([out, in] -> transpose), router
-# weight [E, D] -> [D, E], e_score_correction_bias buffer, shared_experts.* MLP.
+# weight [E, D] -> [D, E], a selection-only correction-bias buffer, shared
+# expert MLPs. One converter for every family over this MoE stack: the key
+# names of the MoE half, the pre-MLP norm, the gate and the sandwich norms
+# come from an ``HFKeys`` table (``GLM4_KEYS`` here, the gated families' in
+# ``models/gated_moe.py``); the MLA families pass their own attention keys.
 # ---------------------------------------------------------------------------
 
 _MLP = (("gate", "gate_proj"), ("up", "up_proj"), ("down", "down_proj"))
 
 
-def _attn_keys(spec: ModelSpec):
+@dataclass(frozen=True)
+class HFKeys:
+    """One family's HF key layout of the MoE half and the block's extras."""
+    router: str                    # router weight, stored [E, D] (transposed)
+    bias: str | None               # e_score_correction_bias, [E]
+    experts: str                   # per-expert prefix
+    expert_projs: tuple            # (gate, up, down) suffixes under experts.{e}.
+    shared: str | None             # shared-expert prefix
+    mlp_norm: str                  # the pre-MLP norm's HF name
+    attn_gate: str | None = None
+    post_attn_norm: str | None = None
+    post_mlp_norm: str | None = None
+
+
+GLM4_KEYS = HFKeys(
+    router="mlp.gate.weight",
+    bias="mlp.gate.e_score_correction_bias",
+    experts="mlp.experts",
+    expert_projs=("gate_proj.weight", "up_proj.weight", "down_proj.weight"),
+    shared="mlp.shared_experts",
+    mlp_norm="post_attention_layernorm.weight",
+)
+
+
+def _attn_keys(spec: ModelSpec, t: HFKeys):
     keys = [
         ("attn_norm", "input_layernorm.weight", False),
         ("q", "self_attn.q_proj.weight", True),
         ("k", "self_attn.k_proj.weight", True),
         ("v", "self_attn.v_proj.weight", True),
         ("o", "self_attn.o_proj.weight", True),
-        ("mlp_norm", "post_attention_layernorm.weight", False),
+        ("mlp_norm", t.mlp_norm, False),
     ]
     if spec.qk_norm:
         keys += [("q_norm", "self_attn.q_norm.weight", False),
                  ("k_norm", "self_attn.k_norm.weight", False)]
+    if t.attn_gate:
+        keys.append(("attn_gate", t.attn_gate, True))
+    if t.post_attn_norm:
+        keys.append(("post_attn_norm", t.post_attn_norm, False))
+    if t.post_mlp_norm:
+        keys.append(("post_mlp_norm", t.post_mlp_norm, False))
     if spec.attn_bias:
         keys += [("q_bias", "self_attn.q_proj.bias", False),
                  ("k_bias", "self_attn.k_proj.bias", False),
@@ -218,21 +264,28 @@ def _attn_keys(spec: ModelSpec):
     return keys
 
 
+def _has_shared(spec: ModelSpec, t: HFKeys) -> bool:
+    return bool(t.shared and (spec.n_shared_experts or spec.shared_expert_size))
+
+
 def params_from_hf_state_dict(state: dict, spec: ModelSpec, dtype=torch.float32,
-                              device: torch.device | str = "cpu", attn_keys=None) -> Params:
+                              device: torch.device | str = "cpu", attn_keys=None,
+                              keys: HFKeys = GLM4_KEYS) -> Params:
     """Stacked params from a flat HF state dict (torch tensors or numpy
     arrays), placed on ``device`` in ``dtype`` (the selection-only
-    ``router_correction_bias`` stays float32). ``attn_keys`` lets the
-    MLA-attention families reuse this converter's shared trunk
-    (embed/norm/MoE/dense-MLP) with their own attention key table."""
+    ``router_correction_bias`` stays float32). ``keys`` names the family's
+    layout; ``attn_keys`` lets the MLA-attention families reuse this
+    converter's shared trunk (embed/norm/MoE/dense-MLP) with their own
+    attention key table."""
+    t = keys
 
     def get(key, tr, dt=dtype):
-        t = torch.as_tensor(state[key]).to(device=device, dtype=dt)
-        return t.T.contiguous() if tr else t
+        x = torch.as_tensor(state[key]).to(device=device, dtype=dt)
+        return x.T.contiguous() if tr else x
 
     k_dense = spec.first_k_dense_replace
     nl, e = spec.num_layers, spec.num_experts
-    akeys = attn_keys or _attn_keys(spec)
+    akeys = attn_keys or _attn_keys(spec, t)
 
     def layer_attn(i):
         return {f: get(f"model.layers.{i}.{suf}", tr) for f, suf, tr in akeys}
@@ -250,17 +303,16 @@ def params_from_hf_state_dict(state: dict, spec: ModelSpec, dtype=torch.float32,
     moe_layers = []
     for i in range(k_dense, nl):
         lp = layer_attn(i)
-        lp["router"] = get(f"model.layers.{i}.mlp.gate.weight", True)
-        lp["router_correction_bias"] = get(
-            f"model.layers.{i}.mlp.gate.e_score_correction_bias", False, torch.float32)
-        for ours, theirs in _MLP:
+        lp["router"] = get(f"model.layers.{i}.{t.router}", True)
+        if t.bias:
+            lp["router_correction_bias"] = get(f"model.layers.{i}.{t.bias}", False,
+                                               torch.float32)
+        for (ours, _), suf in zip(_MLP, t.expert_projs):
             lp[f"expert_{ours}"] = torch.stack([
-                get(f"model.layers.{i}.mlp.experts.{j}.{theirs}.weight", True)
-                for j in range(e)])
-        if spec.n_shared_experts:
+                get(f"model.layers.{i}.{t.experts}.{j}.{suf}", True) for j in range(e)])
+        if _has_shared(spec, t):
             for ours, theirs in _MLP:
-                lp[f"shared_{ours}"] = get(
-                    f"model.layers.{i}.mlp.shared_experts.{theirs}.weight", True)
+                lp[f"shared_{ours}"] = get(f"model.layers.{i}.{t.shared}.{theirs}.weight", True)
         moe_layers.append(lp)
 
     params: Params = {
@@ -275,16 +327,18 @@ def params_from_hf_state_dict(state: dict, spec: ModelSpec, dtype=torch.float32,
     return params
 
 
-def params_to_hf_state_dict(params: Params, spec: ModelSpec, attn_keys=None) -> dict:
+def params_to_hf_state_dict(params: Params, spec: ModelSpec, attn_keys=None,
+                            keys: HFKeys = GLM4_KEYS) -> dict:
     """Flat HF state dict from the stacked params: tensors on the params'
     device in their dtype (transposed views where HF stores [out, in]), so a
     multi-gigabyte snapshot is not widened to float32 on the host."""
+    t = keys
     state: dict[str, torch.Tensor] = {
         "model.embed_tokens.weight": params["embed"].detach(),
         "model.norm.weight": params["final_norm"].detach(),
     }
     k_dense = spec.first_k_dense_replace
-    akeys = attn_keys or _attn_keys(spec)
+    akeys = attn_keys or _attn_keys(spec, t)
 
     def put_attn(i, lp):
         for f, suf, tr in akeys:
@@ -299,16 +353,16 @@ def params_to_hf_state_dict(params: Params, spec: ModelSpec, attn_keys=None) -> 
         i = k_dense + li
         lp = {k: v[li].detach() for k, v in params["layers"].items()}
         put_attn(i, lp)
-        state[f"model.layers.{i}.mlp.gate.weight"] = lp["router"].T
-        state[f"model.layers.{i}.mlp.gate.e_score_correction_bias"] = lp["router_correction_bias"]
-        for ours, theirs in _MLP:
+        state[f"model.layers.{i}.{t.router}"] = lp["router"].T
+        if t.bias:
+            state[f"model.layers.{i}.{t.bias}"] = lp["router_correction_bias"]
+        for (ours, _), suf in zip(_MLP, t.expert_projs):
             stacked = lp[f"expert_{ours}"]
             for j in range(spec.num_experts):
-                state[f"model.layers.{i}.mlp.experts.{j}.{theirs}.weight"] = stacked[j].T
-        if spec.n_shared_experts:
+                state[f"model.layers.{i}.{t.experts}.{j}.{suf}"] = stacked[j].T
+        if _has_shared(spec, t):
             for ours, theirs in _MLP:
-                state[f"model.layers.{i}.mlp.shared_experts.{theirs}.weight"] = (
-                    lp[f"shared_{ours}"].T)
+                state[f"model.layers.{i}.{t.shared}.{theirs}.weight"] = lp[f"shared_{ours}"].T
     if not spec.tie_embeddings:
         state["lm_head.weight"] = params["lm_head"].detach().T
     return state

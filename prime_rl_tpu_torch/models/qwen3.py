@@ -4,8 +4,12 @@ conversion (the port of the JAX package's ``models/qwen3.py``).
 
 RMSNorm -> GQA attention with per-head q/k RMSNorm + RoPE (optional q/k/v/o
 biases, sliding windows per layer, learned attention sinks) -> RMSNorm ->
-SwiGLU. The gpt-oss family reuses the attention half (``_attn_block``,
-``init_params`` through ``spec_dense_view``). Parameters are a plain dict of
+SwiGLU. The gated-MoE axes live here too: a layer-scope qk-norm over the flat
+q/k (MiniMax-M2), an attention-output gate on the normed block input
+(``apply_attn_gate``: AFMoE's sigmoid, Laguna's per-head softplus) and the
+sandwich norms on each block's output before the residual add (AFMoE). The
+MoE families reuse the attention half (``_attn_block``, ``init_params``
+through ``spec_dense_view``). Parameters are a plain dict of
 tensors in the JAX package's stacked layout: ``{"embed": [V, D], "layers":
 {name: [NL, ...]}, "final_norm": [D], "lm_head": [D, V] (untied only)}``,
 projections stored ``[in, out]``. The
@@ -32,6 +36,9 @@ from prime_rl_tpu_torch.ops.layers import (
 )
 
 Params = dict
+# families whose attention and embeddings this module initializes
+_INIT_FAMILIES = ("qwen3", "llama", "gpt_oss", "qwen3_moe", "glm4_moe", "minimax_m2", "afmoe",
+                  "laguna")
 
 
 def rope_setup(spec: ModelSpec, device: torch.device | str = "cpu") -> tuple[torch.Tensor, float]:
@@ -46,6 +53,16 @@ def rope_setup(spec: ModelSpec, device: torch.device | str = "cpu") -> tuple[tor
             spec.rope_yarn_truncate, device=device,
         )
     return rope_frequencies(rot_dim, spec.rope_theta, device=device), 1.0
+
+
+def layer_rope_frequencies(spec: ModelSpec, inv_freq: torch.Tensor, window: int) -> torch.Tensor:
+    """A layer's rope frequencies: a windowed layer runs its own base where
+    the spec has one (``rope_theta_local``, Laguna: 10k on sliding layers
+    against 500k on full ones); every other layer ``inv_freq``."""
+    if window and spec.rope_theta_local:
+        rot_dim = int(spec.head_dim * spec.partial_rotary_factor)
+        return rope_frequencies(rot_dim, spec.rope_theta_local, device=inv_freq.device)
+    return inv_freq
 
 
 def spec_dense_view(spec: ModelSpec) -> ModelSpec:
@@ -78,10 +95,9 @@ def init_params(spec: ModelSpec, generator: torch.Generator, dtype=torch.float32
     ``device``, drawn from ``generator`` (which must live on that device).
     The numbers differ from the JAX package's ``jax.random`` init. gpt-oss
     calls this on its ``spec_dense_view`` for the attention and embeddings."""
-    if spec.family not in ("qwen3", "llama", "gpt_oss", "qwen3_moe", "glm4_moe"):
+    if spec.family not in _INIT_FAMILIES:
         raise NotImplementedError(f"model family {spec.family!r} has no dense init here "
-                                  "(qwen3, llama and the attention of gpt-oss, qwen3_moe "
-                                  "and glm4_moe do)")
+                                  f"(these do: {', '.join(_INIT_FAMILIES)})")
     d, nl = spec.hidden_size, spec.num_layers
 
     def w(*shape):
@@ -109,6 +125,13 @@ def init_params(spec: ModelSpec, generator: torch.Generator, dtype=torch.float32
         kw_ = spec.kv_dim if spec.qk_norm_scope == "layer" else spec.head_dim
         layers["q_norm"] = ones(nl, qw)
         layers["k_norm"] = ones(nl, kw_)
+    if spec.attn_gate == "sigmoid":
+        layers["attn_gate"] = w(nl, d, spec.q_dim)
+    elif spec.attn_gate == "softplus_head":
+        layers["attn_gate"] = w(nl, d, spec.num_heads)
+    if spec.sandwich_norm:
+        layers["post_attn_norm"] = ones(nl, d)
+        layers["post_mlp_norm"] = ones(nl, d)
     if spec.attn_sinks:
         layers["sink"] = zeros(nl, spec.num_heads)
     if spec.attn_bias:
@@ -172,17 +195,44 @@ def _attn_block(
     k = apply_rope(k, position_ids, inv_freq, rope_scaling)
     o = attention(q, k, v, segment_ids, causal=True, window=window, sinks=lp.get("sink"),
                   impl=attn_impl, saved=saved)
+    o = apply_attn_gate(o, x, lp, spec)
     proj = torch.matmul(o.reshape(b, l, spec.q_dim), lp["o"])
     if lp.get("o_bias") is not None:
         proj = proj + lp["o_bias"].to(proj.dtype)
-    return h + proj
+    return h + post_attn(proj, lp, spec)
+
+
+def apply_attn_gate(o: torch.Tensor, x: torch.Tensor, lp: dict, spec: ModelSpec) -> torch.Tensor:
+    """Attention-output gating. o: [..., NH, HD]; x: the normed block input
+    with o's leading dims. ``sigmoid``: o * sigmoid(x @ Wg) elementwise over
+    the flat q_dim (AFMoE); ``softplus_head``: o * softplus(x @ Wg), one
+    scalar a head, the softplus in float32 (Laguna)."""
+    if not spec.attn_gate:
+        return o
+    g = torch.matmul(x, lp["attn_gate"])
+    if spec.attn_gate == "sigmoid":
+        return o * torch.sigmoid(g).reshape(o.shape)
+    if spec.attn_gate == "softplus_head":
+        return o * torch.nn.functional.softplus(g.float()).to(o.dtype)[..., None]
+    raise ValueError(f"unknown attn_gate {spec.attn_gate!r}")
 
 
 def _mlp_block(h: torch.Tensor, lp: dict[str, torch.Tensor], spec: ModelSpec) -> torch.Tensor:
     x = rms_norm(h, lp["mlp_norm"], spec.rms_eps)
     gate = torch.matmul(x, lp["gate"])
     up = torch.matmul(x, lp["up"])
-    return h + torch.matmul(swiglu(gate, up), lp["down"])
+    return h + post_mlp(torch.matmul(swiglu(gate, up), lp["down"]), lp, spec)
+
+
+def post_attn(proj: torch.Tensor, lp: dict, spec: ModelSpec) -> torch.Tensor:
+    """The attention's output before the residual add: normed under sandwich
+    norms (AFMoE)."""
+    return rms_norm(proj, lp["post_attn_norm"], spec.rms_eps) if spec.sandwich_norm else proj
+
+
+def post_mlp(out: torch.Tensor, lp: dict, spec: ModelSpec) -> torch.Tensor:
+    """The MLP's output before the residual add: normed under sandwich norms."""
+    return rms_norm(out, lp["post_mlp_norm"], spec.rms_eps) if spec.sandwich_norm else out
 
 
 _WAITING_REMAT = {
@@ -222,9 +272,6 @@ def forward(
     remat modes) raise."""
     if spec.family not in ("qwen3", "llama"):
         raise NotImplementedError(f"model family {spec.family!r} is not ported yet")
-    if spec.attn_gate or spec.sandwich_norm:
-        raise NotImplementedError("attention gates and sandwich norms come with the "
-                                  "gated-MoE slice")
     if mesh is not None:
         raise NotImplementedError("context parallelism waits for the multi-card slice")
     if lora is not None:
@@ -389,9 +436,9 @@ def params_from_jax(np_params: dict, spec: ModelSpec, device: torch.device | str
                     dtype=torch.float32) -> Params:
     """The JAX package's stacked training pytree, fetched as numpy arrays
     (``jax.device_get``), as this package's params: the same layout and
-    values, so both packages compute the same function (gpt-oss, qwen3_moe
-    and glm4_moe too)."""
-    if spec.family not in ("qwen3", "llama", "gpt_oss", "qwen3_moe", "glm4_moe"):
+    values, so both packages compute the same function (every family this
+    module initializes)."""
+    if spec.family not in _INIT_FAMILIES:
         raise NotImplementedError(f"model family {spec.family!r} is not ported yet")
 
     def conv(x):

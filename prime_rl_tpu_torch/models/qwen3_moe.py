@@ -99,9 +99,6 @@ def forced_by_layer(routed_experts: torch.Tensor | None, n_layers: int,
 
 def check_forward_args(spec: ModelSpec, mesh, lora, quantized_compute) -> None:
     """Raise for what the MoE families' forwards do not take yet."""
-    if spec.sandwich_norm or spec.attn_gate:
-        raise NotImplementedError("sandwich norms and attention gates come with the gated-MoE "
-                                  "slice (ROADMAP.md, Queue 1 item 5)")
     if mesh is not None:
         raise NotImplementedError("context parallelism waits for the multi-card slice "
                                   "(ROADMAP.md, Queue 1 item 11)")
@@ -140,6 +137,9 @@ def forward(
     if spec.family != FAMILY:
         raise ValueError(f"qwen3_moe.forward: family {spec.family!r} is not qwen3_moe")
     check_forward_args(spec, mesh, lora, quantized_compute)
+    if spec.sandwich_norm or spec.attn_gate:
+        raise NotImplementedError("qwen3_moe has no sandwich norms or attention gates (the "
+                                  "gated-MoE families run glm4_moe's block)")
     nl = spec.num_layers
     base_remat, save_stride = parse_remat(remat, nl)
     inv_freq, rope_scaling = rope_setup(spec, device=input_ids.device)

@@ -1,7 +1,10 @@
 """Paged KV cache: device pool + host page allocator (the port of the JAX
-package's ``sampler/cache.py``, dense attention path).
+package's ``sampler/cache.py``; dense attention and MLA).
 
     k/v: one [num_kv_heads, num_pages, page_size, head_dim] tensor per layer
+    MLA: k one [1, num_pages, page_size, kv_lora_rank + qk_rope_head_dim]
+         latent row a token, shared by every head; v the DSA indexer keys
+         [1, num_pages, page_size, index_head_dim], or None for dense MLA
 
 The allocator is plain host Python (a free list); the device only ever sees
 a page table ``[max_slots, pages_per_slot] int32`` and per-slot lengths.
@@ -53,22 +56,49 @@ def layer_kinds(spec: ModelSpec) -> list[str]:
 class KVPool:
     """Device-side pool, one k and one v tensor PER LAYER, updated in place
     by prefill page writes and the decode append (where the JAX pool is
-    donated and functionally replaced)."""
+    donated and functionally replaced). MLA keeps the latent row of each
+    token in k (the compressed cache MLA exists for) and, for DSA, the
+    indexer keys in v, so that decode runs the exact top-k selection; dense
+    MLA has no v (None)."""
 
     def __init__(self, spec: ModelSpec, config: CacheConfig, dtype=torch.bfloat16,
                  device: torch.device | str = "cpu"):
-        if spec.kv_lora_rank > 0 or any(kd != "A" for kd in layer_kinds(spec)):
+        if any(kd != "A" for kd in layer_kinds(spec)):
             raise NotImplementedError(
-                f"model family {spec.family!r}: only dense attention layers are ported "
-                "(MLA latent caches and hybrid recurrent layers come later)")
+                f"model family {spec.family!r}: hybrid recurrent layers are not ported yet")
         self.spec = spec
         self.config = config
-        shape = (spec.num_kv_heads, config.num_pages, config.page_size, spec.head_dim)
-        self.k = [torch.zeros(shape, dtype=dtype, device=device) for _ in range(spec.num_layers)]
-        self.v = [torch.zeros(shape, dtype=dtype, device=device) for _ in range(spec.num_layers)]
+        nl = spec.num_layers
+        if spec.kv_lora_rank > 0:
+            lead, (k_row, v_row) = 1, row_widths(spec)
+        else:
+            lead, k_row, v_row = spec.num_kv_heads, spec.head_dim, spec.head_dim
+
+        def pool(width):
+            if not width:
+                return [None] * nl
+            shape = (lead, config.num_pages, config.page_size, width)
+            return [torch.zeros(shape, dtype=dtype, device=device) for _ in range(nl)]
+
+        self.k, self.v = pool(k_row), pool(v_row)
 
     def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size() for pool in (self.k, self.v) for t in pool)
+        return sum(t.numel() * t.element_size() for pool in (self.k, self.v) for t in pool
+                   if t is not None)
+
+
+def row_widths(spec: ModelSpec) -> tuple[int, int]:
+    """Values a token adds to the k and the v pool of one layer: the kv heads'
+    rows, or MLA's latent row and DSA's indexer key (0: no v pool)."""
+    if spec.kv_lora_rank > 0:
+        return (spec.kv_lora_rank + spec.qk_rope_head_dim,
+                spec.index_head_dim if spec.index_topk > 0 else 0)
+    return spec.kv_dim, spec.kv_dim
+
+
+def page_nbytes(spec: ModelSpec, page_size: int, itemsize: int = 2) -> int:
+    """Bytes one page takes over every layer's k and v pool."""
+    return spec.num_layers * sum(row_widths(spec)) * page_size * itemsize
 
 
 def hash_pages(tokens: list[int], page_size: int, salt: object = None) -> list[int]:

@@ -380,7 +380,10 @@ class Engine:
 
     def _admit_batch_plain(self) -> bool:
         """Batch same-bucket pending prefills into one pass. Cache-hit
-        requests fall through to the single path where the prefix is reused."""
+        requests fall through to the single path where the prefix is reused.
+        The MLA families prefill one prompt at a time, as in the JAX engine."""
+        if self.spec.kv_lora_rank > 0:
+            return False
         with self._lock:
             window = list(self.pending)[: self.ADMIT_WINDOW]
         groups: dict[int, list] = {}

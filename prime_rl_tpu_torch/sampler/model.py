@@ -1,9 +1,12 @@
 """Sampler-side model functions: prefill and decode against the paged KV
 cache (the port of the JAX package's ``sampler/model.py``: the qwen3/llama
 block, gpt-oss, whose layers carry a sliding window, attention sinks,
-q/k/v/o biases and routed experts, qwen3_moe, and glm4_moe with its partial
-rotary, noaux-tc routing, shared experts and dense first layers). Parameters
-use the serving layout (``unstack_params``: a list of per-layer dicts).
+q/k/v/o biases and routed experts, qwen3_moe, glm4_moe with its partial
+rotary, noaux-tc routing, shared experts and dense first layers, the
+gated-MoE families minimax_m2, afmoe and laguna with their layer-scope
+qk-norm, attention-output gates and sandwich norms, and the MLA families
+deepseek_v3 and glm_moe_dsa over a latent cache). Parameters use the serving
+layout (``unstack_params``: a list of per-layer dicts).
 
 Router replay: with ``collect_routing`` ``decode`` also returns the expert
 ids each slot's input token was routed to, ``[S, NL_moe, K]`` in the order of
@@ -13,17 +16,28 @@ Where the JAX functions take donated pools and return new ones, these write
 the per-layer pool tensors IN PLACE and return the same lists, so callers
 read the same way in both packages.
 
+MLA (``kv_lora_rank > 0``): the pool holds one latent row of ``kv_lora_rank
++ qk_rope_head_dim`` a token, shared by every head; for DSA the V pool holds
+the indexer keys. The prefill runs the training attention block
+(``models/mla_moe.mla_attention``) and pages the latent rows (and indexer
+keys); decode and chunked prefill attend with the absorbed query over the
+gathered latent history, DSA masked to the indexer's exact top-k (ties
+broken as ``jax.lax.top_k`` breaks them: lower index first).
+
 Kernels on this path (for CUDA tensors; CPU tensors take the plain versions):
 - prefill attention: K1 ``ops/flash_attention.py`` through ``ops.attention``
-  (banded for a windowed layer, with the layer's sinks);
-- decode q/k/v preparation: K3 ``ops/decode_qkv.py``;
+  (banded for a windowed layer, with the layer's sinks); for DSA, K5a
+  ``ops/sparse_mla_kernel.py`` through ``mla_attention``;
+- decode q/k/v preparation: K3 ``ops/decode_qkv.py``, where the JAX package
+  takes its kernel: not for a layer-scope qk-norm or a gated layer, whose
+  q/k/v are plain PyTorch on the card as they are XLA on the TPU;
 - decode attention + KV append: K4 ``ops/decode_attention.py`` (window and
   sinks likewise).
-Chunked prefill attention (``_chunk_attention_xla``) and the MoE layers
-(``ops/moe.py``) are plain PyTorch, as they are XLA in the JAX package.
+Chunked prefill attention (``_chunk_attention_xla``), MLA decode and chunked
+prefill, and the MoE layers (``ops/moe.py``) are plain PyTorch, as they are
+XLA in the JAX package.
 
-LoRA, MLA/DSA, hybrid recurrent layers, vision inputs, int8 weights,
-attention-output gates, layer-scope qk-norm and sandwich norms are later
+LoRA, hybrid recurrent layers, vision inputs and int8 weights are later
 slices: ``check_supported`` raises ``NotImplementedError`` for them.
 """
 
@@ -32,7 +46,16 @@ from __future__ import annotations
 import torch
 
 from prime_rl_tpu_torch.models.base import ModelSpec
-from prime_rl_tpu_torch.models.qwen3 import get_lm_head, layer_windows_list, rope_setup
+from prime_rl_tpu_torch.models.mla_moe import mla_absorbed_qkv, mla_attention, mla_indexer_qk
+from prime_rl_tpu_torch.models.qwen3 import (
+    apply_attn_gate,
+    get_lm_head,
+    layer_rope_frequencies,
+    layer_windows_list,
+    post_attn,
+    post_mlp,
+    rope_setup,
+)
 from prime_rl_tpu_torch.ops.attention import attention
 from prime_rl_tpu_torch.ops.decode_attention import (
     decode_attention_xla as _decode_attention_xla,
@@ -46,29 +69,21 @@ from prime_rl_tpu_torch.ops.moe import moe_mlp
 Params = dict
 
 
-SERVED_FAMILIES = ("qwen3", "llama", "gpt_oss", "qwen3_moe", "glm4_moe")
+SERVED_FAMILIES = ("qwen3", "llama", "gpt_oss", "qwen3_moe", "glm4_moe", "minimax_m2", "afmoe",
+                   "laguna", "deepseek_v3", "glm_moe_dsa")
 
 
 def check_supported(spec: ModelSpec) -> None:
     """Raise ``NotImplementedError`` for any feature outside the serving path
-    ported so far: the qwen3/llama block, gpt-oss (routed experts, windows,
-    sinks, biases), qwen3_moe and glm4_moe (shared experts, noaux-tc routing,
-    partial rotary, dense first layers)."""
+    ported so far (``SERVED_FAMILIES``): hybrid recurrent layers and vision
+    inputs."""
     missing = []
     if spec.family not in SERVED_FAMILIES:
         missing.append(f"family {spec.family!r}")
-    if spec.kv_lora_rank > 0:
-        missing.append("MLA/DSA attention")
     if spec.gdn_pattern or spec.layer_pattern:
         missing.append("hybrid recurrent layers")
     if spec.vision is not None:
         missing.append("vision inputs")
-    if spec.attn_gate:
-        missing.append("attention-output gates")
-    if spec.qk_norm and spec.qk_norm_scope == "layer":
-        missing.append("layer-scope qk-norm")
-    if spec.sandwich_norm:
-        missing.append("sandwich norms (ROADMAP.md, Queue 1 item 5)")
     if missing:
         raise NotImplementedError("not ported yet: " + ", ".join(missing)
                                   + f" (served: {', '.join(SERVED_FAMILIES)})")
@@ -80,28 +95,25 @@ def _mm(x: torch.Tensor, w) -> torch.Tensor:
     return x @ w
 
 
-def _dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x @ w with f32 output from compute-dtype inputs (the JAX
-    ``preferred_element_type=float32`` product)."""
-    if x.is_cuda and x.dtype == torch.bfloat16:
-        return torch.mm(x, w, out_dtype=torch.float32)
-    return x.float() @ w.float()
-
-
 def _qkv(x, lp, spec, positions, inv_freq, rope_scaling: float = 1.0):
-    """Shared q/k/v projection (+ optional biases) + qk-norm + rope.
+    """Shared q/k/v projection (+ optional biases) + qk-norm (per head, or
+    over the flat width of the layer before the head reshape) + rope.
     x: [B, T, D]."""
     b, t, _ = x.shape
     if "lora" in lp:
         raise NotImplementedError("LoRA serving is not ported yet")
-    q = _mm(x, lp["q"]).reshape(b, t, spec.num_heads, spec.head_dim)
-    k = _mm(x, lp["k"]).reshape(b, t, spec.num_kv_heads, spec.head_dim)
+    qf, kf = _mm(x, lp["q"]), _mm(x, lp["k"])
+    if spec.qk_norm and spec.qk_norm_scope == "layer":
+        qf = rms_norm(qf, lp["q_norm"], spec.rms_eps)
+        kf = rms_norm(kf, lp["k_norm"], spec.rms_eps)
+    q = qf.reshape(b, t, spec.num_heads, spec.head_dim)
+    k = kf.reshape(b, t, spec.num_kv_heads, spec.head_dim)
     v = _mm(x, lp["v"]).reshape(b, t, spec.num_kv_heads, spec.head_dim)
     if lp.get("q_bias") is not None:
         q = q + lp["q_bias"].to(q.dtype).reshape(1, 1, spec.num_heads, spec.head_dim)
         k = k + lp["k_bias"].to(k.dtype).reshape(1, 1, spec.num_kv_heads, spec.head_dim)
         v = v + lp["v_bias"].to(v.dtype).reshape(1, 1, spec.num_kv_heads, spec.head_dim)
-    if spec.qk_norm:
+    if spec.qk_norm and spec.qk_norm_scope != "layer":
         q = rms_norm(q, lp["q_norm"], spec.rms_eps)
         k = rms_norm(k, lp["k_norm"], spec.rms_eps)
     q = apply_rope(q, positions, inv_freq, rope_scaling)
@@ -137,8 +149,8 @@ def _mlp(x, lp, spec, routed: list | None = None):
                             lp["shared_down"])
         if routed is not None:
             routed.append(routing.expert_ids)
-        return out.reshape(b, t, d)
-    return _mm(swiglu(_mm(x, lp["gate"]), _mm(x, lp["up"])), lp["down"])
+        return post_mlp(out.reshape(b, t, d), lp, spec)
+    return post_mlp(_mm(swiglu(_mm(x, lp["gate"]), _mm(x, lp["up"])), lp["down"]), lp, spec)
 
 
 def _stack_routing(routed: list, lead: tuple[int, ...]) -> torch.Tensor:
@@ -163,15 +175,6 @@ def _rope(spec: ModelSpec, device) -> tuple[torch.Tensor, float]:
     return rope_setup(spec, device=device)
 
 
-def _freqs_for(spec: ModelSpec, inv_freq, window: int):
-    """Per-layer rope frequencies: sliding layers with their own theta run
-    their own; everyone else shares."""
-    if window and spec.rope_theta_local:
-        rot_dim = int(spec.head_dim * spec.partial_rotary_factor)
-        return rope_frequencies(rot_dim, spec.rope_theta_local, device=inv_freq.device)
-    return inv_freq
-
-
 def unstack_params(params: Params, spec: ModelSpec) -> Params:
     """Training layout (stacked [NL, ...] layers) -> serving layout (a list
     of per-layer dicts of views: no tensor is copied). The serving forward
@@ -185,6 +188,127 @@ def unstack_params(params: Params, spec: ModelSpec) -> Params:
                      + [{k: v[l] for k, v in params["layers"].items()}
                         for l in range(spec.num_layers - k_dense)])
     return out
+
+
+def _mla_freqs(spec: ModelSpec, device) -> torch.Tensor:
+    return rope_frequencies(spec.qk_rope_head_dim, spec.rope_theta, device=device)
+
+
+def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with a float32 result from operands of one dtype (the JAX
+    ``preferred_element_type=float32`` product). a: [..., M, K]; b: [K, N],
+    shared by every row of a, or [R, K, N] against a [R, M, K]."""
+    fused = a.is_cuda and a.dtype == torch.bfloat16
+    if b.dim() == 2:
+        a2 = a.reshape(-1, a.shape[-1])
+        out = torch.mm(a2, b, out_dtype=torch.float32) if fused else a2.float() @ b.float()
+        return out.reshape(*a.shape[:-1], b.shape[1])
+    return torch.bmm(a, b, out_dtype=torch.float32) if fused else torch.bmm(a.float(), b.float())
+
+
+def _mla_topk_mask(logits: torch.Tensor, topk: int) -> torch.Tensor:
+    """[R, T] bool: each row's ``topk`` largest logits above -1e29, ties
+    taken lower index first, as ``jax.lax.top_k`` takes them (relu-zeroed
+    scores tie often; a threshold would over-select them)."""
+    k_eff = min(topk, logits.shape[1])
+    val, sel = torch.sort(logits, dim=-1, descending=True, stable=True)
+    val, sel = val[:, :k_eff], sel[:, :k_eff]
+    return torch.zeros_like(logits, dtype=torch.bool).scatter_(1, sel, val > -1e29)
+
+
+def _mla_attend(q_abs, hist, mask, w_kv_b, lp, spec: ModelSpec, compute_dtype):
+    """Absorbed attention of R queries over the latent history: q_abs
+    [R, H, kvl+rope]; hist [T, kvl+rope] shared by the queries, or
+    [R, T, kvl+rope] a query; mask [R, T]. The scores take bfloat16 operands
+    and sum in float32, the softmax is float32. Returns the output projection
+    [R, D]."""
+    kvl = spec.kv_lora_rank
+    r = q_abs.shape[0]
+    scale = (spec.qk_nope_head_dim + spec.qk_rope_head_dim) ** -0.5
+    bf = torch.bfloat16
+    sc = _matmul_f32(q_abs.to(bf), hist.to(bf).transpose(-1, -2)) * scale  # [R, H, T]
+    p = torch.softmax(torch.where(mask[:, None, :], sc, -1e30), dim=-1)
+    out_lat = _matmul_f32(p.to(hist.dtype), hist[..., :kvl])  # [R, H, kvl]
+    v_out = torch.einsum("rhk,khv->rhv", out_lat.to(compute_dtype),
+                         w_kv_b[..., spec.qk_nope_head_dim:])
+    return _mm(v_out.reshape(r, spec.num_heads * spec.v_head_dim), lp["o"])
+
+
+def _mla_index_logits(q_idx, w_idx, ihist, mask):
+    """DSA indexer scores: q_idx [R, Hi, Di], w_idx [R, Hi], the indexer keys
+    ihist [T, Di] (shared) or [R, T, Di] -> [R, T] float32, the sum over
+    heads of w * relu(q . k), -1e30 where ``mask`` is False."""
+    bf = torch.bfloat16
+    lg = _matmul_f32(q_idx.to(bf), ihist.to(bf).transpose(-1, -2))  # [R, Hi, T]
+    lg = (w_idx[:, :, None].float() * lg.clamp_min(0.0)).sum(dim=1)
+    return torch.where(mask, lg, -1e30)
+
+
+def _mla_prefill_block(h, lp, spec: ModelSpec, seg, positions, inv_freq):
+    """MLA serving prefill over one padded sequence [1, L, D]: the training
+    attention block (the DSA indexer included, so the selection is exact;
+    K5a on the card), plus the latent rows, and for DSA the indexer-key rows,
+    to page into the cache. Returns (h, latent [1, L, kvl+rope], indexer keys
+    [1, L, Di] | None)."""
+    x = rms_norm(h, lp["attn_norm"], spec.rms_eps)
+    q_lat, _, latent, _ = mla_absorbed_qkv(x, lp, spec, positions, inv_freq)
+    idx_rows = None
+    if spec.index_topk > 0:
+        _, _, idx_rows = mla_indexer_qk(x, lp, spec, positions, inv_freq, q_lat)
+    h = mla_attention(h, lp, spec, seg, positions, inv_freq)
+    return h, latent, idx_rows
+
+
+def _mla_chunk_block(h, lp, spec: ModelSpec, k_l, v_l, positions, inv_freq, n_pages,
+                     pages_chunk, page_row, valid_hi, compute_dtype):
+    """One chunk of an MLA prefill [1, C, D]: its latent rows (and DSA's
+    indexer keys) paged, then each chunk query attends the slot's whole
+    latent history, DSA masked to the query's own top-k over it. Exact, so
+    prefix caching and chunked prefill stay on. Returns h after attention."""
+    page_size = k_l.shape[2]
+    x = rms_norm(h, lp["attn_norm"], spec.rms_eps)
+    q_lat, q_abs, latent, w_kv_b = mla_absorbed_qkv(x, lp, spec, positions, inv_freq)
+    _write_pages(k_l, latent[0].reshape(1, n_pages, page_size, -1), pages_chunk)
+    row = page_row.long()
+    t = row.shape[0] * page_size
+    hist = k_l[0, row].reshape(t, -1)
+    q_pos = positions[0]
+    pos_k = torch.arange(t, device=h.device)[None, :]
+    mask = (pos_k <= q_pos[:, None]) & (pos_k < valid_hi)  # [C, T]
+    if spec.index_topk > 0 and v_l is not None:
+        q_idx, w_idx, k_idx = mla_indexer_qk(x, lp, spec, positions, inv_freq, q_lat)
+        _write_pages(v_l, k_idx[0].reshape(1, n_pages, page_size, -1), pages_chunk)
+        ihist = v_l[0, row].reshape(t, -1)
+        lg = _mla_index_logits(q_idx[0], w_idx[0], ihist, mask)
+        mask = mask & _mla_topk_mask(lg, spec.index_topk)
+    return h + _mla_attend(q_abs[0], hist, mask, w_kv_b, lp, spec, compute_dtype)[None]
+
+
+def _mla_decode_block(h, lp, spec: ModelSpec, k_l, v_l, lengths, page_table, positions,
+                      inv_freq, flat_idx, compute_dtype):
+    """MLA decode step for all S slots against the latent cache: the new
+    token's latent row (and DSA's indexer key) written at ``flat_idx``, then
+    the absorbed query attends the slot's latent history: all of it
+    (deepseek_v3), or the indexer's exact top-k over it (DSA). ``lengths``
+    INCLUDE the new token. h: [S, 1, D]; k_l [1, NP, PS, kvl+rope]; v_l
+    [1, NP, PS, Di] | None. Returns h after attention."""
+    s = h.shape[0]
+    x = rms_norm(h, lp["attn_norm"], spec.rms_eps)
+    q_lat, q_abs, latent_t, w_kv_b = mla_absorbed_qkv(x, lp, spec, positions, inv_freq)
+    np_, ps = k_l.shape[1], k_l.shape[2]
+    flat = k_l[0].view(np_ * ps, -1)
+    flat[flat_idx] = latent_t[:, 0].to(flat.dtype)
+    idx = (page_table.long()[:, :, None] * ps
+           + torch.arange(ps, device=h.device)[None, None, :]).reshape(s, -1)
+    hist = flat[idx]  # [S, T, kvl+rope]
+    mask = torch.arange(idx.shape[1], device=h.device)[None, :] < lengths[:, None]
+    if spec.index_topk > 0 and v_l is not None:
+        q_idx, w_idx, k_idx_t = mla_indexer_qk(x, lp, spec, positions, inv_freq, q_lat)
+        iflat = v_l[0].view(np_ * ps, -1)
+        iflat[flat_idx] = k_idx_t[:, 0].to(iflat.dtype)
+        lg = _mla_index_logits(q_idx[:, 0], w_idx[:, 0], iflat[idx], mask)
+        mask = mask & _mla_topk_mask(lg, spec.index_topk)
+    return h + _mla_attend(q_abs[:, 0], hist, mask, w_kv_b, lp, spec, compute_dtype)[:, None]
 
 
 def _write_pages(pool: torch.Tensor, new_pages: torch.Tensor, pages: torch.Tensor) -> torch.Tensor:
@@ -226,11 +350,23 @@ def prefill(
     h = params["embed"].to(compute_dtype)[input_ids]
     for lp, k_l, v_l, win in zip(params["layers"], k_pool, v_pool, layer_windows_list(spec)):
         lp = _cast_layer(lp, compute_dtype)
+        if spec.kv_lora_rank > 0:
+            # MLA: the training attention block (K5a for DSA on the card), the
+            # latent rows (and DSA's indexer keys) paged into the pools
+            h, latent, idx_rows = _mla_prefill_block(h, lp, spec, segment_ids, positions,
+                                                     _mla_freqs(spec, device))
+            h = h + _mlp(rms_norm(h, lp["mlp_norm"], spec.rms_eps), lp, spec)
+            _write_pages(k_l, latent[0].reshape(1, n_pages, page_size, -1), pages)
+            if idx_rows is not None:
+                _write_pages(v_l, idx_rows[0].reshape(1, n_pages, page_size, -1), pages)
+            continue
         x = rms_norm(h, lp["attn_norm"], spec.rms_eps)
-        q, k, v = _qkv(x, lp, spec, positions, _freqs_for(spec, inv_freq, win), rope_scaling)
+        freqs = layer_rope_frequencies(spec, inv_freq, win)
+        q, k, v = _qkv(x, lp, spec, positions, freqs, rope_scaling)
         o = attention(q, k, v, segment_ids, causal=True, window=win, sinks=lp.get("sink"))
+        o = apply_attn_gate(o, x, lp, spec)
         proj = _mm(o.reshape(1, lpad, spec.q_dim), lp["o"]) + _obias(lp, h.dtype)
-        h = h + proj
+        h = h + post_attn(proj, lp, spec)
         h = h + _mlp(rms_norm(h, lp["mlp_norm"], spec.rms_eps), lp, spec)
         _write_pages(k_l, _layer_kv_pages(k, n_pages, page_size, spec), pages)
         _write_pages(v_l, _layer_kv_pages(v, n_pages, page_size, spec), pages)
@@ -242,7 +378,7 @@ def prefill(
         labels = torch.cat([input_ids[0, 1:], input_ids.new_zeros(1)]).long()
         rows = []
         for lo in range(0, lpad, 1024):
-            logits = _softcap(_dot_f32(h[0, lo:lo + 1024], lm_head), spec)
+            logits = _softcap(_matmul_f32(h[0, lo:lo + 1024], lm_head), spec)
             lsm = torch.log_softmax(logits, dim=-1)
             rows.append(lsm.gather(-1, labels[lo:lo + 1024, None])[:, 0])
         lp_next = torch.cat(rows)
@@ -266,7 +402,10 @@ def prefill_batch(
     """Batched prefill: B prompts through one pass. Rows are independent
     (per-row segment masking, per-row page writes); dummy rows (length 0,
     pages all null) are legal padding. Returns (k_pool, v_pool,
-    last_hidden [B, D]), the pools written in place."""
+    last_hidden [B, D]), the pools written in place. MLA prompts are
+    prefilled one at a time (``prefill``), as the JAX engine does."""
+    if spec.kv_lora_rank > 0:
+        raise NotImplementedError("prefill_batch: MLA prompts are prefilled one at a time")
     b, lpad = input_ids.shape
     device = input_ids.device
     page_size = k_pool[0].shape[2]
@@ -279,10 +418,12 @@ def prefill_batch(
     for lp, k_l, v_l, win in zip(params["layers"], k_pool, v_pool, layer_windows_list(spec)):
         lp = _cast_layer(lp, compute_dtype)
         x = rms_norm(h, lp["attn_norm"], spec.rms_eps)
-        q, k, v = _qkv(x, lp, spec, positions, _freqs_for(spec, inv_freq, win), rope_scaling)
+        freqs = layer_rope_frequencies(spec, inv_freq, win)
+        q, k, v = _qkv(x, lp, spec, positions, freqs, rope_scaling)
         o = attention(q, k, v, segment_ids, causal=True, window=win, sinks=lp.get("sink"))
+        o = apply_attn_gate(o, x, lp, spec)
         proj = _mm(o.reshape(b, lpad, spec.q_dim), lp["o"]) + _obias(lp, h.dtype)
-        h = h + proj
+        h = h + post_attn(proj, lp, spec)
         h = h + _mlp(rms_norm(h, lp["mlp_norm"], spec.rms_eps), lp, spec)
         _write_pages(k_l, _layer_kv_pages(k, n_pages, page_size, spec), flat_pages)
         _write_pages(v_l, _layer_kv_pages(v, n_pages, page_size, spec), flat_pages)
@@ -351,17 +492,33 @@ def prefill_chunk(
     h = params["embed"].to(compute_dtype)[input_ids]
     for lp, k_l, v_l, win in zip(params["layers"], k_pool, v_pool, layer_windows_list(spec)):
         lp = _cast_layer(lp, compute_dtype)
+        if spec.kv_lora_rank > 0:
+            h = _mla_chunk_block(h, lp, spec, k_l, v_l, positions, _mla_freqs(spec, device),
+                                 n_pages, pages_chunk, page_row, valid_hi, compute_dtype)
+            h = h + _mlp(rms_norm(h, lp["mlp_norm"], spec.rms_eps), lp, spec)
+            continue
         x = rms_norm(h, lp["attn_norm"], spec.rms_eps)
-        q, k, v = _qkv(x, lp, spec, positions, _freqs_for(spec, inv_freq, win), rope_scaling)
+        freqs = layer_rope_frequencies(spec, inv_freq, win)
+        q, k, v = _qkv(x, lp, spec, positions, freqs, rope_scaling)
         _write_pages(k_l, _layer_kv_pages(k, n_pages, page_size, spec), pages_chunk)
         _write_pages(v_l, _layer_kv_pages(v, n_pages, page_size, spec), pages_chunk)
         o = _chunk_attention_xla(q[0].to(compute_dtype), k_l, v_l, q_pos, page_row, valid_hi,
                                  window=win, sinks=lp.get("sink"))
+        o = apply_attn_gate(o, x[0], lp, spec)
         proj = _mm(o.reshape(1, c, spec.q_dim).to(compute_dtype), lp["o"]) + _obias(lp, h.dtype)
-        h = h + proj
+        h = h + post_attn(proj, lp, spec)
         h = h + _mlp(rms_norm(h, lp["mlp_norm"], spec.rms_eps), lp, spec)
     h = rms_norm(h, params["final_norm"], spec.rms_eps)
     return k_pool, v_pool, h[0, max(int(valid) - 1, 0)]
+
+
+def takes_k3(spec: ModelSpec, lp: dict) -> bool:
+    """Whether a decode layer prepares its q/k/v in K3 on the card: the JAX
+    package's choice of its kernel (``sampler/model.py`` ``decode``), not for
+    a layer-scope qk-norm, a gated layer, LoRA or int8 weights, whose q/k/v
+    are plain PyTorch on the card as they are XLA on the TPU."""
+    return (spec.qk_norm_scope != "layer" and not spec.attn_gate and "lora" not in lp
+            and not isinstance(lp["q"], dict))
 
 
 def _decode_attn_fused_local(q_t, k_t, v_t, k_l, v_l, lengths, page_table, window=0,
@@ -395,10 +552,20 @@ def decode(
     positions = lengths[:, None]  # [S, 1]: 0-based position of the new token
     h = params["embed"].to(compute_dtype)[tokens.long()][:, None, :]  # [S, 1, D]
     routed = [] if collect_routing else None
+    if spec.kv_lora_rank > 0:
+        ps = k_pool[0].shape[2]
+        page_idx = page_table.gather(1, (lengths.long() // ps)[:, None])[:, 0].long()
+        flat_idx = page_idx * ps + lengths.long() % ps  # [S]: the new token's row
+        mla_freqs = _mla_freqs(spec, device)
     for lp, k_l, v_l, win in zip(params["layers"], k_pool, v_pool, layer_windows_list(spec)):
         lp = _cast_layer(lp, compute_dtype)
-        freqs = _freqs_for(spec, inv_freq, win)
-        if h.is_cuda and "lora" not in lp and not isinstance(lp["q"], dict):
+        if spec.kv_lora_rank > 0:
+            h = _mla_decode_block(h, lp, spec, k_l, v_l, lengths + 1, page_table, positions,
+                                  mla_freqs, flat_idx, compute_dtype)
+            h = h + _mlp(rms_norm(h, lp["mlp_norm"], spec.rms_eps), lp, spec, routed)
+            continue
+        freqs = layer_rope_frequencies(spec, inv_freq, win)
+        if h.is_cuda and takes_k3(spec, lp):
             # one launch for norm + qkv + bias + qk-norm + rope (K3)
             q3, k3, v3 = decode_qkv_prep(
                 h[:, 0], lp["attn_norm"], lp["q"], lp["k"], lp["v"], lengths, freqs,
@@ -414,8 +581,11 @@ def decode(
             q3, k3, v3 = q[:, 0].to(compute_dtype), k[:, 0], v[:, 0]
         o, _, _ = _decode_attn_fused_local(q3.to(compute_dtype), k3, v3, k_l, v_l, lengths,
                                            page_table, window=win, sinks=lp.get("sink"))
+        if spec.attn_gate:
+            # the gate reads the normed block input, whichever branch made q/k/v
+            o = apply_attn_gate(o, rms_norm(h[:, 0], lp["attn_norm"], spec.rms_eps), lp, spec)
         proj = _mm(o.reshape(s, 1, spec.q_dim).to(compute_dtype), lp["o"]) + _obias(lp, h.dtype)
-        h = h + proj
+        h = h + post_attn(proj, lp, spec)
         h = h + _mlp(rms_norm(h, lp["mlp_norm"], spec.rms_eps), lp, spec, routed)
     h = rms_norm(h, params["final_norm"], spec.rms_eps)
     logits = logits_from_hidden(params, spec, h[:, 0], compute_dtype)
@@ -433,8 +603,8 @@ def _softcap(logits: torch.Tensor, spec: ModelSpec) -> torch.Tensor:
 def logits_from_hidden(params: Params, spec: ModelSpec, hidden: torch.Tensor,
                        compute_dtype=torch.bfloat16) -> torch.Tensor:
     """[S, D] -> [S, V] f32 logits (f32 accumulation from compute-dtype inputs)."""
-    return _softcap(_dot_f32(hidden.to(compute_dtype), dense_lm_head(params, spec, compute_dtype)),
-                    spec)
+    head = dense_lm_head(params, spec, compute_dtype)
+    return _softcap(_matmul_f32(hidden.to(compute_dtype), head), spec)
 
 
 def dense_lm_head(params: Params, spec: ModelSpec, dtype) -> torch.Tensor:

@@ -28,6 +28,9 @@ _ARCHITECTURES = {
     "gpt_oss": "GptOssForCausalLM",
     "deepseek_v3": "DeepseekV3ForCausalLM",
     "glm_moe_dsa": "GlmMoeDsaForCausalLM",
+    "minimax_m2": "MiniMaxM2ForCausalLM",
+    "afmoe": "AfmoeForCausalLM",
+    "laguna": "LagunaForCausalLM",
 }
 
 
@@ -36,8 +39,13 @@ def spec_to_hf_config(spec: ModelSpec) -> dict:
     that ``get_spec`` on the snapshot's directory gives ``spec`` back. (The JAX
     package writes the MLA families under the Qwen3 name and without their
     latent, indexer and routing fields, so its snapshots of them do not
-    reload; here they carry their own names and fields, and gpt-oss its
-    experts, window layout, biases and YaRN scaling.)"""
+    reload; here they carry their own names and fields, gpt-oss its
+    experts, window layout, biases and YaRN scaling, and the gated-MoE
+    families theirs: MiniMax-M2's rotary width and qk-norm scope, AFMoE's and
+    Laguna's window layouts, dense first layers and shared experts, Laguna's
+    rope base a layer type.)"""
+    from prime_rl_tpu_torch.models.qwen3 import layer_windows_list
+
     if spec.family not in _ARCHITECTURES:
         raise NotImplementedError(f"no HF architecture name for family {spec.family!r}")
     cfg = {
@@ -98,17 +106,56 @@ def spec_to_hf_config(spec: ModelSpec) -> dict:
             use_qk_norm=spec.qk_norm,
             attention_bias=spec.attn_bias,
         )
+    layer_types = ["sliding_attention" if w else "full_attention"
+                   for w in layer_windows_list(spec)]
+    if spec.family == "minimax_m2":
+        cfg.pop("num_experts", None)  # this config names it num_local_experts
+        cfg.pop("moe_intermediate_size", None)  # and reads the experts' width here
+        cfg.update(
+            num_local_experts=spec.num_experts,
+            intermediate_size=spec.moe_intermediate_size,
+            use_qk_norm=spec.qk_norm,
+            qk_norm_type="per_layer" if spec.qk_norm_scope == "layer" else "per_head",
+            rotary_dim=int(spec.head_dim * spec.partial_rotary_factor),
+            scoring_func="sigmoid" if spec.router_sigmoid else "softmax",
+            attention_bias=spec.attn_bias,
+        )
+    if spec.family == "afmoe":
+        cfg.update(
+            num_dense_layers=spec.first_k_dense_replace,
+            num_shared_experts=spec.n_shared_experts,
+            score_func="sigmoid" if spec.router_sigmoid else "softmax",
+            route_scale=spec.routed_scaling_factor,
+            route_norm=spec.norm_topk_prob,
+            n_group=spec.n_group,
+            topk_group=spec.topk_group,
+            sliding_window=spec.sliding_window,
+            layer_types=layer_types,
+        )
+    if spec.family == "laguna":
+        rope = {"full_attention": {"rope_theta": spec.rope_theta,
+                                   "partial_rotary_factor": spec.partial_rotary_factor}}
+        if spec.rope_theta_local:
+            rope["sliding_attention"] = {"rope_theta": spec.rope_theta_local}
+        cfg.update(
+            mlp_layer_types=["dense" if i < spec.first_k_dense_replace else "sparse"
+                             for i in range(spec.num_layers)],
+            shared_expert_intermediate_size=spec.shared_expert_size,
+            moe_routed_scaling_factor=spec.routed_scaling_factor,
+            sliding_window=spec.sliding_window,
+            layer_types=layer_types,
+            rope_parameters=rope,
+            partial_rotary_factor=spec.partial_rotary_factor,
+            attention_bias=spec.attn_bias,
+        )
     if spec.family == "gpt_oss":
-        from prime_rl_tpu_torch.models.qwen3 import layer_windows_list
-
         cfg.pop("num_experts", None)  # this config names it num_local_experts
         cfg.pop("moe_intermediate_size", None)  # and reads the experts' width here
         cfg.update(
             num_local_experts=spec.num_experts,
             intermediate_size=spec.moe_intermediate_size,
             sliding_window=spec.sliding_window,
-            layer_types=["sliding_attention" if w else "full_attention"
-                         for w in layer_windows_list(spec)],
+            layer_types=layer_types,
             attention_bias=spec.attn_bias,
         )
         if spec.rope_yarn_factor:

@@ -2,15 +2,19 @@
 """Where a decode step of the PyTorch port's engine spends its time, on one
 NVIDIA GPU.
 
-    python3 scripts/torch_decode_profile.py [--model qwen3|gpt-oss|qwen3-moe|glm]
-        [--layers N] [--windows N]
+    python3 scripts/torch_decode_profile.py
+        [--model qwen3|gpt-oss|qwen3-moe|glm|minimax|glm5] [--layers N] [--windows N]
 
 Builds the engine for Qwen3-0.6B (28 layers, full vocabulary, random weights
 from seed 0, bf16; ``--model gpt-oss``: openai/gpt-oss-20b, 24 layers, all 32
 experts, windows of 128 on every other layer, sinks; ``qwen3-moe``:
 Qwen/Qwen3-30B-A3B, 48 layers, 128 experts top-8, 61 GB of weights; ``glm``:
 zai-org/GLM-4.5-Air at full width, its depth cut by ``--layers``, 4 by
-default), fills all 64 decode
+default; ``minimax``: MiniMax-M2 from its published config.json
+(``chip_smoke.MINIMAX_M2_CONFIG``), 8 layers by default, 61.1 GB of weights;
+``glm5``: GLM-5's widths (``chip_smoke.GLM5_CONFIG``) with the cuts of
+``chip_smoke.GLM5_CUTS``, 4 layers, 32 routed experts, MLA + DSA over the
+latent cache), fills all 64 decode
 slots with prompts of 500 to 1000 random tokens (unfiltered sampling at
 temperature 1, the RL rollout setting), lets the engine admit them and run, then measures decode blocks
 (8 steps each): host-clock time per step over N unprofiled windows of 48
@@ -36,10 +40,15 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 SLOTS, BLOCKS, SEED = 64, 6, 0
 MODELS = {"qwen3": "Qwen/Qwen3-0.6B", "gpt-oss": "openai/gpt-oss-20b",
-          "qwen3-moe": "Qwen/Qwen3-30B-A3B", "glm": "zai-org/GLM-4.5-Air"}
+          "qwen3-moe": "Qwen/Qwen3-30B-A3B", "glm": "zai-org/GLM-4.5-Air",
+          "minimax": "MiniMaxAI/MiniMax-M2", "glm5": "zai-org/GLM-5"}
+# the models given by a config.json in chip_smoke.py, and their default depth
+CONFIGS = {"minimax": ("MINIMAX_M2_CONFIG", 8), "glm5": ("GLM5_CONFIG", 4)}
 # tokens a request may generate: the pool holds each slot's prompt and these,
-# and Qwen3-30B-A3B's 61 GB of weights leave room for about 10 GB of pages
-MAX_TOKENS = {"qwen3": 2000, "gpt-oss": 2000, "qwen3-moe": 400, "glm": 2000}
+# and Qwen3-30B-A3B's and MiniMax-M2's 61 GB of weights leave room for about
+# 10 GB of pages
+MAX_TOKENS = {"qwen3": 2000, "gpt-oss": 2000, "qwen3-moe": 400, "glm": 2000, "minimax": 400,
+              "glm5": 2000}
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 
 
@@ -76,8 +85,19 @@ def main() -> int:
                           check=True).stdout.strip()
     print(card, flush=True)
     _build.build()
-    layers = args.layers or (4 if args.model == "glm" else None)
-    spec = get_spec(MODELS[args.model], num_layers=layers)
+    if args.model in CONFIGS:
+        import dataclasses
+
+        import chip_smoke
+        from prime_rl_tpu_torch.models.base import spec_from_hf_config
+
+        name, depth = CONFIGS[args.model]
+        cuts = chip_smoke.GLM5_CUTS if args.model == "glm5" else {}
+        spec = spec_from_hf_config({**getattr(chip_smoke, name), **cuts})
+        spec = dataclasses.replace(spec, num_layers=args.layers or depth)
+    else:
+        layers = args.layers or (4 if args.model == "glm" else None)
+        spec = get_spec(MODELS[args.model], num_layers=layers)
     dev = torch.device("cuda")
     params = get_family(spec).init(spec, torch.Generator(device=dev).manual_seed(SEED),
                                    dtype=torch.bfloat16, device=dev)

@@ -57,7 +57,7 @@ LOOP_MODULES = (
     "entrypoints.colocated")
 # the SFT and MoE-families slice's modules
 SFT_MOE_MODULES = ("trainer.sft", "trainer.sft.data", "trainer.sft.train", "entrypoints.sft",
-                   "models.qwen3_moe", "models.glm4_moe")
+                   "models.qwen3_moe", "models.glm4_moe", "models.gated_moe")
 _CHECK = _CHECK.replace("LOOP_MODULES", repr(LOOP_MODULES)).replace(
     "SFT_MOE_MODULES", repr(SFT_MOE_MODULES))
 

@@ -143,8 +143,8 @@ def test_forward_aux_and_router_replay_match_jax(model):
     with pytest.raises(ValueError, match="MoE layers"):
         _t_forward(params, spec, ids, seg, pos,
                    routed_experts=torch.full((*ids.shape, 4, K), -1, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="gated-MoE"):
-        _t_forward(params, dataclasses.replace(spec, sandwich_norm=True), ids, seg, pos)
+    with pytest.raises(ValueError, match="glm4_moe.forward"):
+        _t_forward(params, dataclasses.replace(spec, family="qwen3_moe"), ids, seg, pos)
 
 
 def test_hf_round_trip(tmp_path, model):

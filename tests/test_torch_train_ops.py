@@ -319,7 +319,7 @@ def test_forward_rejects_what_waits_for_later_slices():
         with pytest.raises(NotImplementedError):
             tqwen3.forward(params, spec, ids, seg, ids, **kw)
     with pytest.raises(NotImplementedError):
-        get_family(debug_spec(family="minimax_m2"))
+        get_family(debug_spec(family="nemotron_h"))
 
 
 # ---------------------------------------------------------------------------
