@@ -46,7 +46,8 @@
 //   products are not what binds (a build that skips them all is 2-3% faster).
 // - Constants (measured on the H100, scripts/torch_decode_attn_bench.py and
 //   its variants): C = 256 rows, tiles of 64 rows, 2 stages, 4 warps; 3
-//   blocks an SM at head dim 128 (the ring's 64 KB), 6 at 64. Deeper rings,
+//   blocks an SM at head dim 128 (the ring's 64 KB), 6 at 64, 1 at 256 (the
+//   ring's 128 KB; not tuned). Deeper rings,
 //   larger tiles, more or smaller blocks, C of 128 and L2 prefetch hints were
 //   all as fast or slower: the steady state runs near the card's read rate,
 //   and what is left is the tail of the last items and each item's first tile.
@@ -93,6 +94,9 @@ constexpr int SPLIT_ROWS = 256;  // C: cached rows a work item covers
 // ring stages and rows a stage holds (K and V), by head dim
 constexpr int TILE_64 = 64, STAGES_64 = 2;
 constexpr int TILE_128 = 64, STAGES_128 = 2;
+// at head dim 256 a 64-row tile of K and V is 64 KB: two stages fill 128 KB,
+// one block an SM (16 rows a warp is the depth of P.V, so no smaller tile)
+constexpr int TILE_256 = 64, STAGES_256 = 2;
 constexpr int NWARPS = 4;
 constexpr int NTHREADS = NWARPS * 32;
 constexpr int MAX_CHUNK = 8;  // query heads a block: the 8 columns of a product
@@ -101,8 +105,8 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 template <int HD>
 struct Cfg {
-  static constexpr int TILE = HD == 64 ? TILE_64 : TILE_128;
-  static constexpr int STAGES = HD == 64 ? STAGES_64 : STAGES_128;
+  static constexpr int TILE = HD == 64 ? TILE_64 : HD == 128 ? TILE_128 : TILE_256;
+  static constexpr int STAGES = HD == 64 ? STAGES_64 : HD == 128 ? STAGES_128 : STAGES_256;
   static constexpr int WARP_ROWS = TILE / NWARPS;  // a multiple of 16, the depth of P.V
   static constexpr int CHUNKS = HD / 8;               // 16-byte chunks a row
   static constexpr int TILE_BYTES = TILE * HD * 2;    // one of K, V
@@ -251,12 +255,12 @@ __device__ __forceinline__ float finish(const Args& a, float m, float l, float a
 
 // blocks an SM that the registers must allow: 3 fit the 64 KB ring at head
 // dim 128; at 64 the 32 KB ring allows 7, and 6 (80 registers, no spill)
-// measured faster than 4 or 5
-constexpr int MIN_BLOCKS_64 = 6, MIN_BLOCKS_128 = 3;
+// measured faster than 4 or 5; 1 fits the 128 KB ring at 256
+constexpr int MIN_BLOCKS_64 = 6, MIN_BLOCKS_128 = 3, MIN_BLOCKS_256 = 1;
 
 template <int HD>
 constexpr int min_blocks() {
-  return HD == 64 ? MIN_BLOCKS_64 : MIN_BLOCKS_128;
+  return HD == 64 ? MIN_BLOCKS_64 : HD == 128 ? MIN_BLOCKS_128 : MIN_BLOCKS_256;
 }
 
 // G: the heads a chunk holds (W above); a chunk may hold fewer (gc)
@@ -598,6 +602,7 @@ int run(const void* q, const void* k_new, const void* v_new, void* k_pool, void*
   if (HD == hd && width == g) return (int)launch<hd, g>(a, st);
   PRT_DECODE_CASE(64, 1) PRT_DECODE_CASE(64, 2) PRT_DECODE_CASE(64, 4) PRT_DECODE_CASE(64, 8)
   PRT_DECODE_CASE(128, 1) PRT_DECODE_CASE(128, 2) PRT_DECODE_CASE(128, 4) PRT_DECODE_CASE(128, 8)
+  PRT_DECODE_CASE(256, 1) PRT_DECODE_CASE(256, 2) PRT_DECODE_CASE(256, 4) PRT_DECODE_CASE(256, 8)
 #undef PRT_DECODE_CASE
   return (int)cudaErrorInvalidValue;
 }
@@ -641,7 +646,7 @@ extern "C" int decode_paged_attention_rows(const void* q, const void* k_new, con
 
 // dynamic shared memory of a block at head dim `hd`
 extern "C" int decode_attention_smem(int hd) {
-  return hd == 128 ? Cfg<128>::SMEM : hd == 64 ? Cfg<64>::SMEM : 0;
+  return hd == 256 ? Cfg<256>::SMEM : hd == 128 ? Cfg<128>::SMEM : hd == 64 ? Cfg<64>::SMEM : 0;
 }
 
 // the compiled kernel of head dim `hd` and chunk width `group` (1, 2, 4, 8) as the runtime
@@ -654,6 +659,7 @@ extern "C" int decode_attention_attributes(int hd, int group, int* attrs) {
   if (hd == h && group == g) err = cudaFuncGetAttributes(&attr, decode_split_kernel<h, g>);
   PRT_ATTR_CASE(64, 1) PRT_ATTR_CASE(64, 2) PRT_ATTR_CASE(64, 4) PRT_ATTR_CASE(64, 8)
   PRT_ATTR_CASE(128, 1) PRT_ATTR_CASE(128, 2) PRT_ATTR_CASE(128, 4) PRT_ATTR_CASE(128, 8)
+  PRT_ATTR_CASE(256, 1) PRT_ATTR_CASE(256, 2) PRT_ATTR_CASE(256, 4) PRT_ATTR_CASE(256, 8)
 #undef PRT_ATTR_CASE
   if (err != cudaSuccess) return (int)err;
   attrs[0] = attr.numRegs;

@@ -59,6 +59,14 @@
 //   [smallest non-zero, largest] of the kv tile's ids
 //   (`flash_bwd_dkv_tiles_visited`); every dk/dv element is written by one
 //   block once.
+// - Head dim 256 (Qwen3-Next): K2a's dq takes 128 registers a thread, so an
+//   item is 64 q rows in one consumer warpgroup (160 threads), q and dO
+//   single-buffered (`DqCfg`: the k/v ring's two stages of 64 KB leave room
+//   for one of each); its mirror runs at 64 x 64. K2b's dk + dv would take
+//   256, so an item computes one half of D of both (`DkvCfg`: 128 columns,
+//   S^T and dP^T still over all of D, so those two products run twice a kv
+//   tile), k and v single-buffered; every dk/dv element is still written by
+//   one block once.
 // Given a `tiles` buffer (the `*_tiles` entry points; null on the path), the
 // producer writes each item's visited and candidate tile counts there, one
 // slot an item, so a run can hold the kernel's visits against the mirrors.
@@ -73,18 +81,38 @@ constexpr int SCAN = 8;            // tiles whose segment ids the producer reads
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int MAX_SMEM = 232448;   // what a block may use on the H100
 
-// K2a: 128 q rows an item in two consumer warpgroups, 64-row k/v tiles
-constexpr int DQ_BQ = 128;
-constexpr int DQ_BK = 64;
-constexpr int DQ_CONSUMERS = 2;
-constexpr int DQ_THREADS = 128 * DQ_CONSUMERS + 32;
-constexpr int DQ_PRODUCER = 4 * DQ_CONSUMERS;  // the producer's warp index
+// K2a: 128 q rows an item in two consumer warpgroups, 64-row k/v tiles; at
+// head dim 256, where dq takes 128 registers a thread, 64 q rows in one
+// consumer warpgroup (160 threads, up to 255 registers), and q and dO
+// single-buffered: two k/v stages of 64 KB leave room for one q and one dO
+// tile of 32 KB each, about 194 KB
+template <int HD>
+struct DqCfg {
+  static constexpr int BQ = HD == 256 ? 64 : 128;
+  static constexpr int BK = 64;
+  static constexpr int CONSUMERS = BQ / 64;
+  static constexpr int THREADS = 128 * CONSUMERS + 32;
+  static constexpr int PRODUCER = 4 * CONSUMERS;  // the producer's warp index
+  static constexpr int QBUF = HD == 256 ? 1 : 2;  // q/dO buffers: items in flight
+};
 
-// K2b: 64 kv rows an item in one consumer warpgroup, 64-row q tiles
+// K2b: 64 kv rows an item in one consumer warpgroup, 64-row q tiles. dk and
+// dv take HD / 2 registers a thread each; at head dim 256 that is 256, so an
+// item there computes one half of D (DH = 128 columns) of dk and dv: S^T and
+// dP^T still run over all of D, twice a kv tile, and the products into dk
+// and dv over the item's half. k and v (64 KB at 256) are single-buffered
+// there, beside two stages of q and dO, about 195 KB.
 constexpr int KV_BK = 64;
 constexpr int KV_BQ = 64;
 constexpr int KV_THREADS = 128 + 32;
 constexpr int KV_PRODUCER = 4;
+
+template <int HD>
+struct DkvCfg {
+  static constexpr int DH = HD == 256 ? 128 : HD;  // columns of dk and dv an item
+  static constexpr int NSPLIT = HD / DH;            // items a kv tile
+  static constexpr int KVBUF = HD == 256 ? 1 : 2;   // k/v buffers: items in flight
+};
 
 // Shared memory of K2a. Tiles are 64-column boxes, each [rows][64] bf16 with
 // rows of 128 bytes in the 128-byte swizzle, the boxes of a tile back to back.
@@ -92,20 +120,21 @@ constexpr int KV_PRODUCER = 4;
 // and their ids by ring stage.
 template <int HD>
 struct DqSmem {
+  static constexpr int BQ = DqCfg<HD>::BQ, BK = DqCfg<HD>::BK, QBUF = DqCfg<HD>::QBUF;
   static constexpr int HALVES = HD / 64;
   static constexpr int STAGES = HD == 64 ? 4 : 2;
-  static constexpr int Q_BYTES = DQ_BQ * HD * 2;
-  static constexpr int KV_BYTES = DQ_BK * HD * 2;
-  static constexpr int q_off = 0;                              // [2] q tiles
-  static constexpr int do_off = q_off + 2 * Q_BYTES;           // [2] dO tiles
-  static constexpr int k_off = do_off + 2 * Q_BYTES;           // [STAGES] k tiles
+  static constexpr int Q_BYTES = BQ * HD * 2;
+  static constexpr int KV_BYTES = BK * HD * 2;
+  static constexpr int q_off = 0;                              // [QBUF] q tiles
+  static constexpr int do_off = q_off + QBUF * Q_BYTES;        // [QBUF] dO tiles
+  static constexpr int k_off = do_off + QBUF * Q_BYTES;        // [STAGES] k tiles
   static constexpr int v_off = k_off + STAGES * KV_BYTES;      // [STAGES] v tiles
-  static constexpr int SEG_SLOT = flat_slot_bytes(DQ_BK);     // a tile's kv ids
+  static constexpr int SEG_SLOT = flat_slot_bytes(BK);         // a tile's kv ids
   static constexpr int seg_off = v_off + STAGES * KV_BYTES;    // [STAGES] id slots
-  static constexpr int row_off = seg_off + STAGES * SEG_SLOT;  // [2] x {ids, lse, delta}[BQ]
-  static constexpr int item_off = row_off + 2 * 3 * DQ_BQ * 4;  // DqItem [2]
+  static constexpr int row_off = seg_off + STAGES * SEG_SLOT;  // {ids, lse, delta}[QBUF][BQ]
+  static constexpr int item_off = row_off + QBUF * 3 * BQ * 4;  // DqItem [QBUF]
   static constexpr int bar_off = item_off + 64;  // full[S], empty[S], q_full[2], q_empty[2]
-  static constexpr int flag_off = bar_off + 8 * (2 * STAGES + 4);  // uint8 [2][n_tiles]
+  static constexpr int flag_off = bar_off + 8 * (2 * STAGES + 4);  // uint8 [QBUF][n_tiles]
   // 1024 bytes of slack: the swizzled tiles need a 1024-aligned base
   static size_t bytes(int n_tiles) { return 1024 + flag_off + 2 * n_tiles; }
 };
@@ -114,20 +143,21 @@ struct DqSmem {
 // dO and the q rows' lse, delta and ids by ring stage.
 template <int HD>
 struct DkvSmem {
+  static constexpr int KVBUF = DkvCfg<HD>::KVBUF;
   static constexpr int HALVES = HD / 64;
-  static constexpr int STAGES = HD == 64 ? 4 : 3;
+  static constexpr int STAGES = HD == 64 ? 4 : HD == 128 ? 3 : 2;
   static constexpr int TILE_BYTES = 64 * HD * 2;  // a 64-row tile of k, v, q or dO
   static constexpr int SLOT = flat_slot_bytes(KV_BQ);  // a q tile's lse, delta or ids
   static constexpr int ROW_BYTES = 3 * SLOT;
-  static constexpr int k_off = 0;                              // [2] k tiles
-  static constexpr int v_off = k_off + 2 * TILE_BYTES;         // [2] v tiles
-  static constexpr int q_off = v_off + 2 * TILE_BYTES;         // [STAGES] q tiles
+  static constexpr int k_off = 0;                              // [KVBUF] k tiles
+  static constexpr int v_off = k_off + KVBUF * TILE_BYTES;     // [KVBUF] v tiles
+  static constexpr int q_off = v_off + KVBUF * TILE_BYTES;     // [STAGES] q tiles
   static constexpr int do_off = q_off + STAGES * TILE_BYTES;   // [STAGES] dO tiles
   static constexpr int row_off = do_off + STAGES * TILE_BYTES;  // [STAGES] x {lse, delta, ids}
-  static constexpr int segk_off = row_off + STAGES * ROW_BYTES;  // int [2][BK]
-  static constexpr int item_off = segk_off + 2 * KV_BK * 4;    // DkvItem [2]
+  static constexpr int segk_off = row_off + STAGES * ROW_BYTES;  // int [KVBUF][BK]
+  static constexpr int item_off = segk_off + KVBUF * KV_BK * 4;  // DkvItem [KVBUF]
   static constexpr int bar_off = item_off + 64;  // full[S], empty[S], kv_full[2], kv_empty[2]
-  static constexpr int flag_off = bar_off + 8 * (2 * STAGES + 4);  // uint8 [2][n_q_tiles]
+  static constexpr int flag_off = bar_off + 8 * (2 * STAGES + 4);  // uint8 [KVBUF][n_q_tiles]
   static size_t bytes(int n_tiles) { return 1024 + flag_off + 2 * n_tiles; }
 };
 
@@ -137,10 +167,11 @@ struct DqItem {
   int q0, h, b, j0, nt;
 };
 
-// a K2b item: a kv tile of one kv head and batch row, and its candidate q
-// tiles [i0, i0 + nt) (the same for every head of the group)
+// a K2b item: a kv tile of one kv head and batch row, its candidate q tiles
+// [i0, i0 + nt) (the same for every head of the group), and the half of D
+// whose dk and dv it computes (0 below head dim 256)
 struct DkvItem {
-  int k0, kvh, b, i0, nt;
+  int k0, kvh, b, i0, nt, half;
 };
 
 // the work item a block takes in round r: with the items sorted heaviest
@@ -200,7 +231,7 @@ __device__ __forceinline__ void segment_range(const int (&ids)[N], int& lo, int&
 // K2a: dq
 // ---------------------------------------------------------------------------
 template <int HD, bool WINDOW>
-__global__ void __launch_bounds__(DQ_THREADS, 1)
+__global__ void __launch_bounds__(DqCfg<HD>::THREADS, 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_do,
                     const __grid_constant__ CUtensorMap tm_k,
@@ -211,23 +242,23 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                     int* __restrict__ tiles, int B, int Lq, int Lk, int NH, int NKV, float scale,
                     int causal, int window) {
   using S = DqSmem<HD>;
-  constexpr int BQ = DQ_BQ, BK = DQ_BK;
+  constexpr int BQ = S::BQ, BK = S::BK, QBUF = S::QBUF, CONSUMERS = DqCfg<HD>::CONSUMERS;
   // keys of S and dP a consumer holds at once: at head dim 128, dq takes 64
   // registers a thread, and S and dP of all 64 keys another 64, which with the
   // rest passes the 168 a thread that ptxas gives a block of 288 threads (9
   // warps: 3 on one of the SM's four register files), so they go in two
-  // chunks of 32 keys
-  constexpr int SN = HD == 128 ? 32 : 64;
+  // chunks of 32 keys; at 256 dq takes 128 of the 255 a 160-thread block gets
+  constexpr int SN = HD == 64 ? 64 : 32;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t sbase = smem_u32(smem);
   int* seg_s = reinterpret_cast<int*>(smem + S::seg_off);             // [STAGES] id slots
-  int* segq_s = reinterpret_cast<int*>(smem + S::row_off);            // [2][BQ]
-  float* lse_s = reinterpret_cast<float*>(smem + S::row_off) + 2 * BQ;  // [2][BQ], * log2(e)
-  float* delta_s = lse_s + 2 * BQ;                                    // [2][BQ]
+  int* segq_s = reinterpret_cast<int*>(smem + S::row_off);  // [QBUF][BQ]
+  float* lse_s = reinterpret_cast<float*>(smem + S::row_off) + QBUF * BQ;  // * log2(e)
+  float* delta_s = lse_s + QBUF * BQ;                                     // [QBUF][BQ]
   DqItem* items = reinterpret_cast<DqItem*>(smem + S::item_off);
   const int n_tiles = (Lk + BK - 1) / BK;
-  uint8_t* flags = smem + S::flag_off;  // [2][n_tiles]
+  uint8_t* flags = smem + S::flag_off;  // [QBUF][n_tiles]
   const uint32_t full_bar = sbase + S::bar_off;
   const uint32_t empty_bar = full_bar + 8 * S::STAGES;
   const uint32_t q_full = full_bar + 16 * S::STAGES;
@@ -239,25 +270,25 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (threadIdx.x == 0) {
     for (int s = 0; s < S::STAGES; ++s) {
       mbar_init(full_bar + 8 * s, 1);                    // the loads' expect_tx
-      mbar_init(empty_bar + 8 * s, 128 * DQ_CONSUMERS);  // every consumer thread
+      mbar_init(empty_bar + 8 * s, 128 * CONSUMERS);  // every consumer thread
     }
     for (int i = 0; i < 2; ++i) {
       mbar_init(q_full + 8 * i, 33);  // q/dO's expect_tx + 32 lanes writing the item
-      mbar_init(q_empty + 8 * i, 128 * DQ_CONSUMERS);
+      mbar_init(q_empty + 8 * i, 128 * CONSUMERS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (warp == DQ_PRODUCER) {
+  if (warp == DqCfg<HD>::PRODUCER) {
     // ---- producer warp: for each item, read the q rows' ids, lse and delta,
-    // wait until its buffers are free (the consumers finished the item two
+    // wait until its buffers are free (the consumers finished the item QBUF
     // back), load q and dO, scan the kv ids of its candidate tiles, then load
     // the visited k/v tiles into the ring
     int stage = 0;
     uint32_t phase = 0;
     for (int it = 0, e = snake_item(0); e < n_items; e = snake_item(++it)) {
-      const int buf = it & 1;
+      const int buf = it % QBUF;
       const int qi = e / (NH * B), hb = e % (NH * B);
       const int h = hb % NH, b = hb / NH;
       const int q0 = (causal ? n_q - 1 - qi : qi) * BQ;  // most kv tiles first under `causal`
@@ -289,7 +320,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
       };
       read_ids(0);
-      if (it >= 2) mbar_wait(q_empty + 8 * buf, ((it >> 1) - 1) & 1);
+      if (it >= QBUF) mbar_wait(q_empty + 8 * buf, (it / QBUF - 1) & 1);
       if (lane == 0) {
         mbar_arrive_expect_tx(q_full + 8 * buf, 2 * S::Q_BYTES);
 #pragma unroll
@@ -358,8 +389,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
   int stage = 0;
   uint32_t phase = 0;
   for (int it = 0, e = snake_item(0); e < n_items; e = snake_item(++it)) {
-    const int buf = it & 1;
-    mbar_wait(q_full + 8 * buf, (it >> 1) & 1);
+    const int buf = it % QBUF;
+    mbar_wait(q_full + 8 * buf, (it / QBUF) & 1);
     const DqItem item = items[buf];
     const uint8_t* fl = flags + buf * n_tiles;
     const uint32_t q_base = sbase + S::q_off + buf * S::Q_BYTES;
@@ -382,7 +413,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
       // (its dS is 0); one that every row sees whole needs no position mask,
       // one inside one segment no segment mask. K-major operands: +32 bytes a
       // k16 step inside a box, the next box BQ (BK) rows on; dO and V are
-      // constant offsets from q and k (their buffers 2 Q_BYTES and STAGES
+      // constant offsets from q and k (their buffers QBUF Q_BYTES and STAGES
       // KV_BYTES on), so only two bases stay live.
       const uint64_t dsc_q = smem_desc(q_base + wg * 64 * 128, 16, 1024);
       const uint64_t dsc_k = smem_desc(sbase + S::k_off + stage * S::KV_BYTES, 16, 1024);
@@ -413,7 +444,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
 #pragma unroll
         for (int kk = 0; kk < HD / 16; ++kk) {
-          const int qo = ((kk / 4) * BQ * 128 + (kk % 4) * 32 + 2 * S::Q_BYTES) >> 4;
+          const int qo = ((kk / 4) * BQ * 128 + (kk % 4) * 32 + QBUF * S::Q_BYTES) >> 4;
           const int ko =
               ((kk / 4) * BK * 128 + ch * SN * 128 + (kk % 4) * 32 + S::STAGES * S::KV_BYTES) >> 4;
           wgmma_ss<SN>(dp, dsc_q + qo, dsc_k + ko, kk > 0);
@@ -485,7 +516,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
 
     // ---- epilogue: dq * scale staged in this warpgroup's own rows of the q
     // tile (its last reads of them are complete), then 16-byte stores; the q
-    // buffer is free for the item two ahead once every consumer thread is done
+    // buffer is free for the item QBUF ahead once every consumer thread is done
     stage_rows<HD>(acc, scale, scale, q_base, BQ, 64 * wg, lr, lane);
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
     store_rows<HD>(dq + (((size_t)item.b * Lq + row_base) * NH + item.h) * HD, (size_t)NH * HD,
@@ -512,20 +543,21 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
                      __nv_bfloat16* __restrict__ dv, int* __restrict__ tiles, int B, int Lq, int Lk,
                      int NH, int NKV, float scale, int causal, int window) {
   using S = DkvSmem<HD>;
-  constexpr int BQ = KV_BQ, BK = KV_BK;
+  constexpr int BQ = KV_BQ, BK = KV_BK, KVBUF = S::KVBUF;
+  constexpr int DH = DkvCfg<HD>::DH, NSPLIT = DkvCfg<HD>::NSPLIT;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t sbase = smem_u32(smem);
-  int* segk_s = reinterpret_cast<int*>(smem + S::segk_off);  // [2][BK]
+  int* segk_s = reinterpret_cast<int*>(smem + S::segk_off);  // [KVBUF][BK]
   DkvItem* items = reinterpret_cast<DkvItem*>(smem + S::item_off);
   const int n_qt = (Lq + BQ - 1) / BQ;
-  uint8_t* flags = smem + S::flag_off;  // [2][n_qt]
+  uint8_t* flags = smem + S::flag_off;  // [KVBUF][n_qt]
   const uint32_t full_bar = sbase + S::bar_off;
   const uint32_t empty_bar = full_bar + 8 * S::STAGES;
   const uint32_t kv_full = full_bar + 16 * S::STAGES;
   const uint32_t kv_empty = kv_full + 16;
 
-  const int n_kt = (Lk + BK - 1) / BK, n_items = n_kt * NKV * B;
+  const int n_kt = (Lk + BK - 1) / BK, n_items = n_kt * NKV * B * NSPLIT;
   const int group = NH / NKV;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
@@ -550,8 +582,10 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
     int stage = 0;
     uint32_t phase = 0;
     for (int it = 0, e = snake_item(0); e < n_items; e = snake_item(++it)) {
-      const int buf = it & 1;
-      const int ki = e / (NKV * B), hb = e % (NKV * B);  // the first kv tiles have the most q tiles
+      const int buf = it % KVBUF;
+      // the first kv tiles have the most q tiles
+      const int ki = e / (NKV * B * NSPLIT), hbh = e % (NKV * B * NSPLIT);
+      const int half = hbh % NSPLIT, hb = hbh / NSPLIT;
       const int kvh = hb % NKV, b = hb / NKV;
       const int k0 = ki * BK;
       // candidates: from the q tile that holds the diagonal to the last q tile
@@ -577,7 +611,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
       };
       read_ids(0);
-      if (it >= 2) mbar_wait(kv_empty + 8 * buf, ((it >> 1) - 1) & 1);
+      if (it >= KVBUF) mbar_wait(kv_empty + 8 * buf, (it / KVBUF - 1) & 1);
       if (lane == 0) {
         mbar_arrive_expect_tx(kv_full + 8 * buf, 2 * S::TILE_BYTES);
 #pragma unroll
@@ -599,12 +633,12 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
         if (t0 > 0) read_ids(t0);
         visited += scan_flags(v, t0, nt, k_lo, k_hi, k_one, fl, lane);
       }
-      if (tiles != nullptr && lane == 0) {  // [B, NKV, n_kt, 2]: visited, candidates
+      if (tiles != nullptr && lane == 0 && half == 0) {  // [B, NKV, n_kt, 2]: visited, candidates
         int* slot = tiles + 2 * (((size_t)b * NKV + kvh) * n_kt + ki);
         slot[0] = visited;
         slot[1] = nt;
       }
-      if (lane == 0) items[buf] = DkvItem{k0, kvh, b, i0, nt};
+      if (lane == 0) items[buf] = DkvItem{k0, kvh, b, i0, nt, half};
       __syncwarp();
       mbar_arrive(kv_full + 8 * buf);
 
@@ -647,17 +681,17 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
   int stage = 0;
   uint32_t phase = 0;
   for (int it = 0, e = snake_item(0); e < n_items; e = snake_item(++it)) {
-    const int buf = it & 1;
-    mbar_wait(kv_full + 8 * buf, (it >> 1) & 1);
+    const int buf = it % KVBUF;
+    mbar_wait(kv_full + 8 * buf, (it / KVBUF) & 1);
     const DkvItem item = items[buf];
     const uint8_t* fl = flags + buf * n_qt;
     const uint32_t k_base = sbase + S::k_off + buf * S::TILE_BYTES;
     const uint32_t v_base = sbase + S::v_off + buf * S::TILE_BYTES;
     const int r0 = item.k0 + lr, r1 = r0 + 8;
     const int sk0 = segk_s[buf * BK + lr], sk1 = segk_s[buf * BK + lr + 8];
-    float dk_acc[HD / 2], dv_acc[HD / 2];
+    float dk_acc[DH / 2], dv_acc[DH / 2];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) {
+    for (int i = 0; i < DH / 2; ++i) {
       dk_acc[i] = 0.f;
       dv_acc[i] = 0.f;
     }
@@ -743,17 +777,19 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
             da[kk][x] = pack_bf16(dp[8 * kk + 2 * x], dp[8 * kk + 2 * x + 1]);
           }
         }
-        // dv += P^T dO and dk += dS^T Q: dO and Q MN-major (+2048 bytes a k16
-        // step, their two 64-column boxes BQ * 128 bytes apart)
-        const uint64_t dsc_dom = smem_desc(do_base, BQ * 128, 1024);
-        const uint64_t dsc_qm = smem_desc(q_base, BQ * 128, 1024);
+        // dv += P^T dO and dk += dS^T Q over the item's columns: dO and Q
+        // MN-major (+2048 bytes a k16 step, their 64-column boxes BQ * 128
+        // bytes apart, the item's half DH / 64 boxes on)
+        const uint32_t cols = item.half * (DH / 64) * BQ * 128;
+        const uint64_t dsc_dom = smem_desc(do_base + cols, BQ * 128, 1024);
+        const uint64_t dsc_qm = smem_desc(q_base + cols, BQ * 128, 1024);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BQ / 16; ++kk)
-          wgmma_rs<HD>(dv_acc, pa[kk], dsc_dom + ((kk * 16 * 128) >> 4));
+          wgmma_rs<DH>(dv_acc, pa[kk], dsc_dom + ((kk * 16 * 128) >> 4));
 #pragma unroll
         for (int kk = 0; kk < BQ / 16; ++kk)
-          wgmma_rs<HD>(dk_acc, da[kk], dsc_qm + ((kk * 16 * 128) >> 4));
+          wgmma_rs<DH>(dk_acc, da[kk], dsc_qm + ((kk * 16 * 128) >> 4));
         wgmma_commit_and_wait();
         pin(dv_acc);
         pin(dk_acc);
@@ -765,15 +801,19 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
     }
 
-    // ---- epilogue: dv and dk * scale staged in the item's own v and k tiles
-    // (their last reads are complete), then 16-byte stores; the k/v buffers
-    // are free for the item two ahead once every consumer thread is done
-    stage_rows<HD>(dv_acc, 1.f, 1.f, v_base, BK, 0, lr, lane);
-    stage_rows<HD>(dk_acc, scale, scale, k_base, BK, 0, lr, lane);
+    // ---- epilogue: dv and dk * scale staged in the item's columns of its own
+    // v and k tiles (their last reads are complete), then 16-byte stores; the
+    // k/v buffers are free for the item KVBUF ahead once every consumer
+    // thread is done
+    const uint32_t cols = item.half * (DH / 64) * BK * 128;
+    stage_rows<DH>(dv_acc, 1.f, 1.f, v_base + cols, BK, 0, lr, lane);
+    stage_rows<DH>(dk_acc, scale, scale, k_base + cols, BK, 0, lr, lane);
     asm volatile("bar.sync 1, 128;\n" ::: "memory");
-    const size_t out = (((size_t)item.b * Lk + item.k0) * NKV + item.kvh) * HD;
-    store_rows<HD>(dv + out, (size_t)NKV * HD, smem + (v_base - sbase), BK, 0, Lk - item.k0);
-    store_rows<HD>(dk + out, (size_t)NKV * HD, smem + (k_base - sbase), BK, 0, Lk - item.k0);
+    const size_t out = (((size_t)item.b * Lk + item.k0) * NKV + item.kvh) * HD + item.half * DH;
+    store_rows<DH>(dv + out, (size_t)NKV * HD, smem + (v_base - sbase) + cols, BK, 0,
+                   Lk - item.k0);
+    store_rows<DH>(dk + out, (size_t)NKV * HD, smem + (k_base - sbase) + cols, BK, 0,
+                   Lk - item.k0);
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     mbar_arrive(kv_empty + 8 * buf);
   }
@@ -782,13 +822,15 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
 // ---- host side ---------------------------------------------------------------
 
 size_t dq_smem(int hd, int Lk) {
-  const int n = (Lk + DQ_BK - 1) / DQ_BK;
-  return hd == 128 ? DqSmem<128>::bytes(n) : DqSmem<64>::bytes(n);
+  const int n = (Lk + 63) / 64;  // DqCfg<HD>::BK at every head dim
+  return hd == 256 ? DqSmem<256>::bytes(n) : hd == 128 ? DqSmem<128>::bytes(n)
+                                                       : DqSmem<64>::bytes(n);
 }
 
 size_t dkv_smem(int hd, int Lq) {
   const int n = (Lq + KV_BQ - 1) / KV_BQ;
-  return hd == 128 ? DkvSmem<128>::bytes(n) : DkvSmem<64>::bytes(n);
+  return hd == 256 ? DkvSmem<256>::bytes(n) : hd == 128 ? DkvSmem<128>::bytes(n)
+                                                        : DkvSmem<64>::bytes(n);
 }
 
 template <typename Kernel>
@@ -832,17 +874,18 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
   EncodeTiled encode = encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   CUtensorMap tq, tdo, tk, tv, tseg;
-  if (!tensor_map(&tq, encode, q, HD, NH, Lq, B, DQ_BQ) ||
-      !tensor_map(&tdo, encode, dout, HD, NH, Lq, B, DQ_BQ) ||
-      !tensor_map(&tk, encode, k, HD, NKV, Lk, B, DQ_BK) ||
-      !tensor_map(&tv, encode, v, HD, NKV, Lk, B, DQ_BK) ||
-      !flat_map(&tseg, encode, seg_kv, B * Lk, DQ_BK + FLAT_PAD, CU_TENSOR_MAP_DATA_TYPE_INT32))
+  using C = DqCfg<HD>;
+  if (!tensor_map(&tq, encode, q, HD, NH, Lq, B, C::BQ) ||
+      !tensor_map(&tdo, encode, dout, HD, NH, Lq, B, C::BQ) ||
+      !tensor_map(&tk, encode, k, HD, NKV, Lk, B, C::BK) ||
+      !tensor_map(&tv, encode, v, HD, NKV, Lk, B, C::BK) ||
+      !flat_map(&tseg, encode, seg_kv, B * Lk, C::BK + FLAT_PAD, CU_TENSOR_MAP_DATA_TYPE_INT32))
     return cudaErrorInvalidValue;
-  const int n_items = (Lq + DQ_BQ - 1) / DQ_BQ * NH * B;
+  const int n_items = (Lq + C::BQ - 1) / C::BQ * NH * B;
   int grid = 0;
-  err = grid_size(flash_bwd_dq_kernel<HD, WINDOW>, DQ_THREADS, smem, n_items, &grid);
+  err = grid_size(flash_bwd_dq_kernel<HD, WINDOW>, C::THREADS, smem, n_items, &grid);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<HD, WINDOW><<<grid, DQ_THREADS, smem, stream>>>(
+  flash_bwd_dq_kernel<HD, WINDOW><<<grid, C::THREADS, smem, stream>>>(
       tq, tdo, tk, tv, tseg, seg_q, seg_kv, lse, delta, static_cast<__nv_bfloat16*>(dq), tiles, B,
       Lq, Lk, NH, NKV, scale, causal, window);
   return cudaGetLastError();
@@ -872,7 +915,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
                 CU_TENSOR_MAP_DATA_TYPE_FLOAT32) ||
       !flat_map(&tsegq, encode, seg_q, B * Lq, KV_BQ + FLAT_PAD, CU_TENSOR_MAP_DATA_TYPE_INT32))
     return cudaErrorInvalidValue;
-  const int n_items = (Lk + KV_BK - 1) / KV_BK * NKV * B;
+  const int n_items = (Lk + KV_BK - 1) / KV_BK * NKV * B * DkvCfg<HD>::NSPLIT;
   int grid = 0;
   err = grid_size(flash_bwd_dkv_kernel<HD, WINDOW>, KV_THREADS, smem, n_items, &grid);
   if (err != cudaSuccess) return err;
@@ -896,6 +939,7 @@ int run_dq(const void* q, const void* k, const void* v, const void* dout, const 
     return launch_dq<hd, w>(q, k, v, dout, sq, sk, l, d, dq, tiles, B, Lq, Lk, NH, NKV, scale,   \
                             causal, window, st);
   PRT_DQ_CASE(64, false) PRT_DQ_CASE(64, true) PRT_DQ_CASE(128, false) PRT_DQ_CASE(128, true)
+  PRT_DQ_CASE(256, false) PRT_DQ_CASE(256, true)
 #undef PRT_DQ_CASE
   return (int)cudaErrorInvalidValue;
 }
@@ -914,6 +958,7 @@ int run_dkv(const void* q, const void* k, const void* v, const void* dout, const
     return launch_dkv<hd, w>(q, k, v, dout, sq, sk, l, d, dk, dv, tiles, B, Lq, Lk, NH, NKV,     \
                              scale, causal, window, st);
   PRT_DKV_CASE(64, false) PRT_DKV_CASE(64, true) PRT_DKV_CASE(128, false) PRT_DKV_CASE(128, true)
+  PRT_DKV_CASE(256, false) PRT_DKV_CASE(256, true)
 #undef PRT_DKV_CASE
   return (int)cudaErrorInvalidValue;
 }
@@ -942,7 +987,8 @@ extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v, co
 }
 
 // the same launch, also writing each item's kv tile counts into `tiles`
-// (int32 [B, NH, ceil(Lq / 128), 2]: visited, candidates)
+// (int32 [B, NH, ceil(Lq / BQ), 2]: visited, candidates; BQ = 128, or 64 at
+// head dim 256)
 extern "C" int flash_attn_bwd_dq_tiles(const void* q, const void* k, const void* v,
                                        const void* dout, const void* seg_q, const void* seg_kv,
                                        const void* lse, const void* delta, void* dq, int B, int Lq,
@@ -991,14 +1037,18 @@ extern "C" int flash_attn_bwd_blocks_per_sm(int kernel, int hd, int window, int 
                                                                  smem) == cudaSuccess        \
                ? n                                                                           \
                : -1;
-  PRT_OCC_CASE(0, flash_bwd_dq_kernel, 64, false, DQ_THREADS, dq_smem(64, len))
-  PRT_OCC_CASE(0, flash_bwd_dq_kernel, 64, true, DQ_THREADS, dq_smem(64, len))
-  PRT_OCC_CASE(0, flash_bwd_dq_kernel, 128, false, DQ_THREADS, dq_smem(128, len))
-  PRT_OCC_CASE(0, flash_bwd_dq_kernel, 128, true, DQ_THREADS, dq_smem(128, len))
+  PRT_OCC_CASE(0, flash_bwd_dq_kernel, 64, false, DqCfg<64>::THREADS, dq_smem(64, len))
+  PRT_OCC_CASE(0, flash_bwd_dq_kernel, 64, true, DqCfg<64>::THREADS, dq_smem(64, len))
+  PRT_OCC_CASE(0, flash_bwd_dq_kernel, 128, false, DqCfg<128>::THREADS, dq_smem(128, len))
+  PRT_OCC_CASE(0, flash_bwd_dq_kernel, 128, true, DqCfg<128>::THREADS, dq_smem(128, len))
+  PRT_OCC_CASE(0, flash_bwd_dq_kernel, 256, false, DqCfg<256>::THREADS, dq_smem(256, len))
+  PRT_OCC_CASE(0, flash_bwd_dq_kernel, 256, true, DqCfg<256>::THREADS, dq_smem(256, len))
   PRT_OCC_CASE(1, flash_bwd_dkv_kernel, 64, false, KV_THREADS, dkv_smem(64, len))
   PRT_OCC_CASE(1, flash_bwd_dkv_kernel, 64, true, KV_THREADS, dkv_smem(64, len))
   PRT_OCC_CASE(1, flash_bwd_dkv_kernel, 128, false, KV_THREADS, dkv_smem(128, len))
   PRT_OCC_CASE(1, flash_bwd_dkv_kernel, 128, true, KV_THREADS, dkv_smem(128, len))
+  PRT_OCC_CASE(1, flash_bwd_dkv_kernel, 256, false, KV_THREADS, dkv_smem(256, len))
+  PRT_OCC_CASE(1, flash_bwd_dkv_kernel, 256, true, KV_THREADS, dkv_smem(256, len))
 #undef PRT_OCC_CASE
   return -1;
 }
@@ -1015,6 +1065,9 @@ extern "C" int flash_attn_bwd_attributes(int kernel, int hd, int window, int* at
   PRT_ATTR_CASE(1, flash_bwd_dkv_kernel, 64, false) PRT_ATTR_CASE(1, flash_bwd_dkv_kernel, 64, true)
   PRT_ATTR_CASE(1, flash_bwd_dkv_kernel, 128, false)
   PRT_ATTR_CASE(1, flash_bwd_dkv_kernel, 128, true)
+  PRT_ATTR_CASE(0, flash_bwd_dq_kernel, 256, false) PRT_ATTR_CASE(0, flash_bwd_dq_kernel, 256, true)
+  PRT_ATTR_CASE(1, flash_bwd_dkv_kernel, 256, false)
+  PRT_ATTR_CASE(1, flash_bwd_dkv_kernel, 256, true)
 #undef PRT_ATTR_CASE
   return (int)cudaErrorInvalidValue;
 }

@@ -207,10 +207,17 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_
   }
 }
 
-// D[64 x N] += A[64 x 16] B[16 x N], A in registers, B MN-major in shared memory
+// D[64 x N] += A[64 x 16] B[16 x N], A in registers, B MN-major in shared memory.
+// N = 256 is two n128 products: columns [128, 256) of B start two 64-column
+// boxes (twice the descriptor's leading byte offset) on, and their
+// accumulators are d[64..127], where m64n256's own layout puts them.
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (N == 128) {
+  if constexpr (N == 256) {
+    const uint64_t box = (db >> 16) & 0x3FFF;  // the leading byte offset >> 4
+    wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&d[0]), a, db);
+    wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&d[64]), a, db + 2 * box);
+  } else if constexpr (N == 128) {
     wgmma_rs_n128(d, a, db);
   } else {
     wgmma_rs_n64(d, a, db);

@@ -61,6 +61,13 @@
 //   point), the producer writes each item's visited and candidate tile counts
 //   there, one slot an item, so a run can hold the kernel's visits against
 //   the mirror.
+// - Head dim 256 (Qwen3-Next): O of 64 rows is 64 x 256 f32, 128 registers a
+//   thread, which two consumer warpgroups cannot hold within the 168 a
+//   288-thread block gets; so an item is 64 q rows in one consumer warpgroup
+//   (160 threads, up to 255 registers), a kv tile 64 rows (one chunk of S),
+//   O += P V two m64n128 products a k step (`wgmma_rs<256>`), and shared
+//   memory two q buffers and two k/v stages of 32 KB each (`Tiles<HD>`).
+//   The skip rule's mirror runs at 64 x 64 there (`fwd_tiles`).
 
 #include <climits>
 
@@ -68,11 +75,20 @@
 
 namespace {
 
-constexpr int BQ = 128;             // q rows a work item
-constexpr int BK = 128;             // kv rows a tile
-constexpr int CONSUMERS = 2;        // warpgroups of 64 q rows
-constexpr int NTHREADS = 128 * CONSUMERS + 32;  // and one producer warp
-constexpr int PRODUCER = 4 * CONSUMERS;         // the producer's warp index
+// the tiles and threads by head dim: 128 q rows an item in two consumer
+// warpgroups of 64 and kv tiles of 128 rows at head dim 64 and 128; at 256 an
+// output accumulator of 64 x 256 f32 takes 128 registers a thread, which two
+// warpgroups cannot hold at the 168 a 288-thread block gets, so an item is 64
+// q rows in one consumer warpgroup (160 threads, up to 255 registers) and a kv
+// tile 64 rows, as shared memory allows (below)
+template <int HD>
+struct Tiles {
+  static constexpr int BQ = HD == 256 ? 64 : 128;  // q rows a work item
+  static constexpr int BK = HD == 256 ? 64 : 128;  // kv rows a tile
+  static constexpr int CONSUMERS = BQ / 64;        // warpgroups of 64 q rows
+  static constexpr int NTHREADS = 128 * CONSUMERS + 32;  // and one producer warp
+  static constexpr int PRODUCER = 4 * CONSUMERS;         // the producer's warp index
+};
 constexpr int SCAN = 8;             // kv tiles whose segment ids the producer reads at once
 constexpr float NEG_INF = -1e30f;   // the running max's floor and a no-key row's lse
 constexpr float LOG2E = 1.4426950408889634f;
@@ -82,9 +98,12 @@ constexpr int MAX_SMEM = 232448;    // what a block may use on the H100
 // rows of 128 bytes in the 128-byte swizzle, the boxes of a tile back to
 // back. q, the q tile's segment ids, its item's description and its kv tile
 // flags are double-buffered by item; k, v and their segment ids by ring stage.
+// At head dim 256: two q buffers of 32 KB and two stages of k and v of 32 KB
+// each, about 194 KB.
 template <int HD>
 struct Smem {
-  static constexpr int HALVES = HD / 64;
+  static constexpr int BQ = Tiles<HD>::BQ, BK = Tiles<HD>::BK;
+  static constexpr int HALVES = HD / 64;  // 64-column boxes a row
   // k/v ring depth: three stages where they fit (head dim 64), else two
   static constexpr int STAGES = HD == 64 ? 3 : 2;
   static constexpr int Q_BYTES = BQ * HD * 2;
@@ -126,7 +145,7 @@ __device__ __forceinline__ void finalize(float m, float l, float scale, const fl
 }
 
 template <int HD, bool WINDOW>
-__global__ void __launch_bounds__(NTHREADS, 1)
+__global__ void __launch_bounds__(Tiles<HD>::NTHREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v,
                  const __grid_constant__ CUtensorMap tm_seg, const int* __restrict__ seg_q,
@@ -135,13 +154,15 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
                  int* __restrict__ tiles, int B, int Lq, int Lk, int NH, int NKV, float scale,
                  int causal, int window) {
   using S = Smem<HD>;
+  constexpr int BQ = Tiles<HD>::BQ, BK = Tiles<HD>::BK, CONSUMERS = Tiles<HD>::CONSUMERS;
   // keys of S a consumer holds at once: at head dim 128, O takes 64 registers
   // a thread and S of all 128 keys another 64, which with the rest passes the
   // 168 a thread that ptxas gives a block of 288 threads (9 warps: 3 on one
   // of the SM's four register files), so S goes in two chunks of 64 keys. So
   // does the banded form: a 128-row band's tiles hold chunks that a
-  // warpgroup's 64 rows do not see at all, or see whole.
-  constexpr int SN = HD == 128 || WINDOW ? 64 : 128;
+  // warpgroup's 64 rows do not see at all, or see whole. At head dim 256 a
+  // tile is one chunk of 64 keys.
+  constexpr int SN = HD >= 128 || WINDOW ? 64 : 128;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t sbase = smem_u32(smem);
@@ -171,7 +192,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   }
   __syncthreads();
 
-  if (warp == PRODUCER) {
+  if (warp == Tiles<HD>::PRODUCER) {
     // ---- producer warp: for each item, wait until its buffers are free (the
     // consumers finished the item two back), scan the kv segment ids of its
     // candidate tiles, load q, then the visited k/v tiles into the ring. It
@@ -474,9 +495,13 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 // ---- host side ---------------------------------------------------------------
 
 
+template <int HD>
+size_t smem_of(int Lk) {
+  return Smem<HD>::bytes((Lk + Tiles<HD>::BK - 1) / Tiles<HD>::BK);
+}
+
 size_t smem_bytes(int hd, int Lk) {
-  const int n_tiles = (Lk + BK - 1) / BK;
-  return hd == 128 ? Smem<128>::bytes(n_tiles) : Smem<64>::bytes(n_tiles);
+  return hd == 256 ? smem_of<256>(Lk) : hd == 128 ? smem_of<128>(Lk) : smem_of<64>(Lk);
 }
 
 template <int HD, bool WINDOW>
@@ -497,6 +522,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* seg_q
   EncodeTiled encode = encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   CUtensorMap tq, tk, tv, tseg;
+  constexpr int BQ = Tiles<HD>::BQ, BK = Tiles<HD>::BK;
   if (!tensor_map(&tq, encode, q, HD, NH, Lq, B, BQ) ||
       !tensor_map(&tk, encode, k, HD, NKV, Lk, B, BK) ||
       !tensor_map(&tv, encode, v, HD, NKV, Lk, B, BK) ||
@@ -508,7 +534,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* seg_q
   cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return err;
   const int n_items = (Lq + BQ - 1) / BQ * NH * B;
-  flash_fwd_kernel<HD, WINDOW><<<min(n_items, sms), NTHREADS, smem, stream>>>(
+  flash_fwd_kernel<HD, WINDOW><<<min(n_items, sms), Tiles<HD>::NTHREADS, smem, stream>>>(
       tq, tk, tv, tseg, seg_q, seg_kv, static_cast<__nv_bfloat16*>(out), lse, sinks, tiles, B, Lq,
       Lk, NH, NKV, scale, causal, window);
   return cudaGetLastError();
@@ -527,6 +553,7 @@ int run(const void* q, const void* k, const void* v, const void* seg_q, const vo
     return launch<hd, w>(q, k, v, sq, sk, out, l, snk, tiles, B, Lq, Lk, NH, NKV, scale,      \
                          causal, window, st);
   PRT_FWD_CASE(64, false) PRT_FWD_CASE(64, true) PRT_FWD_CASE(128, false) PRT_FWD_CASE(128, true)
+  PRT_FWD_CASE(256, false) PRT_FWD_CASE(256, true)
 #undef PRT_FWD_CASE
   return (int)cudaErrorInvalidValue;
 }
@@ -542,7 +569,8 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, const
 }
 
 // the same launch, also writing each work item's kv tile counts into `tiles`
-// (int32 [B, NH, ceil(Lq / 128), 2]: visited, candidates)
+// (int32 [B, NH, ceil(Lq / BQ), 2]: visited, candidates; BQ = 128, or 64 at
+// head dim 256)
 extern "C" int flash_attn_fwd_tiles(const void* q, const void* k, const void* v,
                                     const void* seg_q, const void* seg_kv, void* out, void* lse,
                                     const void* sinks, int B, int Lq, int Lk, int NH, int NKV,
@@ -568,6 +596,9 @@ extern "C" int flash_attn_fwd_attributes(int hd, int window, int* attrs) {
   } else if (hd == 128) {
     err = window ? cudaFuncGetAttributes(&a, flash_fwd_kernel<128, true>)
                  : cudaFuncGetAttributes(&a, flash_fwd_kernel<128, false>);
+  } else if (hd == 256) {
+    err = window ? cudaFuncGetAttributes(&a, flash_fwd_kernel<256, true>)
+                 : cudaFuncGetAttributes(&a, flash_fwd_kernel<256, false>);
   }
   if (err != cudaSuccess) return (int)err;
   attrs[0] = a.numRegs;

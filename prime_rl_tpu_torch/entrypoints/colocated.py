@@ -79,7 +79,8 @@ def run_colocated(config: RLConfig):
                     device=str(device), compute_dtype=torch.bfloat16, seed=icfg.seed,
                     lookahead=icfg.scheduler.lookahead,
                     decode_block=icfg.scheduler.decode_block,
-                    collect_routed_experts=icfg.collect_routed_experts)
+                    collect_routed_experts=icfg.collect_routed_experts,
+                    gdn_precision=tcfg.model.gdn_mxu_precision)
     if icfg.scheduler.warmup_requests > 0:
         engine.warmup(icfg.scheduler.warmup_requests)
     engine.pause()  # no serving until real weights land

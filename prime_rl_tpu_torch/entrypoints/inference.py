@@ -29,7 +29,7 @@ def build_server(config: InferenceConfig):
     from prime_rl_tpu_torch.models.base import get_spec
     from prime_rl_tpu_torch.models.qwen3 import load_hf_weights
     from prime_rl_tpu_torch.renderers.tokenizer import get_tokenizer
-    from prime_rl_tpu_torch.sampler.cache import CacheConfig, page_nbytes
+    from prime_rl_tpu_torch.sampler.cache import CacheConfig, page_nbytes, recurrent_nbytes
     from prime_rl_tpu_torch.sampler.engine import Engine
     from prime_rl_tpu_torch.sampler.server import InferenceServer
     from prime_rl_tpu_torch.utils.device import memory_info, resolve_device
@@ -68,6 +68,8 @@ def build_server(config: InferenceConfig):
         torch.cuda.empty_cache()
         free, total = memory_info(device)
         budget = min(free, total * config.kv.hbm_utilization - (total - free))
+        # a hybrid's recurrent rows come out of the same memory
+        budget -= recurrent_nbytes(spec, config.scheduler.max_batch_size)
         num_pages = max(16, int(budget // page_bytes))
     cache_cfg = CacheConfig(
         num_pages=num_pages,
@@ -81,7 +83,8 @@ def build_server(config: InferenceConfig):
     engine = Engine(params, spec, cache_cfg, device=str(device), compute_dtype=dtype,
                     seed=config.seed, lookahead=config.scheduler.lookahead,
                     decode_block=config.scheduler.decode_block,
-                    collect_routed_experts=config.collect_routed_experts)
+                    collect_routed_experts=config.collect_routed_experts,
+                    gdn_precision=config.model.gdn_mxu_precision)
     del params  # the engine holds its own serving layout
     if config.scheduler.warmup_requests > 0:
         engine.warmup(config.scheduler.warmup_requests)

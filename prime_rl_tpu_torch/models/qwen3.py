@@ -437,8 +437,8 @@ def params_from_jax(np_params: dict, spec: ModelSpec, device: torch.device | str
     """The JAX package's stacked training pytree, fetched as numpy arrays
     (``jax.device_get``), as this package's params: the same layout and
     values, so both packages compute the same function (every family this
-    module initializes)."""
-    if spec.family not in _INIT_FAMILIES:
+    module initializes, and qwen3_next's two stacks)."""
+    if spec.family not in _INIT_FAMILIES + ("qwen3_next",):
         raise NotImplementedError(f"model family {spec.family!r} is not ported yet")
 
     def conv(x):

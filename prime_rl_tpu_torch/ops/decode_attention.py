@@ -293,12 +293,13 @@ def decode_rows_counts(q, k_new, v_new, k_pool, v_pool, lengths, page_table, *, 
 
 
 def check_shape(num_heads: int, num_kv_heads: int, head_dim: int) -> None:
-    """Raise unless the kernel takes these heads: head dim 64 or 128 and any
-    GQA group (``num_heads`` a multiple of ``num_kv_heads``), as the JAX
-    kernel does. The wrapper's only check on the heads; launches nothing."""
-    if (head_dim not in (64, 128) or num_kv_heads <= 0 or num_heads <= 0
+    """Raise unless the kernel takes these heads: head dim 64, 128 or 256 (the
+    JAX decode path's ``hd % 128 == 0`` and 64) and any GQA group
+    (``num_heads`` a multiple of ``num_kv_heads``), as the JAX kernel does.
+    The wrapper's only check on the heads; launches nothing."""
+    if (head_dim not in (64, 128, 256) or num_kv_heads <= 0 or num_heads <= 0
             or num_heads % num_kv_heads):
-        raise ValueError(f"decode_paged_attention takes head_dim 64/128 and num_heads a "
+        raise ValueError(f"decode_paged_attention takes head_dim 64/128/256 and num_heads a "
                          f"multiple of num_kv_heads; got head_dim {head_dim}, heads "
                          f"{num_heads}/{num_kv_heads}")
 

@@ -20,7 +20,8 @@ no key gets output 0 and lse -1e30 (with a sink: lse = the sink), gradient 0,
 and adds nothing to dk/dv. The sinks' gradient, ``-sum exp(sink - lse) *
 delta`` over batch and rows, is a plain PyTorch reduction beside the kernels,
 as it is an XLA reduction beside the TPU kernels. On the card the kernels take
-bf16 tensors with head dim 64 or 128; a length that is no multiple of the
+bf16 tensors with head dim 64, 128 or 256 (``HEAD_DIMS``; the JAX kernels
+set no limit, and 256 is Qwen3-Next's); a length that is no multiple of the
 tile is masked inside the kernels; windows run banded (tiles outside the
 band are never loaded). ``flash_attention_with_lse`` (the cross-block form)
 takes neither window nor sinks, as in the JAX package.
@@ -34,9 +35,11 @@ consumer warpgroups whose products are all ``wgmma`` with the score-sized
 tiles in registers, and tiles skipped by the causal diagonal, the band and
 the range of the other side's segments. K1 and K2a skip kv tiles for a q tile
 (``flash_tiles_visited`` is the plain mirror of that rule, at 128 x 128
-tiles for K1 and 128 x 64 for K2a); K2b skips q tiles for a kv tile
+tiles for K1 and 128 x 64 for K2a, 64 x 64 for both at head dim 256:
+``fwd_tiles``, ``dq_tiles``); K2b skips q tiles for a kv tile
 (``flash_bwd_dkv_tiles_visited``, 64 x 64) and sums dk/dv over the GQA group
-inside one block, so that no atomics are needed.
+inside one block, so that no atomics are needed (at head dim 256 a block
+computes one half of D of dk and dv).
 
 For CPU tensors the wrappers run ``flash_attention_reference`` and
 ``flash_attention_backward_reference``, the plain versions of the same
@@ -52,9 +55,10 @@ import torch
 from prime_rl_tpu_torch.ops import _build
 
 NEG_INF = -1e30
-TILE = 128  # K1's q and kv tile (BQ = BK in csrc/flash_attn_fwd.cu)
-DQ_TILES = (128, 64)  # K2a's q tile and kv tile (DQ_BQ, DQ_BK in csrc/flash_attn_bwd.cu)
-DKV_TILE = 64  # K2b's kv tile and q tile (KV_BK = KV_BQ)
+HEAD_DIMS = (64, 128, 256)  # the head dims the kernels are built for
+TILE = 128  # K1's q and kv tile at head dim 64 and 128 (Tiles<HD> in csrc/flash_attn_fwd.cu)
+DQ_TILES = (128, 64)  # K2a's q tile and kv tile there (DqCfg<HD> in csrc/flash_attn_bwd.cu)
+DKV_TILE = 64  # K2b's kv tile and q tile at every head dim (KV_BK = KV_BQ)
 KERNEL = "flash_attn_fwd"
 KERNEL_BWD = "flash_attn_bwd"  # one source, two kernels, counted separately:
 KERNEL_DQ = "flash_attn_bwd_dq"
@@ -62,6 +66,25 @@ KERNEL_DKV = "flash_attn_bwd_dkv"
 
 _fns = None
 _bwd_fns: dict = {}
+
+
+def fwd_tiles(head_dim: int) -> tuple[int, int]:
+    """K1's (q tile, kv tile) at ``head_dim``: 128 x 128, or 64 x 64 at 256,
+    where one consumer warpgroup holds a 64-row item's output accumulator."""
+    return (64, 64) if head_dim == 256 else (TILE, TILE)
+
+
+def dq_tiles(head_dim: int) -> tuple[int, int]:
+    """K2a's (q tile, kv tile) at ``head_dim``: 128 x 64, or 64 x 64 at 256."""
+    return (64, 64) if head_dim == 256 else DQ_TILES
+
+
+def check_head_dim(name: str, head_dim: int, num_heads: int, num_kv_heads: int) -> None:
+    """Raise unless the kernels take these heads: head dim 64, 128 or 256 and
+    ``num_heads`` a multiple of ``num_kv_heads``."""
+    if head_dim not in HEAD_DIMS or num_kv_heads <= 0 or num_heads % num_kv_heads:
+        raise ValueError(f"{name} takes head_dim 64, 128 or 256 and NH % NKV == 0, "
+                         f"got head_dim {head_dim}, heads {num_heads}/{num_kv_heads}")
 
 
 def _kernel(tiles: bool = False):
@@ -156,8 +179,9 @@ def flash_tile_counts(q, k, v, seg_q, seg_kv, causal: bool, window: int = 0,
     if not q.is_cuda:
         raise ValueError("flash_tile_counts: the counts come from the kernel, which takes CUDA "
                          "tensors")
-    b, lq, nh, _ = q.shape
-    tiles = torch.full((b, nh, -(-lq // TILE), 2), -1, dtype=torch.int32, device=q.device)
+    b, lq, nh, hd = q.shape
+    tiles = torch.full((b, nh, -(-lq // fwd_tiles(hd)[0]), 2), -1, dtype=torch.int32,
+                       device=q.device)
     _fwd_cuda(q, k, v, seg_q, seg_kv, causal, q.shape[-1] ** -0.5, window, sinks, tiles)
     return tiles
 
@@ -192,9 +216,7 @@ def _fwd_cuda(q, k, v, seg_q, seg_kv, causal: bool, scale: float, window: int = 
               sinks=None, tiles=None):
     b, lq, nh, hd = q.shape
     lk, nkv = k.shape[1], k.shape[2]
-    if hd not in (64, 128) or nh % nkv:
-        raise ValueError(f"flash_attn_fwd takes head_dim 64 or 128 and NH % NKV == 0, "
-                         f"got head_dim {hd}, heads {nh}/{nkv}")
+    check_head_dim("flash_attn_fwd", hd, nh, nkv)
     _build.require(q, "q", torch.bfloat16)
     _build.require(k, "k", torch.bfloat16, (b, lk, nkv, hd))
     _build.require(v, "v", torch.bfloat16, (b, lk, nkv, hd))
@@ -203,7 +225,7 @@ def _fwd_cuda(q, k, v, seg_q, seg_kv, causal: bool, scale: float, window: int = 
     if sinks is not None:
         _build.require(sinks, "sinks", torch.float32, (nh,))
     if tiles is not None:
-        _build.require(tiles, "tiles", torch.int32, (b, nh, -(-lq // TILE), 2))
+        _build.require(tiles, "tiles", torch.int32, (b, nh, -(-lq // fwd_tiles(hd)[0]), 2))
     out = torch.empty_like(q)
     lse = torch.empty((b, nh, lq), dtype=torch.float32, device=q.device)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_q.data_ptr(), seg_kv.data_ptr(),
@@ -311,9 +333,7 @@ def flash_attention_backward_reference(q, k, v, seg_q, seg_kv, out, lse, do, dls
 def _check_bwd_args(q, k, v, seg_q, seg_kv, lse, delta, do):
     b, lq, nh, hd = q.shape
     lk, nkv = k.shape[1], k.shape[2]
-    if hd not in (64, 128) or nh % nkv:
-        raise ValueError(f"flash_attn_bwd takes head_dim 64 or 128 and NH % NKV == 0, "
-                         f"got head_dim {hd}, heads {nh}/{nkv}")
+    check_head_dim("flash_attn_bwd", hd, nh, nkv)
     _build.require(q, "q", torch.bfloat16)
     _build.require(k, "k", torch.bfloat16, (b, lk, nkv, hd))
     _build.require(v, "v", torch.bfloat16, (b, lk, nkv, hd))
@@ -329,11 +349,11 @@ def flash_attention_dq(q, k, v, seg_q, seg_kv, lse, delta, do, causal: bool, sca
                        window: int = 0, tiles=None):
     """K2a on CUDA tensors: dq [B, Lq, NH, HD] bf16. ``delta`` [B, NH, Lq] f32
     is sum(out * do, -1) minus the lse cotangent. ``tiles`` (int32 [B, NH,
-    ceil(Lq / 128), 2], or None) receives each q tile's visited and candidate
-    kv tiles."""
+    ceil(Lq / bq), 2] with ``bq`` of ``dq_tiles``, or None) receives each q
+    tile's visited and candidate kv tiles."""
     b, lq, lk, nh, nkv, hd = _check_bwd_args(q, k, v, seg_q, seg_kv, lse, delta, do)
     if tiles is not None:
-        _build.require(tiles, "tiles", torch.int32, (b, nh, -(-lq // DQ_TILES[0]), 2))
+        _build.require(tiles, "tiles", torch.int32, (b, nh, -(-lq // dq_tiles(hd)[0]), 2))
     dq = torch.empty_like(q)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), seg_q.data_ptr(),
             seg_kv.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, lq, lk, nh, nkv,
@@ -367,8 +387,8 @@ def flash_bwd_tile_counts(q, k, v, seg_q, seg_kv, lse, delta, do, causal: bool,
                           window: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """(K2a's int32 [B, NH, nq, 2], K2b's int32 [B, NKV, nk, 2]): the tiles
     each kernel visited and its candidates, as the kernels counted them in one
-    launch each on these inputs (K2a: kv tiles of 64 for each q tile of 128;
-    K2b: q tiles of 64 for each kv tile of 64). Only the kernels count: CPU
+    launch each on these inputs (K2a: kv tiles of 64 for each q tile of
+    ``dq_tiles``; K2b: q tiles of 64 for each kv tile of 64). Only the kernels count: CPU
     tensors raise (``flash_tiles_visited`` and ``flash_bwd_dkv_tiles_visited``
     are the rules' plain mirrors)."""
     if not q.is_cuda:
@@ -376,14 +396,14 @@ def flash_bwd_tile_counts(q, k, v, seg_q, seg_kv, lse, delta, do, causal: bool,
                          "CUDA tensors")
     b, lq, nh, hd = q.shape
     lk, nkv = k.shape[1], k.shape[2]
-    dq_tiles = torch.full((b, nh, -(-lq // DQ_TILES[0]), 2), -1, dtype=torch.int32,
-                          device=q.device)
-    dkv_tiles = torch.full((b, nkv, -(-lk // DKV_TILE), 2), -1, dtype=torch.int32,
+    dq_counts = torch.full((b, nh, -(-lq // dq_tiles(hd)[0]), 2), -1, dtype=torch.int32,
                            device=q.device)
+    dkv_counts = torch.full((b, nkv, -(-lk // DKV_TILE), 2), -1, dtype=torch.int32,
+                            device=q.device)
     args = (q, k, v, seg_q, seg_kv, lse, delta, do, causal, hd ** -0.5, window)
-    flash_attention_dq(*args, tiles=dq_tiles)
-    flash_attention_dkv(*args, tiles=dkv_tiles)
-    return dq_tiles, dkv_tiles
+    flash_attention_dq(*args, tiles=dq_counts)
+    flash_attention_dkv(*args, tiles=dkv_counts)
+    return dq_counts, dkv_counts
 
 
 def flash_attention_backward(q, k, v, seg_q, seg_kv, out, lse, do, dlse, causal: bool,

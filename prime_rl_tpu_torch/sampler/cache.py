@@ -1,10 +1,13 @@
 """Paged KV cache: device pool + host page allocator (the port of the JAX
-package's ``sampler/cache.py``; dense attention and MLA).
+package's ``sampler/cache.py``; dense attention, MLA and the GatedDeltaNet
+hybrid).
 
     k/v: one [num_kv_heads, num_pages, page_size, head_dim] tensor per layer
     MLA: k one [1, num_pages, page_size, kv_lora_rank + qk_rope_head_dim]
          latent row a token, shared by every head; v the DSA indexer keys
          [1, num_pages, page_size, index_head_dim], or None for dense MLA
+    hybrid: no pages for a recurrent ("L") layer; ``RecurrentPool`` holds
+         its per-slot conv window and fast-weight state instead
 
 The allocator is plain host Python (a free list); the device only ever sees
 a page table ``[max_slots, pages_per_slot] int32`` and per-slot lengths.
@@ -35,7 +38,10 @@ class CacheConfig:
     prefill_chunk: int = 1024
     # host-offload KV tier (not ported yet: must stay 0)
     host_cache_mb: int = 0
-    # hybrid recurrent-state checkpoints (hybrid models are not ported yet)
+    # hybrid (GDN) prefix caching: host budget for recurrent-state
+    # checkpoints taken at the last full-page boundary of each prompt; a later
+    # prompt whose page chain reaches one restores the state and skips the
+    # prefix. 0 = hybrids serve without prefix reuse.
     state_cache_mb: int = 256
 
     @property
@@ -44,8 +50,9 @@ class CacheConfig:
 
 
 def layer_kinds(spec: ModelSpec) -> list[str]:
-    """Per-layer cache kind: "A" = paged-KV attention+MLP pair. The hybrid
-    kinds of the JAX package ("L", "M", "*", "-", "E") are not ported yet."""
+    """Per-layer cache kind: "A" = paged-KV attention+MLP pair, "L" =
+    recurrent GatedDeltaNet (no pages). The Mamba-hybrid kinds of the JAX
+    package ("M", "*", "-", "E") wait for the nemotron_h slice."""
     if spec.gdn_pattern:
         return list(spec.gdn_pattern)
     if spec.layer_pattern:
@@ -63,28 +70,60 @@ class KVPool:
 
     def __init__(self, spec: ModelSpec, config: CacheConfig, dtype=torch.bfloat16,
                  device: torch.device | str = "cpu"):
-        if any(kd != "A" for kd in layer_kinds(spec)):
+        kinds = layer_kinds(spec)
+        if any(kd not in ("A", "L") for kd in kinds):
             raise NotImplementedError(
-                f"model family {spec.family!r}: hybrid recurrent layers are not ported yet")
+                f"model family {spec.family!r}: the Mamba-hybrid layers are not ported yet")
         self.spec = spec
         self.config = config
-        nl = spec.num_layers
         if spec.kv_lora_rank > 0:
             lead, (k_row, v_row) = 1, row_widths(spec)
         else:
             lead, k_row, v_row = spec.num_kv_heads, spec.head_dim, spec.head_dim
 
         def pool(width):
-            if not width:
-                return [None] * nl
             shape = (lead, config.num_pages, config.page_size, width)
-            return [torch.zeros(shape, dtype=dtype, device=device) for _ in range(nl)]
+            return [torch.zeros(shape, dtype=dtype, device=device) if width and kd == "A"
+                    else None for kd in kinds]
 
         self.k, self.v = pool(k_row), pool(v_row)
 
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size() for pool in (self.k, self.v) for t in pool
                    if t is not None)
+
+
+class RecurrentPool:
+    """Per-slot recurrent decode state of the GatedDeltaNet layers, one entry
+    a layer (None for an attention layer):
+      conv  [max_slots, conv_dim, K]    the rolling raw conv inputs, in the
+                                        compute dtype
+      state [max_slots, Hv, Dk, Dv]     the fast-weight state, float32
+    Updated in place by decode and the chunked prefill; a slot's rows are
+    written at admit, so rows left by a finished request are never read."""
+
+    def __init__(self, spec: ModelSpec, config: CacheConfig, dtype=torch.bfloat16,
+                 device: torch.device | str = "cpu"):
+        s = config.max_slots
+        self.conv, self.state = [], []
+        for kd in layer_kinds(spec):
+            rec = kd == "L"
+            self.conv.append(torch.zeros((s, spec.gdn_conv_dim, spec.gdn_conv_kernel),
+                                         dtype=dtype, device=device) if rec else None)
+            self.state.append(torch.zeros((s, spec.gdn_v_heads, spec.gdn_k_dim, spec.gdn_v_dim),
+                                          dtype=torch.float32, device=device) if rec else None)
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.conv + self.state if t is not None)
+
+
+def recurrent_nbytes(spec: ModelSpec, max_slots: int, itemsize: int = 2) -> int:
+    """Bytes of a ``RecurrentPool`` of ``max_slots`` slots (conv windows in
+    a dtype of ``itemsize`` bytes, states float32)."""
+    n = layer_kinds(spec).count("L")
+    per = (spec.gdn_conv_dim * spec.gdn_conv_kernel * itemsize
+           + spec.gdn_v_heads * spec.gdn_k_dim * spec.gdn_v_dim * 4)
+    return n * max_slots * per
 
 
 def row_widths(spec: ModelSpec) -> tuple[int, int]:
@@ -97,8 +136,9 @@ def row_widths(spec: ModelSpec) -> tuple[int, int]:
 
 
 def page_nbytes(spec: ModelSpec, page_size: int, itemsize: int = 2) -> int:
-    """Bytes one page takes over every layer's k and v pool."""
-    return spec.num_layers * sum(row_widths(spec)) * page_size * itemsize
+    """Bytes one page takes over every paged layer's k and v pool."""
+    paged = layer_kinds(spec).count("A")
+    return paged * sum(row_widths(spec)) * page_size * itemsize
 
 
 def hash_pages(tokens: list[int], page_size: int, salt: object = None) -> list[int]:
@@ -257,15 +297,18 @@ class SlotTable:
         if short > 0 and self.cache is not None:
             self.alloc.free.extend(self.cache.evict(short))
 
-    def acquire(self, num_tokens: int, prompt_hashes: list[int] | None = None
-                ) -> tuple[int, int] | None:
+    def acquire(self, num_tokens: int, prompt_hashes: list[int] | None = None,
+                max_shared: int | None = None) -> tuple[int, int] | None:
         """Slot + pages for ``num_tokens``, reusing the longest cached chain
         of ``prompt_hashes`` (full prompt pages, salt-chained). Returns
-        (slot, shared_page_count) or None if the pool can't fit it now."""
+        (slot, shared_page_count) or None if the pool can't fit it now.
+        ``max_shared`` caps the reused chain (hybrid models: pages past the
+        recurrent-state checkpoint would be recomputed into shared pages)."""
         hashes = list(prompt_hashes or ())
         if not self.free_slots:
             return None
-        shared_pages = self.cache.lookup(hashes) if self.cache is not None else []
+        lookup = hashes if max_shared is None else hashes[:max_shared]
+        shared_pages = self.cache.lookup(lookup) if self.cache is not None else []
         n_shared = len(shared_pages)
         total_pages = -(-num_tokens // self.config.page_size)
         need = total_pages - n_shared

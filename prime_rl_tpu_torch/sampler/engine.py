@@ -1,5 +1,6 @@
 """Continuous-batching sampling engine (the port of the JAX package's
-``sampler/engine.py``, dense path).
+``sampler/engine.py``: the dense, MoE and MLA paths and the GatedDeltaNet
+hybrid's).
 
 Architecture:
 - ONE decode pass over all slots per step. Decode state (last tokens,
@@ -22,6 +23,17 @@ Architecture:
 - Router replay (``collect_routed_experts``, MoE families): each decode
   step's expert ids ride the block's packed result to the host, and a
   finished request carries them as ``routed_experts``.
+- Hybrid models (``gdn_pattern``): the recurrent layers keep a slot's conv
+  window and fast-weight state in a ``RecurrentPool`` (seeded at admit,
+  advanced in place by every decode step); their attention layers page as
+  usual. Prompts prefill one at a time; with a state tier
+  (``state_cache_mb`` > 0, the default) a prompt with a full page before its
+  last token prefills in chunks that thread the recurrent rows, and the rows
+  at its last full-page boundary are checkpointed to host memory under that
+  page chain's hash (LRU, bounded by ``state_cache_mb``). A later prompt
+  whose chain reaches a checkpoint restores it and skips the shared pages,
+  so hybrids keep prefix reuse; a weight update flushes the tier with the
+  prefix cache. P/D transfer of the rows waits for the P/D slice.
 
 Constrained decoding, LoRA adapters, multimodal inputs, P/D KV
 extraction/injection and the host KV tier are later slices: requests that
@@ -32,7 +44,7 @@ from __future__ import annotations
 
 import threading
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from concurrent.futures import Future
 from dataclasses import dataclass, field
 
@@ -41,7 +53,13 @@ import torch
 
 from prime_rl_tpu_torch.models.base import ModelSpec
 from prime_rl_tpu_torch.sampler import model as smodel
-from prime_rl_tpu_torch.sampler.cache import CacheConfig, KVPool, SlotTable, hash_pages
+from prime_rl_tpu_torch.sampler.cache import (
+    CacheConfig,
+    KVPool,
+    RecurrentPool,
+    SlotTable,
+    hash_pages,
+)
 from prime_rl_tpu_torch.sampler.sampling import MAX_TOP_K, sample_tokens
 from prime_rl_tpu_torch.utils.device import resolve_device
 from prime_rl_tpu_torch.utils.logger import get_logger
@@ -175,9 +193,11 @@ class Engine:
         lookahead: int | None = None,  # in-flight decode TOKENS per drain
         decode_block: int = 8,  # decode steps per dispatched block
         collect_routed_experts: bool = False,  # record decode-time MoE routing
+        gdn_precision: str = "highest",  # ModelConfig.gdn_mxu_precision (hybrids)
     ):
         smodel.check_supported(spec)
         self.spec = spec
+        self.gdn_precision = gdn_precision
         self._collect_routed = bool(collect_routed_experts and spec.is_moe)
         self.device = resolve_device(device)
         if lookahead:
@@ -191,7 +211,17 @@ class Engine:
                                       "(host_cache_mb must be 0)")
         pool = KVPool(spec, self.config, dtype=compute_dtype, device=self.device)
         self.k_pool, self.v_pool = pool.k, pool.v
-        self.slots = SlotTable(self.config, enable_prefix_cache=self.config.enable_prefix_cache)
+        self.is_hybrid = bool(spec.gdn_pattern)
+        rpool = RecurrentPool(spec, self.config, dtype=compute_dtype, device=self.device)
+        self.r_conv, self.r_state = rpool.conv, rpool.state
+        prefix_ok = self.config.enable_prefix_cache and (
+            not self.is_hybrid or self.config.state_cache_mb > 0)
+        self.slots = SlotTable(self.config, enable_prefix_cache=prefix_ok)
+        # hybrid prefix reuse: page-chain hash -> the recurrent rows at the
+        # end of that chain (host tensors a layer), LRU, state_cache_mb
+        self._state_tier: OrderedDict | None = (
+            OrderedDict() if self.is_hybrid and prefix_ok else None)
+        self._state_tier_bytes = 0
         self.pending: deque[_Request] = deque()
         self.active: dict[int, _Active] = {}
         self.paused = False
@@ -313,8 +343,8 @@ class Engine:
             t1 = time.perf_counter()
             self._drain(force=True)  # complete blocks sampled under the old policy
             self.params = self._prepare_params(new_params)
-            # cached prefix KV was computed under the old weights
-            self.slots.flush_cache()
+            # cached prefix KV and recurrent states came from the old weights
+            self._flush_prefix()
             if version is not None:
                 self.policy_version = version
             self.last_swap_s = (t1 - t0, time.perf_counter() - t1)
@@ -368,6 +398,13 @@ class Engine:
         if not req.future.done():
             req.future.set_exception(exc)
 
+    def _flush_prefix(self) -> None:
+        """Drop the prefix cache's idle pages and the hybrid state tier."""
+        self.slots.flush_cache()
+        if self._state_tier is not None:
+            self._state_tier.clear()
+            self._state_tier_bytes = 0
+
     def _batchable(self, req: _Request) -> bool:
         """Eligible for the batched prefill pass."""
         sp = req.params
@@ -381,8 +418,9 @@ class Engine:
     def _admit_batch_plain(self) -> bool:
         """Batch same-bucket pending prefills into one pass. Cache-hit
         requests fall through to the single path where the prefix is reused.
-        The MLA families prefill one prompt at a time, as in the JAX engine."""
-        if self.spec.kv_lora_rank > 0:
+        The MLA families and hybrids prefill one prompt at a time, as in the
+        JAX engine."""
+        if self.spec.kv_lora_rank > 0 or self.is_hybrid:
             return False
         with self._lock:
             window = list(self.pending)[: self.ADMIT_WINDOW]
@@ -532,22 +570,54 @@ class Engine:
         sp = req.params
         n = max(len(req.prompt), 1)
         ps = self.config.page_size
+        if self.is_hybrid and n > self.buckets[-1] and (
+                self._state_tier is None or sp.prompt_logprobs):
+            self._reject(req, ValueError(
+                f"hybrid model: prompt length {n} exceeds the largest prefill bucket "
+                f"{self.buckets[-1]} and this request cannot use chunked prefill (needs "
+                "state_cache_mb > 0 and no prompt_logprobs)"))
+            return True
         hashes: list[int] = []
         if self.slots.cache is not None and not sp.prompt_logprobs:
             # shareable: full pages strictly before the last prompt token (at
             # least one token is always computed -> last_hidden exists)
             n_shareable = ((n - 1) // ps) * ps
             hashes = hash_pages(req.prompt[:n_shareable], ps, salt=(sp.cache_salt, None))
+        # hybrid: page reuse is exact only up to a recurrent-state checkpoint:
+        # cap the chain at the deepest boundary that has both the pages and a
+        # snapshot
+        max_shared, snap = None, None
+        if self.is_hybrid:
+            max_shared = 0
+            if hashes and self._state_tier is not None:
+                m = self.slots.cache.match_len(hashes)
+                for j in range(m - 1, -1, -1):
+                    got_snap = self._state_tier.get(hashes[j])
+                    if got_snap is not None:
+                        self._state_tier.move_to_end(hashes[j])
+                        max_shared, snap = j + 1, got_snap
+                        break
         # pre-allocate pages for the whole request so the page table never
         # changes during decode
-        got = self.slots.acquire(self._acquire_want(req, n), hashes)
+        got = self.slots.acquire(self._acquire_want(req, n), hashes, max_shared=max_shared)
         if got is None:
             return False
         slot, n_shared = got
+        if self.is_hybrid and n_shared != (max_shared or 0):
+            # the matched chain cannot shrink (lookup increfs before any
+            # eviction), but a mismatch would recompute into shared pages:
+            # admit unshared instead
+            self.slots.cancel_donation(slot)
+            self.slots.release(slot)
+            got = self.slots.acquire(self._acquire_want(req, n))
+            if got is None:
+                return False
+            slot, n_shared = got
+            snap = None
         self.stats["requests_admitted"] += 1
         self.stats["prefill_tokens_cached"] += n_shared * ps
         try:
-            self._admit(req, slot, n, n_shared)
+            self._admit(req, slot, n, n_shared, hashes, snap)
         except Exception as e:  # noqa: BLE001 — reject this request, keep serving
             # the slot's pages may never have been written: never donate them
             self.slots.lengths[slot] = 0
@@ -586,7 +656,7 @@ class Engine:
 
         sp = SamplingParams(max_tokens=self.decode_block + 1, temperature=1.0, ignore_eos=True)
         self.generate(mk(max(1, n_requests)), sp)
-        self.slots.flush_cache()  # dummy pages must never prefix-hit
+        self._flush_prefix()  # dummy pages and states must never prefix-hit
         get_logger().info(f"engine warmup: {time.perf_counter() - t0:.1f}s")
 
     def run_until_idle(self) -> None:
@@ -607,7 +677,8 @@ class Engine:
 
     # -- internals ----------------------------------------------------------
 
-    def _admit(self, req: _Request, slot: int, n: int, n_shared: int = 0) -> None:
+    def _admit(self, req: _Request, slot: int, n: int, n_shared: int = 0,
+                hashes: list[int] | None = None, snap=None) -> None:
         sp = req.params
         ps = self.config.page_size
         shared_tokens = n_shared * ps
@@ -625,16 +696,22 @@ class Engine:
         d_topp = self._to_dev(np.asarray([sp.top_p], np.float32))
         filtering = sp.top_p < 1.0 or sp.top_k > MAX_TOP_K
         plp = None
-        if shared_tokens == 0 and n <= self.buckets[-1]:
+        if self.is_hybrid and (shared_tokens > 0 or n > self.buckets[-1]
+                               or (self._state_tier is not None and hashes)):
+            last_hidden = self._prefill_hybrid_chunked(req, slot, n, n_shared, hashes or [], snap)
+        elif shared_tokens == 0 and n <= self.buckets[-1]:
             # single-shot prefill (flash attention over the bucket)
             lpad = _bucket(n, self.buckets)
             ids = np.zeros((1, lpad), np.int64)
             ids[0, :n] = req.prompt
             pages = self.slots.page_table[slot][: lpad // ps]
-            _, _, last_hidden, plp = smodel.prefill(
+            out = smodel.prefill(
                 self.params, self.spec, self.k_pool, self.v_pool, self._to_dev(ids), n,
                 self._to_dev(pages), compute_dtype=self.compute_dtype,
-                want_prompt_logprobs=sp.prompt_logprobs)
+                want_prompt_logprobs=sp.prompt_logprobs, gdn_precision=self.gdn_precision)
+            _, _, last_hidden, plp = out[:4]
+            if self.is_hybrid:
+                self._set_slot_rows(slot, out[4])  # seed the slot's recurrent rows
         else:
             # incremental prefill: skip the cached prefix, process the rest in
             # page-aligned chunks attending to the full paged history
@@ -676,6 +753,88 @@ class Engine:
         self._d_stop[slot] = self._to_dev(self._stop_row(sp))
         if sp.max_tokens <= 0:
             self._finalize_scoring_only(active)
+
+    def _set_slot_rows(self, slot: int, rows: list | None) -> None:
+        """Write per-layer (conv_row, state_row) into the slot's recurrent
+        rows (None entries: attention layers, or zeros for all when ``rows``
+        is None)."""
+        for li, (rc, rs) in enumerate(zip(self.r_conv, self.r_state)):
+            if rc is None:
+                continue
+            row = None if rows is None else rows[li]
+            if row is None:
+                rc[slot].zero_()
+                rs[slot].zero_()
+            else:
+                rc[slot].copy_(row[0], non_blocking=True)
+                rs[slot].copy_(row[1], non_blocking=True)
+
+    def _donate_state(self, h: int, slot: int) -> None:
+        """Checkpoint the slot's recurrent rows into the host state tier under
+        page-chain hash ``h`` (the boundary is the end of the hashed chain)."""
+        if self._state_tier is None or h in self._state_tier:
+            return
+        # copies (on a CPU engine .cpu() would alias the live rows)
+        rows = [None if rc is None else (rc[slot].to("cpu", copy=True),
+                                         rs[slot].to("cpu", copy=True))
+                for rc, rs in zip(self.r_conv, self.r_state)]
+        nbytes = sum(r[0].nbytes + r[1].nbytes for r in rows if r is not None)
+        budget = self.config.state_cache_mb * (1 << 20)
+        while self._state_tier and self._state_tier_bytes + nbytes > budget:
+            _, old = self._state_tier.popitem(last=False)
+            self._state_tier_bytes -= sum(r[0].nbytes + r[1].nbytes for r in old
+                                          if r is not None)
+        if nbytes <= budget:
+            self._state_tier[h] = rows
+            self._state_tier_bytes += nbytes
+            self.stats["state_snapshots"] = self.stats.get("state_snapshots", 0) + 1
+
+    def _prefill_hybrid_chunked(self, req: _Request, slot: int, n: int, n_shared: int,
+                                hashes: list[int], snap) -> torch.Tensor:
+        """Chunked prefill of a hybrid model: restore the boundary snapshot
+        (zeros for a fresh start), run page-aligned chunks threading the
+        recurrent rows, and checkpoint the rows at the last full-page boundary
+        so that later prompts sharing the prefix skip it. Returns the last
+        prompt token's hidden state [D]."""
+        ps = self.config.page_size
+        shared = n_shared * ps
+        n_shareable = len(hashes) * ps
+        if snap is not None and n_shared:
+            self._set_slot_rows(slot, snap)
+            self.stats["state_restores"] = self.stats.get("state_restores", 0) + 1
+        else:
+            self._set_slot_rows(slot, None)
+        c = min(self.config.prefill_chunk, self.config.max_seq_len)
+        c = max(ps, (c // ps) * ps)
+        row = self.slots.page_table[slot]
+        row_dev = self._to_dev(row)
+        n_chunk_pages = c // ps
+        last_hidden = None
+
+        def run(lo: int, hi: int) -> None:
+            nonlocal last_hidden
+            for off in range(lo, hi, c):
+                valid = min(c, hi - off)
+                ids = np.zeros((1, c), np.int64)
+                ids[0, :valid] = req.prompt[off: off + valid]
+                pchunk = np.zeros((n_chunk_pages,), np.int32)
+                seg = row[off // ps: off // ps + n_chunk_pages]
+                pchunk[: len(seg)] = seg
+                rows_in = [None if rc is None else (rc[slot], rs[slot])
+                           for rc, rs in zip(self.r_conv, self.r_state)]
+                _, _, last_hidden, rows_out = smodel.prefill_chunk(
+                    self.params, self.spec, self.k_pool, self.v_pool, self._to_dev(ids), off,
+                    valid, self._to_dev(pchunk), row_dev, compute_dtype=self.compute_dtype,
+                    r_rows=rows_in, gdn_precision=self.gdn_precision)
+                self._set_slot_rows(slot, rows_out)
+
+        # up to the shareable boundary, checkpointed there; then the tail
+        # past it (always at least one token)
+        run(shared, n_shareable)
+        if hashes and shared < n_shareable:
+            self._donate_state(hashes[-1], slot)
+        run(max(shared, n_shareable), n)
+        return last_hidden
 
     def _finalize_scoring_only(self, a: _Active) -> None:
         self._fetch_first_token(a)
@@ -724,7 +883,8 @@ class Engine:
             out = smodel.decode(self.params, self.spec, self.k_pool, self.v_pool,
                                 tokens, lengths, self._d_table,
                                 compute_dtype=self.compute_dtype,
-                                collect_routing=self._collect_routed)
+                                collect_routing=self._collect_routed,
+                                r_conv=self.r_conv, r_state=self.r_state)
             logits = out[2]
             if self._collect_routed:
                 routed_rows.append(out[3])

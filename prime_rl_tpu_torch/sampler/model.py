@@ -4,9 +4,10 @@ block, gpt-oss, whose layers carry a sliding window, attention sinks,
 q/k/v/o biases and routed experts, qwen3_moe, glm4_moe with its partial
 rotary, noaux-tc routing, shared experts and dense first layers, the
 gated-MoE families minimax_m2, afmoe and laguna with their layer-scope
-qk-norm, attention-output gates and sandwich norms, and the MLA families
-deepseek_v3 and glm_moe_dsa over a latent cache). Parameters use the serving
-layout (``unstack_params``: a list of per-layer dicts).
+qk-norm, attention-output gates and sandwich norms, the MLA families
+deepseek_v3 and glm_moe_dsa over a latent cache, and the GatedDeltaNet hybrid
+qwen3_next). Parameters use the serving layout (``unstack_params``: a list of
+per-layer dicts).
 
 Router replay: with ``collect_routing`` ``decode`` also returns the expert
 ids each slot's input token was routed to, ``[S, NL_moe, K]`` in the order of
@@ -15,6 +16,16 @@ the MoE layers (the engine records them).
 Where the JAX functions take donated pools and return new ones, these write
 the per-layer pool tensors IN PLACE and return the same lists, so callers
 read the same way in both packages.
+
+Hybrid (``gdn_pattern``): a GatedDeltaNet ("L") layer has no KV pages (its
+pool entries are None) and carries a slot's conv window [conv_dim, K] and
+fast-weight state [Hv, Dk, Dv] f32 instead. ``prefill`` then returns a fifth
+element, the per-layer (conv_row, state_row) at the prompt's length (None
+for an attention layer), as the JAX function does; ``prefill_chunk`` takes
+``r_rows`` at its offset and returns them advanced; ``decode`` takes the
+engine's ``RecurrentPool`` lists ``r_conv``/``r_state`` and advances them in
+place (JAX returns new ones). Their math is ``models/qwen3_next``'s, in
+plain PyTorch as it is XLA in the JAX package.
 
 MLA (``kv_lora_rank > 0``): the pool holds one latent row of ``kv_lora_rank
 + qk_rope_head_dim`` a token, shared by every head; for DSA the V pool holds
@@ -34,10 +45,10 @@ Kernels on this path (for CUDA tensors; CPU tensors take the plain versions):
 - decode attention + KV append: K4 ``ops/decode_attention.py`` (window and
   sinks likewise).
 Chunked prefill attention (``_chunk_attention_xla``), MLA decode and chunked
-prefill, and the MoE layers (``ops/moe.py``) are plain PyTorch, as they are
-XLA in the JAX package.
+prefill, the GatedDeltaNet layers and the MoE layers (``ops/moe.py``) are
+plain PyTorch, as they are XLA in the JAX package.
 
-LoRA, hybrid recurrent layers, vision inputs and int8 weights are later
+LoRA, the Mamba-hybrid layers, vision inputs and int8 weights are later
 slices: ``check_supported`` raises ``NotImplementedError`` for them.
 """
 
@@ -47,6 +58,7 @@ import torch
 
 from prime_rl_tpu_torch.models.base import ModelSpec
 from prime_rl_tpu_torch.models.mla_moe import mla_absorbed_qkv, mla_attention, mla_indexer_qk
+from prime_rl_tpu_torch.models.qwen3_next import gdn_heads, gdn_inputs, gdn_output
 from prime_rl_tpu_torch.models.qwen3 import (
     apply_attn_gate,
     get_lm_head,
@@ -63,25 +75,28 @@ from prime_rl_tpu_torch.ops.decode_attention import (
     write_tokens as _write_tokens,
 )
 from prime_rl_tpu_torch.ops.decode_qkv import decode_qkv_prep
+from prime_rl_tpu_torch.ops.gated_delta import chunk_gated_delta_rule, recurrent_gated_delta_rule
 from prime_rl_tpu_torch.ops.layers import apply_rope, rms_norm, rope_frequencies, swiglu
+from prime_rl_tpu_torch.ops.mamba import causal_conv1d
 from prime_rl_tpu_torch.ops.moe import moe_mlp
+from prime_rl_tpu_torch.sampler.cache import layer_kinds
 
 Params = dict
 
 
 SERVED_FAMILIES = ("qwen3", "llama", "gpt_oss", "qwen3_moe", "glm4_moe", "minimax_m2", "afmoe",
-                   "laguna", "deepseek_v3", "glm_moe_dsa")
+                   "laguna", "deepseek_v3", "glm_moe_dsa", "qwen3_next")
 
 
 def check_supported(spec: ModelSpec) -> None:
     """Raise ``NotImplementedError`` for any feature outside the serving path
-    ported so far (``SERVED_FAMILIES``): hybrid recurrent layers and vision
+    ported so far (``SERVED_FAMILIES``): the Mamba-hybrid layers and vision
     inputs."""
     missing = []
     if spec.family not in SERVED_FAMILIES:
         missing.append(f"family {spec.family!r}")
-    if spec.gdn_pattern or spec.layer_pattern:
-        missing.append("hybrid recurrent layers")
+    if spec.layer_pattern:
+        missing.append("Mamba-hybrid layers")
     if spec.vision is not None:
         missing.append("vision inputs")
     if missing:
@@ -145,8 +160,11 @@ def _mlp(x, lp, spec, routed: list | None = None):
             routed_scaling=spec.routed_scaling_factor,
         )
         if "shared_gate" in lp:
-            out = out + _mm(swiglu(_mm(xf, lp["shared_gate"]), _mm(xf, lp["shared_up"])),
-                            lp["shared_down"])
+            shared = _mm(swiglu(_mm(xf, lp["shared_gate"]), _mm(xf, lp["shared_up"])),
+                         lp["shared_down"])
+            if "shared_expert_gate_w" in lp:  # qwen3_next's scalar sigmoid gate
+                shared = torch.sigmoid(_mm(xf, lp["shared_expert_gate_w"])) * shared
+            out = out + shared
         if routed is not None:
             routed.append(routing.expert_ids)
         return post_mlp(out.reshape(b, t, d), lp, spec)
@@ -179,8 +197,20 @@ def unstack_params(params: Params, spec: ModelSpec) -> Params:
     """Training layout (stacked [NL, ...] layers) -> serving layout (a list
     of per-layer dicts of views: no tensor is copied). The serving forward
     unrolls the layer loop so each layer's KV tensors are written in place.
-    glm4_moe's dense first layers (``dense_layers``) come first, in order."""
+    glm4_moe's dense first layers (``dense_layers``) come first, in order;
+    qwen3_next interleaves its ``lin_layers`` / ``attn_layers`` stacks by the
+    ``gdn_pattern``."""
     check_supported(spec)
+    if spec.gdn_pattern:
+        rank = {"L": 0, "A": 0}
+        layers = []
+        for ch in spec.gdn_pattern:
+            stack = params["lin_layers" if ch == "L" else "attn_layers"]
+            layers.append({k: v[rank[ch]] for k, v in stack.items()})
+            rank[ch] += 1
+        out = {k: v for k, v in params.items() if k not in ("lin_layers", "attn_layers")}
+        out["layers"] = layers
+        return out
     dense = params.get("dense_layers")
     k_dense = 0 if dense is None else next(iter(dense.values())).shape[0]
     out = {k: v for k, v in params.items() if k not in ("layers", "dense_layers")}
@@ -311,6 +341,65 @@ def _mla_decode_block(h, lp, spec: ModelSpec, k_l, v_l, lengths, page_table, pos
     return h + _mla_attend(q_abs[:, 0], hist, mask, w_kv_b, lp, spec, compute_dtype)[:, None]
 
 
+def _gdn_prefill_mixer(h, lp, spec: ModelSpec, seg, length: int, compute_dtype,
+                       precision: str = "highest"):
+    """GatedDeltaNet serving prefill over one padded sequence [1, L, D]
+    (``models/qwen3_next.gdn_mixer``'s math). Returns (h, conv_row
+    [conv_dim, K] the raw conv inputs at positions [length - K, length),
+    state_row [Hv, Dk, Dv] f32 the fast-weight state at ``length``)."""
+    kk = spec.gdn_conv_kernel
+    x = rms_norm(h, lp["attn_norm"], spec.rms_eps)
+    raw, beta, g, z = gdn_inputs(x, lp, spec)
+    qkv = torch.nn.functional.silu(causal_conv1d(raw, lp["conv_w"], None, seg))
+    q, k, v = gdn_heads(qkv, spec)
+    core, state = chunk_gated_delta_rule(q, k, v, g, beta, segment_ids=seg, precision=precision)
+    h = gdn_output(h, core, z, lp, spec, compute_dtype)
+    padded = torch.nn.functional.pad(raw[0], (0, 0, kk, 0))  # [K + L, conv_dim]
+    return h, padded[length:length + kk].T.to(compute_dtype), state[0]
+
+
+def _gdn_decode_mixer(h, lp, spec: ModelSpec, conv_st, rec_st, compute_dtype):
+    """GatedDeltaNet decode step for all S slots. h [S, 1, D]; conv_st
+    [S, conv_dim, K] the rolling raw inputs; rec_st [S, Hv, Dk, Dv] f32.
+    Returns (h, conv_st', rec_st'), new tensors."""
+    x = rms_norm(h, lp["attn_norm"], spec.rms_eps)[:, 0]  # [S, D]
+    raw, beta, g, z = gdn_inputs(x, lp, spec)
+    conv_st = torch.cat([conv_st[..., 1:], raw.to(conv_st.dtype)[..., None]], dim=-1)
+    qkv = torch.nn.functional.silu((conv_st.float() * lp["conv_w"].float()[None]).sum(-1))
+    q, k, v = gdn_heads(qkv.to(compute_dtype), spec)
+    core, rec_st = recurrent_gated_delta_rule(q, k, v, g, beta, rec_st)
+    return gdn_output(h, core[:, None], z[:, None], lp, spec, compute_dtype), conv_st, rec_st
+
+
+def _gdn_chunk_mixer(h, lp, spec: ModelSpec, seg, valid: int, conv_row, state_row,
+                     compute_dtype, precision: str = "highest"):
+    """GatedDeltaNet chunk of an incremental serving prefill. h [1, C, D];
+    ``conv_row`` [conv_dim, K] the raw conv inputs at positions [off - K,
+    off); ``state_row`` [Hv, Dk, Dv] f32 the state at ``off``. Returns (h,
+    conv_row', state_row') advanced to off + valid. The conv reads the
+    carried window (zeros at a fresh start add nothing) and the scan starts
+    from the carried state with the reset at position 0 suppressed, so a
+    fresh chunk and a continued one run the same code."""
+    b, c, _ = h.shape
+    kk = spec.gdn_conv_kernel
+    x = rms_norm(h, lp["attn_norm"], spec.rms_eps)
+    raw, beta, g, z = gdn_inputs(x, lp, spec)
+    raw_ext = torch.cat([conv_row.T[None, 1:].to(raw.dtype), raw], dim=1)
+    seg_ext = torch.cat([torch.ones((b, kk - 1), dtype=seg.dtype, device=seg.device), seg], 1)
+    qkv = torch.nn.functional.silu(causal_conv1d(raw_ext, lp["conv_w"], None, seg_ext))[:, kk - 1:]
+    q, k, v = gdn_heads(qkv, spec)
+    core, state = chunk_gated_delta_rule(
+        q, k, v, g, beta, segment_ids=seg, initial_state=state_row[None].float(),
+        prev_seg_tail=torch.ones((b,), dtype=seg.dtype, device=seg.device), precision=precision)
+    h = gdn_output(h, core, z, lp, spec, compute_dtype)
+    # the new window: raw_ext row valid - 1 is position off + valid - K
+    return h, raw_ext[0, valid - 1:valid - 1 + kk].T.to(conv_row.dtype), state[0]
+
+
+def _page_size(k_pool: list) -> int:
+    return next(t.shape[2] for t in k_pool if t is not None)
+
+
 def _write_pages(pool: torch.Tensor, new_pages: torch.Tensor, pages: torch.Tensor) -> torch.Tensor:
     """In-place page writes: pool [NKV, NP, PS, HD], new_pages [NKV, n, PS, HD]
     placed at page indices ``pages [n]``. Returns the (same) pool."""
@@ -336,20 +425,33 @@ def prefill(
     *,
     compute_dtype=torch.bfloat16,
     want_prompt_logprobs: bool = False,
+    gdn_precision: str = "highest",
 ):
     """Returns (k_pool, v_pool, last_hidden [D], prompt_logprobs [Lpad]|None),
-    the pools written in place. ``prompt_logprobs[i] =
-    logp(token_i | tokens_<i)``; position 0 holds the uniform -log(V)."""
+    the pools written in place, and for a hybrid spec a fifth element: the
+    per-layer (conv_row, state_row) at ``length`` (None for an attention
+    layer). ``prompt_logprobs[i] = logp(token_i | tokens_<i)``; position 0
+    holds the uniform -log(V)."""
     _, lpad = input_ids.shape
     device = input_ids.device
-    page_size = k_pool[0].shape[2]
+    page_size = _page_size(k_pool)
     n_pages = lpad // page_size
     inv_freq, rope_scaling = _rope(spec, device)
     positions = torch.arange(lpad, device=device)[None, :]
     segment_ids = (positions < length).to(torch.int32)
     h = params["embed"].to(compute_dtype)[input_ids]
-    for lp, k_l, v_l, win in zip(params["layers"], k_pool, v_pool, layer_windows_list(spec)):
+    r_rows = []
+    for lp, k_l, v_l, win, kind in zip(params["layers"], k_pool, v_pool,
+                                       layer_windows_list(spec), layer_kinds(spec)):
         lp = _cast_layer(lp, compute_dtype)
+        if kind == "L":
+            # recurrent layer: no pages; the slot's rows for the decode pool
+            h, conv_row, state_row = _gdn_prefill_mixer(h, lp, spec, segment_ids, int(length),
+                                                        compute_dtype, gdn_precision)
+            h = h + _mlp(rms_norm(h, lp["mlp_norm"], spec.rms_eps), lp, spec)
+            r_rows.append((conv_row, state_row))
+            continue
+        r_rows.append(None)
         if spec.kv_lora_rank > 0:
             # MLA: the training attention block (K5a for DSA on the card), the
             # latent rows (and DSA's indexer keys) paged into the pools
@@ -385,6 +487,8 @@ def prefill(
         first = torch.full((1,), -float(torch.log(torch.tensor(float(spec.vocab_size)))),
                            dtype=torch.float32, device=device)
         prompt_logprobs = torch.cat([first, lp_next[:-1]])
+    if spec.gdn_pattern:
+        return k_pool, v_pool, last_hidden, prompt_logprobs, r_rows
     return k_pool, v_pool, last_hidden, prompt_logprobs
 
 
@@ -402,10 +506,11 @@ def prefill_batch(
     """Batched prefill: B prompts through one pass. Rows are independent
     (per-row segment masking, per-row page writes); dummy rows (length 0,
     pages all null) are legal padding. Returns (k_pool, v_pool,
-    last_hidden [B, D]), the pools written in place. MLA prompts are
-    prefilled one at a time (``prefill``), as the JAX engine does."""
-    if spec.kv_lora_rank > 0:
-        raise NotImplementedError("prefill_batch: MLA prompts are prefilled one at a time")
+    last_hidden [B, D]), the pools written in place. MLA and hybrid prompts
+    are prefilled one at a time (``prefill``), as the JAX engine does."""
+    if spec.kv_lora_rank > 0 or spec.gdn_pattern:
+        raise NotImplementedError("prefill_batch: MLA and hybrid prompts are prefilled one at "
+                                  "a time")
     b, lpad = input_ids.shape
     device = input_ids.device
     page_size = k_pool[0].shape[2]
@@ -475,23 +580,39 @@ def prefill_chunk(
     page_row: torch.Tensor,  # [P]: the slot's FULL page-table row
     *,
     compute_dtype=torch.bfloat16,
+    r_rows: list | None = None,  # hybrid: per-layer (conv_row, state_row) at offset | None
+    gdn_precision: str = "highest",
 ):
     """One chunk of an incremental prefill: computes K/V for positions
     [offset, offset+C), writes them into the slot's pages, and attends over
     the whole cached history INCLUDING shared prefix-cache pages. Powers
     chunked prefill of long prompts and prefix-cache hits. Returns (k_pool,
-    v_pool, last_hidden [D]) at local position valid-1."""
+    v_pool, last_hidden [D]) at local position valid-1. A hybrid model passes
+    ``r_rows`` (zeros for a fresh start) and gets them back advanced to
+    ``offset + valid`` as a fourth element: its recurrent layers continue
+    exactly from the carried state."""
     _, c = input_ids.shape
     device = input_ids.device
-    page_size = k_pool[0].shape[2]
+    page_size = _page_size(k_pool)
     n_pages = c // page_size
     inv_freq, rope_scaling = _rope(spec, device)
     positions = offset + torch.arange(c, device=device)[None, :]  # [1, C]
     q_pos = positions[0]
     valid_hi = offset + valid
+    seg = (torch.arange(c, device=device)[None, :] < valid).to(torch.int32)
     h = params["embed"].to(compute_dtype)[input_ids]
-    for lp, k_l, v_l, win in zip(params["layers"], k_pool, v_pool, layer_windows_list(spec)):
+    kinds = layer_kinds(spec) if r_rows is not None else ["A"] * spec.num_layers
+    r_out = []
+    for li, (lp, k_l, v_l, win, kind) in enumerate(zip(params["layers"], k_pool, v_pool,
+                                                       layer_windows_list(spec), kinds)):
         lp = _cast_layer(lp, compute_dtype)
+        if kind == "L":
+            h, conv_row, state_row = _gdn_chunk_mixer(h, lp, spec, seg, int(valid), *r_rows[li],
+                                                      compute_dtype, gdn_precision)
+            h = h + _mlp(rms_norm(h, lp["mlp_norm"], spec.rms_eps), lp, spec)
+            r_out.append((conv_row, state_row))
+            continue
+        r_out.append(None)
         if spec.kv_lora_rank > 0:
             h = _mla_chunk_block(h, lp, spec, k_l, v_l, positions, _mla_freqs(spec, device),
                                  n_pages, pages_chunk, page_row, valid_hi, compute_dtype)
@@ -509,6 +630,8 @@ def prefill_chunk(
         h = h + post_attn(proj, lp, spec)
         h = h + _mlp(rms_norm(h, lp["mlp_norm"], spec.rms_eps), lp, spec)
     h = rms_norm(h, params["final_norm"], spec.rms_eps)
+    if r_rows is not None:
+        return k_pool, v_pool, h[0, max(int(valid) - 1, 0)], r_out
     return k_pool, v_pool, h[0, max(int(valid) - 1, 0)]
 
 
@@ -541,11 +664,15 @@ def decode(
     *,
     compute_dtype=torch.bfloat16,
     collect_routing: bool = False,
+    r_conv: list | None = None,  # hybrid: per-layer [S, conv_dim, K] | None, in place
+    r_state: list | None = None,  # hybrid: per-layer [S, Hv, Dk, Dv] f32 | None, in place
 ):
     """One decode step for all S slots: writes the new token's K/V, attends
     over lengths+1 tokens, returns (k_pool, v_pool, logits [S, V] f32) with
     the pools written in place, and with ``collect_routing`` the expert ids
-    of each slot's input token, [S, NL_moe, K] int32 on the device."""
+    of each slot's input token, [S, NL_moe, K] int32 on the device (every
+    MoE layer's, a recurrent layer's too). A hybrid model's recurrent layers
+    advance ``r_conv``/``r_state`` in place."""
     s = tokens.shape[0]
     device = tokens.device
     inv_freq, rope_scaling = _rope(spec, device)
@@ -557,8 +684,17 @@ def decode(
         page_idx = page_table.gather(1, (lengths.long() // ps)[:, None])[:, 0].long()
         flat_idx = page_idx * ps + lengths.long() % ps  # [S]: the new token's row
         mla_freqs = _mla_freqs(spec, device)
-    for lp, k_l, v_l, win in zip(params["layers"], k_pool, v_pool, layer_windows_list(spec)):
+    kinds = layer_kinds(spec)
+    for li, (lp, k_l, v_l, win, kind) in enumerate(zip(params["layers"], k_pool, v_pool,
+                                                       layer_windows_list(spec), kinds)):
         lp = _cast_layer(lp, compute_dtype)
+        if kind == "L":
+            h, conv_st, rec_st = _gdn_decode_mixer(h, lp, spec, r_conv[li], r_state[li],
+                                                   compute_dtype)
+            r_conv[li].copy_(conv_st)
+            r_state[li].copy_(rec_st)
+            h = h + _mlp(rms_norm(h, lp["mlp_norm"], spec.rms_eps), lp, spec, routed)
+            continue
         if spec.kv_lora_rank > 0:
             h = _mla_decode_block(h, lp, spec, k_l, v_l, lengths + 1, page_table, positions,
                                   mla_freqs, flat_idx, compute_dtype)

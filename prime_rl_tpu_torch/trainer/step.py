@@ -125,6 +125,8 @@ def model_logprobs(params: Params, spec: ModelSpec, mb, model_cfg, mesh=None,
         extra["routed_experts"] = mb.routed_experts
     if model_cfg.quantized_compute:
         extra["quantized_compute"] = model_cfg.quantized_compute
+    if spec.gdn_pattern:
+        extra["gdn_precision"] = model_cfg.gdn_mxu_precision
     hidden = family.forward(
         params, spec, mb.input_ids, mb.segment_ids, mb.position_ids,
         compute_dtype=dtype,

@@ -31,6 +31,7 @@ _ARCHITECTURES = {
     "minimax_m2": "MiniMaxM2ForCausalLM",
     "afmoe": "AfmoeForCausalLM",
     "laguna": "LagunaForCausalLM",
+    "qwen3_next": "Qwen3NextForCausalLM",
 }
 
 
@@ -43,7 +44,8 @@ def spec_to_hf_config(spec: ModelSpec) -> dict:
     experts, window layout, biases and YaRN scaling, and the gated-MoE
     families theirs: MiniMax-M2's rotary width and qk-norm scope, AFMoE's and
     Laguna's window layouts, dense first layers and shared experts, Laguna's
-    rope base a layer type.)"""
+    rope base a layer type, and Qwen3-Next its layer types, linear-attention
+    widths and shared expert, where JAX writes it as Qwen3ForCausalLM.)"""
     from prime_rl_tpu_torch.models.qwen3 import layer_windows_list
 
     if spec.family not in _ARCHITECTURES:
@@ -147,6 +149,18 @@ def spec_to_hf_config(spec: ModelSpec) -> dict:
             rope_parameters=rope,
             partial_rotary_factor=spec.partial_rotary_factor,
             attention_bias=spec.attn_bias,
+        )
+    if spec.family == "qwen3_next":
+        cfg.update(
+            layer_types=["linear_attention" if c == "L" else "full_attention"
+                         for c in spec.gdn_pattern],
+            linear_num_key_heads=spec.gdn_k_heads,
+            linear_num_value_heads=spec.gdn_v_heads,
+            linear_key_head_dim=spec.gdn_k_dim,
+            linear_value_head_dim=spec.gdn_v_dim,
+            linear_conv_kernel_dim=spec.gdn_conv_kernel,
+            partial_rotary_factor=spec.partial_rotary_factor,
+            shared_expert_intermediate_size=spec.shared_expert_size,
         )
     if spec.family == "gpt_oss":
         cfg.pop("num_experts", None)  # this config names it num_local_experts

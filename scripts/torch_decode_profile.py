@@ -3,7 +3,8 @@
 NVIDIA GPU.
 
     python3 scripts/torch_decode_profile.py
-        [--model qwen3|gpt-oss|qwen3-moe|glm|minimax|glm5] [--layers N] [--windows N]
+        [--model qwen3|gpt-oss|qwen3-moe|glm|minimax|glm5|qwen3-next] [--layers N]
+        [--windows N]
 
 Builds the engine for Qwen3-0.6B (28 layers, full vocabulary, random weights
 from seed 0, bf16; ``--model gpt-oss``: openai/gpt-oss-20b, 24 layers, all 32
@@ -14,7 +15,9 @@ default; ``minimax``: MiniMax-M2 from its published config.json
 (``chip_smoke.MINIMAX_M2_CONFIG``), 8 layers by default, 61.1 GB of weights;
 ``glm5``: GLM-5's widths (``chip_smoke.GLM5_CONFIG``) with the cuts of
 ``chip_smoke.GLM5_CUTS``, 4 layers, 32 routed experts, MLA + DSA over the
-latent cache), fills all 64 decode
+latent cache; ``qwen3-next``: Qwen/Qwen3-Next-80B-A3B-Instruct's widths, all
+512 experts, 16 of its 48 layers (LLLA x 4: 12 GatedDeltaNet layers and 4
+gated attention layers at head dim 256), 53.8 GB), fills all 64 decode
 slots with prompts of 500 to 1000 random tokens (unfiltered sampling at
 temperature 1, the RL rollout setting), lets the engine admit them and run, then measures decode blocks
 (8 steps each): host-clock time per step over N unprofiled windows of 48
@@ -23,7 +26,13 @@ host clock), and under ``torch.profiler`` one more window's device time per
 kernel name and the device's idle share. The JSON line also gives the
 weights' bytes and the time the card takes to read them once at 3.35 TB/s:
 a decode step of a MoE model at 64 slots reads nearly every expert, so that
-time bounds its step from below.
+time bounds its step from below. ``device_ms_by_part`` splits a step's device
+time into K4, K3, the experts' grouped products (``aten::_grouped_mm``) and
+the copies (``aten::copy_``); for the hybrid, ``gdn_decode_ms`` is the device
+time of a step's GatedDeltaNet decode mixers (``sampler.model._gdn_decode_mixer``
+on every recurrent layer, with the copy of the rows back into the pool, as
+``decode`` runs them) called alone on the engine's 64 slots, CUDA events
+around them.
 Prints a table, then one JSON line with the numbers.
 """
 
@@ -41,14 +50,16 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 SLOTS, BLOCKS, SEED = 64, 6, 0
 MODELS = {"qwen3": "Qwen/Qwen3-0.6B", "gpt-oss": "openai/gpt-oss-20b",
           "qwen3-moe": "Qwen/Qwen3-30B-A3B", "glm": "zai-org/GLM-4.5-Air",
-          "minimax": "MiniMaxAI/MiniMax-M2", "glm5": "zai-org/GLM-5"}
+          "minimax": "MiniMaxAI/MiniMax-M2", "glm5": "zai-org/GLM-5",
+          "qwen3-next": "Qwen/Qwen3-Next-80B-A3B-Instruct"}
 # the models given by a config.json in chip_smoke.py, and their default depth
 CONFIGS = {"minimax": ("MINIMAX_M2_CONFIG", 8), "glm5": ("GLM5_CONFIG", 4)}
 # tokens a request may generate: the pool holds each slot's prompt and these,
 # and Qwen3-30B-A3B's and MiniMax-M2's 61 GB of weights leave room for about
 # 10 GB of pages
 MAX_TOKENS = {"qwen3": 2000, "gpt-oss": 2000, "qwen3-moe": 400, "glm": 2000, "minimax": 400,
-              "glm5": 2000}
+              "glm5": 2000, "qwen3-next": 2000}
+QWEN3_NEXT_LAYERS = 16
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 
 
@@ -58,6 +69,38 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+def gdn_decode_ms(engine) -> float:
+    """Device ms of one decode step's GatedDeltaNet mixers on the engine's
+    slots (every recurrent layer, the rows copied back into the pool as
+    ``decode`` does), CUDA events around 10 runs after a warm-up."""
+    import torch
+
+    from prime_rl_tpu_torch.sampler import model as smodel
+
+    spec, dtype = engine.spec, engine.compute_dtype
+    layers = [(i, smodel._cast_layer(lp, dtype)) for i, lp in enumerate(engine.params["layers"])
+              if engine.r_conv[i] is not None]
+    h = torch.randn(engine.config.max_slots, 1, spec.hidden_size, device=engine.device,
+                    dtype=dtype)
+
+    def step():
+        for i, lp in layers:
+            _, conv, state = smodel._gdn_decode_mixer(h, lp, spec, engine.r_conv[i],
+                                                      engine.r_state[i], dtype)
+            engine.r_conv[i].copy_(conv)
+            engine.r_state[i].copy_(state)
+
+    step()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(10):
+        step()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / 10
 
 
 def main() -> int:
@@ -95,6 +138,12 @@ def main() -> int:
         cuts = chip_smoke.GLM5_CUTS if args.model == "glm5" else {}
         spec = spec_from_hf_config({**getattr(chip_smoke, name), **cuts})
         spec = dataclasses.replace(spec, num_layers=args.layers or depth)
+    elif args.model == "qwen3-next":
+        import dataclasses
+
+        full = get_spec(MODELS[args.model])
+        n = args.layers or QWEN3_NEXT_LAYERS
+        spec = dataclasses.replace(full, num_layers=n, gdn_pattern=full.gdn_pattern[:n])
     else:
         layers = args.layers or (4 if args.model == "glm" else None)
         spec = get_spec(MODELS[args.model], num_layers=layers)
@@ -141,8 +190,22 @@ def main() -> int:
         wall_prof = window()
     # device-side events only (kernels, copies): the aten ops that launched
     # them carry the same device time and would count it twice
-    rows = [(ev.key, ev.self_device_time_total / 1e3, ev.count) for ev in prof.key_averages()
+    events = prof.key_averages()
+    rows = [(ev.key, ev.self_device_time_total / 1e3, ev.count) for ev in events
             if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
+
+    def device_ms(match) -> float:  # a step's device time of the events that match
+        return sum(ev.self_device_time_total for ev in events
+                   if ev.device_type == DeviceType.CUDA and match(ev.key)) / 1e3 / steps
+
+    def op_ms(key: str) -> float:  # a step's device time under an op or a range
+        return sum(ev.device_time_total for ev in events if ev.key == key) / 1e3 / steps
+
+    parts = {"K4 decode_paged_attention": device_ms(lambda k: "decode_split_kernel" in k),
+             "K3 decode_qkv_prep": device_ms(lambda k: "decode_qkv" in k),
+             "grouped products (aten::_grouped_mm)": op_ms("aten::_grouped_mm"),
+             "copies (aten::copy_)": op_ms("aten::copy_")}
+    gdn_ms = gdn_decode_ms(engine) if spec.gdn_pattern else None
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
     print(f"{'kernel':70s} {'device ms':>10s} {'share':>7s} {'calls':>6s}")
@@ -165,6 +228,8 @@ def main() -> int:
         # unprofiled step is the busy time against the median unprofiled wall
         "device_idle_share": 1.0 - busy_ms / steps / (wall / steps * 1e3),
         "device_idle_share_profiled": 1.0 - busy_ms / (wall_prof * 1e3),
+        "device_ms_by_part": parts,
+        "gdn_decode_ms": gdn_ms,
         "top_kernels": [dict(name=n[:120], ms_per_step=ms / steps, calls=c)
                         for n, ms, c in rows[:12]],
         "kernel_launches_per_step": {k: v / steps for k, v in launches.items()},

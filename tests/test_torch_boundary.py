@@ -55,9 +55,10 @@ LOOP_MODULES = (
     "orchestrator.pool", "orchestrator.orchestrator",
     "entrypoints.orchestrator", "entrypoints.env_server", "entrypoints.rl",
     "entrypoints.colocated")
-# the SFT and MoE-families slice's modules
+# the SFT and MoE-families slice's modules, and the GatedDeltaNet hybrid's
 SFT_MOE_MODULES = ("trainer.sft", "trainer.sft.data", "trainer.sft.train", "entrypoints.sft",
-                   "models.qwen3_moe", "models.glm4_moe", "models.gated_moe")
+                   "models.qwen3_moe", "models.glm4_moe", "models.gated_moe",
+                   "models.qwen3_next", "ops.gated_delta", "ops.mamba")
 _CHECK = _CHECK.replace("LOOP_MODULES", repr(LOOP_MODULES)).replace(
     "SFT_MOE_MODULES", repr(SFT_MOE_MODULES))
 

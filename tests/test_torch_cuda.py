@@ -1,5 +1,5 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
-at small shapes with both supported head dims. These need an NVIDIA GPU
+at small shapes with the supported head dims (64, 128 and 256). These need an NVIDIA GPU
 (the kernels have no CPU mode) and skip elsewhere; on the machine with the
 card: ``python -m pytest tests/test_torch_cuda.py -q --noconftest`` (the
 repo conftest sets up JAX, which these tests do not use).
@@ -45,8 +45,8 @@ from prime_rl_tpu_torch.ops.decode_qkv import (
     decode_qkv_tile_counts,
     decode_qkv_tiles_visited,
 )
+from prime_rl_tpu_torch.ops.flash_attention import dq_tiles as dq_tiles_of
 from prime_rl_tpu_torch.ops.flash_attention import (
-    DQ_TILES,
     _delta,
     _fwd,
     flash_attention,
@@ -62,6 +62,7 @@ from prime_rl_tpu_torch.ops.flash_attention import (
     flash_bwd_tile_counts,
     flash_tile_counts,
     flash_tiles_visited,
+    fwd_tiles,
     sinks_grad,
 )
 
@@ -87,7 +88,7 @@ def _assert_close(got, ref):
     torch.testing.assert_close(got.float(), ref.float(), atol=1e-2, rtol=1e-2)
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 def test_flash_attn_fwd_matches_plain(gen, hd):
     b, l, nh, nkv = 2, 192, 4, 2
     q, k, v = _bf16(gen, b, l, nh, hd), _bf16(gen, b, l, nkv, hd), _bf16(gen, b, l, nkv, hd)
@@ -132,7 +133,8 @@ def test_flash_attn_fwd_cases_match_plain(gen, case):
     assert torch.equal(lse[pad], want)
     assert bool((out[seg_q == 0] == 0).all())
     counts = flash_tile_counts(q, k, v, seg_q, seg_kv, causal, window, sinks)
-    visited = flash_tiles_visited(seg_q, seg_kv, causal, window).sum(-1, dtype=torch.int32)
+    visited = flash_tiles_visited(seg_q, seg_kv, causal, window,
+                                  *fwd_tiles(hd)).sum(-1, dtype=torch.int32)
     assert torch.equal(counts[..., 0], visited[:, None].expand_as(counts[..., 0]))
 
 
@@ -143,7 +145,8 @@ def _packed_seg(b, l):
     return seg
 
 
-@pytest.mark.parametrize("hd,nh,nkv,l", [(64, 4, 2, 192), (128, 4, 2, 192), (128, 2, 2, 200)])
+@pytest.mark.parametrize("hd,nh,nkv,l", [(64, 4, 2, 192), (128, 4, 2, 192), (128, 2, 2, 200),
+                                         (256, 16, 2, 200)])
 def test_flash_attn_bwd_matches_plain(gen, hd, nh, nkv, l):
     """K2a and K2b (GQA 2:1 and 1:1, a ragged last tile) against the plain
     backward; rows of padding carry a non-zero cotangent and must give dq = 0."""
@@ -194,7 +197,8 @@ def test_flash_attn_bwd_cases_match_plain(gen, case):
         torch.testing.assert_close(g.float(), r.float(), atol=2e-2, rtol=2e-2, msg=name)
     assert (runs[0][0][seg_q == 0] == 0).all()
     dq_tiles, dkv_tiles = flash_bwd_tile_counts(*args[:9], window)
-    for got, rule in ((dq_tiles, flash_tiles_visited(seg_q, seg_kv, causal, window, *DQ_TILES)),
+    for got, rule in ((dq_tiles, flash_tiles_visited(seg_q, seg_kv, causal, window,
+                                                     *dq_tiles_of(hd))),
                       (dkv_tiles, flash_bwd_dkv_tiles_visited(seg_q, seg_kv, causal, window))):
         want = rule.sum(-1, dtype=torch.int32)
         assert torch.equal(got[..., 0], want[:, None].expand_as(got[..., 0]))
@@ -353,7 +357,7 @@ def test_decode_qkv_prep_loads_each_weight_tile_once(gen, s):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
-@pytest.mark.parametrize("hd,group", [(128, 2), (64, 4)])
+@pytest.mark.parametrize("hd,group", [(128, 2), (64, 4), (256, 8)])
 def test_decode_paged_attention_matches_plain(gen, hd, group):
     s, nkv, ps, p = 6, 2, 16, 8
     nh = nkv * group
@@ -399,7 +403,9 @@ def test_decode_paged_attention_window_and_sinks_match_plain(gen, window, with_s
     (128, 8, 16, 300, False), (64, 1, 64, 300, True),
     # groups padded to a chunk (3, 5, 6) or cut into chunks of 8 and 4 (12)
     (128, 3, 16, 0, False), (128, 5, 64, 0, True), (128, 6, 32, 300, False),
-    (128, 12, 16, 0, False), (128, 12, 64, 300, True), (64, 12, 64, 128, True)])
+    (128, 12, 16, 0, False), (128, 12, 64, 300, True), (64, 12, 64, 128, True),
+    # head dim 256 (Qwen3-Next's group 8)
+    (256, 8, 64, 0, False), (256, 8, 16, 300, True)])
 def test_decode_paged_attention_split_k_matches_plain(gen, hd, group, ps, window, with_sinks):
     """Split-K over long contexts: up to 8 splits of ``SPLIT_ROWS`` rows,
     lengths at and next to the split and page boundaries, windows of one and

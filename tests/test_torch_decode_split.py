@@ -19,6 +19,7 @@ import torch
 
 from prime_rl_tpu.ops.decode_attention import decode_paged_attention as j_decode_attention
 from prime_rl_tpu_torch.models.base import BUILTIN_SPECS
+from prime_rl_tpu_torch.ops.flash_attention import check_head_dim
 from prime_rl_tpu_torch.ops.decode_attention import (
     SPLIT_ROWS,
     check_shape,
@@ -44,6 +45,7 @@ TOL = dict(atol=2e-5, rtol=2e-5)
 # and without a window, PS 8 and 16, head dims 64 and 128, groups 1, 2 and 8;
 # then groups the kernel cuts into chunks of up to 8 query heads (3, 5 and 6
 # in one padded chunk, 12 in chunks of 8 and 4), at head dim 128, with and
+# without a window; then head dim 256 at group 8 (Qwen3-Next), with and
 # without a window
 CASES = (
     ("hd 128 group 2 PS 8, ragged, an empty slot, two inactive", 6, 4, 2, 128, 8, 8,
@@ -63,6 +65,9 @@ CASES = (
     ("hd 128 group 12 PS 16, ragged", 4, 24, 2, 128, 16, 6, [5, 41, 95, 16], 4, 0, False),
     ("hd 128 group 12 PS 16, window 30 + sinks", 3, 12, 1, 128, 16, 6, [60, 20, 95], 3, 30,
      True),
+    ("hd 256 group 8 PS 16 (Qwen3-Next's 16/2), ragged, an inactive slot", 4, 16, 2, 256, 16, 6,
+     [5, 40, 95, 0], 3, 0, False),
+    ("hd 256 group 8 PS 8, window 20 + sinks", 3, 8, 1, 256, 8, 10, [60, 20, 79], 3, 20, True),
 )
 
 _inputs: dict = {}
@@ -183,25 +188,33 @@ def test_split_reference_takes_the_new_token_alone_and_one_split_rule():
 
 
 def test_shape_check_takes_every_served_spec():
-    """The wrapper's shape check (no launch) takes the heads of every built-in
+    """The wrappers' shape checks (no launch) take the heads of every built-in
     spec of a published model of a served family (the ``debug*`` specs'
-    head dim of 32 is for the CPU), as the JAX kernel does (groups 2 to 12: Qwen3-14B
-    40/8, Llama-3.2-3B 24/8, GLM-4.5 96/8 among them), and refuses only head
-    dims other than 64/128 and heads that are not a multiple of the kv
-    heads. The kernel's chunks: one for groups up to 8 (padded to a power of
-    two), two at 12 (8 + 4), each chunk at most 8 query heads."""
+    head dim of 32 is for the CPU), as the JAX kernels do (groups 2 to 12: Qwen3-14B
+    40/8, Llama-3.2-3B 24/8, GLM-4.5 96/8 among them, and Qwen3-Next's 16/2
+    heads of 256): K4's ``check_shape`` and K1/K2's ``check_head_dim``. Both
+    refuse head dims other than 64/128/256 (96 among them) and heads that are
+    not a multiple of the kv heads. The kernel's chunks: one for groups up to
+    8 (padded to a power of two), two at 12 (8 + 4), each chunk at most 8
+    query heads."""
     served = {name: spec for name, spec in BUILTIN_SPECS.items()
               if spec.family in SERVED_FAMILIES and "/" in name}
     groups = set()
     for name, spec in served.items():
         check_shape(spec.num_heads, spec.num_kv_heads, spec.head_dim)
+        if spec.kv_lora_rank == 0:  # MLA trains through K5a/K5b
+            for kernel in ("flash_attn_fwd", "flash_attn_bwd"):
+                check_head_dim(kernel, spec.head_dim, spec.num_heads, spec.num_kv_heads)
         groups.add(spec.num_heads // spec.num_kv_heads)
     assert {2, 3, 4, 5, 8, 12} <= groups
     assert {"Qwen/Qwen3-14B", "meta-llama/Llama-3.2-3B", "zai-org/GLM-4.5-Air",
-            "Qwen/Qwen3-30B-A3B"} <= set(served)
-    for nh, nkv, hd in ((16, 8, 96), (12, 8, 128), (8, 0, 128)):
+            "Qwen/Qwen3-30B-A3B", "Qwen/Qwen3-Next-80B-A3B-Instruct"} <= set(served)
+    assert served["Qwen/Qwen3-Next-80B-A3B-Instruct"].head_dim == 256
+    for nh, nkv, hd in ((16, 8, 96), (12, 8, 128), (8, 0, 128), (16, 2, 512)):
         with pytest.raises(ValueError, match="decode_paged_attention"):
             check_shape(nh, nkv, hd)
+        with pytest.raises(ValueError, match="flash_attn_fwd"):
+            check_head_dim("flash_attn_fwd", hd, nh, nkv)
     assert [chunk_width(g) for g in (1, 2, 3, 4, 5, 6, 7, 8, 12)] == [1, 2, 4, 4, 8, 8, 8, 8, 8]
     assert [group_chunks(g) for g in (1, 2, 3, 4, 5, 6, 7, 8, 12, 16, 17)] == [
         1, 1, 1, 1, 1, 1, 1, 1, 2, 2, 3]

@@ -1,6 +1,7 @@
 """The tile-skipping rules on the CPU: ``flash_tiles_visited``, the plain
-mirror of the kv tiles ``csrc/flash_attn_fwd.cu`` (K1, 128 x 128 tiles) and
-K2a in ``csrc/flash_attn_bwd.cu`` (128 x 64) visit for each q tile, and
+mirror of the kv tiles ``csrc/flash_attn_fwd.cu`` (K1, 128 x 128 tiles; 64 x
+64 at head dim 256) and K2a in ``csrc/flash_attn_bwd.cu`` (128 x 64; 64 x 64
+at head dim 256) visit for each q tile, and
 ``flash_bwd_dkv_tiles_visited``, the q tiles K2b visits for each kv tile
 (64 x 64).
 
@@ -29,10 +30,12 @@ from prime_rl_tpu_torch.ops.flash_attention import (  # noqa: E402
     DQ_TILES,
     TILE,
     _mask,
+    dq_tiles,
     flash_bwd_dkv_tiles_visited,
     flash_bwd_tile_counts,
     flash_tile_counts,
     flash_tiles_visited,
+    fwd_tiles,
 )
 
 
@@ -165,13 +168,33 @@ def test_a_padded_q_tile_visits_nothing():
 @pytest.mark.parametrize("case", chip_smoke.K1_EDGE_CASES, ids=lambda c: c[0])
 def test_chip_smoke_edge_cases_skip_no_visible_pair(case):
     """The packings of ``chip_smoke.K1_EDGE_CASES`` (padded rows, short
-    segments, Lq != Lk, windows), at the tiles of K1, K2a and K2b."""
-    _, b, lq, lk, _, _, _, q_lens, kv_lens, causal, window, _ = case
+    segments, Lq != Lk, windows), at the tiles of K1, K2a and K2b at the
+    case's head dim."""
+    _, b, lq, lk, _, _, hd, q_lens, kv_lens, causal, window, _ = case
     seg_q = chip_smoke.packed_segments(b, lq, q_lens, "cpu")[0]
     seg_kv = seg_q if kv_lens is None else chip_smoke.packed_segments(b, lk, kv_lens, "cpu")[0]
-    assert _covered(seg_q, seg_kv, causal, window, TILE, TILE)[0]
-    assert _covered(seg_q, seg_kv, causal, window, *DQ_TILES)[0]
+    assert _covered(seg_q, seg_kv, causal, window, *fwd_tiles(hd))[0]
+    assert _covered(seg_q, seg_kv, causal, window, *dq_tiles(hd))[0]
     assert _covered(seg_q, seg_kv, causal, window, DKV_TILE, DKV_TILE, transposed=True)[0]
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "dq"])
+def test_head_dim_256_tiles_skip_no_visible_pair(kernel):
+    """At head dim 256 K1 and K2a take 64 x 64 tiles (``fwd_tiles``,
+    ``dq_tiles``; 128 x 128 and 128 x 64 below it), and the skip rule at
+    those tiles drops no visible pair of random packings, with windows;
+    over chip_smoke's packed row of Qwen3-Next (4096 tokens, three
+    sequences) it visits 778 of the 2080 causal tile pairs."""
+    tiles = (fwd_tiles if kernel == "fwd" else dq_tiles)(256)
+    assert tiles == (64, 64)
+    assert fwd_tiles(128) == (TILE, TILE) and dq_tiles(64) == DQ_TILES
+    for seed in range(6):
+        _, seg_q, seg_kv, causal, window = _random_case(100 + seed)
+        assert _covered(seg_q, seg_kv, causal, window, *tiles)[0]
+    seg = chip_smoke.packed_segments(1, 4096, [chip_smoke.QWEN3_NEXT_PACKING], "cpu")[0]
+    ones = torch.ones_like(seg)
+    assert int(flash_tiles_visited(seg, seg, True, 0, *tiles).sum()) == 778
+    assert int(flash_tiles_visited(ones, ones, True, 0, *tiles).sum()) == 2080
 
 
 def test_tile_counts_come_only_from_the_kernel():

@@ -136,6 +136,42 @@ def test_k4_decode_paged_attention_matches_jax():
     np.testing.assert_array_equal(got_v.numpy()[:, 1:], np.asarray(want_v)[:, 1:])
 
 
+def test_k1_and_k4_match_jax_at_head_dim_256():
+    """Qwen3-Next's attention shape, head dim 256 at GQA group 8: K1 (out and
+    lse over packed segments) and K4 (ragged lengths over several pages, an
+    inactive slot) through their plain versions against the Pallas kernels
+    in interpret mode, at 2e-5."""
+    rng = np.random.default_rng(5)
+    b, l, nh, nkv, hd = 2, 64, 8, 1, 256
+    q = rng.standard_normal((b, l, nh, hd)).astype(np.float32)
+    k = rng.standard_normal((b, l, nkv, hd)).astype(np.float32)
+    v = rng.standard_normal((b, l, nkv, hd)).astype(np.float32)
+    seg = _packed_segments()
+    t_out, t_lse = t_flash_lse(*map(torch.from_numpy, (q, k, v, seg, seg)), causal=True)
+    j_out, j_lse = j_flash_lse(*map(jnp.asarray, (q, k, v, seg, seg)), causal=True)
+    _close(t_out, j_out)
+    _close(t_lse, j_lse)
+
+    s, ps, np_, p = 4, 8, 40, 8
+    q = rng.standard_normal((s, nh, hd)).astype(np.float32)
+    k_new = rng.standard_normal((s, nkv, hd)).astype(np.float32)
+    v_new = rng.standard_normal((s, nkv, hd)).astype(np.float32)
+    k_pool = rng.standard_normal((nkv, np_, ps, hd)).astype(np.float32)
+    v_pool = rng.standard_normal((nkv, np_, ps, hd)).astype(np.float32)
+    table = np.zeros((s, p), np.int32)
+    for slot in range(3):  # slot 3 inactive: the null page
+        table[slot] = 1 + slot * p + np.arange(p)
+    lengths = np.asarray([40, 0, 63, 5], np.int32)
+    got = t_decode_attention(
+        *(torch.from_numpy(a.copy()) for a in (q, k_new, v_new, k_pool, v_pool, lengths, table)))
+    want = j_decode_attention(
+        *(jnp.asarray(a) for a in (q, k_new, v_new, k_pool, v_pool, lengths, table)),
+        interpret=True)
+    _close(got[0][:3], np.asarray(want[0])[:3])
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(g.numpy()[:, 1:], np.asarray(w)[:, 1:])
+
+
 def test_layer_ops_match_jax():
     rng = np.random.default_rng(3)
     x = rng.standard_normal((2, 5, 3, 16)).astype(np.float32)
