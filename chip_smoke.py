@@ -38,10 +38,11 @@ Phases (any failure raises and exits non-zero before the last line):
                 K5b sparse_mla_bwd and the dkv reduction at the GLM-5 attention
                 widths (64 heads, 576 = 512 + 64 channels, top-k 2048) over a
                 packed row of 4096 tokens and over a short row full of
-                sentinels (K5a and K5b also over K5B_EDGE_CASES: T of 100 and
-                2047, S = 1, a token that selected nothing, sentinels
-                scattered inside rows (S, -1 and S + 7), a small Sk, several
-                chunks; every K5a and K5b case launched twice for equal bits,
+                sentinels, and at 128 heads over the packed row (K5a and K5b
+                also over K5B_EDGE_CASES: T of 100 and 2047, S = 1, a token
+                that selected nothing, sentinels scattered inside rows (S, -1
+                and S + 7), a small Sk, several chunks; and over
+                K5_HEAD_CASES at 8, 32, 96 and 128 heads; every K5a and K5b case launched twice for equal bits,
                 with the tiles of 64 (K5a) and 32 (K5b) slots each visited, as
                 the kernel counted them, held against the skip rule's mirror;
                 K5a timed with the L2 flushed, its yardstick one SDPA call
@@ -76,7 +77,10 @@ Phases (any failure raises and exits non-zero before the last line):
                 Qwen3-Next's 16/2 heads of 256 over a packed row of 4096
                 tokens (three sequences), K4 at its serving shape (64 slots
                 of 500-1100 tokens, 16/2 heads of 256); K1_EDGE_CASES and
-                K4_EDGE_CASES hold head dim 256 too.
+                K4_EDGE_CASES hold head dim 256 too. Then the Nemotron-H rows
+                (nemotron_kernel_phase): K1, K2a and K2b at Nemotron-H-8B's
+                32/8 heads of 128 over the same packed row, K4 at 64 slots of
+                500-1100 tokens.
   4. train-reference — loss and every gradient of one micro-batch [2, 512] of
                 the full-width model cut to 2 layers (full vocabulary), through
                 the kernels in bf16 on the card, against the plain float32 path
@@ -210,7 +214,25 @@ Phases (any failure raises and exits non-zero before the last line):
                 1100-token prompt: the recurrent-state tier hit, the cached
                 members' first-token logits within 0.03 of |logit| of the
                 cold member's; K4 at head dim 256 launched, K3 not.
- 30. loop     — the RL loop through its launcher: ``python -m
+ 30. nemotron-h-reference — Nemotron-H at the 8B's widths and full
+                vocabulary, one layer of each kind (M*-E, the LatentMoE
+                layer at a test shape: 8 experts top-2 at latent 1024): the
+                loss and every gradient of one row of 1024 tokens through
+                K1, K2a and K2b (each within 5% of its norm), the served
+                prefill of 200 tokens, a chunk of 300 from the Mamba rows and
+                4 decode steps through K1 and K4 (pages of 8), against
+                float32 on the CPU on the card's routing, twice for equal
+                bits; K3 never.
+ 31. nemotron-h-training — the trainer through its entry on a directory
+                whose config.json names NemotronHForCausalLM (one period of
+                the 8B's pattern, 13 layers), seq_len 4096, 2 micro-batches
+                of 1 row, adamw_8bit, bf16 masters, full remat, 3 steps twice:
+                bit-equal finite losses, changed parameters, the launches of
+                K1, K2a and K2b, a snapshot read back.
+ 32. nemotron-h-serving — the server of phase 17 for Nemotron-H-8B at all
+                52 layers, then the GRPO group of phase 29 on its Mamba
+                rows; K1 and K4 launched, K3 not.
+ 33. loop     — the RL loop through its launcher: ``python -m
                 prime_rl_tpu_torch.entrypoints.rl @configs/bench/northstar_rl_tpu.toml
                 --colocated`` with 6 trainer and orchestrator steps (Qwen3-0.6B at
                 full width and depth, random weights, byte tokenizer, async GRPO on
@@ -237,12 +259,14 @@ GLM-4.5; K1, K2a, K2b and K4 ``launches_minimax_training``,
 ``launches_minimax_serving``, ``launches_afmoe`` and ``launches_laguna``, and
 K5a ``launches_glm5_serving``, on the gated-MoE and MLA serving paths; K1,
 K2a, K2b and K4 ``launches_qwen3_next_training``, ``_serving`` and
-``_reference`` on the Qwen3-Next paths. K4's
+``_reference`` on the Qwen3-Next paths, and ``launches_nemotron_training``,
+``_serving`` and ``_reference`` on Nemotron-H's. K4's
 rows at the MoE shapes count the Qwen3-30B-A3B serving path (group 8), the
 GLM-4.5-Air path's chunked launches (group 12) and MiniMax-M2's (group 6);
 the group-6 K1/K2 rows the MiniMax-M2 trainer, the window-hd128 rows the
 AFMoE and Laguna references, K5a's serving row the GLM-5 server, and the
-hd256 rows the Qwen3-Next trainer (K1 also its server) and server (K4).
+hd256 rows the Qwen3-Next trainer (K1 also its server) and server (K4), the
+nemotron-h rows the Nemotron-H trainer (K1 also its server) and server (K4).
 """
 
 from __future__ import annotations
@@ -344,7 +368,25 @@ QWEN3_NEXT_PACKING = [1700, 1300, 1096]  # the kernel rows' packed row of 4096 t
 QWEN3_NEXT_REF_CUTS = {"num_layers": 4, "num_experts": 32}  # one period, 32 experts
 QWEN3_NEXT_TRAIN_CUTS = {"num_layers": 4, "num_experts": 128}  # about 2.4 G parameters
 QWEN3_NEXT_SERVE_LAYERS = 16  # LLLA x 4, all 512 experts: about 26.9 G parameters
-QWEN3_NEXT_GROUP_PROMPT = 1100  # the GRPO group's shared prompt
+QWEN3_NEXT_GROUP_PROMPT = 1100  # the GRPO group's shared prompt (Nemotron-H's too)
+
+# Nemotron-H: the repository's named 8B spec (hidden 4096, 32/8 heads of 128,
+# 128 Mamba-2 heads of 64 in 8 groups, state 128, SSD chunk 128, vocab
+# 131072; its 52-layer pattern is ("M-" * 6 + "*") * 4, no LatentMoE layer).
+# The reference runs one layer of each kind, "M*-E", with a LatentMoE test
+# shape (no Nemotron-H MoE config.json is in the repository): 8 experts top-2
+# of width 2048 at latent width 1024, a shared expert of 2048.
+NEMOTRON = "nvidia/Nemotron-H-8B-Base-8K"
+NEMOTRON_REF_PATTERN = "M*-E"
+NEMOTRON_TEST_MOE = dict(num_experts=8, num_experts_per_tok=2, moe_intermediate_size=2048,
+                         moe_latent_size=1024, moe_shared_expert_size=2048)
+NEMOTRON_TRAIN_PATTERN = "M-" * 6 + "*"  # one period: 13 layers, about 2.8 G parameters
+NEMOTRON_SERVE_LAYERS = 52  # all of them: about 8.1 G parameters
+# the server's state tier: a checkpoint of the 24 Mamba layers' rows is 103
+# MB, so the default 256 MB keeps two, and the other requests' checkpoints
+# evict the shared prefix's before the request that reuses it arrives (the
+# serving phase's prefix check failed so at the default)
+NEMOTRON_STATE_CACHE_MB = 2048
 
 
 def log(msg: str) -> None:
@@ -1382,10 +1424,21 @@ K5B_EDGE_CASES = (
     ("several chunks", 256, 256, 128, "causal", 11, 64 * 128),
 )
 
+# K5a/K5b at the other DSA head counts (every H % 8 == 0 the JAX kernel
+# takes): the K5B_EDGE_CASES fields and the heads. The wrappers pad q to whole
+# groups of 64 heads and launch once a group; "several chunks" at 32 and 128
+# heads runs each chunk's groups in turn through one dkvg buffer.
+K5_HEAD_CASES = (
+    ("H=8", 300, 300, 100, "causal", 7, None, 8),
+    ("H=32 several chunks", 256, 256, 128, "causal", 11, 64 * 128, 32),
+    ("H=96 scattered sentinels", 320, 320, 256, "scattered", 3, None, 96),
+    ("H=128 several chunks", 256, 256, 128, "causal", None, 64 * 128, 128),
+)
 
-def k5b_inputs(gen, S: int, Sk: int, T: int, layout: str, empty):
-    """q [S, 64, 576], kv [Sk, 576], do [S, 64, 512] bf16 and indices [S, T]
-    int32 of one K5B_EDGE_CASES layout on the card."""
+
+def k5b_inputs(gen, S: int, Sk: int, T: int, layout: str, empty, heads: int = 64):
+    """q [S, heads, 576], kv [Sk, 576], do [S, heads, 512] bf16 and indices
+    [S, T] int32 of one K5B_EDGE_CASES layout on the card."""
     import torch
 
     from prime_rl_tpu_torch.ops import sparse_mla_kernel as K
@@ -1395,7 +1448,7 @@ def k5b_inputs(gen, S: int, Sk: int, T: int, layout: str, empty):
     def randn(*shape):
         return torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
 
-    q, kv, do = randn(S, K.HEADS, K.DQ), randn(Sk, K.DQ), randn(S, K.HEADS, K.DV)
+    q, kv, do = randn(S, heads, K.DQ), randn(Sk, K.DQ), randn(S, heads, K.DV)
     if layout == "dense":
         idx = torch.rand(S, Sk, device=dev, generator=gen).argsort(-1)[:, :T].to(torch.int32)
     else:
@@ -1438,14 +1491,15 @@ def k5a_check(name: str, q, kv, idx, empty=None):
         raise AssertionError(f"sparse_mla_fwd {name}: a token that selected nothing must get "
                              "out 0 and lse -5e29")
     n = sparse_mla_tiles("sparse_mla_fwd", name, tiles, idx, Sk, K.FWD_TILE)
-    log(f"K5a case {name} (S={q.shape[0]} Sk={Sk} T={idx.shape[1]}): err {err:.3g}, "
-        "bit-equal over two launches")
+    log(f"K5a case {name} (S={q.shape[0]} Sk={Sk} T={idx.shape[1]} H={q.shape[1]}): err "
+        f"{err:.3g}, bit-equal over two launches")
     return out, lse, err, n
 
 
 def k5b_check(name: str, q, kv, do, idx, empty=None, slots=None) -> float:
     """K5b and the dkv reduction against the plain backward on the same bf16
-    inputs (out and lse from K5a): dq and dkv within K5B_TOL + K5B_TOL * |ref|,
+    inputs (out and lse from K5a; ``k5b_reference``, the group mirror above
+    64 heads): dq and dkv within K5B_TOL + K5B_TOL * |ref|,
     two calls bit-equal, the kernel's tile counts equal to
     ``sparse_mla_bwd_tiles_visited``, and dq = 0 for a token that selected
     nothing. ``slots`` cuts BWD_SLOTS for the call (several chunks). Returns
@@ -1464,20 +1518,35 @@ def k5b_check(name: str, q, kv, do, idx, empty=None, slots=None) -> float:
         dq, dkv = K.sparse_mla_bwd(q, kv, idx, out, lse, do, scale, K.DV, tiles=tiles)
         dq2, dkv2 = K.sparse_mla_bwd(q, kv, idx, out, lse, do, scale, K.DV)
         chunks = K.bwd_launches(q.shape[0], idx.shape[1])
+        launches = K.bwd_launches(q.shape[0], idx.shape[1], q.shape[1])
     finally:
         K.BWD_SLOTS = own
     torch.cuda.synchronize()
     if not (torch.equal(dq, dq2) and torch.equal(dkv, dkv2)):
         raise AssertionError(f"sparse_mla_bwd {name}: two runs on the same inputs differ")
-    ref_dq, ref_dkv = K.sparse_mla_backward_reference(q, kv, idx, out, lse, do, scale, K.DV)
+    ref_dq, ref_dkv = k5b_reference(q, kv, idx, out, lse, do, scale)
     err = max(check_close(f"sparse_mla_bwd dq {name}", dq, ref_dq, K5B_TOL, K5B_TOL),
               check_close(f"sparse_mla_bwd dkv {name}", dkv, ref_dkv, K5B_TOL, K5B_TOL))
     if empty is not None and not bool((dq[empty] == 0).all()):
         raise AssertionError(f"sparse_mla_bwd {name}: a token that selected nothing must get dq 0")
     sparse_mla_tiles("sparse_mla_bwd", name, tiles, idx, Sk, K.BWD_TILE)
-    log(f"K5b case {name} (S={q.shape[0]} Sk={Sk} T={idx.shape[1]}, {chunks} chunk"
-        f"{'s' if chunks > 1 else ''}): err {err:.3g}, bit-equal over two runs")
+    log(f"K5b case {name} (S={q.shape[0]} Sk={Sk} T={idx.shape[1]} H={q.shape[1]}, {chunks} "
+        f"chunk{'s' if chunks > 1 else ''}, {launches} launches): err {err:.3g}, bit-equal over "
+        "two runs")
     return err
+
+
+def k5b_reference(q, kv, idx, out, lse, do, scale: float):
+    """K5b's plain version on the same inputs: the plain backward at up to 64
+    heads, and above 64 its mirror over the kernels' groups of 64 heads
+    (``sparse_mla_grouped_reference``: each group's per-slot dkv rows rounded
+    to bf16 before the f32 sum, as K5b writes them, where the plain backward
+    rounds the sum over all heads once). Returns (dq, dkv)."""
+    from prime_rl_tpu_torch.ops import sparse_mla_kernel as K
+
+    if q.shape[1] <= K.HEADS:
+        return K.sparse_mla_backward_reference(q, kv, idx, out, lse, do, scale, K.DV)
+    return K.sparse_mla_grouped_reference(q, kv, idx, scale, K.DV, do=do, out=out, lse=lse)[2:]
 
 
 def sparse_mla_tiles(kernel: str, name: str, tiles, idx, Sk: int, bt: int) -> int:
@@ -1501,14 +1570,16 @@ def sparse_mla_tiles(kernel: str, name: str, tiles, idx, Sk: int, bt: int) -> in
 
 
 def k5_edge_cases(gen) -> tuple[int, float, float]:
-    """Every case of K5B_EDGE_CASES through k5a_check and k5b_check. Returns
-    (cases, max error of K5a, max error of K5b)."""
+    """Every case of K5B_EDGE_CASES (64 heads) and K5_HEAD_CASES through
+    k5a_check and k5b_check. Returns (cases, max error of K5a, max error of
+    K5b)."""
     worst_a = worst_b = 0.0
-    for name, S, Sk, T, layout, empty, slots in K5B_EDGE_CASES:
-        q, kv, do, idx = k5b_inputs(gen, S, Sk, T, layout, empty)
+    cases = [c + (64,) for c in K5B_EDGE_CASES] + list(K5_HEAD_CASES)
+    for name, S, Sk, T, layout, empty, slots, heads in cases:
+        q, kv, do, idx = k5b_inputs(gen, S, Sk, T, layout, empty, heads)
         worst_a = max(worst_a, k5a_check(name, q, kv, idx, empty)[2])
         worst_b = max(worst_b, k5b_check(name, q, kv, do, idx, empty, slots))
-    return len(K5B_EDGE_CASES), worst_a, worst_b
+    return len(cases), worst_a, worst_b
 
 
 def sparse_mla_build_report() -> None:
@@ -1609,8 +1680,9 @@ def sparse_mla_kernel_phase() -> list[dict]:
     """K5a, K5b and the dkv reduction against their plain versions on the same
     bf16 inputs: a packed row of 4096 tokens with top-k 2048 (the DSA trainer's
     shape) and a short row of 1024 tokens whose every index row holds
-    sentinels, one of them nothing else; then K5a and K5b over every case of
-    K5B_EDGE_CASES (k5_edge_cases). Each kernel launched twice for equal bits,
+    sentinels, one of them nothing else, at 64 heads, and the trainer's shape
+    at 128 heads; then K5a and K5b over every case of K5B_EDGE_CASES and
+    K5_HEAD_CASES (k5_edge_cases). Each kernel launched twice for equal bits,
     with its tiles visited, as it counted them, held against the mirror."""
     import torch
 
@@ -1619,12 +1691,14 @@ def sparse_mla_kernel_phase() -> list[dict]:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
-    H, DQ, DV, T = K.HEADS, K.DQ, K.DV, 2048
+    DQ, DV, T = K.DQ, K.DV, 2048
     scale = DQ ** -0.5
     tol = K5B_TOL
     fwd_cases, bwd_cases, red_cases = [], [], []
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
-    for S in (4096, 1024):
+    # the DSA trainer's shape at GLM-5's 64 heads, the short row, and the
+    # trainer's shape at 128 heads (two groups of 64 a launch each)
+    for S, H in ((4096, K.HEADS), (1024, K.HEADS), (4096, 128)):
         q = torch.randn(S, H, DQ, device=dev, generator=gen).to(torch.bfloat16)
         kv = torch.randn(S, DQ, device=dev, generator=gen).to(torch.bfloat16)
         do = torch.randn(S, H, DV, device=dev, generator=gen).to(torch.bfloat16)
@@ -1632,12 +1706,12 @@ def sparse_mla_kernel_phase() -> list[dict]:
         if S == 1024:
             idx[7] = S  # a token that selected nothing
         pairs = int((idx < S).sum())
-        shape = f"S=Sk={S} T={T} pairs={pairs}"
+        shape = f"S=Sk={S} T={T} pairs={pairs}" + ("" if H == K.HEADS else f" H={H}")
 
         out, lse, err_fwd, fwd_visited = k5a_check(shape, q, kv, idx, 7 if S == 1024 else None)
         dq, dkv = K.sparse_mla_bwd(q, kv, idx, out, lse, do, scale, DV)
         torch.cuda.synchronize()
-        ref_dq, ref_dkv = K.sparse_mla_backward_reference(q, kv, idx, out, lse, do, scale, DV)
+        ref_dq, ref_dkv = k5b_reference(q, kv, idx, out, lse, do, scale)
         err_bwd = max(check_close(f"sparse_mla_bwd dq {shape}", dq, ref_dq, tol, tol),
                       check_close(f"sparse_mla_bwd dkv {shape}", dkv, ref_dkv, tol, tol))
         if S == 1024 and not bool((dq[7] == 0).all()):
@@ -3022,7 +3096,7 @@ def served_reference(spec, name: str, kernels: tuple[str, ...], twice: bool = Fa
         h = got[2]
         # a hybrid's recurrent rows, through the host as the state tier keeps them
         rows = [None if r is None else tuple(x.cpu().to(device) for x in r)
-                for r in got[4]] if spec.gdn_pattern else None
+                for r in got[4]] if spec.gdn_pattern or spec.layer_pattern else None
         out = [smodel.logits_from_hidden(sp, spec, h[None], dtype)]
         if chunk:
             got = smodel.prefill_chunk(
@@ -3180,7 +3254,9 @@ def gated_train_reference(spec, name: str,
     from prime_rl_tpu_torch.trainer.rl.data import FakeDataLoader
     from prime_rl_tpu_torch.trainer.step import MicroBatchArrays, Scales, make_loss_fn, put_batch
 
-    seq_len, n_moe = 1024, spec.num_layers - spec.first_k_dense_replace
+    seq_len = 1024
+    n_moe = (spec.layer_pattern.count("E") if spec.layer_pattern
+             else spec.num_layers - spec.first_k_dense_replace)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     # bf16-representable weights, so both sides start from the same numbers
     master = tree_map(lambda x: x.to(torch.bfloat16),
@@ -3412,13 +3488,49 @@ def qwen3_next_reference_phase() -> dict:
 def qwen3_next_training_phase() -> tuple[dict, dict]:
     """The trainer through its normal entry on a directory whose config.json
     names Qwen3NextForCausalLM at its widths, cut to 4 layers (LLLA) and 128
-    experts (``QWEN3_NEXT_TRAIN_CUTS``), twice from the same seed: seq_len
-    4096, 2 micro-batches of 1 row, adamw_8bit with bf16 masters, full remat,
-    3 steps. Bit-equal finite losses, changed parameters, the launches of K1,
-    K2a and K2b the attention layer, micro-batches and remat imply, and a
-    snapshot that reads back through get_spec and from_hf. Bench mode, as the
-    other big trainers: only the initial weights are published. Returns
-    (launches of the first run, numbers of its last step)."""
+    experts (``QWEN3_NEXT_TRAIN_CUTS``), twice from the same seed
+    (``hybrid_training_phase``). Returns (launches of the first run, numbers
+    of its last step)."""
+    model_dir = qwen3_next_dir("qwen3_next_training", **QWEN3_NEXT_TRAIN_CUTS)
+    return hybrid_training_phase(
+        "qwen3-next", model_dir,
+        ("qwen3_next", 2048, 16, 2, 256, "LLLA", 128, 151936),
+        lambda spec: (spec.family, spec.hidden_size, spec.num_heads, spec.num_kv_heads,
+                      spec.head_dim, spec.gdn_pattern, spec.num_experts, spec.vocab_size),
+        lambda spec: spec.gdn_pattern.count("A"),
+        lambda path: path.startswith("lin_layers/") and path.split("/")[1] in (
+            "in_q", "conv_w", "A_log"))
+
+
+def nemotron_training_phase() -> tuple[dict, dict]:
+    """The trainer through its normal entry on a directory whose config.json
+    names NemotronHForCausalLM at the 8B's widths, cut to one period of its
+    pattern (``NEMOTRON_TRAIN_PATTERN``: 6 Mamba-2 and relu^2 pairs, then an
+    attention layer; 13 layers), twice from the same seed
+    (``hybrid_training_phase``). Returns (launches of the first run, numbers
+    of its last step)."""
+    model_dir = nemotron_dir("nemotron_training", NEMOTRON_TRAIN_PATTERN)
+    return hybrid_training_phase(
+        "nemotron-h", model_dir,
+        ("nemotron_h", 4096, 32, 8, 128, NEMOTRON_TRAIN_PATTERN, 128, 131072),
+        lambda spec: (spec.family, spec.hidden_size, spec.num_heads, spec.num_kv_heads,
+                      spec.head_dim, spec.layer_pattern, spec.mamba_num_heads, spec.vocab_size),
+        lambda spec: spec.layer_pattern.count("*"),
+        lambda path: path.startswith("mamba_layers/") and path.split("/")[1] in (
+            "in_proj", "conv_w", "out_proj"))
+
+
+def hybrid_training_phase(label: str, model_dir: str, expect: tuple, widths, n_attn,
+                          must_change) -> tuple[dict, dict]:
+    """A hybrid model's trainer through its normal entry on ``model_dir``,
+    twice from the same seed: seq_len 4096, 2 micro-batches of 1 row,
+    adamw_8bit with bf16 masters, full remat, 3 steps. ``widths(spec)`` must
+    give ``expect``. Bit-equal finite losses, changed parameters (none for
+    which ``must_change(path)`` holds unchanged), the launches of K1, K2a and
+    K2b the ``n_attn(spec)`` attention layers, micro-batches and remat imply,
+    and a snapshot that reads back through get_spec and from_hf. Bench mode,
+    as the other big trainers: only the initial weights are published.
+    Returns (launches of the first run, numbers of its last step)."""
     import torch
 
     from prime_rl_tpu_torch.configs import TrainerConfig
@@ -3431,7 +3543,7 @@ def qwen3_next_training_phase() -> tuple[dict, dict]:
     from prime_rl_tpu_torch.trainer.weights import save_hf_weights
 
     steps, n_mb, rows, seq_len = 3, 2, 1, 4096
-    model_dir = qwen3_next_dir("qwen3_next_training", **QWEN3_NEXT_TRAIN_CUTS)
+    tag = label.replace("-", "_")
 
     def config(out: str) -> TrainerConfig:
         return TrainerConfig(
@@ -3446,11 +3558,9 @@ def qwen3_next_training_phase() -> tuple[dict, dict]:
         )
 
     spec = get_spec(model_dir)
-    if (spec.family, spec.hidden_size, spec.num_heads, spec.num_kv_heads, spec.head_dim,
-            spec.gdn_pattern, spec.num_experts, spec.vocab_size) != (
-            "qwen3_next", 2048, 16, 2, 256, "LLLA", 128, 151936):
-        raise AssertionError("the trained model must be Qwen3-Next at its widths, cut to LLLA")
-    outs = [os.path.join(ROOT, "build", "chip_smoke", f"qwen3_next_train_{i}") for i in range(2)]
+    if widths(spec) != expect:
+        raise AssertionError(f"the trained model must be {expect}, not {widths(spec)}")
+    outs = [os.path.join(ROOT, "build", "chip_smoke", f"{tag}_train_{i}") for i in range(2)]
     runs = []
     for i, out in enumerate(outs):
         shutil.rmtree(out, ignore_errors=True)
@@ -3467,7 +3577,7 @@ def qwen3_next_training_phase() -> tuple[dict, dict]:
         gc.collect()
         torch.cuda.empty_cache()
         shutil.rmtree(out, ignore_errors=True)
-        log(f"qwen3-next-training run {i}: {steps} steps in {wall:.2f} s (initial publish "
+        log(f"{label}-training run {i}: {steps} steps in {wall:.2f} s (initial publish "
             f"included), peak device memory {peak:.2f} GiB, losses "
             f"{[r['loss'] for r in runs[-1][0]]}, step times "
             f"{[round(r['step_time_s'], 3) for r in runs[-1][0]]}")
@@ -3476,27 +3586,26 @@ def qwen3_next_training_phase() -> tuple[dict, dict]:
     if len(records) != steps or not all(
             math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) and r["grad_norm"] > 0
             for r in records):
-        raise AssertionError(f"qwen3-next-training: bad step records {records}")
+        raise AssertionError(f"{label}-training: bad step records {records}")
     if losses != [r["loss"] for r in records_again]:
         raise AssertionError(f"two runs from the same seed gave different losses: {losses} and "
                              f"{[r['loss'] for r in records_again]}")
-    per_pass = spec.gdn_pattern.count("A") * n_mb * rows * steps
+    per_pass = n_attn(spec) * n_mb * rows * steps
     want = {"flash_attn_fwd": 2 * per_pass, "flash_attn_bwd_dq": per_pass,
             "flash_attn_bwd_dkv": per_pass}
     for kernel, n in want.items():
         if launches.get(kernel, 0) != n:
             raise AssertionError(f"{kernel}: {launches.get(kernel, 0)} launches on the "
-                                 f"qwen3-next training path, expected {n}")
+                                 f"{label} training path, expected {n}")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     init = dict(tree_paths(get_family(spec).init(spec, gen, dtype=torch.float32, device="cuda")))
     final = dict(tree_paths(state.params))
     unchanged = sorted(p for p, t in final.items() if torch.equal(t, init[p].to(t.dtype)))
     del init
     torch.cuda.empty_cache()
-    if any(p.startswith("lin_layers/") and p.split("/")[1] in ("in_q", "conv_w", "A_log")
-           for p in unchanged) or len(unchanged) > len(final) // 2:
+    if any(must_change(p) for p in unchanged) or len(unchanged) > len(final) // 2:
         raise AssertionError(f"parameters that did not change in {steps} steps: {unchanged}")
-    snap = os.path.join(ROOT, "build", "chip_smoke", "qwen3_next_snapshot")
+    snap = os.path.join(ROOT, "build", "chip_smoke", f"{tag}_snapshot")
     shutil.rmtree(snap, ignore_errors=True)
     t0 = time.perf_counter()
     save_hf_weights(state.params, spec, snap)
@@ -3517,7 +3626,7 @@ def qwen3_next_training_phase() -> tuple[dict, dict]:
     n_params = sum(x.numel() for x in tree_leaves(state.params))
     numbers = dict(step_time_s=last["step_time_s"], tokens_per_s=tokens / last["step_time_s"],
                    peak_gib=peak, parameters=n_params)
-    log(f"qwen3-next-training: {n_params / 1e9:.3f} G parameters; {steps} steps of {n_mb} x "
+    log(f"{label}-training: {n_params / 1e9:.3f} G parameters; {steps} steps of {n_mb} x "
         f"[{rows}, {seq_len}] tokens; last step {last['step_time_s']:.3f} s, "
         f"{numbers['tokens_per_s']:.0f} tokens/s, peak device memory {peak:.2f} GiB; "
         f"{len(final) - len(unchanged)} of {len(final)} parameter tensors changed; the snapshot "
@@ -3528,13 +3637,97 @@ def qwen3_next_training_phase() -> tuple[dict, dict]:
     return launches, numbers
 
 
+def nemotron_spec(pattern: str, **moe):
+    """Nemotron-H's named 8B spec with the layer pattern ``pattern`` (and
+    ``moe``, the LatentMoE fields of an "E" layer), the cut logged."""
+    import dataclasses
+
+    from prime_rl_tpu_torch.models.base import get_spec
+
+    full = get_spec(NEMOTRON)
+    cut = dataclasses.replace(full, num_layers=len(pattern), layer_pattern=pattern, **moe)
+    log(f"{NEMOTRON}: layers cut from {full.num_layers} to {cut.num_layers} ({pattern})"
+        + (f", LatentMoE test shape {moe}" if moe else ""))
+    return cut
+
+
+def nemotron_dir(name: str, pattern: str, **moe) -> str:
+    """A directory under build/chip_smoke whose config.json names
+    NemotronHForCausalLM at the 8B's widths with ``pattern`` (``nemotron_spec``)."""
+    from prime_rl_tpu_torch.trainer.weights import spec_to_hf_config
+
+    return config_dir(name, spec_to_hf_config(nemotron_spec(pattern, **moe)))
+
+
+def nemotron_kernel_phase() -> list[dict]:
+    """The kernel rows at Nemotron-H-8B's attention shape (32/8 heads of 128,
+    group 4, no rope), each held against its plain version, launched twice
+    for equal bits and timed as the other rows are (the L2 flushed for K4):
+    K1, K2a and K2b over a packed row of 4096 tokens (``QWEN3_NEXT_PACKING``:
+    three sequences); K4 at its serving shape (64 slots of 500-1100 tokens,
+    PS 64)."""
+    import torch
+
+    from prime_rl_tpu_torch.models.base import get_spec
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 16)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    spec = get_spec(NEMOTRON)
+    rows = []
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
+    found = k12_rows(gen, "nemotron-h", 1, 4096, spec.num_heads, spec.num_kv_heads,
+                     spec.head_dim, [QWEN3_NEXT_PACKING])
+    for (name, line), case in zip((("flash_attn_fwd", 59), ("flash_attn_bwd_dq", 227),
+                                   ("flash_attn_bwd_dkv", 282)), found):
+        source = "fwd" if name == "flash_attn_fwd" else "bwd"
+        rows.append(dict(name=f"{name}/nemotron-h", route="cuda",
+                         source=f"prime_rl_tpu_torch/csrc/flash_attn_{source}.cu",
+                         replaces=f"prime_rl_tpu/ops/flash_attention.py:{line}",
+                         **{k: case[k] for k in keys}, cases=[case], model=NEMOTRON))
+    case = k4_moe_case(spec, gen, flush)
+    rows.append(dict(name="decode_paged_attention/nemotron-h", route="cuda",
+                     source="prime_rl_tpu_torch/csrc/decode_attention.cu",
+                     replaces="prime_rl_tpu/ops/decode_attention.py:50",
+                     **{k: case[k] for k in keys}, cases=[case], model=NEMOTRON))
+    del flush
+    torch.cuda.empty_cache()
+    return rows
+
+
+def nemotron_reference_phase() -> dict:
+    """Nemotron-H at the 8B's widths and full vocabulary, one layer of each
+    kind (``NEMOTRON_REF_PATTERN``, the LatentMoE layer at
+    ``NEMOTRON_TEST_MOE``): the loss and every gradient of one row of 1024
+    tokens through K1, K2a and K2b under full remat (``gated_train_reference``),
+    and the serving path (``served_reference``, pages of 8): a prefill of 200
+    tokens (past the SSD's chunk of 128), a chunked prefill of 300 more from
+    the Mamba rows the prefill returned, and 4 decode steps through K1 and
+    K4, each twice for equal bits, against float32 on the CPU replaying the
+    card's routing. K3 must not launch (the JAX decode prepares the bare
+    attention's q/k/v outside its kernel). Returns {"train": launches,
+    "serve": launches}."""
+    spec = nemotron_spec(NEMOTRON_REF_PATTERN, **NEMOTRON_TEST_MOE)
+    k12 = ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
+    train = gated_train_reference(spec, "nemotron-h", kernels=k12)
+    serve_launches = served_reference(spec, "Nemotron-H (M*-E)",
+                                      ("flash_attn_fwd", "decode_paged_attention"), twice=True,
+                                      prompt=500, chunk=300, ps=8)
+    for what, counts in (("train", train), ("serve", serve_launches)):
+        if counts.get("decode_qkv_prep", 0):
+            raise AssertionError(f"nemotron-h {what}: K3 launched on the bare attention layer")
+    return {"train": train, "serve": serve_launches}
+
+
 async def grpo_group_phase(server, port: int) -> dict:
     """A GRPO group on a hybrid server: four greedy requests that share one
     prompt of ``QWEN3_NEXT_GROUP_PROMPT`` tokens, the first sent alone and the
     other three together once it has finished and its slot is released (its
     prefill checkpointed the recurrent rows at its last full page, and the
     release gives its pages to the prefix cache). The three must hit the state
-    tier, carry ``routed_experts``, and their first-token logits (recorded as
+    tier, carry ``routed_experts`` where the server records the routing (a
+    MoE model), and their first-token logits (recorded as
     the engine computes them) must be within 0.03 of the largest |logit| of
     the first member's, served cold: the cached members' tail prefills from
     the restored rows in another order of bf16 sums than a whole prefill."""
@@ -3559,7 +3752,8 @@ async def grpo_group_phase(server, port: int) -> dict:
         return out
 
     restores0 = engine.stats.get("state_restores", 0)
-    routed_shape = (spec.num_layers, spec.num_experts_per_tok)
+    n_moe = spec.layer_pattern.count("E") if spec.layer_pattern else spec.num_layers
+    routed_shape = (n_moe, spec.num_experts_per_tok) if engine._collect_routed else None
     smodel.logits_from_hidden = recording
     try:
         async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600)) as http:
@@ -3570,9 +3764,11 @@ async def grpo_group_phase(server, port: int) -> dict:
                 if r.status != 200:
                     raise AssertionError(f"group member: HTTP {r.status}: {await r.text()}")
                 c = (await r.json())["choices"][0]
-                routed = np.asarray(c["routed_experts"])
-                if routed.shape != (len(c["token_ids"]), *routed_shape):
-                    raise AssertionError(f"group member: routed_experts of shape {routed.shape}")
+                if routed_shape is not None:
+                    routed = np.asarray(c["routed_experts"])
+                    if routed.shape != (len(c["token_ids"]), *routed_shape):
+                        raise AssertionError(f"group member: routed_experts of shape "
+                                             f"{routed.shape}")
                 return c["token_ids"]
 
             t0 = time.perf_counter()
@@ -3788,14 +3984,19 @@ async def serving_phase(server, port: int, model: str, collect: bool,
 
 
 def serve(model: str, want_layers: int, want_vocab: int, reference=None, collect: bool = False,
-          num_layers: int | None = None, long_prompt: int = 0, extra=None):
+          num_layers: int | None = None, long_prompt: int = 0, extra=None,
+          state_cache_mb: int | None = None):
     """Build the inference server for ``model`` (all its layers, or
     ``num_layers``; random weights from the seed; with ``collect`` recording
-    the routing of every completion), run ``reference`` on its engine, warm it
-    up and drive it over HTTP with the launch counts reset just before (with
-    ``long_prompt`` one more request of that many prompt tokens; then
+    the routing of every completion; a hybrid's state tier of
+    ``state_cache_mb`` set on its engine's cache config, which the server's
+    config does not expose, or the default), run ``reference`` on its engine,
+    warm it up and drive it over HTTP with the launch counts reset just before
+    (with ``long_prompt`` one more request of that many prompt tokens; then
     ``extra(server, port)``, whose numbers join the stats). Returns (stats,
     launches); the server is stopped and freed."""
+    import dataclasses
+
     import aiohttp.web_app
     import torch
 
@@ -3822,6 +4023,8 @@ def serve(model: str, want_layers: int, want_vocab: int, reference=None, collect
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     if engine.spec.num_layers != want_layers or engine.spec.vocab_size != want_vocab:
         raise AssertionError(f"the served model must be {model} at full width and depth")
+    if state_cache_mb is not None:
+        engine.config = dataclasses.replace(engine.config, state_cache_mb=state_cache_mb)
     if reference is not None:
         reference(engine)
     engine.warmup(4)
@@ -4085,7 +4288,8 @@ def main() -> int:
     rows = (timed("kernels", kernel_phase, spec) + timed("dsa kernels", sparse_mla_kernel_phase)
             + timed("gpt-oss kernels", gpt_oss_kernel_phase)
             + timed("gated and serving kernels", gated_kernel_phase)
-            + timed("qwen3-next kernels", qwen3_next_kernel_phase))
+            + timed("qwen3-next kernels", qwen3_next_kernel_phase)
+            + timed("nemotron-h kernels", nemotron_kernel_phase))
     timed("train-reference", train_reference_phase)
     train_launches, _ = timed("training", training_phase)
     timed("dsa-train-reference", dsa_train_reference_phase)
@@ -4106,6 +4310,8 @@ def main() -> int:
     next_ref_launches = timed("qwen3-next-reference", qwen3_next_reference_phase)
     next_train_launches, next_train_numbers = timed("qwen3-next-training",
                                                     qwen3_next_training_phase)
+    nem_ref_launches = timed("nemotron-h-reference", nemotron_reference_phase)
+    nem_train_launches, nem_train_numbers = timed("nemotron-h-training", nemotron_training_phase)
 
     stats, launches = timed("reference + serving", serve, MODEL, 28, 151936, reference_phase)
     timed("gpt-oss-reference", gpt_oss_reference_phase)
@@ -4136,6 +4342,13 @@ def main() -> int:
         qwen3_next_dir("qwen3_next_serving", QWEN3_NEXT_SERVE_LAYERS), QWEN3_NEXT_SERVE_LAYERS,
         151936, None, True, None, 0, grpo_group_phase)
     gc.collect()
+    torch.cuda.empty_cache()
+    nem_stats, nem_launches = timed(
+        "nemotron-h-serving", serve,
+        nemotron_dir("nemotron_serving", get_spec(NEMOTRON).layer_pattern[:NEMOTRON_SERVE_LAYERS]),
+        NEMOTRON_SERVE_LAYERS, 131072, None, False, None, 0, grpo_group_phase,
+        NEMOTRON_STATE_CACHE_MB)
+    gc.collect()
     torch.cuda.empty_cache()  # the loop's processes need the card's memory
     loop_launches = timed("loop", loop_phase, card)
     log(f"gpt-oss-20b serving on {card}: {oss_stats['generate_tokens_per_s']:.1f} tokens/s "
@@ -4152,7 +4365,10 @@ def main() -> int:
     # the JAX package does; GLM-5's serving prefill runs K5a
     for path, counts in (("MiniMax-M2 serving", minimax_launches),
                          ("MiniMax-M2 reference", minimax_ref_launches),
-                         ("Qwen3-Next serving", next_launches)):
+                         ("Qwen3-Next serving", next_launches),
+                         ("Nemotron-H serving", nem_launches),
+                         ("Nemotron-H reference", {**nem_ref_launches["train"],
+                                                   **nem_ref_launches["serve"]})):
         if counts.get("decode_qkv_prep", 0):
             raise AssertionError(f"K3 launched on the {path} path: {counts}")
     # the rows' launches on the paths of slices 13 and 14: SFT and the Qwen3-MoE
@@ -4162,8 +4378,9 @@ def main() -> int:
     gated = {name: {k: counts["train"].get(k, 0) + counts["serve"].get(k, 0)
                     for k in {**counts["train"], **counts["serve"]}}
              for name, counts in gated_launches.items()}
-    next_ref = {k: next_ref_launches["train"].get(k, 0) + next_ref_launches["serve"].get(k, 0)
-                for k in {**next_ref_launches["train"], **next_ref_launches["serve"]}}
+    next_ref, nem_ref = ({k: ref["train"].get(k, 0) + ref["serve"].get(k, 0)
+                          for k in {**ref["train"], **ref["serve"]}}
+                         for ref in (next_ref_launches, nem_ref_launches))
     new_paths = {"launches_sft": sft_launches, "launches_moe_training": moe_train_launches,
                  "launches_moe_serving": moe_launches, "launches_glm_serving": glm_launches,
                  "launches_minimax_training": minimax_train_launches,
@@ -4172,7 +4389,10 @@ def main() -> int:
                  "launches_glm5_serving": glm5_launches,
                  "launches_qwen3_next_training": next_train_launches,
                  "launches_qwen3_next_serving": next_launches,
-                 "launches_qwen3_next_reference": next_ref}
+                 "launches_qwen3_next_reference": next_ref,
+                 "launches_nemotron_training": nem_train_launches,
+                 "launches_nemotron_serving": nem_launches,
+                 "launches_nemotron_reference": nem_ref}
     k12 = ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
     path_kernels = {"launches_sft": k12, "launches_moe_training": k12,
                     "launches_moe_serving": ("flash_attn_fwd", "decode_qkv_prep",
@@ -4186,7 +4406,10 @@ def main() -> int:
                     "launches_glm5_serving": ("sparse_mla_fwd",),
                     "launches_qwen3_next_training": k12,
                     "launches_qwen3_next_serving": ("flash_attn_fwd", "decode_paged_attention"),
-                    "launches_qwen3_next_reference": k12 + ("decode_paged_attention",)}
+                    "launches_qwen3_next_reference": k12 + ("decode_paged_attention",),
+                    "launches_nemotron_training": k12,
+                    "launches_nemotron_serving": ("flash_attn_fwd", "decode_paged_attention"),
+                    "launches_nemotron_reference": k12 + ("decode_paged_attention",)}
     for row in rows:
         name = row["name"]
         for key, kernels in path_kernels.items():
@@ -4201,6 +4424,11 @@ def main() -> int:
                                else next_train_launches).get(kernel, 0)
             if kernel == "flash_attn_fwd":
                 row["launches_serving"] = next_launches.get(kernel, 0)
+        elif name.endswith("/nemotron-h"):  # Nemotron-H-8B's 32/8 heads: trainer and server
+            row["launches"] = (nem_launches if kernel == "decode_paged_attention"
+                               else nem_train_launches).get(kernel, 0)
+            if kernel == "flash_attn_fwd":
+                row["launches_serving"] = nem_launches.get(kernel, 0)
         elif name.endswith("/group6"):  # MiniMax-M2's 48/8 heads: its trainer and server
             row["launches"] = (minimax_launches if kernel == "decode_paged_attention"
                                else minimax_train_launches).get(kernel, 0)
@@ -4275,6 +4503,12 @@ def main() -> int:
     log(f"qwen3-next training on {card}: {json.dumps(next_train_numbers)}")
     log(f"Qwen3-Next ({QWEN3_NEXT_SERVE_LAYERS} layers) serving stats on {card}: "
         f"{json.dumps(next_stats)}")
+    log(f"launches on the Nemotron-H reference paths: {json.dumps(nem_ref_launches)}")
+    log(f"launches on the Nemotron-H training path: {nem_train_launches}")
+    log(f"launches on the Nemotron-H serving path: {nem_launches}")
+    log(f"nemotron-h training on {card}: {json.dumps(nem_train_numbers)}")
+    log(f"Nemotron-H ({NEMOTRON_SERVE_LAYERS} layers) serving stats on {card}: "
+        f"{json.dumps(nem_stats)}")
     log(f"chip_smoke: {time.perf_counter() - t0:.1f} s from the build on")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -19,8 +19,23 @@
 //
 // A token that selected nothing gets out 0, lse -5e29, dq 0 and adds nothing to
 // dkv. The mask selects before the exponential, so no inf * 0 reaches a sum.
-// The kernels take H = 64, Dq = 576, Dv = 512 (the MLA widths: latent 512 +
-// rope 64); the wrapper raises for anything else.
+// The kernels take Dq = 576, Dv = 512 (the MLA widths: latent 512 + rope 64)
+// and work on one group of 64 heads a launch: one token's 64 heads are one
+// wgmma M tile. The wrapper takes any H % 8 == 0 (what the JAX kernel takes at
+// these widths), pads q's heads (and do's) with zero rows to Hp = ceil(H / 64)
+// * 64 and launches once a group: the kernels take the row stride Hp (`hs`)
+// and the group's first head (`h0`), so the q and do panels come from TMA row
+// tok * Hp + h0 and out, lse and dq are addressed the same way. A padded head
+// adds exactly 0: its zero q row gives finite s and its out and lse rows are
+// dropped; in the backward its do and delta rows are 0, so its ds and p^T do
+// are 0 and its dq rows are dropped. K5b's launches of one chunk go in
+// ascending group order through one dkvg buffer, each followed by the dkv
+// reduction into the same f32 dkv: dkv is summed in a fixed order and the bits
+// are equal from run to run. The cost of this simple form: each group gathers
+// its tokens' rows again (at 128 heads twice the L2 gather of K5a and K5b; at
+// 8-56 heads a whole 64-row product for the real rows). One gather a tile
+// with the groups looped over it is a later step. The wrapper raises for any
+// other width.
 //
 // What differs from the TPU kernels, on purpose. The TPU version gathers the
 // selected rows into a [C, T, Dq] tensor outside the kernel, because a TPU serves
@@ -422,7 +437,7 @@ __global__ void __launch_bounds__(k5a::THREADS, 1)
 sparse_mla_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const bf16* __restrict__ kv,
                       const int* __restrict__ indices, bf16* __restrict__ out,
                       float* __restrict__ lse, int* __restrict__ tiles, int S, int Sk, int T,
-                      float scale) {
+                      int hs, int h0, float scale) {
   using namespace k5a;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -470,7 +485,7 @@ sparse_mla_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const bf16* __re
     auto prefetch_next = [&]() {
       if (en >= S) return;
       const int tn = S - 1 - en;
-      for (int b = 0; b < QBOXES; ++b) prefetch_box(&tm_q, b * 64, tn * H);
+      for (int b = 0; b < QBOXES; ++b) prefetch_box(&tm_q, b * 64, tn * hs + h0);
       const uintptr_t lo = reinterpret_cast<uintptr_t>(indices + (size_t)tn * T) & ~(uintptr_t)15;
       const uintptr_t hi = reinterpret_cast<uintptr_t>(indices + (size_t)(tn + 1) * T);
       prefetch_bytes(reinterpret_cast<const void*>(lo), (uint32_t)((hi - lo + 15) & ~(uintptr_t)15));
@@ -496,7 +511,7 @@ sparse_mla_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const bf16* __re
       if (w0 == 0 && tid == THREADS - 32) {
         mbar_arrive_expect_tx(bar, QBOXES * PANEL_BOX);
         for (int b = 0; b < QBOXES; ++b)
-          tma_load_2d(sbase + q_off + b * PANEL_BOX, &tm_q, bar, b * 64, tok * H);
+          tma_load_2d(sbase + q_off + b * PANEL_BOX, &tm_q, bar, b * 64, tok * hs + h0);
       }
       constexpr int SCAN_WARPS = THREADS / 32 - 1;
       constexpr int SPL = BT / 32;  // slots a lane reads a tile
@@ -704,13 +719,13 @@ sparse_mla_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const bf16* __re
     __syncthreads();
     const float s0 = xs[lr], s1 = xs[lr + 8];
     if (wg == 0 && (lane & 3) == 0) {
-      lse[(size_t)tok * H + lr] = fmaxf(m0 * LN2, -5e29f) + logf(fmaxf(s0, 1e-30f));
-      lse[(size_t)tok * H + lr + 8] = fmaxf(m1 * LN2, -5e29f) + logf(fmaxf(s1, 1e-30f));
+      lse[(size_t)tok * hs + h0 + lr] = fmaxf(m0 * LN2, -5e29f) + logf(fmaxf(s0, 1e-30f));
+      lse[(size_t)tok * hs + h0 + lr + 8] = fmaxf(m1 * LN2, -5e29f) + logf(fmaxf(s1, 1e-30f));
     }
     stage_rows<256>(o, 1.f / fmaxf(s0, 1e-30f), 1.f / fmaxf(s1, 1e-30f),
                     sbase + q_off + 4 * wg * PANEL_BOX, 64, 0, lr, lane);
     bar_sync(3 + wg, 128);
-    store_rows<256>(out + (size_t)tok * H * DV + 256 * wg, DV, smem + q_off + 4 * wg * PANEL_BOX,
+    store_rows<256>(out + ((size_t)tok * hs + h0) * DV + 256 * wg, DV, smem + q_off + 4 * wg * PANEL_BOX,
                     64, 0, 64);
     fence_async_smem();
     K5A_MARK(7);
@@ -760,7 +775,7 @@ sparse_mla_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const int* __restrict__ indices, const float* __restrict__ lse,
                       const float* __restrict__ delta, bf16* __restrict__ dq,
                       bf16* __restrict__ dkvg, int* __restrict__ tiles, int C, int Sk, int T,
-                      float scale) {
+                      int hs, int h0, float scale) {
   using namespace k5b;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -806,8 +821,8 @@ sparse_mla_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     auto prefetch_next = [&]() {
       if (en >= C) return;
       const int cn = C - 1 - en;
-      for (int b = 0; b < QBOXES; ++b) prefetch_box(&tm_q, b * 64, cn * H);
-      for (int b = 0; b < OBOXES; ++b) prefetch_box(&tm_do, b * 64, cn * H);
+      for (int b = 0; b < QBOXES; ++b) prefetch_box(&tm_q, b * 64, cn * hs + h0);
+      for (int b = 0; b < OBOXES; ++b) prefetch_box(&tm_do, b * 64, cn * hs + h0);
       const uintptr_t lo = reinterpret_cast<uintptr_t>(indices + (size_t)cn * T) & ~(uintptr_t)15;
       const uintptr_t hi = reinterpret_cast<uintptr_t>(indices + (size_t)(cn + 1) * T);
       prefetch_bytes(reinterpret_cast<const void*>(lo), (uint32_t)((hi - lo + 15) & ~(uintptr_t)15));
@@ -830,9 +845,9 @@ sparse_mla_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (w0 == 0 && tid == THREADS - 32) {
         mbar_arrive_expect_tx(bar, (QBOXES + OBOXES) * PANEL_BOX);
         for (int b = 0; b < QBOXES; ++b)
-          tma_load_2d(sbase + q_off + b * PANEL_BOX, &tm_q, bar, b * 64, c * H);
+          tma_load_2d(sbase + q_off + b * PANEL_BOX, &tm_q, bar, b * 64, c * hs + h0);
         for (int b = 0; b < OBOXES; ++b)
-          tma_load_2d(sbase + do_off + b * PANEL_BOX, &tm_do, bar, b * 64, c * H);
+          tma_load_2d(sbase + do_off + b * PANEL_BOX, &tm_do, bar, b * 64, c * hs + h0);
       }
       constexpr int SCAN_WARPS = THREADS / 32 - 1;
       for (int t0 = warp; t0 < nw && warp < SCAN_WARPS; t0 += 8 * SCAN_WARPS) {
@@ -953,8 +968,8 @@ sparse_mla_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
           wgmma_commit();
           // its rows' lse in log2 units (read a tile: a value kept across
           // tiles would hold a register the dq accumulator needs)
-          const float rv0 = lse[(size_t)c * H + lr] * LOG2E;
-          const float rv1 = lse[(size_t)c * H + lr + 8] * LOG2E;
+          const float rv0 = lse[(size_t)c * hs + h0 + lr] * LOG2E;
+          const float rv1 = lse[(size_t)c * hs + h0 + lr + 8] * LOG2E;
           wgmma_wait_all();
           pin(s);
           K5B_MARK(4);
@@ -988,7 +1003,7 @@ sparse_mla_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
           for (int kk = 0; kk < KSTEPS_DP; ++kk)
             wgmma_ss_n32(dp, do0 + koff(kk, PANEL_BOX), kvd + koff(kk, TILE_BOX), kk > 0);
           wgmma_commit();
-          const float rv0 = delta[(size_t)c * H + lr], rv1 = delta[(size_t)c * H + lr + 8];
+          const float rv0 = delta[(size_t)c * hs + h0 + lr], rv1 = delta[(size_t)c * hs + h0 + lr + 8];
           wgmma_wait_all();
           pin(dp);
           K5B_MARK(4);
@@ -1102,7 +1117,7 @@ sparse_mla_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     asm volatile("" : "+r"(lre));
     stage_rows<192>(dqa, 1.f, 1.f, sbase + q_off + 3 * wg * PANEL_BOX, 64, 0, lre, lane);
     bar_sync(4 + wg, 128);
-    store_rows<192>(dq + (size_t)c * H * DQ + 192 * wg, DQ, smem + q_off + 3 * wg * PANEL_BOX, 64,
+    store_rows<192>(dq + ((size_t)c * hs + h0) * DQ + 192 * wg, DQ, smem + q_off + 3 * wg * PANEL_BOX, 64,
                     0, 64);
     fence_async_smem();
     K5B_MARK(10);
@@ -1164,20 +1179,26 @@ cudaError_t configure(Kernel kernel, size_t smem, bool* configured) {
   return err;
 }
 
-bool widths_ok(int heads, int dq, int dv) { return heads == H && dq == DQ && dv == DV; }
+// `heads` is the row stride of q, do, out, lse, delta and dq in heads (a
+// multiple of 64: the wrapper pads q's heads), `h0` the first head of the
+// launch's group of 64
+bool widths_ok(int heads, int h0, int dq, int dv) {
+  return heads > 0 && heads % H == 0 && h0 >= 0 && h0 < heads && h0 % H == 0 && dq == DQ &&
+         dv == DV;
+}
 
 // K5a over S tokens; `tiles` (int32 [S, 2]: visited, candidates) or null
 int run_fwd(const void* q, const void* kv, const void* indices, void* out, void* lse, int* tiles,
-            int S, int Sk, int T, int heads, int dqw, int dv, float scale, void* stream) {
-  if (!widths_ok(heads, dqw, dv) || S < 0 || Sk <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
+            int S, int Sk, int T, int heads, int h0, int dqw, int dv, float scale, void* stream) {
+  if (!widths_ok(heads, h0, dqw, dv) || S < 0 || Sk <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
   if (S == 0) return 0;
   static bool configured = false;
   cudaError_t err = configure(sparse_mla_fwd_kernel, k5a::BYTES, &configured);
   if (err != cudaSuccess) return (int)err;
   EncodeTiled encode = encoder();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
-  CUtensorMap tq;  // the tokens' q panels: [S * 64, 576] bf16 in boxes of 64 x 64
-  if (!matrix_map(&tq, encode, q, DQ, S * H, 64, CU_TENSOR_MAP_L2_PROMOTION_L2_256B))
+  CUtensorMap tq;  // the tokens' q panels: [S * heads, 576] bf16 in boxes of 64 x 64
+  if (!matrix_map(&tq, encode, q, DQ, S * heads, 64, CU_TENSOR_MAP_L2_PROMOTION_L2_256B))
     return (int)cudaErrorInvalidValue;
   int sms = 0;
   err = sm_count(&sms);
@@ -1185,7 +1206,7 @@ int run_fwd(const void* q, const void* kv, const void* indices, void* out, void*
   sparse_mla_fwd_kernel<<<S < sms ? S : sms, k5a::THREADS, k5a::BYTES,
                           static_cast<cudaStream_t>(stream)>>>(
       tq, static_cast<const bf16*>(kv), static_cast<const int*>(indices), static_cast<bf16*>(out),
-      static_cast<float*>(lse), tiles, S, Sk, T, scale);
+      static_cast<float*>(lse), tiles, S, Sk, T, heads, h0, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1207,19 +1228,19 @@ int timeline_copy(void* dst, size_t n, const Symbol& symbol, size_t size) {
 // query; `tiles` (int32 [C, 2]: visited, candidates) or null
 int run_bwd(const void* q, const void* kv, const void* indices, const void* dout,
             const void* lse, const void* delta, void* dq, void* dkvg, int* tiles, int C, int Sk,
-            int T, int heads, int dqw, int dv, float scale, void* stream) {
-  if (!widths_ok(heads, dqw, dv) || C < 0 || Sk <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
+            int T, int heads, int h0, int dqw, int dv, float scale, void* stream) {
+  if (!widths_ok(heads, h0, dqw, dv) || C < 0 || Sk <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
   if (C == 0) return 0;
   static bool configured = false;
   cudaError_t err = configure(sparse_mla_bwd_kernel, k5b::BYTES, &configured);
   if (err != cudaSuccess) return (int)err;
   EncodeTiled encode = encoder();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
-  // the token's panels: [C * 64, 576] and [C * 64, 512] bf16 in boxes of 64 x 64;
+  // the token's panels: [C * heads, 576] and [C * heads, 512] bf16 in boxes of 64 x 64;
   // the dkvg rows [C * T, 576] in boxes of 64 x 8
   CUtensorMap tq, tdo, tdkvg;
-  if (!matrix_map(&tq, encode, q, DQ, C * H, 64, CU_TENSOR_MAP_L2_PROMOTION_L2_256B) ||
-      !matrix_map(&tdo, encode, dout, DV, C * H, 64, CU_TENSOR_MAP_L2_PROMOTION_L2_256B) ||
+  if (!matrix_map(&tq, encode, q, DQ, C * heads, 64, CU_TENSOR_MAP_L2_PROMOTION_L2_256B) ||
+      !matrix_map(&tdo, encode, dout, DV, C * heads, 64, CU_TENSOR_MAP_L2_PROMOTION_L2_256B) ||
       !matrix_map(&tdkvg, encode, dkvg, DQ, C * T, 8, CU_TENSOR_MAP_L2_PROMOTION_NONE))
     return (int)cudaErrorInvalidValue;
   int sms = 0;
@@ -1229,7 +1250,7 @@ int run_bwd(const void* q, const void* kv, const void* indices, const void* dout
                           static_cast<cudaStream_t>(stream)>>>(
       tq, tdo, tdkvg, static_cast<const bf16*>(kv), static_cast<const int*>(indices),
       static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<bf16*>(dq),
-      static_cast<bf16*>(dkvg), tiles, C, Sk, T, scale);
+      static_cast<bf16*>(dkvg), tiles, C, Sk, T, heads, h0, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1248,17 +1269,17 @@ int attributes(Kernel kernel, int* attrs) {
 }  // namespace
 
 extern "C" int sparse_mla_fwd(const void* q, const void* kv, const void* indices, void* out,
-                              void* lse, int S, int Sk, int T, int heads, int dq, int dv,
+                              void* lse, int S, int Sk, int T, int heads, int h0, int dq, int dv,
                               float scale, void* stream) {
-  return run_fwd(q, kv, indices, out, lse, nullptr, S, Sk, T, heads, dq, dv, scale, stream);
+  return run_fwd(q, kv, indices, out, lse, nullptr, S, Sk, T, heads, h0, dq, dv, scale, stream);
 }
 
 // the same launch, also writing each token's tile counts into `tiles`
 // (int32 [S, 2]: tiles of k5a::BT slots visited, candidates)
 extern "C" int sparse_mla_fwd_tiles(const void* q, const void* kv, const void* indices, void* out,
-                                    void* lse, int S, int Sk, int T, int heads, int dq, int dv,
-                                    float scale, void* stream, void* tiles) {
-  return run_fwd(q, kv, indices, out, lse, static_cast<int*>(tiles), S, Sk, T, heads, dq, dv,
+                                    void* lse, int S, int Sk, int T, int heads, int h0, int dq,
+                                    int dv, float scale, void* stream, void* tiles) {
+  return run_fwd(q, kv, indices, out, lse, static_cast<int*>(tiles), S, Sk, T, heads, h0, dq, dv,
                  scale, stream);
 }
 
@@ -1290,20 +1311,20 @@ extern "C" int sparse_mla_fwd_timeline(void* dst, size_t n) {
 
 extern "C" int sparse_mla_bwd(const void* q, const void* kv, const void* indices,
                               const void* dout, const void* lse, const void* delta, void* dq,
-                              void* dkvg, int C, int Sk, int T, int heads, int dqw, int dv,
-                              float scale, void* stream) {
-  return run_bwd(q, kv, indices, dout, lse, delta, dq, dkvg, nullptr, C, Sk, T, heads, dqw, dv,
-                 scale, stream);
+                              void* dkvg, int C, int Sk, int T, int heads, int h0, int dqw,
+                              int dv, float scale, void* stream) {
+  return run_bwd(q, kv, indices, dout, lse, delta, dq, dkvg, nullptr, C, Sk, T, heads, h0, dqw,
+                 dv, scale, stream);
 }
 
 // the same launch, also writing each token's tile counts into `tiles`
 // (int32 [C, 2]: tiles of 32 slots visited, candidates)
 extern "C" int sparse_mla_bwd_tiles(const void* q, const void* kv, const void* indices,
                                     const void* dout, const void* lse, const void* delta, void* dq,
-                                    void* dkvg, int C, int Sk, int T, int heads, int dqw, int dv,
-                                    float scale, void* stream, void* tiles) {
+                                    void* dkvg, int C, int Sk, int T, int heads, int h0, int dqw,
+                                    int dv, float scale, void* stream, void* tiles) {
   return run_bwd(q, kv, indices, dout, lse, delta, dq, dkvg, static_cast<int*>(tiles), C, Sk, T,
-                 heads, dqw, dv, scale, stream);
+                 heads, h0, dqw, dv, scale, stream);
 }
 
 // K5b's dynamic shared memory a block and the blocks an SM holds at it

@@ -5,9 +5,10 @@ glm4_moe (GLM-4.5: partial rotary, noaux-tc routing, shared experts, dense
 first layers), the gated-MoE families minimax_m2, afmoe and laguna (glm4_moe's
 block with attention-output gates, layer-scope qk-norm and sandwich norms),
 the MLA families ``deepseek_v3`` (dense MLA) and ``glm_moe_dsa`` (MLA +
-DSA sparse attention) over the noaux-tc MoE stack, and the hybrid
+DSA sparse attention) over the noaux-tc MoE stack, and the hybrids
 ``qwen3_next`` (GatedDeltaNet linear attention, gated full attention at head
-dim 256, MoE with a gated shared expert), all trained and served."""
+dim 256, MoE with a gated shared expert) and ``nemotron_h`` (Mamba-2 mixers,
+bare attention, relu^2 MLPs and LatentMoE), all trained and served."""
 
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from prime_rl_tpu_torch.models import (
     glm4_moe,
     gpt_oss,
     mla_moe,
+    nemotron_h,
     qwen3,
     qwen3_moe,
     qwen3_next,
@@ -45,6 +47,9 @@ _GLM4_MOE = Family(glm4_moe.init_params, glm4_moe.forward, glm4_moe.params_from_
 _GATED_MOE = Family(gated_moe.init_params, gated_moe.forward,
                     gated_moe.params_from_hf_state_dict, gated_moe.params_to_hf_state_dict,
                     gated_moe.get_lm_head)
+_NEMOTRON_H = Family(nemotron_h.init_params, nemotron_h.forward,
+                     nemotron_h.params_from_hf_state_dict, nemotron_h.params_to_hf_state_dict,
+                     nemotron_h.get_lm_head)
 _QWEN3_NEXT = Family(qwen3_next.init_params, qwen3_next.forward,
                      qwen3_next.params_from_hf_state_dict, qwen3_next.params_to_hf_state_dict,
                      qwen3_next.get_lm_head)
@@ -52,7 +57,7 @@ FAMILIES: dict[str, Family] = {"qwen3": _DENSE, "llama": _DENSE, "gpt_oss": _GPT
                                "qwen3_moe": _QWEN3_MOE, "glm4_moe": _GLM4_MOE,
                                "minimax_m2": _GATED_MOE, "afmoe": _GATED_MOE,
                                "laguna": _GATED_MOE, "deepseek_v3": _MLA, "glm_moe_dsa": _MLA,
-                               "qwen3_next": _QWEN3_NEXT}
+                               "qwen3_next": _QWEN3_NEXT, "nemotron_h": _NEMOTRON_H}
 
 
 def get_family(spec: ModelSpec) -> Family:

@@ -436,6 +436,7 @@ BUILTIN_SPECS: dict[str, ModelSpec] = {
         layer_pattern=("M-" * 6 + "*") * 4,  # 52 layers: 24 M / 24 - / 4 *
         mamba_num_heads=128, mamba_head_dim=64, mamba_n_groups=8,
         mamba_state_size=128, mamba_conv_kernel=4, mamba_chunk_size=128,
+        router_sigmoid=True,  # NemotronH's routing (unused: no "E" layer)
     ),
     # MiniMaxAI/MiniMax-M2's published config.json: sigmoid + bias routing,
     # a layer-scope qk-norm, rotary over 64 of 128 dims, 256 experts of 1536.
@@ -696,6 +697,7 @@ def spec_from_hf_config(cfg: dict) -> ModelSpec:
         cfg.setdefault("num_hidden_layers", len(pattern))
         extra = dict(
             layer_pattern=pattern,
+            bos_token_id=cfg.get("bos_token_id"),
             mamba_num_heads=int(cfg.get("mamba_num_heads", 128)),
             mamba_head_dim=int(cfg.get("mamba_head_dim", 64)),
             mamba_n_groups=int(cfg.get("mamba_n_groups", 8)),

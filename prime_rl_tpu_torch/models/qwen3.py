@@ -438,7 +438,7 @@ def params_from_jax(np_params: dict, spec: ModelSpec, device: torch.device | str
     (``jax.device_get``), as this package's params: the same layout and
     values, so both packages compute the same function (every family this
     module initializes, and qwen3_next's two stacks)."""
-    if spec.family not in _INIT_FAMILIES + ("qwen3_next",):
+    if spec.family not in _INIT_FAMILIES + ("qwen3_next", "nemotron_h"):
         raise NotImplementedError(f"model family {spec.family!r} is not ported yet")
 
     def conv(x):

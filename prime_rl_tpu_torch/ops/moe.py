@@ -21,9 +21,11 @@ in the JAX function. Divergences from the JAX package, on purpose:
   output are rounded to bfloat16 once more than in JAX. In float32 the two
   packages compute the same numbers.
 
-Not ported yet, and raising: ``w_gate is None`` and ``x_experts`` (Nemotron-H
-LatentMoE), per-expert LoRA, and the expert-parallel mesh (``set_ep_mesh``,
-``ops/moe_ep.py``).
+``w_gate is None`` gives non-gated relu^2 experts and ``x_experts`` [T, D']
+feeds the experts a different input than the router's (Nemotron-H's
+LatentMoE: routing at the model width, the experts at the latent width; the
+output then has width D'). Not ported yet, and raising: per-expert LoRA, and
+the expert-parallel mesh (``set_ep_mesh``, ``ops/moe_ep.py``).
 """
 
 from __future__ import annotations
@@ -152,7 +154,7 @@ def _grouped_product(xs: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tenso
 def moe_mlp(
     x: torch.Tensor,  # [T, D]
     router_w: torch.Tensor,  # [D, E]
-    w_gate: torch.Tensor | None,  # [E, D, M]
+    w_gate: torch.Tensor | None,  # [E, D, M]; None = non-gated relu^2 experts
     w_up: torch.Tensor,  # [E, D, M]
     w_down: torch.Tensor,  # [E, M, D]
     top_k: int,
@@ -170,7 +172,7 @@ def moe_mlp(
     n_group: int = 1,
     topk_group: int = 1,
     routed_scaling: float = 1.0,
-    x_experts: torch.Tensor | None = None,
+    x_experts: torch.Tensor | None = None,  # [T, D'] the experts' input, if not x
     forced_experts: torch.Tensor | None = None,  # [T, K] router replay (-1 row = own)
     lora: dict | None = None,
     lora_scale: float = 1.0,
@@ -181,15 +183,14 @@ def moe_mlp(
       1. route: top-k experts per token
       2. sort the T*K (token, expert) pairs by expert id (stable)
       3. grouped products over the contiguous expert groups (+ per-expert
-         biases in f32), silu-gated or clamped-GLU (``activation_alpha > 0``)
+         biases in f32), silu-gated, clamped-GLU (``activation_alpha > 0``)
+         or relu^2 (``w_gate is None``) over ``x_experts`` (default x)
       4. unsort + weighted sum over each token's K slots
     """
-    if w_gate is None or (x_experts is not None and x_experts is not x):
-        raise NotImplementedError("non-gated experts and a separate expert input come with "
-                                  "the Nemotron-H slice")
     if lora is not None:
         raise NotImplementedError("per-expert LoRA waits for the LoRA slice")
-    t, d = x.shape
+    x_in = x if x_experts is None else x_experts
+    t, d = x_in.shape
     e = router_w.shape[1]
     routing = route_topk(x, router_w, top_k, norm_topk_prob,
                          router_b=router_b, softmax_topk=softmax_topk,
@@ -205,7 +206,7 @@ def moe_mlp(
     if grouped_product_impl(x) == "loop":
         bounds = torch.cumsum(group_sizes, 0).tolist()
 
-    xs = x[token_idx]  # [T*K, D] sorted by expert
+    xs = x_in[token_idx]  # [T*K, D] sorted by expert
     sorted_experts = flat_experts[order]  # expert id of each sorted slot
 
     def biased(y, b):
@@ -213,11 +214,14 @@ def moe_mlp(
         return y if b is None else y + b.float()[sorted_experts]
 
     up = biased(_grouped_product(xs, w_up, group_sizes, bounds), b_up)
-    gate = biased(_grouped_product(xs, w_gate, group_sizes, bounds), b_gate)
-    if activation_alpha > 0:
-        h = clamped_glu(gate, up, activation_alpha, activation_limit).to(x.dtype)
+    if w_gate is None:  # Nemotron-H's LatentMoE experts
+        h = torch.square(F.relu(up)).to(x.dtype)
     else:
-        h = (F.silu(gate) * up).to(x.dtype)  # [T*K, M]
+        gate = biased(_grouped_product(xs, w_gate, group_sizes, bounds), b_gate)
+        if activation_alpha > 0:
+            h = clamped_glu(gate, up, activation_alpha, activation_limit).to(x.dtype)
+        else:
+            h = (F.silu(gate) * up).to(x.dtype)  # [T*K, M]
     out_sorted = biased(_grouped_product(h, w_down, group_sizes, bounds), b_down)
 
     w_flat = routing.weights.reshape(-1)[order]  # combine weight per sorted slot

@@ -24,14 +24,20 @@ products, ``p`` to do's dtype for dv, float32 sums, the per-slot dkv rows to
 kv's dtype once. Unlike the JAX package, which adds those rows up in
 bfloat16, dkv is summed in float32 and rounded once.
 
-On the card the kernels take bfloat16 tensors with ``H = 64, Dq = 576, v_dim
-= 512`` (latent 512 + rope 64, the MLA widths of the glm_moe_dsa family) and
-raise for anything else; the TPU version's quiet fall-back to the XLA form
-is not carried over. The backward runs over chunks of queries: K5b writes
+On the card the kernels take bfloat16 tensors with ``Dq = 576, v_dim = 512``
+(latent 512 + rope 64, the MLA widths of the glm_moe_dsa family) and any
+``H % 8 == 0`` (what the JAX kernel takes at these widths), and raise for
+anything else (``check_widths``); the TPU version's quiet fall-back to the XLA
+form is not carried over. A kernel block holds one group of ``HEADS`` = 64
+heads: the wrappers pad q (and do) with zero heads to ``Hp = ceil(H / 64) *
+64`` and launch once a group, the padded heads' rows dropped
+(``sparse_mla_grouped_reference`` is the plain mirror of that decomposition). The backward runs over chunks of queries: K5b writes
 each chunk's per-slot dkv rows into a ``[chunk, topk, Dq]`` buffer of about
 1.2 GB, and ``sparse_mla_dkv_reduce`` gives every kv row one block that sums
 the rows of the slots that selected it, in the order of a stable sort of the
-chunk's indices: no atomics, so two runs give the same bits. K5a and K5b skip
+chunk's indices: no atomics, so two runs give the same bits. Each chunk's
+groups run in ascending order, each launch followed by its reduction into
+the same f32 dkv. K5a and K5b skip
 the tiles (of ``FWD_TILE`` and ``BWD_TILE`` slots) that hold only sentinels
 and count the ones they visit (``sparse_mla_fwd_tile_counts``,
 ``sparse_mla_bwd_tile_counts``; ``sparse_mla_bwd_tiles_visited`` with the
@@ -56,7 +62,7 @@ KERNEL = "sparse_mla"  # one source, three kernels, counted separately:
 KERNEL_FWD = "sparse_mla_fwd"
 KERNEL_BWD = "sparse_mla_bwd"
 KERNEL_REDUCE = "sparse_mla_dkv_reduce"
-HEADS, DQ, DV = 64, 576, 512  # the widths the kernels are compiled for
+HEADS, DQ, DV = 64, 576, 512  # heads a kernel block (a group) and the widths compiled for
 BWD_SLOTS = 1 << 20  # (query, slot) pairs per backward launch: a 1.2 GB dkvg buffer
 BWD_TILE = 32  # slots a K5b tile
 FWD_TILE = 64  # slots a K5a tile (the kernel's k5a::BT)
@@ -71,10 +77,10 @@ def _kernels():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fwd, bwd, red = lib.sparse_mla_fwd, lib.sparse_mla_bwd, lib.sparse_mla_dkv_reduce
         fwd_tiles, bwd_tiles = lib.sparse_mla_fwd_tiles, lib.sparse_mla_bwd_tiles
-        fwd.argtypes = [p] * 5 + [i] * 6 + [f, p]
-        fwd_tiles.argtypes = [p] * 5 + [i] * 6 + [f, p, p]
-        bwd.argtypes = [p] * 8 + [i] * 6 + [f, p]
-        bwd_tiles.argtypes = [p] * 8 + [i] * 6 + [f, p, p]
+        fwd.argtypes = [p] * 5 + [i] * 7 + [f, p]
+        fwd_tiles.argtypes = [p] * 5 + [i] * 7 + [f, p, p]
+        bwd.argtypes = [p] * 8 + [i] * 7 + [f, p]
+        bwd_tiles.argtypes = [p] * 8 + [i] * 7 + [f, p, p]
         red.argtypes = [p] * 4 + [i] * 2 + [p]
         for fn in (fwd, fwd_tiles, bwd, bwd_tiles, red):
             fn.restype = i
@@ -88,9 +94,10 @@ def bwd_chunk(S: int, T: int) -> int:
     return max(1, min(S, max(8, BWD_SLOTS // max(T, 1) // 8 * 8)))
 
 
-def bwd_launches(S: int, T: int) -> int:
-    """K5b launches (and reductions) of one backward call."""
-    return -(-S // bwd_chunk(S, T))
+def bwd_launches(S: int, T: int, H: int = HEADS) -> int:
+    """K5b launches (and reductions) of one backward call: one a chunk and
+    group of ``HEADS`` heads."""
+    return -(-S // bwd_chunk(S, T)) * (-(-H // HEADS))
 
 
 # ---------------------------------------------------------------------------
@@ -128,9 +135,17 @@ def sparse_mla_backward_reference(q, kv, indices, out, lse, do, sm_scale: float,
                                   chunk: int = 128):
     """Plain version of K5b and the dkv reduction: (dq [S, H, Dq], dkv
     [Sk, Dq]) from the saved lse, rounding where the kernels round."""
-    Sk = kv.shape[0]
-    delta = (out.float() * do.float()).sum(dim=-1)  # [S, H]
     dkv = torch.zeros(kv.shape, dtype=torch.float32, device=kv.device)
+    delta = (out.float() * do.float()).sum(dim=-1)  # [S, H]
+    dq = _backward_into(q, kv, indices, lse, delta, do, dkv, sm_scale, v_dim, chunk)
+    return dq, dkv.to(kv.dtype)
+
+
+def _backward_into(q, kv, indices, lse, delta, do, dkv, sm_scale: float, v_dim: int,
+                   chunk: int = 128):
+    """dq [S, H, Dq] of the plain backward; the per-slot dkv rows (rounded to
+    kv's dtype, as K5b writes them) are added into the f32 ``dkv``."""
+    Sk = kv.shape[0]
     dqs = []
     for c0 in range(0, q.shape[0], chunk):
         qc, ic = q[c0:c0 + chunk].float(), indices[c0:c0 + chunk].long()
@@ -149,7 +164,57 @@ def sparse_mla_backward_reference(q, kv, indices, out, lse, do, sm_scale: float,
         dkvg[..., :v_dim] += torch.einsum("cht,chd->ctd", p.to(do.dtype).float(), doc.float())
         dkvg = dkvg.to(kv.dtype).float()
         dkv.index_add_(0, ic[valid], dkvg[valid])
-    return torch.cat(dqs, dim=0), dkv.to(kv.dtype)
+    return torch.cat(dqs, dim=0)
+
+
+def padded_heads(H: int) -> int:
+    """Hp: H rounded up to whole kernel blocks of ``HEADS`` heads."""
+    return -(-H // HEADS) * HEADS
+
+
+def _pad_heads(x: torch.Tensor, Hp: int) -> torch.Tensor:
+    """x [S, H, ...] with zero heads appended up to Hp (x itself when H = Hp)."""
+    H = x.shape[1]
+    if H == Hp:
+        return x
+    pad = x.new_zeros((x.shape[0], Hp - H) + tuple(x.shape[2:]))
+    return torch.cat([x, pad], dim=1)
+
+
+def sparse_mla_grouped_reference(q, kv, indices, sm_scale: float, v_dim: int, do=None,
+                                 out=None, lse=None):
+    """The kernels' decomposition in plain PyTorch: q's heads padded with zero
+    rows to ``padded_heads(H)``, the plain forward run a group of ``HEADS``
+    heads at a time and the padded rows dropped. Returns (out [S, H, v_dim],
+    lse [S, H]), and given ``do`` [S, H, v_dim] also (dq [S, H, Dq], dkv [Sk,
+    Dq]): the plain backward run over the same groups (do and delta padded
+    with zeros; from the given ``out`` and ``lse``, where the caller has the
+    forward's), each query chunk of ``bwd_chunk`` tokens in ascending group
+    order adding its rows, rounded to kv's dtype a group, into one f32 dkv,
+    rounded once, as K5b and the reduction do."""
+    S, H, _ = q.shape
+    Hp = padded_heads(H)
+    qp = _pad_heads(q, Hp)
+    groups = [slice(g, g + HEADS) for g in range(0, Hp, HEADS)]
+    if out is None or lse is None:
+        fwd = [sparse_mla_attention_reference(qp[:, g], kv, indices, sm_scale, v_dim)
+               for g in groups]
+        out = torch.cat([o for o, _ in fwd], dim=1)[:, :H]
+        lse = torch.cat([l for _, l in fwd], dim=1)[:, :H]
+    if do is None:
+        return out, lse
+    dop = _pad_heads(do, Hp)
+    delta = _pad_heads((out.float() * do.float()).sum(dim=-1), Hp)
+    lsep = _pad_heads(lse, Hp)
+    dkv = torch.zeros(kv.shape, dtype=torch.float32, device=kv.device)
+    dq = torch.empty_like(qp)
+    chunk = bwd_chunk(S, indices.shape[1])
+    for c0 in range(0, S, chunk):
+        c = slice(c0, c0 + chunk)
+        for g in groups:
+            dq[c, g] = _backward_into(qp[c, g], kv, indices[c], lsep[c, g], delta[c, g],
+                                      dop[c, g], dkv, sm_scale, v_dim)
+    return out, lse, dq[:, :H], dkv.to(kv.dtype)
 
 
 def sparse_mla_bwd_tiles_visited(indices: torch.Tensor, Sk: int,
@@ -170,11 +235,17 @@ def sparse_mla_bwd_tiles_visited(indices: torch.Tensor, Sk: int,
 # kernels
 # ---------------------------------------------------------------------------
 
+def check_widths(H: int, Dq: int, v_dim: int) -> None:
+    """Raise ValueError unless the kernels take these widths: any ``H % 8 ==
+    0`` (the JAX kernel's condition on H) at ``Dq = 576, v_dim = 512``."""
+    if H <= 0 or H % 8 or (Dq, v_dim) != (DQ, DV):
+        raise ValueError(f"the sparse MLA kernels take H % 8 == 0, Dq = {DQ}, v_dim = {DV}; "
+                         f"got H = {H}, Dq = {Dq}, v_dim = {v_dim}")
+
+
 def _check_args(q, kv, indices, v_dim: int):
     S, H, Dq = q.shape
-    if (H, Dq, v_dim) != (HEADS, DQ, DV):
-        raise ValueError(f"the sparse MLA kernels take H = {HEADS}, Dq = {DQ}, v_dim = {DV}; "
-                         f"got H = {H}, Dq = {Dq}, v_dim = {v_dim}")
+    check_widths(H, Dq, v_dim)
     _build.require(q, "q", torch.bfloat16)
     _build.require(kv, "kv", torch.bfloat16, (kv.shape[0], Dq))
     _build.require(indices, "indices", torch.int32, (S, indices.shape[1]))
@@ -182,21 +253,29 @@ def _check_args(q, kv, indices, v_dim: int):
 
 
 def sparse_mla_fwd(q, kv, indices, sm_scale: float, v_dim: int, tiles=None):
-    """K5a on CUDA tensors: (out [S, H, v_dim] bf16, lse [S, H] f32). Given
-    ``tiles`` (int32 [S, 2]), the same launch also writes each token's tiles
+    """K5a on CUDA tensors: (out [S, H, v_dim] bf16, lse [S, H] f32), one
+    launch a group of ``HEADS`` heads over q padded to ``padded_heads(H)``.
+    Given ``tiles`` (int32 [S, 2]), the launches also write each token's tiles
     of ``FWD_TILE`` slots visited and its candidates there."""
     S, Sk, T = _check_args(q, kv, indices, v_dim)
-    out = torch.empty((S, HEADS, v_dim), dtype=q.dtype, device=q.device)
-    lse = torch.empty((S, HEADS), dtype=torch.float32, device=q.device)
-    args = (q.data_ptr(), kv.data_ptr(), indices.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            S, Sk, T, HEADS, DQ, v_dim, float(sm_scale), _build.stream_ptr(q))
-    if tiles is None:
-        _build.check(KERNEL_FWD, _kernels()[0](*args))
-    else:
+    H = q.shape[1]
+    Hp = padded_heads(H)
+    qp = _pad_heads(q, Hp)
+    out = torch.empty((S, Hp, v_dim), dtype=q.dtype, device=q.device)
+    lse = torch.empty((S, Hp), dtype=torch.float32, device=q.device)
+    if tiles is not None:
         _build.require(tiles, "tiles", torch.int32, (S, 2))
-        _build.check(KERNEL_FWD, _kernels()[4](*args, tiles.data_ptr()))
-    _build.launches[KERNEL_FWD] += 1
-    return out, lse
+    for h0 in range(0, Hp, HEADS):
+        args = (qp.data_ptr(), kv.data_ptr(), indices.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                S, Sk, T, Hp, h0, DQ, v_dim, float(sm_scale), _build.stream_ptr(q))
+        if tiles is None:
+            _build.check(KERNEL_FWD, _kernels()[0](*args))
+        else:
+            _build.check(KERNEL_FWD, _kernels()[4](*args, tiles.data_ptr()))
+        _build.launches[KERNEL_FWD] += 1
+    if Hp == H:
+        return out, lse
+    return out[:, :H].contiguous(), lse[:, :H].contiguous()
 
 
 def sparse_mla_fwd_tile_counts(q, kv, indices, sm_scale: float, v_dim: int) -> torch.Tensor:
@@ -239,22 +318,28 @@ def slot_order(indices: torch.Tensor, Sk: int):
 
 
 def sparse_mla_bwd_chunk(q, kv, indices, do, lse, delta, dq, dkvg, sm_scale: float,
-                         v_dim: int, tiles=None) -> None:
-    """One K5b launch over a chunk of C queries (``q, indices, do, lse, delta``
-    and ``dq`` are the chunk's slices): writes ``dq`` [C, H, Dq] and, for every
-    slot with a real index, its dkv row into ``dkvg`` [>= C, T, Dq] bf16.
-    Given ``tiles`` (int32 [C, 2]), the same launch also writes each token's
-    tiles of ``BWD_TILE`` slots visited and its candidates there."""
+                         v_dim: int, tiles=None, h0: int = 0) -> None:
+    """One K5b launch over a chunk of C queries and the group of ``HEADS``
+    heads from ``h0`` (``q, indices, do, lse, delta`` and ``dq`` are the
+    chunk's slices, their heads a multiple of ``HEADS``, padded with zeros):
+    writes the group's rows of ``dq`` [C, Hp, Dq] and, for every slot with a
+    real index, the group's dkv row into ``dkvg`` [>= C, T, Dq] bf16. Given
+    ``tiles`` (int32 [C, 2]), the same launch also writes each token's tiles
+    of ``BWD_TILE`` slots visited and its candidates there."""
     C, Sk, T = _check_args(q, kv, indices, v_dim)
-    _build.require(do, "do", torch.bfloat16, (C, HEADS, v_dim))
-    _build.require(lse, "lse", torch.float32, (C, HEADS))
-    _build.require(delta, "delta", torch.float32, (C, HEADS))
-    _build.require(dq, "dq", torch.bfloat16, (C, HEADS, DQ))
+    Hp = q.shape[1]
+    if Hp % HEADS or h0 % HEADS or not 0 <= h0 < Hp:
+        raise ValueError(f"sparse_mla_bwd_chunk: heads must be whole groups of {HEADS} and h0 "
+                         f"one of their starts; got {Hp} heads, h0 = {h0}")
+    _build.require(do, "do", torch.bfloat16, (C, Hp, v_dim))
+    _build.require(lse, "lse", torch.float32, (C, Hp))
+    _build.require(delta, "delta", torch.float32, (C, Hp))
+    _build.require(dq, "dq", torch.bfloat16, (C, Hp, DQ))
     _build.require(dkvg, "dkvg", torch.bfloat16)
     if dkvg.shape[0] < C or tuple(dkvg.shape[1:]) != (T, DQ):
         raise ValueError(f"dkvg: expected at least [{C}, {T}, {DQ}], got {tuple(dkvg.shape)}")
     args = (q.data_ptr(), kv.data_ptr(), indices.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), dkvg.data_ptr(), C, Sk, T, HEADS, DQ, v_dim,
+            delta.data_ptr(), dq.data_ptr(), dkvg.data_ptr(), C, Sk, T, Hp, h0, DQ, v_dim,
             float(sm_scale), _build.stream_ptr(q))
     if tiles is None:
         _build.check(KERNEL_BWD, _kernels()[1](*args))
@@ -265,23 +350,30 @@ def sparse_mla_bwd_chunk(q, kv, indices, do, lse, delta, dq, dkvg, sm_scale: flo
 
 
 def sparse_mla_bwd(q, kv, indices, out, lse, do, sm_scale: float, v_dim: int, tiles=None):
-    """K5b and the dkv reduction on CUDA tensors, chunk by chunk: (dq
-    [S, H, Dq], dkv [Sk, Dq]), both bf16. Given ``tiles`` (int32 [S, 2]),
-    each chunk's K5b launch also writes its tokens' tile counts there."""
+    """K5b and the dkv reduction on CUDA tensors, chunk by chunk and, in a
+    chunk, group by group in ascending order: (dq [S, H, Dq], dkv [Sk, Dq]),
+    both bf16. Given ``tiles`` (int32 [S, 2]), each chunk's K5b launches also
+    write its tokens' tile counts there."""
     S, Sk, T = _check_args(q, kv, indices, v_dim)
+    H = q.shape[1]
+    Hp = padded_heads(H)
     do = do.contiguous()
     # the plain version's f32 sum(out * do); do is widened inside the product
-    delta = (out.float() * do).sum(dim=-1)
+    delta = _pad_heads((out.float() * do).sum(dim=-1), Hp)
+    q, do, lse = _pad_heads(q, Hp), _pad_heads(do, Hp), _pad_heads(lse, Hp)
     dq = torch.empty_like(q)
     dkv = torch.zeros((Sk, DQ), dtype=torch.float32, device=q.device)
     chunk = bwd_chunk(S, T)
     dkvg = torch.empty((chunk, T, DQ), dtype=torch.bfloat16, device=q.device)
     for c0 in range(0, S, chunk):
         sl = slice(c0, min(c0 + chunk, S))
-        sparse_mla_bwd_chunk(q[sl], kv, indices[sl], do[sl], lse[sl], delta[sl], dq[sl], dkvg,
-                             sm_scale, v_dim, None if tiles is None else tiles[sl])
         order, seg = slot_order(indices[sl], Sk)
-        sparse_mla_dkv_reduce(dkvg, order, seg, dkv)
+        for h0 in range(0, Hp, HEADS):
+            sparse_mla_bwd_chunk(q[sl], kv, indices[sl], do[sl], lse[sl], delta[sl], dq[sl],
+                                 dkvg, sm_scale, v_dim, None if tiles is None else tiles[sl], h0)
+            sparse_mla_dkv_reduce(dkvg, order, seg, dkv)
+    if Hp != H:
+        dq = dq[:, :H].contiguous()
     return dq, dkv.to(kv.dtype)
 
 

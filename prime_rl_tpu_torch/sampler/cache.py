@@ -1,13 +1,14 @@
 """Paged KV cache: device pool + host page allocator (the port of the JAX
 package's ``sampler/cache.py``; dense attention, MLA and the GatedDeltaNet
-hybrid).
+and Mamba-2 hybrids).
 
     k/v: one [num_kv_heads, num_pages, page_size, head_dim] tensor per layer
     MLA: k one [1, num_pages, page_size, kv_lora_rank + qk_rope_head_dim]
          latent row a token, shared by every head; v the DSA indexer keys
          [1, num_pages, page_size, index_head_dim], or None for dense MLA
-    hybrid: no pages for a recurrent ("L") layer; ``RecurrentPool`` holds
-         its per-slot conv window and fast-weight state instead
+    hybrid: pages only for the attention layers ("A", Nemotron-H's "*");
+         ``RecurrentPool`` holds a recurrent layer's ("L", "M") per-slot
+         conv window and state instead; "-" and "E" layers hold nothing
 
 The allocator is plain host Python (a free list); the device only ever sees
 a page table ``[max_slots, pages_per_slot] int32`` and per-slot lengths.
@@ -49,10 +50,15 @@ class CacheConfig:
         return -(-self.max_seq_len // self.page_size)
 
 
+PAGED_KINDS = ("A", "*")  # layers with KV pages
+RECURRENT_KINDS = ("L", "M")  # layers with RecurrentPool rows
+
+
 def layer_kinds(spec: ModelSpec) -> list[str]:
     """Per-layer cache kind: "A" = paged-KV attention+MLP pair, "L" =
-    recurrent GatedDeltaNet (no pages). The Mamba-hybrid kinds of the JAX
-    package ("M", "*", "-", "E") wait for the nemotron_h slice."""
+    recurrent GatedDeltaNet, "M" = recurrent Mamba-2 mixer, "*" = bare
+    attention (Nemotron-H: no MLP pairing, no rope), "-" = MLP only, "E" =
+    MoE only. Homogeneous transformers are all "A"."""
     if spec.gdn_pattern:
         return list(spec.gdn_pattern)
     if spec.layer_pattern:
@@ -71,9 +77,6 @@ class KVPool:
     def __init__(self, spec: ModelSpec, config: CacheConfig, dtype=torch.bfloat16,
                  device: torch.device | str = "cpu"):
         kinds = layer_kinds(spec)
-        if any(kd not in ("A", "L") for kd in kinds):
-            raise NotImplementedError(
-                f"model family {spec.family!r}: the Mamba-hybrid layers are not ported yet")
         self.spec = spec
         self.config = config
         if spec.kv_lora_rank > 0:
@@ -83,8 +86,8 @@ class KVPool:
 
         def pool(width):
             shape = (lead, config.num_pages, config.page_size, width)
-            return [torch.zeros(shape, dtype=dtype, device=device) if width and kd == "A"
-                    else None for kd in kinds]
+            return [torch.zeros(shape, dtype=dtype, device=device)
+                    if width and kd in PAGED_KINDS else None for kd in kinds]
 
         self.k, self.v = pool(k_row), pool(v_row)
 
@@ -93,12 +96,26 @@ class KVPool:
                    if t is not None)
 
 
+def recurrent_shapes(spec: ModelSpec, kind: str) -> tuple[tuple, tuple] | None:
+    """A recurrent layer's per-slot (conv, state) shapes: the GatedDeltaNet's
+    ([conv_dim, K], [Hv, Dk, Dv]) for "L", the Mamba-2 mixer's ([conv_dim, K],
+    [H, P, N]) for "M"; None for any other kind."""
+    if kind == "L":
+        return ((spec.gdn_conv_dim, spec.gdn_conv_kernel),
+                (spec.gdn_v_heads, spec.gdn_k_dim, spec.gdn_v_dim))
+    if kind == "M":
+        return ((spec.mamba_conv_dim, spec.mamba_conv_kernel),
+                (spec.mamba_num_heads, spec.mamba_head_dim, spec.mamba_state_size))
+    return None
+
+
 class RecurrentPool:
-    """Per-slot recurrent decode state of the GatedDeltaNet layers, one entry
-    a layer (None for an attention layer):
+    """Per-slot recurrent decode state of the GatedDeltaNet ("L") and Mamba-2
+    ("M") layers, one entry a layer (None for any other layer):
       conv  [max_slots, conv_dim, K]    the rolling raw conv inputs, in the
                                         compute dtype
-      state [max_slots, Hv, Dk, Dv]     the fast-weight state, float32
+      state [max_slots, ...]            the fast-weight state [Hv, Dk, Dv] or
+                                        the SSM state [H, P, N], float32
     Updated in place by decode and the chunked prefill; a slot's rows are
     written at admit, so rows left by a finished request are never read."""
 
@@ -107,11 +124,11 @@ class RecurrentPool:
         s = config.max_slots
         self.conv, self.state = [], []
         for kd in layer_kinds(spec):
-            rec = kd == "L"
-            self.conv.append(torch.zeros((s, spec.gdn_conv_dim, spec.gdn_conv_kernel),
-                                         dtype=dtype, device=device) if rec else None)
-            self.state.append(torch.zeros((s, spec.gdn_v_heads, spec.gdn_k_dim, spec.gdn_v_dim),
-                                          dtype=torch.float32, device=device) if rec else None)
+            shapes = recurrent_shapes(spec, kd)
+            self.conv.append(None if shapes is None else
+                             torch.zeros((s, *shapes[0]), dtype=dtype, device=device))
+            self.state.append(None if shapes is None else
+                              torch.zeros((s, *shapes[1]), dtype=torch.float32, device=device))
 
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in self.conv + self.state if t is not None)
@@ -120,10 +137,12 @@ class RecurrentPool:
 def recurrent_nbytes(spec: ModelSpec, max_slots: int, itemsize: int = 2) -> int:
     """Bytes of a ``RecurrentPool`` of ``max_slots`` slots (conv windows in
     a dtype of ``itemsize`` bytes, states float32)."""
-    n = layer_kinds(spec).count("L")
-    per = (spec.gdn_conv_dim * spec.gdn_conv_kernel * itemsize
-           + spec.gdn_v_heads * spec.gdn_k_dim * spec.gdn_v_dim * 4)
-    return n * max_slots * per
+    total = 0
+    for kd in layer_kinds(spec):
+        shapes = recurrent_shapes(spec, kd)
+        if shapes is not None:
+            total += (int(np.prod(shapes[0])) * itemsize + int(np.prod(shapes[1])) * 4)
+    return total * max_slots
 
 
 def row_widths(spec: ModelSpec) -> tuple[int, int]:
@@ -137,7 +156,7 @@ def row_widths(spec: ModelSpec) -> tuple[int, int]:
 
 def page_nbytes(spec: ModelSpec, page_size: int, itemsize: int = 2) -> int:
     """Bytes one page takes over every paged layer's k and v pool."""
-    paged = layer_kinds(spec).count("A")
+    paged = sum(kd in PAGED_KINDS for kd in layer_kinds(spec))
     return paged * sum(row_widths(spec)) * page_size * itemsize
 
 

@@ -23,8 +23,9 @@ Architecture:
 - Router replay (``collect_routed_experts``, MoE families): each decode
   step's expert ids ride the block's packed result to the host, and a
   finished request carries them as ``routed_experts``.
-- Hybrid models (``gdn_pattern``): the recurrent layers keep a slot's conv
-  window and fast-weight state in a ``RecurrentPool`` (seeded at admit,
+- Hybrid models (``gdn_pattern``, Nemotron-H's ``layer_pattern``): the
+  recurrent layers keep a slot's conv window and fast-weight or SSM state in
+  a ``RecurrentPool`` (seeded at admit,
   advanced in place by every decode step); their attention layers page as
   usual. Prompts prefill one at a time; with a state tier
   (``state_cache_mb`` > 0, the default) a prompt with a full page before its
@@ -211,7 +212,7 @@ class Engine:
                                       "(host_cache_mb must be 0)")
         pool = KVPool(spec, self.config, dtype=compute_dtype, device=self.device)
         self.k_pool, self.v_pool = pool.k, pool.v
-        self.is_hybrid = bool(spec.gdn_pattern)
+        self.is_hybrid = bool(spec.gdn_pattern or spec.layer_pattern)
         rpool = RecurrentPool(spec, self.config, dtype=compute_dtype, device=self.device)
         self.r_conv, self.r_state = rpool.conv, rpool.state
         prefix_ok = self.config.enable_prefix_cache and (

@@ -5,9 +5,9 @@ q/k/v/o biases and routed experts, qwen3_moe, glm4_moe with its partial
 rotary, noaux-tc routing, shared experts and dense first layers, the
 gated-MoE families minimax_m2, afmoe and laguna with their layer-scope
 qk-norm, attention-output gates and sandwich norms, the MLA families
-deepseek_v3 and glm_moe_dsa over a latent cache, and the GatedDeltaNet hybrid
-qwen3_next). Parameters use the serving layout (``unstack_params``: a list of
-per-layer dicts).
+deepseek_v3 and glm_moe_dsa over a latent cache, the GatedDeltaNet hybrid
+qwen3_next and the Mamba-2 hybrid nemotron_h). Parameters use the serving
+layout (``unstack_params``: a list of per-layer dicts).
 
 Router replay: with ``collect_routing`` ``decode`` also returns the expert
 ids each slot's input token was routed to, ``[S, NL_moe, K]`` in the order of
@@ -25,7 +25,12 @@ for an attention layer), as the JAX function does; ``prefill_chunk`` takes
 ``r_rows`` at its offset and returns them advanced; ``decode`` takes the
 engine's ``RecurrentPool`` lists ``r_conv``/``r_state`` and advances them in
 place (JAX returns new ones). Their math is ``models/qwen3_next``'s, in
-plain PyTorch as it is XLA in the JAX package.
+plain PyTorch as it is XLA in the JAX package. Nemotron-H (``layer_pattern``)
+likewise: a Mamba-2 ("M") layer carries a conv window [conv_dim, K] and an
+SSM state [H, P, N] f32 (``ops/mamba.py``'s math; the serving SSD takes no
+segment ids, so a padded tail neither decays nor resets the state it
+returns), its attention ("*") layers page their K/V, and its "-" and "E"
+layers hold nothing.
 
 MLA (``kv_lora_rank > 0``): the pool holds one latent row of ``kv_lora_rank
 + qk_rope_head_dim`` a token, shared by every head; for DSA the V pool holds
@@ -37,19 +42,21 @@ broken as ``jax.lax.top_k`` breaks them: lower index first).
 
 Kernels on this path (for CUDA tensors; CPU tensors take the plain versions):
 - prefill attention: K1 ``ops/flash_attention.py`` through ``ops.attention``
-  (banded for a windowed layer, with the layer's sinks); for DSA, K5a
+  (banded for a windowed layer, with the layer's sinks; Nemotron-H's "*"
+  layers without rope); for DSA, K5a
   ``ops/sparse_mla_kernel.py`` through ``mla_attention``;
 - decode q/k/v preparation: K3 ``ops/decode_qkv.py``, where the JAX package
   takes its kernel: not for a layer-scope qk-norm or a gated layer, whose
   q/k/v are plain PyTorch on the card as they are XLA on the TPU;
 - decode attention + KV append: K4 ``ops/decode_attention.py`` (window and
-  sinks likewise).
+  sinks likewise; Nemotron-H's "*" layers, whose q/k/v are plain PyTorch, as
+  the JAX decode never sends them to K3).
 Chunked prefill attention (``_chunk_attention_xla``), MLA decode and chunked
-prefill, the GatedDeltaNet layers and the MoE layers (``ops/moe.py``) are
-plain PyTorch, as they are XLA in the JAX package.
+prefill, the GatedDeltaNet and Mamba-2 layers and the MoE layers
+(``ops/moe.py``) are plain PyTorch, as they are XLA in the JAX package.
 
-LoRA, the Mamba-hybrid layers, vision inputs and int8 weights are later
-slices: ``check_supported`` raises ``NotImplementedError`` for them.
+LoRA, vision inputs and int8 weights are later slices: ``check_supported``
+and the layers raise ``NotImplementedError`` for them.
 """
 
 from __future__ import annotations
@@ -58,6 +65,8 @@ import torch
 
 from prime_rl_tpu_torch.models.base import ModelSpec
 from prime_rl_tpu_torch.models.mla_moe import mla_absorbed_qkv, mla_attention, mla_indexer_qk
+from prime_rl_tpu_torch.models.nemotron_h import STACKS as NEMOTRON_STACKS
+from prime_rl_tpu_torch.models.nemotron_h import bare_qkv, latent_moe, relu2
 from prime_rl_tpu_torch.models.qwen3_next import gdn_heads, gdn_inputs, gdn_output
 from prime_rl_tpu_torch.models.qwen3 import (
     apply_attn_gate,
@@ -77,26 +86,23 @@ from prime_rl_tpu_torch.ops.decode_attention import (
 from prime_rl_tpu_torch.ops.decode_qkv import decode_qkv_prep
 from prime_rl_tpu_torch.ops.gated_delta import chunk_gated_delta_rule, recurrent_gated_delta_rule
 from prime_rl_tpu_torch.ops.layers import apply_rope, rms_norm, rope_frequencies, swiglu
-from prime_rl_tpu_torch.ops.mamba import causal_conv1d
+from prime_rl_tpu_torch.ops.mamba import causal_conv1d, gated_rms_norm, split_in_proj, ssd_chunked
 from prime_rl_tpu_torch.ops.moe import moe_mlp
-from prime_rl_tpu_torch.sampler.cache import layer_kinds
+from prime_rl_tpu_torch.sampler.cache import RECURRENT_KINDS, layer_kinds
 
 Params = dict
 
 
 SERVED_FAMILIES = ("qwen3", "llama", "gpt_oss", "qwen3_moe", "glm4_moe", "minimax_m2", "afmoe",
-                   "laguna", "deepseek_v3", "glm_moe_dsa", "qwen3_next")
+                   "laguna", "deepseek_v3", "glm_moe_dsa", "qwen3_next", "nemotron_h")
 
 
 def check_supported(spec: ModelSpec) -> None:
     """Raise ``NotImplementedError`` for any feature outside the serving path
-    ported so far (``SERVED_FAMILIES``): the Mamba-hybrid layers and vision
-    inputs."""
+    ported so far (``SERVED_FAMILIES``): vision inputs."""
     missing = []
     if spec.family not in SERVED_FAMILIES:
         missing.append(f"family {spec.family!r}")
-    if spec.layer_pattern:
-        missing.append("Mamba-hybrid layers")
     if spec.vision is not None:
         missing.append("vision inputs")
     if missing:
@@ -199,8 +205,17 @@ def unstack_params(params: Params, spec: ModelSpec) -> Params:
     unrolls the layer loop so each layer's KV tensors are written in place.
     glm4_moe's dense first layers (``dense_layers``) come first, in order;
     qwen3_next interleaves its ``lin_layers`` / ``attn_layers`` stacks by the
-    ``gdn_pattern``."""
+    ``gdn_pattern``, nemotron_h its four stacks by the ``layer_pattern``."""
     check_supported(spec)
+    if spec.layer_pattern:
+        rank = dict.fromkeys(NEMOTRON_STACKS, 0)
+        layers = []
+        for ch in spec.layer_pattern:
+            layers.append({k: v[rank[ch]] for k, v in params[NEMOTRON_STACKS[ch]].items()})
+            rank[ch] += 1
+        out = {k: v for k, v in params.items() if k not in NEMOTRON_STACKS.values()}
+        out["layers"] = layers
+        return out
     if spec.gdn_pattern:
         rank = {"L": 0, "A": 0}
         layers = []
@@ -396,6 +411,115 @@ def _gdn_chunk_mixer(h, lp, spec: ModelSpec, seg, valid: int, conv_row, state_ro
     return h, raw_ext[0, valid - 1:valid - 1 + kk].T.to(conv_row.dtype), state[0]
 
 
+def _mamba_proj(x, lp) -> torch.Tensor:
+    """in_proj of the normed x [..., D]: [gate | x B C | dt] [..., inter +
+    conv_dim + H]."""
+    proj = _mm(x, lp["in_proj"])
+    if lp.get("in_proj_bias") is not None:
+        proj = proj + lp["in_proj_bias"]
+    return proj
+
+
+def _mamba_ssd(h, lp, spec: ModelSpec, proj, seg, raw_ext, state_row=None):
+    """The Mamba-2 mixer of a serving prefill or chunk over h [1, C, D]
+    (``proj`` its in_proj): the conv over ``raw_ext`` (the carried window's
+    K - 1 rows before the chunk's raw inputs, or the raw inputs alone), the
+    SSD from ``state_row`` (zeros when None) with dt zeroed at the padding,
+    so that a pad neither writes nor decays. No segment ids reach the SSD: a
+    padded tail must not reset the state that leaves it (the JAX serving
+    mixers pass them, and the reset at the first pad zeroes the state they
+    return: see ROADMAP.md Queue 3). Returns (h, the state [H, P, N] f32 at
+    the last true token)."""
+    b, c, _ = h.shape
+    nh, p, g = spec.mamba_num_heads, spec.mamba_head_dim, spec.mamba_n_groups
+    inter, gn = nh * p, spec.mamba_n_groups * spec.mamba_state_size
+    gate, _, dt = split_in_proj(proj, lp, nh, p, spec.mamba_state_size, g)
+    dt = dt * (seg != 0)[..., None]
+    pre = raw_ext.shape[1] - c
+    seg_ext = torch.cat([torch.ones((b, pre), dtype=seg.dtype, device=seg.device), seg], 1)
+    xbc = torch.nn.functional.silu(
+        causal_conv1d(raw_ext, lp["conv_w"], lp.get("conv_b"), seg_ext))[:, pre:]
+    y, state = ssd_chunked(
+        xbc[..., :inter].reshape(b, c, nh, p), dt, lp["A_log"],
+        xbc[..., inter:inter + gn].reshape(b, c, g, -1), xbc[..., inter + gn:].reshape(b, c, g, -1),
+        lp["D"], chunk_size=spec.mamba_chunk_size,
+        initial_state=None if state_row is None else state_row[None].float(),
+        return_final_state=True)
+    y = gated_rms_norm(y.reshape(b, c, inter).to(h.dtype), gate, lp["ssm_norm"])
+    return h + _mm(y, lp["out_proj"]), state[0]
+
+
+def _mamba_prefill_mixer(h, lp, spec: ModelSpec, seg, length: int, compute_dtype):
+    """Mamba-2 serving prefill over one padded sequence [1, L, D]
+    (``ops/mamba.mamba2_mixer``'s math). Returns (h, conv_row [conv_dim, K]
+    the raw conv inputs at positions [length - K, length), state_row [H, P,
+    N] f32 the SSM state at ``length``)."""
+    kk, inter = spec.mamba_conv_kernel, spec.mamba_inter
+    proj = _mamba_proj(rms_norm(h, lp["norm"], spec.rms_eps), lp)
+    raw = proj[..., inter:inter + spec.mamba_conv_dim]
+    h, state = _mamba_ssd(h, lp, spec, proj, seg, raw)
+    padded = torch.nn.functional.pad(raw[0], (0, 0, kk, 0))  # [K + L, conv_dim]
+    return h, padded[length:length + kk].T.to(compute_dtype), state
+
+
+def _mamba_chunk_mixer(h, lp, spec: ModelSpec, seg, valid: int, conv_row, state_row,
+                       compute_dtype):
+    """Mamba-2 chunk of an incremental serving prefill (the continuation
+    contract of ``_gdn_chunk_mixer``): ``conv_row`` [conv_dim, K] the raw
+    conv inputs at [off - K, off), ``state_row`` [H, P, N] f32 the state at
+    ``off``. Returns (h, conv_row', state_row') advanced to off + valid."""
+    kk, inter = spec.mamba_conv_kernel, spec.mamba_inter
+    proj = _mamba_proj(rms_norm(h, lp["norm"], spec.rms_eps), lp)
+    raw = proj[..., inter:inter + spec.mamba_conv_dim]
+    raw_ext = torch.cat([conv_row.T[None, 1:].to(raw.dtype), raw], dim=1)
+    h, state = _mamba_ssd(h, lp, spec, proj, seg, raw_ext, state_row)
+    return h, raw_ext[0, valid - 1:valid - 1 + kk].T.to(conv_row.dtype), state
+
+
+def _mamba_decode_mixer(h, lp, spec: ModelSpec, conv_st, ssm_st, compute_dtype):
+    """Mamba-2 decode step for all S slots (HF Mamba2Mixer's cached step): h
+    [S, 1, D]; conv_st [S, conv_dim, K]; ssm_st [S, H, P, N] f32. Returns (h,
+    conv_st', ssm_st'), new tensors."""
+    s = h.shape[0]
+    nh, p = spec.mamba_num_heads, spec.mamba_head_dim
+    g, n = spec.mamba_n_groups, spec.mamba_state_size
+    inter, gn = nh * p, g * n
+    proj = _mamba_proj(rms_norm(h, lp["norm"], spec.rms_eps)[:, 0], lp)  # [S, ...]
+    gate, raw_t, dt = split_in_proj(proj, lp, nh, p, n, g)  # dt [S, H] f32
+    conv_st = torch.cat([conv_st[..., 1:], raw_t.to(conv_st.dtype)[..., None]], dim=-1)
+    xbc = (conv_st.float() * lp["conv_w"].float()[None]).sum(-1)
+    if lp.get("conv_b") is not None:
+        xbc = xbc + lp["conv_b"].float()
+    xbc = torch.nn.functional.silu(xbc)
+    xs = xbc[:, :inter].reshape(s, nh, p)
+    b_in = xbc[:, inter:inter + gn].reshape(s, g, n).repeat_interleave(nh // g, dim=1)
+    c_in = xbc[:, inter + gn:].reshape(s, g, n).repeat_interleave(nh // g, dim=1)
+    decay = torch.exp(-torch.exp(lp["A_log"].float()) * dt)  # [S, H]
+    ssm_st = ssm_st * decay[..., None, None] + (xs * dt[..., None])[..., :, None] * b_in[..., None, :]
+    y = torch.einsum("shpn,shn->shp", ssm_st, c_in) + lp["D"].float()[None, :, None] * xs
+    y = gated_rms_norm(y.reshape(s, inter).to(compute_dtype), gate, lp["ssm_norm"])
+    return h + _mm(y, lp["out_proj"])[:, None], conv_st, ssm_st
+
+
+def _bare_attn(h, lp, spec: ModelSpec):
+    """Nemotron-H's attention q/k/v (no rope, no qk-norm; the "norm" key) of
+    h [B, T, D]: (q [B, T, NH, HD], k, v [B, T, NKV, HD])."""
+    return bare_qkv(rms_norm(h, lp["norm"], spec.rms_eps), lp, spec)
+
+
+def _tokenwise_block(h, lp, spec: ModelSpec, routed: list | None = None):
+    """Nemotron-H's cache-free layers with their residual: "-" the relu^2
+    MLP, "E" LatentMoE (``models/nemotron_h``'s math), any leading shape.
+    ``routed``: a list a LatentMoE layer appends its expert ids to."""
+    x = rms_norm(h, lp["norm"], spec.rms_eps)
+    if "router" not in lp:
+        return h + _mm(relu2(_mm(x, lp["up"])), lp["down"])
+    out, routing = latent_moe(x, lp, spec)
+    if routed is not None:
+        routed.append(routing.expert_ids)
+    return h + out
+
+
 def _page_size(k_pool: list) -> int:
     return next(t.shape[2] for t in k_pool if t is not None)
 
@@ -451,7 +575,23 @@ def prefill(
             h = h + _mlp(rms_norm(h, lp["mlp_norm"], spec.rms_eps), lp, spec)
             r_rows.append((conv_row, state_row))
             continue
+        if kind == "M":
+            h, conv_row, state_row = _mamba_prefill_mixer(h, lp, spec, segment_ids, int(length),
+                                                          compute_dtype)
+            r_rows.append((conv_row, state_row))
+            continue
         r_rows.append(None)
+        if kind in ("-", "E"):
+            h = _tokenwise_block(h, lp, spec)
+            continue
+        if kind == "*":
+            # Nemotron-H's bare attention (K1 on the card), no MLP pairing
+            q, k, v = _bare_attn(h, lp, spec)
+            o = attention(q, k, v, segment_ids, causal=True)
+            h = h + _mm(o.reshape(1, lpad, spec.q_dim), lp["o"])
+            _write_pages(k_l, _layer_kv_pages(k, n_pages, page_size, spec), pages)
+            _write_pages(v_l, _layer_kv_pages(v, n_pages, page_size, spec), pages)
+            continue
         if spec.kv_lora_rank > 0:
             # MLA: the training attention block (K5a for DSA on the card), the
             # latent rows (and DSA's indexer keys) paged into the pools
@@ -487,7 +627,7 @@ def prefill(
         first = torch.full((1,), -float(torch.log(torch.tensor(float(spec.vocab_size)))),
                            dtype=torch.float32, device=device)
         prompt_logprobs = torch.cat([first, lp_next[:-1]])
-    if spec.gdn_pattern:
+    if spec.gdn_pattern or spec.layer_pattern:
         return k_pool, v_pool, last_hidden, prompt_logprobs, r_rows
     return k_pool, v_pool, last_hidden, prompt_logprobs
 
@@ -508,7 +648,7 @@ def prefill_batch(
     pages all null) are legal padding. Returns (k_pool, v_pool,
     last_hidden [B, D]), the pools written in place. MLA and hybrid prompts
     are prefilled one at a time (``prefill``), as the JAX engine does."""
-    if spec.kv_lora_rank > 0 or spec.gdn_pattern:
+    if spec.kv_lora_rank > 0 or spec.gdn_pattern or spec.layer_pattern:
         raise NotImplementedError("prefill_batch: MLA and hybrid prompts are prefilled one at "
                                   "a time")
     b, lpad = input_ids.shape
@@ -612,7 +752,24 @@ def prefill_chunk(
             h = h + _mlp(rms_norm(h, lp["mlp_norm"], spec.rms_eps), lp, spec)
             r_out.append((conv_row, state_row))
             continue
+        if kind == "M":
+            h, conv_row, state_row = _mamba_chunk_mixer(h, lp, spec, seg, int(valid),
+                                                        *r_rows[li], compute_dtype)
+            r_out.append((conv_row, state_row))
+            continue
         r_out.append(None)
+        if kind in ("-", "E"):
+            h = _tokenwise_block(h, lp, spec)
+            continue
+        if kind == "*":
+            # Nemotron-H's bare attention over the paged history (plain
+            # PyTorch, as XLA in JAX)
+            q, k, v = _bare_attn(h, lp, spec)
+            _write_pages(k_l, _layer_kv_pages(k, n_pages, page_size, spec), pages_chunk)
+            _write_pages(v_l, _layer_kv_pages(v, n_pages, page_size, spec), pages_chunk)
+            o = _chunk_attention_xla(q[0].to(compute_dtype), k_l, v_l, q_pos, page_row, valid_hi)
+            h = h + _mm(o.reshape(1, c, spec.q_dim).to(compute_dtype), lp["o"])
+            continue
         if spec.kv_lora_rank > 0:
             h = _mla_chunk_block(h, lp, spec, k_l, v_l, positions, _mla_freqs(spec, device),
                                  n_pages, pages_chunk, page_row, valid_hi, compute_dtype)
@@ -638,10 +795,11 @@ def prefill_chunk(
 def takes_k3(spec: ModelSpec, lp: dict) -> bool:
     """Whether a decode layer prepares its q/k/v in K3 on the card: the JAX
     package's choice of its kernel (``sampler/model.py`` ``decode``), not for
-    a layer-scope qk-norm, a gated layer, LoRA or int8 weights, whose q/k/v
-    are plain PyTorch on the card as they are XLA on the TPU."""
-    return (spec.qk_norm_scope != "layer" and not spec.attn_gate and "lora" not in lp
-            and not isinstance(lp["q"], dict))
+    a layer-scope qk-norm, a gated layer, Nemotron-H's bare attention, LoRA
+    or int8 weights, whose q/k/v are plain PyTorch on the card as they are XLA
+    on the TPU."""
+    return (spec.qk_norm_scope != "layer" and not spec.attn_gate and not spec.layer_pattern
+            and "lora" not in lp and not isinstance(lp["q"], dict))
 
 
 def _decode_attn_fused_local(q_t, k_t, v_t, k_l, v_l, lengths, page_table, window=0,
@@ -688,12 +846,23 @@ def decode(
     for li, (lp, k_l, v_l, win, kind) in enumerate(zip(params["layers"], k_pool, v_pool,
                                                        layer_windows_list(spec), kinds)):
         lp = _cast_layer(lp, compute_dtype)
-        if kind == "L":
-            h, conv_st, rec_st = _gdn_decode_mixer(h, lp, spec, r_conv[li], r_state[li],
-                                                   compute_dtype)
+        if kind in RECURRENT_KINDS:
+            mixer = _gdn_decode_mixer if kind == "L" else _mamba_decode_mixer
+            h, conv_st, rec_st = mixer(h, lp, spec, r_conv[li], r_state[li], compute_dtype)
             r_conv[li].copy_(conv_st)
             r_state[li].copy_(rec_st)
-            h = h + _mlp(rms_norm(h, lp["mlp_norm"], spec.rms_eps), lp, spec, routed)
+            if kind == "L":
+                h = h + _mlp(rms_norm(h, lp["mlp_norm"], spec.rms_eps), lp, spec, routed)
+            continue
+        if kind in ("-", "E"):
+            h = _tokenwise_block(h, lp, spec, routed)
+            continue
+        if kind == "*":
+            # Nemotron-H's bare attention: K4 with the token's append
+            q, k, v = _bare_attn(h, lp, spec)
+            o, _, _ = _decode_attn_fused_local(q[:, 0].to(compute_dtype), k[:, 0], v[:, 0], k_l,
+                                               v_l, lengths, page_table)
+            h = h + _mm(o.reshape(s, 1, spec.q_dim).to(compute_dtype), lp["o"])
             continue
         if spec.kv_lora_rank > 0:
             h = _mla_decode_block(h, lp, spec, k_l, v_l, lengths + 1, page_table, positions,

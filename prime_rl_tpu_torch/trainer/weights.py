@@ -32,6 +32,7 @@ _ARCHITECTURES = {
     "afmoe": "AfmoeForCausalLM",
     "laguna": "LagunaForCausalLM",
     "qwen3_next": "Qwen3NextForCausalLM",
+    "nemotron_h": "NemotronHForCausalLM",
 }
 
 
@@ -44,8 +45,10 @@ def spec_to_hf_config(spec: ModelSpec) -> dict:
     experts, window layout, biases and YaRN scaling, and the gated-MoE
     families theirs: MiniMax-M2's rotary width and qk-norm scope, AFMoE's and
     Laguna's window layouts, dense first layers and shared experts, Laguna's
-    rope base a layer type, and Qwen3-Next its layer types, linear-attention
-    widths and shared expert, where JAX writes it as Qwen3ForCausalLM.)"""
+    rope base a layer type, Qwen3-Next its layer types, linear-attention
+    widths and shared expert, and Nemotron-H its ``hybrid_override_pattern``,
+    Mamba-2 widths and LatentMoE fields, where JAX writes both as
+    Qwen3ForCausalLM.)"""
     from prime_rl_tpu_torch.models.qwen3 import layer_windows_list
 
     if spec.family not in _ARCHITECTURES:
@@ -161,6 +164,31 @@ def spec_to_hf_config(spec: ModelSpec) -> dict:
             linear_conv_kernel_dim=spec.gdn_conv_kernel,
             partial_rotary_factor=spec.partial_rotary_factor,
             shared_expert_intermediate_size=spec.shared_expert_size,
+        )
+    if spec.family == "nemotron_h":
+        cfg.pop("num_experts", None)  # this config names it n_routed_experts
+        cfg.pop("rms_norm_eps")  # and the norms' epsilon layer_norm_epsilon
+        cfg.update(
+            hybrid_override_pattern=spec.layer_pattern,
+            bos_token_id=spec.bos_token_id,
+            mamba_num_heads=spec.mamba_num_heads,
+            mamba_head_dim=spec.mamba_head_dim,
+            mamba_n_groups=spec.mamba_n_groups,
+            ssm_state_size=spec.mamba_state_size,
+            mamba_d_conv=spec.mamba_conv_kernel,
+            mamba_chunk_size=spec.mamba_chunk_size,
+            layer_norm_epsilon=spec.rms_eps,
+            n_routed_experts=spec.num_experts,
+            num_experts_per_tok=spec.num_experts_per_tok,
+            moe_intermediate_size=spec.moe_intermediate_size,
+            norm_topk_prob=spec.norm_topk_prob,
+            moe_latent_size=spec.moe_latent_size or None,
+            moe_shared_expert_intermediate_size=spec.moe_shared_expert_size,
+            n_shared_experts=spec.n_shared_experts,
+            routed_scaling_factor=spec.routed_scaling_factor,
+            n_group=spec.n_group,
+            topk_group=spec.topk_group,
+            attention_bias=spec.attn_bias,
         )
     if spec.family == "gpt_oss":
         cfg.pop("num_experts", None)  # this config names it num_local_experts

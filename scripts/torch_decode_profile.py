@@ -3,7 +3,7 @@
 NVIDIA GPU.
 
     python3 scripts/torch_decode_profile.py
-        [--model qwen3|gpt-oss|qwen3-moe|glm|minimax|glm5|qwen3-next] [--layers N]
+        [--model qwen3|gpt-oss|qwen3-moe|glm|minimax|glm5|qwen3-next|nemotron-h] [--layers N]
         [--windows N]
 
 Builds the engine for Qwen3-0.6B (28 layers, full vocabulary, random weights
@@ -17,7 +17,9 @@ default; ``minimax``: MiniMax-M2 from its published config.json
 ``chip_smoke.GLM5_CUTS``, 4 layers, 32 routed experts, MLA + DSA over the
 latent cache; ``qwen3-next``: Qwen/Qwen3-Next-80B-A3B-Instruct's widths, all
 512 experts, 16 of its 48 layers (LLLA x 4: 12 GatedDeltaNet layers and 4
-gated attention layers at head dim 256), 53.8 GB), fills all 64 decode
+gated attention layers at head dim 256), 53.8 GB; ``nemotron-h``:
+nvidia/Nemotron-H-8B-Base-8K, all 52 layers (24 Mamba-2, 24 relu^2 MLP, 4
+attention layers of 32/8 heads of 128), 16.2 GB), fills all 64 decode
 slots with prompts of 500 to 1000 random tokens (unfiltered sampling at
 temperature 1, the RL rollout setting), lets the engine admit them and run, then measures decode blocks
 (8 steps each): host-clock time per step over N unprofiled windows of 48
@@ -28,8 +30,9 @@ weights' bytes and the time the card takes to read them once at 3.35 TB/s:
 a decode step of a MoE model at 64 slots reads nearly every expert, so that
 time bounds its step from below. ``device_ms_by_part`` splits a step's device
 time into K4, K3, the experts' grouped products (``aten::_grouped_mm``) and
-the copies (``aten::copy_``); for the hybrid, ``gdn_decode_ms`` is the device
-time of a step's GatedDeltaNet decode mixers (``sampler.model._gdn_decode_mixer``
+the copies (``aten::copy_``); for a hybrid, ``gdn_decode_ms`` (Qwen3-Next)
+or ``mamba_decode_ms`` (Nemotron-H) is the device time of a step's recurrent
+decode mixers (``sampler.model._gdn_decode_mixer`` or ``_mamba_decode_mixer``
 on every recurrent layer, with the copy of the rows back into the pool, as
 ``decode`` runs them) called alone on the engine's 64 slots, CUDA events
 around them.
@@ -51,14 +54,15 @@ SLOTS, BLOCKS, SEED = 64, 6, 0
 MODELS = {"qwen3": "Qwen/Qwen3-0.6B", "gpt-oss": "openai/gpt-oss-20b",
           "qwen3-moe": "Qwen/Qwen3-30B-A3B", "glm": "zai-org/GLM-4.5-Air",
           "minimax": "MiniMaxAI/MiniMax-M2", "glm5": "zai-org/GLM-5",
-          "qwen3-next": "Qwen/Qwen3-Next-80B-A3B-Instruct"}
+          "qwen3-next": "Qwen/Qwen3-Next-80B-A3B-Instruct",
+          "nemotron-h": "nvidia/Nemotron-H-8B-Base-8K"}
 # the models given by a config.json in chip_smoke.py, and their default depth
 CONFIGS = {"minimax": ("MINIMAX_M2_CONFIG", 8), "glm5": ("GLM5_CONFIG", 4)}
 # tokens a request may generate: the pool holds each slot's prompt and these,
 # and Qwen3-30B-A3B's and MiniMax-M2's 61 GB of weights leave room for about
 # 10 GB of pages
 MAX_TOKENS = {"qwen3": 2000, "gpt-oss": 2000, "qwen3-moe": 400, "glm": 2000, "minimax": 400,
-              "glm5": 2000, "qwen3-next": 2000}
+              "glm5": 2000, "qwen3-next": 2000, "nemotron-h": 2000}
 QWEN3_NEXT_LAYERS = 16
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 
@@ -71,15 +75,17 @@ def _leaves(tree):
         yield tree
 
 
-def gdn_decode_ms(engine) -> float:
-    """Device ms of one decode step's GatedDeltaNet mixers on the engine's
-    slots (every recurrent layer, the rows copied back into the pool as
-    ``decode`` does), CUDA events around 10 runs after a warm-up."""
+def recurrent_decode_ms(engine) -> float:
+    """Device ms of one decode step's recurrent mixers (GatedDeltaNet or
+    Mamba-2) on the engine's slots (every recurrent layer, the rows copied
+    back into the pool as ``decode`` does), CUDA events around 10 runs after
+    a warm-up."""
     import torch
 
     from prime_rl_tpu_torch.sampler import model as smodel
 
     spec, dtype = engine.spec, engine.compute_dtype
+    mixer = smodel._gdn_decode_mixer if spec.gdn_pattern else smodel._mamba_decode_mixer
     layers = [(i, smodel._cast_layer(lp, dtype)) for i, lp in enumerate(engine.params["layers"])
               if engine.r_conv[i] is not None]
     h = torch.randn(engine.config.max_slots, 1, spec.hidden_size, device=engine.device,
@@ -87,8 +93,7 @@ def gdn_decode_ms(engine) -> float:
 
     def step():
         for i, lp in layers:
-            _, conv, state = smodel._gdn_decode_mixer(h, lp, spec, engine.r_conv[i],
-                                                      engine.r_state[i], dtype)
+            _, conv, state = mixer(h, lp, spec, engine.r_conv[i], engine.r_state[i], dtype)
             engine.r_conv[i].copy_(conv)
             engine.r_state[i].copy_(state)
 
@@ -144,6 +149,12 @@ def main() -> int:
         full = get_spec(MODELS[args.model])
         n = args.layers or QWEN3_NEXT_LAYERS
         spec = dataclasses.replace(full, num_layers=n, gdn_pattern=full.gdn_pattern[:n])
+    elif args.model == "nemotron-h":
+        import dataclasses
+
+        full = get_spec(MODELS[args.model])
+        n = args.layers or full.num_layers
+        spec = dataclasses.replace(full, num_layers=n, layer_pattern=full.layer_pattern[:n])
     else:
         layers = args.layers or (4 if args.model == "glm" else None)
         spec = get_spec(MODELS[args.model], num_layers=layers)
@@ -205,7 +216,7 @@ def main() -> int:
              "K3 decode_qkv_prep": device_ms(lambda k: "decode_qkv" in k),
              "grouped products (aten::_grouped_mm)": op_ms("aten::_grouped_mm"),
              "copies (aten::copy_)": op_ms("aten::copy_")}
-    gdn_ms = gdn_decode_ms(engine) if spec.gdn_pattern else None
+    rec_ms = recurrent_decode_ms(engine) if spec.gdn_pattern or spec.layer_pattern else None
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
     print(f"{'kernel':70s} {'device ms':>10s} {'share':>7s} {'calls':>6s}")
@@ -229,7 +240,8 @@ def main() -> int:
         "device_idle_share": 1.0 - busy_ms / steps / (wall / steps * 1e3),
         "device_idle_share_profiled": 1.0 - busy_ms / (wall_prof * 1e3),
         "device_ms_by_part": parts,
-        "gdn_decode_ms": gdn_ms,
+        "gdn_decode_ms": rec_ms if spec.gdn_pattern else None,
+        "mamba_decode_ms": rec_ms if spec.layer_pattern else None,
         "top_kernels": [dict(name=n[:120], ms_per_step=ms / steps, calls=c)
                         for n, ms, c in rows[:12]],
         "kernel_launches_per_step": {k: v / steps for k, v in launches.items()},

@@ -55,10 +55,11 @@ LOOP_MODULES = (
     "orchestrator.pool", "orchestrator.orchestrator",
     "entrypoints.orchestrator", "entrypoints.env_server", "entrypoints.rl",
     "entrypoints.colocated")
-# the SFT and MoE-families slice's modules, and the GatedDeltaNet hybrid's
+# the SFT and MoE-families slice's modules, and the two hybrids' (the
+# GatedDeltaNet's, then Nemotron-H's)
 SFT_MOE_MODULES = ("trainer.sft", "trainer.sft.data", "trainer.sft.train", "entrypoints.sft",
                    "models.qwen3_moe", "models.glm4_moe", "models.gated_moe",
-                   "models.qwen3_next", "ops.gated_delta", "ops.mamba")
+                   "models.qwen3_next", "ops.gated_delta", "ops.mamba", "models.nemotron_h")
 _CHECK = _CHECK.replace("LOOP_MODULES", repr(LOOP_MODULES)).replace(
     "SFT_MOE_MODULES", repr(SFT_MOE_MODULES))
 

@@ -15,7 +15,8 @@ rounding of ds that flips by one step in the kernel moves a sum of up to 192
 terms by more than one bf16 step of the result. K5a/K5b and the dkv reduction
 are held against their plain versions on the same bf16 inputs at the same 2e-2
 (K5a's lse within 1e-3), both kernels also over ``chip_smoke.K5B_EDGE_CASES``
-with their tile counts and two launches bit-equal.
+with their tile counts and two launches bit-equal, and at 32 and 128 heads
+(the wrappers' groups of 64 heads).
 The window and sink forms of K1, K2a, K2b and K4 are held at the same
 tolerances as their dense forms; the sinks' gradient (plain PyTorch beside the
 kernels) against the plain backward's at 2e-2 relative to its norm.
@@ -508,6 +509,49 @@ def test_sparse_mla_kernels_match_plain(gen, S, T):
     assert (out[5] == 0).all() and (dq[5] == 0).all()
 
 
+@pytest.mark.parametrize("heads", [32, 128])
+def test_sparse_mla_kernels_match_plain_at_other_head_counts(gen, heads, monkeypatch):
+    """K5a, K5b and the dkv reduction through the autograd Function at 32 heads
+    (one group, 32 rows of zeros) and 128 (two groups), over several chunks
+    (the chunk cut to 64 queries): one K5a launch a group of 64 heads, one K5b
+    launch and reduction a chunk and group; out, dq and dkv within 2e-2 + 2e-2
+    |ref| of the plain versions (the backward's over the same groups,
+    ``chip_smoke.k5b_reference``), two runs bit-equal, dq 0 for a token that
+    selected nothing."""
+    S, T = 256, 128
+    monkeypatch.setattr(mla, "BWD_SLOTS", 64 * 128)
+    _, kv, _, idx = _sparse_case(gen, S, T)
+    q, do = _bf16(gen, S, heads, mla.DQ), _bf16(gen, S, heads, mla.DV)
+    idx[5] = S
+    scale = mla.DQ ** -0.5
+    groups = mla.padded_heads(heads) // mla.HEADS
+    results = []
+    for _ in range(2):
+        before = dict(_build.launches)
+        leaves = [q.clone().requires_grad_(), kv.clone().requires_grad_()]
+        out = mla.sparse_mla_attention(*leaves, idx, scale, mla.DV)
+        results.append((out, *torch.autograd.grad(out, leaves, do)))
+        torch.cuda.synchronize()
+        n = mla.bwd_launches(S, T, heads)
+        assert n == 4 * groups
+        assert _build.launches["sparse_mla_fwd"] == before.get("sparse_mla_fwd", 0) + groups
+        assert _build.launches["sparse_mla_bwd"] == before.get("sparse_mla_bwd", 0) + n
+        assert (_build.launches["sparse_mla_dkv_reduce"]
+                == before.get("sparse_mla_dkv_reduce", 0) + n)
+    for a, b in zip(*results):
+        assert torch.equal(a, b)
+    out, dq, dkv = results[0]
+    assert out.shape == (S, heads, mla.DV) and dq.shape == q.shape
+    ref_out, ref_lse = mla.sparse_mla_attention_reference(q, kv, idx, scale, mla.DV)
+    # the plain backward over the kernels' groups of 64 heads: each group's
+    # per-slot dkv rows rounded to bf16 before the f32 sum, as K5b writes them
+    ref_dq, ref_dkv = chip_smoke.k5b_reference(q, kv, idx, out.detach(), ref_lse, do, scale)
+    for name, g, r in (("out", out, ref_out), ("dq", dq, ref_dq), ("dkv", dkv, ref_dkv)):
+        assert torch.isfinite(g.float()).all(), name
+        torch.testing.assert_close(g.float(), r.float(), atol=2e-2, rtol=2e-2, msg=name)
+    assert (out[5] == 0).all() and (dq[5] == 0).all()
+
+
 @pytest.mark.parametrize("case", chip_smoke.K5B_EDGE_CASES, ids=lambda c: c[0])
 def test_sparse_mla_backward_cases_match_plain(gen, case):
     """K5b and the dkv reduction over ``chip_smoke.K5B_EDGE_CASES``: T of 100
@@ -571,8 +615,10 @@ def test_sparse_mla_backward_is_deterministic_over_chunks(gen, monkeypatch):
 def test_sparse_mla_wrapper_raises_for_other_widths(gen):
     q, kv = _bf16(gen, 8, 8, 160), _bf16(gen, 8, 160)
     idx = torch.zeros(8, 4, dtype=torch.int32, device="cuda")
-    with pytest.raises(ValueError, match="H = 64, Dq = 576, v_dim = 512"):
+    with pytest.raises(ValueError, match="H % 8 == 0, Dq = 576, v_dim = 512"):
         mla.sparse_mla_attention(q, kv, idx, 0.1, 128)
+    with pytest.raises(ValueError, match="got H = 12, Dq = 576"):
+        mla.sparse_mla_attention(_bf16(gen, 8, 12, 576), _bf16(gen, 8, 576), idx, 0.1, 512)
     with pytest.raises(TypeError, match="bfloat16"):
         mla.sparse_mla_attention(torch.zeros(8, 64, 576, device="cuda"),
                                  torch.zeros(8, 576, device="cuda"), idx, 0.1, 512)

@@ -365,15 +365,20 @@ def test_launcher_runs_the_loop(colocated, tmp_path):
     kls = [r["mismatch_kl"] for r in trows]
     assert float(np.mean(kls)) < 0.5, kls  # the bound of the JAX package's e2e test
     orows = [json.loads(line) for line in (out / "orchestrator.jsonl").read_text().splitlines()]
-    assert [r["step"] for r in orows if "reward_mean" in r] == [0, 1, 2, 3]
-    # the launcher's carve-out skips the last target_lag + 1 = 2 publishes:
-    # the sampler follows v0, v1, v2
+    batches = [r for r in orows if "reward_mean" in r]
+    assert [r["step"] for r in batches] == [0, 1, 2, 3]
+    # What the loop guarantees (target_lag 1). The batch of step k waits for
+    # policy v(k - 2), so the last batch needs only v1; the launcher's
+    # carve-out skips the trainer's last target_lag + 1 = 2 publishes, so the
+    # trainer still publishes v2, which no batch requires: whether v2 reaches
+    # the sampler and the orchestrator before the orchestrator ends is timing.
+    assert all(r["policy_version"] >= r["step"] - 2 for r in batches), batches
     if colocated:
-        assert _versions(out / "logs" / "colocated.out", "the engine serves ") == [0, 1, 2]
+        applied = _versions(out / "logs" / "colocated.out", "the engine serves ")
     else:
-        assert _versions(out / "logs" / "inference.out", r"updated weights from \S+ \(") \
-            == [0, 1, 2]
-    assert _versions(out / "logs" / "orchestrator.out", "policy -> ")[-1] == 2
+        applied = _versions(out / "logs" / "inference.out", r"updated weights from \S+ \(")
+    assert applied in ([0, 1], [0, 1, 2]), applied  # an unbroken run from v0
+    assert _versions(out / "logs" / "orchestrator.out", "policy -> ")[-1] in applied
 
 
 @pytest.mark.slow

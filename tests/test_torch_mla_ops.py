@@ -161,13 +161,78 @@ def test_kernel_wrappers_raise_for_what_the_kernels_do_not_take():
     """On a CUDA tensor the wrapper launches the kernels or raises: the width
     check comes before any launch, so it can run here."""
     q = torch.zeros(4, H, DQ, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="H = 64, Dq = 576, v_dim = 512"):
+    with pytest.raises(ValueError, match="H % 8 == 0, Dq = 576, v_dim = 512"):
         tkernel._check_args(q, torch.zeros(4, DQ, dtype=torch.bfloat16),
                             torch.zeros(4, 2, dtype=torch.int32), DV)
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         tkernel._check_args(torch.zeros(4, 64, 576, dtype=torch.bfloat16),
                             torch.zeros(4, 576, dtype=torch.bfloat16),
                             torch.zeros(4, 2, dtype=torch.int32), 512)
+
+
+@pytest.mark.parametrize("heads", [8, 32, 64, 96, 128])
+def test_kernel_widths_take_every_dsa_head_count_the_jax_kernel_takes(heads):
+    """The check table of K5a/K5b (``check_widths``, no launch): a
+    ``GlmMoeDsaForCausalLM`` config (GLM-5's widths) at 8, 32, 64, 96 and 128
+    heads gives q [S, H, 576] and v_dim 512, which the kernels take, as the JAX
+    wrapper sends every ``H % 8 == 0`` to its Pallas kernel; the kernels run
+    ``padded_heads(H) / 64`` groups. Refused: ``H % 8 != 0`` (the JAX wrapper's
+    XLA fall-back, a deliberate divergence) and Dq != 576 or v_dim != 512
+    (a width of range the JAX kernel takes and no DSA config has)."""
+    import chip_smoke
+
+    from prime_rl_tpu_torch.models.base import spec_from_hf_config
+
+    spec = spec_from_hf_config({**chip_smoke.GLM5_CONFIG, "num_attention_heads": heads,
+                                "num_key_value_heads": heads})
+    assert spec.num_heads == heads and spec.index_topk
+    dq, dv = spec.kv_lora_rank + spec.qk_rope_head_dim, spec.kv_lora_rank
+    tkernel.check_widths(spec.num_heads, dq, dv)
+    assert tkernel.padded_heads(heads) == {8: 64, 32: 64, 64: 64, 96: 128, 128: 128}[heads]
+    assert tkernel.bwd_launches(4096, 2048, heads) == 8 * tkernel.padded_heads(heads) // 64
+    for bad in ((heads + 4, dq, dv), (heads, 320, 256), (heads, dq, 256), (heads, 640, dv)):
+        with pytest.raises(ValueError, match="H % 8 == 0, Dq = 576, v_dim = 512"):
+            tkernel.check_widths(*bad)
+
+
+@pytest.mark.parametrize("heads", [32, 128])
+def test_grouped_reference_matches_jax_pallas(heads):
+    """``sparse_mla_grouped_reference``, the kernels' decomposition (heads
+    padded with zeros to whole groups of 64, one group at a time, dkv summed
+    over the groups in the kernels' order), against the Pallas kernels in
+    interpret mode, values and gradients, float32 at this file's 2e-4: the
+    padded heads add exactly nothing. At 32 heads one group of 32 real and 32
+    padded rows; at 128 two whole groups."""
+    S, Sk, T = 24, 24, 12
+    rng = np.random.default_rng(heads)
+    q = rng.standard_normal((S, heads, DQ)).astype(np.float32)
+    _, kv, idx = _case(5, S, Sk, T)
+    idx[4] = Sk
+    ct = rng.standard_normal((S, heads, DV)).astype(np.float32)
+    scale = DQ ** -0.5
+
+    @jax.jit
+    def j_fwd_grads(q_, kv_):
+        def f(a, b):
+            out = j_pallas_attn(a, b, jnp.asarray(idx), scale, DV, chunk=8, block_t=128)
+            return jnp.sum(out * ct), out
+
+        (_, out), grads = jax.value_and_grad(f, argnums=(0, 1), has_aux=True)(q_, kv_)
+        return out, grads
+
+    want, (want_dq, want_dkv) = j_fwd_grads(jnp.asarray(q), jnp.asarray(kv))
+    tq, tkv, tidx = torch.from_numpy(q), torch.from_numpy(kv), torch.from_numpy(idx)
+    out, lse, dq, dkv = tkernel.sparse_mla_grouped_reference(tq, tkv, tidx, scale, DV,
+                                                             do=torch.from_numpy(ct))
+    assert out.shape == (S, heads, DV) and lse.shape == (S, heads) and dq.shape == q.shape
+    np.testing.assert_allclose(_np(out), np.asarray(want), atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(_np(dq), np.asarray(want_dq), atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(_np(dkv), np.asarray(want_dkv), atol=2e-4, rtol=2e-4)
+    assert float(out[4].abs().max()) == 0.0 and float(dq[4].abs().max()) == 0.0
+    # the same values as the ungrouped plain versions, up to summation order
+    ref_out, ref_lse = tkernel.sparse_mla_attention_reference(tq, tkv, tidx, scale, DV)
+    np.testing.assert_allclose(_np(out), _np(ref_out), atol=1e-6, rtol=1e-6)
+    np.testing.assert_allclose(_np(lse), _np(ref_lse), atol=1e-6, rtol=1e-6)
 
 
 # ---------------------------------------------------------------------------
@@ -358,14 +423,17 @@ def test_moe_mlp_matches_jax_values_and_grads(sigmoid):
 
 
 def test_moe_mlp_raises_for_what_other_families_need():
+    """Per-expert LoRA and the expert-parallel mesh still raise; Nemotron-H's
+    non-gated experts over a latent input (``w_gate=None, x_experts``) run
+    since its slice (held against JAX in tests/test_torch_nemotron_h.py) and
+    give the latent width."""
     x, rw = torch.zeros(4, 8), torch.zeros(8, 4)
     w, wd = torch.zeros(4, 8, 6), torch.zeros(4, 6, 8)
-    for kw, exc in ((dict(x_experts=torch.zeros(4, 8)), "Nemotron-H"),
-                    (dict(lora={}), "LoRA")):
-        with pytest.raises(NotImplementedError, match=exc):
-            tmoe.moe_mlp(x, rw, w, w, wd, 2, **kw)
-    with pytest.raises(NotImplementedError, match="Nemotron-H"):
-        tmoe.moe_mlp(x, rw, None, w, wd, 2)
+    with pytest.raises(NotImplementedError, match="LoRA"):
+        tmoe.moe_mlp(x, rw, w, w, wd, 2, lora={})
+    out, _ = tmoe.moe_mlp(x, rw, None, torch.zeros(4, 3, 6), torch.zeros(4, 6, 3), 2,
+                          x_experts=torch.zeros(4, 3))
+    assert out.shape == (4, 3)
     with pytest.raises(NotImplementedError, match="multi-card"):
         tmoe.set_ep_mesh(None)
     assert tmoe.grouped_product_impl(x) == "loop"

@@ -344,8 +344,8 @@ def test_forward_rejects_what_waits_for_later_slices():
                {"lora": {}}, {"quantized_compute": "int8"}, {"mesh": object()}):
         with pytest.raises(NotImplementedError):
             tqwen3.forward(params, spec, ids, seg, ids, **kw)
-    with pytest.raises(NotImplementedError):
-        get_family(debug_spec(family="nemotron_h"))
+    with pytest.raises(NotImplementedError):  # the VLM slice's family
+        get_family(debug_spec(family="qwen3_vl"))
 
 
 # ---------------------------------------------------------------------------
