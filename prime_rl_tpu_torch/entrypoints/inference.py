@@ -11,7 +11,6 @@ def check_supported(config: InferenceConfig) -> None:
     """Raise for what the port's engine does not serve yet."""
     unsupported = [name for name, on in (
         ("int8 quantization", config.quantization is not None),
-        ("LoRA serving", config.lora is not None),
         ("the weight plane", config.weight_plane is not None),
         ("P/D roles", config.server.role != "mixed")) if on]
     if unsupported:
@@ -84,7 +83,8 @@ def build_server(config: InferenceConfig):
                     seed=config.seed, lookahead=config.scheduler.lookahead,
                     decode_block=config.scheduler.decode_block,
                     collect_routed_experts=config.collect_routed_experts,
-                    gdn_precision=config.model.gdn_mxu_precision)
+                    gdn_precision=config.model.gdn_mxu_precision,
+                    lora_config=config.lora)
     del params  # the engine holds its own serving layout
     if config.scheduler.warmup_requests > 0:
         engine.warmup(config.scheduler.warmup_requests)

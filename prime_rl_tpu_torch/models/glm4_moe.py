@@ -32,6 +32,7 @@ import torch
 
 from prime_rl_tpu_torch.models import qwen3
 from prime_rl_tpu_torch.models.base import ModelSpec
+from prime_rl_tpu_torch.models.lora import layer_slices
 from prime_rl_tpu_torch.models.qwen3 import (
     layer_remat,
     layer_rope_frequencies,
@@ -96,13 +97,15 @@ def init_params(spec: ModelSpec, generator: torch.Generator, dtype=torch.float32
 
 
 def glm_moe_block(h: torch.Tensor, lp: dict, spec: ModelSpec, compute_dtype,
-                  forced_experts: torch.Tensor | None = None):
+                  forced_experts: torch.Tensor | None = None, lora: dict | None = None,
+                  lora_scale: float = 1.0):
     """Routed experts + shared experts, post-attention. Returns (h, aux).
     ``lp`` holds one layer's weights as stored; matrices other than the
     router are cast to ``compute_dtype`` here, the router math stays f32.
     ``forced_experts`` ([B*L, K] int, -1 = own routing) replays the sampler's
-    expert selection (router replay). Under sandwich norms the output is
-    normed (``post_mlp_norm``) before the residual add."""
+    expert selection (router replay); ``lora``: the layer's adapter slices,
+    whose ``moe_*`` targets apply per expert. Under sandwich norms the
+    output is normed (``post_mlp_norm``) before the residual add."""
     b, l, d = h.shape
     cast = {k: (v.to(compute_dtype) if v.dim() >= 2 and "router" not in k else v)
             for k, v in lp.items()}
@@ -116,7 +119,7 @@ def glm_moe_block(h: torch.Tensor, lp: dict, spec: ModelSpec, compute_dtype,
         correction_bias=lp.get("router_correction_bias"),
         n_group=spec.n_group, topk_group=spec.topk_group,
         routed_scaling=spec.routed_scaling_factor,
-        forced_experts=forced_experts,
+        forced_experts=forced_experts, lora=lora, lora_scale=lora_scale,
     )
     out = out.reshape(b, l, d)
     if "shared_gate" in cast:
@@ -163,28 +166,33 @@ def forward(
     h = params["embed"].to(compute_dtype)[input_ids]
     windows = layer_windows_list(spec)
 
-    def attn(h, lp, saved, window):
+    def attn(h, lp, saved, window, ll):
         cast = {k: (v.to(compute_dtype) if v.dim() >= 2 else v)
                 for k, v in lp.items() if k not in _MOE_FIELDS}
         return qwen3._attn_block(h, cast, spec, segment_ids, position_ids,
                                  layer_rope_frequencies(spec, inv_freq, window), attn_impl,
-                                 rope_scaling, saved, window), cast
+                                 rope_scaling, saved, window, ll, lora_scale), cast
 
-    def dense_block(h, lp, saved, window):
-        h, cast = attn(h, lp, saved, window)
+    # LoRA: attention projections on every layer, the moe_* targets per
+    # expert; the dense layers' MLP takes no adapter, as in the JAX package
+    def dense_block(h, lp, saved, window, ll):
+        h, cast = attn(h, lp, saved, window, ll)
         x = rms_norm(h, cast["mlp_norm"], spec.rms_eps)
         return h + qwen3.post_mlp(torch.matmul(
             swiglu(torch.matmul(x, cast["gate"]), torch.matmul(x, cast["up"])), cast["down"]),
             lp, spec)
 
-    def moe_block(h, lp, saved, window, forced):
-        h, _ = attn(h, lp, saved, window)
+    def moe_block(h, lp, saved, window, forced, ll):
+        h, _ = attn(h, lp, saved, window, ll)
         moe = {k: v for k, v in lp.items() if k in _MOE_FIELDS or k == "mlp_norm"}
-        return glm_moe_block(h, moe, spec, compute_dtype, forced_experts=forced)
+        return glm_moe_block(h, moe, spec, compute_dtype, forced_experts=forced, lora=ll,
+                             lora_scale=lora_scale)
 
+    lora_layers = layer_slices(lora, nl)
     for i in range(k_dense):
         lp = {k: v[i] for k, v in params["dense_layers"].items()}
-        h = run_layer(dense_block, h, lp, windows[i], layer_remat(base_remat, save_stride, i))
+        h = run_layer(dense_block, h, lp, windows[i], layer_remat(base_remat, save_stride, i),
+                      lora_layers[i])
     forced = forced_by_layer(routed_experts, nl - k_dense, spec.num_experts_per_tok)
     # unbind once: its backward stacks the per-layer gradients in one copy
     per_layer = {k: v.unbind(0) for k, v in params["layers"].items()}
@@ -193,7 +201,7 @@ def forward(
         i = k_dense + li
         lp = {k: v[li] for k, v in per_layer.items()}
         h, lb = run_layer(moe_block, h, lp, windows[i], layer_remat(base_remat, save_stride, i),
-                          None if forced is None else forced[li])
+                          None if forced is None else forced[li], lora_layers[i])
         aux = aux + lb
     h = rms_norm(h, params["final_norm"], spec.rms_eps)
     return (h, aux) if collect_aux else h

@@ -22,6 +22,7 @@ import torch
 
 from prime_rl_tpu_torch.models import qwen3
 from prime_rl_tpu_torch.models.base import ModelSpec
+from prime_rl_tpu_torch.models.lora import layer_slices
 from prime_rl_tpu_torch.models.qwen3 import (
     layer_windows_list,
     layer_remat,
@@ -75,12 +76,15 @@ def init_params(spec: ModelSpec, generator: torch.Generator, dtype=torch.float32
 
 
 def moe_block(h: torch.Tensor, lp: dict, spec: ModelSpec, compute_dtype,
-              forced: torch.Tensor | None = None):
+              forced: torch.Tensor | None = None, lora: dict | None = None,
+              lora_scale: float = 1.0):
     """Post-attention routed experts with residual. Returns (h, load-balance
     aux). ``lp`` holds one layer's weights as stored: the expert matrices are
     cast to ``compute_dtype``, the router and every bias stay as stored (the
     router math runs in f32, the biases are added in f32). ``forced`` ([B*L,
-    K] int, -1 = own routing) replays the sampler's expert selection."""
+    K] int, -1 = own routing) replays the sampler's expert selection;
+    ``lora``: the layer's adapter slices, whose ``moe_*`` targets apply per
+    expert."""
     b, l, d = h.shape
     cast = {k: (v.to(compute_dtype) if v.dim() >= 2 and "router" not in k
                 and not k.endswith("_bias") else v)
@@ -96,7 +100,7 @@ def moe_block(h: torch.Tensor, lp: dict, spec: ModelSpec, compute_dtype,
         b_down=lp.get("expert_down_bias"),
         softmax_topk=spec.router_softmax_topk,
         activation_alpha=spec.swiglu_alpha, activation_limit=spec.swiglu_limit,
-        forced_experts=forced,
+        forced_experts=forced, lora=lora, lora_scale=lora_scale,
     )
     return h + out.reshape(b, l, d), routing.load_balance_loss
 
@@ -133,8 +137,6 @@ def forward(
         raise ValueError(f"gpt_oss.forward: family {spec.family!r} is not gpt_oss")
     if mesh is not None:
         raise NotImplementedError("context parallelism waits for the multi-card slice")
-    if lora is not None:
-        raise NotImplementedError("LoRA adapters wait for the LoRA slice")
     if quantized_compute:
         raise ValueError(f"quantized_compute={quantized_compute!r} is only wired for the "
                          f"qwen3/llama dense families, not {spec.family!r}")
@@ -144,12 +146,12 @@ def forward(
     h = params["embed"].to(compute_dtype)[input_ids]
     windows = layer_windows_list(spec)
 
-    def block(h, lp, saved, window, forced):
+    def block(h, lp, saved, window, forced, ll):
         attn = {k: (v.to(compute_dtype) if v.dim() >= 2 else v)
                 for k, v in lp.items() if k not in _MOE_FIELDS}
         h = qwen3._attn_block(h, attn, spec, segment_ids, position_ids, inv_freq, attn_impl,
-                              rope_scaling, saved, window)
-        return moe_block(h, lp, spec, compute_dtype, forced)
+                              rope_scaling, saved, window, ll, lora_scale)
+        return moe_block(h, lp, spec, compute_dtype, forced, ll, lora_scale)
 
     forced = None
     if routed_experts is not None:
@@ -160,11 +162,12 @@ def forward(
 
     # unbind once: its backward stacks the per-layer gradients in one copy
     per_layer = {k: v.unbind(0) for k, v in params["layers"].items()}
+    lora_layers = layer_slices(lora, nl)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(nl):
         lp = {k: v[i] for k, v in per_layer.items()}
         h, lb = run_layer(block, h, lp, windows[i], layer_remat(base_remat, save_stride, i),
-                          None if forced is None else forced[i])
+                          None if forced is None else forced[i], lora_layers[i])
         aux = aux + lb
     h = rms_norm(h, params["final_norm"], spec.rms_eps)
     return (h, aux) if collect_aux else h

@@ -28,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 from prime_rl_tpu_torch.models import glm4_moe, qwen3
 from prime_rl_tpu_torch.models.base import ModelSpec
 from prime_rl_tpu_torch.models.glm4_moe import glm_moe_block
+from prime_rl_tpu_torch.models.lora import apply_lora_proj, layer_slices
 from prime_rl_tpu_torch.ops import sparse_mla, sparse_mla_kernel
 from prime_rl_tpu_torch.ops.layers import (
     apply_rope,
@@ -135,30 +136,38 @@ def _rope(x, position_ids, inv_freq, interleave: bool):
     return out[:, :, 0, :] if squeeze else out
 
 
-def mla_absorbed_qkv(x, lp, spec: ModelSpec, position_ids, inv_freq):
+def mla_absorbed_qkv(x, lp, spec: ModelSpec, position_ids, inv_freq, ll=None,
+                     lora_scale: float = 1.0):
     """Absorbed MLA projections. x: [B, L, D] (post input-norm). Returns
     (q_lat [B,L,ql]|None, absorbed query [B,L,H,kvl+rope], latent kv
-    [B,L,kvl+rope], w_kv_b [kvl,H,nope+vh])."""
+    [B,L,kvl+rope], w_kv_b [kvl,H,nope+vh]). ``ll``: the layer's adapter
+    slices on the latent projections q_b (or q), kv_a and kv_b; the kv_b
+    delta is folded into the weight before the absorbed split (W + scale·A·B
+    absorbs as W does)."""
     B, L, _ = x.shape
     H, qk = spec.num_heads, _qk_head_dim(spec)
     nope, kvl, vh = spec.qk_nope_head_dim, spec.kv_lora_rank, spec.v_head_dim
 
     if "q_a" in lp:
         q_lat = rms_norm(torch.matmul(x, lp["q_a"]), lp["q_a_norm"], spec.rms_eps)
-        q = torch.matmul(q_lat, lp["q_b"]).reshape(B, L, H, qk)
+        q = apply_lora_proj(q_lat, lp["q_b"], ll, "q_b", lora_scale).reshape(B, L, H, qk)
     else:
         q_lat = None
-        q = torch.matmul(x, lp["q"]).reshape(B, L, H, qk)
+        q = apply_lora_proj(x, lp["q"], ll, "q", lora_scale).reshape(B, L, H, qk)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
 
-    ckv = torch.matmul(x, lp["kv_a"])  # [B, L, kvl + rope_d]
+    ckv = apply_lora_proj(x, lp["kv_a"], ll, "kv_a", lora_scale)  # [B, L, kvl + rope_d]
     c_kv = rms_norm(ckv[..., :kvl], lp["kv_a_norm"], spec.rms_eps)
     k_rope = ckv[..., kvl:]
 
     q_rope = _rope(q_rope, position_ids, inv_freq, spec.rope_interleave)
     k_rope = _rope(k_rope, position_ids, inv_freq, spec.rope_interleave)
 
-    w_kv_b = lp["kv_b"].reshape(kvl, H, nope + vh)
+    w_kv_b = lp["kv_b"]
+    if ll is not None and "kv_b_a" in ll:
+        w_kv_b = w_kv_b + lora_scale * (ll["kv_b_a"].to(w_kv_b.dtype)
+                                        @ ll["kv_b_b"].to(w_kv_b.dtype))
+    w_kv_b = w_kv_b.reshape(kvl, H, nope + vh)
     q_abs = torch.einsum("blhn,khn->blhk", q_nope, w_kv_b[..., :nope])
     sparse_q = torch.cat([q_abs, q_rope], dim=-1)  # [B, L, H, kvl+rope]
     kv = torch.cat([c_kv, k_rope], dim=-1)  # [B, L, kvl+rope]
@@ -182,7 +191,7 @@ def mla_indexer_qk(x, lp, spec: ModelSpec, position_ids, inv_freq, q_lat):
 
 
 def mla_attention(h, lp, spec: ModelSpec, segment_ids, position_ids, inv_freq,
-                  attn_impl: str = "auto"):
+                  attn_impl: str = "auto", ll=None, lora_scale: float = 1.0):
     """Pre-norm MLA attention block with residual (absorbed compute).
 
     h: [B, L, D]; per-token positions restart per packed segment, and the
@@ -194,7 +203,8 @@ def mla_attention(h, lp, spec: ModelSpec, segment_ids, position_ids, inv_freq,
     tensors through the chunked-gather op of ``ops/sparse_mla.py``; ``pallas``
     (the JAX package's name for its kernel route) forces the kernel module,
     which on the CPU runs the kernels' plain versions; ``xla`` forces the
-    chunked-gather op."""
+    chunked-gather op. ``ll``: the layer's adapter slices on q_b (or q),
+    kv_a, kv_b (``mla_absorbed_qkv``) and o."""
     if attn_impl not in ("auto", "pallas", "xla"):
         raise ValueError(f"unknown attention impl {attn_impl!r}")
     B, L, _ = h.shape
@@ -202,7 +212,8 @@ def mla_attention(h, lp, spec: ModelSpec, segment_ids, position_ids, inv_freq,
     nope, kvl, vh = spec.qk_nope_head_dim, spec.kv_lora_rank, spec.v_head_dim
     x = rms_norm(h, lp["attn_norm"], spec.rms_eps)
 
-    q_lat, sparse_q, kv, w_kv_b = mla_absorbed_qkv(x, lp, spec, position_ids, inv_freq)
+    q_lat, sparse_q, kv, w_kv_b = mla_absorbed_qkv(x, lp, spec, position_ids, inv_freq, ll,
+                                                   lora_scale)
     scale = qk ** -0.5
 
     if spec.index_topk:
@@ -227,7 +238,7 @@ def mla_attention(h, lp, spec: ModelSpec, segment_ids, position_ids, inv_freq,
             for b in range(B)])
 
     v_out = torch.einsum("blhk,khv->blhv", out_lat, w_kv_b[..., nope:])
-    return h + torch.matmul(v_out.reshape(B, L, H * vh), lp["o"])
+    return h + apply_lora_proj(v_out.reshape(B, L, H * vh), lp["o"], ll, "o", lora_scale)
 
 
 def forward(
@@ -262,8 +273,6 @@ def forward(
         raise ValueError(f"mla_moe.forward: family {spec.family!r} is not an MLA family")
     if mesh is not None:
         raise NotImplementedError("context parallelism waits for the multi-card slice")
-    if lora is not None:
-        raise NotImplementedError("LoRA on the latent projections waits for the LoRA slice")
     if quantized_compute:
         raise ValueError(f"quantized_compute={quantized_compute!r} is only wired for the "
                          f"qwen3/llama dense families, not {spec.family!r}")
@@ -280,17 +289,22 @@ def forward(
         return {k: (v.to(compute_dtype) if v.dim() >= 2 and "router" not in k else v)
                 for k, v in lp.items()}
 
-    def dense_block(h, lp):
+    # LoRA: the latent projections of every layer (and the moe_* targets per
+    # expert); the dense layers' MLP takes no adapter, as in the JAX package
+    def dense_block(h, lp, ll):
         cast = cast_lp(lp)
-        h = mla_attention(h, cast, spec, segment_ids, position_ids, inv_freq, attn_impl)
+        h = mla_attention(h, cast, spec, segment_ids, position_ids, inv_freq, attn_impl, ll,
+                          lora_scale)
         x = rms_norm(h, cast["mlp_norm"], spec.rms_eps)
         return h + torch.matmul(
             swiglu(torch.matmul(x, cast["gate"]), torch.matmul(x, cast["up"])), cast["down"])
 
-    def moe_block(h, lp, forced):
+    def moe_block(h, lp, forced, ll):
         cast = cast_lp(lp)  # once: glm_moe_block's own cast then finds nothing to do
-        h = mla_attention(h, cast, spec, segment_ids, position_ids, inv_freq, attn_impl)
-        return glm_moe_block(h, cast, spec, compute_dtype, forced_experts=forced)
+        h = mla_attention(h, cast, spec, segment_ids, position_ids, inv_freq, attn_impl, ll,
+                          lora_scale)
+        return glm_moe_block(h, cast, spec, compute_dtype, forced_experts=forced, lora=ll,
+                             lora_scale=lora_scale)
 
     def run(fn, *args):
         if use_ckpt:
@@ -305,15 +319,16 @@ def forward(
             routed_experts.shape[2], b_ * l_, spec.num_experts_per_tok)
 
     # unbind once: its backward stacks the per-layer gradients in one copy
+    lora_layers = layer_slices(lora, spec.num_layers)
     if k_dense:
         dense = {k: v.unbind(0) for k, v in params["dense_layers"].items()}
         for i in range(k_dense):
-            h = run(dense_block, h, {k: v[i] for k, v in dense.items()})
+            h = run(dense_block, h, {k: v[i] for k, v in dense.items()}, lora_layers[i])
     moe = {k: v.unbind(0) for k, v in params["layers"].items()}
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(spec.num_layers - k_dense):
         h, lb = run(moe_block, h, {k: v[i] for k, v in moe.items()},
-                    None if forced is None else forced[i])
+                    None if forced is None else forced[i], lora_layers[k_dense + i])
         aux = aux + lb
     h = rms_norm(h, params["final_norm"], spec.rms_eps)
     return (h, aux) if collect_aux else h

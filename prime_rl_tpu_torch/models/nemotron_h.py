@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from prime_rl_tpu_torch.models.base import ModelSpec
+from prime_rl_tpu_torch.models.lora import apply_lora_proj, layer_slices
 from prime_rl_tpu_torch.models import qwen3
 from prime_rl_tpu_torch.models.qwen3 import _WAITING_REMAT, layer_remat, parse_remat, run_layer
 from prime_rl_tpu_torch.models.qwen3 import trunc_normal
@@ -135,24 +136,30 @@ def mamba_block(h, lp, spec: ModelSpec, segment_ids, compute_dtype):
         chunk_size=spec.mamba_chunk_size, segment_ids=segment_ids)
 
 
-def bare_qkv(x: torch.Tensor, lp: dict, spec: ModelSpec):
+def bare_qkv(x: torch.Tensor, lp: dict, spec: ModelSpec, ll=None, lora_scale: float = 1.0):
     """The attention layer's q [..., T, NH, HD], k, v [..., T, NKV, HD] of the
-    normed input x [..., T, D]: no rope, no qk-norm."""
+    normed input x [..., T, D]: no rope, no qk-norm. ``ll``: the layer's
+    adapter slices on q, k and v."""
     lead = x.shape[:-1]
-    q = (x @ lp["q"]).reshape(*lead, spec.num_heads, spec.head_dim)
-    k = (x @ lp["k"]).reshape(*lead, spec.num_kv_heads, spec.head_dim)
-    v = (x @ lp["v"]).reshape(*lead, spec.num_kv_heads, spec.head_dim)
+    q = apply_lora_proj(x, lp["q"], ll, "q", lora_scale).reshape(*lead, spec.num_heads,
+                                                                 spec.head_dim)
+    k = apply_lora_proj(x, lp["k"], ll, "k", lora_scale).reshape(*lead, spec.num_kv_heads,
+                                                                 spec.head_dim)
+    v = apply_lora_proj(x, lp["v"], ll, "v", lora_scale).reshape(*lead, spec.num_kv_heads,
+                                                                 spec.head_dim)
     return q, k, v
 
 
-def attn_block(h, lp, spec: ModelSpec, segment_ids, attn_impl, compute_dtype, saved=None):
-    """h + the bare attention of rms_norm(h) (K1/K2a/K2b on the card)."""
+def attn_block(h, lp, spec: ModelSpec, segment_ids, attn_impl, compute_dtype, saved=None,
+               ll=None, lora_scale: float = 1.0):
+    """h + the bare attention of rms_norm(h) (K1/K2a/K2b on the card), the
+    adapter ``ll`` on q, k, v and o."""
     b, l, _ = h.shape
     lp = {k: v.to(compute_dtype) for k, v in lp.items()}
     x = rms_norm(h, lp["norm"], spec.rms_eps)
-    q, k, v = bare_qkv(x, lp, spec)
+    q, k, v = bare_qkv(x, lp, spec, ll, lora_scale)
     o = attention(q, k, v, segment_ids, causal=True, impl=attn_impl, saved=saved)
-    return h + o.reshape(b, l, spec.q_dim) @ lp["o"]
+    return h + apply_lora_proj(o.reshape(b, l, spec.q_dim), lp["o"], ll, "o", lora_scale)
 
 
 def mlp_block(h, lp, spec: ModelSpec, compute_dtype):
@@ -162,11 +169,13 @@ def mlp_block(h, lp, spec: ModelSpec, compute_dtype):
     return h + relu2(x @ lp["up"]) @ lp["down"]
 
 
-def latent_moe(x: torch.Tensor, lp: dict, spec: ModelSpec, forced=None):
+def latent_moe(x: torch.Tensor, lp: dict, spec: ModelSpec, forced=None, lora=None,
+               lora_scale: float = 1.0):
     """LatentMoE of the normed input x [..., D] (its matrices already in the
     compute dtype): the routed relu^2 experts at the latent width, routed at
     the model width, plus the relu^2 shared expert. Returns (out [..., D],
-    the router's output)."""
+    the router's output). ``lora``: per-expert adapters (``moe_up``,
+    ``moe_down``, at the latent width)."""
     lead, d = x.shape[:-1], x.shape[-1]
     flat = x.reshape(-1, d)
     lat = flat @ lp["fc1_latent"] if "fc1_latent" in lp else flat
@@ -175,20 +184,22 @@ def latent_moe(x: torch.Tensor, lp: dict, spec: ModelSpec, forced=None):
         spec.num_experts_per_tok, spec.norm_topk_prob, x_experts=lat,
         sigmoid_noaux=spec.router_sigmoid, correction_bias=lp.get("router_correction_bias"),
         n_group=spec.n_group, topk_group=spec.topk_group,
-        routed_scaling=spec.routed_scaling_factor, forced_experts=forced)
+        routed_scaling=spec.routed_scaling_factor, forced_experts=forced, lora=lora,
+        lora_scale=lora_scale)
     if "fc2_latent" in lp:
         out = out @ lp["fc2_latent"]
     out = out.reshape(*lead, d)
     return out + relu2(x @ lp["shared_up"]) @ lp["shared_down"], routing
 
 
-def moe_block(h, lp, spec: ModelSpec, compute_dtype, forced=None):
+def moe_block(h, lp, spec: ModelSpec, compute_dtype, forced=None, lora=None,
+              lora_scale: float = 1.0):
     """h + LatentMoE of rms_norm(h); returns (h, load-balance aux). The
     router and its correction bias stay float32."""
     lp = {k: (v.to(compute_dtype) if v.dim() >= 2 and "router" not in k else v)
           for k, v in lp.items()}
     x = rms_norm(h, lp["norm"], spec.rms_eps)
-    out, routing = latent_moe(x, lp, spec, forced)
+    out, routing = latent_moe(x, lp, spec, forced, lora, lora_scale)
     return h + out, routing.load_balance_loss
 
 
@@ -243,17 +254,21 @@ def forward(
     base_remat, save_stride = parse_remat(remat, spec.num_layers)
     h = params["embed"].to(compute_dtype)[input_ids]
 
-    def block(h, lp, saved, window, kind, forced):
+    # LoRA: the adapters index full depth; the "*" layers take them on their
+    # projections, the "E" layers on their experts (moe_* targets)
+    def block(h, lp, saved, window, kind, forced, ll):
         if kind == "M":
             return mamba_block(h, lp, spec, segment_ids, compute_dtype), None
         if kind == "*":
-            return attn_block(h, lp, spec, segment_ids, attn_impl, compute_dtype, saved), None
+            return attn_block(h, lp, spec, segment_ids, attn_impl, compute_dtype, saved, ll,
+                              lora_scale), None
         if kind == "-":
             return mlp_block(h, lp, spec, compute_dtype), None
-        return moe_block(h, lp, spec, compute_dtype, forced)
+        return moe_block(h, lp, spec, compute_dtype, forced, ll, lora_scale)
 
     forced = forced_by_layer(routed_experts, spec.layer_pattern.count("E"),
                              spec.num_experts_per_tok)
+    lora_layers = layer_slices(lora, spec.num_layers)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     e_rank = 0
     for i, (kind, lp) in enumerate(layers):
@@ -261,7 +276,8 @@ def forward(
         if kind == "E" and forced is not None:
             f = forced[e_rank]
         e_rank += kind == "E"
-        h, lb = run_layer(block, h, lp, 0, layer_remat(base_remat, save_stride, i), kind, f)
+        h, lb = run_layer(block, h, lp, 0, layer_remat(base_remat, save_stride, i), kind, f,
+                          lora_layers[i])
         if lb is not None:
             aux = aux + lb
     h = rms_norm(h, params["final_norm"], spec.rms_eps)

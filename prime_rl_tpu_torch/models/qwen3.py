@@ -26,6 +26,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from prime_rl_tpu_torch.models.base import ModelSpec
+from prime_rl_tpu_torch.models.lora import apply_lora_proj, layer_slices
 from prime_rl_tpu_torch.ops.attention import attention
 from prime_rl_tpu_torch.ops.layers import (
     apply_rope,
@@ -167,7 +168,11 @@ def _attn_block(
     rope_scaling: float = 1.0,
     saved=None,
     window: int = 0,
+    lora: dict | None = None,
+    lora_scale: float = 1.0,
 ) -> torch.Tensor:
+    """``lora``: the layer's adapter slices (``models/lora.layer_slices``) on
+    q, k, v and o, or None."""
     def bias(t, name, heads):
         bb = lp.get(name)
         if bb is None:
@@ -176,15 +181,16 @@ def _attn_block(
 
     b, l, _ = h.shape
     x = rms_norm(h, lp["attn_norm"], spec.rms_eps)
-    qf = torch.matmul(x, lp["q"])
-    kf = torch.matmul(x, lp["k"])
+    qf = apply_lora_proj(x, lp["q"], lora, "q", lora_scale)
+    kf = apply_lora_proj(x, lp["k"], lora, "k", lora_scale)
     if spec.qk_norm and spec.qk_norm_scope == "layer":
         # one RMSNorm over the flattened head dims
         qf = rms_norm(qf, lp["q_norm"], spec.rms_eps)
         kf = rms_norm(kf, lp["k_norm"], spec.rms_eps)
     q = qf.reshape(b, l, spec.num_heads, spec.head_dim)
     k = kf.reshape(b, l, spec.num_kv_heads, spec.head_dim)
-    v = torch.matmul(x, lp["v"]).reshape(b, l, spec.num_kv_heads, spec.head_dim)
+    v = apply_lora_proj(x, lp["v"], lora, "v", lora_scale).reshape(
+        b, l, spec.num_kv_heads, spec.head_dim)
     q = bias(q, "q_bias", spec.num_heads)
     k = bias(k, "k_bias", spec.num_kv_heads)
     v = bias(v, "v_bias", spec.num_kv_heads)
@@ -196,7 +202,7 @@ def _attn_block(
     o = attention(q, k, v, segment_ids, causal=True, window=window, sinks=lp.get("sink"),
                   impl=attn_impl, saved=saved)
     o = apply_attn_gate(o, x, lp, spec)
-    proj = torch.matmul(o.reshape(b, l, spec.q_dim), lp["o"])
+    proj = apply_lora_proj(o.reshape(b, l, spec.q_dim), lp["o"], lora, "o", lora_scale)
     if lp.get("o_bias") is not None:
         proj = proj + lp["o_bias"].to(proj.dtype)
     return h + post_attn(proj, lp, spec)
@@ -217,11 +223,13 @@ def apply_attn_gate(o: torch.Tensor, x: torch.Tensor, lp: dict, spec: ModelSpec)
     raise ValueError(f"unknown attn_gate {spec.attn_gate!r}")
 
 
-def _mlp_block(h: torch.Tensor, lp: dict[str, torch.Tensor], spec: ModelSpec) -> torch.Tensor:
+def _mlp_block(h: torch.Tensor, lp: dict[str, torch.Tensor], spec: ModelSpec,
+               lora: dict | None = None, lora_scale: float = 1.0) -> torch.Tensor:
     x = rms_norm(h, lp["mlp_norm"], spec.rms_eps)
-    gate = torch.matmul(x, lp["gate"])
-    up = torch.matmul(x, lp["up"])
-    return h + post_mlp(torch.matmul(swiglu(gate, up), lp["down"]), lp, spec)
+    gate = apply_lora_proj(x, lp["gate"], lora, "gate", lora_scale)
+    up = apply_lora_proj(x, lp["up"], lora, "up", lora_scale)
+    out = apply_lora_proj(swiglu(gate, up), lp["down"], lora, "down", lora_scale)
+    return h + post_mlp(out, lp, spec)
 
 
 def post_attn(proj: torch.Tensor, lp: dict, spec: ModelSpec) -> torch.Tensor:
@@ -267,15 +275,16 @@ def forward(
     ``save_attn/K``: every K-th layer, the others ``full``) recomputes
     everything except the attention kernel, whose outputs are kept so K1 does
     not run again. ``block_q``/``block_kv`` are accepted and unused: the CUDA
-    kernels choose their own tiles. The arguments that belong to later slices
-    (``mesh``, ``lora``, ``quantized_compute``, the offload and selective
+    kernels choose their own tiles. ``lora`` (``models/lora.py``'s adapter
+    tree, stacks of ``[NL, ...]``) adds scale·(x·A)·B to every targeted
+    projection of each layer, ``lora_scale`` the scale; its gradients flow
+    through the same layers and remat modes. The arguments that belong to later slices
+    (``mesh``, ``quantized_compute``, the offload and selective
     remat modes) raise."""
     if spec.family not in ("qwen3", "llama"):
         raise NotImplementedError(f"model family {spec.family!r} is not ported yet")
     if mesh is not None:
         raise NotImplementedError("context parallelism waits for the multi-card slice")
-    if lora is not None:
-        raise NotImplementedError("LoRA adapters wait for the LoRA slice")
     if quantized_compute:
         raise NotImplementedError("quantized_compute waits for the int8/fp8 slice")
     nl = spec.num_layers
@@ -285,18 +294,20 @@ def forward(
 
     windows = layer_windows_list(spec)
 
-    def block(h, lp, saved, window):
+    def block(h, lp, saved, window, ll):
         lp = {k: (v.to(compute_dtype) if v.dim() >= 2 else v) for k, v in lp.items()}
         h = _attn_block(h, lp, spec, segment_ids, position_ids, inv_freq, attn_impl,
-                        rope_scaling, saved, window)
-        return _mlp_block(h, lp, spec)
+                        rope_scaling, saved, window, ll, lora_scale)
+        return _mlp_block(h, lp, spec, ll, lora_scale)
 
     # unbind once: its backward stacks the per-layer gradients in one copy
     # (indexing layer by layer would build a full-size zero stack per layer)
     per_layer = {k: v.unbind(0) for k, v in params["layers"].items()}
+    lora_layers = layer_slices(lora, nl)
     for i in range(nl):
         lp = {k: v[i] for k, v in per_layer.items()}
-        h = run_layer(block, h, lp, windows[i], layer_remat(base_remat, save_stride, i))
+        h = run_layer(block, h, lp, windows[i], layer_remat(base_remat, save_stride, i),
+                      lora_layers[i])
     return rms_norm(h, params["final_norm"], spec.rms_eps)
 
 

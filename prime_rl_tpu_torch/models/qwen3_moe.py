@@ -21,6 +21,7 @@ import torch
 
 from prime_rl_tpu_torch.models import qwen3
 from prime_rl_tpu_torch.models.base import ModelSpec
+from prime_rl_tpu_torch.models.lora import layer_slices
 from prime_rl_tpu_torch.models.qwen3 import (
     layer_remat,
     parse_remat,
@@ -68,11 +69,13 @@ def init_params(spec: ModelSpec, generator: torch.Generator, dtype=torch.float32
 
 
 def moe_block(h: torch.Tensor, lp: dict, spec: ModelSpec, compute_dtype,
-              forced: torch.Tensor | None = None):
+              forced: torch.Tensor | None = None, lora: dict | None = None,
+              lora_scale: float = 1.0):
     """Post-attention routed experts with residual. Returns (h, load-balance
     aux). The expert matrices are cast to ``compute_dtype``; the router stays
     as stored (its math runs in f32). ``forced`` ([B*L, K] int, -1 = own
-    routing) replays the sampler's expert selection."""
+    routing) replays the sampler's expert selection; ``lora``: the layer's
+    adapter slices, whose ``moe_*`` targets apply per expert."""
     b, l, d = h.shape
     x = rms_norm(h, lp["mlp_norm"], spec.rms_eps)
     out, routing = moe_mlp(
@@ -80,7 +83,7 @@ def moe_block(h: torch.Tensor, lp: dict, spec: ModelSpec, compute_dtype,
         lp["router"],
         *(lp[k].to(compute_dtype) for k in ("expert_gate", "expert_up", "expert_down")),
         spec.num_experts_per_tok, spec.norm_topk_prob,
-        forced_experts=forced,
+        forced_experts=forced, lora=lora, lora_scale=lora_scale,
     )
     return h + out.reshape(b, l, d), routing.load_balance_loss
 
@@ -98,13 +101,11 @@ def forced_by_layer(routed_experts: torch.Tensor | None, n_layers: int,
 
 
 def check_forward_args(spec: ModelSpec, mesh, lora, quantized_compute) -> None:
-    """Raise for what the MoE families' forwards do not take yet."""
+    """Raise for what the MoE families' forwards do not take yet (LoRA they
+    take, ``lora`` is checked by nothing here)."""
     if mesh is not None:
         raise NotImplementedError("context parallelism waits for the multi-card slice "
                                   "(ROADMAP.md, Queue 1 item 11)")
-    if lora is not None:
-        raise NotImplementedError("LoRA adapters wait for the LoRA slice (ROADMAP.md, Queue 1 "
-                                  "item 8)")
     if quantized_compute:
         raise ValueError(f"quantized_compute={quantized_compute!r} is only wired for the "
                          f"qwen3/llama dense families, not {spec.family!r}")
@@ -145,21 +146,22 @@ def forward(
     inv_freq, rope_scaling = rope_setup(spec, device=input_ids.device)
     h = params["embed"].to(compute_dtype)[input_ids]
 
-    def block(h, lp, saved, window, forced):
+    def block(h, lp, saved, window, forced, ll):
         attn = {k: (v.to(compute_dtype) if v.dim() >= 2 else v)
                 for k, v in lp.items() if k not in _MOE_FIELDS}
         h = qwen3._attn_block(h, attn, spec, segment_ids, position_ids, inv_freq, attn_impl,
-                              rope_scaling, saved, window)
-        return moe_block(h, lp, spec, compute_dtype, forced)
+                              rope_scaling, saved, window, ll, lora_scale)
+        return moe_block(h, lp, spec, compute_dtype, forced, ll, lora_scale)
 
     forced = forced_by_layer(routed_experts, nl, spec.num_experts_per_tok)
     # unbind once: its backward stacks the per-layer gradients in one copy
     per_layer = {k: v.unbind(0) for k, v in params["layers"].items()}
+    lora_layers = layer_slices(lora, nl)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(nl):
         lp = {k: v[i] for k, v in per_layer.items()}
         h, lb = run_layer(block, h, lp, 0, layer_remat(base_remat, save_stride, i),
-                          None if forced is None else forced[i])
+                          None if forced is None else forced[i], lora_layers[i])
         aux = aux + lb
     h = rms_norm(h, params["final_norm"], spec.rms_eps)
     return (h, aux) if collect_aux else h

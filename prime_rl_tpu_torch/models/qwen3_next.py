@@ -28,6 +28,7 @@ import torch
 
 from prime_rl_tpu_torch.models import qwen3
 from prime_rl_tpu_torch.models.base import ModelSpec
+from prime_rl_tpu_torch.models.lora import layer_slices
 from prime_rl_tpu_torch.models.qwen3 import layer_remat, parse_remat, rope_setup, run_layer
 from prime_rl_tpu_torch.models.qwen3 import trunc_normal
 from prime_rl_tpu_torch.models.qwen3_moe import check_forward_args, forced_by_layer
@@ -180,15 +181,18 @@ def shared_expert(x: torch.Tensor, lp: dict, spec: ModelSpec) -> torch.Tensor:
 
 
 def moe_block(h: torch.Tensor, lp: dict, spec: ModelSpec,
-              forced: torch.Tensor | None = None):
+              forced: torch.Tensor | None = None, lora: dict | None = None,
+              lora_scale: float = 1.0):
     """Routed experts plus the gated shared expert, with the residual.
     Returns (h, load-balance aux). ``forced`` ([B*L, K], -1 = own routing)
-    replays the sampler's selection."""
+    replays the sampler's selection; ``lora``: the layer's adapter slices,
+    whose ``moe_*`` targets apply per expert."""
     b, l, d = h.shape
     x = rms_norm(h, lp["mlp_norm"], spec.rms_eps)
     out, routing = moe_mlp(x.reshape(b * l, d), lp["router"], lp["expert_gate"],
                            lp["expert_up"], lp["expert_down"], spec.num_experts_per_tok,
-                           spec.norm_topk_prob, forced_experts=forced)
+                           spec.norm_topk_prob, forced_experts=forced, lora=lora,
+                           lora_scale=lora_scale)
     return h + out.reshape(b, l, d) + shared_expert(x, lp, spec), routing.load_balance_loss
 
 
@@ -249,23 +253,26 @@ def forward(
     inv_freq, rope_scaling = rope_setup(spec, device=input_ids.device)
     h = params["embed"].to(compute_dtype)[input_ids]
 
-    def lin_block(h, lp, saved, window, forced):
+    # LoRA: the adapters index full depth; the attention layers take them on
+    # their projections, every layer on its experts (moe_* targets)
+    def lin_block(h, lp, saved, window, forced, ll):
         lp = cast_layer(lp, compute_dtype)
         h = gdn_mixer(h, lp, spec, segment_ids, compute_dtype, gdn_precision)
-        return moe_block(h, lp, spec, forced)
+        return moe_block(h, lp, spec, forced, ll, lora_scale)
 
-    def attn_block(h, lp, saved, window, forced):
+    def attn_block(h, lp, saved, window, forced, ll):
         lp = cast_layer(lp, compute_dtype)
         h = qwen3._attn_block(h, lp, spec, segment_ids, position_ids, inv_freq, attn_impl,
-                              rope_scaling, saved, window)
-        return moe_block(h, lp, spec, forced)
+                              rope_scaling, saved, window, ll, lora_scale)
+        return moe_block(h, lp, spec, forced, ll, lora_scale)
 
     forced = forced_by_layer(routed_experts, nl, spec.num_experts_per_tok)
+    lora_layers = layer_slices(lora, nl)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i, (kind, lp) in enumerate(layers):
         block = lin_block if kind == "L" else attn_block
         h, lb = run_layer(block, h, lp, 0, layer_remat(base_remat, save_stride, i),
-                          None if forced is None else forced[i])
+                          None if forced is None else forced[i], lora_layers[i])
         aux = aux + lb
     h = rms_norm(h, params["final_norm"], spec.rms_eps)
     return (h, aux) if collect_aux else h

@@ -20,8 +20,14 @@ no key gets output 0 and lse -1e30 (with a sink: lse = the sink), gradient 0,
 and adds nothing to dk/dv. The sinks' gradient, ``-sum exp(sink - lse) *
 delta`` over batch and rows, is a plain PyTorch reduction beside the kernels,
 as it is an XLA reduction beside the TPU kernels. On the card the kernels take
-bf16 tensors with head dim 64, 128 or 256 (``HEAD_DIMS``; the JAX kernels
-set no limit, and 256 is Qwen3-Next's); a length that is no multiple of the
+bf16 tensors of any head dim up to 256: they are built for 64, 128 and 256
+(``HEAD_DIMS``; 256 is Qwen3-Next's), and the wrappers zero-pad any other
+head dim to the next of these (``padded_head_dim``; the JAX kernels set no
+limit, the debug specs' 32 among them). That is exact: a zero column adds 0
+to every score, so out, lse and delta do not change, the scale is the true
+head dim's, and the padded columns of out, dq, dk and dv are dropped. Above
+256 a kernel's tiles no longer fit the SM's shared memory, and they raise. A
+length that is no multiple of the
 tile is masked inside the kernels; windows run banded (tiles outside the
 band are never loaded). ``flash_attention_with_lse`` (the cross-block form)
 takes neither window nor sinks, as in the JAX package.
@@ -68,23 +74,65 @@ _fns = None
 _bwd_fns: dict = {}
 
 
+def padded_head_dim(head_dim: int) -> int:
+    """The built head dim the kernels run ``head_dim`` at: the least of
+    ``HEAD_DIMS`` that holds it (0 above 256)."""
+    return next((w for w in HEAD_DIMS if head_dim <= w), 0)
+
+
 def fwd_tiles(head_dim: int) -> tuple[int, int]:
-    """K1's (q tile, kv tile) at ``head_dim``: 128 x 128, or 64 x 64 at 256,
-    where one consumer warpgroup holds a 64-row item's output accumulator."""
-    return (64, 64) if head_dim == 256 else (TILE, TILE)
+    """K1's (q tile, kv tile) at ``head_dim``: 128 x 128, or 64 x 64 where it
+    runs at 256, one consumer warpgroup holding a 64-row item's output
+    accumulator."""
+    return (64, 64) if padded_head_dim(head_dim) == 256 else (TILE, TILE)
 
 
 def dq_tiles(head_dim: int) -> tuple[int, int]:
-    """K2a's (q tile, kv tile) at ``head_dim``: 128 x 64, or 64 x 64 at 256."""
-    return (64, 64) if head_dim == 256 else DQ_TILES
+    """K2a's (q tile, kv tile) at ``head_dim``: 128 x 64, or 64 x 64 where it
+    runs at 256."""
+    return (64, 64) if padded_head_dim(head_dim) == 256 else DQ_TILES
 
 
 def check_head_dim(name: str, head_dim: int, num_heads: int, num_kv_heads: int) -> None:
-    """Raise unless the kernels take these heads: head dim 64, 128 or 256 and
-    ``num_heads`` a multiple of ``num_kv_heads``."""
-    if head_dim not in HEAD_DIMS or num_kv_heads <= 0 or num_heads % num_kv_heads:
-        raise ValueError(f"{name} takes head_dim 64, 128 or 256 and NH % NKV == 0, "
+    """Raise unless the kernels take these heads: head dim 1 to 256 (padded
+    to the next of ``HEAD_DIMS``) and ``num_heads`` a multiple of
+    ``num_kv_heads``."""
+    if not 0 < head_dim <= HEAD_DIMS[-1] or num_kv_heads <= 0 or num_heads % num_kv_heads:
+        raise ValueError(f"{name} takes head_dim up to 256 and NH % NKV == 0, "
                          f"got head_dim {head_dim}, heads {num_heads}/{num_kv_heads}")
+
+
+def _pad_last(x: torch.Tensor, width: int) -> torch.Tensor:
+    return x if x.shape[-1] == width else torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+
+
+def fwd_padded(fwd, q, k, v, *rest, **kw):
+    """``fwd(q, k, v, *rest, **kw) -> (out, lse)`` run at the built head dim:
+    q, k and v zero-padded along the head dim to ``padded_head_dim``, out
+    sliced back (lse is the same at either width). The caller passes the true
+    head dim's scale in ``rest``."""
+    hd = q.shape[-1]
+    w = padded_head_dim(hd)
+    if w in (0, hd):
+        return fwd(q, k, v, *rest, **kw)
+    out, lse = fwd(_pad_last(q, w), _pad_last(k, w), _pad_last(v, w), *rest, **kw)
+    return out[..., :hd].contiguous(), lse
+
+
+def bwd_padded(bwd, q, k, v, seg_q, seg_kv, lse, delta, do, *rest, **kw):
+    """``bwd(q, k, v, seg_q, seg_kv, lse, delta, do, *rest, **kw)`` (K2a's dq
+    or K2b's (dk, dv)) run at the built head dim: q, k, v and do zero-padded
+    along the head dim, every result sliced back. ``delta`` (the true width's
+    rowsum(out * do)) is what the padded inputs give too."""
+    hd = q.shape[-1]
+    w = padded_head_dim(hd)
+    if w in (0, hd):
+        return bwd(q, k, v, seg_q, seg_kv, lse, delta, do, *rest, **kw)
+    got = bwd(_pad_last(q, w), _pad_last(k, w), _pad_last(v, w), seg_q, seg_kv, lse, delta,
+              _pad_last(do, w), *rest, **kw)
+    if isinstance(got, torch.Tensor):
+        return got[..., :hd].contiguous()
+    return tuple(g[..., :hd].contiguous() for g in got)
 
 
 def _kernel(tiles: bool = False):
@@ -217,6 +265,8 @@ def _fwd_cuda(q, k, v, seg_q, seg_kv, causal: bool, scale: float, window: int = 
     b, lq, nh, hd = q.shape
     lk, nkv = k.shape[1], k.shape[2]
     check_head_dim("flash_attn_fwd", hd, nh, nkv)
+    if hd not in HEAD_DIMS:
+        return fwd_padded(_fwd_cuda, q, k, v, seg_q, seg_kv, causal, scale, window, sinks, tiles)
     _build.require(q, "q", torch.bfloat16)
     _build.require(k, "k", torch.bfloat16, (b, lk, nkv, hd))
     _build.require(v, "v", torch.bfloat16, (b, lk, nkv, hd))
@@ -352,6 +402,9 @@ def flash_attention_dq(q, k, v, seg_q, seg_kv, lse, delta, do, causal: bool, sca
     ceil(Lq / bq), 2] with ``bq`` of ``dq_tiles``, or None) receives each q
     tile's visited and candidate kv tiles."""
     b, lq, lk, nh, nkv, hd = _check_bwd_args(q, k, v, seg_q, seg_kv, lse, delta, do)
+    if hd not in HEAD_DIMS:
+        return bwd_padded(flash_attention_dq, q, k, v, seg_q, seg_kv, lse, delta, do, causal,
+                          scale, window, tiles)
     if tiles is not None:
         _build.require(tiles, "tiles", torch.int32, (b, nh, -(-lq // dq_tiles(hd)[0]), 2))
     dq = torch.empty_like(q)
@@ -371,6 +424,9 @@ def flash_attention_dkv(q, k, v, seg_q, seg_kv, lse, delta, do, causal: bool, sc
     None) receives each kv tile's visited and candidate q tiles (of one head:
     every head of the group visits the same)."""
     b, lq, lk, nh, nkv, hd = _check_bwd_args(q, k, v, seg_q, seg_kv, lse, delta, do)
+    if hd not in HEAD_DIMS:
+        return bwd_padded(flash_attention_dkv, q, k, v, seg_q, seg_kv, lse, delta, do, causal,
+                          scale, window, tiles)
     if tiles is not None:
         _build.require(tiles, "tiles", torch.int32, (b, nkv, -(-lk // DKV_TILE), 2))
     dk, dv = torch.empty_like(k), torch.empty_like(v)

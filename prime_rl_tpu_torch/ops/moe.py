@@ -186,9 +186,13 @@ def moe_mlp(
          biases in f32), silu-gated, clamped-GLU (``activation_alpha > 0``)
          or relu^2 (``w_gate is None``) over ``x_experts`` (default x)
       4. unsort + weighted sum over each token's K slots
+
+    ``lora``: per-expert adapters (``models/lora.py``'s ``moe_*`` targets of
+    one layer, ``{"moe_up_a": [E, D, r], "moe_up_b": [E, r, M], ...}``);
+    each present pair adds ``lora_scale`` times two more grouped products
+    over the same sorted groups (x·A, then ·B) to that product's float32 sum,
+    as the JAX package's two extra ``ragged_dot``s do.
     """
-    if lora is not None:
-        raise NotImplementedError("per-expert LoRA waits for the LoRA slice")
     x_in = x if x_experts is None else x_experts
     t, d = x_in.shape
     e = router_w.shape[1]
@@ -213,16 +217,26 @@ def moe_mlp(
         y = y.float()
         return y if b is None else y + b.float()[sorted_experts]
 
-    up = biased(_grouped_product(xs, w_up, group_sizes, bounds), b_up)
+    def product(inp, w, name):
+        """The grouped product, plus the per-expert LoRA delta of ``name``."""
+        y = _grouped_product(inp, w, group_sizes, bounds).float()
+        if lora is not None and f"{name}_a" in lora:
+            mid = _grouped_product(inp, lora[f"{name}_a"].to(inp.dtype), group_sizes, bounds)
+            y = y + lora_scale * _grouped_product(mid.to(inp.dtype),
+                                                  lora[f"{name}_b"].to(inp.dtype),
+                                                  group_sizes, bounds).float()
+        return y
+
+    up = biased(product(xs, w_up, "moe_up"), b_up)
     if w_gate is None:  # Nemotron-H's LatentMoE experts
         h = torch.square(F.relu(up)).to(x.dtype)
     else:
-        gate = biased(_grouped_product(xs, w_gate, group_sizes, bounds), b_gate)
+        gate = biased(product(xs, w_gate, "moe_gate"), b_gate)
         if activation_alpha > 0:
             h = clamped_glu(gate, up, activation_alpha, activation_limit).to(x.dtype)
         else:
             h = (F.silu(gate) * up).to(x.dtype)  # [T*K, M]
-    out_sorted = biased(_grouped_product(h, w_down, group_sizes, bounds), b_down)
+    out_sorted = biased(product(h, w_down, "moe_down"), b_down)
 
     w_flat = routing.weights.reshape(-1)[order]  # combine weight per sorted slot
     contrib = out_sorted * w_flat[:, None]  # [T*K, D] f32

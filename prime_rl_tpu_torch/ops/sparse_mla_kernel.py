@@ -24,11 +24,17 @@ products, ``p`` to do's dtype for dv, float32 sums, the per-slot dkv rows to
 kv's dtype once. Unlike the JAX package, which adds those rows up in
 bfloat16, dkv is summed in float32 and rounded once.
 
-On the card the kernels take bfloat16 tensors with ``Dq = 576, v_dim = 512``
-(latent 512 + rope 64, the MLA widths of the glm_moe_dsa family) and any
-``H % 8 == 0`` (what the JAX kernel takes at these widths), and raise for
-anything else (``check_widths``); the TPU version's quiet fall-back to the XLA
-form is not carried over. A kernel block holds one group of ``HEADS`` = 64
+On the card the kernels are built for bfloat16 tensors with ``Dq = 576,
+v_dim = 512`` (latent 512 + rope 64, the MLA widths of the glm_moe_dsa
+family) and any ``H % 8 == 0`` (the JAX kernel's condition on H). The
+wrappers take any ``Dq <= 576`` and ``v_dim <= 512`` with ``v_dim % 128 ==
+0`` (and ``v_dim <= Dq``) by zero-padding the columns of q and kv to 576 and
+of do to 512 (``fwd_padded``, ``bwd_padded``), then slicing out to ``v_dim``
+and dq and dkv to ``Dq``. That is exact: the zero columns add 0 to every
+score, the kernels' V is ``kv[:, :512]``, whose first ``v_dim`` columns are
+the real V, and the zero columns of do add 0 to dP and to dkv. Wider widths
+raise (``check_widths``); the TPU version's quiet fall-back to the XLA form
+is not carried over. A kernel block holds one group of ``HEADS`` = 64
 heads: the wrappers pad q (and do) with zero heads to ``Hp = ceil(H / 64) *
 64`` and launch once a group, the padded heads' rows dropped
 (``sparse_mla_grouped_reference`` is the plain mirror of that decomposition). The backward runs over chunks of queries: K5b writes
@@ -236,11 +242,41 @@ def sparse_mla_bwd_tiles_visited(indices: torch.Tensor, Sk: int,
 # ---------------------------------------------------------------------------
 
 def check_widths(H: int, Dq: int, v_dim: int) -> None:
-    """Raise ValueError unless the kernels take these widths: any ``H % 8 ==
-    0`` (the JAX kernel's condition on H) at ``Dq = 576, v_dim = 512``."""
-    if H <= 0 or H % 8 or (Dq, v_dim) != (DQ, DV):
-        raise ValueError(f"the sparse MLA kernels take H % 8 == 0, Dq = {DQ}, v_dim = {DV}; "
-                         f"got H = {H}, Dq = {Dq}, v_dim = {v_dim}")
+    """Raise ValueError unless the wrappers take these widths: any ``H % 8 ==
+    0`` (the JAX kernel's condition on H), ``Dq <= 576`` and ``v_dim <= 512``
+    with ``v_dim % 128 == 0`` and ``v_dim <= Dq`` (the kernels run at 576/512,
+    the narrower widths zero-padded)."""
+    if (H <= 0 or H % 8 or not 0 < Dq <= DQ or not 0 < v_dim <= min(DV, Dq)
+            or v_dim % 128):
+        raise ValueError(f"the sparse MLA kernels take H % 8 == 0, Dq <= {DQ} and v_dim <= "
+                         f"{DV} with v_dim % 128 == 0; got H = {H}, Dq = {Dq}, v_dim = {v_dim}")
+
+
+def _pad_cols(x: torch.Tensor, width: int) -> torch.Tensor:
+    return x if x.shape[-1] == width else torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+
+
+def fwd_padded(fwd, q, kv, indices, sm_scale: float, v_dim: int, **kw):
+    """``fwd(q, kv, indices, sm_scale, v_dim, **kw) -> (out, lse)`` run at
+    the built widths: q and kv zero-padded to ``DQ`` columns, the call made
+    at ``v_dim = DV``, out sliced back to ``v_dim``."""
+    if (q.shape[-1], v_dim) == (DQ, DV):
+        return fwd(q, kv, indices, sm_scale, v_dim, **kw)
+    out, lse = fwd(_pad_cols(q, DQ), _pad_cols(kv, DQ), indices, sm_scale, DV, **kw)
+    return out[..., :v_dim].contiguous(), lse
+
+
+def bwd_padded(bwd, q, kv, indices, out, lse, do, sm_scale: float, v_dim: int, **kw):
+    """``bwd(q, kv, indices, out, lse, do, sm_scale, v_dim, **kw) -> (dq,
+    dkv)`` run at the built widths: q and kv zero-padded to ``DQ`` columns,
+    out and do to ``DV`` (rowsum(out * do) is unchanged), dq and dkv sliced
+    back to q's width."""
+    dq_w = q.shape[-1]
+    if (dq_w, v_dim) == (DQ, DV):
+        return bwd(q, kv, indices, out, lse, do, sm_scale, v_dim, **kw)
+    dq, dkv = bwd(_pad_cols(q, DQ), _pad_cols(kv, DQ), indices, _pad_cols(out, DV), lse,
+                  _pad_cols(do, DV), sm_scale, DV, **kw)
+    return dq[..., :dq_w].contiguous(), dkv[..., :dq_w].contiguous()
 
 
 def _check_args(q, kv, indices, v_dim: int):
@@ -258,6 +294,8 @@ def sparse_mla_fwd(q, kv, indices, sm_scale: float, v_dim: int, tiles=None):
     Given ``tiles`` (int32 [S, 2]), the launches also write each token's tiles
     of ``FWD_TILE`` slots visited and its candidates there."""
     S, Sk, T = _check_args(q, kv, indices, v_dim)
+    if (q.shape[-1], v_dim) != (DQ, DV):
+        return fwd_padded(sparse_mla_fwd, q, kv, indices, sm_scale, v_dim, tiles=tiles)
     H = q.shape[1]
     Hp = padded_heads(H)
     qp = _pad_heads(q, Hp)
@@ -328,6 +366,9 @@ def sparse_mla_bwd_chunk(q, kv, indices, do, lse, delta, dq, dkvg, sm_scale: flo
     of ``BWD_TILE`` slots visited and its candidates there."""
     C, Sk, T = _check_args(q, kv, indices, v_dim)
     Hp = q.shape[1]
+    if (q.shape[-1], v_dim) != (DQ, DV):
+        raise ValueError(f"sparse_mla_bwd_chunk runs at the built widths Dq = {DQ}, v_dim = "
+                         f"{DV} (sparse_mla_bwd pads narrower ones); got {q.shape[-1]}, {v_dim}")
     if Hp % HEADS or h0 % HEADS or not 0 <= h0 < Hp:
         raise ValueError(f"sparse_mla_bwd_chunk: heads must be whole groups of {HEADS} and h0 "
                          f"one of their starts; got {Hp} heads, h0 = {h0}")
@@ -355,6 +396,9 @@ def sparse_mla_bwd(q, kv, indices, out, lse, do, sm_scale: float, v_dim: int, ti
     both bf16. Given ``tiles`` (int32 [S, 2]), each chunk's K5b launches also
     write its tokens' tile counts there."""
     S, Sk, T = _check_args(q, kv, indices, v_dim)
+    if (q.shape[-1], v_dim) != (DQ, DV):
+        return bwd_padded(sparse_mla_bwd, q, kv, indices, out, lse, do, sm_scale, v_dim,
+                          tiles=tiles)
     H = q.shape[1]
     Hp = padded_heads(H)
     do = do.contiguous()

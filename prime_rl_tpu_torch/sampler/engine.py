@@ -36,9 +36,21 @@ Architecture:
   so hybrids keep prefix reuse; a weight update flushes the tier with the
   prefix cache. P/D transfer of the rows waits for the P/D slice.
 
-Constrained decoding, LoRA adapters, multimodal inputs, P/D KV
-extraction/injection and the host KV tier are later slices: requests that
-ask for them raise ``NotImplementedError``.
+- Multi-LoRA (``lora_config``, a ``ServingLoRAConfig``): a device bank of
+  ``max_adapters + 1`` adapter rows per target, row 0 the zero adapter, in
+  the compute dtype, laid out A ``[NL, in, NA, r]`` and B ``[NL, NA, r,
+  out]``, so that a layer's A is one [in, NA·r] block and its B one [NA·r,
+  out] block (``sampler/model._lora_delta``). ``load_adapter`` / ``unload_adapter`` write a row
+  in place between steps. A request names its adapter
+  (``SamplingParams.adapter``); its prefill runs with that row and its slot
+  keeps it on the device (``_d_adapter``), so one decode step serves base and
+  adapter slots together. Prefill batches group by (bucket, adapter), and the
+  prefix cache's salt holds the adapter and its load generation, so that
+  pages computed under an adapter are reused only under the same load of it.
+
+Constrained decoding, multimodal inputs, P/D KV extraction/injection and the
+host KV tier are later slices: requests that ask for them raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -80,8 +92,9 @@ class SamplingParams:
     # extra prefix-cache isolation domain (the engine already flushes the
     # cache on every weight update)
     cache_salt: str | None = None
-    # the fields below belong to later slices; requests setting them raise
+    # serve base + this loaded adapter (multi-LoRA bank; None = the base)
     adapter: str | None = None
+    # the fields below belong to later slices; requests setting them raise
     extract_kv: bool = False
     json_schema: dict | None = None
     regex: str | None = None
@@ -195,6 +208,7 @@ class Engine:
         decode_block: int = 8,  # decode steps per dispatched block
         collect_routed_experts: bool = False,  # record decode-time MoE routing
         gdn_precision: str = "highest",  # ModelConfig.gdn_mxu_precision (hybrids)
+        lora_config=None,  # ServingLoRAConfig: enables the multi-LoRA bank
     ):
         smodel.check_supported(spec)
         self.spec = spec
@@ -205,6 +219,13 @@ class Engine:
             self.LOOKAHEAD = int(lookahead)
         self.decode_block = max(1, int(decode_block))
         self.compute_dtype = compute_dtype
+        self.lora_config = lora_config
+        self._lora_bank: dict[str, torch.Tensor] | None = None
+        self.adapters: dict[str, int] = {}
+        self._adapter_gen: dict[str, int] = {}  # loads of each name: the prefix salt
+        self._free_adapter_rows: list[int] = []
+        if lora_config is not None:
+            self._init_lora_bank()
         self.params = self._prepare_params(params)
         self.config = cache_config or CacheConfig()
         if self.config.host_cache_mb > 0:
@@ -256,6 +277,7 @@ class Engine:
         self._d_topp = torch.ones((s,), dtype=torch.float32, device=dev)
         self._d_limit = torch.zeros((s,), dtype=torch.int32, device=dev)
         self._d_stop = torch.full((s, self.MAX_STOP), -1, dtype=torch.int64, device=dev)
+        self._d_adapter = torch.zeros((s,), dtype=torch.int64, device=dev)  # bank rows
         self._d_table = self._to_dev(self.slots.page_table)
         self._table_dirty = False
         self._gen = torch.Generator(device=dev)
@@ -292,7 +314,109 @@ class Engine:
                 return {k: prep(v) for k, v in x.items()}
             return x.to(device=self.device, dtype=self.compute_dtype)
 
-        return smodel.unstack_params(prep(params), self.spec)
+        return self._attach_lora(smodel.unstack_params(prep(params), self.spec))
+
+    # -- multi-LoRA bank ----------------------------------------------------
+
+    def _init_lora_bank(self) -> None:
+        """The zero bank: row 0 the no-adapter identity (B = 0), rows 1..N
+        for loaded adapters, fixed shapes. It serves the dense projections
+        (q/k/v/o/gate/up/down); per-expert and MLA latent targets are
+        train-side only and served merged (``models/lora.merge_lora``), as in
+        the JAX package."""
+        from prime_rl_tpu_torch.models.lora import _TARGET_DIMS, resolve_targets, target_dims
+
+        cfg = self.lora_config
+        na, nl, r = cfg.max_adapters + 1, self.spec.num_layers, cfg.rank
+        bank: dict[str, torch.Tensor] = {}
+        for t in resolve_targets(cfg, self.spec):
+            if t not in _TARGET_DIMS or self.spec.kv_lora_rank > 0:
+                raise ValueError(
+                    f"LoRA target {t!r} is not servable via the adapter bank (servable: "
+                    f"{sorted(_TARGET_DIMS)} of a non-MLA model); merge the adapter into a "
+                    "weight snapshot instead (models/lora.merge_lora)")
+            din, dout = target_dims(t, self.spec)
+            kw = dict(dtype=self.compute_dtype, device=self.device)
+            bank[f"{t}_a"] = torch.zeros((nl, din, na, r), **kw)
+            bank[f"{t}_b"] = torch.zeros((nl, na, r, dout), **kw)
+        self._lora_bank = bank
+        self._free_adapter_rows = list(range(1, na))
+
+    def _attach_lora(self, serving_params: dict) -> dict:
+        """Give every layer its views of the bank (``lp["lora"]``, built whole
+        before it is set) and the scale; a row written in place later is
+        seen through them."""
+        if self._lora_bank is None:
+            return serving_params
+        scale = self.lora_config.alpha / self.lora_config.rank
+        for li, lp in enumerate(serving_params["layers"]):
+            new = {k: v[li] for k, v in self._lora_bank.items()}
+            new["scale"] = scale
+            lp["lora"] = new
+        return serving_params
+
+    def load_adapter(self, name: str, layers: dict) -> None:
+        """Install (or refresh) an adapter in the bank. ``layers``: stacked
+        ``{"q_a": [NL, in, r], "q_b": [NL, r, out], ...}`` (numpy or
+        tensors; ``models/lora.adapter_from_state_dict``). Live requests keep
+        their rows. Cross-thread safe through the step lock."""
+        if self._lora_bank is None:
+            raise RuntimeError("engine built without lora_config")
+        with self._step_lock:
+            row = self.adapters.get(name)
+            if row is None:
+                if not self._free_adapter_rows:
+                    raise RuntimeError(f"adapter bank full ({self.lora_config.max_adapters})")
+                row = self._free_adapter_rows[0]
+            for key, arr in layers.items():
+                if key not in self._lora_bank:
+                    raise ValueError(f"adapter tensor {key!r} not in the serving bank targets")
+                if tuple(arr.shape) != tuple(self._row(key, 0).shape):
+                    raise ValueError(
+                        f"{key}: adapter shape {tuple(arr.shape)} != bank "
+                        f"{tuple(self._row(key, 0).shape)} (rank/targets must match "
+                        "inference.lora)")
+            for key, arr in layers.items():
+                self._row(key, row).copy_(torch.as_tensor(arr))
+            if name not in self.adapters:
+                self._free_adapter_rows.remove(row)
+            self.adapters[name] = row
+            self._adapter_gen[name] = self._adapter_gen.get(name, 0) + 1
+
+    def unload_adapter(self, name: str) -> bool:
+        """Zero the adapter's row and free it; False if it was not loaded."""
+        if self._lora_bank is None:
+            return False
+        with self._step_lock:
+            row = self.adapters.pop(name, None)
+            if row is None:
+                return False
+            for key in self._lora_bank:
+                self._row(key, row).zero_()
+            self._free_adapter_rows.append(row)
+            return True
+
+    def _row(self, key: str, row: int) -> torch.Tensor:
+        """Bank row ``row`` of tensor ``key`` as the adapter's stack: A
+        [NL, in, r], B [NL, r, out] (views)."""
+        bank = self._lora_bank[key]
+        return bank[:, :, row] if key.endswith("_a") else bank[:, row]
+
+    def _adapter_row(self, sp: SamplingParams) -> int:
+        return self.adapters.get(sp.adapter, 0) if sp.adapter else 0
+
+    def _adapter_idx(self, row: int) -> torch.Tensor | None:
+        """The bank row as a 0-dim device tensor (None without a bank)."""
+        if self._lora_bank is None:
+            return None
+        return self._to_dev(np.asarray(row, np.int64))
+
+    def _salt(self, sp: SamplingParams) -> tuple:
+        """The prefix cache's salt: the request's domain, its adapter and
+        that adapter's load generation."""
+        if not sp.adapter:
+            return (sp.cache_salt, None)
+        return (sp.cache_salt, sp.adapter, self._adapter_gen.get(sp.adapter, 0))
 
     def _filtering(self, slots) -> bool:
         return bool(np.any((self._h_topp[slots] < 1.0) | (self._h_topk[slots] > MAX_TOP_K)))
@@ -303,8 +427,7 @@ class Engine:
                on_token=None, request_id: str | None = None) -> Future:
         sp = params or SamplingParams()
         unsupported = [name for name, on in (
-            ("constrained decoding", sp.constrained), ("LoRA adapters", bool(sp.adapter)),
-            ("P/D KV extraction", sp.extract_kv)) if on]
+            ("constrained decoding", sp.constrained), ("P/D KV extraction", sp.extract_kv)) if on]
         if unsupported:
             raise NotImplementedError(f"not ported yet: {', '.join(unsupported)}")
         req = _Request(list(prompt), sp, Future(), on_token, request_id=request_id)
@@ -414,7 +537,8 @@ class Engine:
                 # an explicit seed takes the single path: the batched pass
                 # folds all rows' seeds into one generator
                 and sp.seed is None
-                and n <= self.buckets[-1] and n + 1 <= self.config.max_seq_len)
+                and n <= self.buckets[-1] and n + 1 <= self.config.max_seq_len
+                and (not sp.adapter or sp.adapter in self.adapters))
 
     def _admit_batch_plain(self) -> bool:
         """Batch same-bucket pending prefills into one pass. Cache-hit
@@ -425,13 +549,14 @@ class Engine:
             return False
         with self._lock:
             window = list(self.pending)[: self.ADMIT_WINDOW]
-        groups: dict[int, list] = {}
+        groups: dict[tuple, list] = {}
         for req in window:
             if self._batchable(req):
-                groups.setdefault(_bucket(max(len(req.prompt), 1), self.buckets), []).append(req)
+                groups.setdefault((_bucket(max(len(req.prompt), 1), self.buckets),
+                                   req.params.adapter or ""), []).append(req)
         any_admitted = False
         ps = self.config.page_size
-        for lpad, reqs in groups.items():
+        for (lpad, adapter), reqs in groups.items():
             while len(reqs) >= 2:
                 bsz = next((b for b in self.PREFILL_BATCH_SIZES if b <= len(reqs)), 2)
                 chunk, reqs = reqs[:bsz], reqs[bsz:]
@@ -442,7 +567,7 @@ class Engine:
                     if self.slots.cache is not None:
                         n_shareable = ((n - 1) // ps) * ps
                         hashes = hash_pages(req.prompt[:n_shareable], ps,
-                                            salt=(req.params.cache_salt, None))
+                                            salt=self._salt(req.params))
                         if hashes and self.slots.cache.match_len(hashes) > 0:
                             continue  # the single path reuses the cached prefix
                     got = self.slots.acquire(self._acquire_want(req, n), hashes)
@@ -454,11 +579,11 @@ class Engine:
                         self.slots.cancel_donation(slot)  # pages never written
                         self.slots.release(slot)
                     return any_admitted
-                self._dispatch_prefill_batch(acquired, lpad)
+                self._dispatch_prefill_batch(acquired, lpad, adapter)
                 any_admitted = True
         return any_admitted
 
-    def _dispatch_prefill_batch(self, acquired: list, lpad: int) -> None:
+    def _dispatch_prefill_batch(self, acquired: list, lpad: int, adapter: str = "") -> None:
         ps = self.config.page_size
         real = len(acquired)
         bsz = next((b for b in reversed(self.PREFILL_BATCH_SIZES) if b >= real),
@@ -479,9 +604,11 @@ class Engine:
             topk[b] = sp.top_k
             topp[b] = sp.top_p
             seed_mix = (seed_mix * 1000003 + slot + 1) % (1 << 31)
+        row = self.adapters.get(adapter, 0) if adapter else 0
         _, _, last_hidden = smodel.prefill_batch(
             self.params, self.spec, self.k_pool, self.v_pool, self._to_dev(ids),
-            self._to_dev(lengths), self._to_dev(pages), compute_dtype=self.compute_dtype)
+            self._to_dev(lengths), self._to_dev(pages), compute_dtype=self.compute_dtype,
+            adapter_idx=self._adapter_idx(row))
         logits = smodel.logits_from_hidden(self.params, self.spec, last_hidden, self.compute_dtype)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed_mix)
@@ -517,6 +644,7 @@ class Engine:
         self._d_topp[idx] = d_topp[:real]
         self._d_limit[idx] = self._to_dev(limits)
         self._d_stop[idx] = self._to_dev(stop_rows)
+        self._d_adapter[idx] = row
 
     def _admit_pending(self) -> bool:
         """Admit every pending request that fits right now. The head never
@@ -545,6 +673,12 @@ class Engine:
                     self._reject(req, MemoryError(
                         f"prompt of {n} tokens cannot fit "
                         f"(max_seq_len={self.config.max_seq_len}, pool={total_pool_tokens})"))
+                    progress = True
+                    break
+                if req.params.adapter and req.params.adapter not in self.adapters:
+                    self._reject(req, ValueError(
+                        f"unknown LoRA adapter {req.params.adapter!r} "
+                        f"(loaded: {sorted(self.adapters)})"))
                     progress = True
                     break
                 if req.params.prompt_logprobs and n > self.buckets[-1]:
@@ -583,7 +717,7 @@ class Engine:
             # shareable: full pages strictly before the last prompt token (at
             # least one token is always computed -> last_hidden exists)
             n_shareable = ((n - 1) // ps) * ps
-            hashes = hash_pages(req.prompt[:n_shareable], ps, salt=(sp.cache_salt, None))
+            hashes = hash_pages(req.prompt[:n_shareable], ps, salt=self._salt(sp))
         # hybrid: page reuse is exact only up to a recurrent-state checkpoint:
         # cap the chain at the deepest boundary that has both the pages and a
         # snapshot
@@ -697,9 +831,12 @@ class Engine:
         d_topp = self._to_dev(np.asarray([sp.top_p], np.float32))
         filtering = sp.top_p < 1.0 or sp.top_k > MAX_TOP_K
         plp = None
+        adapter_row = self._adapter_row(sp)
+        adapter_idx = self._adapter_idx(adapter_row)
         if self.is_hybrid and (shared_tokens > 0 or n > self.buckets[-1]
                                or (self._state_tier is not None and hashes)):
-            last_hidden = self._prefill_hybrid_chunked(req, slot, n, n_shared, hashes or [], snap)
+            last_hidden = self._prefill_hybrid_chunked(req, slot, n, n_shared, hashes or [], snap,
+                                                       adapter_idx)
         elif shared_tokens == 0 and n <= self.buckets[-1]:
             # single-shot prefill (flash attention over the bucket)
             lpad = _bucket(n, self.buckets)
@@ -709,7 +846,8 @@ class Engine:
             out = smodel.prefill(
                 self.params, self.spec, self.k_pool, self.v_pool, self._to_dev(ids), n,
                 self._to_dev(pages), compute_dtype=self.compute_dtype,
-                want_prompt_logprobs=sp.prompt_logprobs, gdn_precision=self.gdn_precision)
+                want_prompt_logprobs=sp.prompt_logprobs, gdn_precision=self.gdn_precision,
+                adapter_idx=adapter_idx)
             _, _, last_hidden, plp = out[:4]
             if self.is_hybrid:
                 self._set_slot_rows(slot, out[4])  # seed the slot's recurrent rows
@@ -731,7 +869,8 @@ class Engine:
                 pchunk[: len(seg)] = seg
                 _, _, last_hidden = smodel.prefill_chunk(
                     self.params, self.spec, self.k_pool, self.v_pool, self._to_dev(ids), off,
-                    valid, self._to_dev(pchunk), row_dev, compute_dtype=self.compute_dtype)
+                    valid, self._to_dev(pchunk), row_dev, compute_dtype=self.compute_dtype,
+                    adapter_idx=adapter_idx)
         logits = smodel.logits_from_hidden(self.params, self.spec, last_hidden[None],
                                            self.compute_dtype)
         tok, lp = sample_tokens(logits, d_temp, d_topk, d_topp, gen, filtering=filtering)
@@ -752,6 +891,7 @@ class Engine:
         self._d_topp[slot] = sp.top_p
         self._d_limit[slot] = limit
         self._d_stop[slot] = self._to_dev(self._stop_row(sp))
+        self._d_adapter[slot] = adapter_row
         if sp.max_tokens <= 0:
             self._finalize_scoring_only(active)
 
@@ -791,7 +931,7 @@ class Engine:
             self.stats["state_snapshots"] = self.stats.get("state_snapshots", 0) + 1
 
     def _prefill_hybrid_chunked(self, req: _Request, slot: int, n: int, n_shared: int,
-                                hashes: list[int], snap) -> torch.Tensor:
+                                hashes: list[int], snap, adapter_idx=None) -> torch.Tensor:
         """Chunked prefill of a hybrid model: restore the boundary snapshot
         (zeros for a fresh start), run page-aligned chunks threading the
         recurrent rows, and checkpoint the rows at the last full-page boundary
@@ -826,7 +966,7 @@ class Engine:
                 _, _, last_hidden, rows_out = smodel.prefill_chunk(
                     self.params, self.spec, self.k_pool, self.v_pool, self._to_dev(ids), off,
                     valid, self._to_dev(pchunk), row_dev, compute_dtype=self.compute_dtype,
-                    r_rows=rows_in, gdn_precision=self.gdn_precision)
+                    r_rows=rows_in, gdn_precision=self.gdn_precision, adapter_idx=adapter_idx)
                 self._set_slot_rows(slot, rows_out)
 
         # up to the shareable boundary, checkpointed there; then the tail
@@ -885,7 +1025,8 @@ class Engine:
                                 tokens, lengths, self._d_table,
                                 compute_dtype=self.compute_dtype,
                                 collect_routing=self._collect_routed,
-                                r_conv=self.r_conv, r_state=self.r_state)
+                                r_conv=self.r_conv, r_state=self.r_state,
+                                adapter_idx=None if self._lora_bank is None else self._d_adapter)
             logits = out[2]
             if self._collect_routed:
                 routed_rows.append(out[3])

@@ -55,8 +55,12 @@ Chunked prefill attention (``_chunk_attention_xla``), MLA decode and chunked
 prefill, the GatedDeltaNet and Mamba-2 layers and the MoE layers
 (``ops/moe.py``) are plain PyTorch, as they are XLA in the JAX package.
 
-LoRA, vision inputs and int8 weights are later slices: ``check_supported``
-and the layers raise ``NotImplementedError`` for them.
+Multi-LoRA (the engine's bank, ``lp["lora"]``): the prefill, the chunk and
+decode take ``adapter_idx``, the bank row of the prompt or of each slot, and
+add ``_lora_delta`` to q, k, v, o, gate, up and down of the dense paths, as
+the JAX sampler does (plain PyTorch, as it is XLA there); with a bank K3
+never runs (``takes_k3``). Vision inputs and int8 weights are later slices:
+``check_supported`` and the layers raise ``NotImplementedError`` for them.
 """
 
 from __future__ import annotations
@@ -81,6 +85,7 @@ from prime_rl_tpu_torch.ops.attention import attention
 from prime_rl_tpu_torch.ops.decode_attention import (
     decode_attention_xla as _decode_attention_xla,
     decode_paged_attention,
+    decode_paged_attention_reference,
     write_tokens as _write_tokens,
 )
 from prime_rl_tpu_torch.ops.decode_qkv import decode_qkv_prep
@@ -116,20 +121,70 @@ def _mm(x: torch.Tensor, w) -> torch.Tensor:
     return x @ w
 
 
-def _qkv(x, lp, spec, positions, inv_freq, rope_scaling: float = 1.0):
-    """Shared q/k/v projection (+ optional biases) + qk-norm (per head, or
-    over the flat width of the layer before the head reshape) + rope.
-    x: [B, T, D]."""
+def _lora_delta(x, lora: dict | None, name: str, idx):
+    """The multi-LoRA delta of projection ``name``. ``lora`` (``lp["lora"]``):
+    this layer's bank, ``{t}_a`` [in, NA, r] and ``{t}_b`` [NA, r, out] (row 0
+    the zero adapter), and its ``scale``. ``idx``: one bank row (a 0-dim
+    tensor: a prefill's), or the decode step's pick ([S, NA * r],
+    ``lora_pick``: each slot's row as a mask over the bank's columns, times
+    the scale). x: [B, T, in] -> [B, T, out], or None without a bank or an
+    adapter on ``name``.
+
+    The JAX function gathers each slot's A and B (``a[idx]``): at 64 slots of
+    Qwen3-0.6B's rank-16 adapters that is about 1.3 GB copied a decode step.
+    Here x·A runs over every bank row in one product ([S·T, in] by the
+    bank's [in, NA·r], a view), the pick keeps each slot's own r columns,
+    and the kept columns go through every row's B in a second product
+    ([NA·r, out], a view): the same function (the other rows add exact
+    zeros), four launches a projection, no per-slot copy of a weight and no
+    read back to the host (a CUDA graph can hold it)."""
+    if lora is None or f"{name}_a" not in lora or idx is None:
+        return None
+    a, b_ = lora[f"{name}_a"], lora[f"{name}_b"]
+    if idx.dim() == 0:
+        row = idx.reshape(1).long()
+        delta = (x @ a.index_select(1, row)[:, 0].to(x.dtype)) @ b_.index_select(0, row)[0].to(
+            x.dtype)
+        return delta * lora["scale"]
+    din, na, r = a.shape
+    xa = (x @ a.reshape(din, na * r).to(x.dtype)) * idx[:, None, :]
+    return xa @ b_.reshape(na * r, -1).to(x.dtype)
+
+
+def lora_pick(params: Params, adapter_idx: torch.Tensor, dtype) -> torch.Tensor | None:
+    """The decode step's bank pick from each slot's bank row ``adapter_idx``
+    [S]: [S, NA * r] in ``dtype``, the bank's scale at the r columns of the
+    slot's row and 0 elsewhere (None without a bank). Made once a step, by a
+    comparison (``one_hot``'s CUDA form reads the ids' range back)."""
+    bank = next((lp["lora"] for lp in params["layers"] if "lora" in lp), None)
+    if bank is None:
+        return None
+    _, na, r = next(v for k, v in bank.items() if k.endswith("_a")).shape
+    keep = adapter_idx.long()[:, None] == torch.arange(na, device=adapter_idx.device)[None, :]
+    return keep.repeat_interleave(r, dim=1).to(dtype) * bank["scale"]
+
+
+def _mm_l(x, w, lora, name, idx):
+    """``_mm`` plus the multi-LoRA delta of ``name`` for the rows ``idx``."""
+    out = _mm(x, w)
+    d = _lora_delta(x, lora, name, idx)
+    return out if d is None else out + d
+
+
+def _qkv(x, lp, spec, positions, inv_freq, rope_scaling: float = 1.0, adapter_idx=None):
+    """Shared q/k/v projection (+ optional biases + multi-LoRA) + qk-norm
+    (per head, or over the flat width of the layer before the head reshape)
+    + rope. x: [B, T, D]."""
     b, t, _ = x.shape
-    if "lora" in lp:
-        raise NotImplementedError("LoRA serving is not ported yet")
-    qf, kf = _mm(x, lp["q"]), _mm(x, lp["k"])
+    lora = lp.get("lora")
+    qf = _mm_l(x, lp["q"], lora, "q", adapter_idx)
+    kf = _mm_l(x, lp["k"], lora, "k", adapter_idx)
     if spec.qk_norm and spec.qk_norm_scope == "layer":
         qf = rms_norm(qf, lp["q_norm"], spec.rms_eps)
         kf = rms_norm(kf, lp["k_norm"], spec.rms_eps)
     q = qf.reshape(b, t, spec.num_heads, spec.head_dim)
     k = kf.reshape(b, t, spec.num_kv_heads, spec.head_dim)
-    v = _mm(x, lp["v"]).reshape(b, t, spec.num_kv_heads, spec.head_dim)
+    v = _mm_l(x, lp["v"], lora, "v", adapter_idx).reshape(b, t, spec.num_kv_heads, spec.head_dim)
     if lp.get("q_bias") is not None:
         q = q + lp["q_bias"].to(q.dtype).reshape(1, 1, spec.num_heads, spec.head_dim)
         k = k + lp["k_bias"].to(k.dtype).reshape(1, 1, spec.num_kv_heads, spec.head_dim)
@@ -142,12 +197,13 @@ def _qkv(x, lp, spec, positions, inv_freq, rope_scaling: float = 1.0):
     return q, k, v
 
 
-def _mlp(x, lp, spec, routed: list | None = None):
+def _mlp(x, lp, spec, routed: list | None = None, adapter_idx=None):
     """Dense SwiGLU or the routed experts (plus the shared expert where the
     layer has one), decided per layer (``"router"`` in the layer's dict), so
     glm4_moe's dense first layers take the dense path. x: [B, T, D].
     ``routed``: a list that a MoE layer appends its expert ids [B*T, K] to
-    (router replay)."""
+    (router replay). ``adapter_idx``: the multi-LoRA bank rows of the dense
+    path (the bank serves no expert, as in the JAX package)."""
     if "router" in lp:
         b, t, d = x.shape
         xf = x.reshape(b * t, d)
@@ -174,7 +230,10 @@ def _mlp(x, lp, spec, routed: list | None = None):
         if routed is not None:
             routed.append(routing.expert_ids)
         return post_mlp(out.reshape(b, t, d), lp, spec)
-    return post_mlp(_mm(swiglu(_mm(x, lp["gate"]), _mm(x, lp["up"])), lp["down"]), lp, spec)
+    lora = lp.get("lora")
+    h = swiglu(_mm_l(x, lp["gate"], lora, "gate", adapter_idx),
+               _mm_l(x, lp["up"], lora, "up", adapter_idx))
+    return post_mlp(_mm_l(h, lp["down"], lora, "down", adapter_idx), lp, spec)
 
 
 def _stack_routing(routed: list, lead: tuple[int, ...]) -> torch.Tensor:
@@ -550,6 +609,7 @@ def prefill(
     compute_dtype=torch.bfloat16,
     want_prompt_logprobs: bool = False,
     gdn_precision: str = "highest",
+    adapter_idx: torch.Tensor | None = None,  # 0-dim: the LoRA bank row (0 = none)
 ):
     """Returns (k_pool, v_pool, last_hidden [D], prompt_logprobs [Lpad]|None),
     the pools written in place, and for a hybrid spec a fifth element: the
@@ -572,7 +632,7 @@ def prefill(
             # recurrent layer: no pages; the slot's rows for the decode pool
             h, conv_row, state_row = _gdn_prefill_mixer(h, lp, spec, segment_ids, int(length),
                                                         compute_dtype, gdn_precision)
-            h = h + _mlp(rms_norm(h, lp["mlp_norm"], spec.rms_eps), lp, spec)
+            h = h + _mlp(rms_norm(h, lp["mlp_norm"], spec.rms_eps), lp, spec, None, adapter_idx)
             r_rows.append((conv_row, state_row))
             continue
         if kind == "M":
@@ -597,19 +657,20 @@ def prefill(
             # latent rows (and DSA's indexer keys) paged into the pools
             h, latent, idx_rows = _mla_prefill_block(h, lp, spec, segment_ids, positions,
                                                      _mla_freqs(spec, device))
-            h = h + _mlp(rms_norm(h, lp["mlp_norm"], spec.rms_eps), lp, spec)
+            h = h + _mlp(rms_norm(h, lp["mlp_norm"], spec.rms_eps), lp, spec, None, adapter_idx)
             _write_pages(k_l, latent[0].reshape(1, n_pages, page_size, -1), pages)
             if idx_rows is not None:
                 _write_pages(v_l, idx_rows[0].reshape(1, n_pages, page_size, -1), pages)
             continue
         x = rms_norm(h, lp["attn_norm"], spec.rms_eps)
         freqs = layer_rope_frequencies(spec, inv_freq, win)
-        q, k, v = _qkv(x, lp, spec, positions, freqs, rope_scaling)
+        q, k, v = _qkv(x, lp, spec, positions, freqs, rope_scaling, adapter_idx)
         o = attention(q, k, v, segment_ids, causal=True, window=win, sinks=lp.get("sink"))
         o = apply_attn_gate(o, x, lp, spec)
-        proj = _mm(o.reshape(1, lpad, spec.q_dim), lp["o"]) + _obias(lp, h.dtype)
+        proj = _mm_l(o.reshape(1, lpad, spec.q_dim), lp["o"], lp.get("lora"), "o",
+                     adapter_idx) + _obias(lp, h.dtype)
         h = h + post_attn(proj, lp, spec)
-        h = h + _mlp(rms_norm(h, lp["mlp_norm"], spec.rms_eps), lp, spec)
+        h = h + _mlp(rms_norm(h, lp["mlp_norm"], spec.rms_eps), lp, spec, None, adapter_idx)
         _write_pages(k_l, _layer_kv_pages(k, n_pages, page_size, spec), pages)
         _write_pages(v_l, _layer_kv_pages(v, n_pages, page_size, spec), pages)
     h = rms_norm(h, params["final_norm"], spec.rms_eps)
@@ -642,6 +703,7 @@ def prefill_batch(
     pages: torch.Tensor,  # [B, Lpad // page_size] per-row page rows
     *,
     compute_dtype=torch.bfloat16,
+    adapter_idx: torch.Tensor | None = None,  # 0-dim: one adapter for the batch
 ):
     """Batched prefill: B prompts through one pass. Rows are independent
     (per-row segment masking, per-row page writes); dummy rows (length 0,
@@ -664,12 +726,13 @@ def prefill_batch(
         lp = _cast_layer(lp, compute_dtype)
         x = rms_norm(h, lp["attn_norm"], spec.rms_eps)
         freqs = layer_rope_frequencies(spec, inv_freq, win)
-        q, k, v = _qkv(x, lp, spec, positions, freqs, rope_scaling)
+        q, k, v = _qkv(x, lp, spec, positions, freqs, rope_scaling, adapter_idx)
         o = attention(q, k, v, segment_ids, causal=True, window=win, sinks=lp.get("sink"))
         o = apply_attn_gate(o, x, lp, spec)
-        proj = _mm(o.reshape(b, lpad, spec.q_dim), lp["o"]) + _obias(lp, h.dtype)
+        proj = _mm_l(o.reshape(b, lpad, spec.q_dim), lp["o"], lp.get("lora"), "o",
+                     adapter_idx) + _obias(lp, h.dtype)
         h = h + post_attn(proj, lp, spec)
-        h = h + _mlp(rms_norm(h, lp["mlp_norm"], spec.rms_eps), lp, spec)
+        h = h + _mlp(rms_norm(h, lp["mlp_norm"], spec.rms_eps), lp, spec, None, adapter_idx)
         _write_pages(k_l, _layer_kv_pages(k, n_pages, page_size, spec), flat_pages)
         _write_pages(v_l, _layer_kv_pages(v, n_pages, page_size, spec), flat_pages)
     h = rms_norm(h, params["final_norm"], spec.rms_eps)
@@ -722,6 +785,7 @@ def prefill_chunk(
     compute_dtype=torch.bfloat16,
     r_rows: list | None = None,  # hybrid: per-layer (conv_row, state_row) at offset | None
     gdn_precision: str = "highest",
+    adapter_idx: torch.Tensor | None = None,  # 0-dim: the LoRA bank row (0 = none)
 ):
     """One chunk of an incremental prefill: computes K/V for positions
     [offset, offset+C), writes them into the slot's pages, and attends over
@@ -749,7 +813,7 @@ def prefill_chunk(
         if kind == "L":
             h, conv_row, state_row = _gdn_chunk_mixer(h, lp, spec, seg, int(valid), *r_rows[li],
                                                       compute_dtype, gdn_precision)
-            h = h + _mlp(rms_norm(h, lp["mlp_norm"], spec.rms_eps), lp, spec)
+            h = h + _mlp(rms_norm(h, lp["mlp_norm"], spec.rms_eps), lp, spec, None, adapter_idx)
             r_out.append((conv_row, state_row))
             continue
         if kind == "M":
@@ -773,42 +837,60 @@ def prefill_chunk(
         if spec.kv_lora_rank > 0:
             h = _mla_chunk_block(h, lp, spec, k_l, v_l, positions, _mla_freqs(spec, device),
                                  n_pages, pages_chunk, page_row, valid_hi, compute_dtype)
-            h = h + _mlp(rms_norm(h, lp["mlp_norm"], spec.rms_eps), lp, spec)
+            h = h + _mlp(rms_norm(h, lp["mlp_norm"], spec.rms_eps), lp, spec, None, adapter_idx)
             continue
         x = rms_norm(h, lp["attn_norm"], spec.rms_eps)
         freqs = layer_rope_frequencies(spec, inv_freq, win)
-        q, k, v = _qkv(x, lp, spec, positions, freqs, rope_scaling)
+        q, k, v = _qkv(x, lp, spec, positions, freqs, rope_scaling, adapter_idx)
         _write_pages(k_l, _layer_kv_pages(k, n_pages, page_size, spec), pages_chunk)
         _write_pages(v_l, _layer_kv_pages(v, n_pages, page_size, spec), pages_chunk)
         o = _chunk_attention_xla(q[0].to(compute_dtype), k_l, v_l, q_pos, page_row, valid_hi,
                                  window=win, sinks=lp.get("sink"))
         o = apply_attn_gate(o, x[0], lp, spec)
-        proj = _mm(o.reshape(1, c, spec.q_dim).to(compute_dtype), lp["o"]) + _obias(lp, h.dtype)
+        proj = _mm_l(o.reshape(1, c, spec.q_dim).to(compute_dtype), lp["o"], lp.get("lora"),
+                     "o", adapter_idx) + _obias(lp, h.dtype)
         h = h + post_attn(proj, lp, spec)
-        h = h + _mlp(rms_norm(h, lp["mlp_norm"], spec.rms_eps), lp, spec)
+        h = h + _mlp(rms_norm(h, lp["mlp_norm"], spec.rms_eps), lp, spec, None, adapter_idx)
     h = rms_norm(h, params["final_norm"], spec.rms_eps)
     if r_rows is not None:
         return k_pool, v_pool, h[0, max(int(valid) - 1, 0)], r_out
     return k_pool, v_pool, h[0, max(int(valid) - 1, 0)]
 
 
-def takes_k3(spec: ModelSpec, lp: dict) -> bool:
+def takes_k3(spec: ModelSpec, lp: dict, adapter_idx=None) -> bool:
     """Whether a decode layer prepares its q/k/v in K3 on the card: the JAX
     package's choice of its kernel (``sampler/model.py`` ``decode``), not for
-    a layer-scope qk-norm, a gated layer, Nemotron-H's bare attention, LoRA
-    or int8 weights, whose q/k/v are plain PyTorch on the card as they are XLA
-    on the TPU."""
+    a layer-scope qk-norm, a gated layer, Nemotron-H's bare attention, a
+    multi-LoRA bank (``adapter_idx`` given or ``"lora"`` in the layer: every
+    slot, a base one too, runs the delta) or int8 weights, whose q/k/v are
+    plain PyTorch on the card as they are XLA on the TPU."""
     return (spec.qk_norm_scope != "layer" and not spec.attn_gate and not spec.layer_pattern
-            and "lora" not in lp and not isinstance(lp["q"], dict))
+            and adapter_idx is None and "lora" not in lp and not isinstance(lp["q"], dict))
+
+
+def takes_k4(spec: ModelSpec) -> bool:
+    """Whether decode attention runs in K4 on the card: head dim 64 or a
+    multiple of 128 (the JAX decode's ``hd % 128 == 0``, and 64, where the
+    port runs K4 and the JAX package XLA: a divergence logged in ROADMAP.md
+    Queue 3). K4 is built for 64, 128 and 256 and refuses 384 and 512, which
+    the JAX kernel takes; every other head dim (the debug specs' 32, 96)
+    takes the plain paged decode attention, as the JAX decode sends it to
+    XLA."""
+    return spec.head_dim == 64 or spec.head_dim % 128 == 0
 
 
 def _decode_attn_fused_local(q_t, k_t, v_t, k_l, v_l, lengths, page_table, window=0,
-                             sinks=None):
+                             sinks=None, k4: bool = True):
     """Fused append + attention for one decode step (single device):
-    ``lengths`` EXCLUDE the new token. K4 for CUDA tensors; for CPU tensors
-    ``_write_tokens`` + ``_decode_attention_xla`` over lengths + 1."""
-    return decode_paged_attention(q_t, k_t.to(k_l.dtype), v_t.to(v_l.dtype), k_l, v_l,
-                                  lengths, page_table, window=window or 0, sinks=sinks)
+    ``lengths`` EXCLUDE the new token. K4 for CUDA tensors where ``k4`` (the
+    spec's ``takes_k4``); otherwise, and for CPU tensors, ``_write_tokens`` +
+    ``_decode_attention_xla`` over lengths + 1."""
+    k_t, v_t = k_t.to(k_l.dtype), v_t.to(v_l.dtype)
+    if k4:
+        return decode_paged_attention(q_t, k_t, v_t, k_l, v_l, lengths, page_table,
+                                      window=window or 0, sinks=sinks)
+    return decode_paged_attention_reference(q_t, k_t, v_t, k_l, v_l, lengths, page_table,
+                                            window=window or 0, sinks=sinks)
 
 
 def decode(
@@ -824,6 +906,7 @@ def decode(
     collect_routing: bool = False,
     r_conv: list | None = None,  # hybrid: per-layer [S, conv_dim, K] | None, in place
     r_state: list | None = None,  # hybrid: per-layer [S, Hv, Dk, Dv] f32 | None, in place
+    adapter_idx: torch.Tensor | None = None,  # [S]: each slot's LoRA bank row (0 = none)
 ):
     """One decode step for all S slots: writes the new token's K/V, attends
     over lengths+1 tokens, returns (k_pool, v_pool, logits [S, V] f32) with
@@ -835,6 +918,8 @@ def decode(
     device = tokens.device
     inv_freq, rope_scaling = _rope(spec, device)
     positions = lengths[:, None]  # [S, 1]: 0-based position of the new token
+    if adapter_idx is not None:
+        adapter_idx = lora_pick(params, adapter_idx, compute_dtype)
     h = params["embed"].to(compute_dtype)[tokens.long()][:, None, :]  # [S, 1, D]
     routed = [] if collect_routing else None
     if spec.kv_lora_rank > 0:
@@ -843,6 +928,7 @@ def decode(
         flat_idx = page_idx * ps + lengths.long() % ps  # [S]: the new token's row
         mla_freqs = _mla_freqs(spec, device)
     kinds = layer_kinds(spec)
+    k4 = takes_k4(spec)
     for li, (lp, k_l, v_l, win, kind) in enumerate(zip(params["layers"], k_pool, v_pool,
                                                        layer_windows_list(spec), kinds)):
         lp = _cast_layer(lp, compute_dtype)
@@ -852,7 +938,7 @@ def decode(
             r_conv[li].copy_(conv_st)
             r_state[li].copy_(rec_st)
             if kind == "L":
-                h = h + _mlp(rms_norm(h, lp["mlp_norm"], spec.rms_eps), lp, spec, routed)
+                h = h + _mlp(rms_norm(h, lp["mlp_norm"], spec.rms_eps), lp, spec, routed, adapter_idx)
             continue
         if kind in ("-", "E"):
             h = _tokenwise_block(h, lp, spec, routed)
@@ -861,16 +947,16 @@ def decode(
             # Nemotron-H's bare attention: K4 with the token's append
             q, k, v = _bare_attn(h, lp, spec)
             o, _, _ = _decode_attn_fused_local(q[:, 0].to(compute_dtype), k[:, 0], v[:, 0], k_l,
-                                               v_l, lengths, page_table)
+                                               v_l, lengths, page_table, k4=k4)
             h = h + _mm(o.reshape(s, 1, spec.q_dim).to(compute_dtype), lp["o"])
             continue
         if spec.kv_lora_rank > 0:
             h = _mla_decode_block(h, lp, spec, k_l, v_l, lengths + 1, page_table, positions,
                                   mla_freqs, flat_idx, compute_dtype)
-            h = h + _mlp(rms_norm(h, lp["mlp_norm"], spec.rms_eps), lp, spec, routed)
+            h = h + _mlp(rms_norm(h, lp["mlp_norm"], spec.rms_eps), lp, spec, routed, adapter_idx)
             continue
         freqs = layer_rope_frequencies(spec, inv_freq, win)
-        if h.is_cuda and takes_k3(spec, lp):
+        if h.is_cuda and takes_k3(spec, lp, adapter_idx):
             # one launch for norm + qkv + bias + qk-norm + rope (K3)
             q3, k3, v3 = decode_qkv_prep(
                 h[:, 0], lp["attn_norm"], lp["q"], lp["k"], lp["v"], lengths, freqs,
@@ -882,16 +968,17 @@ def decode(
             )
         else:
             x = rms_norm(h, lp["attn_norm"], spec.rms_eps)
-            q, k, v = _qkv(x, lp, spec, positions, freqs, rope_scaling)
+            q, k, v = _qkv(x, lp, spec, positions, freqs, rope_scaling, adapter_idx)
             q3, k3, v3 = q[:, 0].to(compute_dtype), k[:, 0], v[:, 0]
         o, _, _ = _decode_attn_fused_local(q3.to(compute_dtype), k3, v3, k_l, v_l, lengths,
-                                           page_table, window=win, sinks=lp.get("sink"))
+                                           page_table, window=win, sinks=lp.get("sink"), k4=k4)
         if spec.attn_gate:
             # the gate reads the normed block input, whichever branch made q/k/v
             o = apply_attn_gate(o, rms_norm(h[:, 0], lp["attn_norm"], spec.rms_eps), lp, spec)
-        proj = _mm(o.reshape(s, 1, spec.q_dim).to(compute_dtype), lp["o"]) + _obias(lp, h.dtype)
+        proj = _mm_l(o.reshape(s, 1, spec.q_dim).to(compute_dtype), lp["o"], lp.get("lora"),
+                     "o", adapter_idx) + _obias(lp, h.dtype)
         h = h + post_attn(proj, lp, spec)
-        h = h + _mlp(rms_norm(h, lp["mlp_norm"], spec.rms_eps), lp, spec, routed)
+        h = h + _mlp(rms_norm(h, lp["mlp_norm"], spec.rms_eps), lp, spec, routed, adapter_idx)
     h = rms_norm(h, params["final_norm"], spec.rms_eps)
     logits = logits_from_hidden(params, spec, h[:, 0], compute_dtype)
     if collect_routing:

@@ -83,8 +83,8 @@ class InferenceServer:
             web.post("/pause", self.pause),
             web.post("/resume", self.resume),
             web.post("/update_weights", self.update_weights),
-            web.post("/load_lora_adapter", self.not_ported),
-            web.post("/unload_lora_adapter", self.not_ported),
+            web.post("/load_lora_adapter", self.load_lora_adapter),
+            web.post("/unload_lora_adapter", self.unload_lora_adapter),
             web.post("/pd/prefill", self.not_ported),
             web.post("/pd/inject", self.not_ported),
             web.get("/liveness", self.liveness),
@@ -181,11 +181,13 @@ class InferenceServer:
             raise NotImplementedError("constrained decoding")
         prompt = self.tokenizer.apply_chat_template(
             body["messages"], tokenize=True, add_generation_prompt=True)
+        model = body.get("model")
         sp = SamplingParams(
             max_tokens=int(body.get("max_tokens") or body.get("max_completion_tokens") or 512),
             temperature=float(body.get("temperature", 1.0)),
             top_p=float(body.get("top_p", 1.0)),
             seed=body.get("seed"),
+            adapter=model if model in self.engine.adapters else None,
         )
         if body.get("stream"):
             return await self._stream_chat(request, body, prompt, sp)
@@ -341,6 +343,40 @@ class InferenceServer:
         get_logger().info(f"updated weights from {weight_dir} (v{version}) in "
                           f"{time.perf_counter() - t0:.1f}s")
         return web.json_response({"status": "ok", "version": version})
+
+    async def load_lora_adapter(self, request: web.Request) -> web.Response:
+        """Install a PEFT-style adapter into the serving bank. Body:
+        ``{"lora_name": ..., "lora_path": <dir or .safetensors>}``; the file
+        is read on a worker thread (``models/lora.load_adapter_file``)."""
+        if self.engine.lora_config is None:
+            return web.json_response(
+                {"error": "server started without inference.lora config"}, status=501)
+        body = await request.json()
+        name, path = body.get("lora_name"), body.get("lora_path")
+        if not name or not path:
+            raise web.HTTPBadRequest(text="lora_name and lora_path required")
+        from prime_rl_tpu_torch.models.lora import load_adapter_file
+
+        try:
+            layers = await asyncio.get_running_loop().run_in_executor(
+                None, load_adapter_file, path, self.engine.spec)
+            self.engine.pause()
+            try:
+                self.engine.load_adapter(str(name), layers)
+            finally:
+                self.engine.resume()
+        except (ValueError, RuntimeError, FileNotFoundError) as e:
+            return web.json_response({"error": str(e)}, status=400)
+        get_logger().info(f"loaded LoRA adapter {name!r} from {path}")
+        return web.json_response({"status": "ok", "adapters": sorted(self.engine.adapters)})
+
+    async def unload_lora_adapter(self, request: web.Request) -> web.Response:
+        body = await request.json()
+        name = body.get("lora_name")
+        if not name:
+            raise web.HTTPBadRequest(text="lora_name required")
+        ok = self.engine.unload_adapter(str(name)) if self.engine.lora_config else False
+        return web.json_response({"status": "ok" if ok else "not_found"})
 
     async def not_ported(self, request: web.Request) -> web.Response:
         return web.json_response(

@@ -10,9 +10,18 @@ Version protocol: policy v0 = initial weights published at startup; after
 consuming batch ``s`` the trainer publishes v``s+1``. The orchestrator gates
 dispatch and shipment on these versions.
 
-More than one process (the micro-batch packer), multi-tenant LoRA runs,
-token export, the metrics server and the heartbeat raise until their
-slices."""
+LoRA (``model.lora``): the base is frozen in the compute dtype
+(``init_base_params``), the state holds the adapter tree, and each publish
+hands the sampler the merge of the two (``merge_lora``: new tensors for the
+merged projections, so that neither the colocated swap nor a snapshot writes
+into the trainer's base); each weight snapshot also gets the standalone PEFT
+adapter under ``adapter/`` (``export_adapter``). ``multi_run``: batches are
+routed to the tenant ``run_{run_idx}`` of a ``MultiRunManager``, whose
+adapter state the step then trains; a tenant's merged weights and adapter are
+published under ``runs/run_{i}/weights/step_N`` on its own step count.
+
+More than one process (the micro-batch packer), token export, the metrics
+server and the heartbeat raise until their slices."""
 
 from __future__ import annotations
 
@@ -36,11 +45,13 @@ from prime_rl_tpu_torch.trainer.step import (
     TrainState,
     init_train_state,
     make_train_step,
+    params_fingerprint,
 )
 from prime_rl_tpu_torch.trainer.weights import WeightCheckpointManager
 from prime_rl_tpu_torch.transport import setup_training_batch_receiver
 from prime_rl_tpu_torch.utils.device import resolve_device
 from prime_rl_tpu_torch.utils.logger import get_logger, setup_logger
+from prime_rl_tpu_torch.utils import pathing
 from prime_rl_tpu_torch.utils.monitor import setup_monitor
 from prime_rl_tpu_torch.utils.pathing import logs_dir
 
@@ -51,11 +62,19 @@ class TrainResult(NamedTuple):
 
 def reject_unported_model(config) -> None:
     """The refusals the RL and SFT trainers share (``config``: a
-    ``TrainerConfig`` or an ``SFTConfig``): LoRA, a truncated vocabulary
-    without random init, and a mesh larger than one device."""
+    ``TrainerConfig`` or an ``SFTConfig``): LoRA on a family the port does not
+    train yet (every ported family's forward takes an adapter; the VLM
+    family waits for its slice), a truncated vocabulary without random init,
+    and a mesh larger than one device."""
     if config.model.lora is not None:
-        raise NotImplementedError("LoRA training waits for the LoRA slice (ROADMAP.md, Queue 1 "
-                                  "item 8)")
+        from prime_rl_tpu_torch.models import FAMILIES
+
+        spec = get_spec(config.model.name, num_layers=config.model.debug.num_layers,
+                        vocab_size=config.model.debug.vocab_size)
+        if spec.family not in FAMILIES:
+            raise NotImplementedError(
+                f"LoRA on the {spec.family!r} family waits for that family's slice "
+                "(ROADMAP.md, Queue 1 item 9)")
     if config.model.debug.vocab_size is not None and not config.model.debug.random_init:
         # a truncated vocabulary cannot load a checkpoint's embeddings and head
         raise ValueError("model.debug.vocab_size truncates the vocabulary and needs "
@@ -68,14 +87,41 @@ def reject_unported_model(config) -> None:
 
 def _reject_unported(config: TrainerConfig) -> None:
     waiting = [name for name, on in (
-        ("multi_run", config.multi_run),
         ("token_export_rows", config.token_export_rows > 0),
         ("metrics_server", config.metrics_server.enable),
         ("heartbeat_url", config.heartbeat_url is not None)) if on]
     if waiting:
         raise NotImplementedError(f"{', '.join(waiting)}: not ported yet (ROADMAP.md, "
-                                  "Queue 1: item 8 for multi_run, item 10 for the rest)")
+                                  "Queue 1 item 10)")
+    if config.multi_run and config.model.lora is None:
+        raise ValueError("multi_run trains one LoRA adapter a tenant and needs model.lora")
     reject_unported_model(config)
+
+
+def lora_setup(config, spec, device, optimizer, init_params):
+    """(base_params, adapter state) of LoRA mode: the frozen base in the
+    compute dtype (the given weights, or a random init from ``seed``) and
+    the adapter's train state."""
+    from prime_rl_tpu_torch.trainer.step import init_base_params, init_lora_train_state
+
+    dtype = torch.bfloat16 if config.model.compute_dtype == "bfloat16" else torch.float32
+    base = init_base_params(spec, device, config.seed, init_params, dtype=dtype)
+    state = init_lora_train_state(spec, config.model.lora, device, optimizer, config.seed)
+    return base, state
+
+
+def export_adapter(lora_params, spec, weights_dir) -> bool:
+    """Write the standalone PEFT adapter under ``weights_dir/adapter/``, next
+    to a merged snapshot, servable without a merge through
+    ``/load_lora_adapter``. Nothing where the snapshot directory does not
+    exist (a non-filesystem plane outside its snapshot interval)."""
+    from prime_rl_tpu_torch.models.lora import save_adapter
+
+    d = Path(weights_dir)
+    if not d.exists():
+        return False
+    save_adapter(lora_params, spec, d / "adapter")
+    return True
 
 
 def train(config: TrainerConfig, weight_sink=None) -> TrainResult:
@@ -100,13 +146,42 @@ def train(config: TrainerConfig, weight_sink=None) -> TrainResult:
         if (Path(config.model.name) / "config.json").exists():
             init_params = load_hf_weights(config.model.name, spec, dtype=torch.float32,
                                           device=device)
-    state = init_train_state(spec, device, optimizer, seed=config.seed, params=init_params,
-                             offload_optimizer=config.offload_optimizer,
-                             offload_params=config.offload_params,
-                             master_dtype=getattr(config.optimizer, "master_dtype", "float32"))
+    base_params = run_mgr = None
+    if config.model.lora is not None:
+        base_params, state = lora_setup(config, spec, device, optimizer, init_params)
+        del init_params
+        base_print = params_fingerprint(base_params)
+        logger.info(f"LoRA r{config.model.lora.rank}: training adapters only; frozen base "
+                    f"fingerprint {base_print}")
+        if config.multi_run:
+            from prime_rl_tpu_torch.trainer.runs import MultiRunManager
+
+            run_mgr = MultiRunManager(config.output_dir, spec, config.model.lora, device,
+                                      optimizer, max_runs=config.max_runs, seed=config.seed)
+            logger.info(f"multi-run: up to {config.max_runs} concurrent LoRA tenants")
+    else:
+        state = init_train_state(spec, device, optimizer, seed=config.seed, params=init_params,
+                                 offload_optimizer=config.offload_optimizer,
+                                 offload_params=config.offload_params,
+                                 master_dtype=getattr(config.optimizer, "master_dtype",
+                                                      "float32"))
     # config.dispatch_micro_batches is accepted and inert: the step's host
     # loop over the micro-batches is its only form
-    train_step = make_train_step(spec, config.model, config.loss, optimizer, device)
+    train_step = make_train_step(spec, config.model, config.loss, optimizer, device,
+                                 base_params=base_params)
+
+    def publish_params():
+        """The policy to serve: the state's params, or in LoRA mode the base
+        with the adapter merged into new tensors."""
+        if base_params is None:
+            return state.params
+        from prime_rl_tpu_torch.models.lora import merge_lora
+
+        return merge_lora(base_params, state.params, config.model.lora, spec=spec)
+
+    def publish_adapter(version: int) -> None:
+        if base_params is not None:
+            export_adapter(state.params, spec, pathing.weights_dir(config.output_dir, version))
 
     ckpt_mgr = CheckpointManager(config.output_dir, config.ckpt)
     weight_mgr = WeightCheckpointManager(config.output_dir, config.weight_ckpt, spec)
@@ -135,8 +210,18 @@ def train(config: TrainerConfig, weight_sink=None) -> TrainResult:
         None if isinstance(weight_sink, FilesystemBroadcast) else config.weight_ckpt.interval
     )
     version = progress.step
-    weight_sink.publish(state.params, version)
+    weight_sink.publish(publish_params(), version)
+    if snapshot_interval is None:
+        publish_adapter(version)
     logger.info(f"published initial weights v{version}")
+    if run_mgr is not None:
+        # every tenant found on disk publishes its starting adapter, so that
+        # its orchestrator (watching runs/<id>/weights) finds a v0 before the
+        # first batch. The JAX trainer publishes a tenant only after its first
+        # step, and the tenant's orchestrator then waits out its 300 s sync.
+        for rid in run_mgr.discover():
+            run = run_mgr.get_or_create(rid)
+            run_mgr.publish(run, base_params, run.progress.step)
     skipped_publishes = False  # set when the shutdown carve-out elides publishes
 
     profiler = None
@@ -157,6 +242,7 @@ def train(config: TrainerConfig, weight_sink=None) -> TrainResult:
     max_steps = config.max_steps or 10**9
     while progress.step < max_steps:
         t_wait = time.perf_counter()
+        run = None
         if fake_loader is not None:
             batch, counts = fake_loader.next_batch()
         else:
@@ -166,6 +252,9 @@ def train(config: TrainerConfig, weight_sink=None) -> TrainResult:
                                   config.batch.micro_batch_size,
                                   num_micro_batches=config.batch.num_micro_batches)
             counts = token_counts(batch)
+            if run_mgr is not None:
+                run = run_mgr.get_or_create(f"run_{tb.run_idx or 0}")
+                state = run.state  # the tenant's adapter: the same step, another state
         wait_s = time.perf_counter() - t_wait
 
         tokens = int(batch.loss_mask.size)
@@ -180,6 +269,13 @@ def train(config: TrainerConfig, weight_sink=None) -> TrainResult:
         progress.step += 1
         progress.total_tokens += tokens
         perf.record(dt, tokens)
+        if run is not None:
+            run.state = state
+            run.progress.step += 1
+            if run.progress.step % config.weight_ckpt.interval == 0:
+                run_mgr.publish(run, base_params, run.progress.step)
+            if run.progress.step % config.ckpt.interval == 0:
+                run_mgr.save(run)
 
         # weight broadcast: v{step}
         version = progress.step
@@ -195,14 +291,20 @@ def train(config: TrainerConfig, weight_sink=None) -> TrainResult:
         pub_s = 0.0
         if bench is None and not skip_final:
             t_pub = time.perf_counter()
-            weight_sink.publish(state.params, version)
-            if snapshot_interval is not None and progress.step % snapshot_interval == 0:
-                weight_mgr.save(state.params, version)
+            served = publish_params()
+            weight_sink.publish(served, version)
+            if snapshot_interval is None:
+                publish_adapter(version)  # the filesystem plane wrote the snapshot
+            elif progress.step % snapshot_interval == 0:
+                weight_mgr.save(served, version)
+                publish_adapter(version)
+            del served
             pub_s = time.perf_counter() - t_pub
 
         record = {
             "loss": loss,
             "grad_norm": float(metrics["grad_norm"]),
+            **({"run_id": run.run_id, "run_step": run.progress.step} if run is not None else {}),
             "mismatch_kl": (float(metrics["mismatch_kl"].mean)
                             if "mismatch_kl" in metrics else None),
             "entropy": float(metrics["entropy"].mean),
@@ -234,10 +336,19 @@ def train(config: TrainerConfig, weight_sink=None) -> TrainResult:
         Path(config.trace_path).mkdir(parents=True, exist_ok=True)
         profiler.export_chrome_trace(str(Path(config.trace_path) / "trainer_trace.json"))
         logger.info(f"profiler trace written to {config.trace_path}")
+    if run_mgr is not None:
+        run_mgr.save_all()
+    if base_params is not None:
+        end_print = params_fingerprint(base_params)
+        logger.info(f"LoRA frozen base fingerprint at the end: {end_print}")
+        if end_print != base_print:
+            raise RuntimeError(f"the frozen LoRA base changed during training ({base_print} -> "
+                               f"{end_print})")
     if bench is None and skipped_publishes:
         # the carve-out skipped only the broadcast: the final trained weights
         # are still persisted, so the newest snapshot is v{max_steps}
-        weight_mgr.save(state.params, progress.step)
+        weight_mgr.save(publish_params(), progress.step)
+        publish_adapter(progress.step)
         logger.info(f"persisted final weights v{progress.step} "
                     "(broadcast elided by the shutdown carve-out)")
     if bench is None:

@@ -6,8 +6,10 @@ trainer. A held-out stream gives ``val_nll`` every ``val.interval`` steps.
 
 Divergence from the JAX package, on purpose: SFT takes the RL trainer's
 ``model.debug.vocab_size`` guard (a truncated vocabulary needs random init),
-which the JAX SFT trainer lacks. LoRA and a mesh larger than one device
-raise until their slices."""
+which the JAX SFT trainer lacks. LoRA (``model.lora``) trains the adapter
+over a frozen base, as the RL trainer does: each weight snapshot holds the
+merge and, under ``adapter/``, the standalone PEFT adapter. A mesh larger
+than one device raises until its slice."""
 
 from __future__ import annotations
 
@@ -22,7 +24,12 @@ from prime_rl_tpu_torch.models.qwen3 import load_hf_weights
 from prime_rl_tpu_torch.trainer.ckpt import CheckpointManager, Progress
 from prime_rl_tpu_torch.trainer.optim import make_optimizer
 from prime_rl_tpu_torch.trainer.perf import PerfCounter
-from prime_rl_tpu_torch.trainer.rl.train import TrainResult, reject_unported_model
+from prime_rl_tpu_torch.trainer.rl.train import (
+    TrainResult,
+    export_adapter,
+    lora_setup,
+    reject_unported_model,
+)
 from prime_rl_tpu_torch.trainer.sft.data import setup_sft_loader
 from prime_rl_tpu_torch.trainer.step import (
     MicroBatchArrays,
@@ -69,9 +76,24 @@ def train(config: SFTConfig) -> TrainResult:
         if (Path(config.model.name) / "config.json").exists():
             init_params = load_hf_weights(config.model.name, spec, dtype=torch.float32,
                                           device=device)
-    state = init_train_state(spec, device, optimizer, seed=config.seed, params=init_params,
-                             master_dtype=getattr(config.optimizer, "master_dtype", "float32"))
-    train_step = make_train_step(spec, config.model, loss_cfg, optimizer, device)
+    base_params = None
+    if config.model.lora is not None:
+        base_params, state = lora_setup(config, spec, device, optimizer, init_params)
+        del init_params
+        logger.info(f"LoRA r{config.model.lora.rank}: training adapters only")
+    else:
+        state = init_train_state(spec, device, optimizer, seed=config.seed, params=init_params,
+                                 master_dtype=getattr(config.optimizer, "master_dtype",
+                                                      "float32"))
+    train_step = make_train_step(spec, config.model, loss_cfg, optimizer, device,
+                                 base_params=base_params)
+
+    def publish_params():
+        if base_params is None:
+            return state.params
+        from prime_rl_tpu_torch.models.lora import merge_lora
+
+        return merge_lora(base_params, state.params, config.model.lora, spec=spec)
 
     ckpt_mgr = CheckpointManager(config.output_dir, config.ckpt)
     weight_mgr = WeightCheckpointManager(config.output_dir, config.weight_ckpt, spec)
@@ -95,7 +117,7 @@ def train(config: SFTConfig) -> TrainResult:
         val_data = config.data.model_copy(update={"seed": config.val.seed,
                                                   "split": config.val.split})
         val_loader = setup_sft_loader(val_data, tokenizer)
-        val_loss_fn = make_loss_fn(spec, config.model, loss_cfg)
+        val_loss_fn = make_loss_fn(spec, config.model, loss_cfg, base_params=base_params)
 
     def sync() -> None:
         if device.type == "cuda":
@@ -158,7 +180,9 @@ def train(config: SFTConfig) -> TrainResult:
         if bench is None and progress.step % config.ckpt.interval == 0:
             ckpt_mgr.save(state, progress)
         if bench is None and progress.step % config.weight_ckpt.interval == 0:
-            weight_mgr.save(state.params, progress.step)
+            path = weight_mgr.save(publish_params(), progress.step)
+            if base_params is not None:
+                export_adapter(state.params, spec, path)
         if bench is not None and progress.step >= bench.warmup_steps + bench.steps:
             break
 

@@ -17,11 +17,18 @@ device).
 - bfloat16 masters take the float32 update with stochastic rounding, the
   random bits drawn from a generator seeded from the step.
 
+- LoRA mode (``base_params`` given): the state's params are the adapter
+  tree (``models/lora.py``) and the base is frozen: its tensors never
+  require a gradient and never reach the optimizer. The backward still runs
+  K2a and K2b, whose dq, dk and dv carry the gradients of the adapters on
+  q, k and v, and the dX products through every frozen projection; the
+  weight gradients of the base are never formed.
+
 Not carried over from the JAX package, as work-arounds for its runtime and
 not contract: ``dispatch_micro_batches`` (the host loop is the only form
 here; the config field is accepted and changes nothing) and the sharding
 helpers.
-Host offload of optimizer state or params, and LoRA, raise until their slices.
+Host offload of optimizer state or params raises until its slice.
 """
 
 from __future__ import annotations
@@ -159,12 +166,23 @@ def model_logprobs(params: Params, spec: ModelSpec, mb, model_cfg, mesh=None,
 
 def make_loss_fn(spec: ModelSpec, model_cfg, loss_cfg, mesh=None,
                  base_params: Params | None = None):
-    """Per-micro-batch loss: (params, mb, scales) -> (loss, metrics)."""
-    if base_params is not None or model_cfg.lora is not None:
-        raise NotImplementedError("LoRA training waits for the LoRA slice")
+    """Per-micro-batch loss: (params, mb, scales) -> (loss, metrics). With a
+    frozen ``base_params`` (LoRA mode) ``params`` is the adapter tree and the
+    forward runs the base with it."""
+    if base_params is not None and model_cfg.lora is None:
+        raise ValueError("base_params (LoRA mode) needs model.lora")
+    scale = None
+    if base_params is not None:
+        from prime_rl_tpu_torch.models.lora import lora_scale
+
+        scale = lora_scale(model_cfg.lora)
 
     def loss_fn(params: Params, mb, scales: Scales):
-        logprobs, entropy, moe_aux = model_logprobs(params, spec, mb, model_cfg, mesh)
+        if base_params is not None:
+            logprobs, entropy, moe_aux = model_logprobs(base_params, spec, mb, model_cfg, mesh,
+                                                        lora=params, lora_scale=scale)
+        else:
+            logprobs, entropy, moe_aux = model_logprobs(params, spec, mb, model_cfg, mesh)
         total, metrics = loss_lib.compute_loss(
             trainer_logprobs=logprobs,
             inference_logprobs=mb.inference_logprobs,
@@ -219,7 +237,8 @@ def make_train_step(
     ``metrics`` holds tensors: ``loss``, ``grad_norm`` (the norm before
     clipping) and a ``MaskedStat`` per monitored quantity, summed over the
     micro-batches. The global-norm clip is part of ``optimizer`` (see
-    ``make_optimizer``)."""
+    ``make_optimizer``). ``base_params``: the frozen base of LoRA mode (the
+    state then holds the adapter tree, ``init_lora_train_state``)."""
     loss_fn = make_loss_fn(spec, model_cfg, loss_cfg, None, base_params)
     freeze_pats = [re.compile(p) for p in model_cfg.freeze] or None
     accum_bf16 = model_cfg.grad_accum_dtype == "bfloat16"
@@ -335,6 +354,61 @@ def init_train_state(
     params = tree_map(lambda x: x.to(device=device, dtype=mdt) if _is_float(x)
                       else x.to(device), params)
     return TrainState(params=params, opt_state=optimizer.init(params), step=0)
+
+
+def init_base_params(spec: ModelSpec, device: torch.device | str, seed: int = 0,
+                     params: Params | None = None, dtype=torch.bfloat16) -> Params:
+    """The frozen base of LoRA mode on ``device`` in ``dtype`` (the compute
+    dtype: float32 masters exist only for trained params): ``params`` cast
+    and placed, or a random init there from a generator seeded with ``seed``
+    (the numbers differ from the JAX package's). No tensor requires a
+    gradient."""
+    from prime_rl_tpu_torch.models import get_family
+
+    device = torch.device(device)
+    if params is None:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        params = get_family(spec).init(spec, gen, dtype=torch.float32, device=device)
+    return tree_map(lambda x: (x.detach().to(device=device, dtype=dtype) if _is_float(x)
+                               else x.to(device)), params)
+
+
+def init_lora_train_state(spec: ModelSpec, lora_cfg, device: torch.device | str,
+                          optimizer: Optimizer, seed: int = 0) -> TrainState:
+    """The adapter-only train state on ``device``: ``init_lora`` from a
+    generator seeded with ``seed`` (A ~ N(0, 0.02), B = 0), float32, and the
+    optimizer's state over it."""
+    from prime_rl_tpu_torch.models.lora import init_lora
+
+    device = torch.device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    params = init_lora(spec, lora_cfg, gen, dtype=torch.float32, device=device)
+    return TrainState(params=params, opt_state=optimizer.init(params), step=0)
+
+
+def params_fingerprint(params: Params, chunk: int = 1 << 24) -> str:
+    """A digest of every tensor's bits, computed on its device: per tensor,
+    the int64 sum of its elements read as integers of their width and that
+    sum weighted by position (wrapping, as int64 arithmetic does), hashed
+    together. Equal trees give equal digests; a changed element changes it
+    but for a chance collision. For checking that a frozen base stays
+    frozen, without copying it to the host."""
+    import hashlib
+
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    sums = []
+    for path, t in tree_paths(params):
+        flat = t.detach().reshape(-1).view(ints[t.element_size()])
+        s1 = s2 = torch.zeros((), dtype=torch.int64, device=t.device)
+        for lo in range(0, flat.numel(), chunk):
+            v = flat[lo:lo + chunk].long()
+            w = torch.arange(lo, lo + v.numel(), device=t.device) % 4093 + 1
+            s1 = s1 + v.sum()
+            s2 = s2 + (v * w).sum()
+        sums.append(f"{path}:{int(s1)}:{int(s2)}")
+    return hashlib.sha256("|".join(sums).encode()).hexdigest()[:16]
 
 
 def opt_state_from_jax(optimizer: Optimizer, params: Params, np_state: dict) -> Any:

@@ -613,12 +613,61 @@ def test_sparse_mla_backward_is_deterministic_over_chunks(gen, monkeypatch):
 
 
 def test_sparse_mla_wrapper_raises_for_other_widths(gen):
-    q, kv = _bf16(gen, 8, 8, 160), _bf16(gen, 8, 160)
+    q, kv = _bf16(gen, 8, 8, 640), _bf16(gen, 8, 640)
     idx = torch.zeros(8, 4, dtype=torch.int32, device="cuda")
-    with pytest.raises(ValueError, match="H % 8 == 0, Dq = 576, v_dim = 512"):
+    with pytest.raises(ValueError, match="H % 8 == 0, Dq <= 576 and v_dim <= 512"):
         mla.sparse_mla_attention(q, kv, idx, 0.1, 128)
     with pytest.raises(ValueError, match="got H = 12, Dq = 576"):
         mla.sparse_mla_attention(_bf16(gen, 8, 12, 576), _bf16(gen, 8, 576), idx, 0.1, 512)
     with pytest.raises(TypeError, match="bfloat16"):
         mla.sparse_mla_attention(torch.zeros(8, 64, 576, device="cuda"),
                                  torch.zeros(8, 576, device="cuda"), idx, 0.1, 512)
+
+
+def test_padded_head_dim_flash_kernels_match_plain(gen):
+    """K1, K2a and K2b at head dim 96 (zero-padded to 128 by the wrappers, the
+    scale of 96, the results sliced back) against the plain versions at 96:
+    the padding adds nothing."""
+    b, l, nh, nkv, hd = 2, 200, 4, 2, 96
+    q, k, v = _bf16(gen, b, l, nh, hd), _bf16(gen, b, l, nkv, hd), _bf16(gen, b, l, nkv, hd)
+    do = _bf16(gen, b, l, nh, hd)
+    seg = _packed_seg(b, l)
+    before = dict(_build.launches)
+    out, lse = flash_attention_with_lse(q, k, v, seg, seg, causal=True)
+    got = flash_attention_backward(q, k, v, seg, seg, out, lse, do, None, True, hd ** -0.5)
+    torch.cuda.synchronize()
+    for name in ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+        assert _build.launches[name] == before.get(name, 0) + 1, name
+    assert out.shape == q.shape
+    ref_out, ref_lse = flash_attention_reference(q.float(), k.float(), v.float(), seg, seg,
+                                                 True, hd ** -0.5)
+    _assert_close(out, ref_out)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
+    ref = flash_attention_backward_reference(q, k, v, seg, seg, out, lse, do, None, True,
+                                             hd ** -0.5)
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        assert g.shape == r.shape, name
+        torch.testing.assert_close(g.float(), r.float(), atol=2e-2, rtol=2e-2, msg=name)
+
+
+def test_sparse_mla_kernels_match_plain_at_padded_widths(gen):
+    """K5a and K5b at Dq 320 and v_dim 256 (q and kv zero-padded to 576
+    columns, do to 512, the results sliced back) against the plain versions at
+    those widths, within 2e-2."""
+    S, T, heads, dq_w, dv = 200, 100, 16, 320, 256
+    q, kv, do = _bf16(gen, S, heads, dq_w), _bf16(gen, S, dq_w), _bf16(gen, S, heads, dv)
+    _, _, _, idx = _sparse_case(gen, S, T)
+    scale = dq_w ** -0.5
+    before = dict(_build.launches)
+    leaves = [q.clone().requires_grad_(), kv.clone().requires_grad_()]
+    out = mla.sparse_mla_attention(*leaves, idx, scale, dv)
+    dq, dkv = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert _build.launches["sparse_mla_fwd"] == before.get("sparse_mla_fwd", 0) + 1
+    assert _build.launches["sparse_mla_bwd"] > before.get("sparse_mla_bwd", 0)
+    ref_out, ref_lse = mla.sparse_mla_attention_reference(q, kv, idx, scale, dv)
+    ref_dq, ref_dkv = mla.sparse_mla_backward_reference(q, kv, idx, out.detach(), ref_lse, do,
+                                                        scale, dv)
+    for name, g, r in (("out", out, ref_out), ("dq", dq, ref_dq), ("dkv", dkv, ref_dkv)):
+        assert g.shape == r.shape, name
+        torch.testing.assert_close(g.float(), r.float(), atol=2e-2, rtol=2e-2, msg=name)

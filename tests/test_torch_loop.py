@@ -441,6 +441,28 @@ def test_colocated_moe_loop_carries_the_sampler_routing(tmp_path):
             assert bool((r[:sampled[0]] == -1).all())
 
 
+def test_colocated_lora_loop_serves_the_merge_and_keeps_the_base(tmp_path):
+    """3 colocated steps with ``trainer.model.lora`` (rank 4 on all seven
+    targets): the trainer trains the adapter over the frozen base, each swap
+    hands the engine the merge (new tensors, so the trainer's base keeps its
+    bits: its fingerprint at the end equals the start's, and the trainer
+    would raise otherwise), every published version is served, the
+    snapshots carry the adapter, and mismatch_kl stays below the loop's
+    bound."""
+    out = _launch(tmp_path, timeout=150, colocated="true", steps=3, lr="3e-3", batch_size=16,
+                  max_tokens=8, extra="\n[trainer.model.lora]\nrank = 4\nalpha = 8.0\n")
+    trows = [json.loads(line) for line in (out / "trainer.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in trows] == [1, 2, 3] and all(np.isfinite(r["loss"]) for r in trows)
+    assert float(np.mean([r["mismatch_kl"] for r in trows])) < 0.5
+    log = (out / "logs" / "colocated.out").read_text()
+    import re
+
+    start = re.findall(r"frozen base fingerprint (\w+)", log)
+    end = re.findall(r"fingerprint at the end: (\w+)", log)
+    assert start and end and start[0] == end[-1], (start, end)
+    assert _versions(out / "logs" / "colocated.out", "the engine serves ")[:2] == [0, 1]
+
+
 @pytest.mark.slow
 def test_rl_moe_end_to_end(tmp_path):
     """The JAX package's ``tests/integration/test_rl_e2e.py::test_rl_moe_end_to_end``

@@ -129,8 +129,15 @@ def test_kernel_route_full_remat_and_router_replay():
     np.testing.assert_allclose(_np(full), _np(base), atol=1e-6, rtol=1e-6)
     with pytest.raises(NotImplementedError, match="remat-policy"):
         _t_forward(leaves, spec, ids, seg, pos, remat="selective")
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        _t_forward(params, spec, ids, seg, pos, lora={})
+    # LoRA runs since its slice (held against JAX in tests/test_torch_lora.py):
+    # an identity adapter (B = 0) leaves the states as they are
+    from prime_rl_tpu_torch.configs.shared import LoRAConfig
+    from prime_rl_tpu_torch.models.lora import init_lora
+
+    lora = init_lora(spec, LoRAConfig(rank=2), torch.Generator().manual_seed(1))
+    assert {"q_b_a", "kv_b_a", "o_a"} <= set(lora["layers"])
+    np.testing.assert_array_equal(
+        _np(_t_forward(params, spec, ids, seg, pos, lora=lora, lora_scale=2.0)), _np(base))
 
     rng = np.random.default_rng(5)
     routed = np.stack([rng.permutation(8)[:2] for _ in range(ids.size)]).astype(np.int32)

@@ -159,10 +159,16 @@ def test_slot_order_is_the_inverse_of_the_selection():
 
 def test_kernel_wrappers_raise_for_what_the_kernels_do_not_take():
     """On a CUDA tensor the wrapper launches the kernels or raises: the width
-    check comes before any launch, so it can run here."""
-    q = torch.zeros(4, H, DQ, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="H % 8 == 0, Dq = 576, v_dim = 512"):
-        tkernel._check_args(q, torch.zeros(4, DQ, dtype=torch.bfloat16),
+    check comes before any launch, so it can run here. A width above the
+    built 576 raises; this file's narrower widths (Dq 160, v_dim 128) pass it
+    (the wrappers pad them) and stop at the device check."""
+    q = torch.zeros(4, H, 640, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="H % 8 == 0, Dq <= 576 and v_dim <= 512"):
+        tkernel._check_args(q, torch.zeros(4, 640, dtype=torch.bfloat16),
+                            torch.zeros(4, 2, dtype=torch.int32), DV)
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        tkernel._check_args(torch.zeros(4, H, DQ, dtype=torch.bfloat16),
+                            torch.zeros(4, DQ, dtype=torch.bfloat16),
                             torch.zeros(4, 2, dtype=torch.int32), DV)
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         tkernel._check_args(torch.zeros(4, 64, 576, dtype=torch.bfloat16),
@@ -176,9 +182,11 @@ def test_kernel_widths_take_every_dsa_head_count_the_jax_kernel_takes(heads):
     ``GlmMoeDsaForCausalLM`` config (GLM-5's widths) at 8, 32, 64, 96 and 128
     heads gives q [S, H, 576] and v_dim 512, which the kernels take, as the JAX
     wrapper sends every ``H % 8 == 0`` to its Pallas kernel; the kernels run
-    ``padded_heads(H) / 64`` groups. Refused: ``H % 8 != 0`` (the JAX wrapper's
-    XLA fall-back, a deliberate divergence) and Dq != 576 or v_dim != 512
-    (a width of range the JAX kernel takes and no DSA config has)."""
+    ``padded_heads(H) / 64`` groups. Narrower widths (Dq 320, v_dim 256) are
+    taken, zero-padded to 576/512. Refused: ``H % 8 != 0`` (the JAX wrapper's
+    XLA fall-back, a deliberate divergence), Dq above 576, v_dim above 512 or
+    not a multiple of 128 (a range the JAX kernel takes and no DSA config
+    has)."""
     import chip_smoke
 
     from prime_rl_tpu_torch.models.base import spec_from_hf_config
@@ -190,8 +198,11 @@ def test_kernel_widths_take_every_dsa_head_count_the_jax_kernel_takes(heads):
     tkernel.check_widths(spec.num_heads, dq, dv)
     assert tkernel.padded_heads(heads) == {8: 64, 32: 64, 64: 64, 96: 128, 128: 128}[heads]
     assert tkernel.bwd_launches(4096, 2048, heads) == 8 * tkernel.padded_heads(heads) // 64
-    for bad in ((heads + 4, dq, dv), (heads, 320, 256), (heads, dq, 256), (heads, 640, dv)):
-        with pytest.raises(ValueError, match="H % 8 == 0, Dq = 576, v_dim = 512"):
+    tkernel.check_widths(spec.num_heads, 320, 256)
+    tkernel.check_widths(spec.num_heads, dq, 256)
+    for bad in ((heads + 4, dq, dv), (heads, 640, dv), (heads, dq, 640), (heads, 320, 384),
+                (heads, dq, 200)):
+        with pytest.raises(ValueError, match="H % 8 == 0, Dq <= 576 and v_dim <= 512"):
             tkernel.check_widths(*bad)
 
 
@@ -423,17 +434,69 @@ def test_moe_mlp_matches_jax_values_and_grads(sigmoid):
 
 
 def test_moe_mlp_raises_for_what_other_families_need():
-    """Per-expert LoRA and the expert-parallel mesh still raise; Nemotron-H's
+    """The expert-parallel mesh still raises; per-expert LoRA runs since its
+    slice (against JAX's two extra ragged products here, float32 at 2e-5;
+    and through every family in tests/test_torch_lora.py); Nemotron-H's
     non-gated experts over a latent input (``w_gate=None, x_experts``) run
     since its slice (held against JAX in tests/test_torch_nemotron_h.py) and
     give the latent width."""
     x, rw = torch.zeros(4, 8), torch.zeros(8, 4)
     w, wd = torch.zeros(4, 8, 6), torch.zeros(4, 6, 8)
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        tmoe.moe_mlp(x, rw, w, w, wd, 2, lora={})
+    rng = np.random.default_rng(12)
+    arrs = [rng.standard_normal(sh).astype(np.float32) * 0.3
+            for sh in ((4, 8), (8, 4), (4, 8, 6), (4, 8, 6), (4, 6, 8))]
+    ad = {k: rng.standard_normal(sh).astype(np.float32) * 0.3 for k, sh in (
+        ("moe_gate_a", (4, 8, 2)), ("moe_gate_b", (4, 2, 6)), ("moe_up_a", (4, 8, 2)),
+        ("moe_up_b", (4, 2, 6)), ("moe_down_a", (4, 6, 2)), ("moe_down_b", (4, 2, 8)))}
+    want, _ = jmoe.moe_mlp(*map(jnp.asarray, arrs), 2,
+                           lora={k: jnp.asarray(v) for k, v in ad.items()}, lora_scale=1.5)
+    got, _ = tmoe.moe_mlp(*map(torch.from_numpy, arrs), 2,
+                          lora={k: torch.from_numpy(v) for k, v in ad.items()}, lora_scale=1.5)
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=2e-5, atol=2e-5)
+    plain, _ = tmoe.moe_mlp(*map(torch.from_numpy, arrs), 2)
+    assert float((plain - got).abs().max()) > 1e-3
     out, _ = tmoe.moe_mlp(x, rw, None, torch.zeros(4, 3, 6), torch.zeros(4, 6, 3), 2,
                           x_experts=torch.zeros(4, 3))
     assert out.shape == (4, 3)
     with pytest.raises(NotImplementedError, match="multi-card"):
         tmoe.set_ep_mesh(None)
     assert tmoe.grouped_product_impl(x) == "loop"
+
+
+def test_padded_widths_match_jax_pallas():
+    """The wrappers' column padding (``fwd_padded``, ``bwd_padded``) run
+    around the plain versions at ``Dq`` 320 and ``v_dim`` 256 (q and kv
+    padded to 576 columns, do to 512, the call made at v_dim 512, out sliced
+    to 256 and dq, dkv to 320) against the Pallas kernels in interpret mode at
+    the unpadded widths, values and gradients, float32 at 2e-4: the zero
+    columns add nothing to the scores, to dP or to dkv."""
+    S, Sk, T, heads, dq_w, dv = 24, 24, 12, 16, 320, 256
+    rng = np.random.default_rng(17)
+    q = rng.standard_normal((S, heads, dq_w)).astype(np.float32)
+    kv = rng.standard_normal((Sk, dq_w)).astype(np.float32)
+    _, _, idx = _case(6, S, Sk, T)
+    idx[3] = Sk
+    ct = rng.standard_normal((S, heads, dv)).astype(np.float32)
+    scale = dq_w ** -0.5
+
+    @jax.jit
+    def j_fwd_grads(q_, kv_):
+        def f(a, b):
+            out = j_pallas_attn(a, b, jnp.asarray(idx), scale, dv, chunk=8, block_t=128)
+            return jnp.sum(out * ct), out
+
+        (_, out), grads = jax.value_and_grad(f, argnums=(0, 1), has_aux=True)(q_, kv_)
+        return out, grads
+
+    want, (want_dq, want_dkv) = j_fwd_grads(jnp.asarray(q), jnp.asarray(kv))
+    tq, tkv, tidx = torch.from_numpy(q), torch.from_numpy(kv), torch.from_numpy(idx)
+    out, lse = tkernel.fwd_padded(tkernel.sparse_mla_attention_reference, tq, tkv, tidx, scale,
+                                  dv)
+    dq, dkv = tkernel.bwd_padded(tkernel.sparse_mla_backward_reference, tq, tkv, tidx, out, lse,
+                                 torch.from_numpy(ct), scale, dv)
+    assert out.shape == (S, heads, dv) and dq.shape == q.shape and dkv.shape == kv.shape
+    np.testing.assert_allclose(_np(out), np.asarray(want), atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(_np(dq), np.asarray(want_dq), atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(_np(dkv), np.asarray(want_dkv), atol=2e-4, rtol=2e-4)
+    assert float(out[3].abs().max()) == 0.0 and float(dq[3].abs().max()) == 0.0
+    tkernel.check_widths(heads, dq_w, dv)

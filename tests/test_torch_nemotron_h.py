@@ -222,9 +222,16 @@ def test_forward_aux_remat_and_router_replay(model):
         _t_forward(params, spec, ids, seg, pos,
                    routed_experts=torch.full((*ids.shape, 2, k), -1, dtype=torch.int32))
     for kw, item in (({"remat": "offload_attn"}, "item 10"), ({"remat": "selective"}, "item 10"),
-                     ({"lora": {}}, "item 8"), ({"mesh": object()}, "item 11")):
+                     ({"mesh": object()}, "item 11")):
         with pytest.raises(NotImplementedError, match=item):
             _t_forward(params, spec, ids, seg, pos, **kw)
+    # LoRA runs since its slice (held against JAX in tests/test_torch_lora.py)
+    from prime_rl_tpu_torch.configs.shared import LoRAConfig
+    from prime_rl_tpu_torch.models.lora import init_lora
+
+    lora = init_lora(spec, LoRAConfig(rank=2, experts=True), torch.Generator().manual_seed(1))
+    assert {"q_a", "moe_up_a", "moe_down_a"} <= set(lora["layers"])
+    assert _t_forward(params, spec, ids, seg, pos, lora=lora).shape == got_h.shape
 
 
 def test_packed_rows_equal_separate_rows(model):

@@ -208,3 +208,65 @@ def test_cuda_kernels_refuse_what_they_do_not_take():
         t_decode_attention(q, kv, kv, pool, pool.clone(), torch.zeros(2, dtype=torch.int32),
                            torch.zeros(2, 1, dtype=torch.int32), sm_scale=0.5)
     assert jax.default_backend() == "cpu"
+
+
+@pytest.mark.parametrize("hd", [32, 96, 192])
+def test_k1_padded_head_dims_match_jax_pallas(hd):
+    """The K1 wrapper's head-dim padding (``fwd_padded``: q, k, v zero-padded
+    to the next built width, 64, 128 or 256, the true head dim's scale, out
+    sliced back) run around the plain version, against the Pallas kernel in
+    interpret mode at the true head dim, f32 at 2e-5: a zero column adds 0 to
+    every score, so out and lse do not change."""
+    from prime_rl_tpu_torch.ops import flash_attention as tflash
+
+    rng = np.random.default_rng(hd)
+    b, l, nh, nkv = 2, 64, 4, 2
+    q = rng.standard_normal((b, l, nh, hd)).astype(np.float32)
+    k = rng.standard_normal((b, l, nkv, hd)).astype(np.float32)
+    v = rng.standard_normal((b, l, nkv, hd)).astype(np.float32)
+    seg = _packed_segments()
+    tq, tk, tv, tseg = map(torch.from_numpy, (q, k, v, seg))
+    assert tflash.padded_head_dim(hd) == {32: 64, 96: 128, 192: 256}[hd]
+    out, lse = tflash.fwd_padded(tflash.flash_attention_reference, tq, tk, tv, tseg, tseg, True,
+                                 hd ** -0.5)
+    assert out.shape == q.shape
+    j_out, j_lse = j_flash_lse(*map(jnp.asarray, (q, k, v, seg, seg)), causal=True)
+    _close(out, j_out, rtol=2e-5, atol=2e-5)
+    _close(lse, j_lse, rtol=2e-5, atol=2e-5)
+    _close(out, j_flash(*map(jnp.asarray, (q, k, v, seg)), block_q=16, block_kv=16),
+           rtol=2e-5, atol=2e-5)
+
+
+def test_takes_k4_mirrors_the_jax_decode_choice():
+    """``sampler.model.takes_k4`` against the JAX decode's choice of its
+    kernel (``hd % 128 == 0``, ``sampler/model.py`` ``_decode_attn_fused_local``)
+    for every built-in spec and at head dims 32 and 96. They agree everywhere
+    but at 64, where the port runs K4 and the JAX package XLA (a logged
+    divergence). At 32 and 96 the port's decode attention takes the plain
+    paged version, and it gives the JAX decode's output and pages (f32 at
+    this file's tolerance)."""
+    import dataclasses
+
+    from prime_rl_tpu.sampler import model as jsm
+    from prime_rl_tpu_torch.models.base import BUILTIN_SPECS
+    from prime_rl_tpu_torch.sampler import model as tsm
+
+    for name, spec in BUILTIN_SPECS.items():
+        assert tsm.takes_k4(spec) == (spec.head_dim % 128 == 0 or spec.head_dim == 64), name
+    base = BUILTIN_SPECS["debug"]
+    assert base.head_dim == 32
+    rng = np.random.default_rng(4)
+    for hd in (32, 96):
+        spec = dataclasses.replace(base, head_dim=hd)
+        assert not tsm.takes_k4(spec) and hd % 128 != 0
+        s, nh, nkv, ps, np_, p = 4, 4, 2, 8, 20, 4
+        arrs = [rng.standard_normal(sh).astype(np.float32) for sh in
+                ((s, nh, hd), (s, nkv, hd), (s, nkv, hd), (nkv, np_, ps, hd), (nkv, np_, ps, hd))]
+        table = (1 + np.arange(s * p, dtype=np.int32)).reshape(s, p)
+        lengths = np.asarray([5, 0, 13, 30], np.int32)
+        got = tsm._decode_attn_fused_local(
+            *(torch.from_numpy(a.copy()) for a in (*arrs, lengths, table)), k4=tsm.takes_k4(spec))
+        want = jsm._decode_attn_fused_local(*(jnp.asarray(a) for a in (*arrs, lengths, table)),
+                                            None, "pallas", 0, False)
+        for g, w in zip(got, want):
+            _close(g, w)

@@ -194,15 +194,17 @@ def test_entrypoint_trains_on_the_cpu_and_raises_without_a_card(tmp_path, monkey
 
 @pytest.mark.parametrize("over, err, match", [
     (dict(model={"name": "debug", "debug": {"vocab_size": 64}}), ValueError, "random_init"),
-    (dict(model={"name": "debug", "lora": {"rank": 4}}), NotImplementedError, "item 8"),
+    (dict(model={"name": "debug", "lora": {"rank": 4}},
+          data={"type": "fake", "max_mm_patches": 16}), NotImplementedError, "item 9"),
     (dict(mesh={"fsdp": 2}), NotImplementedError, "item 11"),
     (dict(model={"name": "debug"}, data={"type": "fake", "max_mm_patches": 16}),
      NotImplementedError, "item 9"),
 ], ids=["vocab guard", "lora", "mesh", "vision"])
 def test_refusals(tmp_path, over, err, match):
     """The vocabulary guard (a deliberate divergence: the JAX SFT trainer has
-    none), LoRA, a mesh larger than one device and vision streams raise,
-    naming their ROADMAP.md item where one waits."""
+    none), LoRA on vision inputs (LoRA itself trains since its slice:
+    tests/test_torch_lora.py), a mesh larger than one device and vision
+    streams raise, naming their ROADMAP.md item where one waits."""
     config = SFTConfig(**{"output_dir": str(tmp_path), "device": "cpu", "max_steps": 1, **over})
     try:
         with pytest.raises(err, match=match):

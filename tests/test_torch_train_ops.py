@@ -341,9 +341,16 @@ def test_forward_rejects_what_waits_for_later_slices():
     ids = torch.zeros(1, 8, dtype=torch.int64)
     seg = torch.ones(1, 8, dtype=torch.int32)
     for kw in ({"remat": "offload_attn"}, {"remat": "offload_dots"}, {"remat": "selective"},
-               {"lora": {}}, {"quantized_compute": "int8"}, {"mesh": object()}):
+               {"quantized_compute": "int8"}, {"mesh": object()}):
         with pytest.raises(NotImplementedError):
             tqwen3.forward(params, spec, ids, seg, ids, **kw)
+    # LoRA runs since its slice (held against JAX in tests/test_torch_lora.py)
+    from prime_rl_tpu_torch.configs.shared import LoRAConfig
+    from prime_rl_tpu_torch.models.lora import init_lora
+
+    lora = init_lora(spec, LoRAConfig(rank=2), torch.Generator().manual_seed(1))
+    out = tqwen3.forward(params, spec, ids, seg, ids, lora=lora, lora_scale=2.0)
+    assert out.shape == (1, 8, spec.hidden_size)
     with pytest.raises(NotImplementedError):  # the VLM slice's family
         get_family(debug_spec(family="qwen3_vl"))
 
@@ -451,3 +458,36 @@ def test_compute_loss_and_token_counts_match_jax(components):
     j_grad = jax.grad(lambda t: jloss.compute_loss(trainer_logprobs=t, **j_kw)[0])(
         jnp.asarray(trainer))
     _check_loss(t_out, j_out, leaf, j_grad)
+
+
+@pytest.mark.parametrize("hd", [32, 96, 192])
+def test_padded_flash_backward_matches_jax_pallas(hd):
+    """The K2a and K2b wrappers' head-dim padding (``bwd_padded``: q, k, v and
+    do zero-padded to the next built width, delta of the true width, dq, dk,
+    dv sliced back) run around the plain versions, with out and lse from
+    ``fwd_padded``, against jax.grad through the Pallas kernels in interpret
+    mode at the true head dim, f32, rtol = atol = 2e-5."""
+    rng = np.random.default_rng(hd + 1)
+    b, l, nh, nkv = 1, 48, 4, 2
+    q = rng.standard_normal((b, l, nh, hd)).astype(np.float32)
+    k = rng.standard_normal((b, l, nkv, hd)).astype(np.float32)
+    v = rng.standard_normal((b, l, nkv, hd)).astype(np.float32)
+    do = rng.standard_normal((b, l, nh, hd)).astype(np.float32)
+    seg = tattn.make_segment_ids([20, 17], l)[None]
+    tq, tk, tv, tdo, tseg = map(torch.from_numpy, (q, k, v, do, seg))
+    scale = hd ** -0.5
+    out, lse = tflash.fwd_padded(tflash.flash_attention_reference, tq, tk, tv, tseg, tseg, True,
+                                 scale)
+    delta = tflash._delta(out, tdo, None)
+    args = (tseg, tseg, lse, delta, tdo, True, scale)
+    dq = tflash.bwd_padded(tflash.flash_attention_dq_reference, tq, tk, tv, *args)
+    dk, dv = tflash.bwd_padded(tflash.flash_attention_dkv_reference, tq, tk, tv, *args)
+
+    def j_loss(q, k, v):
+        return jnp.sum(j_flash(q, k, v, jnp.asarray(seg), block_q=8, block_kv=8) * do)
+
+    want = jax.grad(j_loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    for g, w in zip((dq, dk, dv), want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(_np(g), np.asarray(w), rtol=2e-5, atol=2e-5)
+    assert float(dq[torch.from_numpy(seg) == 0].abs().max()) == 0.0

@@ -333,8 +333,9 @@ def test_train_step_options():
         assert torch.equal(a, b)
     with pytest.raises(NotImplementedError):
         tstep.init_train_state(spec, "cpu", opt, offload_optimizer=True)
-    with pytest.raises(NotImplementedError):
-        tstep.make_loss_fn(spec, TrainerConfig(model={"lora": {"rank": 4}}).model, cfg.loss)
+    # LoRA mode needs model.lora (its training is held in tests/test_torch_lora.py)
+    with pytest.raises(ValueError, match="model.lora"):
+        tstep.make_loss_fn(spec, TrainerConfig().model, cfg.loss, base_params=finals[0].params)
 
 
 def test_perf_counter_and_peaks(monkeypatch):
@@ -489,12 +490,14 @@ def test_trainer_raises_for_what_waits_for_the_loop_slice(tmp_path, monkeypatch)
         tlogger.reset_logger()
     assert out.state.step == 1 and out.records[0]["rl_tokens"] == 36
     assert np.isfinite(out.records[0]["loss"])
-    for extra in (["--multi-run", "true"],
-                  ["--token-export-rows", "2"], ["--metrics-server.enable", "true"],
+    for extra in (["--token-export-rows", "2"], ["--metrics-server.enable", "true"],
                   ["--mesh.fsdp", "2"], ["--offload-optimizer", "true"],
-                  ["--model.lora.rank", "4"]):
+                  ["--model.lora.rank", "4", "--mesh.fsdp", "2"]):
         with pytest.raises(NotImplementedError):
             _run(monkeypatch, tmp_path / "x", "--max-steps", "1", *extra)  # a later flag wins
+    # multi_run trains one adapter a tenant: without model.lora it is refused
+    with pytest.raises(ValueError, match="model.lora"):
+        _run(monkeypatch, tmp_path / "x", "--max-steps", "1", "--multi-run", "true")
     if not torch.cuda.is_available():
         monkeypatch.setattr(sys, "argv", ["trainer", "--data.type", "fake", "--model.name",
                                           "debug", "--output-dir", str(tmp_path / "y")])
