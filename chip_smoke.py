@@ -16,7 +16,7 @@ Phases (any failure raises and exits non-zero before the last line):
   3. kernels  — K1 flash_attn_fwd, K3 decode_qkv_prep and K4 decode_paged_attention
                 at the Qwen3-0.6B shapes of the serving path (K3 also at
                 Qwen3-30B-A3B's and GLM-4.5-Air's, rot 64, and over
-                K3_EDGE_CASES: S from 1 to 256, both head dims, rot < HD,
+                K3_EDGE_CASES: S from 1 to 256, head dims 32, 64 and 128, rot < HD,
                 biases with and without qk-norm, positions near 131071 with
                 YaRN, each launched twice for equal bits, with the weight tiles
                 each block loaded, as the kernel counted them, held against the
@@ -100,7 +100,7 @@ Phases (any failure raises and exits non-zero before the last line):
                 config.json names GlmMoeDsaForCausalLM at GLM-5's widths (depth
                 78 -> 2 layers, 1 dense + 1 MoE; 256 -> 32 routed experts; the
                 cuts are logged), seq_len 4096, 2 micro-batches of 1 row,
-                adamw_8bit with bf16 masters, full remat: 3 steps, twice from the
+                adamw_8bit with bf16 masters, full remat: 2 steps, twice from the
                 same seed: finite and changing losses, changed parameters,
                 bit-equal losses, the launches of K5a, K5b and the reduction that
                 the layers, micro-batches and remat imply, and a snapshot that
@@ -111,9 +111,9 @@ Phases (any failure raises and exits non-zero before the last line):
                 window and sink forms; the CPU replays the card's routing and
                 reports how far its own agrees.
   9. gpt-oss-training — the trainer on a directory whose config.json names
-                GptOssForCausalLM at gpt-oss-20b's widths (24 -> 2 layers, all 32
+                GptOssForCausalLM at gpt-oss-20b's widths (24 -> 2 layers, 32 -> 8
                 experts; logged), rows of four sequences, seq_len 4096, 2
-                micro-batches of 1 row, adamw_8bit, bf16 masters, full remat: 3
+                micro-batches of 1 row, adamw_8bit, bf16 masters, full remat: 2
                 steps twice: bit-equal finite losses, changed parameters (the
                 sinks among them), the launches of K1, K2a and K2b (and of their
                 window forms) that the layers imply, a snapshot read back.
@@ -131,7 +131,7 @@ Phases (any failure raises and exits non-zero before the last line):
  12. qwen3-moe-training — the trainer's step on Qwen3-30B-A3B at full width (all 128
                 experts) cut to 4 layers, seq_len 4096, 2 micro-batches of 1
                 row, adamw_8bit, bf16 masters, full remat, half the tokens
-                replaying a routing (a fake loader the phase builds): 3 steps
+                replaying a routing (a fake loader the phase builds): 2 steps
                 twice, bit-equal finite losses,
                 the launches of K1, K2a and K2b the layers imply, then one step
                 under the profiler for torch._grouped_mm's share.
@@ -146,13 +146,13 @@ Phases (any failure raises and exits non-zero before the last line):
                 prefill of 200 tokens and decode steps past position 128 through
                 K1, K3 and K4 against float32 on the CPU.
  16. gpt-oss-serving — the same server and requests with openai/gpt-oss-20b at
-                full width cut to 12 of its 24 layers (random weights, byte tokenizer,
+                full width cut to 6 of its 24 layers (random weights, byte tokenizer,
                 max_model_len 4096): K1 and K4 launched on the windowed and the
                 full layers, K3 on every layer; its tokens/s and first-token time.
  17. qwen3-moe-serving — the same server and requests with Qwen/Qwen3-30B-A3B at
-                full width cut to 12 of its 48 layers (15.3 GB of bf16 weights,
-                the KV pool sized from the memory left) recording the routing: every generate
-                completion carries routed_experts [n_gen, 12, 8], ids in
+                full width cut to 6 of its 48 layers (the KV pool sized from
+                the memory left) recording the routing: every generate
+                completion carries routed_experts [n_gen, 6, 8], ids in
                 [0, 128), the last row -1.
  18. glm4-moe-reference — the reference of phase 11 for GLM-4.5-Air (1 dense +
                 1 MoE layer; partial rotary, noaux routing with a random
@@ -165,7 +165,7 @@ Phases (any failure raises and exits non-zero before the last line):
                 not: a layer-scope qk-norm) against float32 on the CPU.
  21. minimax-training — phase 12's trainer step on MiniMax-M2 at its
                 published widths, 1 layer (4.90 G parameters), seq_len 4096,
-                half the tokens replaying a routing, 3 steps twice.
+                half the tokens replaying a routing, 2 steps twice.
  22. afmoe-reference, laguna-reference — each family at GATED_TEST_SHAPE
                 (heads of 128, 128-token windows on every other layer, 4
                 layers, the first dense): the training forward and backward
@@ -185,7 +185,7 @@ Phases (any failure raises and exits non-zero before the last line):
                 and selections (at least 90% of the selected rows shared with
                 float32's own), twice for equal bits: K5a launched.
  25. minimax-serving — the server of phase 17 for MiniMax-M2 at its published
-                widths, 8 of 62 layers (61.1 GB of bf16 weights), the pool
+                widths, MINIMAX_SERVE_LAYERS (4) of 62 layers, the pool
                 sized from the memory left, routed_experts [n_gen, 8, 8]: K1
                 and K4 (group 6) launched, K3 not.
  26. glm5-serving — the server for GLM-5 (GLM5_CONFIG, GLM5_CUTS: 4 layers,
@@ -204,12 +204,12 @@ Phases (any failure raises and exits non-zero before the last line):
                 CPU on the card's routing, twice for equal bits; K3 never.
  28. qwen3-next-training — the trainer through its entry on a directory
                 whose config.json names Qwen3NextForCausalLM (4 layers LLLA,
-                64 experts), seq_len 4096, 2 micro-batches of 1 row,
-                adamw_8bit, bf16 masters, full remat, 3 steps twice:
+                16 experts), seq_len 4096, 2 micro-batches of 1 row,
+                adamw_8bit, bf16 masters, full remat, 2 steps twice:
                 bit-equal finite losses, changed parameters, the launches of
                 K1, K2a and K2b, a snapshot read back.
- 29. qwen3-next-serving — the server of phase 17 for Qwen3-Next at 8 of 48
-                layers with all 512 experts (about 27 GB), routed_experts on
+ 29. qwen3-next-serving — the server of phase 17 for Qwen3-Next at 4 of 48
+                layers with all 512 experts, routed_experts on
                 every completion, then a GRPO group of four on one
                 1100-token prompt: the recurrent-state tier hit, the cached
                 members' first-token logits within 0.03 of |logit| of the
@@ -225,12 +225,12 @@ Phases (any failure raises and exits non-zero before the last line):
                 bits; K3 never.
  31. nemotron-h-training — the trainer through its entry on a directory
                 whose config.json names NemotronHForCausalLM (one period of
-                the 8B's pattern cut to 7 layers, M-M-M-*), seq_len 4096, 2 micro-batches
-                of 1 row, adamw_8bit, bf16 masters, full remat, 3 steps twice:
+                the 8B's pattern cut to 3 layers, M-*), seq_len 4096, 2 micro-batches
+                of 1 row, adamw_8bit, bf16 masters, full remat, 2 steps twice:
                 bit-equal finite losses, changed parameters, the launches of
                 K1, K2a and K2b, a snapshot read back.
  32. nemotron-h-serving — the server of phase 17 for Nemotron-H-8B cut to
-                26 of its 52 layers (two periods), then the GRPO group of phase 29 on its Mamba
+                13 of its 52 layers (one period), then the GRPO group of phase 29 on its Mamba
                 rows; K1 and K4 launched, K3 not.
  33. lora-training — two LoRA tenants of a MultiRunManager (at most one
                 live: each switch evicts one to disk and reloads the other, bit
@@ -270,6 +270,25 @@ Phases (any failure raises and exits non-zero before the last line):
                 checks, the engine serving the merge of the frozen base and the
                 adapter, and the trainer's base bit-equal at the end (its logged
                 fingerprints).
+ 37. range-repairs — K1, K2a and K2b at head dim 512, K4 at 384 and 512, K5a
+                and K5b at Dq 1152 / v_dim 1024 and 640 / 512, each against its
+                plain version, twice for equal bits, timed (the edge cases at
+                320, 384 and 512 run in the kernel phases).
+ 38. qwen3-vl-reference — debug_vlm's tower with a trunk of heads of 128,
+                dense and MoE: the train step's loss and gradients (the
+                tower's among them) and the served prefill, prompt logprobs
+                and 4 decode steps with the mRoPE offset, through K1, K2a,
+                K2b, K3 and K4, against float32 on the CPU.
+ 39. qwen3-vl-training — Qwen3-VL-8B's whole tower and QWEN3_VL_TRAIN_LAYERS
+                of its 36 trunk layers, 2 steps on packed rows of 4096 tokens
+                that mix image and text samples: step time, peak memory.
+ 40. qwen3-vl-serving — the server on Qwen3-VL-8B at full width and depth, 16
+                requests of one synthetic image each (196 or 768 image tokens)
+                and 128 generated tokens, then one text-only request: tokens/s,
+                the decode step's host and busy ms; K1, K3 and K4 launched.
+ 41. vlm-loop — configs/debug/rl_vlm.toml through the launcher, colocated,
+                3 steps: the loop's checks, K1, K2a, K2b and K3 launched, and
+                the trainer's records holding the vision patches.
 Then one JSON line with every kernel's numbers, and the result line. A kernel's
 ``launches`` is its count on the path that runs it (K1 runs on both: its
 ``launches`` is the serving path's, ``launches_training`` the Qwen3 trainer's;
@@ -359,8 +378,34 @@ MINIMAX_M2_CONFIG = {
     "rms_norm_eps": 1e-6, "vocab_size": 200064, "tie_word_embeddings": False,
     "max_position_embeddings": 131072, "eos_token_id": 2, "pad_token_id": 0,
 }
+# Qwen/Qwen3-VL-8B-Instruct's config.json as its model card gives it (typed
+# here: nothing is downloaded); the port's spec_from_hf_config reads it as the
+# JAX package's reader does. Serving keeps all 36 layers; training keeps the
+# whole tower (27 blocks; its last DeepStack tap is block 24) and cuts the
+# trunk to QWEN3_VL_TRAIN_LAYERS.
+QWEN3_VL = "Qwen/Qwen3-VL-8B-Instruct"
+QWEN3_VL_8B_CONFIG = {
+    "architectures": ["Qwen3VLForConditionalGeneration"],
+    "image_token_id": 151655, "video_token_id": 151656, "vision_start_token_id": 151652,
+    "vision_end_token_id": 151653, "tie_word_embeddings": False,
+    "text_config": {
+        "hidden_size": 4096, "num_hidden_layers": 36, "num_attention_heads": 32,
+        "num_key_value_heads": 8, "head_dim": 128, "intermediate_size": 12288,
+        "vocab_size": 151936, "rope_theta": 5000000, "max_position_embeddings": 262144,
+        "rms_norm_eps": 1e-6, "tie_word_embeddings": False, "attention_bias": False,
+        "hidden_act": "silu", "bos_token_id": 151643, "eos_token_id": 151645,
+        "rope_scaling": {"rope_type": "default", "mrope_section": [24, 20, 20],
+                         "mrope_interleaved": True},
+    },
+    "vision_config": {
+        "depth": 27, "hidden_size": 1152, "intermediate_size": 4304, "num_heads": 16,
+        "in_channels": 3, "patch_size": 16, "temporal_patch_size": 2, "spatial_merge_size": 2,
+        "out_hidden_size": 4096, "num_position_embeddings": 2304,
+        "deepstack_visual_indexes": [8, 16, 24], "hidden_act": "gelu_pytorch_tanh",
+    },
+}
 MINIMAX_TRAIN_LAYERS = 1  # 4.90 G parameters, near GLM-5's and gpt-oss's trainer cuts
-MINIMAX_SERVE_LAYERS = 8  # 61.1 GB of bf16 weights, as Qwen3-30B-A3B's 48 layers
+MINIMAX_SERVE_LAYERS = 4  # of 62 (8 before the last cuts)
 # the Qwen3-Next and Nemotron-H train references' row (1024 tokens before
 # the cuts below: their float32 CPU side took most of the run's reference
 # time; the DSA, gpt-oss, AFMoE and Laguna references take 512, where their
@@ -368,14 +413,21 @@ MINIMAX_SERVE_LAYERS = 8  # 61.1 GB of bf16 weights, as Qwen3-30B-A3B's 48 layer
 # floors) and the Qwen3 trainer's steps (4 before: each step publishes a 1.2
 # GB snapshot)
 REF_TOKENS = 256
+# the steps of the trainers at seq_len 4096 (GLM-5, gpt-oss, Qwen3-30B-A3B,
+# MiniMax-M2, Qwen3-Next, Nemotron-H), each run twice; 3 before the last cuts
+BIG_TRAIN_STEPS = 2
 TRAIN_STEPS = 2
 # cuts of depth and steps that keep the run near 900 s from the build on, so
 # that a host 30% slower still ends well inside the limit (the card's host
 # varies 10-50% from call to call; PERF.md has the per-phase times before and
 # after); every layer kind and window form of each path still runs
-GPT_OSS_SERVE_LAYERS = 12  # of 24, windowed and full layers alternating
-QWEN3_MOE_SERVE_LAYERS = 12  # of 48: 15.3 GB of bf16 weights
+GPT_OSS_SERVE_LAYERS = 6  # of 24, windowed and full layers alternating (12 before the last cuts)
+QWEN3_MOE_SERVE_LAYERS = 6  # of 48 (12 before the last cuts)
 GPT_OSS_TRAIN_LAYERS = 2  # one windowed, one full (4 before the cuts)
+# of 32 (all 32 before the last cuts): top-4 of 8 stays sparse; the trainer's
+# grouped products over 32 experts are not on this path (gpt-oss-serving runs
+# all 32)
+GPT_OSS_TRAIN_EXPERTS = 8
 
 # The AFMoE and Laguna phases' shape: the structure of the debug_afmoe and
 # debug_laguna specs (gates, sandwich norms, a local rope base, shared
@@ -411,8 +463,10 @@ DEEPSEEK_V3_TEST_CONFIG = {
 QWEN3_NEXT = "Qwen/Qwen3-Next-80B-A3B-Instruct"
 QWEN3_NEXT_PACKING = [1700, 1300, 1096]  # the kernel rows' packed row of 4096 tokens
 QWEN3_NEXT_REF_CUTS = {"num_layers": 4, "num_experts": 32}  # one period, 32 experts
-QWEN3_NEXT_TRAIN_CUTS = {"num_layers": 4, "num_experts": 64}  # 128 before the cuts
-QWEN3_NEXT_SERVE_LAYERS = 8  # LLLA x 2, all 512 experts (16 before the cuts)
+# 128, then 64 before the cuts: top-10 of 16 stays sparse; the trainer's grouped
+# products over 64 experts are not on this path (qwen3-next-serving runs all 512)
+QWEN3_NEXT_TRAIN_CUTS = {"num_layers": 4, "num_experts": 16}
+QWEN3_NEXT_SERVE_LAYERS = 4  # LLLA, all 512 experts (16, then 8 before the cuts)
 QWEN3_NEXT_GROUP_PROMPT = 1100  # the GRPO group's shared prompt (Nemotron-H's too)
 
 # Nemotron-H: the repository's named 8B spec (hidden 4096, 32/8 heads of 128,
@@ -425,8 +479,8 @@ NEMOTRON = "nvidia/Nemotron-H-8B-Base-8K"
 NEMOTRON_REF_PATTERN = "M*-E"
 NEMOTRON_TEST_MOE = dict(num_experts=8, num_experts_per_tok=2, moe_intermediate_size=2048,
                          moe_latent_size=1024, moe_shared_expert_size=2048)
-NEMOTRON_TRAIN_PATTERN = "M-" * 3 + "*"  # 7 layers (one period of 13 before the cuts)
-NEMOTRON_SERVE_LAYERS = 26  # two periods of the pattern's four (52 before the cuts)
+NEMOTRON_TRAIN_PATTERN = "M-*"  # 3 layers, one of each kind (13, then 7 before the cuts)
+NEMOTRON_SERVE_LAYERS = 13  # one period of the pattern's four (52, then 26 before the cuts)
 # the server's state tier: a checkpoint of the 24 Mamba layers' rows is 103
 # MB, so the default 256 MB keeps two, and the other requests' checkpoints
 # evict the shared prefix's before the request that reuses it arrives (the
@@ -576,7 +630,8 @@ def k1_timing(name: str, q, k, v, seg, window: int = 0, sinks=None) -> dict:
 # lengths that are no multiple of the tiles (odd ones too: the flat id, lse and
 # delta maps then start off 16-byte bounds), a fully padded row, many short
 # segments (tiles skipped), segments that end mid-tile, GQA groups 1, 2, 4, 8
-# and 12 (GLM-4.5-Air's 96/8 heads), both head dims, the cross-block form (Lq <
+# and 12 (GLM-4.5-Air's 96/8 heads), every built head dim (the plain forms at
+# 320 and 512 among them), the cross-block form (Lq <
 # Lk and Lq > Lk, rows that see no key), windows of 128 and 100 (at both head
 # dims) with and without sinks, and the SFT trainer's micro-batch (2 rows of
 # 8192 at Qwen3-0.6B's 16/8 heads)
@@ -620,6 +675,17 @@ K1_EDGE_CASES = (
      True, 128, True),
     ("L=200 hd 96 group 2 (zero-padded to 128), a segment ends mid-tile", 1, 200, 200, 4, 2,
      96, [[130, 70]], None, True, 0, False),
+    # the plain forms at head dims 384 and 512 (320 zero-padded to 384)
+    ("L=200 hd 320 group 2 (zero-padded to 384), a segment ends mid-tile", 1, 200, 200, 4, 2,
+     320, [[130, 70]], None, True, 0, False),
+    ("L=77 hd 512 group 4, odd length, a padded tail", 2, 77, 77, 8, 2, 512, [[30, 47], [5]],
+     None, True, 0, False),
+    ("L=1000 hd 320 group 8, 27 short segments", 1, 1000, 1000, 16, 2, 320, [[37] * 27], None,
+     True, 0, False),
+    ("cross-block Lq 130 Lk 200 hd 512, not causal", 2, 130, 200, 4, 1, 512, [[130], [100]],
+     [[200], [150]], False, 0, False),
+    ("L=1000 hd 512 group 8, window 128 + sinks", 1, 1000, 1000, 16, 2, 512, [[300, 600]], None,
+     True, 128, True),
 )
 
 
@@ -690,6 +756,7 @@ def k2_tiles(q, k, v, seg_q, seg_kv, lse, delta, do, causal: bool, window: int =
     import torch
 
     from prime_rl_tpu_torch.ops.flash_attention import (
+        dkv_tiles,
         dq_tiles,
         flash_bwd_dkv_tiles_visited,
         flash_bwd_tile_counts,
@@ -698,9 +765,9 @@ def k2_tiles(q, k, v, seg_q, seg_kv, lse, delta, do, causal: bool, window: int =
 
     counts = flash_bwd_tile_counts(q, k, v, seg_q, seg_kv, lse, delta, do, causal, window)
     ones_q, ones_kv = torch.ones_like(seg_q), torch.ones_like(seg_kv)
-    tiles = dq_tiles(q.shape[-1])
+    tiles, kv_tiles = dq_tiles(q.shape[-1]), dkv_tiles(q.shape[-1])
     rules = (lambda sq, sk: flash_tiles_visited(sq, sk, causal, window, *tiles),
-             lambda sq, sk: flash_bwd_dkv_tiles_visited(sq, sk, causal, window))
+             lambda sq, sk: flash_bwd_dkv_tiles_visited(sq, sk, causal, window, *kv_tiles))
     out = []
     for name, got, rule in zip(("flash_attn_bwd_dq", "flash_attn_bwd_dkv"), counts, rules):
         for col, (sq, sk) in enumerate(((seg_q, seg_kv), (ones_q, ones_kv))):
@@ -991,7 +1058,8 @@ def k4_timing(name: str, qd, k_new, v_new, k_pool, v_pool, lengths, table, windo
 # PS (the append opens a page) and of the split's 256 rows, one past it,
 # inactive slots reading the null page, many splits, windows whose first row
 # falls inside a page and that span two splits (window 300), PS 8, 16, 32 and
-# 64, tiles that span pages (PS < 64), both head dims, groups 1, 2, 4 and 8;
+# 64, tiles that span pages (PS < 64), every built head dim (64 to 512),
+# groups 1, 2, 4 and 8;
 # then the groups of served specs that the kernel pads to a chunk (3, 5, 6) or
 # cuts into chunks of 8 and 4 (12), with and without a window
 K4_EDGE_CASES = (
@@ -1024,6 +1092,17 @@ K4_EDGE_CASES = (
      [1023, 0, 64, 512, 7, 256], 0, 0, False),
     ("hd 256 group 12 PS 32, 8 splits", 5, 24, 2, 256, 32, 64, [2047, 300, 0, 1025, 64], 1, 0,
      False),
+    # head dims 384 and 512 (the shallower rings of Cfg<384> and Cfg<512>)
+    ("hd 384 group 1 PS 16, lengths 0-2000", 8, 2, 2, 384, 16, 128,
+     [0, 1, 15, 256, 257, 2000, 513, 40], 1, 0, False),
+    ("hd 384 group 4 PS 64, window 300 + sinks", 4, 8, 2, 384, 64, 32, [1000, 299, 300, 2047],
+     0, 300, True),
+    ("hd 512 group 4 PS 16, lengths 0-2000", 8, 8, 2, 512, 16, 128,
+     [0, 1, 15, 256, 257, 2000, 513, 40], 1, 0, False),
+    ("hd 512 group 1 PS 32, sinks, 8 splits", 5, 2, 2, 512, 32, 64, [2047, 300, 0, 1025, 64],
+     0, 0, True),
+    ("hd 512 group 12 PS 64, window 300", 5, 24, 2, 512, 64, 32, [1000, 299, 300, 301, 5], 1,
+     300, False),
 )
 
 
@@ -1251,7 +1330,8 @@ def k3_timing(name: str, args, kw, flush) -> dict:
 # The edge cases of K3 (name, S, D, NH, NKV, HD, qk-norm, biases, rot,
 # positions [lo, hi), YaRN): S of 1, 7, 64, 65 (two M tiles), 130 and 256 (row
 # groups that load the weights again), D a multiple of 16 and not of 64 (a
-# partial last K tile), both head dims, a kv projection of one 64-wide head
+# partial last K tile), head dims 32 (debug_vlm's: four heads a column tile),
+# 64 and 128, a kv projection of one 64-wide head
 # (half a column tile), rot < HD, biases with and without qk-norm, positions
 # near 131071 with gpt-oss's YaRN frequencies and scaling ("yarn") and with
 # theta 1e6
@@ -1266,6 +1346,9 @@ K3_EDGE_CASES = (
      True, None, (130000, 131072), True),
     ("S 256 hd 128 qk-norm, positions near 131071", 256, 1024, 16, 8, 128, True, False, 128,
      (130000, 131072), False),
+    ("S 16 hd 32 D 256 qk-norm", 16, 256, 4, 2, 32, True, False, 32, (0, 4000),
+     False),
+    ("S 65 hd 32 D 400 biases rot 16", 65, 400, 8, 2, 32, False, True, 16, (0, 300), False),
 )
 
 
@@ -1662,6 +1745,57 @@ def k5_edge_cases(gen) -> tuple[int, float, float]:
     return len(cases) + 1, max(worst_a, err_a), max(worst_b, err_b)
 
 
+# K5a/K5b at the wide widths (name, Dq, v_dim, S, Sk, T, layout, empty token,
+# heads): the instance's own 1152/1024 and 640/512, zero-padded to it
+K5_WIDE_CASES = (
+    ("Dq 1152 / v_dim 1024", 1152, 1024, 300, 300, 100, "causal", 7, 16),
+    ("Dq 640 / v_dim 512", 640, 512, 256, 256, 128, "scattered", 3, 32),
+)
+
+
+def k5_wide_case(gen, name: str, dq_w: int, dv: int, S: int, Sk: int, T: int, layout: str,
+                 empty, heads: int) -> tuple[float, float]:
+    """K5a and K5b at one of K5_WIDE_CASES against the plain versions at those
+    widths (K5B_TOL; lse within 1e-3), each twice for equal bits, their tile
+    counts (of WIDE_FWD_TILE and WIDE_BWD_TILE slots) against the mirror, out
+    and dq 0 for the token that selected nothing. Returns (max error of out,
+    of dq and dkv)."""
+    import torch
+
+    from prime_rl_tpu_torch.ops import sparse_mla_kernel as K
+
+    idx = k5b_inputs(gen, S, Sk, T, layout, empty, 8)[3]
+
+    def randn(*shape):
+        return torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
+
+    q, kv, do = randn(S, heads, dq_w), randn(Sk, dq_w), randn(S, heads, dv)
+    scale = dq_w ** -0.5
+    t_fwd, t_bwd = (torch.full((S, 2), -1, dtype=torch.int32, device="cuda") for _ in range(2))
+    out, lse = K.sparse_mla_fwd(q, kv, idx, scale, dv, tiles=t_fwd)
+    out2, lse2 = K.sparse_mla_fwd(q, kv, idx, scale, dv)
+    grads = K.sparse_mla_bwd(q, kv, idx, out, lse, do, scale, dv, tiles=t_bwd)
+    again = K.sparse_mla_bwd(q, kv, idx, out, lse, do, scale, dv)
+    torch.cuda.synchronize()
+    if not (torch.equal(out, out2) and torch.equal(lse, lse2)
+            and all(torch.equal(a, b) for a, b in zip(grads, again))):
+        raise AssertionError(f"sparse_mla at {name}: two runs differ")
+    ref_out, ref_lse = K.sparse_mla_attention_reference(q, kv, idx, scale, dv)
+    ref = K.sparse_mla_backward_reference(q, kv, idx, out, lse, do, scale, dv)
+    err_a = check_close(f"sparse_mla_fwd out at {name}", out, ref_out, K5B_TOL, K5B_TOL)
+    check_close(f"sparse_mla_fwd lse at {name}", lse, ref_lse, 1e-3, 0.0)
+    err_b = max(check_close(f"sparse_mla_bwd {what} at {name}", g, r, K5B_TOL, K5B_TOL)
+                for what, g, r in zip(("dq", "dkv"), grads, ref))
+    if not (bool((out[empty] == 0).all()) and bool((grads[0][empty] == 0).all())):
+        raise AssertionError(f"sparse_mla at {name}: a token that selected nothing must get "
+                             "out 0 and dq 0")
+    sparse_mla_tiles("sparse_mla_fwd", name, t_fwd, idx, Sk, K.WIDE_FWD_TILE)
+    sparse_mla_tiles("sparse_mla_bwd", name, t_bwd, idx, Sk, K.WIDE_BWD_TILE)
+    log(f"K5 case {name} (the wide forms), H={heads}: err {err_a:.3g} (K5a), {err_b:.3g} "
+        "(K5b), bit-equal over two runs")
+    return err_a, err_b
+
+
 def sparse_mla_build_report() -> None:
     """Registers, local memory, shared memory and blocks an SM of K5a and K5b
     as the runtime loaded them (``cudaFuncGetAttributes``); raises if either
@@ -1674,6 +1808,18 @@ def sparse_mla_build_report() -> None:
 
     lib = _build.load("sparse_mla")
     spills = []
+    for kernel, name in ((3, "K5a at 1152/1024"), (4, "K5b at 1152/1024"),
+                         (2, "the dkv reduction at 576"), (5, "the dkv reduction at 1152")):
+        attrs = (ctypes.c_int * 4)()
+        _build.check("sparse_mla", lib.sparse_mla_attributes(kernel, attrs))
+        regs, local, static, threads = attrs
+        log(f"{name} build: {regs} registers a thread ({threads} threads a block), local memory "
+            f"(spills) {local} bytes a thread, shared memory {static} bytes static")
+        if local:
+            spills.append(name)
+    if (lib.sparse_mla_wide_tile(0), lib.sparse_mla_wide_tile(1)) != (K.WIDE_FWD_TILE,
+                                                                      K.WIDE_BWD_TILE):
+        raise AssertionError("the wide K5a/K5b tiles differ from the wrapper's")
     for kernel, name, fn in ((0, "K5a", "sparse_mla_fwd"), (1, "K5b", "sparse_mla_bwd")):
         attrs = (ctypes.c_int * 4)()
         _build.check(fn, lib.sparse_mla_attributes(kernel, attrs))
@@ -1707,7 +1853,7 @@ def selection_mask(kv, idx):
     return rows, mask
 
 
-def k5a_library_ms(q, kv, idx, scale: float, flush):
+def k5a_library_ms(q, kv, idx, scale: float, flush, v_dim: int = 512):
     """K5a's yardstick: one ``scaled_dot_product_attention`` call over the
     tokens that selected something (a fully masked row gives NaN), q as [1,
     64, S', 576] against kv as one KV head (``enable_gqa``), v = kv[:, :512],
@@ -1720,7 +1866,7 @@ def k5a_library_ms(q, kv, idx, scale: float, flush):
     rows, mask = selection_mask(kv, idx)
     qq = q[rows].transpose(0, 1).unsqueeze(0).contiguous()
     k = kv[None, None]
-    v = kv[:, :512].contiguous()[None, None]
+    v = kv[:, :v_dim].contiguous()[None, None]
     try:
         ms = time_ms(lambda: F.scaled_dot_product_attention(qq, k, v, attn_mask=mask[None, None],
                                                             scale=scale, enable_gqa=True),
@@ -1730,7 +1876,7 @@ def k5a_library_ms(q, kv, idx, scale: float, flush):
         return None, f"none ({type(err).__name__}: {str(err).splitlines()[0][:200]})"
 
 
-def k5b_library_ms(q, kv, idx, do, scale: float, flush):
+def k5b_library_ms(q, kv, idx, do, scale: float, flush, v_dim: int = 512):
     """K5b's yardstick: the backward of the SDPA call of ``k5a_library_ms``
     (the same dense [S', Sk] mask of the selected pairs, the same tokens),
     timed alone: ``torch.autograd.grad`` of its output against q, k and v
@@ -1744,7 +1890,7 @@ def k5b_library_ms(q, kv, idx, do, scale: float, flush):
     rows, mask = selection_mask(kv, idx)
     qq = q[rows].transpose(0, 1).unsqueeze(0).contiguous().requires_grad_()
     k = kv[None, None].detach().clone().requires_grad_()
-    v = kv[:, :512].contiguous()[None, None].requires_grad_()
+    v = kv[:, :v_dim].contiguous()[None, None].requires_grad_()
     dout = do[rows].transpose(0, 1).unsqueeze(0).contiguous()
     try:
         out = F.scaled_dot_product_attention(qq, k, v, attn_mask=mask[None, None], scale=scale,
@@ -2450,7 +2596,7 @@ def dsa_training_phase() -> tuple[dict, dict]:
     from prime_rl_tpu_torch.trainer.step import init_train_state
     from prime_rl_tpu_torch.trainer.weights import save_hf_weights
 
-    steps, n_mb, rows, seq_len = 3, 2, 1, 4096
+    steps, n_mb, rows, seq_len = BIG_TRAIN_STEPS, 2, 1, 4096
     model_dir = glm5_model_dir("glm5_model", **GLM5_TRAIN_CUTS)
 
     def config(out: str) -> TrainerConfig:
@@ -2760,7 +2906,7 @@ def packed_fake_rows(per_row: int):
 def gpt_oss_training_phase() -> tuple[dict, dict]:
     """The trainer through its normal entry on a GptOssForCausalLM directory
     at gpt-oss-20b's widths, cut to ``GPT_OSS_TRAIN_LAYERS`` layers (windowed
-    and full alternating) with all 32 experts, twice from the same seed, on
+    and full alternating) with GPT_OSS_TRAIN_EXPERTS experts, twice from the same seed, on
     rows of four sequences each.
     Returns (launches of the first run, numbers of its last step). Bench mode,
     as in the DSA phase: only the initial weights are published (a snapshot
@@ -2776,8 +2922,9 @@ def gpt_oss_training_phase() -> tuple[dict, dict]:
     from prime_rl_tpu_torch.trainer.rl.train import train
     from prime_rl_tpu_torch.trainer.weights import save_hf_weights
 
-    steps, n_mb, rows, seq_len, per_row = 3, 2, 1, 4096, 4
-    model_dir = gpt_oss_model_dir("gpt_oss_model", num_hidden_layers=GPT_OSS_TRAIN_LAYERS)
+    steps, n_mb, rows, seq_len, per_row = BIG_TRAIN_STEPS, 2, 1, 4096, 4
+    model_dir = gpt_oss_model_dir("gpt_oss_model", num_hidden_layers=GPT_OSS_TRAIN_LAYERS,
+                                  num_local_experts=GPT_OSS_TRAIN_EXPERTS)
 
     def config(out: str) -> TrainerConfig:
         return TrainerConfig(
@@ -2792,7 +2939,8 @@ def gpt_oss_training_phase() -> tuple[dict, dict]:
 
     spec = get_spec(model_dir)
     if (spec.family, spec.hidden_size, spec.num_heads, spec.num_kv_heads, spec.head_dim,
-            spec.num_experts, spec.vocab_size) != ("gpt_oss", 2880, 64, 8, 64, 32, 201088):
+            spec.num_experts, spec.vocab_size) != ("gpt_oss", 2880, 64, 8, 64, GPT_OSS_TRAIN_EXPERTS,
+                                                   201088):
         raise AssertionError("the trained model must be gpt-oss at gpt-oss-20b's widths")
     windows = layer_windows_list(spec)
     log(f"gpt-oss-training: {spec.num_layers} layers (windows {windows}), {spec.num_experts} "
@@ -3024,7 +3172,7 @@ def moe_training_phase(name: str, model: str, spec) -> tuple[dict, dict]:
     """The trainer's step (``make_train_step``, as ``train`` builds it) on
     ``spec`` (``model`` names it to the trainer's config), twice from the same
     seed: ``seq_len`` 4096, 2 micro-batches of 1 row, adamw_8bit with bf16
-    masters, full remat, 3 steps, each batch from ``replayed_fake_loader`` so
+    masters, full remat, BIG_TRAIN_STEPS steps, each batch from ``replayed_fake_loader`` so
     that half the tokens replay a routing; bit-equal finite losses and the
     launches of K1, K2a and K2b the layers imply. Then one more step under the
     profiler for the experts' share. Returns (launches of the first run,
@@ -3036,7 +3184,7 @@ def moe_training_phase(name: str, model: str, spec) -> tuple[dict, dict]:
     from prime_rl_tpu_torch.trainer.optim import make_optimizer, tree_leaves
     from prime_rl_tpu_torch.trainer.step import Scales, init_train_state, make_train_step
 
-    steps, n_mb, rows, seq_len, layers = 3, 2, 1, 4096, spec.num_layers
+    steps, n_mb, rows, seq_len, layers = BIG_TRAIN_STEPS, 2, 1, 4096, spec.num_layers
     cfg = TrainerConfig(
         device="cuda", seed=SEED, grad_clip=1.0,
         model={"name": model, "seq_len": seq_len,
@@ -3551,7 +3699,7 @@ def qwen3_next_reference_phase() -> dict:
     (``gated_train_reference``, each gradient also held against bf16's own
     error on the CPU), and the serving path (``served_reference``,
     pages of 8): a prefill of 200 tokens (past the GDN's chunk of 64), a
-    chunked prefill of 300 more from the recurrent rows the prefill returned,
+    chunked prefill of 100 more from the recurrent rows the prefill returned,
     and 4 decode steps through K1 and K4, each twice for equal bits, against
     float32 on the CPU replaying the card's routing. K3 must not launch (the
     attention layers are gated). Returns {"train": launches, "serve":
@@ -3562,7 +3710,7 @@ def qwen3_next_reference_phase() -> dict:
                                   seq_len=REF_TOKENS)
     serve_launches = served_reference(spec, "Qwen3-Next (1 period, 32 experts)",
                                       ("flash_attn_fwd", "decode_paged_attention"), twice=True,
-                                      prompt=500, chunk=300, ps=8)
+                                      prompt=300, chunk=100, ps=8)
     if serve_launches.get("decode_qkv_prep", 0):
         raise AssertionError("qwen3-next: K3 launched on gated attention layers, which the JAX "
                              "package prepares outside its kernel")
@@ -3589,8 +3737,8 @@ def qwen3_next_training_phase() -> tuple[dict, dict]:
 def nemotron_training_phase() -> tuple[dict, dict]:
     """The trainer through its normal entry on a directory whose config.json
     names NemotronHForCausalLM at the 8B's widths, cut to one period of its
-    pattern (``NEMOTRON_TRAIN_PATTERN``: 3 Mamba-2 and relu^2 pairs, then an
-    attention layer; 7 layers), twice from the same seed
+    pattern (``NEMOTRON_TRAIN_PATTERN``: a Mamba-2 and relu^2 pair, then an
+    attention layer; 3 layers), twice from the same seed
     (``hybrid_training_phase``). Returns (launches of the first run, numbers
     of its last step)."""
     model_dir = nemotron_dir("nemotron_training", NEMOTRON_TRAIN_PATTERN)
@@ -3608,7 +3756,7 @@ def hybrid_training_phase(label: str, model_dir: str, expect: tuple, widths, n_a
                           must_change) -> tuple[dict, dict]:
     """A hybrid model's trainer through its normal entry on ``model_dir``,
     twice from the same seed: seq_len 4096, 2 micro-batches of 1 row,
-    adamw_8bit with bf16 masters, full remat, 3 steps. ``widths(spec)`` must
+    adamw_8bit with bf16 masters, full remat, BIG_TRAIN_STEPS steps. ``widths(spec)`` must
     give ``expect``. Bit-equal finite losses, changed parameters (none for
     which ``must_change(path)`` holds unchanged), the launches of K1, K2a and
     K2b the ``n_attn(spec)`` attention layers, micro-batches and remat imply,
@@ -3626,7 +3774,7 @@ def hybrid_training_phase(label: str, model_dir: str, expect: tuple, widths, n_a
     from prime_rl_tpu_torch.trainer.rl.train import train
     from prime_rl_tpu_torch.trainer.weights import save_hf_weights
 
-    steps, n_mb, rows, seq_len = 3, 2, 1, 4096
+    steps, n_mb, rows, seq_len = BIG_TRAIN_STEPS, 2, 1, 4096
     tag = label.replace("-", "_")
 
     def config(out: str) -> TrainerConfig:
@@ -4164,9 +4312,11 @@ def loop_phase(card: str) -> dict:
     return run_loop(card, "loop", [os.path.join("configs", "bench", "northstar_rl_tpu.toml")])[0]
 
 
-def run_loop(card: str, label: str, tomls: list[str], flags: tuple = ()) -> tuple[dict, str]:
+def run_loop(card: str, label: str, tomls: list[str], flags: tuple = (),
+             kernels: tuple[str, ...] = LOOP_KERNELS) -> tuple[dict, str]:
     """``loop_phase``'s run and checks for the launcher on ``tomls`` (merged
-    left to right) and ``flags``, under ``build/chip_smoke/<label>``.
+    left to right) and ``flags``, under ``build/chip_smoke/<label>``; every
+    kernel of ``kernels`` must launch in the colocated process.
     Returns (the colocated process's kernel launches, its log)."""
     import re
     import signal
@@ -4225,7 +4375,7 @@ def run_loop(card: str, label: str, tomls: list[str], flags: tuple = ()) -> tupl
     if not found:
         raise AssertionError(f"{label}: the colocated process did not log its kernel launches")
     launches = json.loads(found[-1])
-    missing = [k for k in LOOP_KERNELS if launches.get(k, 0) <= 0]
+    missing = [k for k in kernels if launches.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"{label}: {missing} never launched in the colocated process: "
                              f"{launches}")
@@ -4702,6 +4852,734 @@ def lora_loop_phase(card: str) -> dict:
     return launches
 
 
+# ---- the wide kernel forms and Qwen3-VL ----------------------------------------
+
+QWEN3_VL_TRAIN_LAYERS = 16  # of 36: the trunk beside the whole tower (27 blocks), see PERF.md
+QWEN3_VL_ROW = 4096  # tokens a packed training row
+# the packed row of the kernel rows: two image samples and two text samples
+QWEN3_VL_PACKING = [1269, 997, 1100, 730]
+# synthetic images as (t, h, w) patch grids: 448 x 448 -> 28 x 28 patches of 16
+# (784, 196 image tokens); 1024 x 768 -> 64 x 48 (3072, 768 image tokens)
+QWEN3_VL_IMAGES = ((1, 28, 28), (1, 64, 48))
+QWEN3_VL_REQUESTS = 16
+QWEN3_VL_MAX_TOKENS = 128
+# the reference phases' trunk: debug_vlm's tower and token ids, the trunk at
+# head dim 128 (so that K3 and K4 take its decode), out_hidden_size = hidden
+QWEN3_VL_TEST_SHAPE = dict(hidden_size=512, num_heads=4, num_kv_heads=2, head_dim=128,
+                           intermediate_size=1024, mrope_section=(24, 20, 20))
+QWEN3_VL_TEST_MOE = dict(family="qwen3_vl_moe", num_experts=8, num_experts_per_tok=2,
+                         moe_intermediate_size=256)
+
+
+def qwen3_vl_spec(num_layers: int | None = None):
+    """Qwen3-VL-8B's spec from QWEN3_VL_8B_CONFIG (the port's reader), the
+    trunk cut to ``num_layers`` where given."""
+    import dataclasses
+
+    from prime_rl_tpu_torch.models.base import spec_from_hf_config
+
+    spec = spec_from_hf_config(json.loads(json.dumps(QWEN3_VL_8B_CONFIG)))
+    return spec if num_layers is None else dataclasses.replace(spec, num_layers=num_layers)
+
+
+def qwen3_vl_test_spec(moe: bool):
+    import dataclasses
+
+    from prime_rl_tpu_torch.models.base import get_spec
+
+    spec = get_spec("debug_vlm")
+    spec = dataclasses.replace(spec, **QWEN3_VL_TEST_SHAPE, vision=dataclasses.replace(
+        spec.vision, out_hidden_size=QWEN3_VL_TEST_SHAPE["hidden_size"]))
+    return dataclasses.replace(spec, **QWEN3_VL_TEST_MOE) if moe else spec
+
+
+def vlm_prompt(spec, grid, n_text: int, rng) -> tuple[list[int], dict]:
+    """A synthetic VLM prompt: ``n_text`` random text tokens (below the vision
+    token ids) around one vision block of ``grid`` (t, h, w patches), and its
+    pixels from ``rng`` in the HF processor's layout."""
+    import numpy as np
+
+    t, h, w = grid
+    m = spec.vision.spatial_merge_size
+    hi = min(spec.vision_start_token_id, spec.vocab_size)
+    text = rng.integers(3, hi, n_text).tolist()
+    ids = (text[:n_text // 2] + [spec.vision_start_token_id]
+           + [spec.image_token_id] * (t * (h // m) * (w // m)) + text[n_text // 2:])
+    pixels = rng.standard_normal((t * h * w, spec.vision.patch_dim)).astype(np.float32)
+    return ids, {"pixel_values": pixels, "image_grid_thw": np.asarray([grid], np.int64)}
+
+
+def vlm_samples(spec, rng, layout) -> list:
+    """TrainingSamples of ``layout``: (grid or None, text tokens) each, an
+    image sample or a text sample, advantages of both signs."""
+    import numpy as np
+
+    from prime_rl_tpu_torch.transport.types import TrainingSample
+
+    out = []
+    for i, (grid, n_text) in enumerate(layout):
+        if grid is None:
+            ids, mm = rng.integers(3, min(spec.vision_start_token_id, spec.vocab_size),
+                                   n_text).tolist(), None
+        else:
+            ids, mm = vlm_prompt(spec, grid, n_text, rng)
+        n = len(ids)
+        out.append(TrainingSample(
+            token_ids=np.asarray(ids, np.int32), mask=np.arange(n) >= n // 2,
+            logprobs=(-rng.random(n) * 3).astype(np.float32),
+            temperatures=np.ones(n, np.float32),
+            advantages=np.full(n, 1.0 if i % 2 else -1.0, np.float32), mm_kwargs=mm))
+    return out
+
+
+def k4_wide_case(gen, flush, hd: int) -> dict:
+    """K4 at head dim ``hd`` (384 or 512: the shallower rings) over 32 slots of
+    500-1100 cached tokens, 16/4 heads, PS 64: checked twice for equal bits
+    and timed as the other K4 rows are."""
+    import torch
+
+    s, nh, nkv, ps, p = 32, 16, 4, 64, 4096 // 64
+
+    def lengths():
+        return torch.randint(500, 1101, (s,), device="cuda", generator=gen, dtype=torch.int32)
+
+    args = k4_inputs(gen, s, nh, nkv, hd, ps, p, lengths)
+    shape = f"S={s} PS={ps} lengths 500..1100, {nh}/{nkv} heads of {hd}"
+    err = k4_check(shape, *args, launches=2)
+    case = dict(shape=shape, max_abs_err=err, **k4_timing(f"{shape} (err {err:.3g})", *args,
+                                                          flush=flush))
+    del args
+    torch.cuda.empty_cache()
+    return case
+
+
+def k5_wide_timing(gen, flush) -> tuple[dict, dict]:
+    """K5a and K5b in their wide forms at S = Sk = 2048, T = 512 (a causal
+    top-k), 16 heads, Dq 1152 / v_dim 1024: against the plain versions, each
+    timed beside its plain version and one SDPA call (its backward) over the
+    dense mask of the selected pairs. Returns the two rows' numbers."""
+    import torch
+
+    from prime_rl_tpu_torch.ops import sparse_mla_kernel as K
+
+    S, T, H, dq_w, dv = 2048, 512, 16, K.DQ_WIDE, K.DV_WIDE
+
+    def randn(*shape):
+        return torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
+
+    q, kv, do = randn(S, H, dq_w), randn(S, dq_w), randn(S, H, dv)
+    idx = causal_topk_indices(S, T, gen, torch.device("cuda"))
+    scale = dq_w ** -0.5
+    pairs = int((idx < S).sum())
+    out, lse = K.sparse_mla_fwd(q, kv, idx, scale, dv)
+    ref_out, _ = K.sparse_mla_attention_reference(q, kv, idx, scale, dv)
+    err_a = check_close("sparse_mla_fwd (wide) timed row", out, ref_out, K5B_TOL, K5B_TOL)
+    dq, dkv = K.sparse_mla_bwd(q, kv, idx, out, lse, do, scale, dv)
+    ref = K.sparse_mla_backward_reference(q, kv, idx, out, lse, do, scale, dv)
+    err_b = max(check_close(f"sparse_mla_bwd (wide) timed row {w}", g, r, K5B_TOL, K5B_TOL)
+                for w, g, r in zip(("dq", "dkv"), (dq, dkv), ref))
+    del ref_out, ref
+    fwd_ms = time_ms(lambda: K.sparse_mla_fwd(q, kv, idx, scale, dv), iters=5, flush=flush)
+    bwd_ms = time_ms(lambda: K.sparse_mla_bwd(q, kv, idx, out, lse, do, scale, dv), iters=3,
+                     warmup=1)
+    fwd_plain = time_ms(lambda: K.sparse_mla_attention_reference(q, kv, idx, scale, dv), iters=2,
+                        warmup=1)
+    bwd_plain = time_ms(lambda: K.sparse_mla_backward_reference(q, kv, idx, out, lse, do, scale,
+                                                                 dv), iters=2, warmup=1)
+    fwd_lib, fwd_note = k5a_library_ms(q, kv, idx, scale, flush, dv)
+    bwd_lib, bwd_note = k5b_library_ms(q, kv, idx, do, scale, flush, dv)
+    shape = f"S=Sk={S} T={T} pairs={pairs} H={H} Dq {dq_w} / v_dim {dv}"
+    rows = []
+    for label, ms, plain, lib, note, nbytes, flops, err in (
+            ("K5a sparse_mla_fwd (wide)", fwd_ms, fwd_plain, fwd_lib, fwd_note,
+             (q.numel() + kv.numel() + out.numel()) * 2 + idx.numel() * 4 + lse.numel() * 4,
+             2 * H * pairs * (dq_w + dv), err_a),
+            ("K5b sparse_mla_bwd (wide)", bwd_ms, bwd_plain, bwd_lib, bwd_note,
+             (q.numel() * 2 + kv.numel() * 2 + do.numel() + out.numel()) * 2 + idx.numel() * 4
+             + lse.numel() * 4, 2 * H * pairs * (3 * dq_w + 2 * dv), err_b)):
+        bms, by = bound(nbytes, flops)
+        log(f"{label} {shape}: err {err:.3g}  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
+            f"library {note if lib is None else f'{lib:.4f} ms ({note})'}  bound {bms:.4f} ms "
+            f"({by})")
+        rows.append(dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                         library=note, bound_ms=bms, bound_by=by))
+    del q, kv, do, idx, out, lse, dq, dkv
+    torch.cuda.empty_cache()
+    return rows[0], rows[1]
+
+
+def range_repairs_phase() -> list[dict]:
+    """The forms of ROADMAP Queue 3's repairs, each held against its plain
+    version, launched twice for equal bits and timed (their edge cases run in
+    the kernel phases: K1_EDGE_CASES at head dims 320 and 512, K4_EDGE_CASES
+    at 384 and 512): K1, K2a and K2b at head dim 512 (B=1 L=2048, 16/4 heads,
+    two sequences), K4 at 384 and 512, and K5a/K5b at the wide widths over
+    K5_WIDE_CASES (1152/1024 and 640/512) and timed at 1152/1024."""
+    import torch
+
+    from prime_rl_tpu_torch.ops import _build
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 18)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
+    before = dict(_build.launches)
+    rows = []
+    found = k12_rows(gen, "hd512", 1, 2048, 16, 4, 512, [[1100, 948]])
+    for (name, line), case in zip((("flash_attn_fwd", 59), ("flash_attn_bwd_dq", 227),
+                                   ("flash_attn_bwd_dkv", 282)), found):
+        source = "fwd" if name == "flash_attn_fwd" else "bwd"
+        rows.append(dict(name=f"{name}/hd512", route="cuda",
+                         source=f"prime_rl_tpu_torch/csrc/flash_attn_{source}.cu",
+                         replaces=f"prime_rl_tpu/ops/flash_attention.py:{line}",
+                         **{k: case[k] for k in keys}, cases=[case]))
+    for hd in (384, 512):
+        case = k4_wide_case(gen, flush, hd)
+        rows.append(dict(name=f"decode_paged_attention/hd{hd}", route="cuda",
+                         source="prime_rl_tpu_torch/csrc/decode_attention.cu",
+                         replaces="prime_rl_tpu/ops/decode_attention.py:50",
+                         **{k: case[k] for k in keys}, cases=[case]))
+    errs = [k5_wide_case(gen, *case) for case in K5_WIDE_CASES]
+    fwd, bwd = k5_wide_timing(gen, flush)
+    fwd["max_abs_err"] = max([fwd["max_abs_err"]] + [e[0] for e in errs])
+    bwd["max_abs_err"] = max([bwd["max_abs_err"]] + [e[1] for e in errs])
+    for name, line, case in (("sparse_mla_fwd", 67, fwd), ("sparse_mla_bwd", 153, bwd)):
+        rows.append(dict(name=f"{name}/wide", route="cuda",
+                         source="prime_rl_tpu_torch/csrc/sparse_mla.cu",
+                         replaces=f"prime_rl_tpu/ops/sparse_mla_pallas.py:{line}",
+                         **{k: case[k] for k in keys}, cases=[case],
+                         edge_cases=len(K5_WIDE_CASES)))
+    forms = {k: v - before.get(k, 0) for k, v in _build.launches.items()
+             if k.endswith("/wide") and v > before.get(k, 0)}
+    for kernel in ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv",
+                   "decode_paged_attention", "sparse_mla_fwd", "sparse_mla_bwd"):
+        if forms.get(f"{kernel}/wide", 0) <= 0:
+            raise AssertionError(f"range-repairs: the wide form of {kernel} never launched")
+    for row in rows:
+        row["launches_range_repairs"] = forms[row["name"].split("/")[0] + "/wide"]
+    log(f"range-repairs: the wide forms' launches in this phase {forms}")
+    del flush
+    torch.cuda.empty_cache()
+    return rows
+
+
+def qwen3_vl_kernel_phase() -> list[dict]:
+    """The kernel rows at Qwen3-VL-8B's trunk (32/8 heads of 128), each held
+    against its plain version, launched twice for equal bits and timed: K1,
+    K2a and K2b over a packed row of 4096 tokens (QWEN3_VL_PACKING: two image
+    samples, two text samples), K3 at D 4096 with its qk-norm at 64 slots, K4
+    at the serving phase's shape (16 slots of 260-1100 cached tokens, PS 64);
+    and K3 at debug_vlm's D 128, 4/2 heads of 32 (the VLM loop's decode)."""
+    import torch
+
+    from prime_rl_tpu_torch.models.base import get_spec
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 19)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    spec = qwen3_vl_spec()
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
+    rows = []
+    found = k12_rows(gen, "qwen3-vl", 1, QWEN3_VL_ROW, spec.num_heads, spec.num_kv_heads,
+                     spec.head_dim, [QWEN3_VL_PACKING])
+    for (name, line), case in zip((("flash_attn_fwd", 59), ("flash_attn_bwd_dq", 227),
+                                   ("flash_attn_bwd_dkv", 282)), found):
+        source = "fwd" if name == "flash_attn_fwd" else "bwd"
+        rows.append(dict(name=f"{name}/qwen3-vl", route="cuda",
+                         source=f"prime_rl_tpu_torch/csrc/flash_attn_{source}.cu",
+                         replaces=f"prime_rl_tpu/ops/flash_attention.py:{line}",
+                         **{k: case[k] for k in keys}, cases=[case], model=QWEN3_VL))
+    case = k3_row(spec, gen, flush, QWEN3_VL, qk_norm=True, bias=False)
+    rows.append(dict(name="decode_qkv_prep/qwen3-vl", route="cuda",
+                     source="prime_rl_tpu_torch/csrc/decode_qkv.cu",
+                     replaces="prime_rl_tpu/ops/decode_qkv.py:36",
+                     **{k: case[k] for k in keys}, cases=[case], model=QWEN3_VL))
+    # head dim 32: debug_vlm's trunk, which the VLM loop decodes through K3
+    case = k3_row(get_spec("debug_vlm"), gen, flush, "debug_vlm", qk_norm=True, bias=False)
+    rows.append(dict(name="decode_qkv_prep/hd32", route="cuda",
+                     source="prime_rl_tpu_torch/csrc/decode_qkv.cu",
+                     replaces="prime_rl_tpu/ops/decode_qkv.py:36",
+                     **{k: case[k] for k in keys}, cases=[case], model="debug_vlm"))
+    s, ps, p = QWEN3_VL_REQUESTS, 64, 4096 // 64
+
+    def lengths():
+        return torch.randint(260, 1101, (s,), device="cuda", generator=gen, dtype=torch.int32)
+
+    args = k4_inputs(gen, s, spec.num_heads, spec.num_kv_heads, spec.head_dim, ps, p, lengths)
+    shape = f"S={s} PS={ps} lengths 260..1100, 32/8 heads of 128 (Qwen3-VL-8B serving)"
+    err = k4_check(shape, *args, launches=2)
+    case = dict(shape=shape, max_abs_err=err, **k4_timing(f"{shape} (err {err:.3g})", *args,
+                                                          flush=flush))
+    rows.append(dict(name="decode_paged_attention/qwen3-vl", route="cuda",
+                     source="prime_rl_tpu_torch/csrc/decode_attention.cu",
+                     replaces="prime_rl_tpu/ops/decode_attention.py:50",
+                     **{k: case[k] for k in keys}, cases=[case], model=QWEN3_VL))
+    del args, flush
+    torch.cuda.empty_cache()
+    return rows
+
+
+def vlm_train_reference(spec, label: str) -> dict:
+    """Loss and every gradient (the tower's among them) of one packed row of
+    512 tokens (an image sample, a text sample) through ``spec`` in bf16 on
+    the card (K1, K2a, K2b; the tower's products), against float32 on the CPU
+    from the same bf16-representable weights; the CPU replays the card's
+    routing. Returns the card's launches."""
+    import numpy as np
+    import torch
+
+    from prime_rl_tpu_torch.configs.shared import ModelConfig
+    from prime_rl_tpu_torch.configs.trainer import DefaultLossConfig
+    from prime_rl_tpu_torch.models import get_family
+    from prime_rl_tpu_torch.ops import _build
+    from prime_rl_tpu_torch.trainer.batch import prepare_batch
+    from prime_rl_tpu_torch.trainer.optim import tree_map, tree_paths
+    from prime_rl_tpu_torch.trainer.step import MicroBatchArrays, Scales, make_loss_fn, put_batch
+
+    gen = torch.Generator().manual_seed(SEED)
+    master = tree_map(lambda x: x.to(torch.bfloat16), get_family(spec).init(spec, gen))
+    rng = np.random.default_rng(SEED)
+    batch = prepare_batch(vlm_samples(spec, rng, [((1, 16, 12), 200), (None, 240)]), 512, 1, 1,
+                          vlm_spec=spec)
+    scales = Scales(float(batch.loss_mask.sum()), 1.0, 1.0)
+
+    def run(device, dtype, compute):
+        params = tree_map(lambda x: x.to(device=device, dtype=dtype).requires_grad_(), master)
+        mb = MicroBatchArrays(*[None if x is None else x[0] for x in put_batch(batch, device)])
+        loss_fn = make_loss_fn(spec, ModelConfig(compute_dtype=compute), DefaultLossConfig())
+        loss, _ = loss_fn(params, mb, scales)
+        loss.backward()
+        return float(loss.detach()), {p: x.grad.float().cpu() for p, x in tree_paths(params)}
+
+    _build.reset_launches()
+    routing: list = []
+    with recorded_routing(record=routing):
+        loss_gpu, grads_gpu = run(torch.device("cuda"), torch.bfloat16, "bfloat16")
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    for name in ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"{label} train reference: {name} was not launched on the card")
+    with recorded_routing(replay=[r.cpu() for r in routing]):
+        loss_cpu, grads_cpu = run(torch.device("cpu"), torch.float32, "float32")
+    # as train_reference_phase: bf16 through the tower and the trunk against float32
+    loss_rtol, grad_rtol = 2e-2, 5e-2
+    if not abs(loss_gpu - loss_cpu) <= loss_rtol * abs(loss_cpu):
+        raise AssertionError(f"{label} train reference loss {loss_gpu} vs float32 {loss_cpu}")
+    worst = 0.0
+    for path, want in grads_cpu.items():
+        got = grads_gpu[path]
+        rel = float((got - want).norm() / want.norm().clamp_min(1e-30))
+        worst = max(worst, rel)
+        if not (bool(torch.isfinite(got).all()) and rel <= grad_rtol):
+            raise AssertionError(f"{label} train reference gradient of {path}: relative error "
+                                 f"{rel:.4g} exceeds {grad_rtol}")
+    log(f"{label} train reference: loss {loss_gpu:.6g} vs float32 {loss_cpu:.6g} (tolerance "
+        f"{loss_rtol} relative); worst gradient error {worst:.4g} of its norm over "
+        f"{len(grads_cpu)} tensors, the tower's {sum(p.startswith('vision') for p in grads_cpu)} "
+        f"among them (tolerance {grad_rtol}); launches {launches}")
+    return launches
+
+
+def vlm_served_reference(spec, label: str) -> dict:
+    """The served forward of ``spec`` on an image prompt (one vision block of
+    48 tokens in 149): the tower, the prefill with its image slots, DeepStack
+    and mRoPE positions (logits and prompt logprobs), and 4 decode steps with
+    the prompt's ``pos_delta``, in bf16 through K1, K3 and K4 on the card,
+    against float32 on the CPU from the same weights (the CPU replays the
+    card's routing), within 0.05 of the largest |logit| as the other served
+    references. Returns the card's launches."""
+    import numpy as np
+    import torch
+
+    from prime_rl_tpu_torch.models import get_family
+    from prime_rl_tpu_torch.ops import _build
+    from prime_rl_tpu_torch.sampler import model as smodel
+    from prime_rl_tpu_torch.sampler.cache import CacheConfig, KVPool
+    from prime_rl_tpu_torch.sampler.engine import prepare_mm
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = perturbed(get_family(spec).init(spec, gen, dtype=torch.bfloat16, device="cuda"), gen)
+    rng = np.random.default_rng(SEED)
+    ids, mm = vlm_prompt(spec, (1, 16, 12), 100, rng)
+    n, steps, ps = len(ids), 4, 64
+    lpad = -(-n // ps) * ps
+    n_pages = -(-(n + steps) // ps) + 1
+    table = torch.arange(1, n_pages + 1, dtype=torch.int32)[None]
+    cache = CacheConfig(num_pages=n_pages + 1, page_size=ps, max_slots=1,
+                        max_seq_len=n_pages * ps)
+    ids_pad = torch.zeros(1, lpad, dtype=torch.int64)
+    ids_pad[0, :n] = torch.tensor(ids)
+    nxt = torch.randint(1, 250, (steps,), generator=torch.Generator().manual_seed(SEED))
+    what = ["prefill", "prompt logprobs"] + [f"decode {i}" for i in range(steps)]
+
+    def run(params, device, dtype):
+        sp = smodel.unstack_params(params, spec)
+        pool = KVPool(spec, cache, dtype=dtype, device=device)
+        kp, vp = pool.k, pool.v
+
+        def to_dev(a):
+            return torch.as_tensor(np.asarray(a)).to(device)
+
+        mm_dev, delta = prepare_mm(sp, spec, mm, ids, lpad, to_dev, dtype)
+        got = smodel.prefill(sp, spec, kp, vp, ids_pad.to(device), n,
+                             table[0, :lpad // ps].to(device), compute_dtype=dtype,
+                             want_prompt_logprobs=True, mm=mm_dev)
+        out = [smodel.logits_from_hidden(sp, spec, got[2][None], dtype), got[3][1:n]]
+        for i in range(steps):
+            tok = (torch.tensor(ids[-1:]) if i == 0 else nxt[i - 1:i]).to(device)
+            _, _, logits = smodel.decode(
+                sp, spec, kp, vp, tok, torch.tensor([n + i], dtype=torch.int32, device=device),
+                table.to(device), compute_dtype=dtype,
+                pos_delta=torch.tensor([delta], dtype=torch.int32, device=device))
+            out.append(logits)
+        return [o.float().cpu() for o in out], delta
+
+    _build.reset_launches()
+    routing: list = []
+    with recorded_routing(record=routing):
+        got, delta = run(params, torch.device("cuda"), torch.bfloat16)
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    for kernel in ("flash_attn_fwd", "decode_qkv_prep", "decode_paged_attention"):
+        if launches.get(kernel, 0) <= 0:
+            raise AssertionError(f"{label} served reference: {kernel} was not launched")
+    cpu = {k: (v.float().cpu() if isinstance(v, torch.Tensor) else
+               {n_: (t.float().cpu() if isinstance(t, torch.Tensor) else
+                     {m_: u.float().cpu() for m_, u in t.items()}) for n_, t in v.items()})
+           for k, v in params.items()}
+    del params
+    torch.cuda.empty_cache()
+    with recorded_routing(replay=[r.cpu() for r in routing]):
+        want, delta_cpu = run(cpu, torch.device("cpu"), torch.float32)
+    if delta != delta_cpu or delta >= 0:
+        raise AssertionError(f"{label}: pos_delta {delta} on the card, {delta_cpu} on the CPU")
+    for what_, g, w in zip(what, got, want):
+        err, scale = float((g - w).abs().max()), float(w.abs().max())
+        if not (err <= 0.05 * scale and bool(torch.isfinite(g).all())):
+            raise AssertionError(f"{label} served {what_} differs from the float32 reference: "
+                                 f"max err {err:.4g} vs max |ref| {scale:.4g}")
+        log(f"{label} served reference {what_}: max err {err:.4g} (max |ref| {scale:.4g})")
+    log(f"{label} served reference: pos_delta {delta}; launches {launches}")
+    return launches
+
+
+def qwen3_vl_reference_phase() -> dict:
+    """``vlm_train_reference`` and ``vlm_served_reference`` for the dense
+    trunk and the MoE trunk at QWEN3_VL_TEST_SHAPE. Returns {label: {"train":
+    launches, "serve": launches}}."""
+    out = {}
+    for label, moe in (("qwen3-vl", False), ("qwen3-vl-moe", True)):
+        spec = qwen3_vl_test_spec(moe)
+        out[label] = {"train": vlm_train_reference(spec, label),
+                      "serve": vlm_served_reference(spec, label)}
+    return out
+
+
+def vlm_decode_timing(engine, slots: int = QWEN3_VL_REQUESTS, cached: int = 1000) -> dict:
+    """The decode step of the served Qwen3-VL-8B at ``slots`` slots of
+    ``cached`` tokens with an mRoPE offset (the engine's pool, after its
+    requests): busy ms (CUDA events around a step) and host ms (the host
+    clock around a step that ends in a synchronize), medians of 10."""
+    import numpy as np
+    import torch
+
+    from prime_rl_tpu_torch.sampler import model as smodel
+
+    spec, dev, ps = engine.spec, engine.device, engine.config.page_size
+    p = cached // ps + 2
+    table = (1 + torch.arange(slots * p, device=dev, dtype=torch.int32)).reshape(slots, p)
+    lengths = torch.full((slots,), cached, dtype=torch.int32, device=dev)
+    delta = torch.full((slots,), -600, dtype=torch.int32, device=dev)
+    tokens = torch.randint(0, 150000, (slots,), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(SEED))
+
+    def step():
+        with torch.no_grad():
+            smodel.decode(engine.params, spec, engine.k_pool, engine.v_pool, tokens, lengths,
+                          table, compute_dtype=torch.bfloat16, pos_delta=delta)
+
+    busy = time_ms(step, iters=10)
+    host = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    return {"decode_step_busy_ms": busy, "decode_step_host_ms": float(np.median(host)),
+            "decode_slots": slots, "decode_cached_tokens": cached}
+
+
+def vlm_tower_timing(engine) -> dict:
+    """The vision tower of the served Qwen3-VL-8B alone (CUDA events, bf16,
+    no grad) on one image of each of QWEN3_VL_IMAGES, its patches padded to
+    the engine's bucket, and its attention alone (``frame_attention`` over
+    the real patches at 16 heads of 72, one frame): ms each."""
+    import numpy as np
+    import torch
+
+    from prime_rl_tpu_torch.models.vision import frame_attention, prep_patch_metadata, vision_forward
+    from prime_rl_tpu_torch.sampler.engine import MM_BUCKETS, _bucket
+
+    spec, dev = engine.spec, engine.device
+    vspec = spec.vision
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out = {}
+    for grid in QWEN3_VL_IMAGES:
+        n = int(np.prod(grid))
+        pb = _bucket(n, list(MM_BUCKETS))
+        meta = {k: torch.as_tensor(v).to(dev) for k, v in
+                prep_patch_metadata(np.asarray([grid]), vspec, pad_to=pb).items()}
+        pixels = torch.randn(pb, vspec.patch_dim, device=dev, generator=gen)
+        with torch.no_grad():
+            tower = time_ms(lambda: vision_forward(
+                engine.params["vision"], vspec, pixels, meta["seg_ids"], meta["pos_idx"],
+                meta["pos_w"], meta["rope_coords"], compute_dtype=torch.bfloat16, remat="none"),
+                iters=5, warmup=1)
+            q, k, v = (torch.randn(n, vspec.num_heads, vspec.head_dim, device=dev,
+                                   generator=gen).to(torch.bfloat16) for _ in range(3))
+            attn = time_ms(lambda: frame_attention(q, k, v, [(0, n)], vspec.head_dim ** -0.5),
+                           iters=10)
+        out[f"tower_ms_{n}_patches"] = tower
+        out[f"tower_attention_ms_{n}_patches"] = attn
+    log(f"the Qwen3-VL-8B tower alone (27 blocks, bf16): {json.dumps(out)} (the attention "
+        f"alone: one block's, one frame)")
+    return out
+
+
+def qwen3_vl_serving_phase(card: str) -> tuple[dict, dict]:
+    """The inference server on Qwen3-VL-8B at full width and depth (36
+    layers, the 27-block tower; random weights from the seed) over HTTP:
+    QWEN3_VL_REQUESTS concurrent requests, each one synthetic image
+    (QWEN3_VL_IMAGES in turn: 196 or 768 image tokens) in 64-256 text tokens,
+    its pixels as base64 f32 on the wire, QWEN3_VL_MAX_TOKENS tokens each;
+    then one text-only request on the same engine, and the decode step's
+    busy and host ms. Returns (stats, launches of the requests)."""
+    import base64
+
+    import aiohttp
+    import aiohttp.web_app
+    import numpy as np
+    import torch
+
+    from prime_rl_tpu_torch.configs import InferenceConfig
+    from prime_rl_tpu_torch.entrypoints.inference import build_server
+    from prime_rl_tpu_torch.ops import _build
+    from prime_rl_tpu_torch.sampler.engine import SamplingParams
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    model_dir = config_dir("qwen3_vl_serving", QWEN3_VL_8B_CONFIG)
+    config = InferenceConfig(
+        device="cuda", seed=SEED, max_model_len=4096,
+        output_dir=os.path.join(ROOT, "build", "chip_smoke"),
+        model={"name": model_dir, "debug": {"random_init": True}},
+        tokenizer={"name": "byte"}, scheduler={"max_batch_size": 64})
+    t0 = time.perf_counter()
+    server = build_server(config)
+    engine = server.engine
+    spec = engine.spec
+    log(f"{QWEN3_VL} server built in {time.perf_counter() - t0:.2f} s: {spec.num_layers} "
+        f"layers, a tower of {spec.vision.depth} blocks, vocab {spec.vocab_size}, "
+        f"{engine.config.num_pages} KV pages of {engine.config.page_size}, device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    if (spec.num_layers, spec.vision.depth, spec.vocab_size) != (36, 27, 151936):
+        raise AssertionError(f"the served model must be {QWEN3_VL} at full width and depth")
+    rng = np.random.default_rng(SEED)
+    engine.warmup(4)
+    warm_ids, warm_mm = vlm_prompt(spec, QWEN3_VL_IMAGES[0], 64, rng)
+    engine.generate([warm_ids], SamplingParams(max_tokens=2), mm=[warm_mm])  # the tower's first call
+    prompts = [vlm_prompt(spec, QWEN3_VL_IMAGES[i % 2], int(rng.integers(64, 257)), rng)
+               for i in range(QWEN3_VL_REQUESTS)]
+    text_prompt = rng.integers(3, 150000, 200).tolist()
+    base = f"http://127.0.0.1:{port}"
+
+    def body(ids, mm):
+        out = {"token_ids": ids, "sampling_params": {"max_tokens": QWEN3_VL_MAX_TOKENS,
+                                                     "temperature": 1.0}}
+        if mm is not None:
+            pv = mm["pixel_values"]
+            out["mm"] = {"pixel_values": {"b64": base64.b64encode(pv.astype("<f4").tobytes())
+                                          .decode(), "shape": list(pv.shape)},
+                         "image_grid_thw": mm["image_grid_thw"].tolist()}
+        return out
+
+    def check(result: dict, what: str) -> int:
+        c = result["choices"][0]
+        toks, lps = c["token_ids"], c["logprobs"]
+        ok = (len(toks) == QWEN3_VL_MAX_TOKENS if c["finish_reason"] == "length"
+              else c["finish_reason"] == "stop" and toks and toks[-1] == spec.eos_token_id)
+        if not ok or len(lps) != len(toks) or not np.all(np.isfinite(lps)):
+            raise AssertionError(f"{what}: bad result {c['finish_reason']} {len(toks)} tokens")
+        return len(toks)
+
+    async def drive():
+        runner = await server.start_async("127.0.0.1", port)
+        try:
+            async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600)) as http:
+                async def generate(ids, mm):
+                    r = await http.post(f"{base}/inference/v1/generate", json=body(ids, mm))
+                    if r.status != 200:
+                        raise AssertionError(f"generate: HTTP {r.status}: {await r.text()}")
+                    return await r.json()
+
+                _build.reset_launches()
+                t0 = time.perf_counter()
+                results = await asyncio.gather(*(generate(ids, mm) for ids, mm in prompts))
+                wall = time.perf_counter() - t0
+                launches = dict(_build.launches)
+                tokens = sum(check(r, f"image request {i}") for i, r in enumerate(results))
+                t1 = time.perf_counter()
+                text = await generate(text_prompt, None)
+                text_s = time.perf_counter() - t1
+                check(text, "the text request")
+        finally:
+            await server.stop_async(runner)
+        return launches, dict(
+            requests=len(prompts), generated_tokens=tokens, wall_s=wall,
+            tokens_per_s=tokens / wall,
+            image_tokens=[sum(t == spec.image_token_id for t in ids) for ids, _ in prompts],
+            prompt_tokens=[len(ids) for ids, _ in prompts],
+            text_request_tokens=len(text["choices"][0]["token_ids"]), text_request_s=text_s)
+
+    launches, stats = asyncio.run(drive())
+    stats["vision_patches"] = engine.stats.get("vision_patches", 0)
+    stats.update(vlm_decode_timing(engine))
+    stats.update(vlm_tower_timing(engine))
+    stats["device_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    for kernel in ("flash_attn_fwd", "decode_qkv_prep", "decode_paged_attention"):
+        if launches.get(kernel, 0) <= 0:
+            raise AssertionError(f"qwen3-vl-serving: {kernel} was not launched: {launches}")
+    log(f"{QWEN3_VL} serving on {card}: {stats['tokens_per_s']:.1f} tokens/s over "
+        f"{stats['requests']} image requests ({stats['generated_tokens']} tokens in "
+        f"{stats['wall_s']:.2f} s; image tokens {sorted(set(stats['image_tokens']))}), the "
+        f"decode step at {stats['decode_slots']} slots of {stats['decode_cached_tokens']} tokens "
+        f"{stats['decode_step_host_ms']:.3f} host ms, {stats['decode_step_busy_ms']:.3f} busy ms; "
+        f"a text request after them {stats['text_request_tokens']} tokens in "
+        f"{stats['text_request_s']:.2f} s; launches {launches}")
+    for fn in vars(aiohttp.web_app).values():
+        if hasattr(fn, "cache_clear"):
+            fn.cache_clear()
+    alive = weakref.ref(engine)
+    del server, engine
+    gc.collect()
+    if alive() is not None:
+        raise AssertionError("the Qwen3-VL engine outlived its server: its memory is not freed")
+    torch.cuda.empty_cache()
+    return stats, launches
+
+
+def qwen3_vl_training_phase(card: str) -> tuple[dict, dict]:
+    """The trainer's step (``make_train_step``, as ``train`` builds it) on
+    Qwen3-VL-8B with the whole tower and the trunk cut to
+    QWEN3_VL_TRAIN_LAYERS, random weights from the seed: 2 micro-batches of
+    one packed row of 4096 tokens that mix image samples (768 and 196 image
+    tokens) and text samples, the patch buffer auto-sized, adamw_8bit with
+    bf16 masters, full remat, 2 steps: finite losses, the tower's gradients
+    non-zero, the launches of K1, K2a and K2b the layers imply. Returns
+    (launches, numbers of the last step)."""
+    import numpy as np
+    import torch
+
+    from prime_rl_tpu_torch.configs import TrainerConfig
+    from prime_rl_tpu_torch.ops import _build
+    from prime_rl_tpu_torch.trainer.batch import prepare_batch, token_counts
+    from prime_rl_tpu_torch.trainer.optim import make_optimizer, tree_leaves
+    from prime_rl_tpu_torch.trainer.step import Scales, init_train_state, make_train_step
+
+    steps, layers = 2, QWEN3_VL_TRAIN_LAYERS
+    spec = qwen3_vl_spec(layers)
+    cfg = TrainerConfig(
+        device="cuda", seed=SEED, grad_clip=1.0,
+        model={"name": QWEN3_VL, "seq_len": QWEN3_VL_ROW,
+               "debug": {"random_init": True, "num_layers": layers}},
+        optimizer={"type": "adamw_8bit", "lr": 1e-5, "master_dtype": "bfloat16"})
+    optimizer, _ = make_optimizer(cfg.optimizer, cfg.scheduler, cfg.grad_clip)
+    step = make_train_step(spec, cfg.model, cfg.loss, optimizer, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(spec, "cuda", optimizer, seed=SEED, master_dtype="bfloat16")
+    n_params = sum(x.numel() for x in tree_leaves(state.params))
+    tower = sum(x.numel() for x in tree_leaves(state.params["vision"]))
+    big, small = QWEN3_VL_IMAGES[1], QWEN3_VL_IMAGES[0]
+    # first-fit decreasing packs these into two rows: [text 2000, image 768 + text],
+    # [image 196 + text, text 1300, image 196 + text]
+    layout = [(None, 2000), (big, 2000 - 769), (small, 1400 - 197), (None, 1300),
+              (small, 700 - 197)]
+    rng = np.random.default_rng(SEED)
+    records = []
+    _build.reset_launches()
+    for i in range(steps):
+        batch = prepare_batch(vlm_samples(spec, rng, layout), QWEN3_VL_ROW, 1, 2, vlm_spec=spec)
+        if batch.input_ids.shape != (2, 1, QWEN3_VL_ROW):
+            raise AssertionError(f"qwen3-vl-training: batch of shape {batch.input_ids.shape}")
+        counts = token_counts(batch)
+        scales = Scales(rl=float(max(counts["rl"], 1)), ce=1.0, ref_kl=1.0)
+        patches = int((np.asarray(batch.mm_vis_seg_ids) > 0).sum())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, scales)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        records.append(dict(loss=loss, grad_norm=float(metrics["grad_norm"]),
+                            step_time_s=time.perf_counter() - t0, mm_patches=patches,
+                            mm_buffer=int(batch.mm_patches.shape[1])))
+    launches = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) and r["grad_norm"] > 0
+               for r in records):
+        raise AssertionError(f"qwen3-vl-training: bad step records {records}")
+    per_pass = layers * 2 * steps
+    want = {"flash_attn_fwd": 2 * per_pass, "flash_attn_bwd_dq": per_pass,
+            "flash_attn_bwd_dkv": per_pass}
+    for kernel, n in want.items():
+        if launches.get(kernel, 0) != n:
+            raise AssertionError(f"{kernel}: {launches.get(kernel, 0)} launches on the "
+                                 f"qwen3-vl-training path, expected {n}")
+    last = records[-1]
+    numbers = dict(step_time_s=last["step_time_s"],
+                   tokens_per_s=2 * QWEN3_VL_ROW / last["step_time_s"], peak_gib=peak,
+                   parameters=n_params, tower_parameters=tower, layers=layers,
+                   mm_patches=last["mm_patches"], mm_buffer=last["mm_buffer"])
+    log(f"qwen3-vl-training on {card}: {n_params / 1e9:.3f} G parameters ({tower / 1e9:.3f} G "
+        f"in the tower, {layers} of 36 layers); {steps} steps of 2 x [1, {QWEN3_VL_ROW}] tokens "
+        f"({last['mm_patches']} real patches in a buffer of {last['mm_buffer']} a micro-batch); "
+        f"losses {[r['loss'] for r in records]}, step times "
+        f"{[round(r['step_time_s'], 3) for r in records]} s, peak device memory {peak:.2f} GiB; "
+        f"launches {launches}")
+    del state, step, optimizer, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, numbers
+
+
+VLM_LOOP_CONFIG = os.path.join("configs", "debug", "rl_vlm.toml")
+VLM_LOOP_KERNELS = ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv",
+                    "decode_qkv_prep")
+
+
+def vlm_loop_phase(card: str) -> dict:
+    """``configs/debug/rl_vlm.toml`` (debug_vlm, the dominant_color image env,
+    sync GRPO) through the launcher, colocated on the card, for LOOP_STEPS
+    steps (run_loop's checks), the trainer's attention on the card's kernels
+    (the config's ``xla`` is its CPU setting), and the trainer's records
+    holding the vision patches it trained on. debug_vlm's head dim 32 runs
+    K1/K2 (zero-padded to 64) and K3; its decode attention is the plain
+    one, as the JAX decode sends head dim 32 to XLA (``takes_k4``). Returns
+    the colocated process's launches."""
+    launches, _ = run_loop(card, "vlm-loop", [VLM_LOOP_CONFIG],
+                           ("--trainer.model.attn.impl", "auto"), kernels=VLM_LOOP_KERNELS)
+    rows = _jsonl(os.path.join(ROOT, "build", "chip_smoke", "vlm-loop", "trainer.jsonl"))
+    if not all(r.get("mm_patches", 0) > 0 for r in rows):
+        raise AssertionError(f"vlm-loop: the trainer's records lack vision patches: "
+                             f"{[r.get('mm_patches') for r in rows]}")
+    log(f"vlm-loop: vision patches trained a step {[r['mm_patches'] for r in rows]}")
+    return launches
+
+
 def flash_build_report() -> None:
     """Registers, local memory and shared memory of each instantiation of K1,
     K2a and K2b (head dim 128 and 64, dense and banded) as the runtime loaded
@@ -4725,7 +5603,7 @@ def flash_build_report() -> None:
          lambda hd, w: bwd.flash_attn_bwd_blocks_per_sm(1, hd, w, 4096), "Lq"))
     spills = []
     for label, name, attributes, dynamic, per_sm, over in kernels:
-        for hd in (256, 128, 64):
+        for hd in (512, 384, 256, 128, 64):  # 384 and 512: the plain forms, one kernel for both
             for window, form in ((0, "dense"), (1, "window")):
                 attrs = (ctypes.c_int * 4)()
                 _build.check(name, attributes(hd, window, attrs))
@@ -4756,7 +5634,7 @@ def decode_build_report() -> None:
 
     lib = _build.load("decode_attention")
     spills = []
-    for hd in (256, 128, 64):
+    for hd in (512, 384, 256, 128, 64):
         for group in (1, 2, 4, 8):
             attrs = (ctypes.c_int * 4)()
             _build.check("decode_paged_attention",
@@ -4768,7 +5646,7 @@ def decode_build_report() -> None:
             if local:
                 spills.append(f"K4 head dim {hd} group {group}")
     k3 = _build.load("decode_qkv")
-    for hd in (128, 64):
+    for hd in (128, 64, 32):
         for mt in (1, 2):
             attrs = (ctypes.c_int * 4)()
             _build.check("decode_qkv_prep", k3.decode_qkv_attributes(hd, mt, attrs))
@@ -4826,7 +5704,9 @@ def main() -> int:
             + timed("gpt-oss kernels", gpt_oss_kernel_phase)
             + timed("gated and serving kernels", gated_kernel_phase)
             + timed("qwen3-next kernels", qwen3_next_kernel_phase)
-            + timed("nemotron-h kernels", nemotron_kernel_phase))
+            + timed("nemotron-h kernels", nemotron_kernel_phase)
+            + timed("range-repairs", range_repairs_phase)
+            + timed("qwen3-vl kernels", qwen3_vl_kernel_phase))
     timed("train-reference", train_reference_phase)
     train_launches, train_numbers = timed("training", training_phase)
     timed("dsa-train-reference", dsa_train_reference_phase)
@@ -4849,6 +5729,11 @@ def main() -> int:
                                                     qwen3_next_training_phase)
     nem_ref_launches = timed("nemotron-h-reference", nemotron_reference_phase)
     nem_train_launches, nem_train_numbers = timed("nemotron-h-training", nemotron_training_phase)
+    vl_ref_launches = timed("qwen3-vl-reference", qwen3_vl_reference_phase)
+    gc.collect()
+    torch.cuda.empty_cache()
+    vl_train_launches, vl_train_numbers = timed("qwen3-vl-training", qwen3_vl_training_phase,
+                                                card)
 
     stats, launches = timed("reference + serving", serve, MODEL, 28, 151936, reference_phase)
     timed("gpt-oss-reference", gpt_oss_reference_phase)
@@ -4888,6 +5773,9 @@ def main() -> int:
         NEMOTRON_STATE_CACHE_MB)
     gc.collect()
     torch.cuda.empty_cache()
+    vl_stats, vl_launches = timed("qwen3-vl-serving", qwen3_vl_serving_phase, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     lora_train_launches, lora_train_numbers, lora_paths = timed(
         "lora-training", lora_training_phase, train_numbers)
     lora_stats, lora_launches = timed("lora-serving", lora_serving_phase, lora_paths)
@@ -4895,6 +5783,7 @@ def main() -> int:
     torch.cuda.empty_cache()  # the loop's processes need the card's memory
     loop_launches = timed("loop", loop_phase, card)
     lora_loop_launches = timed("lora-loop", lora_loop_phase, card)
+    vlm_loop_launches = timed("vlm-loop", vlm_loop_phase, card)
     log(f"gpt-oss-20b serving on {card}: {oss_stats['generate_tokens_per_s']:.1f} tokens/s "
         f"over {oss_stats['generate_requests']} concurrent requests, first token of the streamed "
         f"chat after {oss_stats['chat_stream_ttft_s']} s")
@@ -4925,6 +5814,11 @@ def main() -> int:
     next_ref, nem_ref = ({k: ref["train"].get(k, 0) + ref["serve"].get(k, 0)
                           for k in {**ref["train"], **ref["serve"]}}
                          for ref in (next_ref_launches, nem_ref_launches))
+    vl_ref = {}
+    for ref in vl_ref_launches.values():
+        for part in ref.values():
+            for k, v in part.items():
+                vl_ref[k] = vl_ref.get(k, 0) + v
     new_paths = {"launches_sft": sft_launches, "launches_moe_training": moe_train_launches,
                  "launches_moe_serving": moe_launches, "launches_glm_serving": glm_launches,
                  "launches_minimax_training": minimax_train_launches,
@@ -4938,7 +5832,11 @@ def main() -> int:
                  "launches_nemotron_serving": nem_launches,
                  "launches_nemotron_reference": nem_ref,
                  "launches_lora_training": lora_train_launches,
-                 "launches_lora_serving": lora_launches, "launches_lora_loop": lora_loop_launches}
+                 "launches_lora_serving": lora_launches, "launches_lora_loop": lora_loop_launches,
+                 "launches_qwen3_vl_training": vl_train_launches,
+                 "launches_qwen3_vl_serving": vl_launches,
+                 "launches_qwen3_vl_reference": vl_ref,
+                 "launches_vlm_loop": vlm_loop_launches}
     k12 = ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
     path_kernels = {"launches_sft": k12, "launches_moe_training": k12,
                     "launches_moe_serving": ("flash_attn_fwd", "decode_qkv_prep",
@@ -4958,7 +5856,13 @@ def main() -> int:
                     "launches_nemotron_reference": k12 + ("decode_paged_attention",),
                     "launches_lora_training": k12,
                     "launches_lora_serving": ("flash_attn_fwd", "decode_paged_attention"),
-                    "launches_lora_loop": k12 + ("decode_qkv_prep", "decode_paged_attention")}
+                    "launches_lora_loop": k12 + ("decode_qkv_prep", "decode_paged_attention"),
+                    "launches_qwen3_vl_training": k12,
+                    "launches_qwen3_vl_serving": ("flash_attn_fwd", "decode_qkv_prep",
+                                                  "decode_paged_attention"),
+                    "launches_qwen3_vl_reference": k12 + ("decode_qkv_prep",
+                                                          "decode_paged_attention"),
+                    "launches_vlm_loop": k12 + ("decode_qkv_prep",)}
     for row in rows:
         name = row["name"]
         for key, kernels in path_kernels.items():
@@ -4968,7 +5872,22 @@ def main() -> int:
                     raise AssertionError(f"kernel {name} was not launched on its {key[9:]} path")
         on_serving, on_training = launches.get(name, 0), train_launches.get(name, 0)
         kernel = name.split("/")[0]
-        if name.endswith("/hd256"):  # Qwen3-Next's 16/2 heads of 256: its trainer and server
+        if name.endswith("/qwen3-vl"):  # Qwen3-VL-8B's 32/8 heads: its trainer and server
+            row["launches"] = (vl_launches if kernel in ("decode_qkv_prep",
+                                                         "decode_paged_attention")
+                               else vl_train_launches).get(kernel, 0)
+            if kernel == "flash_attn_fwd":
+                row["launches_serving"] = vl_launches.get(kernel, 0)
+        elif name == "decode_qkv_prep/hd32":  # debug_vlm's head dim 32: the VLM loop
+            row["launches"] = vlm_loop_launches.get(kernel, 0)
+        elif name.endswith(("/hd384", "/hd512", "/wide")):
+            # the forms of the range repairs: no in-repo config has these widths,
+            # so no main path runs them; the kernel's launches on the path that
+            # runs it (K5: the DSA trainer), and the form's own in its phase
+            row["launches"] = (dsa_launches if kernel.startswith("sparse_mla")
+                               else vl_launches if kernel == "decode_paged_attention"
+                               else vl_train_launches).get(kernel, 0)
+        elif name.endswith("/hd256"):  # Qwen3-Next's 16/2 heads of 256: its trainer and server
             row["launches"] = (next_launches if kernel == "decode_paged_attention"
                                else next_train_launches).get(kernel, 0)
             if kernel == "flash_attn_fwd":
@@ -5065,6 +5984,12 @@ def main() -> int:
     log(f"launches on the LoRA loop's colocated process: {lora_loop_launches}")
     log(f"lora training on {card}: {json.dumps(lora_train_numbers)}")
     log(f"multi-LoRA serving stats on {card}: {json.dumps(lora_stats)}")
+    log(f"launches on the Qwen3-VL reference paths: {json.dumps(vl_ref_launches)}")
+    log(f"launches on the Qwen3-VL training path: {vl_train_launches}")
+    log(f"launches on the Qwen3-VL serving path: {vl_launches}")
+    log(f"launches on the VLM loop's colocated process: {vlm_loop_launches}")
+    log(f"qwen3-vl training on {card}: {json.dumps(vl_train_numbers)}")
+    log(f"Qwen3-VL-8B serving stats on {card}: {json.dumps(vl_stats)}")
     log(f"chip_smoke: {time.perf_counter() - t0:.1f} s from the build on")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

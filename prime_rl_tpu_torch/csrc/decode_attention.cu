@@ -47,7 +47,9 @@
 // - Constants (measured on the H100, scripts/torch_decode_attn_bench.py and
 //   its variants): C = 256 rows, tiles of 64 rows, 2 stages, 4 warps; 3
 //   blocks an SM at head dim 128 (the ring's 64 KB), 6 at 64, 1 at 256 (the
-//   ring's 128 KB; not tuned). Deeper rings,
+//   ring's 128 KB; not tuned). Head dims 384 and 512 (not tuned either): one
+//   block an SM, 64-row tiles in two stages at 384, 32-row tiles in two
+//   warps and three stages at 512, the queries in shared memory (`Cfg`). Deeper rings,
 //   larger tiles, more or smaller blocks, C of 128 and L2 prefetch hints were
 //   all as fast or slower: the steady state runs near the card's read rate,
 //   and what is left is the tail of the last items and each item's first tile.
@@ -97,21 +99,43 @@ constexpr int TILE_128 = 64, STAGES_128 = 2;
 // at head dim 256 a 64-row tile of K and V is 64 KB: two stages fill 128 KB,
 // one block an SM (16 rows a warp is the depth of P.V, so no smaller tile)
 constexpr int TILE_256 = 64, STAGES_256 = 2;
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
+// at 384 the same two stages of 64 rows take 192 KB; at 512 a 64-row stage
+// would take 128 KB, so tiles of 32 rows in two warps (16 rows each, the
+// depth of P.V) and three stages, 192 KB. At both the queries' B fragments
+// come from shared memory (`Cfg::WIDE`) instead of HD / 8 registers a
+// thread, beside the 96 (384) or 128 (512) f32 of o a thread
+constexpr int TILE_384 = 64, STAGES_384 = 2;
+constexpr int TILE_512 = 32, STAGES_512 = 3;
+constexpr int NWARPS = 4;  // warps a block, but 2 at head dim 512 (Cfg::WARPS)
 constexpr int MAX_CHUNK = 8;  // query heads a block: the 8 columns of a product
 constexpr float LOG2E = 1.4426950408889634f;
 #define MASKED __int_as_float(0xff800000)  // -inf: the score of a row outside the split
 
 template <int HD>
 struct Cfg {
-  static constexpr int TILE = HD == 64 ? TILE_64 : HD == 128 ? TILE_128 : TILE_256;
-  static constexpr int STAGES = HD == 64 ? STAGES_64 : HD == 128 ? STAGES_128 : STAGES_256;
-  static constexpr int WARP_ROWS = TILE / NWARPS;  // a multiple of 16, the depth of P.V
+  static constexpr int TILE = HD == 64    ? TILE_64
+                              : HD == 128 ? TILE_128
+                              : HD == 256 ? TILE_256
+                              : HD == 384 ? TILE_384
+                                          : TILE_512;
+  static constexpr int STAGES = HD == 64    ? STAGES_64
+                                : HD == 128 ? STAGES_128
+                                : HD == 256 ? STAGES_256
+                                : HD == 384 ? STAGES_384
+                                            : STAGES_512;
+  static constexpr int WARPS = HD == 512 ? 2 : NWARPS;
+  static constexpr int NTHREADS = WARPS * 32;
+  static constexpr int WARP_ROWS = TILE / WARPS;  // a multiple of 16, the depth of P.V
   static constexpr int CHUNKS = HD / 8;               // 16-byte chunks a row
   static constexpr int TILE_BYTES = TILE * HD * 2;    // one of K, V
   static constexpr int STAGE_BYTES = 2 * TILE_BYTES;  // K then V
-  static constexpr int SMEM = STAGES * STAGE_BYTES;
+  static constexpr int RING = STAGES * STAGE_BYTES;
+  // above 256: the chunk's queries after the ring, rows of HD + 8 (16 bytes
+  // of skew: the eight heads of one B fragment load hit eight bank quads)
+  static constexpr bool WIDE = HD > 256;
+  static constexpr int Q_PITCH = HD + 8;
+  static constexpr int SMEM = RING + (WIDE ? MAX_CHUNK * Q_PITCH * 2 : 0);
+  static_assert(SMEM <= 232448, "K4's shared memory exceeds what a block may use");
 };
 
 struct Args {
@@ -223,6 +247,7 @@ __device__ __forceinline__ int split_count(const Args& a, int n, int lo) {
 template <int HD>
 __device__ __forceinline__ void new_token_scores(const Args& a, int s, int h, int qh0, int gc,
                                                  float* s_new) {
+  constexpr int NWARPS = Cfg<HD>::WARPS;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const bf16* kn = a.k_new + ((size_t)s * a.NKV + h) * HD;
   for (int g = warp; g < gc; g += NWARPS) {
@@ -256,7 +281,7 @@ __device__ __forceinline__ float finish(const Args& a, float m, float l, float a
 // blocks an SM that the registers must allow: 3 fit the 64 KB ring at head
 // dim 128; at 64 the 32 KB ring allows 7, and 6 (80 registers, no spill)
 // measured faster than 4 or 5; 1 fits the 128 KB ring at 256
-constexpr int MIN_BLOCKS_64 = 6, MIN_BLOCKS_128 = 3, MIN_BLOCKS_256 = 1;
+constexpr int MIN_BLOCKS_64 = 6, MIN_BLOCKS_128 = 3, MIN_BLOCKS_256 = 1;  // and 1 above 256
 
 template <int HD>
 constexpr int min_blocks() {
@@ -265,10 +290,11 @@ constexpr int min_blocks() {
 
 // G: the heads a chunk holds (W above); a chunk may hold fewer (gc)
 template <int HD, int G>
-__global__ void __launch_bounds__(NTHREADS, min_blocks<HD>())
+__global__ void __launch_bounds__(Cfg<HD>::NTHREADS, min_blocks<HD>())
 decode_split_kernel(const Args a) {
   using C = Cfg<HD>;
   constexpr int TILE = C::TILE, STAGES = C::STAGES, WARP_ROWS = C::WARP_ROWS;
+  constexpr int NWARPS = C::WARPS, NTHREADS = C::NTHREADS;
   extern __shared__ __align__(128) uint8_t smem[];
   __shared__ int pages[SPLIT_ROWS + 1];  // the table entries of this split's rows
   __shared__ float s_new[G];
@@ -343,15 +369,28 @@ decode_split_kernel(const Args a) {
 
   // B fragments of the queries (k = dims, n = heads): head lane/4 (zero past
   // gc), dims 16*kk + 2*(lane%4) + {0, 1} (b0) and + 8 (b1)
-  uint32_t qb[HD / 16][2];
+  // (above 256 they stay in shared memory, zero past gc, and are read there
+  // a k16 step at a time; the first tile's barrier publishes them)
+  uint32_t qb[C::WIDE ? 1 : HD / 16][2];
+  const bf16* qs = reinterpret_cast<const bf16*>(smem + C::RING);
+  if constexpr (C::WIDE) {
+    bf16* qw = reinterpret_cast<bf16*>(smem + C::RING);
+    for (int i = tid; i < MAX_CHUNK * C::CHUNKS; i += NTHREADS) {
+      const int g = i / C::CHUNKS, c = i % C::CHUNKS;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (g < gc) val = reinterpret_cast<const uint4*>(a.q + ((size_t)s * a.NH + qh0 + g) * HD)[c];
+      reinterpret_cast<uint4*>(qw + g * C::Q_PITCH)[c] = val;
+    }
+  } else {
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    qb[kk][0] = qb[kk][1] = 0u;
-    if ((lane >> 2) < gc) {
-      const bf16* qp =
-          a.q + ((size_t)s * a.NH + qh0 + (lane >> 2)) * HD + 16 * kk + 2 * (lane & 3);
-      qb[kk][0] = *reinterpret_cast<const uint32_t*>(qp);
-      qb[kk][1] = *reinterpret_cast<const uint32_t*>(qp + 8);
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      qb[kk][0] = qb[kk][1] = 0u;
+      if ((lane >> 2) < gc) {
+        const bf16* qp =
+            a.q + ((size_t)s * a.NH + qh0 + (lane >> 2)) * HD + 16 * kk + 2 * (lane & 3);
+        qb[kk][0] = *reinterpret_cast<const uint32_t*>(qp);
+        qb[kk][1] = *reinterpret_cast<const uint32_t*>(qp + 8);
+      }
     }
   }
 
@@ -385,7 +424,13 @@ decode_split_kernel(const Args a) {
         ldsm_x4(tile_addr<HD>(kst, wrow + (lane & 7) + 8 * ((lane >> 3) & 1),
                               2 * kk + (lane >> 4)),
                 ka);
-        mma16816(sc, ka, qb[kk][0], qb[kk][1]);
+        if constexpr (C::WIDE) {
+          const bf16* qp = qs + (lane >> 2) * C::Q_PITCH + 16 * kk + 2 * (lane & 3);
+          mma16816(sc, ka, *reinterpret_cast<const uint32_t*>(qp),
+                   *reinterpret_cast<const uint32_t*>(qp + 8));
+        } else {
+          mma16816(sc, ka, qb[kk][0], qb[kk][1]);
+        }
       }
 
       // one softmax step: rows lane/4 (sc[0..1]) and lane/4 + 8 (sc[2..3]) of
@@ -578,7 +623,8 @@ cudaError_t launch(Args a, cudaStream_t stream) {
   if (a.S == 0) return cudaSuccess;
   // one split a slot: one item a (kv head, slot); `rows` keeps its MS columns
   const int z = a.work == nullptr ? 1 : a.MS;
-  decode_split_kernel<HD, G><<<dim3(a.NKV * a.NC, a.S, z), NTHREADS, Cfg<HD>::SMEM, stream>>>(a);
+  decode_split_kernel<HD, G>
+      <<<dim3(a.NKV * a.NC, a.S, z), Cfg<HD>::NTHREADS, Cfg<HD>::SMEM, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -603,6 +649,8 @@ int run(const void* q, const void* k_new, const void* v_new, void* k_pool, void*
   PRT_DECODE_CASE(64, 1) PRT_DECODE_CASE(64, 2) PRT_DECODE_CASE(64, 4) PRT_DECODE_CASE(64, 8)
   PRT_DECODE_CASE(128, 1) PRT_DECODE_CASE(128, 2) PRT_DECODE_CASE(128, 4) PRT_DECODE_CASE(128, 8)
   PRT_DECODE_CASE(256, 1) PRT_DECODE_CASE(256, 2) PRT_DECODE_CASE(256, 4) PRT_DECODE_CASE(256, 8)
+  PRT_DECODE_CASE(384, 1) PRT_DECODE_CASE(384, 2) PRT_DECODE_CASE(384, 4) PRT_DECODE_CASE(384, 8)
+  PRT_DECODE_CASE(512, 1) PRT_DECODE_CASE(512, 2) PRT_DECODE_CASE(512, 4) PRT_DECODE_CASE(512, 8)
 #undef PRT_DECODE_CASE
   return (int)cudaErrorInvalidValue;
 }
@@ -646,7 +694,12 @@ extern "C" int decode_paged_attention_rows(const void* q, const void* k_new, con
 
 // dynamic shared memory of a block at head dim `hd`
 extern "C" int decode_attention_smem(int hd) {
-  return hd == 256 ? Cfg<256>::SMEM : hd == 128 ? Cfg<128>::SMEM : hd == 64 ? Cfg<64>::SMEM : 0;
+  return hd == 512   ? Cfg<512>::SMEM
+         : hd == 384 ? Cfg<384>::SMEM
+         : hd == 256 ? Cfg<256>::SMEM
+         : hd == 128 ? Cfg<128>::SMEM
+         : hd == 64  ? Cfg<64>::SMEM
+                     : 0;
 }
 
 // the compiled kernel of head dim `hd` and chunk width `group` (1, 2, 4, 8) as the runtime
@@ -660,6 +713,8 @@ extern "C" int decode_attention_attributes(int hd, int group, int* attrs) {
   PRT_ATTR_CASE(64, 1) PRT_ATTR_CASE(64, 2) PRT_ATTR_CASE(64, 4) PRT_ATTR_CASE(64, 8)
   PRT_ATTR_CASE(128, 1) PRT_ATTR_CASE(128, 2) PRT_ATTR_CASE(128, 4) PRT_ATTR_CASE(128, 8)
   PRT_ATTR_CASE(256, 1) PRT_ATTR_CASE(256, 2) PRT_ATTR_CASE(256, 4) PRT_ATTR_CASE(256, 8)
+  PRT_ATTR_CASE(384, 1) PRT_ATTR_CASE(384, 2) PRT_ATTR_CASE(384, 4) PRT_ATTR_CASE(384, 8)
+  PRT_ATTR_CASE(512, 1) PRT_ATTR_CASE(512, 2) PRT_ATTR_CASE(512, 4) PRT_ATTR_CASE(512, 8)
 #undef PRT_ATTR_CASE
   if (err != cudaSuccess) return (int)err;
   attrs[0] = attr.numRegs;

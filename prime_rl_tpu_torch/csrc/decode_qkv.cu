@@ -17,12 +17,12 @@
 // epilogue) short:
 //
 // - A column tile is BN = 128 output columns of one of wq, wk, wv (one head
-//   at head dim 128, two at 64; a tile past a projection's last column reads
-//   zeros and stores nothing). A thread-block cluster of k blocks takes one
-//   column tile and splits D between its blocks: block r takes the 64-row K
-//   tiles [r*b + min(r, e), ...) of D, b + (r < e) of them (b = KT / k, e =
-//   KT % k, KT = ceil(D / 64)). Its norm, its x and its weights are those rows
-//   only. The grid is (column tiles x k, row groups).
+//   at head dim 128, two at 64, four at 32; a tile past a projection's last
+//   column reads zeros and stores nothing). A thread-block cluster of k
+//   blocks takes one column tile and splits D between its blocks: block r
+//   takes the 64-row K tiles [r*b + min(r, e), ...) of D, b + (r < e) of them
+//   (b = KT / k, e = KT % k, KT = ceil(D / 64)). Its norm, its x and its
+//   weights are those rows only. The grid is (column tiles x k, row groups).
 // - The split k (1-8) and the ring's depth (2-4 stages) are sized on the host
 //   from cudaOccupancyMaxActiveClusters at the shared memory they need: the
 //   least waves x (K tiles a block + SPLIT_COST), where a wave is the
@@ -803,7 +803,8 @@ cudaError_t launch(const void* x, const void* wq, const void* wk, const void* wv
 }
 
 bool shapes(int S, int D, int NH, int NKV, int HD, int ntiles[3]) {
-  if (S < 0 || D <= 0 || D % 16 || NH <= 0 || NKV <= 0 || (HD != 64 && HD != 128)) return false;
+  if (S < 0 || D <= 0 || D % 16 || NH <= 0 || NKV <= 0 || (HD != 32 && HD != 64 && HD != 128))
+    return false;
   ntiles[0] = (NH * HD + COL_TILE - 1) / COL_TILE;
   ntiles[1] = ntiles[2] = (NKV * HD + COL_TILE - 1) / COL_TILE;
   return true;
@@ -843,7 +844,9 @@ int run(const void* x, const void* norm_w, const void* wq, const void* wk, const
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int mt = m_tiles(S);
   cudaError_t err;
-  if (HD == 64)
+  if (HD == 32)
+    err = mt == 1 ? launch<32, 1>(x, wq, wk, wv, a, st) : launch<32, 2>(x, wq, wk, wv, a, st);
+  else if (HD == 64)
     err = mt == 1 ? launch<64, 1>(x, wq, wk, wv, a, st) : launch<64, 2>(x, wq, wk, wv, a, st);
   else
     err = mt == 1 ? launch<128, 1>(x, wq, wk, wv, a, st) : launch<128, 2>(x, wq, wk, wv, a, st);
@@ -886,10 +889,12 @@ extern "C" int decode_qkv_plan(int S, int D, int NH, int NKV, int HD, int* out) 
   if (!shapes(S, D, NH, NKV, HD, ntiles) || S == 0) return (int)cudaErrorInvalidValue;
   Plan p;
   const int mt = m_tiles(S);
-  cudaError_t err = HD == 64 ? (mt == 1 ? plan<64, 1>(S, D, ntiles, &p)
-                                        : plan<64, 2>(S, D, ntiles, &p))
-                             : (mt == 1 ? plan<128, 1>(S, D, ntiles, &p)
-                                        : plan<128, 2>(S, D, ntiles, &p));
+  cudaError_t err = HD == 32   ? (mt == 1 ? plan<32, 1>(S, D, ntiles, &p)
+                                          : plan<32, 2>(S, D, ntiles, &p))
+                    : HD == 64 ? (mt == 1 ? plan<64, 1>(S, D, ntiles, &p)
+                                          : plan<64, 2>(S, D, ntiles, &p))
+                               : (mt == 1 ? plan<128, 1>(S, D, ntiles, &p)
+                                          : plan<128, 2>(S, D, ntiles, &p));
   if (err != cudaSuccess) return (int)err;
   out[0] = p.splits;
   out[1] = p.stages;
@@ -914,6 +919,8 @@ extern "C" int decode_qkv_timeline(void* dst, size_t n) {
 extern "C" int decode_qkv_attributes(int hd, int mt, int* attrs) {
   cudaFuncAttributes attr;
   cudaError_t err = cudaErrorInvalidValue;
+  if (hd == 32 && mt == 1) err = cudaFuncGetAttributes(&attr, decode_qkv_kernel<32, 1>);
+  if (hd == 32 && mt == 2) err = cudaFuncGetAttributes(&attr, decode_qkv_kernel<32, 2>);
   if (hd == 64 && mt == 1) err = cudaFuncGetAttributes(&attr, decode_qkv_kernel<64, 1>);
   if (hd == 64 && mt == 2) err = cudaFuncGetAttributes(&attr, decode_qkv_kernel<64, 2>);
   if (hd == 128 && mt == 1) err = cudaFuncGetAttributes(&attr, decode_qkv_kernel<128, 1>);

@@ -925,6 +925,285 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
+// ---- head dims 384 and 512: the plain forms --------------------------------
+// K2a: a block a (q tile of 16 rows, q head, batch row) over kv tiles of 32
+// keys (the candidate and segment-range rule of the forward; dq_tiles in
+// ops/flash_attention.py). K2b: a block a (kv tile of 16 rows, kv head, batch
+// row) over q tiles of 32 rows and the heads of its GQA group (dkv_tiles).
+// p = 2^(s scale log2e - lse log2e) where visible, ds = bf16(p (dp - delta)),
+// and for dv bf16(p): the plain version's roundings. Scores and ds go
+// through shared memory as f32; each thread keeps two adjacent columns of
+// every row's dq (K2a) or dk and dv (K2b) in registers, and every element is
+// written once by one block from sums in a fixed order.
+namespace wide {
+constexpr int DQ_BQ = 16, DQ_BK = 32;   // K2a
+constexpr int DKV_BK = 16, DKV_BQ = 32;  // K2b
+
+template <int HD>
+constexpr size_t dq_smem() {
+  return (size_t)(2 * DQ_BQ + 2 * DQ_BK) * pitch<HD>() * 2;
+}
+
+template <int HD>
+constexpr size_t dkv_smem() {
+  return (size_t)(2 * DKV_BK + 2 * DKV_BQ) * pitch<HD>() * 2;
+}
+}  // namespace wide
+
+template <int HD>
+__global__ void __launch_bounds__(wide::THREADS)
+flash_bwd_dq_wide_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const __nv_bfloat16* __restrict__ dout, const int* __restrict__ seg_q,
+                         const int* __restrict__ seg_kv, const float* __restrict__ lse,
+                         const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
+                         int* tiles, int Lq, int Lk, int NH, int NKV, float scale, int causal,
+                         int window) {
+  using namespace wide;
+  constexpr int BQ = DQ_BQ, BK = DQ_BK, PT = pitch<HD>();
+  extern __shared__ __align__(16) uint8_t wide_smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(wide_smem);
+  __nv_bfloat16* dos = qs + BQ * PT;
+  __nv_bfloat16* ks = dos + BQ * PT;
+  __nv_bfloat16* vs = ks + BK * PT;
+  __shared__ float ds_s[BQ][BK];
+  __shared__ float lse_s[BQ], delta_s[BQ];
+  __shared__ int sq[BQ], sk[BK], seg_lo, seg_hi;
+
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z, kh = h / (NH / NKV);
+  const int tid = threadIdx.x;
+  const int row0 = qt * BQ;
+  const float sl2 = scale * LOG2E;
+  if (tid < BQ) {
+    const int r = row0 + tid;
+    const bool in = r < Lq;
+    sq[tid] = in ? seg_q[(size_t)b * Lq + r] : 0;
+    lse_s[tid] = in ? lse[((size_t)b * NH + h) * Lq + r] * LOG2E : 0.f;
+    delta_s[tid] = in ? delta[((size_t)b * NH + h) * Lq + r] : 0.f;
+  }
+  load_rows<HD>(qs, q, b, Lq, NH, h, row0, BQ);
+  load_rows<HD>(dos, dout, b, Lq, NH, h, row0, BQ);
+  segment_range(sq, BQ, &seg_lo, &seg_hi);
+  const int lo = seg_lo, hi = seg_hi;
+
+  const int nk = (Lk + BK - 1) / BK;
+  const int j_end = causal ? min(nk, (min(row0 + BQ, Lq) - 1) / BK + 1) : nk;
+  const int j_begin = window > 0 ? max(row0 - window + 1, 0) / BK : 0;
+  const int d0 = 2 * tid;
+  float acc[BQ][2];
+#pragma unroll
+  for (int i = 0; i < BQ; ++i) acc[i][0] = acc[i][1] = 0.f;
+  int visited = 0;
+
+  for (int j = j_begin; j < j_end; ++j) {
+    const int c0 = j * BK;
+    int key_seg = 0;
+    if (tid < BK) {
+      key_seg = c0 + tid < Lk ? seg_kv[(size_t)b * Lk + c0 + tid] : 0;
+      sk[tid] = key_seg;
+    }
+    if (!__syncthreads_or(key_seg != 0 && key_seg >= lo && key_seg <= hi)) continue;
+    ++visited;
+    load_rows<HD>(ks, k, b, Lk, NKV, kh, c0, BK);
+    load_rows<HD>(vs, v, b, Lk, NKV, kh, c0, BK);
+    __syncthreads();
+    for (int e = tid; e < BQ * BK; e += THREADS) {
+      const int i = e / BK, jj = e % BK, r = row0 + i, c = c0 + jj;
+      float ds = 0.f;
+      if (r < Lq && c < Lk && visible(r, c, sq[i], sk[jj], causal, window)) {
+        const float p = exp2f(dot_rows<HD>(qs + i * PT, ks + jj * PT) * sl2 - lse_s[i]);
+        const float dp = dot_rows<HD>(dos + i * PT, vs + jj * PT);
+        ds = __bfloat162float(__float2bfloat16(p * (dp - delta_s[i])));
+      }
+      ds_s[i][jj] = ds;
+    }
+    __syncthreads();
+    if (d0 < HD) {
+      for (int jj = 0; jj < BK; ++jj) {
+        const float2 kk = pair_at(ks + jj * PT, d0);
+#pragma unroll
+        for (int i = 0; i < BQ; ++i) {
+          acc[i][0] = fmaf(ds_s[i][jj], kk.x, acc[i][0]);
+          acc[i][1] = fmaf(ds_s[i][jj], kk.y, acc[i][1]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  if (tiles != nullptr && tid == 0) {
+    int* t = tiles + (((size_t)b * NH + h) * gridDim.x + qt) * 2;
+    t[0] = visited;
+    t[1] = max(j_end - j_begin, 0);
+  }
+  if (d0 < HD) {
+#pragma unroll
+    for (int i = 0; i < BQ; ++i) {
+      const int r = row0 + i;
+      if (r < Lq)
+        *reinterpret_cast<__nv_bfloat162*>(dq + (((size_t)b * Lq + r) * NH + h) * HD + d0) =
+            __floats2bfloat162_rn(acc[i][0] * scale, acc[i][1] * scale);
+    }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(wide::THREADS)
+flash_bwd_dkv_wide_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          const __nv_bfloat16* __restrict__ dout, const int* __restrict__ seg_q,
+                          const int* __restrict__ seg_kv, const float* __restrict__ lse,
+                          const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+                          __nv_bfloat16* __restrict__ dv, int* tiles, int Lq, int Lk, int NH,
+                          int NKV, float scale, int causal, int window) {
+  using namespace wide;
+  constexpr int BK = DKV_BK, BQ = DKV_BQ, PT = pitch<HD>();
+  extern __shared__ __align__(16) uint8_t wide_smem[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(wide_smem);
+  __nv_bfloat16* vs = ks + BK * PT;
+  __nv_bfloat16* qs = vs + BK * PT;
+  __nv_bfloat16* dos = qs + BQ * PT;
+  __shared__ float p_s[BQ][BK], ds_s[BQ][BK];
+  __shared__ float lse_s[BQ], delta_s[BQ];
+  __shared__ int sq[BQ], sk[BK], seg_lo, seg_hi;
+
+  const int kt = blockIdx.x, kh = blockIdx.y, b = blockIdx.z, G = NH / NKV;
+  const int tid = threadIdx.x;
+  const int c0 = kt * BK;
+  const float sl2 = scale * LOG2E;
+  if (tid < BK) sk[tid] = c0 + tid < Lk ? seg_kv[(size_t)b * Lk + c0 + tid] : 0;
+  load_rows<HD>(ks, k, b, Lk, NKV, kh, c0, BK);
+  load_rows<HD>(vs, v, b, Lk, NKV, kh, c0, BK);
+  segment_range(sk, BK, &seg_lo, &seg_hi);
+  const int lo = seg_lo, hi = seg_hi;
+
+  const int nq = (Lq + BQ - 1) / BQ;
+  const int i_begin = causal ? c0 / BQ : 0;
+  const int i_end = window > 0 ? min(nq, (c0 + BK - 1 + window - 1) / BQ + 1) : nq;
+  const int d0 = 2 * tid;
+  float ak[BK][2], av[BK][2];
+#pragma unroll
+  for (int j = 0; j < BK; ++j) ak[j][0] = ak[j][1] = av[j][0] = av[j][1] = 0.f;
+  int visited = 0;
+
+  for (int i = i_begin; i < i_end; ++i) {
+    const int r0 = i * BQ;
+    int query_seg = 0;
+    if (tid < BQ) {
+      query_seg = r0 + tid < Lq ? seg_q[(size_t)b * Lq + r0 + tid] : 0;
+      sq[tid] = query_seg;
+    }
+    if (!__syncthreads_or(query_seg != 0 && query_seg >= lo && query_seg <= hi)) continue;
+    ++visited;
+    for (int g = 0; g < G; ++g) {
+      const int h = kh * G + g;
+      if (tid < BQ) {
+        const int r = r0 + tid;
+        const bool in = r < Lq;
+        lse_s[tid] = in ? lse[((size_t)b * NH + h) * Lq + r] * LOG2E : 0.f;
+        delta_s[tid] = in ? delta[((size_t)b * NH + h) * Lq + r] : 0.f;
+      }
+      load_rows<HD>(qs, q, b, Lq, NH, h, r0, BQ);
+      load_rows<HD>(dos, dout, b, Lq, NH, h, r0, BQ);
+      __syncthreads();
+      for (int e = tid; e < BQ * BK; e += THREADS) {
+        const int ii = e / BK, jj = e % BK, r = r0 + ii, c = c0 + jj;
+        float p = 0.f, ds = 0.f;
+        if (r < Lq && c < Lk && visible(r, c, sq[ii], sk[jj], causal, window)) {
+          p = exp2f(dot_rows<HD>(qs + ii * PT, ks + jj * PT) * sl2 - lse_s[ii]);
+          const float dp = dot_rows<HD>(dos + ii * PT, vs + jj * PT);
+          ds = __bfloat162float(__float2bfloat16(p * (dp - delta_s[ii])));
+          p = __bfloat162float(__float2bfloat16(p));
+        }
+        p_s[ii][jj] = p;
+        ds_s[ii][jj] = ds;
+      }
+      __syncthreads();
+      if (d0 < HD) {
+        for (int ii = 0; ii < BQ; ++ii) {
+          const float2 qq = pair_at(qs + ii * PT, d0), oo = pair_at(dos + ii * PT, d0);
+#pragma unroll
+          for (int j = 0; j < BK; ++j) {
+            ak[j][0] = fmaf(ds_s[ii][j], qq.x, ak[j][0]);
+            ak[j][1] = fmaf(ds_s[ii][j], qq.y, ak[j][1]);
+            av[j][0] = fmaf(p_s[ii][j], oo.x, av[j][0]);
+            av[j][1] = fmaf(p_s[ii][j], oo.y, av[j][1]);
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  if (tiles != nullptr && tid == 0) {
+    int* t = tiles + (((size_t)b * NKV + kh) * gridDim.x + kt) * 2;
+    t[0] = visited;
+    t[1] = max(i_end - i_begin, 0);
+  }
+  if (d0 < HD) {
+#pragma unroll
+    for (int j = 0; j < BK; ++j) {
+      const int c = c0 + j;
+      if (c >= Lk) continue;
+      const size_t at = (((size_t)b * Lk + c) * NKV + kh) * HD + d0;
+      *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+          __floats2bfloat162_rn(ak[j][0] * scale, ak[j][1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at) = __floats2bfloat162_rn(av[j][0], av[j][1]);
+    }
+  }
+}
+
+template <typename Kernel>
+cudaError_t configure_wide(Kernel kernel, size_t smem, bool* configured) {
+  if (*configured) return cudaSuccess;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) *configured = true;
+  return err;
+}
+
+template <int HD>
+cudaError_t launch_dq_wide(const void* q, const void* k, const void* v, const void* dout,
+                           const int* seg_q, const int* seg_kv, const float* lse,
+                           const float* delta, void* dq, int* tiles, int B, int Lq, int Lk,
+                           int NH, int NKV, float scale, int causal, int window,
+                           cudaStream_t stream) {
+  if (B == 0 || Lq == 0) return cudaSuccess;
+  if (Lk == 0) return cudaErrorInvalidValue;
+  static bool configured = false;
+  cudaError_t err = configure_wide(flash_bwd_dq_wide_kernel<HD>, wide::dq_smem<HD>(), &configured);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Lq + wide::DQ_BQ - 1) / wide::DQ_BQ, NH, B);
+  using T = __nv_bfloat16;
+  flash_bwd_dq_wide_kernel<HD><<<grid, wide::THREADS, wide::dq_smem<HD>(), stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), seg_q, seg_kv, lse, delta, static_cast<T*>(dq), tiles, Lq, Lk,
+      NH, NKV, scale, causal, window);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_dkv_wide(const void* q, const void* k, const void* v, const void* dout,
+                            const int* seg_q, const int* seg_kv, const float* lse,
+                            const float* delta, void* dk, void* dv, int* tiles, int B, int Lq,
+                            int Lk, int NH, int NKV, float scale, int causal, int window,
+                            cudaStream_t stream) {
+  if (B == 0 || Lk == 0) return cudaSuccess;
+  if (Lq == 0) return cudaErrorInvalidValue;
+  static bool configured = false;
+  cudaError_t err =
+      configure_wide(flash_bwd_dkv_wide_kernel<HD>, wide::dkv_smem<HD>(), &configured);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Lk + wide::DKV_BK - 1) / wide::DKV_BK, NKV, B);
+  using T = __nv_bfloat16;
+  flash_bwd_dkv_wide_kernel<HD><<<grid, wide::THREADS, wide::dkv_smem<HD>(), stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), seg_q, seg_kv, lse, delta, static_cast<T*>(dk),
+      static_cast<T*>(dv), tiles, Lq, Lk, NH, NKV, scale, causal, window);
+  return cudaGetLastError();
+}
+
 int run_dq(const void* q, const void* k, const void* v, const void* dout, const void* seg_q,
            const void* seg_kv, const void* lse, const void* delta, void* dq, int* tiles, int B,
            int Lq, int Lk, int NH, int NKV, int HD, float scale, int causal, int window,
@@ -941,6 +1220,9 @@ int run_dq(const void* q, const void* k, const void* v, const void* dout, const 
   PRT_DQ_CASE(64, false) PRT_DQ_CASE(64, true) PRT_DQ_CASE(128, false) PRT_DQ_CASE(128, true)
   PRT_DQ_CASE(256, false) PRT_DQ_CASE(256, true)
 #undef PRT_DQ_CASE
+  if (HD == 384 || HD == 512)
+    return (HD == 384 ? launch_dq_wide<384> : launch_dq_wide<512>)(
+        q, k, v, dout, sq, sk, l, d, dq, tiles, B, Lq, Lk, NH, NKV, scale, causal, window, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -960,6 +1242,10 @@ int run_dkv(const void* q, const void* k, const void* v, const void* dout, const
   PRT_DKV_CASE(64, false) PRT_DKV_CASE(64, true) PRT_DKV_CASE(128, false) PRT_DKV_CASE(128, true)
   PRT_DKV_CASE(256, false) PRT_DKV_CASE(256, true)
 #undef PRT_DKV_CASE
+  if (HD == 384 || HD == 512)
+    return (HD == 384 ? launch_dkv_wide<384> : launch_dkv_wide<512>)(
+        q, k, v, dout, sq, sk, l, d, dk, dv, tiles, B, Lq, Lk, NH, NKV, scale, causal, window,
+        st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1021,6 +1307,8 @@ extern "C" int flash_attn_bwd_dkv_tiles(const void* q, const void* k, const void
 // dynamic shared memory of one block of K2a (kernel 0, over `len` = Lk keys)
 // or K2b (kernel 1, over `len` = Lq queries) at head dim `hd`
 extern "C" int flash_attn_bwd_smem(int kernel, int hd, int len) {
+  if (hd == 384) return (int)(kernel == 0 ? wide::dq_smem<384>() : wide::dkv_smem<384>());
+  if (hd == 512) return (int)(kernel == 0 ? wide::dq_smem<512>() : wide::dkv_smem<512>());
   return (int)(kernel == 0 ? dq_smem(hd, len) : dkv_smem(hd, len));
 }
 
@@ -1050,6 +1338,19 @@ extern "C" int flash_attn_bwd_blocks_per_sm(int kernel, int hd, int window, int 
   PRT_OCC_CASE(1, flash_bwd_dkv_kernel, 256, false, KV_THREADS, dkv_smem(256, len))
   PRT_OCC_CASE(1, flash_bwd_dkv_kernel, 256, true, KV_THREADS, dkv_smem(256, len))
 #undef PRT_OCC_CASE
+#define PRT_WIDE_OCC_CASE(kn, fn, h, smem)                                                  \
+  if (kernel == kn && hd == h)                                                               \
+    return cudaFuncSetAttribute(fn<h>, cudaFuncAttributeMaxDynamicSharedMemorySize,         \
+                                (int)smem) == cudaSuccess &&                                 \
+                   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn<h>, wide::THREADS,   \
+                                                                 smem) == cudaSuccess        \
+               ? n                                                                           \
+               : -1;
+  PRT_WIDE_OCC_CASE(0, flash_bwd_dq_wide_kernel, 384, wide::dq_smem<384>())
+  PRT_WIDE_OCC_CASE(0, flash_bwd_dq_wide_kernel, 512, wide::dq_smem<512>())
+  PRT_WIDE_OCC_CASE(1, flash_bwd_dkv_wide_kernel, 384, wide::dkv_smem<384>())
+  PRT_WIDE_OCC_CASE(1, flash_bwd_dkv_wide_kernel, 512, wide::dkv_smem<512>())
+#undef PRT_WIDE_OCC_CASE
   return -1;
 }
 
@@ -1069,5 +1370,10 @@ extern "C" int flash_attn_bwd_attributes(int kernel, int hd, int window, int* at
   PRT_ATTR_CASE(1, flash_bwd_dkv_kernel, 256, false)
   PRT_ATTR_CASE(1, flash_bwd_dkv_kernel, 256, true)
 #undef PRT_ATTR_CASE
+  // the plain forms at 384 and 512: one kernel for both forms
+  if (kernel == 0 && hd == 384) return attributes(flash_bwd_dq_wide_kernel<384>, attrs);
+  if (kernel == 0 && hd == 512) return attributes(flash_bwd_dq_wide_kernel<512>, attrs);
+  if (kernel == 1 && hd == 384) return attributes(flash_bwd_dkv_wide_kernel<384>, attrs);
+  if (kernel == 1 && hd == 512) return attributes(flash_bwd_dkv_wide_kernel<512>, attrs);
   return (int)cudaErrorInvalidValue;
 }

@@ -350,4 +350,95 @@ cudaError_t sm_count(int* sms) {
   return cudaSuccess;
 }
 
+// ---- head dims 384 and 512: the plain SIMT forms of K1, K2a and K2b --------
+// Above 256 a 64-row tile's f32 accumulator no longer fits one warpgroup's
+// registers and a wgmma ring no longer fits the SM's shared memory, so these
+// widths run a simple form: small tiles in shared memory (rows of HD + 8
+// bf16, 16 bytes of skew, so that 16-byte loads of eight rows at one column
+// hit every bank once), f32 dot products and f32 accumulators in registers
+// (two adjacent columns a thread), one fixed order of every sum.
+namespace wide {
+
+constexpr int THREADS = 256;
+
+template <int HD>
+__host__ __device__ constexpr int pitch() {
+  return HD + 8;
+}
+
+// rows [r0, r0 + n) of head h of a [B, L, heads, HD] bf16 tensor into shared
+// rows of pitch<HD>(); rows at or past L are zeros
+template <int HD>
+__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src, int b,
+                                          int L, int heads, int h, int r0, int n) {
+  constexpr int V = HD / 8;
+  for (int i = threadIdx.x; i < n * V; i += THREADS) {
+    const int r = i / V, c = i % V, row = r0 + r;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row < L)
+      val = reinterpret_cast<const uint4*>(src + (((size_t)b * L + row) * heads + h) * HD)[c];
+    reinterpret_cast<uint4*>(dst + r * pitch<HD>())[c] = val;
+  }
+}
+
+// the f32 dot product of two shared rows of HD bf16, in one fixed order
+template <int HD>
+__device__ __forceinline__ float dot_rows(const __nv_bfloat16* a, const __nv_bfloat16* b) {
+  float acc = 0.f;
+#pragma unroll 4
+  for (int c = 0; c < HD / 8; ++c) {
+    const uint4 x = reinterpret_cast<const uint4*>(a)[c];
+    const uint4 y = reinterpret_cast<const uint4*>(b)[c];
+    const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&x);
+    const __nv_bfloat162* yp = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 fx = __bfloat1622float2(xp[e]), fy = __bfloat1622float2(yp[e]);
+      acc = fmaf(fx.x, fy.x, acc);
+      acc = fmaf(fx.y, fy.y, acc);
+    }
+  }
+  return acc;
+}
+
+// columns d, d + 1 of a shared row as f32
+__device__ __forceinline__ float2 pair_at(const __nv_bfloat16* row, int d) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(row + d));
+}
+
+// query row r (segment sr) sees key c (segment sc)
+__device__ __forceinline__ bool visible(int r, int c, int sr, int sc, int causal, int window) {
+  return sr != 0 && sr == sc && (!causal || r >= c) && (window <= 0 || r - c < window);
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// [lo, hi] of the non-zero ids among ids[0, n) (lo > hi when none), through
+// two shared ints; every thread of the block calls it
+__device__ __forceinline__ void segment_range(const int* ids, int n, int* lo, int* hi) {
+  if (threadIdx.x == 0) {
+    *lo = 0x7fffffff;
+    *hi = -0x7fffffff;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += THREADS)
+    if (ids[i] != 0) {
+      atomicMin(lo, ids[i]);
+      atomicMax(hi, ids[i]);
+    }
+  __syncthreads();
+}
+
+}  // namespace wide
+
 }  // namespace

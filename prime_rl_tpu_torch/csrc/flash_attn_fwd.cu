@@ -492,6 +492,172 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   }
 }
 
+// ---- head dims 384 and 512: the plain form ----------------------------------
+// A block a (q tile of 16 rows, q head, batch row); kv tiles of 32 keys, the
+// same candidate and segment-range rule as above (fwd_tiles in
+// ops/flash_attention.py gives the wrapper these tiles). Scores go through
+// shared memory as f32, the online softmax is one warp a row (a lane a key)
+// in base 2, and each thread keeps two adjacent columns of the 16 rows'
+// output in registers. Slow next to the wgmma form, but right: at these
+// widths the bound is the operations, and this form does them on the f32
+// units (67 TFLOP/s on the H100's data sheet) at the rate its shared-memory
+// reads allow.
+namespace wide {
+constexpr int FWD_BQ = 16, FWD_BK = 32;
+
+template <int HD>
+constexpr size_t fwd_smem() {
+  return (size_t)(FWD_BQ + 2 * FWD_BK) * pitch<HD>() * 2;
+}
+}  // namespace wide
+
+template <int HD>
+__global__ void __launch_bounds__(wide::THREADS)
+flash_fwd_wide_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg_q,
+                      const int* __restrict__ seg_kv, __nv_bfloat16* __restrict__ out,
+                      float* __restrict__ lse, const float* __restrict__ sinks, int* tiles, int Lq,
+                      int Lk, int NH, int NKV, float scale, int causal, int window) {
+  using namespace wide;
+  constexpr int BQ = FWD_BQ, BK = FWD_BK, PT = pitch<HD>();
+  static_assert(BK == 32, "the softmax step gives each lane one key");
+  extern __shared__ __align__(16) uint8_t wide_smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(wide_smem);
+  __nv_bfloat16* ks = qs + BQ * PT;
+  __nv_bfloat16* vs = ks + BK * PT;
+  __shared__ float ps[BQ][BK];
+  __shared__ float m_run[BQ], l_run[BQ], alpha[BQ];
+  __shared__ int sq[BQ], sk[BK], seg_lo, seg_hi;
+
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z, kh = h / (NH / NKV);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int row0 = qt * BQ;
+  const float sl2 = scale * LOG2E;
+  if (tid < BQ) {
+    const int r = row0 + tid;
+    sq[tid] = r < Lq ? seg_q[(size_t)b * Lq + r] : 0;
+    m_run[tid] = MASKED;
+    l_run[tid] = 0.f;
+  }
+  load_rows<HD>(qs, q, b, Lq, NH, h, row0, BQ);
+  segment_range(sq, BQ, &seg_lo, &seg_hi);
+  const int lo = seg_lo, hi = seg_hi;
+
+  const int nk = (Lk + BK - 1) / BK;
+  const int j_end = causal ? min(nk, (min(row0 + BQ, Lq) - 1) / BK + 1) : nk;
+  const int j_begin = window > 0 ? max(row0 - window + 1, 0) / BK : 0;
+  const int d0 = 2 * tid;  // this thread's columns d0, d0 + 1 (none past HD)
+  float acc[BQ][2];
+#pragma unroll
+  for (int i = 0; i < BQ; ++i) acc[i][0] = acc[i][1] = 0.f;
+  int visited = 0;
+
+  for (int j = j_begin; j < j_end; ++j) {
+    const int c0 = j * BK;
+    int key_seg = 0;
+    if (tid < BK) {
+      key_seg = c0 + tid < Lk ? seg_kv[(size_t)b * Lk + c0 + tid] : 0;
+      sk[tid] = key_seg;
+    }
+    if (!__syncthreads_or(key_seg != 0 && key_seg >= lo && key_seg <= hi)) continue;
+    ++visited;
+    load_rows<HD>(ks, k, b, Lk, NKV, kh, c0, BK);
+    load_rows<HD>(vs, v, b, Lk, NKV, kh, c0, BK);
+    __syncthreads();
+    for (int e = tid; e < BQ * BK; e += THREADS) {
+      const int i = e / BK, jj = e % BK, r = row0 + i, c = c0 + jj;
+      float sc = MASKED;
+      if (r < Lq && c < Lk && visible(r, c, sq[i], sk[jj], causal, window))
+        sc = dot_rows<HD>(qs + i * PT, ks + jj * PT) * sl2;
+      ps[i][jj] = sc;
+    }
+    __syncthreads();
+    for (int i = warp; i < BQ; i += THREADS / 32) {
+      const float sc = ps[i][lane];
+      const float m_old = m_run[i], m_new = fmaxf(m_old, warp_max(sc));
+      const float p = m_new == MASKED ? 0.f : exp2f(sc - m_new);
+      const float a = m_new == MASKED ? 1.f : exp2f(m_old - m_new);
+      const float sum = warp_sum(p);
+      ps[i][lane] = p;
+      if (lane == 0) {
+        m_run[i] = m_new;
+        l_run[i] = l_run[i] * a + sum;
+        alpha[i] = a;
+      }
+    }
+    __syncthreads();
+    if (d0 < HD) {
+#pragma unroll
+      for (int i = 0; i < BQ; ++i) {
+        acc[i][0] *= alpha[i];
+        acc[i][1] *= alpha[i];
+      }
+      for (int jj = 0; jj < BK; ++jj) {
+        const float2 vv = pair_at(vs + jj * PT, d0);
+#pragma unroll
+        for (int i = 0; i < BQ; ++i) {
+          acc[i][0] = fmaf(ps[i][jj], vv.x, acc[i][0]);
+          acc[i][1] = fmaf(ps[i][jj], vv.y, acc[i][1]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  if (tiles != nullptr && tid == 0) {
+    int* t = tiles + (((size_t)b * NH + h) * gridDim.x + qt) * 2;
+    t[0] = visited;
+    t[1] = max(j_end - j_begin, 0);
+  }
+  // each row's factor and lse, once (thread i takes row i), into alpha[]
+  // in natural units, so that a row that saw no key gets exactly the sink
+  if (tid < BQ) {
+    const float m = m_run[tid] / LOG2E;
+    float l = l_run[tid], c = 1.f, m_f = m;
+    if (sinks != nullptr) {  // a virtual key of value 0 in the denominator
+      m_f = fmaxf(m, sinks[h]);
+      c = m_run[tid] == MASKED ? 0.f : expf(m - m_f);
+      l = l * c + expf(sinks[h] - m_f);
+    }
+    alpha[tid] = l > 0.f ? c / l : 0.f;
+    if (row0 + tid < Lq)
+      lse[((size_t)b * NH + h) * Lq + row0 + tid] = l > 0.f ? m_f + logf(l) : NEG_INF;
+  }
+  __syncthreads();
+  if (d0 < HD) {
+#pragma unroll
+    for (int i = 0; i < BQ; ++i) {
+      if (row0 + i < Lq)
+        *reinterpret_cast<__nv_bfloat162*>(out + (((size_t)b * Lq + row0 + i) * NH + h) * HD +
+                                           d0) =
+            __floats2bfloat162_rn(acc[i][0] * alpha[i], acc[i][1] * alpha[i]);
+    }
+  }
+}
+
+template <int HD>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, const int* seg_q,
+                        const int* seg_kv, void* out, float* lse, const float* sinks, int* tiles,
+                        int B, int Lq, int Lk, int NH, int NKV, float scale, int causal,
+                        int window, cudaStream_t stream) {
+  if (B == 0 || Lq == 0) return cudaSuccess;
+  if (Lk == 0) return cudaErrorInvalidValue;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_wide_kernel<HD>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)wide::fwd_smem<HD>());
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const dim3 grid((Lq + wide::FWD_BQ - 1) / wide::FWD_BQ, NH, B);
+  flash_fwd_wide_kernel<HD><<<grid, wide::THREADS, wide::fwd_smem<HD>(), stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), seg_q, seg_kv, static_cast<__nv_bfloat16*>(out), lse,
+      sinks, tiles, Lq, Lk, NH, NKV, scale, causal, window);
+  return cudaGetLastError();
+}
+
 // ---- host side ---------------------------------------------------------------
 
 
@@ -501,6 +667,8 @@ size_t smem_of(int Lk) {
 }
 
 size_t smem_bytes(int hd, int Lk) {
+  if (hd == 384) return wide::fwd_smem<384>();
+  if (hd == 512) return wide::fwd_smem<512>();
   return hd == 256 ? smem_of<256>(Lk) : hd == 128 ? smem_of<128>(Lk) : smem_of<64>(Lk);
 }
 
@@ -555,6 +723,10 @@ int run(const void* q, const void* k, const void* v, const void* seg_q, const vo
   PRT_FWD_CASE(64, false) PRT_FWD_CASE(64, true) PRT_FWD_CASE(128, false) PRT_FWD_CASE(128, true)
   PRT_FWD_CASE(256, false) PRT_FWD_CASE(256, true)
 #undef PRT_FWD_CASE
+  if (HD == 384 || HD == 512)
+    return (HD == 384 ? launch_wide<384> : launch_wide<512>)(q, k, v, sq, sk, out, l, snk, tiles,
+                                                             B, Lq, Lk, NH, NKV, scale, causal,
+                                                             window, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -569,8 +741,8 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, const
 }
 
 // the same launch, also writing each work item's kv tile counts into `tiles`
-// (int32 [B, NH, ceil(Lq / BQ), 2]: visited, candidates; BQ = 128, or 64 at
-// head dim 256)
+// (int32 [B, NH, ceil(Lq / BQ), 2]: visited, candidates; BQ = 128, 64 at
+// head dim 256, 16 at 384 and 512)
 extern "C" int flash_attn_fwd_tiles(const void* q, const void* k, const void* v,
                                     const void* seg_q, const void* seg_kv, void* out, void* lse,
                                     const void* sinks, int B, int Lq, int Lk, int NH, int NKV,
@@ -599,6 +771,10 @@ extern "C" int flash_attn_fwd_attributes(int hd, int window, int* attrs) {
   } else if (hd == 256) {
     err = window ? cudaFuncGetAttributes(&a, flash_fwd_kernel<256, true>)
                  : cudaFuncGetAttributes(&a, flash_fwd_kernel<256, false>);
+  } else if (hd == 384) {  // the plain form: one kernel for both forms
+    err = cudaFuncGetAttributes(&a, flash_fwd_wide_kernel<384>);
+  } else if (hd == 512) {
+    err = cudaFuncGetAttributes(&a, flash_fwd_wide_kernel<512>);
   }
   if (err != cudaSuccess) return (int)err;
   attrs[0] = a.numRegs;

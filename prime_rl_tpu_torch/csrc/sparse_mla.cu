@@ -1129,7 +1129,12 @@ sparse_mla_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
 // ---------------------------------------------------------------------------
 // dkv[r] += the dkvg rows of the slots that selected r, in the sorted order
 // ---------------------------------------------------------------------------
-constexpr int REDUCE_THREADS = 96;  // 72 of them own 8 channels each
+// a block a kv row, one thread a 16-byte vector of it: at Dq 576, 72 of 96
+// threads; at the wide width 1152, 144 of 160
+template <int W>
+constexpr int reduce_threads() {
+  return (W / 8 + 31) / 32 * 32;
+}
 
 __device__ __forceinline__ void add8(float* acc, const uint4& v) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
@@ -1141,16 +1146,17 @@ __device__ __forceinline__ void add8(float* acc, const uint4& v) {
   }
 }
 
-__global__ void __launch_bounds__(REDUCE_THREADS)
+template <int W>
+__global__ void __launch_bounds__(reduce_threads<W>())
 sparse_mla_dkv_reduce_kernel(const bf16* __restrict__ dkvg, const long long* __restrict__ order,
                              const int* __restrict__ seg, float* __restrict__ dkv) {
   const int r = blockIdx.x;
-  if (threadIdx.x >= V8) return;
+  if (threadIdx.x >= W / 8) return;
   const int col = threadIdx.x * 8;
   const int lo = seg[r], hi = seg[r + 1];
   if (lo >= hi) return;
   float acc[8];
-  float* drow = dkv + (size_t)r * DQ + col;
+  float* drow = dkv + (size_t)r * W + col;
   const float4 a0 = *reinterpret_cast<const float4*>(drow);
   const float4 a1 = *reinterpret_cast<const float4*>(drow + 4);
   acc[0] = a0.x; acc[1] = a0.y; acc[2] = a0.z; acc[3] = a0.w;
@@ -1160,14 +1166,311 @@ sparse_mla_dkv_reduce_kernel(const bf16* __restrict__ dkvg, const long long* __r
     uint4 v[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      v[i] = *reinterpret_cast<const uint4*>(dkvg + (size_t)order[s + i] * DQ + col);
+      v[i] = *reinterpret_cast<const uint4*>(dkvg + (size_t)order[s + i] * W + col);
 #pragma unroll
     for (int i = 0; i < 4; ++i) add8(acc, v[i]);
   }
   for (; s < hi; ++s)
-    add8(acc, *reinterpret_cast<const uint4*>(dkvg + (size_t)order[s] * DQ + col));
+    add8(acc, *reinterpret_cast<const uint4*>(dkvg + (size_t)order[s] * W + col));
   *reinterpret_cast<float4*>(drow) = make_float4(acc[0], acc[1], acc[2], acc[3]);
   *reinterpret_cast<float4*>(drow + 4) = make_float4(acc[4], acc[5], acc[6], acc[7]);
+}
+
+// ---------------------------------------------------------------------------
+// K5a / K5b at the wide widths: Dq 1152, Dv 1024 (twice the MLA widths; the
+// wrapper zero-pads any Dq in (576, 1152] and v_dim <= 1024 to them)
+// ---------------------------------------------------------------------------
+// A plain SIMT form. At these widths a token's 64-head q panel alone (147 KB)
+// leaves no room for the wgmma forms' kv stages, so it takes groups of eight
+// heads (H % 8 == 0: no head is padded) and tiles of a few gathered rows in
+// shared memory (rows of Dq + 8 bf16, 16 bytes of skew), f32 dot products and
+// f32 accumulators in registers, every sum in one fixed order.
+//   K5a: a block a (token, group of 8 heads), tiles of 16 slots: s by pairs
+//        of threads (halves of a row, one shuffle), the online softmax one
+//        warp a head in base 2 with the running max floored at -1e30, bf16(p)
+//        into shared memory, and o in registers (two channel pairs a thread a
+//        head). out = o / max(l, 1e-30), lse = max(m, -5e29) + log(max(l,
+//        1e-30)), as the 576 form.
+//   K5b: a block a token, tiles of 8 slots, the token's groups of 8 heads in
+//        turn over each gathered tile: s and dp by pairs of threads, p and ds
+//        into shared memory, dq added into an f32 scratch row of the token
+//        (zero from the wrapper; each element always by the same thread) and
+//        turned into bf16 at the token's end, and each slot's dkvg row summed
+//        over all the token's heads in registers, written once as bf16 (a
+//        slot's row holds every head: the plain version's rounding). The dkv
+//        reduction is the 576 one at width 1152.
+// What bounds them: the operations, on the f32 units; this form is right,
+// not fast.
+namespace k5w {
+
+constexpr int DQW = 1152, DVW = 1024;
+constexpr int HG = 8;                  // heads a group
+constexpr int FWD_BT = 16, BWD_BT = 8;  // slots a tile
+constexpr int THREADS = 256;
+constexpr int PITCH = DQW + 8, DPITCH = DVW + 8;
+constexpr int FWD_BYTES = (HG + FWD_BT) * PITCH * 2;
+constexpr int BWD_BYTES = (HG + BWD_BT) * PITCH * 2 + HG * DPITCH * 2;
+constexpr int PAIRS = DQW / 2;  // channel pairs of a row
+constexpr float M_FLOOR = -1e30f;
+
+// n rows of width w: row r from src + rows[r] * w (zeros where rows[r] < 0),
+// or with rows null the n contiguous rows from src, into shared rows of pitch p
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, const int* rows, int n,
+                                          int w, int p) {
+  const int V = w / 8;
+  for (int i = threadIdx.x; i < n * V; i += THREADS) {
+    const int r = i / V, c = i % V;
+    const long long row = rows == nullptr ? r : rows[r];
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row >= 0) val = reinterpret_cast<const uint4*>(src + (size_t)row * w)[c];
+    reinterpret_cast<uint4*>(dst + r * p)[c] = val;
+  }
+}
+
+// f32 dot product of the 16-byte chunks [c0, c1) of two shared rows
+__device__ __forceinline__ float dot_chunks(const bf16* a, const bf16* b, int c0, int c1) {
+  float acc = 0.f;
+#pragma unroll 4
+  for (int c = c0; c < c1; ++c) {
+    const uint4 x = reinterpret_cast<const uint4*>(a)[c];
+    const uint4 y = reinterpret_cast<const uint4*>(b)[c];
+    const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&x);
+    const __nv_bfloat162* yp = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 fx = __bfloat1622float2(xp[e]), fy = __bfloat1622float2(yp[e]);
+      acc = fmaf(fx.x, fy.x, acc);
+      acc = fmaf(fx.y, fy.y, acc);
+    }
+  }
+  return acc;
+}
+
+__device__ __forceinline__ float2 pair_at(const bf16* row, int d) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(row + d));
+}
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// the tile's rows into rows[0, n): the index of each slot, -1 for a sentinel
+// or a slot past T; true if any is real (every thread of the block calls it)
+__device__ __forceinline__ bool tile_rows(const int* idx_row, int t0, int n, int T, int Sk,
+                                          int* rows) {
+  int r = -1;
+  if (threadIdx.x < n && t0 + threadIdx.x < T) {
+    const int i = idx_row[t0 + threadIdx.x];
+    r = i >= 0 && i < Sk ? i : -1;
+  }
+  if (threadIdx.x < n) rows[threadIdx.x] = r;
+  return __syncthreads_or(r >= 0);
+}
+
+}  // namespace k5w
+
+__global__ void __launch_bounds__(k5w::THREADS, 1)
+sparse_mla_fwd_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
+                           const int* __restrict__ indices, bf16* __restrict__ out,
+                           float* __restrict__ lse, int* tiles, int S, int Sk, int T, int H,
+                           float scale) {
+  using namespace k5w;
+  constexpr int BT = FWD_BT;
+  extern __shared__ __align__(16) uint8_t wide_smem[];
+  bf16* qs = reinterpret_cast<bf16*>(wide_smem);
+  bf16* kvs = qs + HG * PITCH;
+  __shared__ float ps[HG][BT];
+  __shared__ float m_run[HG], l_run[HG], alpha[HG];
+  __shared__ int rows[BT];
+  const int s = blockIdx.x, h0 = blockIdx.y * HG;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const float sl2 = scale * LOG2E;
+  load_rows(qs, q + ((size_t)s * H + h0) * DQW, nullptr, HG, DQW, PITCH);
+  if (tid < HG) {
+    m_run[tid] = M_FLOOR;
+    l_run[tid] = 0.f;
+  }
+  float acc[HG][2][2];  // [head][channel pair c: 2 tid + 512 c][2]
+#pragma unroll
+  for (int hh = 0; hh < HG; ++hh)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) acc[hh][c][0] = acc[hh][c][1] = 0.f;
+  const int* idx_row = indices + (size_t)s * T;
+  const int n_tiles = (T + BT - 1) / BT;
+  int visited = 0;
+  for (int t = 0; t < n_tiles; ++t) {
+    if (!tile_rows(idx_row, t * BT, BT, T, Sk, rows)) continue;
+    ++visited;
+    load_rows(kvs, kv, rows, BT, DQW, PITCH);
+    __syncthreads();
+    {  // s: two threads a (head, slot), each half of the row's 144 chunks
+      const int e = tid >> 1, half = tid & 1, hh = e / BT, jj = e % BT;
+      float part = dot_chunks(qs + hh * PITCH, kvs + jj * PITCH, half * (DQW / 16),
+                              (half + 1) * (DQW / 16));
+      part += __shfl_xor_sync(0xffffffffu, part, 1);
+      if (half == 0) ps[hh][jj] = rows[jj] >= 0 ? part * sl2 : MASKED;
+    }
+    __syncthreads();
+    {  // the online softmax: warp w takes head w, lane j slot j
+      const float sc = lane < BT ? ps[warp][lane] : MASKED;
+      const float m_old = m_run[warp], m_new = fmaxf(m_old, wide::warp_max(sc));
+      const float p = exp2f(sc - m_new), a = exp2f(m_old - m_new);
+      const float sum = wide::warp_sum(p);
+      if (lane < BT) ps[warp][lane] = bf16_round(p);
+      if (lane == 0) {
+        m_run[warp] = m_new;
+        l_run[warp] = l_run[warp] * a + sum;
+        alpha[warp] = a;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int hh = 0; hh < HG; ++hh) {
+      const float a = alpha[hh];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int d = 2 * tid + 512 * c;
+        float x = acc[hh][c][0] * a, y = acc[hh][c][1] * a;
+        for (int jj = 0; jj < BT; ++jj) {
+          const float2 vv = pair_at(kvs + jj * PITCH, d);
+          x = fmaf(ps[hh][jj], vv.x, x);
+          y = fmaf(ps[hh][jj], vv.y, y);
+        }
+        acc[hh][c][0] = x;
+        acc[hh][c][1] = y;
+      }
+    }
+    __syncthreads();
+  }
+  if (tiles != nullptr && blockIdx.y == 0 && tid == 0) {
+    tiles[(size_t)s * 2] = visited;
+    tiles[(size_t)s * 2 + 1] = n_tiles;
+  }
+  if (tid < HG) {  // each head's 1 / l and lse, once, into alpha[]
+    const float l = fmaxf(l_run[tid], 1e-30f);
+    lse[(size_t)s * H + h0 + tid] = fmaxf(m_run[tid] * LN2, -5e29f) + logf(l);
+    alpha[tid] = 1.f / l;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int hh = 0; hh < HG; ++hh) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+      *reinterpret_cast<__nv_bfloat162*>(out + ((size_t)s * H + h0 + hh) * DVW + 2 * tid +
+                                         512 * c) =
+          __floats2bfloat162_rn(acc[hh][c][0] * alpha[hh], acc[hh][c][1] * alpha[hh]);
+  }
+}
+
+__global__ void __launch_bounds__(k5w::THREADS, 1)
+sparse_mla_bwd_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
+                           const int* __restrict__ indices, const bf16* __restrict__ dout,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           bf16* __restrict__ dq, float* __restrict__ dq32,
+                           bf16* __restrict__ dkvg, int* tiles, int C, int Sk, int T, int H,
+                           float scale) {
+  using namespace k5w;
+  constexpr int BT = BWD_BT;
+  constexpr int CP = (PAIRS + THREADS - 1) / THREADS;  // channel pairs a thread: 3
+  extern __shared__ __align__(16) uint8_t wide_smem[];
+  bf16* qs = reinterpret_cast<bf16*>(wide_smem);
+  bf16* kvs = qs + HG * PITCH;
+  bf16* dos = kvs + BT * PITCH;
+  __shared__ float p_s[HG][BT], ds_s[HG][BT];
+  __shared__ float lse_s[HG], delta_s[HG];
+  __shared__ int rows[BT];
+  const int s = blockIdx.x, tid = threadIdx.x;
+  const float sl2 = scale * LOG2E;
+  const int* idx_row = indices + (size_t)s * T;
+  const int n_tiles = (T + BT - 1) / BT;
+  int visited = 0;
+  for (int t = 0; t < n_tiles; ++t) {
+    if (!tile_rows(idx_row, t * BT, BT, T, Sk, rows)) continue;
+    ++visited;
+    load_rows(kvs, kv, rows, BT, DQW, PITCH);
+    float ag[BT][CP][2];  // this tile's dkvg rows: [slot][channel pair tid + 256 c][2]
+#pragma unroll
+    for (int jj = 0; jj < BT; ++jj)
+#pragma unroll
+      for (int c = 0; c < CP; ++c) ag[jj][c][0] = ag[jj][c][1] = 0.f;
+    for (int h0 = 0; h0 < H; h0 += HG) {
+      load_rows(qs, q + ((size_t)s * H + h0) * DQW, nullptr, HG, DQW, PITCH);
+      load_rows(dos, dout + ((size_t)s * H + h0) * DVW, nullptr, HG, DVW, DPITCH);
+      if (tid < HG) {
+        lse_s[tid] = lse[(size_t)s * H + h0 + tid] * LOG2E;
+        delta_s[tid] = delta[(size_t)s * H + h0 + tid];
+      }
+      __syncthreads();
+      if (tid < 2 * HG * BT) {  // two threads a (head, slot): s and dp (whole warps)
+        const int e = tid >> 1, which = tid & 1, hh = e / BT, jj = e % BT;
+        const float val = which == 0 ? dot_chunks(qs + hh * PITCH, kvs + jj * PITCH, 0, DQW / 8)
+                                     : dot_chunks(dos + hh * DPITCH, kvs + jj * PITCH, 0, DVW / 8);
+        const float other = __shfl_xor_sync(0xffffffffu, val, 1);
+        if (which == 0) {
+          float p = 0.f, ds = 0.f;
+          if (rows[jj] >= 0) {
+            p = exp2f(val * sl2 - lse_s[hh]);
+            ds = bf16_round(p * (other - delta_s[hh]) * scale);
+          }
+          p_s[hh][jj] = bf16_round(p);
+          ds_s[hh][jj] = ds;
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int c = 0; c < CP; ++c) {
+        const int pi = tid + THREADS * c;
+        if (pi >= PAIRS) continue;
+        const int d = 2 * pi;
+#pragma unroll
+        for (int hh = 0; hh < HG; ++hh) {  // dq += ds kvg, into the token's f32 row
+          float2* dst = reinterpret_cast<float2*>(dq32 + ((size_t)s * H + h0 + hh) * DQW + d);
+          float2 acc = *dst;
+          for (int jj = 0; jj < BT; ++jj) {
+            const float2 kk = pair_at(kvs + jj * PITCH, d);
+            acc.x = fmaf(ds_s[hh][jj], kk.x, acc.x);
+            acc.y = fmaf(ds_s[hh][jj], kk.y, acc.y);
+          }
+          *dst = acc;
+        }
+#pragma unroll
+        for (int hh = 0; hh < HG; ++hh) {  // dkvg += ds^T q (+ bf16(p)^T do below Dv)
+          const float2 qq = pair_at(qs + hh * PITCH, d);
+          const float2 oo = d < DVW ? pair_at(dos + hh * DPITCH, d) : make_float2(0.f, 0.f);
+#pragma unroll
+          for (int jj = 0; jj < BT; ++jj) {
+            ag[jj][c][0] = fmaf(p_s[hh][jj], oo.x, fmaf(ds_s[hh][jj], qq.x, ag[jj][c][0]));
+            ag[jj][c][1] = fmaf(p_s[hh][jj], oo.y, fmaf(ds_s[hh][jj], qq.y, ag[jj][c][1]));
+          }
+        }
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int jj = 0; jj < BT; ++jj) {
+      if (rows[jj] < 0) continue;
+      bf16* drow = dkvg + ((size_t)s * T + t * BT + jj) * DQW;
+#pragma unroll
+      for (int c = 0; c < CP; ++c) {
+        const int pi = tid + THREADS * c;
+        if (pi < PAIRS)
+          *reinterpret_cast<__nv_bfloat162*>(drow + 2 * pi) =
+              __floats2bfloat162_rn(ag[jj][c][0], ag[jj][c][1]);
+      }
+    }
+    __syncthreads();  // rows[] is rewritten by the next tile
+  }
+  if (tiles != nullptr && tid == 0) {
+    tiles[(size_t)s * 2] = visited;
+    tiles[(size_t)s * 2 + 1] = n_tiles;
+  }
+  // dq in bf16 from the token's f32 rows (the same thread wrote each pair)
+  for (int i = tid; i < H * PAIRS; i += THREADS) {
+    const int hh = i / PAIRS, d = 2 * (i % PAIRS);
+    const size_t at = ((size_t)s * H + hh) * DQW + d;
+    const float2 v = *reinterpret_cast<const float2*>(dq32 + at);
+    *reinterpret_cast<__nv_bfloat162*>(dq + at) = __floats2bfloat162_rn(v.x, v.y);
+  }
 }
 
 template <typename Kernel>
@@ -1251,6 +1554,40 @@ int run_bwd(const void* q, const void* kv, const void* indices, const void* dout
       tq, tdo, tdkvg, static_cast<const bf16*>(kv), static_cast<const int*>(indices),
       static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<bf16*>(dq),
       static_cast<bf16*>(dkvg), tiles, C, Sk, T, heads, h0, scale);
+  return (int)cudaGetLastError();
+}
+
+// K5a at the wide widths over S tokens (H % 8 == 0, no head padding)
+int run_fwd_wide(const void* q, const void* kv, const void* indices, void* out, void* lse,
+                 int* tiles, int S, int Sk, int T, int H, float scale, void* stream) {
+  if (H <= 0 || H % k5w::HG || S < 0 || Sk <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
+  if (S == 0) return 0;
+  static bool configured = false;
+  cudaError_t err = configure(sparse_mla_fwd_wide_kernel, k5w::FWD_BYTES, &configured);
+  if (err != cudaSuccess) return (int)err;
+  sparse_mla_fwd_wide_kernel<<<dim3(S, H / k5w::HG), k5w::THREADS, k5w::FWD_BYTES,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(kv), static_cast<const int*>(indices),
+      static_cast<bf16*>(out), static_cast<float*>(lse), tiles, S, Sk, T, H, scale);
+  return (int)cudaGetLastError();
+}
+
+// K5b at the wide widths over one chunk of C queries (every pointer but kv
+// from the chunk's first query; dq32 f32 [C, H, 1152] zero)
+int run_bwd_wide(const void* q, const void* kv, const void* indices, const void* dout,
+                 const void* lse, const void* delta, void* dq, void* dq32, void* dkvg, int* tiles,
+                 int C, int Sk, int T, int H, float scale, void* stream) {
+  if (H <= 0 || H % k5w::HG || C < 0 || Sk <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
+  if (C == 0) return 0;
+  static bool configured = false;
+  cudaError_t err = configure(sparse_mla_bwd_wide_kernel, k5w::BWD_BYTES, &configured);
+  if (err != cudaSuccess) return (int)err;
+  sparse_mla_bwd_wide_kernel<<<C, k5w::THREADS, k5w::BWD_BYTES,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(kv), static_cast<const int*>(indices),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), static_cast<float*>(dq32),
+      static_cast<bf16*>(dkvg), tiles, C, Sk, T, H, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1352,21 +1689,55 @@ extern "C" int sparse_mla_bwd_blocks_per_sm() {
   return n;
 }
 
-// the compiled K5a (kernel 0), K5b (1) or dkv reduction (2) as the runtime
+// the compiled K5a (kernel 0), K5b (1) or dkv reduction (2), or their wide
+// forms (3, 4, 5), as the runtime
 // loaded it: attrs = {registers a thread, local memory a thread in bytes
 // (spills; 0 when none), static shared memory in bytes, threads a block}
 extern "C" int sparse_mla_attributes(int kernel, int* attrs) {
   if (kernel == 0) return attributes(sparse_mla_fwd_kernel, attrs);
   if (kernel == 1) return attributes(sparse_mla_bwd_kernel, attrs);
-  if (kernel == 2) return attributes(sparse_mla_dkv_reduce_kernel, attrs);
+  if (kernel == 2) return attributes(sparse_mla_dkv_reduce_kernel<DQ>, attrs);
+  if (kernel == 3) return attributes(sparse_mla_fwd_wide_kernel, attrs);
+  if (kernel == 4) return attributes(sparse_mla_bwd_wide_kernel, attrs);
+  if (kernel == 5) return attributes(sparse_mla_dkv_reduce_kernel<k5w::DQW>, attrs);
   return (int)cudaErrorInvalidValue;
 }
 // dkv [Sk, Dq] f32 += over the slots order[seg[r] .. seg[r + 1]) of dkvg [slots, Dq] bf16
 extern "C" int sparse_mla_dkv_reduce(const void* dkvg, const void* order, const void* seg,
                                      void* dkv, int Sk, int dqw, void* stream) {
-  if (dqw != DQ || Sk <= 0) return (int)cudaErrorInvalidValue;
-  sparse_mla_dkv_reduce_kernel<<<Sk, REDUCE_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(dkvg), static_cast<const long long*>(order),
-      static_cast<const int*>(seg), static_cast<float*>(dkv));
+  if ((dqw != DQ && dqw != k5w::DQW) || Sk <= 0) return (int)cudaErrorInvalidValue;
+  const bf16* g = static_cast<const bf16*>(dkvg);
+  const long long* o = static_cast<const long long*>(order);
+  const int* sg = static_cast<const int*>(seg);
+  float* d = static_cast<float*>(dkv);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dqw == DQ)
+    sparse_mla_dkv_reduce_kernel<DQ><<<Sk, reduce_threads<DQ>(), 0, st>>>(g, o, sg, d);
+  else
+    sparse_mla_dkv_reduce_kernel<k5w::DQW><<<Sk, reduce_threads<k5w::DQW>(), 0, st>>>(g, o, sg, d);
   return (int)cudaGetLastError();
+}
+
+// K5a at the wide widths (Dq 1152, Dv 1024), one launch for all H heads;
+// `tiles` (int32 [S, 2]: tiles of 16 slots visited, candidates) or null
+extern "C" int sparse_mla_fwd_wide(const void* q, const void* kv, const void* indices, void* out,
+                                   void* lse, int S, int Sk, int T, int H, float scale,
+                                   void* stream, void* tiles) {
+  return run_fwd_wide(q, kv, indices, out, lse, static_cast<int*>(tiles), S, Sk, T, H, scale,
+                      stream);
+}
+
+// K5b at the wide widths over a chunk; `tiles` (int32 [C, 2]: tiles of 8
+// slots visited, candidates) or null
+extern "C" int sparse_mla_bwd_wide(const void* q, const void* kv, const void* indices,
+                                   const void* dout, const void* lse, const void* delta, void* dq,
+                                   void* dq32, void* dkvg, int C, int Sk, int T, int H,
+                                   float scale, void* stream, void* tiles) {
+  return run_bwd_wide(q, kv, indices, dout, lse, delta, dq, dq32, dkvg, static_cast<int*>(tiles),
+                      C, Sk, T, H, scale, stream);
+}
+
+// the wide forms' slots a tile: K5a's (kernel 0) or K5b's (1)
+extern "C" int sparse_mla_wide_tile(int kernel) {
+  return kernel == 0 ? k5w::FWD_BT : k5w::BWD_BT;
 }

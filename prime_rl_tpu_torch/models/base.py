@@ -5,9 +5,11 @@ The port's own copy of the JAX package's ``models/base.py`` spec section
 (``ModelSpec``, ``BUILTIN_SPECS``, ``debug_spec``, ``get_spec``,
 ``spec_from_hf_config``), field for field, so a spec means the same model in
 both packages. Parameters are plain dicts of ``torch.Tensor``s; the sharding
-rules of the JAX file are not part of this slice. The vision-language specs
-(``debug_vlm``, Qwen3-VL configs) belong to a later slice and raise
-``NotImplementedError`` here.
+rules of the JAX file are not part of this slice. The vision-language specs:
+``debug_vlm`` and the Qwen3-VL configs (dense and MoE) resolve; the hybrid
+``qwen3_next_vl`` (``debug_qwen3_next_vl``, a Qwen3.5 config with a
+``vision_config``) waits for the second part of ROADMAP Queue 1 item 9 and
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -90,7 +92,7 @@ class ModelSpec:
     # VLM composition + qwen3_5_moe/mrope.py): a vision tower whose merged
     # embeddings scatter into image-token slots, interleaved mRoPE, and
     # DeepStack feature injection into the first decoder layers.
-    vision: "Any | None" = None  # vision tower spec; None = text-only (VLMs are not ported yet)
+    vision: "Any | None" = None  # vision tower spec (models/vision.VisionSpec); None = text-only
     mrope_section: tuple[int, ...] = ()  # (t, h, w) frequency split; () = plain rope
     image_token_id: int = -1
     video_token_id: int = -1
@@ -561,10 +563,31 @@ def get_spec(name: str, num_layers: int | None = None,
     import json
     from pathlib import Path
 
-    if name in ("debug_vlm", "debug_qwen3_next_vl"):
+    if name == "debug_vlm":
+        # ByteTokenizer-compatible tiny VLM for the offline VLM RL debug loop
+        # (vision token ids sit above the 260-token byte vocab); lazy so the
+        # base module never imports models/vision at import time
+        from prime_rl_tpu_torch.models.vision import VisionSpec
+
+        spec = ModelSpec(
+            family="qwen3_vl", vocab_size=512, hidden_size=128, num_layers=2,
+            num_heads=4, num_kv_heads=2, head_dim=32, intermediate_size=256,
+            rope_theta=1e6, tie_embeddings=False, qk_norm=True,
+            eos_token_id=258, pad_token_id=256,
+            mrope_section=(8, 4, 4), vision_start_token_id=300,
+            image_token_id=301, video_token_id=302,
+            vision=VisionSpec(
+                depth=2, hidden_size=32, intermediate_size=64, num_heads=4,
+                in_channels=3, patch_size=4, temporal_patch_size=2,
+                spatial_merge_size=2, out_hidden_size=128,
+                num_position_embeddings=16, deepstack_visual_indexes=(0,),
+            ),
+        )
+    elif name == "debug_qwen3_next_vl":
         raise NotImplementedError(
-            f"{name!r} is a vision-language spec: VLM serving is not ported yet")
-    if name in BUILTIN_SPECS:
+            f"{name!r}: the qwen3_next_vl hybrid waits for the second part of ROADMAP Queue 1 "
+            "item 9 (VLM)")
+    elif name in BUILTIN_SPECS:
         spec = BUILTIN_SPECS[name]
     elif (Path(name) / "config.json").exists():
         cfg = json.loads((Path(name) / "config.json").read_text())
@@ -617,7 +640,7 @@ def _window_pattern_from_layer_types(
 def spec_from_hf_config(cfg: dict) -> ModelSpec:
     arch = (cfg.get("architectures") or ["Qwen3ForCausalLM"])[0].lower()
     if "qwen3vl" in arch.replace("_", ""):
-        raise NotImplementedError(f"{arch}: VLM serving is not ported yet")
+        return _vlm_spec_from_hf_config(cfg, arch)
     if "nemotronh" in arch.replace("_", ""):
         family = "nemotron_h"
     elif "glmmoedsa" in arch.replace("_", ""):
@@ -632,7 +655,9 @@ def spec_from_hf_config(cfg: dict) -> ModelSpec:
         family = "qwen3_moe"
     elif "qwen3next" in arch.replace("_", "") or "qwen3_5" in arch:
         if "vision_config" in cfg:
-            raise NotImplementedError(f"{arch}: VLM serving is not ported yet")
+            raise NotImplementedError(
+                f"{arch}: the qwen3_next_vl hybrid waits for the second part of ROADMAP Queue 1 "
+                "item 9 (VLM)")
         family = "qwen3_next"
     elif "minimaxm2" in arch.replace("_", ""):
         family = "minimax_m2"
@@ -851,3 +876,54 @@ def spec_from_hf_config(cfg: dict) -> ModelSpec:
     kw.update(extra)
     return ModelSpec(**kw)
 
+
+
+def _vlm_spec_from_hf_config(cfg: dict, arch: str) -> ModelSpec:
+    """Qwen3-VL dense/MoE: nested text_config/vision_config (HF
+    Qwen3VLConfig layout)."""
+    from prime_rl_tpu_torch.models.vision import VisionSpec
+
+    tc, vc = cfg["text_config"], cfg["vision_config"]
+    is_moe = "moe" in arch
+    rs = tc.get("rope_scaling") or {}
+    head_dim = tc.get("head_dim") or tc["hidden_size"] // tc["num_attention_heads"]
+    eos = tc.get("eos_token_id", cfg.get("eos_token_id", 151645))
+    return ModelSpec(
+        family="qwen3_vl_moe" if is_moe else "qwen3_vl",
+        vocab_size=tc["vocab_size"],
+        hidden_size=tc["hidden_size"],
+        num_layers=tc["num_hidden_layers"],
+        num_heads=tc["num_attention_heads"],
+        num_kv_heads=tc.get("num_key_value_heads", tc["num_attention_heads"]),
+        head_dim=head_dim,
+        intermediate_size=tc["intermediate_size"],
+        rope_theta=tc.get("rope_theta", 5e6),
+        rms_eps=tc.get("rms_norm_eps", 1e-6),
+        tie_embeddings=cfg.get("tie_word_embeddings", tc.get("tie_word_embeddings", False)),
+        qk_norm=True,
+        max_position_embeddings=tc.get("max_position_embeddings", 262144),
+        eos_token_id=eos if not isinstance(eos, list) else eos[0],
+        pad_token_id=tc.get("pad_token_id") or 0,
+        attn_bias=bool(tc.get("attention_bias", False)),
+        num_experts=int(tc.get("num_experts", 0) or 0) if is_moe else 0,
+        num_experts_per_tok=int(tc.get("num_experts_per_tok", 0) or 0) if is_moe else 0,
+        moe_intermediate_size=int(tc.get("moe_intermediate_size", 0) or 0) if is_moe else 0,
+        norm_topk_prob=tc.get("norm_topk_prob", True),
+        mrope_section=tuple(rs.get("mrope_section", (24, 20, 20))),
+        image_token_id=int(cfg.get("image_token_id", 151655)),
+        video_token_id=int(cfg.get("video_token_id", 151656)),
+        vision_start_token_id=int(cfg.get("vision_start_token_id", 151652)),
+        vision=VisionSpec(
+            depth=vc["depth"],
+            hidden_size=vc["hidden_size"],
+            intermediate_size=vc["intermediate_size"],
+            num_heads=vc["num_heads"],
+            in_channels=vc.get("in_channels", 3),
+            patch_size=vc["patch_size"],
+            temporal_patch_size=vc.get("temporal_patch_size", 2),
+            spatial_merge_size=vc.get("spatial_merge_size", 2),
+            out_hidden_size=vc["out_hidden_size"],
+            num_position_embeddings=vc["num_position_embeddings"],
+            deepstack_visual_indexes=tuple(vc.get("deepstack_visual_indexes", ())),
+        ),
+    )

@@ -11,8 +11,10 @@ launch; ``check`` turns a non-zero code into an exception.
 ``launches`` counts kernel launches per kernel: each wrapper adds one where
 it launches its kernel, so a run can show that its path went through them. A
 launch in a window or sink form also counts under ``<kernel>/window`` and
-``<kernel>/sinks`` (``count``), and K4's launches whose GQA group is cut
-into chunks under ``decode_paged_attention/chunked``.
+``<kernel>/sinks`` (``count``), K4's launches whose GQA group is cut
+into chunks under ``decode_paged_attention/chunked``, and the forms at head
+dims 384 and 512 (K1, K2a, K2b, K4) and at the wide MLA widths (K5a, K5b)
+under ``<kernel>/wide``.
 
 Nothing here runs at import time: the CPU tests import every module, and
 the CPU path (the kernels' plain versions) never needs ``nvcc``.

@@ -48,6 +48,7 @@ _LIB = "decode_attention"
 SPLIT_ROWS = 256
 # query heads one block of the kernel takes at most (csrc MAX_CHUNK)
 MAX_CHUNK = 8
+HEAD_DIMS = (64, 128, 256, 384, 512)  # the head dims the kernel is built for (csrc Cfg<HD>)
 
 _fns: dict[bool, object] = {}
 _tickets: dict[tuple, torch.Tensor] = {}
@@ -293,13 +294,14 @@ def decode_rows_counts(q, k_new, v_new, k_pool, v_pool, lengths, page_table, *, 
 
 
 def check_shape(num_heads: int, num_kv_heads: int, head_dim: int) -> None:
-    """Raise unless the kernel takes these heads: head dim 64, 128 or 256 (the
-    JAX decode path's ``hd % 128 == 0`` and 64) and any GQA group
+    """Raise unless the kernel takes these heads: head dim 64, 128, 256, 384
+    or 512 (the JAX decode path's ``hd % 128 == 0`` and 64, up to the widest
+    ring and accumulators an SM holds: ``HEAD_DIMS``) and any GQA group
     (``num_heads`` a multiple of ``num_kv_heads``), as the JAX kernel does.
     The wrapper's only check on the heads; launches nothing."""
-    if (head_dim not in (64, 128, 256) or num_kv_heads <= 0 or num_heads <= 0
+    if (head_dim not in HEAD_DIMS or num_kv_heads <= 0 or num_heads <= 0
             or num_heads % num_kv_heads):
-        raise ValueError(f"decode_paged_attention takes head_dim 64/128/256 and num_heads a "
+        raise ValueError(f"decode_paged_attention takes head_dim 64/128/256/384/512 and num_heads a "
                          f"multiple of num_kv_heads; got head_dim {head_dim}, heads "
                          f"{num_heads}/{num_kv_heads}")
 
@@ -347,6 +349,8 @@ def _launch(q, k_new, v_new, k_pool, v_pool, lengths, page_table, sinks, window,
         args += (rows.data_ptr(),)
     _build.check(KERNEL, _kernel(rows is not None)(*args))
     _build.count(KERNEL, window, sinks is not None)
+    if hd > 256:  # the rings of Cfg<384> and Cfg<512>: counted apart as well
+        _build.launches[f"{KERNEL}/wide"] += 1
     if chunks > 1:  # a group cut into chunks (GLM-4.5's 12): counted apart as well
         _build.launches[f"{KERNEL}/chunked"] += 1
     return out, k_pool, v_pool

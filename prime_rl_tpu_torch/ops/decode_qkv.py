@@ -240,8 +240,8 @@ def _launch(x, norm_w, wq, wk, wv, positions, inv_freq, *, num_heads, num_kv_hea
     nh, nkv, hd = num_heads, num_kv_heads, head_dim
     if rot is None:
         rot = 2 * inv_freq.shape[0]
-    if hd not in (64, 128) or d % 16 or rot % 2 or rot > hd:
-        raise ValueError(f"decode_qkv_prep takes head_dim 64 or 128, hidden % 16 == 0 and an "
+    if hd not in (32, 64, 128) or d % 16 or rot % 2 or rot > hd:
+        raise ValueError(f"decode_qkv_prep takes head_dim 32, 64 or 128, hidden % 16 == 0 and an "
                          f"even rot <= head_dim; got {hd}, {d}, {rot}")
     bf = torch.bfloat16
     _build.require(x, "x", bf)

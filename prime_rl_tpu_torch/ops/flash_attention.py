@@ -20,13 +20,16 @@ no key gets output 0 and lse -1e30 (with a sink: lse = the sink), gradient 0,
 and adds nothing to dk/dv. The sinks' gradient, ``-sum exp(sink - lse) *
 delta`` over batch and rows, is a plain PyTorch reduction beside the kernels,
 as it is an XLA reduction beside the TPU kernels. On the card the kernels take
-bf16 tensors of any head dim up to 256: they are built for 64, 128 and 256
-(``HEAD_DIMS``; 256 is Qwen3-Next's), and the wrappers zero-pad any other
-head dim to the next of these (``padded_head_dim``; the JAX kernels set no
-limit, the debug specs' 32 among them). That is exact: a zero column adds 0
-to every score, so out, lse and delta do not change, the scale is the true
-head dim's, and the padded columns of out, dq, dk and dv are dropped. Above
-256 a kernel's tiles no longer fit the SM's shared memory, and they raise. A
+bf16 tensors of any head dim up to 512: they are built for 64, 128, 256,
+384 and 512 (``HEAD_DIMS``; 256 is Qwen3-Next's), and the wrappers zero-pad
+any other head dim to the next of these (``padded_head_dim``; the JAX
+kernels set no limit, the debug specs' 32 among them). That is exact: a zero
+column adds 0 to every score, so out, lse and delta do not change, the scale
+is the true head dim's, and the padded columns of out, dq, dk and dv are
+dropped. At 384 and 512 the kernels are plain SIMT forms in the same sources
+(small tiles, f32 products: ``fwd_tiles``, ``dq_tiles``, ``dkv_tiles``);
+above 512 they raise (the tiles and accumulators of even those forms stop
+fitting the SM's shared memory and registers). A
 length that is no multiple of the
 tile is masked inside the kernels; windows run banded (tiles outside the
 band are never loaded). ``flash_attention_with_lse`` (the cross-block form)
@@ -61,7 +64,9 @@ import torch
 from prime_rl_tpu_torch.ops import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128, 256)  # the head dims the kernels are built for
+HEAD_DIMS = (64, 128, 256, 384, 512)  # the head dims the kernels are built for
+WIDE_TILES = (16, 32)  # K1's and K2a's (q tile, kv tile) at 384 and 512 (the plain forms)
+WIDE_DKV_TILES = (32, 16)  # K2b's (q tile, kv tile) there
 TILE = 128  # K1's q and kv tile at head dim 64 and 128 (Tiles<HD> in csrc/flash_attn_fwd.cu)
 DQ_TILES = (128, 64)  # K2a's q tile and kv tile there (DqCfg<HD> in csrc/flash_attn_bwd.cu)
 DKV_TILE = 64  # K2b's kv tile and q tile at every head dim (KV_BK = KV_BQ)
@@ -76,30 +81,45 @@ _bwd_fns: dict = {}
 
 def padded_head_dim(head_dim: int) -> int:
     """The built head dim the kernels run ``head_dim`` at: the least of
-    ``HEAD_DIMS`` that holds it (0 above 256)."""
+    ``HEAD_DIMS`` that holds it (0 above 512)."""
     return next((w for w in HEAD_DIMS if head_dim <= w), 0)
 
 
 def fwd_tiles(head_dim: int) -> tuple[int, int]:
     """K1's (q tile, kv tile) at ``head_dim``: 128 x 128, or 64 x 64 where it
     runs at 256, one consumer warpgroup holding a 64-row item's output
-    accumulator."""
-    return (64, 64) if padded_head_dim(head_dim) == 256 else (TILE, TILE)
+    accumulator; 16 x 32 in the plain form at 384 and 512."""
+    w = padded_head_dim(head_dim)
+    return WIDE_TILES if w > 256 else (64, 64) if w == 256 else (TILE, TILE)
 
 
 def dq_tiles(head_dim: int) -> tuple[int, int]:
     """K2a's (q tile, kv tile) at ``head_dim``: 128 x 64, or 64 x 64 where it
-    runs at 256."""
-    return (64, 64) if padded_head_dim(head_dim) == 256 else DQ_TILES
+    runs at 256, 16 x 32 at 384 and 512."""
+    w = padded_head_dim(head_dim)
+    return WIDE_TILES if w > 256 else (64, 64) if w == 256 else DQ_TILES
+
+
+def dkv_tiles(head_dim: int) -> tuple[int, int]:
+    """K2b's (q tile, kv tile) at ``head_dim``: 64 x 64, or 32 x 16 in the
+    plain form at 384 and 512."""
+    return WIDE_DKV_TILES if padded_head_dim(head_dim) > 256 else (DKV_TILE, DKV_TILE)
 
 
 def check_head_dim(name: str, head_dim: int, num_heads: int, num_kv_heads: int) -> None:
-    """Raise unless the kernels take these heads: head dim 1 to 256 (padded
+    """Raise unless the kernels take these heads: head dim 1 to 512 (padded
     to the next of ``HEAD_DIMS``) and ``num_heads`` a multiple of
     ``num_kv_heads``."""
     if not 0 < head_dim <= HEAD_DIMS[-1] or num_kv_heads <= 0 or num_heads % num_kv_heads:
-        raise ValueError(f"{name} takes head_dim up to 256 and NH % NKV == 0, "
+        raise ValueError(f"{name} takes head_dim up to {HEAD_DIMS[-1]} and NH % NKV == 0, "
                          f"got head_dim {head_dim}, heads {num_heads}/{num_kv_heads}")
+
+
+def count_wide(kernel: str, head_dim: int) -> None:
+    """A launch of the plain form (head dim 384 or 512) counts under
+    ``<kernel>/wide`` as well."""
+    if head_dim > 256:
+        _build.launches[f"{kernel}/wide"] += 1
 
 
 def _pad_last(x: torch.Tensor, width: int) -> torch.Tensor:
@@ -284,6 +304,7 @@ def _fwd_cuda(q, k, v, seg_q, seg_kv, causal: bool, scale: float, window: int = 
     fn = _kernel(tiles is not None)
     _build.check(KERNEL, fn(*args) if tiles is None else fn(*args, tiles.data_ptr()))
     _build.count(KERNEL, window, sinks is not None)
+    count_wide(KERNEL, hd)
     return out, lse
 
 
@@ -414,21 +435,23 @@ def flash_attention_dq(q, k, v, seg_q, seg_kv, lse, delta, do, causal: bool, sca
     fn = _bwd_kernels(tiles is not None)[0]
     _build.check(KERNEL_DQ, fn(*args) if tiles is None else fn(*args, tiles.data_ptr()))
     _build.count(KERNEL_DQ, window)
+    count_wide(KERNEL_DQ, hd)
     return dq
 
 
 def flash_attention_dkv(q, k, v, seg_q, seg_kv, lse, delta, do, causal: bool, scale: float,
                         window: int = 0, tiles=None):
     """K2b on CUDA tensors: (dk, dv) [B, Lk, NKV, HD] bf16, the GQA group
-    summed inside the kernel. ``tiles`` (int32 [B, NKV, ceil(Lk / 64), 2], or
-    None) receives each kv tile's visited and candidate q tiles (of one head:
-    every head of the group visits the same)."""
+    summed inside the kernel. ``tiles`` (int32 [B, NKV, ceil(Lk / bk), 2]
+    with ``bk`` of ``dkv_tiles``, or None) receives each kv tile's visited and
+    candidate q tiles (of one head: every head of the group visits the
+    same)."""
     b, lq, lk, nh, nkv, hd = _check_bwd_args(q, k, v, seg_q, seg_kv, lse, delta, do)
     if hd not in HEAD_DIMS:
         return bwd_padded(flash_attention_dkv, q, k, v, seg_q, seg_kv, lse, delta, do, causal,
                           scale, window, tiles)
     if tiles is not None:
-        _build.require(tiles, "tiles", torch.int32, (b, nkv, -(-lk // DKV_TILE), 2))
+        _build.require(tiles, "tiles", torch.int32, (b, nkv, -(-lk // dkv_tiles(hd)[1]), 2))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), seg_q.data_ptr(),
             seg_kv.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
@@ -436,6 +459,7 @@ def flash_attention_dkv(q, k, v, seg_q, seg_kv, lse, delta, do, causal: bool, sc
     fn = _bwd_kernels(tiles is not None)[1]
     _build.check(KERNEL_DKV, fn(*args) if tiles is None else fn(*args, tiles.data_ptr()))
     _build.count(KERNEL_DKV, window)
+    count_wide(KERNEL_DKV, hd)
     return dk, dv
 
 
@@ -443,8 +467,8 @@ def flash_bwd_tile_counts(q, k, v, seg_q, seg_kv, lse, delta, do, causal: bool,
                           window: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """(K2a's int32 [B, NH, nq, 2], K2b's int32 [B, NKV, nk, 2]): the tiles
     each kernel visited and its candidates, as the kernels counted them in one
-    launch each on these inputs (K2a: kv tiles of 64 for each q tile of
-    ``dq_tiles``; K2b: q tiles of 64 for each kv tile of 64). Only the kernels count: CPU
+    launch each on these inputs (K2a: kv tiles for each q tile of
+    ``dq_tiles``; K2b: q tiles for each kv tile of ``dkv_tiles``). Only the kernels count: CPU
     tensors raise (``flash_tiles_visited`` and ``flash_bwd_dkv_tiles_visited``
     are the rules' plain mirrors)."""
     if not q.is_cuda:
@@ -454,7 +478,7 @@ def flash_bwd_tile_counts(q, k, v, seg_q, seg_kv, lse, delta, do, causal: bool,
     lk, nkv = k.shape[1], k.shape[2]
     dq_counts = torch.full((b, nh, -(-lq // dq_tiles(hd)[0]), 2), -1, dtype=torch.int32,
                            device=q.device)
-    dkv_counts = torch.full((b, nkv, -(-lk // DKV_TILE), 2), -1, dtype=torch.int32,
+    dkv_counts = torch.full((b, nkv, -(-lk // dkv_tiles(hd)[1]), 2), -1, dtype=torch.int32,
                             device=q.device)
     args = (q, k, v, seg_q, seg_kv, lse, delta, do, causal, hd ** -0.5, window)
     flash_attention_dq(*args, tiles=dq_counts)

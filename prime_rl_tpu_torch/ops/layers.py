@@ -23,7 +23,7 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None,
                eps: float = 1e-6) -> torch.Tensor:
     """LayerNorm (mean-subtracting, affine) in fp32 with cast back: the DSA
-    indexer's k-norm."""
+    indexer's k-norm and the vision tower's norms."""
     dtype = x.dtype
     xf = x.float()
     mean = xf.mean(dim=-1, keepdim=True)
@@ -80,20 +80,22 @@ def yarn_rope_parameters(
 
 def apply_rope(
     x: torch.Tensor,  # [B, L, N, HD]
-    position_ids: torch.Tensor,  # [B, L] int
+    position_ids: torch.Tensor,  # [B, L] int, or [B, L, rot//2] per frequency
     inv_freq: torch.Tensor,  # [rot//2]
     scaling: float = 1.0,  # YaRN attention factor on cos/sin
 ) -> torch.Tensor:
     """Rotary embedding, half-split layout (HF ``rotate_half``). Partial
     rotary: an ``inv_freq`` shorter than head_dim//2 rotates only the leading
-    ``2*len(inv_freq)`` dims; the tail passes through. Per-frequency (mRoPE)
-    positions are not part of this slice."""
-    if position_ids.dim() != 2:
-        raise NotImplementedError("per-frequency (mRoPE) positions are not ported yet")
+    ``2*len(inv_freq)`` dims; the tail passes through. mRoPE (qwen3_vl):
+    ``position_ids`` of [B, L, rot//2] give each frequency its own position
+    (its t, h or w grid coordinate), and the angles are elementwise."""
     dtype = x.dtype
     rot = 2 * inv_freq.shape[0]
     hd = x.shape[-1]
-    angles = position_ids[..., None].float() * inv_freq.float()  # [B, L, rot//2]
+    if position_ids.dim() == 3:  # [B, L, rot//2] per-frequency positions
+        angles = position_ids.float() * inv_freq.float()
+    else:
+        angles = position_ids[..., None].float() * inv_freq.float()  # [B, L, rot//2]
     cos = (torch.cos(angles) * scaling)[:, :, None, :]
     sin = (torch.sin(angles) * scaling)[:, :, None, :]
     xf = x.float()

@@ -33,8 +33,15 @@ of do to 512 (``fwd_padded``, ``bwd_padded``), then slicing out to ``v_dim``
 and dq and dkv to ``Dq``. That is exact: the zero columns add 0 to every
 score, the kernels' V is ``kv[:, :512]``, whose first ``v_dim`` columns are
 the real V, and the zero columns of do add 0 to dP and to dkv. Wider widths
-raise (``check_widths``); the TPU version's quiet fall-back to the XLA form
-is not carried over. A kernel block holds one group of ``HEADS`` = 64
+go to the wide forms: any ``Dq <= 1152`` and ``v_dim <= 1024`` (twice the
+MLA widths; ``v_dim % 128 == 0``) zero-padded the same way to 1152/1024
+(``built_widths``), plain SIMT kernels in the same source (groups of
+8 heads, no head padding; tiles of ``WIDE_FWD_TILE`` and
+``WIDE_BWD_TILE`` slots; each slot's dkvg row summed over all heads and
+rounded once, the plain version's rounding). Wider widths raise
+(``check_widths``: the wide forms' shared memory and registers end there);
+the TPU version's quiet fall-back to the XLA form is not carried over. A
+576-wide kernel block holds one group of ``HEADS`` = 64
 heads: the wrappers pad q (and do) with zero heads to ``Hp = ceil(H / 64) *
 64`` and launch once a group, the padded heads' rows dropped
 (``sparse_mla_grouped_reference`` is the plain mirror of that decomposition). The backward runs over chunks of queries: K5b writes
@@ -69,7 +76,9 @@ KERNEL_FWD = "sparse_mla_fwd"
 KERNEL_BWD = "sparse_mla_bwd"
 KERNEL_REDUCE = "sparse_mla_dkv_reduce"
 HEADS, DQ, DV = 64, 576, 512  # heads a kernel block (a group) and the widths compiled for
-BWD_SLOTS = 1 << 20  # (query, slot) pairs per backward launch: a 1.2 GB dkvg buffer
+DQ_WIDE, DV_WIDE = 1152, 1024  # the wide forms' widths
+WIDE_FWD_TILE, WIDE_BWD_TILE = 16, 8  # slots a tile of the wide K5a and K5b
+BWD_SLOTS = 1 << 20  # (query, slot) pairs per 576-wide backward launch: a 1.2 GB dkvg buffer
 BWD_TILE = 32  # slots a K5b tile
 FWD_TILE = 64  # slots a K5a tile (the kernel's k5a::BT)
 
@@ -88,16 +97,21 @@ def _kernels():
         bwd.argtypes = [p] * 8 + [i] * 7 + [f, p]
         bwd_tiles.argtypes = [p] * 8 + [i] * 7 + [f, p, p]
         red.argtypes = [p] * 4 + [i] * 2 + [p]
-        for fn in (fwd, fwd_tiles, bwd, bwd_tiles, red):
+        fwd_w, bwd_w = lib.sparse_mla_fwd_wide, lib.sparse_mla_bwd_wide
+        fwd_w.argtypes = [p] * 5 + [i] * 4 + [f, p, p]
+        bwd_w.argtypes = [p] * 9 + [i] * 4 + [f, p, p]
+        for fn in (fwd, fwd_tiles, bwd, bwd_tiles, red, fwd_w, bwd_w):
             fn.restype = i
-        _fns = (fwd, bwd, red, bwd_tiles, fwd_tiles)
+        _fns = (fwd, bwd, red, bwd_tiles, fwd_tiles, fwd_w, bwd_w)
     return _fns
 
 
-def bwd_chunk(S: int, T: int) -> int:
-    """Queries per backward launch: a multiple of 8, so that every chunk's
-    slice of the indices starts on a 32-byte boundary."""
-    return max(1, min(S, max(8, BWD_SLOTS // max(T, 1) // 8 * 8)))
+def bwd_chunk(S: int, T: int, width: int = DQ) -> int:
+    """Queries per backward launch: as many as keep the dkvg buffer of
+    ``width``-wide rows within ``BWD_SLOTS`` 576-wide rows' bytes, a multiple
+    of 8, so that every chunk's slice of the indices starts on a 32-byte
+    boundary."""
+    return max(1, min(S, max(8, BWD_SLOTS * DQ // width // max(T, 1) // 8 * 8)))
 
 
 def bwd_launches(S: int, T: int, H: int = HEADS) -> int:
@@ -197,11 +211,14 @@ def sparse_mla_grouped_reference(q, kv, indices, sm_scale: float, v_dim: int, do
     with zeros; from the given ``out`` and ``lse``, where the caller has the
     forward's), each query chunk of ``bwd_chunk`` tokens in ascending group
     order adding its rows, rounded to kv's dtype a group, into one f32 dkv,
-    rounded once, as K5b and the reduction do."""
+    rounded once, as K5b and the reduction do. At the wide widths
+    (``built_widths``) the kernels take all H heads at once, unpadded: one
+    group, each slot's row over every head."""
     S, H, _ = q.shape
-    Hp = padded_heads(H)
+    wide = built_widths(q.shape[-1], v_dim)[0] == DQ_WIDE
+    Hp = H if wide else padded_heads(H)
     qp = _pad_heads(q, Hp)
-    groups = [slice(g, g + HEADS) for g in range(0, Hp, HEADS)]
+    groups = [slice(0, H)] if wide else [slice(g, g + HEADS) for g in range(0, Hp, HEADS)]
     if out is None or lse is None:
         fwd = [sparse_mla_attention_reference(qp[:, g], kv, indices, sm_scale, v_dim)
                for g in groups]
@@ -214,7 +231,7 @@ def sparse_mla_grouped_reference(q, kv, indices, sm_scale: float, v_dim: int, do
     lsep = _pad_heads(lse, Hp)
     dkv = torch.zeros(kv.shape, dtype=torch.float32, device=kv.device)
     dq = torch.empty_like(qp)
-    chunk = bwd_chunk(S, indices.shape[1])
+    chunk = bwd_chunk(S, indices.shape[1], DQ_WIDE if wide else DQ)
     for c0 in range(0, S, chunk):
         c = slice(c0, c0 + chunk)
         for g in groups:
@@ -243,13 +260,22 @@ def sparse_mla_bwd_tiles_visited(indices: torch.Tensor, Sk: int,
 
 def check_widths(H: int, Dq: int, v_dim: int) -> None:
     """Raise ValueError unless the wrappers take these widths: any ``H % 8 ==
-    0`` (the JAX kernel's condition on H), ``Dq <= 576`` and ``v_dim <= 512``
-    with ``v_dim % 128 == 0`` and ``v_dim <= Dq`` (the kernels run at 576/512,
-    the narrower widths zero-padded)."""
-    if (H <= 0 or H % 8 or not 0 < Dq <= DQ or not 0 < v_dim <= min(DV, Dq)
+    0`` (the JAX kernel's condition on H), ``Dq <= 1152`` and ``v_dim <=
+    1024`` with ``v_dim % 128 == 0`` and ``v_dim <= Dq`` (the kernels run at
+    576/512 or, wider, at 1152/1024: ``built_widths``; the narrower widths
+    zero-padded)."""
+    if (H <= 0 or H % 8 or not 0 < Dq <= DQ_WIDE or not 0 < v_dim <= min(DV_WIDE, Dq)
             or v_dim % 128):
-        raise ValueError(f"the sparse MLA kernels take H % 8 == 0, Dq <= {DQ} and v_dim <= "
-                         f"{DV} with v_dim % 128 == 0; got H = {H}, Dq = {Dq}, v_dim = {v_dim}")
+        raise ValueError(f"the sparse MLA kernels take H % 8 == 0, Dq <= {DQ_WIDE} and v_dim <= "
+                         f"{DV_WIDE} with v_dim % 128 == 0; got H = {H}, Dq = {Dq}, "
+                         f"v_dim = {v_dim}")
+
+
+def built_widths(Dq: int, v_dim: int) -> tuple[int, int]:
+    """The (Dq, Dv) the kernels run (Dq, v_dim) at: the MLA widths 576/512
+    where they hold it, else the wide forms' 1152/1024."""
+    return (DQ, DV) if Dq <= DQ and v_dim <= DV else (DQ_WIDE, DV_WIDE)
+
 
 
 def _pad_cols(x: torch.Tensor, width: int) -> torch.Tensor:
@@ -258,24 +284,26 @@ def _pad_cols(x: torch.Tensor, width: int) -> torch.Tensor:
 
 def fwd_padded(fwd, q, kv, indices, sm_scale: float, v_dim: int, **kw):
     """``fwd(q, kv, indices, sm_scale, v_dim, **kw) -> (out, lse)`` run at
-    the built widths: q and kv zero-padded to ``DQ`` columns, the call made
-    at ``v_dim = DV``, out sliced back to ``v_dim``."""
-    if (q.shape[-1], v_dim) == (DQ, DV):
+    the built widths (``built_widths``): q and kv zero-padded to their Dq
+    columns, the call made at their Dv, out sliced back to ``v_dim``."""
+    dq_b, dv_b = built_widths(q.shape[-1], v_dim)
+    if (q.shape[-1], v_dim) == (dq_b, dv_b):
         return fwd(q, kv, indices, sm_scale, v_dim, **kw)
-    out, lse = fwd(_pad_cols(q, DQ), _pad_cols(kv, DQ), indices, sm_scale, DV, **kw)
+    out, lse = fwd(_pad_cols(q, dq_b), _pad_cols(kv, dq_b), indices, sm_scale, dv_b, **kw)
     return out[..., :v_dim].contiguous(), lse
 
 
 def bwd_padded(bwd, q, kv, indices, out, lse, do, sm_scale: float, v_dim: int, **kw):
     """``bwd(q, kv, indices, out, lse, do, sm_scale, v_dim, **kw) -> (dq,
-    dkv)`` run at the built widths: q and kv zero-padded to ``DQ`` columns,
-    out and do to ``DV`` (rowsum(out * do) is unchanged), dq and dkv sliced
-    back to q's width."""
+    dkv)`` run at the built widths (``built_widths``): q and kv zero-padded
+    to their Dq columns, out and do to their Dv (rowsum(out * do) is
+    unchanged), dq and dkv sliced back to q's width."""
     dq_w = q.shape[-1]
-    if (dq_w, v_dim) == (DQ, DV):
+    dq_b, dv_b = built_widths(dq_w, v_dim)
+    if (dq_w, v_dim) == (dq_b, dv_b):
         return bwd(q, kv, indices, out, lse, do, sm_scale, v_dim, **kw)
-    dq, dkv = bwd(_pad_cols(q, DQ), _pad_cols(kv, DQ), indices, _pad_cols(out, DV), lse,
-                  _pad_cols(do, DV), sm_scale, DV, **kw)
+    dq, dkv = bwd(_pad_cols(q, dq_b), _pad_cols(kv, dq_b), indices, _pad_cols(out, dv_b), lse,
+                  _pad_cols(do, dv_b), sm_scale, dv_b, **kw)
     return dq[..., :dq_w].contiguous(), dkv[..., :dq_w].contiguous()
 
 
@@ -294,6 +322,8 @@ def sparse_mla_fwd(q, kv, indices, sm_scale: float, v_dim: int, tiles=None):
     Given ``tiles`` (int32 [S, 2]), the launches also write each token's tiles
     of ``FWD_TILE`` slots visited and its candidates there."""
     S, Sk, T = _check_args(q, kv, indices, v_dim)
+    if (q.shape[-1], v_dim) == (DQ_WIDE, DV_WIDE):
+        return _fwd_wide(q, kv, indices, sm_scale, tiles)
     if (q.shape[-1], v_dim) != (DQ, DV):
         return fwd_padded(sparse_mla_fwd, q, kv, indices, sm_scale, v_dim, tiles=tiles)
     H = q.shape[1]
@@ -316,11 +346,28 @@ def sparse_mla_fwd(q, kv, indices, sm_scale: float, v_dim: int, tiles=None):
     return out[:, :H].contiguous(), lse[:, :H].contiguous()
 
 
+def _fwd_wide(q, kv, indices, sm_scale: float, tiles=None):
+    """The wide K5a at Dq 1152, Dv 1024: one launch for all H heads."""
+    S, H, _ = q.shape
+    out = torch.empty((S, H, DV_WIDE), dtype=q.dtype, device=q.device)
+    lse = torch.empty((S, H), dtype=torch.float32, device=q.device)
+    if tiles is not None:
+        _build.require(tiles, "tiles", torch.int32, (S, 2))
+    _build.check(KERNEL_FWD, _kernels()[5](
+        q.data_ptr(), kv.data_ptr(), indices.data_ptr(), out.data_ptr(), lse.data_ptr(), S,
+        kv.shape[0], indices.shape[1], H, float(sm_scale), _build.stream_ptr(q),
+        None if tiles is None else tiles.data_ptr()))
+    _build.count(KERNEL_FWD)
+    _build.launches[f"{KERNEL_FWD}/wide"] += 1
+    return out, lse
+
+
 def sparse_mla_fwd_tile_counts(q, kv, indices, sm_scale: float, v_dim: int) -> torch.Tensor:
-    """int32 [S, 2]: the tiles of ``FWD_TILE`` slots K5a visited for each token
-    and its candidates, as the kernel counted them in one launch on these
-    inputs. Only the kernel counts: CPU tensors raise (the rule's plain mirror
-    is ``sparse_mla_bwd_tiles_visited(indices, Sk, FWD_TILE)``)."""
+    """int32 [S, 2]: the tiles of ``FWD_TILE`` slots (``WIDE_FWD_TILE`` at
+    the wide widths) K5a visited for each token and its candidates, as the
+    kernel counted them in one launch on these inputs. Only the kernel
+    counts: CPU tensors raise (the rule's plain mirror is
+    ``sparse_mla_bwd_tiles_visited(indices, Sk, FWD_TILE)``)."""
     if not q.is_cuda:
         raise ValueError("sparse_mla_fwd_tile_counts: the counts come from the kernel, which "
                          "takes CUDA tensors")
@@ -336,9 +383,12 @@ def sparse_mla_dkv_reduce(dkvg, order, seg, dkv):
     _build.require(dkvg, "dkvg", torch.bfloat16)
     _build.require(order, "order", torch.int64)
     _build.require(seg, "seg", torch.int32, (Sk + 1,))
-    _build.require(dkv, "dkv", torch.float32, (Sk, DQ))
+    width = dkv.shape[1]
+    if width not in (DQ, DQ_WIDE):
+        raise ValueError(f"dkv: the reduction runs at width {DQ} or {DQ_WIDE}, got {width}")
+    _build.require(dkv, "dkv", torch.float32, (Sk, width))
     _build.check(KERNEL_REDUCE, _kernels()[2](
-        dkvg.data_ptr(), order.data_ptr(), seg.data_ptr(), dkv.data_ptr(), Sk, DQ,
+        dkvg.data_ptr(), order.data_ptr(), seg.data_ptr(), dkv.data_ptr(), Sk, width,
         _build.stream_ptr(dkv)))
     _build.launches[KERNEL_REDUCE] += 1
 
@@ -396,6 +446,8 @@ def sparse_mla_bwd(q, kv, indices, out, lse, do, sm_scale: float, v_dim: int, ti
     both bf16. Given ``tiles`` (int32 [S, 2]), each chunk's K5b launches also
     write its tokens' tile counts there."""
     S, Sk, T = _check_args(q, kv, indices, v_dim)
+    if (q.shape[-1], v_dim) == (DQ_WIDE, DV_WIDE):
+        return _bwd_wide(q, kv, indices, out, lse, do, sm_scale, tiles)
     if (q.shape[-1], v_dim) != (DQ, DV):
         return bwd_padded(sparse_mla_bwd, q, kv, indices, out, lse, do, sm_scale, v_dim,
                           tiles=tiles)
@@ -421,11 +473,44 @@ def sparse_mla_bwd(q, kv, indices, out, lse, do, sm_scale: float, v_dim: int, ti
     return dq, dkv.to(kv.dtype)
 
 
+def _bwd_wide(q, kv, indices, out, lse, do, sm_scale: float, tiles=None):
+    """The wide K5b and the dkv reduction at Dq 1152, Dv 1024, chunk by chunk:
+    one K5b launch a chunk (all heads, each slot's row over every head), then
+    the reduction into one f32 dkv."""
+    S, H, _ = q.shape
+    Sk, T = kv.shape[0], indices.shape[1]
+    do = do.contiguous()
+    _build.require(do, "do", torch.bfloat16, (S, H, DV_WIDE))
+    _build.require(lse, "lse", torch.float32, (S, H))
+    if tiles is not None:
+        _build.require(tiles, "tiles", torch.int32, (S, 2))
+    delta = (out.float() * do).sum(dim=-1).contiguous()
+    dq = torch.empty_like(q)
+    dkv = torch.zeros((Sk, DQ_WIDE), dtype=torch.float32, device=q.device)
+    chunk = bwd_chunk(S, T, DQ_WIDE)
+    dkvg = torch.empty((chunk, T, DQ_WIDE), dtype=torch.bfloat16, device=q.device)
+    dq32 = torch.empty((chunk, H, DQ_WIDE), dtype=torch.float32, device=q.device)
+    for c0 in range(0, S, chunk):
+        sl = slice(c0, min(c0 + chunk, S))
+        n = sl.stop - c0
+        dq32.zero_()
+        order, seg = slot_order(indices[sl], Sk)
+        _build.check(KERNEL_BWD, _kernels()[6](
+            q[sl].data_ptr(), kv.data_ptr(), indices[sl].data_ptr(), do[sl].data_ptr(),
+            lse[sl].data_ptr(), delta[sl].data_ptr(), dq[sl].data_ptr(), dq32.data_ptr(),
+            dkvg.data_ptr(), n, Sk, T, H, float(sm_scale), _build.stream_ptr(q),
+            None if tiles is None else tiles[sl].data_ptr()))
+        _build.count(KERNEL_BWD)
+        _build.launches[f"{KERNEL_BWD}/wide"] += 1
+        sparse_mla_dkv_reduce(dkvg, order, seg, dkv)
+    return dq, dkv.to(kv.dtype)
+
+
 def sparse_mla_bwd_tile_counts(q, kv, indices, out, lse, do, sm_scale: float,
                                v_dim: int) -> torch.Tensor:
-    """int32 [S, 2]: the tiles of ``BWD_TILE`` slots K5b visited for each token
-    and its candidates, as the kernel counted them in one backward call on
-    these inputs. Only the kernel counts: CPU tensors raise
+    """int32 [S, 2]: the tiles of ``BWD_TILE`` slots (``WIDE_BWD_TILE`` at
+    the wide widths) K5b visited for each token and its candidates, as the
+    kernel counted them in one backward call on these inputs. Only the kernel counts: CPU tensors raise
     (``sparse_mla_bwd_tiles_visited`` is the rule's plain mirror)."""
     if not q.is_cuda:
         raise ValueError("sparse_mla_bwd_tile_counts: the counts come from the kernel, which "

@@ -48,9 +48,20 @@ Architecture:
   prefix cache's salt holds the adapter and its load generation, so that
   pages computed under an adapter are reused only under the same load of it.
 
-Constrained decoding, multimodal inputs, P/D KV extraction/injection and the
-host KV tier are later slices: requests that ask for them raise
-``NotImplementedError``.
+- Vision (qwen3_vl families): a request's ``mm`` (pixels and
+  ``image_grid_thw``) is prepared on the host at admission (``prepare_mm``:
+  the patches padded to a bucket of ``MM_BUCKETS``, the image slots, the
+  per-frequency mRoPE positions) and run through the tower, and the
+  prompt's single-shot prefill takes the merged embeddings and DeepStack
+  features. Its slot keeps ``pos_delta`` (max mRoPE position + 1 - prompt
+  length) on the device (``_d_pos_delta``), which the decode adds to the
+  rope position. An mm request never joins a batched prefill, never reuses a
+  cached prefix (identical image-token runs would share pages across
+  different images), and is rejected when longer than the largest bucket or
+  sent to a family without a tower.
+
+Constrained decoding, P/D KV extraction/injection and the host KV tier are
+later slices: requests that ask for them raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -150,6 +161,8 @@ class _Request:
     on_token: "callable | None" = None
     request_id: str | None = None
     aborted: bool = False
+    # VLM inputs: {"pixel_values": [P, patch_dim] f32, "image_grid_thw": [n, 3]}
+    mm: dict | None = None
 
 
 @dataclass
@@ -182,6 +195,50 @@ def _bucket(n: int, buckets: list[int]) -> int:
         if n <= b:
             return b
     raise ValueError(f"prompt length {n} exceeds max bucket {buckets[-1]}")
+
+MM_BUCKETS = (256, 512, 1024, 2048, 4096, 8192, 16384, 32768)  # the patch buffer's sizes
+
+
+def prepare_mm(params: dict, spec, mm: dict, prompt: list[int], lpad: int, to_dev,
+               compute_dtype) -> tuple[dict, int]:
+    """The host prep and the vision tower of one VLM prompt: (the prefill's
+    ``mm`` tensors on the device, the prompt's rope-position offset for
+    decode). The patches are padded to a bucket, whose pad rows carry
+    segment 0; ``to_dev`` moves a host array to the device."""
+    from prime_rl_tpu_torch.models.vision import (
+        mrope_dim_select,
+        prep_image_slots,
+        prep_mrope_position_ids,
+        prep_patch_metadata,
+        vision_forward,
+    )
+
+    vspec = spec.vision
+    n = len(prompt)
+    grid = np.asarray(mm["image_grid_thw"], np.int64)
+    pixels = np.asarray(mm["pixel_values"], np.float32)
+    pb = _bucket(max(pixels.shape[0], 1), list(MM_BUCKETS))
+    meta = prep_patch_metadata(grid, vspec, pad_to=pb)
+    if pixels.shape[0] < pb:
+        pixels = np.pad(pixels, ((0, pb - pixels.shape[0]), (0, 0)))
+    ids_np = np.asarray(prompt, np.int32)
+    mpos = prep_mrope_position_ids(ids_np, grid, vspec.spatial_merge_size,
+                                   spec.image_token_id, spec.video_token_id)  # [3, n]
+    pos_delta = int(mpos.max()) + 1 - n
+    rot_half = int(spec.head_dim * spec.partial_rotary_factor) // 2
+    sel = mrope_dim_select(tuple(spec.mrope_section), rot_half)
+    pf = np.pad(mpos[sel].T.astype(np.int32), ((0, lpad - n), (0, 0)))  # [lpad, rot//2]
+    slots = np.full((lpad,), -1, np.int32)
+    slots[:n] = prep_image_slots(ids_np, spec.image_token_id, spec.video_token_id,
+                                 max_slots=int(grid.prod(axis=1).sum()) // vspec.merge_unit)
+    with torch.no_grad():
+        merged, ds = vision_forward(
+            params["vision"], vspec, to_dev(pixels), to_dev(meta["seg_ids"]),
+            to_dev(meta["pos_idx"]), to_dev(meta["pos_w"]), to_dev(meta["rope_coords"]),
+            compute_dtype=compute_dtype, remat="none")
+    out = {"vis_embed": merged, "ds_feats": ds, "img_slot": to_dev(slots)[None],
+           "positions": to_dev(pf)[None]}
+    return out, pos_delta
 
 
 class Engine:
@@ -278,6 +335,8 @@ class Engine:
         self._d_limit = torch.zeros((s,), dtype=torch.int32, device=dev)
         self._d_stop = torch.full((s, self.MAX_STOP), -1, dtype=torch.int64, device=dev)
         self._d_adapter = torch.zeros((s,), dtype=torch.int64, device=dev)  # bank rows
+        # VLM: each slot's rope-position offset (mRoPE decode continuation)
+        self._d_pos_delta = torch.zeros((s,), dtype=torch.int32, device=dev)
         self._d_table = self._to_dev(self.slots.page_table)
         self._table_dirty = False
         self._gen = torch.Generator(device=dev)
@@ -424,13 +483,16 @@ class Engine:
     # -- public API ---------------------------------------------------------
 
     def submit(self, prompt: list[int], params: SamplingParams | None = None,
-               on_token=None, request_id: str | None = None) -> Future:
+               on_token=None, request_id: str | None = None, mm: dict | None = None) -> Future:
+        """Queue one request. ``mm`` (a VLM prompt): ``{"pixel_values": [P,
+        patch_dim] f32, "image_grid_thw": [n, 3]}``, the HF processor's
+        outputs for the images whose vision tokens the prompt holds."""
         sp = params or SamplingParams()
         unsupported = [name for name, on in (
             ("constrained decoding", sp.constrained), ("P/D KV extraction", sp.extract_kv)) if on]
         if unsupported:
             raise NotImplementedError(f"not ported yet: {', '.join(unsupported)}")
-        req = _Request(list(prompt), sp, Future(), on_token, request_id=request_id)
+        req = _Request(list(prompt), sp, Future(), on_token, request_id=request_id, mm=mm)
         with self._lock:
             self.pending.append(req)
             if request_id is not None:
@@ -534,6 +596,7 @@ class Engine:
         sp = req.params
         n = max(len(req.prompt), 1)
         return (not req.aborted and not sp.prompt_logprobs and sp.max_tokens >= 1
+                and req.mm is None
                 # an explicit seed takes the single path: the batched pass
                 # folds all rows' seeds into one generator
                 and sp.seed is None
@@ -645,6 +708,7 @@ class Engine:
         self._d_limit[idx] = self._to_dev(limits)
         self._d_stop[idx] = self._to_dev(stop_rows)
         self._d_adapter[idx] = row
+        self._d_pos_delta[idx] = 0
 
     def _admit_pending(self) -> bool:
         """Admit every pending request that fits right now. The head never
@@ -687,6 +751,17 @@ class Engine:
                         f"tokens exceeds the largest bucket {self.buckets[-1]}"))
                     progress = True
                     break
+                if req.mm is not None and n > self.buckets[-1]:
+                    self._reject(req, ValueError(
+                        f"multimodal prompts need a single-shot prefill; prompt of {n} "
+                        f"tokens exceeds the largest bucket {self.buckets[-1]}"))
+                    progress = True
+                    break
+                if req.mm is not None and self.spec.vision is None:
+                    self._reject(req, ValueError(
+                        f"model family {self.spec.family!r} takes no multimodal inputs"))
+                    progress = True
+                    break
                 if i > 0 and self._hol_strikes > self.HOL_MAX_STRIKES:
                     break  # head has waited long enough: stop skipping it
                 if self._try_admit(req):
@@ -713,7 +788,9 @@ class Engine:
                 "state_cache_mb > 0 and no prompt_logprobs)"))
             return True
         hashes: list[int] = []
-        if self.slots.cache is not None and not sp.prompt_logprobs:
+        # mm requests skip prefix reuse: identical image-pad token runs would
+        # share pages across different images (the hash sees only the ids)
+        if self.slots.cache is not None and not sp.prompt_logprobs and req.mm is None:
             # shareable: full pages strictly before the last prompt token (at
             # least one token is always computed -> last_hidden exists)
             n_shareable = ((n - 1) // ps) * ps
@@ -801,12 +878,15 @@ class Engine:
                     self._drain(force=True)
 
     def generate(self, prompts: list[list[int]],
-                 params: SamplingParams | list[SamplingParams] | None = None
-                 ) -> list[GenerationResult]:
-        """Synchronous batch helper (tests / offline eval)."""
+                 params: SamplingParams | list[SamplingParams] | None = None,
+                 mm: list[dict | None] | None = None) -> list[GenerationResult]:
+        """Synchronous batch helper (tests / offline eval); ``mm``: one VLM
+        input (or None) a prompt."""
         if not isinstance(params, list):
             params = [params] * len(prompts)
-        futures = [self.submit(p, sp) for p, sp in zip(prompts, params)]
+        if mm is None:
+            mm = [None] * len(prompts)
+        futures = [self.submit(p, sp, mm=m) for p, sp, m in zip(prompts, params, mm)]
         self.run_until_idle()
         return [f.result() for f in futures]
 
@@ -831,6 +911,7 @@ class Engine:
         d_topp = self._to_dev(np.asarray([sp.top_p], np.float32))
         filtering = sp.top_p < 1.0 or sp.top_k > MAX_TOP_K
         plp = None
+        pos_delta = 0
         adapter_row = self._adapter_row(sp)
         adapter_idx = self._adapter_idx(adapter_row)
         if self.is_hybrid and (shared_tokens > 0 or n > self.buckets[-1]
@@ -843,11 +924,14 @@ class Engine:
             ids = np.zeros((1, lpad), np.int64)
             ids[0, :n] = req.prompt
             pages = self.slots.page_table[slot][: lpad // ps]
+            mm = None
+            if req.mm is not None:
+                mm, pos_delta = self._prep_mm(req, lpad)
             out = smodel.prefill(
                 self.params, self.spec, self.k_pool, self.v_pool, self._to_dev(ids), n,
                 self._to_dev(pages), compute_dtype=self.compute_dtype,
                 want_prompt_logprobs=sp.prompt_logprobs, gdn_precision=self.gdn_precision,
-                adapter_idx=adapter_idx)
+                adapter_idx=adapter_idx, mm=mm)
             _, _, last_hidden, plp = out[:4]
             if self.is_hybrid:
                 self._set_slot_rows(slot, out[4])  # seed the slot's recurrent rows
@@ -892,8 +976,16 @@ class Engine:
         self._d_limit[slot] = limit
         self._d_stop[slot] = self._to_dev(self._stop_row(sp))
         self._d_adapter[slot] = adapter_row
+        self._d_pos_delta[slot] = pos_delta
         if sp.max_tokens <= 0:
             self._finalize_scoring_only(active)
+
+    def _prep_mm(self, req: _Request, lpad: int) -> tuple[dict, int]:
+        """``prepare_mm`` for one admitted VLM request."""
+        self.stats["vision_patches"] = (self.stats.get("vision_patches", 0)
+                                        + len(req.mm["pixel_values"]))
+        return prepare_mm(self.params, self.spec, req.mm, req.prompt, lpad, self._to_dev,
+                          self.compute_dtype)
 
     def _set_slot_rows(self, slot: int, rows: list | None) -> None:
         """Write per-layer (conv_row, state_row) into the slot's recurrent
@@ -1026,7 +1118,8 @@ class Engine:
                                 compute_dtype=self.compute_dtype,
                                 collect_routing=self._collect_routed,
                                 r_conv=self.r_conv, r_state=self.r_state,
-                                adapter_idx=None if self._lora_bank is None else self._d_adapter)
+                                adapter_idx=None if self._lora_bank is None else self._d_adapter,
+                                pos_delta=None if self.spec.vision is None else self._d_pos_delta)
             logits = out[2]
             if self._collect_routed:
                 routed_rows.append(out[3])

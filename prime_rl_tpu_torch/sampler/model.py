@@ -59,8 +59,17 @@ Multi-LoRA (the engine's bank, ``lp["lora"]``): the prefill, the chunk and
 decode take ``adapter_idx``, the bank row of the prompt or of each slot, and
 add ``_lora_delta`` to q, k, v, o, gate, up and down of the dense paths, as
 the JAX sampler does (plain PyTorch, as it is XLA there); with a bank K3
-never runs (``takes_k3``). Vision inputs and int8 weights are later slices:
-``check_supported`` and the layers raise ``NotImplementedError`` for them.
+never runs (``takes_k3``).
+
+Vision (qwen3_vl, qwen3_vl_moe): ``prefill`` takes ``mm``, the tower's
+merged embeddings and DeepStack features (the engine runs the tower, plain
+PyTorch on the card as it is XLA on the TPU), the image slots and the
+per-frequency mRoPE positions; the embeddings replace the tokens' at the
+slots, and after each of the first ``n_ds`` layers the matching feature map
+is added there. ``decode`` takes ``pos_delta``, each slot's rope-position
+offset (``lengths + pos_delta`` rotates q and k, in K3 too; the cache rows
+stay indexed by ``lengths``). Int8 weights are a later slice: the layers
+raise ``NotImplementedError`` for them.
 """
 
 from __future__ import annotations
@@ -99,17 +108,19 @@ Params = dict
 
 
 SERVED_FAMILIES = ("qwen3", "llama", "gpt_oss", "qwen3_moe", "glm4_moe", "minimax_m2", "afmoe",
-                   "laguna", "deepseek_v3", "glm_moe_dsa", "qwen3_next", "nemotron_h")
+                   "laguna", "deepseek_v3", "glm_moe_dsa", "qwen3_next", "nemotron_h", "qwen3_vl",
+                   "qwen3_vl_moe")
+VISION_FAMILIES = ("qwen3_vl", "qwen3_vl_moe")
 
 
 def check_supported(spec: ModelSpec) -> None:
     """Raise ``NotImplementedError`` for any feature outside the serving path
-    ported so far (``SERVED_FAMILIES``): vision inputs."""
+    ported so far (``SERVED_FAMILIES``): a vision tower on another family."""
     missing = []
     if spec.family not in SERVED_FAMILIES:
         missing.append(f"family {spec.family!r}")
-    if spec.vision is not None:
-        missing.append("vision inputs")
+    if spec.vision is not None and spec.family not in VISION_FAMILIES:
+        missing.append(f"vision inputs on {spec.family!r}")
     if missing:
         raise NotImplementedError("not ported yet: " + ", ".join(missing)
                                   + f" (served: {', '.join(SERVED_FAMILIES)})")
@@ -610,12 +621,18 @@ def prefill(
     want_prompt_logprobs: bool = False,
     gdn_precision: str = "highest",
     adapter_idx: torch.Tensor | None = None,  # 0-dim: the LoRA bank row (0 = none)
+    mm: dict | None = None,
 ):
     """Returns (k_pool, v_pool, last_hidden [D], prompt_logprobs [Lpad]|None),
     the pools written in place, and for a hybrid spec a fifth element: the
     per-layer (conv_row, state_row) at ``length`` (None for an attention
     layer). ``prompt_logprobs[i] = logp(token_i | tokens_<i)``; position 0
-    holds the uniform -log(V)."""
+    holds the uniform -log(V).
+
+    ``mm`` (a VLM prompt; tensors on the device): vis_embed [R, D] the merged
+    image embeddings, ds_feats [n_ds, R, D] the DeepStack feature maps,
+    img_slot [1, Lpad] the row of each vision-token position (-1 elsewhere),
+    positions [1, Lpad, rot//2] the per-frequency mRoPE positions."""
     _, lpad = input_ids.shape
     device = input_ids.device
     page_size = _page_size(k_pool)
@@ -624,9 +641,27 @@ def prefill(
     positions = torch.arange(lpad, device=device)[None, :]
     segment_ids = (positions < length).to(torch.int32)
     h = params["embed"].to(compute_dtype)[input_ids]
+    img_slot = img_mask = None
+    n_ds = 0
+    if mm is not None:
+        # the host-assigned slot (>= 0) gates the injection, never the token
+        # id (see models/qwen3_vl.forward)
+        img_slot = mm["img_slot"].long().clamp(min=0)
+        img_mask = (mm["img_slot"] >= 0)[..., None]
+        h = torch.where(img_mask, mm["vis_embed"].to(compute_dtype)[img_slot], h)
+        positions = mm["positions"]  # [1, Lpad, rot//2] per frequency
+        n_ds = mm["ds_feats"].shape[0]
+
+    def deepstack(li, hh):
+        # the li-th feature map at the image slots after layer li, whatever
+        # the layer's kind (HF Qwen3VLTextModel._deepstack_process)
+        if li >= n_ds:
+            return hh
+        return torch.where(img_mask, hh + mm["ds_feats"][li].to(compute_dtype)[img_slot], hh)
+
     r_rows = []
-    for lp, k_l, v_l, win, kind in zip(params["layers"], k_pool, v_pool,
-                                       layer_windows_list(spec), layer_kinds(spec)):
+    for li, (lp, k_l, v_l, win, kind) in enumerate(zip(
+            params["layers"], k_pool, v_pool, layer_windows_list(spec), layer_kinds(spec))):
         lp = _cast_layer(lp, compute_dtype)
         if kind == "L":
             # recurrent layer: no pages; the slot's rows for the decode pool
@@ -634,15 +669,18 @@ def prefill(
                                                         compute_dtype, gdn_precision)
             h = h + _mlp(rms_norm(h, lp["mlp_norm"], spec.rms_eps), lp, spec, None, adapter_idx)
             r_rows.append((conv_row, state_row))
+            h = deepstack(li, h)
             continue
         if kind == "M":
             h, conv_row, state_row = _mamba_prefill_mixer(h, lp, spec, segment_ids, int(length),
                                                           compute_dtype)
             r_rows.append((conv_row, state_row))
+            h = deepstack(li, h)
             continue
         r_rows.append(None)
         if kind in ("-", "E"):
             h = _tokenwise_block(h, lp, spec)
+            h = deepstack(li, h)
             continue
         if kind == "*":
             # Nemotron-H's bare attention (K1 on the card), no MLP pairing
@@ -651,6 +689,7 @@ def prefill(
             h = h + _mm(o.reshape(1, lpad, spec.q_dim), lp["o"])
             _write_pages(k_l, _layer_kv_pages(k, n_pages, page_size, spec), pages)
             _write_pages(v_l, _layer_kv_pages(v, n_pages, page_size, spec), pages)
+            h = deepstack(li, h)
             continue
         if spec.kv_lora_rank > 0:
             # MLA: the training attention block (K5a for DSA on the card), the
@@ -661,6 +700,7 @@ def prefill(
             _write_pages(k_l, latent[0].reshape(1, n_pages, page_size, -1), pages)
             if idx_rows is not None:
                 _write_pages(v_l, idx_rows[0].reshape(1, n_pages, page_size, -1), pages)
+            h = deepstack(li, h)
             continue
         x = rms_norm(h, lp["attn_norm"], spec.rms_eps)
         freqs = layer_rope_frequencies(spec, inv_freq, win)
@@ -673,6 +713,7 @@ def prefill(
         h = h + _mlp(rms_norm(h, lp["mlp_norm"], spec.rms_eps), lp, spec, None, adapter_idx)
         _write_pages(k_l, _layer_kv_pages(k, n_pages, page_size, spec), pages)
         _write_pages(v_l, _layer_kv_pages(v, n_pages, page_size, spec), pages)
+        h = deepstack(li, h)
     h = rms_norm(h, params["final_norm"], spec.rms_eps)
     last_hidden = h[0, max(int(length) - 1, 0)]
     prompt_logprobs = None
@@ -872,10 +913,10 @@ def takes_k4(spec: ModelSpec) -> bool:
     """Whether decode attention runs in K4 on the card: head dim 64 or a
     multiple of 128 (the JAX decode's ``hd % 128 == 0``, and 64, where the
     port runs K4 and the JAX package XLA: a divergence logged in ROADMAP.md
-    Queue 3). K4 is built for 64, 128 and 256 and refuses 384 and 512, which
-    the JAX kernel takes; every other head dim (the debug specs' 32, 96)
-    takes the plain paged decode attention, as the JAX decode sends it to
-    XLA."""
+    Queue 3). K4 is built for 64 to 512 and raises above (the JAX kernel
+    takes any multiple of 128: a limit logged in ROADMAP.md Queue 3); every
+    other head dim (the debug specs' 32, 96) takes the plain paged decode
+    attention, as the JAX decode sends it to XLA."""
     return spec.head_dim == 64 or spec.head_dim % 128 == 0
 
 
@@ -907,17 +948,25 @@ def decode(
     r_conv: list | None = None,  # hybrid: per-layer [S, conv_dim, K] | None, in place
     r_state: list | None = None,  # hybrid: per-layer [S, Hv, Dk, Dv] f32 | None, in place
     adapter_idx: torch.Tensor | None = None,  # [S]: each slot's LoRA bank row (0 = none)
+    pos_delta: torch.Tensor | None = None,  # [S] int32: each slot's rope-position offset
 ):
     """One decode step for all S slots: writes the new token's K/V, attends
     over lengths+1 tokens, returns (k_pool, v_pool, logits [S, V] f32) with
     the pools written in place, and with ``collect_routing`` the expert ids
     of each slot's input token, [S, NL_moe, K] int32 on the device (every
     MoE layer's, a recurrent layer's too). A hybrid model's recurrent layers
-    advance ``r_conv``/``r_state`` in place."""
+    advance ``r_conv``/``r_state`` in place.
+
+    ``pos_delta`` shifts the ROPE position only (the cache rows stay indexed
+    by ``lengths``): mRoPE compresses each image block of a VLM prompt to its
+    grid, so the text after it runs at ``token index + delta``, one delta a
+    request (HF get_rope_index decode semantics); text requests carry 0."""
     s = tokens.shape[0]
     device = tokens.device
     inv_freq, rope_scaling = _rope(spec, device)
     positions = lengths[:, None]  # [S, 1]: 0-based position of the new token
+    if pos_delta is not None:
+        positions = (positions + pos_delta[:, None]).to(lengths.dtype)
     if adapter_idx is not None:
         adapter_idx = lora_pick(params, adapter_idx, compute_dtype)
     h = params["embed"].to(compute_dtype)[tokens.long()][:, None, :]  # [S, 1, D]
@@ -959,7 +1008,7 @@ def decode(
         if h.is_cuda and takes_k3(spec, lp, adapter_idx):
             # one launch for norm + qkv + bias + qk-norm + rope (K3)
             q3, k3, v3 = decode_qkv_prep(
-                h[:, 0], lp["attn_norm"], lp["q"], lp["k"], lp["v"], lengths, freqs,
+                h[:, 0], lp["attn_norm"], lp["q"], lp["k"], lp["v"], positions[:, 0], freqs,
                 num_heads=spec.num_heads, num_kv_heads=spec.num_kv_heads,
                 head_dim=spec.head_dim, qk_norm=bool(spec.qk_norm),
                 q_norm_w=lp.get("q_norm"), k_norm_w=lp.get("k_norm"),

@@ -1,7 +1,7 @@
 """HTTP serving for the sampling engine (the port of the JAX package's
 ``sampler/server.py``):
 
-    POST /inference/v1/generate     token-in/out rollouts (+prompt_logprobs)
+    POST /inference/v1/generate     token-in/out rollouts (+prompt_logprobs, VLM ``mm``)
     POST /v1/chat/completions       OpenAI-compatible chat (incl. SSE streaming)
     POST /v1/completions            OpenAI-compatible text completion
     GET  /v1/models                 model listing
@@ -44,6 +44,27 @@ def _sampling_from_body(body: dict, default_max_tokens: int = 512) -> SamplingPa
         json_schema=sp.get("json_schema") or body.get("json_schema"),
         regex=sp.get("regex") or body.get("guided_regex"),
     )
+
+
+def _mm_from_body(body: dict):
+    """VLM inputs on the generate wire: ``mm.pixel_values`` as either a
+    nested list or ``{"b64": <base64 f32 LE>, "shape": [P, patch_dim]}``,
+    plus ``mm.image_grid_thw`` [[t, h, w], ...] (HF-processor layout); None
+    without ``mm``."""
+    mm = body.get("mm")
+    if not mm:
+        return None
+    import base64
+
+    import numpy as np
+
+    pv = mm["pixel_values"]
+    if isinstance(pv, dict):
+        arr = np.frombuffer(base64.b64decode(pv["b64"]), dtype="<f4").reshape(pv["shape"])
+    else:
+        arr = np.asarray(pv, np.float32)
+    return {"pixel_values": arr,
+            "image_grid_thw": np.asarray(mm["image_grid_thw"], np.int64)}
 
 
 @web.middleware
@@ -94,11 +115,12 @@ class InferenceServer:
         self._metrics = {"requests": 0, "tokens_generated": 0, "prompt_tokens": 0}
 
     async def _submit(self, prompt: list[int], sp: SamplingParams,
-                      request_id: str | None = None, on_token=None) -> GenerationResult:
+                      request_id: str | None = None, on_token=None,
+                      mm: dict | None = None) -> GenerationResult:
         """Submit + await; a client disconnect / handler cancellation aborts
         the engine request instead of leaking a slot."""
         request_id = request_id or f"req-{uuid.uuid4().hex[:16]}"
-        fut = self.engine.submit(prompt, sp, on_token=on_token, request_id=request_id)
+        fut = self.engine.submit(prompt, sp, on_token=on_token, request_id=request_id, mm=mm)
         try:
             result = await asyncio.wrap_future(fut)
         except asyncio.CancelledError:
@@ -142,10 +164,9 @@ class InferenceServer:
         token_ids = body.get("token_ids")
         if token_ids is None:
             raise web.HTTPBadRequest(text="token_ids required")
-        if body.get("mm"):
-            raise NotImplementedError("multimodal inputs")
         sp = _sampling_from_body(body)
-        result = await self._submit(token_ids, sp, request_id=body.get("request_id"))
+        result = await self._submit(token_ids, sp, request_id=body.get("request_id"),
+                                    mm=_mm_from_body(body))
         # prompt_logprobs wire format: one entry per prompt token, None for the
         # leading token, {token_id: {logprob}} else
         plp = None

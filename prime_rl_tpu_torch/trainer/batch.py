@@ -3,8 +3,9 @@
 The port of the JAX package's ``trainer/batch.py``, numpy in and numpy out,
 so both packages build identical arrays from the same samples: **static-shape**
 [N, B, L] stacked micro-batches with segment ids (attention masks on segment
-ids) and per-sequence restarting position ids. The VLM streams wait for the
-VLM slice: a ``vlm_spec`` raises.
+ids) and per-sequence restarting position ids. With a ``vlm_spec`` every
+micro-batch also carries the vision streams (``_assemble_mm``): one padded
+patch buffer, its host prep, the image slots and the mRoPE positions.
 
 Packing algorithm: first-fit-decreasing into rows of length ``seq_len``,
 then workload-balanced assignment of rows to micro-batches by quadratic
@@ -102,6 +103,91 @@ def balance_rows(
     return bins
 
 
+def _assemble_mm(row_slots, shape, vlm_spec, pad_patches: int):
+    """Per-micro-batch vision arrays (the VLM path).
+
+    Each sample's ``mm_kwargs`` holds the HF-processor outputs
+    ``{"pixel_values": [P_i, patch_dim] f32, "image_grid_thw": [n_i, 3]}``.
+    All samples' patches ride ONE padded [P, patch_dim] buffer; per-frame
+    segment ids keep vision attention block-diagonal, per-sample slot bases
+    point each image token at its row of the merged-embedding buffer, and
+    mRoPE grid positions overwrite the sequential default at vision spans.
+    Text-only samples keep sequential (t==h==w) positions: exactly plain
+    rope, so mixing text and VLM samples in one packed row is safe."""
+    from prime_rl_tpu_torch.models.vision import (
+        prep_image_slots,
+        prep_mrope_position_ids,
+        prep_patch_metadata,
+    )
+
+    vspec = vlm_spec.vision
+    B, L = shape
+    mu = vspec.merge_unit
+    img_slot = np.full((B, L), -1, np.int32)  # -1 = not a vision position
+    mm_position_ids = np.zeros((3, B, L), np.int32)
+    pixels, segs, idxs, ws, coords = [], [], [], [], []
+    seg_base = 0  # running frame count (vision segment ids are 1-based)
+    merged_base = 0  # running rows in the merged-embedding buffer
+
+    for b, start, s in row_slots:
+        n = len(s)
+        sl = slice(start, start + n)
+        # default: sequential positions on all three mrope dims == plain rope
+        mm_position_ids[:, b, sl] = np.arange(n, dtype=np.int32)
+        mm = s.mm_kwargs
+        if not mm or "pixel_values" not in mm:
+            continue
+        grid = np.asarray(mm["image_grid_thw"], np.int64)
+        meta = prep_patch_metadata(grid, vspec)
+        pixels.append(np.asarray(mm["pixel_values"], np.float32))
+        segs.append(np.where(meta["seg_ids"] > 0, meta["seg_ids"] + seg_base, 0))
+        idxs.append(meta["pos_idx"])
+        ws.append(meta["pos_w"])
+        coords.append(meta["rope_coords"])
+        mm_position_ids[:, b, sl] = prep_mrope_position_ids(
+            s.token_ids, grid, vspec.spatial_merge_size,
+            vlm_spec.image_token_id, vlm_spec.video_token_id,
+        )
+        slots = prep_image_slots(
+            s.token_ids, vlm_spec.image_token_id, vlm_spec.video_token_id,
+            base=merged_base, max_slots=meta["seg_ids"].shape[0] // mu,
+        )
+        img_slot[b, sl] = slots
+        seg_base += int(meta["seg_ids"].max(initial=0))
+        merged_base += meta["seg_ids"].shape[0] // mu
+
+    P_real = sum(p.shape[0] for p in pixels)
+    if P_real > pad_patches:
+        raise ValueError(
+            f"{P_real} vision patches exceed max_mm_patches={pad_patches} "
+            "for one micro-batch; raise batch.max_mm_patches"
+        )
+    pd = vspec.patch_dim
+
+    def cat_pad(parts, empty_shape, pad_width):
+        out = np.concatenate(parts, axis=0) if parts else np.zeros(empty_shape, np.float32)
+        return np.pad(out, pad_width(pad_patches - out.shape[0]))
+
+    patches = cat_pad(pixels, (0, pd), lambda p: ((0, p), (0, 0)))
+    seg_arr = np.concatenate(segs) if segs else np.zeros(0, np.int32)
+    seg_arr = np.pad(seg_arr, (0, pad_patches - seg_arr.shape[0]))
+    pos_idx = (np.concatenate(idxs, axis=1) if idxs else np.zeros((4, 0), np.int32))
+    pos_idx = np.pad(pos_idx, ((0, 0), (0, pad_patches - pos_idx.shape[1])))
+    pos_w = np.concatenate(ws, axis=1) if ws else np.zeros((4, 0), np.float32)
+    pos_w = np.pad(pos_w, ((0, 0), (0, pad_patches - pos_w.shape[1])))
+    rc = np.concatenate(coords) if coords else np.zeros((0, 2), np.int32)
+    rc = np.pad(rc, ((0, pad_patches - rc.shape[0]), (0, 0)))
+    return {
+        "mm_patches": patches.astype(np.float32),
+        "mm_vis_seg_ids": seg_arr.astype(np.int32),
+        "mm_vis_pos_idx": pos_idx.astype(np.int32),
+        "mm_vis_pos_w": pos_w.astype(np.float32),
+        "mm_vis_rope_coords": rc.astype(np.int32),
+        "mm_img_slot": img_slot,
+        "mm_position_ids": mm_position_ids,
+    }
+
+
 def _optional_stream(samples, row_slots, shape, attr, fill=0.0):
     """Assemble an optional [B, L] stream; None iff absent in every sample."""
     if not any(getattr(s, attr) is not None for _, _, s in row_slots):
@@ -154,8 +240,8 @@ def rows_to_arrays(rows: list[PackedRow], seq_len: int, batch_rows: int,
             cursor += n
 
     shape = (B, L)
-    if vlm_spec is not None:
-        raise NotImplementedError("the VLM batch streams wait for the VLM slice")
+    mm = (_assemble_mm(row_slots, shape, vlm_spec, max_mm_patches)
+          if vlm_spec is not None else {})
     routed = None
     if any(s.routed_experts is not None for _, _, s in row_slots):
         # router replay stream [B, L, NL, K]; -1 rows = no recording (context
@@ -167,6 +253,7 @@ def rows_to_arrays(rows: list[PackedRow], seq_len: int, batch_rows: int,
             if s.routed_experts is not None:
                 routed[b, start : start + len(s)] = s.routed_experts
     return MicroBatchArrays(
+        **mm,
         routed_experts=routed,
         input_ids=input_ids,
         loss_mask=loss_mask,
@@ -213,6 +300,13 @@ def prepare_batch(
     keeps shapes constant across steps (recommended: set from config). If the
     rollouts overflow the pinned count, N grows to the minimum that fits:
     never a dropped sample.
+
+    ``vlm_spec`` (a VLM ModelSpec) turns on the vision streams: every
+    micro-batch then carries a padded ``max_mm_patches``-patch vision buffer
+    and mRoPE positions (sequential for text samples), so a step's streams
+    have the same fields whether or not a micro-batch holds images.
+    ``max_mm_patches`` 0 sizes the buffer from the batch (the largest bin's
+    patches, rounded up to 256).
     """
     rows = pack_rows(samples, seq_len)
     rows_per_mb = micro_batch_rows
@@ -229,6 +323,16 @@ def prepare_batch(
         )
         num_micro_batches = needed
     bins = balance_rows(rows, num_micro_batches, capacity=rows_per_mb)
+    if vlm_spec is not None and max_mm_patches <= 0:
+        # auto-size: the largest real patch count over the bins, padded up;
+        # pin batch.max_mm_patches in config to keep step shapes constant
+        per_bin = [
+            sum(int(np.asarray(s.mm_kwargs["image_grid_thw"]).prod(axis=1).sum())
+                for row in b for s in row.samples
+                if s.mm_kwargs and "pixel_values" in s.mm_kwargs)
+            for b in bins
+        ]
+        max_mm_patches = max(256, -(-max(per_bin, default=0) // 256) * 256)
     mbs = [rows_to_arrays(b, seq_len, rows_per_mb, vlm_spec, max_mm_patches)
            for b in bins]
     return stack_micro_batches(mbs)

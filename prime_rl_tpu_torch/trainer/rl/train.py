@@ -29,6 +29,7 @@ import time
 from pathlib import Path
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from prime_rl_tpu_torch.configs.trainer import TrainerConfig
@@ -63,8 +64,8 @@ class TrainResult(NamedTuple):
 def reject_unported_model(config) -> None:
     """The refusals the RL and SFT trainers share (``config``: a
     ``TrainerConfig`` or an ``SFTConfig``): LoRA on a family the port does not
-    train yet (every ported family's forward takes an adapter; the VLM
-    family waits for its slice), a truncated vocabulary without random init,
+    train yet (every ported family's forward takes an adapter), a truncated
+    vocabulary without random init,
     and a mesh larger than one device."""
     if config.model.lora is not None:
         from prime_rl_tpu_torch.models import FAMILIES
@@ -250,7 +251,9 @@ def train(config: TrainerConfig, weight_sink=None) -> TrainResult:
                 pass  # the orchestrator has not shipped this step yet
             batch = prepare_batch(tb.examples, config.batch.seq_len,
                                   config.batch.micro_batch_size,
-                                  num_micro_batches=config.batch.num_micro_batches)
+                                  num_micro_batches=config.batch.num_micro_batches,
+                                  vlm_spec=spec if spec.vision is not None else None,
+                                  max_mm_patches=config.batch.max_mm_patches)
             counts = token_counts(batch)
             if run_mgr is not None:
                 run = run_mgr.get_or_create(f"run_{tb.run_idx or 0}")
@@ -258,6 +261,8 @@ def train(config: TrainerConfig, weight_sink=None) -> TrainResult:
         wait_s = time.perf_counter() - t_wait
 
         tokens = int(batch.loss_mask.size)
+        mm_seg = batch.mm_vis_seg_ids
+        mm_patches = None if mm_seg is None else int((np.asarray(mm_seg) > 0).sum())
         scales = Scales(rl=float(max(counts["rl"], 1)), ce=float(max(counts["ce"], 1)),
                         ref_kl=float(max(counts["ref_kl"], 1)))
         sync()
@@ -316,6 +321,8 @@ def train(config: TrainerConfig, weight_sink=None) -> TrainResult:
             "publish_s": pub_s,
             "rl_tokens": counts["rl"],
         }
+        if mm_patches is not None:
+            record["mm_patches"] = mm_patches  # real (non-pad) vision patches
         if device.type == "cuda" and progress.step % 50 == 0:
             record["device_mem_peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
         monitor.log(record, progress.step)

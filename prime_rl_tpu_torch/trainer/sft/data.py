@@ -6,8 +6,8 @@ Examples are tokenized into ``TrainingSample``s (the same wire type the RL
 path trains on: ``ce_weights`` carries the SFT loss mask) and packed by the
 shared packer into fixed-shape micro-batches, so SFT and RL share one train
 step. The same config and seed give the JAX package's batches, array for
-array. ``datasets`` is imported only by the HF datasets; the vision streams
-(``vlm_spec``, ``max_mm_patches``) raise until the VLM slice.
+array. ``datasets`` is imported only by the HF datasets; with a ``vlm_spec``
+the batches carry the vision streams of the samples' ``mm_kwargs``.
 """
 
 from __future__ import annotations
@@ -145,12 +145,11 @@ class SFTBatchLoader:
 
     def __init__(self, config: SFTDataConfig, dataset_iter: Iterator[TrainingSample],
                  vlm_spec=None, max_mm_patches: int = 0):
-        if vlm_spec is not None or max_mm_patches > 0:
-            raise NotImplementedError("SFT on vision inputs waits for the VLM slice "
-                                      "(ROADMAP.md, Queue 1 item 9)")
         self.config = config
         self.it = dataset_iter
         self.num_micro_batches = max(1, config.batch_size // max(config.micro_batch_size, 1))
+        self.vlm_spec = vlm_spec
+        self.max_mm_patches = max_mm_patches
 
     def next_batch(self) -> tuple[MicroBatchArrays, dict[str, int]]:
         samples = []
@@ -160,7 +159,8 @@ class SFTBatchLoader:
                 s = truncate_sample(s, self.config.seq_len)
             samples.append(s)
         batch = prepare_batch(samples, self.config.seq_len, self.config.micro_batch_size,
-                              self.num_micro_batches)
+                              self.num_micro_batches, vlm_spec=self.vlm_spec,
+                              max_mm_patches=self.max_mm_patches)
         return batch, token_counts(batch)
 
 

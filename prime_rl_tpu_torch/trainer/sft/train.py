@@ -46,18 +46,11 @@ from prime_rl_tpu_torch.utils.monitor import setup_monitor
 from prime_rl_tpu_torch.utils.pathing import logs_dir
 
 
-def _reject_unported(config: SFTConfig) -> None:
-    if config.data.max_mm_patches > 0:
-        raise NotImplementedError("SFT on vision inputs waits for the VLM slice (ROADMAP.md, "
-                                  "Queue 1 item 9)")
-    reject_unported_model(config)
-
-
 def train(config: SFTConfig) -> TrainResult:
     """Run SFT to ``max_steps`` (or the bench window). Returns the final state
     and the metrics records it logged, one per step (the validation records,
     ``{"val_nll": ...}``, go to the monitor only)."""
-    _reject_unported(config)
+    reject_unported_model(config)
     setup_logger(config.log.level, config.log.json_logs,
                  logs_dir(config.output_dir) / "sft.log")
     logger = get_logger()
@@ -110,13 +103,15 @@ def train(config: SFTConfig) -> TrainResult:
         tokenizer = AutoTokenizer.from_pretrained(config.tokenizer.name or config.model.name)
     # fake data must stay inside the model's vocabulary
     config.data.fake_vocab = min(config.data.fake_vocab, spec.vocab_size)
-    loader = setup_sft_loader(config.data, tokenizer)
+    vlm = {"vlm_spec": spec if spec.vision is not None else None,
+           "max_mm_patches": config.data.max_mm_patches}
+    loader = setup_sft_loader(config.data, tokenizer, **vlm)
 
     val_loader = val_loss_fn = None
     if config.val is not None:
         val_data = config.data.model_copy(update={"seed": config.val.seed,
                                                   "split": config.val.split})
-        val_loader = setup_sft_loader(val_data, tokenizer)
+        val_loader = setup_sft_loader(val_data, tokenizer, **vlm)
         val_loss_fn = make_loss_fn(spec, config.model, loss_cfg, base_params=base_params)
 
     def sync() -> None:

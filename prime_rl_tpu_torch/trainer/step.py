@@ -72,14 +72,14 @@ class MicroBatchArrays(NamedTuple):
     ref_kl_weights: Any = None
     # router replay [N, B, L, NL_moe, K], -1 = the trainer's own routing (MoE families)
     routed_experts: Any = None
-    # VLM streams: they wait for the VLM slice and must be None
-    mm_patches: Any = None
-    mm_vis_seg_ids: Any = None
-    mm_vis_pos_idx: Any = None
-    mm_vis_pos_w: Any = None
-    mm_vis_rope_coords: Any = None
-    mm_img_slot: Any = None
-    mm_position_ids: Any = None
+    # VLM streams (``trainer/batch._assemble_mm``), None on text families
+    mm_patches: Any = None  # f32 [N, P, patch_dim]
+    mm_vis_seg_ids: Any = None  # int32 [N, P], 0 = pad
+    mm_vis_pos_idx: Any = None  # int32 [N, 4, P]
+    mm_vis_pos_w: Any = None  # f32 [N, 4, P]
+    mm_vis_rope_coords: Any = None  # int32 [N, P, 2]
+    mm_img_slot: Any = None  # int32 [N, B, L], -1 = not a vision position
+    mm_position_ids: Any = None  # int32 [N, 3, B, L]
 
 
 class Scales(NamedTuple):
@@ -120,8 +120,6 @@ def model_logprobs(params: Params, spec: ModelSpec, mb, model_cfg, mesh=None,
     loss-masked."""
     from prime_rl_tpu_torch.models import get_family
 
-    if mb.mm_patches is not None:
-        raise NotImplementedError("the VLM batch streams wait for the VLM slice")
     family = get_family(spec)
     dtype = _compute_dtype(model_cfg)
     extra = {}
@@ -134,6 +132,19 @@ def model_logprobs(params: Params, spec: ModelSpec, mb, model_cfg, mesh=None,
         extra["quantized_compute"] = model_cfg.quantized_compute
     if spec.gdn_pattern:
         extra["gdn_precision"] = model_cfg.gdn_mxu_precision
+    if mb.mm_patches is not None:
+        if spec.vision is None:
+            raise ValueError(f"the batch carries vision streams but {spec.family!r} has no "
+                             "vision tower")
+        extra["mm"] = {
+            "patches": mb.mm_patches,
+            "vis_seg_ids": mb.mm_vis_seg_ids,
+            "vis_pos_idx": mb.mm_vis_pos_idx,
+            "vis_pos_w": mb.mm_vis_pos_w,
+            "vis_rope_coords": mb.mm_vis_rope_coords,
+            "img_slot": mb.mm_img_slot,
+            "mm_position_ids": mb.mm_position_ids,
+        }
     hidden = family.forward(
         params, spec, mb.input_ids, mb.segment_ids, mb.position_ids,
         compute_dtype=dtype,

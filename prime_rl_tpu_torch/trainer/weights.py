@@ -33,6 +33,8 @@ _ARCHITECTURES = {
     "laguna": "LagunaForCausalLM",
     "qwen3_next": "Qwen3NextForCausalLM",
     "nemotron_h": "NemotronHForCausalLM",
+    "qwen3_vl": "Qwen3VLForConditionalGeneration",
+    "qwen3_vl_moe": "Qwen3VLMoeForConditionalGeneration",
 }
 
 
@@ -48,11 +50,17 @@ def spec_to_hf_config(spec: ModelSpec) -> dict:
     rope base a layer type, Qwen3-Next its layer types, linear-attention
     widths and shared expert, and Nemotron-H its ``hybrid_override_pattern``,
     Mamba-2 widths and LatentMoE fields, where JAX writes both as
-    Qwen3ForCausalLM.)"""
+    Qwen3ForCausalLM; the Qwen3-VL families write
+    ``Qwen3VLForConditionalGeneration`` (or its MoE name) with a nested
+    ``text_config``, ``vision_config`` and the mRoPE and vision-token
+    fields, so that a snapshot reloads as a VLM, where JAX writes
+    ``Qwen3ForCausalLM`` and the tower is lost on reload.)"""
     from prime_rl_tpu_torch.models.qwen3 import layer_windows_list
 
     if spec.family not in _ARCHITECTURES:
         raise NotImplementedError(f"no HF architecture name for family {spec.family!r}")
+    if spec.family in ("qwen3_vl", "qwen3_vl_moe"):
+        return _vlm_config(spec)
     cfg = {
         "architectures": [_ARCHITECTURES[spec.family]],
         "vocab_size": spec.vocab_size,
@@ -208,6 +216,40 @@ def spec_to_hf_config(spec: ModelSpec) -> dict:
                 "truncate": spec.rope_yarn_truncate,
             }
     return cfg
+
+
+def _vlm_config(spec: ModelSpec) -> dict:
+    """HF ``Qwen3VLConfig``'s layout: the trunk's fields under
+    ``text_config`` (the mRoPE section in its ``rope_scaling``), the tower's
+    under ``vision_config``, the vision token ids at the top."""
+    import dataclasses
+
+    from prime_rl_tpu_torch.models.qwen3_vl import text_spec
+
+    text = spec_to_hf_config(dataclasses.replace(text_spec(spec), vision=None))
+    text.pop("architectures")
+    text.update(rope_scaling={"rope_type": "default", "mrope_section": list(spec.mrope_section),
+                              "mrope_interleaved": True},
+                attention_bias=spec.attn_bias)
+    v = spec.vision
+    return {
+        "architectures": [_ARCHITECTURES[spec.family]],
+        "text_config": text,
+        "vision_config": {
+            "depth": v.depth, "hidden_size": v.hidden_size,
+            "intermediate_size": v.intermediate_size, "num_heads": v.num_heads,
+            "in_channels": v.in_channels, "patch_size": v.patch_size,
+            "temporal_patch_size": v.temporal_patch_size,
+            "spatial_merge_size": v.spatial_merge_size, "out_hidden_size": v.out_hidden_size,
+            "num_position_embeddings": v.num_position_embeddings,
+            "deepstack_visual_indexes": list(v.deepstack_visual_indexes),
+        },
+        "image_token_id": spec.image_token_id,
+        "video_token_id": spec.video_token_id,
+        "vision_start_token_id": spec.vision_start_token_id,
+        "tie_word_embeddings": spec.tie_embeddings,
+        "torch_dtype": "bfloat16",
+    }
 
 
 def save_hf_weights(params: Params, spec: ModelSpec, path: str | Path) -> Path:

@@ -56,11 +56,11 @@ LOOP_MODULES = (
     "entrypoints.orchestrator", "entrypoints.env_server", "entrypoints.rl",
     "entrypoints.colocated")
 # the SFT and MoE-families slice's modules, the two hybrids' (the
-# GatedDeltaNet's, then Nemotron-H's) and the LoRA slice's
+# GatedDeltaNet's, then Nemotron-H's), the LoRA slice's and the VLM slice's
 SFT_MOE_MODULES = ("trainer.sft", "trainer.sft.data", "trainer.sft.train", "entrypoints.sft",
                    "models.qwen3_moe", "models.glm4_moe", "models.gated_moe",
                    "models.qwen3_next", "ops.gated_delta", "ops.mamba", "models.nemotron_h",
-                   "models.lora", "trainer.runs")
+                   "models.lora", "trainer.runs", "models.vision", "models.qwen3_vl")
 _CHECK = _CHECK.replace("LOOP_MODULES", repr(LOOP_MODULES)).replace(
     "SFT_MOE_MODULES", repr(SFT_MOE_MODULES))
 

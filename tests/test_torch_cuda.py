@@ -1,5 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
-at small shapes with the supported head dims (64, 128 and 256). These need an NVIDIA GPU
+at small shapes with the supported head dims (64 to 512; K1/K2 at 320 and
+512 and K4 at 384 and 512 among them) and widths (K5 at 576/512 and at the
+wide 1152/1024 and 640/512). These need an NVIDIA GPU
 (the kernels have no CPU mode) and skip elsewhere; on the machine with the
 card: ``python -m pytest tests/test_torch_cuda.py -q --noconftest`` (the
 repo conftest sets up JAX, which these tests do not use).
@@ -46,6 +48,7 @@ from prime_rl_tpu_torch.ops.decode_qkv import (
     decode_qkv_tile_counts,
     decode_qkv_tiles_visited,
 )
+from prime_rl_tpu_torch.ops.flash_attention import dkv_tiles as dkv_tiles_of
 from prime_rl_tpu_torch.ops.flash_attention import dq_tiles as dq_tiles_of
 from prime_rl_tpu_torch.ops.flash_attention import (
     _delta,
@@ -200,7 +203,8 @@ def test_flash_attn_bwd_cases_match_plain(gen, case):
     dq_tiles, dkv_tiles = flash_bwd_tile_counts(*args[:9], window)
     for got, rule in ((dq_tiles, flash_tiles_visited(seg_q, seg_kv, causal, window,
                                                      *dq_tiles_of(hd))),
-                      (dkv_tiles, flash_bwd_dkv_tiles_visited(seg_q, seg_kv, causal, window))):
+                      (dkv_tiles, flash_bwd_dkv_tiles_visited(seg_q, seg_kv, causal, window,
+                                                              *dkv_tiles_of(hd)))):
         want = rule.sum(-1, dtype=torch.int32)
         assert torch.equal(got[..., 0], want[:, None].expand_as(got[..., 0]))
 
@@ -275,7 +279,8 @@ def test_flash_attn_window_and_sinks_match_plain(gen, window, with_sinks):
         assert float((grads[3] - want).norm()) <= 2e-2 * float(want.norm())
 
 
-@pytest.mark.parametrize("hd,bias,partial", [(128, False, False), (64, True, True)])
+@pytest.mark.parametrize("hd,bias,partial", [(128, False, False), (64, True, True),
+                                              (32, False, True)])
 def test_decode_qkv_prep_matches_plain(gen, hd, bias, partial):
     s, d, nh, nkv = 20, 256, 4, 2
     rot = hd // 2 if partial else hd
@@ -297,7 +302,7 @@ def test_decode_qkv_prep_matches_plain(gen, hd, bias, partial):
 
 @pytest.mark.parametrize("case", chip_smoke.K3_EDGE_CASES, ids=lambda c: c[0])
 def test_decode_qkv_prep_cases_match_plain(gen, case):
-    """K3 over ``chip_smoke.K3_EDGE_CASES`` (S of 1 to 256, both head dims,
+    """K3 over ``chip_smoke.K3_EDGE_CASES`` (S of 1 to 256, head dims 32-128,
     rot < HD, biases with and without qk-norm, positions near 131071): two
     launches with equal bits against the plain version, and the weight tiles
     each block loaded (the kernel's count) equal to the tiling's mirror."""
@@ -358,7 +363,8 @@ def test_decode_qkv_prep_loads_each_weight_tile_once(gen, s):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
-@pytest.mark.parametrize("hd,group", [(128, 2), (64, 4), (256, 8)])
+@pytest.mark.parametrize("hd,group", [(128, 2), (64, 4), (256, 8), (384, 4), (512, 1),
+                                      (512, 8)])
 def test_decode_paged_attention_matches_plain(gen, hd, group):
     s, nkv, ps, p = 6, 2, 16, 8
     nh = nkv * group
@@ -613,9 +619,9 @@ def test_sparse_mla_backward_is_deterministic_over_chunks(gen, monkeypatch):
 
 
 def test_sparse_mla_wrapper_raises_for_other_widths(gen):
-    q, kv = _bf16(gen, 8, 8, 640), _bf16(gen, 8, 640)
+    q, kv = _bf16(gen, 8, 8, 1280), _bf16(gen, 8, 1280)
     idx = torch.zeros(8, 4, dtype=torch.int32, device="cuda")
-    with pytest.raises(ValueError, match="H % 8 == 0, Dq <= 576 and v_dim <= 512"):
+    with pytest.raises(ValueError, match="H % 8 == 0, Dq <= 1152 and v_dim <= 1024"):
         mla.sparse_mla_attention(q, kv, idx, 0.1, 128)
     with pytest.raises(ValueError, match="got H = 12, Dq = 576"):
         mla.sparse_mla_attention(_bf16(gen, 8, 12, 576), _bf16(gen, 8, 576), idx, 0.1, 512)
@@ -671,3 +677,49 @@ def test_sparse_mla_kernels_match_plain_at_padded_widths(gen):
     for name, g, r in (("out", out, ref_out), ("dq", dq, ref_dq), ("dkv", dkv, ref_dkv)):
         assert g.shape == r.shape, name
         torch.testing.assert_close(g.float(), r.float(), atol=2e-2, rtol=2e-2, msg=name)
+
+
+@pytest.mark.parametrize("hd", [320, 512])
+def test_wide_head_dim_flash_kernels_match_plain(gen, hd):
+    """K1, K2a and K2b in their plain forms (head dim 320 zero-padded to 384,
+    and 512) through the autograd Function: GQA 4:2, packed segments and a
+    padded tail, against the plain versions (1e-2 on out, 1e-3 on lse, 2e-2
+    on the gradients), one launch of each, two runs bit-equal."""
+    b, l, nh, nkv = 2, 200, 4, 2
+    q, k, v = _bf16(gen, b, l, nh, hd), _bf16(gen, b, l, nkv, hd), _bf16(gen, b, l, nkv, hd)
+    do = _bf16(gen, b, l, nh, hd)
+    seg = _packed_seg(b, l)
+    runs = []
+    for _ in range(2):
+        before = dict(_build.launches)
+        out, lse = flash_attention_with_lse(q, k, v, seg, seg, causal=True)
+        got = flash_attention_backward(q, k, v, seg, seg, out, lse, do, None, True, hd ** -0.5)
+        torch.cuda.synchronize()
+        for name in ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+            assert _build.launches[name] == before.get(name, 0) + 1, name
+        runs.append((out, lse, *got[:3]))
+    for a, c in zip(*runs):
+        assert torch.equal(a, c)
+    out, lse, *grads = runs[0]
+    ref_out, ref_lse = flash_attention_reference(q.float(), k.float(), v.float(), seg, seg,
+                                                 True, hd ** -0.5)
+    _assert_close(out, ref_out)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
+    ref = flash_attention_backward_reference(q, k, v, seg, seg, out, lse, do, None, True,
+                                             hd ** -0.5)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
+        assert g.shape == r.shape, name
+        torch.testing.assert_close(g.float(), r.float(), atol=2e-2, rtol=2e-2, msg=name)
+    assert (grads[0][seg == 0] == 0).all()
+
+
+@pytest.mark.parametrize("case", chip_smoke.K5_WIDE_CASES, ids=lambda c: c[0])
+def test_sparse_mla_kernels_match_plain_at_wide_widths(gen, case):
+    """K5a and K5b in their wide forms at ``chip_smoke.K5_WIDE_CASES`` (1152 /
+    1024 and 640 / 512, zero-padded to it) against the plain versions within
+    2e-2 + 2e-2 |ref|, twice bit-equal, the tiles counted as the mirror gives
+    (``chip_smoke.k5_wide_case``), one wide K5a launch a call."""
+    before = dict(_build.launches)
+    chip_smoke.k5_wide_case(gen, *case)
+    assert _build.launches["sparse_mla_fwd/wide"] == before.get("sparse_mla_fwd/wide", 0) + 2
+    assert _build.launches["sparse_mla_bwd/wide"] > before.get("sparse_mla_bwd/wide", 0)

@@ -35,11 +35,13 @@ D = 336  # 5.25 weight tiles of 64 rows: no multiple of k x 64 for any k
 
 # (name, NH, NKV, HD, qk-norm, biases, rot): Qwen3's form (qk-norm, full
 # rotation), gpt-oss's (biases, no qk-norm) with a partial rotation, and
-# qk-norm with biases and a partial rotation at head dim 128
+# qk-norm with biases and a partial rotation at head dim 128, and debug_vlm's
+# head dim 32 (four heads a column tile)
 FORMS = (
     ("hd 128 qk-norm", 4, 2, 128, True, False, 128),
     ("hd 64 biases rot 32", 4, 2, 64, False, True, 32),
     ("hd 128 qk-norm + biases rot 96", 2, 1, 128, True, True, 96),
+    ("hd 32 qk-norm", 4, 2, 32, True, False, 32),
 )
 ROWS = (1, 7, 64, 65)
 

@@ -193,10 +193,11 @@ def test_shape_check_takes_every_served_spec():
     head dim of 32 is for the CPU), as the JAX kernels do (groups 2 to 12: Qwen3-14B
     40/8, Llama-3.2-3B 24/8, GLM-4.5 96/8 among them, and Qwen3-Next's 16/2
     heads of 256): K4's ``check_shape`` and K1/K2's ``check_head_dim``. K4
-    refuses head dims other than 64/128/256 (96 among them: ``takes_k4``
-    sends those to the plain decode attention), K1/K2 only head dims above
-    256 (narrower ones are zero-padded to the next built width), and both
-    heads that are not a multiple of the kv heads. The kernel's chunks: one for groups up to
+    refuses head dims other than 64/128/256/384/512 (96 among them:
+    ``takes_k4`` sends those to the plain decode attention; 16/2 heads of 512
+    it takes since the range repair), K1/K2 only head dims above 512
+    (narrower ones are zero-padded to the next built width), and both heads
+    that are not a multiple of the kv heads. The kernel's chunks: one for groups up to
     8 (padded to a power of two), two at 12 (8 + 4), each chunk at most 8
     query heads."""
     served = {name: spec for name, spec in BUILTIN_SPECS.items()
@@ -212,18 +213,22 @@ def test_shape_check_takes_every_served_spec():
     assert {"Qwen/Qwen3-14B", "meta-llama/Llama-3.2-3B", "zai-org/GLM-4.5-Air",
             "Qwen/Qwen3-30B-A3B", "Qwen/Qwen3-Next-80B-A3B-Instruct"} <= set(served)
     assert served["Qwen/Qwen3-Next-80B-A3B-Instruct"].head_dim == 256
-    for nh, nkv, hd in ((16, 8, 96), (12, 8, 128), (8, 0, 128), (16, 2, 512)):
+    for nh, nkv, hd in ((16, 8, 96), (12, 8, 128), (8, 0, 128), (16, 2, 640)):
         with pytest.raises(ValueError, match="decode_paged_attention"):
             check_shape(nh, nkv, hd)
-        if hd <= 256 and nkv and nh % nkv == 0:
+        if hd <= 512 and nkv and nh % nkv == 0:
             check_head_dim("flash_attn_fwd", hd, nh, nkv)
             continue
         with pytest.raises(ValueError, match="flash_attn_fwd"):
             check_head_dim("flash_attn_fwd", hd, nh, nkv)
-    for hd in (32, 96, 192):
+    # the widths of the range repairs: K4 at 384 and 512 (16/2 heads of 512 among
+    # them), K1/K2 at any head dim up to 512
+    for nh, nkv, hd in ((16, 2, 512), (8, 2, 384), (4, 4, 512)):
+        check_shape(nh, nkv, hd)
+    for hd in (32, 96, 192, 320, 384, 512):
         check_head_dim("flash_attn_bwd", hd, 8, 2)
-    for hd in (320, 384, 512):
-        with pytest.raises(ValueError, match="head_dim up to 256"):
+    for hd in (513, 640, 1024):
+        with pytest.raises(ValueError, match="head_dim up to 512"):
             check_head_dim("flash_attn_bwd", hd, 8, 2)
     assert [chunk_width(g) for g in (1, 2, 3, 4, 5, 6, 7, 8, 12)] == [1, 2, 4, 4, 8, 8, 8, 8, 8]
     assert [group_chunks(g) for g in (1, 2, 3, 4, 5, 6, 7, 8, 12, 16, 17)] == [

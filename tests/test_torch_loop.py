@@ -463,6 +463,57 @@ def test_colocated_lora_loop_serves_the_merge_and_keeps_the_base(tmp_path):
     assert _versions(out / "logs" / "colocated.out", "the engine serves ")[:2] == [0, 1]
 
 
+def test_vlm_loop_ships_and_trains_vision_inputs(tmp_path):
+    """``configs/debug/rl_vlm.toml`` (``debug_vlm`` and the dominant_color
+    image env, sync GRPO) through the port's launcher on the CPU, colocated,
+    for 3 steps over the filesystem transport: every shipped batch carries its
+    samples' ``mm_kwargs`` (pixels of ``patch_dim`` columns and their
+    ``image_grid_thw``, one vision block a sample), the trainer's records
+    hold the real patches it trained on (``mm_patches``), and the sampler
+    served every published version."""
+    from prime_rl_tpu_torch.models.base import get_spec
+    from prime_rl_tpu_torch.transport.filesystem import FSTrainingBatchReceiver
+
+    spec = get_spec("debug_vlm")
+    out, port = tmp_path / "run", _free_port()
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    overlay = tmp_path / "overlay.toml"
+    overlay.write_text(f"""[trainer.transport]
+type = "filesystem"
+[orchestrator.transport]
+type = "filesystem"
+[orchestrator.client]
+base_urls = ["http://127.0.0.1:{port}"]
+[inference.server]
+port = {port}
+""")
+    args = [sys.executable, "-m", "prime_rl_tpu_torch.entrypoints.rl",
+            f"@{REPO / 'configs' / 'debug' / 'rl_vlm.toml'}", f"@{overlay}", "--trainer.device",
+            "cpu", "--inference.device", "cpu", "--trainer.max-steps", "3",
+            "--orchestrator.max-steps", "3", "--output-dir", str(out)]
+    proc = subprocess.run(args, cwd=REPO, env=env, timeout=240, capture_output=True, text=True)
+    logs = "\n".join(p.read_text()[-3000:] for p in (out / "logs").glob("*.out"))
+    assert proc.returncode == 0, f"launcher rc={proc.returncode}\n{proc.stdout}\n{logs}"
+    for p in (out / "logs").glob("*.out"):
+        assert "Traceback" not in p.read_text(), f"error in {p.name}:\n{p.read_text()[-3000:]}"
+    trows = [json.loads(line) for line in (out / "trainer.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in trows] == [1, 2, 3] and all(np.isfinite(r["loss"]) for r in trows)
+    assert all(r["mm_patches"] > 0 for r in trows)
+    assert _versions(out / "logs" / "colocated.out", "the engine serves ")[:2] == [0, 1]
+    receiver = FSTrainingBatchReceiver(out)
+    shipped = 0
+    while (batch := receiver.receive(timeout=1.0)) is not None:
+        for sample in batch.examples:
+            mm = sample.mm_kwargs
+            assert mm is not None and mm["pixel_values"].shape[1] == spec.vision.patch_dim
+            grid = np.asarray(mm["image_grid_thw"])
+            assert grid.shape == (1, 3) and mm["pixel_values"].shape[0] == int(grid.prod())
+            assert (np.asarray(sample.token_ids) == spec.image_token_id).sum() >= int(
+                grid.prod()) // spec.vision.merge_unit
+        shipped += 1
+    assert shipped == 3
+
+
 @pytest.mark.slow
 def test_rl_moe_end_to_end(tmp_path):
     """The JAX package's ``tests/integration/test_rl_e2e.py::test_rl_moe_end_to_end``

@@ -160,12 +160,17 @@ def test_slot_order_is_the_inverse_of_the_selection():
 def test_kernel_wrappers_raise_for_what_the_kernels_do_not_take():
     """On a CUDA tensor the wrapper launches the kernels or raises: the width
     check comes before any launch, so it can run here. A width above the
-    built 576 raises; this file's narrower widths (Dq 160, v_dim 128) pass it
-    (the wrappers pad them) and stop at the device check."""
-    q = torch.zeros(4, H, 640, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="H % 8 == 0, Dq <= 576 and v_dim <= 512"):
-        tkernel._check_args(q, torch.zeros(4, 640, dtype=torch.bfloat16),
+    wide forms' 1152 raises; this file's narrower widths (Dq 160, v_dim 128)
+    and Dq 640 (the wide forms, padded to 1152) pass it and stop at the
+    device check."""
+    q = torch.zeros(4, H, 1280, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="H % 8 == 0, Dq <= 1152 and v_dim <= 1024"):
+        tkernel._check_args(q, torch.zeros(4, 1280, dtype=torch.bfloat16),
                             torch.zeros(4, 2, dtype=torch.int32), DV)
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        tkernel._check_args(torch.zeros(4, H, 640, dtype=torch.bfloat16),
+                            torch.zeros(4, 640, dtype=torch.bfloat16),
+                            torch.zeros(4, 2, dtype=torch.int32), 512)
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         tkernel._check_args(torch.zeros(4, H, DQ, dtype=torch.bfloat16),
                             torch.zeros(4, DQ, dtype=torch.bfloat16),
@@ -200,9 +205,14 @@ def test_kernel_widths_take_every_dsa_head_count_the_jax_kernel_takes(heads):
     assert tkernel.bwd_launches(4096, 2048, heads) == 8 * tkernel.padded_heads(heads) // 64
     tkernel.check_widths(spec.num_heads, 320, 256)
     tkernel.check_widths(spec.num_heads, dq, 256)
-    for bad in ((heads + 4, dq, dv), (heads, 640, dv), (heads, dq, 640), (heads, 320, 384),
-                (heads, dq, 200)):
-        with pytest.raises(ValueError, match="H % 8 == 0, Dq <= 576 and v_dim <= 512"):
+    # past 576/512 the wide forms take up to 1152/1024 (the built widths 1152/1024)
+    tkernel.check_widths(spec.num_heads, 640, dv)
+    tkernel.check_widths(spec.num_heads, 1152, 1024)
+    assert tkernel.built_widths(640, dv) == (1152, 1024)
+    assert tkernel.built_widths(dq, dv) == (576, 512)
+    for bad in ((heads + 4, dq, dv), (heads, 1280, dv), (heads, dq, 640), (heads, 320, 384),
+                (heads, dq, 200), (heads, 1152, 1152)):
+        with pytest.raises(ValueError, match="H % 8 == 0, Dq <= 1152 and v_dim <= 1024"):
             tkernel.check_widths(*bad)
 
 
@@ -463,14 +473,16 @@ def test_moe_mlp_raises_for_what_other_families_need():
     assert tmoe.grouped_product_impl(x) == "loop"
 
 
-def test_padded_widths_match_jax_pallas():
+@pytest.mark.parametrize("dq_w,dv", [(320, 256), (1152, 1024)])
+def test_padded_widths_match_jax_pallas(dq_w, dv):
     """The wrappers' column padding (``fwd_padded``, ``bwd_padded``) run
     around the plain versions at ``Dq`` 320 and ``v_dim`` 256 (q and kv
     padded to 576 columns, do to 512, the call made at v_dim 512, out sliced
-    to 256 and dq, dkv to 320) against the Pallas kernels in interpret mode at
-    the unpadded widths, values and gradients, float32 at 2e-4: the zero
-    columns add nothing to the scores, to dP or to dkv."""
-    S, Sk, T, heads, dq_w, dv = 24, 24, 12, 16, 320, 256
+    to 256 and dq, dkv to 320), and the wide forms' widths 1152 / 1024 (run
+    as they are), against the Pallas kernels in interpret mode at the
+    unpadded widths, values and gradients, float32 at 2e-4: the zero columns
+    add nothing to the scores, to dP or to dkv."""
+    S, Sk, T, heads = 24, 24, 12, 16
     rng = np.random.default_rng(17)
     q = rng.standard_normal((S, heads, dq_w)).astype(np.float32)
     kv = rng.standard_normal((Sk, dq_w)).astype(np.float32)

@@ -172,6 +172,37 @@ def test_k1_and_k4_match_jax_at_head_dim_256():
         np.testing.assert_array_equal(g.numpy()[:, 1:], np.asarray(w)[:, 1:])
 
 
+@pytest.mark.parametrize("hd", [384, 512])
+def test_k4_matches_jax_at_head_dims_384_and_512(hd):
+    """K4's widths of the range repair (Cfg<384>, Cfg<512>): its plain version
+    over ragged lengths, several pages and an inactive slot at GQA groups 4
+    and 1, against the Pallas kernel in interpret mode, at 2e-5; the pools
+    written exactly."""
+    from prime_rl_tpu_torch.ops.decode_attention import check_shape
+
+    rng = np.random.default_rng(hd)
+    s, ps, np_, p = 4, 8, 40, 8
+    for nh, nkv in ((8, 2), (2, 2)):
+        check_shape(nh, nkv, hd)
+        q = rng.standard_normal((s, nh, hd)).astype(np.float32)
+        k_new = rng.standard_normal((s, nkv, hd)).astype(np.float32)
+        v_new = rng.standard_normal((s, nkv, hd)).astype(np.float32)
+        k_pool = rng.standard_normal((nkv, np_, ps, hd)).astype(np.float32)
+        v_pool = rng.standard_normal((nkv, np_, ps, hd)).astype(np.float32)
+        table = np.zeros((s, p), np.int32)
+        for slot in range(3):  # slot 3 inactive: the null page
+            table[slot] = 1 + slot * p + np.arange(p)
+        lengths = np.asarray([40, 0, 63, 5], np.int32)
+        got = t_decode_attention(*(torch.from_numpy(a.copy())
+                                   for a in (q, k_new, v_new, k_pool, v_pool, lengths, table)))
+        want = j_decode_attention(
+            *(jnp.asarray(a) for a in (q, k_new, v_new, k_pool, v_pool, lengths, table)),
+            interpret=True)
+        _close(got[0][:3], np.asarray(want[0])[:3])
+        for g, w in zip(got[1:], want[1:]):
+            np.testing.assert_array_equal(g.numpy()[:, 1:], np.asarray(w)[:, 1:])
+
+
 def test_layer_ops_match_jax():
     rng = np.random.default_rng(3)
     x = rng.standard_normal((2, 5, 3, 16)).astype(np.float32)
@@ -210,13 +241,14 @@ def test_cuda_kernels_refuse_what_they_do_not_take():
     assert jax.default_backend() == "cpu"
 
 
-@pytest.mark.parametrize("hd", [32, 96, 192])
+@pytest.mark.parametrize("hd", [32, 96, 192, 320, 512])
 def test_k1_padded_head_dims_match_jax_pallas(hd):
     """The K1 wrapper's head-dim padding (``fwd_padded``: q, k, v zero-padded
-    to the next built width, 64, 128 or 256, the true head dim's scale, out
-    sliced back) run around the plain version, against the Pallas kernel in
-    interpret mode at the true head dim, f32 at 2e-5: a zero column adds 0 to
-    every score, so out and lse do not change."""
+    to the next built width, 64, 128, 256, 384 or 512, the true head dim's
+    scale, out sliced back; 512 runs as it is) run around the plain version,
+    against the Pallas kernel in interpret mode at the true head dim, f32 at
+    2e-5: a zero column adds 0 to every score, so out and lse do not
+    change."""
     from prime_rl_tpu_torch.ops import flash_attention as tflash
 
     rng = np.random.default_rng(hd)
@@ -226,7 +258,7 @@ def test_k1_padded_head_dims_match_jax_pallas(hd):
     v = rng.standard_normal((b, l, nkv, hd)).astype(np.float32)
     seg = _packed_segments()
     tq, tk, tv, tseg = map(torch.from_numpy, (q, k, v, seg))
-    assert tflash.padded_head_dim(hd) == {32: 64, 96: 128, 192: 256}[hd]
+    assert tflash.padded_head_dim(hd) == {32: 64, 96: 128, 192: 256, 320: 384, 512: 512}[hd]
     out, lse = tflash.fwd_padded(tflash.flash_attention_reference, tq, tk, tv, tseg, tseg, True,
                                  hd ** -0.5)
     assert out.shape == q.shape

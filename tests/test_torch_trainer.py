@@ -231,8 +231,14 @@ def test_prepare_batch_matches_jax():
     assert all(r.tokens() <= 64 for r in rows)
     with pytest.raises(ValueError):
         tbatch.balance_rows(rows, 1, capacity=1)
-    with pytest.raises(NotImplementedError):
-        tbatch.prepare_batch(t_samples, 64, 2, 4, vlm_spec=object())
+    # with a VLM spec a text-only batch carries the vision streams too: an
+    # empty patch buffer, no image slot, sequential mRoPE positions
+    from prime_rl_tpu.models.base import get_spec as j_get_spec
+
+    t_vlm = tbatch.prepare_batch(t_samples, 64, 2, 4, vlm_spec=get_spec("debug_vlm"))
+    _assert_batches_equal(t_vlm, jbatch.prepare_batch(j_samples, 64, 2, 4,
+                                                      vlm_spec=j_get_spec("debug_vlm")))
+    assert t_vlm.mm_patches.shape[1] == 256 and (t_vlm.mm_img_slot == -1).all()
     # the wire format is the JAX package's
     back = decode(encode(t_samples[1]))
     assert np.array_equal(back.token_ids, t_samples[1].token_ids)
