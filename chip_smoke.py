@@ -1746,20 +1746,23 @@ def k5_edge_cases(gen) -> tuple[int, float, float]:
 
 
 # K5a/K5b at the wide widths (name, Dq, v_dim, S, Sk, T, layout, empty token,
-# heads): the instance's own 1152/1024 and 640/512, zero-padded to it
+# heads): the instance's own 1152/1024 and 640/512, zero-padded to it; 24
+# heads are the wide K5b's two groups of 16, the second of 8 real heads
 K5_WIDE_CASES = (
     ("Dq 1152 / v_dim 1024", 1152, 1024, 300, 300, 100, "causal", 7, 16),
     ("Dq 640 / v_dim 512", 640, 512, 256, 256, 128, "scattered", 3, 32),
+    ("Dq 1152 / v_dim 1024, 24 heads", 1152, 1024, 260, 260, 150, "scattered", 11, 24),
 )
 
 
 def k5_wide_case(gen, name: str, dq_w: int, dv: int, S: int, Sk: int, T: int, layout: str,
                  empty, heads: int) -> tuple[float, float]:
     """K5a and K5b at one of K5_WIDE_CASES against the plain versions at those
-    widths (K5B_TOL; lse within 1e-3), each twice for equal bits, their tile
-    counts (of WIDE_FWD_TILE and WIDE_BWD_TILE slots) against the mirror, out
-    and dq 0 for the token that selected nothing. Returns (max error of out,
-    of dq and dkv)."""
+    widths (K5B_TOL; lse within 1e-3; K5b against the plain backward over its
+    groups of WIDE_HEADS heads, ``sparse_mla_grouped_reference``), each twice
+    for equal bits, their tile counts (of WIDE_FWD_TILE and WIDE_BWD_TILE
+    slots) against the mirror, out and dq 0 for the token that selected
+    nothing. Returns (max error of out, of dq and dkv)."""
     import torch
 
     from prime_rl_tpu_torch.ops import sparse_mla_kernel as K
@@ -1781,7 +1784,7 @@ def k5_wide_case(gen, name: str, dq_w: int, dv: int, S: int, Sk: int, T: int, la
             and all(torch.equal(a, b) for a, b in zip(grads, again))):
         raise AssertionError(f"sparse_mla at {name}: two runs differ")
     ref_out, ref_lse = K.sparse_mla_attention_reference(q, kv, idx, scale, dv)
-    ref = K.sparse_mla_backward_reference(q, kv, idx, out, lse, do, scale, dv)
+    ref = K.sparse_mla_grouped_reference(q, kv, idx, scale, dv, do=do, out=out, lse=lse)[2:]
     err_a = check_close(f"sparse_mla_fwd out at {name}", out, ref_out, K5B_TOL, K5B_TOL)
     check_close(f"sparse_mla_fwd lse at {name}", lse, ref_lse, 1e-3, 0.0)
     err_b = max(check_close(f"sparse_mla_bwd {what} at {name}", g, r, K5B_TOL, K5B_TOL)
@@ -1808,8 +1811,17 @@ def sparse_mla_build_report() -> None:
 
     lib = _build.load("sparse_mla")
     spills = []
-    for kernel, name in ((3, "K5a at 1152/1024"), (4, "K5b at 1152/1024"),
-                         (2, "the dkv reduction at 576"), (5, "the dkv reduction at 1152")):
+    wide = wide_bwd_build()
+    log(f"K5b at 1152/1024 build: {wide['registers']} registers a thread ({wide['threads']} "
+        f"threads a block, {wide['blocks_per_sm']} blocks an SM), local memory (spills) "
+        f"{wide['local_bytes']} bytes a thread, shared memory {wide['smem_bytes']} bytes dynamic "
+        f"a block, tiles of {K.WIDE_BWD_TILE} slots, {K.WIDE_HEADS} heads a launch")
+    if wide["local_bytes"]:
+        spills.append("K5b at 1152/1024")
+    if lib.sparse_mla_bwd_wide_heads() != K.WIDE_HEADS:
+        raise AssertionError("the wide K5b's heads a launch differ from the wrapper's WIDE_HEADS")
+    for kernel, name in ((3, "K5a at 1152/1024"), (2, "the dkv reduction at 576"),
+                         (5, "the dkv reduction at 1152")):
         attrs = (ctypes.c_int * 4)()
         _build.check("sparse_mla", lib.sparse_mla_attributes(kernel, attrs))
         regs, local, static, threads = attrs
@@ -1837,6 +1849,51 @@ def sparse_mla_build_report() -> None:
                              f"wrapper's FWD_TILE is {K.FWD_TILE}")
     if spills:
         raise AssertionError(f"{' and '.join(spills)} use local memory: registers spill")
+
+
+def wide_bwd_build() -> dict:
+    """The wide K5b as the runtime loaded it: registers and local memory a
+    thread, threads and dynamic shared memory a block, blocks an SM."""
+    import ctypes
+
+    from prime_rl_tpu_torch.ops import _build
+
+    lib = _build.load("sparse_mla")
+    attrs = (ctypes.c_int * 4)()
+    _build.check("sparse_mla", lib.sparse_mla_attributes(4, attrs))
+    regs, local, _, threads = attrs
+    return dict(registers=regs, local_bytes=local, threads=threads,
+                smem_bytes=lib.sparse_mla_bwd_wide_smem(),
+                blocks_per_sm=lib.sparse_mla_bwd_wide_blocks_per_sm())
+
+
+def k5b_wide_own_ms(q, kv, idx, out, lse, do, scale: float, flush) -> tuple[float, int]:
+    """The wide K5b's own launches of one backward call (every chunk and
+    group of WIDE_HEADS heads, as ``sparse_mla_bwd`` makes them) without the
+    reductions, the wrapper's delta or the slot orders, timed by CUDA events
+    with the L2 flushed before each pass. Returns (ms, launches a pass)."""
+    import torch
+
+    from prime_rl_tpu_torch.ops import sparse_mla_kernel as K
+
+    S, H = q.shape[:2]
+    T = idx.shape[1]
+    delta = (out.float() * do).sum(dim=-1).contiguous()
+    dq = torch.empty_like(q)
+    chunk = K.bwd_chunk(S, T, K.DQ_WIDE)
+    dkvg = torch.empty((chunk, T, K.DQ_WIDE), dtype=torch.bfloat16, device=q.device)
+    calls = [(slice(c0, min(c0 + chunk, S)), h0) for c0 in range(0, S, chunk)
+             for h0 in range(0, H, K.WIDE_HEADS)]
+
+    def launches():
+        for sl, h0 in calls:
+            K.sparse_mla_bwd_wide_chunk(q[sl], kv, idx[sl], do[sl], lse[sl], delta[sl], dq[sl],
+                                        dkvg, scale, h0=h0)
+
+    ms = time_ms(launches, iters=5, warmup=1, flush=flush)
+    del dkvg, dq
+    torch.cuda.empty_cache()
+    return ms, len(calls)
 
 
 def selection_mask(kv, idx):
@@ -4980,15 +5037,20 @@ def k5_wide_timing(gen, flush) -> tuple[dict, dict]:
                 for w, g, r in zip(("dq", "dkv"), (dq, dkv), ref))
     del ref_out, ref
     fwd_ms = time_ms(lambda: K.sparse_mla_fwd(q, kv, idx, scale, dv), iters=5, flush=flush)
-    bwd_ms = time_ms(lambda: K.sparse_mla_bwd(q, kv, idx, out, lse, do, scale, dv), iters=3,
-                     warmup=1)
+    bwd_ms = time_ms(lambda: K.sparse_mla_bwd(q, kv, idx, out, lse, do, scale, dv), iters=10,
+                     warmup=2)
+    own_ms, own_launches = k5b_wide_own_ms(q, kv, idx, out, lse, do, scale, flush)
+    tiles = K.sparse_mla_bwd_tile_counts(q, kv, idx, out, lse, do, scale, dv)
+    shape = f"S=Sk={S} T={T} pairs={pairs} H={H} Dq {dq_w} / v_dim {dv}"
+    visited = sparse_mla_tiles("sparse_mla_bwd", f"(wide) {shape}", tiles, idx, S,
+                               K.WIDE_BWD_TILE)
+    build = wide_bwd_build()
     fwd_plain = time_ms(lambda: K.sparse_mla_attention_reference(q, kv, idx, scale, dv), iters=2,
                         warmup=1)
     bwd_plain = time_ms(lambda: K.sparse_mla_backward_reference(q, kv, idx, out, lse, do, scale,
                                                                  dv), iters=2, warmup=1)
     fwd_lib, fwd_note = k5a_library_ms(q, kv, idx, scale, flush, dv)
     bwd_lib, bwd_note = k5b_library_ms(q, kv, idx, do, scale, flush, dv)
-    shape = f"S=Sk={S} T={T} pairs={pairs} H={H} Dq {dq_w} / v_dim {dv}"
     rows = []
     for label, ms, plain, lib, note, nbytes, flops, err in (
             ("K5a sparse_mla_fwd (wide)", fwd_ms, fwd_plain, fwd_lib, fwd_note,
@@ -5003,6 +5065,14 @@ def k5_wide_timing(gen, flush) -> tuple[dict, dict]:
             f"({by})")
         rows.append(dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
                          library=note, bound_ms=bms, bound_by=by))
+    n_tiles = tiles.shape[0] * -(-T // K.WIDE_BWD_TILE)
+    rows[1].update(own_ms=own_ms, own_launches=own_launches,
+                   tiles=f"{visited} of {n_tiles} (kernel's count = the mirror's)", build=build)
+    log(f"K5b sparse_mla_bwd (wide) {shape}: its own {own_launches} launches {own_ms:.4f} ms "
+        f"(L2 flushed; the call {bwd_ms:.4f} ms), tiles of {K.WIDE_BWD_TILE} visited {visited} "
+        f"of {n_tiles}, {build['registers']} registers, {build['local_bytes']} bytes of local "
+        f"memory, {build['smem_bytes']} bytes of shared memory, {build['blocks_per_sm']} blocks "
+        "an SM")
     del q, kv, do, idx, out, lse, dq, dkv
     torch.cuda.empty_cache()
     return rows[0], rows[1]

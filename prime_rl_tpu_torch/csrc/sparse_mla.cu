@@ -1180,37 +1180,110 @@ sparse_mla_dkv_reduce_kernel(const bf16* __restrict__ dkvg, const long long* __r
 // K5a / K5b at the wide widths: Dq 1152, Dv 1024 (twice the MLA widths; the
 // wrapper zero-pads any Dq in (576, 1152] and v_dim <= 1024 to them)
 // ---------------------------------------------------------------------------
-// A plain SIMT form. At these widths a token's 64-head q panel alone (147 KB)
-// leaves no room for the wgmma forms' kv stages, so it takes groups of eight
-// heads (H % 8 == 0: no head is padded) and tiles of a few gathered rows in
-// shared memory (rows of Dq + 8 bf16, 16 bytes of skew), f32 dot products and
-// f32 accumulators in registers, every sum in one fixed order.
-//   K5a: a block a (token, group of 8 heads), tiles of 16 slots: s by pairs
-//        of threads (halves of a row, one shuffle), the online softmax one
-//        warp a head in base 2 with the running max floored at -1e30, bf16(p)
-//        into shared memory, and o in registers (two channel pairs a thread a
-//        head). out = o / max(l, 1e-30), lse = max(m, -5e29) + log(max(l,
-//        1e-30)), as the 576 form.
-//   K5b: a block a token, tiles of 8 slots, the token's groups of 8 heads in
-//        turn over each gathered tile: s and dp by pairs of threads, p and ds
-//        into shared memory, dq added into an f32 scratch row of the token
-//        (zero from the wrapper; each element always by the same thread) and
-//        turned into bf16 at the token's end, and each slot's dkvg row summed
-//        over all the token's heads in registers, written once as bf16 (a
-//        slot's row holds every head: the plain version's rounding). The dkv
-//        reduction is the 576 one at width 1152.
-// What bounds them: the operations, on the f32 units; this form is right,
-// not fast.
+// At these widths a token's 64-head q panel alone (147 KB) leaves no room for
+// the 576 forms' kv stages, so both wide forms take fewer heads a block.
+//   K5a: a plain SIMT form. A block a (token, group of 8 heads; H % 8 == 0:
+//        no head is padded), tiles of 16 gathered rows in shared memory (rows
+//        of Dq + 8 bf16, 16 bytes of skew), s by pairs of threads (halves of
+//        a row, one shuffle), the online softmax one warp a head in base 2
+//        with the running max floored at -1e30, bf16(p) into shared memory,
+//        and o in registers (two channel pairs a thread a head). out = o /
+//        max(l, 1e-30), lse = max(m, -5e29) + log(max(l, 1e-30)), as the 576
+//        form. What bounds it: the operations, on the f32 units; it is right,
+//        not fast (it beats one SDPA call all the same).
+//   K5b: redesigned for Hopper (`sparse_mla_bwd_wide_kernel`, below). It
+//        replaces `_bwd_kernel` (prime_rl_tpu/ops/sparse_mla_pallas.py:153)
+//        at these widths. What bounds it, at S = Sk = 2048 and T = 512 with a
+//        causal top-k (917,760 selected pairs) and 16 heads: the products
+//        (0.162 TFLOP: 0.163 ms at 989 TFLOP/s), then the per-slot dkvg rows
+//        it writes and the dkv reduction reads back (2.1 GB each way: about
+//        1.3 ms at 3.35 TB/s for the call), which no form that keeps the dkvg
+//        buffer goes below. The SIMT form it replaces (27.1 ms for the call)
+//        ran its products on the f32 units from bf16 pairs in shared memory,
+//        sent dq through an f32 scratch row in device memory every tile and
+//        loaded q and do again every tile. The design:
+//        - A block a token of the chunk (the last token first: the heaviest
+//          under a causal selection) and a group of HG = 16 heads. The
+//          wrapper launches a chunk's groups in ascending order, each
+//          followed by the dkv reduction (as the 576 form), so each slot's
+//          dkvg row is summed over a group's heads and rounded once. A last
+//          group of 8 (H % 16 == 8) is half zero: TMA fills the heads past H
+//          with zeros and their p and ds are 0. The token's q [16, 1152] and
+//          do [16, 1024] come once by TMA (64 x 16 boxes in the 128-byte
+//          swizzle) and stay for all its tiles; panel box b holds q's 16 rows
+//          and then do's, so [q; do] is one 32-row K-major operand.
+//        - A tile is BT = 64 slots (a tile of sentinels only is neither
+//          gathered nor computed; the visited tiles are counted). It lies in
+//          shared memory as 18 boxes of 64 slots x 64 channels, and
+//          warpgroup w gathers, reads and frees the boxes 9 w .. 9 w + 8
+//          (channels [576 w, 576 w + 576)) alone. Two whole tiles (295 KB) do
+//          not fit beside the panels, so the boxes are a ring of 18 box
+//          stages: as soon as phase 2 has freed box b of a tile (its dq
+//          product read it, its dkvg rows left it), the warpgroup gathers box
+//          b of the next visited tile into it by 16-byte cp.async (one commit
+//          group a box; a sentinel slot reads nothing and lands as zeros).
+//          That gather runs under the rest of phase 2 and under the next
+//          tile's phase 1, which waits for its boxes one by one. Each
+//          selected row is read from L2 once, not twice.
+//        - Phase 1, slots on M and heads on N: [s^T | dp^T] [64 slots x 32] =
+//          kvg [q; do]^T, wgmma m64n32k16 with both operands K-major over the
+//          warpgroup's 576 channels (m64n16, q alone, over channels 1024 ..
+//          1151). Warpgroup 1 hands its f32 partial to warpgroup 0 through
+//          shared memory, and 0 adds it (a fixed order), forms p = 2^(s scale
+//          log2e - lse log2e) (0 where masked) and ds = p (dp - delta) scale
+//          in the registers that hold them (a thread holds s and dp of the
+//          same pairs), and stores bf16(p) and ds as [16 heads][64 slots]
+//          boxes, which serve as K-major B and MN-major A alike.
+//        - Phase 2, box by box over the warpgroup's 9 boxes: dq^T [64
+//          channels x 16 heads] += kvg^T ds^T (m64n16k16 x 4, kvg MN-major,
+//          ds K-major), the token's dq^T kept in registers across its tiles
+//          (72 a thread) and rounded once at its end; dkvg [64 slots x 64
+//          channels] = ds^T q + bf16(p)^T do (m64n64k16, one k step each: K
+//          is the 16 heads; all operands MN-major), rounded to bf16 into the
+//          consumed box and sent out by one TMA store (a 3-D map over [C, T,
+//          1152]: rows past T are clipped). A sentinel slot's row is written
+//          as zeros and never read.
+//        Which product takes which instruction: all four are wgmma, whose M
+//        of 64 rows is the tile's slots (s, dp, dkvg) or a box's channels
+//        (dq), with the 16 heads on N (s, dp, dq) or on K (dkvg); mma.sync's
+//        m16 would put the heads on M and read the kv tile once for every
+//        16 heads and q and do once for every 8 slots.
+//        No atomics (the tile bits too are whole words from ballots): every
+//        dq and dkvg element is written once, from sums in a fixed order, so
+//        two runs give equal bits. Shared memory (bytes):
+//        panels 69,632 + the tile 147,456 + p and ds 4,096 + the f32 hand-off
+//        8,192 + lse and delta 128, tile bits 512, the mbarrier 16, + 1,024 of
+//        alignment slack = 231,056 of the 232,448 a block may use.
+//        Measured (chip_smoke.py's range-repairs and
+//        scripts/torch_sparse_mla_bench.py --wide at the shape above; an
+//        NVIDIA H100 80GB HBM3 at 700 W): 176 registers, no spills, 1 block an
+//        SM; the call 2.33-2.40 ms (the SIMT form: 27.10), of which K5b's own
+//        launches 1.01-1.06 ms and the reductions, delta and slot orders the
+//        rest; without the dkvg stores (-DK5W_NO_STORES, a wrong dkv) 0.79 ms.
+//        Phase clocks a tile (--timeline): about 16.4k in all, phase 2 11.4k
+//        (its products, the staging, the stores' reads and the barriers),
+//        phase 1 2.1k, the hand-off 1.0-1.3k, the token's start 1.1-1.3k and
+//        its dq 0.5-0.8k. Tried in turns with this form and not kept, none
+//        faster: box k + 1's products issued before box k is staged (and 22
+//        more registers), the next tile's box gathered two or three boxes
+//        behind, the two dkvg terms summed apart in f32, phase 1 summed a box
+//        at a time in f32. Numerics: a token that selected one row has p = 1,
+//        so its dkvg row sum_h do_h is exact and lies on a bf16 tie in a few
+//        percent of its channels; the tie is broken by the f32 noise of ds^T
+//        q (ds about 1e-7), here and in the plain version each its own way.
+//        Where a few hundred such rows cancel in dkv, one bf16 step of a row
+//        can exceed K5B_TOL's 2e-2 + 2e-2 |ref| (the bench's --wide --seeds
+//        counts how often). The SIMT form added each head's term into its
+//        running f32 sum, which rounds noise of that size away.
+// The dkv reduction is the 576 one at width 1152.
 namespace k5w {
 
 constexpr int DQW = 1152, DVW = 1024;
-constexpr int HG = 8;                  // heads a group
-constexpr int FWD_BT = 16, BWD_BT = 8;  // slots a tile
+constexpr int HG = 8;         // heads a group of K5a
+constexpr int FWD_BT = 16;    // slots a tile of K5a
 constexpr int THREADS = 256;
-constexpr int PITCH = DQW + 8, DPITCH = DVW + 8;
+constexpr int PITCH = DQW + 8;
 constexpr int FWD_BYTES = (HG + FWD_BT) * PITCH * 2;
-constexpr int BWD_BYTES = (HG + BWD_BT) * PITCH * 2 + HG * DPITCH * 2;
-constexpr int PAIRS = DQW / 2;  // channel pairs of a row
 constexpr float M_FLOOR = -1e30f;
 
 // n rows of width w: row r from src + rows[r] * w (zeros where rows[r] < 0),
@@ -1362,115 +1435,437 @@ sparse_mla_fwd_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   }
 }
 
-__global__ void __launch_bounds__(k5w::THREADS, 1)
-sparse_mla_bwd_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
-                           const int* __restrict__ indices, const bf16* __restrict__ dout,
-                           const float* __restrict__ lse, const float* __restrict__ delta,
-                           bf16* __restrict__ dq, float* __restrict__ dq32,
-                           bf16* __restrict__ dkvg, int* tiles, int C, int Sk, int T, int H,
+namespace k5bw {
+
+constexpr int DQW = 1152, DVW = 1024;
+constexpr int HG = 16;                    // heads a launch: the N of s, dp and dq, the K of dkvg
+constexpr int BT = 64;                    // slots a tile: the M of s, dp and dkvg
+constexpr int THREADS = 256;              // two warpgroups, each owning half of the channels
+constexpr int BOXES = DQW / 64;           // 64-channel boxes of a kv row: 18
+constexpr int OBOXES = DVW / 64;          // of a do row: 16
+constexpr int WBOXES = BOXES / 2;         // a warpgroup's boxes: 9
+constexpr int KV_BOX = BT * 128;          // a box of the tile: 64 slots x 128 bytes
+constexpr int Q_BOX = HG * 128;           // a box of q or of do: 16 heads x 128 bytes
+constexpr int PD_BYTES = HG * BT * 2;     // p or ds: [16 heads][64 slots] bf16, one box
+constexpr int WIN = 4096;                 // tiles a scan window (one bit each)
+
+// Offsets into the block's dynamic shared memory after its 1024-byte
+// alignment; every box is 128-byte-swizzled and 1024-aligned. Panel box b <
+// 16 holds q's 16 rows and then do's (4 KB); boxes 16, 17 q's alone.
+constexpr int panel_off = 0;
+constexpr int kv_off = panel_off + OBOXES * 2 * Q_BOX + (BOXES - OBOXES) * Q_BOX;
+constexpr int p_off = kv_off + BOXES * KV_BOX;   // bf16(p)
+constexpr int ds_off = p_off + PD_BYTES;         // ds
+constexpr int x_off = ds_off + PD_BYTES;         // f32 [4][128] float4: warpgroup 1's partials
+constexpr int rv_off = x_off + 4 * 128 * 16;     // f32 [2][16]: lse (log2 units), delta
+constexpr int flag_off = rv_off + 2 * HG * 4;    // uint32 [WIN / 32]: tiles with a real index
+constexpr int bar_off = flag_off + WIN / 8;      // the panels' mbarrier
+constexpr int BYTES = bar_off + 16 + 1024;       // + the alignment slack
+static_assert(BYTES <= 232448, "the wide K5b's shared memory exceeds what a block may use");
+static_assert(BOXES == 2 * WBOXES && OBOXES > WBOXES, "warpgroup 0's boxes all hold do");
+
+// panel box b's byte offset
+__host__ __device__ constexpr int panel_box(int b) {
+  return b < OBOXES ? panel_off + b * 2 * Q_BOX : panel_off + OBOXES * 2 * Q_BOX + (b - OBOXES) * Q_BOX;
+}
+
+}  // namespace k5bw
+
+// D[64 x 16] (+)= A[64 x 16] B[16 x 16]^T, A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 16] += A[64 x 16] B[16 x 16], A MN-major and B K-major in shared memory
+__device__ __forceinline__ void wgmma_n16_mnk(float (&d)[8], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B MN-major in shared memory
+__device__ __forceinline__ void wgmma_n64_mnmn(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// a box of a 3-D tensor map into shared memory (completion on `bar`), and
+// from shared memory to global in this thread's bulk group
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(src), "r"(c0), "r"(c1), "r"(c2)
+               : "memory");
+}
+
+// waits until at most n of this thread's cp.async groups are pending (n
+// folds to a constant where the caller's loop is unrolled)
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    case 7: cp_async_wait<7>(); break;
+    default: cp_async_wait<8>(); break;
+  }
+}
+
+// bf16(v) at the byte address of (row h, column s) of a [16][64] bf16 box
+// in the 128-byte swizzle
+__device__ __forceinline__ void st_pd128(uint32_t base, int h, int s, float v) {
+  const uint32_t addr = base + h * 128 + ((((s >> 3) ^ (h & 7))) << 4) + (s & 7) * 2;
+  asm volatile("st.shared.b16 [%0], %1;\n" ::"r"(addr), "h"(__bfloat16_as_ushort(__float2bfloat16(v)))
+               : "memory");
+}
+
+// One box of the wide K5b's phase 1 (k: the warpgroup's k-th, at `kvbox`
+// in the tile and `panel` in the panels): wait for this thread's cp.async
+// groups up to it, fence them for the tensor cores, the warpgroup's barrier,
+// then [s^T | dp^T] += kvg [q; do]^T over its 64 channels (with_do) or s^T
+// += kvg q^T (channels 1024 .. 1151, where do has none), committed, not
+// waited
+template <bool WITH_DO>
+__device__ __forceinline__ void k5w_phase1_box(float (&acc)[16], int k, int wg, uint32_t kvbox,
+                                               uint32_t panel) {
+  cp_async_wait_n(k5bw::WBOXES - 1 - k);
+  fence_async_smem();
+  bar_sync(1 + wg, 128);
+  const uint64_t ad = smem_desc(kvbox, 16, 1024);  // K-major: +32 bytes a k16 step
+  const uint64_t bd = smem_desc(panel, 16, 1024);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if constexpr (WITH_DO)
+      wgmma_ss_n32(acc, ad + 2 * kk, bd + 2 * kk, k > 0 || kk > 0);
+    else
+      wgmma_ss_n16(*reinterpret_cast<float(*)[8]>(&acc[0]), ad + 2 * kk, bd + 2 * kk, 1);
+  }
+  wgmma_commit();
+}
+
+// One box of the wide K5b's phase 2, its products: dq^T [its 64 channels x 16
+// heads] += kvg^T ds^T (kvg MN-major: +2048 bytes a k16 step of 16 slots; ds
+// K-major), and g = dkvg [64 slots x its 64 channels] = ds^T q (+ bf16(p)^T
+// do, with_do), one k16 step each over the 16 heads, all MN-major; waited
+template <bool WITH_DO>
+__device__ __forceinline__ void k5w_phase2_products(float (&dqk)[8], float (&g)[32], uint32_t kvbox,
+                                                    uint32_t ds_s, uint32_t p_s, uint32_t panel) {
+  const uint64_t a_kv = smem_desc(kvbox, k5bw::KV_BOX, 1024);
+  const uint64_t b_ds = smem_desc(ds_s, 16, 1024);
+  const uint64_t a_ds = smem_desc(ds_s, k5bw::PD_BYTES, 1024);
+  const uint64_t b_q = smem_desc(panel, k5bw::Q_BOX, 1024);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_n16_mnk(dqk, a_kv + 128 * kk, b_ds + 2 * kk);
+  wgmma_n64_mnmn(g, a_ds, b_q, 0);
+  if constexpr (WITH_DO)  // do's rows follow q's in the panel box
+    wgmma_n64_mnmn(g, smem_desc(p_s, k5bw::PD_BYTES, 1024), b_q + (k5bw::Q_BOX >> 4), 1);
+  wgmma_commit();
+  wgmma_wait_all();
+  pin(g);
+  pin(dqk);
+}
+
+// ---- the wide K5b's phase clocks (scripts/torch_sparse_mla_bench.py --wide
+// --timeline builds with SPARSE_MLA_TIMELINE; the port's build compiles them
+// out): thread 0 of each warpgroup adds the clocks since its previous mark to
+// its block's slot of the phase, and counts its tiles in slot K5W_MARKS
+#ifdef SPARSE_MLA_TIMELINE
+constexpr int K5W_MARKS = 5;
+__device__ unsigned long long k5w_timeline[1024 * 2 * (K5W_MARKS + 1)];
+#define K5W_MARK_INIT() unsigned tl_prev = clock()
+#define K5W_MARK(i)                                                                        \
+  do {                                                                                     \
+    if (wt == 0 && blockIdx.x < 1024) {                                                    \
+      const unsigned now_ = clock();                                                       \
+      unsigned long long* slot_ = k5w_timeline + (blockIdx.x * 2 + wg) * (K5W_MARKS + 1);  \
+      atomicAdd(slot_ + (i), (unsigned long long)(now_ - tl_prev));                       \
+      if ((i) == 3) atomicAdd(slot_ + K5W_MARKS, 1ull);                                    \
+      tl_prev = now_;                                                                      \
+    }                                                                                      \
+  } while (0)
+#else
+#define K5W_MARK_INIT() \
+  do {                  \
+  } while (0)
+#define K5W_MARK(i) \
+  do {              \
+  } while (0)
+#endif
+
+__global__ void __launch_bounds__(k5bw::THREADS, 1)
+sparse_mla_bwd_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_do,
+                           const __grid_constant__ CUtensorMap tm_dkvg, const bf16* __restrict__ kv,
+                           const int* __restrict__ indices, const float* __restrict__ lse,
+                           const float* __restrict__ delta, bf16* __restrict__ dq,
+                           int* __restrict__ tiles, int C, int Sk, int T, int H, int h0,
                            float scale) {
-  using namespace k5w;
-  constexpr int BT = BWD_BT;
-  constexpr int CP = (PAIRS + THREADS - 1) / THREADS;  // channel pairs a thread: 3
-  extern __shared__ __align__(16) uint8_t wide_smem[];
-  bf16* qs = reinterpret_cast<bf16*>(wide_smem);
-  bf16* kvs = qs + HG * PITCH;
-  bf16* dos = kvs + BT * PITCH;
-  __shared__ float p_s[HG][BT], ds_s[HG][BT];
-  __shared__ float lse_s[HG], delta_s[HG];
-  __shared__ int rows[BT];
-  const int s = blockIdx.x, tid = threadIdx.x;
+  using namespace k5bw;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sbase = smem_u32(smem);
+  float4* xs = reinterpret_cast<float4*>(smem + x_off);
+  float* rv = reinterpret_cast<float*>(smem + rv_off);
+  uint32_t* flags = reinterpret_cast<uint32_t*>(smem + flag_off);
+  const uint32_t bar = sbase + bar_off;
+
+  const int tid = threadIdx.x, wt = tid % 128, warp = tid / 32, lane = tid % 32;
+  // the warpgroup, broadcast from lane 0: the compiler then knows a branch on
+  // it is warp-uniform, and does not serialize the wgmmas inside it
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int lr = 16 * (wt / 32) + lane / 4;  // this thread's rows lr, lr + 8 of a 64-row tile
+  // a gathering thread moves the 16-byte chunk `part` of rows grow + 16 k (k < 4) of a box:
+  // 8 threads a row, so each warp instruction reads four whole 128-byte lines
+  const int grow = wt / 8, part = wt % 8;
   const float sl2 = scale * LOG2E;
-  const int* idx_row = indices + (size_t)s * T;
   const int n_tiles = (T + BT - 1) / BT;
+  const int c = C - 1 - blockIdx.x;  // under a causal selection the late tokens hold the most tiles
+  const int* irow = indices + (size_t)c * T;
+
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (tid < HG) {  // the group's lse (log2 units) and delta; 0 for a head past H
+    const bool real = h0 + tid < H;
+    rv[tid] = real ? lse[(size_t)c * H + h0 + tid] * LOG2E : 0.f;
+    rv[HG + tid] = real ? delta[(size_t)c * H + h0 + tid] : 0.f;
+  }
+  __syncthreads();
+  K5W_MARK_INIT();
+  if (tid == THREADS - 32) {  // the token's panels, once (heads past H land as zeros)
+    mbar_arrive_expect_tx(bar, (BOXES + OBOXES) * Q_BOX);
+    for (int b = 0; b < BOXES; ++b) tma_load_3d(sbase + panel_box(b), &tm_q, bar, b * 64, h0, c);
+    for (int b = 0; b < OBOXES; ++b)
+      tma_load_3d(sbase + panel_box(b) + Q_BOX, &tm_do, bar, b * 64, h0, c);
+  }
+
+  float dqa[WBOXES][8];  // dq^T of the warpgroup's boxes: [64 channels x 16 heads] each
+#pragma unroll
+  for (int k = 0; k < WBOXES; ++k)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) dqa[k][i] = 0.f;
   int visited = 0;
-  for (int t = 0; t < n_tiles; ++t) {
-    if (!tile_rows(idx_row, t * BT, BT, T, Sk, rows)) continue;
-    ++visited;
-    load_rows(kvs, kv, rows, BT, DQW, PITCH);
-    float ag[BT][CP][2];  // this tile's dkvg rows: [slot][channel pair tid + 256 c][2]
+
+  for (int w0 = 0; w0 < n_tiles; w0 += WIN) {
+    const int nw = min(WIN, n_tiles - w0);
+    // one bit a tile: does it hold a real index? Warp w builds the words w,
+    // w + 8, ... of 32 tiles each, eight tiles' loads in flight, one ballot a
+    // tile, and stores each word whole (every thread is past its last read
+    // of the previous window's)
+    if (w0 > 0) __syncthreads();
+    for (int wd = warp; wd < (nw + 31) / 32; wd += THREADS / 32) {
+      uint32_t bits = 0;
+      for (int b0 = 0; b0 < 32 && wd * 32 + b0 < nw; b0 += 8) {
+        int v[8][2];
 #pragma unroll
-    for (int jj = 0; jj < BT; ++jj)
+        for (int k = 0; k < 8; ++k) {
+          const int t = wd * 32 + b0 + k;
 #pragma unroll
-      for (int c = 0; c < CP; ++c) ag[jj][c][0] = ag[jj][c][1] = 0.f;
-    for (int h0 = 0; h0 < H; h0 += HG) {
-      load_rows(qs, q + ((size_t)s * H + h0) * DQW, nullptr, HG, DQW, PITCH);
-      load_rows(dos, dout + ((size_t)s * H + h0) * DVW, nullptr, HG, DVW, DPITCH);
-      if (tid < HG) {
-        lse_s[tid] = lse[(size_t)s * H + h0 + tid] * LOG2E;
-        delta_s[tid] = delta[(size_t)s * H + h0 + tid];
-      }
-      __syncthreads();
-      if (tid < 2 * HG * BT) {  // two threads a (head, slot): s and dp (whole warps)
-        const int e = tid >> 1, which = tid & 1, hh = e / BT, jj = e % BT;
-        const float val = which == 0 ? dot_chunks(qs + hh * PITCH, kvs + jj * PITCH, 0, DQW / 8)
-                                     : dot_chunks(dos + hh * DPITCH, kvs + jj * PITCH, 0, DVW / 8);
-        const float other = __shfl_xor_sync(0xffffffffu, val, 1);
-        if (which == 0) {
-          float p = 0.f, ds = 0.f;
-          if (rows[jj] >= 0) {
-            p = exp2f(val * sl2 - lse_s[hh]);
-            ds = bf16_round(p * (other - delta_s[hh]) * scale);
-          }
-          p_s[hh][jj] = bf16_round(p);
-          ds_s[hh][jj] = ds;
-        }
-      }
-      __syncthreads();
-#pragma unroll
-      for (int c = 0; c < CP; ++c) {
-        const int pi = tid + THREADS * c;
-        if (pi >= PAIRS) continue;
-        const int d = 2 * pi;
-#pragma unroll
-        for (int hh = 0; hh < HG; ++hh) {  // dq += ds kvg, into the token's f32 row
-          float2* dst = reinterpret_cast<float2*>(dq32 + ((size_t)s * H + h0 + hh) * DQW + d);
-          float2 acc = *dst;
-          for (int jj = 0; jj < BT; ++jj) {
-            const float2 kk = pair_at(kvs + jj * PITCH, d);
-            acc.x = fmaf(ds_s[hh][jj], kk.x, acc.x);
-            acc.y = fmaf(ds_s[hh][jj], kk.y, acc.y);
-          }
-          *dst = acc;
-        }
-#pragma unroll
-        for (int hh = 0; hh < HG; ++hh) {  // dkvg += ds^T q (+ bf16(p)^T do below Dv)
-          const float2 qq = pair_at(qs + hh * PITCH, d);
-          const float2 oo = d < DVW ? pair_at(dos + hh * DPITCH, d) : make_float2(0.f, 0.f);
-#pragma unroll
-          for (int jj = 0; jj < BT; ++jj) {
-            ag[jj][c][0] = fmaf(p_s[hh][jj], oo.x, fmaf(ds_s[hh][jj], qq.x, ag[jj][c][0]));
-            ag[jj][c][1] = fmaf(p_s[hh][jj], oo.y, fmaf(ds_s[hh][jj], qq.y, ag[jj][c][1]));
+          for (int h = 0; h < 2; ++h) {
+            const int j = (w0 + t) * BT + 32 * h + lane;
+            v[k][h] = t < nw && j < T ? irow[j] : -1;
           }
         }
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const bool real = (v[k][0] >= 0 && v[k][0] < Sk) || (v[k][1] >= 0 && v[k][1] < Sk);
+          if (__ballot_sync(0xffffffffu, real)) bits |= 1u << (b0 + k);
+        }
       }
-      __syncthreads();
+      if (lane == 0) flags[wd] = bits;
     }
+    __syncthreads();
+
+    // the kv rows of this thread's rows of window tile t (-1: a sentinel,
+    // past T, or no such tile)
+    auto row_ids = [&](int t, int (&id)[4]) {
 #pragma unroll
-    for (int jj = 0; jj < BT; ++jj) {
-      if (rows[jj] < 0) continue;
-      bf16* drow = dkvg + ((size_t)s * T + t * BT + jj) * DQW;
+      for (int k = 0; k < 4; ++k) {
+        const int j = (w0 + t) * BT + grow + 16 * k;
+        int v = -1;
+        if (t < nw && j < T) {
+          v = irow[j];
+          if (v < 0 || v >= Sk) v = -1;
+        }
+        id[k] = v;
+      }
+    };
+    // box b of a tile into its place, one commit group
+    auto gather_box = [&](const int (&id)[4], int b) {
+      const uint32_t dst = sbase + kv_off + b * KV_BOX + ((part ^ (grow & 7)) << 4);
 #pragma unroll
-      for (int c = 0; c < CP; ++c) {
-        const int pi = tid + THREADS * c;
-        if (pi < PAIRS)
-          *reinterpret_cast<__nv_bfloat162*>(drow + 2 * pi) =
-              __floats2bfloat162_rn(ag[jj][c][0], ag[jj][c][1]);
+      for (int k = 0; k < 4; ++k)
+        cp_async16(dst + (grow + 16 * k) * 128,
+                   kv + (size_t)(id[k] < 0 ? 0 : id[k]) * DQW + b * 64 + part * 8, id[k] >= 0);
+      cp_async_commit();
+    };
+
+    int cur = next_tile(flags, -1, nw);
+    int nid[4];
+    row_ids(cur, nid);
+    if (cur < nw) {
+#pragma unroll
+      for (int k = 0; k < WBOXES; ++k) gather_box(nid, WBOXES * wg + k);
+    }
+    if (w0 == 0) mbar_wait(bar, 0);
+    K5W_MARK(0);
+
+    while (cur < nw) {
+      const int j0 = (w0 + cur) * BT;
+      const int nxt = next_tile(flags, cur, nw);
+      row_ids(nxt, nid);
+      // the shared base, opaque to the compiler a tile: the descriptors below
+      // are formed where they are used, not kept in registers the dq
+      // accumulator needs
+      uint32_t sb = sbase;
+      asm volatile("" : "+r"(sb));
+
+      // ---- phase 1: [s^T | dp^T] of the warpgroup's channels, box by box as
+      // each lands (its own cp.async groups, then the warpgroup's barrier)
+      float acc[16];
+      const uint32_t kvb = sb + kv_off;
+      if (wg == 0) {
+#pragma unroll
+        for (int k = 0; k < WBOXES; ++k)
+          k5w_phase1_box<true>(acc, k, 0, kvb + k * KV_BOX, sb + panel_box(k));
+      } else {
+#pragma unroll
+        for (int k = 0; k < OBOXES - WBOXES; ++k)
+          k5w_phase1_box<true>(acc, k, 1, kvb + (WBOXES + k) * KV_BOX, sb + panel_box(WBOXES + k));
+#pragma unroll
+        for (int k = OBOXES - WBOXES; k < WBOXES; ++k)
+          k5w_phase1_box<false>(acc, k, 1, kvb + (WBOXES + k) * KV_BOX, sb + panel_box(WBOXES + k));
+      }
+      wgmma_wait_all();
+      pin(acc);
+      K5W_MARK(1);
+
+      // ---- warpgroup 1's partials to warpgroup 0, which adds them and forms
+      // p and ds: columns 8 i + 2 (lane % 4) + {0, 1} (i < 2) are s of 16
+      // heads, the same columns + 16 their dp
+      if (wg == 1) {
+#pragma unroll
+        for (int v = 0; v < 4; ++v)
+          xs[v * 128 + wt] = make_float4(acc[4 * v], acc[4 * v + 1], acc[4 * v + 2], acc[4 * v + 3]);
+        bar_arrive(3, 256);
+      } else {
+        const int ja = j0 + lr, jb = ja + 8;
+        const int ia = ja < T ? irow[ja] : -1, ib = jb < T ? irow[jb] : -1;
+        const bool ra = ia >= 0 && ia < Sk, rb = ib >= 0 && ib < Sk;
+        bar_sync(3, 256);
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const float4 x = xs[v * 128 + wt];
+          acc[4 * v] += x.x;
+          acc[4 * v + 1] += x.y;
+          acc[4 * v + 2] += x.z;
+          acc[4 * v + 3] += x.w;
+        }
+        const uint32_t p_s = sb + p_off, ds_s = sb + ds_off;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            const int h = 8 * i + 2 * (lane & 3) + jj;
+            const bool hr = h0 + h < H;
+            const float l2 = rv[h], dl = rv[HG + h];
+            // a masked score is -inf before the exponential, so its p is 0
+            const float pa = ex2(ra && hr ? fmaf(acc[4 * i + jj], sl2, -l2) : MASKED);
+            const float pb = ex2(rb && hr ? fmaf(acc[4 * i + 2 + jj], sl2, -l2) : MASKED);
+            st_pd128(p_s, h, lr, pa);
+            st_pd128(p_s, h, lr + 8, pb);
+            st_pd128(ds_s, h, lr, pa * (acc[4 * i + 8 + jj] - dl) * scale);
+            st_pd128(ds_s, h, lr + 8, pb * (acc[4 * i + 10 + jj] - dl) * scale);
+          }
+        }
+        fence_async_smem();
+      }
+      bar_sync(4, 256);  // p and ds in place
+      K5W_MARK(2);
+
+      // ---- phase 2, box by box: dq^T += kvg^T ds^T; dkvg = ds^T q (+ p^T
+      // do) into the consumed box, then out by TMA; the freed box takes the
+      // next tile's (the last box's after the loop)
+#pragma unroll
+      for (int k = 0; k < WBOXES; ++k) {
+        const int b = WBOXES * wg + k;
+        const uint32_t box = kvb + b * KV_BOX;
+        float g[32];
+        if (b < OBOXES)
+          k5w_phase2_products<true>(dqa[k], g, box, sb + ds_off, sb + p_off, sb + panel_box(b));
+        else
+          k5w_phase2_products<false>(dqa[k], g, box, sb + ds_off, sb + p_off, sb + panel_box(b));
+        if (wt == 0) bulk_wait_read();  // the last box's dkvg rows have left it
+        bar_sync(1 + wg, 128);          // and every warp is done reading this box
+        if (k > 0 && nxt < nw) gather_box(nid, b - 1);
+        stage_rows<64>(g, 1.f, 1.f, box, 64, 0, lr, lane);
+        fence_async_smem();
+        bar_sync(1 + wg, 128);
+#ifndef K5W_NO_STORES  // a measurement variant (the bench's --wide --variants): no dkvg rows, a wrong dkv
+        if (wt == 0) {
+          tma_store_3d(&tm_dkvg, box, b * 64, j0, c);
+          bulk_commit();
+        }
+#endif
+      }
+      if (wt == 0) bulk_wait_read();
+      bar_sync(1 + wg, 128);
+      if (nxt < nw) gather_box(nid, WBOXES * wg + WBOXES - 1);
+      K5W_MARK(3);
+      cur = nxt;
+      ++visited;
+    }
+  }
+  if (tiles != nullptr && tid == 0) {  // [C, 2]: visited, candidates
+    tiles[2 * c] = visited;
+    tiles[2 * c + 1] = n_tiles;
+  }
+
+  // ---- dq, rounded once: this thread holds channels lr, lr + 8 of each of
+  // the warpgroup's boxes for heads 8 i + 2 (lane % 4) + {0, 1}
+#pragma unroll
+  for (int k = 0; k < WBOXES; ++k) {
+    const int ch = 64 * (WBOXES * wg + k) + lr;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int h = 8 * i + 2 * (lane & 3) + jj;
+        if (h0 + h < H) {
+          bf16* row = dq + ((size_t)c * H + h0 + h) * DQW + ch;
+          row[0] = __float2bfloat16(dqa[k][4 * i + jj]);
+          row[8] = __float2bfloat16(dqa[k][4 * i + 2 + jj]);
+        }
       }
     }
-    __syncthreads();  // rows[] is rewritten by the next tile
   }
-  if (tiles != nullptr && tid == 0) {
-    tiles[(size_t)s * 2] = visited;
-    tiles[(size_t)s * 2 + 1] = n_tiles;
-  }
-  // dq in bf16 from the token's f32 rows (the same thread wrote each pair)
-  for (int i = tid; i < H * PAIRS; i += THREADS) {
-    const int hh = i / PAIRS, d = 2 * (i % PAIRS);
-    const size_t at = ((size_t)s * H + hh) * DQW + d;
-    const float2 v = *reinterpret_cast<const float2*>(dq32 + at);
-    *reinterpret_cast<__nv_bfloat162*>(dq + at) = __floats2bfloat162_rn(v.x, v.y);
-  }
+  K5W_MARK(4);
+  if (wt == 0) bulk_wait_all();  // the last TMA stores are complete before the block leaves
 }
 
 template <typename Kernel>
@@ -1572,22 +1967,46 @@ int run_fwd_wide(const void* q, const void* kv, const void* indices, void* out, 
   return (int)cudaGetLastError();
 }
 
-// K5b at the wide widths over one chunk of C queries (every pointer but kv
-// from the chunk's first query; dq32 f32 [C, H, 1152] zero)
+// a row-major [d2, d1, d0] bf16 tensor as a 3-D map (d0, d1, d2) with boxes
+// of (64, rows, 1) in the 128-byte swizzle (a box lands as wgmma's
+// 128-byte-swizzled tile of `rows` rows); out of range reads give 0 and out of
+// range writes are dropped. d0 must be a multiple of 8 (rows on 16 bytes).
+bool map3d(CUtensorMap* map, EncodeTiled encode, const void* ptr, int d0, int d1, int d2, int rows,
+           CUtensorMapL2promotion promotion) {
+  const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2};
+  const cuuint64_t strides[2] = {(cuuint64_t)d0 * 2, (cuuint64_t)d0 * d1 * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, promotion,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the wide K5b over one chunk of C queries and the group of 16 heads from h0
+// (every pointer but kv from the chunk's first query; dkvg [>= C, T, 1152])
 int run_bwd_wide(const void* q, const void* kv, const void* indices, const void* dout,
-                 const void* lse, const void* delta, void* dq, void* dq32, void* dkvg, int* tiles,
-                 int C, int Sk, int T, int H, float scale, void* stream) {
-  if (H <= 0 || H % k5w::HG || C < 0 || Sk <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
+                 const void* lse, const void* delta, void* dq, void* dkvg, int* tiles, int C,
+                 int Sk, int T, int H, int h0, float scale, void* stream) {
+  using namespace k5bw;
+  if (H <= 0 || H % 8 || h0 < 0 || h0 >= H || h0 % HG || C < 0 || Sk <= 0 || T <= 0)
+    return (int)cudaErrorInvalidValue;
   if (C == 0) return 0;
   static bool configured = false;
-  cudaError_t err = configure(sparse_mla_bwd_wide_kernel, k5w::BWD_BYTES, &configured);
+  cudaError_t err = configure(sparse_mla_bwd_wide_kernel, BYTES, &configured);
   if (err != cudaSuccess) return (int)err;
-  sparse_mla_bwd_wide_kernel<<<C, k5w::THREADS, k5w::BWD_BYTES,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(kv), static_cast<const int*>(indices),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dq), static_cast<float*>(dq32),
-      static_cast<bf16*>(dkvg), tiles, C, Sk, T, H, scale);
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  // the token's panels: [C, H, 1152] and [C, H, 1024] in boxes of 64 x 16
+  // heads; the dkvg rows [C, T, 1152] in boxes of 64 x 64 slots
+  CUtensorMap tq, tdo, tdkvg;
+  if (!map3d(&tq, encode, q, DQW, H, C, HG, CU_TENSOR_MAP_L2_PROMOTION_L2_256B) ||
+      !map3d(&tdo, encode, dout, DVW, H, C, HG, CU_TENSOR_MAP_L2_PROMOTION_L2_256B) ||
+      !map3d(&tdkvg, encode, dkvg, DQW, T, C, BT, CU_TENSOR_MAP_L2_PROMOTION_NONE))
+    return (int)cudaErrorInvalidValue;
+  sparse_mla_bwd_wide_kernel<<<C, THREADS, BYTES, static_cast<cudaStream_t>(stream)>>>(
+      tq, tdo, tdkvg, static_cast<const bf16*>(kv), static_cast<const int*>(indices),
+      static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<bf16*>(dq),
+      tiles, C, Sk, T, H, h0, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1727,17 +2146,44 @@ extern "C" int sparse_mla_fwd_wide(const void* q, const void* kv, const void* in
                       stream);
 }
 
-// K5b at the wide widths over a chunk; `tiles` (int32 [C, 2]: tiles of 8
-// slots visited, candidates) or null
+// the wide K5b over a chunk and the group of 16 heads from h0; `tiles` (int32
+// [C, 2]: tiles of 64 slots visited, candidates) or null
 extern "C" int sparse_mla_bwd_wide(const void* q, const void* kv, const void* indices,
                                    const void* dout, const void* lse, const void* delta, void* dq,
-                                   void* dq32, void* dkvg, int C, int Sk, int T, int H,
-                                   float scale, void* stream, void* tiles) {
-  return run_bwd_wide(q, kv, indices, dout, lse, delta, dq, dq32, dkvg, static_cast<int*>(tiles),
-                      C, Sk, T, H, scale, stream);
+                                   void* dkvg, int C, int Sk, int T, int H, int h0, float scale,
+                                   void* stream, void* tiles) {
+  return run_bwd_wide(q, kv, indices, dout, lse, delta, dq, dkvg, static_cast<int*>(tiles), C, Sk,
+                      T, H, h0, scale, stream);
 }
 
 // the wide forms' slots a tile: K5a's (kernel 0) or K5b's (1)
 extern "C" int sparse_mla_wide_tile(int kernel) {
-  return kernel == 0 ? k5w::FWD_BT : k5w::BWD_BT;
+  return kernel == 0 ? k5w::FWD_BT : k5bw::BT;
+}
+
+// the wide K5b's heads a launch, its dynamic shared memory a block, the
+// blocks an SM holds at it, and its phase clocks (as K5b's above: n values
+// [block][warpgroup][K5W_MARKS + 1])
+extern "C" int sparse_mla_bwd_wide_heads() { return k5bw::HG; }
+
+extern "C" int sparse_mla_bwd_wide_smem() { return k5bw::BYTES; }
+
+extern "C" int sparse_mla_bwd_wide_blocks_per_sm() {
+  int n = 0;
+  if (cudaFuncSetAttribute(sparse_mla_bwd_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           k5bw::BYTES) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, sparse_mla_bwd_wide_kernel, k5bw::THREADS,
+                                                    k5bw::BYTES) != cudaSuccess)
+    return -1;
+  return n;
+}
+
+extern "C" int sparse_mla_bwd_wide_timeline(void* dst, size_t n) {
+#ifdef SPARSE_MLA_TIMELINE
+  return timeline_copy(dst, n, k5w_timeline, sizeof(k5w_timeline));
+#else
+  (void)dst;
+  (void)n;
+  return (int)cudaErrorNotSupported;
+#endif
 }

@@ -35,10 +35,13 @@ score, the kernels' V is ``kv[:, :512]``, whose first ``v_dim`` columns are
 the real V, and the zero columns of do add 0 to dP and to dkv. Wider widths
 go to the wide forms: any ``Dq <= 1152`` and ``v_dim <= 1024`` (twice the
 MLA widths; ``v_dim % 128 == 0``) zero-padded the same way to 1152/1024
-(``built_widths``), plain SIMT kernels in the same source (groups of
-8 heads, no head padding; tiles of ``WIDE_FWD_TILE`` and
-``WIDE_BWD_TILE`` slots; each slot's dkvg row summed over all heads and
-rounded once, the plain version's rounding). Wider widths raise
+(``built_widths``). The wide K5a is a plain SIMT kernel (groups of 8 heads,
+tiles of ``WIDE_FWD_TILE`` slots); the wide K5b a ``wgmma`` kernel that
+takes a chunk's heads in groups of ``WIDE_HEADS`` = 16 (the last one of
+8 where ``H % 16 == 8``), one launch a group in ascending order, each
+followed by the dkv reduction, with tiles of ``WIDE_BWD_TILE`` slots: each
+slot's dkvg row summed over a group's heads and rounded once, the groups'
+rows summed in f32 (``sparse_mla_grouped_reference`` mirrors it). Wider widths raise
 (``check_widths``: the wide forms' shared memory and registers end there);
 the TPU version's quiet fall-back to the XLA form is not carried over. A
 576-wide kernel block holds one group of ``HEADS`` = 64
@@ -77,7 +80,8 @@ KERNEL_BWD = "sparse_mla_bwd"
 KERNEL_REDUCE = "sparse_mla_dkv_reduce"
 HEADS, DQ, DV = 64, 576, 512  # heads a kernel block (a group) and the widths compiled for
 DQ_WIDE, DV_WIDE = 1152, 1024  # the wide forms' widths
-WIDE_FWD_TILE, WIDE_BWD_TILE = 16, 8  # slots a tile of the wide K5a and K5b
+WIDE_FWD_TILE, WIDE_BWD_TILE = 16, 64  # slots a tile of the wide K5a and K5b
+WIDE_HEADS = 16  # heads a launch of the wide K5b (its group; the kernel's k5bw::HG)
 BWD_SLOTS = 1 << 20  # (query, slot) pairs per 576-wide backward launch: a 1.2 GB dkvg buffer
 BWD_TILE = 32  # slots a K5b tile
 FWD_TILE = 64  # slots a K5a tile (the kernel's k5a::BT)
@@ -99,7 +103,7 @@ def _kernels():
         red.argtypes = [p] * 4 + [i] * 2 + [p]
         fwd_w, bwd_w = lib.sparse_mla_fwd_wide, lib.sparse_mla_bwd_wide
         fwd_w.argtypes = [p] * 5 + [i] * 4 + [f, p, p]
-        bwd_w.argtypes = [p] * 9 + [i] * 4 + [f, p, p]
+        bwd_w.argtypes = [p] * 8 + [i] * 5 + [f, p, p]
         for fn in (fwd, fwd_tiles, bwd, bwd_tiles, red, fwd_w, bwd_w):
             fn.restype = i
         _fns = (fwd, bwd, red, bwd_tiles, fwd_tiles, fwd_w, bwd_w)
@@ -212,13 +216,14 @@ def sparse_mla_grouped_reference(q, kv, indices, sm_scale: float, v_dim: int, do
     forward's), each query chunk of ``bwd_chunk`` tokens in ascending group
     order adding its rows, rounded to kv's dtype a group, into one f32 dkv,
     rounded once, as K5b and the reduction do. At the wide widths
-    (``built_widths``) the kernels take all H heads at once, unpadded: one
-    group, each slot's row over every head."""
+    (``built_widths``) the groups are the wide K5b's: ``WIDE_HEADS`` heads
+    each, unpadded (the last group may hold 8)."""
     S, H, _ = q.shape
     wide = built_widths(q.shape[-1], v_dim)[0] == DQ_WIDE
     Hp = H if wide else padded_heads(H)
     qp = _pad_heads(q, Hp)
-    groups = [slice(0, H)] if wide else [slice(g, g + HEADS) for g in range(0, Hp, HEADS)]
+    size = WIDE_HEADS if wide else HEADS
+    groups = [slice(g, min(g + size, Hp)) for g in range(0, Hp, size)]
     if out is None or lse is None:
         fwd = [sparse_mla_attention_reference(qp[:, g], kv, indices, sm_scale, v_dim)
                for g in groups]
@@ -473,36 +478,61 @@ def sparse_mla_bwd(q, kv, indices, out, lse, do, sm_scale: float, v_dim: int, ti
     return dq, dkv.to(kv.dtype)
 
 
+def sparse_mla_bwd_wide_chunk(q, kv, indices, do, lse, delta, dq, dkvg, sm_scale: float,
+                              tiles=None, h0: int = 0) -> None:
+    """One wide K5b launch over a chunk of C queries and the group of
+    ``WIDE_HEADS`` heads from ``h0`` (``q, indices, do, lse, delta`` and
+    ``dq`` are the chunk's slices at Dq 1152, Dv 1024, all H heads): writes
+    the group's rows of ``dq`` [C, H, 1152] and, for every slot of the
+    group's tiles, its dkv row over the group's heads into ``dkvg`` [>= C,
+    T, 1152] bf16 (a sentinel slot's row as zeros). Given ``tiles`` (int32
+    [C, 2]), it also writes each token's tiles of ``WIDE_BWD_TILE`` slots
+    visited and its candidates there."""
+    C, Sk, T = _check_args(q, kv, indices, DV_WIDE)
+    H = q.shape[1]
+    if q.shape[-1] != DQ_WIDE:
+        raise ValueError(f"sparse_mla_bwd_wide_chunk runs at Dq = {DQ_WIDE}; got {q.shape[-1]}")
+    if h0 % WIDE_HEADS or not 0 <= h0 < H:
+        raise ValueError(f"sparse_mla_bwd_wide_chunk: h0 must start a group of {WIDE_HEADS} "
+                         f"of the {H} heads; got {h0}")
+    _build.require(do, "do", torch.bfloat16, (C, H, DV_WIDE))
+    _build.require(lse, "lse", torch.float32, (C, H))
+    _build.require(delta, "delta", torch.float32, (C, H))
+    _build.require(dq, "dq", torch.bfloat16, (C, H, DQ_WIDE))
+    _build.require(dkvg, "dkvg", torch.bfloat16)
+    if dkvg.shape[0] < C or tuple(dkvg.shape[1:]) != (T, DQ_WIDE):
+        raise ValueError(f"dkvg: expected at least [{C}, {T}, {DQ_WIDE}], got {tuple(dkvg.shape)}")
+    if tiles is not None:
+        _build.require(tiles, "tiles", torch.int32, (C, 2))
+    _build.check(KERNEL_BWD, _kernels()[6](
+        q.data_ptr(), kv.data_ptr(), indices.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dkvg.data_ptr(), C, Sk, T, H, h0, float(sm_scale),
+        _build.stream_ptr(q), None if tiles is None else tiles.data_ptr()))
+    _build.count(KERNEL_BWD)
+    _build.launches[f"{KERNEL_BWD}/wide"] += 1
+
+
 def _bwd_wide(q, kv, indices, out, lse, do, sm_scale: float, tiles=None):
-    """The wide K5b and the dkv reduction at Dq 1152, Dv 1024, chunk by chunk:
-    one K5b launch a chunk (all heads, each slot's row over every head), then
-    the reduction into one f32 dkv."""
+    """The wide K5b and the dkv reduction at Dq 1152, Dv 1024, chunk by chunk
+    and, in a chunk, group by group of ``WIDE_HEADS`` heads in ascending
+    order: one K5b launch a group, each followed by the reduction into one
+    f32 dkv."""
     S, H, _ = q.shape
     Sk, T = kv.shape[0], indices.shape[1]
     do = do.contiguous()
-    _build.require(do, "do", torch.bfloat16, (S, H, DV_WIDE))
     _build.require(lse, "lse", torch.float32, (S, H))
-    if tiles is not None:
-        _build.require(tiles, "tiles", torch.int32, (S, 2))
     delta = (out.float() * do).sum(dim=-1).contiguous()
     dq = torch.empty_like(q)
     dkv = torch.zeros((Sk, DQ_WIDE), dtype=torch.float32, device=q.device)
     chunk = bwd_chunk(S, T, DQ_WIDE)
     dkvg = torch.empty((chunk, T, DQ_WIDE), dtype=torch.bfloat16, device=q.device)
-    dq32 = torch.empty((chunk, H, DQ_WIDE), dtype=torch.float32, device=q.device)
     for c0 in range(0, S, chunk):
         sl = slice(c0, min(c0 + chunk, S))
-        n = sl.stop - c0
-        dq32.zero_()
         order, seg = slot_order(indices[sl], Sk)
-        _build.check(KERNEL_BWD, _kernels()[6](
-            q[sl].data_ptr(), kv.data_ptr(), indices[sl].data_ptr(), do[sl].data_ptr(),
-            lse[sl].data_ptr(), delta[sl].data_ptr(), dq[sl].data_ptr(), dq32.data_ptr(),
-            dkvg.data_ptr(), n, Sk, T, H, float(sm_scale), _build.stream_ptr(q),
-            None if tiles is None else tiles[sl].data_ptr()))
-        _build.count(KERNEL_BWD)
-        _build.launches[f"{KERNEL_BWD}/wide"] += 1
-        sparse_mla_dkv_reduce(dkvg, order, seg, dkv)
+        for h0 in range(0, H, WIDE_HEADS):
+            sparse_mla_bwd_wide_chunk(q[sl], kv, indices[sl], do[sl], lse[sl], delta[sl], dq[sl],
+                                      dkvg, sm_scale, None if tiles is None else tiles[sl], h0)
+            sparse_mla_dkv_reduce(dkvg, order, seg, dkv)
     return dq, dkv.to(kv.dtype)
 
 

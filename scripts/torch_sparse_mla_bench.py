@@ -30,12 +30,26 @@ each phase of K5a and of K5b, averaged over the blocks, from one call of K5a
 and one pass of K5b's launches.
 ``--grouped-mm`` checks ``torch._grouped_mm`` (forward and backward) against a
 loop over experts, which is how ``ops/moe.py`` chooses its expert product.
+``--wide`` runs the wide forms (Dq 1152 / v_dim 1024) in place of the above:
+the build report, ``chip_smoke.K5_WIDE_CASES`` through both kernels
+(``--quick`` stops there), then ``chip_smoke.k5_wide_timing`` at S = Sk =
+2048, T = 512 (a causal top-k), 16 heads: K5a, the whole K5b call beside its
+plain version and one SDPA backward, and K5b's own launches with the L2
+flushed, its tiles and its build figures. With ``--timeline`` it also prints
+the wide K5b's phase clocks a tile from a ``-DSPARSE_MLA_TIMELINE`` build;
+with ``--variants`` it times the wide K5b's own launches of each variant
+build beside the port's, in turns (``nostores:-DK5W_NO_STORES``: no dkvg
+stores, a wrong dkv); ``--seeds N`` runs the wide cases (and
+``WIDE_SEED_CASES``) over generator seeds 1 .. N and counts the (case, seed)
+pairs that miss K5B_TOL: one bf16 step of a row of a p = 1 token can, where
+its rows cancel in dkv (the note in ``csrc/sparse_mla.cu``).
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import json
 import os
 import re
 import subprocess
@@ -194,6 +208,116 @@ def timeline(q, kv, idx, out, lse, do, scale) -> None:
     use_library(_build.load(K.KERNEL))
 
 
+WIDE_PHASES = ("token start: panels and the first tile landed", "phase 1: s and dp products",
+               "hand-off, p and ds", "phase 2: dq and dkvg products, stores, next gathers",
+               "token end: dq stored")
+
+
+def wide_timeline(gen, dev) -> None:
+    """The wide K5b's phase clocks over one backward call at the timed row's
+    shape (S = Sk = 2048, T = 512 causal, 16 heads), from a build with
+    SPARSE_MLA_TIMELINE (the blocks of its first 1024 tokens a chunk)."""
+    S, T, Hw = 2048, 512, 16
+    q = torch.randn(S, Hw, K.DQ_WIDE, device=dev, generator=gen).to(torch.bfloat16)
+    kv = torch.randn(S, K.DQ_WIDE, device=dev, generator=gen).to(torch.bfloat16)
+    do = torch.randn(S, Hw, K.DV_WIDE, device=dev, generator=gen).to(torch.bfloat16)
+    idx = causal_indices(S, T, gen, dev)
+    scale = K.DQ_WIDE ** -0.5
+    out, lse = K.sparse_mla_fwd(q, kv, idx, scale, K.DV_WIDE)
+    lib = build_variant("timeline", ("-DSPARSE_MLA_TIMELINE",))
+    use_library(lib)
+    read = lib.sparse_mla_bwd_wide_timeline
+    read.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
+    n = 1024 * 2 * (len(WIDE_PHASES) + 1)
+    buf = (ctypes.c_ulonglong * n)()
+
+    def call():
+        return K.sparse_mla_bwd(q, kv, idx, out, lse, do, scale, K.DV_WIDE)
+
+    call()
+    torch.cuda.synchronize()
+    _build.check("sparse_mla_bwd_wide_timeline", read(buf, n))  # zeroes it
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    call()
+    e.record()
+    torch.cuda.synchronize()
+    _build.check("sparse_mla_bwd_wide_timeline", read(buf, n))
+    t = torch.tensor(list(buf), dtype=torch.float64).reshape(1024, 2, len(WIDE_PHASES) + 1)
+    print_clocks("the wide sparse_mla_bwd (the reductions included in the call)", t, WIDE_PHASES,
+                 s.elapsed_time(e))
+    use_library(_build.load(K.KERNEL))
+
+
+# more wide shapes for --seeds (the fields of chip_smoke.K5_WIDE_CASES): 8
+# heads with T below a tile, 40 heads (three groups) dense, Dq 1000 / v_dim 896
+WIDE_SEED_CASES = (("H=8 T=40", 1152, 1024, 100, 100, 40, "causal", 3, 8),
+                   ("H=40 dense T=200", 1152, 1024, 150, 150, 200, "dense", 9, 40),
+                   ("H=16 Dq 1000 v 896", 1000, 896, 128, 128, 64, "scattered", 0, 16))
+
+
+def wide_seeds(n: int) -> None:
+    """chip_smoke.K5_WIDE_CASES and WIDE_SEED_CASES through chip_smoke.k5_wide_case
+    with the inputs of generator seeds 1 .. n: how many (case, seed) pairs miss
+    K5B_TOL, and by what."""
+    log, misses, pairs = chip_smoke.log, {}, 0
+    chip_smoke.log = lambda msg: None
+    try:
+        for seed in range(1, n + 1):
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            for case in chip_smoke.K5_WIDE_CASES + WIDE_SEED_CASES:
+                pairs += 1
+                try:
+                    chip_smoke.k5_wide_case(gen, *case)
+                except AssertionError as err:
+                    misses.setdefault(case[0], []).append(f"seed {seed}: {str(err)[:90]}")
+    finally:
+        chip_smoke.log = log
+    print(f"--seeds {n}: {sum(len(v) for v in misses.values())} of {pairs} (case, seed) pairs miss "
+          f"K5B_TOL; by case: {json.dumps(misses)}", flush=True)
+
+
+def wide(args, gen, dev) -> bool:
+    """The wide forms: their edge cases, then (without --quick) the timed row."""
+    for case in chip_smoke.K5_WIDE_CASES:
+        chip_smoke.k5_wide_case(gen, *case)
+    if args.seeds:
+        wide_seeds(args.seeds)
+    if args.quick:
+        return True
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    rows = chip_smoke.k5_wide_timing(gen, flush)
+    print(json.dumps({"k5_wide": rows}), flush=True)
+    if args.timeline:
+        wide_timeline(gen, dev)
+    if args.variants:  # the wide K5b's own launches at the timed row's shape, in turns
+        S, T, Hw = 2048, 512, 16
+        q = torch.randn(S, Hw, K.DQ_WIDE, device=dev, generator=gen).to(torch.bfloat16)
+        kv = torch.randn(S, K.DQ_WIDE, device=dev, generator=gen).to(torch.bfloat16)
+        do = torch.randn(S, Hw, K.DV_WIDE, device=dev, generator=gen).to(torch.bfloat16)
+        idx = causal_indices(S, T, gen, dev)
+        scale = K.DQ_WIDE ** -0.5
+        out, lse = K.sparse_mla_fwd(q, kv, idx, scale, K.DV_WIDE)
+        ref = K.sparse_mla_bwd(q, kv, idx, out, lse, do, scale, K.DV_WIDE)
+        for spec in args.variants:
+            name, _, flags = spec.partition(":")
+            lib = build_variant(name, tuple(f for f in flags.split(",") if f))
+            times = []
+            for turn in range(4):  # variant, port, variant, port
+                use_library(lib if turn % 2 == 0 else _build.load(K.KERNEL))
+                if turn == 0:
+                    got = K.sparse_mla_bwd(q, kv, idx, out, lse, do, scale, K.DV_WIDE)
+                    same = all(torch.equal(a, b) for a, b in zip(got, ref))
+                times.append(chip_smoke.k5b_wide_own_ms(q, kv, idx, out, lse, do, scale,
+                                                        flush)[0])
+            use_library(_build.load(K.KERNEL))
+            print(f"variant {name}: the wide K5b's own launches {times[0]:.4f}, {times[2]:.4f} "
+                  f"ms against the port's build {times[1]:.4f}, {times[3]:.4f} ms (in turns); "
+                  f"dq and dkv {'equal to' if same else 'DIFFER from'} the port's", flush=True)
+    del flush
+    return True
+
+
 def grouped_mm_probe(dev) -> None:
     print(f"torch._grouped_mm present: {hasattr(torch, '_grouped_mm')}", flush=True)
     if not hasattr(torch, "_grouped_mm"):
@@ -232,6 +356,11 @@ def main() -> int:
                          "build")
     ap.add_argument("--quick", action="store_true",
                     help="the build report and the checks only, no timing")
+    ap.add_argument("--wide", action="store_true",
+                    help="the wide forms (Dq 1152 / v_dim 1024) in place of the 576 ones")
+    ap.add_argument("--seeds", type=int, default=0,
+                    help="with --wide: the wide cases over generator seeds 1 .. N, counting "
+                         "the (case, seed) pairs that miss K5B_TOL")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("this benchmark needs an NVIDIA GPU", file=sys.stderr)
@@ -259,6 +388,10 @@ def main() -> int:
     if args.grouped_mm:
         grouped_mm_probe(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
+    if args.wide:
+        ok &= wide(args, gen, dev)
+        print("OK" if ok else "FAILED", flush=True)
+        return 0 if ok else 1
     ok &= check(1024, 512, gen, dev)
     ok &= check(200, 100, gen, dev)  # ragged tiles: T and S no multiple of a tile
     n, err_a, err_b = chip_smoke.k5_edge_cases(gen)

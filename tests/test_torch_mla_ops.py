@@ -256,6 +256,51 @@ def test_grouped_reference_matches_jax_pallas(heads):
     np.testing.assert_allclose(_np(lse), _np(ref_lse), atol=1e-6, rtol=1e-6)
 
 
+def test_wide_grouped_reference_matches_jax_pallas():
+    """``sparse_mla_grouped_reference`` at the wide widths Dq 1152 / v_dim
+    1024 follows the wide K5b's decomposition: groups of ``WIDE_HEADS`` = 16
+    heads, unpadded, each group's per-slot dkv rows added in ascending order.
+    At 24 heads that is one whole group and one of 8. Values and gradients
+    against the Pallas kernels in interpret mode at the same widths, float32
+    at 2e-4 (the tolerance of ``test_padded_widths_match_jax_pallas``), with
+    a token that selected nothing (out and dq 0)."""
+    S, Sk, T, heads, dq_w, dv = 24, 24, 12, 24, tkernel.DQ_WIDE, tkernel.DV_WIDE
+    assert tkernel.WIDE_HEADS == 16 and heads % tkernel.WIDE_HEADS == 8
+    rng = np.random.default_rng(1152)
+    q = rng.standard_normal((S, heads, dq_w)).astype(np.float32)
+    kv = rng.standard_normal((Sk, dq_w)).astype(np.float32)
+    _, _, idx = _case(7, S, Sk, T)
+    idx[5] = Sk
+    ct = rng.standard_normal((S, heads, dv)).astype(np.float32)
+    scale = dq_w ** -0.5
+
+    @jax.jit
+    def j_fwd_grads(q_, kv_):
+        def f(a, b):
+            out = j_pallas_attn(a, b, jnp.asarray(idx), scale, dv, chunk=8, block_t=128)
+            return jnp.sum(out * ct), out
+
+        (_, out), grads = jax.value_and_grad(f, argnums=(0, 1), has_aux=True)(q_, kv_)
+        return out, grads
+
+    want, (want_dq, want_dkv) = j_fwd_grads(jnp.asarray(q), jnp.asarray(kv))
+    tq, tkv, tidx = torch.from_numpy(q), torch.from_numpy(kv), torch.from_numpy(idx)
+    out, lse, dq, dkv = tkernel.sparse_mla_grouped_reference(tq, tkv, tidx, scale, dv,
+                                                             do=torch.from_numpy(ct))
+    assert out.shape == (S, heads, dv) and lse.shape == (S, heads) and dq.shape == q.shape
+    assert dkv.shape == kv.shape
+    np.testing.assert_allclose(_np(out), np.asarray(want), atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(_np(dq), np.asarray(want_dq), atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(_np(dkv), np.asarray(want_dkv), atol=2e-4, rtol=2e-4)
+    assert float(out[5].abs().max()) == 0.0 and float(dq[5].abs().max()) == 0.0
+    # the groups' dkv rows, added in order, are the plain backward's up to
+    # summation order in float32
+    ref_dq, ref_dkv = tkernel.sparse_mla_backward_reference(tq, tkv, tidx, out, lse,
+                                                            torch.from_numpy(ct), scale, dv)
+    np.testing.assert_allclose(_np(dq), _np(ref_dq), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(_np(dkv), _np(ref_dkv), atol=1e-5, rtol=1e-5)
+
+
 # ---------------------------------------------------------------------------
 # (c) indexer, rope, norms, dense MLA
 # ---------------------------------------------------------------------------

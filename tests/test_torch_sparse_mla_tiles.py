@@ -24,6 +24,9 @@ import torch
 from prime_rl_tpu_torch.ops.sparse_mla_kernel import (
     BWD_TILE,
     FWD_TILE,
+    WIDE_BWD_TILE,
+    WIDE_FWD_TILE,
+    WIDE_HEADS,
     sparse_mla_bwd_tile_counts,
     sparse_mla_bwd_tiles_visited,
     sparse_mla_fwd_tile_counts,
@@ -124,6 +127,34 @@ def test_fwd_tile_is_the_kernels():
     for ns, tile in (("k5a", FWD_TILE), ("k5b", BWD_TILE)):
         bt = re.search(rf"namespace {ns} {{\s+constexpr int BT = (\d+);", src)
         assert bt is not None and int(bt.group(1)) == tile
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_wide_bwd_tiles_visited_match_a_dense_count(name):
+    """The mirror at the wide K5b's tile of ``WIDE_BWD_TILE`` slots."""
+    rng = np.random.default_rng(7 * CASES.index(name) + WIDE_BWD_TILE)
+    idx, sk = _case(name, rng)
+    got = sparse_mla_bwd_tiles_visited(torch.from_numpy(idx), sk, WIDE_BWD_TILE)
+    assert tuple(got.shape) == (idx.shape[0], -(-idx.shape[1] // WIDE_BWD_TILE))
+    assert np.array_equal(got.numpy(), _dense(idx, sk, WIDE_BWD_TILE))
+
+
+def test_causal_wide_bwd_tiles_visited_count():
+    _check_causal_count(WIDE_BWD_TILE)  # the wide K5b's tiles
+
+
+def test_wide_tiles_and_heads_are_the_kernels():
+    """``WIDE_FWD_TILE``, ``WIDE_BWD_TILE`` and ``WIDE_HEADS`` are what the
+    wide K5a and K5b are compiled with (``FWD_BT`` in namespace ``k5w``, ``BT``
+    and ``HG`` in ``k5bw``; on the card ``chip_smoke.py`` also reads them from
+    the library)."""
+    src = (Path(__file__).resolve().parents[1] / "prime_rl_tpu_torch" / "csrc"
+           / "sparse_mla.cu").read_text()
+    fwd = re.search(r"namespace k5w \{.*?constexpr int FWD_BT = (\d+);", src, re.S)
+    assert fwd is not None and int(fwd.group(1)) == WIDE_FWD_TILE
+    for name, want in (("BT", WIDE_BWD_TILE), ("HG", WIDE_HEADS)):
+        got = re.search(rf"namespace k5bw \{{.*?constexpr int {name} = (\d+);", src, re.S)
+        assert got is not None and int(got.group(1)) == want, name
 
 
 def test_tile_counts_need_the_kernel():
