@@ -630,8 +630,9 @@ def k1_timing(name: str, q, k, v, seg, window: int = 0, sinks=None) -> dict:
 # lengths that are no multiple of the tiles (odd ones too: the flat id, lse and
 # delta maps then start off 16-byte bounds), a fully padded row, many short
 # segments (tiles skipped), segments that end mid-tile, GQA groups 1, 2, 4, 8
-# and 12 (GLM-4.5-Air's 96/8 heads), every built head dim (the plain forms at
-# 320 and 512 among them), the cross-block form (Lq <
+# and 12 (GLM-4.5-Air's 96/8 heads), every built head dim (320 and 512 among
+# them: K1's plain form, K2's forms that compute a part of D an item), the
+# cross-block form (Lq <
 # Lk and Lq > Lk, rows that see no key), windows of 128 and 100 (at both head
 # dims) with and without sinks, and the SFT trainer's micro-batch (2 rows of
 # 8192 at Qwen3-0.6B's 16/8 heads)
@@ -675,7 +676,7 @@ K1_EDGE_CASES = (
      True, 128, True),
     ("L=200 hd 96 group 2 (zero-padded to 128), a segment ends mid-tile", 1, 200, 200, 4, 2,
      96, [[130, 70]], None, True, 0, False),
-    # the plain forms at head dims 384 and 512 (320 zero-padded to 384)
+    # head dims 384 and 512 (320 zero-padded to 384)
     ("L=200 hd 320 group 2 (zero-padded to 384), a segment ends mid-tile", 1, 200, 200, 4, 2,
      320, [[130, 70]], None, True, 0, False),
     ("L=77 hd 512 group 4, odd length, a padded tail", 2, 77, 77, 8, 2, 512, [[30, 47], [5]],
@@ -749,8 +750,10 @@ K2_TOL = 2e-2
 
 def k2_tiles(q, k, v, seg_q, seg_kv, lse, delta, do, causal: bool, window: int = 0):
     """("visited of candidates" of K2a, of K2b): the tile pairs of one head
-    (K2a: kv tiles of 64 for each q tile of 128, 64 at head dim 256; K2b: q tiles of 64 for each
-    kv tile of 64, for one q head of its group) as the kernels counted them in
+    (``dq_tiles``, K2a: kv tiles of 64 for each q tile of 128, of 64 at head
+    dim 256, of 32 for each q tile of 64 at 384 and 512; ``dkv_tiles``, K2b: q
+    tiles of 64 for each kv tile of 64, of 32 at 384 and 512, for one q head
+    of its group) as the kernels counted them in
     one launch each. Raises unless every item matches the rules' plain
     mirrors (``flash_tiles_visited``, ``flash_bwd_dkv_tiles_visited``)."""
     import torch
@@ -867,11 +870,12 @@ def k2_check(name: str, q, k, v, do, seg, out, lse, window: int = 0) -> tuple[fl
     return err_dq, err_dkv
 
 
-def k2_edge_cases(gen) -> tuple[int, float]:
+def k2_edge_cases(gen, head_dims=None) -> tuple[int, float]:
     """K2a and K2b on every case of K1_EDGE_CASES (lse from K1; the
     cross-block case, not causal, with an lse cotangent folded into delta)
     against their plain versions, padding rows dq = 0, each launched twice
-    for equal bits, and their tile counts against the skip rules. Returns
+    for equal bits, and their tile counts against the skip rules; with
+    ``head_dims``, only the cases that run at those built head dims. Returns
     (cases, max error)."""
     import torch
 
@@ -882,11 +886,13 @@ def k2_edge_cases(gen) -> tuple[int, float]:
         flash_attention_dkv_reference,
         flash_attention_dq,
         flash_attention_dq_reference,
+        padded_head_dim,
     )
 
     dev = torch.device("cuda")
     worst = 0.0
-    for name, b, lq, lk, nh, nkv, hd, q_lens, kv_lens, causal, window, with_sinks in K1_EDGE_CASES:
+    cases = [c for c in K1_EDGE_CASES if head_dims is None or padded_head_dim(c[6]) in head_dims]
+    for name, b, lq, lk, nh, nkv, hd, q_lens, kv_lens, causal, window, with_sinks in cases:
         def randn(*shape):
             return torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
 
@@ -914,7 +920,7 @@ def k2_edge_cases(gen) -> tuple[int, float]:
         tiles = k2_tiles(*args[:9], window)
         log(f"K2 edge case {name}: within tolerance, tile pairs visited {tiles[0]} (K2a), "
             f"{tiles[1]} (K2b)")
-    return len(K1_EDGE_CASES), worst
+    return len(cases), worst
 
 
 def k4_inputs(gen, s: int, nh: int, nkv: int, hd: int, ps: int, p: int, lengths, n_inactive=0):
@@ -2234,11 +2240,12 @@ def gpt_oss_kernel_phase() -> list[dict]:
 
 
 def k12_rows(gen, name: str, b: int, l: int, nh: int, nkv: int, hd: int, seg_lens,
-             window: int = 0) -> list[dict]:
+             window: int = 0, k1: bool = True) -> list[dict]:
     """K1, K2a and K2b over one causal packing: each against its plain
     version (K1 at ATOL + RTOL |ref|, K2 at K2_TOL + K2_TOL |ref|), each
     launched twice for equal bits, then timed (``k1_timing``, ``k2_timing``).
-    Returns the three rows' numbers."""
+    Returns the three rows' numbers; without ``k1``, K1 only gives K2 its
+    inputs and the two rows of K2a and K2b are returned."""
     import torch
 
     from prime_rl_tpu_torch.ops.flash_attention import (
@@ -2267,21 +2274,24 @@ def k12_rows(gen, name: str, b: int, l: int, nh: int, nkv: int, hd: int, seg_len
             and torch.equal(dk, dk2) and torch.equal(dv, dv2)):
         raise AssertionError(f"flash attention {name}: two launches differ")
     del out2, lse2, grads, dq2, dk2, dv2
-    ref_out, _ = by_row(flash_attention_reference, b, (q.float(), k.float(), v.float(), seg, seg),
-                        True, hd ** -0.5, window, None)
-    err = check_close(f"flash_attn_fwd {name}", out, ref_out, ATOL, RTOL)
-    del ref_out
+    if k1:
+        ref_out, _ = by_row(flash_attention_reference, b,
+                            (q.float(), k.float(), v.float(), seg, seg), True, hd ** -0.5,
+                            window, None)
+        err = check_close(f"flash_attn_fwd {name}", out, ref_out, ATOL, RTOL)
+        del ref_out
     err_dq, err_dkv = k2_check(name, q, k, v, do, seg, out, lse, window)
     del out, lse, dq, dk, dv
     shape = f"B={b} L={l} {nh}/{nkv} heads hd {hd}{f', window {window}' if window else ''}, " \
             f"segments {seg_lens[0]}"
-    fwd = dict(shape=shape, max_abs_err=err, **k1_timing(
-        f"K1 flash_attn_fwd {shape} (err {err:.3g}, two launches equal)", q, k, v, seg, window))
+    fwd = [dict(shape=shape, max_abs_err=err, **k1_timing(
+        f"K1 flash_attn_fwd {shape} (err {err:.3g}, two launches equal)", q, k, v, seg,
+        window))] if k1 else []
     timing = k2_timing(shape, q, k, v, do, seg, window)
     del q, k, v, do
     torch.cuda.empty_cache()
-    return [fwd, dict(shape=shape, max_abs_err=err_dq, **timing["dq"]),
-            dict(shape=shape, max_abs_err=err_dkv, **timing["dkv"])]
+    return fwd + [dict(shape=shape, max_abs_err=err_dq, **timing["dq"]),
+                  dict(shape=shape, max_abs_err=err_dkv, **timing["dkv"])]
 
 
 def gated_kernel_phase() -> list[dict]:
@@ -5082,9 +5092,10 @@ def range_repairs_phase() -> list[dict]:
     """The forms of ROADMAP Queue 3's repairs, each held against its plain
     version, launched twice for equal bits and timed (their edge cases run in
     the kernel phases: K1_EDGE_CASES at head dims 320 and 512, K4_EDGE_CASES
-    at 384 and 512): K1, K2a and K2b at head dim 512 (B=1 L=2048, 16/4 heads,
-    two sequences), K4 at 384 and 512, and K5a/K5b at the wide widths over
-    K5_WIDE_CASES (1152/1024 and 640/512) and timed at 1152/1024."""
+    at 384 and 512): K1, K2a and K2b at head dim 512 and K2a and K2b at 384
+    (B=1 L=2048, 16/4 heads, two sequences), K4 at 384 and 512, and K5a/K5b
+    at the wide widths over K5_WIDE_CASES (1152/1024 and 640/512) and timed
+    at 1152/1024."""
     import torch
 
     from prime_rl_tpu_torch.ops import _build
@@ -5096,14 +5107,19 @@ def range_repairs_phase() -> list[dict]:
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
     before = dict(_build.launches)
     rows = []
-    found = k12_rows(gen, "hd512", 1, 2048, 16, 4, 512, [[1100, 948]])
-    for (name, line), case in zip((("flash_attn_fwd", 59), ("flash_attn_bwd_dq", 227),
-                                   ("flash_attn_bwd_dkv", 282)), found):
-        source = "fwd" if name == "flash_attn_fwd" else "bwd"
-        rows.append(dict(name=f"{name}/hd512", route="cuda",
-                         source=f"prime_rl_tpu_torch/csrc/flash_attn_{source}.cu",
-                         replaces=f"prime_rl_tpu/ops/flash_attention.py:{line}",
-                         **{k: case[k] for k in keys}, cases=[case]))
+    kernels = (("flash_attn_fwd", 59), ("flash_attn_bwd_dq", 227), ("flash_attn_bwd_dkv", 282))
+    # the rows at 384 draw from a generator of their own: the phase's other
+    # checks keep their inputs whatever rows come before them
+    gen384 = torch.Generator(device=dev)
+    gen384.manual_seed(SEED + 20)
+    for hd, g in ((512, gen), (384, gen384)):  # K1 at 384 is the plain form of 512: not timed
+        found = k12_rows(g, f"hd{hd}", 1, 2048, 16, 4, hd, [[1100, 948]], k1=hd == 512)
+        for (name, line), case in zip(kernels[3 - len(found):], found):
+            source = "fwd" if name == "flash_attn_fwd" else "bwd"
+            rows.append(dict(name=f"{name}/hd{hd}", route="cuda",
+                             source=f"prime_rl_tpu_torch/csrc/flash_attn_{source}.cu",
+                             replaces=f"prime_rl_tpu/ops/flash_attention.py:{line}",
+                             **{k: case[k] for k in keys}, cases=[case]))
     for hd in (384, 512):
         case = k4_wide_case(gen, flush, hd)
         rows.append(dict(name=f"decode_paged_attention/hd{hd}", route="cuda",
@@ -5652,7 +5668,7 @@ def vlm_loop_phase(card: str) -> dict:
 
 def flash_build_report() -> None:
     """Registers, local memory and shared memory of each instantiation of K1,
-    K2a and K2b (head dim 128 and 64, dense and banded) as the runtime loaded
+    K2a and K2b (head dims 64 to 512, dense and banded) as the runtime loaded
     it (``cudaFuncGetAttributes``): registers a thread, local memory a thread
     (where ptxas puts spilled registers; the kernels have no local arrays, so
     any is a spill), static and dynamic shared memory a block. Logs every
@@ -5673,7 +5689,7 @@ def flash_build_report() -> None:
          lambda hd, w: bwd.flash_attn_bwd_blocks_per_sm(1, hd, w, 4096), "Lq"))
     spills = []
     for label, name, attributes, dynamic, per_sm, over in kernels:
-        for hd in (512, 384, 256, 128, 64):  # 384 and 512: the plain forms, one kernel for both
+        for hd in (512, 384, 256, 128, 64):  # K1's plain form at 384 and 512: one kernel for both
             for window, form in ((0, "dense"), (1, "window")):
                 attrs = (ctypes.c_int * 4)()
                 _build.check(name, attributes(hd, window, attrs))

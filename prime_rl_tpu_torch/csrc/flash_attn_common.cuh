@@ -208,15 +208,19 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_
 }
 
 // D[64 x N] += A[64 x 16] B[16 x N], A in registers, B MN-major in shared memory.
-// N = 256 is two n128 products: columns [128, 256) of B start two 64-column
-// boxes (twice the descriptor's leading byte offset) on, and their
-// accumulators are d[64..127], where m64n256's own layout puts them.
+// N = 256 is two n128 products and N = 192 an n128 and an n64: columns [128,
+// N) of B start two 64-column boxes (twice the descriptor's leading byte
+// offset) on, and their accumulators are d[64..], where m64nN's own layout
+// puts them.
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (N == 256) {
+  if constexpr (N == 256 || N == 192) {
     const uint64_t box = (db >> 16) & 0x3FFF;  // the leading byte offset >> 4
     wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&d[0]), a, db);
-    wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&d[64]), a, db + 2 * box);
+    if constexpr (N == 256)
+      wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&d[64]), a, db + 2 * box);
+    else
+      wgmma_rs_n64(*reinterpret_cast<float(*)[32]>(&d[64]), a, db + 2 * box);
   } else if constexpr (N == 128) {
     wgmma_rs_n128(d, a, db);
   } else {
@@ -350,10 +354,11 @@ cudaError_t sm_count(int* sms) {
   return cudaSuccess;
 }
 
-// ---- head dims 384 and 512: the plain SIMT forms of K1, K2a and K2b --------
+// ---- head dims 384 and 512: the plain SIMT form of K1 -----------------------
 // Above 256 a 64-row tile's f32 accumulator no longer fits one warpgroup's
-// registers and a wgmma ring no longer fits the SM's shared memory, so these
-// widths run a simple form: small tiles in shared memory (rows of HD + 8
+// registers and a wgmma ring no longer fits the SM's shared memory, so K1
+// runs a simple form at these widths (K2a and K2b have wgmma forms of their
+// own, in flash_attn_bwd.cu): small tiles in shared memory (rows of HD + 8
 // bf16, 16 bytes of skew, so that 16-byte loads of eight rows at one column
 // hit every bank once), f32 dot products and f32 accumulators in registers
 // (two adjacent columns a thread), one fixed order of every sum.

@@ -26,10 +26,12 @@ any other head dim to the next of these (``padded_head_dim``; the JAX
 kernels set no limit, the debug specs' 32 among them). That is exact: a zero
 column adds 0 to every score, so out, lse and delta do not change, the scale
 is the true head dim's, and the padded columns of out, dq, dk and dv are
-dropped. At 384 and 512 the kernels are plain SIMT forms in the same sources
-(small tiles, f32 products: ``fwd_tiles``, ``dq_tiles``, ``dkv_tiles``);
-above 512 they raise (the tiles and accumulators of even those forms stop
-fitting the SM's shared memory and registers). A
+dropped. At 384 and 512 K1 is a plain SIMT form (16 x 32 tiles, f32
+products: ``fwd_tiles``), and K2a and K2b are ``wgmma`` forms of their own
+that compute a part of D an item (K2a: 64 q rows over kv tiles of 32,
+``dq_tiles``; K2b: 64 kv rows over q tiles of 32, ``dkv_tiles``); above 512
+they raise (the tiles and accumulators stop fitting the SM's shared memory
+and registers). A
 length that is no multiple of the
 tile is masked inside the kernels; windows run banded (tiles outside the
 band are never loaded). ``flash_attention_with_lse`` (the cross-block form)
@@ -48,7 +50,8 @@ tiles for K1 and 128 x 64 for K2a, 64 x 64 for both at head dim 256:
 ``fwd_tiles``, ``dq_tiles``); K2b skips q tiles for a kv tile
 (``flash_bwd_dkv_tiles_visited``, 64 x 64) and sums dk/dv over the GQA group
 inside one block, so that no atomics are needed (at head dim 256 a block
-computes one half of D of dk and dv).
+computes one half of D of dk and dv, at 384 and 512 K2a a half of D of dq and
+K2b a third or a quarter of dk and dv).
 
 For CPU tensors the wrappers run ``flash_attention_reference`` and
 ``flash_attention_backward_reference``, the plain versions of the same
@@ -65,8 +68,9 @@ from prime_rl_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256, 384, 512)  # the head dims the kernels are built for
-WIDE_TILES = (16, 32)  # K1's and K2a's (q tile, kv tile) at 384 and 512 (the plain forms)
-WIDE_DKV_TILES = (32, 16)  # K2b's (q tile, kv tile) there
+WIDE_TILES = (16, 32)  # K1's (q tile, kv tile) at 384 and 512 (the plain form)
+WIDE_DQ_TILES = (64, 32)  # K2a's (q tile, kv tile) there (DqWide<HD> in csrc/flash_attn_bwd.cu)
+WIDE_DKV_TILES = (32, 64)  # K2b's (q tile, kv tile) there (DkvWide<HD>)
 TILE = 128  # K1's q and kv tile at head dim 64 and 128 (Tiles<HD> in csrc/flash_attn_fwd.cu)
 DQ_TILES = (128, 64)  # K2a's q tile and kv tile there (DqCfg<HD> in csrc/flash_attn_bwd.cu)
 DKV_TILE = 64  # K2b's kv tile and q tile at every head dim (KV_BK = KV_BQ)
@@ -95,14 +99,14 @@ def fwd_tiles(head_dim: int) -> tuple[int, int]:
 
 def dq_tiles(head_dim: int) -> tuple[int, int]:
     """K2a's (q tile, kv tile) at ``head_dim``: 128 x 64, or 64 x 64 where it
-    runs at 256, 16 x 32 at 384 and 512."""
+    runs at 256, 64 x 32 at 384 and 512."""
     w = padded_head_dim(head_dim)
-    return WIDE_TILES if w > 256 else (64, 64) if w == 256 else DQ_TILES
+    return WIDE_DQ_TILES if w > 256 else (64, 64) if w == 256 else DQ_TILES
 
 
 def dkv_tiles(head_dim: int) -> tuple[int, int]:
-    """K2b's (q tile, kv tile) at ``head_dim``: 64 x 64, or 32 x 16 in the
-    plain form at 384 and 512."""
+    """K2b's (q tile, kv tile) at ``head_dim``: 64 x 64, or 32 x 64 at 384
+    and 512."""
     return WIDE_DKV_TILES if padded_head_dim(head_dim) > 256 else (DKV_TILE, DKV_TILE)
 
 
@@ -116,8 +120,8 @@ def check_head_dim(name: str, head_dim: int, num_heads: int, num_kv_heads: int) 
 
 
 def count_wide(kernel: str, head_dim: int) -> None:
-    """A launch of the plain form (head dim 384 or 512) counts under
-    ``<kernel>/wide`` as well."""
+    """A launch at head dim 384 or 512 counts under ``<kernel>/wide`` as
+    well."""
     if head_dim > 256:
         _build.launches[f"{kernel}/wide"] += 1
 
@@ -317,11 +321,18 @@ def _bwd_kernels(tiles: bool = False):
         suffix = "_tiles" if tiles else ""
         dq = getattr(lib, f"flash_attn_bwd_dq{suffix}")
         dkv = getattr(lib, f"flash_attn_bwd_dkv{suffix}")
-        dq.argtypes = [p] * 9 + [i] * 6 + [ctypes.c_float, i, i, p] + [p] * tiles
-        dkv.argtypes = [p] * 10 + [i] * 6 + [ctypes.c_float, i, i, p] + [p] * tiles
+        dq.argtypes = [p] * 10 + [i] * 6 + [ctypes.c_float, i, i, p] + [p] * tiles
+        dkv.argtypes = [p] * 11 + [i] * 6 + [ctypes.c_float, i, i, p] + [p] * tiles
         dq.restype = dkv.restype = i
         _bwd_fns[tiles] = (dq, dkv)
     return _bwd_fns[tiles]
+
+
+def _queue(x, head_dim: int):
+    """The work queue of K2a's or K2b's forms at head dims 384 and 512: one
+    int32 zeroed on ``x``'s device, which the blocks take their items from
+    (None below 384, where the kernels walk a fixed order)."""
+    return torch.zeros(1, dtype=torch.int32, device=x.device) if head_dim > 256 else None
 
 
 def _delta(out, do, dlse):
@@ -428,10 +439,11 @@ def flash_attention_dq(q, k, v, seg_q, seg_kv, lse, delta, do, causal: bool, sca
                           scale, window, tiles)
     if tiles is not None:
         _build.require(tiles, "tiles", torch.int32, (b, nh, -(-lq // dq_tiles(hd)[0]), 2))
-    dq = torch.empty_like(q)
+    dq, queue = torch.empty_like(q), _queue(q, hd)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), seg_q.data_ptr(),
-            seg_kv.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, lq, lk, nh, nkv,
-            hd, float(scale), int(causal), int(window), _build.stream_ptr(q))
+            seg_kv.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            None if queue is None else queue.data_ptr(), b, lq, lk, nh, nkv, hd, float(scale),
+            int(causal), int(window), _build.stream_ptr(q))
     fn = _bwd_kernels(tiles is not None)[0]
     _build.check(KERNEL_DQ, fn(*args) if tiles is None else fn(*args, tiles.data_ptr()))
     _build.count(KERNEL_DQ, window)
@@ -452,10 +464,11 @@ def flash_attention_dkv(q, k, v, seg_q, seg_kv, lse, delta, do, causal: bool, sc
                           scale, window, tiles)
     if tiles is not None:
         _build.require(tiles, "tiles", torch.int32, (b, nkv, -(-lk // dkv_tiles(hd)[1]), 2))
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dk, dv, queue = torch.empty_like(k), torch.empty_like(v), _queue(q, hd)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), seg_q.data_ptr(),
-            seg_kv.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
-            lq, lk, nh, nkv, hd, float(scale), int(causal), int(window), _build.stream_ptr(q))
+            seg_kv.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            None if queue is None else queue.data_ptr(), b, lq, lk, nh, nkv, hd, float(scale),
+            int(causal), int(window), _build.stream_ptr(q))
     fn = _bwd_kernels(tiles is not None)[1]
     _build.check(KERNEL_DKV, fn(*args) if tiles is None else fn(*args, tiles.data_ptr()))
     _build.count(KERNEL_DKV, window)

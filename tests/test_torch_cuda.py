@@ -680,37 +680,54 @@ def test_sparse_mla_kernels_match_plain_at_padded_widths(gen):
 
 
 @pytest.mark.parametrize("hd", [320, 512])
-def test_wide_head_dim_flash_kernels_match_plain(gen, hd):
-    """K1, K2a and K2b in their plain forms (head dim 320 zero-padded to 384,
-    and 512) through the autograd Function: GQA 4:2, packed segments and a
-    padded tail, against the plain versions (1e-2 on out, 1e-3 on lse, 2e-2
-    on the gradients), one launch of each, two runs bit-equal."""
-    b, l, nh, nkv = 2, 200, 4, 2
+@pytest.mark.parametrize("nh,nkv,window,with_sinks", [(4, 2, 0, False), (4, 2, 48, True),
+                                                      (16, 2, 0, False)],
+                         ids=["group2", "window+sinks", "group8"])
+def test_wide_head_dim_flash_kernels_match_plain(gen, hd, nh, nkv, window, with_sinks):
+    """K1 (its plain form) and K2a and K2b (the forms that compute a part of
+    D an item) at head dim 320 zero-padded to 384, and 512, through the
+    autograd Function: GQA groups of 2 and 8, a window of 48 with sinks,
+    packed segments and a padded tail, against the plain versions (1e-2 on
+    out, 1e-3 on lse, 2e-2 on the gradients), one launch of each, two runs
+    bit-equal, and the tiles K2a and K2b count equal to their mirrors' (64 x
+    32 and 32 x 64 tiles)."""
+    b, l = 2, 200
     q, k, v = _bf16(gen, b, l, nh, hd), _bf16(gen, b, l, nkv, hd), _bf16(gen, b, l, nkv, hd)
     do = _bf16(gen, b, l, nh, hd)
     seg = _packed_seg(b, l)
+    sinks = torch.randn(nh, device="cuda", generator=gen) if with_sinks else None
     runs = []
     for _ in range(2):
         before = dict(_build.launches)
-        out, lse = flash_attention_with_lse(q, k, v, seg, seg, causal=True)
-        got = flash_attention_backward(q, k, v, seg, seg, out, lse, do, None, True, hd ** -0.5)
+        out, lse = _fwd(q, k, v, seg, seg, True, None, window=window, sinks=sinks)
+        got = flash_attention_backward(q, k, v, seg, seg, out, lse, do, None, True, hd ** -0.5,
+                                       window, sinks)
         torch.cuda.synchronize()
         for name in ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
             assert _build.launches[name] == before.get(name, 0) + 1, name
+            assert _build.launches[f"{name}/wide"] == before.get(f"{name}/wide", 0) + 1, name
         runs.append((out, lse, *got[:3]))
     for a, c in zip(*runs):
         assert torch.equal(a, c)
     out, lse, *grads = runs[0]
     ref_out, ref_lse = flash_attention_reference(q.float(), k.float(), v.float(), seg, seg,
-                                                 True, hd ** -0.5)
+                                                 True, hd ** -0.5, window, sinks)
     _assert_close(out, ref_out)
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
     ref = flash_attention_backward_reference(q, k, v, seg, seg, out, lse, do, None, True,
-                                             hd ** -0.5)
+                                             hd ** -0.5, window)
     for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
         assert g.shape == r.shape, name
         torch.testing.assert_close(g.float(), r.float(), atol=2e-2, rtol=2e-2, msg=name)
     assert (grads[0][seg == 0] == 0).all()
+    dq_tiles, dkv_tiles = flash_bwd_tile_counts(q, k, v, seg, seg, lse, _delta(out, do, None),
+                                                do, True, window)
+    assert dq_tiles_of(hd) == (64, 32) and dkv_tiles_of(hd) == (32, 64)
+    for got, rule in ((dq_tiles, flash_tiles_visited(seg, seg, True, window, *dq_tiles_of(hd))),
+                      (dkv_tiles, flash_bwd_dkv_tiles_visited(seg, seg, True, window,
+                                                              *dkv_tiles_of(hd)))):
+        want = rule.sum(-1, dtype=torch.int32)
+        assert torch.equal(got[..., 0], want[:, None].expand_as(got[..., 0]))
 
 
 @pytest.mark.parametrize("case", chip_smoke.K5_WIDE_CASES, ids=lambda c: c[0])

@@ -1,9 +1,9 @@
 """The tile-skipping rules on the CPU: ``flash_tiles_visited``, the plain
 mirror of the kv tiles ``csrc/flash_attn_fwd.cu`` (K1, 128 x 128 tiles; 64 x
-64 at head dim 256) and K2a in ``csrc/flash_attn_bwd.cu`` (128 x 64; 64 x 64
-at head dim 256) visit for each q tile, and
-``flash_bwd_dkv_tiles_visited``, the q tiles K2b visits for each kv tile
-(64 x 64).
+64 at head dim 256, 16 x 32 at 384 and 512) and K2a in
+``csrc/flash_attn_bwd.cu`` (128 x 64; 64 x 64 at head dim 256, 64 x 32 at
+384 and 512) visit for each q tile, and ``flash_bwd_dkv_tiles_visited``, the
+q tiles K2b visits for each kv tile (64 x 64; q tiles of 32 at 384 and 512).
 
 The JAX package's kernel skips tiles by the causal diagonal and the band only,
 so the rule has no JAX counterpart; it is held against the port's dense mask
@@ -30,6 +30,7 @@ from prime_rl_tpu_torch.ops.flash_attention import (  # noqa: E402
     DQ_TILES,
     TILE,
     _mask,
+    dkv_tiles,
     dq_tiles,
     flash_bwd_dkv_tiles_visited,
     flash_bwd_tile_counts,
@@ -175,7 +176,7 @@ def test_chip_smoke_edge_cases_skip_no_visible_pair(case):
     seg_kv = seg_q if kv_lens is None else chip_smoke.packed_segments(b, lk, kv_lens, "cpu")[0]
     assert _covered(seg_q, seg_kv, causal, window, *fwd_tiles(hd))[0]
     assert _covered(seg_q, seg_kv, causal, window, *dq_tiles(hd))[0]
-    assert _covered(seg_q, seg_kv, causal, window, DKV_TILE, DKV_TILE, transposed=True)[0]
+    assert _covered(seg_q, seg_kv, causal, window, *dkv_tiles(hd), transposed=True)[0]
 
 
 @pytest.mark.parametrize("kernel", ["fwd", "dq"])
@@ -195,6 +196,27 @@ def test_head_dim_256_tiles_skip_no_visible_pair(kernel):
     ones = torch.ones_like(seg)
     assert int(flash_tiles_visited(seg, seg, True, 0, *tiles).sum()) == 778
     assert int(flash_tiles_visited(ones, ones, True, 0, *tiles).sum()) == 2080
+
+
+@pytest.mark.parametrize("hd", [384, 512])
+@pytest.mark.parametrize("kernel,tiles,visited", [("dq", (64, 32), 580), ("dkv", (32, 64), 563)])
+def test_wide_backward_tiles_skip_no_visible_pair(kernel, tiles, visited, hd):
+    """At head dims 384 and 512 K2a takes 64 x 32 tiles (``dq_tiles``: q
+    tile, kv tile) and K2b 32 x 64 (``dkv_tiles``), while K1's plain form
+    keeps its 16 x 32 (``fwd_tiles``); the skip rule at those tiles drops no
+    visible pair of random packings with windows, and over the packing of
+    ``chip_smoke.py``'s range-repairs rows (B=1 L=2048, sequences of 1100 and
+    948) it visits 580 (K2a) and 563 (K2b) of the 1056 causal tile pairs."""
+    assert (dq_tiles if kernel == "dq" else dkv_tiles)(hd) == tiles
+    assert fwd_tiles(hd) == (16, 32) and dq_tiles(256) == dkv_tiles(256) == (64, 64)
+    for seed in range(6):
+        _, seg_q, seg_kv, causal, window = _random_case(200 + seed)
+        assert _covered(seg_q, seg_kv, causal, window, *tiles, transposed=kernel == "dkv")[0]
+    rule = flash_tiles_visited if kernel == "dq" else flash_bwd_dkv_tiles_visited
+    seg = chip_smoke.packed_segments(1, 2048, [[1100, 948]], "cpu")[0]
+    ones = torch.ones_like(seg)
+    assert int(rule(seg, seg, True, 0, *tiles).sum()) == visited
+    assert int(rule(ones, ones, True, 0, *tiles).sum()) == 1056
 
 
 def test_tile_counts_come_only_from_the_kernel():
