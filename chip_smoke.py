@@ -120,9 +120,9 @@ Phases (any failure raises and exits non-zero before the last line):
  10. sft      — SFT through its entry's parser on
                 configs/examples/qwen3_0.6b_sft.toml as it is (Qwen3-0.6B at full
                 width and depth, seq_len 8192, 16 sequences a step in 8
-                micro-batches of 2 rows) with fake data, random init, 2 steps,
-                validation every step over 2 batches and a snapshot at step 2:
-                finite records, two val_nll records, the snapshot, launches of
+                micro-batches of 2 rows) with fake data, random init, SFT_STEPS
+                (1) step, validation after it over 2 batches and a snapshot:
+                finite records, a val_nll record, the snapshot, launches of
                 K1, K2a and K2b; its tokens/s, step time and peak memory.
  11. qwen3-moe-reference — Qwen3-30B-A3B at full width and vocabulary cut to 2
                 layers: a prefill of 200 tokens and 4 decode steps through K1,
@@ -202,18 +202,24 @@ Phases (any failure raises and exits non-zero before the last line):
                 tokens, a chunk of 300 from the recurrent rows and 4 decode
                 steps through K1 and K4 (pages of 8), against float32 on the
                 CPU on the card's routing, twice for equal bits; K3 never.
- 28. qwen3-next-training — the trainer through its entry on a directory
-                whose config.json names Qwen3NextForCausalLM (4 layers LLLA,
-                16 experts), seq_len 4096, 2 micro-batches of 1 row,
-                adamw_8bit, bf16 masters, full remat, 2 steps twice:
-                bit-equal finite losses, changed parameters, the launches of
-                K1, K2a and K2b, a snapshot read back.
- 29. qwen3-next-serving — the server of phase 17 for Qwen3-Next at 4 of 48
-                layers with all 512 experts, routed_experts on
-                every completion, then a GRPO group of four on one
-                1100-token prompt: the recurrent-state tier hit, the cached
-                members' first-token logits within 0.03 of |logit| of the
-                cold member's; K4 at head dim 256 launched, K3 not.
+ 28. qwen3-next-vl-training — the trainer through its entry on a directory
+                whose config.json names the Qwen3.5-class composition
+                (QWEN35_COMPOSITION_CONFIG: Qwen3-Next-80B-A3B's trunk cut to 4
+                layers LLLA and 16 experts, the whole 27-block tower),
+                seq_len 4096, 2 micro-batches of 1 row of image and text
+                samples through the filesystem transport, adamw_8bit, bf16
+                masters, full remat, 2 steps twice: bit-equal finite losses,
+                changed parameters (the tower's among them), the launches of
+                K1, K2a and K2b, a snapshot read back, and the trunk's
+                Qwen3NextForCausalLM config read back.
+ 29. qwen3-next-vl-serving — the server on the composition at 4 of 48 layers
+                with all 512 experts and the whole tower, routed_experts on
+                every completion: 16 image requests (no chunked prefill), one
+                alone, a text request, then the requests of phase 14 and a
+                GRPO group of four on one 1100-token prompt: the
+                recurrent-state tier hit, the cached members' first-token
+                logits within 0.03 of |logit| of the cold member's; K1 and K4
+                at head dim 256 launched, K3 not.
  30. nemotron-h-reference — Nemotron-H at the 8B's widths and full
                 vocabulary, one layer of each kind (M*-E, the LatentMoE
                 layer at a test shape: 8 experts top-2 at latent 1024): the
@@ -289,6 +295,12 @@ Phases (any failure raises and exits non-zero before the last line):
  41. vlm-loop — configs/debug/rl_vlm.toml through the launcher, colocated,
                 3 steps: the loop's checks, K1, K2a, K2b and K3 launched, and
                 the trainer's records holding the vision patches.
+ 42. qwen3-next-vl-reference — debug_qwen3_next_vl at QWEN35_TEST_SHAPE
+                (heads of 256): the train step's loss and gradients (the
+                tower's among them; the bf16 floor of the GatedDeltaNet trunk)
+                and the served image prompt's prefill, prompt logprobs and 4
+                decode steps from the recurrent rows with the mRoPE offset,
+                through K1, K2a, K2b and K4 (K3 not), against float32 on the CPU.
 Then one JSON line with every kernel's numbers, and the result line. A kernel's
 ``launches`` is its count on the path that runs it (K1 runs on both: its
 ``launches`` is the serving path's, ``launches_training`` the Qwen3 trainer's;
@@ -404,6 +416,37 @@ QWEN3_VL_8B_CONFIG = {
         "deepstack_visual_indexes": [8, 16, 24], "hidden_act": "gelu_pytorch_tanh",
     },
 }
+# A Qwen3.5-class composition (no Qwen3.5 config.json is in the repository,
+# and none is downloaded): the trunk is the named Qwen/Qwen3-Next-80B-A3B
+# spec's config (hidden 2048, LLLA x 12, 16/2 heads of 256 at partial rotary
+# 0.25, 512 experts top-10 with a gated shared expert, vocab 151936), the
+# tower QWEN3_VL_8B_CONFIG's (27 blocks of 1152, 16 heads of 72, DeepStack
+# taps 8, 16, 24) at the output width 2048 of Qwen3-VL-30B-A3B's tower, whose
+# trunk is also 2048 wide; mRoPE section (16, 8, 8), the JAX reader's
+# default, fills the 32 rotary frequencies of a head of 256 at rotary 0.25.
+QWEN35 = "Qwen3.5-class composition"
+QWEN35_COMPOSITION_CONFIG = {
+    "architectures": ["Qwen3_5MoeForConditionalGeneration"],
+    "image_token_id": 151655, "video_token_id": 151656, "vision_start_token_id": 151652,
+    "tie_word_embeddings": False,
+    "text_config": {
+        "architectures": ["Qwen3NextForCausalLM"],
+        "hidden_size": 2048, "num_hidden_layers": 48, "num_attention_heads": 16,
+        "num_key_value_heads": 2, "head_dim": 256, "intermediate_size": 5632,
+        "vocab_size": 151936, "rope_theta": 10000.0, "max_position_embeddings": 262144,
+        "rms_norm_eps": 1e-6, "tie_word_embeddings": False, "eos_token_id": 151645,
+        "pad_token_id": 151643, "partial_rotary_factor": 0.25, "num_experts": 512,
+        "num_experts_per_tok": 10, "moe_intermediate_size": 512, "norm_topk_prob": True,
+        "shared_expert_intermediate_size": 512, "linear_num_key_heads": 16,
+        "linear_num_value_heads": 32, "linear_key_head_dim": 128, "linear_value_head_dim": 128,
+        "linear_conv_kernel_dim": 4,
+        "layer_types": ["full_attention" if i % 4 == 3 else "linear_attention"
+                        for i in range(48)],
+        "rope_scaling": {"rope_type": "default", "mrope_section": [16, 8, 8],
+                         "mrope_interleaved": True},
+    },
+    "vision_config": {**QWEN3_VL_8B_CONFIG["vision_config"], "out_hidden_size": 2048},
+}
 MINIMAX_TRAIN_LAYERS = 1  # 4.90 G parameters, near GLM-5's and gpt-oss's trainer cuts
 MINIMAX_SERVE_LAYERS = 4  # of 62 (8 before the last cuts)
 # the Qwen3-Next and Nemotron-H train references' row (1024 tokens before
@@ -458,16 +501,26 @@ DEEPSEEK_V3_TEST_CONFIG = {
 # Qwen3-Next: the named spec's widths (hidden 2048, 16/2 attention heads of
 # 256, 16/32 GDN key/value heads of 128, 512 experts top-10 of 512, vocab
 # 151936, LLLA x 12), cut in depth (with its gdn_pattern) and experts by
-# dataclasses.replace (``qwen3_next_spec``), or as a config.json
-# (``qwen3_next_dir``); each cut is logged
+# dataclasses.replace (``qwen3_next_spec``); each cut is logged
 QWEN3_NEXT = "Qwen/Qwen3-Next-80B-A3B-Instruct"
 QWEN3_NEXT_PACKING = [1700, 1300, 1096]  # the kernel rows' packed row of 4096 tokens
 QWEN3_NEXT_REF_CUTS = {"num_layers": 4, "num_experts": 32}  # one period, 32 experts
-# 128, then 64 before the cuts: top-10 of 16 stays sparse; the trainer's grouped
-# products over 64 experts are not on this path (qwen3-next-serving runs all 512)
-QWEN3_NEXT_TRAIN_CUTS = {"num_layers": 4, "num_experts": 16}
-QWEN3_NEXT_SERVE_LAYERS = 4  # LLLA, all 512 experts (16, then 8 before the cuts)
 QWEN3_NEXT_GROUP_PROMPT = 1100  # the GRPO group's shared prompt (Nemotron-H's too)
+# qwen3_next_vl on QWEN35_COMPOSITION_CONFIG (its trunk is Qwen3-Next's): the
+# trainer's trunk cut to one period of 48 layers and 16 experts (top-10 stays
+# sparse; the grouped products over more experts run in the server) beside the
+# whole tower, the server's to LLLA with all 512 experts and the whole tower.
+# They carry the text-only checks of the qwen3-next-training and
+# qwen3-next-serving phases they replace (text samples in the trainer's rows,
+# a text request, the GRPO group, a Qwen3NextForCausalLM snapshot).
+QWEN35_TRAIN_CUTS = {"num_layers": 4, "num_experts": 16}
+QWEN35_SERVE_LAYERS = 4  # of 48 (Qwen3-Next's own server: 16, then 8, then 4 before)
+# the reference's trunk: debug_qwen3_next_vl (LLLA, 8 experts top-2, a gated
+# shared expert, debug_vlm's tower) at 4/2 heads of 256 with partial rotary
+# 0.25 and mRoPE (16, 8, 8), so that K1, K2 and K4 run at the family's head dim
+QWEN35_TEST_SHAPE = dict(hidden_size=512, num_heads=4, num_kv_heads=2, head_dim=256,
+                         intermediate_size=1024, moe_intermediate_size=256,
+                         shared_expert_size=256, mrope_section=(16, 8, 8))
 
 # Nemotron-H: the repository's named 8B spec (hidden 4096, 32/8 heads of 128,
 # 128 Mamba-2 heads of 64 in 8 groups, state 128, SSD chunk 128, vocab
@@ -1759,6 +1812,11 @@ K5_WIDE_CASES = (
     ("Dq 640 / v_dim 512", 640, 512, 256, 256, 128, "scattered", 3, 32),
     ("Dq 1152 / v_dim 1024, 24 heads", 1152, 1024, 260, 260, 150, "scattered", 11, 24),
 )
+# the wide cases' inputs are drawn this many times (the range-repairs phase's
+# own stream, then one generator a seed): a token that selected one row gives
+# the wide K5b's dkv a bf16 tie that its ds = 0 rule keeps equal to the plain
+# version's, which one draw may not exercise
+K5_WIDE_SEEDS = 3
 
 
 def k5_wide_case(gen, name: str, dq_w: int, dv: int, S: int, Sk: int, T: int, layout: str,
@@ -2427,8 +2485,11 @@ def train_reference_phase() -> None:
 
 
 def training_phase() -> tuple[dict, dict]:
-    """The port's trainer through its normal entry, twice from the same seed.
-    Returns (launches of the first run, its last metrics record)."""
+    """The port's trainer through its normal entry, twice from the same seed:
+    the first run publishes a snapshot every step and checkpoints at its end,
+    the second (for the bit-equal losses) runs in bench mode, which publishes
+    the initial weights only, as the big trainers do. Returns (launches of the
+    first run, its last metrics record)."""
     import torch
 
     from prime_rl_tpu_torch.configs import TrainerConfig
@@ -2442,7 +2503,7 @@ def training_phase() -> tuple[dict, dict]:
 
     steps, n_mb, rows, seq_len = TRAIN_STEPS, 4, 8, 512
 
-    def config(out: str) -> TrainerConfig:
+    def config(out: str, bench: bool = False) -> TrainerConfig:
         return TrainerConfig(
             device="cuda", seed=SEED, max_steps=steps, grad_clip=1.0, output_dir=out,
             model={"name": MODEL, "seq_len": seq_len, "debug": {"random_init": True}},
@@ -2450,6 +2511,7 @@ def training_phase() -> tuple[dict, dict]:
             data={"type": "fake", "seq_len": seq_len, "micro_batch_size": rows,
                   "num_micro_batches": n_mb, "seed": SEED},
             batch={"seq_len": seq_len, "micro_batch_size": rows, "num_micro_batches": n_mb},
+            bench={"warmup_steps": 0, "steps": steps} if bench else None,
         )
 
     spec = get_spec(MODEL)
@@ -2459,17 +2521,18 @@ def training_phase() -> tuple[dict, dict]:
     runs = []
     for i, out in enumerate(outs):
         shutil.rmtree(out, ignore_errors=True)
-        cfg = config(out)
+        cfg = config(out, bench=i > 0)
         _build.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         result = train(cfg)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        if i == 0:
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
         runs.append((result, dict(_build.launches)))
-        log(f"training run {i}: {steps} steps in {wall:.2f} s, losses "
-            f"{[r['loss'] for r in result.records]}")
+        log(f"training run {i}{' (bench mode)' if i else ''}: {steps} steps in {wall:.2f} s, "
+            f"losses {[r['loss'] for r in result.records]}")
     (result, launches), (again, _) = runs
     records = result.records
     if len(records) != steps:
@@ -2649,8 +2712,8 @@ def dsa_training_phase() -> tuple[dict, dict]:
     at GLM-5's widths, twice from the same seed. Returns (launches of the first
     run, numbers of its last step). The run is in bench mode, which publishes
     the initial weights only: at this size a snapshot per step is 9 GB through
-    the host (the Qwen3 phase covers publishing every step); one snapshot is
-    written and read back here."""
+    the host (the Qwen3 phase covers publishing every step); that initial
+    snapshot (the second run's) is read back here."""
     import torch
 
     from prime_rl_tpu_torch.configs import TrainerConfig
@@ -2661,7 +2724,7 @@ def dsa_training_phase() -> tuple[dict, dict]:
     from prime_rl_tpu_torch.trainer.optim import make_optimizer, tree_leaves, tree_paths
     from prime_rl_tpu_torch.trainer.rl.train import train
     from prime_rl_tpu_torch.trainer.step import init_train_state
-    from prime_rl_tpu_torch.trainer.weights import save_hf_weights
+    from prime_rl_tpu_torch.utils import pathing
 
     steps, n_mb, rows, seq_len = BIG_TRAIN_STEPS, 2, 1, 4096
     model_dir = glm5_model_dir("glm5_model", **GLM5_TRAIN_CUTS)
@@ -2699,7 +2762,8 @@ def dsa_training_phase() -> tuple[dict, dict]:
         state = result.state if i == len(outs) - 1 else None
         del result
         torch.cuda.empty_cache()
-        shutil.rmtree(out, ignore_errors=True)
+        if i < len(outs) - 1:  # the last run's directory holds the snapshot read back below
+            shutil.rmtree(out, ignore_errors=True)
         log(f"dsa-training run {i}: {steps} steps in {wall:.2f} s (initial publish included), "
             f"peak device memory {peak:.2f} GiB, losses {[r['loss'] for r in runs[-1][0]]}, "
             f"step times {[round(r['step_time_s'], 3) for r in runs[-1][0]]}")
@@ -2730,22 +2794,22 @@ def dsa_training_phase() -> tuple[dict, dict]:
     init = init_train_state(spec, "cuda", optimizer, seed=SEED, master_dtype="bfloat16")
     changed = sum(not torch.equal(a, b) for a, b in
                   zip(tree_leaves(init.params), tree_leaves(state.params)))
-    del init
-    torch.cuda.empty_cache()
     if changed < len(tree_leaves(state.params)) // 2:
         raise AssertionError(f"only {changed} parameter tensors changed in {steps} steps")
-    snap = os.path.join(ROOT, "build", "chip_smoke", "dsa_snapshot")
-    shutil.rmtree(snap, ignore_errors=True)
-    t0 = time.perf_counter()
-    save_hf_weights(state.params, spec, snap)
-    t_save = time.perf_counter() - t0
-    if get_spec(snap) != spec:
+    # the snapshot the trainer published at its start (v0: the initial bf16
+    # masters), read back through get_spec and from_hf
+    snap = pathing.weights_dir(outs[-1], 0)
+    if get_spec(str(snap)) != spec:
         raise AssertionError("the snapshot's config.json does not read back as the trained spec")
+    t0 = time.perf_counter()
     loaded = dict(tree_paths(load_hf_weights(snap, spec, dtype=torch.bfloat16, device="cuda")))
-    for path, want_t in tree_paths(state.params):
+    t_load = time.perf_counter() - t0
+    for path, want_t in tree_paths(init.params):
         if not torch.equal(loaded[path].float(), want_t.float()):
-            raise AssertionError(f"snapshot: {path} differs from the state's parameters")
-    shutil.rmtree(snap, ignore_errors=True)
+            raise AssertionError(f"snapshot: {path} differs from the initial parameters")
+    del init
+    torch.cuda.empty_cache()
+    shutil.rmtree(outs[-1], ignore_errors=True)
     last = records[-1]
     tokens = n_mb * rows * seq_len
     n_params = sum(x.numel() for x in tree_leaves(state.params))
@@ -2755,8 +2819,8 @@ def dsa_training_phase() -> tuple[dict, dict]:
     log(f"dsa-training: {n_params / 1e9:.3f} G parameters; {steps} steps of {n_mb} x [{rows}, "
         f"{seq_len}] tokens; last step "
         f"{last['step_time_s']:.3f} s, {numbers['tokens_per_s']:.0f} tokens/s, peak device memory "
-        f"{peak:.2f} GiB; {changed} parameter tensors changed; the snapshot ({t_save:.1f} s to "
-        f"write) reads back equal through get_spec and from_hf; expert products by "
+        f"{peak:.2f} GiB; {changed} parameter tensors changed; the trainer's v0 snapshot reads "
+        f"back equal through get_spec and from_hf ({t_load:.1f} s to load); expert products by "
         f"{numbers['grouped_product']}; launches {launches}")
     del state, loaded
     torch.cuda.empty_cache()
@@ -2977,7 +3041,7 @@ def gpt_oss_training_phase() -> tuple[dict, dict]:
     rows of four sequences each.
     Returns (launches of the first run, numbers of its last step). Bench mode,
     as in the DSA phase: only the initial weights are published (a snapshot
-    is 8.9 GB); one snapshot is written and read back here."""
+    is 8.9 GB); that initial snapshot (the second run's) is read back here."""
     import torch
 
     from prime_rl_tpu_torch.configs import TrainerConfig
@@ -2987,7 +3051,7 @@ def gpt_oss_training_phase() -> tuple[dict, dict]:
     from prime_rl_tpu_torch.ops import _build
     from prime_rl_tpu_torch.trainer.optim import tree_leaves, tree_paths
     from prime_rl_tpu_torch.trainer.rl.train import train
-    from prime_rl_tpu_torch.trainer.weights import save_hf_weights
+    from prime_rl_tpu_torch.utils import pathing
 
     steps, n_mb, rows, seq_len, per_row = BIG_TRAIN_STEPS, 2, 1, 4096, 4
     model_dir = gpt_oss_model_dir("gpt_oss_model", num_hidden_layers=GPT_OSS_TRAIN_LAYERS,
@@ -3028,7 +3092,8 @@ def gpt_oss_training_phase() -> tuple[dict, dict]:
         state = result.state if i == len(outs) - 1 else None
         del result
         torch.cuda.empty_cache()
-        shutil.rmtree(out, ignore_errors=True)
+        if i < len(outs) - 1:  # the last run's directory holds the snapshot read back below
+            shutil.rmtree(out, ignore_errors=True)
         log(f"gpt-oss-training run {i}: {steps} steps in {wall:.2f} s (initial publish included), "
             f"peak device memory {peak:.2f} GiB, losses {[r['loss'] for r in runs[-1][0]]}, "
             f"step times {[round(r['step_time_s'], 3) for r in runs[-1][0]]}")
@@ -3060,22 +3125,22 @@ def gpt_oss_training_phase() -> tuple[dict, dict]:
     init = dict(tree_paths(get_family(spec).init(spec, gen, dtype=torch.float32, device="cuda")))
     final = dict(tree_paths(state.params))
     unchanged = sorted(p for p, t in final.items() if torch.equal(t, init[p].to(t.dtype)))
-    del init
-    torch.cuda.empty_cache()
     if "layers/sink" in unchanged or len(unchanged) > len(final) // 2:
         raise AssertionError(f"parameters that did not change in {steps} steps: {unchanged}")
-    snap = os.path.join(ROOT, "build", "chip_smoke", "gpt_oss_snapshot")
-    shutil.rmtree(snap, ignore_errors=True)
-    t0 = time.perf_counter()
-    save_hf_weights(state.params, spec, snap)
-    t_save = time.perf_counter() - t0
-    if get_spec(snap) != spec:
+    # the snapshot the trainer published at its start (v0: the initial bf16
+    # masters), read back through get_spec and from_hf
+    snap = pathing.weights_dir(outs[-1], 0)
+    if get_spec(str(snap)) != spec:
         raise AssertionError("the snapshot's config.json does not read back as the trained spec")
+    t0 = time.perf_counter()
     loaded = dict(tree_paths(load_hf_weights(snap, spec, dtype=torch.bfloat16, device="cuda")))
-    for path, want_t in final.items():
-        if not torch.equal(loaded[path].float(), want_t.float()):
-            raise AssertionError(f"snapshot: {path} differs from the state's parameters")
-    shutil.rmtree(snap, ignore_errors=True)
+    t_load = time.perf_counter() - t0
+    for path, t in final.items():
+        if not torch.equal(loaded[path].float(), init[path].to(t.dtype).float()):
+            raise AssertionError(f"snapshot: {path} differs from the initial parameters")
+    del init
+    torch.cuda.empty_cache()
+    shutil.rmtree(outs[-1], ignore_errors=True)
     last = records[-1]
     tokens = n_mb * rows * seq_len
     n_params = sum(x.numel() for x in tree_leaves(state.params))
@@ -3085,24 +3150,24 @@ def gpt_oss_training_phase() -> tuple[dict, dict]:
         f"{seq_len}] tokens; last step {last['step_time_s']:.3f} s, "
         f"{numbers['tokens_per_s']:.0f} tokens/s, peak device memory {peak:.2f} GiB; "
         f"{len(final) - len(unchanged)} of {len(final)} parameter tensors changed (the sinks "
-        f"among them); the snapshot ({t_save:.1f} s to write) reads back equal through get_spec "
-        f"and from_hf; launches {launches}")
+        f"among them); the trainer's v0 snapshot reads back equal through get_spec and "
+        f"from_hf ({t_load:.1f} s to load); launches {launches}")
     del state, loaded, final
     torch.cuda.empty_cache()
     return launches, numbers
 
 
 SFT_CONFIG = "configs/examples/qwen3_0.6b_sft.toml"
-SFT_STEPS = 2  # 4 before the cuts
+SFT_STEPS = 1  # 4, then 2 before the cuts; validation after each step
 
 
 def sft_phase() -> tuple[dict, dict]:
     """SFT through its entry's config parser and ``train`` on
     ``configs/examples/qwen3_0.6b_sft.toml`` as it is (Qwen3-0.6B at full
     width and depth, ``seq_len`` 8192, 16 sequences a step in 8 micro-batches
-    of 2 rows, adamw), with fake data, random init, 4 steps, validation every
-    2 steps over 2 batches and a weight snapshot at step 4. Returns (launches,
-    numbers of the last step)."""
+    of 2 rows, adamw), with fake data, random init, SFT_STEPS steps,
+    validation after each over 2 batches and a weight snapshot at the last.
+    Returns (launches, numbers of the last step)."""
     import torch
 
     from prime_rl_tpu_torch.configs import SFTConfig, parse_config
@@ -3132,8 +3197,8 @@ def sft_phase() -> tuple[dict, dict]:
             math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) and r["grad_norm"] > 0
             for r in records):
         raise AssertionError(f"sft: bad step records {records}")
-    if len(val) != 2 or not all(math.isfinite(v) for v in val):
-        raise AssertionError(f"sft: expected two finite val_nll records, got {val}")
+    if len(val) != SFT_STEPS or not all(math.isfinite(v) for v in val):
+        raise AssertionError(f"sft: expected {SFT_STEPS} finite val_nll records, got {val}")
     if not pathing.is_stable(pathing.weights_dir(out, SFT_STEPS)):
         raise AssertionError("sft: no weight snapshot at the last step")
     for name in ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
@@ -3525,6 +3590,20 @@ def gated_test_spec(name: str):
     return dataclasses.replace(get_spec(name), **GATED_TEST_SHAPE)
 
 
+def rel_err(got, want) -> float:
+    """|got - want| / |want| over the whole tensor (Frobenius norms)."""
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def grad_limit(path: str, floor: dict, grad_rtol: float) -> float:
+    """A gradient's limit against float32: ``grad_rtol`` of its norm, or, where
+    ``floor`` holds the plain versions' own bf16 error for ``path`` (the bf16
+    floor of the GatedDeltaNet trunks, whose bf16 arithmetic alone is a few
+    percent off float32 at full width), 1.25 times that error plus 1% where
+    that is larger."""
+    return max(grad_rtol, 1.25 * floor[path] + 0.01) if path in floor else grad_rtol
+
+
 def gated_train_reference(spec, name: str,
                           kernels=("flash_attn_fwd/window", "flash_attn_bwd_dq/window",
                                    "flash_attn_bwd_dkv/window"),
@@ -3611,10 +3690,6 @@ def gated_train_reference(spec, name: str,
                              f"float32 router's on only {agree} of its choices")
     loss_cpu, grads_cpu = run(torch.device("cpu"), torch.float32, "float32", "none",
                               routed=routed.reshape(1, seq_len, n_moe, -1))
-
-    def rel_err(got, want):
-        return float((got - want).norm() / want.norm().clamp_min(1e-30))
-
     floor = {}
     if bf16_floor:
         _, grads_bf16 = run(torch.device("cpu"), torch.bfloat16, "bfloat16", "none",
@@ -3635,8 +3710,7 @@ def gated_train_reference(spec, name: str,
         raise AssertionError(f"{name}-train-reference: the card's and the CPU's gradients are "
                              f"of other tensors: {sorted(set(grads_cpu) ^ set(grads_gpu))}")
     errors = {path: rel_err(grads_gpu[path], want) for path, want in grads_cpu.items()}
-    limits = {p: max(grad_rtol, 1.25 * floor[p] + 0.01) if p in floor else grad_rtol
-              for p in errors}
+    limits = {p: grad_limit(p, floor, grad_rtol) for p in errors}
     worst = max(errors.values())
     bad = {p: (round(e, 4), round(limits[p], 4)) for p, e in errors.items()
            if not (e <= limits[p] and bool(torch.isfinite(grads_gpu[p]).all()))}
@@ -3713,15 +3787,6 @@ def qwen3_next_spec(num_layers: int, num_experts: int | None = None):
     return cut
 
 
-def qwen3_next_dir(name: str, num_layers: int, num_experts: int | None = None) -> str:
-    """A directory under build/chip_smoke whose config.json names
-    Qwen3NextForCausalLM at the named spec's widths, cut as ``qwen3_next_spec``."""
-    from prime_rl_tpu_torch.trainer.weights import spec_to_hf_config
-
-    spec = qwen3_next_spec(num_layers, num_experts)
-    return config_dir(name, spec_to_hf_config(spec))
-
-
 def qwen3_next_kernel_phase() -> list[dict]:
     """The kernel rows at head dim 256, each held against its plain
     version, launched twice for equal bits and timed as the other rows are
@@ -3784,23 +3849,6 @@ def qwen3_next_reference_phase() -> dict:
     return {"train": train, "serve": serve_launches}
 
 
-def qwen3_next_training_phase() -> tuple[dict, dict]:
-    """The trainer through its normal entry on a directory whose config.json
-    names Qwen3NextForCausalLM at its widths, cut to 4 layers (LLLA) and 64
-    experts (``QWEN3_NEXT_TRAIN_CUTS``), twice from the same seed
-    (``hybrid_training_phase``). Returns (launches of the first run, numbers
-    of its last step)."""
-    model_dir = qwen3_next_dir("qwen3_next_training", **QWEN3_NEXT_TRAIN_CUTS)
-    return hybrid_training_phase(
-        "qwen3-next", model_dir,
-        ("qwen3_next", 2048, 16, 2, 256, "LLLA", QWEN3_NEXT_TRAIN_CUTS["num_experts"], 151936),
-        lambda spec: (spec.family, spec.hidden_size, spec.num_heads, spec.num_kv_heads,
-                      spec.head_dim, spec.gdn_pattern, spec.num_experts, spec.vocab_size),
-        lambda spec: spec.gdn_pattern.count("A"),
-        lambda path: path.startswith("lin_layers/") and path.split("/")[1] in (
-            "in_q", "conv_w", "A_log"))
-
-
 def nemotron_training_phase() -> tuple[dict, dict]:
     """The trainer through its normal entry on a directory whose config.json
     names NemotronHForCausalLM at the 8B's widths, cut to one period of its
@@ -3820,16 +3868,22 @@ def nemotron_training_phase() -> tuple[dict, dict]:
 
 
 def hybrid_training_phase(label: str, model_dir: str, expect: tuple, widths, n_attn,
-                          must_change) -> tuple[dict, dict]:
+                          must_change, samples=None) -> tuple[dict, dict]:
     """A hybrid model's trainer through its normal entry on ``model_dir``,
     twice from the same seed: seq_len 4096, 2 micro-batches of 1 row,
-    adamw_8bit with bf16 masters, full remat, BIG_TRAIN_STEPS steps. ``widths(spec)`` must
+    adamw_8bit with bf16 masters, full remat, BIG_TRAIN_STEPS steps, on the
+    fake data, or with ``samples`` (``samples(rng)``: one step's
+    TrainingSamples) on the batches that the filesystem transport holds, as
+    an orchestrator ships them (from a generator seeded alike in both runs).
+    ``widths(spec)`` must
     give ``expect``. Bit-equal finite losses, changed parameters (none for
     which ``must_change(path)`` holds unchanged), the launches of K1, K2a and
     K2b the ``n_attn(spec)`` attention layers, micro-batches and remat imply,
     and a snapshot that reads back through get_spec and from_hf. Bench mode,
-    as the other big trainers: only the initial weights are published.
+    as the other big trainers: only the initial weights are published, and
+    that snapshot (the second run's) is the one read back.
     Returns (launches of the first run, numbers of its last step)."""
+    import numpy as np
     import torch
 
     from prime_rl_tpu_torch.configs import TrainerConfig
@@ -3839,10 +3893,15 @@ def hybrid_training_phase(label: str, model_dir: str, expect: tuple, widths, n_a
     from prime_rl_tpu_torch.ops import _build
     from prime_rl_tpu_torch.trainer.optim import tree_leaves, tree_paths
     from prime_rl_tpu_torch.trainer.rl.train import train
-    from prime_rl_tpu_torch.trainer.weights import save_hf_weights
+    from prime_rl_tpu_torch.transport import setup_training_batch_sender
+    from prime_rl_tpu_torch.transport.types import TrainingBatch
+    from prime_rl_tpu_torch.utils import pathing
 
     steps, n_mb, rows, seq_len = BIG_TRAIN_STEPS, 2, 1, 4096
     tag = label.replace("-", "_")
+    data = ({"type": "fake", "seq_len": seq_len, "micro_batch_size": rows,
+             "num_micro_batches": n_mb, "seed": SEED} if samples is None
+            else {"type": "transport"})
 
     def config(out: str) -> TrainerConfig:
         return TrainerConfig(
@@ -3850,8 +3909,7 @@ def hybrid_training_phase(label: str, model_dir: str, expect: tuple, widths, n_a
             model={"name": model_dir, "seq_len": seq_len, "debug": {"random_init": True},
                    "ac": {"mode": "full"}},
             optimizer={"type": "adamw_8bit", "lr": 1e-5, "master_dtype": "bfloat16"},
-            data={"type": "fake", "seq_len": seq_len, "micro_batch_size": rows,
-                  "num_micro_batches": n_mb, "seed": SEED},
+            data=data, transport={"type": "filesystem"},
             batch={"seq_len": seq_len, "micro_batch_size": rows, "num_micro_batches": n_mb},
             bench={"warmup_steps": 0, "steps": steps},
         )
@@ -3861,12 +3919,19 @@ def hybrid_training_phase(label: str, model_dir: str, expect: tuple, widths, n_a
         raise AssertionError(f"the trained model must be {expect}, not {widths(spec)}")
     outs = [os.path.join(ROOT, "build", "chip_smoke", f"{tag}_train_{i}") for i in range(2)]
     runs = []
+    mm_patches = []
     for i, out in enumerate(outs):
         shutil.rmtree(out, ignore_errors=True)
+        if samples is not None:
+            sender = setup_training_batch_sender(config(out).transport, out)
+            rng = np.random.default_rng(SEED)
+            for step in range(steps):
+                sender.send(TrainingBatch(examples=samples(rng), step=step))
         _build.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         result = train(config(out))
+        mm_patches = [r.get("mm_patches") for r in result.records]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2**30
@@ -3875,7 +3940,8 @@ def hybrid_training_phase(label: str, model_dir: str, expect: tuple, widths, n_a
         del result
         gc.collect()
         torch.cuda.empty_cache()
-        shutil.rmtree(out, ignore_errors=True)
+        if i < len(outs) - 1:  # the last run's directory holds the snapshot read back below
+            shutil.rmtree(out, ignore_errors=True)
         log(f"{label}-training run {i}: {steps} steps in {wall:.2f} s (initial publish "
             f"included), peak device memory {peak:.2f} GiB, losses "
             f"{[r['loss'] for r in runs[-1][0]]}, step times "
@@ -3900,36 +3966,43 @@ def hybrid_training_phase(label: str, model_dir: str, expect: tuple, widths, n_a
     init = dict(tree_paths(get_family(spec).init(spec, gen, dtype=torch.float32, device="cuda")))
     final = dict(tree_paths(state.params))
     unchanged = sorted(p for p, t in final.items() if torch.equal(t, init[p].to(t.dtype)))
-    del init
-    torch.cuda.empty_cache()
     if any(must_change(p) for p in unchanged) or len(unchanged) > len(final) // 2:
         raise AssertionError(f"parameters that did not change in {steps} steps: {unchanged}")
-    snap = os.path.join(ROOT, "build", "chip_smoke", f"{tag}_snapshot")
-    shutil.rmtree(snap, ignore_errors=True)
-    t0 = time.perf_counter()
-    save_hf_weights(state.params, spec, snap)
-    t_save = time.perf_counter() - t0
-    if get_spec(snap) != spec:
+    # the snapshot the trainer published at its start (v0: the initial bf16
+    # masters), read back through get_spec and from_hf
+    snap = pathing.weights_dir(outs[-1], 0)
+    if get_spec(str(snap)) != spec:
         raise AssertionError("the snapshot's config.json does not read back as the trained spec")
+    t0 = time.perf_counter()
     loaded = dict(tree_paths(load_hf_weights(snap, spec, dtype=torch.bfloat16, device="cuda")))
-    for path, want_t in final.items():
+    t_load = time.perf_counter() - t0
+    for path, t in final.items():
         # the zero-centred norms convert through w - 1 and back: bf16 rounds
         # the stored difference, so those compare within a bf16 step
-        got_t = loaded[path].float()
-        exact = torch.equal(got_t, want_t.float())
-        if not exact and not torch.allclose(got_t, want_t.float(), atol=1e-2, rtol=0):
-            raise AssertionError(f"snapshot: {path} differs from the state's parameters")
-    shutil.rmtree(snap, ignore_errors=True)
+        got_t, want_t = loaded[path].float(), init[path].to(t.dtype).float()
+        exact = torch.equal(got_t, want_t)
+        if not exact and not torch.allclose(got_t, want_t, atol=1e-2, rtol=0):
+            raise AssertionError(f"snapshot: {path} differs from the initial parameters")
+    del init
+    torch.cuda.empty_cache()
+    shutil.rmtree(outs[-1], ignore_errors=True)
     last = records[-1]
     tokens = n_mb * rows * seq_len
     n_params = sum(x.numel() for x in tree_leaves(state.params))
     numbers = dict(step_time_s=last["step_time_s"], tokens_per_s=tokens / last["step_time_s"],
                    peak_gib=peak, parameters=n_params)
+    if samples is not None:
+        if not all(p for p in mm_patches):
+            raise AssertionError(f"{label}-training: steps without vision patches {mm_patches}")
+        numbers["mm_patches"] = mm_patches
+        numbers["tower_parameters"] = sum(x.numel() for x in tree_leaves(state.params["vision"]))
+    patches = "" if samples is None else f" (vision patches a step {mm_patches})"
     log(f"{label}-training: {n_params / 1e9:.3f} G parameters; {steps} steps of {n_mb} x "
-        f"[{rows}, {seq_len}] tokens; last step {last['step_time_s']:.3f} s, "
+        f"[{rows}, {seq_len}] tokens{patches}; last step {last['step_time_s']:.3f} s, "
         f"{numbers['tokens_per_s']:.0f} tokens/s, peak device memory {peak:.2f} GiB; "
-        f"{len(final) - len(unchanged)} of {len(final)} parameter tensors changed; the snapshot "
-        f"({t_save:.1f} s to write) reads back through get_spec and from_hf; launches {launches}")
+        f"{len(final) - len(unchanged)} of {len(final)} parameter tensors changed; the "
+        f"trainer's v0 snapshot reads back through get_spec and from_hf ({t_load:.1f} s to "
+        f"load); launches {launches}")
     del state, loaded, final
     gc.collect()
     torch.cuda.empty_cache()
@@ -4447,9 +4520,12 @@ def run_loop(card: str, label: str, tomls: list[str], flags: tuple = (),
         raise AssertionError(f"{label}: {missing} never launched in the colocated process: "
                              f"{launches}")
 
-    # the loop's figures, this single run; steady state = steps 2..6
+    # the loop's figures, this single run; steady state = steps 2..LOOP_STEPS;
+    # the swap's time from the steps that published (the launcher skips the
+    # last target_lag + 1 = 2 publishes: at 3 steps, step 1 alone publishes)
     steady = trows[1:]
     med = lambda key: float(np.median([r[key] for r in steady]))  # noqa: E731
+    published = [(r["step"], r["publish_s"]) for r in trows if r["publish_s"] > 0]
     step_wall = float(np.median(np.diff([r["ts"] for r in trows])))
     gen = [r.get("inference/mixed/generation_tokens_total/sum") for r in orows]
     span = orows[-1]["ts"] - orows[0]["ts"]
@@ -4460,15 +4536,16 @@ def run_loop(card: str, label: str, tomls: list[str], flags: tuple = (),
         "wall_s": round(wall, 1), "steps": LOOP_STEPS,
         "trainer_tokens_per_s": med("tokens_per_sec"), "train_step_s": med("step_time_s"),
         "wait_for_batch_s": med("wait_for_batch_s"), "step_wall_s": step_wall,
-        "publish_s": float(np.median([r["publish_s"] for r in steady if r["publish_s"] > 0]
-                                     or [float("nan")])),
+        "publish_s": float(np.median([t for _, t in published] or [float("nan")])),
+        "publish_steps": [step for step, _ in published],
         "rollout_tokens_per_s": rollout_tps, "env_steps_per_s": env_sps,
         "rl_tokens_per_step": float(np.median([r["rl_tokens"] for r in trows])),
         "mismatch_kl_mean": kl, "reward_mean": [r["reward_mean"] for r in orows],
     }
     log(f"{label} on {card} (one run, medians of steps 2-{LOOP_STEPS}): trainer "
         f"{stats['trainer_tokens_per_s']:.1f} tokens/s, train step {stats['train_step_s']:.3f} s, "
-        f"wait for a batch {stats['wait_for_batch_s']:.3f} s, publish_s (in-process swap) "
+        f"wait for a batch {stats['wait_for_batch_s']:.3f} s, publish_s (in-process swap, the "
+        f"median of steps {stats['publish_steps']}, those that published) "
         f"{stats['publish_s']:.4f} s, wall time a step {step_wall:.3f} s; rollouts "
         f"{rollout_tps:.1f} tokens/s, env steps {env_sps:.2f}/s; mean mismatch_kl {kl:.4g}; "
         f"the launcher took {wall:.1f} s")
@@ -5094,8 +5171,9 @@ def range_repairs_phase() -> list[dict]:
     the kernel phases: K1_EDGE_CASES at head dims 320 and 512, K4_EDGE_CASES
     at 384 and 512): K1, K2a and K2b at head dim 512 and K2a and K2b at 384
     (B=1 L=2048, 16/4 heads, two sequences), K4 at 384 and 512, and K5a/K5b
-    at the wide widths over K5_WIDE_CASES (1152/1024 and 640/512) and timed
-    at 1152/1024."""
+    at the wide widths over K5_WIDE_CASES (1152/1024 and 640/512) drawn
+    K5_WIDE_SEEDS times and timed at 1152/1024; every row draws from the
+    phase's one generator."""
     import torch
 
     from prime_rl_tpu_torch.ops import _build
@@ -5108,12 +5186,8 @@ def range_repairs_phase() -> list[dict]:
     before = dict(_build.launches)
     rows = []
     kernels = (("flash_attn_fwd", 59), ("flash_attn_bwd_dq", 227), ("flash_attn_bwd_dkv", 282))
-    # the rows at 384 draw from a generator of their own: the phase's other
-    # checks keep their inputs whatever rows come before them
-    gen384 = torch.Generator(device=dev)
-    gen384.manual_seed(SEED + 20)
-    for hd, g in ((512, gen), (384, gen384)):  # K1 at 384 is the plain form of 512: not timed
-        found = k12_rows(g, f"hd{hd}", 1, 2048, 16, 4, hd, [[1100, 948]], k1=hd == 512)
+    for hd in (512, 384):  # K1 at 384 is the plain form of 512: not timed
+        found = k12_rows(gen, f"hd{hd}", 1, 2048, 16, 4, hd, [[1100, 948]], k1=hd == 512)
         for (name, line), case in zip(kernels[3 - len(found):], found):
             source = "fwd" if name == "flash_attn_fwd" else "bwd"
             rows.append(dict(name=f"{name}/hd{hd}", route="cuda",
@@ -5127,6 +5201,9 @@ def range_repairs_phase() -> list[dict]:
                          replaces="prime_rl_tpu/ops/decode_attention.py:50",
                          **{k: case[k] for k in keys}, cases=[case]))
     errs = [k5_wide_case(gen, *case) for case in K5_WIDE_CASES]
+    for seed in range(1, K5_WIDE_SEEDS):  # the phase's stream, then generators of their own
+        g = torch.Generator(device=dev).manual_seed(SEED + 100 + seed)
+        errs += [k5_wide_case(g, *case) for case in K5_WIDE_CASES]
     fwd, bwd = k5_wide_timing(gen, flush)
     fwd["max_abs_err"] = max([fwd["max_abs_err"]] + [e[0] for e in errs])
     bwd["max_abs_err"] = max([bwd["max_abs_err"]] + [e[1] for e in errs])
@@ -5135,7 +5212,7 @@ def range_repairs_phase() -> list[dict]:
                          source="prime_rl_tpu_torch/csrc/sparse_mla.cu",
                          replaces=f"prime_rl_tpu/ops/sparse_mla_pallas.py:{line}",
                          **{k: case[k] for k in keys}, cases=[case],
-                         edge_cases=len(K5_WIDE_CASES)))
+                         edge_cases=len(K5_WIDE_CASES) * K5_WIDE_SEEDS))
     forms = {k: v - before.get(k, 0) for k, v in _build.launches.items()
              if k.endswith("/wide") and v > before.get(k, 0)}
     for kernel in ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv",
@@ -5207,12 +5284,14 @@ def qwen3_vl_kernel_phase() -> list[dict]:
     return rows
 
 
-def vlm_train_reference(spec, label: str) -> dict:
+def vlm_train_reference(spec, label: str, bf16_floor: bool = False) -> dict:
     """Loss and every gradient (the tower's among them) of one packed row of
     512 tokens (an image sample, a text sample) through ``spec`` in bf16 on
     the card (K1, K2a, K2b; the tower's products), against float32 on the CPU
     from the same bf16-representable weights; the CPU replays the card's
-    routing. Returns the card's launches."""
+    routing. With ``bf16_floor`` (the GatedDeltaNet trunk) the CPU also runs
+    the plain versions in bf16 on that routing (``grad_limit``). Returns the
+    card's launches."""
     import numpy as np
     import torch
 
@@ -5250,6 +5329,11 @@ def vlm_train_reference(spec, label: str) -> dict:
             raise AssertionError(f"{label} train reference: {name} was not launched on the card")
     with recorded_routing(replay=[r.cpu() for r in routing]):
         loss_cpu, grads_cpu = run(torch.device("cpu"), torch.float32, "float32")
+    floor = {}
+    if bf16_floor:
+        with recorded_routing(replay=[r.cpu() for r in routing]):
+            _, grads_bf16 = run(torch.device("cpu"), torch.bfloat16, "bfloat16")
+        floor = {p: rel_err(g, grads_cpu[p]) for p, g in grads_bf16.items()}
     # as train_reference_phase: bf16 through the tower and the trunk against float32
     loss_rtol, grad_rtol = 2e-2, 5e-2
     if not abs(loss_gpu - loss_cpu) <= loss_rtol * abs(loss_cpu):
@@ -5257,25 +5341,33 @@ def vlm_train_reference(spec, label: str) -> dict:
     worst = 0.0
     for path, want in grads_cpu.items():
         got = grads_gpu[path]
-        rel = float((got - want).norm() / want.norm().clamp_min(1e-30))
+        rel = rel_err(got, want)
         worst = max(worst, rel)
-        if not (bool(torch.isfinite(got).all()) and rel <= grad_rtol):
+        limit = grad_limit(path, floor, grad_rtol)
+        if not (bool(torch.isfinite(got).all()) and rel <= limit):
             raise AssertionError(f"{label} train reference gradient of {path}: relative error "
-                                 f"{rel:.4g} exceeds {grad_rtol}")
+                                 f"{rel:.4g} exceeds {limit:.4g}")
+    if floor:
+        log(f"{label} train reference: the plain bf16 path's own gradient error against "
+            f"float32 is {min(floor.values()):.4g}-{max(floor.values()):.4g} of the norm")
     log(f"{label} train reference: loss {loss_gpu:.6g} vs float32 {loss_cpu:.6g} (tolerance "
         f"{loss_rtol} relative); worst gradient error {worst:.4g} of its norm over "
         f"{len(grads_cpu)} tensors, the tower's {sum(p.startswith('vision') for p in grads_cpu)} "
-        f"among them (tolerance {grad_rtol}); launches {launches}")
+        f"among them (tolerance {grad_rtol}{', or the bf16 floor above' if floor else ''}); "
+        f"launches {launches}")
     return launches
 
 
-def vlm_served_reference(spec, label: str) -> dict:
+def vlm_served_reference(spec, label: str,
+                         kernels=("flash_attn_fwd", "decode_qkv_prep", "decode_paged_attention")
+                         ) -> dict:
     """The served forward of ``spec`` on an image prompt (one vision block of
     48 tokens in 149): the tower, the prefill with its image slots, DeepStack
     and mRoPE positions (logits and prompt logprobs), and 4 decode steps with
-    the prompt's ``pos_delta``, in bf16 through K1, K3 and K4 on the card,
-    against float32 on the CPU from the same weights (the CPU replays the
-    card's routing), within 0.05 of the largest |logit| as the other served
+    the prompt's ``pos_delta``, in bf16 through ``kernels`` on the card (a
+    hybrid's decode from the recurrent rows its prefill returned), against
+    float32 on the CPU from the same weights (the CPU replays the card's
+    routing), within 0.05 of the largest |logit| as the other served
     references. Returns the card's launches."""
     import numpy as np
     import torch
@@ -5314,12 +5406,16 @@ def vlm_served_reference(spec, label: str) -> dict:
                              table[0, :lpad // ps].to(device), compute_dtype=dtype,
                              want_prompt_logprobs=True, mm=mm_dev)
         out = [smodel.logits_from_hidden(sp, spec, got[2][None], dtype), got[3][1:n]]
+        rec = {}
+        if spec.gdn_pattern:  # the slot's recurrent rows, as the engine seeds them
+            rec = dict(r_conv=[None if r is None else r[0][None].clone() for r in got[4]],
+                       r_state=[None if r is None else r[1][None].clone() for r in got[4]])
         for i in range(steps):
             tok = (torch.tensor(ids[-1:]) if i == 0 else nxt[i - 1:i]).to(device)
             _, _, logits = smodel.decode(
                 sp, spec, kp, vp, tok, torch.tensor([n + i], dtype=torch.int32, device=device),
                 table.to(device), compute_dtype=dtype,
-                pos_delta=torch.tensor([delta], dtype=torch.int32, device=device))
+                pos_delta=torch.tensor([delta], dtype=torch.int32, device=device), **rec)
             out.append(logits)
         return [o.float().cpu() for o in out], delta
 
@@ -5329,7 +5425,7 @@ def vlm_served_reference(spec, label: str) -> dict:
         got, delta = run(params, torch.device("cuda"), torch.bfloat16)
     torch.cuda.synchronize()
     launches = dict(_build.launches)
-    for kernel in ("flash_attn_fwd", "decode_qkv_prep", "decode_paged_attention"):
+    for kernel in kernels:
         if launches.get(kernel, 0) <= 0:
             raise AssertionError(f"{label} served reference: {kernel} was not launched")
     cpu = {k: (v.float().cpu() if isinstance(v, torch.Tensor) else
@@ -5365,10 +5461,11 @@ def qwen3_vl_reference_phase() -> dict:
 
 
 def vlm_decode_timing(engine, slots: int = QWEN3_VL_REQUESTS, cached: int = 1000) -> dict:
-    """The decode step of the served Qwen3-VL-8B at ``slots`` slots of
-    ``cached`` tokens with an mRoPE offset (the engine's pool, after its
-    requests): busy ms (CUDA events around a step) and host ms (the host
-    clock around a step that ends in a synchronize), medians of 10."""
+    """The decode step of a served VLM at ``slots`` slots of ``cached`` tokens
+    with an mRoPE offset (the engine's pools, a hybrid's recurrent rows
+    among them, after its requests): busy ms (CUDA events around a step) and
+    host ms (the host clock around a step that ends in a synchronize),
+    medians of 10."""
     import numpy as np
     import torch
 
@@ -5382,10 +5479,15 @@ def vlm_decode_timing(engine, slots: int = QWEN3_VL_REQUESTS, cached: int = 1000
     tokens = torch.randint(0, 150000, (slots,), device=dev,
                            generator=torch.Generator(device=dev).manual_seed(SEED))
 
+    # a hybrid's recurrent rows of the first ``slots`` slots (views: decode
+    # advances them in place)
+    rec = {name: [None if t is None else t[:slots] for t in pool]
+           for name, pool in (("r_conv", engine.r_conv), ("r_state", engine.r_state))}
+
     def step():
         with torch.no_grad():
             smodel.decode(engine.params, spec, engine.k_pool, engine.v_pool, tokens, lengths,
-                          table, compute_dtype=torch.bfloat16, pos_delta=delta)
+                          table, compute_dtype=torch.bfloat16, pos_delta=delta, **rec)
 
     busy = time_ms(step, iters=10)
     host = []
@@ -5399,11 +5501,11 @@ def vlm_decode_timing(engine, slots: int = QWEN3_VL_REQUESTS, cached: int = 1000
             "decode_slots": slots, "decode_cached_tokens": cached}
 
 
-def vlm_tower_timing(engine) -> dict:
-    """The vision tower of the served Qwen3-VL-8B alone (CUDA events, bf16,
-    no grad) on one image of each of QWEN3_VL_IMAGES, its patches padded to
-    the engine's bucket, and its attention alone (``frame_attention`` over
-    the real patches at 16 heads of 72, one frame): ms each."""
+def vlm_tower_timing(engine, label: str = QWEN3_VL) -> dict:
+    """The vision tower of a served VLM alone (CUDA events, bf16, no grad) on
+    one image of each of QWEN3_VL_IMAGES, its patches padded to the engine's
+    bucket, and its attention alone (``frame_attention`` over the real
+    patches, one frame): ms each."""
     import numpy as np
     import torch
 
@@ -5431,19 +5533,36 @@ def vlm_tower_timing(engine) -> dict:
                            iters=10)
         out[f"tower_ms_{n}_patches"] = tower
         out[f"tower_attention_ms_{n}_patches"] = attn
-    log(f"the Qwen3-VL-8B tower alone (27 blocks, bf16): {json.dumps(out)} (the attention "
-        f"alone: one block's, one frame)")
+    log(f"the {label} tower alone ({vspec.depth} blocks, {vspec.num_heads} heads of "
+        f"{vspec.head_dim}, bf16): {json.dumps(out)} (the attention alone: one block's, one "
+        f"frame)")
     return out
 
 
 def qwen3_vl_serving_phase(card: str) -> tuple[dict, dict]:
     """The inference server on Qwen3-VL-8B at full width and depth (36
-    layers, the 27-block tower; random weights from the seed) over HTTP:
-    QWEN3_VL_REQUESTS concurrent requests, each one synthetic image
+    layers, the 27-block tower; random weights from the seed) over HTTP
+    (``vlm_serving``). Returns (stats, launches of the image requests)."""
+    return vlm_serving(card, QWEN3_VL, config_dir("qwen3_vl_serving", QWEN3_VL_8B_CONFIG),
+                       (36, 27, 151936),
+                       ("flash_attn_fwd", "decode_qkv_prep", "decode_paged_attention"))
+
+
+def vlm_serving(card: str, label: str, model_dir: str, want: tuple, kernels: tuple,
+                forbid: tuple = (), extra=None, collect: bool = False) -> tuple[dict, dict]:
+    """The inference server on the VLM of ``model_dir`` (random weights from
+    the seed; its (layers, tower blocks, vocabulary) must be ``want``; with
+    ``collect`` recording the routing of every completion) over
+    HTTP: QWEN3_VL_REQUESTS concurrent requests, each one synthetic image
     (QWEN3_VL_IMAGES in turn: 196 or 768 image tokens) in 64-256 text tokens,
-    its pixels as base64 f32 on the wire, QWEN3_VL_MAX_TOKENS tokens each;
-    then one text-only request on the same engine, and the decode step's
-    busy and host ms. Returns (stats, launches of the requests)."""
+    its pixels as base64 f32 on the wire, QWEN3_VL_MAX_TOKENS tokens each,
+    every kernel of ``kernels`` launched and none of ``forbid``, none of them
+    through the chunked prefill, each carrying its ``routed_experts`` with
+    ``collect``; then one image request of one token alone
+    (the time to its first token), one text-only request on the same engine,
+    ``extra(server, port)`` (its numbers join the stats), the decode step's
+    busy and host ms and the tower's ms. Returns (stats, launches of the
+    image requests)."""
     import base64
 
     import aiohttp
@@ -5454,27 +5573,30 @@ def qwen3_vl_serving_phase(card: str) -> tuple[dict, dict]:
     from prime_rl_tpu_torch.configs import InferenceConfig
     from prime_rl_tpu_torch.entrypoints.inference import build_server
     from prime_rl_tpu_torch.ops import _build
+    from prime_rl_tpu_torch.sampler import engine as engine_mod
     from prime_rl_tpu_torch.sampler.engine import SamplingParams
 
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
-    model_dir = config_dir("qwen3_vl_serving", QWEN3_VL_8B_CONFIG)
     config = InferenceConfig(
         device="cuda", seed=SEED, max_model_len=4096,
         output_dir=os.path.join(ROOT, "build", "chip_smoke"),
         model={"name": model_dir, "debug": {"random_init": True}},
-        tokenizer={"name": "byte"}, scheduler={"max_batch_size": 64})
+        tokenizer={"name": "byte"}, scheduler={"max_batch_size": 64},
+        collect_routed_experts=collect)
     t0 = time.perf_counter()
     server = build_server(config)
     engine = server.engine
     spec = engine.spec
-    log(f"{QWEN3_VL} server built in {time.perf_counter() - t0:.2f} s: {spec.num_layers} "
-        f"layers, a tower of {spec.vision.depth} blocks, vocab {spec.vocab_size}, "
-        f"{engine.config.num_pages} KV pages of {engine.config.page_size}, device memory "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    if (spec.num_layers, spec.vision.depth, spec.vocab_size) != (36, 27, 151936):
-        raise AssertionError(f"the served model must be {QWEN3_VL} at full width and depth")
+    log(f"{label} server built in {time.perf_counter() - t0:.2f} s: {spec.num_layers} "
+        f"layers{' (' + spec.gdn_pattern + ')' if spec.gdn_pattern else ''}, "
+        f"{spec.num_experts or 'no'} experts, a tower of {spec.vision.depth} blocks, vocab "
+        f"{spec.vocab_size}, {engine.config.num_pages} KV pages of {engine.config.page_size}, "
+        f"device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    if (spec.num_layers, spec.vision.depth, spec.vocab_size) != want:
+        raise AssertionError(f"the served model must be {label} at {want} (layers, tower "
+                             f"blocks, vocabulary)")
     rng = np.random.default_rng(SEED)
     engine.warmup(4)
     warm_ids, warm_mm = vlm_prompt(spec, QWEN3_VL_IMAGES[0], 64, rng)
@@ -5501,48 +5623,83 @@ def qwen3_vl_serving_phase(card: str) -> tuple[dict, dict]:
               else c["finish_reason"] == "stop" and toks and toks[-1] == spec.eos_token_id)
         if not ok or len(lps) != len(toks) or not np.all(np.isfinite(lps)):
             raise AssertionError(f"{what}: bad result {c['finish_reason']} {len(toks)} tokens")
+        if collect:  # as serving_phase: ids in [0, E) on every token but the last, -1 there
+            r = np.asarray(c["routed_experts"])
+            if (r.shape != (len(toks), *routed_shape) or not (r[-1] == -1).all()
+                    or not ((r[:-1] >= 0) & (r[:-1] < spec.num_experts)).all()):
+                raise AssertionError(f"{what}: routed_experts of shape {r.shape}, expected "
+                                     f"{(len(toks), *routed_shape)} with ids in "
+                                     f"[0, {spec.num_experts}) and a last row of -1")
         return len(toks)
+
+    routed_shape = (spec.num_layers - spec.first_k_dense_replace, spec.num_experts_per_tok)
+    chunks = []
+    own_chunk = engine_mod.smodel.prefill_chunk
+
+    def counted_chunk(*args, **kw):
+        chunks.append(1)
+        return own_chunk(*args, **kw)
 
     async def drive():
         runner = await server.start_async("127.0.0.1", port)
         try:
             async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600)) as http:
-                async def generate(ids, mm):
-                    r = await http.post(f"{base}/inference/v1/generate", json=body(ids, mm))
+                async def generate(ids, mm, max_tokens=QWEN3_VL_MAX_TOKENS):
+                    req = body(ids, mm)
+                    req["sampling_params"]["max_tokens"] = max_tokens
+                    r = await http.post(f"{base}/inference/v1/generate", json=req)
                     if r.status != 200:
                         raise AssertionError(f"generate: HTTP {r.status}: {await r.text()}")
                     return await r.json()
 
                 _build.reset_launches()
-                t0 = time.perf_counter()
-                results = await asyncio.gather(*(generate(ids, mm) for ids, mm in prompts))
-                wall = time.perf_counter() - t0
+                engine_mod.smodel.prefill_chunk = counted_chunk
+                try:
+                    t0 = time.perf_counter()
+                    results = await asyncio.gather(*(generate(ids, mm) for ids, mm in prompts))
+                    wall = time.perf_counter() - t0
+                finally:
+                    engine_mod.smodel.prefill_chunk = own_chunk
                 launches = dict(_build.launches)
                 tokens = sum(check(r, f"image request {i}") for i, r in enumerate(results))
+                t1 = time.perf_counter()
+                first = await generate(*prompts[1], max_tokens=1)
+                ttft = time.perf_counter() - t1
+                if len(first["choices"][0]["token_ids"]) != 1:
+                    raise AssertionError("the one-token image request gave another length")
                 t1 = time.perf_counter()
                 text = await generate(text_prompt, None)
                 text_s = time.perf_counter() - t1
                 check(text, "the text request")
+                more = {} if extra is None else await extra(server, port)
         finally:
             await server.stop_async(runner)
         return launches, dict(
             requests=len(prompts), generated_tokens=tokens, wall_s=wall,
-            tokens_per_s=tokens / wall,
+            tokens_per_s=tokens / wall, ttft_s=ttft, chunked_prefills=len(chunks),
             image_tokens=[sum(t == spec.image_token_id for t in ids) for ids, _ in prompts],
             prompt_tokens=[len(ids) for ids, _ in prompts],
-            text_request_tokens=len(text["choices"][0]["token_ids"]), text_request_s=text_s)
+            text_request_tokens=len(text["choices"][0]["token_ids"]), text_request_s=text_s,
+            **more)
 
     launches, stats = asyncio.run(drive())
     stats["vision_patches"] = engine.stats.get("vision_patches", 0)
     stats.update(vlm_decode_timing(engine))
-    stats.update(vlm_tower_timing(engine))
+    stats.update(vlm_tower_timing(engine, label))
     stats["device_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    for kernel in ("flash_attn_fwd", "decode_qkv_prep", "decode_paged_attention"):
+    for kernel in kernels:
         if launches.get(kernel, 0) <= 0:
-            raise AssertionError(f"qwen3-vl-serving: {kernel} was not launched: {launches}")
-    log(f"{QWEN3_VL} serving on {card}: {stats['tokens_per_s']:.1f} tokens/s over "
+            raise AssertionError(f"{label} serving: {kernel} was not launched: {launches}")
+    for kernel in forbid:
+        if launches.get(kernel, 0):
+            raise AssertionError(f"{label} serving: {kernel} launched: {launches}")
+    if stats["chunked_prefills"]:
+        raise AssertionError(f"{label} serving: {stats['chunked_prefills']} chunked prefills "
+                             "among the image requests, which take the single-shot prefill")
+    log(f"{label} serving on {card}: {stats['tokens_per_s']:.1f} tokens/s over "
         f"{stats['requests']} image requests ({stats['generated_tokens']} tokens in "
-        f"{stats['wall_s']:.2f} s; image tokens {sorted(set(stats['image_tokens']))}), the "
+        f"{stats['wall_s']:.2f} s; image tokens {sorted(set(stats['image_tokens']))}; no chunked "
+        f"prefill), an image request's first token alone after {stats['ttft_s']:.3f} s, the "
         f"decode step at {stats['decode_slots']} slots of {stats['decode_cached_tokens']} tokens "
         f"{stats['decode_step_host_ms']:.3f} host ms, {stats['decode_step_busy_ms']:.3f} busy ms; "
         f"a text request after them {stats['text_request_tokens']} tokens in "
@@ -5554,7 +5711,7 @@ def qwen3_vl_serving_phase(card: str) -> tuple[dict, dict]:
     del server, engine
     gc.collect()
     if alive() is not None:
-        raise AssertionError("the Qwen3-VL engine outlived its server: its memory is not freed")
+        raise AssertionError(f"the {label} engine outlived its server: its memory is not freed")
     torch.cuda.empty_cache()
     return stats, launches
 
@@ -5640,6 +5797,131 @@ def qwen3_vl_training_phase(card: str) -> tuple[dict, dict]:
     gc.collect()
     torch.cuda.empty_cache()
     return launches, numbers
+
+
+def qwen35_spec(num_layers: int, num_experts: int | None = None):
+    """The Qwen3.5-class composition (QWEN35_COMPOSITION_CONFIG, the port's
+    reader), its trunk cut to ``num_layers`` (the pattern with it) and
+    ``num_experts`` (top-10 kept), the whole tower kept; the cuts logged."""
+    import dataclasses
+
+    from prime_rl_tpu_torch.models.base import spec_from_hf_config
+
+    full = spec_from_hf_config(json.loads(json.dumps(QWEN35_COMPOSITION_CONFIG)))
+    cut = dataclasses.replace(full, num_layers=num_layers,
+                              gdn_pattern=full.gdn_pattern[:num_layers],
+                              num_experts=num_experts or full.num_experts)
+    log(f"{QWEN35}: trunk layers cut from {full.num_layers} to {num_layers} "
+        f"({cut.gdn_pattern}), experts from {full.num_experts} to {cut.num_experts} "
+        f"(top-{cut.num_experts_per_tok}), the tower's {full.vision.depth} blocks kept")
+    return cut
+
+
+def qwen35_dir(name: str, num_layers: int, num_experts: int | None = None) -> str:
+    """A directory under build/chip_smoke whose config.json names the
+    composition (``Qwen3_5MoeForConditionalGeneration`` around a
+    ``Qwen3NextForCausalLM`` text config), cut as ``qwen35_spec``."""
+    from prime_rl_tpu_torch.trainer.weights import spec_to_hf_config
+
+    return config_dir(name, spec_to_hf_config(qwen35_spec(num_layers, num_experts)))
+
+
+def qwen35_test_spec():
+    """debug_qwen3_next_vl at QWEN35_TEST_SHAPE, its tower's output at the
+    trunk's width."""
+    import dataclasses
+
+    from prime_rl_tpu_torch.models.base import get_spec
+
+    spec = get_spec("debug_qwen3_next_vl")
+    return dataclasses.replace(spec, **QWEN35_TEST_SHAPE, vision=dataclasses.replace(
+        spec.vision, out_hidden_size=QWEN35_TEST_SHAPE["hidden_size"]))
+
+
+def qwen3_next_vl_reference_phase() -> dict:
+    """qwen3_next_vl at QWEN35_TEST_SHAPE on the card: the loss and every
+    gradient, the tower's among them, of a packed row of an image sample and
+    a text sample through K1, K2a and K2b (``vlm_train_reference``, with the
+    bf16 floor of the GatedDeltaNet trunk), and the served image prompt: the
+    tower, the prefill (logits and prompt logprobs) and 4 decode steps from
+    its recurrent rows at ``lengths + pos_delta`` through K1 and K4
+    (``vlm_served_reference``), each against float32 on the CPU. K3 must not
+    launch (the attention layers are gated). Returns {"train": launches,
+    "serve": launches}."""
+    spec = qwen35_test_spec()
+    train = vlm_train_reference(spec, "qwen3-next-vl", bf16_floor=True)
+    serve_launches = vlm_served_reference(spec, "qwen3-next-vl",
+                                          ("flash_attn_fwd", "decode_paged_attention"))
+    if serve_launches.get("decode_qkv_prep", 0):
+        raise AssertionError("qwen3-next-vl: K3 launched on gated attention layers")
+    return {"train": train, "serve": serve_launches}
+
+
+def qwen3_next_vl_training_phase(card: str) -> tuple[dict, dict]:
+    """The trainer through its normal entry on a directory whose config.json
+    names the Qwen3.5-class composition, its trunk cut as QWEN35_TRAIN_CUTS
+    beside the whole tower, twice from the same seed
+    (``hybrid_training_phase``): each step a batch of image samples (768 and
+    196 image tokens) and text samples that packs into 2 rows of 4096 tokens,
+    as ``qwen3_vl_training_phase``'s, through the filesystem transport. The
+    tower's and the GDN layers' parameters must change; the trunk's config
+    also reads back alone as a Qwen3NextForCausalLM spec. Returns (launches
+    of the first run, numbers of its last step)."""
+    import dataclasses
+
+    from prime_rl_tpu_torch.models.base import get_spec
+    from prime_rl_tpu_torch.trainer.weights import spec_to_hf_config
+
+    model_dir = qwen35_dir("qwen3_next_vl_training", **QWEN35_TRAIN_CUTS)
+    big, small = QWEN3_VL_IMAGES[1], QWEN3_VL_IMAGES[0]
+    layout = [(None, 2000), (big, 2000 - 769), (small, 1400 - 197), (None, 1300),
+              (small, 700 - 197)]
+    spec = qwen35_spec(**QWEN35_TRAIN_CUTS)
+    text = dataclasses.replace(spec, family="qwen3_next", vision=None, mrope_section=(),
+                               vision_start_token_id=-1, image_token_id=-1, video_token_id=-1)
+    launches, numbers = hybrid_training_phase(
+        "qwen3-next-vl", model_dir,
+        ("qwen3_next_vl", 2048, 16, 2, 256, "LLLA", QWEN35_TRAIN_CUTS["num_experts"], 151936,
+         27, 2048),
+        lambda s: (s.family, s.hidden_size, s.num_heads, s.num_kv_heads, s.head_dim,
+                   s.gdn_pattern, s.num_experts, s.vocab_size, s.vision.depth,
+                   s.vision.out_hidden_size),
+        lambda s: s.gdn_pattern.count("A"),
+        lambda path: (path.startswith("lin_layers/") and path.split("/")[1] in (
+            "in_q", "conv_w", "A_log")) or path in ("vision/blocks/qkv_w", "vision/patch_w",
+                                                    "vision/ds_mergers/fc2_w"),
+        samples=lambda rng: vlm_samples(spec, rng, layout))
+    text_cfg = spec_to_hf_config(text)  # the trunk alone, as its text family's config
+    if get_spec(config_dir("qwen3_next_vl_text", text_cfg)) != text:
+        raise AssertionError("the trunk's qwen3_next config does not read back as its spec")
+    log(f"qwen3-next-vl-training: the trunk's config ({text_cfg['architectures']}) reads back "
+        f"as its {text.family} spec")
+    log(f"qwen3-next-vl-training on {card}: {json.dumps(numbers)}")
+    return launches, numbers
+
+
+def qwen3_next_vl_serving_phase(card: str) -> tuple[dict, dict]:
+    """The inference server on the Qwen3.5-class composition, the trunk cut
+    to QWEN35_SERVE_LAYERS (LLLA) with all 512 experts and the whole tower
+    (``vlm_serving``), recording the routing of every completion: 16 image
+    requests through the single-shot vision prefill and the recurrent decode
+    (K1 and K4; K3 must not launch: the attention layers are gated), a text
+    request, then ``serving_phase``'s mixed text traffic (16 prompts of
+    20-1500 tokens through the batched GDN prefill, two sharing a 128-token
+    prefix, four sampling modes, a completion, a streamed chat, the prefix
+    hit) and the GRPO group of ``grpo_group_phase`` (the state tier), each
+    completion's ``routed_experts`` checked. Returns (stats, launches of the
+    image requests)."""
+    model_dir = qwen35_dir("qwen3_next_vl_serving", QWEN35_SERVE_LAYERS)
+
+    async def text_traffic(server, port: int) -> dict:
+        stats = await serving_phase(server, port, model_dir, True)
+        stats.update(await grpo_group_phase(server, port))
+        return stats
+
+    return vlm_serving(card, QWEN35, model_dir, (QWEN35_SERVE_LAYERS, 27, 151936),
+                       ("flash_attn_fwd", "decode_paged_attention"), ("decode_qkv_prep",),
+                       text_traffic, collect=True)
 
 
 VLM_LOOP_CONFIG = os.path.join("configs", "debug", "rl_vlm.toml")
@@ -5811,8 +6093,6 @@ def main() -> int:
     timed("deepseek-v3-reference", deepseek_reference_phase)
     timed("glm5-serving-reference", dsa_serving_reference_phase)
     next_ref_launches = timed("qwen3-next-reference", qwen3_next_reference_phase)
-    next_train_launches, next_train_numbers = timed("qwen3-next-training",
-                                                    qwen3_next_training_phase)
     nem_ref_launches = timed("nemotron-h-reference", nemotron_reference_phase)
     nem_train_launches, nem_train_numbers = timed("nemotron-h-training", nemotron_training_phase)
     vl_ref_launches = timed("qwen3-vl-reference", qwen3_vl_reference_phase)
@@ -5820,6 +6100,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     vl_train_launches, vl_train_numbers = timed("qwen3-vl-training", qwen3_vl_training_phase,
                                                 card)
+    nvl_ref_launches = timed("qwen3-next-vl-reference", qwen3_next_vl_reference_phase)
+    gc.collect()
+    torch.cuda.empty_cache()
+    next_train_launches, next_train_numbers = timed("qwen3-next-vl-training",
+                                                    qwen3_next_vl_training_phase, card)
 
     stats, launches = timed("reference + serving", serve, MODEL, 28, 151936, reference_phase)
     timed("gpt-oss-reference", gpt_oss_reference_phase)
@@ -5846,10 +6131,8 @@ def main() -> int:
         GLM5_LONG_PROMPT)
     gc.collect()
     torch.cuda.empty_cache()
-    next_stats, next_launches = timed(
-        "qwen3-next-serving", serve,
-        qwen3_next_dir("qwen3_next_serving", QWEN3_NEXT_SERVE_LAYERS), QWEN3_NEXT_SERVE_LAYERS,
-        151936, None, True, None, 0, grpo_group_phase)
+    next_stats, next_launches = timed("qwen3-next-vl-serving", qwen3_next_vl_serving_phase,
+                                      card)
     gc.collect()
     torch.cuda.empty_cache()
     nem_stats, nem_launches = timed(
@@ -5884,7 +6167,8 @@ def main() -> int:
     # the JAX package does; GLM-5's serving prefill runs K5a
     for path, counts in (("MiniMax-M2 serving", minimax_launches),
                          ("MiniMax-M2 reference", minimax_ref_launches),
-                         ("Qwen3-Next serving", next_launches),
+                         ("qwen3_next_vl serving", next_launches),
+                         ("qwen3_next_vl reference", nvl_ref_launches["serve"]),
                          ("Nemotron-H serving", nem_launches),
                          ("Nemotron-H reference", {**nem_ref_launches["train"],
                                                    **nem_ref_launches["serve"]})):
@@ -5897,9 +6181,10 @@ def main() -> int:
     gated = {name: {k: counts["train"].get(k, 0) + counts["serve"].get(k, 0)
                     for k in {**counts["train"], **counts["serve"]}}
              for name, counts in gated_launches.items()}
-    next_ref, nem_ref = ({k: ref["train"].get(k, 0) + ref["serve"].get(k, 0)
-                          for k in {**ref["train"], **ref["serve"]}}
-                         for ref in (next_ref_launches, nem_ref_launches))
+    next_ref, nem_ref, nvl_ref = ({k: ref["train"].get(k, 0) + ref["serve"].get(k, 0)
+                                   for k in {**ref["train"], **ref["serve"]}}
+                                  for ref in (next_ref_launches, nem_ref_launches,
+                                              nvl_ref_launches))
     vl_ref = {}
     for ref in vl_ref_launches.values():
         for part in ref.values():
@@ -5911,8 +6196,9 @@ def main() -> int:
                  "launches_minimax_serving": minimax_launches,
                  "launches_afmoe": gated["afmoe"], "launches_laguna": gated["laguna"],
                  "launches_glm5_serving": glm5_launches,
-                 "launches_qwen3_next_training": next_train_launches,
-                 "launches_qwen3_next_serving": next_launches,
+                 "launches_qwen3_next_vl_training": next_train_launches,
+                 "launches_qwen3_next_vl_serving": next_launches,
+                 "launches_qwen3_next_vl_reference": nvl_ref,
                  "launches_qwen3_next_reference": next_ref,
                  "launches_nemotron_training": nem_train_launches,
                  "launches_nemotron_serving": nem_launches,
@@ -5934,8 +6220,10 @@ def main() -> int:
                     "launches_afmoe": k12 + ("decode_paged_attention",),
                     "launches_laguna": k12 + ("decode_paged_attention",),
                     "launches_glm5_serving": ("sparse_mla_fwd",),
-                    "launches_qwen3_next_training": k12,
-                    "launches_qwen3_next_serving": ("flash_attn_fwd", "decode_paged_attention"),
+                    "launches_qwen3_next_vl_training": k12,
+                    "launches_qwen3_next_vl_serving": ("flash_attn_fwd",
+                                                       "decode_paged_attention"),
+                    "launches_qwen3_next_vl_reference": k12 + ("decode_paged_attention",),
                     "launches_qwen3_next_reference": k12 + ("decode_paged_attention",),
                     "launches_nemotron_training": k12,
                     "launches_nemotron_serving": ("flash_attn_fwd", "decode_paged_attention"),
@@ -5973,7 +6261,7 @@ def main() -> int:
             row["launches"] = (dsa_launches if kernel.startswith("sparse_mla")
                                else vl_launches if kernel == "decode_paged_attention"
                                else vl_train_launches).get(kernel, 0)
-        elif name.endswith("/hd256"):  # Qwen3-Next's 16/2 heads of 256: its trainer and server
+        elif name.endswith("/hd256"):  # the Qwen3.5-class composition's 16/2 heads of 256
             row["launches"] = (next_launches if kernel == "decode_paged_attention"
                                else next_train_launches).get(kernel, 0)
             if kernel == "flash_attn_fwd":
@@ -6054,10 +6342,11 @@ def main() -> int:
     log(f"GLM-5 ({GLM5_CUTS['num_hidden_layers']} layers) serving stats on {card}: "
         f"{json.dumps(glm5_stats)}")
     log(f"launches on the Qwen3-Next reference paths: {json.dumps(next_ref_launches)}")
-    log(f"launches on the Qwen3-Next training path: {next_train_launches}")
-    log(f"launches on the Qwen3-Next serving path: {next_launches}")
-    log(f"qwen3-next training on {card}: {json.dumps(next_train_numbers)}")
-    log(f"Qwen3-Next ({QWEN3_NEXT_SERVE_LAYERS} layers) serving stats on {card}: "
+    log(f"launches on the qwen3_next_vl reference paths: {json.dumps(nvl_ref_launches)}")
+    log(f"launches on the qwen3_next_vl training path: {next_train_launches}")
+    log(f"launches on the qwen3_next_vl serving path: {next_launches}")
+    log(f"qwen3-next-vl training on {card}: {json.dumps(next_train_numbers)}")
+    log(f"{QWEN35} ({QWEN35_SERVE_LAYERS} layers, the whole tower) serving stats on {card}: "
         f"{json.dumps(next_stats)}")
     log(f"launches on the Nemotron-H reference paths: {json.dumps(nem_ref_launches)}")
     log(f"launches on the Nemotron-H training path: {nem_train_launches}")

@@ -14,6 +14,7 @@
 //   out = softmax(s) kv[idx][:, :Dv]           lse = max(m, -5e29) + log(max(l, 1e-30))
 //   p   = valid ? exp(s - lse) : 0             dp = do kv[idx][:, :Dv]^T
 //   ds  = bf16(p * (dp - delta) * scale)       dq = ds kv[idx]
+//         (exactly 0 for a token with one valid slot: see one_valid_slot)
 //   dkvg = ds^T q, plus bf16(p)^T do on the first Dv channels      (one row per slot)
 //   dkv[r] = sum of the dkvg rows of the slots that selected r     (f32, fixed order)
 //
@@ -292,6 +293,12 @@ __device__ __forceinline__ uint64_t smem_desc64(uint32_t addr, uint32_t lbo, uin
 
 __device__ __forceinline__ void st_shared32(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ uint32_t ld_shared32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
+  return v;
 }
 
 // four 8x8 bf16 matrices of accumulator fragments, each stored transposed:
@@ -736,6 +743,30 @@ sparse_mla_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const bf16* __re
 // ---------------------------------------------------------------------------
 // K5b: backward (dq and the per-slot dkvg rows of one chunk of queries)
 // ---------------------------------------------------------------------------
+// Whether the token whose index row is `irow` selected exactly one row in
+// [0, Sk): a block-wide count, one barrier per THREADS slots, stopping at 2
+// (one barrier for almost every token). Such a token's softmax is p = 1 on
+// its row, so delta = sum(out do) = dp and its ds = p (dp - delta) is exactly
+// 0. Both K5b forms then store ds = 0 rather than the difference of two f32
+// sums of the same products added in different orders: that noise (about
+// 1e-7) broke the bf16 ties of the exact dkvg row sum_h do_h one way here and
+// another in the plain version (`_backward_into`, which applies the same rule).
+// The wide K5b calls this; the 576 K5b counts the real indices in its tile
+// scan instead (a count at the token's start there costs 3 registers that
+// its dq accumulator leaves no room for: 12 bytes of spills), so it applies
+// the rule where a token's row fits one scan window (T <= WIN * BT =
+// 131,072 slots, above any top-k).
+template <int THREADS>
+__device__ __forceinline__ bool one_valid_slot(const int* __restrict__ irow, int T, int Sk) {
+  int n = 0;
+  for (int j0 = 0; j0 < T && n < 2; j0 += THREADS) {
+    const int j = j0 + (int)threadIdx.x;
+    const int v = j < T ? irow[j] : -1;
+    n += __syncthreads_count(v >= 0 && v < Sk);
+  }
+  return n == 1;
+}
+
 namespace k5b {
 
 constexpr int BT = 32;               // selected rows a tile
@@ -762,7 +793,8 @@ constexpr int x_off = ds_off + PD_BYTES;                // f32 [4][128] float4: 
 constexpr int idx_off = x_off + H * BT * 4;             // int [2][BT]: each stage's rows, -1 sentinel
 constexpr int flag_off = idx_off + 2 * BT * 4;          // uint32 [WIN / 32]: tiles with a real index
 constexpr int bar_off = flag_off + WIN / 8;             // the panels' mbarrier
-constexpr int BYTES = bar_off + 16 + 1024;              // + the alignment slack
+constexpr int one_off = bar_off + 16;                   // uint32: the token's real indices
+constexpr int BYTES = one_off + 16 + 1024;              // + the alignment slack
 static_assert(BYTES <= 232448, "K5b's shared memory exceeds what a block may use");
 static_assert(128 == 4 * BT, "warpgroup 1 gives each thread 18 of a row's 72 chunks");
 
@@ -841,6 +873,7 @@ sparse_mla_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       // warp 11 issues the token's panel loads
       if (w0 > 0) __syncthreads();
       for (int i = tid; i < (nw + 31) / 32; i += THREADS) flags[i] = 0;
+      if (tid == 0 && w0 == 0) st_shared32(sbase + one_off, 0u);  // the token's real indices
       __syncthreads();
       if (w0 == 0 && tid == THREADS - 32) {
         mbar_arrive_expect_tx(bar, (QBOXES + OBOXES) * PANEL_BOX);
@@ -860,8 +893,11 @@ sparse_mla_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
         for (int k = 0; k < 8; ++k) {
           const int t = t0 + k * SCAN_WARPS;
-          if (__ballot_sync(0xffffffffu, v[k] >= 0 && v[k] < Sk) && lane == 0)
+          const unsigned bal = __ballot_sync(0xffffffffu, v[k] >= 0 && v[k] < Sk);
+          if (bal && lane == 0) {  // the tile's bit, and its real indices to the count
             atomicOr(flags + (t >> 5), 1u << (t & 31));
+            atomicAdd(reinterpret_cast<unsigned*>(smem + one_off), (unsigned)__popc(bal));
+          }
         }
       }
       __syncthreads();
@@ -1017,10 +1053,15 @@ sparse_mla_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
             dp[4 * v + 2] = x.z * (dp[4 * v + 2] - rv1) * scale;
             dp[4 * v + 3] = x.w * (dp[4 * v + 3] - rv1) * scale;
           }
+          // ds stored as exactly 0 for a token with one valid slot (the
+          // scan's count; see one_valid_slot), where its row fits one window
+          const uint32_t keep =
+              (ld_shared32(sb + one_off) == 1u && n_tiles <= WIN) ? 0u : 0xffffffffu;
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
-            st_shared32(pd_addr(ds_s, lr, i, lane), pack_bf16(dp[4 * i], dp[4 * i + 1]));
-            st_shared32(pd_addr(ds_s, lr + 8, i, lane), pack_bf16(dp[4 * i + 2], dp[4 * i + 3]));
+            st_shared32(pd_addr(ds_s, lr, i, lane), pack_bf16(dp[4 * i], dp[4 * i + 1]) & keep);
+            st_shared32(pd_addr(ds_s, lr + 8, i, lane),
+                        pack_bf16(dp[4 * i + 2], dp[4 * i + 3]) & keep);
           }
           fence_async_smem();
         } else {
@@ -1269,12 +1310,14 @@ sparse_mla_dkv_reduce_kernel(const bf16* __restrict__ dkvg, const long long* __r
 //        behind, the two dkvg terms summed apart in f32, phase 1 summed a box
 //        at a time in f32. Numerics: a token that selected one row has p = 1,
 //        so its dkvg row sum_h do_h is exact and lies on a bf16 tie in a few
-//        percent of its channels; the tie is broken by the f32 noise of ds^T
-//        q (ds about 1e-7), here and in the plain version each its own way.
-//        Where a few hundred such rows cancel in dkv, one bf16 step of a row
-//        can exceed K5B_TOL's 2e-2 + 2e-2 |ref| (the bench's --wide --seeds
-//        counts how often). The SIMT form added each head's term into its
-//        running f32 sum, which rounds noise of that size away.
+//        percent of its channels. Its ds is 0 in exact arithmetic; computed,
+//        it is the f32 noise of dp - delta (about 1e-7), which broke those
+//        ties here and in the plain version each its own way, and where a
+//        few hundred such rows cancel in dkv one bf16 step of a row exceeded
+//        K5B_TOL's 2e-2 + 2e-2 |ref| (16 of 120 (case, seed) pairs of the
+//        bench's --wide --seeds 20). Both K5b forms and the plain version now
+//        store ds = 0 for such a token (one_valid_slot), so the row is
+//        bf16(sum_h do_h) in all three.
 // The dkv reduction is the 576 one at width 1152.
 namespace k5w {
 
@@ -1663,6 +1706,7 @@ sparse_mla_bwd_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int b = 0; b < OBOXES; ++b)
       tma_load_3d(sbase + panel_box(b) + Q_BOX, &tm_do, bar, b * 64, h0, c);
   }
+  const bool one_row = one_valid_slot<THREADS>(irow, T, Sk);  // then ds = 0
 
   float dqa[WBOXES][8];  // dq^T of the warpgroup's boxes: [64 channels x 16 heads] each
 #pragma unroll
@@ -1799,8 +1843,8 @@ sparse_mla_bwd_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
             const float pb = ex2(rb && hr ? fmaf(acc[4 * i + 2 + jj], sl2, -l2) : MASKED);
             st_pd128(p_s, h, lr, pa);
             st_pd128(p_s, h, lr + 8, pb);
-            st_pd128(ds_s, h, lr, pa * (acc[4 * i + 8 + jj] - dl) * scale);
-            st_pd128(ds_s, h, lr + 8, pb * (acc[4 * i + 10 + jj] - dl) * scale);
+            st_pd128(ds_s, h, lr, one_row ? 0.f : pa * (acc[4 * i + 8 + jj] - dl) * scale);
+            st_pd128(ds_s, h, lr + 8, one_row ? 0.f : pb * (acc[4 * i + 10 + jj] - dl) * scale);
           }
         }
         fence_async_smem();

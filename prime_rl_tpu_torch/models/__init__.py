@@ -10,7 +10,8 @@ DSA sparse attention) over the noaux-tc MoE stack, and the hybrids
 dim 256, MoE with a gated shared expert) and ``nemotron_h`` (Mamba-2 mixers,
 bare attention, relu^2 MLPs and LatentMoE), and the vision-language
 ``qwen3_vl`` and ``qwen3_vl_moe`` (a ViT tower, interleaved mRoPE and
-DeepStack over the qwen3 or qwen3_moe trunk), all trained and served."""
+DeepStack over the qwen3 or qwen3_moe trunk) and ``qwen3_next_vl`` (the same
+tower over the qwen3_next trunk), all trained and served."""
 
 from __future__ import annotations
 
@@ -56,6 +57,9 @@ _NEMOTRON_H = Family(nemotron_h.init_params, nemotron_h.forward,
 _QWEN3_NEXT = Family(qwen3_next.init_params, qwen3_next.forward,
                      qwen3_next.params_from_hf_state_dict, qwen3_next.params_to_hf_state_dict,
                      qwen3_next.get_lm_head)
+_QWEN3_NEXT_VL = Family(qwen3_next.init_params_vl, qwen3_next.forward,
+                        qwen3_next.params_from_hf_state_dict_vl,
+                        qwen3_next.params_to_hf_state_dict_vl, qwen3_next.get_lm_head)
 _QWEN3_VL = Family(qwen3_vl.init_params, qwen3_vl.forward, qwen3_vl.params_from_hf_state_dict,
                    qwen3_vl.params_to_hf_state_dict, qwen3_vl.get_lm_head)
 FAMILIES: dict[str, Family] = {"qwen3": _DENSE, "llama": _DENSE, "gpt_oss": _GPT_OSS,
@@ -63,14 +67,11 @@ FAMILIES: dict[str, Family] = {"qwen3": _DENSE, "llama": _DENSE, "gpt_oss": _GPT
                                "minimax_m2": _GATED_MOE, "afmoe": _GATED_MOE,
                                "laguna": _GATED_MOE, "deepseek_v3": _MLA, "glm_moe_dsa": _MLA,
                                "qwen3_next": _QWEN3_NEXT, "nemotron_h": _NEMOTRON_H,
-                               "qwen3_vl": _QWEN3_VL, "qwen3_vl_moe": _QWEN3_VL}
+                               "qwen3_vl": _QWEN3_VL, "qwen3_vl_moe": _QWEN3_VL,
+                               "qwen3_next_vl": _QWEN3_NEXT_VL}
 
 
 def get_family(spec: ModelSpec) -> Family:
-    if spec.family == "qwen3_next_vl":
-        raise NotImplementedError("model family 'qwen3_next_vl' (the GatedDeltaNet hybrid with "
-                                  "a vision tower) waits for the second part of ROADMAP Queue 1 "
-                                  "item 9 (VLM)")
     if spec.family not in FAMILIES:
         raise NotImplementedError(f"model family {spec.family!r} is not ported yet "
                                   f"(ported: {', '.join(sorted(FAMILIES))})")

@@ -6,10 +6,9 @@ The port's own copy of the JAX package's ``models/base.py`` spec section
 ``spec_from_hf_config``), field for field, so a spec means the same model in
 both packages. Parameters are plain dicts of ``torch.Tensor``s; the sharding
 rules of the JAX file are not part of this slice. The vision-language specs:
-``debug_vlm`` and the Qwen3-VL configs (dense and MoE) resolve; the hybrid
-``qwen3_next_vl`` (``debug_qwen3_next_vl``, a Qwen3.5 config with a
-``vision_config``) waits for the second part of ROADMAP Queue 1 item 9 and
-raises ``NotImplementedError``.
+``debug_vlm``, the Qwen3-VL configs (dense and MoE), and the hybrid
+``qwen3_next_vl`` (``debug_qwen3_next_vl``, or a Qwen3.5 config whose
+architecture names Qwen3-Next or Qwen3_5 and which holds a ``vision_config``).
 """
 
 from __future__ import annotations
@@ -584,9 +583,21 @@ def get_spec(name: str, num_layers: int | None = None,
             ),
         )
     elif name == "debug_qwen3_next_vl":
-        raise NotImplementedError(
-            f"{name!r}: the qwen3_next_vl hybrid waits for the second part of ROADMAP Queue 1 "
-            "item 9 (VLM)")
+        # tiny Qwen3.5-style hybrid VLM (the GatedDeltaNet trunk + the tower)
+        from prime_rl_tpu_torch.models.vision import VisionSpec
+
+        spec = replace(
+            BUILTIN_SPECS["debug_qwen3_next"],
+            family="qwen3_next_vl", tie_embeddings=False,
+            mrope_section=(2, 1, 1), vision_start_token_id=300,
+            image_token_id=301, video_token_id=302,
+            vision=VisionSpec(
+                depth=2, hidden_size=32, intermediate_size=64, num_heads=4,
+                in_channels=3, patch_size=4, temporal_patch_size=2,
+                spatial_merge_size=2, out_hidden_size=128,
+                num_position_embeddings=16, deepstack_visual_indexes=(0,),
+            ),
+        )
     elif name in BUILTIN_SPECS:
         spec = BUILTIN_SPECS[name]
     elif (Path(name) / "config.json").exists():
@@ -655,9 +666,7 @@ def spec_from_hf_config(cfg: dict) -> ModelSpec:
         family = "qwen3_moe"
     elif "qwen3next" in arch.replace("_", "") or "qwen3_5" in arch:
         if "vision_config" in cfg:
-            raise NotImplementedError(
-                f"{arch}: the qwen3_next_vl hybrid waits for the second part of ROADMAP Queue 1 "
-                "item 9 (VLM)")
+            return _qwen3_next_vl_spec_from_hf_config(cfg)
         family = "qwen3_next"
     elif "minimaxm2" in arch.replace("_", ""):
         family = "minimax_m2"
@@ -878,11 +887,49 @@ def spec_from_hf_config(cfg: dict) -> ModelSpec:
 
 
 
+def _vision_spec(vc: dict):
+    """The tower's ``VisionSpec`` from an HF ``vision_config``."""
+    from prime_rl_tpu_torch.models.vision import VisionSpec
+
+    return VisionSpec(
+        depth=vc["depth"],
+        hidden_size=vc["hidden_size"],
+        intermediate_size=vc["intermediate_size"],
+        num_heads=vc["num_heads"],
+        in_channels=vc.get("in_channels", 3),
+        patch_size=vc["patch_size"],
+        temporal_patch_size=vc.get("temporal_patch_size", 2),
+        spatial_merge_size=vc.get("spatial_merge_size", 2),
+        out_hidden_size=vc["out_hidden_size"],
+        num_position_embeddings=vc["num_position_embeddings"],
+        deepstack_visual_indexes=tuple(vc.get("deepstack_visual_indexes", ())),
+    )
+
+
+def _qwen3_next_vl_spec_from_hf_config(cfg: dict) -> ModelSpec:
+    """Qwen3.5-style VLM: the qwen3_next trunk (a nested ``text_config``),
+    the Qwen3-VL tower (``vision_config``) and the mRoPE section and vision
+    token ids, read as the JAX package reads them (an mRoPE section from the
+    text config's ``rope_scaling``, else the top level's, else (16, 8, 8))."""
+    tc = dict(cfg["text_config"])
+    tc.setdefault("architectures", ["Qwen3NextForCausalLM"])
+    rs = tc.get("rope_scaling") or {}
+    return replace(
+        spec_from_hf_config(tc),
+        family="qwen3_next_vl",
+        mrope_section=tuple(rs.get("mrope_section",
+                                   (cfg.get("rope_scaling") or {}).get("mrope_section",
+                                                                       (16, 8, 8)))),
+        image_token_id=int(cfg.get("image_token_id", 151655)),
+        video_token_id=int(cfg.get("video_token_id", 151656)),
+        vision_start_token_id=int(cfg.get("vision_start_token_id", 151652)),
+        vision=_vision_spec(cfg["vision_config"]),
+    )
+
+
 def _vlm_spec_from_hf_config(cfg: dict, arch: str) -> ModelSpec:
     """Qwen3-VL dense/MoE: nested text_config/vision_config (HF
     Qwen3VLConfig layout)."""
-    from prime_rl_tpu_torch.models.vision import VisionSpec
-
     tc, vc = cfg["text_config"], cfg["vision_config"]
     is_moe = "moe" in arch
     rs = tc.get("rope_scaling") or {}
@@ -913,17 +960,5 @@ def _vlm_spec_from_hf_config(cfg: dict, arch: str) -> ModelSpec:
         image_token_id=int(cfg.get("image_token_id", 151655)),
         video_token_id=int(cfg.get("video_token_id", 151656)),
         vision_start_token_id=int(cfg.get("vision_start_token_id", 151652)),
-        vision=VisionSpec(
-            depth=vc["depth"],
-            hidden_size=vc["hidden_size"],
-            intermediate_size=vc["intermediate_size"],
-            num_heads=vc["num_heads"],
-            in_channels=vc.get("in_channels", 3),
-            patch_size=vc["patch_size"],
-            temporal_patch_size=vc.get("temporal_patch_size", 2),
-            spatial_merge_size=vc.get("spatial_merge_size", 2),
-            out_hidden_size=vc["out_hidden_size"],
-            num_position_embeddings=vc["num_position_embeddings"],
-            deepstack_visual_indexes=tuple(vc.get("deepstack_visual_indexes", ())),
-        ),
+        vision=_vision_spec(vc),
     )

@@ -448,10 +448,10 @@ def params_from_jax(np_params: dict, spec: ModelSpec, device: torch.device | str
     """The JAX package's stacked training pytree, fetched as numpy arrays
     (``jax.device_get``), as this package's params: the same layout and
     values, so both packages compute the same function (every family this
-    module initializes, qwen3_next's two stacks, and the Qwen3-VL trees with
-    their nested ``"vision"`` tower)."""
+    module initializes, qwen3_next's two stacks, and the Qwen3-VL and
+    qwen3_next_vl trees with their nested ``"vision"`` tower)."""
     if spec.family not in _INIT_FAMILIES + ("qwen3_next", "nemotron_h", "qwen3_vl",
-                                            "qwen3_vl_moe"):
+                                            "qwen3_vl_moe", "qwen3_next_vl"):
         raise NotImplementedError(f"model family {spec.family!r} is not ported yet")
 
     def conv(x):

@@ -18,7 +18,16 @@ Params, in the JAX package's layout: ``{"embed", "final_norm", "lm_head"
 ...]}}``, one stack a layer kind; a layer's index in its stack is its rank
 among the layers of its kind. ``get_spec(..., num_layers=n)`` keeps the
 pattern, as in JAX, so a cut depth raises here unless the caller cuts
-``gdn_pattern`` too. The vision-language entry points wait for the VLM slice.
+``gdn_pattern`` too.
+
+``qwen3_next_vl`` (the Qwen3.5 composition): this trunk with the Qwen3-VL
+tower under ``params["vision"]``. ``forward`` takes ``mm`` as
+``qwen3_vl.forward`` does: the tower's merged rows replace the embeddings at
+the image slots, the attention layers rotate their partial-rotary half at the
+per-frequency mRoPE positions (the GDN layers are position-free), and after
+each layer i < n_ds, whatever its kind, the i-th DeepStack feature map is
+added at the slots. The tower takes no adapter. HF layout: the text keys
+under ``model.language_model.*``, the tower under ``model.visual.*``.
 """
 
 from __future__ import annotations
@@ -26,12 +35,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from prime_rl_tpu_torch.models import qwen3
+from prime_rl_tpu_torch.models import qwen3, qwen3_vl
 from prime_rl_tpu_torch.models.base import ModelSpec
 from prime_rl_tpu_torch.models.lora import layer_slices
 from prime_rl_tpu_torch.models.qwen3 import layer_remat, parse_remat, rope_setup, run_layer
 from prime_rl_tpu_torch.models.qwen3 import trunc_normal
 from prime_rl_tpu_torch.models.qwen3_moe import check_forward_args, forced_by_layer
+from prime_rl_tpu_torch.models.qwen3_vl import _mrope_positions, embed_mm
 from prime_rl_tpu_torch.ops.gated_delta import chunk_gated_delta_rule
 from prime_rl_tpu_torch.ops.layers import rms_norm, swiglu
 from prime_rl_tpu_torch.ops.mamba import causal_conv1d
@@ -39,6 +49,7 @@ from prime_rl_tpu_torch.ops.moe import moe_mlp
 
 Params = dict
 FAMILY = "qwen3_next"
+FAMILIES = (FAMILY, "qwen3_next_vl")
 STACKS = (("L", "lin_layers"), ("A", "attn_layers"))
 
 
@@ -237,21 +248,33 @@ def forward(
     routed_experts: torch.Tensor | None = None,  # [B, L, NL, K]; -1 = own routing
     quantized_compute: str | None = None,
     gdn_precision: str = "highest",
+    mm: dict | None = None,
 ):
     """Token ids -> final hidden states [B, L, D] (pre-LM-head, normed), or
     (hidden, load-balance aux summed over the layers) with ``collect_aux``.
     Every layer is MoE, so ``routed_experts`` holds a row a layer, L layers
     included. ``remat`` as in ``qwen3.forward`` (``save_attn`` keeps the
-    attention layers' K1 outputs; a GDN layer has none to keep).
-    ``gdn_precision`` is ``ModelConfig.gdn_mxu_precision``."""
-    if spec.family != FAMILY:
-        raise ValueError(f"qwen3_next.forward: family {spec.family!r} is not qwen3_next")
+    attention layers' K1 outputs; a GDN layer has none to keep); it applies
+    to the tower's blocks too. ``gdn_precision`` is
+    ``ModelConfig.gdn_mxu_precision``. ``mm`` (``qwen3_next_vl`` only): the
+    vision inputs of ``qwen3_vl.forward``; the GDN layers keep reading
+    ``segment_ids``, the text rows' own."""
+    if spec.family not in FAMILIES:
+        raise ValueError(f"qwen3_next.forward: family {spec.family!r} is not one of "
+                         f"{FAMILIES}")
+    if mm is not None and spec.vision is None:
+        raise ValueError(f"qwen3_next.forward: {spec.family!r} has no vision tower for mm")
     check_forward_args(spec, mesh, lora, quantized_compute)
     nl = spec.num_layers
     layers = layer_params(params, spec)
     base_remat, save_stride = parse_remat(remat, nl)
     inv_freq, rope_scaling = rope_setup(spec, device=input_ids.device)
     h = params["embed"].to(compute_dtype)[input_ids]
+    ds_feats = slot = mask = None
+    rope_pos = position_ids
+    if mm is not None:
+        h, ds_feats, slot, mask = embed_mm(params, spec, h, mm, compute_dtype, base_remat)
+        rope_pos = _mrope_positions(spec, mm["mm_position_ids"])
 
     # LoRA: the adapters index full depth; the attention layers take them on
     # their projections, every layer on its experts (moe_* targets)
@@ -262,18 +285,21 @@ def forward(
 
     def attn_block(h, lp, saved, window, forced, ll):
         lp = cast_layer(lp, compute_dtype)
-        h = qwen3._attn_block(h, lp, spec, segment_ids, position_ids, inv_freq, attn_impl,
+        h = qwen3._attn_block(h, lp, spec, segment_ids, rope_pos, inv_freq, attn_impl,
                               rope_scaling, saved, window, ll, lora_scale)
         return moe_block(h, lp, spec, forced, ll, lora_scale)
 
     forced = forced_by_layer(routed_experts, nl, spec.num_experts_per_tok)
     lora_layers = layer_slices(lora, nl)
+    n_ds = 0 if ds_feats is None else ds_feats.shape[0]
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i, (kind, lp) in enumerate(layers):
         block = lin_block if kind == "L" else attn_block
         h, lb = run_layer(block, h, lp, 0, layer_remat(base_remat, save_stride, i),
                           None if forced is None else forced[i], lora_layers[i])
         aux = aux + lb
+        if i < n_ds:  # DeepStack: the i-th feature map at the image slots
+            h = torch.where(mask, h + ds_feats[i][slot], h)
     h = rms_norm(h, params["final_norm"], spec.rms_eps)
     return (h, aux) if collect_aux else h
 
@@ -420,3 +446,10 @@ def params_to_hf_state_dict(params: Params, spec: ModelSpec) -> dict[str, np.nda
         if spec.shared_expert_gate:
             state[p + "mlp.shared_expert_gate.weight"] = host(lp["shared_expert_gate_w"]).T.copy()
     return state
+
+
+# qwen3_next_vl under the JAX package's names: qwen3_vl's init and converters,
+# which take this module as the trunk
+init_params_vl = qwen3_vl.init_params
+params_from_hf_state_dict_vl = qwen3_vl.params_from_hf_state_dict
+params_to_hf_state_dict_vl = qwen3_vl.params_to_hf_state_dict

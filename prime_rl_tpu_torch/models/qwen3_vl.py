@@ -19,6 +19,8 @@ text trunk with interleaved mRoPE and DeepStack feature injection, dense
 The attention of the trunk is ``qwen3._attn_block`` (K1 forward, K2a/K2b
 backward on the card); the MoE variant's experts are ``qwen3_moe.moe_block``.
 Params: the text family's tree plus ``"vision"`` (``vision.init_vision_params``).
+The init and the HF converters also serve ``qwen3_next_vl``, whose trunk is
+``qwen3_next`` (its forward is ``qwen3_next.forward``).
 """
 
 from __future__ import annotations
@@ -47,18 +49,29 @@ MM_KEYS = ("patches", "vis_seg_ids", "vis_pos_idx", "vis_pos_w", "vis_rope_coord
            "mm_position_ids")
 
 
+def _trunk(spec: ModelSpec):
+    """The trunk's module: ``qwen3_next`` under ``qwen3_next_vl`` (imported
+    here: it imports this module), else ``qwen3_moe`` or ``qwen3``."""
+    if spec.family == "qwen3_next_vl":
+        from prime_rl_tpu_torch.models import qwen3_next
+
+        return qwen3_next
+    return qwen3_moe if spec.is_moe else qwen3
+
+
 def text_spec(spec: ModelSpec) -> ModelSpec:
-    """The trunk's spec under its text family's name (qwen3 or qwen3_moe)."""
-    return dataclasses.replace(spec, family="qwen3_moe" if spec.is_moe else "qwen3")
+    """The trunk's spec under its text family's name (qwen3, qwen3_moe or
+    qwen3_next)."""
+    return dataclasses.replace(spec, family=_trunk(spec).__name__.rsplit(".", 1)[1])
 
 
 def init_params(spec: ModelSpec, generator: torch.Generator, dtype=torch.float32,
                 device: torch.device | str = "cpu") -> Params:
-    """Random init of the trunk (``qwen3`` or ``qwen3_moe``) and the tower on
-    ``device`` from ``generator``. The numbers differ from ``jax.random``'s;
-    tests bring JAX weights over with ``qwen3.params_from_jax``."""
-    family = qwen3_moe if spec.is_moe else qwen3
-    params = family.init_params(text_spec(spec), generator, dtype=dtype, device=device)
+    """Random init of the trunk (``qwen3``, ``qwen3_moe`` or ``qwen3_next``)
+    and the tower on ``device`` from ``generator``. The numbers differ from
+    ``jax.random``'s; tests bring JAX weights over with
+    ``qwen3.params_from_jax``."""
+    params = _trunk(spec).init_params(text_spec(spec), generator, dtype=dtype, device=device)
     params["vision"] = init_vision_params(spec.vision, generator, dtype=dtype, device=device)
     return params
 
@@ -254,18 +267,16 @@ def _retarget_text_keys(state: dict) -> dict:
 
 def params_from_hf_state_dict(state: dict, spec: ModelSpec, dtype=torch.float32,
                               device: torch.device | str = "cpu") -> Params:
-    family = qwen3_moe if spec.is_moe else qwen3
-    params = family.params_from_hf_state_dict(_retarget_text_keys(state), text_spec(spec),
-                                              dtype=dtype, device=device)
+    params = _trunk(spec).params_from_hf_state_dict(_retarget_text_keys(state), text_spec(spec),
+                                                    dtype=dtype, device=device)
     params["vision"] = _vision_from_hf(state, spec.vision, dtype, device)
     return params
 
 
 def params_to_hf_state_dict(params: Params, spec: ModelSpec) -> dict[str, np.ndarray]:
-    family = qwen3_moe if spec.is_moe else qwen3
     text = {k: v for k, v in params.items() if k != "vision"}
     out = {}
-    for k, v in family.params_to_hf_state_dict(text, text_spec(spec)).items():
+    for k, v in _trunk(spec).params_to_hf_state_dict(text, text_spec(spec)).items():
         out["model.language_model." + k[len("model."):] if k.startswith("model.") else k] = v
     out.update(_vision_to_hf(params["vision"], spec.vision))
     return out

@@ -20,9 +20,12 @@ never the gathered rows.
 
 Where bfloat16 rounds, in the kernels and in the plain versions alike: ``p``
 to kv's dtype before ``p v``, ``ds`` to kv's dtype before both of its
-products, ``p`` to do's dtype for dv, float32 sums, the per-slot dkv rows to
-kv's dtype once. Unlike the JAX package, which adds those rows up in
-bfloat16, dkv is summed in float32 and rounded once.
+products (``ds`` is exactly 0 for a token with one valid slot, whose softmax
+is 1 on it: the f32 noise of ``dp - delta`` broke bf16 ties of its dkv row
+differently in the kernel and the plain version), ``p`` to do's dtype for
+dv, float32 sums, the per-slot dkv rows to kv's dtype once. Unlike the JAX
+package, which adds those rows up in bfloat16, dkv is summed in float32 and
+rounded once.
 
 On the card the kernels are built for bfloat16 tensors with ``Dq = 576,
 v_dim = 512`` (latent 512 + rope 64, the MLA widths of the glm_moe_dsa
@@ -182,7 +185,10 @@ def _backward_into(q, kv, indices, lse, delta, do, dkv, sm_scale: float, v_dim: 
         p = torch.where(mask, torch.exp(torch.where(mask, s - lse[c0:c0 + chunk, :, None], 0.0)),
                         0.0)
         dp = torch.einsum("chd,ctd->cht", doc.float(), kvg[..., :v_dim])
-        ds = (p * (dp - delta[c0:c0 + chunk, :, None]) * sm_scale).to(kv.dtype).float()
+        ds = p * (dp - delta[c0:c0 + chunk, :, None]) * sm_scale
+        # a token with one valid slot has p = 1 and delta = dp: ds is exactly 0
+        # there (the kernels store 0 too, rather than the f32 noise of dp - delta)
+        ds = torch.where((valid.sum(-1) == 1)[:, None, None], 0.0, ds).to(kv.dtype).float()
         dqs.append(torch.einsum("cht,ctd->chd", ds, kvg).to(q.dtype))
         dkvg = torch.einsum("cht,chd->ctd", ds, qc)
         dkvg[..., :v_dim] += torch.einsum("cht,chd->ctd", p.to(do.dtype).float(), doc.float())

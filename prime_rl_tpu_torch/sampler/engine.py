@@ -48,17 +48,20 @@ Architecture:
   prefix cache's salt holds the adapter and its load generation, so that
   pages computed under an adapter are reused only under the same load of it.
 
-- Vision (qwen3_vl families): a request's ``mm`` (pixels and
-  ``image_grid_thw``) is prepared on the host at admission (``prepare_mm``:
-  the patches padded to a bucket of ``MM_BUCKETS``, the image slots, the
-  per-frequency mRoPE positions) and run through the tower, and the
+- Vision (the qwen3_vl families and the hybrid qwen3_next_vl): a request's
+  ``mm`` (pixels and ``image_grid_thw``) is prepared on the host at
+  admission (``prepare_mm``: the patches padded to a bucket of
+  ``MM_BUCKETS``, the image slots, the per-frequency mRoPE positions) and
+  run through the tower, and the
   prompt's single-shot prefill takes the merged embeddings and DeepStack
   features. Its slot keeps ``pos_delta`` (max mRoPE position + 1 - prompt
   length) on the device (``_d_pos_delta``), which the decode adds to the
   rope position. An mm request never joins a batched prefill, never reuses a
   cached prefix (identical image-token runs would share pages across
   different images), and is rejected when longer than the largest bucket or
-  sent to a family without a tower.
+  sent to a family without a tower. On the hybrid its single-shot prefill
+  seeds the slot's recurrent rows, and it never reads or writes the
+  recurrent-state tier (it has no page hashes), as in the JAX engine.
 
 Constrained decoding, P/D KV extraction/injection and the host KV tier are
 later slices: requests that ask for them raise ``NotImplementedError``.

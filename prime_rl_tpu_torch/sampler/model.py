@@ -61,8 +61,9 @@ add ``_lora_delta`` to q, k, v, o, gate, up and down of the dense paths, as
 the JAX sampler does (plain PyTorch, as it is XLA there); with a bank K3
 never runs (``takes_k3``).
 
-Vision (qwen3_vl, qwen3_vl_moe): ``prefill`` takes ``mm``, the tower's
-merged embeddings and DeepStack features (the engine runs the tower, plain
+Vision (qwen3_vl, qwen3_vl_moe, and qwen3_next_vl, whose recurrent rows an
+image prefill returns as a text one does): ``prefill`` takes ``mm``, the
+tower's merged embeddings and DeepStack features (the engine runs the tower, plain
 PyTorch on the card as it is XLA on the TPU), the image slots and the
 per-frequency mRoPE positions; the embeddings replace the tokens' at the
 slots, and after each of the first ``n_ds`` layers the matching feature map
@@ -109,8 +110,8 @@ Params = dict
 
 SERVED_FAMILIES = ("qwen3", "llama", "gpt_oss", "qwen3_moe", "glm4_moe", "minimax_m2", "afmoe",
                    "laguna", "deepseek_v3", "glm_moe_dsa", "qwen3_next", "nemotron_h", "qwen3_vl",
-                   "qwen3_vl_moe")
-VISION_FAMILIES = ("qwen3_vl", "qwen3_vl_moe")
+                   "qwen3_vl_moe", "qwen3_next_vl")
+VISION_FAMILIES = ("qwen3_vl", "qwen3_vl_moe", "qwen3_next_vl")
 
 
 def check_supported(spec: ModelSpec) -> None:
@@ -275,7 +276,8 @@ def unstack_params(params: Params, spec: ModelSpec) -> Params:
     unrolls the layer loop so each layer's KV tensors are written in place.
     glm4_moe's dense first layers (``dense_layers``) come first, in order;
     qwen3_next interleaves its ``lin_layers`` / ``attn_layers`` stacks by the
-    ``gdn_pattern``, nemotron_h its four stacks by the ``layer_pattern``."""
+    ``gdn_pattern``, nemotron_h its four stacks by the ``layer_pattern``; a
+    VLM's ``"vision"`` tower is kept as it is (the engine runs it)."""
     check_supported(spec)
     if spec.layer_pattern:
         rank = dict.fromkeys(NEMOTRON_STACKS, 0)

@@ -10,8 +10,10 @@
     GET  /liveness /health          probes
     GET  /metrics                   Prometheus text
 
-The LoRA routes and the P/D routes answer 501 until their slices are
-ported. Built on aiohttp; the engine runs its own step-loop
+Images ride the generate wire's ``mm`` for every vision family (the qwen3_vl
+families and the hybrid qwen3_next_vl), as in the JAX package, whose chat
+routes take none either. The LoRA routes and the P/D routes answer 501 until
+their slices are ported. Built on aiohttp; the engine runs its own step-loop
 thread and handlers await request futures.
 """
 

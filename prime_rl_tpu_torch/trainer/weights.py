@@ -35,6 +35,7 @@ _ARCHITECTURES = {
     "nemotron_h": "NemotronHForCausalLM",
     "qwen3_vl": "Qwen3VLForConditionalGeneration",
     "qwen3_vl_moe": "Qwen3VLMoeForConditionalGeneration",
+    "qwen3_next_vl": "Qwen3_5MoeForConditionalGeneration",
 }
 
 
@@ -54,12 +55,15 @@ def spec_to_hf_config(spec: ModelSpec) -> dict:
     ``Qwen3VLForConditionalGeneration`` (or its MoE name) with a nested
     ``text_config``, ``vision_config`` and the mRoPE and vision-token
     fields, so that a snapshot reloads as a VLM, where JAX writes
-    ``Qwen3ForCausalLM`` and the tower is lost on reload.)"""
+    ``Qwen3ForCausalLM`` and the tower is lost on reload; qwen3_next_vl
+    writes ``Qwen3_5MoeForConditionalGeneration`` around a
+    ``Qwen3NextForCausalLM`` text config, which both packages' readers take
+    back to the same spec.)"""
     from prime_rl_tpu_torch.models.qwen3 import layer_windows_list
 
     if spec.family not in _ARCHITECTURES:
         raise NotImplementedError(f"no HF architecture name for family {spec.family!r}")
-    if spec.family in ("qwen3_vl", "qwen3_vl_moe"):
+    if spec.vision is not None:
         return _vlm_config(spec)
     cfg = {
         "architectures": [_ARCHITECTURES[spec.family]],
@@ -221,13 +225,15 @@ def spec_to_hf_config(spec: ModelSpec) -> dict:
 def _vlm_config(spec: ModelSpec) -> dict:
     """HF ``Qwen3VLConfig``'s layout: the trunk's fields under
     ``text_config`` (the mRoPE section in its ``rope_scaling``), the tower's
-    under ``vision_config``, the vision token ids at the top."""
+    under ``vision_config``, the vision token ids at the top. The text
+    config keeps its trunk's architecture name (``Qwen3NextForCausalLM`` for
+    qwen3_next_vl); the readers of both packages take the family from the
+    top-level name."""
     import dataclasses
 
     from prime_rl_tpu_torch.models.qwen3_vl import text_spec
 
     text = spec_to_hf_config(dataclasses.replace(text_spec(spec), vision=None))
-    text.pop("architectures")
     text.update(rope_scaling={"rope_type": "default", "mrope_section": list(spec.mrope_section),
                               "mrope_interleaved": True},
                 attention_bias=spec.attn_bias)

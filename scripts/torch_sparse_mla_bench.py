@@ -41,8 +41,10 @@ with ``--variants`` it times the wide K5b's own launches of each variant
 build beside the port's, in turns (``nostores:-DK5W_NO_STORES``: no dkvg
 stores, a wrong dkv); ``--seeds N`` runs the wide cases (and
 ``WIDE_SEED_CASES``) over generator seeds 1 .. N and counts the (case, seed)
-pairs that miss K5B_TOL: one bf16 step of a row of a p = 1 token can, where
-its rows cancel in dkv (the note in ``csrc/sparse_mla.cu``).
+pairs that miss K5B_TOL (a token that selected one row broke bf16 ties of its
+dkv row before both K5b forms and the plain version stored its ds as the
+exact 0: the note in ``csrc/sparse_mla.cu``), then the narrow K5b's
+``chip_smoke.K5B_EDGE_CASES`` and ``K5_HEAD_CASES`` over the same seeds.
 """
 
 from __future__ import annotations
@@ -277,12 +279,36 @@ def wide_seeds(n: int) -> None:
           f"K5B_TOL; by case: {json.dumps(misses)}", flush=True)
 
 
+def narrow_seeds(n: int) -> None:
+    """chip_smoke.K5B_EDGE_CASES (64 heads) and K5_HEAD_CASES through
+    chip_smoke.k5b_check with the inputs of generator seeds 1 .. n: how many
+    (case, seed) pairs miss K5B_TOL, and by what."""
+    log, misses, pairs = chip_smoke.log, {}, 0
+    chip_smoke.log = lambda msg: None
+    cases = [c + (64,) for c in chip_smoke.K5B_EDGE_CASES] + list(chip_smoke.K5_HEAD_CASES)
+    try:
+        for seed in range(1, n + 1):
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            for name, S, Sk, T, layout, empty, slots, heads in cases:
+                pairs += 1
+                q, kv, do, idx = chip_smoke.k5b_inputs(gen, S, Sk, T, layout, empty, heads)
+                try:
+                    chip_smoke.k5b_check(name, q, kv, do, idx, empty, slots)
+                except AssertionError as err:
+                    misses.setdefault(name, []).append(f"seed {seed}: {str(err)[:90]}")
+    finally:
+        chip_smoke.log = log
+    print(f"--seeds {n}, the narrow K5b: {sum(len(v) for v in misses.values())} of {pairs} "
+          f"(case, seed) pairs miss K5B_TOL; by case: {json.dumps(misses)}", flush=True)
+
+
 def wide(args, gen, dev) -> bool:
     """The wide forms: their edge cases, then (without --quick) the timed row."""
     for case in chip_smoke.K5_WIDE_CASES:
         chip_smoke.k5_wide_case(gen, *case)
     if args.seeds:
         wide_seeds(args.seeds)
+        narrow_seeds(args.seeds)
     if args.quick:
         return True
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
@@ -359,8 +385,9 @@ def main() -> int:
     ap.add_argument("--wide", action="store_true",
                     help="the wide forms (Dq 1152 / v_dim 1024) in place of the 576 ones")
     ap.add_argument("--seeds", type=int, default=0,
-                    help="with --wide: the wide cases over generator seeds 1 .. N, counting "
-                         "the (case, seed) pairs that miss K5B_TOL")
+                    help="with --wide: the wide cases, then the narrow K5b's edge and head "
+                         "cases, over generator seeds 1 .. N, counting the (case, seed) pairs "
+                         "that miss K5B_TOL")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("this benchmark needs an NVIDIA GPU", file=sys.stderr)

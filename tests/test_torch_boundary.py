@@ -60,7 +60,10 @@ LOOP_MODULES = (
 SFT_MOE_MODULES = ("trainer.sft", "trainer.sft.data", "trainer.sft.train", "entrypoints.sft",
                    "models.qwen3_moe", "models.glm4_moe", "models.gated_moe",
                    "models.qwen3_next", "ops.gated_delta", "ops.mamba", "models.nemotron_h",
-                   "models.lora", "trainer.runs", "models.vision", "models.qwen3_vl")
+                   "models.lora", "trainer.runs", "models.vision", "models.qwen3_vl",
+                   # the hybrid VLM's (qwen3_next_vl) and the wide K5b repair's
+                   "models", "models.base", "models.qwen3", "sampler.model", "sampler.engine",
+                   "trainer.weights", "ops.sparse_mla_kernel")
 _CHECK = _CHECK.replace("LOOP_MODULES", repr(LOOP_MODULES)).replace(
     "SFT_MOE_MODULES", repr(SFT_MOE_MODULES))
 

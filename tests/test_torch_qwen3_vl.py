@@ -45,6 +45,7 @@ from prime_rl_tpu_torch.configs import TrainerConfig
 from prime_rl_tpu_torch.configs.shared import LoRAConfig
 from prime_rl_tpu_torch.models import get_family
 from prime_rl_tpu_torch.models import lora as tlora
+from prime_rl_tpu_torch.models import qwen3_next as tnext
 from prime_rl_tpu_torch.models import qwen3_vl as tvl
 from prime_rl_tpu_torch.models.base import get_spec, spec_from_hf_config
 from prime_rl_tpu_torch.models.qwen3 import load_hf_weights, params_from_jax
@@ -231,13 +232,21 @@ def test_qwen3_vl_8b_spec_matches_the_jax_reader():
 
 
 def test_qwen3_next_vl_still_waits():
-    """The hybrid VLM is the second part of the VLM item: its debug spec and
-    a Qwen3.5 config with a tower raise, naming it."""
-    with pytest.raises(NotImplementedError, match="item 9"):
-        get_spec("debug_qwen3_next_vl")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        spec_from_hf_config({"architectures": ["Qwen3_5ForConditionalGeneration"],
-                             "vision_config": {}})
+    """The hybrid VLM (the second part of the VLM item, no longer waiting):
+    its debug spec and a Qwen3.5 config with a tower resolve to
+    ``qwen3_next_vl`` and its family, as the JAX package resolves them (the
+    parity suite is tests/test_torch_qwen3_next_vl.py)."""
+    spec = get_spec("debug_qwen3_next_vl")
+    assert spec.family == "qwen3_next_vl" and spec.vision is not None
+    assert dataclasses.asdict(spec) == dataclasses.asdict(j_get_spec("debug_qwen3_next_vl"))
+    cfg = {"architectures": ["Qwen3_5MoeForConditionalGeneration"],
+           "text_config": spec_to_hf_config(dataclasses.replace(spec, family="qwen3_next",
+                                                                vision=None)),
+           "vision_config": spec_to_hf_config(spec)["vision_config"]}
+    got = spec_from_hf_config(cfg)
+    assert got.family == "qwen3_next_vl" and got.mrope_section == (16, 8, 8)
+    assert dataclasses.asdict(got) == dataclasses.asdict(j_spec_from_hf_config(cfg))
+    assert get_family(got).init is tnext.init_params_vl
 
 
 def _model_cfg(cls):

@@ -29,6 +29,7 @@ from prime_rl_tpu.trainer.rl import loss as jloss
 from prime_rl_tpu_torch.configs.trainer import DefaultLossConfig, IPOLossConfig, RatioLossConfig
 from prime_rl_tpu_torch.models import get_family
 from prime_rl_tpu_torch.models import qwen3 as tqwen3
+from prime_rl_tpu_torch.models import qwen3_next as tnext
 from prime_rl_tpu_torch.models.base import debug_spec
 from prime_rl_tpu_torch.ops import attention as tattn
 from prime_rl_tpu_torch.ops import flash_attention as tflash
@@ -351,10 +352,10 @@ def test_forward_rejects_what_waits_for_later_slices():
     lora = init_lora(spec, LoRAConfig(rank=2), torch.Generator().manual_seed(1))
     out = tqwen3.forward(params, spec, ids, seg, ids, lora=lora, lora_scale=2.0)
     assert out.shape == (1, 8, spec.hidden_size)
-    # the VLM slice's families resolve; the hybrid VLM waits for item 9's second part
+    # the VLM families resolve, the hybrid VLM too (held against JAX in
+    # tests/test_torch_qwen3_next_vl.py)
     assert get_family(debug_spec(family="qwen3_vl")).init.__module__.endswith("qwen3_vl")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        get_family(debug_spec(family="qwen3_next_vl"))
+    assert get_family(debug_spec(family="qwen3_next_vl")).forward is tnext.forward
 
 
 # ---------------------------------------------------------------------------
