@@ -269,10 +269,13 @@ Phases (any failure raises and exits non-zero before the last line):
                 launched K1, K2a, K2b, K3 and K4. It prints the loop's figures of
                 this single run: trainer tokens/s and step time, the wait for a
                 batch, the in-process swap, rollout tokens/s, env steps/s and the
-                wall time a step.
+                wall time a step. Phases 35, 36 and 41 run at once (``loops``),
+                each launcher on ports of its own, so their figures are those
+                of three loops sharing the card and the host.
  36. lora-loop — the loop of phase 35 on configs/examples/qwen3_0.6b_rl_lora.toml
                 cut as phase 35 is cut (northstar_rl_tpu.toml's settings less its
-                optimizer and env list; completions of up to 128 tokens): the same
+                optimizer and env list; ports of its own; completions of up to
+                128 tokens): the same
                 checks, the engine serving the merge of the frozen base and the
                 adapter, and the trainer's base bit-equal at the end (its logged
                 fingerprints).
@@ -324,7 +327,10 @@ GLM-4.5-Air path's chunked launches (group 12) and MiniMax-M2's (group 6);
 the group-6 K1/K2 rows the MiniMax-M2 trainer, the window-hd128 rows the
 AFMoE and Laguna references, K5a's serving row the GLM-5 server, and the
 hd256 rows the Qwen3-Next trainer (K1 also its server) and server (K4), the
-nemotron-h rows the Nemotron-H trainer (K1 also its server) and server (K4).
+nemotron-h rows the Nemotron-H trainer (K1 also its server) and server (K4),
+the long-context rows (K1, K2a and K2b over a row of 16384 tokens, their
+plain versions a sequence at a time) the long-context trainer's run a
+(``launches`` and ``launches_long_context``).
 """
 
 from __future__ import annotations
@@ -457,8 +463,9 @@ MINIMAX_SERVE_LAYERS = 4  # of 62 (8 before the last cuts)
 # GB snapshot)
 REF_TOKENS = 256
 # the steps of the trainers at seq_len 4096 (GLM-5, gpt-oss, Qwen3-30B-A3B,
-# MiniMax-M2, Qwen3-Next, Nemotron-H), each run twice; 3 before the last cuts
-BIG_TRAIN_STEPS = 2
+# MiniMax-M2, Qwen3-Next, Nemotron-H), each run twice; 3, then 2 before the
+# last cuts (the long-context phase's time)
+BIG_TRAIN_STEPS = 1
 TRAIN_STEPS = 2
 # cuts of depth and steps that keep the run near 900 s from the build on, so
 # that a host 30% slower still ends well inside the limit (the card's host
@@ -641,13 +648,14 @@ def k1_tiles(q, k, v, seg_q, seg_kv, causal: bool, window: int = 0, sinks=None) 
     return f"{int(head[0])} of {int(head[1])}"
 
 
-def k1_timing(name: str, q, k, v, seg, window: int = 0, sinks=None) -> dict:
+def k1_timing(name: str, q, k, v, seg, window: int = 0, sinks=None, spans=None) -> dict:
     """K1 over one causal packing: its median time beside its plain version's
     and, with neither window nor sinks, one SDPA call with the same mask (no
     single PyTorch call takes sinks); its bound for the (query, key) pairs the
     mask leaves (each input read once, each output written once); and the kv
     tile pairs it visited (``k1_tiles``). Without sinks the SDPA mask
-    carries the window. Logs one line; returns the row's
+    carries the window. With ``spans`` the plain version runs a sequence at
+    a time (``by_segment``). Logs one line; returns the row's
     numbers."""
     import torch
     import torch.nn.functional as F
@@ -658,8 +666,10 @@ def k1_timing(name: str, q, k, v, seg, window: int = 0, sinks=None) -> dict:
     mask = _mask(q, k, seg, seg, True, window)  # [B, 1, L, L]
     pairs = int(mask.sum())
     ms = time_ms(lambda: _fwd(q, k, v, seg, seg, True, None, window=window, sinks=sinks))
-    plain = time_ms(lambda: flash_attention_reference(q, k, v, seg, seg, True, hd ** -0.5, window,
-                                                      sinks), iters=3, warmup=1)
+    plain_args = (q, k, v, seg, seg, True, hd ** -0.5, window, sinks)
+    plain = time_ms(lambda: (flash_attention_reference(*plain_args) if spans is None else
+                             by_segment(flash_attention_reference, spans, *plain_args)),
+                    iters=3, warmup=1)
     lib = None
     if sinks is None:  # the mask carries the window
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -755,6 +765,40 @@ def by_row(fn, b: int, batched: tuple, *rest):
     return torch.cat(outs)
 
 
+def segment_spans(lens, l: int) -> list[tuple[int, int]]:
+    """[start, end) of each packed sequence of a row of ``l`` tokens, and of
+    its padding tail."""
+    spans, off = [], 0
+    for n in lens:
+        spans.append((off, off + n))
+        off += n
+    return spans + ([(off, l)] if off < l else [])
+
+
+def by_segment(fn, spans, *args):
+    """``fn(*args)`` on a row (B = 1) computed one span of ``segment_spans``
+    at a time and joined: exact for attention over packed sequences, where no
+    (query, key) pair crosses a segment and causality keeps its order inside
+    a span. Tensors of [B, NH, L] (lse, delta) are cut on their last dim, all
+    others ([B, L, ...]) on dim 1, and the outputs joined likewise (a plain
+    version holds [1, NH, n, n] float32 scores a span: 0.7 GB at 16 heads and
+    3270 tokens, against 17 GB for the whole row of 16384)."""
+    import torch
+
+    def cut(x, a, e):
+        if not torch.is_tensor(x):
+            return x
+        return x[..., a:e] if x.dim() == 3 else x[:, a:e]
+
+    def join(parts):
+        return torch.cat(parts, dim=2 if parts[0].dim() == 3 else 1)
+
+    outs = [fn(*(cut(x, a, e) for x in args)) for a, e in spans]
+    if isinstance(outs[0], tuple):
+        return tuple(join(parts) for parts in zip(*outs))
+    return join(outs)
+
+
 def k1_edge_cases(gen) -> tuple[int, float]:
     """K1 on every case of K1_EDGE_CASES against its plain version (out, lse,
     padding rows), each launched twice for equal bits, and its kv tile counts
@@ -837,14 +881,16 @@ def k2_tiles(q, k, v, seg_q, seg_kv, lse, delta, do, causal: bool, window: int =
     return tuple(out)
 
 
-def k2_timing(name: str, q, k, v, do, seg, window: int = 0, sinks=None) -> dict:
+def k2_timing(name: str, q, k, v, do, seg, window: int = 0, sinks=None, spans=None) -> dict:
     """K2a and K2b over one causal packing (lse from K1): each one's median
     time beside its plain version's, their bounds for the (query, key) pairs
     the mask leaves (each input read once, each output written once; 3 and 4
     products of 2 HD flops a pair and head), the tile pairs they visited
     (``k2_tiles``) and, with neither window nor sinks, autograd through one
     SDPA call with the same mask, whose backward gives dq, dk and dv together.
-    Logs one line a kernel; returns {"dq": row, "dkv": row}."""
+    With ``spans`` the plain versions run a sequence at a time
+    (``by_segment``). Logs one line a kernel; returns {"dq": row, "dkv":
+    row}."""
     import torch
     import torch.nn.functional as F
 
@@ -866,8 +912,12 @@ def k2_timing(name: str, q, k, v, do, seg, window: int = 0, sinks=None) -> dict:
     pairs = int(mask.sum())
     ms_dq = time_ms(lambda: flash_attention_dq(*args))
     ms_dkv = time_ms(lambda: flash_attention_dkv(*args))
-    plain_dq = time_ms(lambda: flash_attention_dq_reference(*args), iters=3, warmup=1)
-    plain_dkv = time_ms(lambda: flash_attention_dkv_reference(*args), iters=3, warmup=1)
+
+    def plain(fn):
+        return fn(*args) if spans is None else by_segment(fn, spans, *args)
+
+    plain_dq = time_ms(lambda: plain(flash_attention_dq_reference), iters=3, warmup=1)
+    plain_dkv = time_ms(lambda: plain(flash_attention_dkv_reference), iters=3, warmup=1)
     lib = None
     if sinks is None:  # the mask carries the window
         qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
@@ -895,10 +945,12 @@ def k2_timing(name: str, q, k, v, do, seg, window: int = 0, sinks=None) -> dict:
     return rows
 
 
-def k2_check(name: str, q, k, v, do, seg, out, lse, window: int = 0) -> tuple[float, float]:
+def k2_check(name: str, q, k, v, do, seg, out, lse, window: int = 0,
+             spans=None) -> tuple[float, float]:
     """K2a and K2b over one causal packing, from K1's (out, lse), against
-    their plain versions on the same bf16 inputs; padding rows must give dq =
-    0. Returns the max errors of dq and of dk/dv."""
+    their plain versions on the same bf16 inputs (a sequence at a time with
+    ``spans``, ``by_segment``); padding rows must give dq = 0. Returns the
+    max errors of dq and of dk/dv."""
     import torch
 
     from prime_rl_tpu_torch.ops.flash_attention import (
@@ -910,14 +962,18 @@ def k2_check(name: str, q, k, v, do, seg, out, lse, window: int = 0) -> tuple[fl
     )
 
     args = (q, k, v, seg, seg, lse, _delta(out, do, None), do, True, q.shape[-1] ** -0.5, window)
+
+    def plain(fn):
+        return fn(*args) if spans is None else by_segment(fn, spans, *args)
+
     dq, (dk, dv) = flash_attention_dq(*args), flash_attention_dkv(*args)
     torch.cuda.synchronize()
-    err_dq = check_close(f"flash_attn_bwd_dq {name}", dq, flash_attention_dq_reference(*args),
+    err_dq = check_close(f"flash_attn_bwd_dq {name}", dq, plain(flash_attention_dq_reference),
                          K2_TOL, K2_TOL)
     if not bool((dq[seg == 0] == 0).all()):
         raise AssertionError(f"flash_attn_bwd_dq {name}: padding rows must give dq = 0")
     del dq
-    ref_dk, ref_dv = flash_attention_dkv_reference(*args)
+    ref_dk, ref_dv = plain(flash_attention_dkv_reference)
     err_dkv = max(check_close(f"flash_attn_bwd_dkv {n} {name}", g, r, K2_TOL, K2_TOL)
                   for n, g, r in (("dk", dk, ref_dk), ("dv", dv, ref_dv)))
     return err_dq, err_dkv
@@ -1728,9 +1784,9 @@ def k5b_check(name: str, q, kv, do, idx, empty=None, slots=None) -> float:
 def k5b_reference(q, kv, idx, out, lse, do, scale: float):
     """K5b's plain version on the same inputs: the plain backward at up to 64
     heads, and above 64 its mirror over the kernels' groups of 64 heads
-    (``sparse_mla_grouped_reference``: each group's per-slot dkv rows rounded
-    to bf16 before the f32 sum, as K5b writes them, where the plain backward
-    rounds the sum over all heads once). Returns (dq, dkv)."""
+    (``sparse_mla_grouped_reference``: each group's per-slot f32 dkv rows
+    added into dkv a group, as K5b and the reduction do). Returns (dq,
+    dkv)."""
     from prime_rl_tpu_torch.ops import sparse_mla_kernel as K
 
     if q.shape[1] <= K.HEADS:
@@ -1790,18 +1846,35 @@ def k5_padded_case(gen) -> tuple[float, float]:
     return err_a, err_b
 
 
+# the narrow K5b's edge and head cases are drawn this many times (the
+# phase's own stream through k5a_check and k5b_check, then one generator a
+# seed through k5b_check): a large per-slot dkv row near a bf16 rounding
+# boundary, which one draw may not hold, missed K5B_TOL while both sides
+# rounded the rows (ROADMAP Queue 3)
+K5_NARROW_SEEDS = 3
+
+
 def k5_edge_cases(gen) -> tuple[int, float, float]:
     """Every case of K5B_EDGE_CASES (64 heads) and K5_HEAD_CASES through
-    k5a_check and k5b_check, and the narrow widths of ``k5_padded_case``.
-    Returns (cases, max error of K5a, max error of K5b)."""
+    k5a_check and k5b_check, K5b's again over K5_NARROW_SEEDS - 1 more draws,
+    and the narrow widths of ``k5_padded_case``. Returns (cases, max error of
+    K5a, max error of K5b)."""
     worst_a = worst_b = 0.0
     cases = [c + (64,) for c in K5B_EDGE_CASES] + list(K5_HEAD_CASES)
     for name, S, Sk, T, layout, empty, slots, heads in cases:
         q, kv, do, idx = k5b_inputs(gen, S, Sk, T, layout, empty, heads)
         worst_a = max(worst_a, k5a_check(name, q, kv, idx, empty)[2])
         worst_b = max(worst_b, k5b_check(name, q, kv, do, idx, empty, slots))
+    import torch
+
+    for seed in range(1, K5_NARROW_SEEDS):
+        g = torch.Generator(device="cuda").manual_seed(SEED + 200 + seed)
+        for name, S, Sk, T, layout, empty, slots, heads in cases:
+            q, kv, do, idx = k5b_inputs(g, S, Sk, T, layout, empty, heads)
+            worst_b = max(worst_b, k5b_check(f"{name} (draw {seed + 1})", q, kv, do, idx, empty,
+                                             slots))
     err_a, err_b = k5_padded_case(gen)
-    return len(cases) + 1, max(worst_a, err_a), max(worst_b, err_b)
+    return len(cases) * K5_NARROW_SEEDS + 1, max(worst_a, err_a), max(worst_b, err_b)
 
 
 # K5a/K5b at the wide widths (name, Dq, v_dim, S, Sk, T, layout, empty token,
@@ -1944,7 +2017,7 @@ def k5b_wide_own_ms(q, kv, idx, out, lse, do, scale: float, flush) -> tuple[floa
     T = idx.shape[1]
     delta = (out.float() * do).sum(dim=-1).contiguous()
     dq = torch.empty_like(q)
-    chunk = K.bwd_chunk(S, T, K.DQ_WIDE)
+    chunk = K.bwd_chunk(S, T)
     dkvg = torch.empty((chunk, T, K.DQ_WIDE), dtype=torch.bfloat16, device=q.device)
     calls = [(slice(c0, min(c0 + chunk, S)), h0) for c0 in range(0, S, chunk)
              for h0 in range(0, H, K.WIDE_HEADS)]
@@ -2108,26 +2181,26 @@ def sparse_mla_kernel_phase() -> list[dict]:
         # that chunk summed per kv row, against index_add_ (one PyTorch call)
         chunk = K.bwd_chunk(S, T)
         ic = idx[S - chunk:]
-        dkvg = torch.empty((chunk, T, DQ), dtype=torch.bfloat16, device=dev)
+        dkvg = torch.empty((chunk, T, DQ), dtype=torch.float32, device=dev)
         delta = (out.float() * do.float()).sum(dim=-1)
         sl = slice(S - chunk, S)
         K.sparse_mla_bwd_chunk(q[sl], kv, ic, do[sl], lse[sl], delta[sl], torch.empty_like(q[sl]),
                                dkvg, scale, DV)
         order, seg = K.slot_order(ic, S)
         valid = (ic < S).reshape(-1)
-        rows_f32 = dkvg.reshape(-1, DQ)[valid].float()
+        rows_f32 = dkvg.reshape(-1, DQ)[valid]
         where = ic.reshape(-1)[valid].long()
         acc = torch.zeros((S, DQ), dtype=torch.float32, device=dev)
         K.sparse_mla_dkv_reduce(dkvg, order, seg, acc)
         want = torch.zeros_like(acc).index_add_(0, where, rows_f32)
-        # f32 sums of the same bf16 rows in another order
+        # f32 sums of the same f32 rows in another order
         err_red = check_close(f"sparse_mla_dkv_reduce {shape}", acc, want, 1e-3, 1e-4)
         ms_red = time_ms(lambda: K.sparse_mla_dkv_reduce(dkvg, order, seg, acc), iters=10)
         plain_red = time_ms(lambda: torch.zeros_like(acc).index_add_(
-            0, ic.reshape(-1)[valid].long(), dkvg.reshape(-1, DQ)[valid].float()), iters=5)
+            0, ic.reshape(-1)[valid].long(), dkvg.reshape(-1, DQ)[valid]), iters=5)
         lib_red = time_ms(lambda: acc.index_add_(0, where, rows_f32), iters=10)
         n_valid = int(valid.sum())
-        bms, by = bound(n_valid * (DQ * 2 + 8) + (S + 1) * 4 + 2 * acc.numel() * 4, n_valid * DQ)
+        bms, by = bound(n_valid * (DQ * 4 + 8) + (S + 1) * 4 + 2 * acc.numel() * 4, n_valid * DQ)
         red_cases.append(dict(shape=f"{shape} chunk={chunk} slots={n_valid}", max_abs_err=err_red,
                               ms=ms_red, plain_ms=plain_red, library_ms=lib_red, bound_ms=bms,
                               bound_by=by))
@@ -2298,12 +2371,15 @@ def gpt_oss_kernel_phase() -> list[dict]:
 
 
 def k12_rows(gen, name: str, b: int, l: int, nh: int, nkv: int, hd: int, seg_lens,
-             window: int = 0, k1: bool = True) -> list[dict]:
+             window: int = 0, k1: bool = True, segmented: bool = False) -> list[dict]:
     """K1, K2a and K2b over one causal packing: each against its plain
     version (K1 at ATOL + RTOL |ref|, K2 at K2_TOL + K2_TOL |ref|), each
     launched twice for equal bits, then timed (``k1_timing``, ``k2_timing``).
     Returns the three rows' numbers; without ``k1``, K1 only gives K2 its
-    inputs and the two rows of K2a and K2b are returned."""
+    inputs and the two rows of K2a and K2b are returned. ``segmented`` (B =
+    1): the kernels run over the whole row and their plain versions a
+    sequence at a time (``by_segment``), for rows whose whole-row scores do
+    not fit beside them."""
     import torch
 
     from prime_rl_tpu_torch.ops.flash_attention import (
@@ -2315,6 +2391,9 @@ def k12_rows(gen, name: str, b: int, l: int, nh: int, nkv: int, hd: int, seg_len
     )
 
     dev = torch.device("cuda")
+    if segmented and b != 1:
+        raise ValueError("segmented rows take B = 1")
+    spans = segment_spans(seg_lens[0], l) if segmented else None
 
     def randn(*shape):
         return torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
@@ -2333,19 +2412,23 @@ def k12_rows(gen, name: str, b: int, l: int, nh: int, nkv: int, hd: int, seg_len
         raise AssertionError(f"flash attention {name}: two launches differ")
     del out2, lse2, grads, dq2, dk2, dv2
     if k1:
-        ref_out, _ = by_row(flash_attention_reference, b,
-                            (q.float(), k.float(), v.float(), seg, seg), True, hd ** -0.5,
-                            window, None)
+        ref_args = (q.float(), k.float(), v.float(), seg, seg)
+        ref_out, _ = (by_row(flash_attention_reference, b, ref_args, True, hd ** -0.5, window,
+                             None) if spans is None else
+                      by_segment(flash_attention_reference, spans, *ref_args, True, hd ** -0.5,
+                                 window, None))
         err = check_close(f"flash_attn_fwd {name}", out, ref_out, ATOL, RTOL)
         del ref_out
-    err_dq, err_dkv = k2_check(name, q, k, v, do, seg, out, lse, window)
+    err_dq, err_dkv = k2_check(name, q, k, v, do, seg, out, lse, window, spans)
     del out, lse, dq, dk, dv
     shape = f"B={b} L={l} {nh}/{nkv} heads hd {hd}{f', window {window}' if window else ''}, " \
             f"segments {seg_lens[0]}"
+    if spans is not None:
+        shape += "; plain versions a sequence at a time"
     fwd = [dict(shape=shape, max_abs_err=err, **k1_timing(
         f"K1 flash_attn_fwd {shape} (err {err:.3g}, two launches equal)", q, k, v, seg,
-        window))] if k1 else []
-    timing = k2_timing(shape, q, k, v, do, seg, window)
+        window, spans=spans))] if k1 else []
+    timing = k2_timing(shape, q, k, v, do, seg, window, spans=spans)
     del q, k, v, do
     torch.cuda.empty_cache()
     return fwd + [dict(shape=shape, max_abs_err=err_dq, **timing["dq"]),
@@ -2487,9 +2570,9 @@ def train_reference_phase() -> None:
 def training_phase() -> tuple[dict, dict]:
     """The port's trainer through its normal entry, twice from the same seed:
     the first run publishes a snapshot every step and checkpoints at its end,
-    the second (for the bit-equal losses) runs in bench mode, which publishes
-    the initial weights only, as the big trainers do. Returns (launches of the
-    first run, its last metrics record)."""
+    the second (for the bit-equal losses) runs in bench mode into a weight
+    sink that publishes nothing (``_NoSink``). Returns (launches of the first
+    run, its last metrics record)."""
     import torch
 
     from prime_rl_tpu_torch.configs import TrainerConfig
@@ -2525,7 +2608,7 @@ def training_phase() -> tuple[dict, dict]:
         _build.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        result = train(cfg)
+        result = train(cfg, weight_sink=_NoSink() if i else None)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         if i == 0:
@@ -2753,7 +2836,8 @@ def dsa_training_phase() -> tuple[dict, dict]:
         _build.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        result = train(config(out))
+        # the first run's snapshot would be deleted unread: it publishes nothing
+        result = train(config(out), weight_sink=_NoSink() if i < len(outs) - 1 else None)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2764,7 +2848,8 @@ def dsa_training_phase() -> tuple[dict, dict]:
         torch.cuda.empty_cache()
         if i < len(outs) - 1:  # the last run's directory holds the snapshot read back below
             shutil.rmtree(out, ignore_errors=True)
-        log(f"dsa-training run {i}: {steps} steps in {wall:.2f} s (initial publish included), "
+        log(f"dsa-training run {i}: {steps} steps in {wall:.2f} s"
+            f"{' (initial publish included)' if i == len(outs) - 1 else ''}, "
             f"peak device memory {peak:.2f} GiB, losses {[r['loss'] for r in runs[-1][0]]}, "
             f"step times {[round(r['step_time_s'], 3) for r in runs[-1][0]]}")
     (records, launches, peak), (records_again, _, _) = runs
@@ -3084,7 +3169,8 @@ def gpt_oss_training_phase() -> tuple[dict, dict]:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         with packed_fake_rows(per_row):
-            result = train(config(out))
+            # the first run's snapshot would be deleted unread: it publishes nothing
+            result = train(config(out), weight_sink=_NoSink() if i < len(outs) - 1 else None)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2**30
@@ -3094,7 +3180,8 @@ def gpt_oss_training_phase() -> tuple[dict, dict]:
         torch.cuda.empty_cache()
         if i < len(outs) - 1:  # the last run's directory holds the snapshot read back below
             shutil.rmtree(out, ignore_errors=True)
-        log(f"gpt-oss-training run {i}: {steps} steps in {wall:.2f} s (initial publish included), "
+        log(f"gpt-oss-training run {i}: {steps} steps in {wall:.2f} s"
+            f"{' (initial publish included)' if i == len(outs) - 1 else ''}, "
             f"peak device memory {peak:.2f} GiB, losses {[r['loss'] for r in runs[-1][0]]}, "
             f"step times {[round(r['step_time_s'], 3) for r in runs[-1][0]]}")
     (records, launches, peak), (records_again, _, _) = runs
@@ -3157,8 +3244,232 @@ def gpt_oss_training_phase() -> tuple[dict, dict]:
     return launches, numbers
 
 
+# the long-context memory levers: the example RL config's trainer (Qwen3-0.6B
+# whole, seq_len 16384, adamw with offload_optimizer) on one step of two
+# packed rows; each run (name, overrides of the config) from the same seed
+LONG_CONTEXT_CONFIG = "configs/examples/qwen3_0.6b_rl.toml"
+LONG_CONTEXT_ROWS = 2  # micro-batches of [1, seq_len], each packed with sequences
+LONG_CONTEXT_SEQS = 5  # sequences a row, 2800-3270 tokens each
+LONG_CONTEXT_RUNS = (
+    ("a", {}),  # as the config says: full remat, adamw, offload_optimizer
+    ("b", {"offload_optimizer": False}),
+    ("c", {"offload_params": True, "model": {"ac": {"mode": "offload_attn"}}}),
+    ("d", {"model": {"ac": {"mode": "selective"}}}),
+    ("e", {"model": {"ac": {"mode": "offload_dots"}}}),
+    # the arithmetic of (c)'s offload_params step without any host tier: the
+    # gradients of a bf16 copy of the masters, accumulated in bf16 (JAX's)
+    ("f", {"model": {"grad_accum_dtype": "bfloat16"}}),
+)
+
+
+
+
+def long_context_lengths() -> list[int]:
+    """The long-context phase's sequence lengths, LONG_CONTEXT_SEQS a row,
+    drawn first from the phase's generator."""
+    import numpy as np
+
+    n = LONG_CONTEXT_ROWS * LONG_CONTEXT_SEQS
+    return [int(x) for x in np.random.default_rng(SEED).integers(2800, 3271, n)]
+
+
+def long_context_kernel_phase() -> list[dict]:
+    """K1, K2a and K2b at the long-context phase's attention shape: one row of
+    16384 tokens packed with the phase's first LONG_CONTEXT_SEQS sequences
+    (Qwen3-0.6B's 16/8 heads of 128), each held against its plain version
+    (computed a sequence at a time: the whole row's float32 scores take 17
+    GB), launched twice for equal bits and timed as the other rows are. The
+    first length above 4096 the trainer runs them at, so it also holds their
+    offsets and grids there."""
+    import torch
+
+    from prime_rl_tpu_torch.models.base import get_spec
+
+    gen = torch.Generator(device=torch.device("cuda"))
+    gen.manual_seed(SEED + 22)
+    spec = get_spec(MODEL)
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
+    found = k12_rows(gen, "long-context", 1, 16384, spec.num_heads, spec.num_kv_heads,
+                     spec.head_dim, [long_context_lengths()[:LONG_CONTEXT_SEQS]],
+                     segmented=True)
+    rows = []
+    for (name, line), case in zip((("flash_attn_fwd", 59), ("flash_attn_bwd_dq", 227),
+                                   ("flash_attn_bwd_dkv", 282)), found):
+        source = "fwd" if name == "flash_attn_fwd" else "bwd"
+        rows.append(dict(name=f"{name}/long-context", route="cuda",
+                         source=f"prime_rl_tpu_torch/csrc/flash_attn_{source}.cu",
+                         replaces=f"prime_rl_tpu/ops/flash_attention.py:{line}",
+                         **{k: case[k] for k in keys}, cases=[case], model=MODEL))
+    torch.cuda.empty_cache()
+    return rows
+
+
 SFT_CONFIG = "configs/examples/qwen3_0.6b_sft.toml"
 SFT_STEPS = 1  # 4, then 2 before the cuts; validation after each step
+
+
+class _NoSink:
+    """A weight sink that publishes nothing, for the trainer runs whose
+    snapshot no check reads (in bench mode the only publish is the initial
+    snapshot: about 6 s of writing for Qwen3-0.6B); the long-context runs use
+    it too (the snapshot from host-tier masters is held on the CPU,
+    tests/test_torch_offload.py)."""
+
+    def publish(self, params, version: int) -> None:
+        pass
+
+
+def long_context_training_phase(card: str) -> tuple[dict, dict]:
+    """The trainer through its normal entry (``train``) on the ``[trainer]``
+    table of LONG_CONTEXT_CONFIG read by the port's config loader, with only
+    these overrides: random init, one step in bench mode, the output
+    directory, and a source of LONG_CONTEXT_ROWS micro-batches of [1,
+    16384] rows (the filesystem transport holding one batch of
+    LONG_CONTEXT_SEQS sequences a row, ``batch.num_micro_batches`` pinned to
+    the rows) and a weight sink that publishes nothing. Six runs from one seed (LONG_CONTEXT_RUNS): a as the config
+    says (full remat, adamw, offload_optimizer), b without offload_optimizer,
+    c with offload_params and ``offload_attn``, d ``selective``, e
+    ``offload_dots``, f a's with ``grad_accum_dtype = "bfloat16"``. Checked:
+    a, b, d and e give the same loss and the same updated parameters, bit
+    for bit; c, whose offload_params step differentiates a bf16 copy of the
+    masters and accumulates in bf16 by design (the JAX step's rounding), gives
+    f's bit for bit; after a and c every host-tier leaf is a pinned CPU
+    tensor and every other on the card; a's peak device memory is below b's
+    by at least AdamW's moments less the largest leaf's two, c's below a's
+    by at least the float32 masters less the largest leaf (both worked out
+    from the shapes); K1 launches 2 x 28 a micro-batch under full, selective
+    and offload_dots and 28 under offload_attn, K2a and K2b 28; each record
+    carries ``device_memory_stats``. Returns (launches of run a, its
+    numbers)."""
+    import numpy as np
+    import torch
+
+    from prime_rl_tpu_torch.configs import TrainerConfig
+    from prime_rl_tpu_torch.configs.loader import deep_merge, load_toml
+    from prime_rl_tpu_torch.models.base import get_spec
+    from prime_rl_tpu_torch.ops import _build
+    from prime_rl_tpu_torch.trainer.optim import leaf_states, tree_leaves
+    from prime_rl_tpu_torch.trainer.rl.train import train
+    from prime_rl_tpu_torch.trainer.step import host_leaves, params_fingerprint
+    from prime_rl_tpu_torch.transport import setup_training_batch_sender
+    from prime_rl_tpu_torch.transport.types import TrainingBatch, TrainingSample
+
+    raw = load_toml(os.path.join(ROOT, LONG_CONTEXT_CONFIG))["trainer"]
+    base = TrainerConfig(**raw)
+    seq_len = base.batch.seq_len
+    if (base.model.name, seq_len, base.optimizer.type, base.offload_optimizer,
+            base.model.ac.mode) != (MODEL, 16384, "adamw", True, "full"):
+        raise AssertionError(f"{LONG_CONTEXT_CONFIG} must train {MODEL} at seq_len 16384 with "
+                             "adamw, offload_optimizer and full remat")
+    spec = get_spec(MODEL)
+    rng = np.random.default_rng(SEED + 1)
+    samples = []
+    for n in long_context_lengths():
+        mask = np.arange(n) >= n // 4
+        samples.append(TrainingSample(
+            token_ids=rng.integers(0, spec.vocab_size, n).astype(np.int32), mask=mask,
+            logprobs=rng.normal(-2.0, 0.5, n).astype(np.float32),
+            temperatures=np.ones(n, np.float32), env_name="fake",
+            advantages=np.where(mask, rng.normal(), 0.0).astype(np.float32)))
+
+    def config(out: str, over: dict) -> TrainerConfig:
+        return TrainerConfig(**deep_merge(raw, deep_merge({
+            "max_steps": 1, "output_dir": out, "bench": {"warmup_steps": 0, "steps": 1},
+            "model": {"debug": {"random_init": True}}, "data": {"type": "transport"},
+            "transport": {"type": "filesystem"},
+            "batch": {"num_micro_batches": LONG_CONTEXT_ROWS}}, over)))
+
+    runs, shapes = {}, None
+    for name, over in LONG_CONTEXT_RUNS:
+        out = os.path.join(ROOT, "build", "chip_smoke", "long_context", name)
+        shutil.rmtree(out, ignore_errors=True)
+        cfg = config(out, over)
+        sender = setup_training_batch_sender(cfg.transport, out)
+        sender.send(TrainingBatch(examples=samples, step=0))
+        gc.collect()
+        torch.cuda.empty_cache()
+        _build.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = train(cfg, weight_sink=_NoSink())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.launches)
+        peak = torch.cuda.max_memory_allocated()
+        (record,) = result.records
+        state = result.state
+        if not (math.isfinite(record["loss"]) and math.isfinite(record["grad_norm"])):
+            raise AssertionError(f"long-context run {name}: bad record {record}")
+        missing = {"device0/bytes_in_use_gb", "device0/bytes_limit_gb",
+                   "device0/peak_bytes_gb"} - set(record)
+        if missing:
+            raise AssertionError(f"long-context run {name}: the record lacks {sorted(missing)}")
+        shapes = shapes or [(t.numel(), t.dim()) for t in tree_leaves(state.params)]
+        p_host, o_host = host_leaves(state, cfg.offload_optimizer, cfg.offload_params)
+        on_host = [(t, flag) for t, flag in zip(tree_leaves(state.params), p_host)]
+        for sl, flags in zip(leaf_states(state.opt_state, state.params), o_host):
+            for st, fl in zip(sl, flags):
+                for k, names in fl.items():
+                    entry = st[k]["_"]
+                    parts = entry if isinstance(entry, dict) else {"": entry}
+                    on_host += [(parts[n], names[n]) for n in names]
+        wrong = sum((t.device.type == "cpu" and t.is_pinned()) != flag for t, flag in on_host)
+        n_host = sum(flag for _, flag in on_host)
+        if wrong:
+            raise AssertionError(f"long-context run {name}: {wrong} leaves off their tier "
+                                 f"({n_host} should be pinned host tensors)")
+        digest = params_fingerprint({str(i): t.to("cuda") for i, t in
+                                     enumerate(tree_leaves(state.params))})
+        tokens = LONG_CONTEXT_ROWS * seq_len
+        runs[name] = dict(loss=record["loss"], grad_norm=record["grad_norm"], digest=digest,
+                          launches=launches, peak_gib=peak / 2**30, wall_s=wall,
+                          step_time_s=record["step_time_s"],
+                          tokens_per_s=tokens / record["step_time_s"], mfu=record["mfu"],
+                          host_leaves=n_host, mode=cfg.model.ac.mode)
+        log(f"long-context run {name} ({over or 'as the config says'}) on {card}: loss "
+            f"{record['loss']!r}, step {record['step_time_s']:.3f} s, "
+            f"{tokens / record['step_time_s']:.0f} tokens/s, MFU {record['mfu']:.4f}, peak "
+            f"{peak / 2**30:.2f} GiB, {n_host} host-tier leaves (pinned), run {wall:.1f} s, "
+            f"launches {launches}")
+        del result, state, on_host
+        shutil.rmtree(out, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for group in (("a", "b", "d", "e"), ("c", "f")):
+        first = runs[group[0]]
+        for other in group[1:]:
+            if (runs[other]["loss"], runs[other]["digest"]) != (first["loss"], first["digest"]):
+                raise AssertionError(f"long-context runs {group[0]} and {other} differ: loss "
+                                     f"{first['loss']!r} vs {runs[other]['loss']!r}, parameters "
+                                     f"{first['digest']} vs {runs[other]['digest']}")
+    # worked out from the parameters' shapes
+    moments = sum(2 * 4 * n for n, dims in shapes if dims >= 2)
+    largest = max(n for n, _ in shapes)
+    masters = sum(4 * n for n, _ in shapes)
+    need_ab = (moments - 2 * 4 * largest) / 2**30
+    need_ac = (masters - 4 * largest) / 2**30
+    drop_ab = runs["b"]["peak_gib"] - runs["a"]["peak_gib"]
+    drop_ac = runs["a"]["peak_gib"] - runs["c"]["peak_gib"]
+    log(f"long-context peaks: b - a = {drop_ab:.2f} GiB (at least AdamW's moments "
+        f"{moments / 2**30:.2f} GiB less the largest leaf's two {2 * 4 * largest / 2**30:.2f}: "
+        f"{need_ab:.2f}); a - c = {drop_ac:.2f} GiB (at least the f32 masters "
+        f"{masters / 2**30:.2f} GiB less the largest leaf {4 * largest / 2**30:.2f}: "
+        f"{need_ac:.2f}); c's loss {runs['c']['loss']!r} against a's {runs['a']['loss']!r}")
+    if drop_ab < need_ab or drop_ac < need_ac:
+        raise AssertionError(f"long-context peak memory: b - a = {drop_ab:.2f} GiB (need "
+                             f"{need_ab:.2f}), a - c = {drop_ac:.2f} GiB (need {need_ac:.2f})")
+    per_mb = spec.num_layers * LONG_CONTEXT_ROWS
+    for name, r in runs.items():
+        k1 = per_mb * (1 if r["mode"] == "offload_attn" else 2)
+        got = tuple(r["launches"].get(k, 0) for k in ("flash_attn_fwd", "flash_attn_bwd_dq",
+                                                      "flash_attn_bwd_dkv"))
+        if got != (k1, per_mb, per_mb):
+            raise AssertionError(f"long-context run {name} ({r['mode']}): K1/K2a/K2b launched "
+                                 f"{got}, expected {(k1, per_mb, per_mb)}")
+    numbers = {name: {k: v for k, v in r.items() if k not in ("launches", "digest")}
+               for name, r in runs.items()}
+    log(f"long-context training on {card}: {json.dumps(numbers)}")
+    return runs["a"]["launches"], numbers
 
 
 def sft_phase() -> tuple[dict, dict]:
@@ -3930,7 +4241,8 @@ def hybrid_training_phase(label: str, model_dir: str, expect: tuple, widths, n_a
         _build.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        result = train(config(out))
+        # the first run's snapshot would be deleted unread: it publishes nothing
+        result = train(config(out), weight_sink=_NoSink() if i < len(outs) - 1 else None)
         mm_patches = [r.get("mm_patches") for r in result.records]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -3942,8 +4254,9 @@ def hybrid_training_phase(label: str, model_dir: str, expect: tuple, widths, n_a
         torch.cuda.empty_cache()
         if i < len(outs) - 1:  # the last run's directory holds the snapshot read back below
             shutil.rmtree(out, ignore_errors=True)
-        log(f"{label}-training run {i}: {steps} steps in {wall:.2f} s (initial publish "
-            f"included), peak device memory {peak:.2f} GiB, losses "
+        log(f"{label}-training run {i}: {steps} steps in {wall:.2f} s"
+            f"{' (initial publish included)' if i == len(outs) - 1 else ''}, peak device "
+            f"memory {peak:.2f} GiB, losses "
             f"{[r['loss'] for r in runs[-1][0]]}, step times "
             f"{[round(r['step_time_s'], 3) for r in runs[-1][0]]}")
     (records, launches, peak), (records_again, _, _) = runs
@@ -4435,6 +4748,10 @@ def serve(model: str, want_layers: int, want_vocab: int, reference=None, collect
 
 LOOP_STEPS = 3  # 6 before the cuts; 3 is the least that serves a published version
 LOOP_TIMEOUT_S = 600
+NORTHSTAR_CONFIG = os.path.join("configs", "bench", "northstar_rl_tpu.toml")
+# the LoRA loop's ports, off the north-star config's (8931, 5591), so that
+# the three loops run at once (the VLM loop's config takes 8902 and 5555)
+LORA_LOOP_PORTS = {"server": 8933, "batch": 5593}
 LOOP_KERNELS = ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "decode_qkv_prep",
                 "decode_paged_attention")
 
@@ -4449,37 +4766,70 @@ def loop_phase(card: str) -> dict:
     launcher, colocated, ``LOOP_STEPS`` steps, in a process group of its own (killed
     whole at the time limit). Checks what the header says, prints the loop's
     figures and returns the colocated process's kernel launches."""
-    return run_loop(card, "loop", [os.path.join("configs", "bench", "northstar_rl_tpu.toml")])[0]
+    return run_loop(card, start_loop("loop", [NORTHSTAR_CONFIG]))[0]
 
 
-def run_loop(card: str, label: str, tomls: list[str], flags: tuple = (),
+def loops_phase(card: str) -> tuple[dict, dict, dict]:
+    """``loop``, ``lora-loop`` and ``vlm-loop`` at once: the three launchers
+    start together, each in a process group of its own on ports of its own,
+    and each one's checks then run in turn (``run_loop``,
+    ``finish_lora_loop``, ``finish_vlm_loop``). A launcher still running when
+    another's check fails is killed with its group. Their figures are those
+    of three loops sharing the card and the host. Returns the three colocated
+    processes' launches."""
+    import signal
+
+    started = []
+    try:
+        started += [start_loop("loop", [NORTHSTAR_CONFIG]), start_lora_loop(), start_vlm_loop()]
+        return (run_loop(card, started[0])[0], finish_lora_loop(card, started[1]),
+                finish_vlm_loop(card, started[2]))
+    finally:
+        for run in started:
+            if run["proc"].poll() is None:
+                os.killpg(run["proc"].pid, signal.SIGKILL)
+                run["proc"].wait()
+
+
+def start_loop(label: str, tomls: list[str], flags: tuple = ()) -> dict:
+    """The launcher on ``tomls`` (merged left to right) and ``flags``, started
+    under ``build/chip_smoke/<label>`` in a process group of its own, its
+    output to ``launcher.out`` there; ``run_loop`` waits for it."""
+    out = os.path.join(ROOT, "build", "chip_smoke", label)
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    cmd = [sys.executable, "-m", "prime_rl_tpu_torch.entrypoints.rl",
+           *("@" + os.path.join(ROOT, t) for t in tomls), "--colocated",
+           "--trainer.max-steps", str(LOOP_STEPS), "--orchestrator.max-steps", str(LOOP_STEPS),
+           *flags, "--output-dir", out]
+    log(f"{label}: {' '.join(cmd[1:])}")
+    with open(os.path.join(out, "launcher.out"), "w") as fh:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=fh, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+    return {"label": label, "out": out, "proc": proc, "t0": time.perf_counter()}
+
+
+def run_loop(card: str, started: dict,
              kernels: tuple[str, ...] = LOOP_KERNELS) -> tuple[dict, str]:
-    """``loop_phase``'s run and checks for the launcher on ``tomls`` (merged
-    left to right) and ``flags``, under ``build/chip_smoke/<label>``; every
-    kernel of ``kernels`` must launch in the colocated process.
+    """``loop_phase``'s checks for a launcher ``start_loop`` started: it must
+    end within LOOP_TIMEOUT_S of its start (else its group is killed), and
+    every kernel of ``kernels`` must launch in the colocated process.
     Returns (the colocated process's kernel launches, its log)."""
     import re
     import signal
 
     import numpy as np
 
-    out = os.path.join(ROOT, "build", "chip_smoke", label)
-    shutil.rmtree(out, ignore_errors=True)
-    cmd = [sys.executable, "-m", "prime_rl_tpu_torch.entrypoints.rl",
-           *("@" + os.path.join(ROOT, t) for t in tomls), "--colocated",
-           "--trainer.max-steps", str(LOOP_STEPS), "--orchestrator.max-steps", str(LOOP_STEPS),
-           *flags, "--output-dir", out]
-    log(f"{label}: {' '.join(cmd[1:])}")
-    t0 = time.perf_counter()
-    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True, start_new_session=True)
+    label, out, proc, t0 = started["label"], started["out"], started["proc"], started["t0"]
     try:
-        stdout, _ = proc.communicate(timeout=LOOP_TIMEOUT_S)
+        proc.wait(timeout=max(0.0, LOOP_TIMEOUT_S - (time.perf_counter() - t0)))
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)  # the launcher and every child it started
-        proc.communicate()
+        proc.wait()
         raise AssertionError(f"{label}: the launcher did not finish within {LOOP_TIMEOUT_S} s")
     wall = time.perf_counter() - t0
+    with open(os.path.join(out, "launcher.out")) as fh:
+        stdout = fh.read()
     logs = os.path.join(out, "logs")
     texts = {}
     for name in sorted(os.listdir(logs)) if os.path.isdir(logs) else []:
@@ -4542,7 +4892,8 @@ def run_loop(card: str, label: str, tomls: list[str], flags: tuple = (),
         "rl_tokens_per_step": float(np.median([r["rl_tokens"] for r in trows])),
         "mismatch_kl_mean": kl, "reward_mean": [r["reward_mean"] for r in orows],
     }
-    log(f"{label} on {card} (one run, medians of steps 2-{LOOP_STEPS}): trainer "
+    log(f"{label} on {card} (one run, beside the other loops, medians of steps "
+        f"2-{LOOP_STEPS}): trainer "
         f"{stats['trainer_tokens_per_s']:.1f} tokens/s, train step {stats['train_step_s']:.3f} s, "
         f"wait for a batch {stats['wait_for_batch_s']:.3f} s, publish_s (in-process swap, the "
         f"median of steps {stats['publish_steps']}, those that published) "
@@ -4964,29 +5315,45 @@ def lora_serving_phase(paths: dict) -> tuple[dict, dict]:
 def lora_loop_phase(card: str) -> dict:
     """``LORA_CONFIG`` colocated through the launcher, cut as the loop phase
     is cut (``configs/bench/northstar_rl_tpu.toml`` merged under it for the
-    random init, the byte tokenizer, the pool and ports, seq_len 512;
-    ``LOOP_STEPS`` steps, 64 rollouts of up to 128 tokens a step): the loop's
-    checks, and the trainer's frozen base bit-equal after every swap (its
-    fingerprint at the start and the end, logged by the colocated trainer).
-    Returns the colocated process's kernel launches."""
-    import re
+    random init, the byte tokenizer, the pool, seq_len 512; its ports
+    LORA_LOOP_PORTS; ``LOOP_STEPS`` steps, 64 rollouts of up to 128 tokens a
+    step): the loop's checks, and the trainer's frozen base bit-equal after
+    every swap (its fingerprint at the start and the end, logged by the
+    colocated trainer). Returns the colocated process's kernel launches."""
+    return finish_lora_loop(card, start_lora_loop())
+
+
+def start_lora_loop() -> dict:
+    """``lora_loop_phase``'s launcher, started."""
     import tomllib
 
     # the loop phase's cuts: northstar_rl_tpu.toml less its optimizer (the LoRA
     # config's adamw stays) and its env list (the LoRA config's reverse_text
     # groups of 16 stay, their completions cut to 128 tokens by a flag)
-    with open(os.path.join(ROOT, "configs", "bench", "northstar_rl_tpu.toml"), "rb") as fh:
+    with open(os.path.join(ROOT, NORTHSTAR_CONFIG), "rb") as fh:
         cuts = tomllib.load(fh)
     for section, key in (("trainer", "optimizer"), ("orchestrator", "train_envs")):
         del cuts[section][key]
     for key in ("output_dir", "colocated"):
         cuts.pop(key, None)
+    cuts["inference"]["server"]["port"] = LORA_LOOP_PORTS["server"]
+    cuts["orchestrator"]["client"]["base_urls"] = [
+        f"http://127.0.0.1:{LORA_LOOP_PORTS['server']}"]
+    for section in ("trainer", "orchestrator"):
+        cuts[section]["transport"]["batch_port"] = LORA_LOOP_PORTS["batch"]
     cuts_path = os.path.join("build", "chip_smoke", "lora_loop_cuts.toml")
     os.makedirs(os.path.join(ROOT, "build", "chip_smoke"), exist_ok=True)
     with open(os.path.join(ROOT, cuts_path), "w") as fh:
         fh.write(toml_text(cuts))
     flags = ("--orchestrator.train-envs.0.sampling.max-tokens", "128")
-    launches, colocated = run_loop(card, "lora-loop", [LORA_CONFIG, cuts_path], flags)
+    return start_loop("lora-loop", [LORA_CONFIG, cuts_path], flags)
+
+
+def finish_lora_loop(card: str, started: dict) -> dict:
+    """``lora_loop_phase``'s checks for its started launcher."""
+    import re
+
+    launches, colocated = run_loop(card, started)
     start = re.findall(r"training adapters only; frozen base fingerprint (\w+)", colocated)
     end = re.findall(r"LoRA frozen base fingerprint at the end: (\w+)", colocated)
     if not start or not end or start[-1] != end[-1]:
@@ -5938,8 +6305,17 @@ def vlm_loop_phase(card: str) -> dict:
     K1/K2 (zero-padded to 64) and K3; its decode attention is the plain
     one, as the JAX decode sends head dim 32 to XLA (``takes_k4``). Returns
     the colocated process's launches."""
-    launches, _ = run_loop(card, "vlm-loop", [VLM_LOOP_CONFIG],
-                           ("--trainer.model.attn.impl", "auto"), kernels=VLM_LOOP_KERNELS)
+    return finish_vlm_loop(card, start_vlm_loop())
+
+
+def start_vlm_loop() -> dict:
+    """``vlm_loop_phase``'s launcher, started."""
+    return start_loop("vlm-loop", [VLM_LOOP_CONFIG], ("--trainer.model.attn.impl", "auto"))
+
+
+def finish_vlm_loop(card: str, started: dict) -> dict:
+    """``vlm_loop_phase``'s checks for its started launcher."""
+    launches, _ = run_loop(card, started, kernels=VLM_LOOP_KERNELS)
     rows = _jsonl(os.path.join(ROOT, "build", "chip_smoke", "vlm-loop", "trainer.jsonl"))
     if not all(r.get("mm_patches", 0) > 0 for r in rows):
         raise AssertionError(f"vlm-loop: the trainer's records lack vision patches: "
@@ -6074,9 +6450,12 @@ def main() -> int:
             + timed("qwen3-next kernels", qwen3_next_kernel_phase)
             + timed("nemotron-h kernels", nemotron_kernel_phase)
             + timed("range-repairs", range_repairs_phase)
-            + timed("qwen3-vl kernels", qwen3_vl_kernel_phase))
+            + timed("qwen3-vl kernels", qwen3_vl_kernel_phase)
+            + timed("long-context kernels", long_context_kernel_phase))
     timed("train-reference", train_reference_phase)
     train_launches, train_numbers = timed("training", training_phase)
+    long_launches, long_numbers = timed("long-context-training", long_context_training_phase,
+                                        card)
     timed("dsa-train-reference", dsa_train_reference_phase)
     dsa_launches, _ = timed("dsa-training", dsa_training_phase)
     timed("gpt-oss-train-reference", gpt_oss_train_reference_phase)
@@ -6150,9 +6529,7 @@ def main() -> int:
     lora_stats, lora_launches = timed("lora-serving", lora_serving_phase, lora_paths)
     gc.collect()
     torch.cuda.empty_cache()  # the loop's processes need the card's memory
-    loop_launches = timed("loop", loop_phase, card)
-    lora_loop_launches = timed("lora-loop", lora_loop_phase, card)
-    vlm_loop_launches = timed("vlm-loop", vlm_loop_phase, card)
+    loop_launches, lora_loop_launches, vlm_loop_launches = timed("loops", loops_phase, card)
     log(f"gpt-oss-20b serving on {card}: {oss_stats['generate_tokens_per_s']:.1f} tokens/s "
         f"over {oss_stats['generate_requests']} concurrent requests, first token of the streamed "
         f"chat after {oss_stats['chat_stream_ttft_s']} s")
@@ -6252,6 +6629,8 @@ def main() -> int:
                                else vl_train_launches).get(kernel, 0)
             if kernel == "flash_attn_fwd":
                 row["launches_serving"] = vl_launches.get(kernel, 0)
+        elif name.endswith("/long-context"):  # the long-context trainer's rows of 16384
+            row["launches"] = row["launches_long_context"] = long_launches.get(kernel, 0)
         elif name == "decode_qkv_prep/hd32":  # debug_vlm's head dim 32: the VLM loop
             row["launches"] = vlm_loop_launches.get(kernel, 0)
         elif name.endswith(("/hd384", "/hd512", "/wide")):
@@ -6364,6 +6743,8 @@ def main() -> int:
     log(f"launches on the Qwen3-VL serving path: {vl_launches}")
     log(f"launches on the VLM loop's colocated process: {vlm_loop_launches}")
     log(f"qwen3-vl training on {card}: {json.dumps(vl_train_numbers)}")
+    log(f"launches on the long-context training path (run a): {long_launches}")
+    log(f"long-context training on {card}: {json.dumps(long_numbers)}")
     log(f"Qwen3-VL-8B serving stats on {card}: {json.dumps(vl_stats)}")
     log(f"chip_smoke: {time.perf_counter() - t0:.1f} s from the build on")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -87,9 +87,12 @@ class ActivationCheckpointConfig(BaseConfig):
     ``torch.utils.checkpoint``: ``none`` keeps every activation, ``full``
     recomputes the layer in the backward (K1 runs twice), ``save_attn`` (and
     its stride form ``save_attn/K``: every K-th layer, the rest ``full``)
-    recomputes all but the attention kernel's outputs, so K1 runs once. The
-    offload modes and ``selective`` are accepted here and raise in
-    ``models/qwen3.forward`` until their slice."""
+    recomputes all but the attention kernel's outputs, so K1 runs once;
+    ``offload_attn`` keeps those outputs in pinned host memory instead;
+    ``selective`` keeps the products with no batch dims and recomputes the
+    rest (K1 among it), ``offload_dots`` keeps those in pinned host memory.
+    Each family takes the modes its JAX function names and runs any other as
+    ``none`` (``models/qwen3.parse_remat``)."""
 
     mode: str = "full"
     save_dots: bool = True

@@ -184,8 +184,9 @@ class TrainerConfig(BaseConfig):
     # where the trainer runs: the card unless the caller asks for the CPU
     device: Literal["cuda", "cpu"] = "cuda"
     trace_path: str | None = None  # torch.profiler chrome-trace output dir
-    # park optimizer state / master weights in host memory: accepted, and the
-    # trainer raises for them until the offload slice
+    # park the optimizer state's leaves of two or more dims / the master
+    # weights in pinned host memory; the step then streams them through the
+    # update a leaf at a time (trainer/step.py)
     offload_optimizer: bool = False
     offload_params: bool = False
     # accepted and inert: a host loop over the micro-batches is the only form

@@ -15,8 +15,16 @@
 //   p   = valid ? exp(s - lse) : 0             dp = do kv[idx][:, :Dv]^T
 //   ds  = bf16(p * (dp - delta) * scale)       dq = ds kv[idx]
 //         (exactly 0 for a token with one valid slot: see one_valid_slot)
-//   dkvg = ds^T q, plus bf16(p)^T do on the first Dv channels      (one row per slot)
+//   dkvg = ds^T q, plus bf16(p)^T do on the first Dv channels      (one f32 row per slot)
 //   dkv[r] = sum of the dkvg rows of the slots that selected r     (f32, fixed order)
+//
+// The 576 K5b keeps each slot's dkvg row in f32: its sum over the 64 heads is
+// added in the order of the wgmma k-steps, which no plain version can follow,
+// and a row rounded to bf16 on each side then lands one bf16 step apart where
+// it lies near a rounding boundary; where such large rows cancel in dkv, that
+// step was more than the tolerance. Unrounded rows differ only by f32
+// rounding. (The wide K5b, whose rows are summed over 16 heads, still writes
+// bf16 rows, as the JAX kernel does.)
 //
 // A token that selected nothing gets out 0, lse -5e29, dq 0 and adds nothing to
 // dkv. The mask selects before the exponential, so no inf * 0 reaches a sum.
@@ -148,16 +156,11 @@
 //          the transposed form, dkvg^T [its channels, 32 slots] = q^T ds +
 //          do^T bf16(p), three m64n32 M tiles with all operands MN-major from
 //          shared memory (M = 32 slots is below wgmma's 64). Each M tile goes
-//          transposed by stmatrix, as bf16, into the warpgroup's own boxes of
-//          the consumed kv stage (only it reads them in phase 2). Warpgroup 1
-//          first gathers the next tile into the other stage.
-//        - The dkvg rows leave in the next tile's phase 1: a group of 8 slots
-//          that are all real by TMA tensor stores (a 64 x 8 box of each of the
-//          9 channel boxes, as staged); a group that holds a sentinel by
-//          16-byte stores of its real rows, its sentinel rows never written.
-//          A TMA store reads its source only as fast as it writes, so the
-//          wait for those reads comes as late as it can: in phase 2, just
-//          before the gather that overwrites the stage.
+//          from the accumulator to the real slots' rows as f32 (a warp's
+//          store covers 4 slots x 32 contiguous bytes; staging f32 rows in
+//          the consumed kv stage for TMA stores would need twice its room,
+//          which the block does not have). Warpgroup 1 first gathers the next
+//          tile into the other stage.
 //        - dq is staged through the token's q boxes at its end and written by
 //          16-byte stores. Every dq and dkvg element is written once, by one
 //          block, from sums in a fixed order: two runs give equal bits.
@@ -168,18 +171,13 @@
 //        fits only with one kv stage and no room for the hand-off; a cluster
 //        of two splitting the channels would trade the panels' room for 32 KB
 //        of f32 s and dp partials a tile over distributed shared memory.
-//        Measured on the way (K5b's own launches at the shape above, the L2
-//        flushed, scripts/torch_sparse_mla_bench.py; an NVIDIA H100 80GB HBM3
-//        at 700 W): every warpgroup storing its own boxes by thread after its
-//        phase 2, 7.99 ms; those stores behind the next tile's products,
-//        interleaved with their issue, 7.03; warpgroup 1 storing and gathering
-//        by thread while 0 and 2 run s and dp, 6.62 (no stores at all, 5.24:
-//        the stores cost about 1.5 ms); TMA stores of the full groups, waited
-//        before warpgroup 1's gather in phase 1, 5.34; the gather moved to
-//        warpgroups 0 and 2, 5.74; each warpgroup's stores issued at the end
-//        of its phase 2 and waited at the tile end, 6.30; the wait moved to
-//        phase 2 (kept), 5.15; the prefetch at the last tile, 5.08; the scan's
-//        loads eight at a time, 5.05. Not kept either: s split over
+//        Measured (K5b's own launches at the shape above, the L2 flushed,
+//        scripts/torch_sparse_mla_bench.py; an NVIDIA H100 80GB HBM3 at 700
+//        W): with the f32 rows, 7.78 ms over 16 chunks (the rows' 14.5 GB of
+//        writes take 4.3 ms at 3.35 TB/s). With bf16 rows, by the stores'
+//        route: by thread after each warpgroup's phase 2, 7.99 ms; by TMA
+//        while the next tile's products run, 5.05 (no stores at all, 5.24 of
+//        an earlier form). Not kept either: s split over
 //        warpgroups 0 and 1 with an f32 hand-off, 5.53 ms and spills; the
 //        descriptors of the products hoisted out of the tile loop and the
 //        warpgroup index taken as threadIdx.x / 128 (spills, and every wgmma
@@ -187,9 +185,10 @@
 //        warp-uniform: it is broadcast from lane 0).
 //   dkv: `sparse_mla_dkv_reduce_kernel` gives every kv row one block that walks
 //        the slots that selected it, in the order of a stable sort of the
-//        indices made by the wrapper, and sums their dkvg rows in f32: no
-//        atomics, so two runs give the same bits. The wrapper runs K5b and the
-//        reduction over chunks of queries so that the buffer stays near 1 GB.
+//        indices made by the wrapper, and sums their dkvg rows (f32 at 576,
+//        bf16 in the wide form) in f32: no atomics, so two runs give the same
+//        bits. The wrapper runs K5b and the reduction over chunks of queries
+//        so that the buffer (rows of 2304 bytes in both forms) stays at 1.2 GB.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -264,16 +263,9 @@ __device__ __forceinline__ void prefetch_bytes(const void* src, uint32_t bytes) 
                : "memory");
 }
 
-// a box of a 2-D tensor map from shared memory to global, in this thread's
-// bulk group; commit, and wait until the committed groups have read their
-// shared memory (or, `bulk_wait_all`, completed)
-__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0, int c1) {
-  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
-                   reinterpret_cast<uint64_t>(map)),
-               "r"(src), "r"(c0), "r"(c1)
-               : "memory");
-}
-
+// a thread's bulk group (the wide K5b's TMA stores): commit, and wait until
+// the committed groups have read their shared memory (or, `bulk_wait_all`,
+// completed)
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -299,17 +291,6 @@ __device__ __forceinline__ uint32_t ld_shared32(uint32_t addr) {
   uint32_t v;
   asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
   return v;
-}
-
-// four 8x8 bf16 matrices of accumulator fragments, each stored transposed:
-// lane l gives the address of memory row l % 8 of matrix l / 8, which receives
-// column l % 8 of that matrix (16 bytes)
-__device__ __forceinline__ void stmatrix_t4(uint32_t addr, uint32_t r0, uint32_t r1, uint32_t r2,
-                                            uint32_t r3) {
-  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
-                   addr),
-               "r"(r0), "r"(r1), "r"(r2), "r"(r3)
-               : "memory");
 }
 
 // D[64 x 192] += A[64 x 16] B[16 x 192], A K-major and B MN-major in shared memory
@@ -802,11 +783,10 @@ static_assert(128 == 4 * BT, "warpgroup 1 gives each thread 18 of a row's 72 chu
 
 __global__ void __launch_bounds__(k5b::THREADS, 1)
 sparse_mla_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
-                      const __grid_constant__ CUtensorMap tm_do,
-                      const __grid_constant__ CUtensorMap tm_dkvg, const bf16* __restrict__ kv,
+                      const __grid_constant__ CUtensorMap tm_do, const bf16* __restrict__ kv,
                       const int* __restrict__ indices, const float* __restrict__ lse,
                       const float* __restrict__ delta, bf16* __restrict__ dq,
-                      bf16* __restrict__ dkvg, int* __restrict__ tiles, int C, int Sk, int T,
+                      float* __restrict__ dkvg, int* __restrict__ tiles, int C, int Sk, int T,
                       int hs, int h0, float scale) {
   using namespace k5b;
   extern __shared__ unsigned char smem_raw[];
@@ -918,38 +898,6 @@ sparse_mla_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
         return id;
       };
-      // the dkvg rows of the tile at slot j0, staged in stage st. A group of
-      // 8 rows whose slots are all real goes by TMA, a box (64 channels x 8
-      // rows, as staged: 1024-aligned, in the 128-byte swizzle) from each of
-      // 9 lanes of the group's warp (warp w: rows 8 w .. 8 w + 7); in a group
-      // that holds a sentinel each real row is stored by its 4 threads, 16
-      // bytes a store (a sentinel slot's row is never read, so never
-      // written). The issuing lanes wait for the TMA stores' reads of the
-      // stage (`bulk_wait_read`) before anything writes it again.
-      auto store_dkvg = [&](int st, int j0) {
-#ifdef K5B_NO_STORES  // a measurement variant (scripts/torch_sparse_mla_bench.py --variants): wrong dkv
-        return;
-#endif
-        const bool real = idx_s[st * BT + row] >= 0;
-        if (__all_sync(0xffffffffu, real)) {
-          if (lane < QBOXES) {
-            const int grp = wt / 32;
-            tma_store_2d(&tm_dkvg, sbase + kv_off + st * STAGE + lane * TILE_BOX + grp * 1024,
-                         lane * 64, c * T + j0 + 8 * grp);
-            bulk_commit();
-          }
-          return;
-        }
-        if (!real) return;
-        bf16* dst = dkvg + ((size_t)c * T + j0 + row) * DQ + part * 8;
-        const unsigned char* src = smem + kv_off + st * STAGE + row * 128;
-#pragma unroll
-        for (int u = 0; u < 18; ++u) {
-          const int ch = part + 4 * u;
-          *reinterpret_cast<uint4*>(dst + u * 32) = *reinterpret_cast<const uint4*>(
-              src + (ch >> 3) * TILE_BOX + (((ch & 7) ^ (row & 7)) << 4));
-        }
-      };
       // a tile's rows into stage st, to their swizzled places; `id` is this
       // thread's row's index
       auto gather = [&](int id, int st) {
@@ -974,11 +922,9 @@ sparse_mla_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       __syncthreads();
       K5B_MARK(3);
 
-      // Tile cur is in stage st. The dkvg rows of the tile before it (slot
-      // pend, or -1: none) wait in stage st ^ 1: warpgroup 1 starts their
-      // stores while 0 and 2 run the first products, and after barrier 3
-      // gathers the next tile into stage st ^ 1 once the stores have read it.
-      int st = 0, pend = -1;
+      // Tile cur is in stage st; after barrier 3 warpgroup 1 gathers the next
+      // tile into stage st ^ 1, which the tile before it has done with.
+      int st = 0;
       while (cur < nw) {
         const int j0 = (w0 + cur) * BT;
         const int nxt = next_tile(flags, cur, nw);
@@ -1065,23 +1011,18 @@ sparse_mla_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
           }
           fence_async_smem();
         } else {
-          if (pend >= 0) store_dkvg(st ^ 1, pend);
           K5B_MARK(4);
         }
         bar_sync(3, THREADS);
         K5B_MARK(5);
-        if (wg == 1) {
-          const int nid = row_index(nxt);
-          bulk_wait_read();
-          bar_sync(2, 128);  // every lane's stores have read the stage
-          if (nxt < nw) gather(nid, st ^ 1);
-        }
+        if (wg == 1 && nxt < nw) gather(row_index(nxt), st ^ 1);
 
         // ---- phase 2: warpgroup wg owns channels [192 wg, 192 wg + 192), the
         // kv boxes 3 wg .. 3 wg + 2: dq += ds kvg (kvg MN-major: its boxes a
         // box apart, +2048 bytes a k16 step), then the tile's dkvg^T box by
         // box = q^T ds (+ do^T bf16(p)), q^T and do^T MN-major (+2048 bytes a
-        // k16 step), ds and p MN-major (+1024 bytes)
+        // k16 step), ds and p MN-major (+1024 bytes), each stored as f32 from
+        // the accumulator
         {
           const uint64_t a_ds = smem_desc64(ds_s, 16, 512);
           const uint64_t b_kv = smem_desc(kvb + 3 * wg * TILE_BOX, TILE_BOX, 1024);
@@ -1112,38 +1053,37 @@ sparse_mla_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
             wgmma_commit();
             wgmma_wait_all();
             pin(acc);
-            // bf16 into box b of the consumed stage, [slot][channel]: of each
-            // x4, matrices (slots 8 i.., channels lo), (8 i.., hi), (8 i + 8..,
-            // lo), (8 i + 8.., hi) of this warp's 16 channels
+#ifndef K5B_NO_STORES  // a measurement variant (scripts/torch_sparse_mla_bench.py --variants): wrong dkv
+            // f32 from the accumulator to the real slots' rows: acc[4 i + jj]
+            // is channel lr of box b at slot 8 i + 2 (lane & 3) + jj, acc[4 i +
+            // 2 + jj] channel lr + 8 (a warp's store: 4 slots x 32 contiguous
+            // bytes); a sentinel slot's row is never read, so never written
+            float* dst = dkvg + ((size_t)c * T + j0) * DQ + b * 64 + lr;
 #pragma unroll
-            for (int i = 0; i < 4; i += 2) {
-              const int mi = lane >> 3, slot = 8 * (i + (mi >> 1)) + (lane & 7);
-              const int chunk = 2 * (wt / 32) + (mi & 1);
-              stmatrix_t4(kvb + b * TILE_BOX + slot * 128 + ((chunk ^ (slot & 7)) << 4),
-                          pack_bf16(acc[4 * i], acc[4 * i + 1]),
-                          pack_bf16(acc[4 * i + 2], acc[4 * i + 3]),
-                          pack_bf16(acc[4 * i + 4], acc[4 * i + 5]),
-                          pack_bf16(acc[4 * i + 6], acc[4 * i + 7]));
+            for (int i = 0; i < 4; ++i) {
+#pragma unroll
+              for (int jj = 0; jj < 2; ++jj) {
+                const int slot = 8 * i + 2 * (lane & 3) + jj;
+                if (idt[slot] >= 0) {
+                  dst[(size_t)slot * DQ] = acc[4 * i + jj];
+                  dst[(size_t)slot * DQ + 8] = acc[4 * i + 2 + jj];
+                }
+              }
             }
+#endif
           }
           K5B_MARK(7);
         }
 
-        // ---- the next tile's rows have landed, and this tile's dkvg rows are
-        // staged (fenced for the TMA stores that read them next tile)
+        // ---- the next tile's rows have landed
         cp_async_wait<0>();
         fence_async_smem();
         __syncthreads();
         K5B_MARK(8);
-        pend = j0;
         cur = nxt;
         st ^= 1;
         ++visited;
         K5B_MARK(9);
-      }
-      if (wg == 1 && pend >= 0) {  // the window's last tile
-        store_dkvg(st ^ 1, pend);
-        bulk_wait_read();
       }
     }
     if (tiles != nullptr && tid == 0) {  // [C, 2]: visited, candidates
@@ -1164,7 +1104,6 @@ sparse_mla_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     K5B_MARK(10);
     parity ^= 1;
   }
-  bulk_wait_all();  // the last TMA stores are complete before the block leaves
 }
 
 // ---------------------------------------------------------------------------
@@ -1177,19 +1116,28 @@ constexpr int reduce_threads() {
   return (W / 8 + 31) / 32 * 32;
 }
 
-__device__ __forceinline__ void add8(float* acc, const uint4& v) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+// the 8 values of a row at `p` (16 bytes of bf16, or 32 of f32) added to acc
+__device__ __forceinline__ void load8(float* v, const bf16* p) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float2 f = __bfloat1622float2(h[i]);
-    acc[2 * i] += f.x;
-    acc[2 * i + 1] += f.y;
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
   }
 }
 
-template <int W>
+__device__ __forceinline__ void load8(float* v, const float* p) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+template <int W, typename E>
 __global__ void __launch_bounds__(reduce_threads<W>())
-sparse_mla_dkv_reduce_kernel(const bf16* __restrict__ dkvg, const long long* __restrict__ order,
+sparse_mla_dkv_reduce_kernel(const E* __restrict__ dkvg, const long long* __restrict__ order,
                              const int* __restrict__ seg, float* __restrict__ dkv) {
   const int r = blockIdx.x;
   if (threadIdx.x >= W / 8) return;
@@ -1198,21 +1146,23 @@ sparse_mla_dkv_reduce_kernel(const bf16* __restrict__ dkvg, const long long* __r
   if (lo >= hi) return;
   float acc[8];
   float* drow = dkv + (size_t)r * W + col;
-  const float4 a0 = *reinterpret_cast<const float4*>(drow);
-  const float4 a1 = *reinterpret_cast<const float4*>(drow + 4);
-  acc[0] = a0.x; acc[1] = a0.y; acc[2] = a0.z; acc[3] = a0.w;
-  acc[4] = a1.x; acc[5] = a1.y; acc[6] = a1.z; acc[7] = a1.w;
+  load8(acc, drow);
   int s = lo;
   for (; s + 4 <= hi; s += 4) {  // four loads in flight, added in order
-    uint4 v[4];
+    float v[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) load8(v[i], dkvg + (size_t)order[s + i] * W + col);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      v[i] = *reinterpret_cast<const uint4*>(dkvg + (size_t)order[s + i] * W + col);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) add8(acc, v[i]);
+      for (int k = 0; k < 8; ++k) acc[k] += v[i][k];
   }
-  for (; s < hi; ++s)
-    add8(acc, *reinterpret_cast<const uint4*>(dkvg + (size_t)order[s] * W + col));
+  for (; s < hi; ++s) {
+    float v[8];
+    load8(v, dkvg + (size_t)order[s] * W + col);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc[k] += v[k];
+  }
   *reinterpret_cast<float4*>(drow) = make_float4(acc[0], acc[1], acc[2], acc[3]);
   *reinterpret_cast<float4*>(drow + 4) = make_float4(acc[4], acc[5], acc[6], acc[7]);
 }
@@ -1978,21 +1928,19 @@ int run_bwd(const void* q, const void* kv, const void* indices, const void* dout
   if (err != cudaSuccess) return (int)err;
   EncodeTiled encode = encoder();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
-  // the token's panels: [C * heads, 576] and [C * heads, 512] bf16 in boxes of 64 x 64;
-  // the dkvg rows [C * T, 576] in boxes of 64 x 8
-  CUtensorMap tq, tdo, tdkvg;
+  // the token's panels: [C * heads, 576] and [C * heads, 512] bf16 in boxes of 64 x 64
+  CUtensorMap tq, tdo;
   if (!matrix_map(&tq, encode, q, DQ, C * heads, 64, CU_TENSOR_MAP_L2_PROMOTION_L2_256B) ||
-      !matrix_map(&tdo, encode, dout, DV, C * heads, 64, CU_TENSOR_MAP_L2_PROMOTION_L2_256B) ||
-      !matrix_map(&tdkvg, encode, dkvg, DQ, C * T, 8, CU_TENSOR_MAP_L2_PROMOTION_NONE))
+      !matrix_map(&tdo, encode, dout, DV, C * heads, 64, CU_TENSOR_MAP_L2_PROMOTION_L2_256B))
     return (int)cudaErrorInvalidValue;
   int sms = 0;
   err = sm_count(&sms);
   if (err != cudaSuccess) return (int)err;
   sparse_mla_bwd_kernel<<<C < sms ? C : sms, k5b::THREADS, k5b::BYTES,
                           static_cast<cudaStream_t>(stream)>>>(
-      tq, tdo, tdkvg, static_cast<const bf16*>(kv), static_cast<const int*>(indices),
+      tq, tdo, static_cast<const bf16*>(kv), static_cast<const int*>(indices),
       static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<bf16*>(dq),
-      static_cast<bf16*>(dkvg), tiles, C, Sk, T, heads, h0, scale);
+      static_cast<float*>(dkvg), tiles, C, Sk, T, heads, h0, scale);
   return (int)cudaGetLastError();
 }
 
@@ -2159,25 +2107,27 @@ extern "C" int sparse_mla_bwd_blocks_per_sm() {
 extern "C" int sparse_mla_attributes(int kernel, int* attrs) {
   if (kernel == 0) return attributes(sparse_mla_fwd_kernel, attrs);
   if (kernel == 1) return attributes(sparse_mla_bwd_kernel, attrs);
-  if (kernel == 2) return attributes(sparse_mla_dkv_reduce_kernel<DQ>, attrs);
+  if (kernel == 2) return attributes(sparse_mla_dkv_reduce_kernel<DQ, float>, attrs);
   if (kernel == 3) return attributes(sparse_mla_fwd_wide_kernel, attrs);
   if (kernel == 4) return attributes(sparse_mla_bwd_wide_kernel, attrs);
-  if (kernel == 5) return attributes(sparse_mla_dkv_reduce_kernel<k5w::DQW>, attrs);
+  if (kernel == 5) return attributes(sparse_mla_dkv_reduce_kernel<k5w::DQW, bf16>, attrs);
   return (int)cudaErrorInvalidValue;
 }
-// dkv [Sk, Dq] f32 += over the slots order[seg[r] .. seg[r + 1]) of dkvg [slots, Dq] bf16
+// dkv [Sk, Dq] f32 += over the slots order[seg[r] .. seg[r + 1]) of dkvg [slots, Dq]:
+// f32 rows at Dq 576 (K5b's), bf16 rows at 1152 (the wide K5b's)
 extern "C" int sparse_mla_dkv_reduce(const void* dkvg, const void* order, const void* seg,
                                      void* dkv, int Sk, int dqw, void* stream) {
   if ((dqw != DQ && dqw != k5w::DQW) || Sk <= 0) return (int)cudaErrorInvalidValue;
-  const bf16* g = static_cast<const bf16*>(dkvg);
   const long long* o = static_cast<const long long*>(order);
   const int* sg = static_cast<const int*>(seg);
   float* d = static_cast<float*>(dkv);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dqw == DQ)
-    sparse_mla_dkv_reduce_kernel<DQ><<<Sk, reduce_threads<DQ>(), 0, st>>>(g, o, sg, d);
+    sparse_mla_dkv_reduce_kernel<DQ, float><<<Sk, reduce_threads<DQ>(), 0, st>>>(
+        static_cast<const float*>(dkvg), o, sg, d);
   else
-    sparse_mla_dkv_reduce_kernel<k5w::DQW><<<Sk, reduce_threads<k5w::DQW>(), 0, st>>>(g, o, sg, d);
+    sparse_mla_dkv_reduce_kernel<k5w::DQW, bf16><<<Sk, reduce_threads<k5w::DQW>(), 0, st>>>(
+        static_cast<const bf16*>(dkvg), o, sg, d);
   return (int)cudaGetLastError();
 }
 

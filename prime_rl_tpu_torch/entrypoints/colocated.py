@@ -104,7 +104,8 @@ def run_colocated(config: RLConfig):
     logger.info(f"colocated: serving on :{icfg.server.port}, engine pages="
                 f"{cache_cfg.num_pages}x{cache_cfg.page_size}, training starts now")
     try:
-        result = train(tcfg, weight_sink=ColocatedBroadcast(engine))
+        result = train(tcfg, weight_sink=ColocatedBroadcast(engine,
+                                                            host_masters=tcfg.offload_params))
     finally:
         stop.set()
         thread.join(timeout=30)

@@ -50,6 +50,9 @@ from prime_rl_tpu_torch.ops.moe import moe_mlp
 Params = dict
 # glm4_moe and the gated-MoE families, which share its block
 FAMILIES = ("glm4_moe", "minimax_m2", "afmoe", "laguna")
+# the ac.modes the JAX function names (prime_rl_tpu/models/glm4_moe.py:168-179) and the mode
+# each runs as; any other keeps every activation (``qwen3.parse_remat``)
+REMAT = {"full": "full", "save_attn": "save_attn", "selective": "selective"}
 _MOE_FIELDS = ("router", "router_correction_bias", "expert_gate", "expert_up", "expert_down",
                "shared_gate", "shared_up", "shared_down", "post_mlp_norm")
 
@@ -153,7 +156,10 @@ def forward(
     ``collect_aux``. The first ``first_k_dense_replace`` layers run a dense
     SwiGLU; ``routed_experts`` covers the MoE layers only and replays the
     sampler's selection there (rows of -1 keep the trainer's own routing).
-    ``remat`` as in ``qwen3.forward``; ``block_q``/``block_kv`` are accepted
+    ``remat``: the modes the JAX function names (``REMAT``: ``full``,
+    ``save_attn``, ``selective``, as in ``qwen3.forward``); any other mode,
+    and any ``mode/K``, keeps every activation, as there.
+    ``block_q``/``block_kv`` are accepted
     and unused. Windowed layers take their own rope base where the spec has
     one (``rope_theta_local``, Laguna)."""
     if spec.family not in FAMILIES:
@@ -161,7 +167,7 @@ def forward(
                          f"{', '.join(FAMILIES)}")
     check_forward_args(spec, mesh, lora, quantized_compute)
     nl, k_dense = spec.num_layers, spec.first_k_dense_replace
-    base_remat, save_stride = parse_remat(remat, nl)
+    base_remat, save_stride = parse_remat(remat, nl, REMAT)
     inv_freq, rope_scaling = rope_setup(spec, device=input_ids.device)
     h = params["embed"].to(compute_dtype)[input_ids]
     windows = layer_windows_list(spec)

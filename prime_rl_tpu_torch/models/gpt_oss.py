@@ -37,6 +37,10 @@ from prime_rl_tpu_torch.ops.moe import moe_mlp
 
 Params = dict
 FAMILY = "gpt_oss"
+# the ac.modes the JAX function names (prime_rl_tpu/models/gpt_oss.py:114-130) and the mode
+# each runs as; any other keeps every activation (``qwen3.parse_remat``)
+REMAT = {"full": "full", "save_attn": "save_attn", "offload_attn": "offload_attn",
+         "selective": "selective"}
 _MOE_FIELDS = ("router", "router_bias", "expert_gate", "expert_up", "expert_down",
                "expert_gate_bias", "expert_up_bias", "expert_down_bias")
 
@@ -129,8 +133,10 @@ def forward(
 
     Each layer's window (``layer_windows_list``: 128 on even layers, 0 on odd
     ones for gpt-oss) and sinks go to the attention, so on the card K1/K2 run
-    banded with the sink. ``remat`` as in ``qwen3.forward`` (``none``,
-    ``full``, ``save_attn[/K]``; the offload and selective modes raise).
+    banded with the sink. ``remat``: the modes the JAX function names
+    (``REMAT``: ``full``, ``save_attn``, ``offload_attn``, ``selective``, as
+    in ``qwen3.forward``); any other mode, and any ``mode/K``, keeps every
+    activation, as there.
     ``routed_experts`` replays the sampler's expert selection.
     ``block_q``/``block_kv`` are accepted and unused."""
     if spec.family != FAMILY:
@@ -141,7 +147,7 @@ def forward(
         raise ValueError(f"quantized_compute={quantized_compute!r} is only wired for the "
                          f"qwen3/llama dense families, not {spec.family!r}")
     nl = spec.num_layers
-    base_remat, save_stride = parse_remat(remat, nl)
+    base_remat, save_stride = parse_remat(remat, nl, REMAT)
     inv_freq, rope_scaling = rope_setup(spec, device=input_ids.device)
     h = params["embed"].to(compute_dtype)[input_ids]
     windows = layer_windows_list(spec)
@@ -164,10 +170,11 @@ def forward(
     per_layer = {k: v.unbind(0) for k, v in params["layers"].items()}
     lora_layers = layer_slices(lora, nl)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    chain: list = []
     for i in range(nl):
         lp = {k: v[i] for k, v in per_layer.items()}
         h, lb = run_layer(block, h, lp, windows[i], layer_remat(base_remat, save_stride, i),
-                          None if forced is None else forced[i], lora_layers[i])
+                          None if forced is None else forced[i], lora_layers[i], chain=chain)
         aux = aux + lb
     h = rms_norm(h, params["final_norm"], spec.rms_eps)
     return (h, aux) if collect_aux else h

@@ -29,7 +29,9 @@ from prime_rl_tpu_torch.models import glm4_moe, qwen3
 from prime_rl_tpu_torch.models.base import ModelSpec
 from prime_rl_tpu_torch.models.glm4_moe import glm_moe_block
 from prime_rl_tpu_torch.models.lora import apply_lora_proj, layer_slices
+from prime_rl_tpu_torch.models.qwen3 import parse_remat
 from prime_rl_tpu_torch.ops import sparse_mla, sparse_mla_kernel
+from prime_rl_tpu_torch.ops.remat import DotsKept
 from prime_rl_tpu_torch.ops.layers import (
     apply_rope,
     layer_norm,
@@ -40,6 +42,9 @@ from prime_rl_tpu_torch.ops.layers import (
 
 Params = dict
 FAMILIES = ("deepseek_v3", "glm_moe_dsa")
+# the ac.modes the JAX function names (prime_rl_tpu/models/mla_moe.py:308-315) and the mode
+# each runs as; any other keeps every activation (``qwen3.parse_remat``)
+REMAT = {"full": "full", "selective": "selective"}
 
 
 def _qk_head_dim(spec: ModelSpec) -> int:
@@ -263,10 +268,12 @@ def forward(
     """Token ids -> final hidden states [B, L, D] (pre-LM-head, normed), or
     (hidden, summed load-balance aux) with ``collect_aux``.
 
-    ``remat``: ``full`` recomputes each layer in the backward through
-    ``torch.utils.checkpoint`` (so K5a runs twice a layer); ``selective``
-    raises, as in the Qwen3 port; any other mode keeps every activation, as in
-    the JAX function (``save_attn`` has no effect on these families).
+    ``remat``: the modes the JAX function names (``REMAT``): ``full``
+    recomputes each layer in the backward through ``torch.utils.checkpoint``
+    (so K5a runs twice a layer); ``selective`` keeps the products with no
+    batch dims and recomputes the rest, K5a among it (``ops/remat.py``); any
+    other mode (``save_attn`` among them) and any ``mode/K`` keeps every
+    activation, as in the JAX function.
     ``routed_experts`` replays the sampler's expert selection in the MoE
     layers. ``block_q``/``block_kv`` are accepted and unused."""
     if spec.family not in FAMILIES:
@@ -276,10 +283,8 @@ def forward(
     if quantized_compute:
         raise ValueError(f"quantized_compute={quantized_compute!r} is only wired for the "
                          f"qwen3/llama dense families, not {spec.family!r}")
-    base_remat = remat.partition("/")[0]
-    if base_remat == "selective":
-        raise NotImplementedError(f"ac.mode {remat!r} waits for the remat-policy slice")
-    use_ckpt = base_remat == "full" and torch.is_grad_enabled()
+    mode = parse_remat(remat, spec.num_layers, REMAT)[0]
+    use_ckpt = mode != "none" and torch.is_grad_enabled()
 
     inv_freq = rope_frequencies(spec.qk_rope_head_dim, spec.rope_theta, device=input_ids.device)
     h = params["embed"].to(compute_dtype)[input_ids]
@@ -307,9 +312,10 @@ def forward(
                              lora_scale=lora_scale)
 
     def run(fn, *args):
-        if use_ckpt:
-            return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
-        return fn(*args)
+        if not use_ckpt:
+            return fn(*args)
+        kw = {"context_fn": DotsKept().contexts} if mode == "selective" else {}
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
 
     forced = None
     if routed_experts is not None:

@@ -16,9 +16,8 @@ Params, in the JAX package's layout: ``{"embed", "final_norm", "lm_head"
 stack a layer kind (only the kinds the pattern holds); a layer's index in its
 stack is its rank among the layers of its kind. Router replay
 (``routed_experts`` [B, L, NL_E, K]) holds a row a LatentMoE layer, which the
-JAX forward does not take. Not ported yet, and raising: LoRA (ROADMAP.md
-Queue 1 item 8), the offload and selective remat modes (item 10) and a mesh
-(item 11).
+JAX forward does not take. Not ported yet, and raising: a mesh (ROADMAP.md
+Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -29,7 +28,7 @@ import torch
 from prime_rl_tpu_torch.models.base import ModelSpec
 from prime_rl_tpu_torch.models.lora import apply_lora_proj, layer_slices
 from prime_rl_tpu_torch.models import qwen3
-from prime_rl_tpu_torch.models.qwen3 import _WAITING_REMAT, layer_remat, parse_remat, run_layer
+from prime_rl_tpu_torch.models.qwen3 import layer_remat, parse_remat, run_layer
 from prime_rl_tpu_torch.models.qwen3 import trunc_normal
 from prime_rl_tpu_torch.models.qwen3_moe import check_forward_args, forced_by_layer
 from prime_rl_tpu_torch.ops.attention import attention
@@ -39,6 +38,10 @@ from prime_rl_tpu_torch.ops.moe import moe_mlp
 
 Params = dict
 FAMILY = "nemotron_h"
+# the ac.modes the JAX function names (prime_rl_tpu/models/nemotron_h.py:220-235) and the mode
+# each runs as; any other keeps every activation (``qwen3.parse_remat``)
+REMAT = {"full": "full", "save_attn": "save_attn", "offload_attn": "offload_attn",
+         "selective": "selective"}
 BLOCK_CHARS = "M*-E"
 STACKS = {"M": "mamba_layers", "*": "attn_layers", "-": "mlp_layers", "E": "moe_layers"}
 
@@ -239,19 +242,19 @@ def forward(
 ):
     """Token ids -> final hidden states [B, L, D] (pre-LM-head, normed), or
     (hidden, load-balance aux summed over the LatentMoE layers) with
-    ``collect_aux``. ``remat``: ``none``, ``full`` (each layer recomputed in
-    the backward) or ``save_attn[/K]`` (the attention layers keep their K1
-    outputs; the other kinds recompute in full, as JAX's policy keeps only
-    the attention's names)."""
+    ``collect_aux``. ``remat``: the modes the JAX function names (``REMAT``:
+    ``full``, each layer recomputed in the backward; ``save_attn`` and
+    ``offload_attn``, the attention layers' K1 outputs kept on the device or
+    in pinned host memory, the other kinds recomputed in full, as JAX's
+    policy names only the attention's outputs; ``selective``, the products
+    with no batch dims kept); any other mode, and any ``mode/K``, keeps
+    every activation, as there."""
     del position_ids
     if spec.family != FAMILY:
         raise ValueError(f"nemotron_h.forward: family {spec.family!r} is not nemotron_h")
     check_forward_args(spec, mesh, lora, quantized_compute)
-    if remat.partition("/")[0] in _WAITING_REMAT:
-        raise NotImplementedError(f"ac.mode {remat!r} waits for ROADMAP.md Queue 1 item 10; "
-                                  "use none, full or save_attn[/K]")
     layers = layer_params(params, spec)
-    base_remat, save_stride = parse_remat(remat, spec.num_layers)
+    base_remat, save_stride = parse_remat(remat, spec.num_layers, REMAT)
     h = params["embed"].to(compute_dtype)[input_ids]
 
     # LoRA: the adapters index full depth; the "*" layers take them on their
@@ -271,13 +274,14 @@ def forward(
     lora_layers = layer_slices(lora, spec.num_layers)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     e_rank = 0
+    chain: list = []
     for i, (kind, lp) in enumerate(layers):
         f = None
         if kind == "E" and forced is not None:
             f = forced[e_rank]
         e_rank += kind == "E"
         h, lb = run_layer(block, h, lp, 0, layer_remat(base_remat, save_stride, i), kind, f,
-                          lora_layers[i])
+                          lora_layers[i], chain=chain)
         if lb is not None:
             aux = aux + lb
     h = rms_norm(h, params["final_norm"], spec.rms_eps)

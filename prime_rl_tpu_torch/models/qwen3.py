@@ -20,6 +20,7 @@ unstacks them per layer (sampler/model.unstack_params).
 from __future__ import annotations
 
 import dataclasses
+import weakref
 
 import numpy as np
 import torch
@@ -243,10 +244,9 @@ def post_mlp(out: torch.Tensor, lp: dict, spec: ModelSpec) -> torch.Tensor:
     return rms_norm(out, lp["post_mlp_norm"], spec.rms_eps) if spec.sandwich_norm else out
 
 
-_WAITING_REMAT = {
-    "offload_attn": "the offload slice", "offload_dots": "the offload slice",
-    "selective": "the remat-policy slice",
-}
+# every ac.mode a JAX family function names (``none`` keeps every activation);
+# the dense family takes them all, and the stride form ``mode/K``
+REMAT_MODES = ("none", "full", "save_attn", "offload_attn", "offload_dots", "selective")
 
 
 def forward(
@@ -270,17 +270,20 @@ def forward(
 
     Layer weights with two or more dims are cast to ``compute_dtype`` per
     layer; norm weights stay as stored. ``remat`` maps onto
-    ``torch.utils.checkpoint`` per layer: ``none`` keeps every activation,
-    ``full`` recomputes the whole layer in the backward, ``save_attn`` (and
-    ``save_attn/K``: every K-th layer, the others ``full``) recomputes
-    everything except the attention kernel, whose outputs are kept so K1 does
-    not run again. ``block_q``/``block_kv`` are accepted and unused: the CUDA
-    kernels choose their own tiles. ``lora`` (``models/lora.py``'s adapter
-    tree, stacks of ``[NL, ...]``) adds scale·(x·A)·B to every targeted
-    projection of each layer, ``lora_scale`` the scale; its gradients flow
-    through the same layers and remat modes. The arguments that belong to later slices
-    (``mesh``, ``quantized_compute``, the offload and selective
-    remat modes) raise."""
+    ``torch.utils.checkpoint`` per layer (``run_layer``): ``none`` keeps
+    every activation, ``full`` recomputes the whole layer in the backward,
+    ``save_attn`` recomputes everything except the attention kernel, whose
+    outputs are kept so K1 does not run again, ``offload_attn`` keeps them in
+    pinned host memory instead, ``selective`` keeps the products with no
+    batch dims and recomputes the rest (K1 among it), ``offload_dots`` keeps
+    those products in pinned host memory; ``mode/K`` applies the mode to
+    every K-th layer and ``full`` to the others. ``block_q``/``block_kv`` are
+    accepted and unused: the CUDA kernels choose their own tiles. ``lora``
+    (``models/lora.py``'s adapter tree, stacks of ``[NL, ...]``) adds
+    scale·(x·A)·B to every targeted projection of each layer, ``lora_scale``
+    the scale; its gradients flow through the same layers and remat modes.
+    The arguments that belong to later slices (``mesh``,
+    ``quantized_compute``) raise."""
     if spec.family not in ("qwen3", "llama"):
         raise NotImplementedError(f"model family {spec.family!r} is not ported yet")
     if mesh is not None:
@@ -304,47 +307,64 @@ def forward(
     # (indexing layer by layer would build a full-size zero stack per layer)
     per_layer = {k: v.unbind(0) for k, v in params["layers"].items()}
     lora_layers = layer_slices(lora, nl)
+    chain: list = []
     for i in range(nl):
         lp = {k: v[i] for k, v in per_layer.items()}
         h = run_layer(block, h, lp, windows[i], layer_remat(base_remat, save_stride, i),
-                      lora_layers[i])
+                      lora_layers[i], chain=chain)
     return rms_norm(h, params["final_norm"], spec.rms_eps)
 
 
-def parse_remat(remat: str, nl: int) -> tuple[str, int]:
-    """(base mode, save stride) of an ``ac.mode``; the modes of later slices
-    raise."""
+def parse_remat(remat: str, nl: int, modes: dict[str, str] | None = None
+                ) -> tuple[str, int]:
+    """(base mode, save stride) of an ``ac.mode`` for a family whose JAX
+    function names ``modes`` (named mode -> the mode that runs; None: the
+    dense family, which takes every mode and alone the stride form). As
+    in the JAX functions, a mode the family does not name, or a stride where
+    it compares the whole string, runs as ``none``; a name no family knows
+    raises."""
     base_remat, _, k_str = remat.partition("/")
     save_stride = int(k_str) if k_str else 1
-    if base_remat in _WAITING_REMAT:
-        raise NotImplementedError(
-            f"ac.mode {remat!r} waits for {_WAITING_REMAT[base_remat]}; "
-            "use none, full or save_attn[/K]")
-    if base_remat not in ("none", "full", "save_attn"):
+    if base_remat not in REMAT_MODES:
         raise ValueError(f"unknown ac.mode {remat!r}")
+    if modes is not None:
+        return (modes.get(base_remat, "none") if not k_str else "none"), 1
     if save_stride > 1 and nl % save_stride:
         raise ValueError(f"ac.mode stride {save_stride} must divide the layer count {nl}")
     return base_remat, save_stride
 
 
 def layer_remat(base_remat: str, save_stride: int, i: int) -> str:
-    """Layer ``i``'s mode: ``save_attn/K`` keeps every K-th layer's attention
-    outputs and recomputes the others in full."""
+    """Layer ``i``'s mode: ``mode/K`` applies the mode to every K-th layer and
+    recomputes the others in full."""
     return "full" if save_stride > 1 and i % save_stride else base_remat
 
 
-def run_layer(block, h, lp, window: int, mode: str, *extra):
+def run_layer(block, h, lp, window: int, mode: str, *extra, chain: list | None = None):
     """``block(h, lp, saved, window, *extra)`` under ``mode``: ``none`` (or no
     autograd) keeps every activation, ``full`` recomputes the layer in the
     backward, ``save_attn`` recomputes all but the attention kernel, whose
-    outputs an ``AttnSaved`` slot keeps."""
+    outputs an ``AttnSaved`` slot keeps (``offload_attn``: in pinned host
+    memory, the slot linked to the one made before it in the same forward,
+    whose layer's backward comes next: ``chain``, one list a forward, holds
+    the newest), ``selective`` and ``offload_dots`` keep the products with
+    no batch dims (``ops/remat.py``)."""
     from prime_rl_tpu_torch.ops.flash_attention import AttnSaved
+    from prime_rl_tpu_torch.ops.remat import DotsKept
 
     if mode == "none" or not torch.is_grad_enabled():
         return block(h, lp, None, window, *extra)
-    saved = AttnSaved() if mode == "save_attn" else None
+    saved, kw = None, {}
+    if mode == "save_attn":
+        saved = AttnSaved()
+    elif mode == "offload_attn":
+        saved = AttnSaved(offload=True, prev=weakref.ref(chain[-1]) if chain else None)
+        if chain is not None:
+            chain[:] = [saved]
+    elif mode in ("selective", "offload_dots"):
+        kw["context_fn"] = DotsKept(offload=mode == "offload_dots").contexts
     return checkpoint(block, h, lp, saved, window, *extra, use_reentrant=False,
-                      preserve_rng_state=False)
+                      preserve_rng_state=False, **kw)
 
 
 def layer_windows_list(spec: ModelSpec) -> list[int]:

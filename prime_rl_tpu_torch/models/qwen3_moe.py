@@ -35,6 +35,9 @@ from prime_rl_tpu_torch.ops.moe import moe_mlp
 
 Params = dict
 FAMILY = "qwen3_moe"
+# the ac.modes the JAX function names (prime_rl_tpu/models/qwen3_moe.py:102-107) and the mode
+# each runs as; any other keeps every activation (``qwen3.parse_remat``)
+REMAT = {"full": "full", "selective": "selective"}
 _MOE_FIELDS = ("router", "expert_gate", "expert_up", "expert_down")
 _EXPERT_KEYS = (("expert_gate", "gate_proj"), ("expert_up", "up_proj"),
                 ("expert_down", "down_proj"))
@@ -133,8 +136,11 @@ def forward(
     """Token ids -> final hidden states [B, L, D] (pre-LM-head, normed), or
     (hidden, load-balance aux summed over the layers) with ``collect_aux``.
     ``routed_experts`` replays the sampler's expert selection layer by layer;
-    rows of -1 keep the trainer's own routing. ``remat`` as in
-    ``qwen3.forward``; ``block_q``/``block_kv`` are accepted and unused."""
+    rows of -1 keep the trainer's own routing. ``remat``: the modes the JAX
+    function names (``REMAT``: ``full``, ``selective``, as in
+    ``qwen3.forward``); any other mode (``save_attn`` among them) and any
+    ``mode/K`` keeps every activation, as there. ``block_q``/``block_kv``
+    are accepted and unused."""
     if spec.family != FAMILY:
         raise ValueError(f"qwen3_moe.forward: family {spec.family!r} is not qwen3_moe")
     check_forward_args(spec, mesh, lora, quantized_compute)
@@ -142,7 +148,7 @@ def forward(
         raise NotImplementedError("qwen3_moe has no sandwich norms or attention gates (the "
                                   "gated-MoE families run glm4_moe's block)")
     nl = spec.num_layers
-    base_remat, save_stride = parse_remat(remat, nl)
+    base_remat, save_stride = parse_remat(remat, nl, REMAT)
     inv_freq, rope_scaling = rope_setup(spec, device=input_ids.device)
     h = params["embed"].to(compute_dtype)[input_ids]
 

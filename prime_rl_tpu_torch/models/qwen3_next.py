@@ -49,6 +49,10 @@ from prime_rl_tpu_torch.ops.moe import moe_mlp
 
 Params = dict
 FAMILY = "qwen3_next"
+# the ac.modes the JAX function names (prime_rl_tpu/models/qwen3_next.py:270-281) and the mode
+# each runs as; any other keeps every activation (``qwen3.parse_remat``)
+REMAT = {"full": "full", "save_attn": "save_attn", "offload_attn": "save_attn",
+         "selective": "selective"}
 FAMILIES = (FAMILY, "qwen3_next_vl")
 STACKS = (("L", "lin_layers"), ("A", "attn_layers"))
 
@@ -253,9 +257,12 @@ def forward(
     """Token ids -> final hidden states [B, L, D] (pre-LM-head, normed), or
     (hidden, load-balance aux summed over the layers) with ``collect_aux``.
     Every layer is MoE, so ``routed_experts`` holds a row a layer, L layers
-    included. ``remat`` as in ``qwen3.forward`` (``save_attn`` keeps the
-    attention layers' K1 outputs; a GDN layer has none to keep); it applies
-    to the tower's blocks too. ``gdn_precision`` is
+    included. ``remat``: the modes the JAX function names (``REMAT``:
+    ``full``, ``save_attn``, ``offload_attn``, which keeps the K1 outputs on
+    the device as ``save_attn`` does, and ``selective``, as in
+    ``qwen3.forward``; a GDN layer has no K1 outputs to keep); any other
+    mode, and any ``mode/K``, keeps every activation, as there. The tower's
+    blocks recompute under any mode but ``none``. ``gdn_precision`` is
     ``ModelConfig.gdn_mxu_precision``. ``mm`` (``qwen3_next_vl`` only): the
     vision inputs of ``qwen3_vl.forward``; the GDN layers keep reading
     ``segment_ids``, the text rows' own."""
@@ -267,7 +274,7 @@ def forward(
     check_forward_args(spec, mesh, lora, quantized_compute)
     nl = spec.num_layers
     layers = layer_params(params, spec)
-    base_remat, save_stride = parse_remat(remat, nl)
+    base_remat, save_stride = parse_remat(remat, nl, REMAT)
     inv_freq, rope_scaling = rope_setup(spec, device=input_ids.device)
     h = params["embed"].to(compute_dtype)[input_ids]
     ds_feats = slot = mask = None

@@ -44,6 +44,9 @@ from prime_rl_tpu_torch.ops.layers import rms_norm
 
 Params = dict
 FAMILIES = ("qwen3_vl", "qwen3_vl_moe")
+# the ac.modes the JAX function names (prime_rl_tpu/models/qwen3_vl.py:150-155) and the mode
+# each runs as; any other keeps every activation (``qwen3.parse_remat``)
+REMAT = {"full": "full", "selective": "selective"}
 # the tower's inputs in a ``mm`` dict
 MM_KEYS = ("patches", "vis_seg_ids", "vis_pos_idx", "vis_pos_w", "vis_rope_coords", "img_slot",
            "mm_position_ids")
@@ -130,13 +133,16 @@ def forward(
     patches [P, patch_dim], vis_seg_ids [P], vis_pos_idx [4, P], vis_pos_w
     [4, P], vis_rope_coords [P, 2], img_slot [B, L] (the row of the merged
     buffer a vision token takes, -1 elsewhere), mm_position_ids [3, B, L].
-    ``remat`` applies to the trunk's layers as in ``qwen3.forward`` and to
-    the tower's blocks; ``lora`` and ``lora_scale`` go through the trunk."""
+    ``remat``: the modes the JAX function names for the trunk's layers
+    (``REMAT``: ``full``, ``selective``, as in ``qwen3.forward``); any other
+    mode (``save_attn`` among them) and any ``mode/K`` keeps every
+    activation, as there. The tower's blocks recompute under any mode but
+    ``none``. ``lora`` and ``lora_scale`` go through the trunk."""
     if spec.family not in FAMILIES:
         raise ValueError(f"qwen3_vl.forward: family {spec.family!r} is not a Qwen3-VL family")
     qwen3_moe.check_forward_args(spec, mesh, lora, quantized_compute)
     nl = spec.num_layers
-    base_remat, save_stride = parse_remat(remat, nl)
+    base_remat, save_stride = parse_remat(remat, nl, REMAT)
     inv_freq, rope_scaling = rope_setup(spec, device=input_ids.device)
     h = params["embed"].to(compute_dtype)[input_ids]
 

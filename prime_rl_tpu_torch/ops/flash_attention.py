@@ -521,21 +521,49 @@ def flash_attention_backward(q, k, v, seg_q, seg_kv, out, lse, do, dlse, causal:
 class AttnSaved:
     """Kernel outputs of one attention call, kept across a recomputation: a
     checkpointed layer that runs again for its backward hands them back
-    instead of launching K1 a second time (the ``save_attn`` remat mode)."""
+    instead of launching K1 a second time (the ``save_attn`` remat mode).
+    With ``offload`` (the ``offload_attn`` mode) they wait in the host tier
+    (``utils/offload.stash``: pinned host memory, copied on a side stream)
+    and come back for the recompute; ``prev`` (a weak reference), the slot of
+    the layer whose backward runs next, then has its copy back started on
+    another side stream, so that it lands under this layer's backward."""
 
-    __slots__ = ("out", "lse")
+    __slots__ = ("out", "lse", "offload", "prev", "__weakref__")
 
-    def __init__(self):
+    def __init__(self, offload: bool = False, prev=None):
         self.out = None
         self.lse = None
+        self.offload = offload
+        self.prev = prev
+
+    def keep(self, out: torch.Tensor, lse: torch.Tensor) -> None:
+        from prime_rl_tpu_torch.utils.offload import stash
+
+        if self.offload:
+            self.out, self.lse = stash(out), stash(lse)
+        else:
+            self.out, self.lse = out.detach(), lse.detach()
+
+    def take(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The kept (out, lse): fresh views, or the host copies brought back."""
+        if not self.offload:
+            # fresh views: the Function ties the tensors it returns to its own node
+            return self.out.detach(), self.lse.detach()
+        out, lse = self.out.fetch(), self.lse.fetch()
+        self.out = self.lse = None  # the host copies are done with
+        prev = None if self.prev is None else self.prev()
+        if prev is not None and prev.out is not None:
+            prev.out.prefetch()
+            prev.lse.prefetch()
+        return out, lse
 
 
 class _Flash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, sinks, seg_q, seg_kv, causal, scale, window, saved):
         if saved is not None and saved.out is not None:
-            # fresh views: the Function ties the tensors it returns to its own node
-            out, lse = saved.out.detach(), saved.lse.detach()
+            out, lse = saved.take()
+            saved = None  # kept already
         elif q.is_cuda:
             sinks32 = None if sinks is None else sinks.float().contiguous()
             out, lse = _fwd_cuda(q, k, v, seg_q, seg_kv, causal, scale, window, sinks32)
@@ -543,7 +571,7 @@ class _Flash(torch.autograd.Function):
             out, lse = flash_attention_reference(q, k, v, seg_q, seg_kv, causal, scale, window,
                                                  sinks)
         if saved is not None:
-            saved.out, saved.lse = out.detach(), lse.detach()
+            saved.keep(out, lse)
         ctx.save_for_backward(q, k, v, sinks, seg_q, seg_kv, out, lse)
         ctx.causal, ctx.scale, ctx.window = causal, scale, window
         ctx.set_materialize_grads(False)

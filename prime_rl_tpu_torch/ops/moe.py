@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from prime_rl_tpu_torch.ops.layers import clamped_glu
+from prime_rl_tpu_torch.ops.remat import batched_products
 
 
 class RouterOutput(NamedTuple):
@@ -142,10 +143,11 @@ def _grouped_product(xs: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tenso
         return torch._grouped_mm(xs, w, offs=offs)
     per_expert = w.unbind(0)  # one stacked gradient, not a zero stack per expert
     parts, start = [], 0
-    for e, end in enumerate(bounds):
-        if end > start:
-            parts.append(torch.mm(xs[start:end], per_expert[e]))
-        start = end
+    with batched_products():  # slices of one product with an expert batch dim
+        for e, end in enumerate(bounds):
+            if end > start:
+                parts.append(torch.mm(xs[start:end], per_expert[e]))
+            start = end
     if not parts:
         return xs.new_zeros((0, w.shape[2]))
     return torch.cat(parts, dim=0)

@@ -23,9 +23,12 @@ to kv's dtype before ``p v``, ``ds`` to kv's dtype before both of its
 products (``ds`` is exactly 0 for a token with one valid slot, whose softmax
 is 1 on it: the f32 noise of ``dp - delta`` broke bf16 ties of its dkv row
 differently in the kernel and the plain version), ``p`` to do's dtype for
-dv, float32 sums, the per-slot dkv rows to kv's dtype once. Unlike the JAX
-package, which adds those rows up in bfloat16, dkv is summed in float32 and
-rounded once.
+dv, float32 sums. The per-slot dkv rows stay float32 (the wide forms round
+them to kv's dtype once): rounded, the kernel's sum over 64 heads and the
+plain version's, in other orders, could land one bf16 step apart, which
+large rows that cancel in dkv turned into a miss of the tolerance. Unlike
+the JAX package, which rounds those rows and adds them up in bfloat16, dkv
+is summed in float32 and rounded once.
 
 On the card the kernels are built for bfloat16 tensors with ``Dq = 576,
 v_dim = 512`` (latent 512 + rope 64, the MLA widths of the glm_moe_dsa
@@ -43,7 +46,7 @@ tiles of ``WIDE_FWD_TILE`` slots); the wide K5b a ``wgmma`` kernel that
 takes a chunk's heads in groups of ``WIDE_HEADS`` = 16 (the last one of
 8 where ``H % 16 == 8``), one launch a group in ascending order, each
 followed by the dkv reduction, with tiles of ``WIDE_BWD_TILE`` slots: each
-slot's dkvg row summed over a group's heads and rounded once, the groups'
+slot's dkvg row summed over a group's heads and rounded once to bf16, the groups'
 rows summed in f32 (``sparse_mla_grouped_reference`` mirrors it). Wider widths raise
 (``check_widths``: the wide forms' shared memory and registers end there);
 the TPU version's quiet fall-back to the XLA form is not carried over. A
@@ -51,8 +54,8 @@ the TPU version's quiet fall-back to the XLA form is not carried over. A
 heads: the wrappers pad q (and do) with zero heads to ``Hp = ceil(H / 64) *
 64`` and launch once a group, the padded heads' rows dropped
 (``sparse_mla_grouped_reference`` is the plain mirror of that decomposition). The backward runs over chunks of queries: K5b writes
-each chunk's per-slot dkv rows into a ``[chunk, topk, Dq]`` buffer of about
-1.2 GB, and ``sparse_mla_dkv_reduce`` gives every kv row one block that sums
+each chunk's per-slot dkv rows into a ``[chunk, topk, Dq]`` buffer of
+1.2 GB (f32 rows; bf16 in the wide form, at twice the width), and ``sparse_mla_dkv_reduce`` gives every kv row one block that sums
 the rows of the slots that selected it, in the order of a stable sort of the
 chunk's indices: no atomics, so two runs give the same bits. Each chunk's
 groups run in ascending order, each launch followed by its reduction into
@@ -85,7 +88,9 @@ HEADS, DQ, DV = 64, 576, 512  # heads a kernel block (a group) and the widths co
 DQ_WIDE, DV_WIDE = 1152, 1024  # the wide forms' widths
 WIDE_FWD_TILE, WIDE_BWD_TILE = 16, 64  # slots a tile of the wide K5a and K5b
 WIDE_HEADS = 16  # heads a launch of the wide K5b (its group; the kernel's k5bw::HG)
-BWD_SLOTS = 1 << 20  # (query, slot) pairs per 576-wide backward launch: a 1.2 GB dkvg buffer
+# (query, slot) pairs per backward launch: a 1.2 GB dkvg buffer of rows of 2304
+# bytes (576 f32 values in K5b's, 1152 bf16 in the wide K5b's)
+BWD_SLOTS = 1 << 19
 BWD_TILE = 32  # slots a K5b tile
 FWD_TILE = 64  # slots a K5a tile (the kernel's k5a::BT)
 
@@ -113,12 +118,11 @@ def _kernels():
     return _fns
 
 
-def bwd_chunk(S: int, T: int, width: int = DQ) -> int:
-    """Queries per backward launch: as many as keep the dkvg buffer of
-    ``width``-wide rows within ``BWD_SLOTS`` 576-wide rows' bytes, a multiple
-    of 8, so that every chunk's slice of the indices starts on a 32-byte
-    boundary."""
-    return max(1, min(S, max(8, BWD_SLOTS * DQ // width // max(T, 1) // 8 * 8)))
+def bwd_chunk(S: int, T: int) -> int:
+    """Queries per backward launch: as many as keep the dkvg buffer within
+    ``BWD_SLOTS`` rows, a multiple of 8, so that every chunk's slice of the
+    indices starts on a 32-byte boundary."""
+    return max(1, min(S, max(8, BWD_SLOTS // max(T, 1) // 8 * 8)))
 
 
 def bwd_launches(S: int, T: int, H: int = HEADS) -> int:
@@ -161,17 +165,21 @@ def sparse_mla_attention_reference(q, kv, indices, sm_scale: float, v_dim: int,
 def sparse_mla_backward_reference(q, kv, indices, out, lse, do, sm_scale: float, v_dim: int,
                                   chunk: int = 128):
     """Plain version of K5b and the dkv reduction: (dq [S, H, Dq], dkv
-    [Sk, Dq]) from the saved lse, rounding where the kernels round."""
+    [Sk, Dq]) from the saved lse, rounding where the kernels round (the
+    per-slot dkv rows only at the wide widths: ``_backward_into``)."""
     dkv = torch.zeros(kv.shape, dtype=torch.float32, device=kv.device)
     delta = (out.float() * do.float()).sum(dim=-1)  # [S, H]
-    dq = _backward_into(q, kv, indices, lse, delta, do, dkv, sm_scale, v_dim, chunk)
+    wide = built_widths(q.shape[-1], v_dim)[0] == DQ_WIDE
+    dq = _backward_into(q, kv, indices, lse, delta, do, dkv, sm_scale, v_dim, chunk,
+                        round_rows=wide)
     return dq, dkv.to(kv.dtype)
 
 
 def _backward_into(q, kv, indices, lse, delta, do, dkv, sm_scale: float, v_dim: int,
-                   chunk: int = 128):
-    """dq [S, H, Dq] of the plain backward; the per-slot dkv rows (rounded to
-    kv's dtype, as K5b writes them) are added into the f32 ``dkv``."""
+                   chunk: int = 128, round_rows: bool = False):
+    """dq [S, H, Dq] of the plain backward; the per-slot dkv rows are added
+    into the f32 ``dkv`` as f32, as K5b writes them, or with ``round_rows``
+    rounded to kv's dtype first, as the wide K5b writes them."""
     Sk = kv.shape[0]
     dqs = []
     for c0 in range(0, q.shape[0], chunk):
@@ -192,7 +200,8 @@ def _backward_into(q, kv, indices, lse, delta, do, dkv, sm_scale: float, v_dim: 
         dqs.append(torch.einsum("cht,ctd->chd", ds, kvg).to(q.dtype))
         dkvg = torch.einsum("cht,chd->ctd", ds, qc)
         dkvg[..., :v_dim] += torch.einsum("cht,chd->ctd", p.to(do.dtype).float(), doc.float())
-        dkvg = dkvg.to(kv.dtype).float()
+        if round_rows:
+            dkvg = dkvg.to(kv.dtype).float()
         dkv.index_add_(0, ic[valid], dkvg[valid])
     return torch.cat(dqs, dim=0)
 
@@ -220,10 +229,11 @@ def sparse_mla_grouped_reference(q, kv, indices, sm_scale: float, v_dim: int, do
     Dq]): the plain backward run over the same groups (do and delta padded
     with zeros; from the given ``out`` and ``lse``, where the caller has the
     forward's), each query chunk of ``bwd_chunk`` tokens in ascending group
-    order adding its rows, rounded to kv's dtype a group, into one f32 dkv,
-    rounded once, as K5b and the reduction do. At the wide widths
-    (``built_widths``) the groups are the wide K5b's: ``WIDE_HEADS`` heads
-    each, unpadded (the last group may hold 8)."""
+    order adding its f32 rows into one f32 dkv, rounded once, as K5b and the
+    reduction do. At the wide widths (``built_widths``) the groups are the
+    wide K5b's: ``WIDE_HEADS`` heads each, unpadded (the last group may hold
+    8), and their rows are rounded to kv's dtype a group, as it writes
+    them."""
     S, H, _ = q.shape
     wide = built_widths(q.shape[-1], v_dim)[0] == DQ_WIDE
     Hp = H if wide else padded_heads(H)
@@ -242,12 +252,12 @@ def sparse_mla_grouped_reference(q, kv, indices, sm_scale: float, v_dim: int, do
     lsep = _pad_heads(lse, Hp)
     dkv = torch.zeros(kv.shape, dtype=torch.float32, device=kv.device)
     dq = torch.empty_like(qp)
-    chunk = bwd_chunk(S, indices.shape[1], DQ_WIDE if wide else DQ)
+    chunk = bwd_chunk(S, indices.shape[1])
     for c0 in range(0, S, chunk):
         c = slice(c0, c0 + chunk)
         for g in groups:
             dq[c, g] = _backward_into(qp[c, g], kv, indices[c], lsep[c, g], delta[c, g],
-                                      dop[c, g], dkv, sm_scale, v_dim)
+                                      dop[c, g], dkv, sm_scale, v_dim, round_rows=wide)
     return out, lse, dq[:, :H], dkv.to(kv.dtype)
 
 
@@ -388,15 +398,16 @@ def sparse_mla_fwd_tile_counts(q, kv, indices, sm_scale: float, v_dim: int) -> t
 
 
 def sparse_mla_dkv_reduce(dkvg, order, seg, dkv):
-    """dkv [Sk, Dq] f32 += the rows of dkvg [slots, Dq] bf16 named by
-    ``order[seg[r]:seg[r + 1]]`` for every kv row r, summed in that order."""
+    """dkv [Sk, Dq] f32 += the rows of dkvg [slots, Dq] named by
+    ``order[seg[r]:seg[r + 1]]`` for every kv row r, summed in that order:
+    f32 rows at Dq 576 (K5b's), bf16 rows at 1152 (the wide K5b's)."""
     Sk = dkv.shape[0]
-    _build.require(dkvg, "dkvg", torch.bfloat16)
-    _build.require(order, "order", torch.int64)
-    _build.require(seg, "seg", torch.int32, (Sk + 1,))
     width = dkv.shape[1]
     if width not in (DQ, DQ_WIDE):
         raise ValueError(f"dkv: the reduction runs at width {DQ} or {DQ_WIDE}, got {width}")
+    _build.require(dkvg, "dkvg", torch.float32 if width == DQ else torch.bfloat16)
+    _build.require(order, "order", torch.int64)
+    _build.require(seg, "seg", torch.int32, (Sk + 1,))
     _build.require(dkv, "dkv", torch.float32, (Sk, width))
     _build.check(KERNEL_REDUCE, _kernels()[2](
         dkvg.data_ptr(), order.data_ptr(), seg.data_ptr(), dkv.data_ptr(), Sk, width,
@@ -422,7 +433,7 @@ def sparse_mla_bwd_chunk(q, kv, indices, do, lse, delta, dq, dkvg, sm_scale: flo
     heads from ``h0`` (``q, indices, do, lse, delta`` and ``dq`` are the
     chunk's slices, their heads a multiple of ``HEADS``, padded with zeros):
     writes the group's rows of ``dq`` [C, Hp, Dq] and, for every slot with a
-    real index, the group's dkv row into ``dkvg`` [>= C, T, Dq] bf16. Given
+    real index, the group's dkv row into ``dkvg`` [>= C, T, Dq] f32. Given
     ``tiles`` (int32 [C, 2]), the same launch also writes each token's tiles
     of ``BWD_TILE`` slots visited and its candidates there."""
     C, Sk, T = _check_args(q, kv, indices, v_dim)
@@ -437,7 +448,7 @@ def sparse_mla_bwd_chunk(q, kv, indices, do, lse, delta, dq, dkvg, sm_scale: flo
     _build.require(lse, "lse", torch.float32, (C, Hp))
     _build.require(delta, "delta", torch.float32, (C, Hp))
     _build.require(dq, "dq", torch.bfloat16, (C, Hp, DQ))
-    _build.require(dkvg, "dkvg", torch.bfloat16)
+    _build.require(dkvg, "dkvg", torch.float32)
     if dkvg.shape[0] < C or tuple(dkvg.shape[1:]) != (T, DQ):
         raise ValueError(f"dkvg: expected at least [{C}, {T}, {DQ}], got {tuple(dkvg.shape)}")
     args = (q.data_ptr(), kv.data_ptr(), indices.data_ptr(), do.data_ptr(), lse.data_ptr(),
@@ -471,7 +482,7 @@ def sparse_mla_bwd(q, kv, indices, out, lse, do, sm_scale: float, v_dim: int, ti
     dq = torch.empty_like(q)
     dkv = torch.zeros((Sk, DQ), dtype=torch.float32, device=q.device)
     chunk = bwd_chunk(S, T)
-    dkvg = torch.empty((chunk, T, DQ), dtype=torch.bfloat16, device=q.device)
+    dkvg = torch.empty((chunk, T, DQ), dtype=torch.float32, device=q.device)
     for c0 in range(0, S, chunk):
         sl = slice(c0, min(c0 + chunk, S))
         order, seg = slot_order(indices[sl], Sk)
@@ -530,7 +541,7 @@ def _bwd_wide(q, kv, indices, out, lse, do, sm_scale: float, tiles=None):
     delta = (out.float() * do).sum(dim=-1).contiguous()
     dq = torch.empty_like(q)
     dkv = torch.zeros((Sk, DQ_WIDE), dtype=torch.float32, device=q.device)
-    chunk = bwd_chunk(S, T, DQ_WIDE)
+    chunk = bwd_chunk(S, T)
     dkvg = torch.empty((chunk, T, DQ_WIDE), dtype=torch.bfloat16, device=q.device)
     for c0 in range(0, S, chunk):
         sl = slice(c0, min(c0 + chunk, S))

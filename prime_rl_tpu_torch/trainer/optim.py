@@ -8,6 +8,12 @@ state)``, with optax's update rules and state layout: the first update uses
 decoupled and added before the learning rate, and the global-norm clip comes
 first. The arithmetic is plain PyTorch: the JAX package computes it outside
 any kernel too. ``muon`` and ``adafactor_mom`` are not ported yet and raise.
+
+Every rule is elementwise but the clip, so an update also runs one
+parameter leaf at a time (the offloaded step, ``trainer/step.py``): the
+state's slice of a leaf (``leaf_states``) through ``update`` with the
+whole tree's gradient norm given (``norm``), the slices joined again
+(``join_leaf_states``), in the same bits as the whole-tree update.
 """
 
 from __future__ import annotations
@@ -185,7 +191,7 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Opti
         zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
         return {"count": 0, "mu": tree_map(zeros, params), "nu": tree_map(zeros, params)}
 
-    def update(updates, state, params=None):
+    def update(updates, state, params=None, norm=None):
         count = state["count"] + 1
         c1, c2 = _bias_correction(b1, count), _bias_correction(b2, count)
         mu = tree_map(lambda g, m: (1.0 - b1) * g.float() + b1 * m, updates, state["mu"])
@@ -219,7 +225,7 @@ def scale_by_adam_8bit(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
         return {"count": 0, "m": tree_map(leaf, params)}
 
-    def update(updates, state, params=None):
+    def update(updates, state, params=None, norm=None):
         count = state["count"] + 1
         c1, c2 = _bias_correction(b1, count), _bias_correction(b2, count)
         code1 = float(_NU_CODE[1])
@@ -278,6 +284,42 @@ def _moment_leaves(tree) -> list[dict]:
     return [tree]
 
 
+def _per_param(tree, like) -> list:
+    """The entries of an optimizer tree laid out as the params ``like``, one a
+    parameter leaf: a tensor (mu, nu, trace) or a dict of them (the 8-bit
+    moments' codes and scales)."""
+    if isinstance(like, dict):
+        return [x for k in sorted(like) for x in _per_param(tree[k], like[k])]
+    return [tree]
+
+
+def leaf_states(state: list, params) -> list[list]:
+    """Every parameter leaf's slice of the state, in leaf order: stage by
+    stage, each tree laid out as ``params`` replaced by ``{"_": its entry
+    i}``, the counts as they are. ``update({"_": g_i}, slice_i, {"_": p_i},
+    norm)`` is leaf i's part of the whole-tree update."""
+    per = [{k: _per_param(v, params) for k, v in st.items() if isinstance(v, dict)}
+           for st in state]
+    return [[{k: ({"_": per[j][k][i]} if isinstance(v, dict) else v) for k, v in st.items()}
+             for j, st in enumerate(state)] for i in range(len(tree_leaves(params)))]
+
+
+def join_leaf_states(state: list, params, slices: list[list]) -> list:
+    """The whole state from the updated slices of every parameter leaf (in
+    leaf order): each tree rebuilt in the params' layout, each count taken
+    from the slices (every leaf's step gives the same)."""
+    out = []
+    for j, st in enumerate(state):
+        new = {}
+        for k, v in st.items():
+            if isinstance(v, dict):
+                new[k] = tree_unflatten(params, [sl[j][k]["_"] for sl in slices])
+            else:
+                new[k] = slices[0][j][k] if slices else v
+        out.append(new)
+    return out
+
+
 def stochastic_round_to(dtype, x: torch.Tensor, generator: torch.Generator | None = None,
                         bits: torch.Tensor | None = None) -> torch.Tensor:
     """f32 -> bf16 stochastic rounding (bit trick: add 16 random low bits,
@@ -306,10 +348,10 @@ def _chain(*stages: Optimizer) -> Optimizer:
     def init(params):
         return [s.init(params) for s in stages]
 
-    def update(updates, state, params=None):
+    def update(updates, state, params=None, norm=None):
         new_state = []
         for stage, st in zip(stages, state):
-            updates, st = stage.update(updates, st, params)
+            updates, st = stage.update(updates, st, params, norm)
             new_state.append(st)
         return updates, new_state
 
@@ -317,18 +359,21 @@ def _chain(*stages: Optimizer) -> Optimizer:
 
 
 def _stateless(fn) -> Optimizer:
-    return Optimizer(lambda params: {}, lambda u, s, p=None: (fn(u, p), s))
+    return Optimizer(lambda params: {}, lambda u, s, p=None, norm=None: (fn(u, p), s))
 
 
 def clip_by_global_norm(max_norm: float) -> Optimizer:
-    def clip(updates, params):
-        norm = global_norm(updates)
+    def update(updates, state, params=None, norm=None):
+        """``norm``: the global norm of the whole gradient tree, where
+        ``updates`` is a part of it (a leaf-at-a-time update)."""
+        if norm is None:
+            norm = global_norm(updates)
         # the select stays on the device: no host round-trip in the step
         keep = norm < max_norm
         return tree_map(lambda g: torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm),
-                        updates)
+                        updates), state
 
-    return _stateless(clip)
+    return Optimizer(lambda params: {}, update)
 
 
 def add_decayed_weights(weight_decay: float) -> Optimizer:
@@ -338,7 +383,7 @@ def add_decayed_weights(weight_decay: float) -> Optimizer:
 
 
 def scale_by_learning_rate(schedule: Schedule) -> Optimizer:
-    def update(updates, state, params=None):
+    def update(updates, state, params=None, norm=None):
         lr = schedule(state["count"])
         return tree_map(lambda g: g * -lr, updates), {"count": state["count"] + 1}
 
@@ -350,7 +395,7 @@ def _trace(decay: float, nesterov: bool) -> Optimizer:
         return {"trace": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                         device=p.device), params)}
 
-    def update(updates, state, params=None):
+    def update(updates, state, params=None, norm=None):
         new_trace = tree_map(lambda g, t: g.float() + decay * t, updates, state["trace"])
         if nesterov:
             updates = tree_map(lambda g, t: g.float() + decay * t, updates, new_trace)

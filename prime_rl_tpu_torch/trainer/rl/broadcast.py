@@ -40,14 +40,20 @@ class ColocatedBroadcast:
     The engine serves the trainer's tensors themselves where they are already
     on its device in its compute dtype (bf16 masters): the train step is
     functional, so a later step makes new tensors and never writes the ones
-    the engine holds. The orchestrator sees the bumped version over
-    ``/liveness`` as soon as the swap is in."""
+    the engine holds. Masters in the host tier (``host_masters``, the
+    trainer's ``offload_params``: buffers that the next step writes in
+    place) reach the engine as copies made on its device in its compute
+    dtype, a leaf at a time; it never holds a host tensor. The orchestrator
+    sees the bumped version over ``/liveness`` as soon as the swap is in."""
 
-    def __init__(self, engine):
+    def __init__(self, engine, host_masters: bool = False):
         self.engine = engine
+        self.host_masters = host_masters
 
     def publish(self, params: Params, version: int) -> None:
         t0 = time.perf_counter()
+        if self.host_masters:
+            params = device_copy(params, self.engine.device, self.engine.compute_dtype)
         self.engine.pause()
         try:
             self.engine.update_params(params, version=version)
@@ -58,6 +64,14 @@ class ColocatedBroadcast:
                           f"({(time.perf_counter() - t0) * 1e3:.1f} ms: {wait_s * 1e3:.1f} ms "
                           f"waiting for the engine's step in flight, {swap_s * 1e3:.1f} ms "
                           "draining its blocks and swapping)")
+
+
+def device_copy(params: Params, device, dtype) -> Params:
+    """A copy of ``params`` on ``device``, floating tensors in ``dtype``."""
+    if isinstance(params, dict):
+        return {k: device_copy(v, device, dtype) for k, v in params.items()}
+    return params.to(device=device, dtype=dtype if params.is_floating_point() else params.dtype,
+                     copy=True)
 
 
 def make_broadcast(config, weight_mgr, output_dir: str):

@@ -20,6 +20,14 @@ routed to the tenant ``run_{run_idx}`` of a ``MultiRunManager``, whose
 adapter state the step then trains; a tenant's merged weights and adapter are
 published under ``runs/run_{i}/weights/step_N`` on its own step count.
 
+Host offload (``offload_optimizer``, ``offload_params``) goes to
+``init_train_state`` and ``make_train_step`` (``trainer/step.py``). Python's
+automatic collector is off while ``train`` runs, with a collection every 50
+steps (``utils/memory.GarbageCollection``, as the JAX trainer does), and
+turned back on when it returns or raises (the JAX trainer never turns it
+back on; the colocated process and the tests call ``train`` in interpreters
+that live on). Each step record carries ``device_memory_stats``.
+
 More than one process (the micro-batch packer), token export, the metrics
 server and the heartbeat raise until their slices."""
 
@@ -53,6 +61,7 @@ from prime_rl_tpu_torch.transport import setup_training_batch_receiver
 from prime_rl_tpu_torch.utils.device import resolve_device
 from prime_rl_tpu_torch.utils.logger import get_logger, setup_logger
 from prime_rl_tpu_torch.utils import pathing
+from prime_rl_tpu_torch.utils.memory import GarbageCollection, device_memory_stats
 from prime_rl_tpu_torch.utils.monitor import setup_monitor
 from prime_rl_tpu_torch.utils.pathing import logs_dir
 
@@ -130,6 +139,14 @@ def train(config: TrainerConfig, weight_sink=None) -> TrainResult:
     final state and the metrics records it logged, one per step. ``weight_sink``: a
     ``WeightBroadcastSink`` override; None = the configured broadcast."""
     _reject_unported(config)
+    gc_gate = GarbageCollection(interval=50)
+    try:
+        return _train(config, weight_sink, gc_gate)
+    finally:
+        gc_gate.restore()
+
+
+def _train(config: TrainerConfig, weight_sink, gc_gate: GarbageCollection) -> TrainResult:
     setup_logger(config.log.level, config.log.json_logs,
                  logs_dir(config.output_dir) / "trainer.log")
     logger = get_logger()
@@ -169,7 +186,9 @@ def train(config: TrainerConfig, weight_sink=None) -> TrainResult:
     # config.dispatch_micro_batches is accepted and inert: the step's host
     # loop over the micro-batches is its only form
     train_step = make_train_step(spec, config.model, config.loss, optimizer, device,
-                                 base_params=base_params)
+                                 base_params=base_params,
+                                 offload_optimizer=config.offload_optimizer,
+                                 offload_params=config.offload_params)
 
     def publish_params():
         """The policy to serve: the state's params, or in LoRA mode the base
@@ -323,10 +342,10 @@ def train(config: TrainerConfig, weight_sink=None) -> TrainResult:
         }
         if mm_patches is not None:
             record["mm_patches"] = mm_patches  # real (non-pad) vision patches
-        if device.type == "cuda" and progress.step % 50 == 0:
-            record["device_mem_peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+        record.update(device_memory_stats(device))
         monitor.log(record, progress.step)
         records.append(record)
+        gc_gate.maybe_collect(progress.step)
         logger.info(
             f"step {progress.step}: loss={loss:.4f} kl={record['mismatch_kl']} "
             f"ent={record['entropy']:.3f} tps={perf.tokens_per_sec:,.0f} "

@@ -10,7 +10,7 @@ device).
 - Params are float32 (or bfloat16) masters; the forward casts to the compute
   dtype per layer. Gradients come out in the masters' dtype, or in bfloat16
   under ``grad_accum_dtype = "bfloat16"`` (differentiated against a pre-cast
-  copy), and are widened to float32 for the update.
+  copy), and are widened to float32 a leaf at a time in the update.
 - Normalization: losses are divided by **global** per-component token counts
   (``scales``, whole-step sums), so the number of micro-batches never changes
   the effective loss.
@@ -24,15 +24,31 @@ device).
   q, k and v, and the dX products through every frozen projection; the
   weight gradients of the base are never formed.
 
+- The step runs in two phases, as the JAX step's split programs do: the
+  gradients first, then the update a parameter leaf at a time
+  (``_streamed_update``), in the same bits as a whole-tree update: the rules
+  are elementwise and the clip takes the whole tree's norm
+  (``optim.leaf_states``). Only one leaf's float32 temporaries exist at once.
+- Host offload (``offload_optimizer``, ``offload_params``; the long-context
+  levers): the optimizer state's leaves of two or more dims, and with
+  ``offload_params`` every master, live in pinned host memory
+  (``utils/offload.py``; on the CPU the host tier is the same device and the
+  same code runs, unpinned). The gradient phase then has nothing of the
+  offloaded state on the card (under ``offload_params`` it runs on a bf16
+  copy of the masters made on the card, and accumulates in bf16, as JAX's
+  does), and the update holds one leaf's master, gradient and optimizer
+  state on the card, the next leaf's copied in on a side stream meanwhile,
+  the new values copied back out on another.
+
 Not carried over from the JAX package, as work-arounds for its runtime and
 not contract: ``dispatch_micro_batches`` (the host loop is the only form
 here; the config field is accepted and changes nothing) and the sharding
 helpers.
-Host offload of optimizer state or params raises until its slice.
 """
 
 from __future__ import annotations
 
+import contextlib
 import re
 from typing import Any, NamedTuple
 
@@ -44,6 +60,7 @@ from prime_rl_tpu_torch.ops.lm_head import chunked_logprob_entropy
 from prime_rl_tpu_torch.trainer import optim as optim_lib
 from prime_rl_tpu_torch.trainer.optim import Optimizer, tree_leaves, tree_map, tree_paths
 from prime_rl_tpu_torch.trainer.rl import loss as loss_lib
+from prime_rl_tpu_torch.utils import offload as host_tier
 
 Params = dict
 
@@ -239,6 +256,8 @@ def make_train_step(
     optimizer: Optimizer,
     device: torch.device | str,
     base_params: Params | None = None,
+    offload_optimizer: bool = False,
+    offload_params: bool = False,
 ):
     """Build the RL train step.
 
@@ -249,12 +268,24 @@ def make_train_step(
     clipping) and a ``MaskedStat`` per monitored quantity, summed over the
     micro-batches. The global-norm clip is part of ``optimizer`` (see
     ``make_optimizer``). ``base_params``: the frozen base of LoRA mode (the
-    state then holds the adapter tree, ``init_lora_train_state``)."""
+    state then holds the adapter tree, ``init_lora_train_state``).
+    ``offload_optimizer`` / ``offload_params``: the state was made by
+    ``init_train_state`` with the same flags; the step then streams the
+    host-tier leaves (the module's notes) and writes the new values of the
+    host-tier leaves into their pinned buffers in place (the state it is
+    given is used up, as the JAX step donates its state)."""
+    if base_params is not None and (offload_optimizer or offload_params):
+        raise ValueError("offload_optimizer/offload_params apply to the full train state; "
+                         "LoRA mode's state is the adapter tree")
+    device = torch.device(device)
     loss_fn = make_loss_fn(spec, model_cfg, loss_cfg, None, base_params)
     freeze_pats = [re.compile(p) for p in model_cfg.freeze] or None
     accum_bf16 = model_cfg.grad_accum_dtype == "bfloat16"
 
     def accum_grads(params: Params, batch: MicroBatchArrays, scales: Scales):
+        """(gradient tree, loss, metrics) summed over the micro-batches, the
+        gradients in the dtype they were accumulated in (the update widens a
+        leaf at a time)."""
         # bf16 accumulation: differentiate against a pre-cast bf16 copy so the
         # gradients and their accumulator are half-size
         def grad_leaf(x):
@@ -285,48 +316,28 @@ def make_train_step(
             x.grad = None
             if freeze_pats is not None and any(p.search(path) for p in freeze_pats):
                 g = torch.zeros_like(g)
-            return g.float()
+            return g
 
         grads = optim_lib.tree_unflatten(gp, [take_grad(pl) for pl in tree_paths(gp)])
         return grads, loss_acc, metrics_acc
 
-    @torch.no_grad()
     def apply_update(state: TrainState, grads):
-        """``grads``: the gradient tree, or a one-element list that hands the
-        tree over: the optimizer's first stage then holds the only reference
-        and the tree is freed as soon as that stage has its output (at
-        gigabytes of parameters a second float32 tree is what does not fit)."""
-        owned = grads if isinstance(grads, list) else [grads]
-        del grads
-        grad_norm = optim_lib.global_norm(owned[0])
-        updates, opt_state = optimizer.update(owned.pop(), state.opt_state, state.params)
-        leaves = tree_leaves(state.params)
-        if any(p.dtype == torch.bfloat16 for p in leaves if _is_float(p)):
-            # bf16 masters: apply the f32 update with stochastic rounding so
-            # sub-bf16-ulp updates survive in expectation
-            gen = torch.Generator(device=leaves[0].device)
-            gen.manual_seed((17 << 32) + int(state.step))
-            new_leaves = []
-            upd_leaves = tree_leaves(updates)
-            del updates  # each float32 update is freed as soon as it is applied
-            for i, p in enumerate(leaves):
-                u, upd_leaves[i] = upd_leaves[i], None
-                if p.dtype == torch.bfloat16:
-                    new_leaves.append(optim_lib.stochastic_round_to(
-                        torch.bfloat16, p.float() + u, gen))
-                else:
-                    new_leaves.append(p + u.to(p.dtype))
-            params = optim_lib.tree_unflatten(state.params, new_leaves)
-        else:
-            params = tree_map(lambda p, u: p + u.to(p.dtype), state.params, updates)
-        return TrainState(params=params, opt_state=opt_state, step=state.step + 1), grad_norm
+        """(new state, grad_norm): the update half, a leaf at a time."""
+        return _streamed_update(state, grads, optimizer, device, offload_optimizer,
+                                offload_params)
 
     def step_fn(state: TrainState, batch: MicroBatchArrays, scales: Scales):
         batch = put_batch(batch, device)
-        grads, loss, metrics = accum_grads(state.params, batch, scales)
-        owned = [grads]
-        del grads
-        new_state, grad_norm = apply_update(state, owned)
+        # phase 1, the gradients: under offload_params on a bf16 copy of the
+        # masters made on the card (a leaf's float32 transient at a time)
+        gp = state.params
+        if offload_params:
+            gp = tree_map(lambda x: (x.to(device, non_blocking=True).to(torch.bfloat16)
+                                     if _is_float(x) else x.to(device)), state.params)
+        grads, loss, metrics = accum_grads(gp, batch, scales)
+        del gp
+        # phase 2, the update a leaf at a time
+        new_state, grad_norm = apply_update(state, grads)
         metrics = dict(metrics)
         metrics["loss"] = loss
         metrics["grad_norm"] = grad_norm
@@ -336,6 +347,148 @@ def make_train_step(
     step_fn.accum_grads = accum_grads
     step_fn.apply_update = apply_update
     return step_fn
+
+
+def _slice_flags(sl: list, offload_optimizer: bool) -> list[dict]:
+    """Stage by stage, for each tree entry of a leaf's state slice, which of
+    its tensors go to the host tier: those of two or more dims under
+    ``offload_optimizer`` (the JAX rule, ``state_shardings``)."""
+    return [{k: {name: offload_optimizer and t.dim() >= 2
+                 for name, t in _entry_tensors(v["_"]).items()}
+             for k, v in st.items() if isinstance(v, dict)} for st in sl]
+
+
+def _entry_tensors(entry) -> dict[str, torch.Tensor]:
+    """A state entry's tensors by name ("" for a lone tensor)."""
+    return dict(entry) if isinstance(entry, dict) else {"": entry}
+
+
+def _map_flagged(sl: list, flags: list[dict], fn) -> list:
+    """A copy of the state slice ``sl`` with ``fn(t)`` in place of each
+    tensor ``flags`` marks (stage by stage, entry by entry, name by name)."""
+    out = []
+    for st, fl in zip(sl, flags):
+        st = dict(st)
+        for k, names in fl.items():
+            parts = _entry_tensors(st[k]["_"])
+            parts = {name: fn(t) if names[name] else t for name, t in parts.items()}
+            st[k] = {"_": parts[""] if "" in parts else parts}
+        out.append(st)
+    return out
+
+
+def host_leaves(state: TrainState, offload_optimizer: bool, offload_params: bool
+                ) -> tuple[list[bool], list[list[dict]]]:
+    """Which leaves the flags put in the host tier: (a flag a parameter leaf,
+    every master under ``offload_params``; a leaf's ``_slice_flags``). In
+    the port's own layouts ``offload_optimizer`` moves AdamW's mu and nu of
+    every matrix (a norm weight's stay on the card), the momentum trace
+    likewise, and every 8-bit AdamW tensor, codes ``[nb, block]`` and scales
+    ``[nb, 1]`` alike, norm weights' too (the port's 8-bit moments run in
+    blocks of a flat leaf, ``optim.scale_by_adam_8bit``)."""
+    slices = optim_lib.leaf_states(state.opt_state, state.params)
+    return ([offload_params] * len(slices),
+            [_slice_flags(sl, offload_optimizer) for sl in slices])
+
+
+def _streamed_update(state: TrainState, grads, optimizer: Optimizer, device: torch.device,
+                     offload_optimizer: bool, offload_params: bool):
+    """The update a parameter leaf at a time: (new state, grad_norm). Leaf
+    i's master, gradient and optimizer-state slice are on the card while its
+    update runs. Where the flags put leaves in the host tier, the host-tier
+    ones of leaf i + 1 are copied in meanwhile on the ``h2d`` side stream
+    (their device copies recorded on the compute stream, so that the
+    allocator does not reuse them while it reads them), and leaf i's new
+    host-tier values go back on the ``d2h`` side stream, into the same pinned
+    buffers. Bit for bit the whole-tree update: the gradient norm of the
+    whole tree goes to the clip, the rules run on each leaf as they run on
+    the tree, and a bf16 master's stochastic rounding draws from one
+    generator in leaf order."""
+    side = device.type == "cuda" and (offload_optimizer or offload_params)
+    p_leaves = tree_leaves(state.params)
+    grad_norm = optim_lib.global_norm(grads)
+    g_leaves = tree_leaves(grads)
+    del grads
+    n = len(p_leaves)
+    old = optim_lib.leaf_states(state.opt_state, state.params)
+    p_host, o_host = [offload_params] * n, [_slice_flags(sl, offload_optimizer) for sl in old]
+    gen = None
+    if any(_is_float(p) and p.dtype == torch.bfloat16 for p in p_leaves):
+        gen = torch.Generator(device=device)
+        gen.manual_seed((17 << 32) + int(state.step))
+    compute = torch.cuda.current_stream(device) if side else None
+    h2d = host_tier.side_stream(device, "h2d") if side else None
+    d2h = host_tier.side_stream(device, "d2h") if side else None
+
+    def on_stream(stream):
+        return torch.cuda.stream(stream) if side else contextlib.nullcontext()
+
+    def bring_in(i):
+        """Leaf i's (master, state slice) with the host-tier tensors copied to
+        the card on the side stream, and the copies' event."""
+        def copy_in(t):
+            return t.to(device, non_blocking=True)
+
+        with on_stream(h2d):
+            p = copy_in(p_leaves[i]) if p_host[i] else p_leaves[i]
+            sl = _map_flagged(old[i], o_host[i], copy_in)
+            ready = None
+            if side:
+                ready = torch.cuda.Event()
+                ready.record(h2d)
+        return p, sl, ready
+
+    def used_here(t):  # a side stream's copy, used (and freed) on the compute stream
+        t.record_stream(compute)
+        return t
+
+    new_p, slices = [], []
+    nxt = bring_in(0) if n else None
+    for i in range(n):
+        p, sl, ready = nxt
+        nxt = bring_in(i + 1) if i + 1 < n else None
+        if side:
+            compute.wait_event(ready)
+            if p_host[i]:
+                used_here(p)
+            _map_flagged(sl, o_host[i], used_here)
+        g, g_leaves[i] = g_leaves[i], None
+        with torch.no_grad():
+            u, new_sl = optimizer.update({"_": g.float()}, sl, {"_": p}, norm=grad_norm)
+            del g, sl
+            u = u["_"]
+            if p.dtype == torch.bfloat16:
+                p2 = optim_lib.stochastic_round_to(torch.bfloat16, p.float() + u, gen)
+            else:
+                p2 = p + u.to(p.dtype)
+            del u, p
+        # the new host-tier values go back into their own pinned buffers
+        if side:
+            d2h.wait_stream(compute)
+        with on_stream(d2h):
+            if p_host[i]:
+                p2 = _write_back(p_leaves[i], p2, d2h)
+            olds = []  # the host buffers, in _map_flagged's order
+            _map_flagged(old[i], o_host[i], olds.append)
+            olds = iter(olds)
+            new_sl = _map_flagged(new_sl, o_host[i], lambda t: _write_back(next(olds), t, d2h))
+        new_p.append(p2)
+        slices.append(new_sl)
+    if side:  # the host buffers hold the new values before anyone reads them
+        d2h.synchronize()
+    params = optim_lib.tree_unflatten(state.params, new_p)
+    opt_state = optim_lib.join_leaf_states(state.opt_state, state.params, slices)
+    return TrainState(params=params, opt_state=opt_state, step=state.step + 1), grad_norm
+
+
+def _write_back(host: torch.Tensor, new: torch.Tensor, stream) -> torch.Tensor:
+    """``new`` copied into the host-tier buffer ``host`` (on ``stream``, the
+    current one, where it is a CUDA stream: ``new`` is recorded on it so that
+    its memory is not reused before the copy has read it); returns ``host``."""
+    host.copy_(new, non_blocking=True)
+    if stream is not None and new.is_cuda:
+        new.record_stream(stream)
+    return host
 
 
 def init_train_state(
@@ -351,11 +504,14 @@ def init_train_state(
     """The train state on ``device``. With ``params=None``, random-init there
     from a generator seeded with ``seed`` (the numbers differ from the JAX
     package's ``jax.random`` init). ``master_dtype='bfloat16'`` halves the
-    master weights; the update then applies with stochastic rounding."""
+    master weights; the update then applies with stochastic rounding.
+    ``offload_optimizer`` parks the optimizer state's tensors of two or more
+    dims in the host tier, ``offload_params`` every master
+    (``host_leaves``; ``utils/offload.to_host``: pinned CPU memory on the
+    card, which raises where it cannot pin); the step built with the same
+    flags streams them (``make_train_step``)."""
     from prime_rl_tpu_torch.models import get_family
 
-    if offload_optimizer or offload_params:
-        raise NotImplementedError("offload_optimizer/offload_params wait for the offload slice")
     device = torch.device(device)
     mdt = torch.bfloat16 if master_dtype == "bfloat16" else torch.float32
     if params is None:
@@ -364,7 +520,18 @@ def init_train_state(
         params = get_family(spec).init(spec, gen, dtype=torch.float32, device=device)
     params = tree_map(lambda x: x.to(device=device, dtype=mdt) if _is_float(x)
                       else x.to(device), params)
-    return TrainState(params=params, opt_state=optimizer.init(params), step=0)
+    if not (offload_optimizer or offload_params):
+        return TrainState(params=params, opt_state=optimizer.init(params), step=0)
+    # a leaf at a time, so that no whole optimizer state exists on the card
+    leaves, slices = tree_leaves(params), []
+    for p in leaves:
+        sl = optimizer.init({"_": p})
+        slices.append(_map_flagged(sl, _slice_flags(sl, offload_optimizer),
+                                   lambda t: host_tier.to_host(t, device)))
+    if offload_params:
+        leaves = [host_tier.to_host(p, device) for p in leaves]
+    return TrainState(params=optim_lib.tree_unflatten(params, leaves),
+                      opt_state=optim_lib.join_leaf_states(slices[0], params, slices), step=0)
 
 
 def init_base_params(spec: ModelSpec, device: torch.device | str, seed: int = 0,

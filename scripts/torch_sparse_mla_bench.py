@@ -455,7 +455,7 @@ def main() -> int:
     chunk = K.bwd_chunk(S, T)
     delta = (out.float() * do).sum(dim=-1)  # as the wrapper forms it
     dq = torch.empty_like(q)
-    dkvg = torch.empty((chunk, T, DQ), dtype=torch.bfloat16, device=dev)
+    dkvg = torch.empty((chunk, T, DQ), dtype=torch.float32, device=dev)
     dkv = torch.zeros((S, DQ), dtype=torch.float32, device=dev)
     slices = [slice(c0, min(c0 + chunk, S)) for c0 in range(0, S, chunk)]
     orders = [K.slot_order(idx[sl], S) for sl in slices]

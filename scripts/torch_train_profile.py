@@ -3,7 +3,9 @@
 NVIDIA GPU.
 
     python3 scripts/torch_train_profile.py [--model qwen3|glm5|gpt-oss]
-                                           [--ac-mode full|save_attn|none]
+        [--ac-mode none|full|save_attn|offload_attn|offload_dots|selective[/K]]
+        [--seq-len L] [--optimizer adamw_8bit|adamw]
+        [--offload-optimizer] [--offload-params]
 
 Builds the train state (random weights from seed 0, bf16 masters, adamw_8bit,
 grad clip 1.0) and takes steps on fake batches, as the trainer does.
@@ -15,18 +17,29 @@ sort and the experts' grouped products as groups of their own, and the indexer
 (logits and top-k) timed alone at the step's shapes. ``--model gpt-oss``:
 gpt-oss at gpt-oss-20b's widths as ``chip_smoke.py`` cuts it (4 layers, two
 windowed and two full, all 32 experts), 2 micro-batches of [1, 4096] tokens,
-rows of four sequences each.
+rows of four sequences each. ``--seq-len L`` (qwen3 only): 2 micro-batches
+of [1, L] tokens instead, the long-context shape (upstream prime-rl's
+figures are a micro-batch of one row of L). ``--optimizer adamw`` takes AdamW
+with float32 masters (the example RL config's) in place of adamw_8bit with
+bf16 masters; ``--offload-optimizer`` and ``--offload-params`` put the
+optimizer state and the masters in pinned host memory (the step's update,
+a leaf at a time, then streams them, ``trainer/step.py``; under
+``--offload-params`` the halves and the micro-batch breakdown below are left
+out: its gradient phase runs on a bf16 device copy of the masters, which
+they do not make).
 Measures, after two warm-up steps:
   - host-clock time per step over three steps (ending in a synchronize);
   - with CUDA events on the stream: gradient accumulation against the
-    optimizer update, and inside one micro-batch the forward, the LM head with
+    optimizer update (the step's own two halves), and inside one micro-batch the forward, the LM head with
     the loss, and the backward (which holds the remat recompute and the LM
     head's backward); the LM head alone (forward + backward) on a detached
     hidden state;
   - under ``torch.profiler`` for one step: device time per kernel name (device
     events only), summed into the hand-written attention kernels, the library
     matrix products, and the rest (elementwise, reductions, copies), and the
-    device's idle share of the step.
+    device's idle share of the step; the copies to and from pinned host
+    memory (the offload modes', on side streams) are summed apart and left
+    out of the busy time.
 Prints a table, then one JSON line with the numbers.
 """
 
@@ -53,6 +66,66 @@ SORT_MARKS = ("sort", "radix")  # the indexer's top-k (and the MoE dispatch's ar
 GEMM_MARKS = ("gemm", "cutlass", "xmma", "nvjet", "cublas")
 
 
+def halves(state, step, spec, cfg, next_inputs, events, get_family, chunked_logprob_entropy,
+           MicroBatchArrays, tree_map):
+    """(state, (gradient accumulation ms, optimizer update ms, and inside one
+    micro-batch: forward, LM head with the loss, backward ms, the LM head
+    alone)): the two halves of a step, then one micro-batch's parts, on CUDA
+    events."""
+    import torch
+
+    batch, scales = next_inputs()
+    e = events(3)
+    e[0].record()
+    grads = step.accum_grads(state.params, batch, scales)[0]
+    e[1].record()
+    state, _ = step.apply_update(state, grads)  # the step's own leaf-at-a-time update
+    del grads
+    e[2].record()
+    torch.cuda.synchronize()
+    accum_ms, update_ms = e[0].elapsed_time(e[1]), e[1].elapsed_time(e[2])
+
+    # inside one micro-batch
+    from prime_rl_tpu_torch.trainer.rl import loss as loss_lib
+    from prime_rl_tpu_torch.trainer.step import _shift_left
+
+    family = get_family(spec)
+    mb = MicroBatchArrays(*[None if x is None else x[0] for x in batch])
+    gp = tree_map(lambda x: x.detach().requires_grad_(True), state.params)
+    labels, temps = _shift_left(mb.input_ids, 0), _shift_left(mb.temperatures, 1.0)
+    e = events(4)
+    e[0].record()
+    hidden = family.forward(gp, spec, mb.input_ids, mb.segment_ids, mb.position_ids,
+                            remat=cfg.model.ac.mode)
+    e[1].record()
+    # the head in the hidden states' dtype, as the step casts it (float32 masters)
+    lp, _ = chunked_logprob_entropy(hidden, family.get_lm_head(gp, spec).to(hidden.dtype),
+                                    labels, temps, chunk_size=cfg.model.lm_head_chunk_size)
+    loss, _ = loss_lib.compute_loss(
+        trainer_logprobs=lp, inference_logprobs=mb.inference_logprobs,
+        advantages=mb.advantages, loss_mask=mb.loss_mask, ref_logprobs=None, rl_weights=None,
+        ce_weights=None, ref_kl_weights=None, loss_cfg=cfg.loss, rl_scale=scales.rl,
+        ce_scale=1.0, ref_kl_scale=1.0)
+    e[2].record()
+    loss.backward()
+    e[3].record()
+    torch.cuda.synchronize()
+    fwd_ms, head_ms, bwd_ms = (e[i].elapsed_time(e[i + 1]) for i in range(3))
+    # the LM head alone, forward and backward, on a detached hidden state
+    h2 = hidden.detach().requires_grad_(True)
+    w2 = family.get_lm_head(state.params, spec).detach().to(h2.dtype).requires_grad_(True)
+    e = events(2)
+    e[0].record()
+    lp2, _ = chunked_logprob_entropy(h2, w2, labels, temps,
+                                     chunk_size=cfg.model.lm_head_chunk_size)
+    lp2.sum().backward()
+    e[1].record()
+    torch.cuda.synchronize()
+    head_alone_ms = e[0].elapsed_time(e[1])
+    del gp, hidden, lp, loss, h2, w2, lp2
+    return state, (accum_ms, update_ms, fwd_ms, head_ms, bwd_ms, head_alone_ms)
+
+
 def main() -> int:
     # as the trainer's entry point: at gigabytes of parameters the caching
     # allocator otherwise strands tens of GiB in fragments (read at first use)
@@ -77,8 +150,16 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ac-mode", default="full")
     ap.add_argument("--model", default="qwen3", choices=sorted(SHAPES))
+    ap.add_argument("--seq-len", type=int, default=0)
+    ap.add_argument("--optimizer", default="adamw_8bit", choices=("adamw_8bit", "adamw"))
+    ap.add_argument("--offload-optimizer", action="store_true")
+    ap.add_argument("--offload-params", action="store_true")
     args = ap.parse_args()
     N_MB, ROWS, SEQ_LEN = SHAPES[args.model]
+    if args.seq_len:
+        if args.model != "qwen3":
+            ap.error("--seq-len takes the qwen3 model")
+        N_MB, ROWS, SEQ_LEN = 2, 1, args.seq_len
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
         return 2
@@ -101,14 +182,21 @@ def main() -> int:
         device="cuda", seed=SEED, grad_clip=1.0,
         model={"name": model_name, "seq_len": SEQ_LEN, "ac": {"mode": args.ac_mode},
                "debug": {"random_init": True}},
-        optimizer={"type": "adamw_8bit", "lr": 1e-5, "master_dtype": "bfloat16"},
+        optimizer=({"type": "adamw_8bit", "lr": 1e-5, "master_dtype": "bfloat16"}
+                   if args.optimizer == "adamw_8bit" else {"type": "adamw", "lr": 1e-6}),
         data={"type": "fake", "seq_len": SEQ_LEN, "micro_batch_size": ROWS,
-              "num_micro_batches": N_MB})
+              "num_micro_batches": N_MB},
+        offload_optimizer=args.offload_optimizer, offload_params=args.offload_params)
     spec = get_spec(cfg.model.name)
     dev = torch.device("cuda")
     optimizer, _ = make_optimizer(cfg.optimizer, cfg.scheduler, cfg.grad_clip)
-    state = init_train_state(spec, dev, optimizer, seed=SEED, master_dtype="bfloat16")
-    step = make_train_step(spec, cfg.model, cfg.loss, optimizer, dev)
+    state = init_train_state(spec, dev, optimizer, seed=SEED,
+                             master_dtype=getattr(cfg.optimizer, "master_dtype", "float32"),
+                             offload_optimizer=cfg.offload_optimizer,
+                             offload_params=cfg.offload_params)
+    step = make_train_step(spec, cfg.model, cfg.loss, optimizer, dev,
+                           offload_optimizer=cfg.offload_optimizer,
+                           offload_params=cfg.offload_params)
     loader = loader_cls(spec.vocab_size, SEQ_LEN, ROWS, N_MB, seed=SEED)
 
     def next_inputs():
@@ -132,54 +220,11 @@ def main() -> int:
     wall = sorted(walls)[1]
     tokens = N_MB * ROWS * SEQ_LEN
 
-    # the two halves of a step
-    batch, scales = next_inputs()
-    e = events(3)
-    e[0].record()
-    grads = [step.accum_grads(state.params, batch, scales)[0]]
-    e[1].record()
-    state, _ = step.apply_update(state, grads)  # the list hands the tree over, as the step does
-    e[2].record()
-    torch.cuda.synchronize()
-    accum_ms, update_ms = e[0].elapsed_time(e[1]), e[1].elapsed_time(e[2])
-
-    # inside one micro-batch
-    from prime_rl_tpu_torch.trainer.rl import loss as loss_lib
-    from prime_rl_tpu_torch.trainer.step import _shift_left
-
-    family = get_family(spec)
-    mb = MicroBatchArrays(*[None if x is None else x[0] for x in batch])
-    gp = tree_map(lambda x: x.detach().requires_grad_(True), state.params)
-    labels, temps = _shift_left(mb.input_ids, 0), _shift_left(mb.temperatures, 1.0)
-    e = events(4)
-    e[0].record()
-    hidden = family.forward(gp, spec, mb.input_ids, mb.segment_ids, mb.position_ids,
-                            remat=cfg.model.ac.mode)
-    e[1].record()
-    lp, _ = chunked_logprob_entropy(hidden, family.get_lm_head(gp, spec), labels, temps,
-                                    chunk_size=cfg.model.lm_head_chunk_size)
-    loss, _ = loss_lib.compute_loss(
-        trainer_logprobs=lp, inference_logprobs=mb.inference_logprobs,
-        advantages=mb.advantages, loss_mask=mb.loss_mask, ref_logprobs=None, rl_weights=None,
-        ce_weights=None, ref_kl_weights=None, loss_cfg=cfg.loss, rl_scale=scales.rl,
-        ce_scale=1.0, ref_kl_scale=1.0)
-    e[2].record()
-    loss.backward()
-    e[3].record()
-    torch.cuda.synchronize()
-    fwd_ms, head_ms, bwd_ms = (e[i].elapsed_time(e[i + 1]) for i in range(3))
-    # the LM head alone, forward and backward, on a detached hidden state
-    h2 = hidden.detach().requires_grad_(True)
-    w2 = family.get_lm_head(state.params, spec).detach().requires_grad_(True)
-    e = events(2)
-    e[0].record()
-    lp2, _ = chunked_logprob_entropy(h2, w2, labels, temps,
-                                     chunk_size=cfg.model.lm_head_chunk_size)
-    lp2.sum().backward()
-    e[1].record()
-    torch.cuda.synchronize()
-    head_alone_ms = e[0].elapsed_time(e[1])
-    del gp, hidden, lp, loss, h2, w2, lp2
+    accum_ms = update_ms = fwd_ms = head_ms = bwd_ms = head_alone_ms = None
+    if not args.offload_params:
+        state, (accum_ms, update_ms, fwd_ms, head_ms, bwd_ms, head_alone_ms) = halves(
+            state, step, spec, cfg, next_inputs, events, get_family, chunked_logprob_entropy,
+            MicroBatchArrays, tree_map)
 
     # one whole step under the profiler
     from torch.autograd import DeviceType
@@ -197,12 +242,17 @@ def main() -> int:
     rows = [(ev.key, ev.self_device_time_total / 1e3, ev.count) for ev in prof.key_averages()
             if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
-    busy_ms = sum(r[1] for r in rows)
+    # the host tier's copies run on side streams, under the compute stream's
+    # kernels: they are counted apart, not as busy time
+    host_copies_ms = sum(r[1] for r in rows if "Pinned" in r[0])
+    busy_ms = sum(r[1] for r in rows if "Pinned" not in r[0])
     groups = {"expert grouped products": 0.0, "sorts": 0.0, "library matrix products": 0.0,
               "elementwise, reductions, copies": 0.0}
     groups.update({v: 0.0 for v in OURS.values()})
     n_kernels = 0
     for name, ms, count in rows:
+        if "Pinned" in name:
+            continue
         n_kernels += count
         ours = next((v for k, v in OURS.items() if k in name), None)
         if ours is not None:
@@ -252,6 +302,9 @@ def main() -> int:
     flops = spec.flops_per_token(SEQ_LEN) * tokens if args.model == "qwen3" else None
     result = {
         "card": card, "ac_mode": cfg.model.ac.mode, "tokens_per_step": tokens,
+        "seq_len": SEQ_LEN, "micro_batches": N_MB, "rows": ROWS,
+        "optimizer": cfg.optimizer.type, "offload_optimizer": cfg.offload_optimizer,
+        "offload_params": cfg.offload_params,
         "step_s": wall, "step_s_all": walls, "tokens_per_s": tokens / wall,
         "model": args.model, "layers": spec.num_layers, "routed_experts": spec.num_experts,
         "mfu_vs_989_tflops": None if flops is None else flops / wall / 989e12,
@@ -262,6 +315,7 @@ def main() -> int:
                             "backward_ms": bwd_ms,
                             "lm_head_alone_forward_backward_ms": head_alone_ms},
         "profiled_step_s": wall_prof, "device_busy_ms": busy_ms,
+        "host_copies_ms": host_copies_ms,
         # the profiler slows the host, not the kernels: the idle share of an
         # unprofiled step is the busy time against the unprofiled wall
         "device_idle_share": 1.0 - busy_ms / (wall * 1e3),

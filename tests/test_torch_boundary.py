@@ -63,7 +63,12 @@ SFT_MOE_MODULES = ("trainer.sft", "trainer.sft.data", "trainer.sft.train", "entr
                    "models.lora", "trainer.runs", "models.vision", "models.qwen3_vl",
                    # the hybrid VLM's (qwen3_next_vl) and the wide K5b repair's
                    "models", "models.base", "models.qwen3", "sampler.model", "sampler.engine",
-                   "trainer.weights", "ops.sparse_mla_kernel")
+                   "trainer.weights", "ops.sparse_mla_kernel",
+                   # the long-context memory levers' new and changed modules
+                   "utils.memory", "utils.offload", "ops.remat", "ops.flash_attention",
+                   "ops.moe", "trainer.step", "trainer.optim", "trainer.rl.train",
+                   "trainer.rl.broadcast", "models.gpt_oss", "models.mla_moe",
+                   "configs.trainer")
 _CHECK = _CHECK.replace("LOOP_MODULES", repr(LOOP_MODULES)).replace(
     "SFT_MOE_MODULES", repr(SFT_MOE_MODULES))
 

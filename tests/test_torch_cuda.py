@@ -574,6 +574,24 @@ def test_sparse_mla_backward_cases_match_plain(gen, case):
     assert _build.launches["sparse_mla_bwd"] > before
 
 
+_NARROW_CASES = [c + (64,) for c in chip_smoke.K5B_EDGE_CASES] + list(chip_smoke.K5_HEAD_CASES)
+
+
+@pytest.mark.parametrize("seed", range(1, 11))
+@pytest.mark.parametrize("case", _NARROW_CASES, ids=lambda c: c[0])
+def test_sparse_mla_backward_cases_hold_over_many_draws(gen, case, seed):
+    """The 576 K5b's edge and head cases over generator seeds 1 .. 10, each
+    draw through ``chip_smoke.k5b_check`` (dq and dkv within the unchanged
+    K5B_TOL, two calls bit-equal): while both sides rounded each slot's dkv
+    row to bf16, a large row near a rounding boundary landed one bf16 step
+    apart on a few draws (7 of 200 at seeds 1 .. 20), which one draw a case
+    did not show; the f32 rows hold every draw."""
+    name, S, Sk, T, layout, empty, slots, heads = case
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, kv, do, idx = chip_smoke.k5b_inputs(g, S, Sk, T, layout, empty, heads)
+    chip_smoke.k5b_check(f"{name} (seed {seed})", q, kv, do, idx, empty, slots)
+
+
 @pytest.mark.parametrize("case", chip_smoke.K5B_EDGE_CASES, ids=lambda c: c[0])
 def test_sparse_mla_forward_cases_match_plain(gen, case):
     """K5a over ``chip_smoke.K5B_EDGE_CASES``: out within 2e-2 + 2e-2 |ref|

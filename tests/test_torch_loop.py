@@ -240,6 +240,49 @@ def test_run_colocated_trains_from_the_transport(kind, tmp_path, monkeypatch):
     assert versions == [0, 1, 2, 3]
 
 
+def test_run_colocated_with_host_offload_swaps_in_copies(tmp_path, monkeypatch):
+    """``run_colocated`` on the CPU with ``offload_optimizer`` and
+    ``offload_params``: two batches through the filesystem transport, two
+    steps, the engine at v0, v1, v2; each swap hands it copies of the
+    masters (the next step writes the host-tier buffers in place), which it
+    serves in its compute dtype."""
+    spec = debug_spec()
+    config = RLConfig(
+        output_dir=str(tmp_path),
+        trainer={**_trainer_raw("debug", max_steps=2, transport={"type": "filesystem"}),
+                 "device": "cpu", "offload_optimizer": True, "offload_params": True,
+                 "model": {"name": "debug", "attn": {"impl": "xla"},
+                           "lm_head_chunk_size": 0, "debug": {"random_init": True}}},
+        inference={"device": "cpu", "max_model_len": 256,
+                   "model": {"name": "debug", "debug": {"random_init": True}},
+                   "tokenizer": {"name": "byte"},
+                   "server": {"host": "127.0.0.1", "port": _free_port()},
+                   "kv": {"num_pages": 64, "page_size": 16},
+                   "scheduler": {"max_batch_size": 4, "warmup_requests": 0}})
+    handed = []
+    update = Engine.update_params
+
+    def record(self, params, version=None):
+        handed.append(params)
+        update(self, params, version)
+
+    monkeypatch.setattr(Engine, "update_params", record)
+    sender = setup_training_batch_sender(config.trainer.transport, str(tmp_path))
+    for step in range(2):
+        sender.send(_batch(step, spec.vocab_size))
+    try:
+        result = run_colocated(config)
+    finally:
+        sender.close()
+        tlogger.reset_logger()
+    assert result.state.step == 2 and len(handed) == 3
+    assert all(np.isfinite(r["loss"]) for r in result.records)
+    masters = dict(toptim.tree_paths(result.state.params))
+    for path, served in toptim.tree_paths(handed[-1]):
+        assert served.data_ptr() != masters[path].data_ptr(), path
+        assert torch.equal(served.float(), masters[path].to(served.dtype).float()), path
+
+
 def test_colocated_process_runs_on_one_named_device(tmp_path):
     config = RLConfig(output_dir=str(tmp_path), trainer={"device": "cpu"},
                       inference={"device": "cuda"})

@@ -116,7 +116,9 @@ def test_kernel_route_full_remat_and_router_replay():
     """``attn_impl='pallas'`` runs the kernels' plain versions, which do not
     round q and kv to bf16 (float32 here): the hidden states stay within 2e-2
     of the chunked-gather route. ``full`` remat changes nothing. Replayed
-    routing (half the tokens forced) matches the JAX forward at 2e-4."""
+    routing (half the tokens forced) matches the JAX forward at 2e-4.
+    ``selective`` (the products with no batch dims kept) runs since the remat
+    slice and changes nothing either."""
     jspec, spec = specs(8)
     np_params, params = _params(jspec, spec, seed=2)
     ids, seg, pos = _packed(seed=2)
@@ -127,8 +129,8 @@ def test_kernel_route_full_remat_and_router_replay():
     leaves = toptim.tree_map(lambda x: x.clone().requires_grad_(), params)
     full = _t_forward(leaves, spec, ids, seg, pos, remat="full")
     np.testing.assert_allclose(_np(full), _np(base), atol=1e-6, rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="remat-policy"):
-        _t_forward(leaves, spec, ids, seg, pos, remat="selective")
+    selective = _t_forward(leaves, spec, ids, seg, pos, remat="selective")
+    np.testing.assert_allclose(_np(selective), _np(base), atol=1e-6, rtol=1e-6)
     # LoRA runs since its slice (held against JAX in tests/test_torch_lora.py):
     # an identity adapter (B = 0) leaves the states as they are
     from prime_rl_tpu_torch.configs.shared import LoRAConfig

@@ -141,6 +141,44 @@ def test_sparse_mla_backward_matches_jax_grads():
     np.testing.assert_allclose(_np(dkv2), np.asarray(xla_dkv), atol=5e-2)
 
 
+def test_plain_backward_keeps_the_per_slot_dkv_rows_in_float32():
+    """The plain K5b (``_backward_into``) adds each slot's dkv row to dkv as
+    float32, as the 576 K5b writes it since its rows went f32: on bf16
+    inputs its f32 dkv is the float64 sum of the same rows (ds and p rounded
+    to bf16 where the kernels round them) within 2e-6 of the largest |dkv|,
+    while rounding each row to bf16 first (``round_rows``, the wide K5b's
+    form) moves it by more than 1e-4 of it: one bf16 step of a large row."""
+    rng = np.random.default_rng(5)
+    S, H, Dq, Dv, T = 48, 16, 64, 32, 3
+    bf = torch.bfloat16
+    q = torch.from_numpy(rng.standard_normal((S, H, Dq)).astype(np.float32)).to(bf)
+    kv = torch.from_numpy(rng.standard_normal((S, Dq)).astype(np.float32)).to(bf)
+    do = torch.from_numpy(rng.standard_normal((S, H, Dv)).astype(np.float32)).to(bf)
+    idx = torch.from_numpy(np.stack([rng.choice(S, T, replace=False) for _ in range(S)])
+                           .astype(np.int32))
+    scale = Dq ** -0.5
+    out, lse = tkernel.sparse_mla_attention_reference(q, kv, idx, scale, Dv)
+    delta = (out.float() * do.float()).sum(-1)
+    got = {}
+    for rounded in (False, True):
+        dkv = torch.zeros((S, Dq), dtype=torch.float32)
+        tkernel._backward_into(q, kv, idx, lse, delta, do, dkv, scale, Dv, round_rows=rounded)
+        got[rounded] = dkv.double()
+    # the same rows in float64: p and ds rounded as the plain version rounds them
+    kvg = kv.double()[idx.long()]  # [S, T, Dq]
+    s = torch.einsum("shd,std->sht", q.double(), kvg) * scale
+    p = torch.exp(s - lse.double()[..., None])
+    dp = torch.einsum("shd,std->sht", do.double(), kvg[..., :Dv])
+    ds = (p.float() * (dp.float() - delta[..., None]) * scale).to(bf).double()
+    rows = torch.einsum("sht,shd->std", ds, q.double())
+    rows[..., :Dv] += torch.einsum("sht,shd->std", p.float().to(bf).double(), do.double())
+    want = torch.zeros((S, Dq), dtype=torch.float64).index_add_(
+        0, idx.long().reshape(-1), rows.reshape(-1, Dq))
+    big = float(want.abs().max())
+    assert float((got[False] - want).abs().max()) < 2e-6 * big
+    assert float((got[True] - want).abs().max()) > 1e-4 * big
+
+
 def test_slot_order_is_the_inverse_of_the_selection():
     """The sorted inverse that the dkv reduction walks: every kv row's slots,
     ascending, sentinels last and outside every segment."""
@@ -154,7 +192,8 @@ def test_slot_order_is_the_inverse_of_the_selection():
         slots = order[int(seg[r]):int(seg[r + 1])].numpy()
         assert (flat[slots] == r).all() and (np.diff(slots) > 0).all()
         assert len(slots) == int((flat == r).sum())
-    assert tkernel.bwd_launches(4096, 2048) == 8 and tkernel.bwd_chunk(10, 6) == 10
+    # f32 dkvg rows: 16 chunks of 256 queries keep the buffer at 1.2 GB
+    assert tkernel.bwd_launches(4096, 2048) == 16 and tkernel.bwd_chunk(10, 6) == 10
 
 
 def test_kernel_wrappers_raise_for_what_the_kernels_do_not_take():
@@ -202,7 +241,7 @@ def test_kernel_widths_take_every_dsa_head_count_the_jax_kernel_takes(heads):
     dq, dv = spec.kv_lora_rank + spec.qk_rope_head_dim, spec.kv_lora_rank
     tkernel.check_widths(spec.num_heads, dq, dv)
     assert tkernel.padded_heads(heads) == {8: 64, 32: 64, 64: 64, 96: 128, 128: 128}[heads]
-    assert tkernel.bwd_launches(4096, 2048, heads) == 8 * tkernel.padded_heads(heads) // 64
+    assert tkernel.bwd_launches(4096, 2048, heads) == 16 * tkernel.padded_heads(heads) // 64
     tkernel.check_widths(spec.num_heads, 320, 256)
     tkernel.check_widths(spec.num_heads, dq, 256)
     # past 576/512 the wide forms take up to 1152/1024 (the built widths 1152/1024)

@@ -221,10 +221,13 @@ def test_forward_aux_remat_and_router_replay(model):
     with pytest.raises(ValueError, match="MoE layers"):
         _t_forward(params, spec, ids, seg, pos,
                    routed_experts=torch.full((*ids.shape, 2, k), -1, dtype=torch.int32))
-    for kw, item in (({"remat": "offload_attn"}, "item 10"), ({"remat": "selective"}, "item 10"),
-                     ({"mesh": object()}, "item 11")):
-        with pytest.raises(NotImplementedError, match=item):
-            _t_forward(params, spec, ids, seg, pos, **kw)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        _t_forward(params, spec, ids, seg, pos, mesh=object())
+    # the offload and selective remat modes run since their slice (their
+    # gradients: tests/test_torch_remat.py)
+    for mode in ("offload_attn", "selective"):
+        np.testing.assert_allclose(_np(_t_forward(leaves, spec, ids, seg, pos, remat=mode)),
+                                   _np(got_h), atol=1e-6, rtol=1e-6, err_msg=mode)
     # LoRA runs since its slice (held against JAX in tests/test_torch_lora.py)
     from prime_rl_tpu_torch.configs.shared import LoRAConfig
     from prime_rl_tpu_torch.models.lora import init_lora

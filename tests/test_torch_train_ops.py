@@ -291,10 +291,12 @@ def _torch_grads(params, spec, inputs, ct, **kw):
 
 @pytest.mark.parametrize("impl", ["auto", "pallas"])
 def test_forward_gradients_identical_under_every_remat_mode(impl, monkeypatch):
-    """none / full / save_attn / save_attn/2 give bit-identical gradients, the
+    """Every remat mode (none, full, save_attn, offload_attn, selective,
+    offload_dots, and the stride form) gives bit-identical gradients, the
     ``none`` ones match JAX (atol = rtol = 1e-4), and on the flash route
-    save_attn runs the attention forward once per layer where full runs it
-    twice."""
+    save_attn and offload_attn run the attention forward once per layer where
+    full, selective and offload_dots (which recompute the kernel, as the JAX
+    policies recompute a Pallas call) run it twice."""
     rng = np.random.default_rng(7)
     jspec, spec = j_debug_spec(), debug_spec()
     jparams, np_params = _jax_params(jspec)
@@ -313,17 +315,21 @@ def test_forward_gradients_identical_under_every_remat_mode(impl, monkeypatch):
 
     monkeypatch.setattr(tflash, "flash_attention_reference", counting)
     grads, fwd_calls = {}, {}
-    for mode in ("none", "full", "save_attn", "save_attn/2"):
+    modes = ("none", "full", "save_attn", "save_attn/2", "offload_attn", "offload_attn/2",
+             "selective", "offload_dots/2")
+    for mode in modes:
         calls["n"] = 0
         grads[mode] = _torch_grads(np_params, spec, inputs, ct, remat=mode, attn_impl=impl)
         fwd_calls[mode] = calls["n"]
-    for mode in ("full", "save_attn", "save_attn/2"):
+    for mode in modes[1:]:
         for name, g in grads["none"].items():
             assert torch.equal(g, grads[mode][name]), (mode, name)
     if impl == "pallas":
         nl = spec.num_layers
         assert fwd_calls == {"none": nl, "full": 2 * nl, "save_attn": nl,
-                             "save_attn/2": nl + nl // 2}
+                             "save_attn/2": nl + nl // 2, "offload_attn": nl,
+                             "offload_attn/2": nl + nl // 2, "selective": 2 * nl,
+                             "offload_dots/2": 2 * nl}
 
     def j_loss(p):
         out = jqwen3.forward(p, jspec, jnp.asarray(ids), jnp.asarray(seg), jnp.asarray(pos),
@@ -341,10 +347,16 @@ def test_forward_rejects_what_waits_for_later_slices():
     params = tqwen3.init_params(spec, torch.Generator().manual_seed(0))
     ids = torch.zeros(1, 8, dtype=torch.int64)
     seg = torch.ones(1, 8, dtype=torch.int32)
-    for kw in ({"remat": "offload_attn"}, {"remat": "offload_dots"}, {"remat": "selective"},
-               {"quantized_compute": "int8"}, {"mesh": object()}):
+    for kw in ({"quantized_compute": "int8"}, {"mesh": object()}):
         with pytest.raises(NotImplementedError):
             tqwen3.forward(params, spec, ids, seg, ids, **kw)
+    # the offload and selective remat modes run since their slice (the
+    # gradients: test_forward_gradients_identical_under_every_remat_mode);
+    # a name no JAX family knows raises
+    for mode in ("offload_attn", "offload_dots", "selective"):
+        assert tqwen3.forward(params, spec, ids, seg, ids, remat=mode).shape == (1, 8, 64)
+    with pytest.raises(ValueError, match="unknown ac.mode"):
+        tqwen3.forward(params, spec, ids, seg, ids, remat="offload_everything")
     # LoRA runs since its slice (held against JAX in tests/test_torch_lora.py)
     from prime_rl_tpu_torch.configs.shared import LoRAConfig
     from prime_rl_tpu_torch.models.lora import init_lora

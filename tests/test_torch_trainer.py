@@ -311,7 +311,9 @@ def test_train_step_matches_jax_step_one(ac):
 
 def test_train_step_options():
     """bf16 accumulation, frozen paths, bf16 masters with stochastic rounding
-    (deterministic in the step), and the arguments that wait for later slices."""
+    (deterministic in the step), and host offload: the state's host-tier
+    leaves are CPU tensors here, where the host tier is the device itself
+    (the steps' bits: tests/test_torch_offload.py)."""
     spec = debug_spec()
     cfg = TrainerConfig(model={"compute_dtype": "float32", "grad_accum_dtype": "bfloat16",
                                "freeze": ["^embed$", "layers/q$"]},
@@ -337,8 +339,15 @@ def test_train_step_options():
     assert not torch.equal(after["layers/k"], before["layers/k"])
     for a, b in zip(toptim.tree_leaves(finals[0].params), toptim.tree_leaves(finals[1].params)):
         assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError):
-        tstep.init_train_state(spec, "cpu", opt, offload_optimizer=True)
+    off = tstep.init_train_state(spec, "cpu", opt, seed=3, master_dtype="bfloat16",
+                                 offload_optimizer=True)
+    p_host, o_host = tstep.host_leaves(off, True, False)
+    assert not any(p_host) and all(f for leaf in o_host for st in leaf for entry in st.values()
+                                   for f in entry.values())  # every 8-bit tensor is 2-D
+    off, _ = tstep.make_train_step(spec, cfg.model, cfg.loss, opt, "cpu",
+                                   offload_optimizer=True)(off, batch, scales)
+    for a, b in zip(toptim.tree_leaves(off.params), toptim.tree_leaves(finals[0].params)):
+        assert torch.equal(a, b)
     # LoRA mode needs model.lora (its training is held in tests/test_torch_lora.py)
     with pytest.raises(ValueError, match="model.lora"):
         tstep.make_loss_fn(spec, TrainerConfig().model, cfg.loss, base_params=finals[0].params)
@@ -497,10 +506,18 @@ def test_trainer_raises_for_what_waits_for_the_loop_slice(tmp_path, monkeypatch)
     assert out.state.step == 1 and out.records[0]["rl_tokens"] == 36
     assert np.isfinite(out.records[0]["loss"])
     for extra in (["--token-export-rows", "2"], ["--metrics-server.enable", "true"],
-                  ["--mesh.fsdp", "2"], ["--offload-optimizer", "true"],
-                  ["--model.lora.rank", "4", "--mesh.fsdp", "2"]):
+                  ["--mesh.fsdp", "2"], ["--model.lora.rank", "4", "--mesh.fsdp", "2"]):
         with pytest.raises(NotImplementedError):
             _run(monkeypatch, tmp_path / "x", "--max-steps", "1", *extra)  # a later flag wins
+    # the offload flags run since their slice: the same record as without
+    # them (the host tier is the CPU itself here), the collector on again
+    import gc
+
+    plain = _run(monkeypatch, tmp_path / "p", "--max-steps", "1", "--bench.steps", "1",
+                 "--bench.warmup-steps", "0")
+    offloaded = _run(monkeypatch, tmp_path / "o", "--max-steps", "1", "--bench.steps", "1",
+                     "--bench.warmup-steps", "0", "--offload-optimizer", "true")
+    assert offloaded.records[0]["loss"] == plain.records[0]["loss"] and gc.isenabled()
     # multi_run trains one adapter a tenant: without model.lora it is refused
     with pytest.raises(ValueError, match="model.lora"):
         _run(monkeypatch, tmp_path / "x", "--max-steps", "1", "--multi-run", "true")
