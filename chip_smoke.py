@@ -129,7 +129,7 @@ Phases (any failure raises and exits non-zero before the last line):
                 K3 and K4 against float32 on the CPU, which replays the card's
                 routing and reports how far its own agrees.
  12. qwen3-moe-training — the trainer's step on Qwen3-30B-A3B at full width (all 128
-                experts) cut to 4 layers, seq_len 4096, 2 micro-batches of 1
+                experts) cut to QWEN3_MOE_TRAIN_LAYERS layers, seq_len 4096, 2 micro-batches of 1
                 row, adamw_8bit, bf16 masters, full remat, half the tokens
                 replaying a routing (a fake loader the phase builds): 2 steps
                 twice, bit-equal finite losses,
@@ -146,19 +146,20 @@ Phases (any failure raises and exits non-zero before the last line):
                 prefill of 200 tokens and decode steps past position 128 through
                 K1, K3 and K4 against float32 on the CPU.
  16. gpt-oss-serving — the same server and requests with openai/gpt-oss-20b at
-                full width cut to 6 of its 24 layers (random weights, byte tokenizer,
+                full width cut to GPT_OSS_SERVE_LAYERS of its 24 layers (random weights, byte tokenizer,
                 max_model_len 4096): K1 and K4 launched on the windowed and the
                 full layers, K3 on every layer; its tokens/s and first-token time.
  17. qwen3-moe-serving — the same server and requests with Qwen/Qwen3-30B-A3B at
-                full width cut to 6 of its 48 layers (the KV pool sized from
+                full width cut to QWEN3_MOE_SERVE_LAYERS of its 48 layers (the KV pool sized from
                 the memory left) recording the routing: every generate
-                completion carries routed_experts [n_gen, 6, 8], ids in
+                completion carries routed_experts [n_gen, layers, 8], ids in
                 [0, 128), the last row -1.
  18. glm4-moe-reference — the reference of phase 11 for GLM-4.5-Air (1 dense +
                 1 MoE layer; partial rotary, noaux routing with a random
                 correction bias, a shared expert; K4 at group 12).
  19. glm4-moe-serving — the server of phase 17 for GLM-4.5-Air at full width
-                cut to 4 layers (1 dense + 3 MoE), routed_experts [n_gen, 3, 8].
+                cut to GLM_SERVE_LAYERS (2: 1 dense + 1 MoE), routed_experts
+                [n_gen, 1, 8].
  20. minimax-reference — MiniMax-M2 at its published widths
                 (MINIMAX_M2_CONFIG through spec_from_hf_config, 1 of 62
                 layers): the served prefill and decode through K1 and K4 (K3
@@ -185,7 +186,7 @@ Phases (any failure raises and exits non-zero before the last line):
                 and selections (at least 90% of the selected rows shared with
                 float32's own), twice for equal bits: K5a launched.
  25. minimax-serving — the server of phase 17 for MiniMax-M2 at its published
-                widths, MINIMAX_SERVE_LAYERS (4) of 62 layers, the pool
+                widths, MINIMAX_SERVE_LAYERS of 62 layers, the pool
                 sized from the memory left, routed_experts [n_gen, 8, 8]: K1
                 and K4 (group 6) launched, K3 not.
  26. glm5-serving — the server for GLM-5 (GLM5_CONFIG, GLM5_CUTS: 4 layers,
@@ -291,7 +292,8 @@ Phases (any failure raises and exits non-zero before the last line):
  39. qwen3-vl-training — Qwen3-VL-8B's whole tower and QWEN3_VL_TRAIN_LAYERS
                 of its 36 trunk layers, 2 steps on packed rows of 4096 tokens
                 that mix image and text samples: step time, peak memory.
- 40. qwen3-vl-serving — the server on Qwen3-VL-8B at full width and depth, 16
+ 40. qwen3-vl-serving — the server on Qwen3-VL-8B at full width, its trunk
+                cut to QWEN3_VL_SERVE_LAYERS of 36 beside the whole tower, 16
                 requests of one synthetic image each (196 or 768 image tokens)
                 and 128 generated tokens, then one text-only request: tokens/s,
                 the decode step's host and busy ms; K1, K3 and K4 launched.
@@ -304,6 +306,26 @@ Phases (any failure raises and exits non-zero before the last line):
                 and the served image prompt's prefill, prompt logprobs and 4
                 decode steps from the recurrent rows with the mRoPE offset,
                 through K1, K2a, K2b and K4 (K3 not), against float32 on the CPU.
+ 43. serving-features — on Qwen3-0.6B at full width and depth (28 layers,
+                vocab 151936): constrained decoding over HTTP on phase 14's
+                bf16 server (bounded JSON-schema and regex constraints on the
+                generate and chat routes, ``response_format`` among them, with
+                the byte tokenizer's token bytes; each ends in "stop", parses or
+                matches, and walks to an accepting state of the CPU DFA; a mixed
+                batch whose free requests reach ``max_tokens``; a bad regex
+                answered 400 while the server goes on; K1, K3 and K4 launched;
+                the decode step's host and busy ms at 64 slots with one
+                constrained slot and with none, and the mask alone); the
+                host-offload KV tier on an Engine over that server's weights
+                with a pool of 16 pages (a prompt of HOST_TIER_PROMPT tokens
+                served, served again from the device cache (A), evicted to
+                the host by another, served from the host (B): A and B equal in
+                tokens and logprob bits, pages spilled and restored, K4 launched
+                on B, the spill's and the restore's ms); then a second server
+                with ``quantization = "int8"``: phase 13's reference against
+                float32 on its dequantized weights, phase 14's requests, K1 and
+                K4 launched and K3 not, its weights' bytes and decode step
+                beside the bf16 server's.
 Then one JSON line with every kernel's numbers, and the result line. A kernel's
 ``launches`` is its count on the path that runs it (K1 runs on both: its
 ``launches`` is the serving path's, ``launches_training`` the Qwen3 trainer's;
@@ -321,7 +343,10 @@ K2a, K2b and K4 ``launches_qwen3_next_training``, ``_serving`` and
 ``_serving`` and ``_reference`` on Nemotron-H's; K1, K2a and K2b
 ``launches_lora_training``, K1 and K4 ``launches_lora_serving`` (K3's row
 gives its 0 there: with a bank attached it never runs), and K1-K4
-``launches_lora_loop``. K4's
+``launches_lora_loop``; K1, K3 and K4 ``launches_constrained`` (the
+constrained requests of serving-features), K1 and K4 ``launches_int8_serving``
+(K3's row its 0), K4 ``launches_host_tier`` (the run served from the host
+tier). K4's
 rows at the MoE shapes count the Qwen3-30B-A3B serving path (group 8), the
 GLM-4.5-Air path's chunked launches (group 12) and MiniMax-M2's (group 6);
 the group-6 K1/K2 rows the MiniMax-M2 trainer, the window-hd128 rows the
@@ -398,9 +423,9 @@ MINIMAX_M2_CONFIG = {
 }
 # Qwen/Qwen3-VL-8B-Instruct's config.json as its model card gives it (typed
 # here: nothing is downloaded); the port's spec_from_hf_config reads it as the
-# JAX package's reader does. Serving keeps all 36 layers; training keeps the
-# whole tower (27 blocks; its last DeepStack tap is block 24) and cuts the
-# trunk to QWEN3_VL_TRAIN_LAYERS.
+# JAX package's reader does. Serving and training keep the whole tower (27
+# blocks; its last DeepStack tap is block 24) and cut the trunk, to
+# QWEN3_VL_SERVE_LAYERS and QWEN3_VL_TRAIN_LAYERS.
 QWEN3_VL = "Qwen/Qwen3-VL-8B-Instruct"
 QWEN3_VL_8B_CONFIG = {
     "architectures": ["Qwen3VLForConditionalGeneration"],
@@ -454,7 +479,8 @@ QWEN35_COMPOSITION_CONFIG = {
     "vision_config": {**QWEN3_VL_8B_CONFIG["vision_config"], "out_hidden_size": 2048},
 }
 MINIMAX_TRAIN_LAYERS = 1  # 4.90 G parameters, near GLM-5's and gpt-oss's trainer cuts
-MINIMAX_SERVE_LAYERS = 4  # of 62 (8 before the last cuts)
+MINIMAX_SERVE_LAYERS = 1  # of 62, every layer alike (8, then 4, then 2 before the last cuts)
+GLM_SERVE_LAYERS = 2  # of 46: one dense, one MoE (4 before the last cuts)
 # the Qwen3-Next and Nemotron-H train references' row (1024 tokens before
 # the cuts below: their float32 CPU side took most of the run's reference
 # time; the DSA, gpt-oss, AFMoE and Laguna references take 512, where their
@@ -471,9 +497,10 @@ TRAIN_STEPS = 2
 # that a host 30% slower still ends well inside the limit (the card's host
 # varies 10-50% from call to call; PERF.md has the per-phase times before and
 # after); every layer kind and window form of each path still runs
-GPT_OSS_SERVE_LAYERS = 6  # of 24, windowed and full layers alternating (12 before the last cuts)
-QWEN3_MOE_SERVE_LAYERS = 6  # of 48 (12 before the last cuts)
+GPT_OSS_SERVE_LAYERS = 2  # of 24: one windowed, one full (12, then 6 before the last cuts)
+QWEN3_MOE_SERVE_LAYERS = 1  # of 48, every layer alike (12, then 6, then 2 before the last cuts)
 GPT_OSS_TRAIN_LAYERS = 2  # one windowed, one full (4 before the cuts)
+QWEN3_MOE_TRAIN_LAYERS = 1  # of 48, every layer alike (4 before the last cuts)
 # of 32 (all 32 before the last cuts): top-4 of 8 stays sparse; the trainer's
 # grouped products over 32 experts are not on this path (gpt-oss-serving runs
 # all 32)
@@ -546,6 +573,20 @@ NEMOTRON_SERVE_LAYERS = 13  # one period of the pattern's four (52, then 26 befo
 # evict the shared prefix's before the request that reuses it arrives (the
 # serving phase's prefix check failed so at the default)
 NEMOTRON_STATE_CACHE_MB = 2048
+
+# serving-features: the decode step timed at this many slots of
+# SERVING_FEATURE_CACHED tokens, with one constrained slot and with none; the
+# host tier's prompts and budget (a pool of 16 pages of 64: one prompt's)
+SERVING_FEATURE_SLOTS = 64
+SERVING_FEATURE_CACHED = 512
+HOST_TIER_PROMPT = 1000
+HOST_TIER_MB = 512
+# bounded constraints only: with random weights an unbounded one (a free
+# string, an integer) may run to max_tokens and never parse
+CONSTRAINED_SCHEMA = {"type": "object",
+                      "properties": {"mode": {"enum": ["fast", "slow"]}, "ok": {"type": "boolean"}},
+                      "required": ["mode", "ok"]}
+CONSTRAINED_REGEX = r"[ab]{3}[0-9]"
 
 
 def log(msg: str) -> None:
@@ -3582,11 +3623,11 @@ def grouped_mm_share(step, state, batch, scales) -> str:
 
 def qwen3_moe_training_phase() -> tuple[dict, dict]:
     """``moe_training_phase`` on Qwen3-30B-A3B at full width (hidden 2048,
-    32/4 heads of 128, all 128 experts top-8 of 768, vocab 151936), cut to 4
-    layers."""
+    32/4 heads of 128, all 128 experts top-8 of 768, vocab 151936), cut to
+    ``QWEN3_MOE_TRAIN_LAYERS`` layers."""
     from prime_rl_tpu_torch.models.base import get_spec
 
-    spec = get_spec(QWEN3_MOE, num_layers=4)
+    spec = get_spec(QWEN3_MOE, num_layers=QWEN3_MOE_TRAIN_LAYERS)
     if (spec.family, spec.hidden_size, spec.num_heads, spec.num_kv_heads, spec.num_experts,
             spec.moe_intermediate_size, spec.vocab_size) != ("qwen3_moe", 2048, 32, 4, 128, 768,
                                                               151936):
@@ -4519,7 +4560,9 @@ def dsa_serving_reference_phase() -> dict:
 
 def reference_phase(engine) -> None:
     """The served weights' prefill and one decode step through the kernels
-    (bf16, CUDA) against the plain float32 path on the CPU."""
+    (bf16, CUDA) against the plain float32 path on the CPU (an int8
+    weight-only record there as the float32 weight it stands for, q8 *
+    scale)."""
     import torch
 
     from prime_rl_tpu_torch.sampler import model as smodel
@@ -4545,10 +4588,14 @@ def reference_phase(engine) -> None:
             [n], dtype=torch.int32, device=device), table.to(device), compute_dtype=dtype)
         return first.float().cpu(), second.float().cpu()
 
+    def f32(v):
+        if isinstance(v, dict):
+            return v["q8"].float().cpu() * v["scale"].float().cpu()
+        return v.float().cpu()
+
     got = run(engine.params, dev, torch.bfloat16)
-    cpu_params = {k: v for k, v in engine.params.items() if k != "layers"}
-    cpu_params = {k: v.float().cpu() for k, v in cpu_params.items()}
-    cpu_params["layers"] = [{k: v.float().cpu() for k, v in lp.items()}
+    cpu_params = {k: f32(v) for k, v in engine.params.items() if k != "layers"}
+    cpu_params["layers"] = [{k: f32(v) for k, v in lp.items()}
                             for lp in engine.params["layers"]]
     want = run(cpu_params, torch.device("cpu"), torch.float32)
     for name, g, w in zip(("prefill", "decode"), got, want):
@@ -4670,12 +4717,14 @@ async def serving_phase(server, port: int, model: str, collect: bool,
 
 def serve(model: str, want_layers: int, want_vocab: int, reference=None, collect: bool = False,
           num_layers: int | None = None, long_prompt: int = 0, extra=None,
-          state_cache_mb: int | None = None, lora: dict | None = None):
+          state_cache_mb: int | None = None, lora: dict | None = None,
+          quantization: str | None = None):
     """Build the inference server for ``model`` (all its layers, or
     ``num_layers``; random weights from the seed, or with ``lora`` (the
     server's ``inference.lora`` section, its adapter bank) the weights of the
     snapshot directory ``model``; with ``collect`` recording
-    the routing of every completion; a hybrid's state tier of
+    the routing of every completion; with ``quantization`` its weights served
+    so (``"int8"``); a hybrid's state tier of
     ``state_cache_mb`` set on its engine's cache config, which the server's
     config does not expose, or the default), run ``reference`` on its engine,
     warm it up and drive it over HTTP with the launch counts reset just before
@@ -4699,7 +4748,7 @@ def serve(model: str, want_layers: int, want_vocab: int, reference=None, collect
         output_dir=os.path.join(ROOT, "build", "chip_smoke"),
         model={"name": model, "debug": {"random_init": lora is None, "num_layers": num_layers}},
         tokenizer={"name": "byte"}, scheduler={"max_batch_size": 64},
-        collect_routed_experts=collect, lora=lora,
+        collect_routed_experts=collect, lora=lora, quantization=quantization,
         # the LoRA phase's reference engines and timing need memory beside the pool
         **({"kv": {"num_pages": 8192}} if lora is not None else {}),
     )
@@ -4743,6 +4792,356 @@ def serve(model: str, want_layers: int, want_vocab: int, reference=None, collect
     if alive() is not None:
         raise AssertionError(f"the {model} engine outlived its server: its memory is not freed")
     torch.cuda.empty_cache()
+    return out
+
+
+def weight_bytes(params: dict) -> int:
+    """Bytes of the served weights (int8 records count their int8 weight and
+    their scales)."""
+    return sum(t.numel() * t.element_size() for t in _tensors(params))
+
+
+def decode_step_timing(engine, n_cons: int = 0, params: dict | None = None,
+                       busy: bool = True) -> dict:
+    """The decode step (``smodel.decode``, then the constraint's mask on the
+    first ``n_cons`` slots, then ``sample_tokens``, as a block's step runs
+    them) at ``SERVING_FEATURE_SLOTS`` slots of ``SERVING_FEATURE_CACHED``
+    tokens in the engine's own pool, on its weights or ``params`` (the
+    caller holds the step lock and flushes the prefix cache after): host ms
+    (the host clock around a step that ends in a synchronize, median of 5)
+    and with ``busy`` busy ms (the device time of 3 more steps under
+    ``torch.profiler``, a step's share; None where the trace holds no device
+    time); with ``n_cons`` also the mask alone, host and busy."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from prime_rl_tpu_torch.sampler import model as smodel
+    from prime_rl_tpu_torch.sampler.engine import SamplingParams
+    from prime_rl_tpu_torch.sampler.sampling import sample_tokens
+
+    spec, dev, ps = engine.spec, engine.device, engine.config.page_size
+    params = engine.params if params is None else params
+    s, cached = SERVING_FEATURE_SLOTS, SERVING_FEATURE_CACHED
+    p = cached // ps + 2
+    table = (1 + torch.arange(s * p, device=dev, dtype=torch.int32)).reshape(s, p)
+    lengths = torch.full((s,), cached, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tokens = torch.randint(0, 256, (s,), device=dev, generator=gen)  # byte tokens
+    active = torch.ones((s,), dtype=torch.bool, device=dev)
+    temp = torch.ones((s,), device=dev)
+    topk = torch.full((s,), -1, dtype=torch.int32, device=dev)
+    topp = torch.ones((s,), device=dev)
+    rows = st = None
+    if n_cons:
+        engine._ensure_token_tables()
+        row = engine._cons_assign(engine._cons_compile(SamplingParams(
+            json_schema=CONSTRAINED_SCHEMA)))
+        rows = torch.arange(n_cons, device=dev)
+        engine._d_cons_idx[rows] = row
+        st = torch.full((n_cons,), row * engine.CONS_STATES, dtype=torch.int64, device=dev)
+
+    def decode():
+        with torch.no_grad():
+            return smodel.decode(params, spec, engine.k_pool, engine.v_pool, tokens,
+                                 lengths, table, compute_dtype=torch.bfloat16)[2]
+
+    def step():
+        logits = decode()
+        if rows is not None:
+            logits, _ = engine._cons_mask(logits, tokens, active, rows, st)
+        sample_tokens(logits, temp, topk, topp, gen, filtering=False)
+
+    def host_busy(fn) -> tuple[float, float | None]:  # busy None unless ``busy``
+        for _ in range(3):
+            fn()
+        host = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+        if not busy:
+            return float(np.median(host)), None
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        # device-side events only (kernels, copies): a step that the host
+        # holds back leaves the device idle between them, and that is not busy
+        dev = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA) / 1e3 / 3
+        return float(np.median(host)), dev if dev > 0 else None
+
+    out = dict(zip(("host_ms", "busy_ms"), host_busy(step)))
+    if rows is not None:
+        logits = decode()
+        out["mask_host_ms"], out["mask_busy_ms"] = host_busy(
+            lambda: engine._cons_mask(logits.clone(), tokens, active, rows, st))
+        engine._d_cons_idx[rows] = -1
+    return out
+
+
+async def constrained_phase(server, port: int) -> dict:
+    """Constrained decoding over HTTP on the served Qwen3-0.6B (byte
+    tokenizer, random weights, sampled at temperature 1): bounded
+    constraints only, each request's completion ending in "stop", parsing or
+    matching, and its bytes walking the CPU DFA to an accepting state; a
+    mixed batch (constrained beside free ``ignore_eos`` requests, submitted to
+    the engine since the wire has no ``ignore_eos``, which run to
+    ``max_tokens``); a bad regex answered 400 while the server goes on."""
+    import re
+
+    import aiohttp
+    import numpy as np
+
+    from prime_rl_tpu_torch.sampler import constrain
+    from prime_rl_tpu_torch.sampler.engine import SamplingParams
+
+    base = f"http://127.0.0.1:{port}"
+    eos = server.engine.spec.eos_token_id
+    rng = np.random.default_rng(SEED + 23)
+    schema_dfa = constrain.compile_regex(constrain.json_schema_to_regex(CONSTRAINED_SCHEMA))
+    regex_dfa = constrain.compile_regex(CONSTRAINED_REGEX)
+
+    def accepted(dfa, data: bytes, what: str) -> None:
+        st = dfa.walk_bytes(0, data)
+        if st < 0 or not dfa.accept[st]:
+            raise AssertionError(f"{what}: {data!r} does not walk the DFA to an accepting state")
+
+    def check_schema(data: bytes, what: str) -> None:
+        obj = json.loads(data)
+        if obj.get("mode") not in ("fast", "slow") or not isinstance(obj.get("ok"), bool):
+            raise AssertionError(f"{what}: {data!r} does not satisfy the schema")
+        accepted(schema_dfa, data, what)
+
+    def check_regex(data: bytes, what: str) -> None:
+        if not re.fullmatch(CONSTRAINED_REGEX.encode(), data):
+            raise AssertionError(f"{what}: {data!r} does not match {CONSTRAINED_REGEX}")
+        accepted(regex_dfa, data, what)
+
+    out = {}
+    async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600)) as http:
+        async def generate(sampling: dict, **body):
+            r = await http.post(f"{base}/inference/v1/generate", json={
+                "token_ids": rng.integers(0, 256, 24).tolist(),
+                "sampling_params": {"temperature": 1.0, **sampling}, **body})
+            if r.status != 200:
+                raise AssertionError(f"constrained generate: HTTP {r.status}: {await r.text()}")
+            return (await r.json())["choices"][0]
+
+        async def chat(**body):
+            r = await http.post(f"{base}/v1/chat/completions", json={
+                "model": MODEL, "messages": [{"role": "user", "content": "answer"}],
+                "max_tokens": 64, "temperature": 1.0, **body})
+            return r.status, (await r.json() if r.status == 200 else await r.text())
+
+        def text(choice) -> bytes:
+            if choice["finish_reason"] != "stop":
+                raise AssertionError(f"a constrained completion ended in "
+                                     f"{choice['finish_reason']}: {choice['token_ids']}")
+            return bytes(t for t in choice["token_ids"] if t != eos)
+
+        t0 = time.perf_counter()
+        schema_rq = [generate({"max_tokens": 64, "json_schema": CONSTRAINED_SCHEMA, "seed": i})
+                     for i in range(3)]
+        regex_rq = [generate({"max_tokens": 32, "regex": CONSTRAINED_REGEX, "seed": 10 + i})
+                    for i in range(2)]
+        regex_rq.append(generate({"max_tokens": 32}, guided_regex=CONSTRAINED_REGEX))
+        free_rq = [asyncio.wrap_future(server.engine.submit(
+            rng.integers(0, 256, 24).tolist(),
+            SamplingParams(max_tokens=64, temperature=1.0, ignore_eos=True))) for _ in range(4)]
+        results = await asyncio.gather(*schema_rq, *regex_rq, *free_rq)
+        for i, c in enumerate(results[:3]):
+            check_schema(text(c), f"generate json_schema #{i}")
+        for i, c in enumerate(results[3:6]):
+            check_regex(text(c), f"generate regex #{i}")
+        for r in results[6:]:
+            if len(r.token_ids) != 64 or r.finish_reason != "length":
+                raise AssertionError(f"a free request beside constrained ones was cut short: "
+                                     f"{len(r.token_ids)} tokens, {r.finish_reason}")
+        samples = [text(c).decode() for c in results[:6]]
+        status, body = await chat(response_format={
+            "type": "json_schema", "json_schema": {"name": "answer", "schema": CONSTRAINED_SCHEMA}})
+        if status != 200 or body["choices"][0]["finish_reason"] != "stop":
+            raise AssertionError(f"chat response_format: HTTP {status}: {body}")
+        check_schema(body["choices"][0]["message"]["content"].encode(), "chat response_format")
+        status, body = await chat(guided_regex=CONSTRAINED_REGEX)
+        if status != 200 or body["choices"][0]["finish_reason"] != "stop":
+            raise AssertionError(f"chat guided_regex: HTTP {status}: {body}")
+        check_regex(body["choices"][0]["message"]["content"].encode(), "chat guided_regex")
+        samples += [body["choices"][0]["message"]["content"]]
+        status, body = await chat(guided_regex="(unclosed")
+        if status != 400:
+            raise AssertionError(f"a bad regex was answered {status}, not 400: {body}")
+        c = await generate({"max_tokens": 8})
+        if not c["token_ids"]:
+            raise AssertionError("the server stopped answering after a bad regex")
+        out["constrained_wall_s"] = time.perf_counter() - t0
+    log(f"constrained decoding: 3 json_schema, 3 regex and 4 free requests at once, two chat "
+        f"constraints, a bad regex answered 400; samples {samples}")
+    return out
+
+
+def host_tier_phase(engine) -> dict:
+    """The host-offload KV tier on an Engine over ``engine``'s weights (the
+    served layout stacked again) with a pool of one prompt's 16 pages of
+    64: a prompt of HOST_TIER_PROMPT tokens, served again from the device
+    cache (A), evicted to the host by a second prompt, served from the host
+    (B), greedy with 16 tokens. A and B must be equal in tokens and logprob
+    bits (the same cached pages through the same chunked tail; a restored
+    page holds the bits spilled), pages spilled and restored, K4 launched on
+    B. Then the spill and the restore of those pages timed (CUDA events)."""
+    import numpy as np
+    import torch
+
+    from prime_rl_tpu_torch.sampler.cache import CacheConfig
+    from prime_rl_tpu_torch.sampler.engine import Engine, SamplingParams
+
+    spec, ps = engine.spec, 64
+    layers = engine.params["layers"]
+    params = {k: v for k, v in engine.params.items() if k != "layers"}
+    params["layers"] = {k: torch.stack([lp[k] for lp in layers]) for k in layers[0]}
+    n_pages = -(-(HOST_TIER_PROMPT + 16) // ps)
+    tier = Engine(params, spec, CacheConfig(num_pages=n_pages + 1, page_size=ps, max_slots=2,
+                                            max_seq_len=2048, host_cache_mb=HOST_TIER_MB),
+                  device="cuda", compute_dtype=torch.bfloat16, seed=SEED)
+    rng = np.random.default_rng(SEED + 24)
+    p1, p2 = (rng.integers(0, spec.vocab_size, HOST_TIER_PROMPT).tolist() for _ in range(2))
+    sp = SamplingParams(max_tokens=16, temperature=0.0, ignore_eos=True)
+    t0 = time.perf_counter()
+    tier.generate([p1], sp)
+    a = tier.generate([p1], sp)[0]  # the device prefix cache's pages
+    hashed = (HOST_TIER_PROMPT - 1) // ps
+    if tier.stats["prefill_tokens_cached"] != hashed * ps:
+        raise AssertionError(f"host tier: the second run hit {tier.stats['prefill_tokens_cached']}"
+                             f" cached tokens, expected {hashed * ps}")
+    tier.generate([p2], sp)  # evicts p1's pages: they spill to the host
+    spilled = tier.stats.get("kv_pages_spilled", 0)
+    b_launches: dict = {}
+    with uncounted(b_launches):
+        b = tier.generate([p1], sp)[0]
+    restored = tier.stats.get("kv_pages_restored", 0)
+    wall = time.perf_counter() - t0
+    if spilled < hashed or restored != hashed:
+        raise AssertionError(f"host tier: {spilled} pages spilled, {restored} restored; expected "
+                             f"at least {hashed} and {hashed}")
+    if a.token_ids != b.token_ids or a.logprobs != b.logprobs:
+        raise AssertionError(f"host tier: the run from the host differs from the device hit: "
+                             f"{a.token_ids} / {b.token_ids}, {a.logprobs} / {b.logprobs}")
+    if b_launches.get("decode_paged_attention", 0) <= 0:
+        raise AssertionError(f"host tier: K4 did not launch on the restored run: {b_launches}")
+    # the spill and the restore of the prompt's pages, alone
+    from prime_rl_tpu_torch.sampler.cache import hash_pages
+
+    hashes = hash_pages(p1[:hashed * ps], ps, salt=tier._salt(sp))
+    slot, _ = tier.slots.acquire(hashed * ps)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    n = tier._restore_host_pages(hashes, 0, slot)
+    ev[1].record()
+    pages = [int(x) for x in tier.slots.page_table[slot][:n]]
+    for page, h in zip(pages, hashes):  # each page back into its own row: the same bits
+        tier._page_to_host(page, tier._host_tier[h])
+    ev[2].record()
+    torch.cuda.synchronize()
+    tier.slots.cancel_donation(slot)
+    tier.slots.release(slot)
+    page_bytes = tier._host_rows[0].nbytes
+    out = {"host_tier_pages_spilled": spilled, "host_tier_pages_restored": restored,
+           "host_tier_restore_ms": ev[0].elapsed_time(ev[1]),
+           "host_tier_spill_ms": ev[1].elapsed_time(ev[2]), "host_tier_pages_timed": n,
+           "host_tier_page_bytes": page_bytes, "host_tier_wall_s": wall,
+           "launches_host_tier": b_launches}
+    log(f"host tier: {spilled} pages spilled, {restored} restored; the run from the host equals "
+        f"the device hit bit for bit ({len(b.token_ids)} tokens); {n} pages of {page_bytes} "
+        f"bytes restored in {out['host_tier_restore_ms']:.3f} ms "
+        f"({n * page_bytes / out['host_tier_restore_ms'] / 1e6:.2f} GB/s), spilled in "
+        f"{out['host_tier_spill_ms']:.3f} ms "
+        f"({n * page_bytes / out['host_tier_spill_ms'] / 1e6:.2f} GB/s); launches on B "
+        f"{b_launches}")
+    del tier, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def decode_step_rounds(engine, variants: dict, rounds: int = 3) -> dict:
+    """``decode_step_timing`` of each variant (its keyword arguments) in
+    turn, ``rounds`` times over (the host's speed drifts within a call):
+    each host figure's median over the rounds; the busy figures (device
+    time, which the host's drift does not move) from the first round."""
+    import numpy as np
+
+    runs = {name: [] for name in variants}
+    for i in range(rounds):
+        for name, kw in variants.items():
+            runs[name].append(decode_step_timing(engine, busy=i == 0, **kw))
+    return {name: {k: rs[0][k] if "busy" in k else float(np.median([r[k] for r in rs]))
+                   for k in rs[0]} for name, rs in runs.items()}
+
+
+def ms(x: float | None) -> str:
+    return "not measured" if x is None else f"{x:.3f}"
+
+
+async def serving_features_extra(server, port: int) -> dict:
+    """serving-features on phase 14's bf16 server: the constrained requests
+    (their launches counted apart), the host tier, the decode step with no
+    constrained slot, one, and every slot constrained, and with q/k/v in
+    plain PyTorch as under int8, the served weights' bytes."""
+    engine = server.engine
+    t0 = time.perf_counter()
+    counts: dict = {}
+    with uncounted(counts):
+        out = await constrained_phase(server, port)
+    out["launches_constrained"] = counts
+    missing = [k for k in ("flash_attn_fwd", "decode_qkv_prep", "decode_paged_attention")
+               if counts.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"constrained decoding did not launch {missing}: {counts}")
+    with uncounted(), engine._step_lock:
+        out.update(host_tier_phase(engine))
+        # the bf16 weights with q/k/v in plain PyTorch, as under int8 (an
+        # empty bank on every layer turns K3 off and adds nothing)
+        plain = dict(engine.params, layers=[dict(lp, lora={}) for lp in engine.params["layers"]])
+        t = decode_step_rounds(engine, {"none": {}, "one": {"n_cons": 1},
+                                        "all": {"n_cons": SERVING_FEATURE_SLOTS},
+                                        "no_k3": {"params": plain}})
+        del plain
+        engine._flush_prefix()  # the timing wrote the pool's pages
+    for name, fig in t.items():
+        out.update({f"decode_{k}_{name}": v for k, v in fig.items()})
+    out["weight_bytes"] = weight_bytes(engine.params)
+    out["serving_features_bf16_s"] = time.perf_counter() - t0
+    none, one, every, no_k3 = t["none"], t["one"], t["all"], t["no_k3"]
+    log(f"serving-features: the decode step at {SERVING_FEATURE_SLOTS} slots of "
+        f"{SERVING_FEATURE_CACHED} tokens, host / busy ms (host: medians of 3 rounds): "
+        f"{none['host_ms']:.3f} / {ms(none['busy_ms'])} with no constrained slot, "
+        f"{one['host_ms']:.3f} / {ms(one['busy_ms'])} with one (the mask alone "
+        f"{one['mask_host_ms']:.3f} / {ms(one['mask_busy_ms'])}), {every['host_ms']:.3f} / "
+        f"{ms(every['busy_ms'])} with {SERVING_FEATURE_SLOTS} (the mask alone "
+        f"{every['mask_host_ms']:.3f} / {ms(every['mask_busy_ms'])}), {no_k3['host_ms']:.3f} / "
+        f"{ms(no_k3['busy_ms'])} with q/k/v in plain PyTorch (no K3, as under int8); bf16 "
+        f"weights {out['weight_bytes']} bytes; {out['serving_features_bf16_s']:.1f} s")
+    return out
+
+
+async def int8_extra(server, port: int) -> dict:
+    """The int8 server's weights' bytes and its decode step at the bf16
+    server's load."""
+    engine = server.engine
+    with uncounted(), engine._step_lock:
+        step = decode_step_rounds(engine, {"int8": {}})["int8"]
+        engine._flush_prefix()
+    out = {"weight_bytes": weight_bytes(engine.params), "decode_busy_ms": step["busy_ms"],
+           "decode_host_ms": step["host_ms"]}
+    log(f"int8 serving: weights {out['weight_bytes']} bytes; the decode step at "
+        f"{SERVING_FEATURE_SLOTS} slots of {SERVING_FEATURE_CACHED} tokens: host "
+        f"{step['host_ms']:.3f} / busy {ms(step['busy_ms'])} ms (host: medians of 3 rounds)")
     return out
 
 
@@ -4908,7 +5307,7 @@ def run_loop(card: str, started: dict,
 
 
 LORA_CONFIG = os.path.join("configs", "examples", "qwen3_0.6b_rl_lora.toml")
-LORA_TRAIN_STEPS = 4  # alternating between two tenants
+LORA_TRAIN_STEPS = 4  # alternating between two tenants: each is reloaded once
 LORA_ROW = 4096  # tokens a packed fake row
 LORA_ROWS, LORA_MB = 2, 2  # rows a micro-batch, micro-batches a step
 LORA_LR = 2e-3  # large for LoRA, so that 2 steps give each tenant an adapter that shows
@@ -4965,15 +5364,19 @@ def lora_config(spec):
 
 
 @contextlib.contextmanager
-def uncounted():
-    """Launches made in the block (a check's references, a timing) are taken
-    back out of the kernels' counts: the counts keep the path's own."""
+def uncounted(into: dict | None = None):
+    """Launches made in the block (a check's references, a timing, a path
+    counted apart) are taken back out of the kernels' counts: the counts
+    keep the path's own. ``into`` gets the block's launches, counted from 0."""
     from prime_rl_tpu_torch.ops import _build
 
     saved = dict(_build.launches)
+    _build.reset_launches()
     try:
         yield
     finally:
+        if into is not None:
+            into.update(_build.launches)
         _build.launches.clear()
         _build.launches.update(saved)
 
@@ -5365,7 +5768,8 @@ def finish_lora_loop(card: str, started: dict) -> dict:
 
 # ---- the wide kernel forms and Qwen3-VL ----------------------------------------
 
-QWEN3_VL_TRAIN_LAYERS = 16  # of 36: the trunk beside the whole tower (27 blocks), see PERF.md
+QWEN3_VL_SERVE_LAYERS = 4  # of 36 (36, then 12 before the last cuts), the whole tower beside
+QWEN3_VL_TRAIN_LAYERS = 4  # of 36 (16, then 8 before the last cuts): the trunk beside the whole tower (27 blocks), see PERF.md
 QWEN3_VL_ROW = 4096  # tokens a packed training row
 # the packed row of the kernel rows: two image samples and two text samples
 QWEN3_VL_PACKING = [1269, 997, 1100, 730]
@@ -5907,11 +6311,15 @@ def vlm_tower_timing(engine, label: str = QWEN3_VL) -> dict:
 
 
 def qwen3_vl_serving_phase(card: str) -> tuple[dict, dict]:
-    """The inference server on Qwen3-VL-8B at full width and depth (36
-    layers, the 27-block tower; random weights from the seed) over HTTP
-    (``vlm_serving``). Returns (stats, launches of the image requests)."""
-    return vlm_serving(card, QWEN3_VL, config_dir("qwen3_vl_serving", QWEN3_VL_8B_CONFIG),
-                       (36, 27, 151936),
+    """The inference server on Qwen3-VL-8B at full width, the trunk cut to
+    ``QWEN3_VL_SERVE_LAYERS`` of 36 beside the 27-block tower (random weights
+    from the seed), over HTTP (``vlm_serving``). Returns (stats, launches of
+    the image requests)."""
+    text = dict(QWEN3_VL_8B_CONFIG["text_config"], num_hidden_layers=QWEN3_VL_SERVE_LAYERS)
+    log(f"qwen3_vl_serving: text_config.num_hidden_layers cut from 36 to {QWEN3_VL_SERVE_LAYERS}")
+    return vlm_serving(card, QWEN3_VL, config_dir("qwen3_vl_serving", dict(
+                           QWEN3_VL_8B_CONFIG, text_config=text)),
+                       (QWEN3_VL_SERVE_LAYERS, 27, 151936),
                        ("flash_attn_fwd", "decode_qkv_prep", "decode_paged_attention"))
 
 
@@ -6485,7 +6893,21 @@ def main() -> int:
     next_train_launches, next_train_numbers = timed("qwen3-next-vl-training",
                                                     qwen3_next_vl_training_phase, card)
 
-    stats, launches = timed("reference + serving", serve, MODEL, 28, 151936, reference_phase)
+    stats, launches = timed("reference + serving", serve, MODEL, 28, 151936, reference_phase,
+                            False, None, 0, serving_features_extra)
+    t_int8 = time.perf_counter()
+    int8_stats, int8_launches = timed("serving-features int8", serve, MODEL, 28, 151936,
+                                      reference_phase, False, None, 0, int8_extra, None, None,
+                                      "int8")
+    log(f"phase serving-features: "
+        f"{stats['serving_features_bf16_s'] + time.perf_counter() - t_int8:.1f} s (the bf16 "
+        f"server's constrained requests, host tier and timings, then the int8 server)")
+    log(f"int8 against bf16 on {card}: weights {int8_stats['weight_bytes']} / "
+        f"{stats['weight_bytes']} bytes; the decode step at {SERVING_FEATURE_SLOTS} slots of "
+        f"{SERVING_FEATURE_CACHED} tokens host {int8_stats['decode_host_ms']:.3f} / "
+        f"{stats['decode_host_ms_none']:.3f} ms, busy {ms(int8_stats['decode_busy_ms'])} / "
+        f"{ms(stats['decode_busy_ms_none'])} ms; serving {int8_stats['generate_tokens_per_s']:.1f} / "
+        f"{stats['generate_tokens_per_s']:.1f} tokens/s")
     timed("gpt-oss-reference", gpt_oss_reference_phase)
     oss_stats, oss_launches = timed("gpt-oss-serving", serve, GPT_OSS, GPT_OSS_SERVE_LAYERS,
                                     201088, None, False, GPT_OSS_SERVE_LAYERS)
@@ -6495,7 +6917,8 @@ def main() -> int:
                                     151936, None, True, QWEN3_MOE_SERVE_LAYERS)
     timed("glm4-moe-reference", served_moe_reference, GLM,
           ("flash_attn_fwd", "decode_qkv_prep", "decode_paged_attention/chunked"))
-    glm_stats, glm_launches = timed("glm4-moe-serving", serve, GLM, 4, 151552, None, True, 4)
+    glm_stats, glm_launches = timed("glm4-moe-serving", serve, GLM, GLM_SERVE_LAYERS, 151552,
+                                    None, True, GLM_SERVE_LAYERS)
     gc.collect()
     torch.cuda.empty_cache()
     minimax_stats, minimax_launches = timed(
@@ -6544,6 +6967,7 @@ def main() -> int:
     # the JAX package does; GLM-5's serving prefill runs K5a
     for path, counts in (("MiniMax-M2 serving", minimax_launches),
                          ("MiniMax-M2 reference", minimax_ref_launches),
+                         ("Qwen3-0.6B int8 serving", int8_launches),
                          ("qwen3_next_vl serving", next_launches),
                          ("qwen3_next_vl reference", nvl_ref_launches["serve"]),
                          ("Nemotron-H serving", nem_launches),
@@ -6585,7 +7009,10 @@ def main() -> int:
                  "launches_qwen3_vl_training": vl_train_launches,
                  "launches_qwen3_vl_serving": vl_launches,
                  "launches_qwen3_vl_reference": vl_ref,
-                 "launches_vlm_loop": vlm_loop_launches}
+                 "launches_vlm_loop": vlm_loop_launches,
+                 "launches_constrained": stats["launches_constrained"],
+                 "launches_int8_serving": int8_launches,
+                 "launches_host_tier": stats["launches_host_tier"]}
     k12 = ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
     path_kernels = {"launches_sft": k12, "launches_moe_training": k12,
                     "launches_moe_serving": ("flash_attn_fwd", "decode_qkv_prep",
@@ -6613,7 +7040,11 @@ def main() -> int:
                                                   "decode_paged_attention"),
                     "launches_qwen3_vl_reference": k12 + ("decode_qkv_prep",
                                                           "decode_paged_attention"),
-                    "launches_vlm_loop": k12 + ("decode_qkv_prep",)}
+                    "launches_vlm_loop": k12 + ("decode_qkv_prep",),
+                    "launches_constrained": ("flash_attn_fwd", "decode_qkv_prep",
+                                             "decode_paged_attention"),
+                    "launches_int8_serving": ("flash_attn_fwd", "decode_paged_attention"),
+                    "launches_host_tier": ("decode_paged_attention",)}
     for row in rows:
         name = row["name"]
         for key, kernels in path_kernels.items():
@@ -6694,8 +7125,9 @@ def main() -> int:
             raise AssertionError(f"kernel {name} was not launched on the path that runs it")
         if name in LOOP_KERNELS:
             row["launches_loop"] = loop_launches[name]
-        if name == "decode_qkv_prep":  # absent on the bank path: checked to be 0
+        if name == "decode_qkv_prep":  # absent on the bank and int8 paths: checked to be 0
             row["launches_lora_serving"] = lora_launches.get(name, 0)
+            row["launches_int8_serving"] = int8_launches.get(name, 0)
     log(f"launches on the serving path: {launches}")
     log(f"launches on the training path: {train_launches}")
     log(f"launches on the DSA training path: {dsa_launches}")
@@ -6706,11 +7138,14 @@ def main() -> int:
     log(f"launches on the Qwen3-30B-A3B serving path: {moe_launches}")
     log(f"launches on the GLM-4.5-Air serving path: {glm_launches}")
     log(f"serving stats: {json.dumps(stats)}")
+    log(f"int8 serving stats on {card}: {json.dumps(int8_stats)}")
+    log(f"launches on the int8 serving path: {int8_launches}")
     log(f"gpt-oss serving stats: {json.dumps(oss_stats)}")
     log(f"sft on {card}: {json.dumps(sft_numbers)}")
     log(f"qwen3-moe training on {card}: {json.dumps(moe_train_numbers)}")
     log(f"Qwen3-30B-A3B serving stats on {card}: {json.dumps(moe_stats)}")
-    log(f"GLM-4.5-Air (4 layers) serving stats on {card}: {json.dumps(glm_stats)}")
+    log(f"GLM-4.5-Air ({GLM_SERVE_LAYERS} layers) serving stats on {card}: "
+        f"{json.dumps(glm_stats)}")
     log(f"launches on the MiniMax-M2 training path: {minimax_train_launches}")
     log(f"launches on the MiniMax-M2 serving path: {minimax_launches}")
     log(f"launches on the AFMoE and Laguna reference paths: {json.dumps(gated_launches)}")

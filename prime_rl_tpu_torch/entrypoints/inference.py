@@ -10,7 +10,6 @@ from prime_rl_tpu_torch.configs import InferenceConfig, parse_config
 def check_supported(config: InferenceConfig) -> None:
     """Raise for what the port's engine does not serve yet."""
     unsupported = [name for name, on in (
-        ("int8 quantization", config.quantization is not None),
         ("the weight plane", config.weight_plane is not None),
         ("P/D roles", config.server.role != "mixed")) if on]
     if unsupported:
@@ -84,7 +83,7 @@ def build_server(config: InferenceConfig):
                     decode_block=config.scheduler.decode_block,
                     collect_routed_experts=config.collect_routed_experts,
                     gdn_precision=config.model.gdn_mxu_precision,
-                    lora_config=config.lora)
+                    lora_config=config.lora, quantize=config.quantization)
     del params  # the engine holds its own serving layout
     if config.scheduler.warmup_requests > 0:
         engine.warmup(config.scheduler.warmup_requests)

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from prime_rl_tpu_torch.models.base import ModelSpec
+from prime_rl_tpu_torch.ops.layers import weight_mm
 
 Params = dict
 
@@ -136,10 +137,11 @@ def init_lora(spec: ModelSpec, cfg, generator: torch.Generator, dtype=torch.floa
     return {"layers": layers}
 
 
-def apply_lora_proj(x: torch.Tensor, w: torch.Tensor, lora_layer: dict | None, name: str,
+def apply_lora_proj(x: torch.Tensor, w, lora_layer: dict | None, name: str,
                     scale: float) -> torch.Tensor:
-    """y = x·W (+ scale · (x·A)·B), the adapter's products in x's dtype."""
-    y = torch.matmul(x, w)
+    """y = x·W (+ scale · (x·A)·B), the adapter's products in x's dtype.
+    ``w`` may be an int8 weight-only record (serving, ``ops/layers.weight_mm``)."""
+    y = weight_mm(x, w)
     if lora_layer is not None and f"{name}_a" in lora_layer:
         a = lora_layer[f"{name}_a"].to(x.dtype)
         b = lora_layer[f"{name}_b"].to(x.dtype)

@@ -154,7 +154,8 @@ def mla_absorbed_qkv(x, lp, spec: ModelSpec, position_ids, inv_freq, ll=None,
     nope, kvl, vh = spec.qk_nope_head_dim, spec.kv_lora_rank, spec.v_head_dim
 
     if "q_a" in lp:
-        q_lat = rms_norm(torch.matmul(x, lp["q_a"]), lp["q_a_norm"], spec.rms_eps)
+        q_lat = rms_norm(apply_lora_proj(x, lp["q_a"], None, "q_a", 1.0), lp["q_a_norm"],
+                         spec.rms_eps)
         q = apply_lora_proj(q_lat, lp["q_b"], ll, "q_b", lora_scale).reshape(B, L, H, qk)
     else:
         q_lat = None

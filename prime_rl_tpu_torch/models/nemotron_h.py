@@ -32,7 +32,7 @@ from prime_rl_tpu_torch.models.qwen3 import layer_remat, parse_remat, run_layer
 from prime_rl_tpu_torch.models.qwen3 import trunc_normal
 from prime_rl_tpu_torch.models.qwen3_moe import check_forward_args, forced_by_layer
 from prime_rl_tpu_torch.ops.attention import attention
-from prime_rl_tpu_torch.ops.layers import rms_norm
+from prime_rl_tpu_torch.ops.layers import rms_norm, weight_mm
 from prime_rl_tpu_torch.ops.mamba import mamba2_mixer
 from prime_rl_tpu_torch.ops.moe import moe_mlp
 
@@ -192,7 +192,7 @@ def latent_moe(x: torch.Tensor, lp: dict, spec: ModelSpec, forced=None, lora=Non
     if "fc2_latent" in lp:
         out = out @ lp["fc2_latent"]
     out = out.reshape(*lead, d)
-    return out + relu2(x @ lp["shared_up"]) @ lp["shared_down"], routing
+    return out + weight_mm(relu2(weight_mm(x, lp["shared_up"])), lp["shared_down"]), routing
 
 
 def moe_block(h, lp, spec: ModelSpec, compute_dtype, forced=None, lora=None,

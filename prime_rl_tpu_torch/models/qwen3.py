@@ -34,6 +34,7 @@ from prime_rl_tpu_torch.ops.layers import (
     rms_norm,
     rope_frequencies,
     swiglu,
+    weight_mm,
     yarn_rope_parameters,
 )
 
@@ -216,7 +217,7 @@ def apply_attn_gate(o: torch.Tensor, x: torch.Tensor, lp: dict, spec: ModelSpec)
     scalar a head, the softplus in float32 (Laguna)."""
     if not spec.attn_gate:
         return o
-    g = torch.matmul(x, lp["attn_gate"])
+    g = weight_mm(x, lp["attn_gate"])
     if spec.attn_gate == "sigmoid":
         return o * torch.sigmoid(g).reshape(o.shape)
     if spec.attn_gate == "softplus_head":

@@ -43,7 +43,7 @@ from prime_rl_tpu_torch.models.qwen3 import trunc_normal
 from prime_rl_tpu_torch.models.qwen3_moe import check_forward_args, forced_by_layer
 from prime_rl_tpu_torch.models.qwen3_vl import _mrope_positions, embed_mm
 from prime_rl_tpu_torch.ops.gated_delta import chunk_gated_delta_rule
-from prime_rl_tpu_torch.ops.layers import rms_norm, swiglu
+from prime_rl_tpu_torch.ops.layers import rms_norm, swiglu, weight_mm
 from prime_rl_tpu_torch.ops.mamba import causal_conv1d
 from prime_rl_tpu_torch.ops.moe import moe_mlp
 
@@ -141,11 +141,12 @@ def gdn_inputs(x: torch.Tensor, lp: dict, spec: ModelSpec):
     """The GatedDeltaNet's projections of the normed input x [..., D]: (raw
     q|k|v [..., conv_dim] before the conv, beta [..., Hv], g [..., Hv] the
     float32 log decay, z [..., Hv, Dv] the gate of the output norm)."""
-    raw = torch.cat([x @ lp["in_q"], x @ lp["in_k"], x @ lp["in_v"]], dim=-1)
-    beta = torch.sigmoid(x @ lp["in_b"])
+    raw = torch.cat([weight_mm(x, lp["in_q"]), weight_mm(x, lp["in_k"]),
+                     weight_mm(x, lp["in_v"])], dim=-1)
+    beta = torch.sigmoid(weight_mm(x, lp["in_b"]))
     g = -torch.exp(lp["A_log"].float()) * torch.nn.functional.softplus(
-        (x @ lp["in_a"]).float() + lp["dt_bias"].float())
-    z = (x @ lp["in_z"]).reshape(*x.shape[:-1], spec.gdn_v_heads, spec.gdn_v_dim)
+        weight_mm(x, lp["in_a"]).float() + lp["dt_bias"].float())
+    z = weight_mm(x, lp["in_z"]).reshape(*x.shape[:-1], spec.gdn_v_heads, spec.gdn_v_dim)
     return raw, beta, g, z
 
 
@@ -170,7 +171,7 @@ def gdn_output(h: torch.Tensor, core: torch.Tensor, z: torch.Tensor, lp: dict,
     [..., Hv, Dv], projected out and added to h."""
     core = rms_norm(core.to(compute_dtype), lp["gdn_norm"], spec.rms_eps)
     core = core * torch.nn.functional.silu(z.float()).to(core.dtype)
-    return h + core.reshape(*core.shape[:-2], spec.gdn_value_dim) @ lp["out_proj"]
+    return h + weight_mm(core.reshape(*core.shape[:-2], spec.gdn_value_dim), lp["out_proj"])
 
 
 def gdn_mixer(h: torch.Tensor, lp: dict, spec: ModelSpec, segment_ids: torch.Tensor,

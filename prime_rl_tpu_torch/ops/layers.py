@@ -11,6 +11,16 @@ import torch
 import torch.nn.functional as F
 
 
+def weight_mm(x: torch.Tensor, w) -> torch.Tensor:
+    """x @ w for a raw weight [in, out], or for an int8 weight-only record
+    ``{"q8": int8 [in, out], "scale": f32 [out]}`` (``sampler/model.
+    quantize_params``): the product with the int8 weight cast to x's dtype,
+    then the per-column scale in x's dtype, in the JAX package's order."""
+    if isinstance(w, dict):
+        return torch.matmul(x, w["q8"].to(x.dtype)) * w["scale"].to(x.dtype)
+    return torch.matmul(x, w)
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm in fp32 with cast back to input dtype (matches HF Qwen/Llama)."""
     dtype = x.dtype

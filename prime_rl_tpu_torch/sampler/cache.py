@@ -37,7 +37,8 @@ class CacheConfig:
     # incremental prefill chunk (page multiple): prompts longer than the
     # largest bucket — or with a cached prefix — prefill in chunks of this size
     prefill_chunk: int = 1024
-    # host-offload KV tier (not ported yet: must stay 0)
+    # host-offload KV tier: evicted prefix-cache pages spill to host memory
+    # (the engine's LRU, bounded by this many MiB; 0 = off)
     host_cache_mb: int = 0
     # hybrid (GDN) prefix caching: host budget for recurrent-state
     # checkpoints taken at the last full-page boundary of each prompt; a later
@@ -228,8 +229,10 @@ class PrefixCache:
         self.entries[h] = _CacheEntry(page, refs=0, tick=self._tick)
         return True
 
-    def evict(self, need: int) -> list[int]:
-        """Free up to ``need`` idle pages, least-recently-used first."""
+    def evict(self, need: int, sink=None) -> list[int]:
+        """Free up to ``need`` idle pages, least-recently-used first.
+        ``sink(hash, page)`` is called for each before the page returns to
+        the free list (the engine's host-offload tier)."""
         idle = sorted(
             ((h, e) for h, e in self.entries.items() if e.refs <= 0),
             key=lambda kv: kv[1].tick,
@@ -237,6 +240,8 @@ class PrefixCache:
         out = []
         for h, e in idle[:need]:
             del self.entries[h]
+            if sink is not None:
+                sink(h, e.page)
             out.append(e.page)
         return out
 
@@ -309,12 +314,14 @@ class SlotTable:
         self.cache = PrefixCache() if enable_prefix_cache else None
         self.epoch = 0
         self._meta: dict[int, _SlotMeta] = {}
+        # the host-offload tier's spill hook: sink(hash, page) on each eviction
+        self.evict_sink = None
 
     def _reclaim(self, need_pages: int) -> None:
         """Evict idle cache pages back into the free list if short."""
         short = need_pages - self.alloc.num_free
         if short > 0 and self.cache is not None:
-            self.alloc.free.extend(self.cache.evict(short))
+            self.alloc.free.extend(self.cache.evict(short, sink=self.evict_sink))
 
     def acquire(self, num_tokens: int, prompt_hashes: list[int] | None = None,
                 max_shared: int | None = None) -> tuple[int, int] | None:

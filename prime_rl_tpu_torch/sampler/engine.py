@@ -63,12 +63,33 @@ Architecture:
   seeds the slot's recurrent rows, and it never reads or writes the
   recurrent-state tier (it has no page hashes), as in the JAX engine.
 
-Constrained decoding, P/D KV extraction/injection and the host KV tier are
-later slices: requests that ask for them raise ``NotImplementedError``.
+- Constrained decoding (``SamplingParams.json_schema`` / ``regex``,
+  ``sampler/constrain.py``): a bank of ``CONS_BANK`` byte-DFA rows on the
+  device, and each slot's bank row and DFA state (the state BEFORE its input
+  token) on the device with a host mirror of the rows. The prefill masks
+  the first token from state 0; each decode step advances the constrained
+  slots' states by their input tokens and masks the next token's logits to
+  the tokens whose bytes keep the DFA alive, eos only in an accepting state
+  or at a dead end, all on the stream (``_cons_mask``). A block with no live
+  constrained slot runs none of it. Hybrids refuse constrained requests, as
+  in the JAX engine.
+- int8 weight-only serving (``quantize="int8"``): the served weights are
+  quantized after the cast to the compute dtype and the unstacking, on load
+  and on every swap (``sampler/model.quantize_params``).
+- Host-offload KV tier (``CacheConfig.host_cache_mb`` > 0, with the prefix
+  cache, not for MLA or hybrids): a prefix-cache page evicted from the pool
+  is copied first into a row of a pinned host pool that grows in slabs
+  (doubling) up to as many pages as ``host_cache_mb`` holds (LRU),
+  and a later prompt whose device chain ends where the host tier continues
+  it gets those pages written back into its own pages before its prefill.
+
+P/D KV extraction/injection is a later slice: requests that ask for it
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import json
 import threading
 import time
 from collections import OrderedDict, deque
@@ -79,6 +100,7 @@ import numpy as np
 import torch
 
 from prime_rl_tpu_torch.models.base import ModelSpec
+from prime_rl_tpu_torch.sampler import constrain
 from prime_rl_tpu_torch.sampler import model as smodel
 from prime_rl_tpu_torch.sampler.cache import (
     CacheConfig,
@@ -108,8 +130,10 @@ class SamplingParams:
     cache_salt: str | None = None
     # serve base + this loaded adapter (multi-LoRA bank; None = the base)
     adapter: str | None = None
-    # the fields below belong to later slices; requests setting them raise
+    # P/D KV extraction belongs to a later slice: requests setting it raise
     extract_kv: bool = False
+    # constrained decoding: a JSON schema or a regex compiled to a byte DFA
+    # (sampler/constrain.py); the output must match it
     json_schema: dict | None = None
     regex: str | None = None
 
@@ -269,8 +293,14 @@ class Engine:
         collect_routed_experts: bool = False,  # record decode-time MoE routing
         gdn_precision: str = "highest",  # ModelConfig.gdn_mxu_precision (hybrids)
         lora_config=None,  # ServingLoRAConfig: enables the multi-LoRA bank
+        quantize: str | None = None,  # "int8": weight-only int8 serving
+        token_bytes: list[bytes] | None = None,  # vocab id -> raw bytes, needed
+        # by constrained decoding (the server sets it from its tokenizer)
     ):
         smodel.check_supported(spec)
+        if quantize not in (None, "int8"):
+            raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
+        self.quantize = quantize
         self.spec = spec
         self.gdn_precision = gdn_precision
         self._collect_routed = bool(collect_routed_experts and spec.is_moe)
@@ -288,9 +318,6 @@ class Engine:
             self._init_lora_bank()
         self.params = self._prepare_params(params)
         self.config = cache_config or CacheConfig()
-        if self.config.host_cache_mb > 0:
-            raise NotImplementedError("the host-offload KV tier is not ported yet "
-                                      "(host_cache_mb must be 0)")
         pool = KVPool(spec, self.config, dtype=compute_dtype, device=self.device)
         self.k_pool, self.v_pool = pool.k, pool.v
         self.is_hybrid = bool(spec.gdn_pattern or spec.layer_pattern)
@@ -304,6 +331,18 @@ class Engine:
         self._state_tier: OrderedDict | None = (
             OrderedDict() if self.is_hybrid and prefix_ok else None)
         self._state_tier_bytes = 0
+        # host-offload KV tier: page-chain hash -> a row of the host pool,
+        # LRU; the pool's rows ([2, NL, NKV, PS, HD] each, pinned on the card)
+        # are views into slabs allocated as the tier fills, each doubling the
+        # rows, up to as many as host_cache_mb holds
+        self._host_tier: OrderedDict | None = None
+        self._host_tier_bytes = 0
+        self._host_rows: list[torch.Tensor] = []
+        self._host_free: list[int] = []
+        if (self.config.host_cache_mb > 0 and prefix_ok and spec.kv_lora_rank == 0
+                and not self.is_hybrid):
+            self._host_tier = OrderedDict()
+            self.slots.evict_sink = self._spill_page
         self.pending: deque[_Request] = deque()
         self.active: dict[int, _Active] = {}
         self.paused = False
@@ -355,6 +394,28 @@ class Engine:
         self._shadow_lengths = np.zeros((s,), np.int64)  # host mirror (exact)
         self._host_limit = np.zeros((s,), np.int64)  # device limit mirror
 
+        # constrained decoding: the DFA bank (uploaded on first use) and each
+        # slot's bank row and DFA state on the device, the rows mirrored on
+        # the host; a released slot's mirror stays >= 0 until the slot is
+        # admitted again, so that the admission clears the device row. A
+        # state on the device is global: row * CONS_STATES + the DFA's state,
+        # the dead state (-1 in the DFA) the row's sink CONS_STATES - 1
+        self.token_bytes = token_bytes
+        self.CONS_BANK = 4  # concurrent distinct constraints
+        self.CONS_STATES = constrain.MAX_STATES + 1  # a bank row's states, its sink last
+        self.CONS_SYMBOLS = 257  # the 256 bytes and the no-op that pads a short token
+        self._cons_cache: OrderedDict = OrderedDict()  # key -> CompiledConstraint, LRU
+        self._cons_bank_keys: list[str | None] = [None] * self.CONS_BANK
+        self._cons_bank_refs = [0] * self.CONS_BANK
+        self._h_cons_idx = np.full((s,), -1, np.int64)
+        self._d_cons_idx = torch.full((s,), -1, dtype=torch.int64, device=dev)
+        self._d_dfa = torch.zeros((s,), dtype=torch.int64, device=dev)
+        self._d_cons_trans = None  # [CONS_BANK * CONS_STATES * CONS_SYMBOLS] int64, flat
+        self._d_cons_accept = None  # [CONS_BANK * CONS_STATES] bool, flat
+        self._d_cons_alive = None  # the same, False at the sinks
+        self._tok_tables = None  # the vocabulary's byte tables (_ensure_token_tables)
+        self._cons_active = 0  # live constrained slots: the decode block's gate
+
     # -- device helpers -----------------------------------------------------
 
     def _to_dev(self, arr) -> torch.Tensor:
@@ -366,17 +427,21 @@ class Engine:
         return t
 
     def _prepare_params(self, params: dict) -> dict:
-        """Cast to the compute dtype on the engine's device, then unstack
-        into the serving layout. Tensors already on the device in the
-        compute dtype are shared with the caller, who must not modify them
-        in place."""
+        """Cast to the compute dtype on the engine's device, unstack into the
+        serving layout, then (``quantize="int8"``) quantize: the int8 bits
+        are those of the compute-dtype weights, as in the JAX engine. Tensors
+        already on the device in the compute dtype are shared with the
+        caller, who must not modify them in place."""
 
         def prep(x):
             if isinstance(x, dict):
                 return {k: prep(v) for k, v in x.items()}
             return x.to(device=self.device, dtype=self.compute_dtype)
 
-        return self._attach_lora(smodel.unstack_params(prep(params), self.spec))
+        out = smodel.unstack_params(prep(params), self.spec)
+        if self.quantize == "int8":
+            out = smodel.quantize_params(out, self.spec)
+        return self._attach_lora(out)
 
     # -- multi-LoRA bank ----------------------------------------------------
 
@@ -483,6 +548,163 @@ class Engine:
     def _filtering(self, slots) -> bool:
         return bool(np.any((self._h_topp[slots] < 1.0) | (self._h_topk[slots] > MAX_TOP_K)))
 
+    # -- constrained decoding -----------------------------------------------
+
+    def _ensure_token_tables(self) -> None:
+        """The vocabulary's byte tables on the device, built on first use:
+        every token's bytes (``constrain.build_token_tables``), past its
+        length the no-op symbol (an empty or over-long token keeps the 16
+        zero bytes the JAX engine walks for it), and the walkable tokens (1
+        to ``MAX_TOKEN_BYTES`` bytes) ordered by length, longest first, so
+        that byte i of the next-token walk reads a prefix of them."""
+        if self._tok_tables is not None:
+            return
+        if self.token_bytes is None:
+            raise ValueError(
+                "constrained decoding needs the vocab's token bytes: construct the "
+                "Engine with token_bytes=constrain.token_bytes_from_tokenizer(tokenizer)")
+        v = self.spec.vocab_size
+        tb = list(self.token_bytes)[:v]
+        tb += [b""] * (v - len(tb))
+        chars, lens = constrain.build_token_tables(tb)
+        lm = chars.shape[1]
+        padded = chars.astype(np.int64)
+        padded[np.arange(lm)[None, :] >= lens[:, None]] = self.CONS_SYMBOLS - 1
+        walk = np.flatnonzero(lens <= lm)
+        walk = walk[np.argsort(-lens[walk], kind="stable")]
+        self._tok_tables = {
+            "chars": self._to_dev(padded),  # [V, Lm]
+            "walk_ids": self._to_dev(walk.astype(np.int64)),  # [W]
+            "walk_chars": self._to_dev(np.ascontiguousarray(chars[walk].T[..., None]
+                                                            .astype(np.int64))),  # [Lm, W, 1]
+            # tokens longer than i bytes, for each byte i (a prefix of walk_ids)
+            "walk_counts": [int((lens[walk] > i).sum()) for i in range(lm)],
+        }
+
+    def _cons_compile(self, sp: SamplingParams) -> constrain.CompiledConstraint:
+        key = ("schema:" + json.dumps(sp.json_schema, sort_keys=True)
+               if sp.json_schema is not None else "regex:" + sp.regex)
+        cc = self._cons_cache.get(key)
+        if cc is None:
+            cc = constrain.CompiledConstraint.from_params(sp.json_schema, sp.regex)
+            self._cons_cache[key] = cc
+            # LRU-bound: per-request schemas would otherwise keep ~0.5 MB tables
+            # forever; a constraint live in the bank stays
+            for old in list(self._cons_cache):
+                if len(self._cons_cache) <= 64:
+                    break
+                if old not in self._cons_bank_keys:
+                    del self._cons_cache[old]
+        else:
+            self._cons_cache.move_to_end(key)
+        return cc
+
+    def _cons_assign(self, cc: constrain.CompiledConstraint) -> int:
+        """The bank row for this constraint (an identical live row is
+        shared); raises when every row holds another live constraint."""
+        if cc.key in self._cons_bank_keys:
+            return self._cons_bank_keys.index(cc.key)
+        for row in range(self.CONS_BANK):
+            if self._cons_bank_refs[row] == 0:
+                self._cons_bank_keys[row] = cc.key
+                self._upload_cons_row(row, cc)
+                return row
+        raise RuntimeError(f"all {self.CONS_BANK} constraint bank rows are busy with "
+                           "distinct live constraints: retry when a request finishes")
+
+    def _upload_cons_row(self, row: int, cc: constrain.CompiledConstraint) -> None:
+        """Bank row ``row`` on the device: for each state and symbol (a byte,
+        or the no-op 256) the global next state, dead going to the row's
+        sink, which never leaves."""
+        ns, nsym = self.CONS_STATES, self.CONS_SYMBOLS
+        if self._d_cons_trans is None:
+            kw = dict(device=self.device)
+            self._d_cons_trans = torch.zeros((self.CONS_BANK * ns * nsym,), dtype=torch.int64,
+                                             **kw)
+            self._d_cons_accept = torch.zeros((self.CONS_BANK * ns,), dtype=torch.bool, **kw)
+            self._d_cons_alive = torch.ones((self.CONS_BANK * ns,), dtype=torch.bool, **kw)
+            self._d_cons_alive[ns - 1::ns] = False
+        base, sink = row * ns, row * ns + ns - 1
+        t = np.full((ns, nsym), sink, np.int64)
+        dfa = cc.dfa
+        t[: dfa.num_states, :256] = np.where(dfa.trans >= 0, base + dfa.trans, sink)
+        t[: ns - 1, nsym - 1] = base + np.arange(ns - 1)
+        a = np.zeros((ns,), bool)
+        a[: dfa.num_states] = dfa.accept
+        self._d_cons_trans[base * nsym:(base + ns) * nsym] = self._to_dev(t.reshape(-1))
+        self._d_cons_accept[base:base + ns] = self._to_dev(a)
+
+    def _set_cons(self, slot: int, cidx: int) -> None:
+        """Assign or clear a slot's bank row and restart its DFA at state 0
+        (written on the device only where it changes something)."""
+        if self._h_cons_idx[slot] == cidx and cidx < 0:
+            return
+        self._h_cons_idx[slot] = cidx
+        if self._d_cons_trans is None and cidx < 0:
+            return  # no constraint ever ran in this engine
+        self._d_cons_idx[slot] = cidx
+        self._d_dfa[slot] = max(cidx, 0) * self.CONS_STATES
+
+    def _cons_release_slot(self, slot: int) -> None:
+        cidx = int(self._h_cons_idx[slot])
+        if cidx >= 0:
+            self._cons_bank_refs[cidx] = max(0, self._cons_bank_refs[cidx] - 1)
+            self._cons_active = max(0, self._cons_active - 1)
+            # the mirror stays >= 0: the device row still holds cidx, and the
+            # slot's next admission must clear it (_set_cons(slot, -1) returns
+            # early on a mirror of -1), or an unconstrained request in this
+            # slot would inherit the mask while another constrained slot keeps
+            # the masked block running; until then the mask gates on `active`
+
+    def _cons_walk(self, st: torch.Tensor, chars: torch.Tensor) -> torch.Tensor:
+        """Each row's global DFA state [R] after the bytes ``chars`` [R, Lm]
+        of its token (the no-op symbol past its length)."""
+        for i in range(chars.shape[1]):
+            st = self._d_cons_trans[torch.add(chars[:, i], st, alpha=self.CONS_SYMBOLS)]
+        return st
+
+    def _cons_allowed(self, st: torch.Tensor) -> torch.Tensor:
+        """[R, V] bool: the tokens whose bytes keep each row's DFA alive from
+        global state ``st`` [R], and eos where the state accepts or nothing
+        else is allowed. The walk runs over the walkable tokens only (the
+        others are never allowed), byte i over those longer than i bytes, two
+        launches a byte."""
+        tt = self._tok_tables
+        sv = st[None, :].expand(tt["walk_ids"].shape[0], st.shape[0]).contiguous()  # [W, R]
+        for i, n in enumerate(tt["walk_counts"]):
+            if n == 0:
+                break
+            cur = sv[:n]
+            idx = torch.add(tt["walk_chars"][i, :n], cur, alpha=self.CONS_SYMBOLS)
+            torch.index_select(self._d_cons_trans, 0, idx.view(-1), out=cur.view(-1))
+        allowed = torch.zeros((st.shape[0], self.spec.vocab_size), dtype=torch.bool,
+                              device=st.device)
+        allowed[:, tt["walk_ids"]] = self._d_cons_alive[sv].T
+        eos = self.spec.eos_token_id
+        allowed[:, eos] = self._d_cons_accept[st] | ~allowed.any(dim=1)
+        return allowed
+
+    def _cons_prefill_bias(self, row: int) -> torch.Tensor:
+        """[V] f32 logits bias of the first token, sampled after the prefill:
+        0 where the constraint's state 0 allows a token, -1e9 elsewhere."""
+        allowed = self._cons_allowed(self._to_dev(np.asarray([row * self.CONS_STATES])))[0]
+        return torch.where(allowed, 0.0, -1e9).to(torch.float32)
+
+    def _cons_mask(self, logits: torch.Tensor, tokens: torch.Tensor, active: torch.Tensor,
+                   rows: torch.Tensor, st: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """One decode step's constraint for the slots ``rows`` [R] (the live
+        constrained ones; ``st`` [R] their global DFA states BEFORE their
+        input tokens): advance each active one by its input token, mask its
+        next token's logits to what the new state allows (-1e9 elsewhere),
+        and return (logits, the states after the input tokens). A frozen
+        slot keeps its state."""
+        is_c = (self._d_cons_idx[rows] >= 0) & active[rows]
+        nst = self._cons_walk(st, self._tok_tables["chars"][tokens[rows]])
+        st = torch.where(is_c, nst, st)
+        allowed = self._cons_allowed(st)
+        logits[rows] = torch.where(is_c[:, None] & ~allowed, -1e9, logits[rows])
+        return logits, st
+
     # -- public API ---------------------------------------------------------
 
     def submit(self, prompt: list[int], params: SamplingParams | None = None,
@@ -491,11 +713,13 @@ class Engine:
         patch_dim] f32, "image_grid_thw": [n, 3]}``, the HF processor's
         outputs for the images whose vision tokens the prompt holds."""
         sp = params or SamplingParams()
-        unsupported = [name for name, on in (
-            ("constrained decoding", sp.constrained), ("P/D KV extraction", sp.extract_kv)) if on]
-        if unsupported:
-            raise NotImplementedError(f"not ported yet: {', '.join(unsupported)}")
+        if sp.extract_kv:
+            raise NotImplementedError("not ported yet: P/D KV extraction")
         req = _Request(list(prompt), sp, Future(), on_token, request_id=request_id, mm=mm)
+        if sp.constrained and self.is_hybrid:
+            req.future.set_exception(ValueError(
+                "constrained decoding is not supported for hybrid-recurrent models"))
+            return req.future
         with self._lock:
             self.pending.append(req)
             if request_id is not None:
@@ -588,8 +812,13 @@ class Engine:
             req.future.set_exception(exc)
 
     def _flush_prefix(self) -> None:
-        """Drop the prefix cache's idle pages and the hybrid state tier."""
+        """Drop the prefix cache's idle pages, the host KV tier and the
+        hybrid state tier."""
         self.slots.flush_cache()
+        if self._host_tier is not None:
+            self._host_free += list(self._host_tier.values())
+            self._host_tier.clear()
+            self._host_tier_bytes = 0
         if self._state_tier is not None:
             self._state_tier.clear()
             self._state_tier_bytes = 0
@@ -603,6 +832,8 @@ class Engine:
                 # an explicit seed takes the single path: the batched pass
                 # folds all rows' seeds into one generator
                 and sp.seed is None
+                # constrained: the single path masks the first token
+                and not sp.constrained
                 and n <= self.buckets[-1] and n + 1 <= self.config.max_seq_len
                 and (not sp.adapter or sp.adapter in self.adapters))
 
@@ -663,6 +894,7 @@ class Engine:
         seed_mix = self._dispatch_seq + 1
         for b, (req, slot, n) in enumerate(acquired):
             sp = req.params
+            self._set_cons(slot, -1)  # a reused slot: clear a stale constraint
             ids[b, :n] = req.prompt
             lengths[b] = n
             pages[b] = self.slots.page_table[slot][: lpad // ps]
@@ -790,6 +1022,19 @@ class Engine:
                 f"{self.buckets[-1]} and this request cannot use chunked prefill (needs "
                 "state_cache_mb > 0 and no prompt_logprobs)"))
             return True
+        if sp.constrained:
+            # compile before reserving a slot: a bad schema or regex rejects
+            # the request and the engine keeps serving; a bank full of other
+            # live constraints defers the admission (retried when one ends)
+            try:
+                self._ensure_token_tables()
+                cc = self._cons_compile(sp)
+            except Exception as e:  # noqa: BLE001 — reject this request, keep serving
+                self._reject(req, e)
+                return True
+            if (cc.key not in self._cons_bank_keys
+                    and all(r > 0 for r in self._cons_bank_refs)):
+                return False
         hashes: list[int] = []
         # mm requests skip prefix reuse: identical image-pad token runs would
         # share pages across different images (the hash sees only the ids)
@@ -829,6 +1074,8 @@ class Engine:
                 return False
             slot, n_shared = got
             snap = None
+        if hashes and self._host_tier is not None and n_shared < len(hashes):
+            n_shared += self._restore_host_pages(hashes, n_shared, slot)
         self.stats["requests_admitted"] += 1
         self.stats["prefill_tokens_cached"] += n_shared * ps
         try:
@@ -902,10 +1149,17 @@ class Engine:
         shared_tokens = n_shared * ps
         self.slots.lengths[slot] = n
         self._shadow_lengths[slot] = n
+        if self._h_cons_idx[slot] >= 0:
+            self._set_cons(slot, -1)  # a reused slot: clear a stale constraint
         # the table upload waits for the next decode dispatch: prefill takes
         # its own `pages` argument
         self._table_dirty = True
         self.stats["prefill_tokens_computed"] += n - shared_tokens
+        cons_row, cons_bias = -1, None
+        if sp.constrained:
+            self._ensure_token_tables()
+            cons_row = self._cons_assign(self._cons_compile(sp))
+            cons_bias = self._cons_prefill_bias(cons_row)
         seed = sp.seed if sp.seed is not None else (self._dispatch_seq + slot + 1)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed))
@@ -960,6 +1214,8 @@ class Engine:
                     adapter_idx=adapter_idx)
         logits = smodel.logits_from_hidden(self.params, self.spec, last_hidden[None],
                                            self.compute_dtype)
+        if cons_bias is not None:
+            logits = logits + cons_bias[None]  # the first token's constraint mask
         tok, lp = sample_tokens(logits, d_temp, d_topk, d_topp, gen, filtering=filtering)
         active = _Active(req, slot)
         active.first_token_handle = (_Fetch([tok, lp]), 0)
@@ -980,6 +1236,10 @@ class Engine:
         self._d_stop[slot] = self._to_dev(self._stop_row(sp))
         self._d_adapter[slot] = adapter_row
         self._d_pos_delta[slot] = pos_delta
+        self._set_cons(slot, cons_row)
+        if cons_row >= 0:
+            self._cons_bank_refs[cons_row] += 1
+            self._cons_active += 1
         if sp.max_tokens <= 0:
             self._finalize_scoring_only(active)
 
@@ -1024,6 +1284,81 @@ class Engine:
             self._state_tier[h] = rows
             self._state_tier_bytes += nbytes
             self.stats["state_snapshots"] = self.stats.get("state_snapshots", 0) + 1
+
+    HOST_SLAB_ROWS = 16  # the host pool's first slab; each later one doubles the rows
+
+    def _grow_host_pool(self) -> None:
+        """Add a slab of page rows (K and V of every layer) to the host tier's
+        pool, pinned on the card: as many rows as the pool holds already (16
+        at first), capped at what ``host_cache_mb`` holds, so that pinned
+        memory and its allocations follow the tier's use."""
+        k = self.k_pool[0]
+        page_shape = (2, len(self.k_pool), k.shape[0], k.shape[2], k.shape[3])
+        cap = (self.config.host_cache_mb << 20) // (2 * k[:, 0].nbytes * len(self.k_pool))
+        have = len(self._host_rows)
+        n = min(max(have, self.HOST_SLAB_ROWS), cap - have)
+        if n <= 0:
+            return
+        slab = torch.empty((n, *page_shape), dtype=k.dtype, pin_memory=k.is_cuda)
+        self._host_rows += slab.unbind(0)
+        self._host_free += range(have + n - 1, have - 1, -1)
+
+    def _page_to_host(self, page: int, row: int) -> None:
+        """Copy one page of every layer's K and V pool into row ``row`` of the
+        host pool: on the card gathered on the device and copied into pinned
+        memory behind the queued work (no sync: the stream orders the copy
+        before any later write to the page or the row, and a restore
+        after it)."""
+        for j, pool in enumerate((self.k_pool, self.v_pool)):
+            self._host_rows[row][j].copy_(torch.stack([t[:, page] for t in pool]),
+                                          non_blocking=True)
+
+    def _spill_page(self, h: int, page: int) -> None:
+        """The prefix cache's eviction sink: copy one page's KV into the host
+        tier under its chain hash before the page returns to the free list
+        (the pool grown while ``host_cache_mb`` allows, then LRU over its
+        rows). A page whose hash the
+        tier holds already (restored, then evicted again) is not copied
+        again: the hash fixes its tokens, and a weight swap empties the
+        tier."""
+        if h in self._host_tier:
+            self._host_tier.move_to_end(h)
+            return
+        if not self._host_free:
+            self._grow_host_pool()
+        if not self._host_free and self._host_tier:
+            self._host_free.append(self._host_tier.popitem(last=False)[1])
+        if not self._host_free:
+            return  # host_cache_mb holds no page
+        row = self._host_free.pop()
+        self._page_to_host(page, row)
+        self._host_tier[h] = row
+        self._host_tier_bytes = len(self._host_tier) * self._host_rows[0].nbytes
+        self.stats["kv_pages_spilled"] = self.stats.get("kv_pages_spilled", 0) + 1
+
+    def _restore_host_pages(self, hashes: list[int], n_shared: int, slot: int) -> int:
+        """Continue the slot's device prefix chain (``n_shared`` pages) from
+        the host tier: write the matching pages into the slot's next own
+        pages, ordered on the stream before its prefill. Returns the number
+        of pages restored."""
+        chain = []
+        for h in hashes[n_shared:]:
+            row = self._host_tier.get(h)
+            if row is None:
+                break
+            self._host_tier.move_to_end(h)
+            chain.append(row)
+        if not chain:
+            return 0
+        pages = self._to_dev(self.slots.page_table[slot][n_shared:n_shared + len(chain)]
+                             .astype(np.int64))
+        new = torch.stack([self._host_rows[r].to(self.device, non_blocking=True)
+                           for r in chain], dim=3)  # [2, NL, NKV, n, PS, HD]
+        for j, pool in enumerate((self.k_pool, self.v_pool)):
+            for li, t in enumerate(pool):
+                t.index_copy_(1, pages, new[j, li])
+        self.stats["kv_pages_restored"] = self.stats.get("kv_pages_restored", 0) + len(chain)
+        return len(chain)
 
     def _prefill_hybrid_chunked(self, req: _Request, slot: int, n: int, n_shared: int,
                                 hashes: list[int], snap, adapter_idx=None) -> torch.Tensor:
@@ -1114,6 +1449,12 @@ class Engine:
         k_steps = self._pick_block()
         filtering = self._filtering(slots)
         tokens, lengths, active = self._d_tokens, self._d_lengths, self._d_active
+        # the live constrained slots (the host mirror knows them: no sync);
+        # an unconstrained block runs none of the mask
+        cons = [s for s in slots if self._h_cons_idx[s] >= 0] if self._cons_active else []
+        if cons:
+            cons_rows = self._to_dev(np.asarray(cons, np.int64))
+            cons_st = self._d_dfa[cons_rows]
         toks_rows, lps_rows, routed_rows = [], [], []
         for _ in range(k_steps):
             out = smodel.decode(self.params, self.spec, self.k_pool, self.v_pool,
@@ -1126,6 +1467,8 @@ class Engine:
             logits = out[2]
             if self._collect_routed:
                 routed_rows.append(out[3])
+            if cons:
+                logits, cons_st = self._cons_mask(logits, tokens, active, cons_rows, cons_st)
             out_tokens, out_logprobs = sample_tokens(logits, self._d_temp, self._d_topk,
                                                      self._d_topp, self._gen,
                                                      filtering=filtering)
@@ -1142,6 +1485,8 @@ class Engine:
         self._d_tokens.copy_(tokens)
         self._d_lengths.copy_(lengths)
         self._d_active.copy_(active)
+        if cons:
+            self._d_dfa[cons_rows] = cons_st
         # tokens ride as f32 (exact below 2^24, above any vocabulary size)
         packed = torch.stack([torch.stack(toks_rows).float(),
                               torch.stack(lps_rows).float()], dim=-1)  # [K, S, 2]
@@ -1239,6 +1584,7 @@ class Engine:
         # reserved until every already-dispatched block has drained
         self._d_active[a.slot] = False
         self._deferred_release.append((a.slot, self._dispatch_seq))
+        self._cons_release_slot(a.slot)
         routed = None
         if self._collect_routed and a.routed and a.generated:
             rows = [np.asarray(r, np.int32) for r in a.routed[: len(a.generated)]]

@@ -69,8 +69,14 @@ per-frequency mRoPE positions; the embeddings replace the tokens' at the
 slots, and after each of the first ``n_ds`` layers the matching feature map
 is added there. ``decode`` takes ``pos_delta``, each slot's rope-position
 offset (``lengths + pos_delta`` rotates q and k, in K3 too; the cache rows
-stay indexed by ``lengths``). Int8 weights are a later slice: the layers
-raise ``NotImplementedError`` for them.
+stay indexed by ``lengths``).
+
+Int8 weight-only serving (``quantize_params``): the projections of
+``_QUANT_TARGETS`` and an untied head become ``{"q8", "scale"}`` records,
+and every product with one (``_mm``, ``ops/layers.weight_mm``, the head in
+``logits_from_hidden``) casts the int8 weight to the compute dtype and
+scales the result, as the JAX package does; a layer with int8 q/k/v
+prepares them in plain PyTorch, never in K3 (``takes_k3``).
 """
 
 from __future__ import annotations
@@ -100,7 +106,7 @@ from prime_rl_tpu_torch.ops.decode_attention import (
 )
 from prime_rl_tpu_torch.ops.decode_qkv import decode_qkv_prep
 from prime_rl_tpu_torch.ops.gated_delta import chunk_gated_delta_rule, recurrent_gated_delta_rule
-from prime_rl_tpu_torch.ops.layers import apply_rope, rms_norm, rope_frequencies, swiglu
+from prime_rl_tpu_torch.ops.layers import apply_rope, rms_norm, rope_frequencies, swiglu, weight_mm
 from prime_rl_tpu_torch.ops.mamba import causal_conv1d, gated_rms_norm, split_in_proj, ssd_chunked
 from prime_rl_tpu_torch.ops.moe import moe_mlp
 from prime_rl_tpu_torch.sampler.cache import RECURRENT_KINDS, layer_kinds
@@ -127,10 +133,7 @@ def check_supported(spec: ModelSpec) -> None:
                                   + f" (served: {', '.join(SERVED_FAMILIES)})")
 
 
-def _mm(x: torch.Tensor, w) -> torch.Tensor:
-    if isinstance(w, dict):
-        raise NotImplementedError("int8 weight-only layers are not ported yet")
-    return x @ w
+_mm = weight_mm  # a raw weight or an int8 weight-only record (``quantize_params``)
 
 
 def _lora_delta(x, lora: dict | None, name: str, idx):
@@ -264,6 +267,45 @@ def _obias(lp: dict, dtype):
 def _cast_layer(lp: dict, dtype) -> dict:
     return {k: (v if isinstance(v, dict) else (v.to(dtype) if v.dim() >= 2 else v))
             for k, v in lp.items()}
+
+
+_QUANT_TARGETS = (
+    "q", "k", "v", "o", "gate", "up", "down",
+    # MLA latent projections (kv_b stays raw: the absorbed attention reshapes
+    # it per head)
+    "q_a", "q_b", "kv_a",
+    # GDN / Mamba mixer projections
+    "in_q", "in_k", "in_v", "in_z", "in_proj", "out_proj",
+    # attention-output gates / shared experts
+    "attn_gate", "shared_gate", "shared_up", "shared_down",
+)
+
+
+def quantize_params(params: Params, spec: ModelSpec) -> Params:
+    """int8 weight-only quantization (per output channel, symmetric) of the
+    serving params (the serving layout: ``unstack_params``): each weight of
+    ``_QUANT_TARGETS`` becomes ``{"q8": int8 [in, out], "scale": f32
+    [out]}``, ``scale = max(|w|, axis 0) / 127`` (at least 1e-8 / 127), q8
+    = round-half-even(w / scale) clipped to +-127, as the JAX function
+    computes it (the float32 division, not a product with 1 / scale, so
+    the bits agree). Norms, the router, MoE experts and ``kv_b`` stay raw;
+    an untied ``lm_head`` quantizes too."""
+
+    def quant(w: torch.Tensor) -> dict:
+        wf = w.float()
+        scale = wf.abs().amax(dim=0).clamp_min(1e-8) / 127.0
+        q8 = torch.round(wf / scale).clamp(-127, 127).to(torch.int8)
+        return {"q8": q8, "scale": scale}
+
+    out = dict(params)
+    out["layers"] = [
+        {k: (quant(v) if k in _QUANT_TARGETS and not isinstance(v, dict) else v)
+         for k, v in lp.items()}
+        for lp in params["layers"]
+    ]
+    if "lm_head" in params:
+        out["lm_head"] = quant(params["lm_head"])
+    return out
 
 
 def _rope(spec: ModelSpec, device) -> tuple[torch.Tensor, float]:
@@ -1045,14 +1087,21 @@ def _softcap(logits: torch.Tensor, spec: ModelSpec) -> torch.Tensor:
 
 def logits_from_hidden(params: Params, spec: ModelSpec, hidden: torch.Tensor,
                        compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """[S, D] -> [S, V] f32 logits (f32 accumulation from compute-dtype inputs)."""
-    head = dense_lm_head(params, spec, compute_dtype)
-    return _softcap(_matmul_f32(hidden.to(compute_dtype), head), spec)
+    """[S, D] -> [S, V] f32 logits (f32 accumulation from compute-dtype
+    inputs; an int8 head's product scaled per column after it)."""
+    w = params.get("lm_head") if not spec.tie_embeddings else None
+    hidden = hidden.to(compute_dtype)
+    if isinstance(w, dict):
+        logits = _matmul_f32(hidden, w["q8"].to(compute_dtype)) * w["scale"]
+    else:
+        logits = _matmul_f32(hidden, dense_lm_head(params, spec, compute_dtype))
+    return _softcap(logits, spec)
 
 
 def dense_lm_head(params: Params, spec: ModelSpec, dtype) -> torch.Tensor:
-    """The [D, V] head in ``dtype`` (a view of embed when tied)."""
+    """The [D, V] head in ``dtype`` (a view of embed when tied; an int8
+    head dequantized in float32, then cast)."""
     w = params.get("lm_head") if not spec.tie_embeddings else None
     if isinstance(w, dict):
-        raise NotImplementedError("int8 weight-only heads are not ported yet")
+        return (w["q8"].float() * w["scale"]).to(dtype)
     return get_lm_head(params, spec).to(dtype)

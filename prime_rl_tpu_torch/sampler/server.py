@@ -12,8 +12,11 @@
 
 Images ride the generate wire's ``mm`` for every vision family (the qwen3_vl
 families and the hybrid qwen3_next_vl), as in the JAX package, whose chat
-routes take none either. The LoRA routes and the P/D routes answer 501 until
-their slices are ported. Built on aiohttp; the engine runs its own step-loop
+routes take none either. Constrained decoding: ``json_schema`` / ``regex`` in
+the generate body (or ``guided_regex``), ``response_format`` (``json_schema``
+or ``json_object``) and ``guided_regex`` on chat completions; a constraint the
+engine cannot compile is answered 400. The P/D routes answer 501 until their
+slice is ported. Built on aiohttp; the engine runs its own step-loop
 thread and handlers await request futures.
 """
 
@@ -94,6 +97,12 @@ class InferenceServer:
         self.model_name = model_name
         self.tokenizer = tokenizer
         self.role = role  # P/D deployment role, exposed via /metrics
+        if engine.token_bytes is None and tokenizer is not None:
+            # constrained decoding needs vocab id -> bytes (the DFA and the
+            # device tables are built on first use)
+            from prime_rl_tpu_torch.sampler.constrain import token_bytes_from_tokenizer
+
+            engine.token_bytes = token_bytes_from_tokenizer(tokenizer)
         self.loop_thread = EngineLoop(engine)
         self.app = web.Application(client_max_size=256 * 1024 * 1024,
                                    middlewares=[_quiet_disconnects])
@@ -127,6 +136,10 @@ class InferenceServer:
             result = await asyncio.wrap_future(fut)
         except asyncio.CancelledError:
             self.engine.abort(request_id)
+            raise
+        except ValueError as e:
+            if sp.constrained:  # a bad schema or regex, or a model that takes none
+                raise web.HTTPBadRequest(text=f"constraint rejected: {e}") from e
             raise
         self._metrics["requests"] += 1
         self._metrics["tokens_generated"] += len(result.token_ids)
@@ -200,17 +213,33 @@ class InferenceServer:
         if self.tokenizer is None:
             raise web.HTTPServiceUnavailable(text="no tokenizer loaded")
         body = await request.json()
-        if body.get("response_format") or body.get("guided_regex"):
-            raise NotImplementedError("constrained decoding")
         prompt = self.tokenizer.apply_chat_template(
             body["messages"], tokenize=True, add_generation_prompt=True)
         model = body.get("model")
+        # OpenAI response_format: {"type": "json_schema", "json_schema":
+        # {"schema": {...}}} or {"type": "json_object"} -> DFA-constrained
+        # sampling (sampler/constrain.py)
+        schema = None
+        regex = body.get("guided_regex")
+        rf = body.get("response_format") or {}
+        if rf.get("type") == "json_schema":
+            schema = (rf.get("json_schema") or {}).get("schema") or rf.get("schema")
+            if schema is None:
+                raise web.HTTPBadRequest(text="response_format.json_schema.schema missing")
+        elif rf.get("type") == "json_object":
+            # a JSON object nested at most 2 deep (a regular language cannot
+            # express unbounded nesting)
+            from prime_rl_tpu_torch.sampler.constrain import json_object_regex
+
+            regex = json_object_regex()
         sp = SamplingParams(
             max_tokens=int(body.get("max_tokens") or body.get("max_completion_tokens") or 512),
             temperature=float(body.get("temperature", 1.0)),
             top_p=float(body.get("top_p", 1.0)),
             seed=body.get("seed"),
             adapter=model if model in self.engine.adapters else None,
+            json_schema=schema,
+            regex=regex,
         )
         if body.get("stream"):
             return await self._stream_chat(request, body, prompt, sp)

@@ -4,7 +4,7 @@ NVIDIA GPU.
 
     python3 scripts/torch_decode_profile.py
         [--model qwen3|gpt-oss|qwen3-moe|glm|minimax|glm5|qwen3-next|nemotron-h] [--layers N]
-        [--windows N]
+        [--windows N] [--quantization int8] [--constrained N]
 
 Builds the engine for Qwen3-0.6B (28 layers, full vocabulary, random weights
 from seed 0, bf16; ``--model gpt-oss``: openai/gpt-oss-20b, 24 layers, all 32
@@ -36,6 +36,11 @@ decode mixers (``sampler.model._gdn_decode_mixer`` or ``_mamba_decode_mixer``
 on every recurrent layer, with the copy of the rows back into the pool, as
 ``decode`` runs them) called alone on the engine's 64 slots, CUDA events
 around them.
+``--quantization int8`` serves the weights int8 weight-only (the engine's
+``quantize``; q/k/v then in plain PyTorch, not K3); ``--constrained N``
+gives the first N requests the regex ``CONSTRAINED_REGEX`` with the byte
+tokenizer's token bytes, so that every step of those slots runs the
+constraint's mask (they ignore eos, so they stay live for the windows).
 Prints a table, then one JSON line with the numbers.
 """
 
@@ -64,14 +69,19 @@ CONFIGS = {"minimax": ("MINIMAX_M2_CONFIG", 8), "glm5": ("GLM5_CONFIG", 4)}
 MAX_TOKENS = {"qwen3": 2000, "gpt-oss": 2000, "qwen3-moe": 400, "glm": 2000, "minimax": 400,
               "glm5": 2000, "qwen3-next": 2000, "nemotron-h": 2000}
 QWEN3_NEXT_LAYERS = 16
+# unbounded, so that a constrained slot stays live: the mask's cost does not
+# depend on the pattern's size
+CONSTRAINED_REGEX = "[a-z ]+"
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 
 
 def _leaves(tree):
     if isinstance(tree, dict):
-        for v in tree.values():
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for v in tree:
             yield from _leaves(v)
-    else:
+    elif tree is not None:
         yield tree
 
 
@@ -124,6 +134,10 @@ def main() -> int:
                     help="unprofiled windows of 48 steps on the host clock")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth (default: all layers; 4 for glm)")
+    ap.add_argument("--quantization", choices=["int8"], default=None,
+                    help="serve the weights int8 weight-only")
+    ap.add_argument("--constrained", type=int, default=0,
+                    help="requests (of the 64) that carry a regex constraint")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
@@ -161,18 +175,24 @@ def main() -> int:
     dev = torch.device("cuda")
     params = get_family(spec).init(spec, torch.Generator(device=dev).manual_seed(SEED),
                                    dtype=torch.bfloat16, device=dev)
-    weight_bytes = sum(t.numel() * t.element_size()
-                       for t in _leaves(params))
     max_tokens = MAX_TOKENS[args.model]
     pages_a_slot = -(-(1000 + max_tokens + 1) // 64)
+    from prime_rl_tpu_torch.renderers.tokenizer import ByteTokenizer
+    from prime_rl_tpu_torch.sampler.constrain import token_bytes_from_tokenizer
+
     engine = Engine(params, spec, CacheConfig(num_pages=SLOTS * pages_a_slot + 64, page_size=64,
                                               max_slots=SLOTS, max_seq_len=4096),
-                    device="cuda", seed=SEED)
+                    device="cuda", seed=SEED, quantize=args.quantization,
+                    token_bytes=token_bytes_from_tokenizer(ByteTokenizer()))
     del params
+    # the served weights (int8 records count their int8 weights and scales)
+    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(engine.params))
     rng = np.random.default_rng(SEED)
     sp = SamplingParams(max_tokens=max_tokens, temperature=1.0, ignore_eos=True)
-    for n in rng.integers(500, 1001, SLOTS):
-        engine.submit(rng.integers(0, spec.vocab_size, int(n)).tolist(), sp)
+    for i, n in enumerate(rng.integers(500, 1001, SLOTS)):
+        constraint = {"regex": CONSTRAINED_REGEX} if i < args.constrained else {}
+        engine.submit(rng.integers(0, spec.vocab_size, int(n)).tolist(),
+                      SamplingParams(**{**sp.__dict__, **constraint}))
     while engine.pending:  # admit every prompt
         engine.step()
     for _ in range(4):  # steady state: every slot decoding
@@ -225,6 +245,7 @@ def main() -> int:
     launches = dict(_build.launches)
     result = {
         "card": card, "model": MODELS[args.model], "layers": spec.num_layers, "slots": SLOTS,
+        "quantization": args.quantization, "constrained_slots": args.constrained,
         "weight_bytes": weight_bytes,
         "weights_read_once_ms": weight_bytes / PEAK_BYTES * 1e3,
         "mean_context_tokens": context, "steps": steps,

@@ -68,7 +68,10 @@ SFT_MOE_MODULES = ("trainer.sft", "trainer.sft.data", "trainer.sft.train", "entr
                    "utils.memory", "utils.offload", "ops.remat", "ops.flash_attention",
                    "ops.moe", "trainer.step", "trainer.optim", "trainer.rl.train",
                    "trainer.rl.broadcast", "models.gpt_oss", "models.mla_moe",
-                   "configs.trainer")
+                   "configs.trainer",
+                   # the serving features' new and changed modules
+                   "sampler.constrain", "sampler.server", "sampler.cache", "ops.layers",
+                   "entrypoints.inference")
 _CHECK = _CHECK.replace("LOOP_MODULES", repr(LOOP_MODULES)).replace(
     "SFT_MOE_MODULES", repr(SFT_MOE_MODULES))
 

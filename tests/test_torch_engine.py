@@ -73,8 +73,8 @@ def test_engine_raises_for_unported_features():
     params = tqwen3.init_params(spec, torch.Generator().manual_seed(0))
     eng = Engine(params, spec, CacheConfig(num_pages=8, page_size=16, max_slots=2,
                                            max_seq_len=64), device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng.submit([1, 2], SamplingParams(regex="a+"))
+    with pytest.raises(NotImplementedError, match="P/D"):
+        eng.submit([1, 2], SamplingParams(extract_kv=True))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             Engine(params, spec, CacheConfig(num_pages=8, page_size=16, max_slots=2,
