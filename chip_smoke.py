@@ -370,6 +370,7 @@ import shutil
 import socket
 import subprocess
 import sys
+import threading
 import time
 import weakref
 
@@ -2703,6 +2704,364 @@ def training_phase() -> tuple[dict, dict]:
     del runs, result, again, loaded
     torch.cuda.empty_cache()
     return launches, last
+
+
+# the trainer features (int8 compute, Muon, Adafactor, the metrics server,
+# heartbeat and token export): Qwen3-0.6B whole at the training phase's shape
+INT8_MLP_SHAPE = (4096, 1024, 3072)  # a micro-batch of 8 x 512 tokens; d; the MLP's width
+PEAK_INT8 = 1979e12  # H100 SXM dense int8 tensor-core OP/s
+PEAK_F32 = 67e12  # H100 SXM float32 FLOP/s outside the tensor cores
+TOKEN_EXPORT_ROWS = 8
+
+
+def int8_mlp_check(flush) -> dict:
+    """One layer's three int8 MLP products at the trainer's shape (x [4096,
+    1024] -> gate and up [1024, 3072] -> down [3072, 1024], bf16) on the card
+    against the port's CPU path on the same inputs: the codes and scales of
+    both operands and the int32 accumulator equal, the output within one bf16
+    ulp (down takes the CPU's SwiGLU of gate and up on both sides). Then each
+    product's time (CUDA events, L2 flushed): the whole int8 product, its
+    quantize passes, ``torch._int_mm`` alone and the dequantize rest, against
+    ``torch.matmul`` in bf16, and the bounds: the int8 product's ops / 1979
+    TOPS against its bytes (int8 operands in, int32 out) / 3.35 TB/s."""
+    import torch
+
+    from prime_rl_tpu_torch.ops import int8_linear as q
+    from prime_rl_tpu_torch.ops.layers import swiglu
+
+    m, d, inter = INT8_MLP_SHAPE
+    gen = torch.Generator().manual_seed(SEED)
+    x = torch.randn(m, d, generator=gen).to(torch.bfloat16)
+    w = {"gate": (torch.randn(d, inter, generator=gen) * 0.02).to(torch.bfloat16),
+         "up": (torch.randn(d, inter, generator=gen) * 0.02).to(torch.bfloat16),
+         "down": (torch.randn(inter, d, generator=gen) * 0.02).to(torch.bfloat16)}
+    dev = torch.device("cuda")
+    inputs = {"gate": x, "up": x}
+    outs, rows = {}, []
+    for name in ("gate", "up", "down"):
+        if name == "down":
+            inputs["down"] = swiglu(outs["gate"], outs["up"])
+        a_cpu, w_cpu = inputs[name], w[name]
+        a_dev, w_dev = a_cpu.to(dev), w_cpu.to(dev)
+        codes = []
+        for a, b in ((a_cpu, w_cpu), (a_dev, w_dev)):
+            aq, as_ = q.quant_rows(a)
+            bq, bs = q.quant_cols(b)
+            codes.append((aq, as_, bq, bs, q.int_mm(aq, bq)))
+        for part, got, want in zip(("x codes", "x scales", "w codes", "w scales", "int32 acc"),
+                                   codes[1], codes[0]):
+            if not torch.equal(got.cpu(), want):
+                raise AssertionError(f"int8 {name}: the card's {part} differ from the CPU's")
+        outs[name] = q.int8_forward(a_cpu, w_cpu)
+        got = q.int8_forward(a_dev, w_dev).float().cpu()
+        want = outs[name].float()
+        ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
+        err = (got - want).abs()
+        if not bool((err <= ulp).all()):
+            raise AssertionError(f"int8 {name}: output beyond one bf16 ulp of the CPU's "
+                                 f"(max abs err {float(err.max()):.4g})")
+        aq, _, bq, _, acc = codes[1]
+        k, n = w_dev.shape
+        ms = time_ms(lambda: q.int8_forward(a_dev, w_dev), flush=flush)
+        quant_ms = time_ms(lambda: (q.quant_rows(a_dev), q.quant_cols(w_dev)), flush=flush)
+        int_mm_ms = time_ms(lambda: q.int_mm(aq, bq), flush=flush)
+        bf16_ms = time_ms(lambda: torch.matmul(a_dev, w_dev), flush=flush)
+        ops = 2.0 * m * k * n
+        t_bytes = (m * k + k * n + 4 * m * n) / PEAK_BYTES * 1e3
+        t_ops = ops / PEAK_INT8 * 1e3
+        rows.append({"product": name, "shape": f"[{m}, {k}] @ [{k}, {n}]", "ms": ms,
+                     "quantize_ms": quant_ms, "int_mm_ms": int_mm_ms,
+                     "dequantize_ms": ms - quant_ms - int_mm_ms, "bf16_matmul_ms": bf16_ms,
+                     "int_mm_bound_ms": max(t_bytes, t_ops),
+                     "int_mm_bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "bf16_bound_ms": max((2 * (m * k + k * n + m * n)) / PEAK_BYTES * 1e3,
+                                          ops / PEAK_BF16 * 1e3),
+                     "max_abs_err": float(err.max())})
+        log(f"int8 {name} {rows[-1]['shape']}: {ms:.4f} ms (quantize {quant_ms:.4f}, _int_mm "
+            f"{int_mm_ms:.4f}, dequantize {ms - quant_ms - int_mm_ms:.4f}) against bf16 "
+            f"torch.matmul {bf16_ms:.4f} ms; _int_mm bound {rows[-1]['int_mm_bound_ms']:.4f} ms "
+            f"({rows[-1]['int_mm_bound_by']}); codes, scales and int32 accumulator equal to the "
+            f"CPU's, output within one bf16 ulp")
+    return {"products": rows}
+
+
+def muon_gate_check() -> dict:
+    """One Muon update of one layer's gate stack ([1, 1024, 3072], f32
+    masters and gradients, Qwen3-0.6B's rule: Newton-Schulz on the card with
+    TF32 off) against the port's CPU path on the same inputs, within 1e-5 +
+    1e-5 |ref|."""
+    import torch
+
+    from prime_rl_tpu_torch.configs import TrainerConfig
+    from prime_rl_tpu_torch.trainer.optim import make_optimizer
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: Newton-Schulz must run in float32")
+    _, d, inter = INT8_MLP_SHAPE
+    gen = torch.Generator().manual_seed(SEED)
+    p = torch.randn(1, d, inter, generator=gen) * 0.02
+    g = torch.randn(1, d, inter, generator=gen) * 1e-3
+    cfg = TrainerConfig(optimizer={"type": "muon"})
+    opt, _ = make_optimizer(cfg.optimizer, cfg.scheduler, 1.0)
+    ups = []
+    for dev in ("cpu", "cuda"):
+        params = {"layers": {"gate": p.to(dev)}}
+        upd, _ = opt.update({"layers": {"gate": g.to(dev)}}, opt.init(params), params)
+        ups.append(upd["layers"]["gate"].cpu())
+    err = check_close("muon gate update", ups[1], ups[0], 1e-5, 1e-5)
+    log(f"muon: one update of a [1, {d}, {inter}] gate stack on the card against the CPU: max "
+        f"abs err {err:.3g} of max |update| {float(ups[0].abs().max()):.4g} (tolerance 1e-5 + "
+        f"1e-5 |ref|)")
+    return {"max_abs_err": err}
+
+
+def update_timing(result, cfg, spec) -> dict:
+    """The optimizer update's ms on the final state of a run (CUDA events
+    around the step's own leaf-at-a-time update, random f32 gradients), and
+    for Muon Newton-Schulz alone over the seven projection stacks."""
+    import torch
+
+    from prime_rl_tpu_torch.trainer.optim import make_optimizer, newton_schulz, tree_map
+    from prime_rl_tpu_torch.trainer.step import make_train_step
+
+    optimizer, _ = make_optimizer(cfg.optimizer, cfg.scheduler, cfg.grad_clip)
+    step = make_train_step(spec, cfg.model, cfg.loss, optimizer, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    grads = tree_map(lambda p: torch.randn(p.shape, device="cuda", generator=gen) * 1e-3,
+                     result.state.params)
+    state = result.state
+    times = []
+    for _ in range(2):  # the first update warms the allocator
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        e0.record()
+        state, _ = step.apply_update(state, grads)
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    out = {"update_ms": times[-1], "update_ms_first": times[0]}
+    if cfg.optimizer.type == "muon":
+        stacks = [grads["layers"][n] for n in ("q", "k", "v", "o", "gate", "up", "down")]
+        out["newton_schulz_ms"] = time_ms(lambda: [newton_schulz(s) for s in stacks], iters=3,
+                                          warmup=1)
+        flops = 0.0
+        for s in stacks:
+            r, c = sorted(s.shape[-2:])
+            flops += s.shape[0] * 5 * (4.0 * r * r * c + 2.0 * r ** 3)
+        out["newton_schulz_tflop"] = flops / 1e12
+        out["newton_schulz_bound_ms"] = flops / PEAK_F32 * 1e3
+    del state, grads
+    return out
+
+
+class _Stub:
+    """A local HTTP endpoint that counts GETs (the heartbeat's target)."""
+
+    def __init__(self):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        self.count = 0
+        stub = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_GET(self):  # noqa: N802
+                stub.count += 1
+                self.send_response(200)
+                self.end_headers()
+
+            def log_message(self, *args):
+                pass
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.httpd.server_port}/ping"
+        self.thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        self.thread.start()
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join()
+
+
+def scraping_metrics_server(scrapes: list):
+    """``maybe_start_metrics_server`` whose server, after each ``update``,
+    is scraped over HTTP (``/metrics``) into ``scrapes``."""
+    import urllib.request
+
+    from prime_rl_tpu_torch.utils.metrics_server import maybe_start_metrics_server
+
+    def start(config):
+        server = maybe_start_metrics_server(config)
+        if server is None:
+            raise AssertionError("the trainer's metrics server did not start")
+        update = server.update
+
+        def update_and_scrape(record):
+            update(record)
+            with urllib.request.urlopen(f"http://127.0.0.1:{server.port}/metrics",
+                                        timeout=10) as r:
+                scrapes.append((r.status, r.read().decode()))
+
+        server.update = update_and_scrape
+        return server
+
+    return start
+
+
+def trainer_features_phase(card: str, adamw_numbers: dict | None) -> tuple[dict, dict]:
+    """The port's trainer (``train``, bench mode, ``_NoSink``) on Qwen3-0.6B
+    whole at the training phase's shape, ``TRAIN_STEPS`` steps a run. Run a:
+    int8 MLP products, Muon, the metrics server on port 0 (scraped over HTTP
+    after each step), the heartbeat at a local stub every 0.1 s, token export
+    of ``TOKEN_EXPORT_ROWS`` rows; twice from the seed, for bit-equal losses.
+    Run b: Adafactor with bf16 momentum and bf16 masters, bf16 products.
+    Checks K1, K2a and K2b launched as the remat mode says, ``_int_mm`` three
+    times a layer and pass in run a and never in run b, finite losses and
+    positive gradient norms, the scrape's loss, the heartbeat's GETs, the
+    export files; then ``int8_mlp_check`` and ``muon_gate_check``, and each
+    run's step time, peak memory and update ms beside the training phase's
+    adamw_8bit run. Returns (launches of run a, numbers)."""
+    import torch
+
+    from prime_rl_tpu_torch.configs import TrainerConfig
+    from prime_rl_tpu_torch.models.base import get_spec
+    from prime_rl_tpu_torch.ops import _build
+    from prime_rl_tpu_torch.ops import int8_linear
+    from prime_rl_tpu_torch.trainer.rl import train as train_mod
+    from prime_rl_tpu_torch.utils.metrics_server import float_to_go_string
+
+    steps, n_mb, rows, seq_len = TRAIN_STEPS, 4, 8, 512
+    spec = get_spec(MODEL)
+    if spec.num_layers != 28 or spec.hidden_size != 1024 or spec.intermediate_size != 3072:
+        raise AssertionError("the trainer features run on Qwen3-0.6B at full width and depth")
+    stub = _Stub()
+
+    def config(out: str, run: str) -> TrainerConfig:
+        features = {}
+        model = {"name": MODEL, "seq_len": seq_len, "debug": {"random_init": True}}
+        if run == "a":
+            model["quantized_compute"] = "int8"
+            optimizer = {"type": "muon"}
+            features = {"metrics_server": {"enable": True, "host": "127.0.0.1", "port": 0},
+                        "heartbeat_url": stub.url, "heartbeat_interval": 0.1,
+                        "token_export_rows": TOKEN_EXPORT_ROWS}
+        else:
+            optimizer = {"type": "adafactor_mom", "lr": 1e-5, "master_dtype": "bfloat16"}
+        return TrainerConfig(
+            device="cuda", seed=SEED, max_steps=steps, grad_clip=1.0, output_dir=out,
+            model=model, optimizer=optimizer,
+            data={"type": "fake", "seq_len": seq_len, "micro_batch_size": rows,
+                  "num_micro_batches": n_mb, "seed": SEED},
+            batch={"seq_len": seq_len, "micro_batch_size": rows, "num_micro_batches": n_mb},
+            bench={"warmup_steps": 0, "steps": steps}, **features)
+
+    per_pass = spec.num_layers * n_mb * steps
+    real_start = train_mod.maybe_start_metrics_server
+    numbers, runs = {}, {}
+    try:
+        for label in ("a", "a again", "b"):
+            run = label[0]
+            out = os.path.join(ROOT, "build", "chip_smoke", f"features_{label.replace(' ', '_')}")
+            shutil.rmtree(out, ignore_errors=True)
+            cfg = config(out, run)
+            scrapes: list = []
+            if run == "a":
+                train_mod.maybe_start_metrics_server = scraping_metrics_server(scrapes)
+            pings0 = stub.count
+            threads0 = set(threading.enumerate())
+            _build.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            result = train_mod.train(cfg, weight_sink=_NoSink())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            train_mod.maybe_start_metrics_server = real_start
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            launches = dict(_build.launches)
+            int_mm = launches.get(int8_linear.COUNT, 0)
+            records = result.records
+            log(f"trainer-features run {label}: {steps} steps in {wall:.2f} s, losses "
+                f"{[r['loss'] for r in records]}, step times "
+                f"{[round(r['step_time_s'], 4) for r in records]}, peak {peak:.2f} GiB, "
+                f"_int_mm calls {int_mm}, launches {launches}")
+            if len(records) != steps:
+                raise AssertionError(f"run {label}: {len(records)} steps, expected {steps}")
+            for r in records:
+                if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                        and r["grad_norm"] > 0):
+                    raise AssertionError(f"run {label}: bad step record {r}")
+            remat = cfg.model.ac.mode
+            passes = 2 if remat == "full" else 1
+            want = {"flash_attn_fwd": per_pass * passes, "flash_attn_bwd_dq": per_pass,
+                    "flash_attn_bwd_dkv": per_pass}
+            for name, n in want.items():
+                if launches.get(name, 0) != n:
+                    raise AssertionError(f"run {label}: {name} launched {launches.get(name, 0)} "
+                                         f"times, expected {n} (ac.mode {remat})")
+            want_mm = 3 * per_pass * passes if run == "a" else 0
+            if int_mm != want_mm:
+                raise AssertionError(f"run {label}: _int_mm ran {int_mm} times, expected "
+                                     f"{want_mm} (three a layer and pass)")
+            if run == "a":
+                if len(scrapes) != steps or any(s != 200 for s, _ in scrapes):
+                    raise AssertionError(f"run {label}: {len(scrapes)} scrapes of /metrics")
+                for i, (_, body) in enumerate(scrapes):
+                    lines = body.splitlines()
+                    if (f"prime_rl_step {float_to_go_string(i + 1)}" not in lines
+                            or f"prime_rl_loss {float_to_go_string(records[i]['loss'])}"
+                            not in lines):
+                        raise AssertionError(f"run {label}: scrape {i} lacks step {i + 1}'s loss")
+                pings = stub.count - pings0
+                if pings < 1:
+                    raise AssertionError(f"run {label}: the heartbeat sent no GET")
+                export = os.path.join(out, "token_export")
+                for i in range(steps):
+                    path = os.path.join(export, f"step_{i}.jsonl")
+                    with open(path) as f:
+                        n_rows = len(f.read().splitlines())
+                    if n_rows != TOKEN_EXPORT_ROWS or not os.path.exists(
+                            os.path.join(export, f"step_{i}.STABLE")):
+                        raise AssertionError(f"run {label}: {path} holds {n_rows} rows or has "
+                                             "no STABLE marker")
+                left = [t.name for t in threading.enumerate()
+                        if t not in threads0 and t.is_alive()]
+                if left:
+                    raise AssertionError(f"run {label}: threads left running: {left}")
+                numbers.setdefault("scrape_lines", len(scrapes[-1][1].splitlines()))
+                numbers.setdefault("heartbeat_gets", pings)
+            runs[label] = ([r["loss"] for r in records], launches)
+            if label != "a again":
+                timing = update_timing(result, cfg, spec)
+                numbers[f"run_{run}"] = {
+                    "optimizer": cfg.optimizer.type, "quantized_compute":
+                    cfg.model.quantized_compute, "step_time_s": records[-1]["step_time_s"],
+                    "tokens_per_s": n_mb * rows * seq_len / records[-1]["step_time_s"],
+                    "peak_gib": peak, "losses": [r["loss"] for r in records], **timing}
+                log(f"trainer-features run {run} update on {card}: {json.dumps(timing)}")
+            del result
+            gc.collect()
+            torch.cuda.empty_cache()
+            shutil.rmtree(out, ignore_errors=True)
+    finally:
+        train_mod.maybe_start_metrics_server = real_start
+        stub.close()
+    losses = [runs[k][0] for k in ("a", "a again")]
+    if losses[0] != losses[1]:
+        raise AssertionError(f"two runs a from the same seed gave different losses: {losses}")
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    numbers["int8_mlp"] = int8_mlp_check(flush)
+    numbers["muon_gate"] = muon_gate_check()
+    del flush
+    beside = ("" if adamw_numbers is None else
+              f"; training's adamw_8bit run {adamw_numbers['step_time_s']:.4f} s a step, "
+              f"peak {adamw_numbers['peak_gib']:.2f} GiB")
+    log(f"trainer-features on {card}: run a (int8, muon) {numbers['run_a']['step_time_s']:.4f} s "
+        f"a step, peak {numbers['run_a']['peak_gib']:.2f} GiB, update "
+        f"{numbers['run_a']['update_ms']:.2f} ms; run b (adafactor_mom, bf16 masters) "
+        f"{numbers['run_b']['step_time_s']:.4f} s, peak {numbers['run_b']['peak_gib']:.2f} GiB, "
+        f"update {numbers['run_b']['update_ms']:.2f} ms{beside}; the two runs a bit-equal "
+        f"{losses[0]}; heartbeat GETs {numbers['heartbeat_gets']}")
+    return runs["a"][1], numbers
 
 
 def glm5_model_dir(name: str, **cuts) -> str:
@@ -6862,6 +7221,8 @@ def main() -> int:
             + timed("long-context kernels", long_context_kernel_phase))
     timed("train-reference", train_reference_phase)
     train_launches, train_numbers = timed("training", training_phase)
+    features_launches, features_numbers = timed("trainer-features", trainer_features_phase, card,
+                                                train_numbers)
     long_launches, long_numbers = timed("long-context-training", long_context_training_phase,
                                         card)
     timed("dsa-train-reference", dsa_train_reference_phase)
@@ -7012,7 +7373,8 @@ def main() -> int:
                  "launches_vlm_loop": vlm_loop_launches,
                  "launches_constrained": stats["launches_constrained"],
                  "launches_int8_serving": int8_launches,
-                 "launches_host_tier": stats["launches_host_tier"]}
+                 "launches_host_tier": stats["launches_host_tier"],
+                 "launches_trainer_features": features_launches}
     k12 = ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
     path_kernels = {"launches_sft": k12, "launches_moe_training": k12,
                     "launches_moe_serving": ("flash_attn_fwd", "decode_qkv_prep",
@@ -7044,7 +7406,8 @@ def main() -> int:
                     "launches_constrained": ("flash_attn_fwd", "decode_qkv_prep",
                                              "decode_paged_attention"),
                     "launches_int8_serving": ("flash_attn_fwd", "decode_paged_attention"),
-                    "launches_host_tier": ("decode_paged_attention",)}
+                    "launches_host_tier": ("decode_paged_attention",),
+                    "launches_trainer_features": k12}
     for row in rows:
         name = row["name"]
         for key, kernels in path_kernels.items():
@@ -7180,6 +7543,8 @@ def main() -> int:
     log(f"qwen3-vl training on {card}: {json.dumps(vl_train_numbers)}")
     log(f"launches on the long-context training path (run a): {long_launches}")
     log(f"long-context training on {card}: {json.dumps(long_numbers)}")
+    log(f"launches on the trainer-features path (run a: int8, muon): {features_launches}")
+    log(f"trainer features on {card}: {json.dumps(features_numbers)}")
     log(f"Qwen3-VL-8B serving stats on {card}: {json.dumps(vl_stats)}")
     log(f"chip_smoke: {time.perf_counter() - t0:.1f} s from the build on")
     print(json.dumps({"kernels": rows}), flush=True)

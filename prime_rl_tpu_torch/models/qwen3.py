@@ -226,11 +226,22 @@ def apply_attn_gate(o: torch.Tensor, x: torch.Tensor, lp: dict, spec: ModelSpec)
 
 
 def _mlp_block(h: torch.Tensor, lp: dict[str, torch.Tensor], spec: ModelSpec,
-               lora: dict | None = None, lora_scale: float = 1.0) -> torch.Tensor:
+               lora: dict | None = None, lora_scale: float = 1.0,
+               int8_compute: bool = False) -> torch.Tensor:
+    """``int8_compute``: gate, up and down through ``ops/int8_linear``'s
+    int8 product, where no adapter is given (with one, the plain products
+    run, as in the JAX package)."""
     x = rms_norm(h, lp["mlp_norm"], spec.rms_eps)
-    gate = apply_lora_proj(x, lp["gate"], lora, "gate", lora_scale)
-    up = apply_lora_proj(x, lp["up"], lora, "up", lora_scale)
-    out = apply_lora_proj(swiglu(gate, up), lp["down"], lora, "down", lora_scale)
+    if int8_compute and lora is None:
+        from prime_rl_tpu_torch.ops.int8_linear import int8_matmul
+
+        gate = int8_matmul(x, lp["gate"])
+        up = int8_matmul(x, lp["up"])
+        out = int8_matmul(swiglu(gate, up), lp["down"])
+    else:
+        gate = apply_lora_proj(x, lp["gate"], lora, "gate", lora_scale)
+        up = apply_lora_proj(x, lp["up"], lora, "up", lora_scale)
+        out = apply_lora_proj(swiglu(gate, up), lp["down"], lora, "down", lora_scale)
     return h + post_mlp(out, lp, spec)
 
 
@@ -283,14 +294,13 @@ def forward(
     (``models/lora.py``'s adapter tree, stacks of ``[NL, ...]``) adds
     scale·(x·A)·B to every targeted projection of each layer, ``lora_scale``
     the scale; its gradients flow through the same layers and remat modes.
-    The arguments that belong to later slices (``mesh``,
-    ``quantized_compute``) raise."""
+    ``quantized_compute = "int8"`` runs the MLP products in int8
+    (``_mlp_block``); the attention projections stay in ``compute_dtype``.
+    ``mesh`` belongs to the multi-card slice and raises."""
     if spec.family not in ("qwen3", "llama"):
         raise NotImplementedError(f"model family {spec.family!r} is not ported yet")
     if mesh is not None:
         raise NotImplementedError("context parallelism waits for the multi-card slice")
-    if quantized_compute:
-        raise NotImplementedError("quantized_compute waits for the int8/fp8 slice")
     nl = spec.num_layers
     base_remat, save_stride = parse_remat(remat, nl)
     inv_freq, rope_scaling = rope_setup(spec, device=input_ids.device)
@@ -302,7 +312,7 @@ def forward(
         lp = {k: (v.to(compute_dtype) if v.dim() >= 2 else v) for k, v in lp.items()}
         h = _attn_block(h, lp, spec, segment_ids, position_ids, inv_freq, attn_impl,
                         rope_scaling, saved, window, ll, lora_scale)
-        return _mlp_block(h, lp, spec, ll, lora_scale)
+        return _mlp_block(h, lp, spec, ll, lora_scale, int8_compute=quantized_compute == "int8")
 
     # unbind once: its backward stacks the per-layer gradients in one copy
     # (indexing layer by layer would build a full-size zero stack per layer)

@@ -16,7 +16,9 @@ are dispatch modes, so they see the aten ops below autograd:
   scores, the MoE experts' grouped products, which on the CPU run as a loop of
   ``torch.mm`` inside ``batched_products``) and the attention kernel, which
   writes through raw pointers that no dispatch mode sees: K1 runs twice a
-  layer, as the JAX policy recomputes its Pallas call.
+  layer, as the JAX policy recomputes its Pallas call; and int8 compute's
+  ``aten._int_mm`` with its quantize passes (``ops/int8_linear.py``), which
+  run inside an autograd function's forward, where gradients are off.
 
 The forward and the recomputation issue the same aten ops in the same order
 (the same code on the same inputs), which is what pairs a kept product with

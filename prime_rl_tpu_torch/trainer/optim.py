@@ -7,13 +7,21 @@ state)``, with optax's update rules and state layout: the first update uses
 ``schedule(0)``, bias correction uses the incremented count, weight decay is
 decoupled and added before the learning rate, and the global-norm clip comes
 first. The arithmetic is plain PyTorch: the JAX package computes it outside
-any kernel too. ``muon`` and ``adafactor_mom`` are not ported yet and raise.
+any kernel too.
 
-Every rule is elementwise but the clip, so an update also runs one
-parameter leaf at a time (the offloaded step, ``trainer/step.py``): the
-state's slice of a leaf (``leaf_states``) through ``update`` with the
-whole tree's gradient norm given (``norm``), the slices joined again
-(``join_leaf_states``), in the same bits as the whole-tree update.
+``adafactor_mom`` is optax's ``adafactor`` chain as the JAX package builds it
+(``scale_by_factored_rms``, ``clip_by_block_rms``, the learning rate, a bf16
+``ema`` momentum, the weight decay, the sign flip), stage by stage.
+``muon`` runs optax's ``scale_by_muon`` on every hidden matrix and AdamW on
+everything else (``scale_by_muon_split``); which leaves are hidden matrices
+differs from the JAX package on purpose (ROADMAP.md, Queue 3).
+
+Every rule but the global-norm clip works within one parameter leaf, so an
+update also runs one leaf at a time (the offloaded step,
+``trainer/step.py``): the state's slice of a leaf (``leaf_states``) through
+``update`` with the whole tree's gradient norm given (``norm``), the slices
+joined again (``join_leaf_states``), in the same bits as the whole-tree
+update.
 """
 
 from __future__ import annotations
@@ -194,10 +202,9 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Opti
     def update(updates, state, params=None, norm=None):
         count = state["count"] + 1
         c1, c2 = _bias_correction(b1, count), _bias_correction(b2, count)
-        mu = tree_map(lambda g, m: (1.0 - b1) * g.float() + b1 * m, updates, state["mu"])
-        nu = tree_map(lambda g, n: (1.0 - b2) * torch.square(g.float()) + b2 * n,
-                      updates, state["nu"])
-        new_u = tree_map(lambda m, n: (m / c1) / (torch.sqrt(n / c2) + eps), mu, nu)
+        out = [_adam_leaf(g.float(), m, n, b1, b2, eps, c1, c2) for g, m, n in
+               zip(tree_leaves(updates), tree_leaves(state["mu"]), tree_leaves(state["nu"]))]
+        new_u, mu, nu = (tree_unflatten(updates, [o[i] for o in out]) for i in range(3))
         return new_u, {"count": count, "mu": mu, "nu": nu}
 
     return Optimizer(init, update)
@@ -279,7 +286,9 @@ def scale_by_adam_8bit(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
 
 def _moment_leaves(tree) -> list[dict]:
-    if isinstance(tree, dict) and "mu_q" not in tree:
+    """The per-leaf dict entries of a moments tree (the 8-bit codes, Muon's
+    split), in leaf order."""
+    if isinstance(tree, dict) and not ({"mu_q", "mu"} & tree.keys()):
         return [leaf for k in sorted(tree) for leaf in _moment_leaves(tree[k])]
     return [tree]
 
@@ -376,18 +385,245 @@ def clip_by_global_norm(max_norm: float) -> Optimizer:
     return Optimizer(lambda params: {}, update)
 
 
+def _rounded(rate: float, dtype: torch.dtype) -> float:
+    """``rate`` rounded to ``dtype`` on the host: a Python float times a
+    tensor of that dtype then gives the product of the two ``dtype`` values,
+    rounded once, as JAX multiplies a Python float into a bf16 array, with no
+    copy to the device."""
+    return float(torch.tensor(rate, dtype=dtype))
+
+
+def _decayed(g: torch.Tensor, w: torch.Tensor, weight_decay: float) -> torch.Tensor:
+    """g + weight_decay * w, the product in w's dtype with the rate rounded
+    to it, as optax multiplies a Python float into a bf16 master."""
+    return g + w * _rounded(weight_decay, w.dtype)
+
+
 def add_decayed_weights(weight_decay: float) -> Optimizer:
     if not weight_decay:
         return _stateless(lambda u, p: u)
-    return _stateless(lambda u, p: tree_map(lambda g, w: g + weight_decay * w.float(), u, p))
+    return _stateless(lambda u, p: tree_map(lambda g, w: _decayed(g, w, weight_decay), u, p))
 
 
-def scale_by_learning_rate(schedule: Schedule) -> Optimizer:
+def scale_by_learning_rate(schedule: Schedule, flip_sign: bool = True) -> Optimizer:
     def update(updates, state, params=None, norm=None):
         lr = schedule(state["count"])
-        return tree_map(lambda g: g * -lr, updates), {"count": state["count"] + 1}
+        lr = -lr if flip_sign else lr
+        return tree_map(lambda g: g * lr, updates), {"count": state["count"] + 1}
 
     return Optimizer(lambda params: {"count": 0}, update)
+
+
+# ---------------------------------------------------------------------------
+# Adafactor (optax's ``adafactor`` as the JAX package configures it)
+# ---------------------------------------------------------------------------
+
+def _factored_dims(shape, min_dim_size_to_factor: int) -> tuple[int, int] | None:
+    """The two largest axes of ``shape`` (optax's choice, ``np.argsort`` and
+    its order among equal sizes included), or None where the second largest
+    is under ``min_dim_size_to_factor``."""
+    if len(shape) < 2:
+        return None
+    sorted_dims = np.argsort(shape)
+    if shape[sorted_dims[-2]] < min_dim_size_to_factor:
+        return None
+    return int(sorted_dims[-2]), int(sorted_dims[-1])
+
+
+def scale_by_factored_rms(decay_rate: float = 0.8, min_dim_size_to_factor: int = 128,
+                          epsilon: float = 1e-30) -> Optimizer:
+    """Adafactor's second-moment scaling: a leaf whose two largest axes both
+    reach ``min_dim_size_to_factor`` keeps the means of the squared gradient
+    over each of them (``v_row``, ``v_col``; the other axes, a stack's layer
+    axis, ride along) and scales by their rank-1 estimate; a smaller leaf
+    keeps the full mean (``v``). The decay is 1 - (step + 1)^-decay_rate.
+    State {count, v_row, v_col, v}, each tree in the params' dtype with a
+    zero [1] where a leaf does not use it."""
+
+    def init(params):
+        def stats(p):
+            """(v_row, v_col, v) of one leaf: a zero [1] for the unused."""
+            def zeros(shape):
+                return torch.zeros(shape, dtype=p.dtype, device=p.device)
+
+            dims = _factored_dims(p.shape, min_dim_size_to_factor)
+            if dims is None:
+                return zeros(1), zeros(1), zeros(p.shape)
+            return (zeros(np.delete(p.shape, dims[1]).tolist()),
+                    zeros(np.delete(p.shape, dims[0]).tolist()), zeros(1))
+
+        out = [stats(p) for p in tree_leaves(params)]
+        return {"count": 0, **{k: tree_unflatten(params, [o[i] for o in out])
+                               for i, k in enumerate(("v_row", "v_col", "v"))}}
+
+    def update(updates, state, params=None, norm=None):
+        # the decay in f32, as optax's _decay_rate_pow computes it
+        t = torch.tensor(float(state["count"] + 1), dtype=torch.float32)
+        decay = 1.0 - t ** (-decay_rate)
+        d_t, keep = float(decay), float(1.0 - decay)
+
+        def leaf(g, v_row, v_col, v, p):
+            dtype = p.dtype
+            grad_sqr = g * g + epsilon
+            dims = _factored_dims(p.shape, min_dim_size_to_factor)
+            if dims is None:
+                new_v = (d_t * v.float() + keep * grad_sqr).to(dtype)
+                return g * new_v ** -0.5, v_row, v_col, new_v
+            d1, d0 = dims
+            new_row = (d_t * v_row.float() + keep * grad_sqr.mean(dim=d0)).to(dtype)
+            new_col = (d_t * v_col.float() + keep * grad_sqr.mean(dim=d1)).to(dtype)
+            reduced_d1 = d1 - 1 if d1 > d0 else d1
+            row_factor = (new_row / new_row.mean(dim=reduced_d1, keepdim=True)) ** -0.5
+            col_factor = new_col ** -0.5
+            u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
+            return u, new_row, new_col, v
+
+        out = [leaf(*a) for a in zip(tree_leaves(updates), tree_leaves(state["v_row"]),
+                                     tree_leaves(state["v_col"]), tree_leaves(state["v"]),
+                                     tree_leaves(params))]
+        parts = [tree_unflatten(updates, [o[i] for o in out]) for i in range(4)]
+        return parts[0], {"count": state["count"] + 1, "v_row": parts[1], "v_col": parts[2],
+                          "v": parts[3]}
+
+    return Optimizer(init, update)
+
+
+def clip_by_block_rms(threshold: float) -> Optimizer:
+    """Each leaf divided by max(1, its root-mean-square / ``threshold``)."""
+    def clip(u):
+        return u / torch.clamp(torch.sqrt(torch.mean(u * u)) / threshold, min=1.0)
+
+    return _stateless(lambda u, p: tree_map(clip, u))
+
+
+def ema(decay: float, accumulator_dtype=torch.bfloat16) -> Optimizer:
+    """optax's ``ema`` without debiasing: the update is the new average in the
+    updates' dtype, the state keeps it in ``accumulator_dtype``. The decayed
+    term is computed in the accumulator's dtype, the rate rounded to it, as
+    JAX multiplies a Python float into a bf16 array."""
+
+    def init(params):
+        return {"count": 0, "ema": tree_map(lambda p: torch.zeros(
+            p.shape, dtype=accumulator_dtype, device=p.device), params)}
+
+    def update(updates, state, params=None, norm=None):
+        def leaf(g, t):
+            return (1.0 - decay) * g + t * _rounded(decay, t.dtype)
+
+        new = tree_map(leaf, updates, state["ema"])
+        return new, {"count": state["count"] + 1,
+                     "ema": tree_map(lambda t: t.to(accumulator_dtype), new)}
+
+    return Optimizer(init, update)
+
+
+def scale(factor: float) -> Optimizer:
+    return _stateless(lambda u, p: tree_map(lambda g: g * factor, u))
+
+
+# ---------------------------------------------------------------------------
+# Muon
+# ---------------------------------------------------------------------------
+
+NS_COEFFS = (3.4445, -4.7750, 2.0315)
+
+
+def is_hidden_matrix(path: str, p: torch.Tensor) -> bool:
+    """The port's Muon rule: a leaf stacked over layers whose per-layer slice
+    is a matrix, i.e. of three or more dims (the projections [NL, in, out],
+    the experts' [NL, E, in, out]). Everything else, the embeddings, the LM
+    head, every norm or bias stack [NL, d] and every 1-D leaf, goes to AdamW.
+    Unlike the JAX package's ``_is_matrix`` (which sends the stacked norms to
+    Newton-Schulz and the projections to optax's inner Adam), ROADMAP.md
+    Queue 3."""
+    return p.dim() >= 3 and path.split("/")[0] not in ("embed", "lm_head")
+
+
+def newton_schulz(x: torch.Tensor, steps: int = 5, eps: float = 1e-8) -> torch.Tensor:
+    """optax's ``orthogonalize_via_newton_schulz`` over the last two axes of
+    ``x`` (every leading axis a batch), in float32: a slice with more rows
+    than columns runs transposed; each slice is divided by its Frobenius norm
+    + eps, then ``steps`` quintic iterations. On the card the products must
+    be true float32: TF32 would change the result, so it raises where
+    ``torch.backends.cuda.matmul.allow_tf32`` is on."""
+    if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("Newton-Schulz needs float32 products: "
+                           "torch.backends.cuda.matmul.allow_tf32 is on")
+    x = x.float()
+    transposed = x.shape[-2] > x.shape[-1]
+    if transposed:
+        x = x.transpose(-2, -1)
+    x = x / (torch.linalg.vector_norm(x, dim=(-2, -1), keepdim=True) + eps)
+    c0, c1, c2 = (torch.tensor(c, dtype=torch.float32).item() for c in NS_COEFFS)
+    for _ in range(steps):
+        a = x @ x.transpose(-2, -1)
+        b = c1 * a + (c2 * a) @ a
+        x = c0 * x + b @ x
+    return x.transpose(-2, -1) if transposed else x
+
+
+def _adam_leaf(g, mu, nu, b1, b2, eps, c1, c2):
+    """optax's ``scale_by_adam`` on one leaf: (direction, mu, nu)."""
+    mu = (1.0 - b1) * g + b1 * mu
+    nu = (1.0 - b2) * torch.square(g) + b2 * nu
+    return (mu / c1) / (torch.sqrt(nu / c2) + eps), mu, nu
+
+
+def scale_by_muon_split(schedule: Schedule, adamw_schedule: Schedule, beta: float,
+                        weight_decay: float, b1: float = 0.9, b2: float = 0.999,
+                        eps: float = 1e-8, ns_steps: int = 5) -> Optimizer:
+    """Muon on the hidden matrices (``is_hidden_matrix``), AdamW on the rest,
+    each with its weight decay and learning rate: the composition of optax's
+    ``contrib.muon(schedule, beta, weight_decay, muon_weight_dimension_numbers
+    = (-2, -1) per hidden matrix)`` and ``adamw(adamw_schedule, b1, b2, eps,
+    weight_decay)`` under ``multi_transform``.
+
+    A hidden matrix: Nesterov momentum with both bias corrections, Newton-
+    Schulz per layer (and expert), times sqrt(max(1, out / in)). The rule is
+    chosen when the state is made, and each leaf's state says which it took:
+    ``{"mu"}`` for Muon, ``{"mu", "nu"}`` for AdamW, so that a leaf's slice
+    updates alone. State {count, m: tree of those}, f32."""
+
+    def init(params):
+        def entry(path, p):
+            zeros = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            if is_hidden_matrix(path, p):
+                return {"mu": zeros}
+            return {"mu": zeros, "nu": torch.zeros_like(zeros)}
+
+        return {"count": 0, "m": tree_unflatten(params, [entry(path, p) for path, p
+                                                         in tree_paths(params)])}
+
+    def update(updates, state, params=None, norm=None):
+        count = state["count"] + 1
+        lr, adam_lr = schedule(state["count"]), adamw_schedule(state["count"])
+        bc1, bc2 = _bias_correction(b1, count), _bias_correction(b2, count)
+        nbc, nbc_next = _bias_correction(beta, count), _bias_correction(beta, count + 1)
+
+        def leaf(g, m, p):
+            g = g.float()
+            if "nu" not in m:
+                mu = (1.0 - beta) * g + beta * m["mu"]
+                mu_hat = beta * (mu / nbc_next) + (1.0 - beta) * (g / nbc)
+                out, inp = p.shape[-1], p.shape[-2]
+                u = newton_schulz(mu_hat, ns_steps, eps)
+                u = math.sqrt(max(1.0, out / inp)) * u
+                step = lr
+                new = {"mu": mu}
+            else:
+                u, mu, nu = _adam_leaf(g, m["mu"], m["nu"], b1, b2, eps, bc1, bc2)
+                step = adam_lr
+                new = {"mu": mu, "nu": nu}
+            if weight_decay:
+                u = _decayed(u, p, weight_decay)
+            return u * -step, new
+
+        out = [leaf(g, m, p) for g, m, p in zip(tree_leaves(updates), _moment_leaves(state["m"]),
+                                               tree_leaves(params))]
+        return (tree_unflatten(updates, [o[0] for o in out]),
+                {"count": count, "m": tree_unflatten(updates, [o[1] for o in out])})
+
+    return Optimizer(init, update)
 
 
 def _trace(decay: float, nesterov: bool) -> Optimizer:
@@ -429,10 +665,18 @@ def make_optimizer(cfg, scheduler_cfg, grad_clip: float | None) -> tuple[Optimiz
     elif isinstance(cfg, SignSGDConfig):
         stages = [_stateless(lambda u, p: tree_map(torch.sign, u)),
                   add_decayed_weights(cfg.weight_decay), scale_by_learning_rate(schedule)]
-    elif isinstance(cfg, (MuonConfig, AdafactorMomConfig)):
-        raise NotImplementedError(
-            f"optimizer {cfg.type!r} is not ported yet (it waits for the optimizer slice); "
-            "use adamw, adamw_8bit, sgd or sign_sgd")
+    elif isinstance(cfg, AdafactorMomConfig):
+        stages = [scale_by_factored_rms(cfg.decay_rate)]
+        if cfg.clipping_threshold is not None:
+            stages.append(clip_by_block_rms(cfg.clipping_threshold))
+        stages += [scale_by_learning_rate(schedule, flip_sign=False),
+                   ema(cfg.momentum, torch.bfloat16)]
+        if cfg.weight_decay:
+            stages.append(add_decayed_weights(cfg.weight_decay))
+        stages.append(scale(-1.0))
+    elif isinstance(cfg, MuonConfig):
+        stages = [scale_by_muon_split(schedule, make_schedule(scheduler_cfg, cfg.adamw_lr),
+                                      cfg.momentum, cfg.weight_decay)]
     else:
         raise ValueError(f"unknown optimizer {cfg!r}")
     if grad_clip is not None:

@@ -28,11 +28,18 @@ turned back on when it returns or raises (the JAX trainer never turns it
 back on; the colocated process and the tests call ``train`` in interpreters
 that live on). Each step record carries ``device_memory_stats``.
 
-More than one process (the micro-batch packer), token export, the metrics
-server and the heartbeat raise until their slices."""
+``metrics_server`` serves each step's record as Prometheus gauges
+(``utils/metrics_server.py``), ``heartbeat_url`` is pinged every
+``heartbeat_interval`` seconds (``utils/heartbeat.py``) and
+``token_export_rows`` writes each step's batch to
+``token_export/step_N.jsonl`` before the step (``token_export.py``); the
+server and the heartbeat stop when ``train`` returns or raises.
+
+More than one process (the micro-batch packer) raises until its slice."""
 
 from __future__ import annotations
 
+import contextlib
 import time
 from pathlib import Path
 from typing import NamedTuple
@@ -49,6 +56,7 @@ from prime_rl_tpu_torch.trainer.optim import make_optimizer
 from prime_rl_tpu_torch.trainer.perf import PerfCounter
 from prime_rl_tpu_torch.trainer.rl.broadcast import FilesystemBroadcast, make_broadcast
 from prime_rl_tpu_torch.trainer.rl.data import FakeDataLoader
+from prime_rl_tpu_torch.trainer.rl.token_export import TokenExporter
 from prime_rl_tpu_torch.trainer.step import (
     Scales,
     TrainState,
@@ -62,6 +70,7 @@ from prime_rl_tpu_torch.utils.device import resolve_device
 from prime_rl_tpu_torch.utils.logger import get_logger, setup_logger
 from prime_rl_tpu_torch.utils import pathing
 from prime_rl_tpu_torch.utils.memory import GarbageCollection, device_memory_stats
+from prime_rl_tpu_torch.utils.metrics_server import maybe_start_metrics_server
 from prime_rl_tpu_torch.utils.monitor import setup_monitor
 from prime_rl_tpu_torch.utils.pathing import logs_dir
 
@@ -96,13 +105,6 @@ def reject_unported_model(config) -> None:
 
 
 def _reject_unported(config: TrainerConfig) -> None:
-    waiting = [name for name, on in (
-        ("token_export_rows", config.token_export_rows > 0),
-        ("metrics_server", config.metrics_server.enable),
-        ("heartbeat_url", config.heartbeat_url is not None)) if on]
-    if waiting:
-        raise NotImplementedError(f"{', '.join(waiting)}: not ported yet (ROADMAP.md, "
-                                  "Queue 1 item 10)")
     if config.multi_run and config.model.lora is None:
         raise ValueError("multi_run trains one LoRA adapter a tenant and needs model.lora")
     reject_unported_model(config)
@@ -140,13 +142,15 @@ def train(config: TrainerConfig, weight_sink=None) -> TrainResult:
     ``WeightBroadcastSink`` override; None = the configured broadcast."""
     _reject_unported(config)
     gc_gate = GarbageCollection(interval=50)
-    try:
-        return _train(config, weight_sink, gc_gate)
-    finally:
-        gc_gate.restore()
+    with contextlib.ExitStack() as on_exit:
+        on_exit.callback(gc_gate.restore)
+        return _train(config, weight_sink, gc_gate, on_exit)
 
 
-def _train(config: TrainerConfig, weight_sink, gc_gate: GarbageCollection) -> TrainResult:
+def _train(config: TrainerConfig, weight_sink, gc_gate: GarbageCollection,
+           on_exit: contextlib.ExitStack) -> TrainResult:
+    """``on_exit``: what ``train`` releases when it returns or raises (the
+    metrics server and the heartbeat are stopped there)."""
     setup_logger(config.log.level, config.log.json_logs,
                  logs_dir(config.output_dir) / "trainer.log")
     logger = get_logger()
@@ -244,6 +248,17 @@ def _train(config: TrainerConfig, weight_sink, gc_gate: GarbageCollection) -> Tr
             run_mgr.publish(run, base_params, run.progress.step)
     skipped_publishes = False  # set when the shutdown carve-out elides publishes
 
+    metrics_server = maybe_start_metrics_server(config.metrics_server)
+    if metrics_server is not None:
+        on_exit.callback(metrics_server.stop)
+    exporter = None
+    if config.token_export_rows > 0:
+        exporter = TokenExporter(config.output_dir, config.token_export_rows)
+    if config.heartbeat_url:
+        from prime_rl_tpu_torch.utils.heartbeat import Heartbeat  # imports httpx
+
+        on_exit.callback(Heartbeat(config.heartbeat_url, config.heartbeat_interval).start().stop)
+
     profiler = None
     if config.trace_path:
         acts = [torch.profiler.ProfilerActivity.CPU]
@@ -279,6 +294,8 @@ def _train(config: TrainerConfig, weight_sink, gc_gate: GarbageCollection) -> Tr
                 state = run.state  # the tenant's adapter: the same step, another state
         wait_s = time.perf_counter() - t_wait
 
+        if exporter is not None:
+            exporter.export(progress.step, batch)
         tokens = int(batch.loss_mask.size)
         mm_seg = batch.mm_vis_seg_ids
         mm_patches = None if mm_seg is None else int((np.asarray(mm_seg) > 0).sum())
@@ -346,6 +363,8 @@ def _train(config: TrainerConfig, weight_sink, gc_gate: GarbageCollection) -> Tr
         monitor.log(record, progress.step)
         records.append(record)
         gc_gate.maybe_collect(progress.step)
+        if metrics_server is not None:
+            metrics_server.update({"step": progress.step, **record})
         logger.info(
             f"step {progress.step}: loss={loss:.4f} kl={record['mismatch_kl']} "
             f"ent={record['entropy']:.3f} tps={perf.tokens_per_sec:,.0f} "

@@ -24,7 +24,11 @@ class Heartbeat:
         return self
 
     def stop(self) -> None:
+        """Stop the pings and wait for the thread (a GET in flight ends
+        within its 10 s timeout)."""
         self._stop.set()
+        if self._thread.is_alive():
+            self._thread.join()
 
     def _run(self) -> None:
         logger = get_logger()

@@ -4,8 +4,8 @@ NVIDIA GPU.
 
     python3 scripts/torch_train_profile.py [--model qwen3|glm5|gpt-oss]
         [--ac-mode none|full|save_attn|offload_attn|offload_dots|selective[/K]]
-        [--seq-len L] [--optimizer adamw_8bit|adamw]
-        [--offload-optimizer] [--offload-params]
+        [--seq-len L] [--optimizer adamw_8bit|adamw|muon|adafactor_mom]
+        [--quantized-compute int8] [--offload-optimizer] [--offload-params]
 
 Builds the train state (random weights from seed 0, bf16 masters, adamw_8bit,
 grad clip 1.0) and takes steps on fake batches, as the trainer does.
@@ -21,7 +21,11 @@ rows of four sequences each. ``--seq-len L`` (qwen3 only): 2 micro-batches
 of [1, L] tokens instead, the long-context shape (upstream prime-rl's
 figures are a micro-batch of one row of L). ``--optimizer adamw`` takes AdamW
 with float32 masters (the example RL config's) in place of adamw_8bit with
-bf16 masters; ``--offload-optimizer`` and ``--offload-params`` put the
+bf16 masters, ``--optimizer muon`` Muon with float32 masters (Newton-Schulz on
+every projection stack, AdamW on the rest) and ``--optimizer adafactor_mom``
+Adafactor with bf16 momentum and bf16 masters; ``--quantized-compute int8``
+runs the MLP products in int8 (``ops/int8_linear.py``; its cuBLASLt products
+are summed apart, as "int8 matrix products"); ``--offload-optimizer`` and ``--offload-params`` put the
 optimizer state and the masters in pinned host memory (the step's update,
 a leaf at a time, then streams them, ``trainer/step.py``; under
 ``--offload-params`` the halves and the micro-batch breakdown below are left
@@ -64,6 +68,12 @@ OURS = {"flash_fwd_kernel": "flash_attn_fwd", "flash_bwd_dq_kernel": "flash_attn
 GROUPED_MARKS = ("grouped", "group_gemm", "GroupProblem")  # the experts' grouped products
 SORT_MARKS = ("sort", "radix")  # the indexer's top-k (and the MoE dispatch's argsort)
 GEMM_MARKS = ("gemm", "cutlass", "xmma", "nvjet", "cublas")
+INT8_MARKS = ("s8", "i8", "imma", "int8")  # with a GEMM mark: cuBLASLt's int8 products
+OPTIMIZERS = {"adamw_8bit": {"type": "adamw_8bit", "lr": 1e-5, "master_dtype": "bfloat16"},
+              "adamw": {"type": "adamw", "lr": 1e-6},
+              "muon": {"type": "muon"},
+              "adafactor_mom": {"type": "adafactor_mom", "lr": 1e-5,
+                                "master_dtype": "bfloat16"}}
 
 
 def halves(state, step, spec, cfg, next_inputs, events, get_family, chunked_logprob_entropy,
@@ -96,7 +106,8 @@ def halves(state, step, spec, cfg, next_inputs, events, get_family, chunked_logp
     e = events(4)
     e[0].record()
     hidden = family.forward(gp, spec, mb.input_ids, mb.segment_ids, mb.position_ids,
-                            remat=cfg.model.ac.mode)
+                            remat=cfg.model.ac.mode,
+                            quantized_compute=cfg.model.quantized_compute)
     e[1].record()
     # the head in the hidden states' dtype, as the step casts it (float32 masters)
     lp, _ = chunked_logprob_entropy(hidden, family.get_lm_head(gp, spec).to(hidden.dtype),
@@ -151,7 +162,8 @@ def main() -> int:
     ap.add_argument("--ac-mode", default="full")
     ap.add_argument("--model", default="qwen3", choices=sorted(SHAPES))
     ap.add_argument("--seq-len", type=int, default=0)
-    ap.add_argument("--optimizer", default="adamw_8bit", choices=("adamw_8bit", "adamw"))
+    ap.add_argument("--optimizer", default="adamw_8bit", choices=sorted(OPTIMIZERS))
+    ap.add_argument("--quantized-compute", default=None, choices=("int8",))
     ap.add_argument("--offload-optimizer", action="store_true")
     ap.add_argument("--offload-params", action="store_true")
     args = ap.parse_args()
@@ -181,9 +193,8 @@ def main() -> int:
     cfg = TrainerConfig(
         device="cuda", seed=SEED, grad_clip=1.0,
         model={"name": model_name, "seq_len": SEQ_LEN, "ac": {"mode": args.ac_mode},
-               "debug": {"random_init": True}},
-        optimizer=({"type": "adamw_8bit", "lr": 1e-5, "master_dtype": "bfloat16"}
-                   if args.optimizer == "adamw_8bit" else {"type": "adamw", "lr": 1e-6}),
+               "debug": {"random_init": True}, "quantized_compute": args.quantized_compute},
+        optimizer=OPTIMIZERS[args.optimizer],
         data={"type": "fake", "seq_len": SEQ_LEN, "micro_batch_size": ROWS,
               "num_micro_batches": N_MB},
         offload_optimizer=args.offload_optimizer, offload_params=args.offload_params)
@@ -247,7 +258,7 @@ def main() -> int:
     host_copies_ms = sum(r[1] for r in rows if "Pinned" in r[0])
     busy_ms = sum(r[1] for r in rows if "Pinned" not in r[0])
     groups = {"expert grouped products": 0.0, "sorts": 0.0, "library matrix products": 0.0,
-              "elementwise, reductions, copies": 0.0}
+              "int8 matrix products": 0.0, "elementwise, reductions, copies": 0.0}
     groups.update({v: 0.0 for v in OURS.values()})
     n_kernels = 0
     for name, ms, count in rows:
@@ -262,7 +273,8 @@ def main() -> int:
         elif any(m in name.lower() for m in SORT_MARKS):
             groups["sorts"] += ms
         elif any(m in name.lower() for m in GEMM_MARKS):
-            groups["library matrix products"] += ms
+            int8 = any(m in name.lower() for m in INT8_MARKS)
+            groups["int8 matrix products" if int8 else "library matrix products"] += ms
         else:
             groups["elementwise, reductions, copies"] += ms
     print(f"{'kernel':70s} {'device ms':>10s} {'share':>7s} {'calls':>6s}")
@@ -303,7 +315,8 @@ def main() -> int:
     result = {
         "card": card, "ac_mode": cfg.model.ac.mode, "tokens_per_step": tokens,
         "seq_len": SEQ_LEN, "micro_batches": N_MB, "rows": ROWS,
-        "optimizer": cfg.optimizer.type, "offload_optimizer": cfg.offload_optimizer,
+        "optimizer": cfg.optimizer.type, "quantized_compute": cfg.model.quantized_compute,
+        "offload_optimizer": cfg.offload_optimizer,
         "offload_params": cfg.offload_params,
         "step_s": wall, "step_s_all": walls, "tokens_per_s": tokens / wall,
         "model": args.model, "layers": spec.num_layers, "routed_experts": spec.num_experts,

@@ -1,5 +1,6 @@
 """Import boundary of the PyTorch port: every module of ``prime_rl_tpu_torch``
-imports with ``jax`` and ``prime_rl_tpu`` made unimportable, the modules of
+imports with ``jax``, ``prime_rl_tpu``, ``optax`` and ``prometheus_client``
+(which the card's machine lacks) made unimportable, the modules of
 the orchestrator's CPU process import without ``torch`` too, and the port's
 inference and trainer configs run on the card unless asked otherwise."""
 
@@ -18,13 +19,16 @@ _CHECK = textwrap.dedent("""
     import importlib, pkgutil, sys
     sys.modules["jax"] = None
     sys.modules["prime_rl_tpu"] = None
+    sys.modules["optax"] = None
+    sys.modules["prometheus_client"] = None
     import prime_rl_tpu_torch
     names = [m.name for m in pkgutil.walk_packages(prime_rl_tpu_torch.__path__,
                                                    "prime_rl_tpu_torch.")]
     for name in names:
         importlib.import_module(name)
     leaked = sorted(m for m in sys.modules
-                    if m.split(".")[0] in ("jax", "jaxlib", "prime_rl_tpu")
+                    if m.split(".")[0] in ("jax", "jaxlib", "prime_rl_tpu", "optax",
+                                           "prometheus_client")
                     and sys.modules[m] is not None)
     assert not leaked, leaked
     from prime_rl_tpu_torch.entrypoints.inference import InferenceConfig
@@ -71,7 +75,10 @@ SFT_MOE_MODULES = ("trainer.sft", "trainer.sft.data", "trainer.sft.train", "entr
                    "configs.trainer",
                    # the serving features' new and changed modules
                    "sampler.constrain", "sampler.server", "sampler.cache", "ops.layers",
-                   "entrypoints.inference")
+                   "entrypoints.inference",
+                   # the trainer features' new and changed modules
+                   "ops.int8_linear", "utils.metrics_server", "trainer.rl.token_export",
+                   "utils.heartbeat", "trainer.optim", "trainer.rl.train", "models.qwen3")
 _CHECK = _CHECK.replace("LOOP_MODULES", repr(LOOP_MODULES)).replace(
     "SFT_MOE_MODULES", repr(SFT_MOE_MODULES))
 

@@ -347,9 +347,12 @@ def test_forward_rejects_what_waits_for_later_slices():
     params = tqwen3.init_params(spec, torch.Generator().manual_seed(0))
     ids = torch.zeros(1, 8, dtype=torch.int64)
     seg = torch.ones(1, 8, dtype=torch.int32)
-    for kw in ({"quantized_compute": "int8"}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError):
-            tqwen3.forward(params, spec, ids, seg, ids, **kw)
+    with pytest.raises(NotImplementedError):
+        tqwen3.forward(params, spec, ids, seg, ids, mesh=object())
+    # int8 compute runs since its slice (held against JAX in
+    # tests/test_torch_int8_linear.py)
+    assert tqwen3.forward(params, spec, ids, seg, ids,
+                          quantized_compute="int8").shape == (1, 8, spec.hidden_size)
     # the offload and selective remat modes run since their slice (the
     # gradients: test_forward_gradients_identical_under_every_remat_mode);
     # a name no JAX family knows raises

@@ -165,10 +165,24 @@ def test_quantizers_match_jax_code_for_code():
 
 
 def test_unported_optimizers_raise():
-    for opt in ({"type": "muon"}, {"type": "adafactor_mom"}):
-        cfg = TrainerConfig(optimizer=opt)
-        with pytest.raises(NotImplementedError):
-            toptim.make_optimizer(cfg.optimizer, cfg.scheduler, 1.0)
+    """``muon`` and ``adafactor_mom`` raised until their slice; now both build
+    and take a train step of the debug model (finite loss, every parameter
+    tensor of the stacks moved, the state's count advanced). Their updates
+    are held against optax and the JAX package in tests/test_torch_optimizers.py."""
+    spec = debug_spec()
+    batch, counts = FakeDataLoader(spec.vocab_size, 64, 2, 2, seed=1).next_batch()
+    for opt in ({"type": "muon"}, {"type": "adafactor_mom", "lr": 1e-3}):
+        cfg = TrainerConfig(model={"attn": {"impl": "xla"}, "compute_dtype": "float32",
+                                   "lm_head_chunk_size": 48}, optimizer=opt)
+        tx, _ = toptim.make_optimizer(cfg.optimizer, cfg.scheduler, 1.0)
+        state = tstep.init_train_state(spec, "cpu", tx, seed=0)
+        before = [t.clone() for t in toptim.tree_leaves(state.params)]
+        step = tstep.make_train_step(spec, cfg.model, cfg.loss, tx, "cpu")
+        state, metrics = step(state, batch, tstep.Scales(float(counts["rl"]), 1.0, 1.0))
+        assert np.isfinite(float(metrics["loss"])) and float(metrics["grad_norm"]) > 0
+        assert all(not torch.equal(a, b) for (path, a), b in
+                   zip(toptim.tree_paths(state.params), before) if path.startswith("layers/"))
+        assert all(st["count"] == 1 for st in state.opt_state if "count" in st)
 
 
 def test_stochastic_round_is_bit_equal_on_the_same_bits_and_unbiased():
@@ -505,10 +519,15 @@ def test_trainer_raises_for_what_waits_for_the_loop_slice(tmp_path, monkeypatch)
         tlogger.reset_logger()
     assert out.state.step == 1 and out.records[0]["rl_tokens"] == 36
     assert np.isfinite(out.records[0]["loss"])
-    for extra in (["--token-export-rows", "2"], ["--metrics-server.enable", "true"],
-                  ["--mesh.fsdp", "2"], ["--model.lora.rank", "4", "--mesh.fsdp", "2"]):
+    for extra in (["--mesh.fsdp", "2"], ["--model.lora.rank", "4", "--mesh.fsdp", "2"]):
         with pytest.raises(NotImplementedError):
             _run(monkeypatch, tmp_path / "x", "--max-steps", "1", *extra)  # a later flag wins
+    # token export and the metrics server run since their slice (held against
+    # JAX in tests/test_torch_trainer_features.py)
+    _run(monkeypatch, tmp_path / "e", "--max-steps", "1", "--token-export-rows", "2",
+         "--metrics-server.enable", "true", "--metrics-server.host", "127.0.0.1",
+         "--metrics-server.port", "0")
+    assert (tmp_path / "e" / "token_export" / "step_0.STABLE").exists()
     # the offload flags run since their slice: the same record as without
     # them (the host tier is the CPU itself here), the collector on again
     import gc
